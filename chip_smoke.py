@@ -1,0 +1,699 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--out DIR] [--profile]
+
+Drives ``rocm_apex_tpu_torch`` only (it imports nothing of JAX or of the
+JAX package) through these phases, in order; any failure exits non-zero:
+
+1. device    the card's name and power limit, as nvidia-smi reports them;
+2. build     every kernel of ``rocm_apex_tpu_torch/csrc`` with nvcc
+             (one process per source, started together);
+3. kernels   each kernel's wrapper on card tensors at the serving shapes,
+             in bf16 and fp32, held against its plain PyTorch version on
+             the same inputs; kernel, plain and library times with CUDA
+             events, and the least time the card could take (bound);
+4. parity    the serving config at full width but 2 layers, fp32 with
+             TF32 off: first-chunk logits and greedy tokens of the engine
+             on the card (kernels) against the engine on the CPU (plain
+             versions), from the same seeded weights;
+5. serve     the full serving config in bf16 (GPT 8 layers, hidden 1024,
+             8 heads, vocab 32768; 8 slots, capacity 1024, budget 256) on
+             32 requests of 64 new tokens, greedy; every kernel's launch
+             count is reset just before the timed run and read after it,
+             and each must be > 0;
+6. report    a ``{"kernels": [...]}`` line, then the device line
+             ``{"ok": true, "device": {...}}`` as the last line.
+
+``--out DIR`` also writes every number and the compiler's register and
+spill report to DIR/chip_smoke.json. ``--profile`` adds a profiled serve
+window that reports the device's busy share.
+
+It needs one CUDA device and nvcc (CUDA_HOME, PATH or /usr/local/cuda).
+"""
+
+import argparse
+import itertools
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
+# the operation rates by input type; a kernel on CUDA cores in fp32 is
+# held to the fp32 rate, one reading bf16 to the bf16 tensor-core rate.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+# the serving config (bench.py serve on the accelerator)
+SERVE = dict(vocab_size=32768, hidden_size=1024, num_layers=8,
+             num_attention_heads=8, max_position_embeddings=1024,
+             tensor_parallel_size=1)
+SLOTS, CAPACITY, BUDGET = 8, 1024, 256
+PROMPT_LENS, PROMPT_P = [32, 64, 128, 256, 768], [0.3, 0.3, 0.2, 0.15, 0.05]
+N_REQUESTS, MAX_NEW = 32, 64
+
+# kernel vs plain version on the same card inputs, each output by its
+# own dtype: |kernel - plain| <= atol + rtol * |plain|. Both compute in
+# fp32 and differ in summation order and exp2-vs-exp only (~1e-6
+# relative), so fp32 outputs (the LN's mixed output, the lse, all of the
+# fp32 cases) are held to atol 1e-4. A bf16 output (the residual stream,
+# the attention o) rounds both fp32 results to 8 mantissa bits, where
+# that noise may flip the last bit: one bf16 ulp is at most 2^-7 of the
+# value, so rtol 2^-7, with atol 1e-5 for the fp32 noise near zero.
+TOL = {torch.float32: dict(rtol=0.0, atol=1e-4),
+       torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5)}
+# the engine's first-chunk logits, card (cuBLAS fp32, no TF32) vs CPU:
+# summation order over K = 1024..4096 through 2 layers, ~1e-5 observed
+# scale on logits of order 1; 1e-3 leaves two orders of margin
+PARITY_LOGIT_ATOL = 1e-3
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, iters, warmup=3):
+    """Mean time of ``fn`` over ``iters`` back-to-back calls, between two
+    CUDA events: the device time, or the host's time to launch a call
+    where that is longer."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+_SLEEP_CYCLES_PER_S = []
+
+
+def device_ms(fn, iters, warmup=3):
+    """Mean device time of ``fn`` over ``iters`` calls, without the
+    host's time to launch them: the stream first spins in a sleep kernel
+    twice as long as the host takes to launch the calls, so the calls
+    queue up behind it and run back to back between the two events.
+    (A call that synchronizes with the host defeats this and is timed
+    with the host's gaps, as `cuda_ms`.)"""
+    if not _SLEEP_CYCLES_PER_S:
+        torch.cuda._sleep(1000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10**7)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_S.append(1e7 / (start.elapsed_time(end) / 1e3))
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    launch_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * launch_s * _SLEEP_CYCLES_PER_S[0]) + 1000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes, ops, dtype):
+    """The least time for the work: bytes over HBM rate or operations
+    over the peak rate of the input type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def max_err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def compare(got, ref):
+    """Kernel outputs against the plain version's, each within `TOL` of
+    its dtype: the worst ratio of error to tolerance (<= 1 passes; NaN
+    fails), the max abs error, and the max |plain| of the first output
+    (the LN's y, the attention's o)."""
+    ratio, err = 0.0, 0.0
+    for g, r in zip(got, ref):
+        if g is None:
+            continue
+        tol = TOL[r.dtype]
+        diff = (g.float() - r.float()).abs()
+        bound = tol["atol"] + tol["rtol"] * r.float().abs()
+        ratio = max(ratio, float((diff / bound).max()))
+        err = max(err, float(diff.max()))
+    return dict(ratio=ratio, err=err,
+                ref_max=float(ref[0].float().abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def ln_cases(dev):
+    from rocm_apex_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for rows in (256, 8):
+        for residual in (False, True):
+            for dt in (torch.bfloat16, torch.float32):
+                h = SERVE["hidden_size"]
+                x = torch.randn(rows, h, device=dev, generator=gen).to(dt)
+                d = (torch.randn(rows, h, device=dev, generator=gen)
+                     .to(dt) if residual else None)
+                w = 1.0 + 0.1 * torch.randn(h, device=dev, generator=gen)
+                b = 0.1 * torch.randn(h, device=dev, generator=gen)
+                out_dt = torch.float32  # the mixed contract: weight dtype
+
+                def kern():
+                    return ln._ln_fwd_impl(x, d, w, b, 1e-5, out_dt)
+
+                def plain():
+                    return ln.layer_norm_fwd_plain(x, d, w, b, 1e-5, out_dt)
+
+                got, ref = kern(), plain()
+                wl, bl = w.to(dt), b.to(dt)
+                lib = None if residual else (
+                    lambda: F.layer_norm(x, (h,), wl, bl, 1e-5))
+                moved = nbytes(x, d, w, b, *got)
+                yield dict(
+                    kernel="layer_norm_fwd",
+                    case=f"{'residual' if residual else 'plain'} "
+                         f"({rows}, {h}) {str(dt)[6:]}",
+                    dtype=dt, cmp=compare(got, ref), kern=kern,
+                    plain=plain, lib=lib, nbytes=moved, ops=8 * rows * h,
+                )
+
+
+def _qkv(t, heads, d, dt, dev, gen):
+    """q/k/v as the model slices them: views of one fused projection
+    (t, heads, 3*d), interleaved per head."""
+    qkv = torch.randn(t, heads, 3 * d, device=dev, generator=gen).to(dt)
+    return qkv.split(d, dim=-1)
+
+
+def chunk_slot_ids(budget, num_slots):
+    """A mixed chunk as the scheduler packs it: slot pieces in slot-scan
+    order (ids not sorted by arrival), a completing tail, then pads
+    carrying the id num_slots."""
+    pieces = [(3, 97), (0, 64), (5, 40), (6, 32)]
+    ids = np.full((budget,), num_slots, np.int32)
+    at = 0
+    for slot, n in pieces:
+        ids[at:at + n] = slot
+        at += n
+    return ids, at
+
+
+def seg_cases(dev):
+    from rocm_apex_tpu_torch.ops import flash_attention_segments as fs
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    h, d = SERVE["num_attention_heads"], SERVE["hidden_size"] // 8
+    ids_np, _ = chunk_slot_ids(BUDGET, SLOTS)
+    seg = torch.from_numpy(ids_np).to(dev)
+    mask = (seg[:, None] == seg[None, :]) & torch.ones(
+        BUDGET, BUDGET, dtype=torch.bool, device=dev).tril()
+    live_pairs = int(mask.sum())
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (x.transpose(0, 1) for x in _qkv(BUDGET, h, d, dt, dev,
+                                                   gen))
+
+        def kern():
+            return fs.flash_attention_segments_with_lse(
+                q, k, v, seg, causal=True)
+
+        def plain():
+            return fs.flash_attention_segments_plain(
+                q, k, v, seg, True, 1.0 / math.sqrt(d))
+
+        got, ref = kern(), plain()
+        qc, kc, vc = (x.contiguous()[None] for x in (q, k, v))
+
+        def lib():
+            return F.scaled_dot_product_attention(qc, kc, vc,
+                                                  attn_mask=mask)
+
+        yield dict(
+            kernel="flash_attention_segments_with_lse",
+            case=f"causal ({h}, {BUDGET}, {d}) {str(dt)[6:]}, 4 slots + pads",
+            dtype=dt, cmp=compare(got, ref), kern=kern, plain=plain,
+            lib=lib, nbytes=nbytes(q, k, v, seg, *got),
+            ops=4 * d * h * live_pairs,
+        )
+
+
+def decode_cases(dev):
+    from rocm_apex_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    h, d = SERVE["num_attention_heads"], SERVE["hidden_size"] // 8
+    # mixed decode bounds min(lengths + 1, capacity): a full slot, an
+    # empty one, long and short prefixes
+    grid_len = torch.tensor([1024, 0, 17, 513, 300, 64, 1000, 129],
+                            dtype=torch.int32, device=dev)
+    chunk_len = torch.tensor([700, 0, 0, 256, 0, 0, 32, 0],
+                             dtype=torch.int32, device=dev)
+    ids_np, _ = chunk_slot_ids(BUDGET, SLOTS)
+    slot_ids = torch.from_numpy(ids_np).to(dev)
+    # the library yardstick reads the cache as (heads, keys, d) copies,
+    # made outside its timing; piece B flattens every slot's keys into
+    # one row of slots * capacity keys, each query masked to its own
+    # slot's prefix
+    key_slot = torch.arange(SLOTS * CAPACITY, device=dev) // CAPACITY
+    key_pos = torch.arange(SLOTS * CAPACITY, device=dev) % CAPACITY
+    for dt in (torch.bfloat16, torch.float32):
+        # 4 caches in turn: 4 x 32 MB (bf16) exceeds the 50 MB L2, so
+        # each launch finds its cache cold, as each layer does in a tick
+        caches = [
+            (torch.randn(SLOTS, CAPACITY, h, d, device=dev,
+                         generator=gen).to(dt),
+             torch.randn(SLOTS, CAPACITY, h, d, device=dev,
+                         generator=gen).to(dt))
+            for _ in range(4)
+        ]
+        for form, rows, lens, ids in (
+            ("decode grid", SLOTS, grid_len, None),
+            ("chunk piece B", BUDGET, chunk_len, slot_ids),
+        ):
+            q, _, _ = _qkv(rows, h, d, dt, dev, gen)
+            turn = [0]
+
+            def kern(q=q, lens=lens, ids=ids):
+                kc, vc = caches[turn[0] % 4]
+                turn[0] += 1
+                return fa.flash_attention_decode(
+                    q, kc, vc, lens, return_lse=True, slot_ids=ids)
+
+            def plain(q=q, lens=lens, ids=ids):
+                kc, vc = caches[0]
+                return fa.flash_attention_decode_plain(
+                    q, kc, vc, lens, 1.0 / math.sqrt(d), ids)
+
+            turn[0] = 0
+            got, ref = kern(), plain()
+            per_row = (lens.long() if ids is None
+                       else torch.where(slot_ids < SLOTS,
+                                        lens.long()[slot_ids.clamp(0, SLOTS - 1)],
+                                        0))
+            keys_read = int(per_row.sum())
+            # each live K/V row once, per head (the bound), not per query
+            slots_live = (lens if ids is None else
+                          lens * torch.isin(torch.arange(SLOTS, device=dev),
+                                            slot_ids).int())
+            kv_bytes = 2 * int(slots_live.sum()) * h * d * q.element_size()
+            if ids is None:  # (slots, heads, capacity, d)
+                tcaches = [(kc.transpose(1, 2).contiguous(),
+                            vc.transpose(1, 2).contiguous())
+                           for kc, vc in caches]
+                amask = (torch.arange(CAPACITY, device=dev)[None, :]
+                         < lens[:, None])[:, None, None, :]
+                qs = q.contiguous()[:, :, None, :]
+            else:  # (1, heads, slots * capacity, d)
+                tcaches = [tuple(c.permute(2, 0, 1, 3)
+                                 .reshape(1, h, SLOTS * CAPACITY, d)
+                                 .contiguous() for c in kv)
+                           for kv in caches]
+                amask = ((ids.long()[:, None] == key_slot[None, :])
+                         & (key_pos < lens.long()[key_slot])[None, :]
+                         )[None, None]
+                qs = q.transpose(0, 1).contiguous()[None]
+            lturn = [0]
+
+            def lib(qs=qs, amask=amask, tcaches=tcaches, lturn=lturn):
+                kt, vt = tcaches[lturn[0] % 4]
+                lturn[0] += 1
+                return F.scaled_dot_product_attention(
+                    qs, kt, vt, attn_mask=amask)
+
+            yield dict(
+                kernel="flash_attention_decode",
+                case=f"{form}: {rows} rows x {h} heads vs ({SLOTS}, "
+                     f"{CAPACITY}, {h}, {d}) {str(dt)[6:]}",
+                dtype=dt, cmp=compare(got, ref), kern=kern, plain=plain,
+                lib=lib, nbytes=(nbytes(q, lens, ids, *got) + kv_bytes),
+                ops=4 * d * h * keys_read,
+            )
+
+
+def run_kernel_phase(dev):
+    """Check and time each case as its generator yields it (the
+    closures read the generator's loop variables)."""
+    out = []
+    for c in itertools.chain(ln_cases(dev), seg_cases(dev),
+                             decode_cases(dev)):
+        cmp = c["cmp"]
+        log(f"  {c['kernel']:<36} {c['case']:<58} max|err| "
+            f"{cmp['err']:.3e}, max|plain y or o| {cmp['ref_max']:.3e}; worst "
+            f"err/tol {cmp['ratio']:.3f} (tol atol + rtol|plain| of each "
+            f"output's dtype)")
+        check(cmp["ratio"] <= 1.0, f"{c['kernel']} {c['case']}: an output "
+              f"differs from its plain version by {cmp['ratio']:.3g}x its "
+              f"tolerance (max abs error {cmp['err']:.3e})")
+        ms = device_ms(c["kern"], 100)
+        call_ms = cuda_ms(c["kern"], 100)
+        plain_ms = device_ms(c["plain"], 10, warmup=1)
+        lib_ms = device_ms(c["lib"], 100) if c["lib"] is not None else None
+        b_ms, b_by = bound_ms(c["nbytes"], c["ops"], c["dtype"])
+        out.append(dict(
+            kernel=c["kernel"], case=c["case"], max_abs_err=cmp["err"],
+            max_abs_out=cmp["ref_max"], err_over_tol=cmp["ratio"], ms=ms,
+            call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by, bytes=c["nbytes"], ops=c["ops"],
+        ))
+        log(f"    kernel {ms:.4f} ms (call {call_ms:.4f})  plain "
+            f"{plain_ms:.4f} ms  library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
+            f"{b_ms:.4f} ms ({b_by})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: the engine
+# ---------------------------------------------------------------------------
+
+
+def serve_prompts(vocab):
+    """bench.py serve's workload: RandomState(0) prompt lengths drawn
+    from PROMPT_LENS with PROMPT_P, uniform token ids."""
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, vocab, size=int(rng.choice(PROMPT_LENS,
+                                                      p=PROMPT_P))).tolist()
+            for _ in range(N_REQUESTS)]
+
+
+def run_parity_phase():
+    from rocm_apex_tpu_torch.convert import from_jax_params, random_params
+    from rocm_apex_tpu_torch.inference import (InferenceEngine, KVCache,
+                                               SamplingParams)
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig(**{**SERVE, "num_layers": 2},
+                    params_dtype=torch.float32, dtype=torch.float32)
+    tree = random_params(cfg, seed=0)
+    models = {dev: from_jax_params(tree, cfg, device=dev)
+              for dev in ("cuda", "cpu")}
+    prompts = serve_prompts(cfg.vocab_size)[:6]
+
+    # first chunk: three prompt pieces out of slot order, then pads
+    toks = np.zeros((BUDGET,), np.int64)
+    slots = np.full((BUDGET,), SLOTS, np.int32)
+    pos = np.zeros((BUDGET,), np.int32)
+    at = 0
+    for slot, p in ((2, prompts[0]), (0, prompts[1]), (5, prompts[2])):
+        n = min(len(p), BUDGET - at)
+        toks[at:at + n], slots[at:at + n] = p[:n], slot
+        pos[at:at + n] = np.arange(n)
+        at += n
+    logits = {}
+    for dev, model in models.items():
+        cache = KVCache.for_model(cfg, SLOTS, CAPACITY, device=dev)
+        out, _ = model(torch.from_numpy(toks).to(dev)[None], cache=cache,
+                       chunk=(torch.from_numpy(slots).to(dev),
+                              torch.from_numpy(pos).to(dev)))
+        logits[dev] = out[0, :at].cpu()
+    err = max_err(logits["cuda"], logits["cpu"])
+    check(bool(torch.isfinite(logits["cuda"]).all()), "nonfinite logits")
+    log(f"  first-chunk logits ({at} rows x {cfg.vocab_size}): max|cuda - "
+        f"cpu| {err:.3e} (atol {PARITY_LOGIT_ATOL:g})")
+    check(err <= PARITY_LOGIT_ATOL, f"parity logits differ by {err:.3e}")
+
+    tokens = {}
+    for dev, model in models.items():
+        eng = InferenceEngine(
+            model, num_slots=SLOTS, capacity=CAPACITY,
+            prefill_token_budget=BUDGET,
+            sampling=SamplingParams(temperature=0.0),
+        )
+        tokens[dev] = [r.tokens for r in eng.generate(prompts,
+                                                       max_new_tokens=8)]
+    same = tokens["cuda"] == tokens["cpu"]
+    log(f"  greedy tokens of {len(prompts)} requests x 8: cuda "
+        f"{'==' if same else '!='} cpu")
+    check(same, f"greedy tokens differ: {tokens}")
+    return dict(logit_max_abs_err=err, requests=len(prompts),
+                tokens_identical=same)
+
+
+def run_serve_phase(profile):
+    from rocm_apex_tpu_torch.convert import from_jax_params, random_params
+    from rocm_apex_tpu_torch.inference import InferenceEngine, SamplingParams
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+    from rocm_apex_tpu_torch.ops._build import KERNELS
+
+    cfg = GPTConfig(**SERVE, params_dtype=torch.float32,
+                    dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = from_jax_params(random_params(cfg, seed=0), cfg, device="cuda")
+    load_s = time.perf_counter() - t0
+    prompts = serve_prompts(cfg.vocab_size)
+    eng = InferenceEngine(
+        model, num_slots=SLOTS, capacity=CAPACITY,
+        prefill_token_budget=BUDGET,
+        sampling=SamplingParams(temperature=0.0),
+    )
+    eng.generate(prompts[:SLOTS], max_new_tokens=3)  # warm-up
+    eng.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.generate(prompts, max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    s = eng.stats()
+    gen = sum(len(r.tokens) for r in results)
+    ticks = int(s["mixed_steps"] + s["decode_only_steps"])
+    check(all(r.finish_reason == "length" and len(r.tokens) == MAX_NEW
+              for r in results), "a request did not run to max_new_tokens")
+    check(s["quarantined"] == 0, "nonfinite logits in the serve run")
+    check(all(0 <= t < cfg.vocab_size for r in results for t in r.tokens),
+          "token id out of range")
+    res = dict(
+        requests=len(results), prompt_tokens=int(s["prompt_tokens"]),
+        generated_tokens=gen, seconds=dt, tokens_per_s=gen / dt,
+        ttft_ms_p50=s["ttft_ms_p50"], ttft_ms_p95=s["ttft_ms_p95"],
+        tpot_ms_p50=float(np.percentile(
+            [c["tpot_ms"] for c in eng.completions], 50)),
+        mixed_ticks=int(s["mixed_steps"]),
+        decode_only_ticks=int(s["decode_only_steps"]),
+        ticks=ticks, mixed_tick_ms=s["prefill_ms_avg"],
+        decode_tick_ms=s["decode_ms_avg"], weights_load_s=load_s,
+        launches=launches,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    log(f"  {gen} tokens in {dt:.3f} s: {gen / dt:.1f} generated tok/s; "
+        f"TTFT p50 {s['ttft_ms_p50']:.1f} ms p95 {s['ttft_ms_p95']:.1f} ms; "
+        f"{ticks} ticks ({res['mixed_ticks']} mixed at "
+        f"{s['prefill_ms_avg']:.2f} ms, {res['decode_only_ticks']} decode-only"
+        f" at {s['decode_ms_avg']:.2f} ms)")
+    log(f"  launches in the timed run: {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+    if profile:
+        res["profile"] = profile_window(eng, prompts)
+    return res
+
+
+def profile_window(eng, prompts):
+    """Device busy share over a short serve window (8 requests, 16 new
+    tokens each): the union of kernel intervals on the card over the
+    window's wall time; the ops with the most device time and the most
+    host (self CPU) time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def ticks():
+        st = eng.stats()
+        return st["mixed_steps"] + st["decode_only_steps"]
+
+    ticks0 = ticks()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompts[:SLOTS], max_new_tokens=16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    )
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy_s = busy / 1e6
+    device_ms, host_ms = {}, {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        if t:
+            device_ms[e.key[:80]] = t / 1e3
+        if e.self_cpu_time_total:
+            host_ms[e.key[:80]] = e.self_cpu_time_total / 1e3
+
+    def top(d):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1])[:12])
+
+    res = dict(wall_s=wall, device_busy_s=busy_s,
+               busy_share=busy_s / wall if spans else None,
+               ticks=int(ticks() - ticks0), top_device_ms=top(device_ms),
+               top_host_self_ms=top(host_ms))
+    log(f"  profiled window: wall {wall:.3f} s, device busy "
+        f"{busy_s:.3f} s ({'not measured' if not spans else f'{busy_s / wall:.1%}'})")
+    return res
+
+
+# ---------------------------------------------------------------------------
+
+
+def smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="directory for chip_smoke.json")
+    ap.add_argument("--profile", action="store_true",
+                    help="add a profiled serve window (device busy share)")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 2
+    try:
+        from rocm_apex_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: the port package is missing ({e}); run from the "
+              f"root of a checkout", file=sys.stderr)
+        return 2
+
+    report = {}
+    log("== device")
+    smi = smi_line()
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    report["nvidia_smi"] = smi
+
+    log("== build")
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    report["build_s"] = time.perf_counter() - t0
+    log(f"  {len(libs)} libraries in {report['build_s']:.1f} s")
+    report["ptxas"] = {}
+    for src, text in _build.build_logs().items():
+        # pair each entry function (mangled name up to its template
+        # arguments) with its register and spill lines
+        fn = None
+        for ln in text.splitlines():
+            if "Compiling entry function" in ln:
+                fn = ln.split("'")[1].split("EEv")[0]
+            elif fn and ("registers" in ln or "spill" in ln):
+                report["ptxas"].setdefault(f"{src} {fn}", []).append(
+                    ln.split(":", 1)[-1].strip())
+    for fn, lines in report["ptxas"].items():
+        log(f"  {fn}: {'; '.join(lines)}")
+
+    dev = torch.device("cuda", 0)
+    log("== kernels (kernel vs plain version on the card)")
+    from rocm_apex_tpu_torch.ops import (flash_attention,  # noqa: F401
+                                         flash_attention_segments,
+                                         layer_norm)
+    report["kernel_cases"] = run_kernel_phase(dev)
+    log("== parity (2 layers, fp32, TF32 off: cuda kernels vs cpu plain)")
+    report["parity"] = run_parity_phase()
+    log("== serve (8 layers, bf16, 32 requests x 64 tokens)")
+    report["serve"] = run_serve_phase(args.profile)
+
+    # one line per kernel: the bf16 case its main path launches most,
+    # with every case in the --out file. In the serve every forward runs
+    # 9 plain and 8 residual LNs, and every tick a decode-grid forward
+    # (8 rows), so the plain (8, 1024) LN and the decode grid lead; the
+    # chunk attention has one form.
+    headline = {
+        "layer_norm_fwd": "plain (8, 1024) bfloat16",
+        "flash_attention_segments_with_lse": "bfloat16",
+        "flash_attention_decode": "decode grid",
+    }
+    kernels = []
+    for k in _build.KERNELS:
+        c = next(c for c in report["kernel_cases"]
+                 if c["kernel"] == k.name and headline[k.name] in c["case"]
+                 and "bfloat16" in c["case"])
+        where, _, _ = k.replaces.partition(" ")
+        kernels.append(dict(
+            name=k.name, route="cuda",
+            source=f"rocm_apex_tpu_torch/csrc/{k.source}",
+            replaces=where, launches=report["serve"]["launches"][k.name],
+            max_abs_err=c["max_abs_err"],
+            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"], library_ms=c["library_ms"],
+            case=c["case"],
+        ))
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+            json.dump(report, f, indent=1)
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,115 @@
+"""The weight bridge: the JAX `GPTModel` param tree into the port's modules.
+
+The JAX package's ``GPTModel.init`` returns ``{'params': {'embedding':
+{...}, 'transformer': {'layer_0': {...}, ..., 'final_layernorm':
+{...}}}}``. The port's module and parameter names follow that tree, so
+each flattened path of the tree (joined with ``.``) is a `GPTModel.state_dict`
+key. `from_jax_params` takes such a tree as numpy arrays (any array with
+``__array__`` works) and loads it, casting each leaf to the dtype the
+port keeps it in (linear and embedding weights in the compute dtype,
+LayerNorm parameters in ``params_dtype``).
+
+`random_params` draws the same tree with numpy from a seed, with the
+JAX model's initializers: normal(``init_method_std``) for the
+embeddings and input projections, the output projections (attention
+``dense`` and ``dense_4h_to_h``) scaled by 1/sqrt(2 * num_layers), zero
+biases, LayerNorm ones and zeros. A machine without JAX builds its
+weights this way.
+"""
+
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from rocm_apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+
+__all__ = ["from_jax_params", "random_params", "flatten_params"]
+
+
+def flatten_params(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """``{'a': {'b': x}}`` -> ``{'a.b': x}``."""
+    flat = {}
+    for name, sub in tree.items():
+        key = f"{prefix}{name}"
+        if isinstance(sub, dict):
+            flat.update(flatten_params(sub, key + "."))
+        else:
+            flat[key] = sub
+    return flat
+
+
+def from_jax_params(
+    tree: Dict[str, Any],
+    cfg: GPTConfig,
+    device: Optional[Union[str, torch.device]] = None,
+) -> GPTModel:
+    """Build a `GPTModel` on ``device`` holding the weights of ``tree``
+    (the JAX model's variables dict, with or without its ``'params'`` level).
+    Raises on a missing or unexpected leaf, or a shape mismatch."""
+    params = tree.get("params", tree)
+    flat = flatten_params(params)
+    model = GPTModel(cfg, device=device)
+    state = model.state_dict()
+    missing = sorted(set(state) - set(flat))
+    extra = sorted(set(flat) - set(state))
+    if missing or extra:
+        raise KeyError(
+            f"param tree does not match GPTModel: missing {missing}, "
+            f"unexpected {extra}"
+        )
+    with torch.no_grad():
+        for key, dst in state.items():
+            src = torch.tensor(np.asarray(flat[key], dtype=np.float32))
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(
+                    f"{key}: shape {tuple(src.shape)} != {tuple(dst.shape)}"
+                )
+            dst.copy_(src.to(dst.dtype))
+    return model
+
+
+def random_params(cfg: GPTConfig, seed: int = 0) -> Dict[str, Any]:
+    """A GPT param tree shaped like the JAX model's, of float32 numpy arrays drawn from
+    ``seed``, with the JAX model's initializers."""
+    rng = np.random.default_rng(seed)
+    h, f, nl = cfg.hidden_size, cfg.ffn_size, cfg.num_layers
+    std = cfg.init_method_std
+    out_std = std / np.sqrt(2.0 * nl)
+
+    def normal(shape, s):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(s))
+
+    def linear(n_in, n_out, s):
+        return {"kernel": normal((n_in, n_out), s),
+                "bias": np.zeros((n_out,), np.float32)}
+
+    def ln():
+        return {"weight": np.ones((h,), np.float32),
+                "bias": np.zeros((h,), np.float32)}
+
+    transformer = {}
+    for i in range(nl):
+        transformer[f"layer_{i}"] = {
+            "input_layernorm": ln(),
+            "self_attention": {
+                "query_key_value": linear(h, 3 * h, std),
+                "dense": linear(h, h, out_std),
+            },
+            "post_attention_layernorm": ln(),
+            "mlp": {
+                "dense_h_to_4h": linear(h, f, std),
+                "dense_4h_to_h": linear(f, h, out_std),
+            },
+        }
+    transformer["final_layernorm"] = ln()
+    return {"params": {
+        "embedding": {
+            "word_embeddings": {"weight": normal((cfg.vocab_size, h), std)},
+            "position_embeddings": normal(
+                (cfg.max_position_embeddings, h), std
+            ),
+        },
+        "transformer": transformer,
+    }}
