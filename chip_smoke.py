@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out DIR] [--profile]
+    python3 chip_smoke.py [--out DIR] [--profile] [--only PHASES]
 
 Drives ``rocm_apex_tpu_torch`` only (it imports nothing of JAX or of the
 JAX package) through these phases, in order; any failure exits non-zero:
@@ -9,10 +9,12 @@ JAX package) through these phases, in order; any failure exits non-zero:
 1. device    the card's name and power limit, as nvidia-smi reports them;
 2. build     every kernel of ``rocm_apex_tpu_torch/csrc`` with nvcc
              (one process per source, started together);
-3. kernels   each kernel's wrapper on card tensors at the serving shapes,
-             in bf16 and fp32, held against its plain PyTorch version on
-             the same inputs; kernel, plain and library times with CUDA
-             events, and the least time the card could take (bound);
+3. kernels   each kernel's wrapper on card tensors at the shapes of the
+             serve and of the training step, in bf16 and fp32, held
+             against its plain PyTorch version on the same inputs
+             (dropout cases included: both draw the same keep bits);
+             kernel, plain and library times with CUDA events, and the
+             least time the card could take (bound);
 4. parity    the serving config at full width but 2 layers, fp32 with
              TF32 off: first-chunk logits and greedy tokens of the engine
              on the card (kernels) against the engine on the CPU (plain
@@ -21,13 +23,24 @@ JAX package) through these phases, in order; any failure exits non-zero:
              8 heads, vocab 32768; 8 slots, capacity 1024, budget 256) on
              32 requests of 64 new tokens, greedy; every kernel's launch
              count is reset just before the timed run and read after it,
-             and each must be > 0;
-6. report    a ``{"kernels": [...]}`` line, then the device line
+             and each serving kernel's must be > 0;
+6. train parity  the training config at full width but 2 layers, S 256,
+             B 2, fp32 with TF32 off, dropout 0: three optimizer steps on
+             the card against the same on the CPU — losses within a
+             stated tolerance, the same skip decisions;
+7. train     the bench.py GPT step in bf16 with fp32 masters (8 layers,
+             hidden 1024, 8 heads, vocab 32768, B 16 x S 1024, dropout
+             0.1, fused linear+CE head, MixedPrecisionAdam under a dynamic
+             LossScaler): 5 warm-up and 20 timed steps on one batch;
+             tokens/s, step ms, losses, peak memory, and each training
+             kernel's wrapper calls per step against the stack's count;
+8. report    a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
-spill report to DIR/chip_smoke.json. ``--profile`` adds a profiled serve
-window that reports the device's busy share.
+spill report to DIR/chip_smoke.json. ``--profile`` adds profiled serve
+and train windows that report the device's busy share. ``--only`` runs a
+subset of the phases (a check of one part; the full run is the smoke).
 
 It needs one CUDA device and nvcc (CUDA_HOME, PATH or /usr/local/cuda).
 """
@@ -59,6 +72,36 @@ SLOTS, CAPACITY, BUDGET = 8, 1024, 256
 PROMPT_LENS, PROMPT_P = [32, 64, 128, 256, 768], [0.3, 0.3, 0.2, 0.15, 0.05]
 N_REQUESTS, MAX_NEW = 32, 64
 
+# the training config (bench.py's GPT step on an accelerator,
+# bench.py:2315-2340): bf16 compute, fp32 masters, dropout 0.1, the fused
+# linear+CE head with the mean loss, MixedPrecisionAdam(1e-4, wd 0.01)
+# under a dynamic LossScaler; 5 warm-up and 20 timed steps on one batch
+TRAIN = dict(vocab_size=32768, hidden_size=1024, num_layers=8,
+             num_attention_heads=8, max_position_embeddings=1024,
+             tensor_parallel_size=1, hidden_dropout=0.1,
+             attention_dropout=0.1)
+TRAIN_BATCH, TRAIN_SEQ = 16, 1024
+TRAIN_WARMUP, TRAIN_STEPS = 5, 20
+# wrapper calls per step of the chained pre-LN stack at 8 layers: one
+# attention forward and backward a layer; 17 LN forwards (layer 0's
+# plain ln1, 8 ln2, 7 chained ln1, the final LN — all but the first
+# with dropout) and as many backwards
+TRAIN_CALLS_PER_STEP = {
+    "flash_attention_qkv_fwd": 8,
+    "flash_attention_qkv_bwd": 8,
+    "layer_norm_fwd": 1,
+    "layer_norm_fwd_dropout": 16,
+    "layer_norm_bwd": 17,
+}
+# train parity, cuda vs cpu: the bench widths at 2 layers, S 256, B 2,
+# fp32 with TF32 off, dropout 0, three steps. Both sides compute in fp32
+# and differ in summation order (~1e-6 relative on the loss); Adam's
+# normalized step can turn that noise into a sign flip on a near-zero
+# gradient element (a full lr step on that element), which moves the
+# next loss by far less than 1e-4 of its value.
+PARITY_TRAIN = dict(num_layers=2, seq=256, batch=2, steps=3)
+PARITY_LOSS_RTOL = 1e-4
+
 # kernel vs plain version on the same card inputs, each output by its
 # own dtype: |kernel - plain| <= atol + rtol * |plain|. Both compute in
 # fp32 and differ in summation order and exp2-vs-exp only (~1e-6
@@ -73,6 +116,11 @@ TOL = {torch.float32: dict(rtol=0.0, atol=1e-4),
 # summation order over K = 1024..4096 through 2 layers, ~1e-5 observed
 # scale on logits of order 1; 1e-3 leaves two orders of margin
 PARITY_LOGIT_ATOL = 1e-3
+
+
+PHASES = ("kernels", "parity", "serve", "train_parity", "train")
+SERVE_KERNELS = ("layer_norm_fwd", "flash_attention_segments_with_lse",
+                 "flash_attention_decode")
 
 
 class SmokeFailure(RuntimeError):
@@ -160,18 +208,21 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def compare(got, ref):
+def compare(got, ref, extra=None):
     """Kernel outputs against the plain version's, each within `TOL` of
-    its dtype: the worst ratio of error to tolerance (<= 1 passes; NaN
-    fails), the max abs error, and the max |plain| of the first output
-    (the LN's y, the attention's o)."""
+    its dtype (plus ``extra[i]``, an added atol for output i where given):
+    the worst ratio of error to tolerance (<= 1 passes; NaN fails), the
+    max abs error, and the max |plain| of the first output (the LN's y,
+    the attention's o or dqkv)."""
     ratio, err = 0.0, 0.0
-    for g, r in zip(got, ref):
+    for i, (g, r) in enumerate(zip(got, ref)):
         if g is None:
             continue
         tol = TOL[r.dtype]
         diff = (g.float() - r.float()).abs()
         bound = tol["atol"] + tol["rtol"] * r.float().abs()
+        if extra is not None and extra[i] is not None:
+            bound = bound + extra[i]
         ratio = max(ratio, float((diff / bound).max()))
         err = max(err, float(diff.max()))
     return dict(ratio=ratio, err=err,
@@ -215,6 +266,8 @@ def ln_cases(dev):
                          f"({rows}, {h}) {str(dt)[6:]}",
                     dtype=dt, cmp=compare(got, ref), kern=kern,
                     plain=plain, lib=lib, nbytes=moved, ops=8 * rows * h,
+                    headline=(rows == 8 and not residual
+                              and dt == torch.bfloat16),
                 )
 
 
@@ -272,7 +325,7 @@ def seg_cases(dev):
             case=f"causal ({h}, {BUDGET}, {d}) {str(dt)[6:]}, 4 slots + pads",
             dtype=dt, cmp=compare(got, ref), kern=kern, plain=plain,
             lib=lib, nbytes=nbytes(q, k, v, seg, *got),
-            ops=4 * d * h * live_pairs,
+            ops=4 * d * h * live_pairs, headline=dt == torch.bfloat16,
         )
 
 
@@ -366,15 +419,181 @@ def decode_cases(dev):
                 dtype=dt, cmp=compare(got, ref), kern=kern, plain=plain,
                 lib=lib, nbytes=(nbytes(q, lens, ids, *got) + kv_bytes),
                 ops=4 * d * h * keys_read,
+                headline=ids is None and dt == torch.bfloat16,
             )
 
 
-def run_kernel_phase(dev):
+def _l1_tol(abs_terms_sum):
+    """Extra atol for an output that is an fp32 sum over many rows (a
+    bias or LayerNorm-parameter gradient): kernel and plain version add
+    the rows in different orders, which moves the sum by up to about
+    sqrt(n) * 2^-24 of the L1 mass of its terms (8e-6 at n = 16384 rows
+    of the training step); 1e-5 of the L1 mass allows that."""
+    return 1e-5 * abs_terms_sum
+
+
+def train_ln_cases(dev):
+    """The LayerNorms of the training step on its (16384, 1024) rows:
+    the residual forward with dropout (16 of the step's 17 forwards),
+    and the backward with the stream cotangent and the regenerated
+    dropout mask (16 of 17) and in the plain affine form (layer 0's
+    ln1)."""
+    from rocm_apex_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows, h = TRAIN_BATCH * TRAIN_SEQ, TRAIN["hidden_size"]
+    rate, seed = TRAIN["hidden_dropout"], 2024
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn(rows, h, device=dev, generator=gen).to(dt)
+        d = torch.randn(rows, h, device=dev, generator=gen).to(dt)
+        # the training state holds LN parameters in the compute dtype
+        w = (1.0 + 0.1 * torch.randn(h, device=dev, generator=gen)).to(dt)
+        b = (0.1 * torch.randn(h, device=dev, generator=gen)).to(dt)
+
+        def fkern(x=x, d=d, w=w, b=b, dt=dt):
+            return ln._ln_fwd_impl(x, d, w, b, 1e-5, dt, rate, seed)
+
+        def fplain(x=x, d=d, w=w, b=b, dt=dt):
+            return ln.layer_norm_fwd_plain(x, d, w, b, 1e-5, dt, rate, seed)
+
+        got = fkern()
+        yield dict(
+            kernel="layer_norm_fwd_dropout",
+            case=f"residual+dropout {rate} ({rows}, {h}) {str(dt)[6:]}",
+            dtype=dt, cmp=compare(got, fplain()), kern=fkern, plain=fplain,
+            lib=None, nbytes=nbytes(x, d, w, b, *got), ops=10 * rows * h,
+            headline=dt == torch.bfloat16, iters=50,
+        )
+        _, s_, mu, rs = got
+        dy = torch.randn(rows, h, device=dev, generator=gen).to(dt)
+        ds = torch.randn(rows, h, device=dev, generator=gen).to(dt)
+        xh = (s_.float() - mu[:, None]) * rs[:, None]
+        forms = [("residual+dropout", ds, rate)]
+        if dt == torch.bfloat16:
+            forms.append(("plain affine", None, 0.0))
+        for form, ds_, r in forms:
+            def bkern(s_=s_, dy=dy, ds_=ds_, mu=mu, rs=rs, w=w, r=r):
+                return ln._layer_norm_bwd(s_, dy, ds_, mu, rs, w, r, seed)
+
+            def bplain(s_=s_, dy=dy, ds_=ds_, mu=mu, rs=rs, w=w, r=r):
+                return ln.layer_norm_bwd_plain(s_, dy, ds_, mu, rs, w, r,
+                                               seed)
+
+            xg = s_.detach().clone().requires_grad_(True)
+            wg = w.detach().clone().requires_grad_(True)
+            bg = b.detach().clone().requires_grad_(True)
+
+            def lib(xg=xg, wg=wg, bg=bg, dy=dy):
+                xg.grad = wg.grad = bg.grad = None
+                F.layer_norm(xg, (h,), wg, bg, 1e-5).backward(dy)
+
+            got = bkern()
+            extra = [None, None, _l1_tol((dy.float() * xh).abs().sum(0)),
+                     _l1_tol(dy.float().abs().sum(0))]
+            yield dict(
+                kernel="layer_norm_bwd",
+                case=f"{form} ({rows}, {h}) {str(dt)[6:]}",
+                dtype=dt, cmp=compare(got, bplain(), extra), kern=bkern,
+                plain=bplain, lib=lib,
+                nbytes=nbytes(s_, dy, ds_, mu, rs, w, *got),
+                ops=14 * rows * h,
+                headline=form != "plain affine" and dt == torch.bfloat16,
+                iters=50,
+            )
+
+
+def flash_cases(dev):
+    """The packed-QKV attention of the training step, forward and
+    backward: (B 16, S 1024, 8 heads, 3 x 128) bf16 with the projection
+    bias and dropout 0.1 (the step's form), without bias or dropout, an
+    S that is not a multiple of the 64-row tile (causal and not), and an
+    fp32 case. The library yardstick is SDPA on the biased q/k/v in (B,
+    nh, S, hd), forward, and forward + backward through autograd."""
+    from rocm_apex_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    nh = TRAIN["num_attention_heads"]
+    hd = TRAIN["hidden_size"] // nh
+    scale, seed = 1.0 / math.sqrt(hd), 77
+    for B, S, dt, with_bias, rate, causal in (
+        (TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16, True, 0.1, True),
+        (TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16, False, 0.0, True),
+        (TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16, True, 0.0, True),
+        (4, 1000, torch.bfloat16, True, 0.1, True),
+        (4, 1000, torch.bfloat16, True, 0.1, False),
+        (4, TRAIN_SEQ, torch.float32, True, 0.1, True),
+    ):
+        qkv = torch.randn(B, S, nh, 3 * hd, device=dev, generator=gen).to(dt)
+        bias = ((0.1 * torch.randn(nh * 3 * hd, device=dev, generator=gen))
+                .to(dt) if with_bias else None)
+        do = torch.randn(B, S, nh * hd, device=dev, generator=gen).to(dt)
+        name = (f"{'bias' if with_bias else 'no bias'}, dropout {rate}, "
+                f"{'causal' if causal else 'not causal'}, "
+                f"({B}, {S}, {nh}, {3 * hd}) {str(dt)[6:]}")
+        headline = with_bias and rate > 0.0 and S == TRAIN_SEQ and (
+            dt == torch.bfloat16)
+        # the (query, key) pairs attended
+        pairs = B * nh * (S * (S + 1) // 2 if causal else S * S)
+
+        def fkern(qkv=qkv, bias=bias, rate=rate, causal=causal):
+            return fa._flash_fwd(qkv, bias, causal, scale, rate, seed)
+
+        def fplain(qkv=qkv, bias=bias, rate=rate, causal=causal):
+            return fa.flash_qkv_fwd_plain(qkv, bias, causal, scale, rate,
+                                          seed)
+
+        x = qkv if bias is None else qkv + bias.view(nh, 3 * hd)
+        q, k, v = (t.contiguous() for t in
+                   x.permute(0, 2, 1, 3).split(hd, dim=-1))
+
+        def flib(q=q, k=k, v=v, rate=rate, causal=causal):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  dropout_p=rate)
+
+        o, lse = fkern()
+        yield dict(
+            kernel="flash_attention_qkv_fwd", case=name, dtype=dt,
+            cmp=compare((o, lse), fplain()), kern=fkern, plain=fplain,
+            lib=flib, nbytes=nbytes(qkv, bias, o, lse), ops=4 * hd * pairs,
+            headline=headline, iters=10, plain_iters=2,
+        )
+
+        def bkern(qkv=qkv, bias=bias, o=o, lse=lse, do=do, rate=rate,
+                  causal=causal):
+            return fa._flash_bwd(qkv, bias, o, lse, do, causal, scale, rate,
+                                 seed)
+
+        def bplain(qkv=qkv, bias=bias, o=o, lse=lse, do=do, rate=rate,
+                   causal=causal):
+            return fa.flash_qkv_bwd_plain(qkv, bias, o, lse, do, causal,
+                                          scale, rate, seed)
+
+        qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        do_h = do.view(B, S, nh, hd).permute(0, 2, 1, 3).contiguous()
+
+        def blib(qg=qg, kg=kg, vg=vg, do_h=do_h, rate=rate, causal=causal):
+            qg.grad = kg.grad = vg.grad = None
+            F.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=causal, dropout_p=rate).backward(do_h)
+
+        got = bkern()
+        ref = bplain()
+        extra = [None, None if bias is None else _l1_tol(
+            ref[0].float().abs().sum(dim=(0, 1)).reshape(-1))]
+        yield dict(
+            kernel="flash_attention_qkv_bwd", case=name, dtype=dt,
+            cmp=compare(got, ref, extra), kern=bkern, plain=bplain, lib=blib,
+            nbytes=nbytes(qkv, bias, o, lse, do, *got), ops=10 * hd * pairs,
+            headline=headline, iters=5, plain_iters=2,
+        )
+
+
+def run_kernel_phase(dev, generators):
     """Check and time each case as its generator yields it (the
     closures read the generator's loop variables)."""
     out = []
-    for c in itertools.chain(ln_cases(dev), seg_cases(dev),
-                             decode_cases(dev)):
+    for c in itertools.chain(*(g(dev) for g in generators)):
         cmp = c["cmp"]
         log(f"  {c['kernel']:<36} {c['case']:<58} max|err| "
             f"{cmp['err']:.3e}, max|plain y or o| {cmp['ref_max']:.3e}; worst "
@@ -383,16 +602,19 @@ def run_kernel_phase(dev):
         check(cmp["ratio"] <= 1.0, f"{c['kernel']} {c['case']}: an output "
               f"differs from its plain version by {cmp['ratio']:.3g}x its "
               f"tolerance (max abs error {cmp['err']:.3e})")
-        ms = device_ms(c["kern"], 100)
-        call_ms = cuda_ms(c["kern"], 100)
-        plain_ms = device_ms(c["plain"], 10, warmup=1)
-        lib_ms = device_ms(c["lib"], 100) if c["lib"] is not None else None
+        iters = c.get("iters", 100)
+        ms = device_ms(c["kern"], iters)
+        call_ms = cuda_ms(c["kern"], iters)
+        plain_ms = device_ms(c["plain"], c.get("plain_iters", 10), warmup=1)
+        lib_ms = (device_ms(c["lib"], iters) if c["lib"] is not None
+                  else None)
         b_ms, b_by = bound_ms(c["nbytes"], c["ops"], c["dtype"])
         out.append(dict(
             kernel=c["kernel"], case=c["case"], max_abs_err=cmp["err"],
             max_abs_out=cmp["ref_max"], err_over_tol=cmp["ratio"], ms=ms,
             call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=b_ms, bound_by=b_by, bytes=c["nbytes"], ops=c["ops"],
+            headline=c["headline"],
         ))
         log(f"    kernel {ms:.4f} ms (call {call_ms:.4f})  plain "
             f"{plain_ms:.4f} ms  library "
@@ -525,30 +747,28 @@ def run_serve_phase(profile):
         f"{s['prefill_ms_avg']:.2f} ms, {res['decode_only_ticks']} decode-only"
         f" at {s['decode_ms_avg']:.2f} ms)")
     log(f"  launches in the timed run: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the serving path")
     if profile:
-        res["profile"] = profile_window(eng, prompts)
+        res["profile"] = profile_window(
+            lambda: eng.generate(prompts[:SLOTS], max_new_tokens=16),
+            f"serve: {SLOTS} requests x 16 new tokens")
     return res
 
 
-def profile_window(eng, prompts):
-    """Device busy share over a short serve window (8 requests, 16 new
-    tokens each): the union of kernel intervals on the card over the
-    window's wall time; the ops with the most device time and the most
-    host (self CPU) time."""
+def profile_window(run, what):
+    """Device busy share over a short window of ``run()`` (``what`` says
+    what it runs): the union of kernel intervals on the
+    card over the window's wall time; the ops with the most device time
+    and the most host (self CPU) time."""
     from torch.profiler import ProfilerActivity, profile
 
-    def ticks():
-        st = eng.stats()
-        return st["mixed_steps"] + st["decode_only_steps"]
-
-    ticks0 = ticks()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.generate(prompts[:SLOTS], max_new_tokens=16)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted(
@@ -564,24 +784,151 @@ def profile_window(eng, prompts):
             busy += b - end
             end = b
     busy_s = busy / 1e6
+    # device time by kernel (the kernels' own intervals, so nothing is
+    # counted twice) and host self time by op
     device_ms, host_ms = {}, {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            key = e.name[:80]
+            device_ms[key] = device_ms.get(key, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
     for e in prof.key_averages():
-        t = getattr(e, "device_time_total", 0) or getattr(
-            e, "cuda_time_total", 0)
-        if t:
-            device_ms[e.key[:80]] = t / 1e3
         if e.self_cpu_time_total:
             host_ms[e.key[:80]] = e.self_cpu_time_total / 1e3
 
-    def top(d):
-        return dict(sorted(d.items(), key=lambda kv: -kv[1])[:12])
+    def top(d, n=12):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1])[:n])
 
     res = dict(wall_s=wall, device_busy_s=busy_s,
                busy_share=busy_s / wall if spans else None,
-               ticks=int(ticks() - ticks0), top_device_ms=top(device_ms),
+               window=what, top_device_ms=top(device_ms, 24),
                top_host_self_ms=top(host_ms))
-    log(f"  profiled window: wall {wall:.3f} s, device busy "
+    log(f"  profiled window ({what}): wall {wall:.3f} s, device busy "
         f"{busy_s:.3f} s ({'not measured' if not spans else f'{busy_s / wall:.1%}'})")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the training step
+# ---------------------------------------------------------------------------
+
+
+def _train_batch(cfg, batch, seq):
+    """bench.py's batch: uniform token ids from a seeded generator
+    (numpy here), labels the tokens shifted by one."""
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int64)
+    return torch.from_numpy(tokens), torch.from_numpy(np.roll(tokens, -1, 1))
+
+
+def _trainer(cfg, device, lr):
+    from rocm_apex_tpu_torch.amp import LossScaler
+    from rocm_apex_tpu_torch.convert import (random_params,
+                                             train_state_from_jax_params)
+    from rocm_apex_tpu_torch.optimizers import MixedPrecisionAdam
+    from rocm_apex_tpu_torch.train import make_train_step
+
+    opt = MixedPrecisionAdam(lr, weight_decay=0.01, compute_dtype=cfg.dtype)
+    scaler = LossScaler("dynamic")
+    model, state = train_state_from_jax_params(
+        random_params(cfg, seed=0), cfg, opt, device=device)
+    return (make_train_step(model, opt, scaler), state,
+            scaler.init(model.device))
+
+
+def run_train_parity_phase():
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig(**{**TRAIN, "num_layers": PARITY_TRAIN["num_layers"],
+                       "hidden_dropout": 0.0, "attention_dropout": 0.0},
+                    params_dtype=torch.float32, dtype=torch.float32)
+    tokens, labels = _train_batch(cfg, PARITY_TRAIN["batch"],
+                                  PARITY_TRAIN["seq"])
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        step, state, sstate = _trainer(cfg, dev, 1e-4)
+        losses, skips = [], []
+        for _ in range(PARITY_TRAIN["steps"]):
+            over = sstate.overflows
+            state, sstate, loss = step(state, sstate, tokens, labels)
+            losses.append(float(loss))
+            skips.append(int(sstate.overflows - over))
+        runs[dev] = (losses, skips)
+    (lc, sc), (lp, sp) = runs["cuda"], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    log(f"  losses cuda {lc}, cpu {lp}: max relative difference {rel:.3e} "
+        f"(rtol {PARITY_LOSS_RTOL:g}); skipped steps cuda {sc}, cpu {sp}")
+    check(all(math.isfinite(x) for x in lc + lp), "nonfinite parity loss")
+    check(rel <= PARITY_LOSS_RTOL, f"train losses differ by {rel:.3e}")
+    check(sc == sp, f"skip decisions differ: cuda {sc}, cpu {sp}")
+    return dict(losses_cuda=lc, losses_cpu=lp, max_rel_diff=rel,
+                skips_cuda=sc, skips_cpu=sp)
+
+
+def run_train_phase(profile):
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+    from rocm_apex_tpu_torch.ops._build import KERNELS
+
+    cfg = GPTConfig(**TRAIN, params_dtype=torch.float32,
+                    dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    step, state, sstate = _trainer(cfg, "cuda", 1e-4)
+    setup_s = time.perf_counter() - t0
+    tokens, labels = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens, labels = tokens.cuda(), labels.cuda()
+    gen = torch.Generator().manual_seed(0)  # CPU: the dropout seeds
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        state, sstate, loss = step(state, sstate, tokens, labels,
+                                   dropout_generator=gen)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, sstate, loss = step(state, sstate, tokens, labels,
+                                   dropout_generator=gen)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    losses = [float(x) for x in losses]
+    scale = float(sstate.loss_scale)
+    overflows = int(sstate.overflows)
+    res = dict(
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, seconds=dt,
+        step_ms=1e3 * dt / TRAIN_STEPS,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / dt,
+        loss_first=losses[0], loss_last=losses[-1], losses=losses,
+        loss_scale=scale, overflows=overflows, setup_s=setup_s,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches,
+        calls_per_step={k: launches[k] / TRAIN_STEPS
+                        for k in TRAIN_CALLS_PER_STEP},
+    )
+    log(f"  {TRAIN_STEPS} steps of B {TRAIN_BATCH} x S {TRAIN_SEQ}: "
+        f"{res['step_ms']:.2f} ms/step, {res['tokens_per_s']:.1f} tokens/s; "
+        f"loss {losses[0]:.4f} (first) -> {losses[-1]:.4f} (last); loss "
+        f"scale {scale:g}, {overflows} overflows; peak "
+        f"{res['peak_mem_gib']:.2f} GiB")
+    log(f"  wrapper calls per step: {res['calls_per_step']} (expected "
+        f"{TRAIN_CALLS_PER_STEP})")
+    check(all(math.isfinite(x) for x in losses), "nonfinite training loss")
+    check(losses[-1] < losses[0], "the training loss did not fall")
+    check(scale >= 2.0**12, f"the loss scale collapsed to {scale:g}")
+    for name, want in TRAIN_CALLS_PER_STEP.items():
+        check(launches[name] == want * TRAIN_STEPS,
+              f"{name}: {launches[name]} calls in {TRAIN_STEPS} steps, "
+              f"expected {want} per step")
+    if profile:
+        res["profile"] = profile_window(
+            lambda: [step(state, sstate, tokens, labels,
+                          dropout_generator=gen) for _ in range(3)],
+            "3 train steps")
     return res
 
 
@@ -602,7 +949,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for chip_smoke.json")
     ap.add_argument("--profile", action="store_true",
-                    help="add a profiled serve window (device busy share)")
+                    help="add profiled serve and train windows (device "
+                         "busy share)")
+    ap.add_argument("--only", help="comma-separated subset of the phases "
+                    f"{','.join(PHASES)} (default: all)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -644,40 +994,60 @@ def main(argv=None):
         log(f"  {fn}: {'; '.join(lines)}")
 
     dev = torch.device("cuda", 0)
-    log("== kernels (kernel vs plain version on the card)")
+    phases = PHASES if args.only is None else args.only.split(",")
     from rocm_apex_tpu_torch.ops import (flash_attention,  # noqa: F401
                                          flash_attention_segments,
                                          layer_norm)
-    report["kernel_cases"] = run_kernel_phase(dev)
-    log("== parity (2 layers, fp32, TF32 off: cuda kernels vs cpu plain)")
-    report["parity"] = run_parity_phase()
-    log("== serve (8 layers, bf16, 32 requests x 64 tokens)")
-    report["serve"] = run_serve_phase(args.profile)
-
-    # one line per kernel: the bf16 case its main path launches most,
-    # with every case in the --out file. In the serve every forward runs
-    # 9 plain and 8 residual LNs, and every tick a decode-grid forward
-    # (8 rows), so the plain (8, 1024) LN and the decode grid lead; the
-    # chunk attention has one form.
-    headline = {
-        "layer_norm_fwd": "plain (8, 1024) bfloat16",
-        "flash_attention_segments_with_lse": "bfloat16",
-        "flash_attention_decode": "decode grid",
+    runs = {
+        "kernels": ("kernels (kernel vs plain version on the card)",
+                    lambda: run_kernel_phase(
+                        dev, (ln_cases, seg_cases, decode_cases,
+                              train_ln_cases, flash_cases))),
+        "parity": ("parity (2 layers, fp32, TF32 off: cuda kernels vs cpu "
+                   "plain)", run_parity_phase),
+        "serve": ("serve (8 layers, bf16, 32 requests x 64 tokens)",
+                  lambda: run_serve_phase(args.profile)),
+        "train_parity": ("train parity (2 layers, S 256, B 2, fp32, TF32 "
+                         "off: 3 steps cuda vs cpu)", run_train_parity_phase),
+        "train": (f"train (8 layers, bf16, B {TRAIN_BATCH} x S {TRAIN_SEQ}, "
+                  f"dropout 0.1: {TRAIN_WARMUP} warm-up + {TRAIN_STEPS} "
+                  f"timed steps)", lambda: run_train_phase(args.profile)),
     }
+    report["phase_s"] = {}
+    for phase in PHASES:
+        if phase not in phases:
+            continue
+        title, run = runs[phase]
+        log(f"== {title}")
+        t0 = time.perf_counter()
+        report["kernel_cases" if phase == "kernels" else phase] = run()
+        report["phase_s"][phase] = time.perf_counter() - t0
+        log(f"  ({report['phase_s'][phase]:.1f} s)")
+
+    # one line per kernel: its headline case (the bf16 case its path
+    # launches most), every case in the --out file, and its launches in
+    # the run of its path (the serve for the serving kernels, the timed
+    # train steps for the training ones; the plain LN forward runs on
+    # both and reports the serve, whose shape heads it). In the serve
+    # every forward runs 9 plain and 8 residual LNs and every tick a
+    # decode-grid forward (8 rows), so the plain (8, 1024) LN and the
+    # decode grid lead; in training the dropout forms lead.
     kernels = []
     for k in _build.KERNELS:
-        c = next(c for c in report["kernel_cases"]
-                 if c["kernel"] == k.name and headline[k.name] in c["case"]
-                 and "bfloat16" in c["case"])
+        c = next((c for c in report.get("kernel_cases", [])
+                  if c["kernel"] == k.name and c["headline"]), {})
+        path = "train" if k.name in TRAIN_CALLS_PER_STEP and (
+            k.name != "layer_norm_fwd") else "serve"
         where, _, _ = k.replaces.partition(" ")
         kernels.append(dict(
             name=k.name, route="cuda",
             source=f"rocm_apex_tpu_torch/csrc/{k.source}",
-            replaces=where, launches=report["serve"]["launches"][k.name],
-            max_abs_err=c["max_abs_err"],
-            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], library_ms=c["library_ms"],
-            case=c["case"],
+            replaces=where,
+            launches=report.get(path, {}).get("launches", {}).get(k.name),
+            max_abs_err=c.get("max_abs_err"), ms=c.get("ms"),
+            plain_ms=c.get("plain_ms"), bound_ms=c.get("bound_ms"),
+            bound_by=c.get("bound_by"), library_ms=c.get("library_ms"),
+            case=c.get("case"), path=path,
         ))
     if args.out:
         os.makedirs(args.out, exist_ok=True)

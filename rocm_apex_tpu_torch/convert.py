@@ -7,7 +7,9 @@ each flattened path of the tree (joined with ``.``) is a `GPTModel.state_dict`
 key. `from_jax_params` takes such a tree as numpy arrays (any array with
 ``__array__`` works) and loads it, casting each leaf to the dtype the
 port keeps it in (linear and embedding weights in the compute dtype,
-LayerNorm parameters in ``params_dtype``).
+LayerNorm parameters in ``params_dtype``). `train_state_from_jax_params`
+builds the training state instead: fp32 masters from the tree and the
+model's parameters (all of them) in the compute dtype.
 
 `random_params` draws the same tree with numpy from a seed, with the
 JAX model's initializers: normal(``init_method_std``) for the
@@ -17,14 +19,19 @@ biases, LayerNorm ones and zeros. A machine without JAX builds its
 weights this way.
 """
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from rocm_apex_tpu_torch.models.gpt import GPTConfig, GPTModel
 
-__all__ = ["from_jax_params", "random_params", "flatten_params"]
+__all__ = [
+    "from_jax_params",
+    "random_params",
+    "flatten_params",
+    "train_state_from_jax_params",
+]
 
 
 def flatten_params(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -67,6 +74,24 @@ def from_jax_params(
                 )
             dst.copy_(src.to(dst.dtype))
     return model
+
+
+def train_state_from_jax_params(
+    tree: Dict[str, Any],
+    cfg: GPTConfig,
+    opt,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Tuple[GPTModel, Any]:
+    """``(model, state)`` for training from the JAX param tree: ``state =
+    opt.init(fp32 leaves of the tree, model)`` (a `MixedPrecisionAdam`),
+    so the masters are the tree's values exactly and every model
+    parameter holds its master cast to the optimizer's compute dtype."""
+    model = from_jax_params(tree, cfg, device=device)
+    params = {
+        k: torch.tensor(np.asarray(v, dtype=np.float32), device=model.device)
+        for k, v in flatten_params(tree.get("params", tree)).items()
+    }
+    return model, opt.init(params, model)
 
 
 def random_params(cfg: GPTConfig, seed: int = 0) -> Dict[str, Any]:

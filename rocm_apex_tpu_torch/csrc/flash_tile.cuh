@@ -1,0 +1,112 @@
+// Shared pieces of the packed-QKV flash-attention forward (flash_fwd.cu)
+// and backward (flash_bwd.cu): tile geometry, the tile loader that reads
+// q/k/v straight out of the fused projection, and the masking rule.
+//
+// Layouts (those of rocm_apex_tpu/ops/flash_attention.py's packed path):
+//   qkv   (B, S, nh, 3*hd): per head, q | k | v columns; read in place
+//   bias  (nh*3*hd,) or null: added to q/k/v as a tile is loaded
+//   o, do (B, S, nh*hd)
+//   lse   (B*nh, S) fp32, natural log
+// Grid row bh = b * nh + h, as on the TPU.
+//
+// Tiles are 64 query rows x 64 keys x hd = 128 in both paths. The rest
+// serves the fp32 kernels, which run the products on the CUDA cores:
+// tiles are staged in shared memory as fp32; 256 threads form a 16 x 16
+// grid (tx = tid % 16, ty = tid / 16); a thread owns rows ty + 16 i and
+// columns tx + 16 j of a 64 x 64 score tile, so a row's 64 scores sit in
+// one half-warp and its softmax reductions are 4 shuffles. Operand rows
+// are padded to 129 floats so the column-strided reads hit distinct
+// banks. (The bf16 kernels' tensor-core helpers are in mma.cuh.)
+#pragma once
+
+#include "common.cuh"
+#include "dropout.cuh"
+
+namespace apex_port {
+
+constexpr int kHd = 128;     // head_dim the kernels take
+constexpr int kTile = 64;    // query rows and keys per tile
+constexpr int kLd = kHd + 1; // padded operand row (floats)
+constexpr int kLdP = kTile + 1;
+constexpr int kThreads = 256;
+
+struct FlashShape {
+  int B, S, nh;
+  int causal;
+  int drop;
+  uint32_t seed, thr;
+  float keep_scale;  // 1 / (1 - rate)
+};
+
+// Load rows [r0, r0 + 64) of one (b, h) fp32 head into dst (64 x ld
+// floats): element (r, c) is src[(r0 + r) * row_stride + c] (+ bias[c])
+// times `mul`, and 0 for rows at or past S. Each thread reads 16-byte
+// vectors: the wrappers pass 16-byte aligned tensors and every row and
+// column offset is a multiple of 4 elements.
+__device__ __forceinline__ void load_tile(float* __restrict__ dst, int ld,
+                                          const float* __restrict__ src,
+                                          int64_t row_stride,
+                                          const float* __restrict__ bias,
+                                          int r0, int S, float mul) {
+  constexpr int kVec = 4;
+  constexpr int kPerRow = kHd / kVec;
+  for (int idx = threadIdx.x; idx < kTile * kPerRow; idx += kThreads) {
+    const int r = idx / kPerRow;
+    const int c = (idx % kPerRow) * kVec;
+    const int row = r0 + r;
+    float v[kVec];
+    if (row < S) {
+      load_vec<float, kVec>(src + row * row_stride + c, v);
+      if (bias != nullptr) {
+        float bv[kVec];
+        load_vec<float, kVec>(bias + c, bv);
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) v[i] += bv[i];
+      }
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) v[i] *= mul;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) v[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) dst[r * ld + c + i] = v[i];
+  }
+}
+
+// The one masking rule of every pass: key `col` is attended by query
+// `row` iff both are inside the sequence and, when causal, col <= row.
+__device__ __forceinline__ bool attends(const FlashShape& sh, int row,
+                                        int col) {
+  return row < sh.S && col < sh.S && !(sh.causal && col > row);
+}
+
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+// The projection's q/k/v column block `part` (0, 1, 2) of head h in
+// batch b, as a (S, hd) matrix with row stride nh * 3 * hd.
+template <typename T>
+__device__ __forceinline__ const T* qkv_part(const T* qkv, const FlashShape& sh,
+                                             int b, int h, int part) {
+  return qkv + (static_cast<int64_t>(b) * sh.S * sh.nh + h) * 3 * kHd +
+         part * kHd;
+}
+
+template <typename T>
+__device__ __forceinline__ const T* bias_part(const T* bias, int h,
+                                              int part) {
+  return bias == nullptr ? nullptr : bias + (h * 3 + part) * kHd;
+}
+
+}  // namespace apex_port

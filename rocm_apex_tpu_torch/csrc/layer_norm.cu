@@ -1,27 +1,52 @@
-// Row LayerNorm forward, plain or with the fused residual add, for
-// Hopper (sm_90a).
+// Row LayerNorm forward (plain, residual, residual with dropout on the
+// delta) and its backward, for Hopper (sm_90a).
 //
-// Replaces rocm_apex_tpu/ops/layer_norm.py:78 `_ln_fwd_kernel` (forward,
-// no dropout). Per row of a (rows, hidden) view: s = x (+ delta), in
-// fp32; y = (s - mean) * rsqrt(var + eps) (* gamma + beta), with the
+// Forward: replaces rocm_apex_tpu/ops/layer_norm.py:78 `_ln_fwd_kernel`.
+// Per row of a (rows, hidden) view: s = x (+ keep * delta / (1 - rate)),
+// in fp32; y = (s - mean) * rsqrt(var + eps) (* gamma + beta), with the
 // two-pass mean-then-centred-variance statistics of the TPU kernel. The
-// residual form also writes s in the stream dtype; the statistics use the
-// fp32 sum, not the rounded s, as the TPU kernel does. mean and rsigma
-// are written for the backward of the training slice.
+// residual forms also write s in the stream dtype; the statistics use
+// the fp32 sum, not the rounded s, as the TPU kernel does. The keep bit
+// of element (row, c) is dropout.cuh's hash of (seed, 0, row, c).
+//
+// Backward: replaces rocm_apex_tpu/ops/layer_norm.py:204 `_ln_bwd_kernel`.
+// With x̂ = (s - mean) * rsigma and g = dy * gamma:
+//   dx = rsigma * (g - mean(g) - x̂ * mean(g * x̂))  (+ ds, the stream's
+//   cotangent), dd = keep * dx / (1 - rate) with the forward's bits
+//   regenerated, dgamma = sum_rows dy * x̂, dbeta = sum_rows dy.
+// dgamma/dbeta are reduced in two stages in fp32, as on the TPU: each
+// block sums its rows into per-warp shared-memory columns, adds the warps
+// in a fixed order and writes one partial row; `ln_bwd_reduce` adds the
+// partials in a fixed order. No atomics, so the result is the same run
+// to run.
 //
 // Bound: bytes (a handful of FLOPs per element). One warp per row; the
 // 32 lanes stride over the row so every pass is a coalesced warp load.
-// The second and third passes re-read the row, which at hidden 1024 is
-// 2-4 KB and still in L1, so device memory sees each input once.
+// The later passes re-read the row, which at hidden 1024 is 2-4 KB per
+// input and still in L1, so device memory sees each input once.
 #include "common.cuh"
+#include "dropout.cuh"
 
 namespace apex_port {
 
+struct Dropout {
+  int on;
+  uint32_t seed;
+  uint32_t thr;
+  float scale;  // 1 / (1 - rate)
+};
+
 template <typename T>
 __device__ __forceinline__ float row_value(const T* __restrict__ x,
-                                           const T* __restrict__ d, int c) {
+                                           const T* __restrict__ d, int c,
+                                           const Dropout& drop,
+                                           uint32_t row_key) {
   float v = to_float(x[c]);
-  if (d != nullptr) v += to_float(d[c]);
+  if (d != nullptr) {
+    float dv = to_float(d[c]);
+    if (drop.on) dv = keep_bit(row_key, c, drop.thr) ? dv * drop.scale : 0.f;
+    v += dv;
+  }
   return v;
 }
 
@@ -31,17 +56,18 @@ __global__ void __launch_bounds__(128)
                   const W* __restrict__ gamma, const W* __restrict__ beta,
                   Y* __restrict__ y, T* __restrict__ s,
                   float* __restrict__ mean, float* __restrict__ rsigma,
-                  int rows, int hidden, float eps) {
+                  int rows, int hidden, float eps, Dropout drop) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // uniform per warp
   const int64_t off = static_cast<int64_t>(row) * hidden;
   const T* xr = x + off;
   const T* dr = delta != nullptr ? delta + off : nullptr;
+  const uint32_t key = dropout_row_key(drop.seed, 0u, row);
 
   float sum = 0.f;
   for (int c = lane; c < hidden; c += 32) {
-    const float v = row_value(xr, dr, c);
+    const float v = row_value(xr, dr, c, drop, key);
     if (s != nullptr) s[off + c] = from_float<T>(v);
     sum += v;
   }
@@ -49,14 +75,14 @@ __global__ void __launch_bounds__(128)
 
   float sq = 0.f;
   for (int c = lane; c < hidden; c += 32) {
-    const float t = row_value(xr, dr, c) - mu;
+    const float t = row_value(xr, dr, c, drop, key) - mu;
     sq = fmaf(t, t, sq);
   }
   const float rs = rsqrtf(warp_sum(sq) / hidden + eps);
 
   Y* yr = y + off;
   for (int c = lane; c < hidden; c += 32) {
-    float o = (row_value(xr, dr, c) - mu) * rs;
+    float o = (row_value(xr, dr, c, drop, key) - mu) * rs;
     if (gamma != nullptr) o = o * to_float(gamma[c]) + to_float(beta[c]);
     yr[c] = from_float<Y>(o);
   }
@@ -66,71 +92,212 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// rows handled by one backward block: 4 warps x 8 rows
+constexpr int kBwdWarps = 4;
+constexpr int kBwdRowsPerBlock = 32;
+
 template <typename T, typename W, typename Y>
-static int launch(const void* x, const void* delta, const void* gamma,
-                  const void* beta, void* y, void* s, void* mean,
-                  void* rsigma, int rows, int hidden, float eps,
-                  cudaStream_t stream) {
-  const int threads = 128;  // four rows per block
-  const int blocks = (rows * 32 + threads - 1) / threads;
-  ln_fwd_kernel<T, W, Y><<<blocks, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(delta),
-      static_cast<const W*>(gamma), static_cast<const W*>(beta),
-      static_cast<Y*>(y), static_cast<T*>(s), static_cast<float*>(mean),
-      static_cast<float*>(rsigma), rows, hidden, eps);
-  return 0;
+__global__ void __launch_bounds__(kBwdWarps * 32)
+    ln_bwd_kernel(const T* __restrict__ x, const Y* __restrict__ dy,
+                  const T* __restrict__ ds, const float* __restrict__ mean,
+                  const float* __restrict__ rsigma,
+                  const W* __restrict__ gamma, T* __restrict__ dx,
+                  T* __restrict__ dd, float* __restrict__ part, int rows,
+                  int hidden, Dropout drop) {
+  extern __shared__ float sm[];  // [warp][dgamma | dbeta][hidden]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* sg = sm + warp * 2 * hidden;
+  float* sb = sg + hidden;
+  for (int c = lane; c < hidden; c += 32) {
+    sg[c] = 0.f;
+    sb[c] = 0.f;
+  }
+  const int row0 = blockIdx.x * kBwdRowsPerBlock;
+  const int row_end = min(row0 + kBwdRowsPerBlock, rows);
+  for (int row = row0 + warp; row < row_end; row += kBwdWarps) {
+    const int64_t off = static_cast<int64_t>(row) * hidden;
+    const float mu = mean[row];
+    const float rs = rsigma[row];
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < hidden; c += 32) {
+      const float xh = (to_float(x[off + c]) - mu) * rs;
+      const float g = to_float(dy[off + c]);
+      const float gg = g * to_float(gamma[c]);
+      s1 += gg;
+      s2 = fmaf(gg, xh, s2);
+      sg[c] = fmaf(g, xh, sg[c]);  // lane-private columns: no race
+      sb[c] += g;
+    }
+    const float c1 = warp_sum(s1) / hidden;
+    const float c2 = warp_sum(s2) / hidden;
+    const uint32_t key = dropout_row_key(drop.seed, 0u, row);
+    for (int c = lane; c < hidden; c += 32) {
+      const float xh = (to_float(x[off + c]) - mu) * rs;
+      const float gg = to_float(dy[off + c]) * to_float(gamma[c]);
+      float v = rs * (gg - c1 - xh * c2);
+      if (ds != nullptr) v += to_float(ds[off + c]);
+      dx[off + c] = from_float<T>(v);
+      if (dd != nullptr)
+        dd[off + c] = from_float<T>(
+            keep_bit(key, c, drop.thr) ? v * drop.scale : 0.f);
+    }
+  }
+  __syncthreads();
+  float* out = part + static_cast<int64_t>(blockIdx.x) * 2 * hidden;
+  for (int c = threadIdx.x; c < hidden; c += blockDim.x) {
+    float g = 0.f, b = 0.f;
+    for (int w = 0; w < kBwdWarps; ++w) {
+      g += sm[w * 2 * hidden + c];
+      b += sm[w * 2 * hidden + hidden + c];
+    }
+    out[c] = g;
+    out[hidden + c] = b;
+  }
 }
 
-template <typename T, typename W>
-static int dispatch_y(int y_dtype, const void* x, const void* delta,
-                      const void* gamma, const void* beta, void* y, void* s,
-                      void* mean, void* rsigma, int rows, int hidden,
-                      float eps, cudaStream_t stream) {
-  if (y_dtype == kFloat32)
-    return launch<T, W, float>(x, delta, gamma, beta, y, s, mean, rsigma,
-                               rows, hidden, eps, stream);
-  if (y_dtype == kBFloat16)
-    return launch<T, W, __nv_bfloat16>(x, delta, gamma, beta, y, s, mean,
-                                       rsigma, rows, hidden, eps, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+// dgamma/dbeta = the column sums of the (blocks, 2, hidden) partials. A
+// (32, 8) block: 32 columns, 8 slices of the partial rows, added across
+// slices in a fixed order.
+template <typename W>
+__global__ void __launch_bounds__(256)
+    ln_bwd_reduce_kernel(const float* __restrict__ part, int blocks,
+                         int hidden, W* __restrict__ dgamma,
+                         W* __restrict__ dbeta) {
+  __shared__ float red[2][8][32];
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  float g = 0.f, b = 0.f;
+  if (c < hidden) {
+    for (int k = threadIdx.y; k < blocks; k += 8) {
+      g += part[static_cast<int64_t>(k) * 2 * hidden + c];
+      b += part[static_cast<int64_t>(k) * 2 * hidden + hidden + c];
+    }
+  }
+  red[0][threadIdx.y][threadIdx.x] = g;
+  red[1][threadIdx.y][threadIdx.x] = b;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < hidden) {
+    g = 0.f;
+    b = 0.f;
+    for (int k = 0; k < 8; ++k) {
+      g += red[0][k][threadIdx.x];
+      b += red[1][k][threadIdx.x];
+    }
+    dgamma[c] = from_float<W>(g);
+    dbeta[c] = from_float<W>(b);
+  }
 }
 
-template <typename T>
-static int dispatch_w(int w_dtype, int y_dtype, const void* x,
-                      const void* delta, const void* gamma, const void* beta,
-                      void* y, void* s, void* mean, void* rsigma, int rows,
-                      int hidden, float eps, cudaStream_t stream) {
-  if (w_dtype == kFloat32)
-    return dispatch_y<T, float>(y_dtype, x, delta, gamma, beta, y, s, mean,
-                                rsigma, rows, hidden, eps, stream);
-  if (w_dtype == kBFloat16)
-    return dispatch_y<T, __nv_bfloat16>(y_dtype, x, delta, gamma, beta, y, s,
-                                        mean, rsigma, rows, hidden, eps,
-                                        stream);
+// Calls F::template run<T, W, Y>() for the three dtype codes.
+template <typename F>
+static int dispatch3(int t, int w, int y, F&& f) {
+#define APEX_LN_Y(TT, WW)                                                  \
+  if (y == kFloat32) return f.template run<TT, WW, float>();              \
+  if (y == kBFloat16) return f.template run<TT, WW, __nv_bfloat16>();     \
   return static_cast<int>(cudaErrorInvalidValue);
+#define APEX_LN_W(TT)                                                      \
+  if (w == kFloat32) { APEX_LN_Y(TT, float) }                              \
+  if (w == kBFloat16) { APEX_LN_Y(TT, __nv_bfloat16) }                     \
+  return static_cast<int>(cudaErrorInvalidValue);
+  if (t == kFloat32) { APEX_LN_W(float) }
+  if (t == kBFloat16) { APEX_LN_W(__nv_bfloat16) }
+  return static_cast<int>(cudaErrorInvalidValue);
+#undef APEX_LN_W
+#undef APEX_LN_Y
 }
+
+struct FwdLaunch {
+  const void *x, *delta, *gamma, *beta;
+  void *y, *s, *mean, *rsigma;
+  int rows, hidden;
+  float eps;
+  Dropout drop;
+  cudaStream_t stream;
+
+  template <typename T, typename W, typename Y>
+  int run() {
+    const int threads = 128;  // four rows per block
+    const int blocks = (rows * 32 + threads - 1) / threads;
+    ln_fwd_kernel<T, W, Y><<<blocks, threads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(delta),
+        static_cast<const W*>(gamma), static_cast<const W*>(beta),
+        static_cast<Y*>(y), static_cast<T*>(s), static_cast<float*>(mean),
+        static_cast<float*>(rsigma), rows, hidden, eps, drop);
+    return 0;
+  }
+};
+
+struct BwdLaunch {
+  const void *x, *dy, *ds, *mean, *rsigma, *gamma;
+  void *dx, *dd, *part, *dgamma, *dbeta;
+  int rows, hidden;
+  Dropout drop;
+  cudaStream_t stream;
+
+  template <typename T, typename W, typename Y>
+  int run() {
+    const int blocks = (rows + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock;
+    const size_t smem = sizeof(float) * kBwdWarps * 2 * hidden;
+    auto kernel = ln_bwd_kernel<T, W, Y>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<blocks, kBwdWarps * 32, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const Y*>(dy),
+        static_cast<const T*>(ds), static_cast<const float*>(mean),
+        static_cast<const float*>(rsigma), static_cast<const W*>(gamma),
+        static_cast<T*>(dx), static_cast<T*>(dd), static_cast<float*>(part),
+        rows, hidden, drop);
+    ln_bwd_reduce_kernel<W><<<(hidden + 31) / 32, dim3(32, 8), 0, stream>>>(
+        static_cast<const float*>(part), blocks, hidden,
+        static_cast<W*>(dgamma), static_cast<W*>(dbeta));
+    return 0;
+  }
+};
 
 }  // namespace apex_port
 
 // x (and delta, s): (rows, hidden) contiguous in x_dtype; gamma/beta:
 // (hidden,) in w_dtype or both null (no affine); delta and s both null
 // for the plain form; y: (rows, hidden) in y_dtype; mean/rsigma: (rows,)
-// fp32.
+// fp32. dropout != 0 drops delta with keep bit hash(seed, 0, row, col)
+// >= thr and scale 1/(1 - rate).
 extern "C" int ln_fwd(const void* x, const void* delta, const void* gamma,
                       const void* beta, void* y, void* s, void* mean,
                       void* rsigma, int rows, int hidden, float eps,
-                      int x_dtype, int w_dtype, int y_dtype, void* stream) {
+                      int dropout, unsigned seed, unsigned thr,
+                      float keep_scale, int x_dtype, int w_dtype,
+                      int y_dtype, void* stream) {
   using namespace apex_port;
-  auto st = static_cast<cudaStream_t>(stream);
-  int rc;
-  if (x_dtype == kFloat32)
-    rc = dispatch_w<float>(w_dtype, y_dtype, x, delta, gamma, beta, y, s,
-                           mean, rsigma, rows, hidden, eps, st);
-  else if (x_dtype == kBFloat16)
-    rc = dispatch_w<__nv_bfloat16>(w_dtype, y_dtype, x, delta, gamma, beta, y,
-                                   s, mean, rsigma, rows, hidden, eps, st);
-  else
-    rc = static_cast<int>(cudaErrorInvalidValue);
+  FwdLaunch l{x, delta, gamma, beta, y, s, mean, rsigma, rows, hidden, eps,
+              Dropout{dropout, seed, thr, keep_scale},
+              static_cast<cudaStream_t>(stream)};
+  const int rc = dispatch3(x_dtype, w_dtype, y_dtype, l);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: the saved (rows, hidden) LN input (the stream s of the residual
+// forms) in x_dtype; dy: (rows, hidden) in y_dtype; ds: the stream's
+// cotangent in x_dtype or null; mean/rsigma: the forward's (rows,) fp32;
+// gamma: (hidden,) in w_dtype. Writes dx (x_dtype), dd (x_dtype, only
+// with dropout; else null), dgamma/dbeta ((hidden,) in w_dtype) through
+// `part`, an fp32 scratch of ceil(rows / 32) * 2 * hidden.
+extern "C" int ln_bwd(const void* x, const void* dy, const void* ds,
+                      const void* mean, const void* rsigma,
+                      const void* gamma, void* dx, void* dd, void* part,
+                      void* dgamma, void* dbeta, int rows, int hidden,
+                      int dropout, unsigned seed, unsigned thr,
+                      float keep_scale, int x_dtype, int w_dtype,
+                      int y_dtype, void* stream) {
+  using namespace apex_port;
+  BwdLaunch l{x, dy, ds, mean, rsigma, gamma, dx, dd, part, dgamma, dbeta,
+              rows, hidden, Dropout{dropout, seed, thr, keep_scale},
+              static_cast<cudaStream_t>(stream)};
+  const int rc = dispatch3(x_dtype, w_dtype, y_dtype, l);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

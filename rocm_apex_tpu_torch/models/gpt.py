@@ -1,27 +1,45 @@
-"""Megatron-style GPT for KV-cached serving, in PyTorch.
+"""Megatron-style GPT in PyTorch: the training forward and the
+KV-cached serving branches.
 
-Port of ``rocm_apex_tpu/models/gpt.py`` on the path the serving engine
-runs: tensor-parallel world size 1, no dropout, and the two cached
-branches of `ParallelAttention`:
+Port of ``rocm_apex_tpu/models/gpt.py`` at tensor-parallel world size 1.
 
-* the packed chunk (``chunk=(slot_ids, positions)``,
-  rocm_apex_tpu/models/gpt.py:509-753): the chunk's K/V scatter into
-  the cache at per-token (slot, position) rows (pads dropped), then two
-  pieces merged by log-sum-exp weights in fp32 — (A) segment-masked
-  causal attention within the chunk
-  (`flash_attention_segments_with_lse`) and (B) each token against its
-  OWN slot's pre-chunk cache prefix (`flash_attention_decode` with a
-  slot id per row, reading the cache in place);
-* the single-token decode (rocm_apex_tpu/models/gpt.py:754-893): each
-  slot writes its new K/V at its length and reads ``[0, length + 1)``.
+* The uncached forward (training, rocm_apex_tpu/models/gpt.py:1097-1188,
+  1234-1336, 1573-1637) is the JAX model's pre-LN stack with CHAINED
+  residuals: each layer returns its stream and its pending MLP delta, and
+  the next layer's ln1 (or the final LN) adds the delta inside the
+  LayerNorm kernel, so every residual add rides a kernel. Attention reads
+  q/k/v straight out of the fused projection with its bias added on load
+  (`flash_attention_qkv_bias{,_dropout}`). With dropout on
+  (``deterministic=False``) hidden dropout runs inside the residual LN
+  kernels and attention dropout inside the flash kernels, both with
+  `ops._dropout`'s keep bits, and the embedding dropout as a plain op
+  (a flax op, not a kernel, in the JAX package) on torch's generator.
+  Each site's int32 seed is drawn per step from a CPU `torch.Generator`
+  (``dropout_generator``, default torch's global CPU generator), so
+  drawing it never waits on the device.
+  Unlike the JAX package, which falls back to a materialized softmax off
+  the TPU (gpt.py:419-425), the port always runs the in-kernel forms.
+  ``labels=`` routes the last hidden state through the fused linear+CE
+  head (`VocabParallelEmbedding.attend_loss`).
+* The cached branches serve the engine (rocm_apex_tpu/models/gpt.py:
+  509-893), deterministic and under ``torch.no_grad``: the packed chunk
+  (``chunk=(slot_ids, positions)``) scatters its K/V into the cache at
+  per-token (slot, position) rows (pads dropped) and merges two pieces by
+  log-sum-exp weights in fp32 — (A) segment-masked causal attention
+  within the chunk (`flash_attention_segments_with_lse`) and (B) each
+  token against its OWN slot's pre-chunk cache prefix
+  (`flash_attention_decode` with a slot id per row, reading the cache in
+  place); the single-token decode writes each slot's new K/V at its
+  length and reads ``[0, length + 1)``.
 
 Module and parameter names follow the JAX model's param tree, so its
 flattened paths are this module's ``state_dict`` keys (see ``convert.py``).
 Linear and embedding weights are stored in the compute dtype (the JAX
 model casts them on every call; the values are the same); LayerNorm
-parameters stay in ``params_dtype``. The uncached forward and the
-whole-prompt prefill raise: they need the flash forward kernels of a
-later slice.
+parameters in ``params_dtype`` (the training state keeps them in the
+compute dtype, as the JAX optimizer's model tree does). Whole-prompt
+prefill (a cached window wider than one token) raises: it needs the
+unpacked flash forward of a later slice.
 """
 
 import dataclasses
@@ -40,7 +58,11 @@ from rocm_apex_tpu_torch.inference.kv_cache import (
     write_at_lengths,
 )
 from rocm_apex_tpu_torch.normalization import MixedFusedLayerNorm
-from rocm_apex_tpu_torch.ops.flash_attention import flash_attention_decode
+from rocm_apex_tpu_torch.ops.flash_attention import (
+    flash_attention_decode,
+    flash_attention_qkv_bias,
+    flash_attention_qkv_bias_dropout,
+)
 from rocm_apex_tpu_torch.ops.flash_attention_segments import (
     flash_attention_segments_with_lse,
 )
@@ -61,16 +83,17 @@ __all__ = [
 ]
 
 _NOT_PORTED = (
-    "{what} is not ported yet: it needs the flash forward kernels "
-    "(_fwd_kernel/_fwd_single_kernel); ROADMAP Queue 1 item 1 (uncached "
-    "GPT forward and whole-prompt prefill), Queue 2 items 2-3"
+    "{what} is not ported yet: it needs the unpacked flash kernels "
+    "(_fwd_kernel/_bwd_* on (batch*heads, seq, head_dim)); ROADMAP Queue 1 "
+    "item 1 (whole-prompt prefill), Queue 2 items 3 and 6"
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
-    """Model hyperparameters; the fields the serving path reads, with
-    the JAX package's names and defaults."""
+    """Model hyperparameters: the fields the ported paths read, with the
+    JAX package's names and defaults. A value the port cannot run yet
+    raises `NotImplementedError` naming its ROADMAP item."""
 
     vocab_size: int = 32000
     hidden_size: int = 1024
@@ -78,18 +101,43 @@ class GPTConfig:
     num_attention_heads: int = 16
     max_position_embeddings: int = 2048
     ffn_hidden_size: Optional[int] = None  # default 4*hidden
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     layernorm_epsilon: float = 1e-5
+    apply_residual_connection_post_layernorm: bool = False
     params_dtype: torch.dtype = torch.float32
     dtype: torch.dtype = torch.bfloat16
     tensor_parallel_size: Optional[int] = None
     init_method_std: float = 0.02
+    attention_impl: str = "flash"
+    checkpoint_activations: bool = False
+    label_smoothing: float = 0.0
+    ignore_index: Optional[int] = None
+    fused_lm_head: bool = True
+    lm_head_chunk_size: Optional[int] = None
 
     def __post_init__(self):
-        if self.tensor_parallel_size not in (None, 1):
-            raise NotImplementedError(
-                "tensor_parallel_size > 1 is not ported yet (ROADMAP "
-                "Queue 1 item 6, tp>1 serving)"
-            )
+        unported = [
+            (self.tensor_parallel_size not in (None, 1),
+             "tensor_parallel_size > 1 (ROADMAP Queue 1 item 6, tp>1 "
+             "serving)"),
+            (self.attention_impl != "flash",
+             f"attention_impl={self.attention_impl!r} (the materialized "
+             f"softmax path needs the fused-softmax kernels, ROADMAP "
+             f"Queue 2 item 10)"),
+            (not self.fused_lm_head,
+             "fused_lm_head=False (the materialized head needs the "
+             "xentropy kernels, ROADMAP Queue 2 item 7)"),
+            (self.checkpoint_activations,
+             "checkpoint_activations=True (ROADMAP Queue 1 item 8, rest "
+             "of the training stack)"),
+            (self.apply_residual_connection_post_layernorm,
+             "apply_residual_connection_post_layernorm=True (ROADMAP "
+             "Queue 1 item 8, rest of the training stack)"),
+        ]
+        for bad, what in unported:
+            if bad:
+                raise NotImplementedError(f"{what} is not ported yet")
         if self.hidden_size % self.num_attention_heads:
             raise ValueError("hidden_size must divide by num_attention_heads")
 
@@ -100,6 +148,22 @@ class GPTConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+
+def _draw_seed(generator: torch.Generator) -> int:
+    """One dropout site's int32 seed, drawn on the host from a CPU
+    generator (no device sync)."""
+    return int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+
+
+def _embedding_dropout(x, seed: int, rate: float):
+    """The embedding's dropout: a plain op, as in the JAX package (a flax
+    op there, gpt.py:1420-1421). Its mask comes from torch's generator on
+    x's device, seeded with the site's seed: one random draw, where the
+    kernels' counter hash would cost ~30 int64 passes over the tensor."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 class ParallelMLP(nn.Module):
@@ -116,14 +180,15 @@ class ParallelMLP(nn.Module):
         )
 
     def forward(self, x):
+        h, _ = self.dense_h_to_4h(x)
         # the JAX model's nn.gelu defaults to the tanh approximation
-        return self.dense_4h_to_h(
-            F.gelu(self.dense_h_to_4h(x), approximate="tanh")
-        )
+        y, _ = self.dense_4h_to_h(F.gelu(h, approximate="tanh"))
+        return y
 
 
 class ParallelAttention(nn.Module):
-    """Causal self-attention on the KV-cached serving branches."""
+    """Causal self-attention: the packed flash path (uncached) and the
+    KV-cached serving branches."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
@@ -136,17 +201,16 @@ class ParallelAttention(nn.Module):
             cfg.hidden_size, cfg.hidden_size, **kw
         )
 
-    def forward(self, x, cache=None, chunk: Optional[ChunkRows] = None):
-        cfg = self.cfg
+    def forward(self, x, cache=None, chunk: Optional[ChunkRows] = None,
+                dropout_seed: Optional[int] = None):
         if cache is None:
-            raise NotImplementedError(
-                _NOT_PORTED.format(what="uncached attention")
-            )
+            return self._forward_packed(x, dropout_seed)
+        cfg = self.cfg
         k_buf, v_buf, lengths = cache
         nh, hd = cfg.num_attention_heads, cfg.head_dim
         scale = 1.0 / math.sqrt(hd)
         b, sq, _ = x.shape
-        qkv = self.query_key_value(x)
+        qkv, _ = self.query_key_value(x)
         # the fused projection is interleaved PER HEAD: (b, s, nh, 3*hd)
         q, k, v = qkv.view(b, sq, nh, 3 * hd).split(hd, dim=-1)
         num_slots, capacity = k_buf.shape[0], k_buf.shape[1]
@@ -189,12 +253,33 @@ class ParallelAttention(nn.Module):
             kv_len = torch.clamp(lengths + 1, max=capacity)
             ctx = flash_attention_decode(q[:, 0], k_buf, v_buf, kv_len, scale)
             ctx = ctx.reshape(b, 1, nh * hd)
-        return self.dense(ctx)
+        y, _ = self.dense(ctx)
+        return y
+
+    def _forward_packed(self, x, dropout_seed):
+        """The training path: the projection bias rides into the flash
+        kernels (added on tile load; its gradient from fp32 partials)."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        qkv, bias = self.query_key_value(x, skip_bias_add=True)
+        qkv = qkv.view(b, s, nh, 3 * hd)
+        scale = 1.0 / math.sqrt(hd)
+        if dropout_seed is None:
+            ctx = flash_attention_qkv_bias(qkv, bias, True, scale)
+        else:
+            ctx = flash_attention_qkv_bias_dropout(
+                qkv, bias, dropout_seed, cfg.attention_dropout, True, scale,
+            )
+        y, _ = self.dense(ctx)
+        return y
 
 
 class ParallelTransformerLayer(nn.Module):
     """Pre-LN block: LN -> attention -> residual (fused into LN2) -> MLP
-    -> residual. Cached paths never chain residuals across layers."""
+    -> residual. The uncached path CHAINS layers: it takes the previous
+    layer's pending MLP delta (added inside ln1) and returns
+    ``(stream, pending delta)``; cached paths add eagerly."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
@@ -215,6 +300,34 @@ class ParallelTransformerLayer(nn.Module):
         mlp = self.mlp(ln2)
         return (x + mlp.to(x.dtype)).to(self.cfg.dtype)
 
+    def forward_chained(self, x, delta=None,
+                        seeds: Optional[torch.Generator] = None):
+        """One training layer: with a ``seeds`` generator, hidden dropout
+        drops the attention output inside ln2 and the incoming delta
+        inside ln1, and attention dropout runs in the flash kernels."""
+        cfg = self.cfg
+        hrate = cfg.hidden_dropout if seeds is not None else 0.0
+
+        def hseed():
+            return _draw_seed(seeds) if hrate > 0.0 else 0
+
+        if delta is None:
+            ln1 = self.input_layernorm(x)
+        else:
+            ln1, x = self.input_layernorm(
+                delta.to(x.dtype), residual=x, dropout_rate=hrate,
+                dropout_seed=hseed(),
+            )
+        attn_seed = (_draw_seed(seeds) if seeds is not None
+                     and cfg.attention_dropout > 0.0 else None)
+        attn = self.self_attention(ln1, dropout_seed=attn_seed)
+        ln2, x = self.post_attention_layernorm(
+            attn.to(x.dtype), residual=x, dropout_rate=hrate,
+            dropout_seed=hseed(),
+        )
+        mlp = self.mlp(ln2)
+        return x.to(cfg.dtype), mlp.to(cfg.dtype)
+
 
 class ParallelTransformer(nn.Module):
     """``num_layers`` blocks (``layer_0`` ...) and the final LayerNorm."""
@@ -230,7 +343,10 @@ class ParallelTransformer(nn.Module):
             params_dtype=cfg.params_dtype, device=device,
         )
 
-    def forward(self, x, cache, chunk: Optional[ChunkRows] = None):
+    def forward(self, x, cache=None, chunk: Optional[ChunkRows] = None,
+                seeds: Optional[torch.Generator] = None):
+        if cache is None:
+            return self._forward_chained(x, seeds)
         for i, name in enumerate(self.layer_names):
             layer_cache = (cache.k[i], cache.v[i], cache.lengths)
             x = getattr(self, name)(x, layer_cache, chunk)
@@ -244,10 +360,26 @@ class ParallelTransformer(nn.Module):
             )
         return x
 
+    def _forward_chained(self, x, seeds):
+        delta = None
+        for name in self.layer_names:
+            x, delta = getattr(self, name).forward_chained(x, delta, seeds)
+        if delta is None:
+            return self.final_layernorm(x).to(self.cfg.dtype)
+        # the last layer's pending delta joins the stream (and takes its
+        # hidden dropout) inside the final LN
+        rate = self.cfg.hidden_dropout if seeds is not None else 0.0
+        x, _ = self.final_layernorm(
+            delta.to(x.dtype), residual=x, dropout_rate=rate,
+            dropout_seed=_draw_seed(seeds) if rate > 0.0 else 0,
+        )
+        return x.to(self.cfg.dtype)
+
 
 class TransformerEmbedding(nn.Module):
     """Word + learned position embeddings, summed in the compute dtype;
-    ``attend`` is the tied LM head."""
+    ``attend`` is the tied LM head, ``attend_loss`` the tied head fused
+    with the cross-entropy."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
@@ -257,8 +389,7 @@ class TransformerEmbedding(nn.Module):
         )
         self.position_embeddings = nn.Parameter(
             torch.zeros(cfg.max_position_embeddings, cfg.hidden_size,
-                        dtype=cfg.dtype, device=device),
-            requires_grad=False,
+                        dtype=cfg.dtype, device=device)
         )
 
     def forward(self, tokens, position_ids):
@@ -272,16 +403,30 @@ class TransformerEmbedding(nn.Module):
     def attend(self, hidden):
         return self.word_embeddings.attend(hidden)
 
+    def attend_loss(self, hidden, labels, loss_mask=None, reduction=None):
+        cfg = self.cfg
+        return self.word_embeddings.attend_loss(
+            hidden, labels, loss_mask, reduction, cfg.label_smoothing,
+            cfg.ignore_index, cfg.lm_head_chunk_size,
+        )
+
 
 class GPTModel(nn.Module):
-    """Embedding -> transformer -> tied LM head, on the KV-cached paths.
+    """Embedding -> transformer -> tied LM head.
 
-    ``cache`` is a `rocm_apex_tpu_torch.inference.KVCache` (duck-typed:
-    ``.k``/``.v`` per-layer ``(num_slots, capacity, heads, head_dim)``
-    buffers, ``.lengths``, ``.capacity``); the forward UPDATES IT IN
-    PLACE and returns ``(logits, cache)``. ``tokens`` (num_slots, 1) is
-    the single-token decode: positions default to each slot's length and
-    ``lengths`` advance by one. ``chunk=(slot_ids, positions)`` with
+    Uncached (``cache=None``): ``tokens`` (b, s) -> logits (b, s, vocab),
+    or with ``labels`` the per-token fp32 losses (times ``loss_mask``),
+    or with ``loss_reduction="mean"`` their masked mean, whose head
+    gradients finish in the forward (the training path). Differentiable;
+    ``deterministic=False`` turns dropout on, seeded per site from
+    ``dropout_generator`` (a CPU `torch.Generator`).
+
+    Cached: ``cache`` is a `rocm_apex_tpu_torch.inference.KVCache`
+    (duck-typed: ``.k``/``.v`` per-layer ``(num_slots, capacity, heads,
+    head_dim)`` buffers, ``.lengths``, ``.capacity``); the forward UPDATES
+    IT IN PLACE and returns ``(logits, cache)``. ``tokens`` (num_slots, 1)
+    is the single-token decode: positions default to each slot's length
+    and ``lengths`` advance by one. ``chunk=(slot_ids, positions)`` with
     ``tokens`` (1, budget) is the packed chunk: padding tokens carry slot
     id ``num_slots``, and ``lengths`` (each slot's pre-chunk prefix) are
     not advanced. Runs on CUDA unless ``device`` says otherwise.
@@ -295,18 +440,59 @@ class GPTModel(nn.Module):
         self.embedding = TransformerEmbedding(cfg, self.device)
         self.transformer = ParallelTransformer(cfg, self.device)
 
-    @torch.no_grad()
     def forward(
         self,
         tokens: torch.Tensor,
         position_ids: Optional[torch.Tensor] = None,
+        labels: Optional[torch.Tensor] = None,
+        loss_mask: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
         cache=None,
         chunk: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        loss_reduction: Optional[str] = None,
+        dropout_generator: Optional[torch.Generator] = None,
     ):
-        if cache is None:
-            raise NotImplementedError(
-                _NOT_PORTED.format(what="the uncached (training) forward")
+        if cache is not None:
+            if labels is not None:
+                raise ValueError(
+                    "KV-cached inference returns logits; pass labels only "
+                    "on the training path"
+                )
+            if not deterministic:
+                raise ValueError(
+                    "KV-cached attention requires deterministic=True"
+                )
+            with torch.no_grad():
+                return self._forward_cached(tokens, position_ids, cache,
+                                            chunk)
+        if chunk is not None:
+            raise ValueError(
+                "chunked prefill writes into a KV cache; pass cache= "
+                "alongside chunk="
             )
+        if loss_reduction not in (None, "mean"):
+            raise ValueError(f"unknown loss_reduction {loss_reduction!r}")
+        cfg = self.cfg
+        if position_ids is None:
+            position_ids = torch.arange(tokens.shape[1],
+                                        device=tokens.device)[None, :]
+        seeds = None
+        if not deterministic:
+            seeds = dropout_generator or torch.default_generator
+        x = self.embedding(tokens, position_ids)
+        if seeds is not None and cfg.hidden_dropout > 0.0:
+            x = _embedding_dropout(x, _draw_seed(seeds), cfg.hidden_dropout)
+        x = self.transformer(x, seeds=seeds)
+        if labels is None:
+            return self.embedding.attend(x)
+        if loss_reduction == "mean":
+            return self.embedding.attend_loss(x, labels, loss_mask, "mean")
+        losses = self.embedding.attend_loss(x, labels)
+        if loss_mask is not None:
+            losses = losses * loss_mask
+        return losses
+
+    def _forward_cached(self, tokens, position_ids, cache, chunk):
         rows = None
         if chunk is not None:
             if tokens.shape[0] != 1:

@@ -1,7 +1,28 @@
-"""KV-cache decode read: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Flash attention: the KV-cache decode read and the packed-QKV training
+attention, each a hand-written CUDA kernel beside its plain PyTorch
+version.
 
-Port of ``flash_attention_decode`` (rocm_apex_tpu/ops/flash_attention.py).
+**Packed QKV** (``flash_attention_qkv{,_bias}{,_dropout}``, the forms
+models/gpt.py:919-951 of the JAX package calls). The forward kernel
+(``csrc/flash_fwd.cu``) replaces ``_fwd_single_kernel``
+(rocm_apex_tpu/ops/flash_attention.py:1170) and the packed use of
+``_fwd_kernel`` (:170); the backward (``csrc/flash_bwd.cu``, a dq pass and
+a dk/dv pass) replaces ``_bwd_merged_kernel`` (:1324) and the packed use
+of ``_bwd_dkv_kernel``/``_bwd_dq_kernel`` (:316, :384). q/k/v are read
+straight out of the (B, S, nh, 3*hd) projection with the bias added on
+load, the context is written in (B, S, nh*hd), and the backward writes
+dq|dk|dv into the projection's own layout with fp32 bias partials summed
+over batch in fp32. Dropout drops the normalized probabilities (softmax
+-> dropout -> @ v, the normalizer from the undropped ones) with
+``ops/_dropout``'s keep bits of (seed, b*nh + h, query, key), regenerated
+in the backward. One forward and one backward kernel serve all four
+entries: no bias is a null pointer, no dropout is rate 0. The kernels
+take head_dim 128 (the packed path's hd % 128 rule at the model's
+widths); they are bound by operations: bf16 runs the products on the
+tensor cores (mma.sync, the computed operands split hi + lo so they keep
+fp32-level precision), fp32 on the CUDA cores (see the sources).
+
+**Decode** (``flash_attention_decode``).
 The kernel (``csrc/flash_decode.cu``) replaces the TPU kernel
 ``_decode_kernel`` (rocm_apex_tpu/ops/flash_attention.py:813). It is
 bound by bytes (2 FLOPs per K/V byte). Two departures from the JAX call
@@ -28,13 +49,22 @@ from typing import Optional
 
 import torch
 
+from rocm_apex_tpu_torch.ops import _dropout
 from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
 
 __all__ = [
     "FLASH_DECODE",
+    "FLASH_FWD",
+    "FLASH_BWD",
     "NEG_INF",
     "flash_attention_decode",
     "flash_attention_decode_plain",
+    "flash_attention_qkv",
+    "flash_attention_qkv_dropout",
+    "flash_attention_qkv_bias",
+    "flash_attention_qkv_bias_dropout",
+    "flash_qkv_fwd_plain",
+    "flash_qkv_bwd_plain",
     "check_head_dim",
 ]
 
@@ -52,6 +82,26 @@ FLASH_DECODE = Kernel(
               _I, _I, ctypes.c_float, _I, _P, _P, _P],
     replaces="rocm_apex_tpu/ops/flash_attention.py:813 _decode_kernel",
 )
+_U = ctypes.c_uint32
+_F = ctypes.c_float
+FLASH_FWD = Kernel(
+    name="flash_attention_qkv_fwd",
+    source="flash_fwd.cu",
+    symbol="flash_fwd",
+    argtypes=[_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _U, _U, _F, _I,
+              _P],
+    replaces="rocm_apex_tpu/ops/flash_attention.py:1170 _fwd_single_kernel",
+)
+FLASH_BWD = Kernel(
+    name="flash_attention_qkv_bwd",
+    source="flash_bwd.cu",
+    symbol="flash_bwd",
+    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+              _U, _U, _F, _I, _P],
+    replaces="rocm_apex_tpu/ops/flash_attention.py:1324 _bwd_merged_kernel",
+)
+_PACKED_HEAD_DIM = 128  # csrc/flash_tile.cuh kHd
+_PACKED_TILE = 64  # csrc/flash_tile.cuh kTile
 
 
 def check_head_dim(*tensors: torch.Tensor) -> None:
@@ -179,3 +229,214 @@ def flash_attention_decode(
             stream_ptr(q.device),
         )
     return (o, lse) if return_lse else o
+
+
+# ---------------------------------------------------------------------------
+# packed QKV: training attention
+# ---------------------------------------------------------------------------
+
+
+def _heads(qkv, bias):
+    """Biased q, k, v as fp32 (B*nh, S, hd) from the (B, S, nh, 3*hd)
+    projection; the biased values are rounded to qkv's dtype, as the JAX
+    kernels' add in that dtype rounds them (and the kernels stage them)."""
+    B, S, nh, three_hd = qkv.shape
+    hd = three_hd // 3
+    x = qkv.float()
+    if bias is not None:
+        x = (x + bias.float().view(nh, three_hd)).to(qkv.dtype).float()
+    x = x.permute(0, 2, 1, 3).reshape(B * nh, S, three_hd)
+    return x.split(hd, dim=-1)
+
+
+def _probs(q, k, causal, scale, lse=None):
+    """Masked scores and, from ``lse`` (or their own), the softmax."""
+    s = torch.einsum("bqd,bkd->bqk", q, k) * scale
+    if causal:
+        n = s.shape[-1]
+        s = s.masked_fill(
+            ~torch.ones(n, n, dtype=torch.bool, device=s.device).tril(),
+            float("-inf"),
+        )
+    if lse is None:
+        lse = torch.logsumexp(s, dim=-1)
+    return torch.exp(s - lse[..., None]), lse
+
+
+def _to_rows(x, B, S, nh):
+    """(B*nh, S, d) -> (B, S, nh, d)."""
+    return x.reshape(B, nh, S, -1).permute(0, 2, 1, 3)
+
+
+def flash_qkv_fwd_plain(qkv, bias, causal, scale, rate=0.0, seed=0):
+    """The plain PyTorch version of the packed forward: returns o
+    (B, S, nh*hd) in qkv's dtype and lse (B*nh, S) fp32."""
+    B, S, nh, three_hd = qkv.shape
+    q, k, v = _heads(qkv, bias)
+    p, lse = _probs(q, k, causal, scale)
+    if rate > 0.0:
+        keep = _dropout.keep_mask(seed, rate, p.shape, device=p.device)
+        p = torch.where(keep, p * _dropout.keep_scale(rate), 0.0)
+    o = _to_rows(torch.einsum("bqk,bkd->bqd", p, v), B, S, nh)
+    return o.reshape(B, S, -1).to(qkv.dtype), lse
+
+
+def flash_qkv_bwd_plain(qkv, bias, o, lse, do, causal, scale, rate=0.0,
+                        seed=0):
+    """The plain PyTorch version of the packed backward: returns the
+    (B, S, nh, 3*hd) cotangent in qkv's dtype and, with a bias, its
+    (nh*3*hd,) fp32 cotangent (else None)."""
+    B, S, nh, three_hd = qkv.shape
+    hd = three_hd // 3
+    q, k, v = _heads(qkv, bias)
+    p, _ = _probs(q, k, causal, scale, lse)
+
+    def heads(t):
+        return t.float().reshape(B, S, nh, hd).permute(0, 2, 1, 3).reshape(
+            B * nh, S, hd)
+
+    do_h, o_h = heads(do), heads(o)
+    dp = torch.einsum("bqd,bkd->bqk", do_h, v)
+    pd = p
+    if rate > 0.0:
+        keep = _dropout.keep_mask(seed, rate, p.shape, device=p.device)
+        sc = _dropout.keep_scale(rate)
+        pd = torch.where(keep, p * sc, 0.0)
+        dp = torch.where(keep, dp * sc, 0.0)
+    delta = (do_h * o_h).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bqk,bkd->bqd", ds, k) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, q) * scale
+    dv = torch.einsum("bqk,bqd->bkd", pd, do_h)
+    dqkv = _to_rows(torch.cat([dq, dk, dv], dim=-1), B, S, nh)
+    dbias = None if bias is None else dqkv.sum(dim=(0, 1)).reshape(-1)
+    return dqkv.to(qkv.dtype).contiguous(), dbias
+
+
+def _check_packed(qkv, bias, *more):
+    if qkv.dim() != 4 or qkv.shape[-1] % 3:
+        raise ValueError(
+            f"qkv must be (B, S, nh, 3*hd), got {tuple(qkv.shape)}"
+        )
+    nh, three_hd = qkv.shape[2:]
+    if bias is not None and (
+        bias.shape != (nh * three_hd,) or bias.dtype != qkv.dtype
+    ):
+        raise ValueError(
+            f"qkv_bias must be ({nh * three_hd},) in {qkv.dtype}, got "
+            f"{tuple(bias.shape)} {bias.dtype}"
+        )
+    if qkv.device.type == "cpu":
+        return
+    if qkv.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {qkv.device}")
+    if three_hd // 3 != _PACKED_HEAD_DIM:
+        raise ValueError(
+            f"the packed CUDA attention kernels take head_dim "
+            f"{_PACKED_HEAD_DIM}, got {three_hd // 3}"
+        )
+    for t in (qkv, bias, *more):
+        if t is not None and (t.device != qkv.device or not t.is_contiguous()
+                              or t.dtype not in (qkv.dtype, torch.float32)
+                              or t.data_ptr() % 16):
+            raise ValueError(
+                "packed attention operands must be contiguous, 16-byte "
+                "aligned, on qkv's device, in qkv's dtype (lse fp32)"
+            )
+
+
+def _flash_fwd(qkv, bias, causal, scale, rate, seed):
+    _check_packed(qkv, bias)
+    if qkv.device.type == "cpu":
+        return flash_qkv_fwd_plain(qkv, bias, causal, scale, rate, seed)
+    B, S, nh, three_hd = qkv.shape
+    hd = three_hd // 3
+    o = torch.empty((B, S, nh * hd), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((B * nh, S), dtype=torch.float32, device=qkv.device)
+    if o.numel() > 0:
+        FLASH_FWD(
+            ptr(qkv), ptr(bias), ptr(o), ptr(lse), B, S, nh, hd,
+            float(scale), int(bool(causal)), int(rate > 0.0),
+            int(seed) & 0xFFFFFFFF, _dropout.threshold(rate),
+            _dropout.keep_scale(rate), dtype_code(qkv.dtype),
+            stream_ptr(qkv.device),
+        )
+    return o, lse
+
+
+def _flash_bwd(qkv, bias, o, lse, do, causal, scale, rate, seed):
+    do = do.contiguous()
+    _check_packed(qkv, bias, o, lse, do)
+    if qkv.device.type == "cpu":
+        return flash_qkv_bwd_plain(qkv, bias, o, lse, do, causal, scale,
+                                   rate, seed)
+    B, S, nh, three_hd = qkv.shape
+    hd = three_hd // 3
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((B * nh, S), dtype=torch.float32, device=qkv.device)
+    part = None
+    if bias is not None:
+        tiles = -(-S // _PACKED_TILE)
+        part = torch.empty((B, tiles, nh, three_hd), dtype=torch.float32,
+                           device=qkv.device)
+    if dqkv.numel() > 0:
+        FLASH_BWD(
+            ptr(qkv), ptr(bias), ptr(o), ptr(lse), ptr(do), ptr(dqkv),
+            ptr(delta), ptr(part), B, S, nh, hd, float(scale),
+            int(bool(causal)), int(rate > 0.0), int(seed) & 0xFFFFFFFF,
+            _dropout.threshold(rate), _dropout.keep_scale(rate),
+            dtype_code(qkv.dtype), stream_ptr(qkv.device),
+        )
+    # the reduction across batch (and key/query tiles) in fp32
+    dbias = None if part is None else part.sum(dim=(0, 1)).reshape(-1)
+    return dqkv, dbias
+
+
+class _FlashQKV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, bias, seed, rate, causal, scale):
+        o, lse = _flash_fwd(qkv, bias, causal, scale, rate, seed)
+        ctx.save_for_backward(qkv, bias, o, lse)
+        ctx.args = (causal, scale, rate, seed)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, bias, o, lse = ctx.saved_tensors
+        dqkv, dbias = _flash_bwd(qkv, bias, o, lse, do, *ctx.args)
+        if dbias is not None:
+            dbias = dbias.to(bias.dtype)
+        return dqkv, dbias, None, None, None, None
+
+
+def _scale(qkv, scale):
+    return scale if scale is not None else 1.0 / math.sqrt(qkv.shape[-1] // 3)
+
+
+def flash_attention_qkv(qkv: torch.Tensor, causal: bool = False,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Self attention on a fused projection output ``qkv`` (B, S, nh,
+    3*hd), q|k|v contiguous per head; returns the (B, S, nh*hd) context,
+    laid out for the output projection. Differentiable in ``qkv``."""
+    return _FlashQKV.apply(qkv, None, 0, 0.0, causal, _scale(qkv, scale))
+
+
+def flash_attention_qkv_dropout(qkv, dropout_seed, dropout_rate,
+                                causal=False, scale=None):
+    """`flash_attention_qkv` with in-kernel attention dropout;
+    ``dropout_seed`` is an int32 value, one per site and step."""
+    return _FlashQKV.apply(qkv, None, int(dropout_seed), float(dropout_rate),
+                           causal, _scale(qkv, scale))
+
+
+def flash_attention_qkv_bias(qkv, qkv_bias, causal=False, scale=None):
+    """`flash_attention_qkv` on the bias-free projection output with its
+    (nh*3*hd,) bias added on tile load; differentiable in both."""
+    return _FlashQKV.apply(qkv, qkv_bias, 0, 0.0, causal, _scale(qkv, scale))
+
+
+def flash_attention_qkv_bias_dropout(qkv, qkv_bias, dropout_seed,
+                                     dropout_rate, causal=False, scale=None):
+    """`flash_attention_qkv_bias` with in-kernel attention dropout."""
+    return _FlashQKV.apply(qkv, qkv_bias, int(dropout_seed),
+                           float(dropout_rate), causal, _scale(qkv, scale))

@@ -1,18 +1,22 @@
-"""Row LayerNorm forward: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Row LayerNorm forward and backward: the hand-written CUDA kernels,
+their plain PyTorch versions, and the autograd functions over them.
 
-Port of ``rocm_apex_tpu/ops/layer_norm.py`` (forward only; the
-backward and the in-kernel dropout belong to the training slice). The
-kernel (``csrc/layer_norm.cu``) replaces the TPU kernel
-``_ln_fwd_kernel`` (rocm_apex_tpu/ops/layer_norm.py:78). It is bound by
-bytes: one warp per row, every pass a coalesced warp load, the row
-re-read from L1 for the second and third passes.
+Port of ``rocm_apex_tpu/ops/layer_norm.py``. The kernels
+(``csrc/layer_norm.cu``) replace the TPU kernels ``_ln_fwd_kernel``
+(rocm_apex_tpu/ops/layer_norm.py:78), plain, residual and with in-kernel
+dropout on the residual delta, and ``_ln_bwd_kernel`` (:204). Both are
+bound by bytes: one warp per row, every pass a coalesced warp load, the
+row re-read from L1 for the later passes; the backward reduces
+dgamma/dbeta in two fixed-order fp32 stages (per-block partials, then a
+column reduction).
 
-For a CUDA tensor the wrappers launch the kernel (or raise); for a CPU
-tensor they run the plain version. Statistics are fp32 whatever the
-storage dtype; the residual form returns ``(LN(x + delta), x + delta)``
+For a CUDA tensor the wrappers launch the kernels (or raise); for a CPU
+tensor they run the plain versions. Statistics are fp32 whatever the
+storage dtype; the residual forms return ``(LN(x + delta), x + delta)``
 with the stream in x's dtype and the normalization computed from the
-fp32 sum, as the TPU kernel does.
+fp32 sum, as the TPU kernel does. Dropout keeps element (row, col) of
+the delta iff ``ops/_dropout``'s hash of (seed, 0, row, col) clears the
+rate's threshold; the backward regenerates the same bits.
 """
 
 import ctypes
@@ -20,34 +24,70 @@ from typing import Optional, Tuple
 
 import torch
 
+from rocm_apex_tpu_torch.ops import _dropout
 from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
 
 __all__ = [
     "LN_FWD",
+    "LN_FWD_DROPOUT",
+    "LN_BWD",
     "layer_norm_fwd",
     "layer_norm_affine",
     "layer_norm_residual_affine",
+    "layer_norm_residual_dropout_affine",
     "layer_norm_fwd_plain",
+    "layer_norm_bwd_plain",
 ]
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint32
+_F = ctypes.c_float
+_FWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _U, _U, _F,
+             _I, _I, _I, _P]
 LN_FWD = Kernel(
     name="layer_norm_fwd",
     source="layer_norm.cu",
     symbol="ln_fwd",
-    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-              ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    argtypes=_FWD_ARGS,
     replaces="rocm_apex_tpu/ops/layer_norm.py:78 _ln_fwd_kernel",
 )
+# the same kernel with dropout on the delta: counted apart, so a run
+# shows how many of its LayerNorms took the dropout form
+LN_FWD_DROPOUT = Kernel(
+    name="layer_norm_fwd_dropout",
+    source="layer_norm.cu",
+    symbol="ln_fwd",
+    argtypes=_FWD_ARGS,
+    replaces="rocm_apex_tpu/ops/layer_norm.py:78 _ln_fwd_kernel",
+)
+LN_BWD = Kernel(
+    name="layer_norm_bwd",
+    source="layer_norm.cu",
+    symbol="ln_bwd",
+    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U,
+              _F, _I, _I, _I, _P],
+    replaces="rocm_apex_tpu/ops/layer_norm.py:204 _ln_bwd_kernel",
+)
+_BWD_ROWS_PER_BLOCK = 32  # csrc/layer_norm.cu kBwdRowsPerBlock
 
 
-def layer_norm_fwd_plain(x2d, delta2d, weight, bias, eps, out_dtype):
+def _dropped(delta2d, rate, seed):
+    d = delta2d.float()
+    if rate > 0.0:
+        keep = _dropout.keep_mask(seed, rate, d.shape, device=d.device)
+        d = torch.where(keep, d * _dropout.keep_scale(rate), 0.0)
+    return d
+
+
+def layer_norm_fwd_plain(x2d, delta2d, weight, bias, eps, out_dtype,
+                         rate=0.0, seed=0):
     """The plain PyTorch version: returns (y, s, mean, rsigma); s is None
     without a delta."""
     x = x2d.float()
     s = None
     if delta2d is not None:
-        x = x + delta2d.float()
+        x = x + _dropped(delta2d, rate, seed)
         s = x.to(x2d.dtype)
     mu = x.mean(dim=1, keepdim=True)
     xc = x - mu
@@ -58,7 +98,18 @@ def layer_norm_fwd_plain(x2d, delta2d, weight, bias, eps, out_dtype):
     return y.to(out_dtype), s, mu[:, 0], rs[:, 0]
 
 
-def _ln_fwd_impl(x2d, delta2d, weight, bias, eps, out_dtype):
+def _check_device(*tensors):
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise RuntimeError(f"no kernel for device {dev}")
+    for t in tensors:
+        if t is not None and (t.device != dev or not t.is_contiguous()):
+            raise ValueError("the LayerNorm kernels take contiguous tensors "
+                             "on one device")
+
+
+def _ln_fwd_impl(x2d, delta2d, weight, bias, eps, out_dtype,
+                 rate=0.0, seed=0):
     if x2d.dim() != 2:
         raise ValueError(f"expected a (rows, hidden) view, got {tuple(x2d.shape)}")
     rows, hidden = x2d.shape
@@ -72,16 +123,12 @@ def _ln_fwd_impl(x2d, delta2d, weight, bias, eps, out_dtype):
         )
     if (weight is None) != (bias is None):
         raise ValueError("pass both weight and bias, or neither")
+    if rate > 0.0 and delta2d is None:
+        raise ValueError("in-kernel dropout rides the residual form")
     if x2d.device.type == "cpu":
-        return layer_norm_fwd_plain(x2d, delta2d, weight, bias, eps, out_dtype)
-    if x2d.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {x2d.device}")
-    tensors = [x2d, delta2d, weight, bias]
-    for t in tensors:
-        if t is not None and (t.device != x2d.device or not t.is_contiguous()):
-            raise ValueError(
-                "layer_norm_fwd takes contiguous tensors on one device"
-            )
+        return layer_norm_fwd_plain(x2d, delta2d, weight, bias, eps,
+                                    out_dtype, rate, seed)
+    _check_device(x2d, delta2d, weight, bias)
     if weight is not None and (
         weight.shape != (hidden,) or bias.shape != (hidden,)
         or bias.dtype != weight.dtype
@@ -93,13 +140,107 @@ def _ln_fwd_impl(x2d, delta2d, weight, bias, eps, out_dtype):
     rsigma = torch.empty_like(mean)
     if rows > 0:
         w_code = dtype_code(weight.dtype) if weight is not None else 0
-        LN_FWD(
+        kernel = LN_FWD_DROPOUT if rate > 0.0 else LN_FWD
+        kernel(
             ptr(x2d), ptr(delta2d), ptr(weight), ptr(bias), ptr(y), ptr(s),
             ptr(mean), ptr(rsigma), rows, hidden, float(eps),
+            int(rate > 0.0), int(seed) & 0xFFFFFFFF,
+            _dropout.threshold(rate), _dropout.keep_scale(rate),
             dtype_code(x2d.dtype), w_code, dtype_code(out_dtype),
             stream_ptr(x2d.device),
         )
     return y, s, mean, rsigma
+
+
+def layer_norm_bwd_plain(x2d, dy, ds, mean, rsigma, weight, rate=0.0,
+                         seed=0):
+    """The plain PyTorch version of the affine backward: returns
+    (dx, dd, dgamma, dbeta); dd is None without dropout."""
+    xh = (x2d.float() - mean[:, None]) * rsigma[:, None]
+    g = dy.float()
+    gg = g * weight.float()
+    c1 = gg.mean(dim=1, keepdim=True)
+    c2 = (gg * xh).mean(dim=1, keepdim=True)
+    dx = rsigma[:, None] * (gg - c1 - xh * c2)
+    if ds is not None:
+        dx = dx + ds.float()
+    dd = None
+    if rate > 0.0:
+        keep = _dropout.keep_mask(seed, rate, dx.shape, device=dx.device)
+        dd = torch.where(keep, dx * _dropout.keep_scale(rate), 0.0)
+        dd = dd.to(x2d.dtype)
+    return (dx.to(x2d.dtype), dd, (g * xh).sum(dim=0).to(weight.dtype),
+            g.sum(dim=0).to(weight.dtype))
+
+
+def _layer_norm_bwd(x2d, dy, ds, mean, rsigma, weight, rate=0.0, seed=0):
+    """Affine LN backward on (rows, hidden): x2d is the forward's LN input
+    (the stream s of the residual forms), ds the stream's cotangent or
+    None. Returns (dx, dd, dgamma, dbeta), dd None without dropout."""
+    if x2d.device.type == "cpu":
+        return layer_norm_bwd_plain(x2d, dy, ds, mean, rsigma, weight,
+                                    rate, seed)
+    dy = dy.contiguous()
+    ds = ds.contiguous() if ds is not None else None
+    _check_device(x2d, dy, ds, mean, rsigma, weight)
+    if ds is not None and ds.dtype != x2d.dtype:
+        raise TypeError("the stream cotangent must be in the stream's dtype")
+    rows, hidden = x2d.shape
+    dx = torch.empty_like(x2d)
+    dd = torch.empty_like(x2d) if rate > 0.0 else None
+    dgamma = torch.empty((hidden,), dtype=weight.dtype, device=x2d.device)
+    dbeta = torch.empty_like(dgamma)
+    if rows == 0:
+        return dx, dd, dgamma.zero_(), dbeta.zero_()
+    blocks = -(-rows // _BWD_ROWS_PER_BLOCK)
+    part = torch.empty((blocks, 2, hidden), dtype=torch.float32,
+                       device=x2d.device)
+    LN_BWD(
+        ptr(x2d), ptr(dy), ptr(ds), ptr(mean), ptr(rsigma), ptr(weight),
+        ptr(dx), ptr(dd), ptr(part), ptr(dgamma), ptr(dbeta), rows, hidden,
+        int(rate > 0.0), int(seed) & 0xFFFFFFFF, _dropout.threshold(rate),
+        _dropout.keep_scale(rate), dtype_code(x2d.dtype),
+        dtype_code(weight.dtype), dtype_code(dy.dtype),
+        stream_ptr(x2d.device),
+    )
+    return dx, dd, dgamma, dbeta
+
+
+class _LayerNormAffine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2d, weight, bias, eps, out_dtype):
+        y, _, mu, rs = _ln_fwd_impl(x2d, None, weight, bias, eps, out_dtype)
+        ctx.save_for_backward(x2d, weight, mu, rs)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, weight, mu, rs = ctx.saved_tensors
+        dx, _, dg, db = _layer_norm_bwd(x2d, dy, None, mu, rs, weight)
+        return dx, dg, db, None, None
+
+
+class _LayerNormResidual(torch.autograd.Function):
+    """(LN(x + dropout(delta)), x + dropout(delta)); the backward folds
+    the stream cotangent into dx and regenerates the keep bits."""
+
+    @staticmethod
+    def forward(ctx, x2d, delta2d, weight, bias, seed, rate, eps, out_dtype):
+        y, s, mu, rs = _ln_fwd_impl(x2d, delta2d, weight, bias, eps,
+                                    out_dtype, rate, seed)
+        ctx.save_for_backward(s, weight, mu, rs)
+        ctx.rate, ctx.seed = rate, seed
+        ctx.set_materialize_grads(False)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        s, weight, mu, rs = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(s.shape, dtype=weight.dtype, device=s.device)
+        dx, dd, dg, db = _layer_norm_bwd(s, dy, ds, mu, rs, weight,
+                                         ctx.rate, ctx.seed)
+        return (dx, dx if dd is None else dd, dg, db, None, None, None, None)
 
 
 def layer_norm_fwd(
@@ -109,18 +250,31 @@ def layer_norm_fwd(
     eps: float,
     out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """LN forward on a (rows, hidden) view; returns (y, mean, rsigma)."""
+    """LN forward on a (rows, hidden) view; returns (y, mean, rsigma).
+    Not differentiable: the autograd forms are the ``*_affine`` ones."""
     y, _, mu, rs = _ln_fwd_impl(x2d, None, weight, bias, eps, out_dtype)
     return y, mu, rs
 
 
-def layer_norm_affine(x2d, weight, bias, eps):
-    """Affine LN on (rows, hidden); output in x's dtype."""
-    return _ln_fwd_impl(x2d, None, weight, bias, eps, None)[0]
+def layer_norm_affine(x2d, weight, bias, eps, out_dtype=None):
+    """Affine LN on (rows, hidden) with the fused backward; output in
+    ``out_dtype`` (default x's)."""
+    return _LayerNormAffine.apply(x2d, weight, bias, eps, out_dtype)
 
 
-def layer_norm_residual_affine(x2d, delta2d, weight, bias, eps, out_dtype=None):
+def layer_norm_residual_affine(x2d, delta2d, weight, bias, eps,
+                               out_dtype=None):
     """(LN(x + delta), x + delta) in one kernel on (rows, hidden) views:
-    ``y`` in ``out_dtype`` (default x's), the stream ``s`` in x's."""
-    y, s, _, _ = _ln_fwd_impl(x2d, delta2d, weight, bias, eps, out_dtype)
-    return y, s
+    ``y`` in ``out_dtype`` (default x's), the stream ``s`` in x's. The
+    backward folds the stream cotangent into the dx pass; dx == ddelta."""
+    return _LayerNormResidual.apply(x2d, delta2d, weight, bias, 0, 0.0, eps,
+                                    out_dtype)
+
+
+def layer_norm_residual_dropout_affine(x2d, delta2d, weight, bias, seed,
+                                       rate, eps, out_dtype=None):
+    """`layer_norm_residual_affine` with dropout on the delta inside the
+    kernel (keep probability 1 - rate, kept values scaled by 1/(1-rate));
+    ``seed`` is an int32 value, one per dropout site and step."""
+    return _LayerNormResidual.apply(x2d, delta2d, weight, bias, int(seed),
+                                    float(rate), eps, out_dtype)

@@ -1,0 +1,60 @@
+"""One mixed-precision GPT training step.
+
+The counterpart of ``make_one_step`` in the JAX package's bench.py
+(bench.py:2533-2578): the model's fused-head mean loss, scaled by the
+dynamic loss scale; backward; `MixedPrecisionAdam.step_and_probe` with
+``grad_scale = 1 / loss_scale`` (the unscale and the overflow probe ride
+the update); `LossScaler.update`. The step returns the unscaled loss as
+a device tensor and never reads a value back to the host.
+"""
+
+from typing import Callable, Optional
+
+import torch
+
+from rocm_apex_tpu_torch.amp import LossScaler, ScalerState
+from rocm_apex_tpu_torch.optimizers import MixedPrecisionAdam, MixedPrecisionState
+
+__all__ = ["make_train_step"]
+
+
+def make_train_step(model, opt: MixedPrecisionAdam,
+                    scaler: LossScaler) -> Callable:
+    """``step(state, sstate, tokens, labels, loss_mask=None,
+    dropout_generator=None) -> (state, sstate, loss)``.
+
+    ``state`` is the optimizer's state over ``model`` (see
+    `convert.train_state_from_jax_params`), ``sstate`` the scaler's.
+    Inputs move to the model's device (the one `resolve_device` chose
+    when the model was built). With ``dropout_generator`` (a CPU
+    `torch.Generator`) dropout is on, seeded per site from it; without,
+    the step is deterministic.
+    """
+    device = model.device
+    params = [p for p in model.parameters()]
+
+    def step(state: MixedPrecisionState, sstate: ScalerState,
+             tokens: torch.Tensor, labels: torch.Tensor,
+             loss_mask: Optional[torch.Tensor] = None,
+             dropout_generator: Optional[torch.Generator] = None):
+        for p in params:
+            p.grad = None
+        tokens = tokens.to(device)
+        labels = labels.to(device)
+        if loss_mask is not None:
+            loss_mask = loss_mask.to(device)
+        mean = model(
+            tokens, labels=labels, loss_mask=loss_mask,
+            loss_reduction="mean", deterministic=dropout_generator is None,
+            dropout_generator=dropout_generator,
+        )
+        scaled = scaler.scale(sstate, mean)
+        scaled.backward()
+        grads = {k: p.grad for k, p in state.model.items()}
+        inv_scale = 1.0 / scaler.loss_scale(sstate)
+        state, found_inf = opt.step_and_probe(state, grads,
+                                              grad_scale=inv_scale)
+        sstate2, _ = scaler.update(sstate, found_inf)
+        return state, sstate2, scaled.detach() * inv_scale
+
+    return step

@@ -208,9 +208,13 @@ class TestCachedSteps:
 
 class TestEntryPoints:
     def test_unported_paths_raise(self, models):
+        """Whole-prompt prefill, tp > 1 and the GPT options the port
+        cannot run yet raise, naming their ROADMAP item."""
         _, _, model = models
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model(torch.zeros((1, 4), dtype=torch.int64))
+            GPTConfig(**SHAPE, attention_impl="fused_softmax")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            GPTConfig(**SHAPE, fused_lm_head=False)
         cache = KVCache.for_model(torch_cfg(), 1, CAPACITY, device="cpu")
         with pytest.raises(NotImplementedError, match="whole-prompt"):
             model(torch.zeros((1, 4), dtype=torch.int64), cache=cache)

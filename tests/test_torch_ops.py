@@ -93,14 +93,17 @@ class TestLayerNorm:
         jxb = jnp.asarray(x).astype(jnp.bfloat16)
         jdb = jnp.asarray(d).astype(jnp.bfloat16)
 
-        y = mod(xb)
+        # the module's parameters are trainable: read its outputs
+        # without building a graph
+        with torch.no_grad():
+            y = mod(xb)
+            y2, s2 = mod(db, residual=xb)
         jy = mixed_dtype_fused_layer_norm_affine(
             jxb, jnp.asarray(w), jnp.asarray(b), (32,), 1e-5
         )
         assert y.dtype == torch.float32
         np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
 
-        y2, s2 = mod(db, residual=xb)
         jy2, js2 = mixed_dtype_fused_layer_norm_residual_affine(
             jxb, jdb, jnp.asarray(w), jnp.asarray(b), (32,), 1e-5
         )
