@@ -12,34 +12,51 @@ JAX package) through these phases, in order; any failure exits non-zero:
 3. kernels   each kernel's wrapper on card tensors at the shapes of the
              serve and of the training step, in bf16 and fp32, held
              against its plain PyTorch version on the same inputs
-             (dropout cases included: both draw the same keep bits);
+             (dropout cases included: both draw the same keep bits; the
+             paged decode read at page sizes 16 and 64 over bf16, fp32
+             and int8 pools, with prefixes ending mid-page and a dead row
+             whose bound reaches unmapped table entries);
              kernel, plain and library times with CUDA events, and the
              least time the card could take (bound);
 4. parity    the serving config at full width but 2 layers, fp32 with
              TF32 off: first-chunk logits and greedy tokens of the engine
              on the card (kernels) against the engine on the CPU (plain
-             versions), from the same seeded weights;
+             versions), from the same seeded weights; then the paged
+             engine (page size 16): its tokens on the card against the
+             CPU's and the contiguous engine's, int8 pages card against
+             CPU (tokens, and the logits of two chunks), prefix sharing
+             against no sharing (tokens; hits and copy-on-write forks
+             counted), and a pool below demand (page stalls, every
+             request done, no page left in use);
 5. serve     the full serving config in bf16 (GPT 8 layers, hidden 1024,
              8 heads, vocab 32768; 8 slots, capacity 1024, budget 256) on
              32 requests of 64 new tokens, greedy; every kernel's launch
              count is reset just before the timed run and read after it,
              and each serving kernel's must be > 0;
-6. train parity  the training config at full width but 2 layers, S 256,
+6. serve_paged  the same serve on the paged cache (page size 16, the
+             worst-case pool) in three forms: bf16 pages, int8 pages, and
+             bench.py's shared-prefix traffic (a 250-token prefix and
+             4-16 random tail tokens) with prefix sharing; per form the
+             serve's metrics, cache bytes, peak pages in use, the paged
+             kernel's launches (> 0 for the variant the form runs) and
+             the requests whose tokens match the contiguous serve's;
+7. train parity  the training config at full width but 2 layers, S 256,
              B 2, fp32 with TF32 off, dropout 0: three optimizer steps on
              the card against the same on the CPU — losses within a
              stated tolerance, the same skip decisions;
-7. train     the bench.py GPT step in bf16 with fp32 masters (8 layers,
+8. train     the bench.py GPT step in bf16 with fp32 masters (8 layers,
              hidden 1024, 8 heads, vocab 32768, B 16 x S 1024, dropout
              0.1, fused linear+CE head, MixedPrecisionAdam under a dynamic
              LossScaler): 5 warm-up and 20 timed steps on one batch;
              tokens/s, step ms, losses, peak memory, and each training
              kernel's wrapper calls per step against the stack's count;
-8. report    a ``{"kernels": [...]}`` line, then the device line
+9. report    a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
 spill report to DIR/chip_smoke.json. ``--profile`` adds profiled serve
-and train windows that report the device's busy share. ``--only`` runs a
+(contiguous and paged) and train windows that report the device's busy
+share. ``--only`` runs a
 subset of the phases (a check of one part; the full run is the smoke).
 
 It needs one CUDA device and nvcc (CUDA_HOME, PATH or /usr/local/cuda).
@@ -118,9 +135,24 @@ TOL = {torch.float32: dict(rtol=0.0, atol=1e-4),
 PARITY_LOGIT_ATOL = 1e-3
 
 
-PHASES = ("kernels", "parity", "serve", "train_parity", "train")
+# the paged serve: bench.py serve --paged at page size 16 with the
+# worst-case pool; --shared-prefix traffic is one 250-token prefix (not
+# page-aligned: the tails start inside a shared page) and 4-16 random
+# tail tokens per request
+PAGE_SIZE = 16
+SHARED_PREFIX = 250
+PARITY_NEW = 8  # new tokens per request in the parity phase
+CARD = "cuda"  # the engine phases' device (a CPU rehearsal renames it)
+
+PHASES = ("kernels", "parity", "serve", "serve_paged", "train_parity",
+          "train")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_attention_segments_with_lse",
                  "flash_attention_decode")
+# the paged serve's kernels: the contiguous decode read gives way to the
+# paged one, float or int8 by the form's pools
+PAGED_SERVE_KERNELS = ("layer_norm_fwd", "flash_attention_segments_with_lse")
+PAGED_KERNELS = ("flash_attention_decode_paged",
+                 "flash_attention_decode_paged_int8")
 
 
 class SmokeFailure(RuntimeError):
@@ -423,6 +455,160 @@ def decode_cases(dev):
             )
 
 
+def _paged_table(lens, ps, num_pages, gen, dev, mapped=None):
+    """A page table mapping each slot's live pages (``mapped[s]`` pages
+    where given, else ceil(lens[s] / ps)) onto a random permutation of
+    the pool; the rest hold the sentinel num_pages."""
+    pps = CAPACITY // ps
+    perm = torch.randperm(num_pages, generator=gen, device="cpu")
+    table = torch.full((SLOTS, pps), num_pages, dtype=torch.int32)
+    at = 0
+    for s, n in enumerate(lens):
+        n = mapped[s] if mapped and s in mapped else -(-int(n) // ps)
+        table[s, :n] = perm[at:at + n].int()
+        at += n
+    return table.to(dev)
+
+
+def _paged_rows_read(table, lens, ps, num_pages, slots):
+    """Distinct pool rows (page * ps + offset) that reads bounded by
+    ``lens`` of ``slots`` touch, unmapped entries clamped as the kernel
+    clamps them; and the distinct pages."""
+    tab = table.cpu().long()
+    keys = []
+    for s in sorted(set(slots)):
+        t = torch.arange(int(lens[s]))
+        page = tab[s, t // ps].clamp(max=num_pages - 1)
+        keys.append(page * ps + t % ps)
+    keys = torch.unique(torch.cat(keys)) if keys else torch.zeros(0)
+    return keys.numel(), torch.unique(keys // ps).numel()
+
+
+def paged_decode_cases(dev):
+    """The paged decode read (float pools, and int8 pools with fp32
+    scales) at the serve's shapes: the decode grid (8 slots x 8 heads x
+    d 128, prefixes up to 1024: ragged, ending mid-page, and slot 1 a
+    dead row at capacity whose table maps 3 pages, so its bound reaches
+    sentinel entries) and piece B (the 256-row chunk, each row against
+    its own slot's pre-chunk prefix, pads reading nothing), at page sizes
+    16 and 64. The library yardstick is one masked SDPA over a contiguous
+    view gathered beforehand (the gather is not timed)."""
+    from rocm_apex_tpu_torch.ops import flash_attention as fa
+    from rocm_apex_tpu_torch.ops.paging import paged_view
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cpu_gen = torch.Generator().manual_seed(6)
+    h, d = SERVE["num_attention_heads"], SERVE["hidden_size"] // 8
+    grid_len = [CAPACITY, CAPACITY, 17, 513, 300, 64, 1000, 129]
+    chunk_len = [700, 0, 0, 256, 0, 0, 32, 0]
+    ids_np, _ = chunk_slot_ids(BUDGET, SLOTS)
+    slot_ids = torch.from_numpy(ids_np).to(dev)
+    key_slot = torch.arange(SLOTS * CAPACITY, device=dev) // CAPACITY
+    key_pos = torch.arange(SLOTS * CAPACITY, device=dev) % CAPACITY
+    cases = [
+        ("decode grid", 16, torch.bfloat16, False),
+        ("decode grid", 16, torch.float32, False),
+        ("decode grid", 16, torch.bfloat16, True),
+        ("decode grid", 16, torch.float32, True),
+        ("decode grid", 64, torch.bfloat16, False),
+        ("decode grid", 64, torch.bfloat16, True),
+        ("chunk piece B", 16, torch.bfloat16, False),
+        ("chunk piece B", 16, torch.bfloat16, True),
+        ("chunk piece B", 64, torch.bfloat16, False),
+    ]
+    for form, ps, dt, int8 in cases:
+        num_pages = SLOTS * (CAPACITY // ps)  # the worst-case pool
+        grid = form == "decode grid"
+        lens_list = grid_len if grid else chunk_len
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        table = _paged_table(lens_list, ps, num_pages, cpu_gen, dev,
+                             mapped={1: 3} if grid else None)
+        shape = (num_pages, h, ps, d)
+        # 4 pool sets in turn, more than the 50 MB L2 together
+        pools = []
+        for _ in range(4):
+            if int8:
+                kv = [torch.randint(-127, 128, shape, generator=gen,
+                                    device=dev, dtype=torch.int8)
+                      for _ in range(2)]
+                sc = [0.005 + 0.02 * torch.rand((num_pages, h), generator=gen,
+                                                device=dev)
+                      for _ in range(2)]
+            else:
+                kv = [torch.randn(shape, generator=gen, device=dev).to(dt)
+                      for _ in range(2)]
+                sc = [None, None]
+            pools.append((*kv, *sc))
+        rows = SLOTS if grid else BUDGET
+        ids = None if grid else slot_ids
+        q, _, _ = _qkv(rows, h, d, dt, dev, gen)
+        turn = [0]
+
+        def kern(q=q, lens=lens, ids=ids, table=table, pools=pools,
+                 turn=turn):
+            k, v, ks, vs = pools[turn[0] % 4]
+            turn[0] += 1
+            return fa.flash_attention_decode_paged(
+                q, k, v, table, lens, None, ks, vs, return_lse=True,
+                slot_ids=ids)
+
+        def plain(q=q, lens=lens, ids=ids, table=table, pools=pools):
+            k, v, ks, vs = pools[0]
+            return fa.flash_attention_decode_paged_plain(
+                q, k, v, table, lens, 1.0 / math.sqrt(d), ks, vs, ids)
+
+        got, ref = kern(), plain()
+        turn[0] = 0
+        read_slots = (range(SLOTS) if grid else
+                      [s for s in ids_np.tolist() if s < SLOTS])
+        n_rows, n_pages = _paged_rows_read(table, lens_list, ps, num_pages,
+                                           read_slots)
+        elem = 1 if int8 else q.element_size()
+        kv_bytes = 2 * n_rows * h * d * elem + (
+            2 * n_pages * h * 4 if int8 else 0)
+        per_row = (lens.long() if grid else torch.where(
+            slot_ids < SLOTS, lens.long()[slot_ids.clamp(0, SLOTS - 1)], 0))
+        # the gathered contiguous views, in q's dtype (int8 dequantized)
+        views = [tuple(paged_view(p, table, s, out_dtype=dt)
+                       for p, s in ((k, ks), (v, vs)))
+                 for k, v, ks, vs in pools]
+        if grid:  # (slots, heads, capacity, d)
+            tviews = [tuple(x.transpose(1, 2).contiguous() for x in kv)
+                      for kv in views]
+            amask = (torch.arange(CAPACITY, device=dev)[None, :]
+                     < lens[:, None])[:, None, None, :]
+            qs = q.contiguous()[:, :, None, :]
+        else:  # (1, heads, slots * capacity, d)
+            tviews = [tuple(x.permute(2, 0, 1, 3)
+                            .reshape(1, h, SLOTS * CAPACITY, d).contiguous()
+                            for x in kv) for kv in views]
+            amask = ((slot_ids.long()[:, None] == key_slot[None, :])
+                     & (key_pos < lens.long()[key_slot])[None, :]
+                     )[None, None]
+            qs = q.transpose(0, 1).contiguous()[None]
+        del views
+        lturn = [0]
+
+        def lib(qs=qs, amask=amask, tviews=tviews, lturn=lturn):
+            kt, vt = tviews[lturn[0] % 4]
+            lturn[0] += 1
+            return F.scaled_dot_product_attention(qs, kt, vt,
+                                                  attn_mask=amask)
+
+        name = ("flash_attention_decode_paged_int8" if int8
+                else "flash_attention_decode_paged")
+        yield dict(
+            kernel=name,
+            case=f"{form}: {rows} rows x {h} heads, page {ps}, "
+                 f"{'int8' if int8 else str(dt)[6:]} pool "
+                 f"({num_pages}, {h}, {ps}, {d}), q {str(dt)[6:]}",
+            dtype=dt, cmp=compare(got, ref), kern=kern, plain=plain,
+            lib=lib, nbytes=(nbytes(q, lens, ids, table, *got) + kv_bytes),
+            ops=4 * d * h * int(per_row.sum()),
+            headline=grid and ps == 16 and dt == torch.bfloat16,
+        )
+
+
 def _l1_tol(abs_terms_sum):
     """Extra atol for an output that is an fp32 sum over many rows (a
     bias or LayerNorm-parameter gradient): kernel and plain version add
@@ -637,10 +823,187 @@ def serve_prompts(vocab):
             for _ in range(N_REQUESTS)]
 
 
+def shared_prefix_prompts(vocab, n=N_REQUESTS):
+    """bench.py serve --shared-prefix on an accelerator: from
+    RandomState(0), one SHARED_PREFIX-token prefix, then per request a
+    tail of 4-16 uniform token ids."""
+    rng = np.random.RandomState(0)
+    prefix = rng.randint(0, vocab, size=SHARED_PREFIX).tolist()
+    return [prefix + rng.randint(0, vocab, size=int(rng.randint(4, 17)))
+            .tolist() for _ in range(n)]
+
+
+def _engine(model, **kw):
+    """The serving engine of bench.py serve: 8 slots, capacity 1024,
+    budget 256, greedy."""
+    from rocm_apex_tpu_torch.inference import InferenceEngine, SamplingParams
+
+    return InferenceEngine(model, num_slots=SLOTS, capacity=CAPACITY,
+                           prefill_token_budget=BUDGET,
+                           sampling=SamplingParams(temperature=0.0), **kw)
+
+
+def _tokens(eng, prompts, max_new):
+    return [r.tokens for r in eng.generate(prompts, max_new_tokens=max_new)]
+
+
+def _pack(pieces):
+    """A chunk of BUDGET tokens from ``(slot, tokens, start position)``
+    pieces, then pads (slot id SLOTS)."""
+    toks = np.zeros((BUDGET,), np.int64)
+    slots = np.full((BUDGET,), SLOTS, np.int32)
+    pos = np.zeros((BUDGET,), np.int32)
+    at = 0
+    for slot, tk, start in pieces:
+        n = min(len(tk), BUDGET - at)
+        toks[at:at + n], slots[at:at + n] = tk[:n], slot
+        pos[at:at + n] = np.arange(start, start + n)
+        at += n
+    return toks, slots, pos, at
+
+
+def _chunk_logits(model, cache, chunk, dev):
+    toks, slots, pos, n = chunk
+    out, _ = model(torch.from_numpy(toks).to(dev)[None], cache=cache,
+                   chunk=(torch.from_numpy(slots).to(dev),
+                          torch.from_numpy(pos).to(dev)))
+    return out[0, :n].cpu()
+
+
+def run_paged_parity(cfg, models, prompts, contiguous):
+    """The paged engine at page size 16 on the parity config: fp32
+    tokens card == CPU == the contiguous engine's (``contiguous``); int8
+    pages card against CPU; prefix sharing against no sharing; and a
+    pool below demand."""
+    from rocm_apex_tpu_torch.inference import PagedKVCache
+
+    res = {}
+    paged = {dev: _tokens(_engine(m, paged=True, page_size=PAGE_SIZE),
+                          prompts, PARITY_NEW)
+             for dev, m in models.items()}
+    same = paged[CARD] == paged["cpu"] == contiguous
+    log(f"  paged fp32 greedy tokens, page {PAGE_SIZE}: cuda "
+        f"{'==' if same else '!='} cpu, contiguous")
+    check(same, f"paged greedy tokens differ: {paged}, contiguous "
+          f"{contiguous}")
+    res["paged_tokens_identical"] = same
+
+    # int8 pages through the model, two chunks of three prompt pieces on
+    # a permuted table. The first chunk's logits read only the chunk's
+    # own fp32 K/V; its int8 writes may differ by one step where the
+    # card's and the CPU's K/V straddle a rounding boundary. The second
+    # chunk reads the first's pages (the int8 kernel on the card): both
+    # sides start it from the CPU's bytes, so its logits differ by
+    # summation order only.
+    pieces = [(2, prompts[0]), (0, prompts[1]), (5, prompts[2])]
+    n1 = [min(len(p) // 2, 64) for _, p in pieces]
+    chunks = [
+        _pack([(s, p[:n], 0) for (s, p), n in zip(pieces, n1)]),
+        _pack([(s, p[n:n + 64], n) for (s, p), n in zip(pieces, n1)]),
+    ]
+    caches = {dev: PagedKVCache.for_model(cfg, SLOTS, CAPACITY,
+                                          page_size=PAGE_SIZE,
+                                          quantized=True, device=dev)
+              for dev in models}
+    table = torch.from_numpy(np.random.RandomState(1).permutation(
+        caches["cpu"].num_pages).reshape(SLOTS, -1).astype(np.int32))
+    lengths = torch.zeros((SLOTS,), dtype=torch.int32)
+    int8 = {}
+    for i, chunk in enumerate(chunks):
+        logits = {}
+        for dev, model in models.items():
+            c = caches[dev]
+            c.page_table.copy_(table)
+            c.lengths = lengths.to(dev)
+            logits[dev] = _chunk_logits(model, c, chunk, dev)
+        err = max_err(logits[CARD], logits["cpu"])
+        log(f"  int8 pages, chunk {i + 1} logits ({chunk[3]} rows): "
+            f"max|cuda - cpu| {err:.3e} (atol {PARITY_LOGIT_ATOL:g})")
+        check(bool(torch.isfinite(logits[CARD]).all()), "nonfinite logits")
+        check(err <= PARITY_LOGIT_ATOL, f"int8 chunk {i + 1} logits differ "
+              f"by {err:.3e}")
+        int8[f"chunk{i + 1}_logit_max_abs_err"] = err
+        if i == 0:
+            gc, cc = caches[CARD], caches["cpu"]
+            steps = max(int((a.cpu().int() - b.int()).abs().max())
+                        for a, b in zip(gc.k + gc.v, cc.k + cc.v))
+            flips = sum(int((a.cpu() != b).sum())
+                        for a, b in zip(gc.k + gc.v, cc.k + cc.v))
+            sc_err = max(max_err(a.cpu(), b) / float(b.abs().max())
+                         for a, b in zip(gc.k_scale + gc.v_scale,
+                                         cc.k_scale + cc.v_scale))
+            log(f"  int8 bytes after chunk 1: {flips} differ, by at most "
+                f"{steps} step(s); scales within {sc_err:.2e} relative")
+            check(steps <= 1 and sc_err <= 1e-5,
+                  "the card's int8 pages differ from the CPU's by more "
+                  "than a rounding step")
+            int8.update(bytes_differing=flips, max_step=steps,
+                        scale_rel_err=sc_err)
+            for a, b in zip(gc.k + gc.v + gc.k_scale + gc.v_scale,
+                            cc.k + cc.v + cc.k_scale + cc.v_scale):
+                a.copy_(b)
+        for slot, _ in pieces:
+            lengths[slot] += int((chunk[1] == slot).sum())
+    q8 = {dev: _tokens(_engine(m, paged=True, page_size=PAGE_SIZE,
+                               kv_dtype=torch.int8), prompts, PARITY_NEW)
+          for dev, m in models.items()}
+    same = q8[CARD] == q8["cpu"]
+    log(f"  int8 pages greedy tokens: cuda {'==' if same else '!='} cpu; "
+        f"{sum(a == b for a, b in zip(q8[CARD], contiguous))}/"
+        f"{len(prompts)} requests match the float cache")
+    check(same, f"int8 greedy tokens differ: {q8}")
+    res["int8"] = dict(int8, tokens_identical=same)
+
+    # prefix sharing on the card: one request registers the prefix, then
+    # the rest borrow it, the partial last page copied on write
+    shared = shared_prefix_prompts(cfg.vocab_size, 6)
+    shared.sort(key=len, reverse=True)  # the first fills its 16th page
+    waves = [shared[:1], shared[1:]]
+    runs = {}
+    for sharing in (True, False):
+        eng = _engine(models[CARD], paged=True, page_size=PAGE_SIZE,
+                      prefix_sharing=sharing)
+        runs[sharing] = ([_tokens(eng, w, PARITY_NEW) for w in waves],
+                         eng.stats())
+    s = runs[True][1]
+    same = runs[True][0] == runs[False][0]
+    log(f"  prefix sharing ({SHARED_PREFIX}-token prefix, page "
+        f"{PAGE_SIZE}): tokens {'==' if same else '!='} unshared; "
+        f"{s['prefix_hits']:.0f} hits, {s['prefix_hit_tokens']:.0f} hit "
+        f"tokens, {s['cow_forks']:.0f} copy-on-write forks")
+    check(same, "prefix sharing changed tokens")
+    check(s["prefix_hits"] > 0 and s["cow_forks"] >= 1,
+          "prefix sharing made no hit or no copy-on-write fork")
+    res["prefix_sharing"] = dict(
+        tokens_identical=same, prefix_hits=s["prefix_hits"],
+        prefix_hit_tokens=s["prefix_hit_tokens"], cow_forks=s["cow_forks"])
+
+    # a pool below demand: the largest request fits, not all at once
+    need = max(-(-(len(p) + PARITY_NEW) // PAGE_SIZE) for p in prompts)
+    eng = _engine(models[CARD], paged=True, page_size=PAGE_SIZE,
+                  num_pages=need + 2)
+    results = eng.generate(prompts, max_new_tokens=PARITY_NEW)
+    s = eng.stats()
+    match = sum(r.tokens == t for r, t in zip(results, contiguous))
+    log(f"  pool of {need + 2} pages: {s['page_stalls']:.0f} page stalls, "
+        f"{s['preemptions']:.0f} preemptions, {eng.pages_used} pages in "
+        f"use after the drain; {match}/{len(prompts)} requests match the "
+        f"contiguous tokens")
+    check(s["page_stalls"] > 0, "the small pool never stalled")
+    check(all(r.finish_reason == "length" and len(r.tokens) == PARITY_NEW
+              for r in results), "a request did not finish under the "
+          "small pool")
+    check(eng.pages_used == 0, "pages left in use after the drain")
+    res["small_pool"] = dict(num_pages=need + 2,
+                             page_stalls=s["page_stalls"],
+                             preemptions=s["preemptions"],
+                             requests_matching_contiguous=match)
+    return res
+
+
 def run_parity_phase():
     from rocm_apex_tpu_torch.convert import from_jax_params, random_params
-    from rocm_apex_tpu_torch.inference import (InferenceEngine, KVCache,
-                                               SamplingParams)
+    from rocm_apex_tpu_torch.inference import KVCache
     from rocm_apex_tpu_torch.models.gpt import GPTConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -649,84 +1012,84 @@ def run_parity_phase():
                     params_dtype=torch.float32, dtype=torch.float32)
     tree = random_params(cfg, seed=0)
     models = {dev: from_jax_params(tree, cfg, device=dev)
-              for dev in ("cuda", "cpu")}
+              for dev in (CARD, "cpu")}
     prompts = serve_prompts(cfg.vocab_size)[:6]
 
     # first chunk: three prompt pieces out of slot order, then pads
-    toks = np.zeros((BUDGET,), np.int64)
-    slots = np.full((BUDGET,), SLOTS, np.int32)
-    pos = np.zeros((BUDGET,), np.int32)
-    at = 0
-    for slot, p in ((2, prompts[0]), (0, prompts[1]), (5, prompts[2])):
-        n = min(len(p), BUDGET - at)
-        toks[at:at + n], slots[at:at + n] = p[:n], slot
-        pos[at:at + n] = np.arange(n)
-        at += n
-    logits = {}
-    for dev, model in models.items():
-        cache = KVCache.for_model(cfg, SLOTS, CAPACITY, device=dev)
-        out, _ = model(torch.from_numpy(toks).to(dev)[None], cache=cache,
-                       chunk=(torch.from_numpy(slots).to(dev),
-                              torch.from_numpy(pos).to(dev)))
-        logits[dev] = out[0, :at].cpu()
-    err = max_err(logits["cuda"], logits["cpu"])
-    check(bool(torch.isfinite(logits["cuda"]).all()), "nonfinite logits")
+    chunk = _pack([(2, prompts[0], 0), (0, prompts[1], 0),
+                   (5, prompts[2], 0)])
+    at = chunk[3]
+    logits = {dev: _chunk_logits(
+        model, KVCache.for_model(cfg, SLOTS, CAPACITY, device=dev), chunk,
+        dev) for dev, model in models.items()}
+    err = max_err(logits[CARD], logits["cpu"])
+    check(bool(torch.isfinite(logits[CARD]).all()), "nonfinite logits")
     log(f"  first-chunk logits ({at} rows x {cfg.vocab_size}): max|cuda - "
         f"cpu| {err:.3e} (atol {PARITY_LOGIT_ATOL:g})")
     check(err <= PARITY_LOGIT_ATOL, f"parity logits differ by {err:.3e}")
 
-    tokens = {}
-    for dev, model in models.items():
-        eng = InferenceEngine(
-            model, num_slots=SLOTS, capacity=CAPACITY,
-            prefill_token_budget=BUDGET,
-            sampling=SamplingParams(temperature=0.0),
-        )
-        tokens[dev] = [r.tokens for r in eng.generate(prompts,
-                                                       max_new_tokens=8)]
-    same = tokens["cuda"] == tokens["cpu"]
-    log(f"  greedy tokens of {len(prompts)} requests x 8: cuda "
+    tokens = {dev: _tokens(_engine(model), prompts, PARITY_NEW)
+              for dev, model in models.items()}
+    same = tokens[CARD] == tokens["cpu"]
+    log(f"  greedy tokens of {len(prompts)} requests x {PARITY_NEW}: cuda "
         f"{'==' if same else '!='} cpu")
     check(same, f"greedy tokens differ: {tokens}")
     return dict(logit_max_abs_err=err, requests=len(prompts),
-                tokens_identical=same)
+                tokens_identical=same,
+                paged=run_paged_parity(cfg, models, prompts,
+                                       tokens[CARD]))
 
 
-def run_serve_phase(profile):
+_SERVE_MODEL = {}
+
+
+def _serve_model():
+    """The full serving config in bf16 on the card, from seeded random
+    weights; built once for the contiguous and the paged serve."""
     from rocm_apex_tpu_torch.convert import from_jax_params, random_params
-    from rocm_apex_tpu_torch.inference import InferenceEngine, SamplingParams
     from rocm_apex_tpu_torch.models.gpt import GPTConfig
+
+    if not _SERVE_MODEL:
+        cfg = GPTConfig(**SERVE, params_dtype=torch.float32,
+                        dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        _SERVE_MODEL["model"] = from_jax_params(random_params(cfg, seed=0),
+                                                cfg, device=CARD)
+        _SERVE_MODEL["load_s"] = time.perf_counter() - t0
+    return _SERVE_MODEL["model"], _SERVE_MODEL["load_s"]
+
+
+def timed_serve(eng, prompts):
+    """One timed serve of ``prompts`` x MAX_NEW greedy tokens on a warm
+    engine: every kernel's launch count is set to 0 just before and read
+    just after. Checks that every request ran to MAX_NEW finite,
+    in-vocabulary tokens; returns (metrics, the requests' tokens)."""
     from rocm_apex_tpu_torch.ops._build import KERNELS
 
-    cfg = GPTConfig(**SERVE, params_dtype=torch.float32,
-                    dtype=torch.bfloat16)
-    t0 = time.perf_counter()
-    model = from_jax_params(random_params(cfg, seed=0), cfg, device="cuda")
-    load_s = time.perf_counter() - t0
-    prompts = serve_prompts(cfg.vocab_size)
-    eng = InferenceEngine(
-        model, num_slots=SLOTS, capacity=CAPACITY,
-        prefill_token_budget=BUDGET,
-        sampling=SamplingParams(temperature=0.0),
-    )
-    eng.generate(prompts[:SLOTS], max_new_tokens=3)  # warm-up
+    vocab = eng.model.cfg.vocab_size
     eng.reset_stats()
     torch.cuda.reset_peak_memory_stats()
     for k in KERNELS:
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    results = eng.generate(prompts, max_new_tokens=MAX_NEW)
+    ids = [eng.add_request(p, MAX_NEW) for p in prompts]
+    done, peak_pages = {}, 0
+    while eng.has_work():
+        for r in eng.step():
+            done[r.request_id] = r
+        peak_pages = max(peak_pages, eng.pages_used)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k.name: k.launches for k in KERNELS}
+    results = [done[i] for i in ids]
     s = eng.stats()
     gen = sum(len(r.tokens) for r in results)
     ticks = int(s["mixed_steps"] + s["decode_only_steps"])
     check(all(r.finish_reason == "length" and len(r.tokens) == MAX_NEW
               for r in results), "a request did not run to max_new_tokens")
     check(s["quarantined"] == 0, "nonfinite logits in the serve run")
-    check(all(0 <= t < cfg.vocab_size for r in results for t in r.tokens),
+    check(all(0 <= t < vocab for r in results for t in r.tokens),
           "token id out of range")
     res = dict(
         requests=len(results), prompt_tokens=int(s["prompt_tokens"]),
@@ -737,23 +1100,105 @@ def run_serve_phase(profile):
         mixed_ticks=int(s["mixed_steps"]),
         decode_only_ticks=int(s["decode_only_steps"]),
         ticks=ticks, mixed_tick_ms=s["prefill_ms_avg"],
-        decode_tick_ms=s["decode_ms_avg"], weights_load_s=load_s,
-        launches=launches,
+        decode_tick_ms=s["decode_ms_avg"], launches=launches,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        cache_bytes=eng.cache_bytes(),
     )
+    if eng.paged:
+        res.update(peak_pages_used=peak_pages,
+                   pages_total=int(s["pages_total"]),
+                   pages_used_after=eng.pages_used,
+                   **{k: s[k] for k in ("prefix_hits", "prefix_hit_tokens",
+                                        "cow_forks", "page_stalls",
+                                        "preemptions")})
     log(f"  {gen} tokens in {dt:.3f} s: {gen / dt:.1f} generated tok/s; "
         f"TTFT p50 {s['ttft_ms_p50']:.1f} ms p95 {s['ttft_ms_p95']:.1f} ms; "
+        f"TPOT p50 {res['tpot_ms_p50']:.2f} ms; "
         f"{ticks} ticks ({res['mixed_ticks']} mixed at "
         f"{s['prefill_ms_avg']:.2f} ms, {res['decode_only_ticks']} decode-only"
-        f" at {s['decode_ms_avg']:.2f} ms)")
+        f" at {s['decode_ms_avg']:.2f} ms); peak "
+        f"{res['peak_mem_gib']:.2f} GiB, cache {res['cache_bytes'] / 2**20:.1f}"
+        f" MiB")
     log(f"  launches in the timed run: {launches}")
+    return res, [r.tokens for r in results]
+
+
+def run_serve_phase(profile):
+    model, load_s = _serve_model()
+    prompts = serve_prompts(model.cfg.vocab_size)
+    eng = _engine(model)
+    eng.generate(prompts[:SLOTS], max_new_tokens=3)  # warm-up
+    res, tokens = timed_serve(eng, prompts)
+    res.update(weights_load_s=load_s, tokens=tokens)
     for name in SERVE_KERNELS:
-        check(launches[name] > 0,
+        check(res["launches"][name] > 0,
               f"kernel {name} was not launched on the serving path")
     if profile:
         res["profile"] = profile_window(
             lambda: eng.generate(prompts[:SLOTS], max_new_tokens=16),
             f"serve: {SLOTS} requests x 16 new tokens")
+    return res
+
+
+def run_serve_paged_phase(profile, contiguous_tokens=None):
+    """The serve on the paged cache in three forms: bf16 pages, int8
+    pages, and shared-prefix traffic with prefix sharing. Each form's
+    launches are counted over its timed run alone; the phase's
+    ``launches`` are their sums. Tokens are compared with the contiguous
+    engine's on the same prompts (the serve phase's, or a run here),
+    counted and not asserted: bf16 GEMMs over other chunk mixes may move
+    a logit by an ulp."""
+    model, load_s = _serve_model()
+    vocab = model.cfg.vocab_size
+    prompts = {"serve": serve_prompts(vocab),
+               "shared": shared_prefix_prompts(vocab)}
+    reference = {"serve": contiguous_tokens}
+    for name, ps in prompts.items():
+        if reference.get(name) is None:
+            reference[name] = _tokens(_engine(model), ps, MAX_NEW)
+    forms = (
+        ("bf16", "serve", dict(), "flash_attention_decode_paged"),
+        ("int8", "serve", dict(kv_dtype=torch.int8),
+         "flash_attention_decode_paged_int8"),
+        ("shared_prefix", "shared", dict(prefix_sharing=True),
+         "flash_attention_decode_paged"),
+    )
+    res = dict(weights_load_s=load_s, page_size=PAGE_SIZE, forms={},
+               launches={})
+    for form, traffic, kw, kernel in forms:
+        log(f"  -- {form} pages ({traffic} traffic)")
+        ps = prompts[traffic]
+        eng = _engine(model, paged=True, page_size=PAGE_SIZE, **kw)
+        eng.generate(ps[:SLOTS], max_new_tokens=3)  # warm-up
+        if eng.prefix_sharing:
+            # a prompt that ends inside a stored page: a partial borrow
+            # and its copy-on-write fork, before the timed run
+            eng.generate([ps[0][:SHARED_PREFIX + 2]], max_new_tokens=3)
+        r, tokens = timed_serve(eng, ps)
+        r["requests_matching_contiguous"] = sum(
+            a == b for a, b in zip(tokens, reference[traffic]))
+        log(f"  {r['peak_pages_used']}/{r['pages_total']} pages at the "
+            f"peak; {r['prefix_hits']:.0f} prefix hits "
+            f"({r['prefix_hit_tokens']:.0f} tokens), {r['cow_forks']:.0f} "
+            f"forks, {r['page_stalls']:.0f} stalls; "
+            f"{r['requests_matching_contiguous']}/{len(ps)} requests match "
+            f"the contiguous tokens")
+        for name in PAGED_SERVE_KERNELS + (kernel,):
+            check(r["launches"][name] > 0,
+                  f"{form}: kernel {name} was not launched on the paged "
+                  f"serving path")
+        check(r["launches"]["flash_attention_decode"] == 0,
+              f"{form}: the paged serve launched the contiguous decode read")
+        check(r["pages_used_after"] == 0, f"{form}: pages left in use")
+        if eng.prefix_sharing:
+            check(r["prefix_hits"] > 0, "shared-prefix traffic made no hit")
+        for name, n in r["launches"].items():
+            res["launches"][name] = res["launches"].get(name, 0) + n
+        if profile:
+            r["profile"] = profile_window(
+                lambda: eng.generate(ps[:SLOTS], max_new_tokens=16),
+                f"paged serve, {form}: {SLOTS} requests x 16 new tokens")
+        res["forms"][form] = r
     return res
 
 
@@ -1002,11 +1447,17 @@ def main(argv=None):
         "kernels": ("kernels (kernel vs plain version on the card)",
                     lambda: run_kernel_phase(
                         dev, (ln_cases, seg_cases, decode_cases,
-                              train_ln_cases, flash_cases))),
+                              paged_decode_cases, train_ln_cases,
+                              flash_cases))),
         "parity": ("parity (2 layers, fp32, TF32 off: cuda kernels vs cpu "
                    "plain)", run_parity_phase),
         "serve": ("serve (8 layers, bf16, 32 requests x 64 tokens)",
                   lambda: run_serve_phase(args.profile)),
+        "serve_paged": (f"serve_paged (the serve on pages of {PAGE_SIZE}: "
+                        "bf16, int8, shared prefix)",
+                        lambda: run_serve_paged_phase(
+                            args.profile,
+                            report.get("serve", {}).get("tokens"))),
         "train_parity": ("train parity (2 layers, S 256, B 2, fp32, TF32 "
                          "off: 3 steps cuda vs cpu)", run_train_parity_phase),
         "train": (f"train (8 layers, bf16, B {TRAIN_BATCH} x S {TRAIN_SEQ}, "
@@ -1026,9 +1477,10 @@ def main(argv=None):
 
     # one line per kernel: its headline case (the bf16 case its path
     # launches most), every case in the --out file, and its launches in
-    # the run of its path (the serve for the serving kernels, the timed
-    # train steps for the training ones; the plain LN forward runs on
-    # both and reports the serve, whose shape heads it). In the serve
+    # the run of its path (the serve for the serving kernels, the paged
+    # serve's three timed runs for the paged decode read, the timed train
+    # steps for the training ones; the plain LN forward runs on all and
+    # reports the serve, whose shape heads it). In the serve
     # every forward runs 9 plain and 8 residual LNs and every tick a
     # decode-grid forward (8 rows), so the plain (8, 1024) LN and the
     # decode grid lead; in training the dropout forms lead.
@@ -1038,6 +1490,8 @@ def main(argv=None):
                   if c["kernel"] == k.name and c["headline"]), {})
         path = "train" if k.name in TRAIN_CALLS_PER_STEP and (
             k.name != "layer_norm_fwd") else "serve"
+        if k.name in PAGED_KERNELS:
+            path = "serve_paged"
         where, _, _ = k.replaces.partition(" ")
         kernels.append(dict(
             name=k.name, route="cuda",

@@ -28,6 +28,9 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -38,6 +41,12 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// x rounded to T's precision (round to nearest even), as a float
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

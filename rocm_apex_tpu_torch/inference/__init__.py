@@ -1,5 +1,5 @@
-"""Serving tier: the KV cache, sampling and the continuous-batching
-engine (chunked prefill on the contiguous cache)."""
+"""Serving tier: the KV caches (contiguous and paged), sampling and the
+continuous-batching engine (chunked prefill)."""
 
 from rocm_apex_tpu_torch.inference.engine import (  # noqa: F401
     FINISH_REASONS,
@@ -9,6 +9,11 @@ from rocm_apex_tpu_torch.inference.engine import (  # noqa: F401
     SamplingParams,
 )
 from rocm_apex_tpu_torch.inference.kv_cache import KVCache  # noqa: F401
+from rocm_apex_tpu_torch.inference.paging import (  # noqa: F401
+    PageAllocator,
+    PagedKVCache,
+    PrefixStore,
+)
 from rocm_apex_tpu_torch.inference.sampling import (  # noqa: F401
     greedy,
     sample,
@@ -21,6 +26,9 @@ __all__ = [
     "GenerationResult",
     "InferenceEngine",
     "KVCache",
+    "PageAllocator",
+    "PagedKVCache",
+    "PrefixStore",
     "Request",
     "SamplingParams",
     "greedy",

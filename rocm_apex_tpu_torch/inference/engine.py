@@ -12,17 +12,32 @@ has its first sampled token fed straight into the same tick's decode
 grid. Ticks with no pending prompt token take the decode-only path.
 
 Inactive slots ride along as dead rows: their sampled tokens are
-discarded, their cache writes land in rows no live request reads, and
-their lengths are pinned. The host's cursors are the truth for the
-lengths a mixed step starts from.
+discarded, their cache writes land in rows no live request reads (on a
+paged cache they sit at capacity and drop), and their lengths are
+pinned. The host's cursors are the truth for the lengths a mixed step
+starts from.
 
-Not ported yet, and refused at construction: the paged cache
-(``paged``, ``kv_dtype``, ``prefix_sharing``), speculative decoding
-(``spec_k``), the fault harness (``faults``), multi-LoRA
-(``adapter_pool``), tracing and the metric registry (``tracer``,
-``registry``), tensor parallelism, and the legacy whole-prompt path
-(``prefill_token_budget=None``). A row whose logits are not finite is
-quarantined (finish reason ``error``), as the JAX engine does.
+``paged=True`` serves from a `PagedKVCache` (``page_size``,
+``num_pages``; ``kv_dtype=torch.int8`` for int8 pools with per-(page,
+head) scales, or a float dtype for the pools): the engine owns the page
+table's host mirror (pushed to the device once per tick when it
+changed), allocates pages as prompts and generations grow, backpressures
+a slot whose page the pool cannot supply (``page_stalls``), and breaks a
+pool deadlock by preempting the youngest page-holding request, whose
+tokens are kept and whose cache is recomputed on re-admission.
+``prefix_sharing=True`` maps a prompt's already-materialized page chain
+by reference (`PrefixStore`) and copy-on-write forks a borrowed page
+before the borrower writes into it.
+
+Not ported yet, and refused at construction: speculative decoding
+(``spec_k``; with it the speculative commits into pages), the fault
+harness (``faults``; with it the ``page_alloc`` site), multi-LoRA
+(``adapter_pool``; with it tier preemption), tracing and the metric
+registry (``tracer``, ``registry``), tensor parallelism (tp>1
+head-sharded pools), page shipping between engines, and the legacy
+whole-prompt path (``prefill_token_budget=None``). A row whose logits
+are not finite is quarantined (finish reason ``error``), as the JAX
+engine does.
 
 Sampling draws from an engine-owned `torch.Generator` seeded with
 ``seed``: a fixed seed replays the same stream on one device, but not
@@ -32,12 +47,17 @@ the JAX engine's stream. Greedy decoding draws nothing.
 import collections
 import dataclasses
 import time
-from typing import Any, Deque, Dict, List, Optional, Sequence
+from typing import Any, Deque, Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
 
 from rocm_apex_tpu_torch.inference.kv_cache import KVCache
+from rocm_apex_tpu_torch.inference.paging import (
+    PageAllocator,
+    PagedKVCache,
+    PrefixStore,
+)
 from rocm_apex_tpu_torch.inference.sampling import sample
 
 __all__ = [
@@ -52,7 +72,7 @@ FINISH_REASONS = ("eos", "length", "capacity", "error")
 
 _NOT_PORTED = (
     "{what} is not ported yet (ROADMAP Queue 1, {item}); the engine "
-    "serves the contiguous cache with the chunked scheduler"
+    "serves the contiguous or the paged cache with the chunked scheduler"
 )
 
 
@@ -89,14 +109,24 @@ class _Slot:
     req: Request
     generated: List[int]
     pos: int = 0  # tokens materialized in the cache for this slot
-    cursor: int = 0  # prompt tokens committed to the cache so far
+    cursor: int = 0  # prefix tokens committed to the cache so far
+    # the tokens to prefill before decoding: the prompt, or for a
+    # request re-admitted after preemption prompt + generated[:-1]
+    prefix: List[int] = dataclasses.field(default_factory=list)
+    resumed: bool = False  # re-admitted after preemption mid-decode
     leased_at: float = 0.0
     first_token_at: float = 0.0
     chunks: int = 0  # mixed ticks that carried this prompt
+    # paged cache: page indices borrowed from the prefix store (shared
+    # until a copy-on-write fork), the chain key of the last full prompt
+    # page walked or registered, and how many full prompt pages that is
+    borrowed: Set[int] = dataclasses.field(default_factory=set)
+    chain_key: Any = None
+    reg_pages: int = 0
 
     @property
     def prefilling(self) -> bool:
-        return self.cursor < len(self.req.prompt)
+        return self.cursor < len(self.prefix)
 
 
 class InferenceEngine:
@@ -104,7 +134,8 @@ class InferenceEngine:
 
     ``model`` is the port's `GPTModel` with its weights loaded (see
     `rocm_apex_tpu_torch.convert`); the engine runs on the model's
-    device; the cache is in the model's compute dtype.
+    device; the cache is in the model's compute dtype (a paged cache's
+    float pools in ``kv_dtype`` if given).
     ``prefill_token_budget`` is the prompt tokens absorbed per tick
     across requests; ``prefill_chunk`` optionally caps one request's
     share of it.
@@ -127,7 +158,9 @@ class InferenceEngine:
         prefill_token_budget: Optional[int] = 64,
         prefill_chunk: Optional[int] = None,
         paged: bool = False,
-        kv_dtype: Any = None,
+        page_size: int = 16,
+        num_pages: Optional[int] = None,
+        kv_dtype: Optional[torch.dtype] = None,
         prefix_sharing: bool = False,
         spec_k: int = 0,
         faults=None,
@@ -136,13 +169,12 @@ class InferenceEngine:
         registry=None,
     ):
         refused = [
-            (paged or kv_dtype is not None or prefix_sharing,
-             "the paged KV cache (paged/kv_dtype/prefix_sharing)",
-             "item 2, paged serving"),
-            (spec_k, "speculative decoding (spec_k)", "item 6"),
-            (faults is not None, "the fault harness (faults)", "item 6"),
-            (adapter_pool is not None, "multi-LoRA serving (adapter_pool)",
-             "item 6"),
+            (spec_k, "speculative decoding (spec_k), and with it "
+             "speculative commits into pages", "item 6"),
+            (faults is not None, "the fault harness (faults), and with "
+             "it the page_alloc site", "item 6"),
+            (adapter_pool is not None, "multi-LoRA serving (adapter_pool)"
+             ", and with it tier preemption", "item 6"),
             (tracer is not None or registry is not None,
              "request tracing and the metric registry", "item 7"),
             (prefill_token_budget is None,
@@ -174,9 +206,43 @@ class InferenceEngine:
         self.prefill_chunk = prefill_chunk
         self.eos_id = eos_id
         self.sampling = sampling or SamplingParams()
-        self.cache = KVCache.for_model(
-            cfg, num_slots, self.capacity, device=self.device
-        )
+        self.paged = bool(paged)
+        self.prefix_sharing = bool(prefix_sharing)
+        self._allocator: Optional[PageAllocator] = None
+        self._store: Optional[PrefixStore] = None
+        # preempted-request carryover: request_id -> (generated tokens,
+        # first_token_at, chunk count), restored on re-admission
+        self._preempted: Dict[int, Any] = {}
+        if not self.paged:
+            if prefix_sharing:
+                raise ValueError("prefix_sharing requires paged=True")
+            if kv_dtype is not None:
+                raise ValueError(
+                    "kv_dtype requires paged=True (the contiguous cache is "
+                    "in the model's compute dtype)"
+                )
+            self.cache = KVCache.for_model(
+                cfg, num_slots, self.capacity, device=self.device
+            )
+        else:
+            quantized = kv_dtype == torch.int8
+            self.cache = PagedKVCache.for_model(
+                cfg, num_slots, self.capacity, page_size=page_size,
+                num_pages=num_pages,
+                dtype=None if quantized else kv_dtype,
+                quantized=quantized, device=self.device,
+            )
+            self._allocator = PageAllocator(self.cache.num_pages)
+            if prefix_sharing:
+                self._store = PrefixStore(page_size)
+                self._allocator.on_evict = self._store.unregister_page
+            # the page table's host mirror, the source of truth, pushed
+            # to the device once per tick when it changed
+            self._table = np.full(
+                (num_slots, self.cache.pages_per_slot),
+                self.cache.num_pages, np.int32,
+            )
+            self._table_dirty = False
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._queue: Deque[Request] = collections.deque()
@@ -224,6 +290,11 @@ class InferenceEngine:
         self._decode_steps = 0  # ticks that ran the decode grid
         self._decode_only_steps = 0
         self._mixed_steps = 0
+        self._cow_forks = 0
+        self._prefix_hits = 0
+        self._prefix_hit_tokens = 0
+        self._page_stalls = 0
+        self._preemptions = 0
         self._queue_waits: Deque[float] = collections.deque(
             maxlen=self._STATS_RETENTION
         )
@@ -245,15 +316,39 @@ class InferenceEngine:
         (``decode_ms_avg``), tokens/s over each phase's time; and the
         exact percentiles ``queue_wait_ms_p50/95`` (enqueue -> slot
         lease) and ``ttft_ms_p50/95`` (enqueue -> first token) over the
-        newest ``_STATS_RETENTION`` requests."""
+        newest ``_STATS_RETENTION`` requests. The paged cache's gauges
+        ``pages_total``, ``pages_used``, ``page_occupancy``,
+        ``shared_page_ratio`` (mapped table entries on a page with more
+        than one reference) and counters ``cow_forks``, ``prefix_hits``,
+        ``prefix_hit_tokens``, ``page_stalls``, ``preemptions`` are zeros
+        on the contiguous cache."""
 
         def pct_ms(samples, q):
             if not samples:
                 return 0.0
             return 1e3 * float(np.percentile(np.asarray(samples), q))
 
+        pages_total = float(self.cache.num_pages) if self.paged else 0.0
+        pages_used = float(self.pages_used)
+        shared_ratio = 0.0
+        if self.paged:
+            mapped = self._table[self._table != self.cache.num_pages]
+            if mapped.size:
+                shared = sum(1 for p in mapped
+                             if self._allocator.refcount(int(p)) > 1)
+                shared_ratio = shared / mapped.size
         decode_generated = self._generated_tokens - self._admitted
         return {
+            "pages_total": pages_total,
+            "pages_used": pages_used,
+            "page_occupancy": (pages_used / pages_total if pages_total
+                               else 0.0),
+            "shared_page_ratio": shared_ratio,
+            "cow_forks": float(self._cow_forks),
+            "prefix_hits": float(self._prefix_hits),
+            "prefix_hit_tokens": float(self._prefix_hit_tokens),
+            "page_stalls": float(self._page_stalls),
+            "preemptions": float(self._preemptions),
             "queue_depth": float(self.num_queued),
             "slots_active": float(self.num_active),
             "slot_occupancy": self.num_active / self.num_slots,
@@ -286,6 +381,20 @@ class InferenceEngine:
             "ttft_ms_p50": pct_ms(self._ttfts, 50),
             "ttft_ms_p95": pct_ms(self._ttfts, 95),
         }
+
+    def cache_bytes(self) -> int:
+        """Device bytes the KV cache holds: buffers or pools, scales,
+        the page table and the lengths."""
+        if self.paged:
+            return self.cache.cache_bytes()
+        c = self.cache
+        return sum(t.numel() * t.element_size()
+                   for t in (*c.k, *c.v, c.lengths))
+
+    @property
+    def pages_used(self) -> int:
+        """Pages holding a live mapping (0 on the contiguous cache)."""
+        return self._allocator.pages_used if self.paged else 0
 
     def add_request(
         self,
@@ -367,8 +476,15 @@ class InferenceEngine:
 
     def _decode_body(self, tokens, active):
         """The decode grid: every slot writes its token at its length
-        and reads its prefix; inactive slots' lengths are pinned."""
+        and reads its prefix; inactive slots' lengths are pinned. On a
+        paged cache a dead row runs at the device capacity, so its write
+        drops: at its own length it could land in a live page, maybe a
+        shared one, and raise an int8 page's scale."""
         lengths0 = self.cache.lengths
+        if self.paged:
+            self.cache.lengths = torch.where(
+                active, lengths0, self.cache.capacity
+            ).to(torch.int32)
         logits, _ = self.model(tokens[:, None], cache=self.cache)
         self.cache.lengths = torch.where(active, self.cache.lengths, lengths0)
         tok, bad = self._sample(logits[:, -1, :])
@@ -414,13 +530,161 @@ class InferenceEngine:
     # ------------------------------------------------------------------
 
     def _admit_free_slots(self, now: float) -> None:
+        """Lease free slots to queued requests. A preempted request gets
+        its tokens back and recomputes prompt + generated[:-1]; with
+        prefix sharing, a prompt that extends a materialized page chain
+        maps those pages by reference and starts past them."""
         for slot in range(self.num_slots):
             if self._slots[slot] is not None or not self._queue:
                 continue
             req = self._queue.popleft()
             self._admitted += 1
             self._queue_waits.append(now - req.enqueued_at)
-            self._slots[slot] = _Slot(req=req, generated=[], leased_at=now)
+            st = _Slot(req=req, generated=[], prefix=list(req.prompt),
+                       leased_at=now)
+            carried = self._preempted.pop(req.request_id, None)
+            if carried is not None:
+                generated, first_at, chunks = carried
+                st.generated = list(generated)
+                st.first_token_at = first_at
+                st.chunks = chunks
+                if generated:
+                    # the last generated token stays unwritten, as in a
+                    # live slot: it is the next decode's input
+                    st.prefix = list(req.prompt) + list(generated[:-1])
+                    st.resumed = True
+            self._slots[slot] = st
+            if self._store is None:
+                continue
+            pages, matched, partial, key = self._store.match(req.prompt)
+            if matched > 0:
+                for idx, page in enumerate(pages):
+                    self._allocator.ref(page)
+                    self._map_page(slot, idx, page)
+                    st.borrowed.add(idx)
+                st.cursor = st.pos = matched
+                st.chain_key = key
+                st.reg_pages = len(pages) - (1 if partial else 0)
+                self._prefix_hits += 1
+                self._prefix_hit_tokens += matched
+
+    # -- the paged cache's host bookkeeping ------------------------------
+
+    def _page_registered(self, page: int) -> bool:
+        return self._store is not None and self._store.is_registered(page)
+
+    def _map_page(self, slot: int, idx: int, page: int) -> None:
+        self._table[slot, idx] = page
+        self._table_dirty = True
+
+    def _push_table(self) -> None:
+        """The host mirror to the device table: one copy, only when the
+        mapping changed."""
+        if self._table_dirty:
+            self.cache.page_table.copy_(torch.from_numpy(self._table))
+            self._table_dirty = False
+
+    def _ensure_writable(self, st: _Slot, slot: int, idx: int) -> bool:
+        """Page ``idx`` of ``slot`` is mapped and privately owned after
+        this call: a fresh page for an unmapped entry, or a copy-on-write
+        fork of a borrowed one. False when the pool cannot supply a page
+        (the caller backpressures; nothing clamps)."""
+        page = int(self._table[slot, idx])
+        if page == self.cache.num_pages:
+            got = self._allocator.alloc(1)
+            if got is None:
+                return False
+            self._map_page(slot, idx, got[0])
+            return True
+        if idx in st.borrowed:
+            got = self._allocator.alloc(1)
+            if got is None:
+                return False
+            # device copy first, then remap: the sharers keep reading
+            # the source page, whose bytes are never touched
+            self.cache.fork_page(page, got[0])
+            self._allocator.decref(page, park=self._page_registered(page))
+            st.borrowed.discard(idx)
+            self._map_page(slot, idx, got[0])
+            self._cow_forks += 1
+        return True
+
+    def _secure_prefill_pages(self, st: _Slot, slot: int, n: int) -> int:
+        """Make pages writable for prefix positions ``[cursor, cursor +
+        n)``; returns how many of the n tokens have one (maybe 0)."""
+        ps = self.cache.page_size
+        secured_end = st.cursor
+        for idx in range(st.cursor // ps, (st.cursor + n - 1) // ps + 1):
+            if not self._ensure_writable(st, slot, idx):
+                self._page_stalls += 1
+                break
+            secured_end = min(st.cursor + n, (idx + 1) * ps)
+        return secured_end - st.cursor
+
+    def _register_full_pages(self, st: _Slot, slot: int) -> None:
+        """Walk the slot's prefix chain over every page now FULL of
+        prompt tokens: owned pages register in the store (immutable from
+        here on), borrowed ones advance the chain key."""
+        ps = self.cache.page_size
+        prompt = st.req.prompt
+        while ((st.reg_pages + 1) * ps <= st.cursor
+               and (st.reg_pages + 1) * ps <= len(prompt)):
+            idx = st.reg_pages
+            tokens = prompt[idx * ps:(idx + 1) * ps]
+            if idx in st.borrowed:
+                st.chain_key = self._store.chain_key(st.chain_key, tokens)
+            else:
+                st.chain_key = self._store.register(
+                    st.chain_key, tokens, int(self._table[slot, idx])
+                )
+            st.reg_pages += 1
+
+    def _release_slot_pages(self, st: _Slot, slot: int) -> None:
+        """Drop the slot's page references: store-registered pages park
+        (a later request with the same prefix revives them), private
+        pages free."""
+        sentinel = self.cache.num_pages
+        for idx in range(self._table.shape[1]):
+            page = int(self._table[slot, idx])
+            if page == sentinel:
+                continue
+            self._allocator.decref(page, park=self._page_registered(page))
+            self._table[slot, idx] = sentinel
+        self._table_dirty = True
+        st.borrowed.clear()
+
+    def _preempt_for_pages(self) -> None:
+        """Break a pool deadlock: preempt page-holding slots, youngest
+        lease first, until a page is free. A preempted request keeps its
+        tokens and rejoins the head of the queue. With one request in
+        flight there is nobody to free pages for: that raises."""
+        sentinel = self.cache.num_pages
+        while self._allocator.available < 1:
+            victim, vslot = None, -1
+            for slot, st in enumerate(self._slots):
+                if st is None or not (self._table[slot] != sentinel).any():
+                    continue
+                if victim is None or st.leased_at >= victim.leased_at:
+                    victim, vslot = st, slot
+            if self.num_active <= 1:
+                victim = None
+            if victim is None:
+                raise RuntimeError(
+                    "paged KV pool deadlock: every in-flight request is "
+                    "stalled waiting for pages, no decode can run to free "
+                    "any, and no slot holds reclaimable pages (pages="
+                    f"{self.cache.num_pages}, used="
+                    f"{self._allocator.pages_used}); size num_pages for "
+                    "the expected live tokens, or admit less concurrency"
+                )
+            self._release_slot_pages(victim, vslot)
+            self._slots[vslot] = None
+            self._preempted[victim.req.request_id] = (
+                list(victim.generated), victim.first_token_at,
+                victim.chunks,
+            )
+            self._queue.appendleft(victim.req)
+            self._preemptions += 1
 
     def _guard_capacity(self, active: np.ndarray) -> None:
         """A live slot about to decode at a position >= capacity is an
@@ -447,6 +711,7 @@ class InferenceEngine:
         lengths_before = np.zeros((S,), np.int32)
         lengths_after = np.zeros((S,), np.int32)
         completions = []  # (slot, chunk index of its last prompt token, fed)
+        reg_pending = []  # paged slots whose full prompt pages register
         used = 0
         for slot in range(S):
             st = self._slots[slot]
@@ -455,12 +720,16 @@ class InferenceEngine:
                 lengths_after[slot] = st.pos
             if st is None or used >= budget or not st.prefilling:
                 continue
-            n = min(budget - used, len(st.req.prompt) - st.cursor)
+            n = min(budget - used, len(st.prefix) - st.cursor)
             if self.prefill_chunk is not None:
                 n = min(n, self.prefill_chunk)
-            chunk_tokens[used:used + n] = st.req.prompt[
-                st.cursor:st.cursor + n
-            ]
+            if self.paged:
+                # pool backpressure: only tokens whose pages exist (or
+                # could be allocated or forked) are scheduled
+                n = self._secure_prefill_pages(st, slot, n)
+                if n <= 0:
+                    continue
+            chunk_tokens[used:used + n] = st.prefix[st.cursor:st.cursor + n]
             chunk_slots[used:used + n] = slot
             chunk_pos[used:used + n] = np.arange(st.cursor, st.cursor + n)
             st.cursor += n
@@ -468,14 +737,24 @@ class InferenceEngine:
             st.chunks += 1
             lengths_after[slot] = st.cursor
             self._prompt_tokens += n
-            if not st.prefilling:
+            if self._store is not None:
+                reg_pending.append((st, slot))
+            if not st.prefilling and not st.resumed:
                 # the first sampled token feeds the same tick's decode,
-                # unless that decode write has nowhere to land (a prompt
-                # that exactly fills capacity is evicted after its first
-                # token instead)
-                completions.append(
-                    (slot, used + n - 1, st.cursor < self.capacity)
-                )
+                # unless that decode write has nowhere to land: a prompt
+                # that exactly fills capacity (evicted after its first
+                # token instead) or a paged slot whose next page the pool
+                # cannot supply yet (it decodes on a later tick). A
+                # resumed request's tokens exist already: it rejoins the
+                # decode grid below.
+                fed = st.cursor < self.capacity
+                if fed and self.paged:
+                    fed = self._ensure_writable(
+                        st, slot, st.cursor // self.cache.page_size
+                    )
+                    if not fed:
+                        self._page_stalls += 1
+                completions.append((slot, used + n - 1, fed))
             used += n
 
         active = np.array(
@@ -484,6 +763,15 @@ class InferenceEngine:
             dtype=bool,
         )
         self._guard_capacity(active)
+        if self.paged:
+            for slot, st in enumerate(self._slots):
+                if active[slot] and not self._ensure_writable(
+                    st, slot, st.pos // self.cache.page_size
+                ):
+                    # this slot's decode stalls for the tick; it rides
+                    # along as a dead row
+                    active[slot] = False
+                    self._page_stalls += 1
         dec_tokens = np.array(
             [s.generated[-1] if s is not None and s.generated else 0
              for s in self._slots],
@@ -492,6 +780,13 @@ class InferenceEngine:
         completion_idx = np.full((S,), -1, np.int32)
         for slot, idx, fed in completions:
             completion_idx[slot] = idx if fed else -1
+        if self.paged:
+            if used == 0 and not active.any() and not completions \
+                    and self.has_work():
+                # every in-flight request waits for pages and no decode
+                # can run to free any: preempt and requeue
+                self._preempt_for_pages()
+            self._push_table()
 
         chunk_out = chunk_bad = dec_out = dec_bad = None
         if used > 0:
@@ -510,6 +805,10 @@ class InferenceEngine:
             self._decode_seconds += time.perf_counter() - t0
             self._decode_steps += 1
             self._decode_only_steps += 1
+
+        # the step ran: the tick's full prompt pages may register now
+        for st, slot in reg_pending:
+            self._register_full_pages(st, slot)
 
         now = time.perf_counter()
         for slot, idx, fed in completions:
@@ -570,6 +869,8 @@ class InferenceEngine:
     def _evict(self, slot: int, st: _Slot, reason: str) -> GenerationResult:
         self._slots[slot] = None
         self._evicted += 1
+        if self.paged:
+            self._release_slot_pages(st, slot)
         finished_at = time.perf_counter()
         req = st.req
         n_new = len(st.generated)

@@ -5,7 +5,9 @@ layout). Per-layer ``(num_slots, capacity, heads, head_dim)`` key/value
 buffers plus one ``(num_slots,)`` int32 length vector, allocated once.
 A slot is a batch lane the engine leases to one request at a time;
 eviction forgets its length, and stale rows past a new request's prefix
-are never attended (every read is bounded by ``lengths``).
+are never attended (every read is bounded by ``lengths``). The paged
+sibling, whose memory follows live tokens (block tables, int8 pages,
+prefix sharing), is `inference/paging.py`'s `PagedKVCache`.
 
 UPDATES HAPPEN IN PLACE. Where the JAX cache is an immutable pytree
 whose writes return a new cache (in place only under ``jit`` with

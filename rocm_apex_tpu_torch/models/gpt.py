@@ -30,7 +30,13 @@ Port of ``rocm_apex_tpu/models/gpt.py`` at tensor-parallel world size 1.
   token against its OWN slot's pre-chunk cache prefix
   (`flash_attention_decode` with a slot id per row, reading the cache in
   place); the single-token decode writes each slot's new K/V at its
-  length and reads ``[0, length + 1)``.
+  length and reads ``[0, length + 1)``. A paged cache
+  (`rocm_apex_tpu_torch.inference.PagedKVCache`, duck-typed by its
+  ``page_table``) gives each layer a 4-tuple view: the writes go through
+  the table (`ops.paging`, destinations resolved once per forward; dead
+  decode rows sit at capacity and drop; int8 pools raise their page
+  scales), the chunk reads through `flash_attention_chunk_paged` and the
+  decode through `flash_attention_decode_paged`.
 
 Module and parameter names follow the JAX model's param tree, so its
 flattened paths are this module's ``state_dict`` keys (see ``convert.py``).
@@ -60,11 +66,20 @@ from rocm_apex_tpu_torch.inference.kv_cache import (
 from rocm_apex_tpu_torch.normalization import MixedFusedLayerNorm
 from rocm_apex_tpu_torch.ops.flash_attention import (
     flash_attention_decode,
+    flash_attention_decode_paged,
     flash_attention_qkv_bias,
     flash_attention_qkv_bias_dropout,
 )
 from rocm_apex_tpu_torch.ops.flash_attention_segments import (
+    flash_attention_chunk_paged,
     flash_attention_segments_with_lse,
+    merge_by_lse,
+)
+from rocm_apex_tpu_torch.ops.paging import (
+    PagedRows,
+    paged_rows,
+    paged_scatter,
+    quantized_paged_scatter,
 )
 from rocm_apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
@@ -156,6 +171,20 @@ def _draw_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
 
 
+def _paged_write(k_buf, v_buf, paged, k_new, v_new) -> None:
+    """K/V rows into a paged layer's pools (and int8 scales), in place,
+    at the destinations resolved once for this forward."""
+    rows, table = paged["rows"], paged["page_table"]
+    if paged["k_scale"] is None:
+        paged_scatter(k_buf, table, None, None, k_new, rows)
+        paged_scatter(v_buf, table, None, None, v_new, rows)
+    else:
+        quantized_paged_scatter(k_buf, paged["k_scale"], table, None, None,
+                                k_new, rows)
+        quantized_paged_scatter(v_buf, paged["v_scale"], table, None, None,
+                                v_new, rows)
+
+
 def _embedding_dropout(x, seed: int, rate: float):
     """The embedding's dropout: a plain op, as in the JAX package (a flax
     op there, gpt.py:1420-1421). Its mask comes from torch's generator on
@@ -201,19 +230,26 @@ class ParallelAttention(nn.Module):
             cfg.hidden_size, cfg.hidden_size, **kw
         )
 
-    def forward(self, x, cache=None, chunk: Optional[ChunkRows] = None,
+    def forward(self, x, cache=None,
+                chunk: Optional[Union[ChunkRows, PagedRows]] = None,
                 dropout_seed: Optional[int] = None):
+        """``cache``: the layer's view, ``(k, v, lengths)`` of a
+        contiguous cache or ``(k, v, lengths, paged)`` of a paged one,
+        ``paged`` holding ``page_table``, ``page_size``, the layer's
+        ``k_scale``/``v_scale`` (None unless int8) and ``rows``, this
+        forward's write destinations. ``chunk``: the packed chunk's rows
+        (their ``slots`` are the segment ids), None for the decode."""
         if cache is None:
             return self._forward_packed(x, dropout_seed)
         cfg = self.cfg
-        k_buf, v_buf, lengths = cache
+        k_buf, v_buf, lengths = cache[:3]
+        paged = cache[3] if len(cache) > 3 else None
         nh, hd = cfg.num_attention_heads, cfg.head_dim
         scale = 1.0 / math.sqrt(hd)
         b, sq, _ = x.shape
         qkv, _ = self.query_key_value(x)
         # the fused projection is interleaved PER HEAD: (b, s, nh, 3*hd)
         q, k, v = qkv.view(b, sq, nh, 3 * hd).split(hd, dim=-1)
-        num_slots, capacity = k_buf.shape[0], k_buf.shape[1]
         if chunk is not None:
             if b != 1:
                 raise ValueError(
@@ -221,37 +257,62 @@ class ParallelAttention(nn.Module):
                     f"got batch {b}"
                 )
             qq, kq, vq = q[0], k[0], v[0]  # (budget, nh, hd) views
-            # in place: the chunk's rows land at their (slot, position)
-            scatter_chunk(k_buf, chunk, kq)
-            scatter_chunk(v_buf, chunk, vq)
-            # (A) intra-chunk causal attention, segment-masked by slot
-            o_a, lse_a = flash_attention_segments_with_lse(
-                qq.transpose(0, 1), kq.transpose(0, 1), vq.transpose(0, 1),
-                chunk.slots, causal=True, scale=scale,
-            )
-            # (B) each token against its own slot's pre-chunk prefix
-            o_b, lse_b = flash_attention_decode(
-                qq, k_buf, v_buf, lengths, scale, return_lse=True,
-                slot_ids=chunk.slots,
-            )
-            o_a = o_a.transpose(0, 1).float()
-            lse_a = lse_a.transpose(0, 1)
-            m = torch.maximum(lse_a, lse_b)
-            w_a = torch.exp(lse_a - m)[..., None]
-            w_b = torch.exp(lse_b - m)[..., None]
-            ctx = (w_a * o_a + w_b * o_b.float()) / (w_a + w_b)
+            qT, kT, vT = (t.transpose(0, 1) for t in (qq, kq, vq))
+            if paged is not None:
+                # in place, through the table; then piece A within the
+                # chunk and piece B over each token's own slot's pages
+                _paged_write(k_buf, v_buf, paged, kq, vq)
+                ctx = flash_attention_chunk_paged(
+                    qT, kT, vT, chunk.slots, k_buf, v_buf,
+                    paged["page_table"], lengths, scale,
+                    paged["k_scale"], paged["v_scale"],
+                )
+            else:
+                # in place: the chunk's rows land at their (slot, position)
+                scatter_chunk(k_buf, chunk, kq)
+                scatter_chunk(v_buf, chunk, vq)
+                # (A) intra-chunk causal attention, segment-masked by slot
+                o_a, lse_a = flash_attention_segments_with_lse(
+                    qT, kT, vT, chunk.slots, causal=True, scale=scale,
+                )
+                # (B) each token against its own slot's pre-chunk prefix
+                o_b, lse_b = flash_attention_decode(
+                    qq, k_buf, v_buf, lengths, scale, return_lse=True,
+                    slot_ids=chunk.slots,
+                )
+                ctx = merge_by_lse(o_a.transpose(0, 1),
+                                   lse_a.transpose(0, 1), o_b, lse_b)
             ctx = ctx.to(cfg.dtype).reshape(1, sq, nh * hd)
         else:
             if sq != 1:
+                if paged is not None:
+                    raise ValueError(
+                        "a paged cache serves single-token decode and "
+                        "chunked prefill; whole-prompt prefill needs the "
+                        "contiguous cache (or chunk=)"
+                    )
                 raise NotImplementedError(
                     _NOT_PORTED.format(what="whole-prompt prefill")
                 )
-            # in place: each slot's new row at its length, dead rows
-            # included
-            write_at_lengths(k_buf, lengths, k)
-            write_at_lengths(v_buf, lengths, v)
-            kv_len = torch.clamp(lengths + 1, max=capacity)
-            ctx = flash_attention_decode(q[:, 0], k_buf, v_buf, kv_len, scale)
+            if paged is not None:
+                # each slot's new row at its length, through the table;
+                # a dead row sits at capacity and its write drops
+                _paged_write(k_buf, v_buf, paged, k[:, 0], v[:, 0])
+                table = paged["page_table"]
+                capacity = table.shape[1] * paged["page_size"]
+                kv_len = torch.clamp(lengths + 1, max=capacity)
+                ctx = flash_attention_decode_paged(
+                    q[:, 0], k_buf, v_buf, table, kv_len, scale,
+                    paged["k_scale"], paged["v_scale"],
+                )
+            else:
+                # in place: each slot's new row at its length, dead rows
+                # included
+                write_at_lengths(k_buf, lengths, k)
+                write_at_lengths(v_buf, lengths, v)
+                kv_len = torch.clamp(lengths + 1, max=k_buf.shape[1])
+                ctx = flash_attention_decode(q[:, 0], k_buf, v_buf, kv_len,
+                                             scale)
             ctx = ctx.reshape(b, 1, nh * hd)
         y, _ = self.dense(ctx)
         return y
@@ -343,12 +404,28 @@ class ParallelTransformer(nn.Module):
             params_dtype=cfg.params_dtype, device=device,
         )
 
-    def forward(self, x, cache=None, chunk: Optional[ChunkRows] = None,
-                seeds: Optional[torch.Generator] = None):
+    def forward(self, x, cache=None,
+                chunk: Optional[Union[ChunkRows, PagedRows]] = None,
+                seeds: Optional[torch.Generator] = None,
+                rows: Optional[PagedRows] = None):
+        """``rows``: a paged cache's write destinations for this forward
+        (the chunk's, or the decode grid's)."""
         if cache is None:
             return self._forward_chained(x, seeds)
         for i, name in enumerate(self.layer_names):
             layer_cache = (cache.k[i], cache.v[i], cache.lengths)
+            if rows is not None:
+                # a paged cache (duck-typed: .page_table, .page_size,
+                # .k_scale/.v_scale) adds the table view per layer
+                layer_cache += (dict(
+                    page_table=cache.page_table,
+                    page_size=cache.page_size,
+                    k_scale=(None if cache.k_scale is None
+                             else cache.k_scale[i]),
+                    v_scale=(None if cache.v_scale is None
+                             else cache.v_scale[i]),
+                    rows=rows,
+                ),)
             x = getattr(self, name)(x, layer_cache, chunk)
         x = self.final_layernorm(x).to(self.cfg.dtype)
         if chunk is None:
@@ -423,7 +500,8 @@ class GPTModel(nn.Module):
 
     Cached: ``cache`` is a `rocm_apex_tpu_torch.inference.KVCache`
     (duck-typed: ``.k``/``.v`` per-layer ``(num_slots, capacity, heads,
-    head_dim)`` buffers, ``.lengths``, ``.capacity``); the forward UPDATES
+    head_dim)`` buffers, ``.lengths``, ``.capacity``) or a `PagedKVCache`
+    (its pools, ``.page_table``, ``.page_size``, scales); the forward UPDATES
     IT IN PLACE and returns ``(logits, cache)``. ``tokens`` (num_slots, 1)
     is the single-token decode: positions default to each slot's length
     and ``lengths`` advance by one. ``chunk=(slot_ids, positions)`` with
@@ -493,16 +571,28 @@ class GPTModel(nn.Module):
         return losses
 
     def _forward_cached(self, tokens, position_ids, cache, chunk):
+        paged = getattr(cache, "page_table", None) is not None
         rows = None
         if chunk is not None:
             if tokens.shape[0] != 1:
                 raise ValueError("chunked prefill takes tokens of shape (1, budget)")
             slots, positions = chunk
-            rows = chunk_rows(slots, positions, cache.num_slots, cache.capacity)
+            if paged:
+                rows = paged_rows(cache.page_table, slots, positions,
+                                  cache.page_size, cache.num_pages)
+            else:
+                rows = chunk_rows(slots, positions, cache.num_slots,
+                                  cache.capacity)
             if position_ids is None:
                 position_ids = positions[None, :]
         else:
             if tokens.shape[1] != 1:
+                if paged:
+                    raise ValueError(
+                        "a paged cache serves single-token decode and "
+                        "chunked prefill; whole-prompt prefill needs the "
+                        "contiguous cache (or chunk=)"
+                    )
                 raise NotImplementedError(
                     _NOT_PORTED.format(what="whole-prompt prefill")
                 )
@@ -510,6 +600,14 @@ class GPTModel(nn.Module):
                 position_ids = cache.lengths[:, None] + torch.arange(
                     tokens.shape[1], device=tokens.device
                 )
+            if paged:
+                # every slot writes at its length; a dead row sits at
+                # capacity and drops
+                slots = torch.arange(cache.num_slots, dtype=torch.int32,
+                                     device=tokens.device)
+                rows = paged_rows(cache.page_table, slots, cache.lengths,
+                                  cache.page_size, cache.num_pages)
         x = self.embedding(tokens, position_ids)
-        x = self.transformer(x, cache, rows)
+        x = self.transformer(x, cache, rows if chunk is not None else None,
+                             rows=rows if paged else None)
         return self.embedding.attend(x), cache

@@ -41,6 +41,18 @@ The semantics per row are those of the JAX function: online softmax over
 keys ``[0, kv_lengths[slot])`` (a row never reads past its bound), a
 natural-log lse, and zeros with lse = -1e30 for a row with an empty
 prefix, so an lse merge weighs it to zero.
+
+**Paged decode** (``flash_attention_decode_paged``). The same read
+through a block table over page pools (``inference/paging.py``): the
+kernel (``csrc/flash_decode_paged.cu``) replaces ``_decode_paged_kernel``
+(rocm_apex_tpu/ops/flash_attention.py:950), with two launch counters, one
+for float pools (``FLASH_DECODE_PAGED``) and one for int8 pools with
+per-(page, head) fp32 scales (``FLASH_DECODE_PAGED_INT8``). It keeps the
+per-row slot read and the ``(rows, heads, head_dim)`` query layout of
+``flash_attention_decode``, where the JAX function takes ``(slots*heads,
+t, head_dim)`` and the chunk path broadcasts every token to every slot.
+An int8 key or value is dequantized as the JAX kernel does it, ``(float(x)
+* scale)`` rounded to q's dtype.
 """
 
 import ctypes
@@ -51,14 +63,19 @@ import torch
 
 from rocm_apex_tpu_torch.ops import _dropout
 from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
+from rocm_apex_tpu_torch.ops.paging import paged_view
 
 __all__ = [
     "FLASH_DECODE",
+    "FLASH_DECODE_PAGED",
+    "FLASH_DECODE_PAGED_INT8",
     "FLASH_FWD",
     "FLASH_BWD",
     "NEG_INF",
     "flash_attention_decode",
     "flash_attention_decode_plain",
+    "flash_attention_decode_paged",
+    "flash_attention_decode_paged_plain",
     "flash_attention_qkv",
     "flash_attention_qkv_dropout",
     "flash_attention_qkv_bias",
@@ -81,6 +98,21 @@ FLASH_DECODE = Kernel(
     argtypes=[_P, _I64, _I64, _P, _P, _I64, _I64, _I64, _P, _P, _I, _I, _I,
               _I, _I, ctypes.c_float, _I, _P, _P, _P],
     replaces="rocm_apex_tpu/ops/flash_attention.py:813 _decode_kernel",
+)
+_PAGED_ARGS = [_I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P]
+FLASH_DECODE_PAGED = Kernel(
+    name="flash_attention_decode_paged",
+    source="flash_decode_paged.cu",
+    symbol="flash_decode_paged",
+    argtypes=[_P, _I64, _I64, _P, _P, _P, _P, _P] + _PAGED_ARGS,
+    replaces="rocm_apex_tpu/ops/flash_attention.py:950 _decode_paged_kernel",
+)
+FLASH_DECODE_PAGED_INT8 = Kernel(
+    name="flash_attention_decode_paged_int8",
+    source="flash_decode_paged.cu",
+    symbol="flash_decode_paged_int8",
+    argtypes=[_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P] + _PAGED_ARGS,
+    replaces="rocm_apex_tpu/ops/flash_attention.py:950 _decode_paged_kernel",
 )
 _U = ctypes.c_uint32
 _F = ctypes.c_float
@@ -227,6 +259,115 @@ def flash_attention_decode(
             ptr(kv_lengths), ptr(slot_ids), rows, heads, d, num_slots,
             capacity, float(scale), dtype_code(q.dtype), ptr(o), ptr(lse),
             stream_ptr(q.device),
+        )
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_decode_paged_plain(q, k_pool, v_pool, page_table,
+                                       kv_lengths, scale, k_scale=None,
+                                       v_scale=None, slot_ids=None):
+    """The plain PyTorch version: the pools gathered through the table
+    (int8 dequantized and rounded to q's dtype), then
+    `flash_attention_decode_plain`. Returns (o, lse)."""
+    k = paged_view(k_pool, page_table, k_scale, out_dtype=q.dtype)
+    v = paged_view(v_pool, page_table, v_scale, out_dtype=q.dtype)
+    return flash_attention_decode_plain(q, k, v, kv_lengths, scale, slot_ids)
+
+
+def flash_attention_decode_paged(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    return_lse: bool = False,
+    slot_ids: Optional[torch.Tensor] = None,
+):
+    """`flash_attention_decode` reading through a block table.
+
+    ``q`` is (rows, heads, head_dim); ``k_pool``/``v_pool`` are the page
+    pools (num_pages, heads, page_size, head_dim); ``page_table`` is
+    (num_slots, pages_per_slot) int32, unmapped entries holding the
+    sentinel ``num_pages``; ``kv_lengths`` (num_slots,) int32 bounds each
+    slot's prefix, at most ``pages_per_slot * page_size``. Row r reads
+    slot ``slot_ids[r]`` (default: slot r); a slot id outside ``[0,
+    num_slots)`` reads nothing. ``k_scale``/``v_scale`` ((num_pages,
+    heads) fp32) mark int8 pools. Returns o (rows, heads, head_dim) in
+    q's dtype, and with ``return_lse`` the natural-log lse (rows, heads)
+    fp32. Forward only.
+    """
+    rows, heads, d = q.shape
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(
+            "k/v pools must both be (num_pages, heads, page_size, dim)"
+        )
+    num_pages, p_heads, page_size, p_d = k_pool.shape
+    if (p_heads, p_d) != (heads, d):
+        raise ValueError(f"pool heads/dim {(p_heads, p_d)} != query "
+                         f"{(heads, d)}")
+    num_slots, pages_per_slot = page_table.shape
+    if slot_ids is None and rows != num_slots:
+        raise ValueError("without slot_ids there is one query row per slot")
+    quantized = k_scale is not None
+    if quantized != (v_scale is not None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        o, lse = flash_attention_decode_paged_plain(
+            q, k_pool, v_pool, page_table, kv_lengths, scale, k_scale,
+            v_scale, slot_ids,
+        )
+        return (o, lse) if return_lse else o
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {q.device}")
+    pool_dtype = torch.int8 if quantized else q.dtype
+    if k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
+        raise TypeError(
+            f"the pools must be {pool_dtype} for {q.dtype} queries"
+            f"{' with scales' if quantized else ''}, got {k_pool.dtype}"
+        )
+    for t in (k_pool, v_pool, page_table, kv_lengths, slot_ids, k_scale,
+              v_scale):
+        if t is not None and t.device != q.device:
+            raise ValueError("all operands must be on q's device")
+        if t is not None and not t.is_contiguous():
+            raise ValueError("pools, table, lengths, slot ids and scales "
+                             "must be contiguous")
+    for t in (page_table, kv_lengths, slot_ids):
+        if t is not None and t.dtype != torch.int32:
+            raise TypeError("page_table/kv_lengths/slot_ids must be int32")
+    if quantized and any(
+        s.dtype != torch.float32 or s.shape != (num_pages, heads)
+        for s in (k_scale, v_scale)
+    ):
+        raise ValueError(f"k/v scales must be ({num_pages}, {heads}) fp32")
+    if slot_ids is not None and slot_ids.shape != (rows,):
+        raise ValueError("slot_ids must be (rows,)")
+    if kv_lengths.shape != (num_slots,):
+        raise ValueError("kv_lengths must be (num_slots,)")
+    if num_pages * heads * page_size >= 2**31:
+        raise ValueError("the kernel indexes pool rows with 32-bit ints")
+    check_head_dim(q, k_pool, v_pool)
+    o = torch.empty((rows, heads, d), dtype=q.dtype, device=q.device)
+    lse = (
+        torch.empty((rows, heads), dtype=torch.float32, device=q.device)
+        if return_lse else None
+    )
+    if rows > 0:
+        pools = (ptr(k_pool), ptr(v_pool))
+        if quantized:
+            kernel, pools = FLASH_DECODE_PAGED_INT8, pools + (
+                ptr(k_scale), ptr(v_scale))
+        else:
+            kernel = FLASH_DECODE_PAGED
+        kernel(
+            ptr(q), q.stride(0), q.stride(1), *pools, ptr(page_table),
+            ptr(kv_lengths), ptr(slot_ids), rows, heads, d, num_slots,
+            pages_per_slot, page_size, num_pages, float(scale),
+            dtype_code(q.dtype), ptr(o), ptr(lse), stream_ptr(q.device),
         )
     return (o, lse) if return_lse else o
 

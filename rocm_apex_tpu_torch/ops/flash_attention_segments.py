@@ -13,6 +13,11 @@ order, pads carry the id num_slots).
 
 Token i attends token j iff ``segment_ids[i] == segment_ids[j]`` and,
 with ``causal``, ``j <= i`` in packed order. Forward only.
+
+`flash_attention_chunk_paged` (port of the JAX function of that name) is
+the chunked-prefill read against a paged cache: this kernel within the
+chunk (piece A) and the paged decode kernel over each token's own slot's
+pre-chunk prefix (piece B), merged by lse.
 """
 
 import ctypes
@@ -22,12 +27,18 @@ from typing import Optional
 import torch
 
 from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
-from rocm_apex_tpu_torch.ops.flash_attention import NEG_INF, check_head_dim
+from rocm_apex_tpu_torch.ops.flash_attention import (
+    NEG_INF,
+    check_head_dim,
+    flash_attention_decode_paged,
+)
 
 __all__ = [
     "FLASH_SEGMENTS",
     "flash_attention_segments_with_lse",
     "flash_attention_segments_plain",
+    "flash_attention_chunk_paged",
+    "merge_by_lse",
 ]
 
 _P = ctypes.c_void_p
@@ -103,3 +114,49 @@ def flash_attention_segments_with_lse(
             dtype_code(q.dtype), ptr(o), ptr(lse), stream_ptr(q.device),
         )
     return o, lse
+
+
+def merge_by_lse(o_a, lse_a, o_b, lse_b):
+    """Two attention pieces over disjoint key sets, (tokens, heads,
+    head_dim) with (tokens, heads) lse, merged in fp32."""
+    m = torch.maximum(lse_a, lse_b)
+    w_a = torch.exp(lse_a - m)[..., None]
+    w_b = torch.exp(lse_b - m)[..., None]
+    return (w_a * o_a.float() + w_b * o_b.float()) / (w_a + w_b)
+
+
+def flash_attention_chunk_paged(
+    q: torch.Tensor,
+    k_chunk: torch.Tensor,
+    v_chunk: torch.Tensor,
+    segment_ids: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """A packed chunk against a paged cache prefix.
+
+    ``q``/``k_chunk``/``v_chunk``: (heads, budget, head_dim), the chunk's
+    fresh projections; ``segment_ids``: (budget,) int32 slot ids,
+    ``num_slots`` marking padding. Pools, table, pre-chunk lengths and
+    scales as in `flash_attention_decode_paged`. Piece A: segment-causal
+    attention within the chunk. Piece B: each token against its OWN
+    slot's prefix only (a pad reads nothing), not the JAX function's
+    broadcast of the chunk to every slot. Returns fp32 (budget, heads,
+    head_dim).
+    """
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    o_a, lse_a = flash_attention_segments_with_lse(
+        q, k_chunk, v_chunk, segment_ids, causal=True, scale=scale
+    )
+    o_b, lse_b = flash_attention_decode_paged(
+        q.transpose(0, 1), k_pool, v_pool, page_table, kv_lengths, scale,
+        k_scale, v_scale, return_lse=True, slot_ids=segment_ids,
+    )
+    return merge_by_lse(o_a.transpose(0, 1), lse_a.transpose(0, 1), o_b,
+                        lse_b)

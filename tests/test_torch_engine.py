@@ -134,7 +134,8 @@ class TestEngineSurface:
         assert eng.stats()["generated_tokens"] == 0.0
 
     @pytest.mark.parametrize("kw", [
-        dict(paged=True), dict(kv_dtype=torch.int8), dict(spec_k=2),
+        dict(paged=True, spec_k=2), dict(paged=True, faults=object()),
+        dict(spec_k=2),
         dict(faults=object()), dict(adapter_pool=object()),
         dict(tracer=object()), dict(prefill_token_budget=None),
     ])
