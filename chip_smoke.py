@@ -50,14 +50,32 @@ JAX package) through these phases, in order; any failure exits non-zero:
              LossScaler): 5 warm-up and 20 timed steps on one batch;
              tokens/s, step ms, losses, peak memory, and each training
              kernel's wrapper calls per step against the stack's count;
-9. report    a ``{"kernels": [...]}`` line, then the device line
+9. bert train parity  the BERT config at full width but 2 layers, S 128,
+             B 2, fp32 with TF32 off: three LAMB steps on the card
+             against the same on the CPU (losses within a stated
+             tolerance, the same found_inf), then one step with an inf in
+             a gradient, which must leave masters, moments and count bit
+             for bit as they were;
+10. bert train  bench.py's BERT step (`build_bert_train` on an
+             accelerator) in bf16 with fp32 masters: BERT-Large shape (24
+             layers, hidden 1024, 8 heads, ffn 4096, vocab 30592, B 8 x
+             S 512, dropout 0, no attention mask, the binary head),
+             MixedPrecisionLamb(1e-4, wd 0.01 but for biases and
+             LayerNorms, bf16 moments, store_model=False) with the global
+             gradient norm as the overflow probe: 5 warm-up and 20 timed
+             steps on one batch, then one evaluation forward under
+             no_grad; tokens/s, step ms, losses, peak memory, and each
+             kernel's wrapper calls against the stack's count;
+11. report   a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
 spill report to DIR/chip_smoke.json. ``--profile`` adds profiled serve
-(contiguous and paged) and train windows that report the device's busy
-share. ``--only`` runs a
-subset of the phases (a check of one part; the full run is the smoke).
+(contiguous and paged) and train (GPT and BERT) windows that report the
+device's busy share. ``--only`` runs a subset of the phases (a check of
+one part; the full run is the smoke); ``kernels:xent+lamb`` there names a
+subset of the kernel phase's case groups (ln, seg, decode, paged,
+train_ln, flash, xent, lamb).
 
 It needs one CUDA device and nvcc (CUDA_HOME, PATH or /usr/local/cuda).
 """
@@ -119,6 +137,24 @@ TRAIN_CALLS_PER_STEP = {
 PARITY_TRAIN = dict(num_layers=2, seq=256, batch=2, steps=3)
 PARITY_LOSS_RTOL = 1e-4
 
+# the BERT training config (bench.py's `build_bert_train` on an
+# accelerator, bench.py:216-296): BERT-Large shape with head_dim 128,
+# bf16 compute, fp32 masters, dropout 0, no attention mask, the mean of
+# the per-token losses with labels = roll(tokens, 1);
+# MixedPrecisionLamb(1e-4, wd 0.01 except biases and LayerNorms, bf16
+# moments, store_model=False), no loss scaler
+BERT = dict(vocab_size=30592, hidden_size=1024, num_layers=24,
+            num_attention_heads=8, ffn_hidden_size=4096,
+            max_position_embeddings=512, tensor_parallel_size=1,
+            hidden_dropout=0.0, attention_dropout=0.0)
+BERT_BATCH, BERT_SEQ = 8, 512
+# BERT train parity, cuda vs cpu: the widths above at 2 layers, S 128,
+# B 2, fp32 with TF32 off, three steps, held to PARITY_LOSS_RTOL as the
+# GPT step (LAMB's normalized step scales noise as Adam's does)
+BERT_PARITY = dict(num_layers=2, seq=128, batch=2, steps=3)
+BERT_KERNELS = ("xent_fwd_dg", "xent_fwd", "lamb_leaf_stage1",
+                "lamb_leaf_stage2")
+
 # kernel vs plain version on the same card inputs, each output by its
 # own dtype: |kernel - plain| <= atol + rtol * |plain|. Both compute in
 # fp32 and differ in summation order and exp2-vs-exp only (~1e-6
@@ -145,7 +181,7 @@ PARITY_NEW = 8  # new tokens per request in the parity phase
 CARD = "cuda"  # the engine phases' device (a CPU rehearsal renames it)
 
 PHASES = ("kernels", "parity", "serve", "serve_paged", "train_parity",
-          "train")
+          "train", "bert_train_parity", "bert_train")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_attention_segments_with_lse",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -240,17 +276,19 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def compare(got, ref, extra=None):
+def compare(got, ref, extra=None, tols=None):
     """Kernel outputs against the plain version's, each within `TOL` of
-    its dtype (plus ``extra[i]``, an added atol for output i where given):
-    the worst ratio of error to tolerance (<= 1 passes; NaN fails), the
-    max abs error, and the max |plain| of the first output (the LN's y,
-    the attention's o or dqkv)."""
+    its dtype, or within ``tols[i]`` (a dict of rtol and atol) where a
+    case states its own for output i, plus ``extra[i]``, an added atol
+    (a number or a tensor) where given: the worst ratio of error to
+    tolerance (<= 1 passes; NaN fails), the max abs error, and the max
+    |plain| of the first output (the LN's y, the attention's o or dqkv)."""
     ratio, err = 0.0, 0.0
     for i, (g, r) in enumerate(zip(got, ref)):
         if g is None:
             continue
-        tol = TOL[r.dtype]
+        tol = (tols[i] if tols is not None and tols[i] is not None
+               else TOL[r.dtype])
         diff = (g.float() - r.float()).abs()
         bound = tol["atol"] + tol["rtol"] * r.float().abs()
         if extra is not None and extra[i] is not None:
@@ -775,6 +813,354 @@ def flash_cases(dev):
         )
 
 
+# dg = softmax - target of the cross-entropy kernel against its plain
+# version: both form exp(x - max) / sum in fp32 and differ by the fast
+# exponential and the order of the row's sum, a few 1e-6 of the softmax
+# term. An fp32 dg is held to 2e-5 of its value; where the softmax term
+# meets eps / V the difference cancels to nothing, and atol 1e-9 (far
+# under eps / V = 3e-6, which a kernel without the smoothing term would
+# be off by) allows the fp32 noise left there. A bf16 dg rounds both to 8
+# mantissa bits: one ulp, at most 2^-7 of the value, and the same atol.
+XENT_DG_TOL = {torch.float32: dict(rtol=2e-5, atol=1e-9),
+               torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-9)}
+# the sum of |dg| over a case, divided by its rows (about 2): last-bit
+# flips of single elements move it by a few 1e-6 of itself, a wrong
+# factor by its error
+XENT_DG_L1_RTOL = 1e-4
+
+
+def xent_cases(dev):
+    """The cross-entropy kernel's two forms at the BERT head's shape,
+    (B 8 x S 512, vocab 30592) bf16 logits, with smoothing 0 (the bench)
+    and 0.1; an fp32 case; a vocab that is no multiple of 8 (the scalar
+    form); every case with labels at column 0 and V - 1.
+
+    Most of dg is far below the shared `TOL`: off the label column it is
+    softmax - eps / V, about 3e-5 in the mean at this vocab, with the
+    smoothing term at 3e-6. So dg has tolerances of its own, `XENT_DG_TOL`,
+    and beside dg the sum of |dg| over the case is held to
+    `XENT_DG_L1_RTOL`: one bf16 ulp an element would still pass a factor
+    that is off by half a percent, the sum does not.
+
+    The library yardstick is `F.cross_entropy`, forward + backward for
+    the differentiated form and forward for the plain one: `library_ms`
+    on the same logits, `library_fp32_ms` on an fp32 copy of bf16 logits
+    (twice the bytes to read, and an fp32 gradient to write)."""
+    from rocm_apex_tpu_torch.ops import xentropy as xe
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows_full, vocab = BERT_BATCH * BERT_SEQ, BERT["vocab_size"]
+    for rows, v, dt, eps in (
+        (rows_full, vocab, torch.bfloat16, 0.0),
+        (rows_full, vocab, torch.bfloat16, 0.1),
+        (1024, vocab, torch.float32, 0.1),
+        (512, 30001, torch.bfloat16, 0.1),
+    ):
+        x = (2.0 * torch.randn(rows, v, device=dev, generator=gen)).to(dt)
+        labels = torch.randint(0, v, (rows,), device=dev, generator=gen)
+        labels[0], labels[1] = 0, v - 1
+        xg = x.detach().clone().requires_grad_(True)
+        x32 = (None if dt == torch.float32 else
+               x.detach().to(torch.float32).requires_grad_(True))
+        w = torch.full((rows,), 1.0 / rows, device=dev)
+        for form in ("xent_fwd_dg", "xent_fwd"):
+            fn, ref = ((xe.xent_fwd_dg, xe.xent_fwd_dg_reference)
+                       if form == "xent_fwd_dg"
+                       else (xe.xent_fwd, xe.xent_fwd_reference))
+
+            def kern(fn=fn, x=x, labels=labels, eps=eps):
+                return fn(x, labels, eps)
+
+            def plain(ref=ref, x=x, labels=labels, eps=eps):
+                return ref(x, labels, eps)
+
+            if form == "xent_fwd_dg":
+                def lib(xl=xg, labels=labels, eps=eps, w=w):
+                    xl.grad = None
+                    F.cross_entropy(xl, labels, reduction="none",
+                                    label_smoothing=eps).backward(
+                                        w.to(xl.dtype))
+            else:
+                def lib(xl=xg, labels=labels, eps=eps):
+                    with torch.no_grad():
+                        return F.cross_entropy(xl, labels, reduction="none",
+                                               label_smoothing=eps)
+
+            def lib32(lib=lib, x32=x32):
+                return lib(xl=x32)
+
+            got, ref = kern(), plain()
+            tols = None
+            if form == "xent_fwd_dg":
+                got = (*got, got[1].double().abs().sum() / rows)
+                ref = (*ref, ref[1].double().abs().sum() / rows)
+                tols = [None, XENT_DG_TOL[dt],
+                        dict(rtol=XENT_DG_L1_RTOL, atol=0.0)]
+            yield dict(
+                kernel=form,
+                case=f"({rows}, {v}) {str(dt)[6:]}, smoothing {eps}",
+                dtype=dt, cmp=compare(got, ref, tols=tols), kern=kern,
+                plain=plain, lib=lib, lib32=None if x32 is None else lib32,
+                nbytes=nbytes(x, labels, *got[:2]), ops=8 * rows * v,
+                headline=(rows == rows_full and dt == torch.bfloat16
+                          and eps == 0.0),
+                iters=20, plain_iters=3,
+            )
+
+
+# the LAMB cases' hyperparameters: [b1, b2, b3, eps, bc1, bc2, gs * clip],
+# then live; bc1/bc2 are those of step 3
+_LAMB_SCALARS = [0.9, 0.999, 0.1, 1e-6, 1 - 0.9 ** 3, 1 - 0.999 ** 3, 0.7]
+# lr times the trust ratio of leaf 0 of a case; leaf i has (1 + i / 128)
+# times that. Of order 1, far above a training step's, so that the
+# applied step is as large as the master it is applied to: the decay term
+# of u, a leaf that reads another's ratio and a compute copy that missed
+# the step all show far above the tolerances
+_LAMB_LR_RATIO = 0.7
+# Kernel and plain version do the same fp32 arithmetic but for fused
+# multiply-adds: a result differs by a few 2^-24 of its largest term.
+# fp32 moments are held to 1e-5 of the value plus 2e-6 (terms up to 5 may
+# cancel); bf16 moments to one ulp (2^-7 of the value) plus the same.
+LAMB_MOMENT_TOL = {torch.float32: dict(rtol=1e-5, atol=2e-6),
+                   torch.bfloat16: dict(rtol=2.0 ** -7, atol=2e-6)}
+# the new master and its compute copy: `LAMB_STEP_RTOL` of |old master| +
+# |applied step| as atol (the two may cancel), and for a bf16 copy one
+# ulp of the value besides
+LAMB_STEP_RTOL = 1e-5
+LAMB_COPY_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+
+
+def _lamb_leaves(shapes, gdt, mdt, dev, gen):
+    """The buffers of a list of leaves at magnitudes of order 1 (so the
+    tolerances bite, the decay term wd * p among them): masters,
+    gradients, moments (v positive)."""
+    ps = [torch.randn(s, device=dev, generator=gen) for s in shapes]
+    gs = [torch.randn(s, device=dev, generator=gen).to(gdt) for s in shapes]
+    ms = [torch.randn(s, device=dev, generator=gen).to(mdt) for s in shapes]
+    vs = [torch.randn(s, device=dev, generator=gen).abs().to(mdt)
+          for s in shapes]
+    return ps, gs, ms, vs
+
+
+def _clones(ts):
+    return None if ts is None else [t.clone() for t in ts]
+
+
+def _foreach_lamb_u(ps, mf, vf, wd):
+    _, _, _, eps, bc1, bc2, _ = _LAMB_SCALARS
+    den = torch._foreach_div(vf, bc2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, eps)
+    u = torch._foreach_div(mf, bc1)
+    torch._foreach_div_(u, den)
+    if wd != 0.0:
+        torch._foreach_add_(u, ps, alpha=wd)
+    return u
+
+
+def _foreach_lamb_stage1(ps, gs, ms, vs, wd):
+    """The `torch._foreach_*` composition of stage 1 over the leaves (the
+    library yardstick; it updates the moments in place)."""
+    b1, b2, b3, _, _, _, gscale = _LAMB_SCALARS
+    gf = torch._foreach_mul([g.float() for g in gs], gscale)
+    mf, vf = [m.float() for m in ms], [v.float() for v in vs]
+    torch._foreach_mul_(mf, b1)
+    torch._foreach_add_(mf, gf, alpha=b3)
+    torch._foreach_mul_(vf, b2)
+    torch._foreach_addcmul_(vf, gf, gf, value=1.0 - b2)
+    u = _foreach_lamb_u(ps, mf, vf, wd)
+    out = list(torch._foreach_norm(ps)) + list(torch._foreach_norm(u))
+    if ms[0].dtype != torch.float32:
+        torch._foreach_copy_(list(ms) + list(vs), mf + vf)
+    return out
+
+
+def _foreach_lamb_stage2(ps, ms, vs, wd, cs):
+    """The same of stage 2, with one ratio for every leaf."""
+    u = _foreach_lamb_u(ps, [m.float() for m in ms],
+                        [v.float() for v in vs], wd)
+    torch._foreach_add_(ps, u, alpha=-_LAMB_LR_RATIO)
+    if cs is not None:
+        torch._foreach_copy_(cs, ps)
+
+
+def lamb_frozen_check(dev):
+    """``live = 0`` with an inf in the gradient: both stages must leave
+    m, v and the master bit-equal (a select, not a blend), in fp32 and
+    bf16 moments."""
+    from rocm_apex_tpu_torch.ops import optim_kernels as ok
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    dead1 = torch.tensor(_LAMB_SCALARS + [0.0], device=dev)
+    dead2 = torch.tensor([1e-6, 0.271, 0.003, 0.0], device=dev)
+    lr_ratio = torch.tensor([float("nan")], device=dev)
+    for mdt in (torch.float32, torch.bfloat16):
+        (p,), (g,), (m,), (v,) = _lamb_leaves([(1024, 4096)], torch.bfloat16,
+                                              mdt, dev, gen)
+        g[3, 5] = float("inf")
+        keep = [t.clone() for t in (p, m, v)]
+        c = torch.empty_like(p, dtype=torch.bfloat16)
+        ok.lamb_leaf_stage1(p, g, m, v, dead1, 0.01, True)
+        ok.lamb_leaf_stage2(p, m, v, dead2, lr_ratio, 0.01, True,
+                            model_out=c)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip((p, m, v), keep))
+        log(f"  lamb stages, live = 0 with an inf gradient, "
+            f"{str(mdt)[6:]} moments: master, m, v "
+            f"{'bit-equal' if same else 'CHANGED'}")
+        check(same, "live = 0 changed a buffer")
+        check(torch.equal(c, p.to(torch.bfloat16)),
+              "live = 0: the compute copy is not the kept master")
+
+
+def bert_kernel_leaves():
+    """The shapes of the bench BERT's 100 leaves on the LAMB kernel pair,
+    in parameter order."""
+    h, f = BERT["hidden_size"], BERT["ffn_hidden_size"]
+    shapes = [(BERT["vocab_size"], h), (BERT["max_position_embeddings"], h)]
+    for _ in range(BERT["num_layers"]):
+        shapes += [(h, 3 * h), (h, h), (h, f), (f, h)]
+    return shapes + [(h, h), (h, h)]  # lm_head.dense, pooler
+
+
+def lamb_cases(dev):
+    """The LAMB stage pair: first as the BERT step calls it, ALL 100
+    kernel leaves of the bench BERT (333M parameters) in one call a
+    stage, bf16 gradients and moments, weight decay 0.01, AdamW, no
+    compute copy; then on single leaves, (1024, 4096) and the (30592,
+    1024) word embeddings, in fp32 and bf16 moments, weight decay 0 and
+    0.01, AdamW and L2 mode, a fp32 gradient, stage 2 with and without
+    the compute copy; and 40 leaves of mixed sizes, one of a size no
+    vector width divides (two launches, the scalar form). Kernel and
+    plain version start from equal copies; the moments are held to
+    `LAMB_MOMENT_TOL`, the sums to 1e-5 of their mass, the new masters
+    and compute copies to `LAMB_STEP_RTOL` of the step applied. In a
+    case of several leaves every other leaf has half the weight decay and
+    each leaf its own ratio. The library yardstick is the
+    `torch._foreach_*` composition of the same stage over the leaves
+    (with one decay and one ratio for all)."""
+    from rocm_apex_tpu_torch.ops import optim_kernels as ok
+
+    lamb_frozen_check(dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    s1 = torch.tensor(_LAMB_SCALARS + [1.0], device=dev)
+    s2 = s1[[3, 4, 5, 7]].contiguous()
+    bf, f32 = torch.bfloat16, torch.float32
+    mixed = [(1024, 1024), (1001, 1023)] + [(256, 512), (512, 384)] * 19
+    for what, shapes, gdt, mdt, wd, adam_w, copy in (
+        ("the bench BERT's 100 leaves", bert_kernel_leaves(), bf, bf, 0.01,
+         True, False),
+        ("(1024, 4096)", [(1024, 4096)], bf, bf, 0.01, True, False),
+        ("(1024, 4096)", [(1024, 4096)], bf, f32, 0.01, True, True),
+        ("(1024, 4096)", [(1024, 4096)], bf, bf, 0.0, True, True),
+        ("(1024, 4096)", [(1024, 4096)], bf, bf, 0.01, False, False),
+        ("(1024, 4096)", [(1024, 4096)], f32, f32, 0.01, False, True),
+        ("(30592, 1024)", [(30592, 1024)], bf, bf, 0.01, True, False),
+        ("(30592, 1024)", [(30592, 1024)], bf, f32, 0.01, True, True),
+        ("40 mixed leaves", mixed, bf, bf, 0.01, True, True),
+    ):
+        ps, gs, ms, vs = _lamb_leaves(shapes, gdt, mdt, dev, gen)
+        n, total = len(shapes), sum(p.numel() for p in ps)
+        wds = [wd if i % 2 == 0 else 0.5 * wd for i in range(n)]
+        lr_ratios = _LAMB_LR_RATIO * (
+            1.0 + torch.arange(n, device=dev) / 128.0)
+        name = (f"{what} grad {str(gdt)[6:]}, moments {str(mdt)[6:]}, "
+                f"wd {wd}, {'AdamW' if adam_w else 'L2'}")
+        headline = n == 100
+
+        # stage 1: equal copies through kernel and plain version
+        km, kv, rm, rv = (_clones(t) for t in (ms, vs, ms, vs))
+        rsum = torch.empty((n, 2), device=dev)
+        ksum = ok.lamb_stage1(ps, gs, km, kv, s1, wds, adam_w)
+        for i in range(n):
+            ok.lamb_leaf_stage1_reference(ps[i], gs[i], rm[i], rv[i], s1,
+                                          wds[i], adam_w, rsum[i])
+        extra = [None] * (2 * n) + [_l1_tol(rsum)]
+        tols = [LAMB_MOMENT_TOL[mdt]] * (2 * n) + [dict(rtol=0.0, atol=0.0)]
+        # timing runs update their own buffers in place, step after step:
+        # small cases in 4 sets in turn, together above the 50 MB L2, so
+        # each launch finds its buffers cold, as each leaf is in a step
+        n_sets = 4 if total < (1 << 24) else 1
+
+        def sets(*lists):
+            return itertools.cycle([tuple(_clones(t) for t in lists)
+                                    for _ in range(n_sets)])
+
+        tsum = torch.empty((n, 2), device=dev)
+        k1, p1, l1 = (sets(ps, gs, ms, vs) for _ in range(3))
+
+        def kern1(k1=k1, wds=wds, adam_w=adam_w):
+            return ok.lamb_stage1(*next(k1), s1, wds, adam_w, out=tsum)
+
+        def plain1(p1=p1, wds=wds, adam_w=adam_w):
+            for i, leaf in enumerate(zip(*next(p1))):
+                ok.lamb_leaf_stage1_reference(*leaf, s1, wds[i], adam_w,
+                                              tsum[i])
+
+        def lib1(l1=l1, wd=wd, adam_w=adam_w):
+            return _foreach_lamb_stage1(*next(l1), wd if adam_w else 0.0)
+
+        yield dict(
+            kernel="lamb_leaf_stage1", case=name, dtype=gdt,
+            cmp=compare((*km, *kv, ksum), (*rm, *rv, rsum), extra, tols),
+            kern=kern1, plain=plain1, lib=lib1,
+            nbytes=nbytes(*ps, *gs, *ms, *vs, *ms, *vs, s1, ksum),
+            ops=16 * total, headline=headline,
+            iters=5 if headline else 20, plain_iters=1 if headline else 3,
+        )
+        del k1, p1, l1, kern1, plain1, lib1
+
+        # stage 2 from the kernel's stored moments
+        kp, rp = _clones(ps), _clones(ps)
+        kc = [torch.empty_like(p, dtype=gdt) for p in ps] if copy else None
+        rc = _clones(kc)
+        ok.lamb_stage2(kp, km, kv, s2, lr_ratios, wds, adam_w, model_outs=kc)
+        for i in range(n):
+            ok.lamb_leaf_stage2_reference(
+                rp[i], km[i], kv[i], s2, lr_ratios[i], wds[i], adam_w,
+                None if rc is None else rc[i])
+        step = [LAMB_STEP_RTOL * (p.abs() + (r - p).abs())
+                for p, r in zip(ps, rp)]
+        extra = step + (step if copy else [])
+        tols = [dict(rtol=0.0, atol=0.0)] * n + (
+            [dict(rtol=LAMB_COPY_RTOL[gdt], atol=0.0)] * n if copy else [])
+        k2, p2, l2 = (sets(ps, km, kv, kc) for _ in range(3))
+
+        def kern2(k2=k2, wds=wds, adam_w=adam_w):
+            tp, tm, tv, tc = next(k2)
+            ok.lamb_stage2(tp, tm, tv, s2, lr_ratios, wds, adam_w,
+                           model_outs=tc)
+
+        def plain2(p2=p2, wds=wds, adam_w=adam_w):
+            tp, tm, tv, tc = next(p2)
+            for i in range(len(tp)):
+                ok.lamb_leaf_stage2_reference(
+                    tp[i], tm[i], tv[i], s2, lr_ratios[i], wds[i], adam_w,
+                    None if tc is None else tc[i])
+
+        def lib2(l2=l2, wd=wd, adam_w=adam_w):
+            tp, tm, tv, tc = next(l2)
+            _foreach_lamb_stage2(tp, tm, tv, wd if adam_w else 0.0, tc)
+
+        yield dict(
+            kernel="lamb_leaf_stage2",
+            case=name + (", with the compute copy" if copy else ""),
+            dtype=gdt,
+            cmp=compare((*kp, *(kc or ())), (*rp, *(rc or ())), extra,
+                        tols),
+            kern=kern2, plain=plain2, lib=lib2,
+            nbytes=nbytes(*ps, *ps, *km, *kv, *(kc or ()), s2, lr_ratios),
+            ops=10 * total, headline=headline,
+            iters=5 if headline else 20, plain_iters=1 if headline else 3,
+        )
+        del k2, p2, l2, kern2, plain2, lib2
+
+
+CASE_GROUPS = dict(ln=ln_cases, seg=seg_cases, decode=decode_cases,
+                   paged=paged_decode_cases, train_ln=train_ln_cases,
+                   flash=flash_cases, xent=xent_cases, lamb=lamb_cases)
+
+
 def run_kernel_phase(dev, generators):
     """Check and time each case as its generator yields it (the
     closures read the generator's loop variables)."""
@@ -783,8 +1169,8 @@ def run_kernel_phase(dev, generators):
         cmp = c["cmp"]
         log(f"  {c['kernel']:<36} {c['case']:<58} max|err| "
             f"{cmp['err']:.3e}, max|plain y or o| {cmp['ref_max']:.3e}; worst "
-            f"err/tol {cmp['ratio']:.3f} (tol atol + rtol|plain| of each "
-            f"output's dtype)")
+            f"err/tol {cmp['ratio']:.3f} (tol atol + rtol|plain|, each "
+            f"output's own)")
         check(cmp["ratio"] <= 1.0, f"{c['kernel']} {c['case']}: an output "
               f"differs from its plain version by {cmp['ratio']:.3g}x its "
               f"tolerance (max abs error {cmp['err']:.3e})")
@@ -794,17 +1180,22 @@ def run_kernel_phase(dev, generators):
         plain_ms = device_ms(c["plain"], c.get("plain_iters", 10), warmup=1)
         lib_ms = (device_ms(c["lib"], iters) if c["lib"] is not None
                   else None)
+        lib32_ms = (device_ms(c["lib32"], iters)
+                    if c.get("lib32") is not None else None)
         b_ms, b_by = bound_ms(c["nbytes"], c["ops"], c["dtype"])
         out.append(dict(
             kernel=c["kernel"], case=c["case"], max_abs_err=cmp["err"],
             max_abs_out=cmp["ref_max"], err_over_tol=cmp["ratio"], ms=ms,
             call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=b_ms, bound_by=b_by, bytes=c["nbytes"], ops=c["ops"],
+            library_fp32_ms=lib32_ms, bound_ms=b_ms, bound_by=b_by,
+            bytes=c["nbytes"], ops=c["ops"],
             headline=c["headline"],
         ))
         log(f"    kernel {ms:.4f} ms (call {call_ms:.4f})  plain "
             f"{plain_ms:.4f} ms  library "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            f"{'' if lib32_ms is None else f' (on fp32 {lib32_ms:.4f} ms)'}"
+            f"  bound "
             f"{b_ms:.4f} ms ({b_by})")
     return out
 
@@ -1378,6 +1769,217 @@ def run_train_phase(profile):
 
 
 # ---------------------------------------------------------------------------
+# phases 9 and 10: the BERT training step
+# ---------------------------------------------------------------------------
+
+
+def _bert_batch(cfg, batch, seq):
+    """bench.py's batch: uniform token ids from a seeded generator (numpy
+    here), labels the tokens rolled by one."""
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int64)
+    return torch.from_numpy(tokens), torch.from_numpy(np.roll(tokens, 1, 1))
+
+
+def _bert_trainer(cfg, device, moment_dtype):
+    """``(step, state, model, opt)``: bench.py's optimizer over seeded
+    random weights."""
+    from rocm_apex_tpu_torch.convert import (flatten_params, random_params,
+                                             train_state_from_jax_params)
+    from rocm_apex_tpu_torch.optimizers import MixedPrecisionLamb
+    from rocm_apex_tpu_torch.train import make_bert_train_step
+
+    tree = random_params(cfg, seed=0)
+    mask = {k: not (k.endswith("bias") or "layernorm" in k.lower())
+            for k in flatten_params(tree["params"])}
+    opt = MixedPrecisionLamb(1e-4, weight_decay=0.01, weight_decay_mask=mask,
+                             compute_dtype=cfg.dtype,
+                             moment_dtype=moment_dtype, store_model=False)
+    model, state = train_state_from_jax_params(tree, cfg, opt, device=device)
+    return make_bert_train_step(model, opt), state, model, opt
+
+
+def run_bert_train_parity_phase():
+    from rocm_apex_tpu_torch.models.bert import BertConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = BertConfig(**{**BERT, "num_layers": BERT_PARITY["num_layers"],
+                        "max_position_embeddings": BERT_PARITY["seq"]},
+                     params_dtype=torch.float32, dtype=torch.float32)
+    tokens, labels = _bert_batch(cfg, BERT_PARITY["batch"],
+                                 BERT_PARITY["seq"])
+    runs = {}
+    for dev in (CARD, "cpu"):
+        step, state, _, opt = _bert_trainer(cfg, dev, torch.float32)
+        losses, found = [], []
+        for _ in range(BERT_PARITY["steps"]):
+            state, loss, inf = step(state, tokens, labels)
+            losses.append(float(loss))
+            found.append(bool(inf))
+        runs[dev] = (losses, found)
+        if dev != CARD:
+            continue
+        # one more step on the card with an inf in one gradient: found,
+        # and masters, moments and count bit for bit as they were
+        before = {n: {k: t.clone() for k, t in getattr(state, n).items()}
+                  for n in ("master", "m", "v")}
+        count = int(state.count)
+        grads = {k: torch.full_like(t, 1e-3) for k, t in state.master.items()}
+        grads["embedding.word_embeddings.weight"][7, 7] = float("inf")
+        state, inf = opt.step_and_probe(state, grads)
+        frozen = bool(inf) and int(state.count) == count and all(
+            torch.equal(getattr(state, n)[k], t)
+            for n, d in before.items() for k, t in d.items())
+        log(f"  injected inf gradient on the card: found_inf {bool(inf)}, "
+            f"masters, moments and count "
+            f"{'bit-frozen' if frozen else 'CHANGED'}")
+        check(frozen, "the overflow step changed the state")
+    (lc, fc), (lp, fp) = runs[CARD], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    log(f"  losses cuda {lc}, cpu {lp}: max relative difference {rel:.3e} "
+        f"(rtol {PARITY_LOSS_RTOL:g}); found_inf cuda {fc}, cpu {fp}")
+    check(all(math.isfinite(x) for x in lc + lp), "nonfinite parity loss")
+    check(rel <= PARITY_LOSS_RTOL, f"BERT train losses differ by {rel:.3e}")
+    check(fc == fp, f"found_inf differs: cuda {fc}, cpu {fp}")
+    return dict(losses_cuda=lc, losses_cpu=lp, max_rel_diff=rel,
+                found_inf_cuda=fc, found_inf_cpu=fp, inf_step_frozen=True)
+
+
+def bert_calls(layers, leaves, steps, evals):
+    """Wrapper calls of ``steps`` training steps and ``evals`` no-grad
+    forwards of the chained stack at ``layers`` layers without dropout:
+    one attention a layer; 2 * layers + 1 LayerNorms in the stack (layer
+    0's plain ln1, the ln2s, the chained ln1s, the final LN) and the LM
+    head's; one cross-entropy, differentiated in training and plain in
+    evaluation; the LAMB pair once a step, over all ``leaves`` kernel
+    leaves (inside a call, for each 32 leaves, stage 1 launches two
+    kernels and stage 2 one)."""
+    ln = 2 * layers + 2
+    return {
+        "flash_attention_qkv_fwd": layers * (steps + evals),
+        "flash_attention_qkv_bwd": layers * steps,
+        "layer_norm_fwd": ln * (steps + evals),
+        "layer_norm_fwd_dropout": 0,
+        "layer_norm_bwd": ln * steps,
+        "xent_fwd_dg": steps,
+        "xent_fwd": evals,
+        "lamb_leaf_stage1": steps if leaves else 0,
+        "lamb_leaf_stage2": steps if leaves else 0,
+    }
+
+
+def bert_host_breakdown(model, opt, state, tokens, labels, steps=5):
+    """Host milliseconds a BERT step spends enqueueing each part, on an
+    idle device: the step's parts are run as `make_bert_train_step` runs
+    them, with the host clock read between them and the device drained
+    before each step, so no part waits on a full queue. ``drain`` is the
+    wait for the device after the last enqueue: near zero when the host
+    is the limit."""
+    named = dict(model.named_parameters())
+    parts = dict(forward=0.0, backward=0.0, optimizer=0.0, drain=0.0)
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.model_params(state, model)
+        for p in named.values():
+            p.grad = None
+        losses, _ = model(tokens, lm_labels=labels)
+        loss = losses.mean()
+        t1 = time.perf_counter()
+        loss.backward()
+        t2 = time.perf_counter()
+        state, _ = opt.step_and_probe(
+            state, {k: named[k].grad for k in state.master})
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for name, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[name] += 1e3 * dt / steps
+    log(f"  host enqueue ms a step on an idle device: "
+        f"{ {k: round(v, 2) for k, v in parts.items()} }")
+    return parts
+
+
+def run_bert_train_phase(profile):
+    from rocm_apex_tpu_torch.models.bert import BertConfig
+    from rocm_apex_tpu_torch.ops._build import KERNELS
+    from rocm_apex_tpu_torch.optimizers.mixed import takes_leaf_kernels
+
+    cfg = BertConfig(**BERT, params_dtype=torch.float32,
+                     dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    step, state, model, opt = _bert_trainer(cfg, "cuda", torch.bfloat16)
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.master.values())
+    leaves = sum(takes_leaf_kernels(p) for p in state.master.values())
+    tokens, labels = _bert_batch(cfg, BERT_BATCH, BERT_SEQ)
+    tokens, labels = tokens.cuda(), labels.cuda()
+    losses, found = [], []
+    for _ in range(TRAIN_WARMUP):
+        state, loss, inf = step(state, tokens, labels)
+        losses.append(loss)
+        found.append(inf)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, loss, inf = step(state, tokens, labels)
+        losses.append(loss)
+        found.append(inf)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    # one evaluation forward on the trained weights, no gradient asked:
+    # the cross-entropy's plain form
+    opt.model_params(state, model)
+    with torch.no_grad():
+        eval_losses, binary = model(tokens, lm_labels=labels)
+    eval_loss = float(eval_losses.mean())
+    launches = {k.name: k.launches for k in KERNELS}
+    losses = [float(x) for x in losses]
+    skipped = sum(bool(x) for x in found)
+    want = bert_calls(cfg.num_layers, leaves, TRAIN_STEPS, 1)
+    res = dict(
+        batch=BERT_BATCH, seq=BERT_SEQ, steps=TRAIN_STEPS, seconds=dt,
+        params=n_params, lamb_kernel_leaves=leaves,
+        step_ms=1e3 * dt / TRAIN_STEPS,
+        tokens_per_s=BERT_BATCH * BERT_SEQ * TRAIN_STEPS / dt,
+        loss_first=losses[0], loss_last=losses[-1], losses=losses,
+        eval_loss=eval_loss, skipped_steps=skipped, setup_s=setup_s,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches, expected_launches=want,
+    )
+    log(f"  {n_params / 1e6:.1f}M parameters, {leaves} leaves on the LAMB "
+        f"kernel pair; {TRAIN_STEPS} steps of B {BERT_BATCH} x S "
+        f"{BERT_SEQ}: {res['step_ms']:.2f} ms/step, "
+        f"{res['tokens_per_s']:.1f} tokens/s; loss {losses[0]:.4f} (first) "
+        f"-> {losses[-1]:.4f} (last), evaluation {eval_loss:.4f}; "
+        f"{skipped} skipped steps; peak {res['peak_mem_gib']:.2f} GiB")
+    log(f"  launches in the timed steps and the evaluation: "
+        f"{ {k: launches[k] for k in want} } (expected {want})")
+    check(all(math.isfinite(x) for x in losses + [eval_loss]),
+          "nonfinite BERT loss")
+    check(losses[-1] < losses[0], "the BERT training loss did not fall")
+    check(eval_loss < losses[0], "the evaluation loss is not below the "
+          "first training loss")
+    check(skipped == 0, f"{skipped} BERT steps were skipped")
+    check(binary.shape == (BERT_BATCH, 2) and bool(
+        torch.isfinite(binary).all()), "bad binary logits")
+    for name, n in want.items():
+        check(launches[name] == n, f"{name}: {launches[name]} launches in "
+              f"{TRAIN_STEPS} steps and one evaluation, expected {n}")
+    if profile:
+        res["profile"] = profile_window(
+            lambda: [step(state, tokens, labels) for _ in range(3)],
+            "3 BERT train steps")
+        res["host_ms"] = bert_host_breakdown(model, opt, state, tokens,
+                                             labels)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def smi_line():
@@ -1397,7 +1999,9 @@ def main(argv=None):
                     help="add profiled serve and train windows (device "
                          "busy share)")
     ap.add_argument("--only", help="comma-separated subset of the phases "
-                    f"{','.join(PHASES)} (default: all)")
+                    f"{','.join(PHASES)} (default: all); kernels:A+B runs "
+                    f"the kernel phase's case groups A and B of "
+                    f"{','.join(CASE_GROUPS)}")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1439,16 +2043,20 @@ def main(argv=None):
         log(f"  {fn}: {'; '.join(lines)}")
 
     dev = torch.device("cuda", 0)
-    phases = PHASES if args.only is None else args.only.split(",")
+    only = dict(e.partition(":")[::2] for e in (
+        PHASES if args.only is None else args.only.split(",")))
+    unknown = set(only) - set(PHASES)
+    check(not unknown, f"--only: no phase named {sorted(unknown)}")
+    phases = list(only)
     from rocm_apex_tpu_torch.ops import (flash_attention,  # noqa: F401
                                          flash_attention_segments,
-                                         layer_norm)
+                                         layer_norm, optim_kernels, xentropy)
+    groups = (only["kernels"].split("+") if only.get("kernels")
+              else list(CASE_GROUPS))
     runs = {
         "kernels": ("kernels (kernel vs plain version on the card)",
                     lambda: run_kernel_phase(
-                        dev, (ln_cases, seg_cases, decode_cases,
-                              paged_decode_cases, train_ln_cases,
-                              flash_cases))),
+                        dev, [CASE_GROUPS[g] for g in groups])),
         "parity": ("parity (2 layers, fp32, TF32 off: cuda kernels vs cpu "
                    "plain)", run_parity_phase),
         "serve": ("serve (8 layers, bf16, 32 requests x 64 tokens)",
@@ -1463,6 +2071,15 @@ def main(argv=None):
         "train": (f"train (8 layers, bf16, B {TRAIN_BATCH} x S {TRAIN_SEQ}, "
                   f"dropout 0.1: {TRAIN_WARMUP} warm-up + {TRAIN_STEPS} "
                   f"timed steps)", lambda: run_train_phase(args.profile)),
+        "bert_train_parity": (
+            "bert train parity (2 layers, S 128, B 2, fp32, TF32 off: 3 "
+            "LAMB steps cuda vs cpu, then an inf gradient)",
+            run_bert_train_parity_phase),
+        "bert_train": (
+            f"bert train (24 layers, bf16, B {BERT_BATCH} x S {BERT_SEQ}, "
+            f"LAMB with bf16 moments: {TRAIN_WARMUP} warm-up + "
+            f"{TRAIN_STEPS} timed steps, one evaluation)",
+            lambda: run_bert_train_phase(args.profile)),
     }
     report["phase_s"] = {}
     for phase in PHASES:
@@ -1479,8 +2096,11 @@ def main(argv=None):
     # launches most), every case in the --out file, and its launches in
     # the run of its path (the serve for the serving kernels, the paged
     # serve's three timed runs for the paged decode read, the timed train
-    # steps for the training ones; the plain LN forward runs on all and
-    # reports the serve, whose shape heads it). In the serve
+    # steps for the GPT training ones, the BERT steps and evaluation for
+    # the cross-entropy and the LAMB pair, whose count is of wrapper
+    # calls: a call of stage 1 launches 2 * ceil(leaves / 32) kernels, of
+    # stage 2 ceil(leaves / 32); the plain LN forward runs on
+    # all and reports the serve, whose shape heads it). In the serve
     # every forward runs 9 plain and 8 residual LNs and every tick a
     # decode-grid forward (8 rows), so the plain (8, 1024) LN and the
     # decode grid lead; in training the dropout forms lead.
@@ -1492,6 +2112,8 @@ def main(argv=None):
             k.name != "layer_norm_fwd") else "serve"
         if k.name in PAGED_KERNELS:
             path = "serve_paged"
+        if k.name in BERT_KERNELS:
+            path = "bert_train"
         where, _, _ = k.replaces.partition(" ")
         kernels.append(dict(
             name=k.name, route="cuda",
@@ -1501,6 +2123,7 @@ def main(argv=None):
             max_abs_err=c.get("max_abs_err"), ms=c.get("ms"),
             plain_ms=c.get("plain_ms"), bound_ms=c.get("bound_ms"),
             bound_by=c.get("bound_by"), library_ms=c.get("library_ms"),
+            library_fp32_ms=c.get("library_fp32_ms"),
             case=c.get("case"), path=path,
         ))
     if args.out:

@@ -1,4 +1,5 @@
-"""The weight bridge: the JAX `GPTModel` param tree into the port's modules.
+"""The weight bridge: the JAX `GPTModel` and `BertModel` param trees into
+the port's modules.
 
 The JAX package's ``GPTModel.init`` returns ``{'params': {'embedding':
 {...}, 'transformer': {'layer_0': {...}, ..., 'final_layernorm':
@@ -7,16 +8,22 @@ each flattened path of the tree (joined with ``.``) is a `GPTModel.state_dict`
 key. `from_jax_params` takes such a tree as numpy arrays (any array with
 ``__array__`` works) and loads it, casting each leaf to the dtype the
 port keeps it in (linear and embedding weights in the compute dtype,
-LayerNorm parameters in ``params_dtype``). `train_state_from_jax_params`
-builds the training state instead: fp32 masters from the tree and the
-model's parameters (all of them) in the compute dtype.
+LayerNorm parameters in ``params_dtype``). A `BertConfig` selects
+`BertModel`, whose tree adds ``tokentype_embeddings``, ``lm_head``
+(``dense``, ``layernorm``) and, with the binary head, ``pooler`` and
+``binary_head`` (flax ``Dense`` kernels are (in, out), as the port's).
+`train_state_from_jax_params` builds the training state instead: fp32
+masters from the tree and the model's parameters (all of them) in the
+compute dtype; with ``opt_state`` it carries an optimizer state across
+(moments and count), so both sides step from the same state.
 
 `random_params` draws the same tree with numpy from a seed, with the
 JAX model's initializers: normal(``init_method_std``) for the
 embeddings and input projections, the output projections (attention
 ``dense`` and ``dense_4h_to_h``) scaled by 1/sqrt(2 * num_layers), zero
-biases, LayerNorm ones and zeros. A machine without JAX builds its
-weights this way.
+biases, LayerNorm ones and zeros; BERT's extra leaves are
+normal(``init_method_std``) with zero biases. A machine without JAX
+builds its weights this way.
 """
 
 from typing import Any, Dict, Optional, Tuple, Union
@@ -24,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from rocm_apex_tpu_torch.models.bert import BertConfig, BertModel
 from rocm_apex_tpu_torch.models.gpt import GPTConfig, GPTModel
 
 __all__ = [
@@ -50,19 +58,21 @@ def from_jax_params(
     tree: Dict[str, Any],
     cfg: GPTConfig,
     device: Optional[Union[str, torch.device]] = None,
-) -> GPTModel:
-    """Build a `GPTModel` on ``device`` holding the weights of ``tree``
-    (the JAX model's variables dict, with or without its ``'params'`` level).
-    Raises on a missing or unexpected leaf, or a shape mismatch."""
+) -> Union[GPTModel, BertModel]:
+    """Build a `GPTModel` (a `BertModel` for a `BertConfig`) on ``device``
+    holding the weights of ``tree`` (the JAX model's variables dict, with
+    or without its ``'params'`` level). Raises on a missing or unexpected
+    leaf, or a shape mismatch."""
     params = tree.get("params", tree)
     flat = flatten_params(params)
-    model = GPTModel(cfg, device=device)
+    cls = BertModel if isinstance(cfg, BertConfig) else GPTModel
+    model = cls(cfg, device=device)
     state = model.state_dict()
     missing = sorted(set(state) - set(flat))
     extra = sorted(set(flat) - set(state))
     if missing or extra:
         raise KeyError(
-            f"param tree does not match GPTModel: missing {missing}, "
+            f"param tree does not match {cls.__name__}: missing {missing}, "
             f"unexpected {extra}"
         )
     with torch.no_grad():
@@ -81,22 +91,44 @@ def train_state_from_jax_params(
     cfg: GPTConfig,
     opt,
     device: Optional[Union[str, torch.device]] = None,
-) -> Tuple[GPTModel, Any]:
+    opt_state: Optional[Dict[str, Any]] = None,
+) -> Tuple[Union[GPTModel, BertModel], Any]:
     """``(model, state)`` for training from the JAX param tree: ``state =
-    opt.init(fp32 leaves of the tree, model)`` (a `MixedPrecisionAdam`),
-    so the masters are the tree's values exactly and every model
-    parameter holds its master cast to the optimizer's compute dtype."""
+    opt.init(fp32 leaves of the tree, model)`` (a `MixedPrecisionAdam` or
+    `MixedPrecisionLamb`), so the masters are the tree's values exactly
+    and every model parameter holds its master cast to the optimizer's
+    compute dtype. ``opt_state`` carries a JAX optimizer state across:
+    ``{"m": tree, "v": tree, "count": int}`` shaped like the params
+    (with or without a ``'params'`` level); the moments land in the
+    dtype the optimizer keeps them in."""
     model = from_jax_params(tree, cfg, device=device)
     params = {
         k: torch.tensor(np.asarray(v, dtype=np.float32), device=model.device)
         for k, v in flatten_params(tree.get("params", tree)).items()
     }
-    return model, opt.init(params, model)
+    state = opt.init(params, model)
+    if opt_state is not None:
+        for name in ("m", "v"):
+            src = flatten_params(opt_state[name].get("params",
+                                                     opt_state[name]))
+            dst = getattr(state, name)
+            if set(src) != set(dst):
+                raise KeyError(
+                    f"opt_state[{name!r}] names "
+                    f"{sorted(set(src) ^ set(dst))} differently from the "
+                    f"params"
+                )
+            for k, v in src.items():
+                dst[k].copy_(torch.tensor(np.asarray(v, dtype=np.float32)))
+        state = state._replace(count=torch.full_like(
+            state.count, int(opt_state["count"])))
+    return model, state
 
 
 def random_params(cfg: GPTConfig, seed: int = 0) -> Dict[str, Any]:
-    """A GPT param tree shaped like the JAX model's, of float32 numpy arrays drawn from
-    ``seed``, with the JAX model's initializers."""
+    """A GPT (for a `BertConfig`, BERT) param tree shaped like the JAX
+    model's, of float32 numpy arrays drawn from ``seed``, with the JAX
+    model's initializers."""
     rng = np.random.default_rng(seed)
     h, f, nl = cfg.hidden_size, cfg.ffn_size, cfg.num_layers
     std = cfg.init_method_std
@@ -129,7 +161,7 @@ def random_params(cfg: GPTConfig, seed: int = 0) -> Dict[str, Any]:
             },
         }
     transformer["final_layernorm"] = ln()
-    return {"params": {
+    params = {
         "embedding": {
             "word_embeddings": {"weight": normal((cfg.vocab_size, h), std)},
             "position_embeddings": normal(
@@ -137,4 +169,11 @@ def random_params(cfg: GPTConfig, seed: int = 0) -> Dict[str, Any]:
             ),
         },
         "transformer": transformer,
-    }}
+    }
+    if isinstance(cfg, BertConfig):
+        params["tokentype_embeddings"] = normal((cfg.num_token_types, h), std)
+        params["lm_head"] = {"dense": linear(h, h, std), "layernorm": ln()}
+        if cfg.add_binary_head:
+            params["pooler"] = linear(h, h, std)
+            params["binary_head"] = linear(h, 2, std)
+    return {"params": params}

@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace apex_port {
 
 // dtype codes shared with the Python wrappers (ops/_build.py DTYPE_CODES)
@@ -95,6 +97,27 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p,
                                           const float (&in)[VEC]) {
 #pragma unroll
   for (int i = 0; i < VEC; ++i) p[i] = from_float<T>(in[i]);
+}
+
+// Store VEC consecutive elements rounded from fp32, as one 16-, 8- or
+// 4-byte store where VEC * sizeof(T) is that size (the address aligned to
+// it, as for `load_vec`).
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec_packed(T* __restrict__ p,
+                                                 const float (&in)[VEC]) {
+  constexpr int kBytes = VEC * static_cast<int>(sizeof(T));
+  if constexpr (kBytes == 16 || kBytes == 8 || kBytes == 4) {
+    using Word = typename std::conditional<
+        kBytes == 16, uint4,
+        typename std::conditional<kBytes == 8, uint2, uint32_t>::type>::type;
+    Word r;
+    T* e = reinterpret_cast<T*>(&r);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) e[i] = from_float<T>(in[i]);
+    *reinterpret_cast<Word*>(p) = r;
+  } else {
+    store_vec<T, VEC>(p, in);
+  }
 }
 
 }  // namespace apex_port

@@ -20,7 +20,13 @@ Port of ``rocm_apex_tpu/models/gpt.py`` at tensor-parallel world size 1.
   Unlike the JAX package, which falls back to a materialized softmax off
   the TPU (gpt.py:419-425), the port always runs the in-kernel forms.
   ``labels=`` routes the last hidden state through the fused linear+CE
-  head (`VocabParallelEmbedding.attend_loss`).
+  head (`VocabParallelEmbedding.attend_loss`) or, with
+  ``fused_lm_head=False``, through the materialized head: the tied
+  projection's logits into the cross-entropy kernel
+  (`_serial_cross_entropy`). ``attn_mask_type="padding"`` (the BERT
+  stack) runs the same packed kernels without the causal mask when no
+  mask tensor is given; with one it raises: the additive-bias form needs
+  the unpacked flash kernels of a later slice.
 * The cached branches serve the engine (rocm_apex_tpu/models/gpt.py:
   509-893), deterministic and under ``torch.no_grad``: the packed chunk
   (``chunk=(slot_ids, positions)``) scatters its K/V into the cache at
@@ -81,6 +87,7 @@ from rocm_apex_tpu_torch.ops.paging import (
     paged_scatter,
     quantized_paged_scatter,
 )
+from rocm_apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss_fused
 from rocm_apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -90,6 +97,7 @@ from rocm_apex_tpu_torch.transformer.tensor_parallel import (
 __all__ = [
     "GPTConfig",
     "GPTModel",
+    "gpt_loss_fn",
     "ParallelMLP",
     "ParallelAttention",
     "ParallelTransformerLayer",
@@ -100,7 +108,7 @@ __all__ = [
 _NOT_PORTED = (
     "{what} is not ported yet: it needs the unpacked flash kernels "
     "(_fwd_kernel/_bwd_* on (batch*heads, seq, head_dim)); ROADMAP Queue 1 "
-    "item 1 (whole-prompt prefill), Queue 2 items 3 and 6"
+    "item 1 (masked BERT and whole-prompt prefill), Queue 2 items 3 and 6"
 )
 
 
@@ -140,9 +148,6 @@ class GPTConfig:
              f"attention_impl={self.attention_impl!r} (the materialized "
              f"softmax path needs the fused-softmax kernels, ROADMAP "
              f"Queue 2 item 10)"),
-            (not self.fused_lm_head,
-             "fused_lm_head=False (the materialized head needs the "
-             "xentropy kernels, ROADMAP Queue 2 item 7)"),
             (self.checkpoint_activations,
              "checkpoint_activations=True (ROADMAP Queue 1 item 8, rest "
              "of the training stack)"),
@@ -215,13 +220,22 @@ class ParallelMLP(nn.Module):
         return y
 
 
-class ParallelAttention(nn.Module):
-    """Causal self-attention: the packed flash path (uncached) and the
-    KV-cached serving branches."""
+def _check_mask_type(attn_mask_type: str) -> str:
+    if attn_mask_type not in ("causal", "padding"):
+        raise ValueError(f"unknown attn_mask_type {attn_mask_type!r}")
+    return attn_mask_type
 
-    def __init__(self, cfg: GPTConfig, device=None):
+
+class ParallelAttention(nn.Module):
+    """Self-attention: the packed flash path (uncached), causal or, with
+    ``attn_mask_type="padding"`` and no mask tensor, bidirectional; and
+    the KV-cached serving branches (causal only)."""
+
+    def __init__(self, cfg: GPTConfig, device=None,
+                 attn_mask_type: str = "causal"):
         super().__init__()
         self.cfg = cfg
+        self.attn_mask_type = _check_mask_type(attn_mask_type)
         kw = dict(dtype=cfg.dtype, device=device)
         self.query_key_value = ColumnParallelLinear(
             cfg.hidden_size, 3 * cfg.hidden_size, **kw
@@ -232,15 +246,24 @@ class ParallelAttention(nn.Module):
 
     def forward(self, x, cache=None,
                 chunk: Optional[Union[ChunkRows, PagedRows]] = None,
-                dropout_seed: Optional[int] = None):
-        """``cache``: the layer's view, ``(k, v, lengths)`` of a
+                dropout_seed: Optional[int] = None, attention_mask=None):
+        """``attention_mask``: a padding mask for the uncached path; only
+        None (no padded positions) runs so far. ``cache``: the layer's view, ``(k, v, lengths)`` of a
         contiguous cache or ``(k, v, lengths, paged)`` of a paged one,
         ``paged`` holding ``page_table``, ``page_size``, the layer's
         ``k_scale``/``v_scale`` (None unless int8) and ``rows``, this
         forward's write destinations. ``chunk``: the packed chunk's rows
         (their ``slots`` are the segment ids), None for the decode."""
+        if attention_mask is not None:
+            raise NotImplementedError(_NOT_PORTED.format(
+                what="attention with a mask tensor (attention_mask=)"))
         if cache is None:
             return self._forward_packed(x, dropout_seed)
+        if self.attn_mask_type != "causal":
+            raise ValueError(
+                "KV-cached attention is causal-only "
+                f"(got attn_mask_type={self.attn_mask_type!r})"
+            )
         cfg = self.cfg
         k_buf, v_buf, lengths = cache[:3]
         paged = cache[3] if len(cache) > 3 else None
@@ -326,11 +349,12 @@ class ParallelAttention(nn.Module):
         qkv, bias = self.query_key_value(x, skip_bias_add=True)
         qkv = qkv.view(b, s, nh, 3 * hd)
         scale = 1.0 / math.sqrt(hd)
+        causal = self.attn_mask_type == "causal"
         if dropout_seed is None:
-            ctx = flash_attention_qkv_bias(qkv, bias, True, scale)
+            ctx = flash_attention_qkv_bias(qkv, bias, causal, scale)
         else:
             ctx = flash_attention_qkv_bias_dropout(
-                qkv, bias, dropout_seed, cfg.attention_dropout, True, scale,
+                qkv, bias, dropout_seed, cfg.attention_dropout, causal, scale,
             )
         y, _ = self.dense(ctx)
         return y
@@ -342,13 +366,14 @@ class ParallelTransformerLayer(nn.Module):
     layer's pending MLP delta (added inside ln1) and returns
     ``(stream, pending delta)``; cached paths add eagerly."""
 
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None,
+                 attn_mask_type: str = "causal"):
         super().__init__()
         self.cfg = cfg
         ln = dict(eps=cfg.layernorm_epsilon, params_dtype=cfg.params_dtype,
                   device=device)
         self.input_layernorm = MixedFusedLayerNorm(cfg.hidden_size, **ln)
-        self.self_attention = ParallelAttention(cfg, device)
+        self.self_attention = ParallelAttention(cfg, device, attn_mask_type)
         self.post_attention_layernorm = MixedFusedLayerNorm(
             cfg.hidden_size, **ln
         )
@@ -362,7 +387,8 @@ class ParallelTransformerLayer(nn.Module):
         return (x + mlp.to(x.dtype)).to(self.cfg.dtype)
 
     def forward_chained(self, x, delta=None,
-                        seeds: Optional[torch.Generator] = None):
+                        seeds: Optional[torch.Generator] = None,
+                        attention_mask=None):
         """One training layer: with a ``seeds`` generator, hidden dropout
         drops the attention output inside ln2 and the incoming delta
         inside ln1, and attention dropout runs in the flash kernels."""
@@ -381,7 +407,8 @@ class ParallelTransformerLayer(nn.Module):
             )
         attn_seed = (_draw_seed(seeds) if seeds is not None
                      and cfg.attention_dropout > 0.0 else None)
-        attn = self.self_attention(ln1, dropout_seed=attn_seed)
+        attn = self.self_attention(ln1, dropout_seed=attn_seed,
+                                   attention_mask=attention_mask)
         ln2, x = self.post_attention_layernorm(
             attn.to(x.dtype), residual=x, dropout_rate=hrate,
             dropout_seed=hseed(),
@@ -393,12 +420,15 @@ class ParallelTransformerLayer(nn.Module):
 class ParallelTransformer(nn.Module):
     """``num_layers`` blocks (``layer_0`` ...) and the final LayerNorm."""
 
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None,
+                 attn_mask_type: str = "causal"):
         super().__init__()
         self.cfg = cfg
+        self.attn_mask_type = _check_mask_type(attn_mask_type)
         self.layer_names = [f"layer_{i}" for i in range(cfg.num_layers)]
         for name in self.layer_names:
-            self.add_module(name, ParallelTransformerLayer(cfg, device))
+            self.add_module(name, ParallelTransformerLayer(cfg, device,
+                                                           attn_mask_type))
         self.final_layernorm = MixedFusedLayerNorm(
             cfg.hidden_size, eps=cfg.layernorm_epsilon,
             params_dtype=cfg.params_dtype, device=device,
@@ -407,11 +437,14 @@ class ParallelTransformer(nn.Module):
     def forward(self, x, cache=None,
                 chunk: Optional[Union[ChunkRows, PagedRows]] = None,
                 seeds: Optional[torch.Generator] = None,
-                rows: Optional[PagedRows] = None):
+                rows: Optional[PagedRows] = None, attention_mask=None):
         """``rows``: a paged cache's write destinations for this forward
-        (the chunk's, or the decode grid's)."""
+        (the chunk's, or the decode grid's). ``attention_mask``: the
+        uncached path's padding mask (only None runs so far)."""
         if cache is None:
-            return self._forward_chained(x, seeds)
+            return self._forward_chained(x, seeds, attention_mask)
+        if attention_mask is not None:
+            raise ValueError("the KV-cached paths take no attention_mask")
         for i, name in enumerate(self.layer_names):
             layer_cache = (cache.k[i], cache.v[i], cache.lengths)
             if rows is not None:
@@ -437,10 +470,11 @@ class ParallelTransformer(nn.Module):
             )
         return x
 
-    def _forward_chained(self, x, seeds):
+    def _forward_chained(self, x, seeds, attention_mask=None):
         delta = None
         for name in self.layer_names:
-            x, delta = getattr(self, name).forward_chained(x, delta, seeds)
+            x, delta = getattr(self, name).forward_chained(
+                x, delta, seeds, attention_mask)
         if delta is None:
             return self.final_layernorm(x).to(self.cfg.dtype)
         # the last layer's pending delta joins the stream (and takes its
@@ -563,9 +597,20 @@ class GPTModel(nn.Module):
         x = self.transformer(x, seeds=seeds)
         if labels is None:
             return self.embedding.attend(x)
-        if loss_reduction == "mean":
-            return self.embedding.attend_loss(x, labels, loss_mask, "mean")
-        losses = self.embedding.attend_loss(x, labels)
+        if cfg.fused_lm_head:
+            if loss_reduction == "mean":
+                return self.embedding.attend_loss(x, labels, loss_mask,
+                                                  "mean")
+            losses = self.embedding.attend_loss(x, labels)
+        else:
+            # the materialized head: the logits stay in the compute dtype
+            # and the kernel widens them row by row
+            losses = _serial_cross_entropy(
+                self.embedding.attend(x), labels, cfg.label_smoothing,
+                cfg.ignore_index,
+            )
+            if loss_reduction == "mean":
+                return gpt_loss_fn(losses, loss_mask)
         if loss_mask is not None:
             losses = losses * loss_mask
         return losses
@@ -611,3 +656,24 @@ class GPTModel(nn.Module):
         x = self.transformer(x, cache, rows if chunk is not None else None,
                              rows=rows if paged else None)
         return self.embedding.attend(x), cache
+
+
+def _serial_cross_entropy(logits, labels, smoothing=0.0, padding_idx=None):
+    """The materialized head's loss: per-token fp32 losses of (b, s, vocab)
+    logits through the cross-entropy kernel on the (b*s, vocab) view,
+    with no fp32 copy of the logits. Differentiation emits the logits'
+    gradient during the forward read (`softmax_cross_entropy_loss_fused`)."""
+    b, s, v = logits.shape
+    losses = softmax_cross_entropy_loss_fused(
+        logits.reshape(b * s, v), labels.reshape(b * s), smoothing,
+        padding_idx,
+    )
+    return losses.reshape(b, s)
+
+
+def gpt_loss_fn(losses, loss_mask=None):
+    """Mean per-token loss; with a mask, sum(losses * mask) / max(sum(mask), 1)."""
+    if loss_mask is not None:
+        return (losses * loss_mask).sum() / torch.clamp(loss_mask.sum(),
+                                                        min=1)
+    return losses.mean()

@@ -2,7 +2,8 @@
 
 from rocm_apex_tpu_torch.optimizers.mixed import (
     MixedPrecisionAdam,
+    MixedPrecisionLamb,
     MixedPrecisionState,
 )
 
-__all__ = ["MixedPrecisionAdam", "MixedPrecisionState"]
+__all__ = ["MixedPrecisionAdam", "MixedPrecisionLamb", "MixedPrecisionState"]

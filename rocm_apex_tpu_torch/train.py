@@ -1,11 +1,15 @@
-"""One mixed-precision GPT training step.
+"""One mixed-precision training step, for GPT and for BERT.
 
-The counterpart of ``make_one_step`` in the JAX package's bench.py
+`make_train_step` is the counterpart of ``make_one_step`` in the JAX package's bench.py
 (bench.py:2533-2578): the model's fused-head mean loss, scaled by the
 dynamic loss scale; backward; `MixedPrecisionAdam.step_and_probe` with
 ``grad_scale = 1 / loss_scale`` (the unscale and the overflow probe ride
-the update); `LossScaler.update`. The step returns the unscaled loss as
-a device tensor and never reads a value back to the host.
+the update); `LossScaler.update`. `make_bert_train_step` is the
+counterpart of ``one_step`` in ``build_bert_train`` (bench.py:270-284):
+the mean of `BertModel`'s per-token masked-LM losses; backward;
+`MixedPrecisionLamb.step_and_probe` with no loss scaler (the global
+gradient norm is the overflow probe). Each step returns the unscaled
+loss as a device tensor and never reads a value back to the host.
 """
 
 from typing import Callable, Optional
@@ -13,9 +17,13 @@ from typing import Callable, Optional
 import torch
 
 from rocm_apex_tpu_torch.amp import LossScaler, ScalerState
-from rocm_apex_tpu_torch.optimizers import MixedPrecisionAdam, MixedPrecisionState
+from rocm_apex_tpu_torch.optimizers import (
+    MixedPrecisionAdam,
+    MixedPrecisionLamb,
+    MixedPrecisionState,
+)
 
-__all__ = ["make_train_step"]
+__all__ = ["make_bert_train_step", "make_train_step"]
 
 
 def make_train_step(model, opt: MixedPrecisionAdam,
@@ -56,5 +64,42 @@ def make_train_step(model, opt: MixedPrecisionAdam,
                                               grad_scale=inv_scale)
         sstate2, _ = scaler.update(sstate, found_inf)
         return state, sstate2, scaled.detach() * inv_scale
+
+    return step
+
+
+def make_bert_train_step(model, opt: MixedPrecisionLamb) -> Callable:
+    """``step(state, tokens, lm_labels, tokentype_ids=None,
+    dropout_generator=None) -> (state, loss, found_inf)``.
+
+    ``model`` is a `BertModel`, ``state`` the optimizer's state over it
+    (see `convert.train_state_from_jax_params`). The compute copy comes
+    from `opt.model_params` at the start of each step (a cast from the
+    masters when the optimizer does not store it). ``found_inf`` is a
+    device bool: the step was skipped and the state left as it was.
+    """
+    device = model.device
+    named = dict(model.named_parameters())
+
+    def step(state: MixedPrecisionState, tokens: torch.Tensor,
+             lm_labels: torch.Tensor,
+             tokentype_ids: Optional[torch.Tensor] = None,
+             dropout_generator: Optional[torch.Generator] = None):
+        opt.model_params(state, model)
+        for p in named.values():
+            p.grad = None
+        if tokentype_ids is not None:
+            tokentype_ids = tokentype_ids.to(device)
+        losses, _ = model(
+            tokens.to(device), tokentype_ids=tokentype_ids,
+            lm_labels=lm_labels.to(device),
+            deterministic=dropout_generator is None,
+            dropout_generator=dropout_generator,
+        )
+        loss = losses.mean()
+        loss.backward()
+        grads = {k: named[k].grad for k in state.master}
+        state, found_inf = opt.step_and_probe(state, grads)
+        return state, loss.detach(), found_inf
 
     return step

@@ -213,8 +213,8 @@ class TestEntryPoints:
         _, _, model = models
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GPTConfig(**SHAPE, attention_impl="fused_softmax")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GPTConfig(**SHAPE, fused_lm_head=False)
+        # the materialized head runs now (tests/test_torch_bert.py)
+        assert not GPTConfig(**SHAPE, fused_lm_head=False).fused_lm_head
         cache = KVCache.for_model(torch_cfg(), 1, CAPACITY, device="cpu")
         with pytest.raises(NotImplementedError, match="whole-prompt"):
             model(torch.zeros((1, 4), dtype=torch.int64), cache=cache)

@@ -299,7 +299,7 @@ class TestEntryPoints:
 
     @pytest.mark.parametrize("field,value", [
         ("attention_impl", "jnp"),
-        ("fused_lm_head", False),
+        ("tensor_parallel_size", 2),
         ("checkpoint_activations", True),
         ("apply_residual_connection_post_layernorm", True),
     ])
