@@ -15,7 +15,10 @@ JAX package) through these phases, in order; any failure exits non-zero:
              (dropout cases included: both draw the same keep bits; the
              paged decode read at page sizes 16 and 64 over bf16, fp32
              and int8 pools, with prefixes ending mid-page and a dead row
-             whose bound reaches unmapped table entries);
+             whose bound reaches unmapped table entries; the unpacked
+             flash forward, backward and dbias at the masked BERT-Large,
+             whole-prompt, ragged and varlen shapes, and the unpacked
+             kernels equal to the packed ones on a projection's views);
              kernel, plain and library times with CUDA events, and the
              least time the card could take (bound);
 4. parity    the serving config at full width but 2 layers, fp32 with
@@ -27,7 +30,8 @@ JAX package) through these phases, in order; any failure exits non-zero:
              CPU (tokens, and the logits of two chunks), prefix sharing
              against no sharing (tokens; hits and copy-on-write forks
              counted), and a pool below demand (page stalls, every
-             request done, no page left in use);
+             request done, no page left in use); the whole-prompt engine's
+             tokens on the card against the CPU's and the chunked ones;
 5. serve     the full serving config in bf16 (GPT 8 layers, hidden 1024,
              8 heads, vocab 32768; 8 slots, capacity 1024, budget 256) on
              32 requests of 64 new tokens, greedy; every kernel's launch
@@ -40,6 +44,10 @@ JAX package) through these phases, in order; any failure exits non-zero:
              serve's metrics, cache bytes, peak pages in use, the paged
              kernel's launches (> 0 for the variant the form runs) and
              the requests whose tokens match the contiguous serve's;
+   serve_whole  the serve on the whole-prompt path (bench.py serve's A/B
+             baseline: a padded (1, 768) prefill per admit, the causal
+             unpacked forward once per admit and layer), its metrics and
+             the requests whose tokens match the chunked serve's;
 7. train parity  the training config at full width but 2 layers, S 256,
              B 2, fp32 with TF32 off, dropout 0: three optimizer steps on
              the card against the same on the CPU — losses within a
@@ -65,7 +73,11 @@ JAX package) through these phases, in order; any failure exits non-zero:
              gradient norm as the overflow probe: 5 warm-up and 20 timed
              steps on one batch, then one evaluation forward under
              no_grad; tokens/s, step ms, losses, peak memory, and each
-             kernel's wrapper calls against the stack's count;
+             kernel's wrapper calls against the stack's count; then
+             masked BERT: parity as phase 9 with a padding mask of two
+             lengths, and the BERT-Large step with a padding mask of
+             seeded lengths and dropout 0.1 (the unpacked kernels 24 +
+             24 calls a step, no packed or dbias call);
 11. report   a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -75,7 +87,7 @@ spill report to DIR/chip_smoke.json. ``--profile`` adds profiled serve
 device's busy share. ``--only`` runs a subset of the phases (a check of
 one part; the full run is the smoke); ``kernels:xent+lamb`` there names a
 subset of the kernel phase's case groups (ln, seg, decode, paged,
-train_ln, flash, xent, lamb).
+train_ln, flash, xent, lamb, unpacked).
 
 It needs one CUDA device and nvcc (CUDA_HOME, PATH or /usr/local/cuda).
 """
@@ -154,6 +166,13 @@ BERT_BATCH, BERT_SEQ = 8, 512
 BERT_PARITY = dict(num_layers=2, seq=128, batch=2, steps=3)
 BERT_KERNELS = ("xent_fwd_dg", "xent_fwd", "lamb_leaf_stage1",
                 "lamb_leaf_stage2")
+# masked BERT: the BERT step with a padding mask (`bert_lengths`) and
+# BERT-Large's published pre-training dropout, 0.1 hidden and attention;
+# the unpacked flash kernels carry its attention
+BERT_MASKED_DROPOUT = 0.1
+BERT_MASKED_PARITY_LENGTHS = (128, 77)  # B 2 at S 128: two lengths
+UNPACKED_KERNELS = ("flash_unpacked_fwd", "flash_unpacked_bwd",
+                    "flash_dbias")
 
 # kernel vs plain version on the same card inputs, each output by its
 # own dtype: |kernel - plain| <= atol + rtol * |plain|. Both compute in
@@ -180,8 +199,9 @@ SHARED_PREFIX = 250
 PARITY_NEW = 8  # new tokens per request in the parity phase
 CARD = "cuda"  # the engine phases' device (a CPU rehearsal renames it)
 
-PHASES = ("kernels", "parity", "serve", "serve_paged", "train_parity",
-          "train", "bert_train_parity", "bert_train")
+PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
+          "train_parity", "train", "bert_train_parity", "bert_train",
+          "bert_train_masked_parity", "bert_train_masked")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_attention_segments_with_lse",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -293,7 +313,9 @@ def compare(got, ref, extra=None, tols=None):
         bound = tol["atol"] + tol["rtol"] * r.float().abs()
         if extra is not None and extra[i] is not None:
             bound = bound + extra[i]
-        ratio = max(ratio, float((diff / bound).max()))
+        r = float((diff / bound).max())
+        # a NaN anywhere fails (max() would keep the earlier ratio)
+        ratio = max(ratio, math.inf if math.isnan(r) else r)
         err = max(err, float(diff.max()))
     return dict(ratio=ratio, err=err,
                 ref_max=float(ref[0].float().abs().max()))
@@ -1156,9 +1178,316 @@ def lamb_cases(dev):
         del k2, p2, l2, kern2, plain2, lib2
 
 
+def bert_lengths(batch):
+    """The masked BERT batch's sequence lengths: RandomState(0) draws
+    from [S / 4, S] = [128, 512], the first set to S (one unpadded row)."""
+    lens = np.random.RandomState(0).randint(BERT_SEQ // 4, BERT_SEQ + 1,
+                                            batch)
+    lens[0] = BERT_SEQ
+    return lens
+
+
+def padding_mask(lens, seq):
+    """(b, seq) int64, 1 where a position is inside its sequence."""
+    return torch.from_numpy(
+        (np.arange(seq)[None, :] < np.asarray(lens)[:, None]).astype(
+            np.int64))
+
+
+def _live_pairs(bh, sq, sk, bias, causal, lens):
+    """The (query, key) pairs a case attends: the work its data needs."""
+    live = torch.ones((bh, sq, sk), dtype=torch.bool, device=DEV_CPU)
+    if bias is not None:
+        nb = bias.shape[0]
+        live &= (bias.cpu() > -1e29).repeat_interleave(bh // nb, dim=0)
+    col = torch.arange(sk)
+    if lens is not None:
+        live &= col[None, None, :] < lens.cpu().long()[:, None, None]
+    if causal:
+        live &= (col[None, :] <= torch.arange(sq)[:, None])[None]
+    return int(live.sum())
+
+
+DEV_CPU = torch.device("cpu")
+# an lse or a bias gradient is an fp32 sum over many terms: besides the
+# fp32 atol, 1e-5 of the L1 mass of its terms (see `_l1_tol`)
+LSE_L1_RTOL = 1e-5
+
+
+def unpacked_cases(dev):
+    """The unpacked flash kernels (forward, backward, dbias) against
+    their plain versions, bf16 and fp32, at the paths' shapes: masked
+    BERT-Large (B 8 x 8 heads, S 512, hd 128, q/k/v read in place from a
+    (B, S, 8, 384) projection, the (8, 512, 512) padding bias from
+    `bert_lengths`, so whole query rows are masked; with dropout 0.1 as
+    the masked step runs it, and without), the whole-prompt prefill's
+    causal window (bh 8, S 768), sq != sk ragged (200 x 333, hd 64, bias
+    rows nb = 1 and nb = bh, causal and not), varlen with rows shorter
+    than one tile, the dbias kernel (compute_dbias=True) and an lse
+    cotangent. The library yardstick is SDPA with the bias as a float
+    mask: forward, forward + backward, and for dbias forward + backward
+    with a mask that needs its gradient."""
+    from rocm_apex_tpu_torch.models.bert import bert_extended_attention_mask
+    from rocm_apex_tpu_torch.models.gpt import padding_bias
+    from rocm_apex_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    H = BERT["num_attention_heads"]
+    D = BERT["hidden_size"] // H
+    B, S = BERT_BATCH, BERT_SEQ
+    mask = padding_mask(bert_lengths(B), S).to(dev)
+    bert_bias = padding_bias(bert_extended_attention_mask(mask), B, S)
+    seed = 31
+    cases = [
+        # name, (B, H, sq, sk, D), dtype, bias, causal, lens, rate,
+        # dbias, dlse, in-place projection views, headline
+        ("masked BERT, dropout 0.1", (B, H, S, S, D), torch.bfloat16,
+         "bert", False, None, 0.1, False, False, True, True),
+        ("masked BERT", (B, H, S, S, D), torch.bfloat16, "bert", False,
+         None, 0.0, False, False, True, False),
+        ("masked BERT, dropout 0.1", (B, H, S, S, D), torch.float32,
+         "bert", False, None, 0.1, False, False, True, False),
+        ("masked BERT, dbias", (B, H, S, S, D), torch.bfloat16, "bert",
+         False, None, 0.0, True, False, True, False),
+        ("whole-prompt causal", (1, 8, 768, 768, 128), torch.bfloat16, None,
+         True, None, 0.0, False, False, False, False),
+        ("whole-prompt causal", (1, 8, 768, 768, 128), torch.float32, None,
+         True, None, 0.0, False, False, False, False),
+        ("ragged, bias nb 1, dbias", (2, 4, 200, 333, 64), torch.bfloat16,
+         1, False, None, 0.0, True, True, False, False),
+        ("ragged causal, bias nb bh, dbias", (2, 4, 200, 333, 64),
+         torch.bfloat16, 8, True, None, 0.0, True, True, False, False),
+        ("ragged causal, bias nb bh, dbias", (2, 4, 333, 200, 64),
+         torch.float32, 8, True, None, 0.1, True, True, False, False),
+        ("ragged, bias nb 1, dropout 0.1", (2, 4, 200, 333, 128),
+         torch.float32, 1, False, None, 0.1, True, False, False, False),
+        ("varlen", (2, 4, 300, 300, 64), torch.bfloat16, None, False,
+         "lens", 0.0, False, False, False, False),
+        ("varlen causal, lse cotangent", (2, 4, 300, 300, 128),
+         torch.float32, None, True, "lens", 0.0, False, True, False, False),
+    ]
+    for (name, (b, h, sq, sk, d), dt, bias_kind, causal, lens_kind, rate,
+         want_db, want_dlse, inplace, headline) in cases:
+        bh = b * h
+        scale = 1.0 / math.sqrt(d)
+        if inplace:
+            # the model's views: per-head column blocks of the fused
+            # projection, (b, h, s, d) with strides (s*h*3d, 3d, h*3d, 1)
+            qkv = torch.randn(b, sq, h, 3 * d, device=dev,
+                              generator=gen).to(dt)
+            q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.split(d, dim=-1))
+        else:
+            q = torch.randn(b, h, sq, d, device=dev, generator=gen).to(dt)
+            k = torch.randn(b, h, sk, d, device=dev, generator=gen).to(dt)
+            v = torch.randn(b, h, sk, d, device=dev, generator=gen).to(dt)
+        if bias_kind == "bert":
+            bias = bert_bias
+        elif bias_kind is None:
+            bias = None
+        else:
+            bias = torch.randn(bias_kind, sq, sk, device=dev, generator=gen)
+            bias[0, 3, :] = fa.NEG_INF  # a query row with no live key
+            bias[:, :, sk - 5:] = fa.NEG_INF
+        if causal and bias is not None:
+            # a fully biased row under causal masking is tiling-dependent
+            # in the JAX kernel; keep such rows out of the causal cases
+            bias[:, :, 0] = 0.0
+        lens = None
+        if lens_kind == "lens":
+            lens = torch.randint(1, sk + 1, (bh,), device=dev, generator=gen,
+                                 dtype=torch.int32)
+            lens[0], lens[1] = 17, sk  # shorter than one tile; full
+        do = torch.randn(b, sq, h, d, device=dev,
+                         generator=gen).to(dt).permute(0, 2, 1, 3)
+        dlse = (torch.randn(bh, sq, device=dev, generator=gen)
+                if want_dlse else None)
+        label = (f"{name}, ({b}x{h}, {sq}, {sk}, {d}) {str(dt)[6:]}")
+        pairs = _live_pairs(bh, sq, sk, bias, causal, lens)
+        flat = fa._flat
+
+        def fkern(q=q, k=k, v=v, bias=bias, causal=causal, lens=lens,
+                  rate=rate, scale=scale):
+            return fa._unpacked_fwd(q, k, v, bias, causal, scale, lens, rate,
+                                    seed, bshd=True)
+
+        def fplain(q=q, k=k, v=v, bias=bias, causal=causal, lens=lens,
+                   rate=rate, scale=scale):
+            o, lse = fa.flash_unpacked_fwd_plain(
+                flat(q), flat(k), flat(v), bias, causal, scale, lens, rate,
+                seed)
+            return o.view(q.shape), lse
+
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        amask = None if bias is None else (
+            bias.repeat_interleave(bh // bias.shape[0], dim=0).view(
+                b, h, sq, sk).to(dt))
+        if lens is not None:
+            live = (torch.arange(sk, device=dev)[None, :]
+                    < lens.long()[:, None]).view(b, h, 1, sk)
+            amask = torch.where(live, 0.0, fa.NEG_INF).to(dt)
+
+        def flib(qc=qc, kc=kc, vc=vc, amask=amask, causal=causal, rate=rate):
+            return F.scaled_dot_product_attention(
+                qc, kc, vc, attn_mask=amask,
+                is_causal=causal and amask is None, dropout_p=rate)
+
+        if causal and amask is not None:
+            flib = None  # SDPA takes a causal flag or a mask, not both
+        o, lse = fkern()
+        ref = fplain()
+        extra = [None, LSE_L1_RTOL * ref[1].abs()]
+        yield dict(
+            kernel="flash_unpacked_fwd", case=label, dtype=dt,
+            cmp=compare((o, lse), ref, extra), kern=fkern, plain=fplain,
+            lib=flib, nbytes=nbytes(q, k, v, bias, lens, o, lse),
+            ops=4 * d * pairs, headline=headline, iters=10, plain_iters=2,
+        )
+
+        def bkern(q=q, k=k, v=v, bias=bias, o=o, lse=lse, do=do, dlse=dlse,
+                  causal=causal, lens=lens, rate=rate, scale=scale):
+            return fa._unpacked_bwd(q, k, v, bias, o, lse, do, dlse, causal,
+                                    scale, lens, rate, seed, False,
+                                    bshd=True)[:3]
+
+        def bplain(q=q, k=k, v=v, bias=bias, o=o, lse=lse, do=do, dlse=dlse,
+                   causal=causal, lens=lens, rate=rate, scale=scale):
+            got = fa.flash_unpacked_bwd_plain(
+                flat(q), flat(k), flat(v), bias, flat(o), lse, flat(do),
+                causal, scale, lens, rate, seed, dlse)
+            return tuple(g.view(t.shape) for g, t in zip(got, (q, k, v)))
+
+        gq, gk, gv = (t.detach().clone().requires_grad_(True)
+                      for t in (qc, kc, vc))
+        doc = do.contiguous()
+
+        def blib(gq=gq, gk=gk, gv=gv, doc=doc, amask=amask, causal=causal,
+                 rate=rate):
+            gq.grad = gk.grad = gv.grad = None
+            F.scaled_dot_product_attention(
+                gq, gk, gv, attn_mask=amask,
+                is_causal=causal and amask is None,
+                dropout_p=rate).backward(doc)
+
+        if flib is None:
+            blib = None
+        yield dict(
+            kernel="flash_unpacked_bwd", case=label, dtype=dt,
+            cmp=compare(bkern(), bplain()), kern=bkern, plain=bplain,
+            lib=blib, nbytes=nbytes(q, k, v, bias, lens, o, lse, do, dlse,
+                                    q, k, v),
+            ops=10 * d * pairs, headline=headline, iters=5, plain_iters=2,
+        )
+        if not want_db:
+            continue
+
+        # dbias: checked through the whole backward, timed alone (delta
+        # from torch, as the dq pass computes it)
+        got = fa._unpacked_bwd(q, k, v, bias, o, lse, do, dlse, causal,
+                               scale, lens, rate, seed, True, bshd=True)[3]
+        # per-head ds (a bias row per head) gives the L1 mass of the terms
+        nb = bias.shape[0]
+        per_head = fa.flash_unpacked_bwd_plain(
+            flat(q), flat(k), flat(v),
+            bias.repeat_interleave(bh // nb, dim=0), flat(o), lse,
+            flat(do), causal, scale, lens, rate, seed, dlse, True)[3]
+        ref_db = per_head.view(nb, bh // nb, sq, sk).sum(dim=1)
+        l1 = per_head.abs().view(nb, bh // nb, sq, sk).sum(dim=1)
+        delta = (do.float() * o.float()).sum(dim=-1).reshape(
+            bh, sq).contiguous()
+        if dlse is not None:
+            delta = delta - dlse
+        qa, ka, va, doa = (fa._aligned(t) for t in (q, k, v, do))
+
+        def dkern(qa=qa, ka=ka, va=va, bias=bias, lse=lse, doa=doa,
+                  delta=delta, causal=causal, lens=lens, rate=rate,
+                  scale=scale):
+            return fa._flash_dbias(qa, ka, va, bias, lse, doa, delta, causal,
+                                   scale, lens, rate, seed)
+
+        def dplain(q=q, k=k, v=v, bias=bias, o=o, lse=lse, do=do, dlse=dlse,
+                   causal=causal, lens=lens, rate=rate, scale=scale):
+            return fa.flash_unpacked_bwd_plain(
+                flat(q), flat(k), flat(v), bias, flat(o), lse, flat(do),
+                causal, scale, lens, rate, seed, dlse, True)[3]
+
+        dlib = None
+        if flib is not None and amask is not None:
+            mg = amask.detach().clone().requires_grad_(True)
+
+            def dlib(gq=gq, gk=gk, gv=gv, mg=mg, doc=doc, rate=rate):
+                gq.grad = gk.grad = gv.grad = mg.grad = None
+                F.scaled_dot_product_attention(
+                    gq, gk, gv, attn_mask=mg, dropout_p=rate).backward(doc)
+
+            try:
+                dlib()
+                torch.cuda.synchronize()
+            except RuntimeError as e:  # no SDPA backend differentiates it
+                log(f"  (SDPA with a mask that needs grad: {e})"[:160])
+                dlib = None
+        yield dict(
+            kernel="flash_dbias", case=label, dtype=dt,
+            cmp=compare((got,), (ref_db,), [_l1_tol(l1)]), kern=dkern,
+            plain=dplain, lib=dlib,
+            nbytes=nbytes(q, k, v, bias, lens, lse, do, delta, got),
+            ops=4 * d * pairs,
+            headline=dt == torch.bfloat16 and bias_kind == "bert",
+            iters=5, plain_iters=2,
+        )
+
+
+def unpacked_vs_packed_cases(dev):
+    """The cross-check: with no bias and a zero projection bias, the
+    unpacked kernels on the per-head views of a fused projection equal
+    the packed kernels on the projection itself, dropout 0.1 on (the
+    same keep bits), causal and not. In fp32, where the two fold the
+    scale into the scores in different places and differ by fp32
+    rounding only."""
+    from rocm_apex_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    B, S, nh, hd = 2, 320, 8, 128
+    scale, seed, rate = 1.0 / math.sqrt(hd), 55, 0.1
+    for causal in (True, False):
+        qkv = torch.randn(B, S, nh, 3 * hd, device=dev, generator=gen)
+        do = torch.randn(B, S, nh * hd, device=dev, generator=gen)
+        q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.split(hd, dim=-1))
+
+        def kern(qkv=qkv, q=q, k=k, v=v, do=do, causal=causal):
+            o, lse = fa._unpacked_fwd(q, k, v, None, causal, scale, None,
+                                      rate, seed, bshd=True)
+            do4 = do.view(B, S, nh, hd).permute(0, 2, 1, 3)
+            dq, dk, dv, _ = fa._unpacked_bwd(q, k, v, None, o, lse, do4,
+                                             None, causal, scale, None, rate,
+                                             seed, False, bshd=True)
+            dqkv = torch.cat([t.permute(0, 2, 1, 3) for t in (dq, dk, dv)],
+                             dim=-1)
+            return o.permute(0, 2, 1, 3).reshape(B, S, nh * hd), lse, dqkv
+
+        def packed(qkv=qkv, do=do, causal=causal):
+            o, lse = fa._flash_fwd(qkv, None, causal, scale, rate, seed)
+            dqkv, _ = fa._flash_bwd(qkv, None, o, lse, do, causal, scale,
+                                    rate, seed)
+            return o, lse, dqkv
+
+        got, ref = kern(), packed()
+        pairs = B * nh * (S * (S + 1) // 2 if causal else S * S)
+        yield dict(
+            kernel="flash_unpacked_fwd",
+            case=f"= packed kernels, dropout {rate}, "
+                 f"{'causal' if causal else 'not causal'}, ({B}, {S}, {nh}, "
+                 f"{3 * hd}) float32: forward and backward",
+            dtype=torch.float32, cmp=compare(got, ref), kern=kern,
+            plain=packed, lib=None, nbytes=nbytes(qkv, do, *got),
+            ops=14 * hd * pairs, headline=False, iters=5, plain_iters=5,
+        )
+
+
 CASE_GROUPS = dict(ln=ln_cases, seg=seg_cases, decode=decode_cases,
                    paged=paged_decode_cases, train_ln=train_ln_cases,
-                   flash=flash_cases, xent=xent_cases, lamb=lamb_cases)
+                   flash=flash_cases, xent=xent_cases, lamb=lamb_cases,
+                   unpacked=lambda dev: itertools.chain(
+                       unpacked_cases(dev), unpacked_vs_packed_cases(dev)))
 
 
 def run_kernel_phase(dev, generators):
@@ -1226,11 +1555,15 @@ def shared_prefix_prompts(vocab, n=N_REQUESTS):
 
 def _engine(model, **kw):
     """The serving engine of bench.py serve: 8 slots, capacity 1024,
-    budget 256, greedy."""
+    budget 256, greedy; ``whole=True`` is its A/B baseline, the
+    whole-prompt path (``prefill_token_budget=None``, prompts padded to
+    the longest prompt length, bench.py:686-694)."""
     from rocm_apex_tpu_torch.inference import InferenceEngine, SamplingParams
 
+    if kw.pop("whole", False):
+        kw.update(prefill_token_budget=None, max_prompt_len=max(PROMPT_LENS))
+    kw.setdefault("prefill_token_budget", BUDGET)
     return InferenceEngine(model, num_slots=SLOTS, capacity=CAPACITY,
-                           prefill_token_budget=BUDGET,
                            sampling=SamplingParams(temperature=0.0), **kw)
 
 
@@ -1425,8 +1758,16 @@ def run_parity_phase():
     log(f"  greedy tokens of {len(prompts)} requests x {PARITY_NEW}: cuda "
         f"{'==' if same else '!='} cpu")
     check(same, f"greedy tokens differ: {tokens}")
+    # the whole-prompt path (padded prefill: the unpacked causal forward)
+    whole = {dev: _tokens(_engine(model, whole=True), prompts, PARITY_NEW)
+             for dev, model in models.items()}
+    whole_same = whole[CARD] == whole["cpu"] == tokens[CARD]
+    log(f"  whole-prompt greedy tokens: cuda "
+        f"{'==' if whole_same else '!='} cpu, chunked")
+    check(whole_same, f"whole-prompt greedy tokens differ: {whole}, "
+          f"chunked {tokens[CARD]}")
     return dict(logit_max_abs_err=err, requests=len(prompts),
-                tokens_identical=same,
+                tokens_identical=same, whole_tokens_identical=whole_same,
                 paged=run_paged_parity(cfg, models, prompts,
                                        tokens[CARD]))
 
@@ -1590,6 +1931,40 @@ def run_serve_paged_phase(profile, contiguous_tokens=None):
                 lambda: eng.generate(ps[:SLOTS], max_new_tokens=16),
                 f"paged serve, {form}: {SLOTS} requests x 16 new tokens")
         res["forms"][form] = r
+    return res
+
+
+def run_serve_whole_phase(profile, chunked_tokens=None):
+    """The serve's 32 requests on the whole-prompt path: one padded
+    (1, 768) prefill per admitted request (the unpacked causal forward,
+    once per layer), then the decode grid. Tokens are compared with the
+    chunked serve's (counted, not asserted: bf16 over another batching)."""
+    model, load_s = _serve_model()
+    prompts = serve_prompts(model.cfg.vocab_size)
+    if chunked_tokens is None:
+        chunked_tokens = _tokens(_engine(model), prompts, MAX_NEW)
+    eng = _engine(model, whole=True)
+    eng.generate(prompts[:SLOTS], max_new_tokens=3)  # warm-up
+    res, tokens = timed_serve(eng, prompts)
+    layers = model.cfg.num_layers
+    res.update(weights_load_s=load_s, max_prompt_len=eng.max_prompt_len,
+               requests_matching_chunked=sum(
+                   a == b for a, b in zip(tokens, chunked_tokens)))
+    log(f"  {res['requests_matching_chunked']}/{len(prompts)} requests "
+        f"match the chunked serve's tokens")
+    want = len(prompts) * layers
+    check(res["launches"]["flash_unpacked_fwd"] == want,
+          f"flash_unpacked_fwd: {res['launches']['flash_unpacked_fwd']} "
+          f"launches, expected one per admitted request and layer ({want})")
+    check(res["launches"]["flash_attention_decode"] > 0,
+          "flash_attention_decode was not launched in the whole-prompt "
+          "serve")
+    check(res["launches"]["flash_attention_segments_with_lse"] == 0,
+          "the whole-prompt serve launched the chunk kernel")
+    if profile:
+        res["profile"] = profile_window(
+            lambda: eng.generate(prompts[:SLOTS], max_new_tokens=16),
+            f"whole-prompt serve: {SLOTS} requests x 16 new tokens")
     return res
 
 
@@ -1846,6 +2221,65 @@ def run_bert_train_parity_phase():
                 found_inf_cuda=fc, found_inf_cpu=fp, inf_step_frozen=True)
 
 
+def run_bert_train_masked_parity_phase():
+    """Masked BERT train parity: the parity config (2 layers, S 128, B 2,
+    fp32, TF32 off, dropout 0) with a padding mask of two lengths, three
+    LAMB steps on the card (the unpacked kernels) against the CPU (their
+    plain versions)."""
+    from rocm_apex_tpu_torch.models.bert import BertConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = BertConfig(**{**BERT, "num_layers": BERT_PARITY["num_layers"],
+                        "max_position_embeddings": BERT_PARITY["seq"]},
+                     params_dtype=torch.float32, dtype=torch.float32)
+    tokens, labels = _bert_batch(cfg, BERT_PARITY["batch"],
+                                 BERT_PARITY["seq"])
+    mask = padding_mask(BERT_MASKED_PARITY_LENGTHS, BERT_PARITY["seq"])
+    runs = {}
+    for dev in (CARD, "cpu"):
+        step, state, _, _ = _bert_trainer(cfg, dev, torch.float32)
+        losses, found = [], []
+        for _ in range(BERT_PARITY["steps"]):
+            state, loss, inf = step(state, tokens, labels,
+                                    attention_mask=mask)
+            losses.append(float(loss))
+            found.append(bool(inf))
+        runs[dev] = (losses, found)
+    (lc, fc), (lp, fp) = runs[CARD], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    log(f"  lengths {BERT_MASKED_PARITY_LENGTHS}: losses cuda {lc}, cpu {lp}"
+        f": max relative difference {rel:.3e} (rtol {PARITY_LOSS_RTOL:g}); "
+        f"found_inf cuda {fc}, cpu {fp}")
+    check(all(math.isfinite(x) for x in lc + lp), "nonfinite parity loss")
+    check(rel <= PARITY_LOSS_RTOL, f"masked BERT losses differ by {rel:.3e}")
+    check(fc == fp, f"found_inf differs: cuda {fc}, cpu {fp}")
+    return dict(lengths=list(BERT_MASKED_PARITY_LENGTHS), losses_cuda=lc,
+                losses_cpu=lp, max_rel_diff=rel, found_inf_cuda=fc,
+                found_inf_cpu=fp)
+
+
+def bert_masked_calls(layers, steps):
+    """Wrapper calls of ``steps`` masked BERT steps with hidden and
+    attention dropout: one unpacked attention a layer (no packed one, no
+    dbias: the padding bias is a constant); layer 0's plain ln1 and the
+    LM head's LN, and 2 * layers dropout LNs (the ln2s, the chained ln1s,
+    the final LN); one cross-entropy and one LAMB call a stage."""
+    return {
+        "flash_unpacked_fwd": layers * steps,
+        "flash_unpacked_bwd": layers * steps,
+        "flash_dbias": 0,
+        "flash_attention_qkv_fwd": 0,
+        "flash_attention_qkv_bwd": 0,
+        "layer_norm_fwd": 2 * steps,
+        "layer_norm_fwd_dropout": 2 * layers * steps,
+        "layer_norm_bwd": (2 * layers + 2) * steps,
+        "xent_fwd_dg": steps,
+        "lamb_leaf_stage1": steps,
+        "lamb_leaf_stage2": steps,
+    }
+
+
 def bert_calls(layers, leaves, steps, evals):
     """Wrapper calls of ``steps`` training steps and ``evals`` no-grad
     forwards of the chained stack at ``layers`` layers without dropout:
@@ -1899,6 +2333,79 @@ def bert_host_breakdown(model, opt, state, tokens, labels, steps=5):
     log(f"  host enqueue ms a step on an idle device: "
         f"{ {k: round(v, 2) for k, v in parts.items()} }")
     return parts
+
+
+def run_bert_train_masked_phase(profile):
+    """The BERT-Large step with a padding mask: `bert_lengths` over B 8 x
+    S 512 and dropout 0.1 (hidden and attention), otherwise the
+    bert_train phase's config; 5 warm-up and 20 timed steps."""
+    from rocm_apex_tpu_torch.models.bert import BertConfig
+    from rocm_apex_tpu_torch.ops._build import KERNELS
+
+    cfg = BertConfig(**{**BERT, "hidden_dropout": BERT_MASKED_DROPOUT,
+                        "attention_dropout": BERT_MASKED_DROPOUT},
+                     params_dtype=torch.float32, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    step, state, model, opt = _bert_trainer(cfg, "cuda", torch.bfloat16)
+    setup_s = time.perf_counter() - t0
+    tokens, labels = _bert_batch(cfg, BERT_BATCH, BERT_SEQ)
+    tokens, labels = tokens.cuda(), labels.cuda()
+    lens = bert_lengths(BERT_BATCH)
+    mask = padding_mask(lens, BERT_SEQ).cuda()
+    gen = torch.Generator().manual_seed(0)  # CPU: the dropout seeds
+
+    def run():
+        return step(state, tokens, labels, attention_mask=mask,
+                    dropout_generator=gen)
+
+    losses, found = [], []
+    for _ in range(TRAIN_WARMUP):
+        state, loss, inf = run()
+        losses.append(loss)
+        found.append(inf)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, loss, inf = run()
+        losses.append(loss)
+        found.append(inf)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    losses = [float(x) for x in losses]
+    skipped = sum(bool(x) for x in found)
+    want = bert_masked_calls(cfg.num_layers, TRAIN_STEPS)
+    res = dict(
+        batch=BERT_BATCH, seq=BERT_SEQ, steps=TRAIN_STEPS, seconds=dt,
+        lengths=[int(x) for x in lens], real_tokens=int(lens.sum()),
+        dropout=BERT_MASKED_DROPOUT, step_ms=1e3 * dt / TRAIN_STEPS,
+        tokens_per_s=BERT_BATCH * BERT_SEQ * TRAIN_STEPS / dt,
+        loss_first=losses[0], loss_last=losses[-1], losses=losses,
+        skipped_steps=skipped, setup_s=setup_s,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches, expected_launches=want,
+    )
+    log(f"  lengths {res['lengths']} ({res['real_tokens']} real tokens); "
+        f"{TRAIN_STEPS} steps of B {BERT_BATCH} x S {BERT_SEQ}, dropout "
+        f"{BERT_MASKED_DROPOUT}: {res['step_ms']:.2f} ms/step, "
+        f"{res['tokens_per_s']:.1f} tokens/s (padded positions counted); "
+        f"loss {losses[0]:.4f} (first) -> {losses[-1]:.4f} (last); "
+        f"{skipped} skipped steps; peak {res['peak_mem_gib']:.2f} GiB")
+    log(f"  launches in the timed steps: "
+        f"{ {k: launches[k] for k in want} } (expected {want})")
+    check(all(math.isfinite(x) for x in losses), "nonfinite BERT loss")
+    check(losses[-1] < losses[0], "the masked BERT loss did not fall")
+    check(skipped == 0, f"{skipped} masked BERT steps were skipped")
+    for name, n in want.items():
+        check(launches[name] == n, f"{name}: {launches[name]} launches in "
+              f"{TRAIN_STEPS} masked steps, expected {n}")
+    if profile:
+        res["profile"] = profile_window(
+            lambda: [run() for _ in range(3)], "3 masked BERT train steps")
+    return res
 
 
 def run_bert_train_phase(profile):
@@ -2066,6 +2573,11 @@ def main(argv=None):
                         lambda: run_serve_paged_phase(
                             args.profile,
                             report.get("serve", {}).get("tokens"))),
+        "serve_whole": ("serve_whole (the serve on the whole-prompt path: a "
+                        f"padded (1, {max(PROMPT_LENS)}) prefill per admit)",
+                        lambda: run_serve_whole_phase(
+                            args.profile,
+                            report.get("serve", {}).get("tokens"))),
         "train_parity": ("train parity (2 layers, S 256, B 2, fp32, TF32 "
                          "off: 3 steps cuda vs cpu)", run_train_parity_phase),
         "train": (f"train (8 layers, bf16, B {TRAIN_BATCH} x S {TRAIN_SEQ}, "
@@ -2080,6 +2592,15 @@ def main(argv=None):
             f"LAMB with bf16 moments: {TRAIN_WARMUP} warm-up + "
             f"{TRAIN_STEPS} timed steps, one evaluation)",
             lambda: run_bert_train_phase(args.profile)),
+        "bert_train_masked_parity": (
+            "bert train masked parity (2 layers, S 128, B 2, fp32, TF32 off, "
+            f"lengths {BERT_MASKED_PARITY_LENGTHS}: 3 LAMB steps cuda vs cpu)",
+            run_bert_train_masked_parity_phase),
+        "bert_train_masked": (
+            f"bert train masked (24 layers, bf16, B {BERT_BATCH} x S "
+            f"{BERT_SEQ}, padding mask, dropout {BERT_MASKED_DROPOUT}: "
+            f"{TRAIN_WARMUP} warm-up + {TRAIN_STEPS} timed steps)",
+            lambda: run_bert_train_masked_phase(args.profile)),
     }
     report["phase_s"] = {}
     for phase in PHASES:
@@ -2114,6 +2635,8 @@ def main(argv=None):
             path = "serve_paged"
         if k.name in BERT_KERNELS:
             path = "bert_train"
+        if k.name in UNPACKED_KERNELS:
+            path = "bert_train_masked"
         where, _, _ = k.replaces.partition(" ")
         kernels.append(dict(
             name=k.name, route="cuda",

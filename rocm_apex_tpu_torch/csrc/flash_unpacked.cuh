@@ -1,0 +1,242 @@
+// Shared pieces of the unpacked flash-attention kernels: the forward
+// (flash_unpacked_fwd.cu), the backward's dq and dk/dv passes
+// (flash_unpacked_bwd.cu) and the bias gradient (flash_dbias.cu).
+//
+// Operands (those of rocm_apex_tpu/ops/flash_attention.py `_fwd`/`_bwd`):
+//   q, o, do, dq   (B, H, Sq, D), k, v, dk, dv (B, H, Sk, D), read and
+//                  written through (batch, head, row) element strides with
+//                  a unit stride on D, so the per-head columns of the fused
+//                  projection are read in place; bh = b * H + h is the row
+//                  of the JAX layout (B*H, S, D)
+//   lse, delta     (B*H, Sq) fp32, natural-log lse
+//   bias           (nb, Sq, Sk) fp32 or null; operand row bh reads bias
+//                  row bh / hp, hp = B*H / nb
+//   lens           (B*H,) int32 or null: row bh attends keys [0, lens[bh])
+// D is 64 or 128 (the kernels are templates on it).
+//
+// `masked_score` is the one masking rule of all three kernels, the
+// counterpart of `_masked_scores` (:122): a score is in base 2,
+// (q * q_mul) . k with q_mul = scale * log2(e) rounded to the operand
+// dtype and folded into q as it is staged (rounded in that dtype, as the
+// JAX kernels round it), plus bias * log2(e) in fp32; a key at or past Sk
+// or lens[bh], or past the query's own index when causal (top-left
+// aligned), scores -inf. The running max starts at -1e30 (kNegInf), so a
+// masked key adds exactly 0 to every softmax sum, and a row whose every
+// live score carries the -1e30 padding bias keeps l = 0: o = 0 and lse =
+// -1e30 * ln 2, as the JAX kernel gives. In the backward such a row has
+// p = exp2(s - lse log2 e) = 0 everywhere.
+#pragma once
+
+#include "common.cuh"
+#include "dropout.cuh"
+#include "mma.cuh"
+
+namespace apex_port {
+namespace unpacked {
+
+constexpr int kTile = 64;          // query rows and keys per tile
+constexpr int kMmaThreads = 128;   // bf16: 4 warps of 16 rows
+constexpr int kThreads = 256;      // fp32: a 16 x 16 thread grid
+constexpr int kLdP = kTile + 1;    // fp32 [row][64] tile row (floats)
+
+struct Strides {
+  int64_t b, h, s;
+};
+
+struct Problem {
+  int B, H, Sq, Sk;
+  int causal;
+  const int* __restrict__ lens;
+  const float* __restrict__ bias;
+  int hp;  // heads per bias row
+  int drop;
+  uint32_t seed, thr;
+  float keep_scale;  // 1 / (1 - rate)
+  float q_mul;       // scale * log2(e) in the operand dtype
+  float scale;
+};
+
+// -inf, the score of a masked key
+__device__ __forceinline__ float masked() {
+  return __int_as_float(static_cast<int>(0xff800000u));
+}
+
+// The (S, D) matrix of operand row bh.
+template <typename P>
+__device__ __forceinline__ P head(P base, const Strides& st, int bh, int H) {
+  return base + static_cast<int64_t>(bh / H) * st.b +
+         static_cast<int64_t>(bh % H) * st.h;
+}
+
+// The keys operand row bh may attend at all: [0, kv_len).
+__device__ __forceinline__ int kv_len(const Problem& pb, int bh) {
+  return pb.lens == nullptr ? pb.Sk : max(0, min(pb.Sk, pb.lens[bh]));
+}
+
+// The first key past what query rows up to `last_row` may attend.
+__device__ __forceinline__ int key_end(const Problem& pb, int bh,
+                                       int last_row) {
+  const int e = kv_len(pb, bh);
+  return pb.causal ? min(e, last_row + 1) : e;
+}
+
+// Row `row` of operand row bh's bias, or null.
+__device__ __forceinline__ const float* bias_row(const Problem& pb, int bh,
+                                                 int row) {
+  if (pb.bias == nullptr || row >= pb.Sq) return nullptr;
+  return pb.bias +
+         (static_cast<int64_t>(bh / pb.hp) * pb.Sq + row) * pb.Sk;
+}
+
+// THE masked base-2 score of (row, col) from its raw product
+// (q * q_mul) . k; `len` is kv_len(pb, bh), `brow` bias_row(pb, bh, row).
+// The bias term is rounded before the add, as the plain version's
+// `s + bias * LOG2E` rounds it.
+__device__ __forceinline__ float masked_score(const Problem& pb, int len,
+                                              const float* brow, float raw,
+                                              int row, int col) {
+  if (row >= pb.Sq || col >= len || (pb.causal && col > row)) return masked();
+  return brow == nullptr ? raw
+                         : raw + __fmul_rn(__ldg(brow + col), kLog2e);
+}
+
+// ---- staging -----------------------------------------------------------
+
+// Rows [r0, r0 + kRows) of a (S, HD) bf16 matrix (row stride rs) into
+// shared memory: dst (row-major, row stride ld) gets bf16(x * mul) (mul 1
+// copies), dst_t, if not null, the unscaled transpose (row stride ld_t);
+// rows at or past S are 0. Lanes walk columns when only dst is written
+// (16-byte loads, a row's bytes together) and rows when dst_t is (so the
+// transposed 2-byte stores of a warp hit consecutive addresses).
+template <int HD, int kRows>
+__device__ __forceinline__ void stage_bf16(bf16* __restrict__ dst, int ld,
+                                           bf16* __restrict__ dst_t, int ld_t,
+                                           const bf16* __restrict__ src,
+                                           int64_t rs, int r0, int S,
+                                           float mul, int nthreads) {
+  constexpr int kChunks = HD / 8;
+  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += nthreads) {
+    int r, c;
+    if (dst_t != nullptr) {
+      r = idx % kRows;
+      c = (idx / kRows) * 8;
+    } else {
+      r = idx / kChunks;
+      c = (idx % kChunks) * 8;
+    }
+    const int row = r0 + r;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (row < S) raw = *reinterpret_cast<const uint4*>(src + row * rs + c);
+    if (dst_t != nullptr) {
+      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dst_t[(c + i) * ld_t + r] = e[i];
+    }
+    if (dst != nullptr) {
+      if (mul != 1.f) {
+        bf16* e = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          e[i] = __float2bfloat16(__bfloat162float(e[i]) * mul);
+      }
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = raw;
+    }
+  }
+}
+
+// Rows [r0, r0 + 64) of a (S, HD) fp32 matrix into dst (row stride ld)
+// times `mul` (one fp32 rounding, as the plain version's q * c), 0 past S.
+template <int HD>
+__device__ __forceinline__ void stage_f32(float* __restrict__ dst, int ld,
+                                          const float* __restrict__ src,
+                                          int64_t rs, int r0, int S,
+                                          float mul) {
+  constexpr int kPerRow = HD / 4;
+  for (int idx = threadIdx.x; idx < kTile * kPerRow; idx += kThreads) {
+    const int r = idx / kPerRow;
+    const int c = (idx % kPerRow) * 4;
+    const int row = r0 + r;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (row < S) load_vec<float, 4>(src + row * rs + c, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dst[r * ld + c + i] = v[i] * mul;
+  }
+}
+
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+// delta = rowsum(do * o) - dlse for rows [r0, r0 + 64) of operand row bh,
+// do from shared memory (row stride ld, type T), o from device memory; one
+// warp per row in turn. Writes sdelta[64] and, for live rows, delta_out;
+// slse[64] gets lse * log2(e) (0 past Sq: every score of such a row is
+// -inf).
+template <int HD, typename T>
+__device__ __forceinline__ void row_delta(
+    const T* sdo, int ld, const T* __restrict__ oh, int64_t o_rs,
+    const float* __restrict__ lse, const float* __restrict__ dlse,
+    float* __restrict__ delta_out, float* sdelta, float* slse, int bh, int r0,
+    int Sq, int nwarps) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int r = warp; r < kTile; r += nwarps) {
+    const int row = r0 + r;
+    float acc = 0.f;
+    if (row < Sq) {
+      for (int c = lane; c < HD; c += 32)
+        acc += to_float(sdo[r * ld + c]) * to_float(oh[row * o_rs + c]);
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      const int64_t at = static_cast<int64_t>(bh) * Sq + row;
+      if (row < Sq && dlse != nullptr) acc -= dlse[at];
+      sdelta[r] = acc;
+      slse[r] = row < Sq ? lse[at] * kLog2e : 0.f;
+      if (row < Sq && delta_out != nullptr) delta_out[at] = acc;
+    }
+  }
+}
+
+inline Problem make_problem(int B, int H, int Sq, int Sk, int causal,
+                            const void* lens, const void* bias, int nb,
+                            int drop, uint32_t seed, uint32_t thr,
+                            float keep_scale, float q_mul, float scale) {
+  Problem pb;
+  pb.B = B;
+  pb.H = H;
+  pb.Sq = Sq;
+  pb.Sk = Sk;
+  pb.causal = causal;
+  pb.lens = static_cast<const int*>(lens);
+  pb.bias = static_cast<const float*>(bias);
+  pb.hp = (bias != nullptr && nb > 0) ? (B * H) / nb : 1;
+  pb.drop = drop;
+  pb.seed = seed;
+  pb.thr = thr;
+  pb.keep_scale = keep_scale;
+  pb.q_mul = q_mul;
+  pb.scale = scale;
+  return pb;
+}
+
+inline Strides strides_at(const int64_t* st, int i) {
+  return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+}
+
+// grid.y carries batch * heads
+inline bool grid_ok(const Problem& pb) {
+  return pb.B * pb.H <= 65535 && pb.B * pb.H > 0;
+}
+
+}  // namespace unpacked
+}  // namespace apex_port

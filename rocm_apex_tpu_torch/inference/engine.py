@@ -17,6 +17,16 @@ paged cache they sit at capacity and drop), and their lengths are
 pinned. The host's cursors are the truth for the lengths a mixed step
 starts from.
 
+``prefill_token_budget=None`` is the legacy whole-prompt path, the A/B
+baseline of ``bench.py serve`` (the JAX engine's `_step_whole`): each
+admitted request runs one padded ``(1, max_prompt_len)`` prefill through
+a one-slot view of the contiguous cache (the model's causal unpacked
+flash forward over the window), its first token sampled at ``length -
+1``; the slot's length is then set to the real prompt length (decode
+overwrites the pad rows); one host fetch takes every admit's first token,
+then one decode step runs the grid. Every other slot's decode waits on
+the admits: the head-of-line blocking the chunked scheduler removes.
+
 ``paged=True`` serves from a `PagedKVCache` (``page_size``,
 ``num_pages``; ``kv_dtype=torch.int8`` for int8 pools with per-(page,
 head) scales, or a float dtype for the pools): the engine owns the page
@@ -34,10 +44,9 @@ Not ported yet, and refused at construction: speculative decoding
 harness (``faults``; with it the ``page_alloc`` site), multi-LoRA
 (``adapter_pool``; with it tier preemption), tracing and the metric
 registry (``tracer``, ``registry``), tensor parallelism (tp>1
-head-sharded pools), page shipping between engines, and the legacy
-whole-prompt path (``prefill_token_budget=None``). A row whose logits
-are not finite is quarantined (finish reason ``error``), as the JAX
-engine does.
+head-sharded pools) and page shipping between engines. A row whose
+logits are not finite is quarantined (finish reason ``error``), as the
+JAX engine does.
 
 Sampling draws from an engine-owned `torch.Generator` seeded with
 ``seed``: a fixed seed replays the same stream on one device, but not
@@ -72,7 +81,8 @@ FINISH_REASONS = ("eos", "length", "capacity", "error")
 
 _NOT_PORTED = (
     "{what} is not ported yet (ROADMAP Queue 1, {item}); the engine "
-    "serves the contiguous or the paged cache with the chunked scheduler"
+    "serves the contiguous or the paged cache with the chunked scheduler, "
+    "and the contiguous one on the whole-prompt path"
 )
 
 
@@ -137,8 +147,9 @@ class InferenceEngine:
     device; the cache is in the model's compute dtype (a paged cache's
     float pools in ``kv_dtype`` if given).
     ``prefill_token_budget`` is the prompt tokens absorbed per tick
-    across requests; ``prefill_chunk`` optionally caps one request's
-    share of it.
+    across requests (None: the whole-prompt path, prompts padded to
+    ``max_prompt_len``, default the capacity); ``prefill_chunk``
+    optionally caps one request's share of it.
     """
 
     # consecutive ticks without token progress before generate() gives up
@@ -151,6 +162,7 @@ class InferenceEngine:
         model,
         *,
         num_slots: int = 8,
+        max_prompt_len: Optional[int] = None,
         capacity: Optional[int] = None,
         eos_id: Optional[int] = None,
         sampling: Optional[SamplingParams] = None,
@@ -177,9 +189,6 @@ class InferenceEngine:
              ", and with it tier preemption", "item 6"),
             (tracer is not None or registry is not None,
              "request tracing and the metric registry", "item 7"),
-            (prefill_token_budget is None,
-             "the whole-prompt path (prefill_token_budget=None)",
-             "item 1"),
         ]
         for asked, what, item in refused:
             if asked:
@@ -195,12 +204,21 @@ class InferenceEngine:
                 f"capacity {self.capacity} exceeds "
                 f"max_position_embeddings {cfg.max_position_embeddings}"
             )
-        if prefill_token_budget < 1:
+        self.max_prompt_len = int(max_prompt_len or self.capacity)
+        if not 0 < self.max_prompt_len <= self.capacity:
             raise ValueError(
-                f"prefill_token_budget must be >= 1, got "
-                f"{prefill_token_budget}"
+                f"max_prompt_len {self.max_prompt_len} must be in "
+                f"(0, capacity={self.capacity}]"
             )
-        self.prefill_token_budget = int(prefill_token_budget)
+        if prefill_token_budget is not None and prefill_token_budget < 1:
+            raise ValueError(
+                f"prefill_token_budget must be >= 1 (or None for the "
+                f"whole-prompt path), got {prefill_token_budget}"
+            )
+        self.prefill_token_budget = (
+            int(prefill_token_budget) if prefill_token_budget is not None
+            else None
+        )
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         self.prefill_chunk = prefill_chunk
@@ -225,6 +243,12 @@ class InferenceEngine:
                 cfg, num_slots, self.capacity, device=self.device
             )
         else:
+            if self.prefill_token_budget is None:
+                raise ValueError(
+                    "the paged cache serves the chunked-prefill scheduler "
+                    "only (the legacy whole-prompt path needs contiguous "
+                    "slot rows); set prefill_token_budget"
+                )
             quantized = kv_dtype == torch.int8
             self.cache = PagedKVCache.for_model(
                 cfg, num_slots, self.capacity, page_size=page_size,
@@ -253,6 +277,12 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
+
+    @property
+    def chunked(self) -> bool:
+        """The chunked scheduler (a token budget), not the whole-prompt
+        path."""
+        return self.prefill_token_budget is not None
 
     @property
     def num_slots(self) -> int:
@@ -311,9 +341,10 @@ class InferenceEngine:
         counters ``admitted``, ``evicted``, ``quarantined``,
         ``prompt_tokens``, ``generated_tokens``, ``mixed_steps`` (ticks
         that carried prompt tokens), ``decode_steps`` (ticks that ran the
-        decode grid, mixed ones included), ``decode_only_steps``; the mean host time of a mixed tick
-        (``prefill_ms_avg``) and of a decode-only tick
-        (``decode_ms_avg``), tokens/s over each phase's time; and the
+        decode grid, mixed ones included), ``decode_only_steps``; the
+        mean host time of a mixed tick (``prefill_ms_avg``; on the
+        whole-prompt path, of one admit's prefill) and of a decode-only
+        tick (``decode_ms_avg``), tokens/s over each phase's time; and the
         exact percentiles ``queue_wait_ms_p50/95`` (enqueue -> slot
         lease) and ``ttft_ms_p50/95`` (enqueue -> first token) over the
         newest ``_STATS_RETENTION`` requests. The paged cache's gauges
@@ -338,6 +369,7 @@ class InferenceEngine:
                              if self._allocator.refcount(int(p)) > 1)
                 shared_ratio = shared / mapped.size
         decode_generated = self._generated_tokens - self._admitted
+        prefill_ticks = self._mixed_steps if self.chunked else self._admitted
         return {
             "pages_total": pages_total,
             "pages_used": pages_used,
@@ -361,8 +393,8 @@ class InferenceEngine:
             "mixed_steps": float(self._mixed_steps),
             "decode_only_steps": float(self._decode_only_steps),
             "prefill_ms_avg": (
-                1e3 * self._prefill_seconds / self._mixed_steps
-                if self._mixed_steps else 0.0
+                1e3 * self._prefill_seconds / prefill_ticks
+                if prefill_ticks else 0.0
             ),
             "decode_ms_avg": (
                 1e3 * self._decode_seconds / self._decode_only_steps
@@ -413,6 +445,13 @@ class InferenceEngine:
                 f"prompt length {len(prompt)} exceeds the cache "
                 f"capacity {self.capacity} (rows per slot)"
             )
+        if not self.chunked and len(prompt) > self.max_prompt_len:
+            raise ValueError(
+                f"prompt length {len(prompt)} exceeds the whole-prompt "
+                f"pad width max_prompt_len={self.max_prompt_len}; the "
+                f"chunked engine (prefill_token_budget) streams prompts of "
+                f"any length"
+            )
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         if request_id is None:
@@ -425,12 +464,15 @@ class InferenceEngine:
         return request_id
 
     def step(self) -> List[GenerationResult]:
-        """One engine tick: admit queued requests into free slots, pack
-        up to the token budget of pending prompt tokens, run the mixed
-        chunk+decode step (or the decode-only step when nothing is
-        prefilling). Returns the requests that finished this tick; their
-        slots are already free for the next."""
-        return self._step_chunked()
+        """One engine tick. Chunked: admit queued requests into free
+        slots, pack up to the token budget of pending prompt tokens, run
+        the mixed chunk+decode step (or the decode-only step when nothing
+        is prefilling). Whole-prompt: one padded prefill per admit, then
+        the decode step. Returns the requests that finished this tick;
+        their slots are already free for the next."""
+        if self.chunked:
+            return self._step_chunked()
+        return self._step_whole()
 
     def generate(
         self, prompts: Sequence[Sequence[int]], max_new_tokens: int
@@ -516,6 +558,23 @@ class InferenceEngine:
         ]).cpu().numpy()
         b = chunk_tokens.shape[0]
         return out[0, :b], out[0, b:], out[1, :b] != 0, out[1, b:] != 0
+
+    @torch.no_grad()
+    def _prefill(self, tokens: np.ndarray, slot: int, length: int):
+        """One request's padded ``(1, max_prompt_len)`` prompt through a
+        one-slot view of the cache (JAX engine.py:839-857): the model
+        writes the window's K/V at rows ``[0, max_prompt_len)`` and
+        advances the view by the padded width; the slot's length is then
+        the real prompt's, so decode overwrites the pad rows and never
+        reads them. Returns the first token, sampled from the logits at
+        ``length - 1``, as a device tensor (no sync)."""
+        sub = self.cache.slot_view(slot)
+        sub.lengths = torch.zeros_like(sub.lengths)
+        logits, sub = self.model(self._tensor(tokens), cache=sub)
+        sub.lengths = torch.full_like(sub.lengths, length)
+        self.cache.write_back(slot, sub)
+        tok, _ = self._sample(logits[0, length - 1][None, :])
+        return tok
 
     @torch.no_grad()
     def _decode(self, dec_tokens, dec_active):
@@ -839,6 +898,74 @@ class InferenceEngine:
         if dec_out is not None:
             for slot, st in enumerate(self._slots):
                 if st is None or not active[slot]:
+                    continue
+                if dec_bad[slot]:
+                    finished.append(self._quarantine(slot, st))
+                    continue
+                st.pos += 1  # the input token was written this step
+                st.generated.append(int(dec_out[slot]))
+                self._generated_tokens += 1
+                done = self._finish_reason(st)
+                if done is not None:
+                    finished.append(self._evict(slot, st, done))
+        return finished
+
+    # ------------------------------------------------------------------
+    # the whole-prompt path
+    # ------------------------------------------------------------------
+
+    def _step_whole(self) -> List[GenerationResult]:
+        """The legacy whole-prompt tick (JAX engine.py:3717): a padded
+        prefill per admitted request, ONE host fetch of every admit's
+        first token, then one decode step for the grid."""
+        finished: List[GenerationResult] = []
+        t_admit = time.perf_counter()
+        pending = []  # (slot, the first token on the device)
+        for slot in range(self.num_slots):
+            if self._slots[slot] is not None or not self._queue:
+                continue
+            req = self._queue.popleft()
+            self._queue_waits.append(t_admit - req.enqueued_at)
+            toks = np.zeros((1, self.max_prompt_len), np.int64)
+            toks[0, :len(req.prompt)] = req.prompt
+            tok = self._prefill(toks, slot, len(req.prompt))
+            self._admitted += 1
+            self._prompt_tokens += len(req.prompt)
+            self._slots[slot] = _Slot(
+                req=req, generated=[], pos=len(req.prompt),
+                cursor=len(req.prompt), prefix=list(req.prompt),
+                leased_at=t_admit, chunks=1,
+            )
+            pending.append((slot, tok))
+        if pending:
+            first = torch.cat([t for _, t in pending]).cpu().numpy()
+            now = time.perf_counter()
+            self._prefill_seconds += now - t_admit
+            for (slot, _), tok in zip(pending, first):
+                st = self._slots[slot]
+                st.generated.append(int(tok))
+                self._generated_tokens += 1
+                st.first_token_at = now
+                self._ttfts.append(now - st.req.enqueued_at)
+                done = self._finish_reason(st)
+                if done is not None:
+                    finished.append(self._evict(slot, st, done))
+
+        active = np.array([s is not None for s in self._slots], dtype=bool)
+        self._guard_capacity(active)
+        if active.any():
+            tokens = np.array(
+                [s.generated[-1] if s is not None else 0
+                 for s in self._slots],
+                np.int32,
+            )
+            t0 = time.perf_counter()
+            dec_out, dec_bad = self._decode(tokens, active)
+            self._decode_seconds += time.perf_counter() - t0
+            self._decode_steps += 1
+            self._decode_only_steps += 1
+            for slot, st in enumerate(self._slots):
+                if st is None:
                     continue
                 if dec_bad[slot]:
                     finished.append(self._quarantine(slot, st))

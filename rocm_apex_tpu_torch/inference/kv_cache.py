@@ -14,7 +14,10 @@ whose writes return a new cache (in place only under ``jit`` with
 donated buffers), the two writes here — `scatter_chunk` and
 `write_at_lengths`, which the model's cached forward calls per layer —
 write into the buffers they are given, and the `KVCache` methods return
-``self``.
+``self``. `KVCache.slot_view` (the whole-prompt prefill's unit) is a
+view: its buffers are slices of the cache's, so a forward against it
+writes the slot's rows in place, and `KVCache.write_back` commits only
+its length.
 """
 
 import dataclasses
@@ -138,6 +141,23 @@ class KVCache:
     @property
     def capacity(self) -> int:
         return self.k[0].shape[1]
+
+    def slot_view(self, slot: int) -> "KVCache":
+        """A one-slot cache (``num_slots == 1``) over slot ``slot``: its
+        buffers are views of this cache's (writes land in place), its
+        ``lengths`` a copy of the slot's. The in-place counterpart of the
+        JAX ``slot_view`` (rocm_apex_tpu/inference/kv_cache.py:196)."""
+        return KVCache(
+            k=[b[slot:slot + 1] for b in self.k],
+            v=[b[slot:slot + 1] for b in self.v],
+            lengths=self.lengths[slot:slot + 1].clone(),
+        )
+
+    def write_back(self, slot: int, sub: "KVCache") -> "KVCache":
+        """Commit a `slot_view`'s length into slot ``slot``: its rows were
+        written in place (the JAX ``write_back`` scatters them back)."""
+        self.lengths[slot:slot + 1] = sub.lengths.to(self.lengths.dtype)
+        return self
 
     def write(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor
               ) -> "KVCache":

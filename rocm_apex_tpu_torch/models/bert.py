@@ -8,8 +8,13 @@ binary (next-sentence) head.
 
 With ``attention_mask=None`` (no padded positions) the attention runs the
 packed flash kernels without the causal mask, as the JAX model does. A
-mask tensor raises: the additive-bias form needs the unpacked flash
-kernels of a later slice. `BertModel` has no fused linear+CE head: with
+(b, s) padding mask (1 = keep) becomes `bert_extended_attention_mask`'s
+(b, 1, s, s) pair mask, then the additive fp32 bias of -1e30 that every
+layer's unpacked flash kernels add to the scores (`models.gpt.
+padding_bias`, built once per forward): a padded query row attends
+nothing, so its attention output is 0, as the JAX kernel gives it. The
+loss stays per token; a caller masks or averages it. `BertModel` has no
+fused linear+CE head: with
 ``lm_labels`` the (b, s, vocab) logits of the tied projection go through
 the cross-entropy kernel (`models.gpt._serial_cross_entropy`), which
 writes the logits' gradient during its forward read.

@@ -23,10 +23,16 @@ Port of ``rocm_apex_tpu/models/gpt.py`` at tensor-parallel world size 1.
   head (`VocabParallelEmbedding.attend_loss`) or, with
   ``fused_lm_head=False``, through the materialized head: the tied
   projection's logits into the cross-entropy kernel
-  (`_serial_cross_entropy`). ``attn_mask_type="padding"`` (the BERT
-  stack) runs the same packed kernels without the causal mask when no
-  mask tensor is given; with one it raises: the additive-bias form needs
-  the unpacked flash kernels of a later slice.
+  (`_serial_cross_entropy`). The branch choice is the JAX model's
+  (gpt.py:409-449): the packed kernels serve the causal type and the
+  ``attn_mask_type="padding"`` type (the BERT stack) without a mask
+  tensor, at a head_dim that is a multiple of 128. With a mask tensor,
+  or another head_dim, the projection adds its own bias and the per-head
+  q/k/v columns go to the unpacked flash kernels
+  (`flash_attention_heads`, read in place through their strides): the
+  padding type with the (b, sq, sk) fp32 bias of -1e30 that
+  `padding_bias` builds from the mask (once per forward), the causal
+  type with the in-kernel causal mask.
 * The cached branches serve the engine (rocm_apex_tpu/models/gpt.py:
   509-893), deterministic and under ``torch.no_grad``: the packed chunk
   (``chunk=(slot_ids, positions)``) scatters its K/V into the cache at
@@ -42,16 +48,18 @@ Port of ``rocm_apex_tpu/models/gpt.py`` at tensor-parallel world size 1.
   the table (`ops.paging`, destinations resolved once per forward; dead
   decode rows sit at capacity and drop; int8 pools raise their page
   scales), the chunk reads through `flash_attention_chunk_paged` and the
-  decode through `flash_attention_decode_paged`.
+  decode through `flash_attention_decode_paged`. A cached window wider
+  than one token with no ``chunk`` is the whole-prompt prefill
+  (gpt.py:894-913): its K/V land at each slot's length and causal
+  unpacked flash attention runs over the fresh window alone (the
+  engine's slots start empty); a paged cache refuses it, as in JAX.
 
 Module and parameter names follow the JAX model's param tree, so its
 flattened paths are this module's ``state_dict`` keys (see ``convert.py``).
 Linear and embedding weights are stored in the compute dtype (the JAX
 model casts them on every call; the values are the same); LayerNorm
 parameters in ``params_dtype`` (the training state keeps them in the
-compute dtype, as the JAX optimizer's model tree does). Whole-prompt
-prefill (a cached window wider than one token) raises: it needs the
-unpacked flash forward of a later slice.
+compute dtype, as the JAX optimizer's model tree does).
 """
 
 import dataclasses
@@ -71,8 +79,10 @@ from rocm_apex_tpu_torch.inference.kv_cache import (
 )
 from rocm_apex_tpu_torch.normalization import MixedFusedLayerNorm
 from rocm_apex_tpu_torch.ops.flash_attention import (
+    NEG_INF,
     flash_attention_decode,
     flash_attention_decode_paged,
+    flash_attention_heads,
     flash_attention_qkv_bias,
     flash_attention_qkv_bias_dropout,
 )
@@ -103,13 +113,8 @@ __all__ = [
     "ParallelTransformerLayer",
     "ParallelTransformer",
     "TransformerEmbedding",
+    "padding_bias",
 ]
-
-_NOT_PORTED = (
-    "{what} is not ported yet: it needs the unpacked flash kernels "
-    "(_fwd_kernel/_bwd_* on (batch*heads, seq, head_dim)); ROADMAP Queue 1 "
-    "item 1 (masked BERT and whole-prompt prefill), Queue 2 items 3 and 6"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +143,7 @@ class GPTConfig:
     ignore_index: Optional[int] = None
     fused_lm_head: bool = True
     lm_head_chunk_size: Optional[int] = None
+    context_parallel_axis: Optional[str] = None
 
     def __post_init__(self):
         unported = [
@@ -154,6 +160,10 @@ class GPTConfig:
             (self.apply_residual_connection_post_layernorm,
              "apply_residual_connection_post_layernorm=True (ROADMAP "
              "Queue 1 item 8, rest of the training stack)"),
+            (self.context_parallel_axis is not None,
+             "context_parallel_axis (ring attention over the lse kernel "
+             "across process groups, ROADMAP Queue 1 item 8, "
+             "transformer/context_parallel.py)"),
         ]
         for bad, what in unported:
             if bad:
@@ -226,10 +236,20 @@ def _check_mask_type(attn_mask_type: str) -> str:
     return attn_mask_type
 
 
+def padding_bias(attention_mask: torch.Tensor, b: int, sq: int
+                 ) -> torch.Tensor:
+    """A broadcastable (b|1, 1, sq|1, sk) padding mask (True = masked) as
+    the additive fp32 (b, sq, sk) attention bias: -1e30 where masked, 0
+    elsewhere (rocm_apex_tpu/models/gpt.py:978-990)."""
+    mask = attention_mask.to(torch.bool).expand(b, 1, sq, sq)
+    return torch.where(mask, NEG_INF, 0.0).to(torch.float32)[:, 0]
+
+
 class ParallelAttention(nn.Module):
-    """Self-attention: the packed flash path (uncached), causal or, with
-    ``attn_mask_type="padding"`` and no mask tensor, bidirectional; and
-    the KV-cached serving branches (causal only)."""
+    """Self-attention: uncached, the packed flash path or the unpacked one
+    (a mask tensor, or a head_dim that is not a multiple of 128), causal
+    or, with ``attn_mask_type="padding"``, bidirectional; and the
+    KV-cached serving branches (causal only)."""
 
     def __init__(self, cfg: GPTConfig, device=None,
                  attn_mask_type: str = "causal"):
@@ -246,19 +266,23 @@ class ParallelAttention(nn.Module):
 
     def forward(self, x, cache=None,
                 chunk: Optional[Union[ChunkRows, PagedRows]] = None,
-                dropout_seed: Optional[int] = None, attention_mask=None):
-        """``attention_mask``: a padding mask for the uncached path; only
-        None (no padded positions) runs so far. ``cache``: the layer's view, ``(k, v, lengths)`` of a
-        contiguous cache or ``(k, v, lengths, paged)`` of a paged one,
-        ``paged`` holding ``page_table``, ``page_size``, the layer's
-        ``k_scale``/``v_scale`` (None unless int8) and ``rows``, this
-        forward's write destinations. ``chunk``: the packed chunk's rows
-        (their ``slots`` are the segment ids), None for the decode."""
-        if attention_mask is not None:
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="attention with a mask tensor (attention_mask=)"))
+                dropout_seed: Optional[int] = None,
+                attention_bias: Optional[torch.Tensor] = None):
+        """``attention_bias``: the uncached padding type's additive fp32
+        (b, sq, sk) bias, `padding_bias` of its mask (the transformer
+        builds it once per forward; None attends every key). ``cache``:
+        the layer's view, ``(k, v, lengths)`` of a contiguous cache or
+        ``(k, v, lengths, paged)`` of a paged one, ``paged`` holding
+        ``page_table``, ``page_size``, the layer's ``k_scale``/``v_scale``
+        (None unless int8) and ``rows``, this forward's write
+        destinations. ``chunk``: the packed chunk's rows (their ``slots``
+        are the segment ids), None for the decode and the whole-prompt
+        prefill."""
         if cache is None:
-            return self._forward_packed(x, dropout_seed)
+            bias = attention_bias if self.attn_mask_type == "padding" else None
+            if bias is None and self.cfg.head_dim % 128 == 0:
+                return self._forward_packed(x, dropout_seed)
+            return self._forward_unpacked(x, dropout_seed, bias)
         if self.attn_mask_type != "causal":
             raise ValueError(
                 "KV-cached attention is causal-only "
@@ -306,42 +330,45 @@ class ParallelAttention(nn.Module):
                 ctx = merge_by_lse(o_a.transpose(0, 1),
                                    lse_a.transpose(0, 1), o_b, lse_b)
             ctx = ctx.to(cfg.dtype).reshape(1, sq, nh * hd)
-        else:
+        elif paged is not None:
             if sq != 1:
-                if paged is not None:
-                    raise ValueError(
-                        "a paged cache serves single-token decode and "
-                        "chunked prefill; whole-prompt prefill needs the "
-                        "contiguous cache (or chunk=)"
-                    )
-                raise NotImplementedError(
-                    _NOT_PORTED.format(what="whole-prompt prefill")
+                raise ValueError(
+                    "a paged cache serves single-token decode and "
+                    "chunked prefill; whole-prompt prefill needs the "
+                    "contiguous cache (or chunk=)"
                 )
-            if paged is not None:
-                # each slot's new row at its length, through the table;
-                # a dead row sits at capacity and its write drops
-                _paged_write(k_buf, v_buf, paged, k[:, 0], v[:, 0])
-                table = paged["page_table"]
-                capacity = table.shape[1] * paged["page_size"]
-                kv_len = torch.clamp(lengths + 1, max=capacity)
-                ctx = flash_attention_decode_paged(
-                    q[:, 0], k_buf, v_buf, table, kv_len, scale,
-                    paged["k_scale"], paged["v_scale"],
+            # each slot's new row at its length, through the table; a
+            # dead row sits at capacity and its write drops
+            _paged_write(k_buf, v_buf, paged, k[:, 0], v[:, 0])
+            table = paged["page_table"]
+            capacity = table.shape[1] * paged["page_size"]
+            kv_len = torch.clamp(lengths + 1, max=capacity)
+            ctx = flash_attention_decode_paged(
+                q[:, 0], k_buf, v_buf, table, kv_len, scale,
+                paged["k_scale"], paged["v_scale"],
+            ).reshape(b, 1, nh * hd)
+        else:
+            # in place: each slot's new rows at its length, dead rows
+            # included
+            write_at_lengths(k_buf, lengths, k)
+            write_at_lengths(v_buf, lengths, v)
+            if sq != 1:
+                # whole-prompt prefill: the slots start empty, so causal
+                # attention over the fresh window is the whole history
+                # (the cache is written, not read)
+                ctx = flash_attention_heads(
+                    *(t.permute(0, 2, 1, 3) for t in (q, k, v)),
+                    causal=True, scale=scale,
                 )
             else:
-                # in place: each slot's new row at its length, dead rows
-                # included
-                write_at_lengths(k_buf, lengths, k)
-                write_at_lengths(v_buf, lengths, v)
                 kv_len = torch.clamp(lengths + 1, max=k_buf.shape[1])
                 ctx = flash_attention_decode(q[:, 0], k_buf, v_buf, kv_len,
-                                             scale)
-            ctx = ctx.reshape(b, 1, nh * hd)
+                                             scale).reshape(b, 1, nh * hd)
         y, _ = self.dense(ctx)
         return y
 
     def _forward_packed(self, x, dropout_seed):
-        """The training path: the projection bias rides into the flash
+        """The packed path: the projection bias rides into the flash
         kernels (added on tile load; its gradient from fp32 partials)."""
         cfg = self.cfg
         b, s, _ = x.shape
@@ -356,6 +383,26 @@ class ParallelAttention(nn.Module):
             ctx = flash_attention_qkv_bias_dropout(
                 qkv, bias, dropout_seed, cfg.attention_dropout, causal, scale,
             )
+        y, _ = self.dense(ctx)
+        return y
+
+    def _forward_unpacked(self, x, dropout_seed, bias):
+        """The unpacked path (gpt.py:952-1004): the projection adds its own
+        bias; q/k/v are the per-head column blocks of its (b, s, nh, 3*hd)
+        output, passed to the kernels as (b, nh, s, hd) views; the padding
+        type adds ``bias`` (or none: full bidirectional), the causal type
+        masks in-kernel. Attention dropout with a seed, in-kernel."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        qkv, _ = self.query_key_value(x)
+        q, k, v = (t.permute(0, 2, 1, 3) for t in
+                   qkv.view(b, s, nh, 3 * hd).split(hd, dim=-1))
+        ctx = flash_attention_heads(
+            q, k, v, bias, causal=self.attn_mask_type == "causal",
+            scale=1.0 / math.sqrt(hd), dropout_seed=dropout_seed,
+            dropout_rate=cfg.attention_dropout,
+        )
         y, _ = self.dense(ctx)
         return y
 
@@ -388,7 +435,7 @@ class ParallelTransformerLayer(nn.Module):
 
     def forward_chained(self, x, delta=None,
                         seeds: Optional[torch.Generator] = None,
-                        attention_mask=None):
+                        attention_bias: Optional[torch.Tensor] = None):
         """One training layer: with a ``seeds`` generator, hidden dropout
         drops the attention output inside ln2 and the incoming delta
         inside ln1, and attention dropout runs in the flash kernels."""
@@ -408,7 +455,7 @@ class ParallelTransformerLayer(nn.Module):
         attn_seed = (_draw_seed(seeds) if seeds is not None
                      and cfg.attention_dropout > 0.0 else None)
         attn = self.self_attention(ln1, dropout_seed=attn_seed,
-                                   attention_mask=attention_mask)
+                                   attention_bias=attention_bias)
         ln2, x = self.post_attention_layernorm(
             attn.to(x.dtype), residual=x, dropout_rate=hrate,
             dropout_seed=hseed(),
@@ -440,7 +487,8 @@ class ParallelTransformer(nn.Module):
                 rows: Optional[PagedRows] = None, attention_mask=None):
         """``rows``: a paged cache's write destinations for this forward
         (the chunk's, or the decode grid's). ``attention_mask``: the
-        uncached path's padding mask (only None runs so far)."""
+        uncached path's padding mask, True = masked (read by the padding
+        type only, as in the JAX model)."""
         if cache is None:
             return self._forward_chained(x, seeds, attention_mask)
         if attention_mask is not None:
@@ -471,10 +519,14 @@ class ParallelTransformer(nn.Module):
         return x
 
     def _forward_chained(self, x, seeds, attention_mask=None):
+        # the padding type's additive bias, built once for every layer
+        bias = None
+        if attention_mask is not None and self.attn_mask_type == "padding":
+            bias = padding_bias(attention_mask, x.shape[0], x.shape[1])
         delta = None
         for name in self.layer_names:
             x, delta = getattr(self, name).forward_chained(
-                x, delta, seeds, attention_mask)
+                x, delta, seeds, bias)
         if delta is None:
             return self.final_layernorm(x).to(self.cfg.dtype)
         # the last layer's pending delta joins the stream (and takes its
@@ -631,15 +683,11 @@ class GPTModel(nn.Module):
             if position_ids is None:
                 position_ids = positions[None, :]
         else:
-            if tokens.shape[1] != 1:
-                if paged:
-                    raise ValueError(
-                        "a paged cache serves single-token decode and "
-                        "chunked prefill; whole-prompt prefill needs the "
-                        "contiguous cache (or chunk=)"
-                    )
-                raise NotImplementedError(
-                    _NOT_PORTED.format(what="whole-prompt prefill")
+            if tokens.shape[1] != 1 and paged:
+                raise ValueError(
+                    "a paged cache serves single-token decode and "
+                    "chunked prefill; whole-prompt prefill needs the "
+                    "contiguous cache (or chunk=)"
                 )
             if position_ids is None:
                 position_ids = cache.lengths[:, None] + torch.arange(

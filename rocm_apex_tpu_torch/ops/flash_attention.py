@@ -1,5 +1,6 @@
-"""Flash attention: the KV-cache decode read and the packed-QKV training
-attention, each a hand-written CUDA kernel beside its plain PyTorch
+"""Flash attention: the KV-cache decode read, the packed-QKV training
+attention and the unpacked attention over (batch*heads, seq, head_dim)
+operands, each a hand-written CUDA kernel beside its plain PyTorch
 version.
 
 **Packed QKV** (``flash_attention_qkv{,_bias}{,_dropout}``, the forms
@@ -53,6 +54,30 @@ per-row slot read and the ``(rows, heads, head_dim)`` query layout of
 t, head_dim)`` and the chunk path broadcasts every token to every slot.
 An int8 key or value is dequantized as the JAX kernel does it, ``(float(x)
 * scale)`` rounded to q's dtype.
+
+**Unpacked** (``flash_attention``, ``flash_attention_varlen``,
+``flash_attention_with_lse``, ``flash_attention_dropout``, the JAX names,
+argument order and defaults; ``flash_attention_heads`` is the models'
+form). Three kernels replace the TPU kernels `_fwd` and `_bwd` run
+(rocm_apex_tpu/ops/flash_attention.py:242, :502): the forward
+(``csrc/flash_unpacked_fwd.cu``, `_fwd_kernel` :170), the backward's dq
+and dk/dv passes (``csrc/flash_unpacked_bwd.cu``, `_bwd_dq_kernel` :384,
+`_bwd_dkv_kernel` :316) and the bias gradient (``csrc/flash_dbias.cu``,
+`_bwd_dbias_kernel` :440), all on one masked-score function
+(``csrc/flash_unpacked.cuh``). Semantics are `_masked_scores`': base-2
+scores with scale * log2(e) folded into q in q's dtype, an fp32 additive
+bias (nb, sq, sk) with nb in {1, batch, batch*heads} added as bias *
+log2(e), top-left causal masking, per-row key lengths, the ragged key
+edge; dropout with the packed kernels' keep bits (stream = the operand
+row b*nh + h). The running max starts at -1e30, so a row whose every live
+score carries the -1e30 padding bias has o = 0 and lse = -1e30 * ln 2, as
+the JAX kernel gives. The kernels read and write (B, H, S, D) operands
+through their strides: the models pass the per-head column blocks of the
+fused projection as views (no copy) and take o and the gradients in (B,
+S, H, D) memory, the output projection's layout. The backward's dq pass
+also forms delta = rowsum(do * o) - dlse (the XLA code around `_bwd`'s
+kernels) for the dk/dv pass and the dbias kernel. ``compute_dbias=False``
+returns exact zeros for the bias gradient with no launch.
 """
 
 import ctypes
@@ -62,7 +87,13 @@ from typing import Optional
 import torch
 
 from rocm_apex_tpu_torch.ops import _dropout
-from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
+from rocm_apex_tpu_torch.ops._build import (
+    DTYPE_CODES,
+    Kernel,
+    dtype_code,
+    ptr,
+    stream_ptr,
+)
 from rocm_apex_tpu_torch.ops.paging import paged_view
 
 __all__ = [
@@ -71,7 +102,17 @@ __all__ = [
     "FLASH_DECODE_PAGED_INT8",
     "FLASH_FWD",
     "FLASH_BWD",
+    "FLASH_UNPACKED_FWD",
+    "FLASH_UNPACKED_BWD",
+    "FLASH_DBIAS",
     "NEG_INF",
+    "flash_attention",
+    "flash_attention_dropout",
+    "flash_attention_heads",
+    "flash_attention_varlen",
+    "flash_attention_with_lse",
+    "flash_unpacked_fwd_plain",
+    "flash_unpacked_bwd_plain",
     "flash_attention_decode",
     "flash_attention_decode_plain",
     "flash_attention_decode_paged",
@@ -581,3 +622,405 @@ def flash_attention_qkv_bias_dropout(qkv, qkv_bias, dropout_seed,
     """`flash_attention_qkv_bias` with in-kernel attention dropout."""
     return _FlashQKV.apply(qkv, qkv_bias, int(dropout_seed),
                            float(dropout_rate), causal, _scale(qkv, scale))
+
+
+# ---------------------------------------------------------------------------
+# unpacked: (batch*heads, seq, head_dim) operands, an additive bias,
+# per-row key lengths
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+_UNPACKED_HEAD_DIMS = (64, 128)  # the csrc/flash_unpacked.cuh instances
+
+
+def _q_mul(scale: float, dtype: torch.dtype) -> float:
+    """scale * log2(e) rounded to the operands' dtype: the kernels and
+    the plain versions fold it into q as the JAX kernels do, ``q *
+    asarray(scale * LOG2E, q.dtype)`` rounded in q's dtype."""
+    return float(torch.tensor(scale * LOG2E, dtype=dtype))
+
+
+def _bias_groups(bias, bh: int) -> int:
+    """Heads per bias row: row ``i`` of the (bh, ...) operands reads bias
+    row ``i // (bh // nb)``."""
+    nb = bias.shape[0]
+    if nb == 0 or bh % nb != 0:
+        raise ValueError(f"bias batch {nb} must divide batch*heads {bh}")
+    return bh // nb
+
+
+def _unpacked_scores(q, k, bias, causal, scale, kv_lengths):
+    """The masked base-2 scores of ``_masked_scores`` (rocm_apex_tpu/ops/
+    flash_attention.py:122), fp32 (bh, sq, sk): q times scale * log2(e)
+    in q's dtype, the fp32 product with k, plus ``bias * log2(e)``; a key
+    past ``kv_lengths[row]`` or, when causal, past the query's own index
+    (top-left aligned) is -inf, so it adds nothing to the softmax."""
+    bh, sq, _ = q.shape
+    sk = k.shape[1]
+    qs = q * torch.tensor(_q_mul(scale, q.dtype), dtype=q.dtype)
+    s = torch.einsum("bqd,bkd->bqk", qs.float(), k.float())
+    if bias is not None:
+        hp = _bias_groups(bias, bh)
+        s = (s.view(-1, hp, sq, sk) + bias.float()[:, None] * LOG2E).view(
+            bh, sq, sk)
+    col = torch.arange(sk, device=q.device)
+    live = torch.ones((1, 1, sk), dtype=torch.bool, device=q.device)
+    if kv_lengths is not None:
+        live = col[None, None, :] < kv_lengths.to(q.device).long()[:, None,
+                                                                    None]
+    if causal:
+        row = torch.arange(sq, device=q.device)
+        live = live & (col[None, :] <= row[:, None])[None]
+    return s.masked_fill(~live, float("-inf"))
+
+
+def flash_unpacked_fwd_plain(q, k, v, bias, causal, scale, kv_lengths=None,
+                             rate=0.0, seed=0):
+    """The plain PyTorch version of the unpacked forward (`_fwd` at
+    rocm_apex_tpu/ops/flash_attention.py:242): returns o (bh, sq, d) in
+    q's dtype and the natural-log lse (bh, sq) fp32.
+
+    The running max starts at -1e30 as in `_fwd_kernel`, so a row whose
+    every score carries the -1e30 padding bias (or that attends no key)
+    has l = 0: its o is 0 and its lse -1e30 * ln 2, as the JAX kernel
+    gives. The normalizer sums the undropped probabilities."""
+    s = _unpacked_scores(q, k, bias, causal, scale, kv_lengths)
+    m = s.amax(dim=-1, keepdim=True).clamp(min=NEG_INF)
+    p = torch.exp2(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if rate > 0.0:
+        keep = _dropout.keep_mask(seed, rate, p.shape, device=p.device)
+        p = torch.where(keep, p * _dropout.keep_scale(rate), 0.0)
+    safe = torch.where(l > 0.0, l, 1.0)
+    o = torch.einsum("bqk,bkd->bqd", p, v.float()) / safe
+    lse = (m + torch.log2(safe)) * LN2
+    return o.to(q.dtype), lse[..., 0]
+
+
+def flash_unpacked_bwd_plain(q, k, v, bias, o, lse, do, causal, scale,
+                             kv_lengths=None, rate=0.0, seed=0, dlse=None,
+                             compute_dbias=False):
+    """The plain PyTorch version of the unpacked backward (`_bwd`, :502):
+    dq, dk, dv in the operands' dtype and, with ``compute_dbias``, the
+    fp32 (nb, sq, sk) bias gradient (else None). ``delta = sum(do * o) -
+    dlse`` folds the lse cotangent in, as `_bwd` does at :513-519."""
+    s = _unpacked_scores(q, k, bias, causal, scale, kv_lengths)
+    p = torch.exp2(s - lse[..., None] * LOG2E)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    pd = p
+    if rate > 0.0:
+        keep = _dropout.keep_mask(seed, rate, p.shape, device=p.device)
+        sc = _dropout.keep_scale(rate)
+        pd = torch.where(keep, p * sc, 0.0)
+        dp = torch.where(keep, dp * sc, 0.0)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bqk,bkd->bqd", ds, k.float()) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float()) * scale
+    dv = torch.einsum("bqk,bqd->bkd", pd, do.float())
+    dbias = None
+    if compute_dbias:
+        hp = _bias_groups(bias, q.shape[0])
+        dbias = ds.view(-1, hp, *ds.shape[1:]).sum(dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+FLASH_UNPACKED_FWD = Kernel(
+    name="flash_unpacked_fwd",
+    source="flash_unpacked_fwd.cu",
+    symbol="flash_unpacked_fwd",
+    argtypes=[_P] * 5 + [ctypes.POINTER(_I64), _P, _I, _P] + [_I] * 7
+    + [_U, _U, _F, _F, _F, _I, _P],
+    replaces="rocm_apex_tpu/ops/flash_attention.py:170 _fwd_kernel (via "
+             "_fwd)",
+)
+FLASH_UNPACKED_BWD = Kernel(
+    name="flash_unpacked_bwd",
+    source="flash_unpacked_bwd.cu",
+    symbol="flash_unpacked_bwd",
+    argtypes=[_P] * 11 + [ctypes.POINTER(_I64), _P, _I, _P] + [_I] * 7
+    + [_U, _U, _F, _F, _F, _I, _P],
+    replaces="rocm_apex_tpu/ops/flash_attention.py:316 _bwd_dkv_kernel, "
+             ":384 _bwd_dq_kernel (via _bwd)",
+)
+FLASH_DBIAS = Kernel(
+    name="flash_dbias",
+    source="flash_dbias.cu",
+    symbol="flash_dbias",
+    argtypes=[_P] * 7 + [ctypes.POINTER(_I64), _P, _I, _P] + [_I] * 7
+    + [_U, _U, _F, _F, _I, _P],
+    replaces="rocm_apex_tpu/ops/flash_attention.py:440 _bwd_dbias_kernel",
+)
+
+
+def _strides(*ts):
+    """(batch, head, row) element strides of 4-d (B, H, S, D) operands,
+    flattened for the kernels' int64 table."""
+    vals = [s for t in ts for s in t.stride()[:3]]
+    return (_I64 * len(vals))(*vals)
+
+
+def _aligned(t):
+    """``t`` as the kernels read it: unit stride on head_dim, every other
+    stride and the base 16-byte aligned (a copy only where it is not)."""
+    vec = 16 // t.element_size()
+    if (t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1])
+            or t.data_ptr() % 16):
+        return t.contiguous()
+    return t
+
+
+def _rows_layout(B, H, S, D, dtype, device, bshd):
+    """An output (B, H, S, D) view; with ``bshd`` its memory is (B, S, H,
+    D), the layout the output projection reads without a copy."""
+    if bshd:
+        return torch.empty((B, S, H, D), dtype=dtype,
+                           device=device).permute(0, 2, 1, 3)
+    return torch.empty((B, H, S, D), dtype=dtype, device=device)
+
+
+def _unpacked_common(q, k, v, bias, kv_lengths):
+    """Checks shared by the forward and backward wrappers on 4-d (B, H,
+    S, D) operands; returns (nb, fp32 contiguous bias, int32 lengths)."""
+    B, H, sq, d = q.shape
+    if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[-1] != d:
+        raise ValueError(f"q/k/v shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)} do not match")
+    nb = 0
+    if bias is not None:
+        if bias.dim() != 3 or bias.shape[1:] != (sq, k.shape[2]):
+            raise ValueError(f"bias must be (nb, {sq}, {k.shape[2]}), got "
+                             f"{tuple(bias.shape)}")
+        _bias_groups(bias, B * H)
+        nb = bias.shape[0]
+    if q.device.type != "cuda":
+        if q.device.type != "cpu":
+            raise RuntimeError(f"no kernel for device {q.device}")
+        return nb, bias, kv_lengths
+    if d not in _UNPACKED_HEAD_DIMS:
+        raise ValueError(f"the unpacked CUDA attention kernels take head_dim "
+                         f"in {_UNPACKED_HEAD_DIMS}, got {d}")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share one dtype of "
+                        f"{tuple(DTYPE_CODES)}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if bias is not None:
+        bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
+    if kv_lengths is not None:
+        if kv_lengths.shape != (B * H,):
+            raise ValueError(f"kv_lengths must be ({B * H},)")
+        kv_lengths = kv_lengths.to(device=q.device,
+                                   dtype=torch.int32).contiguous()
+    if max(q.numel(), k.numel()) >= 2**31:
+        raise ValueError("the kernels index rows with 32-bit ints")
+    return nb, bias, kv_lengths
+
+
+def _flat(t):
+    """(B, H, S, D) -> (B*H, S, D) for the plain versions."""
+    return t.reshape(-1, *t.shape[2:])
+
+
+def _unpacked_fwd(q, k, v, bias, causal, scale, kv_lengths, rate, seed,
+                  bshd=False):
+    """The forward wrapper on (B, H, S, D) operands read by strides:
+    returns o (B, H, Sq, D) in q's dtype and lse (B*H, Sq) fp32."""
+    nb, bias, kv_lengths = _unpacked_common(q, k, v, bias, kv_lengths)
+    B, H, sq, d = q.shape
+    sk = k.shape[2]
+    if q.device.type == "cpu":
+        o, lse = flash_unpacked_fwd_plain(_flat(q), _flat(k), _flat(v), bias,
+                                          causal, scale, kv_lengths, rate,
+                                          seed)
+        return o.view(B, H, sq, d), lse
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    o = _rows_layout(B, H, sq, d, q.dtype, q.device, bshd)
+    lse = torch.empty((B * H, sq), dtype=torch.float32, device=q.device)
+    if o.numel() > 0:
+        FLASH_UNPACKED_FWD(
+            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), _strides(q, k, v, o),
+            ptr(bias), nb, ptr(kv_lengths), B, H, sq, sk, d,
+            int(bool(causal)), int(rate > 0.0), int(seed) & 0xFFFFFFFF,
+            _dropout.threshold(rate), _dropout.keep_scale(rate),
+            _q_mul(scale, q.dtype), float(scale), dtype_code(q.dtype),
+            stream_ptr(q.device),
+        )
+    return o, lse
+
+
+def _unpacked_bwd(q, k, v, bias, o, lse, do, dlse, causal, scale,
+                  kv_lengths, rate, seed, compute_dbias, bshd=False):
+    """The backward wrapper: dq, dk, dv as (B, H, S, D) in the operands'
+    dtype and, with ``compute_dbias``, the fp32 (nb, Sq, Sk) bias
+    gradient (the dbias kernel, after the dq pass has written delta)."""
+    nb, bias, kv_lengths = _unpacked_common(q, k, v, bias, kv_lengths)
+    B, H, sq, d = q.shape
+    sk = k.shape[2]
+    if q.device.type == "cpu":
+        dq, dk, dv, dbias = flash_unpacked_bwd_plain(
+            _flat(q), _flat(k), _flat(v), bias, _flat(o), lse, _flat(do),
+            causal, scale, kv_lengths, rate, seed, dlse, compute_dbias)
+        return (dq.view(q.shape), dk.view(k.shape), dv.view(v.shape), dbias)
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do.to(q.dtype)))
+    lse = lse.contiguous()
+    if dlse is not None:
+        dlse = dlse.to(torch.float32).contiguous()
+    dq = _rows_layout(B, H, sq, d, q.dtype, q.device, bshd)
+    dk = _rows_layout(B, H, sk, d, q.dtype, q.device, bshd)
+    dv = _rows_layout(B, H, sk, d, q.dtype, q.device, bshd)
+    delta = torch.empty((B * H, sq), dtype=torch.float32, device=q.device)
+    flags = (B, H, sq, sk, d, int(bool(causal)), int(rate > 0.0),
+             int(seed) & 0xFFFFFFFF, _dropout.threshold(rate),
+             _dropout.keep_scale(rate), _q_mul(scale, q.dtype))
+    if dq.numel() > 0 or dk.numel() > 0:
+        FLASH_UNPACKED_BWD(
+            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(do), ptr(dlse),
+            ptr(dq), ptr(dk), ptr(dv), ptr(delta),
+            _strides(q, k, v, o, do, dq, dk, dv), ptr(bias), nb,
+            ptr(kv_lengths), *flags, float(scale), dtype_code(q.dtype),
+            stream_ptr(q.device),
+        )
+    dbias = None
+    if compute_dbias:
+        dbias = _flash_dbias(q, k, v, bias, lse, do, delta, causal, scale,
+                             kv_lengths, rate, seed)
+    return dq, dk, dv, dbias
+
+
+def _flash_dbias(q, k, v, bias, lse, do, delta, causal, scale, kv_lengths,
+                 rate, seed):
+    """The dbias kernel on card operands as `_unpacked_bwd` prepares them,
+    ``delta`` (B*H, Sq) fp32 = rowsum(do * o) - dlse: the fp32 (nb, Sq,
+    Sk) gradient of the bias."""
+    B, H, sq, d = q.shape
+    nb, sk = bias.shape[0], k.shape[2]
+    dbias = torch.empty((nb, sq, sk), dtype=torch.float32, device=q.device)
+    if dbias.numel() > 0:
+        FLASH_DBIAS(
+            ptr(q), ptr(k), ptr(v), ptr(lse), ptr(do), ptr(delta),
+            ptr(dbias), _strides(q, k, v, do), ptr(bias), nb,
+            ptr(kv_lengths), B, H, sq, sk, d, int(bool(causal)),
+            int(rate > 0.0), int(seed) & 0xFFFFFFFF,
+            _dropout.threshold(rate), _dropout.keep_scale(rate),
+            _q_mul(scale, q.dtype), dtype_code(q.dtype),
+            stream_ptr(q.device),
+        )
+    return dbias
+
+
+class _FlashUnpacked(torch.autograd.Function):
+    """Attention over (B, H, S, D) operands: returns (o, lse); the lse
+    cotangent folds into delta. ``bshd`` lays o and the gradients out as
+    (B, S, H, D) memory."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, kv_lengths, seed, rate, causal, scale,
+                compute_dbias, bshd):
+        o, lse = _unpacked_fwd(q, k, v, bias, causal, scale, kv_lengths,
+                               rate, seed, bshd)
+        ctx.save_for_backward(q, k, v, bias, kv_lengths, o, lse)
+        ctx.args = (causal, scale, rate, seed, compute_dbias, bshd)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, bias, kv_lengths, o, lse = ctx.saved_tensors
+        causal, scale, rate, seed, compute_dbias, bshd = ctx.args
+        if do is None:
+            do = torch.zeros_like(o)
+        want_dbias = bias is not None and ctx.needs_input_grad[3]
+        dq, dk, dv, dbias = _unpacked_bwd(
+            q, k, v, bias, o, lse, do, dlse, causal, scale, kv_lengths, rate,
+            seed, want_dbias and compute_dbias, bshd)
+        if want_dbias:
+            # compute_dbias=False (a constant mask): exact zeros, no launch
+            dbias = (torch.zeros_like(bias) if dbias is None
+                     else dbias.to(bias.dtype))
+        return (dq, dk, dv, dbias) + (None,) * 7
+
+
+def _unpacked(q, k, v, bias, kv_lengths, seed, rate, causal, scale,
+              compute_dbias):
+    """The public (bh, s, d) form over `_FlashUnpacked`."""
+    if q.dim() != 3:
+        raise ValueError(f"q/k/v must be (batch*heads, seq, head_dim), got "
+                         f"{tuple(q.shape)}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    o, lse = _FlashUnpacked.apply(
+        q[None], k[None], v[None], bias, kv_lengths, int(seed), float(rate),
+        bool(causal), float(scale), bool(compute_dbias), False)
+    return o[0], lse
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None, causal: bool = False,
+                    scale: Optional[float] = None,
+                    compute_dbias: bool = False) -> torch.Tensor:
+    """Flash attention over (batch*heads, seq, head_dim) operands.
+
+    ``bias`` is an additive (nb, sq, sk) tensor, nb in {1, batch,
+    batch*heads} (row i uses bias row ``i // (bh // nb)``), added in fp32
+    after the q.k scaling; -1e30 masks. ``causal`` masks keys past the
+    query's own index (top-left aligned when sq != sk). ``scale``
+    defaults to 1/sqrt(head_dim). Differentiable in q/k/v, and in bias
+    with ``compute_dbias=True`` (the dbias kernel); otherwise the bias
+    gradient is exact zeros, with no launch."""
+    return _unpacked(q, k, v, bias, None, 0, 0.0, causal, scale,
+                     compute_dbias)[0]
+
+
+def flash_attention_varlen(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           kv_lengths: torch.Tensor, causal: bool = False,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """`flash_attention` with a per-row real key length: row b attends
+    keys ``[0, kv_lengths[b])`` (``kv_lengths`` (batch*heads,) int32). A
+    row of length 0 has unspecified output. Differentiable in q/k/v."""
+    return _unpacked(q, k, v, None, kv_lengths, 0, 0.0, causal, scale,
+                     False)[0]
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor,
+                             bias: Optional[torch.Tensor] = None,
+                             causal: bool = False,
+                             scale: Optional[float] = None,
+                             compute_dbias: bool = False):
+    """`flash_attention` also returning the per-row natural-log
+    log-sum-exp (bh, sq) fp32, the mergeable partial form; the lse
+    cotangent folds into the backward's delta."""
+    return _unpacked(q, k, v, bias, None, 0, 0.0, causal, scale,
+                     compute_dbias)
+
+
+def flash_attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            bias: Optional[torch.Tensor], dropout_seed,
+                            dropout_rate: float, causal: bool = False,
+                            scale: Optional[float] = None,
+                            compute_dbias: bool = False) -> torch.Tensor:
+    """`flash_attention` with in-kernel attention dropout (softmax ->
+    dropout -> @ v; the normalizer from the undropped probabilities).
+    Element (row, col) of operand row i is kept iff `ops._dropout`'s hash
+    of (dropout_seed, i, row, col) clears the rate: the packed kernels'
+    bits, stream = batch*heads + head."""
+    return _unpacked(q, k, v, bias, None, dropout_seed, dropout_rate, causal,
+                     scale, compute_dbias)[0]
+
+
+def flash_attention_heads(q, k, v, bias=None, causal=False, scale=None,
+                          dropout_seed=None, dropout_rate=0.0):
+    """The model's form: q/k/v as (B, H, S, D) views (the per-head
+    columns of the fused projection, read in place through their
+    strides, no copy); returns the (B, S, H*D) context, whose memory the
+    kernel wrote in that layout. ``bias`` and dropout as in
+    `flash_attention_dropout` (no dropout without a seed)."""
+    B, H, sq, d = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    rate = float(dropout_rate) if dropout_seed is not None else 0.0
+    o, _ = _FlashUnpacked.apply(
+        q, k, v, bias, None, int(dropout_seed or 0), rate, bool(causal),
+        float(scale), False, True)
+    return o.permute(0, 2, 1, 3).reshape(B, sq, H * d)

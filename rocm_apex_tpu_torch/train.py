@@ -70,10 +70,14 @@ def make_train_step(model, opt: MixedPrecisionAdam,
 
 def make_bert_train_step(model, opt: MixedPrecisionLamb) -> Callable:
     """``step(state, tokens, lm_labels, tokentype_ids=None,
-    dropout_generator=None) -> (state, loss, found_inf)``.
+    dropout_generator=None, attention_mask=None) -> (state, loss,
+    found_inf)``.
 
     ``model`` is a `BertModel`, ``state`` the optimizer's state over it
-    (see `convert.train_state_from_jax_params`). The compute copy comes
+    (see `convert.train_state_from_jax_params`). ``attention_mask`` is
+    the (b, s) padding mask (1 = keep) the model turns into its attention
+    bias; the loss stays the mean of all per-token losses, as bench.py's
+    step writes it (bench.py:274-280). The compute copy comes
     from `opt.model_params` at the start of each step (a cast from the
     masters when the optimizer does not store it). ``found_inf`` is a
     device bool: the step was skipped and the state left as it was.
@@ -84,14 +88,18 @@ def make_bert_train_step(model, opt: MixedPrecisionLamb) -> Callable:
     def step(state: MixedPrecisionState, tokens: torch.Tensor,
              lm_labels: torch.Tensor,
              tokentype_ids: Optional[torch.Tensor] = None,
-             dropout_generator: Optional[torch.Generator] = None):
+             dropout_generator: Optional[torch.Generator] = None,
+             attention_mask: Optional[torch.Tensor] = None):
         opt.model_params(state, model)
         for p in named.values():
             p.grad = None
         if tokentype_ids is not None:
             tokentype_ids = tokentype_ids.to(device)
+        if attention_mask is not None:
+            attention_mask = attention_mask.to(device)
         losses, _ = model(
-            tokens.to(device), tokentype_ids=tokentype_ids,
+            tokens.to(device), attention_mask=attention_mask,
+            tokentype_ids=tokentype_ids,
             lm_labels=lm_labels.to(device),
             deterministic=dropout_generator is None,
             dropout_generator=dropout_generator,

@@ -196,15 +196,22 @@ class TestForward:
                    ) == set(tree["params"])
 
     def test_the_masked_branch_raises_by_name(self, jax_run):
-        """A padding mask needs the unpacked flash kernels: refused,
-        naming them and the ROADMAP."""
+        """The masked branch runs (tests/test_torch_bert_masked.py holds
+        it against the JAX model); what it still refuses, context
+        parallelism (ring attention over the lse kernel), raises naming
+        its ROADMAP item. The extended mask masks a pair unless both
+        positions are valid."""
         model = from_jax_params(jax_run["tree"], torch_cfg(), device="cpu")
         tokens, _, _ = _batch()
         mask = torch.ones(BATCH, SEQ, dtype=torch.int64)
         mask[:, -3:] = 0
+        with torch.no_grad():
+            logits, _ = model(torch.from_numpy(tokens).long(),
+                              attention_mask=mask)
+        assert bool(torch.isfinite(logits).all())
         with pytest.raises(NotImplementedError,
-                           match="unpacked flash kernels.*ROADMAP"):
-            model(torch.from_numpy(tokens).long(), attention_mask=mask)
+                           match="context_parallel_axis.*ROADMAP"):
+            torch_cfg(context_parallel_axis="cp")
         ext = bert_extended_attention_mask(mask)
         assert ext.shape == (BATCH, 1, SEQ, SEQ) and ext.dtype == torch.bool
         assert not bool(ext[0, 0, 0, 0]) and bool(ext[0, 0, 0, -1])

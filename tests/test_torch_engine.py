@@ -137,7 +137,7 @@ class TestEngineSurface:
         dict(paged=True, spec_k=2), dict(paged=True, faults=object()),
         dict(spec_k=2),
         dict(faults=object()), dict(adapter_pool=object()),
-        dict(tracer=object()), dict(prefill_token_budget=None),
+        dict(tracer=object()), dict(registry=object()),
     ])
     def test_unported_options_raise(self, engines, kw):
         with pytest.raises(NotImplementedError, match="not ported"):

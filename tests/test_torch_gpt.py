@@ -22,7 +22,7 @@ from rocm_apex_tpu_torch.convert import (
     from_jax_params,
     random_params,
 )
-from rocm_apex_tpu_torch.inference import KVCache
+from rocm_apex_tpu_torch.inference import KVCache, PagedKVCache
 from rocm_apex_tpu_torch.models.gpt import GPTConfig, GPTModel
 from rocm_apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
@@ -208,16 +208,23 @@ class TestCachedSteps:
 
 class TestEntryPoints:
     def test_unported_paths_raise(self, models):
-        """Whole-prompt prefill, tp > 1 and the GPT options the port
-        cannot run yet raise, naming their ROADMAP item."""
+        """Context parallelism, tp > 1 and the GPT options the port
+        cannot run yet raise, naming their ROADMAP item; whole-prompt
+        prefill runs on the contiguous cache (tests/
+        test_torch_engine_whole.py) and a paged cache refuses it, as the
+        JAX model does."""
         _, _, model = models
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GPTConfig(**SHAPE, attention_impl="fused_softmax")
+        with pytest.raises(NotImplementedError,
+                           match="context_parallel_axis.*ROADMAP"):
+            GPTConfig(**SHAPE, context_parallel_axis="cp")
         # the materialized head runs now (tests/test_torch_bert.py)
         assert not GPTConfig(**SHAPE, fused_lm_head=False).fused_lm_head
-        cache = KVCache.for_model(torch_cfg(), 1, CAPACITY, device="cpu")
-        with pytest.raises(NotImplementedError, match="whole-prompt"):
-            model(torch.zeros((1, 4), dtype=torch.int64), cache=cache)
+        paged = PagedKVCache.for_model(torch_cfg(), 1, CAPACITY, page_size=8,
+                                       device="cpu")
+        with pytest.raises(ValueError, match="whole-prompt"):
+            model(torch.zeros((1, 4), dtype=torch.int64), cache=paged)
         with pytest.raises(NotImplementedError, match="tensor_parallel"):
             GPTConfig(tensor_parallel_size=2)
         with pytest.raises(NotImplementedError, match="world_size=2"):
