@@ -18,7 +18,11 @@ JAX package) through these phases, in order; any failure exits non-zero:
              whose bound reaches unmapped table entries; the unpacked
              flash forward, backward and dbias at the masked BERT-Large,
              whole-prompt, ragged and varlen shapes, and the unpacked
-             kernels equal to the packed ones on a projection's views);
+             kernels equal to the packed ones on a projection's views;
+             the training segment attention forward and backward at
+             bench.py's fmha batch, causal and not, at masked BERT-Large
+             lengths with head_dim 128, in fp32 and with ids out of
+             order; the cross-entropy's two-pass backward);
              kernel, plain and library times with CUDA events, and the
              least time the card could take (bound);
 4. parity    the serving config at full width but 2 layers, fp32 with
@@ -78,7 +82,20 @@ JAX package) through these phases, in order; any failure exits non-zero:
              lengths, and the BERT-Large step with a padding mask of
              seeded lengths and dropout 0.1 (the unpacked kernels 24 +
              24 calls a step, no packed or dbias call);
-11. report   a ``{"kernels": [...]}`` line, then the device line
+11. fmha     contrib/fmha at bench.py's fmha configuration (64 sequences
+             of RandomState(0) lengths, 17408 tokens, max_s 2048, 8
+             heads x 64, causal, bf16): the loss sum(o^2), forward +
+             backward, 5 warm-up and 20 timed iterations, packed (the
+             training segment kernels, one forward and one backward
+             call an iteration, no serving-kernel call) and padded (the
+             unpacked kernels); ms, padded / packed, peak memory above
+             the inputs (packed under 10x the qkv and under padded),
+             packed == padded on the card, fp32 cuda == cpu;
+12. xentropy contrib/xentropy's SoftmaxCrossEntropyLoss at the BERT
+             head's logits, forward + backward (the plain forward and the
+             two-pass backward kernel, one call each an iteration), zero
+             gradient on padded rows, fp32 cuda == cpu == F.cross_entropy;
+13. report   a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
@@ -87,7 +104,7 @@ spill report to DIR/chip_smoke.json. ``--profile`` adds profiled serve
 device's busy share. ``--only`` runs a subset of the phases (a check of
 one part; the full run is the smoke); ``kernels:xent+lamb`` there names a
 subset of the kernel phase's case groups (ln, seg, decode, paged,
-train_ln, flash, xent, lamb, unpacked).
+train_ln, flash, xent, lamb, unpacked, seg_train).
 
 It needs one CUDA device and nvcc (CUDA_HOME, PATH or /usr/local/cuda).
 """
@@ -173,6 +190,20 @@ BERT_MASKED_DROPOUT = 0.1
 BERT_MASKED_PARITY_LENGTHS = (128, 77)  # B 2 at S 128: two lengths
 UNPACKED_KERNELS = ("flash_unpacked_fwd", "flash_unpacked_bwd",
                     "flash_dbias")
+# contrib/fmha at bench.py's fmha configuration (bench.py:2087-2146
+# `bench_fmha` on an accelerator): 64 sequences whose lengths
+# RandomState(0) draws from FMHA_LENS with FMHA_P (17408 tokens, three of
+# 2048, max_s 2048), 8 heads of 64, causal, bf16, qkv = 0.5 * normal; the
+# loss sum(fmha(qkv).float() ** 2), forward + backward, packed and padded
+FMHA_LENS, FMHA_P = [64, 128, 256, 512, 2048], [0.3, 0.3, 0.2, 0.15, 0.05]
+FMHA_BATCH, FMHA_HEADS, FMHA_HD = 64, 8, 64
+FMHA_KERNELS = ("flash_segments_fwd", "flash_segments_bwd")
+# fp32 cuda vs cpu: a small ragged batch with empty sequences
+FMHA_PARITY_LENS = [37, 0, 300, 5, 128, 0]
+# contrib/xentropy's loss, forward + backward, at the BERT head's logits
+# (B 8 x S 512 rows, vocab 30592) in bf16, smoothing 0.1, padding_idx 0
+XENT_SMOOTHING, XENT_PAD = 0.1, 0
+XENT_CONTRIB_KERNELS = ("xent_fwd", "xent_bwd")
 
 # kernel vs plain version on the same card inputs, each output by its
 # own dtype: |kernel - plain| <= atol + rtol * |plain|. Both compute in
@@ -201,7 +232,8 @@ CARD = "cuda"  # the engine phases' device (a CPU rehearsal renames it)
 
 PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "train_parity", "train", "bert_train_parity", "bert_train",
-          "bert_train_masked_parity", "bert_train_masked")
+          "bert_train_masked_parity", "bert_train_masked", "fmha",
+          "xentropy")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_attention_segments_with_lse",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -403,7 +435,7 @@ def seg_cases(dev):
 
         def plain():
             return fs.flash_attention_segments_plain(
-                q, k, v, seg, True, 1.0 / math.sqrt(d))
+                q, k, v, seg, True, 1.0 / math.sqrt(d), round_q=False)
 
         got, ref = kern(), plain()
         qc, kc, vc = (x.contiguous()[None] for x in (q, k, v))
@@ -1483,11 +1515,280 @@ def unpacked_vs_packed_cases(dev):
         )
 
 
+def fmha_lengths():
+    """bench.py fmha's sequence lengths (RandomState(0))."""
+    return np.random.RandomState(0).choice(
+        FMHA_LENS, size=FMHA_BATCH, p=FMHA_P).tolist()
+
+
+def _cu(lens, dev):
+    return torch.tensor(np.cumsum([0] + list(lens)), dtype=torch.int32,
+                        device=dev)
+
+
+def _seg_ids(lens, dev):
+    return torch.repeat_interleave(
+        torch.arange(len(lens), dtype=torch.int32),
+        torch.tensor(lens)).to(dev)
+
+
+def _seg_pairs(seg, causal):
+    """The (query, key) pairs segment attention attends on these ids,
+    counted per 4096-query slab: the work its data needs."""
+    seg = seg.to(DEV_CPU).long()
+    n, col = 0, torch.arange(seg.numel())
+    for r0 in range(0, seg.numel(), 4096):
+        rows = torch.arange(r0, min(seg.numel(), r0 + 4096))
+        live = seg[rows][:, None] == seg[None, :]
+        if causal:
+            live &= col[None, :] <= rows[:, None]
+        n += int(live.sum())
+    return n
+
+
+def _per_head(fn, *ts):
+    """``fn`` on head slices of (h, total, d) tensors, results stacked:
+    the plain versions' (total, total) scores fit one head at a time."""
+    outs = [fn(*(t if t is None or t.dim() < 2 else t[i:i + 1]
+                 for t in ts)) for i in range(ts[0].shape[0])]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def seg_train_cases(dev):
+    """The training segment attention (forward; backward, a dq and a dk/dv
+    pass) against its plain versions: bench.py's fmha batch (17408 tokens,
+    8 heads x 64, bf16, q/k/v read in place from the packed (total, 3, h,
+    d) qkv), causal (the path's form) and not; masked BERT-Large's lengths
+    packed (8 heads x 128, not causal); fp32 on a small ragged batch with
+    an empty sequence; ids out of order (every tile range then spans
+    several ids, and a range test must still skip no live pair). The
+    plain versions run one head at a time. Beside each: the bound, the
+    plain time, one PyTorch call (SDPA on a jagged nested tensor where it
+    takes the case, else SDPA on the padded batch with the length mask;
+    `library` says which) and, for the forward, the serving kernel's time
+    on the same inputs (`row3_ms`, the per-row kernel that
+    `flash_attention_segments_with_lse` launches)."""
+    from rocm_apex_tpu_torch.ops import flash_attention_segments as fs
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rng = np.random.RandomState(1)
+    shuffled = rng.permutation(np.repeat(np.arange(9), 4)).tolist()
+    cases = [
+        # name, lengths, heads, head_dim, dtype, causal, ids, headline
+        ("fmha batch", fmha_lengths(), FMHA_HEADS, FMHA_HD, torch.bfloat16,
+         True, None, True),
+        ("fmha batch", fmha_lengths(), FMHA_HEADS, FMHA_HD, torch.bfloat16,
+         False, None, False),
+        ("masked BERT-Large lengths", bert_lengths(BERT_BATCH).tolist(), 8,
+         128, torch.bfloat16, False, None, False),
+        ("ragged, an empty sequence", FMHA_PARITY_LENS, 4, 64, torch.float32,
+         True, None, False),
+        ("ids out of order", [29] * 36, 4, 64, torch.bfloat16, True, shuffled,
+         False),
+    ]
+    for name, lens, h, d, dt, causal, ids, headline in cases:
+        seg = _seg_ids(lens, dev)
+        if ids is not None:  # run i of 29 tokens carries id ids[i]
+            seg = torch.tensor(ids, dtype=torch.int32).repeat_interleave(
+                29).to(dev)
+        total, scale = seg.numel(), 1.0 / math.sqrt(d)
+        qkv = (0.5 * torch.randn(total, 3, h, d, device=dev,
+                                 generator=gen)).to(dt)
+        q, k, v = (qkv[:, i].transpose(0, 1) for i in range(3))
+        do = torch.randn(total, h, d, device=dev, generator=gen).to(
+            dt).transpose(0, 1)
+        pairs = _seg_pairs(seg, causal)
+        label = (f"{name}, {'causal' if causal else 'not causal'} ({h}, "
+                 f"{total}, {d}) {str(dt)[6:]}")
+
+        def fkern(q=q, k=k, v=v, seg=seg, causal=causal, scale=scale):
+            return fs._seg_fwd(q, k, v, seg, causal, scale, token_major=True)
+
+        def fplain(q=q, k=k, v=v, seg=seg, causal=causal, scale=scale):
+            return _per_head(
+                lambda q, k, v: fs.flash_attention_segments_plain(
+                    q, k, v, seg, causal, scale), q, k, v)
+
+        def frow3(q=q, k=k, v=v, seg=seg, causal=causal, scale=scale):
+            return fs.flash_attention_segments_with_lse(q, k, v, seg, causal,
+                                                        scale)
+
+        flib, blib, lib_form = _seg_library(qkv, do, lens, seg, ids, causal,
+                                            scale)
+        o, lse = fkern()
+        ref = fplain()
+        yield dict(
+            kernel="flash_segments_fwd", case=label, dtype=dt,
+            cmp=compare((o, lse), ref, [None, LSE_L1_RTOL * ref[1].abs()]),
+            kern=fkern, plain=fplain, lib=flib, library=lib_form,
+            extra_timings=dict(row3_ms=frow3),
+            nbytes=nbytes(q, k, v, seg, o, lse), ops=4 * d * pairs,
+            headline=headline, iters=10, plain_iters=1,
+        )
+
+        def bkern(q=q, k=k, v=v, seg=seg, o=o, lse=lse, do=do, causal=causal,
+                  scale=scale):
+            return fs._seg_bwd(q, k, v, seg, o, lse, do, causal, scale,
+                               dqkv=torch.empty_like(qkv))
+
+        def bplain(q=q, k=k, v=v, seg=seg, o=o, lse=lse, do=do,
+                   causal=causal, scale=scale):
+            return _per_head(
+                lambda *ts: fs.flash_attention_segments_bwd_plain(
+                    *ts[:3], seg, *ts[3:], causal, scale),
+                q, k, v, o, lse, do)
+
+        yield dict(
+            kernel="flash_segments_bwd", case=label, dtype=dt,
+            cmp=compare(bkern(), bplain()), kern=bkern, plain=bplain,
+            lib=blib, library=lib_form,
+            nbytes=nbytes(q, k, v, seg, o, lse, do, q, k, v),
+            ops=10 * d * pairs, headline=headline, iters=5, plain_iters=1,
+        )
+
+
+def _seg_library(qkv, do, lens, seg, ids, causal, scale):
+    """One PyTorch call for the same attention, forward and forward +
+    backward, and which call it is: SDPA on a jagged nested tensor
+    (offsets = cu_seqlens) where torch takes it for this case, else SDPA
+    on the padded (b, h, max_s, d) batch with the length mask (and the
+    causal triangle); None for ids out of order, which neither form
+    takes."""
+    if ids is not None:
+        return None, None, None
+    dev = qkv.device
+    total, _, h, d = qkv.shape
+    cu = _cu(lens, dev).long()
+    leaves = [qkv[:, i].contiguous().requires_grad_(True) for i in range(3)]
+    dot = do.transpose(0, 1).contiguous()
+
+    def njt():
+        q, k, v = (torch.nested.nested_tensor_from_jagged(
+            t, offsets=cu).transpose(1, 2) for t in leaves)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              scale=scale)
+
+    try:
+        njt().transpose(1, 2).values().backward(dot)
+        torch.cuda.synchronize()
+
+        def flib():
+            with torch.no_grad():
+                return njt()
+
+        def blib():
+            for t in leaves:
+                t.grad = None
+            njt().transpose(1, 2).values().backward(dot)
+
+        return flib, blib, "sdpa_nested_jagged"
+    except (RuntimeError, NotImplementedError, ValueError) as e:
+        log(f"  (SDPA on a jagged nested tensor: {e})"[:200])
+    b, max_s = len(lens), max(lens)
+    seq = torch.searchsorted(cu[1:], torch.arange(total, device=dev),
+                             right=True)
+    off = torch.arange(total, device=dev) - cu[seq]
+    lengths = torch.tensor(lens, device=dev)
+    live = torch.arange(max_s, device=dev)[None, :] < lengths[:, None]
+    mask = live[:, None, None, :]
+    if causal:
+        mask = mask & torch.ones(max_s, max_s, dtype=torch.bool,
+                                 device=dev).tril()
+    pad = torch.zeros(b, max_s, 3, h, d, dtype=qkv.dtype, device=dev)
+    pad[seq, off] = qkv
+    qp, kp, vp = (pad[:, :, i].transpose(1, 2).contiguous().requires_grad_(
+        True) for i in range(3))
+    dop = torch.zeros(b, max_s, h, d, dtype=qkv.dtype, device=dev)
+    dop[seq, off] = dot
+    dop = dop.transpose(1, 2).contiguous()
+
+    def flib():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qp, kp, vp, attn_mask=mask,
+                                                  scale=scale)
+
+    def blib():
+        qp.grad = kp.grad = vp.grad = None
+        F.scaled_dot_product_attention(qp, kp, vp, attn_mask=mask,
+                                       scale=scale).backward(dop)
+
+    return flib, blib, "sdpa_padded_mask"
+
+
+def xent_bwd_cases(dev):
+    """The two-pass backward form (contrib/xentropy's) against
+    `xent_bwd_reference` on the same lse: the BERT head's (4096, 30592)
+    bf16 logits with smoothing 0.1 and rows at padding_idx (their
+    cotangent zero, as the autograd function passes it); fp32; an odd
+    vocab (the scalar form). dx = dl * (softmax - target) carries dg's
+    tolerances, `XENT_DG_TOL` and the L1 check. The library yardstick is
+    `F.cross_entropy(reduction="none", label_smoothing=eps,
+    ignore_index=padding_idx)` forward + backward on the same logits (the
+    kernel is the backward alone; `two_pass_ms` is the port's forward +
+    backward, `softmax_cross_entropy_loss`)."""
+    from rocm_apex_tpu_torch.ops import xentropy as xe
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows_full, vocab = BERT_BATCH * BERT_SEQ, BERT["vocab_size"]
+    for rows, v, dt in ((rows_full, vocab, torch.bfloat16),
+                        (1024, vocab, torch.float32),
+                        (512, 30001, torch.bfloat16)):
+        x = (2.0 * torch.randn(rows, v, device=dev, generator=gen)).to(dt)
+        labels = torch.randint(0, v, (rows,), device=dev, generator=gen)
+        labels[0], labels[1] = 0, v - 1
+        labels[::7] = XENT_PAD  # padded rows
+        dl = torch.randn(rows, device=dev, generator=gen)
+        dl = torch.where(labels == XENT_PAD, 0.0, dl)
+        _, lse = xe.xent_fwd(x, labels, XENT_SMOOTHING)
+
+        def kern(x=x, labels=labels, lse=lse, dl=dl):
+            return xe.xent_bwd(x, labels, lse, dl, XENT_SMOOTHING)
+
+        def plain(x=x, labels=labels, lse=lse, dl=dl):
+            return xe.xent_bwd_reference(x, labels, lse, dl, XENT_SMOOTHING)
+
+        xg = x.detach().clone().requires_grad_(True)
+        w = torch.randn(rows, device=dev, generator=gen).to(dt)
+
+        def lib(xg=xg, labels=labels, w=w):
+            xg.grad = None
+            F.cross_entropy(xg, labels, reduction="none",
+                            label_smoothing=XENT_SMOOTHING,
+                            ignore_index=XENT_PAD).backward(w)
+
+        def two_pass(xg=xg, labels=labels, w=w):
+            xg.grad = None
+            xe.softmax_cross_entropy_loss(xg, labels, XENT_SMOOTHING,
+                                          XENT_PAD).backward(w.float())
+
+        got, ref = kern(), plain()
+        got = (got, got.double().abs().sum() / rows)
+        ref = (ref, ref.double().abs().sum() / rows)
+        yield dict(
+            kernel="xent_bwd",
+            case=f"({rows}, {v}) {str(dt)[6:]}, smoothing {XENT_SMOOTHING}, "
+                 f"rows at padding_idx {XENT_PAD}",
+            dtype=dt,
+            cmp=compare(got, ref, tols=[XENT_DG_TOL[dt],
+                                        dict(rtol=XENT_DG_L1_RTOL, atol=0.0)]),
+            kern=kern, plain=plain, lib=lib,
+            library="F.cross_entropy forward + backward",
+            extra_timings=dict(two_pass_ms=two_pass),
+            nbytes=nbytes(x, labels, lse, dl, got[0]), ops=6 * rows * v,
+            headline=rows == rows_full and dt == torch.bfloat16,
+            iters=20, plain_iters=3,
+        )
+
+
 CASE_GROUPS = dict(ln=ln_cases, seg=seg_cases, decode=decode_cases,
                    paged=paged_decode_cases, train_ln=train_ln_cases,
-                   flash=flash_cases, xent=xent_cases, lamb=lamb_cases,
+                   flash=flash_cases,
+                   xent=lambda dev: itertools.chain(xent_cases(dev),
+                                                    xent_bwd_cases(dev)),
+                   lamb=lamb_cases,
                    unpacked=lambda dev: itertools.chain(
-                       unpacked_cases(dev), unpacked_vs_packed_cases(dev)))
+                       unpacked_cases(dev), unpacked_vs_packed_cases(dev)),
+                   seg_train=seg_train_cases)
 
 
 def run_kernel_phase(dev, generators):
@@ -1512,20 +1813,23 @@ def run_kernel_phase(dev, generators):
         lib32_ms = (device_ms(c["lib32"], iters)
                     if c.get("lib32") is not None else None)
         b_ms, b_by = bound_ms(c["nbytes"], c["ops"], c["dtype"])
+        extra = {k: device_ms(fn, c.get("iters", 100))
+                 for k, fn in c.get("extra_timings", {}).items()}
         out.append(dict(
             kernel=c["kernel"], case=c["case"], max_abs_err=cmp["err"],
             max_abs_out=cmp["ref_max"], err_over_tol=cmp["ratio"], ms=ms,
             call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
             library_fp32_ms=lib32_ms, bound_ms=b_ms, bound_by=b_by,
             bytes=c["nbytes"], ops=c["ops"],
-            headline=c["headline"],
+            headline=c["headline"], library=c.get("library"), **extra,
         ))
         log(f"    kernel {ms:.4f} ms (call {call_ms:.4f})  plain "
             f"{plain_ms:.4f} ms  library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
             f"{'' if lib32_ms is None else f' (on fp32 {lib32_ms:.4f} ms)'}"
-            f"  bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"{'' if c.get('library') is None else ' [' + c['library'] + ']'}"
+            f"  bound {b_ms:.4f} ms ({b_by})"
+            + "".join(f"  {k} {t:.4f}" for k, t in extra.items()))
     return out
 
 
@@ -2488,6 +2792,191 @@ def run_bert_train_phase(profile):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: contrib/fmha and contrib/xentropy
+# ---------------------------------------------------------------------------
+
+
+def _fmha_grad(fmha, x, cu, max_s, packed, causal=True):
+    """o and dqkv of the loss sum(fmha(x).float() ** 2)."""
+    xg = x.detach().requires_grad_(True)
+    o = fmha(xg, cu, max_s, causal=causal, packed=packed)
+    g, = torch.autograd.grad((o.float() ** 2).sum(), xg)
+    return o.detach(), g
+
+
+def run_fmha_phase():
+    """bench.py's fmha configuration at full size: the loss
+    sum(fmha(qkv, cu, max_s, causal=True, packed=...).float() ** 2),
+    forward + backward, 5 warm-up and 20 timed iterations, packed and
+    padded; per path the ms, the peak device memory above the inputs and
+    the kernels' launches; padded / packed (bench.py's vs_baseline);
+    packed == padded on the card in values and dqkv; and fp32 cuda ==
+    cpu (values and dqkv) on a small ragged batch with empty
+    sequences."""
+    from rocm_apex_tpu_torch.contrib.fmha import fmha
+    from rocm_apex_tpu_torch.ops._build import KERNELS
+
+    dev = torch.device(CARD, 0) if CARD == "cuda" else torch.device(CARD)
+    lens = fmha_lengths()
+    cu, max_s = _cu(lens, dev), max(lens)
+    total = int(sum(lens))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qkv = (0.5 * torch.randn(total, 3, FMHA_HEADS, FMHA_HD, device=dev,
+                             generator=gen)).to(torch.bfloat16)
+    res = dict(batch=len(lens), total=total, max_s=max_s,
+               padded_tokens=len(lens) * max_s, heads=FMHA_HEADS,
+               head_dim=FMHA_HD, qkv_bytes=nbytes(qkv))
+    outs = {}
+    for name, packed in (("packed", True), ("padded", False)):
+        def it(packed=packed):
+            return _fmha_grad(fmha, qkv, cu, max_s, packed)
+
+        for _ in range(TRAIN_WARMUP):
+            it()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs[name] = it()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del outs[name]
+        for k in KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            out = it()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        outs[name] = out
+        res[name] = dict(
+            ms=1e3 * dt / TRAIN_STEPS, peak_extra_bytes=peak,
+            launches={k.name: k.launches for k in KERNELS if k.launches})
+        log(f"  {name}: {res[name]['ms']:.3f} ms forward + backward; peak "
+            f"{peak / 2**20:.1f} MiB above the inputs; launches in "
+            f"{TRAIN_STEPS} iterations {res[name]['launches']}")
+    res["padded_over_packed"] = res["padded"]["ms"] / res["packed"]["ms"]
+    res["launches"] = res["packed"]["launches"]
+    log(f"  padded / packed = {res['padded_over_packed']:.3f} (bench.py's "
+        f"vs_baseline); qkv {res['qkv_bytes'] / 2**20:.1f} MiB")
+    cmp = compare(outs["packed"], outs["padded"])
+    res["packed_vs_padded"] = cmp
+    log(f"  packed vs padded on the card: max|err| {cmp['err']:.3e}, worst "
+        f"err/tol {cmp['ratio']:.3f}")
+    check(cmp["ratio"] <= 1.0, f"fmha packed and padded differ by "
+          f"{cmp['ratio']:.3g}x the tolerance")
+    for path, want in (("packed", {"flash_segments_fwd": 1,
+                                   "flash_segments_bwd": 1,
+                                   "flash_attention_segments_with_lse": 0}),
+                       ("padded", {"flash_unpacked_fwd": 1,
+                                   "flash_unpacked_bwd": 1,
+                                   "flash_segments_fwd": 0,
+                                   "flash_segments_bwd": 0})):
+        got = res[path]["launches"]
+        for name, n in want.items():
+            check(got.get(name, 0) == n * TRAIN_STEPS,
+                  f"fmha {path}: {got.get(name, 0)} launches of {name} in "
+                  f"{TRAIN_STEPS} iterations, expected {n} per iteration")
+    peak = res["packed"]["peak_extra_bytes"]
+    check(peak < 10 * res["qkv_bytes"], f"the packed fwd + bwd took {peak} "
+          f"bytes above its inputs, over 10x the qkv's")
+    check(peak < res["padded"]["peak_extra_bytes"],
+          "the packed path took more memory than the padded one")
+
+    # fp32 cuda vs cpu, both paths, on a small ragged batch
+    g = torch.Generator().manual_seed(1)
+    lens = FMHA_PARITY_LENS
+    x = torch.randn(sum(lens), 3, 4, 64, generator=g)
+    res["parity"] = {}
+    for packed in (True, False):
+        got = _fmha_grad(fmha, x.to(dev), _cu(lens, dev), max(lens), packed)
+        ref = _fmha_grad(fmha, x, _cu(lens, DEV_CPU), max(lens), packed)
+        cmp = compare([t.cpu() for t in got], ref)
+        res["parity"]["packed" if packed else "padded"] = cmp
+        log(f"  fp32 cuda vs cpu, lengths {lens}, "
+            f"{'packed' if packed else 'padded'}: max|err| {cmp['err']:.3e}, "
+            f"worst err/tol {cmp['ratio']:.3f}")
+        check(cmp["ratio"] <= 1.0, "fmha fp32: the card differs from the "
+              "CPU's plain versions")
+    return res
+
+
+def run_xentropy_phase():
+    """contrib/xentropy's `SoftmaxCrossEntropyLoss.apply` at the BERT
+    head's logits ((4096, 30592) bf16, smoothing 0.1, padding_idx 0 on
+    one row in seven), forward + backward of the mean over live rows: 5
+    warm-up and 20 timed iterations, the launches (one plain forward and
+    one backward an iteration, no dg form), zero gradient on padded rows;
+    then fp32 cuda == cpu and == F.cross_entropy with ignore_index on a
+    small batch."""
+    from rocm_apex_tpu_torch.contrib.xentropy import SoftmaxCrossEntropyLoss
+    from rocm_apex_tpu_torch.ops._build import KERNELS
+
+    dev = torch.device(CARD, 0) if CARD == "cuda" else torch.device(CARD)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    rows, vocab = BERT_BATCH * BERT_SEQ, BERT["vocab_size"]
+    x = (2.0 * torch.randn(rows, vocab, device=dev, generator=gen)).to(
+        torch.bfloat16)
+    labels = torch.randint(0, vocab, (rows,), device=dev, generator=gen)
+    labels[::7] = XENT_PAD
+    live = int((labels != XENT_PAD).sum())
+
+    def it():
+        xg = x.detach().requires_grad_(True)
+        loss = SoftmaxCrossEntropyLoss.apply(xg, labels, XENT_SMOOTHING,
+                                             XENT_PAD).sum() / live
+        g, = torch.autograd.grad(loss, xg)
+        return loss.detach(), g
+
+    for _ in range(TRAIN_WARMUP):
+        it()
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        loss, g = it()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS if k.launches}
+    res = dict(rows=rows, vocab=vocab, smoothing=XENT_SMOOTHING,
+               padded_rows=rows - live, ms=1e3 * dt / TRAIN_STEPS,
+               loss=float(loss), launches=launches)
+    log(f"  ({rows}, {vocab}) bf16: {res['ms']:.3f} ms forward + backward, "
+        f"loss {res['loss']:.4f}; launches in {TRAIN_STEPS} iterations "
+        f"{launches}")
+    check(math.isfinite(res["loss"]), "nonfinite xentropy loss")
+    check(bool((g[labels == XENT_PAD] == 0).all()),
+          "a padded row has a nonzero gradient")
+    for name, n in (("xent_fwd", 1), ("xent_bwd", 1), ("xent_fwd_dg", 0)):
+        check(launches.get(name, 0) == n * TRAIN_STEPS,
+              f"xentropy: {launches.get(name, 0)} launches of {name} in "
+              f"{TRAIN_STEPS} iterations, expected {n} per iteration")
+
+    g = torch.Generator().manual_seed(2)
+    xs = 3.0 * torch.randn(64, 1001, generator=g)
+    ls = torch.randint(0, 1001, (64,), generator=g)
+    ls[::5] = XENT_PAD
+    w = torch.randn(64, generator=g)
+    outs = []
+    for d in (dev, DEV_CPU):
+        xg = xs.to(d).detach().requires_grad_(True)
+        loss = SoftmaxCrossEntropyLoss.apply(xg, ls.to(d), XENT_SMOOTHING,
+                                             XENT_PAD)
+        (loss * w.to(d)).sum().backward()
+        outs.append((loss.detach().cpu(), xg.grad.cpu()))
+    ref = F.cross_entropy(xs, ls, reduction="none",
+                          label_smoothing=XENT_SMOOTHING,
+                          ignore_index=XENT_PAD)
+    cmp = compare(outs[0], outs[1])
+    cmp_lib = compare((outs[0][0],), (ref,))
+    res["parity"] = dict(cpu=cmp, f_cross_entropy=cmp_lib)
+    log(f"  fp32 (64, 1001) cuda vs cpu: max|err| {cmp['err']:.3e}; losses "
+        f"vs F.cross_entropy: max|err| {cmp_lib['err']:.3e}")
+    check(cmp["ratio"] <= 1.0 and cmp_lib["ratio"] <= 1.0,
+          "xentropy fp32: the card differs from the CPU or F.cross_entropy")
+    return res
+
 
 def smi_line():
     out = subprocess.run(
@@ -2601,6 +3090,16 @@ def main(argv=None):
             f"{BERT_SEQ}, padding mask, dropout {BERT_MASKED_DROPOUT}: "
             f"{TRAIN_WARMUP} warm-up + {TRAIN_STEPS} timed steps)",
             lambda: run_bert_train_masked_phase(args.profile)),
+        "fmha": (
+            f"fmha (bench.py's fmha batch: {FMHA_BATCH} sequences, "
+            f"{FMHA_HEADS} heads x {FMHA_HD}, causal, bf16; fwd + bwd of "
+            f"sum(o^2), packed and padded: {TRAIN_WARMUP} warm-up + "
+            f"{TRAIN_STEPS} timed)", run_fmha_phase),
+        "xentropy": (
+            f"xentropy (SoftmaxCrossEntropyLoss at ({BERT_BATCH * BERT_SEQ}, "
+            f"{BERT['vocab_size']}) bf16, smoothing {XENT_SMOOTHING}, "
+            f"padding_idx {XENT_PAD}: {TRAIN_WARMUP} warm-up + {TRAIN_STEPS} "
+            f"timed)", run_xentropy_phase),
     }
     report["phase_s"] = {}
     for phase in PHASES:
@@ -2637,6 +3136,10 @@ def main(argv=None):
             path = "bert_train"
         if k.name in UNPACKED_KERNELS:
             path = "bert_train_masked"
+        if k.name in FMHA_KERNELS:
+            path = "fmha"
+        if k.name == "xent_bwd":
+            path = "xentropy"
         where, _, _ = k.replaces.partition(" ")
         kernels.append(dict(
             name=k.name, route="cuda",
@@ -2647,7 +3150,7 @@ def main(argv=None):
             plain_ms=c.get("plain_ms"), bound_ms=c.get("bound_ms"),
             bound_by=c.get("bound_by"), library_ms=c.get("library_ms"),
             library_fp32_ms=c.get("library_fp32_ms"),
-            case=c.get("case"), path=path,
+            library=c.get("library"), case=c.get("case"), path=path,
         ))
     if args.out:
         os.makedirs(args.out, exist_ok=True)

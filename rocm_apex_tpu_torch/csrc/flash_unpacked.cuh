@@ -1,6 +1,9 @@
 // Shared pieces of the unpacked flash-attention kernels: the forward
-// (flash_unpacked_fwd.cu), the backward's dq and dk/dv passes
-// (flash_unpacked_bwd.cu) and the bias gradient (flash_dbias.cu).
+// (flash_unpacked_fwd.cuh), the backward's dq and dk/dv passes
+// (flash_unpacked_bwd.cuh) and the bias gradient (flash_dbias.cu). The
+// forward and backward bodies are templates on `kSeg`: false for the
+// unpacked entries (flash_unpacked_{fwd,bwd}.cu), true for the segment
+// attention of the packed token stream (flash_segments_{fwd,bwd}.cu).
 //
 // Operands (those of rocm_apex_tpu/ops/flash_attention.py `_fwd`/`_bwd`):
 //   q, o, do, dq   (B, H, Sq, D), k, v, dk, dv (B, H, Sk, D), read and
@@ -12,6 +15,9 @@
 //   bias           (nb, Sq, Sk) fp32 or null; operand row bh reads bias
 //                  row bh / hp, hp = B*H / nb
 //   lens           (B*H,) int32 or null: row bh attends keys [0, lens[bh])
+//   seg, ranges    segment attention only (else null): B = 1, Sq = Sk =
+//                  total tokens, seg (total,) int32 ids, ranges (ceil(total
+//                  / 32),) the (min, max) id of each 32-token tile
 // D is 64 or 128 (the kernels are templates on it).
 //
 // `masked_score` is the one masking rule of all three kernels, the
@@ -23,9 +29,14 @@
 // aligned), scores -inf. The running max starts at -1e30 (kNegInf), so a
 // masked key adds exactly 0 to every softmax sum, and a row whose every
 // live score carries the -1e30 padding bias keeps l = 0: o = 0 and lse =
-// -1e30 * ln 2, as the JAX kernel gives. In the backward such a row has
-// p = exp2(s - lse log2 e) = 0 everywhere.
+// -1e30 * ln 2, as the JAX kernel gives without causal masking (under it
+// the JAX kernel's masked scores are -1e30, equal to its starting max, and
+// such a row averages v over the masked keys of the blocks it visits: a
+// value of its tiling, which the port does not follow). In the backward
+// such a row has p = exp2(s - lse log2 e) = 0 everywhere.
 #pragma once
+
+#include <climits>
 
 #include "common.cuh"
 #include "dropout.cuh"
@@ -54,6 +65,8 @@ struct Problem {
   float keep_scale;  // 1 / (1 - rate)
   float q_mul;       // scale * log2(e) in the operand dtype
   float scale;
+  const int* __restrict__ seg;      // segment attention: ids, else null
+  const int2* __restrict__ ranges;  // (min, max) id of each 32-token tile
 };
 
 // -inf, the score of a masked key
@@ -89,13 +102,16 @@ __device__ __forceinline__ const float* bias_row(const Problem& pb, int bh,
 }
 
 // THE masked base-2 score of (row, col) from its raw product
-// (q * q_mul) . k; `len` is kv_len(pb, bh), `brow` bias_row(pb, bh, row).
-// The bias term is rounded before the add, as the plain version's
-// `s + bias * LOG2E` rounds it.
+// (q * q_mul) . k; `len` is kv_len(pb, bh), `brow` bias_row(pb, bh, row),
+// `same` whether row and col share a segment (always, but in segment
+// attention). The bias term is rounded before the add, as the plain
+// version's `s + bias * LOG2E` rounds it.
 __device__ __forceinline__ float masked_score(const Problem& pb, int len,
                                               const float* brow, float raw,
-                                              int row, int col) {
-  if (row >= pb.Sq || col >= len || (pb.causal && col > row)) return masked();
+                                              int row, int col,
+                                              bool same = true) {
+  if (row >= pb.Sq || col >= len || (pb.causal && col > row) || !same)
+    return masked();
   return brow == nullptr ? raw
                          : raw + __fmul_rn(__ldg(brow + col), kLog2e);
 }
@@ -207,6 +223,123 @@ __device__ __forceinline__ void row_delta(
   }
 }
 
+// ---- segment attention ---------------------------------------------------
+
+constexpr int kRangeRows = 32;  // tokens per entry of `ranges`
+
+// One warp per 32-token tile: ranges[t] = (min, max) of seg over tokens
+// [32 t, min(32 t + 32, total)).
+__global__ void seg_ranges_kernel(const int* __restrict__ seg, int total,
+                                  int2* __restrict__ ranges) {
+  const int t = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n = (total + kRangeRows - 1) / kRangeRows;
+  if (t >= n) return;
+  const int i = t * kRangeRows + lane;
+  int lo = i < total ? seg[i] : INT_MAX;
+  int hi = i < total ? seg[i] : INT_MIN;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(kFullMask, lo, o));
+    hi = max(hi, __shfl_xor_sync(kFullMask, hi, o));
+  }
+  if (lane == 0) ranges[t] = make_int2(lo, hi);
+}
+
+inline int launch_seg_ranges(const void* seg, int total, void* ranges,
+                             cudaStream_t stream) {
+  const int n = (total + kRangeRows - 1) / kRangeRows;
+  if (n == 0) return 0;
+  seg_ranges_kernel<<<(n + 7) / 8, 256, 0, stream>>>(
+      static_cast<const int*>(seg), total, static_cast<int2*>(ranges));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The (min, max) id over tokens [r0, r0 + rows) (rows a multiple of 32),
+// from `ranges`; tokens past the stream add nothing.
+__device__ __forceinline__ int2 tile_range(const Problem& pb, int r0,
+                                           int rows) {
+  const int n = (pb.Sq + kRangeRows - 1) / kRangeRows;
+  int2 r = make_int2(INT_MAX, INT_MIN);
+  for (int t = r0 / kRangeRows; t < min(n, (r0 + rows) / kRangeRows); ++t) {
+    const int2 e = __ldg(pb.ranges + t);
+    r.x = min(r.x, e.x);
+    r.y = max(r.y, e.y);
+  }
+  return r;
+}
+
+// May a tile of ids in `a` meet one in `b`? (`_overlap`: ranges that
+// overlap; exact coverage when ids are sorted, and never false for a
+// pair that holds a live position, whatever their order.)
+__device__ __forceinline__ bool ranges_meet(int2 a, int2 b) {
+  return a.x <= b.y && a.y >= b.x;
+}
+
+// The segment id of token `i` (-1 past the stream, where every score is
+// masked by its index anyway).
+__device__ __forceinline__ int seg_id(const Problem& pb, int i) {
+  return i < pb.Sq ? __ldg(pb.seg + i) : -1;
+}
+
+// The ids of tokens [r0, r0 + rows) into sseg (rows <= the block's
+// threads).
+__device__ __forceinline__ void stage_seg(const Problem& pb, int* sseg,
+                                          int r0, int rows) {
+  const int i = static_cast<int>(threadIdx.x);
+  if (i < rows) sseg[i] = seg_id(pb, r0 + i);
+}
+
+// Calls body(t) for every t in [t0, t1) with live(t), in ascending order,
+// on every thread of the block alike (body may hold barriers). The
+// candidates are tested kN at a time, one a thread, and the live ones
+// gathered into `list` (kN ints of shared memory; `count` kN / 32 ints)
+// by a ballot per warp, so a block spends no barrier on a dead tile.
+template <int kN, class Live, class Body>
+__device__ __forceinline__ void for_live_tiles(int t0, int t1, int* list,
+                                               int* count, Live live,
+                                               Body body) {
+  constexpr int kWarps = kN / 32;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int base = t0; base < t1; base += kN) {
+    const int t = base + static_cast<int>(threadIdx.x);
+    const bool ok = t < t1 && live(t);
+    const unsigned bal = __ballot_sync(kFullMask, ok);
+    __syncthreads();  // the previous round's readers of list/count are done
+    if (lane == 0) count[warp] = __popc(bal);
+    __syncthreads();
+    int off = 0, n = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      off += w < warp ? count[w] : 0;
+      n += count[w];
+    }
+    if (ok) list[off + __popc(bal & ((1u << lane) - 1u))] = t;
+    __syncthreads();
+    for (int i = 0; i < n; ++i) body(list[i]);
+  }
+}
+
+// Runs body(t) for each tile t in [t0, t1): every one for the unpacked
+// kernels, the live ones (`live`) for segment attention.
+template <bool kSeg, int kN, class Live, class Body>
+__device__ __forceinline__ void for_tiles(int t0, int t1, int* list,
+                                          int* count, Live live, Body body) {
+  if constexpr (kSeg) {
+    for_live_tiles<kN>(t0, t1, list, count, live, body);
+  } else {
+    for (int t = t0; t < t1; ++t) body(t);
+  }
+}
+
+// Shared-memory ints segment attention adds to a block of kN threads:
+// `list` (kN), `count` (kN / 32) and the ids of one tile's tokens (64).
+template <int kN>
+constexpr int seg_smem_ints() {
+  return kN + kN / 32 + kTile;
+}
+
 inline Problem make_problem(int B, int H, int Sq, int Sk, int causal,
                             const void* lens, const void* bias, int nb,
                             int drop, uint32_t seed, uint32_t thr,
@@ -226,6 +359,8 @@ inline Problem make_problem(int B, int H, int Sq, int Sk, int causal,
   pb.keep_scale = keep_scale;
   pb.q_mul = q_mul;
   pb.scale = scale;
+  pb.seg = nullptr;
+  pb.ranges = nullptr;
   return pb;
 }
 

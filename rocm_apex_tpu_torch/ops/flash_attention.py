@@ -71,7 +71,11 @@ log2(e), top-left causal masking, per-row key lengths, the ragged key
 edge; dropout with the packed kernels' keep bits (stream = the operand
 row b*nh + h). The running max starts at -1e30, so a row whose every live
 score carries the -1e30 padding bias has o = 0 and lse = -1e30 * ln 2, as
-the JAX kernel gives. The kernels read and write (B, H, S, D) operands
+the JAX kernel gives without causal masking. Under ``causal`` the JAX
+kernel has no single value for such a row (its causally masked scores
+equal that running max, so it averages v over the masked keys of the
+blocks it visits, a value that changes with block_k); the port keeps o =
+0 there, and the same lse. The kernels read and write (B, H, S, D) operands
 through their strides: the models pass the per-head column blocks of the
 fused projection as views (no copy) and take o and the gradients in (B,
 S, H, D) memory, the output projection's layout. The backward's dq pass
@@ -684,7 +688,9 @@ def flash_unpacked_fwd_plain(q, k, v, bias, causal, scale, kv_lengths=None,
     The running max starts at -1e30 as in `_fwd_kernel`, so a row whose
     every score carries the -1e30 padding bias (or that attends no key)
     has l = 0: its o is 0 and its lse -1e30 * ln 2, as the JAX kernel
-    gives. The normalizer sums the undropped probabilities."""
+    gives without causal masking (under ``causal`` the JAX value of such
+    a row depends on its tiling; the port's o stays 0). The normalizer
+    sums the undropped probabilities."""
     s = _unpacked_scores(q, k, bias, causal, scale, kv_lengths)
     m = s.amax(dim=-1, keepdim=True).clamp(min=NEG_INF)
     p = torch.exp2(s - m)
@@ -968,7 +974,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     query's own index (top-left aligned when sq != sk). ``scale``
     defaults to 1/sqrt(head_dim). Differentiable in q/k/v, and in bias
     with ``compute_dbias=True`` (the dbias kernel); otherwise the bias
-    gradient is exact zeros, with no launch."""
+    gradient is exact zeros, with no launch.
+
+    A row whose every live score carries the -1e30 bias gives o = 0 and
+    lse = -1e30 * ln 2. So does the JAX kernel without ``causal``; with
+    it, the JAX value of such a row is the mean of v over the causally
+    masked keys of the key blocks it visits, which changes with block_k
+    (no model reaches that case)."""
     return _unpacked(q, k, v, bias, None, 0, 0.0, causal, scale,
                      compute_dbias)[0]
 

@@ -1,23 +1,47 @@
-"""Segment-masked packed attention with lse: the hand-written CUDA kernel
-and its plain PyTorch version.
-
-Port of ``flash_attention_segments_with_lse``
-(rocm_apex_tpu/ops/flash_attention_segments.py). The kernel
-(``csrc/flash_segments.cu``) replaces the TPU kernel ``_seg_fwd_kernel``
-(rocm_apex_tpu/ops/flash_attention_segments.py:70). At the serving
-chunk's size it is bound by launch latency and the per-row serial walk
-over keys, not by bytes or tensor-core work; its skip of key tiles that
-share no segment with a row is exact per row and tile, so it holds for
-segment ids in any order (the engine packs slot pieces in scheduler
-order, pads carry the id num_slots).
+"""Segment-masked attention over a packed token stream: the serving
+forward with lse, the differentiable training form, and the paged chunk
+read, each a hand-written CUDA kernel beside its plain PyTorch version.
 
 Token i attends token j iff ``segment_ids[i] == segment_ids[j]`` and,
-with ``causal``, ``j <= i`` in packed order. Forward only.
+with ``causal``, ``j <= i`` in packed order (within-segment causality when
+segments are contiguous).
+
+**Serving** (``flash_attention_segments_with_lse``, port of the JAX
+function of that name). Its kernel (``csrc/flash_segments.cu``) replaces
+the TPU kernel ``_seg_fwd_kernel``
+(rocm_apex_tpu/ops/flash_attention_segments.py:70) on the chunked-prefill
+path. At the serving chunk's size it is bound by launch latency and the
+per-row serial walk over keys, not by bytes or tensor-core work; its skip
+of key tiles that share no segment with a row is exact per row and tile,
+so it holds for segment ids in any order (the engine packs slot pieces in
+scheduler order, pads carry the id num_slots). It folds scale * log2(e)
+into q in fp32. Forward only.
+
+**Training** (``flash_attention_segments``, the JAX function with its
+custom vjp, :342-486; contrib/fmha's packed path). Two kernels on the
+unpacked flash kernels' bodies (``csrc/flash_unpacked_{fwd,bwd}.cuh``
+with segment masking): the forward (``csrc/flash_segments_fwd.cu``)
+replaces ``_seg_fwd_kernel`` as ``_seg_fwd`` (:247) runs it, the backward
+(``csrc/flash_segments_bwd.cu``, a dq pass and a dk/dv pass) replaces
+``_seg_dq_kernel`` (:173) and ``_seg_dkv_kernel`` (:120) as ``_seg_bwd``
+(:281) runs them. All three passes form the score of ``_masked_scores``
+(rocm_apex_tpu/ops/flash_attention.py:122): q times scale * log2(e)
+rounded in q's dtype, an fp32 product, another segment's key or a later
+key under ``causal`` masked, the running max from -1e30; the backward
+rebuilds p = exp2(s - lse log2 e) from the forward's natural-log lse,
+with delta = sum(do * o) and ds = p (dp - delta), and dq and dk take the
+scale at the end. Query and key tiles of 64 tokens; a pair is visited only
+if the tiles' [min, max] id ranges meet (``_overlap``, :61) and the causal
+triangle keeps it, so the work follows the sum of squared lengths. A
+range test never skips a live pair, so ids in any order are exact. Tokens
+past the stream in a ragged last tile add exactly 0 (nothing is padded).
+bf16 runs the products on the tensor cores (mma.sync), fp32 on the CUDA
+cores; head_dim 64 or 128 (others raise on CUDA).
 
 `flash_attention_chunk_paged` (port of the JAX function of that name) is
-the chunked-prefill read against a paged cache: this kernel within the
-chunk (piece A) and the paged decode kernel over each token's own slot's
-pre-chunk prefix (piece B), merged by lse.
+the chunked-prefill read against a paged cache: the serving kernel within
+the chunk (piece A) and the paged decode kernel over each token's own
+slot's pre-chunk prefix (piece B), merged by lse.
 """
 
 import ctypes
@@ -28,18 +52,30 @@ import torch
 
 from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
 from rocm_apex_tpu_torch.ops.flash_attention import (
-    NEG_INF,
+    _aligned,
+    _q_mul,
+    _strides,
+    _unpacked_common,
     check_head_dim,
     flash_attention_decode_paged,
+    flash_unpacked_bwd_plain,
+    flash_unpacked_fwd_plain,
 )
 
 __all__ = [
     "FLASH_SEGMENTS",
+    "FLASH_SEGMENTS_FWD",
+    "FLASH_SEGMENTS_BWD",
+    "DEFAULT_BLOCK",
+    "flash_attention_segments",
     "flash_attention_segments_with_lse",
     "flash_attention_segments_plain",
+    "flash_attention_segments_bwd_plain",
     "flash_attention_chunk_paged",
     "merge_by_lse",
 ]
+
+DEFAULT_BLOCK = 512  # the JAX default of block_q and block_k
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -54,23 +90,61 @@ FLASH_SEGMENTS = Kernel(
 )
 
 
-def flash_attention_segments_plain(q, k, v, segment_ids, causal, scale):
-    """The plain PyTorch version: returns (o, lse), o in q's dtype."""
-    h, total, d = q.shape
-    seg = segment_ids.to(device=q.device, dtype=torch.long)
-    mask = seg[:, None] == seg[None, :]
-    if causal:
-        mask = mask & torch.ones(
-            (total, total), dtype=torch.bool, device=q.device
-        ).tril()
-    scores = torch.einsum("hid,hjd->hij", q.float(), k.float()) * scale
-    scores = scores.masked_fill(~mask[None], float("-inf"))
-    lse = torch.logsumexp(scores, dim=-1)
-    empty = torch.isneginf(lse)
-    p = torch.exp(scores - torch.where(empty, 0.0, lse)[..., None])
-    o = torch.einsum("hij,hjd->hid", p, v.float())
-    lse = torch.where(empty, NEG_INF, lse)
-    return o.to(q.dtype), lse
+FLASH_SEGMENTS_FWD = Kernel(
+    name="flash_segments_fwd",
+    source="flash_segments_fwd.cu",
+    symbol="flash_segments_fwd",
+    argtypes=[_P] * 5 + [ctypes.POINTER(_I64), _P, _P] + [_I] * 4
+    + [ctypes.c_float, ctypes.c_float, _I, _P],
+    replaces="rocm_apex_tpu/ops/flash_attention_segments.py:70 "
+             "_seg_fwd_kernel (via _seg_fwd, training)",
+)
+FLASH_SEGMENTS_BWD = Kernel(
+    name="flash_segments_bwd",
+    source="flash_segments_bwd.cu",
+    symbol="flash_segments_bwd",
+    argtypes=[_P] * 10 + [ctypes.POINTER(_I64), _P, _P] + [_I] * 4
+    + [ctypes.c_float, ctypes.c_float, _I, _P],
+    replaces="rocm_apex_tpu/ops/flash_attention_segments.py:173 "
+             "_seg_dq_kernel, :120 _seg_dkv_kernel (via _seg_bwd)",
+)
+
+
+def _segment_bias(segment_ids, device):
+    """The segment mask as the unpacked plain versions' additive bias:
+    (1, total, total) fp32, 0 where two tokens share a segment, -inf
+    elsewhere (a masked score, as the kernels' `masked_score` gives)."""
+    seg = segment_ids.to(device=device, dtype=torch.long)
+    return torch.where(seg[:, None] == seg[None, :], 0.0,
+                       float("-inf"))[None]
+
+
+def flash_attention_segments_plain(q, k, v, segment_ids, causal, scale,
+                                   round_q=True):
+    """The plain PyTorch version of the segment forward: returns (o, lse),
+    o (heads, total, head_dim) in q's dtype, lse (heads, total)
+    natural-log fp32. The score rule is the unpacked plain version's with
+    the segment mask as a bias: with ``round_q``, q times scale * log2(e)
+    rounded in q's dtype, as the JAX kernels and the training kernel do;
+    without, in fp32, as the serving kernel does."""
+    dt = q.dtype
+    if not round_q:
+        q, k, v = q.float(), k.float(), v.float()
+    o, lse = flash_unpacked_fwd_plain(
+        q, k, v, _segment_bias(segment_ids, q.device), causal, scale)
+    return o.to(dt), lse
+
+
+def flash_attention_segments_bwd_plain(q, k, v, segment_ids, o, lse, do,
+                                       causal, scale):
+    """The plain PyTorch version of the segment backward (`_seg_bwd`):
+    dq, dk, dv in the operands' dtype, from the forward's o and lse by the
+    kernels' formulas (the unpacked plain backward with the segment mask
+    as a bias), not by differentiating the plain forward."""
+    dq, dk, dv, _ = flash_unpacked_bwd_plain(
+        q, k, v, _segment_bias(segment_ids, q.device), o, lse, do, causal,
+        scale)
+    return dq, dk, dv
 
 
 def flash_attention_segments_with_lse(
@@ -92,7 +166,7 @@ def flash_attention_segments_with_lse(
         raise ValueError(f"segment_ids must be ({total},)")
     if q.device.type == "cpu":
         return flash_attention_segments_plain(
-            q, k, v, segment_ids, causal, scale
+            q, k, v, segment_ids, causal, scale, round_q=False
         )
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
@@ -114,6 +188,129 @@ def flash_attention_segments_with_lse(
             dtype_code(q.dtype), ptr(o), ptr(lse), stream_ptr(q.device),
         )
     return o, lse
+
+
+def _seg_check(q, k, v, segment_ids):
+    """Checks shared by the training wrappers on (heads, total, head_dim)
+    q/k/v (the unpacked kernels' checks, batch 1); returns the ids, int32
+    on q's device for the kernels."""
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError("q/k/v must all be (heads, total, head_dim)")
+    if segment_ids.shape != q.shape[1:2]:
+        raise ValueError(f"segment_ids must be ({q.shape[1]},)")
+    _unpacked_common(q[None], k[None], v[None], None, None)
+    if q.device.type == "cpu":
+        return segment_ids
+    return segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
+
+
+def _ranges(total, device):
+    """The kernels' workspace: the (min, max) id of each 32-token tile."""
+    return torch.empty((2 * ((total + 31) // 32),), dtype=torch.int32,
+                       device=device)
+
+
+def _seg_fwd(q, k, v, segment_ids, causal, scale, token_major=False):
+    """The training forward on (heads, total, head_dim) q/k/v (views, read
+    through their strides): returns o (heads, total, head_dim) in q's
+    dtype and lse (heads, total) fp32. With ``token_major`` o's memory is
+    (total, heads, head_dim), fmha's output layout."""
+    seg = _seg_check(q, k, v, segment_ids)
+    h, total, d = q.shape
+    if q.device.type == "cpu":
+        return flash_attention_segments_plain(q, k, v, seg, causal, scale)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    if token_major:
+        o = torch.empty((total, h, d), dtype=q.dtype,
+                        device=q.device).transpose(0, 1)
+    else:
+        o = torch.empty((h, total, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((h, total), dtype=torch.float32, device=q.device)
+    if o.numel() > 0:
+        FLASH_SEGMENTS_FWD(
+            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse),
+            _strides(q[None], k[None], v[None], o[None]), ptr(seg),
+            ptr(_ranges(total, q.device)), h, total, d, int(bool(causal)),
+            _q_mul(scale, q.dtype), float(scale), dtype_code(q.dtype),
+            stream_ptr(q.device),
+        )
+    return o, lse
+
+
+def _seg_bwd(q, k, v, segment_ids, o, lse, do, causal, scale, dqkv=None):
+    """The training backward: dq, dk, dv (heads, total, head_dim) in the
+    operands' dtype. With ``dqkv``, a (total, 3, heads, head_dim) buffer,
+    they are written into its three (heads, total, head_dim) views, the
+    layout of the fused projection they came from."""
+    seg = _seg_check(q, k, v, segment_ids)
+    h, total, d = q.shape
+    if dqkv is not None:
+        dq, dk, dv = (dqkv[:, i].transpose(0, 1) for i in range(3))
+    if q.device.type == "cpu":
+        grads = flash_attention_segments_bwd_plain(q, k, v, seg, o, lse, do,
+                                                   causal, scale)
+        if dqkv is None:
+            return grads
+        for out, g in zip((dq, dk, dv), grads):
+            out.copy_(g)
+        return dq, dk, dv
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do.to(q.dtype)))
+    if dqkv is None:
+        dq, dk, dv = (torch.empty((h, total, d), dtype=q.dtype,
+                                  device=q.device) for _ in range(3))
+    delta = torch.empty((h, total), dtype=torch.float32, device=q.device)
+    if total * h > 0:
+        FLASH_SEGMENTS_BWD(
+            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse.contiguous()), ptr(do),
+            ptr(dq), ptr(dk), ptr(dv), ptr(delta),
+            _strides(*(t[None] for t in (q, k, v, o, do, dq, dk, dv))),
+            ptr(seg), ptr(_ranges(total, q.device)), h, total, d,
+            int(bool(causal)), _q_mul(scale, q.dtype), float(scale),
+            dtype_code(q.dtype), stream_ptr(q.device),
+        )
+    return dq, dk, dv
+
+
+class _FlashSegments(torch.autograd.Function):
+    """`flash_attention_segments` over q, k, v: returns o."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, causal, scale):
+        o, lse = _seg_fwd(q, k, v, segment_ids, causal, scale)
+        ctx.save_for_backward(q, k, v, segment_ids, o, lse)
+        ctx.args = (causal, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, segment_ids, o, lse = ctx.saved_tensors
+        dq, dk, dv = _seg_bwd(q, k, v, segment_ids, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_segments(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_ids: torch.Tensor,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    block_q: int = DEFAULT_BLOCK,
+    block_k: int = DEFAULT_BLOCK,
+) -> torch.Tensor:
+    """Flash attention over a packed token stream, differentiable in
+    q/k/v.
+
+    ``q/k/v``: (heads, total, head_dim), any head and token strides;
+    ``segment_ids``: (total,) int, one id per sequence. Token i attends
+    token j iff their ids match (and, with ``causal``, j <= i). ``scale``
+    defaults to 1/sqrt(head_dim). ``block_q``/``block_k`` are accepted for
+    the JAX signature; the kernels choose their own tiles (64 tokens).
+    Every allocation is O(total)."""
+    del block_q, block_k
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _FlashSegments.apply(q, k, v, segment_ids, bool(causal),
+                                float(scale))
 
 
 def merge_by_lse(o_a, lse_a, o_b, lse_b):

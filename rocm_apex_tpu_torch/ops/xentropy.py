@@ -1,14 +1,15 @@
 """Label-smoothed softmax cross-entropy over materialized logits: the
-hand-written CUDA kernel, its plain PyTorch version, and the autograd
-function over them.
+hand-written CUDA kernels, their plain PyTorch versions, and the autograd
+functions over them.
 
-Port of ``rocm_apex_tpu/ops/xentropy.py``. The kernel
-(``csrc/xentropy.cu``) replaces the TPU kernels ``_fwd_dg_kernel``
+Port of ``rocm_apex_tpu/ops/xentropy.py``. The kernels
+(``csrc/xentropy.cu``) replace the TPU kernels ``_fwd_dg_kernel``
 (rocm_apex_tpu/ops/xentropy.py:155: loss and ``dg = softmax - target``
-from one forward over the logits) and ``_fwd_kernel`` (:53: loss and
-lse). Both are bound by bytes: one block per row, the row read twice
-(the second time from L2) because a vocabulary does not fit registers,
-every reduction in a fixed order.
+from one forward over the logits), ``_fwd_kernel`` (:53: loss and lse)
+and ``_bwd_kernel`` (:61: ``dx = dl * (exp(x - lse) - target)`` from the
+logits and the forward's lse). All are bound by bytes: one block per
+row; the forward reads the row twice (the second time from L2) because a
+vocabulary does not fit registers, every reduction in a fixed order.
 
 Per row with label y, smoothing eps and vocab V (all fp32 inside):
 
@@ -23,8 +24,10 @@ kernel as the JAX wrapper does; ``padding_idx=None`` disables that.
 is asked, its forward also writes ``dg`` in the logits dtype and the
 backward is ``dloss[:, None] * dg`` (plain PyTorch: XLA code in the JAX
 package, not a kernel); when none is asked it is the plain forward and
-writes no ``dg``. `softmax_cross_entropy_loss` is that plain forward;
-its two-pass backward (``_bwd_kernel``, :61) is not ported yet.
+writes no ``dg``. `softmax_cross_entropy_loss` is the JAX function's
+two-pass form (its custom vjp, :98-147): the plain forward saves the
+logits and lse, and the backward zeroes the cotangent of padded rows and
+runs ``_bwd_kernel``'s form over the logits again.
 
 For a CUDA tensor the wrappers launch the kernel (or raise); for a CPU
 tensor they run the plain version.
@@ -40,12 +43,15 @@ from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
 __all__ = [
     "XENT_FWD",
     "XENT_FWD_DG",
+    "XENT_BWD",
     "softmax_cross_entropy_loss",
     "softmax_cross_entropy_loss_fused",
     "xent_fwd",
     "xent_fwd_dg",
+    "xent_bwd",
     "xent_fwd_reference",
     "xent_fwd_dg_reference",
+    "xent_bwd_reference",
 ]
 
 _P = ctypes.c_void_p
@@ -66,6 +72,13 @@ XENT_FWD = Kernel(
     symbol="xent_fwd",
     argtypes=_ARGS,
     replaces="rocm_apex_tpu/ops/xentropy.py:53 _fwd_kernel",
+)
+XENT_BWD = Kernel(
+    name="xent_bwd",
+    source="xentropy.cu",
+    symbol="xent_bwd",
+    argtypes=[_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
+    replaces="rocm_apex_tpu/ops/xentropy.py:61 _bwd_kernel",
 )
 
 
@@ -98,6 +111,17 @@ def xent_fwd_dg_reference(logits, labels, smoothing):
     loss, _, hit, p, ssum = _loss_block(smoothing, x, labels)
     target = torch.where(hit, 1.0 - smoothing, 0.0) + smoothing / x.shape[1]
     return loss, (p * (1.0 / ssum) - target).to(logits.dtype)
+
+
+def xent_bwd_reference(logits, labels, lse, dl, smoothing):
+    """The plain PyTorch version of the backward: dx = dl * (exp(x - lse)
+    - target) in fp32, returned in the logits dtype."""
+    x = logits.float()
+    hit = (torch.arange(x.shape[1], device=x.device)[None, :]
+           == labels[:, None])
+    target = torch.where(hit, 1.0 - smoothing, 0.0) + smoothing / x.shape[1]
+    dx = dl.float()[:, None] * (torch.exp(x - lse[:, None]) - target)
+    return dx.to(logits.dtype)
 
 
 def _check(logits, labels):
@@ -149,6 +173,31 @@ def xent_fwd_dg(logits: torch.Tensor, labels: torch.Tensor,
     return loss, dg
 
 
+def xent_bwd(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
+             dl: torch.Tensor, smoothing: float = 0.0) -> torch.Tensor:
+    """dx (rows, vocab) in the logits dtype from the logits, the plain
+    forward's lse and the fp32 loss cotangent ``dl`` (padded rows already
+    zeroed); no padding rule."""
+    _check(logits, labels)
+    if logits.device.type == "cpu":
+        return xent_bwd_reference(logits, labels, lse, dl, smoothing)
+    if logits.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {logits.device}")
+    if (labels.device != logits.device or lse.device != logits.device
+            or dl.device != logits.device or not logits.is_contiguous()):
+        raise ValueError("the xentropy kernel takes contiguous logits and "
+                         "labels, lse and dl on one device")
+    rows, vocab = logits.shape
+    dx = torch.empty_like(logits)
+    if rows > 0:
+        XENT_BWD(ptr(logits), ptr(labels.to(torch.int64).contiguous()),
+                 ptr(lse.to(torch.float32).contiguous()),
+                 ptr(dl.to(torch.float32).contiguous()), ptr(dx), rows,
+                 vocab, float(smoothing), dtype_code(logits.dtype),
+                 stream_ptr(logits.device))
+    return dx
+
+
 def _zero_padding(values, labels, padding_idx):
     if padding_idx is None:
         return values
@@ -193,22 +242,36 @@ def softmax_cross_entropy_loss_fused(
     return _FusedCE.apply(logits, labels, float(smoothing), padding_idx)
 
 
+class _TwoPassCE(torch.autograd.Function):
+    """The JAX custom vjp (`_vjp_fwd`/`_vjp_bwd`): the forward saves the
+    logits and lse, the backward reads the logits again."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, smoothing, padding_idx):
+        ctx.set_materialize_grads(False)
+        loss, lse = xent_fwd(logits, labels, smoothing)
+        ctx.save_for_backward(logits, labels, lse)
+        ctx.args = (smoothing, padding_idx)
+        return _zero_padding(loss, labels, padding_idx)
+
+    @staticmethod
+    def backward(ctx, dloss):
+        if dloss is None:
+            return None, None, None, None
+        logits, labels, lse = ctx.saved_tensors
+        smoothing, padding_idx = ctx.args
+        dl = _zero_padding(dloss.float(), labels, padding_idx)
+        return xent_bwd(logits, labels, lse, dl, smoothing), None, None, None
+
+
 def softmax_cross_entropy_loss(
     logits: torch.Tensor,
     labels: torch.Tensor,
     smoothing: float = 0.0,
     padding_idx: Optional[int] = 0,
 ) -> torch.Tensor:
-    """Per-row smoothed CE losses (fp32) on (rows, vocab) logits, the
-    forward of the JAX function of this name. Its backward is the
-    two-pass ``_bwd_kernel``, which is not ported yet: differentiate
-    `softmax_cross_entropy_loss_fused` instead."""
-    if torch.is_grad_enabled() and logits.requires_grad:
-        raise NotImplementedError(
-            "the backward of softmax_cross_entropy_loss (_bwd_kernel, "
-            "rocm_apex_tpu/ops/xentropy.py:61) is not ported yet (ROADMAP "
-            "Queue 2, contrib xentropy); use "
-            "softmax_cross_entropy_loss_fused"
-        )
-    loss, _ = xent_fwd(logits, labels, float(smoothing))
-    return _zero_padding(loss, labels, padding_idx)
+    """Per-row smoothed CE losses (fp32) on (rows, vocab) logits, the JAX
+    function of this name: rows whose label equals ``padding_idx`` get
+    zero loss and zero gradient (``None`` disables that). Differentiable
+    in the logits by the two-pass backward (`xent_bwd`)."""
+    return _TwoPassCE.apply(logits, labels, float(smoothing), padding_idx)

@@ -67,7 +67,7 @@ def test_forward_lse_and_gradients_match_jax(bh, sq, sk, d, nb, causal):
     q, k, v, do, dlse, bias = _draw(bh, sq, sk, d, nb, seed=sq * 7 + d)
     if causal and bias is not None:
         # a row whose every live score carries -1e30 is tiling-dependent
-        # in the JAX kernel under causal masking (test below, unmasked)
+        # in the JAX kernel under causal masking (pinned below)
         bias[:, :, 0] = 0.0
 
     def jloss(q, k, v, b):
@@ -160,6 +160,45 @@ def test_a_fully_masked_row_is_zero_as_in_jax():
         assert torch.equal(tq.grad[b, r], torch.zeros_like(tq.grad[b, r]))
     assert bool(torch.isfinite(tq.grad).all())
     assert bool(torch.isfinite(tk.grad).all() & torch.isfinite(tv.grad).all())
+
+
+def test_a_fully_biased_causal_row_is_zero_where_jax_depends_on_tiling():
+    """Causal attention with a query row whose every live key carries the
+    -1e30 bias. The JAX kernel has no single value there: its causally
+    masked scores are -1e30 too, equal to the running max it starts from,
+    so each counts exp2(0) = 1 and the row comes out as the mean of v over
+    the keys past it in the key blocks it visits; the value changes with
+    block_k. Its lse does not: -1e30 * ln 2. The port gives that lse and
+    o = 0, as for a fully masked row without causal masking, whatever its
+    tiling (its masked scores are -inf)."""
+    q, k, v, _, _, _ = _draw(2, 256, 256, 64, 0, seed=8)
+    bias = np.random.default_rng(9).standard_normal((1, 256, 256)).astype(
+        np.float32)
+    r = 5
+    bias[0, r, :] = NEG
+    args = [jnp.asarray(a) for a in (q, k, v, bias)]
+    by_block = {}
+    for block in (128, 256):
+        jo, jl = jfa.flash_attention_with_lse(*args, causal=True,
+                                              block_q=block, block_k=block)
+        by_block[block] = (np.asarray(jo)[:, r], np.asarray(jl)[:, r])
+        # the mean of v over keys r+1 .. the end of the visited blocks
+        np.testing.assert_allclose(by_block[block][0],
+                                   v[:, r + 1:block].mean(axis=1), **TOL)
+    assert not np.allclose(by_block[128][0], by_block[256][0], **TOL)
+    o, lse = fa.flash_attention_with_lse(
+        *(torch.from_numpy(a) for a in (q, k, v, bias)), causal=True)
+    assert torch.equal(o[:, r], torch.zeros_like(o[:, r]))
+    for block in (128, 256):
+        np.testing.assert_allclose(lse[:, r].numpy(), by_block[block][1],
+                                   rtol=1e-6)
+    # every other row is JAX's at its default block
+    jo, jl = jfa.flash_attention_with_lse(*args, causal=True)
+    live = np.arange(256) != r
+    np.testing.assert_allclose(o.numpy()[:, live], np.asarray(jo)[:, live],
+                               **TOL)
+    np.testing.assert_allclose(lse.numpy()[:, live], np.asarray(jl)[:, live],
+                               **TOL)
 
 
 def test_bias_batch_must_divide_batch_heads():

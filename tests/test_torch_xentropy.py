@@ -157,10 +157,17 @@ def test_matches_torch_cross_entropy():
 
 
 def test_the_two_pass_backward_is_refused_by_name():
-    x, labels, _ = _inputs(8, 64, torch.float32)
-    with pytest.raises(NotImplementedError, match="_bwd_kernel"):
-        tx.softmax_cross_entropy_loss(x.requires_grad_(True),
-                                      torch.tensor(labels))
+    """The refusal this test once pinned is lifted: the two-pass backward
+    (`_bwd_kernel`'s form) runs, and its dlogits are JAX's
+    (tests/test_torch_xentropy_contrib.py holds the rest)."""
+    x, labels, w = _inputs(8, 64, torch.float32)
+    jxx, jl = _jax_in(x, labels)
+    jg = jax.grad(lambda a: jnp.sum(
+        jx.softmax_cross_entropy_loss(a, jl, 0.0, 0) * w))(jxx)
+    xg = x.clone().requires_grad_(True)
+    losses = tx.softmax_cross_entropy_loss(xg, torch.tensor(labels))
+    (losses * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(xg.grad.numpy(), np.asarray(jg), **FP32)
 
 
 @pytest.mark.parametrize("logits,labels,error", [
