@@ -22,7 +22,11 @@ JAX package) through these phases, in order; any failure exits non-zero:
              the training segment attention forward and backward at
              bench.py's fmha batch, causal and not, at masked BERT-Large
              lengths with head_dim 128, in fp32 and with ids out of
-             order; the cross-entropy's two-pass backward);
+             order; the cross-entropy's two-pass backward; the scaled
+             causal and masked softmax forwards and the softmax backward
+             at the GPT train cell's and masked BERT-Large's scores, in
+             bf16 and fp16 too, at odd, tiny and 16K-key rows, under
+             every mask broadcast and with sq != sk);
              kernel, plain and library times with CUDA events, and the
              least time the card could take (bound);
 4. parity    the serving config at full width but 2 layers, fp32 with
@@ -95,7 +99,20 @@ JAX package) through these phases, in order; any failure exits non-zero:
              head's logits, forward + backward (the plain forward and the
              two-pass backward kernel, one call each an iteration), zero
              gradient on padded rows, fp32 cuda == cpu == F.cross_entropy;
-13. report   a ``{"kernels": [...]}`` line, then the device line
+13. fused_softmax_parity  the fused-softmax attention path
+             (attention_impl="fused_softmax"): the GPT train parity and
+             the masked BERT parity configs under it, fp32 with TF32 off,
+             three steps each on the card against the CPU (losses within
+             the same tolerance, the same skips); the card runs the
+             softmax kernels a forward and a backward a layer and step
+             and no flash kernel;
+14. train_fused_softmax  the train phase's GPT step under that path:
+             tokens/s, step ms, losses, peak memory; the causal softmax
+             forward and the backward 8 calls a step each, no flash call;
+15. bert_train_masked_fused_softmax  the masked BERT-Large step under
+             that path: the masked softmax forward and the backward 24
+             calls a step each, no flash call;
+16. report   a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
@@ -104,7 +121,7 @@ spill report to DIR/chip_smoke.json. ``--profile`` adds profiled serve
 device's busy share. ``--only`` runs a subset of the phases (a check of
 one part; the full run is the smoke); ``kernels:xent+lamb`` there names a
 subset of the kernel phase's case groups (ln, seg, decode, paged,
-train_ln, flash, xent, lamb, unpacked, seg_train).
+train_ln, flash, xent, lamb, unpacked, seg_train, softmax).
 
 It needs one CUDA device and nvcc (CUDA_HOME, PATH or /usr/local/cuda).
 """
@@ -126,7 +143,8 @@ import torch.nn.functional as F
 # the operation rates by input type; a kernel on CUDA cores in fp32 is
 # held to the fp32 rate, one reading bf16 to the bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+            torch.float32: 67e12}
 
 # the serving config (bench.py serve on the accelerator)
 SERVE = dict(vocab_size=32768, hidden_size=1024, num_layers=8,
@@ -230,10 +248,28 @@ SHARED_PREFIX = 250
 PARITY_NEW = 8  # new tokens per request in the parity phase
 CARD = "cuda"  # the engine phases' device (a CPU rehearsal renames it)
 
+# the fused-softmax attention path (GPTConfig(attention_impl=
+# "fused_softmax")): materialized fp32 scores through the softmax kernels;
+# the GPT train cell and masked BERT-Large run under it beside their
+# flash phases. No flash kernel runs on the uncached path there.
+SOFTMAX_KERNELS = ("softmax_causal_fwd", "softmax_masked_fwd", "softmax_bwd")
+FLASH_TRAIN_KERNELS = ("flash_attention_qkv_fwd", "flash_attention_qkv_bwd",
+                       "flash_unpacked_fwd", "flash_unpacked_bwd",
+                       "flash_dbias")
+FUSED_TRAIN_CALLS_PER_STEP = {
+    "softmax_causal_fwd": 8,
+    "softmax_bwd": 8,
+    "softmax_masked_fwd": 0,
+    **{k: 0 for k in FLASH_TRAIN_KERNELS},
+    **{k: v for k, v in TRAIN_CALLS_PER_STEP.items()
+       if not k.startswith("flash")},
+}
+
 PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "train_parity", "train", "bert_train_parity", "bert_train",
           "bert_train_masked_parity", "bert_train_masked", "fmha",
-          "xentropy")
+          "xentropy", "fused_softmax_parity", "train_fused_softmax",
+          "bert_train_masked_fused_softmax")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_attention_segments_with_lse",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -1780,6 +1816,177 @@ def xent_bwd_cases(dev):
         )
 
 
+# the scaled softmax kernels (ops/softmax.py): the forward in fp32 within
+# 2e-6 absolute (probabilities in [0, 1]: both compute in fp32 and differ
+# in the exp's last bits and the sum's order); a 16-bit output within one
+# ulp of its own dtype; dx within 1e-5 of scale * sum_row |y * dy| (the
+# row sum's order: its error reaches dx times scale * y <= scale) plus
+# 1e-7, a 16-bit dx one ulp beside that
+SOFTMAX_FWD_TOL = {torch.float32: dict(rtol=0.0, atol=2e-6),
+                   torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-7),
+                   torch.float16: dict(rtol=2.0 ** -10, atol=1e-7)}
+SOFTMAX_BWD_RTOL, SOFTMAX_BWD_ATOL = 1e-5, 1e-7
+# the fused-softmax path's shapes: the GPT train cell's causal scores
+# (B 16 x 8 heads, S 1024) and masked BERT-Large's (B 8, 8 heads, S 512)
+SOFTMAX_GPT = (TRAIN_BATCH * TRAIN["num_attention_heads"], TRAIN_SEQ,
+               TRAIN_SEQ)
+SOFTMAX_BERT = (BERT_BATCH, BERT["num_attention_heads"], BERT_SEQ, BERT_SEQ)
+
+
+def _causal_live(sq, sk):
+    """Score columns the causal forward reads: min(r + 1, sk) a row."""
+    return int(np.minimum(np.arange(1, sq + 1), sk).sum())
+
+
+def softmax_cases(dev):
+    """The three softmax kernels against their plain versions. Main path:
+    the GPT train cell's causal forward (B 16 x 8 heads, S 1024, fp32
+    scores, scale 1/sqrt(128)) and the backward on its output; masked
+    BERT-Large's forward (B 8, 8 heads, S 512, fp32) under the bench
+    lengths' extended mask (padded query rows fully masked) and the
+    backward there. Others: the GPT shape in bf16 and fp16 (as
+    `FusedScaleMaskSoftmax` takes them), sk 333 and 1 (the scalar form),
+    rows of 8192 and 16384 keys (a block a row), the mask broadcasts
+    (b, 1, 1, sk) and (1, 1, sq, sk) and none, sq != sk. Library
+    yardsticks: `torch.softmax(x, -1)` on the same tensor for the
+    forwards, `torch._softmax_backward_data` for the backward. Bounds
+    count what each call must move: the causal forward reads only the
+    columns at or left of the diagonal."""
+    from rocm_apex_tpu_torch.models.bert import bert_extended_attention_mask
+    from rocm_apex_tpu_torch.ops import softmax as sm
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def scores(shape, dt):
+        return (3.0 * torch.randn(shape, device=dev, generator=gen)).to(dt)
+
+    def fwd_case(name, case, x, mask, scale, headline=False, causal=False):
+        if causal:
+            def kern(x=x):
+                return sm.softmax_causal_fwd(x, scale)
+
+            def plain(x=x):
+                return sm.causal_softmax_fwd_plain(x, scale)
+
+            live = x.shape[0] * _causal_live(*x.shape[1:])
+            nb = live * x.element_size() + nbytes(x)
+        else:
+            def kern(x=x, mask=mask):
+                return sm.softmax_masked_fwd(x, mask, scale)
+
+            def plain(x=x, mask=mask):
+                return sm.masked_softmax_fwd_plain(x, mask, scale)
+
+            live = x.numel()
+            nb = nbytes(x, mask, x)
+        got, ref = kern(), plain()
+        cmp = compare((got,), (ref,), tols=[SOFTMAX_FWD_TOL[x.dtype]])
+        if causal:
+            upper = torch.ones(x.shape[1:], dtype=torch.bool,
+                               device=dev).triu(1)
+            if not bool((got[:, upper] == 0).all()):
+                cmp["ratio"] = math.inf  # the upper triangle is exactly 0
+        return dict(kernel=name, case=case, dtype=x.dtype, cmp=cmp,
+                    kern=kern, plain=plain,
+                    lib=lambda x=x: torch.softmax(x, -1),
+                    library="torch.softmax(x, -1)",
+                    nbytes=nb, ops=5 * live, headline=headline,
+                    iters=20 if x.numel() > 2**26 else 100, plain_iters=3)
+
+    def bwd_case(case, y, scale, headline=False):
+        dy = torch.randn(y.shape, device=dev, generator=gen).to(y.dtype)
+
+        def kern(y=y, dy=dy):
+            return sm.softmax_bwd(y, dy, scale)
+
+        def plain(y=y, dy=dy):
+            return sm.softmax_bwd_plain(y, dy, scale)
+
+        got, ref = kern(), plain()
+        mass = scale * (y.float() * dy.float()).abs().sum(-1, keepdim=True)
+        tol = dict(SOFTMAX_FWD_TOL[y.dtype])
+        if y.dtype == torch.float32:
+            tol["atol"] = SOFTMAX_BWD_ATOL
+        cmp = compare((got,), (ref,), extra=[SOFTMAX_BWD_RTOL * mass],
+                      tols=[tol])
+        if not bool((got[y == 0] == 0).all()):
+            cmp["ratio"] = math.inf  # dx is exactly 0 where y is
+        return dict(kernel="softmax_bwd", case=case, dtype=y.dtype, cmp=cmp,
+                    kern=kern, plain=plain,
+                    lib=lambda y=y, dy=dy: torch._softmax_backward_data(
+                        dy, y, -1, y.dtype),
+                    library="torch._softmax_backward_data",
+                    nbytes=nbytes(y, dy, y), ops=5 * y.numel(),
+                    headline=headline,
+                    iters=20 if y.numel() > 2**26 else 100, plain_iters=3)
+
+    gpt_scale = 1.0 / math.sqrt(TRAIN["hidden_size"]
+                                // TRAIN["num_attention_heads"])
+    bert_scale = 1.0 / math.sqrt(BERT["hidden_size"]
+                                 // BERT["num_attention_heads"])
+    # the main path: the GPT cell, fp32
+    x = scores(SOFTMAX_GPT, torch.float32)
+    yield fwd_case("softmax_causal_fwd", f"GPT {SOFTMAX_GPT} fp32, causal",
+                   x, None, gpt_scale, headline=True, causal=True)
+    y = sm.softmax_causal_fwd(x, gpt_scale)
+    del x
+    yield bwd_case(f"GPT {SOFTMAX_GPT} fp32, on the causal y", y, gpt_scale,
+                   headline=True)
+    del y
+    # masked BERT-Large, fp32, the bench lengths
+    mask = bert_extended_attention_mask(
+        padding_mask(bert_lengths(BERT_BATCH), BERT_SEQ).to(dev))
+    x = scores(SOFTMAX_BERT, torch.float32)
+    yield fwd_case("softmax_masked_fwd",
+                   f"masked BERT {SOFTMAX_BERT} fp32, mask {tuple(mask.shape)}"
+                   f" (padded queries fully masked)", x, mask, bert_scale,
+                   headline=True)
+    yield bwd_case(f"masked BERT {SOFTMAX_BERT} fp32, on the masked y",
+                   sm.softmax_masked_fwd(x, mask, bert_scale), bert_scale)
+    # 16-bit scores at the GPT shape
+    for dt in (torch.bfloat16, torch.float16):
+        x = scores(SOFTMAX_GPT, dt)
+        yield fwd_case("softmax_causal_fwd",
+                       f"GPT {SOFTMAX_GPT} {str(dt)[6:]}, causal", x, None,
+                       gpt_scale, causal=True)
+        if dt == torch.bfloat16:
+            yield bwd_case(f"GPT {SOFTMAX_GPT} bf16",
+                           sm.softmax_causal_fwd(x, gpt_scale), gpt_scale)
+        del x
+    # odd and tiny key counts: the scalar form
+    for shape in ((16, 333, 333), (4, 7, 1)):
+        x = scores(shape, torch.float32)
+        yield fwd_case("softmax_causal_fwd", f"{shape} fp32, causal", x,
+                       None, 0.3, causal=True)
+        m = torch.rand((2, 1) + shape[1:], device=dev, generator=gen) < 0.2
+        x4 = scores((2, 3) + shape[1:], torch.bfloat16)
+        yield fwd_case("softmax_masked_fwd",
+                       f"{(2, 3) + shape[1:]} bf16, mask {tuple(m.shape)}",
+                       x4, m, 0.3)
+        yield bwd_case(f"{shape} fp32", sm.softmax_causal_fwd(x, 0.3), 0.3)
+    # long rows: a block a row
+    x = scores((1, 8192, 8192), torch.float32)
+    yield fwd_case("softmax_causal_fwd", "(1, 8192, 8192) fp32, causal", x,
+                   None, 0.1, causal=True)
+    del x
+    m = torch.rand((2, 1, 1, 16384), device=dev, generator=gen) < 0.1
+    x = scores((2, 2, 64, 16384), torch.float32)
+    yield fwd_case("softmax_masked_fwd",
+                   "(2, 2, 64, 16384) fp32, mask (2, 1, 1, 16384)", x, m, 0.1)
+    yield bwd_case("(2, 2, 64, 16384) fp32",
+                   sm.softmax_masked_fwd(x, m, 0.1), 0.1)
+    # mask broadcasts and sq != sk
+    m = torch.rand((1, 1, 100, 200), device=dev, generator=gen) < 0.3
+    x = scores((2, 4, 100, 200), torch.float32)
+    yield fwd_case("softmax_masked_fwd",
+                   "(2, 4, 100, 200) fp32, mask (1, 1, 100, 200)", x, m, 0.5)
+    yield fwd_case("softmax_masked_fwd", "(2, 4, 100, 200) fp32, no mask",
+                   x, None, 0.5)
+    for shape in ((16, 300, 512), (16, 512, 300)):
+        yield fwd_case("softmax_causal_fwd", f"{shape} bf16, causal",
+                       scores(shape, torch.bfloat16), None, 0.2, causal=True)
+
+
 CASE_GROUPS = dict(ln=ln_cases, seg=seg_cases, decode=decode_cases,
                    paged=paged_decode_cases, train_ln=train_ln_cases,
                    flash=flash_cases,
@@ -1788,7 +1995,7 @@ CASE_GROUPS = dict(ln=ln_cases, seg=seg_cases, decode=decode_cases,
                    lamb=lamb_cases,
                    unpacked=lambda dev: itertools.chain(
                        unpacked_cases(dev), unpacked_vs_packed_cases(dev)),
-                   seg_train=seg_train_cases)
+                   seg_train=seg_train_cases, softmax=softmax_cases)
 
 
 def run_kernel_phase(dev, generators):
@@ -2351,18 +2558,19 @@ def _trainer(cfg, device, lr):
             scaler.init(model.device))
 
 
-def run_train_parity_phase():
+def run_train_parity_phase(impl="flash"):
     from rocm_apex_tpu_torch.models.gpt import GPTConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = GPTConfig(**{**TRAIN, "num_layers": PARITY_TRAIN["num_layers"],
                        "hidden_dropout": 0.0, "attention_dropout": 0.0},
-                    params_dtype=torch.float32, dtype=torch.float32)
+                    params_dtype=torch.float32, dtype=torch.float32,
+                    attention_impl=impl)
     tokens, labels = _train_batch(cfg, PARITY_TRAIN["batch"],
                                   PARITY_TRAIN["seq"])
     runs = {}
-    for dev in ("cuda", "cpu"):
+    for dev in (CARD, "cpu"):
         step, state, sstate = _trainer(cfg, dev, 1e-4)
         losses, skips = [], []
         for _ in range(PARITY_TRAIN["steps"]):
@@ -2371,7 +2579,7 @@ def run_train_parity_phase():
             losses.append(float(loss))
             skips.append(int(sstate.overflows - over))
         runs[dev] = (losses, skips)
-    (lc, sc), (lp, sp) = runs["cuda"], runs["cpu"]
+    (lc, sc), (lp, sp) = runs[CARD], runs["cpu"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
     log(f"  losses cuda {lc}, cpu {lp}: max relative difference {rel:.3e} "
         f"(rtol {PARITY_LOSS_RTOL:g}); skipped steps cuda {sc}, cpu {sp}")
@@ -2382,12 +2590,14 @@ def run_train_parity_phase():
                 skips_cuda=sc, skips_cpu=sp)
 
 
-def run_train_phase(profile):
+def run_train_phase(profile, impl="flash", calls=TRAIN_CALLS_PER_STEP):
+    """The GPT train cell under ``impl`` (the model's attention_impl);
+    ``calls``: each kernel's wrapper calls a step."""
     from rocm_apex_tpu_torch.models.gpt import GPTConfig
     from rocm_apex_tpu_torch.ops._build import KERNELS
 
     cfg = GPTConfig(**TRAIN, params_dtype=torch.float32,
-                    dtype=torch.bfloat16)
+                    dtype=torch.bfloat16, attention_impl=impl)
     t0 = time.perf_counter()
     step, state, sstate = _trainer(cfg, "cuda", 1e-4)
     setup_s = time.perf_counter() - t0
@@ -2422,8 +2632,8 @@ def run_train_phase(profile):
         loss_scale=scale, overflows=overflows, setup_s=setup_s,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         launches=launches,
-        calls_per_step={k: launches[k] / TRAIN_STEPS
-                        for k in TRAIN_CALLS_PER_STEP},
+        attention_impl=impl,
+        calls_per_step={k: launches[k] / TRAIN_STEPS for k in calls},
     )
     log(f"  {TRAIN_STEPS} steps of B {TRAIN_BATCH} x S {TRAIN_SEQ}: "
         f"{res['step_ms']:.2f} ms/step, {res['tokens_per_s']:.1f} tokens/s; "
@@ -2431,11 +2641,11 @@ def run_train_phase(profile):
         f"scale {scale:g}, {overflows} overflows; peak "
         f"{res['peak_mem_gib']:.2f} GiB")
     log(f"  wrapper calls per step: {res['calls_per_step']} (expected "
-        f"{TRAIN_CALLS_PER_STEP})")
+        f"{calls})")
     check(all(math.isfinite(x) for x in losses), "nonfinite training loss")
     check(losses[-1] < losses[0], "the training loss did not fall")
     check(scale >= 2.0**12, f"the loss scale collapsed to {scale:g}")
-    for name, want in TRAIN_CALLS_PER_STEP.items():
+    for name, want in calls.items():
         check(launches[name] == want * TRAIN_STEPS,
               f"{name}: {launches[name]} calls in {TRAIN_STEPS} steps, "
               f"expected {want} per step")
@@ -2443,7 +2653,7 @@ def run_train_phase(profile):
         res["profile"] = profile_window(
             lambda: [step(state, sstate, tokens, labels,
                           dropout_generator=gen) for _ in range(3)],
-            "3 train steps")
+            f"3 train steps ({impl})")
     return res
 
 
@@ -2525,18 +2735,20 @@ def run_bert_train_parity_phase():
                 found_inf_cuda=fc, found_inf_cpu=fp, inf_step_frozen=True)
 
 
-def run_bert_train_masked_parity_phase():
+def run_bert_train_masked_parity_phase(impl="flash"):
     """Masked BERT train parity: the parity config (2 layers, S 128, B 2,
     fp32, TF32 off, dropout 0) with a padding mask of two lengths, three
-    LAMB steps on the card (the unpacked kernels) against the CPU (their
-    plain versions)."""
+    LAMB steps on the card (the unpacked kernels, or the softmax kernels
+    under ``impl="fused_softmax"``) against the CPU (their plain
+    versions)."""
     from rocm_apex_tpu_torch.models.bert import BertConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = BertConfig(**{**BERT, "num_layers": BERT_PARITY["num_layers"],
                         "max_position_embeddings": BERT_PARITY["seq"]},
-                     params_dtype=torch.float32, dtype=torch.float32)
+                     params_dtype=torch.float32, dtype=torch.float32,
+                     attention_impl=impl)
     tokens, labels = _bert_batch(cfg, BERT_PARITY["batch"],
                                  BERT_PARITY["seq"])
     mask = padding_mask(BERT_MASKED_PARITY_LENGTHS, BERT_PARITY["seq"])
@@ -2563,15 +2775,22 @@ def run_bert_train_masked_parity_phase():
                 found_inf_cpu=fp)
 
 
-def bert_masked_calls(layers, steps):
+def bert_masked_calls(layers, steps, impl="flash"):
     """Wrapper calls of ``steps`` masked BERT steps with hidden and
     attention dropout: one unpacked attention a layer (no packed one, no
-    dbias: the padding bias is a constant); layer 0's plain ln1 and the
-    LM head's LN, and 2 * layers dropout LNs (the ln2s, the chained ln1s,
-    the final LN); one cross-entropy and one LAMB call a stage."""
+    dbias: the padding bias is a constant), or under ``impl=
+    "fused_softmax"`` one masked softmax forward and backward a layer and
+    no flash call; layer 0's plain ln1 and the LM head's LN, and 2 *
+    layers dropout LNs (the ln2s, the chained ln1s, the final LN); one
+    cross-entropy and one LAMB call a stage."""
+    attn = layers * steps
+    fused = impl == "fused_softmax"
     return {
-        "flash_unpacked_fwd": layers * steps,
-        "flash_unpacked_bwd": layers * steps,
+        "flash_unpacked_fwd": 0 if fused else attn,
+        "flash_unpacked_bwd": 0 if fused else attn,
+        "softmax_masked_fwd": attn if fused else 0,
+        "softmax_bwd": attn if fused else 0,
+        "softmax_causal_fwd": 0,
         "flash_dbias": 0,
         "flash_attention_qkv_fwd": 0,
         "flash_attention_qkv_bwd": 0,
@@ -2639,16 +2858,18 @@ def bert_host_breakdown(model, opt, state, tokens, labels, steps=5):
     return parts
 
 
-def run_bert_train_masked_phase(profile):
+def run_bert_train_masked_phase(profile, impl="flash"):
     """The BERT-Large step with a padding mask: `bert_lengths` over B 8 x
     S 512 and dropout 0.1 (hidden and attention), otherwise the
-    bert_train phase's config; 5 warm-up and 20 timed steps."""
+    bert_train phase's config, under ``impl`` (the attention_impl); 5
+    warm-up and 20 timed steps."""
     from rocm_apex_tpu_torch.models.bert import BertConfig
     from rocm_apex_tpu_torch.ops._build import KERNELS
 
     cfg = BertConfig(**{**BERT, "hidden_dropout": BERT_MASKED_DROPOUT,
                         "attention_dropout": BERT_MASKED_DROPOUT},
-                     params_dtype=torch.float32, dtype=torch.bfloat16)
+                     params_dtype=torch.float32, dtype=torch.bfloat16,
+                     attention_impl=impl)
     t0 = time.perf_counter()
     step, state, model, opt = _bert_trainer(cfg, "cuda", torch.bfloat16)
     setup_s = time.perf_counter() - t0
@@ -2681,11 +2902,12 @@ def run_bert_train_masked_phase(profile):
     launches = {k.name: k.launches for k in KERNELS}
     losses = [float(x) for x in losses]
     skipped = sum(bool(x) for x in found)
-    want = bert_masked_calls(cfg.num_layers, TRAIN_STEPS)
+    want = bert_masked_calls(cfg.num_layers, TRAIN_STEPS, impl)
     res = dict(
         batch=BERT_BATCH, seq=BERT_SEQ, steps=TRAIN_STEPS, seconds=dt,
         lengths=[int(x) for x in lens], real_tokens=int(lens.sum()),
-        dropout=BERT_MASKED_DROPOUT, step_ms=1e3 * dt / TRAIN_STEPS,
+        dropout=BERT_MASKED_DROPOUT, attention_impl=impl,
+        step_ms=1e3 * dt / TRAIN_STEPS,
         tokens_per_s=BERT_BATCH * BERT_SEQ * TRAIN_STEPS / dt,
         loss_first=losses[0], loss_last=losses[-1], losses=losses,
         skipped_steps=skipped, setup_s=setup_s,
@@ -2708,7 +2930,8 @@ def run_bert_train_masked_phase(profile):
               f"{TRAIN_STEPS} masked steps, expected {n}")
     if profile:
         res["profile"] = profile_window(
-            lambda: [run() for _ in range(3)], "3 masked BERT train steps")
+            lambda: [run() for _ in range(3)],
+            f"3 masked BERT train steps ({impl})")
     return res
 
 
@@ -2978,6 +3201,42 @@ def run_xentropy_phase():
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 13 to 15: the fused-softmax attention path
+# ---------------------------------------------------------------------------
+
+
+def run_fused_softmax_parity_phase():
+    """The fused-softmax path, cuda (the softmax kernels) against cpu
+    (their plain versions), fp32 with TF32 off, dropout 0, three
+    optimizer steps each: the GPT train parity config (full width, 2
+    layers, S 256, B 2, Adam) and the masked BERT parity config (2
+    layers, S 128, B 2, lengths (128, 77), LAMB), each held as its flash
+    phase is. On the card the softmax kernels run a forward and a
+    backward a layer and step, and no flash kernel runs."""
+    from rocm_apex_tpu_torch.ops._build import KERNELS
+
+    res = {}
+    for name, run, fwd, shape in (
+            ("gpt", run_train_parity_phase, "softmax_causal_fwd",
+             PARITY_TRAIN),
+            ("bert_masked", run_bert_train_masked_parity_phase,
+             "softmax_masked_fwd", BERT_PARITY)):
+        for k in KERNELS:
+            k.launches = 0
+        res[name] = run("fused_softmax")
+        launches = res[name]["launches"] = {
+            k.name: k.launches for k in KERNELS
+            if k.name in SOFTMAX_KERNELS + FLASH_TRAIN_KERNELS}
+        calls = shape["num_layers"] * shape["steps"]
+        want = {k: (calls if k in (fwd, "softmax_bwd") else 0)
+                for k in launches}
+        log(f"  {name} card launches: {launches}")
+        check(launches == want, f"{name} fused-softmax parity launches "
+              f"{launches}, expected {want}")
+    return res
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3046,7 +3305,8 @@ def main(argv=None):
     phases = list(only)
     from rocm_apex_tpu_torch.ops import (flash_attention,  # noqa: F401
                                          flash_attention_segments,
-                                         layer_norm, optim_kernels, xentropy)
+                                         layer_norm, optim_kernels, softmax,
+                                         xentropy)
     groups = (only["kernels"].split("+") if only.get("kernels")
               else list(CASE_GROUPS))
     runs = {
@@ -3100,6 +3360,25 @@ def main(argv=None):
             f"{BERT['vocab_size']}) bf16, smoothing {XENT_SMOOTHING}, "
             f"padding_idx {XENT_PAD}: {TRAIN_WARMUP} warm-up + {TRAIN_STEPS} "
             f"timed)", run_xentropy_phase),
+        "fused_softmax_parity": (
+            "fused_softmax parity (attention_impl='fused_softmax', fp32, "
+            "TF32 off: GPT 2 layers, S 256, B 2, 3 Adam steps; masked BERT "
+            f"2 layers, S 128, B 2, lengths {BERT_MASKED_PARITY_LENGTHS}, 3 "
+            "LAMB steps; cuda vs cpu)", run_fused_softmax_parity_phase),
+        "train_fused_softmax": (
+            f"train fused_softmax (the train cell under attention_impl="
+            f"'fused_softmax': 8 layers, bf16, B {TRAIN_BATCH} x S "
+            f"{TRAIN_SEQ}, dropout 0.1: {TRAIN_WARMUP} warm-up + "
+            f"{TRAIN_STEPS} timed steps)",
+            lambda: run_train_phase(args.profile, "fused_softmax",
+                                    FUSED_TRAIN_CALLS_PER_STEP)),
+        "bert_train_masked_fused_softmax": (
+            f"bert train masked fused_softmax (24 layers, bf16, B "
+            f"{BERT_BATCH} x S {BERT_SEQ}, padding mask, dropout "
+            f"{BERT_MASKED_DROPOUT}, attention_impl='fused_softmax': "
+            f"{TRAIN_WARMUP} warm-up + {TRAIN_STEPS} timed steps)",
+            lambda: run_bert_train_masked_phase(args.profile,
+                                                "fused_softmax")),
     }
     report["phase_s"] = {}
     for phase in PHASES:
@@ -3140,6 +3419,10 @@ def main(argv=None):
             path = "fmha"
         if k.name == "xent_bwd":
             path = "xentropy"
+        if k.name in ("softmax_causal_fwd", "softmax_bwd"):
+            path = "train_fused_softmax"
+        if k.name == "softmax_masked_fwd":
+            path = "bert_train_masked_fused_softmax"
         where, _, _ = k.replaces.partition(" ")
         kernels.append(dict(
             name=k.name, route="cuda",

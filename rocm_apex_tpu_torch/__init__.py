@@ -8,14 +8,17 @@ GPT training step and the BERT masked-LM training step:
     ops            hand-written sm_90a CUDA kernels (csrc/), built with
                    nvcc at first use and bound with ctypes, each with a
                    plain PyTorch version used for CPU tensors (LayerNorm,
-                   the attention kernels, the label-smoothed cross-entropy,
-                   the LAMB stage pair); the chunked fused
+                   the attention kernels, the scaled causal and masked
+                   softmax, the label-smoothed cross-entropy, the LAMB
+                   stage pair); the chunked fused
                    linear+cross-entropy head (plain PyTorch)
     normalization  `MixedFusedLayerNorm` (forward and backward)
-    transformer    tensor-parallel linear/embedding layers at world size 1
+    transformer    tensor-parallel linear/embedding layers at world size 1;
+                   `functional.FusedScaleMaskSoftmax`, the enums
     models         `GPTModel`: the uncached (training) forward and the
-                   cached chunk and decode branches; `BertModel`: the
-                   masked-LM forward without a padding mask
+                   cached chunk and decode branches, flash or
+                   ``attention_impl="fused_softmax"``; `BertModel`: the
+                   masked-LM forward, with or without a padding mask
     inference      `KVCache`, sampling, the continuous-batching
                    `InferenceEngine` (chunked prefill)
     amp            the dynamic `LossScaler`

@@ -7,6 +7,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -15,7 +16,7 @@
 namespace apex_port {
 
 // dtype codes shared with the Python wrappers (ops/_build.py DTYPE_CODES)
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -30,6 +31,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_float(int8_t x) {
   return static_cast<float>(x);
 }
@@ -43,6 +45,10 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // x rounded to T's precision (round to nearest even), as a float

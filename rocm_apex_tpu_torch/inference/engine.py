@@ -182,13 +182,13 @@ class InferenceEngine:
     ):
         refused = [
             (spec_k, "speculative decoding (spec_k), and with it "
-             "speculative commits into pages", "item 6"),
+             "speculative commits into pages", "item 8"),
             (faults is not None, "the fault harness (faults), and with "
-             "it the page_alloc site", "item 6"),
+             "it the page_alloc site", "item 8"),
             (adapter_pool is not None, "multi-LoRA serving (adapter_pool)"
-             ", and with it tier preemption", "item 6"),
+             ", and with it tier preemption", "item 8"),
             (tracer is not None or registry is not None,
-             "request tracing and the metric registry", "item 7"),
+             "request tracing and the metric registry", "item 9"),
         ]
         for asked, what, item in refused:
             if asked:

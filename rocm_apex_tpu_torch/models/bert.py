@@ -12,8 +12,12 @@ packed flash kernels without the causal mask, as the JAX model does. A
 (b, 1, s, s) pair mask, then the additive fp32 bias of -1e30 that every
 layer's unpacked flash kernels add to the scores (`models.gpt.
 padding_bias`, built once per forward): a padded query row attends
-nothing, so its attention output is 0, as the JAX kernel gives it. The
-loss stays per token; a caller masks or averages it. `BertModel` has no
+nothing, so its attention output is 0, as the JAX kernel gives it. Under
+``attention_impl="fused_softmax"`` the layers take the bool mask itself
+into the masked softmax kernel (`ops.softmax`), whose -10000 fill makes a
+padded query row the uniform average over all keys, the JAX value on
+that path; without a mask that path is a plain fp32 softmax. The loss
+stays per token; a caller masks or averages it. `BertModel` has no
 fused linear+CE head: with
 ``lm_labels`` the (b, s, vocab) logits of the tied projection go through
 the cross-entropy kernel (`models.gpt._serial_cross_entropy`), which
@@ -38,7 +42,7 @@ from rocm_apex_tpu_torch.models.gpt import (
     ParallelTransformer,
     TransformerEmbedding,
     _draw_seed,
-    _embedding_dropout,
+    _dropout,
     _serial_cross_entropy,
 )
 from rocm_apex_tpu_torch.normalization import MixedFusedLayerNorm
@@ -152,7 +156,7 @@ class BertModel(nn.Module):
                                     device=tokens.device)[None, :]
         x = self.embedding(tokens, position_ids)
         if seeds is not None and cfg.hidden_dropout > 0.0:
-            x = _embedding_dropout(x, _draw_seed(seeds), cfg.hidden_dropout)
+            x = _dropout(x, _draw_seed(seeds), cfg.hidden_dropout)
         if tokentype_ids is not None:
             x = x + self.tokentype_embeddings[tokentype_ids].to(cfg.dtype)
         x = self.transformer(x, seeds=seeds, attention_mask=ext_mask)

@@ -33,6 +33,15 @@ Port of ``rocm_apex_tpu/models/gpt.py`` at tensor-parallel world size 1.
   padding type with the (b, sq, sk) fp32 bias of -1e30 that
   `padding_bias` builds from the mask (once per forward), the causal
   type with the in-kernel causal mask.
+  ``attention_impl="fused_softmax"`` (gpt.py:1010-1053) materializes the
+  scores instead, for either mask type and any head_dim: q·kᵀ in fp32
+  from the compute-dtype projection, the scaled causal or padding-masked
+  softmax kernel (`ops.softmax`; the padding type without a mask is a
+  plain fp32 softmax, as in JAX), the probabilities cast to the compute
+  dtype, their dropout as a plain op, then probs·v in the compute dtype.
+  The padding type's masked keys there score -10000, so a fully masked
+  query row (BERT's padded positions) attends every key uniformly, the
+  JAX value, where the flash path gives 0.
 * The cached branches serve the engine (rocm_apex_tpu/models/gpt.py:
   509-893), deterministic and under ``torch.no_grad``: the packed chunk
   (``chunk=(slot_ids, positions)``) scatters its K/V into the cache at
@@ -53,6 +62,8 @@ Port of ``rocm_apex_tpu/models/gpt.py`` at tensor-parallel world size 1.
   (gpt.py:894-913): its K/V land at each slot's length and causal
   unpacked flash attention runs over the fresh window alone (the
   engine's slots start empty); a paged cache refuses it, as in JAX.
+  These branches run the flash kernels under ``"fused_softmax"`` too, as
+  the JAX model does (it tests for ``"jnp"`` only, gpt.py:820-900).
 
 Module and parameter names follow the JAX model's param tree, so its
 flattened paths are this module's ``state_dict`` keys (see ``convert.py``).
@@ -97,6 +108,10 @@ from rocm_apex_tpu_torch.ops.paging import (
     paged_scatter,
     quantized_paged_scatter,
 )
+from rocm_apex_tpu_torch.ops.softmax import (
+    scaled_masked_softmax,
+    scaled_upper_triang_masked_softmax,
+)
 from rocm_apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss_fused
 from rocm_apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
@@ -137,6 +152,11 @@ class GPTConfig:
     dtype: torch.dtype = torch.bfloat16
     tensor_parallel_size: Optional[int] = None
     init_method_std: float = 0.02
+    # False: the fused-softmax path's softmax is plain, -inf fills for
+    # both mask types (a fully masked row is NaN there, as in JAX)
+    use_pallas_softmax: bool = True
+    # "flash" (the flash kernels) or "fused_softmax" (materialized scores
+    # and the softmax kernels on the uncached path); "jnp" is not ported
     attention_impl: str = "flash"
     checkpoint_activations: bool = False
     label_smoothing: float = 0.0
@@ -148,21 +168,21 @@ class GPTConfig:
     def __post_init__(self):
         unported = [
             (self.tensor_parallel_size not in (None, 1),
-             "tensor_parallel_size > 1 (ROADMAP Queue 1 item 6, tp>1 "
+             "tensor_parallel_size > 1 (ROADMAP Queue 1 item 8, tp>1 "
              "serving)"),
-            (self.attention_impl != "flash",
-             f"attention_impl={self.attention_impl!r} (the materialized "
-             f"softmax path needs the fused-softmax kernels, ROADMAP "
-             f"Queue 2 item 10)"),
+            (self.attention_impl not in ("flash", "fused_softmax"),
+             f"attention_impl={self.attention_impl!r} (the one-pass "
+             f"reference attention and its cached paths, ROADMAP Queue 1 "
+             f"item 11)"),
             (self.checkpoint_activations,
-             "checkpoint_activations=True (ROADMAP Queue 1 item 8, rest "
+             "checkpoint_activations=True (ROADMAP Queue 1 item 10, rest "
              "of the training stack)"),
             (self.apply_residual_connection_post_layernorm,
              "apply_residual_connection_post_layernorm=True (ROADMAP "
-             "Queue 1 item 8, rest of the training stack)"),
+             "Queue 1 item 10, rest of the training stack)"),
             (self.context_parallel_axis is not None,
              "context_parallel_axis (ring attention over the lse kernel "
-             "across process groups, ROADMAP Queue 1 item 8, "
+             "across process groups, ROADMAP Queue 1 item 3, "
              "transformer/context_parallel.py)"),
         ]
         for bad, what in unported:
@@ -200,14 +220,48 @@ def _paged_write(k_buf, v_buf, paged, k_new, v_new) -> None:
                                 v_new, rows)
 
 
-def _embedding_dropout(x, seed: int, rate: float):
-    """The embedding's dropout: a plain op, as in the JAX package (a flax
-    op there, gpt.py:1420-1421). Its mask comes from torch's generator on
-    x's device, seeded with the site's seed: one random draw, where the
-    kernels' counter hash would cost ~30 int64 passes over the tensor."""
+def _dropout(x, seed: int, rate: float):
+    """Dropout as a plain op, where the JAX package has a flax op and not a
+    kernel: the embedding's (gpt.py:1420-1421) and the fused-softmax
+    path's attention probabilities (`_Dropout`, gpt.py:201-222). Its mask
+    comes from torch's generator on x's device, seeded with the site's
+    seed: one random draw, where the kernels' counter hash would cost ~30
+    int64 passes over the tensor. Kept elements are x / (1 - rate) in x's
+    dtype; autograd keeps the mask for the backward."""
     gen = torch.Generator(device=x.device).manual_seed(seed)
     keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+class _ScoresFp32(torch.autograd.Function):
+    """q·kᵀ over the last axis as fp32 scores from q, k in the compute
+    dtype: the JAX einsum's ``preferred_element_type=float32``
+    (gpt.py:1012-1014). A 16-bit matmul would round the scores to 16 bits
+    before the softmax; here the products of the 16-bit values are summed
+    in fp32 and never rounded: on CUDA by cuBLAS with a 16-bit input and
+    fp32 output (``torch.bmm(..., out_dtype=torch.float32)``), on the CPU
+    by an fp32 product of the widened inputs (exact products, fp32 sums).
+    The backward takes the fp32 cotangent to q's dtype and multiplies in
+    it (one rounding of each fp32-accumulated gradient); in fp32 compute
+    that is the exact transpose."""
+
+    @staticmethod
+    def forward(ctx, q, k):
+        ctx.save_for_backward(q, k)
+        kt = k.transpose(-1, -2)
+        if q.dtype == torch.float32:
+            return torch.matmul(q, kt)
+        if q.device.type != "cuda":
+            return torch.matmul(q.float(), kt.float())
+        lead, (sq, hd), sk = q.shape[:-2], q.shape[-2:], k.shape[-2]
+        return torch.bmm(q.reshape(-1, sq, hd), kt.reshape(-1, hd, sk),
+                         out_dtype=torch.float32).view(*lead, sq, sk)
+
+    @staticmethod
+    def backward(ctx, ds):
+        q, k = ctx.saved_tensors
+        ds = ds.to(q.dtype)
+        return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q)
 
 
 class ParallelMLP(nn.Module):
@@ -267,10 +321,12 @@ class ParallelAttention(nn.Module):
     def forward(self, x, cache=None,
                 chunk: Optional[Union[ChunkRows, PagedRows]] = None,
                 dropout_seed: Optional[int] = None,
-                attention_bias: Optional[torch.Tensor] = None):
-        """``attention_bias``: the uncached padding type's additive fp32
-        (b, sq, sk) bias, `padding_bias` of its mask (the transformer
-        builds it once per forward; None attends every key). ``cache``:
+                attention_mask: Optional[torch.Tensor] = None):
+        """``attention_mask``: the uncached padding type's mask in the form
+        its path reads, which the transformer builds once per forward: the
+        additive fp32 (b, sq, sk) bias of `padding_bias` for the flash
+        kernels, the bool (b|1, 1, sq|1, sk) mask itself (True = masked)
+        for the fused softmax; None attends every key. ``cache``:
         the layer's view, ``(k, v, lengths)`` of a contiguous cache or
         ``(k, v, lengths, paged)`` of a paged one, ``paged`` holding
         ``page_table``, ``page_size``, the layer's ``k_scale``/``v_scale``
@@ -279,10 +335,12 @@ class ParallelAttention(nn.Module):
         are the segment ids), None for the decode and the whole-prompt
         prefill."""
         if cache is None:
-            bias = attention_bias if self.attn_mask_type == "padding" else None
-            if bias is None and self.cfg.head_dim % 128 == 0:
+            mask = attention_mask if self.attn_mask_type == "padding" else None
+            if self.cfg.attention_impl == "fused_softmax":
+                return self._forward_fused_softmax(x, dropout_seed, mask)
+            if mask is None and self.cfg.head_dim % 128 == 0:
                 return self._forward_packed(x, dropout_seed)
-            return self._forward_unpacked(x, dropout_seed, bias)
+            return self._forward_unpacked(x, dropout_seed, mask)
         if self.attn_mask_type != "causal":
             raise ValueError(
                 "KV-cached attention is causal-only "
@@ -406,6 +464,45 @@ class ParallelAttention(nn.Module):
         y, _ = self.dense(ctx)
         return y
 
+    def _forward_fused_softmax(self, x, dropout_seed, mask):
+        """The materialized path (gpt.py:1010-1053): fp32 scores of the
+        per-head q/k column blocks (`_ScoresFp32`), the scaled softmax
+        (the causal kernel on (b*nh, s, s); the padding type's masked
+        kernel with ``mask``, or a plain fp32 softmax without one; with
+        ``use_pallas_softmax=False`` a plain softmax with -inf fills), the
+        probabilities in the compute dtype, their dropout with a seed,
+        then probs·v in the compute dtype."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        scale = 1.0 / math.sqrt(hd)
+        qkv, _ = self.query_key_value(x)
+        q, k, v = (t.permute(0, 2, 1, 3) for t in
+                   qkv.view(b, s, nh, 3 * hd).split(hd, dim=-1))
+        scores = _ScoresFp32.apply(q, k)  # (b, nh, s, s) fp32
+        if self.attn_mask_type == "causal":
+            if cfg.use_pallas_softmax:
+                probs = scaled_upper_triang_masked_softmax(
+                    scores.view(b * nh, s, s), scale).view(b, nh, s, s)
+            else:
+                upper = torch.ones(s, s, dtype=torch.bool,
+                                   device=x.device).triu(1)
+                probs = torch.softmax(
+                    (scores * scale).masked_fill(upper, float("-inf")), -1)
+        elif mask is None:
+            probs = torch.softmax(scores * scale, dim=-1)
+        elif cfg.use_pallas_softmax:
+            probs = scaled_masked_softmax(scores, mask, scale)
+        else:
+            probs = torch.softmax(
+                (scores * scale).masked_fill(mask, float("-inf")), -1)
+        probs = probs.to(cfg.dtype)
+        if dropout_seed is not None:
+            probs = _dropout(probs, dropout_seed, cfg.attention_dropout)
+        ctx = torch.matmul(probs, v).permute(0, 2, 1, 3).reshape(b, s, nh * hd)
+        y, _ = self.dense(ctx)
+        return y
+
 
 class ParallelTransformerLayer(nn.Module):
     """Pre-LN block: LN -> attention -> residual (fused into LN2) -> MLP
@@ -435,10 +532,12 @@ class ParallelTransformerLayer(nn.Module):
 
     def forward_chained(self, x, delta=None,
                         seeds: Optional[torch.Generator] = None,
-                        attention_bias: Optional[torch.Tensor] = None):
+                        attention_mask: Optional[torch.Tensor] = None):
         """One training layer: with a ``seeds`` generator, hidden dropout
         drops the attention output inside ln2 and the incoming delta
-        inside ln1, and attention dropout runs in the flash kernels."""
+        inside ln1, and attention dropout runs in the flash kernels (on
+        the probabilities, under ``"fused_softmax"``). ``attention_mask``
+        as `ParallelAttention.forward` takes it."""
         cfg = self.cfg
         hrate = cfg.hidden_dropout if seeds is not None else 0.0
 
@@ -455,7 +554,7 @@ class ParallelTransformerLayer(nn.Module):
         attn_seed = (_draw_seed(seeds) if seeds is not None
                      and cfg.attention_dropout > 0.0 else None)
         attn = self.self_attention(ln1, dropout_seed=attn_seed,
-                                   attention_bias=attention_bias)
+                                   attention_mask=attention_mask)
         ln2, x = self.post_attention_layernorm(
             attn.to(x.dtype), residual=x, dropout_rate=hrate,
             dropout_seed=hseed(),
@@ -519,14 +618,18 @@ class ParallelTransformer(nn.Module):
         return x
 
     def _forward_chained(self, x, seeds, attention_mask=None):
-        # the padding type's additive bias, built once for every layer
-        bias = None
+        # the padding type's mask in the form its attention reads, built
+        # once for every layer: the bool mask for the fused softmax, the
+        # additive bias for the flash kernels
+        mask = None
         if attention_mask is not None and self.attn_mask_type == "padding":
-            bias = padding_bias(attention_mask, x.shape[0], x.shape[1])
+            mask = attention_mask.to(torch.bool)
+            if self.cfg.attention_impl == "flash":
+                mask = padding_bias(mask, x.shape[0], x.shape[1])
         delta = None
         for name in self.layer_names:
             x, delta = getattr(self, name).forward_chained(
-                x, delta, seeds, bias)
+                x, delta, seeds, mask)
         if delta is None:
             return self.final_layernorm(x).to(self.cfg.dtype)
         # the last layer's pending delta joins the stream (and takes its
@@ -645,7 +748,7 @@ class GPTModel(nn.Module):
             seeds = dropout_generator or torch.default_generator
         x = self.embedding(tokens, position_ids)
         if seeds is not None and cfg.hidden_dropout > 0.0:
-            x = _embedding_dropout(x, _draw_seed(seeds), cfg.hidden_dropout)
+            x = _dropout(x, _draw_seed(seeds), cfg.hidden_dropout)
         x = self.transformer(x, seeds=seeds)
         if labels is None:
             return self.embedding.attend(x)

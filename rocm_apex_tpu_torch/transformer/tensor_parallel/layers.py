@@ -32,7 +32,7 @@ def _require_tp1(world_size: Optional[int], cls: str) -> None:
     if world_size not in (None, 1):
         raise NotImplementedError(
             f"{cls} with world_size={world_size}: tensor parallelism is not "
-            f"ported yet (ROADMAP Queue 1 item 6, tp>1 serving)"
+            f"ported yet (ROADMAP Queue 1 item 8, tp>1 serving)"
         )
 
 

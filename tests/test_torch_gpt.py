@@ -215,7 +215,7 @@ class TestEntryPoints:
         JAX model does."""
         _, _, model = models
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GPTConfig(**SHAPE, attention_impl="fused_softmax")
+            GPTConfig(**SHAPE, attention_impl="jnp")
         with pytest.raises(NotImplementedError,
                            match="context_parallel_axis.*ROADMAP"):
             GPTConfig(**SHAPE, context_parallel_axis="cp")
