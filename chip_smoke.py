@@ -26,7 +26,10 @@ JAX package) through these phases, in order; any failure exits non-zero:
              causal and masked softmax forwards and the softmax backward
              at the GPT train cell's and masked BERT-Large's scores, in
              bf16 and fp16 too, at odd, tiny and 16K-key rows, under
-             every mask broadcast and with sq != sk);
+             every mask broadcast and with sq != sk; the ten packed-buffer
+             kernels, multi-tensor passes and optimizer updates, at the
+             train cell's packed buffer and on a ragged tree, with the
+             nonfinite flag, Adam's skip slot and the padding's zeros);
              kernel, plain and library times with CUDA events, and the
              least time the card could take (bound);
 4. parity    the serving config at full width but 2 layers, fp32 with
@@ -112,7 +115,19 @@ JAX package) through these phases, in order; any failure exits non-zero:
 15. bert_train_masked_fused_softmax  the masked BERT-Large step under
              that path: the masked softmax forward and the backward 24
              calls a step each, no flash call;
-16. report   a ``{"kernels": [...]}`` line, then the device line
+16. train_packed_parity  `PackedOptimizerStep` on the train parity
+             config: Adam and LAMB, three steps on the card against the
+             CPU (losses, skips, masters), then an inf gradient (found and
+             bit-frozen on both); the packed ops outside the step
+             (`unscale_packed`, `multi_tensor_applier`'s axpby and l2norm,
+             the SGD, Adagrad and NovoGrad updates) card against CPU;
+17. train_packed  the train phase's GPT step under
+             `PackedOptimizerStep("adam")` (bench.py gpt --packed-update):
+             tokens/s, step ms beside the train phase's, losses, peak
+             memory, one scale_sumsq and one adam_update call a step; the
+             bare update phase on fixed gradients, `MixedPrecisionAdam`
+             and `PackedOptimizerStep` in turns;
+18. report   a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
@@ -121,7 +136,7 @@ spill report to DIR/chip_smoke.json. ``--profile`` adds profiled serve
 device's busy share. ``--only`` runs a subset of the phases (a check of
 one part; the full run is the smoke); ``kernels:xent+lamb`` there names a
 subset of the kernel phase's case groups (ln, seg, decode, paged,
-train_ln, flash, xent, lamb, unpacked, seg_train, softmax).
+train_ln, flash, xent, lamb, unpacked, seg_train, softmax, packed).
 
 It needs one CUDA device and nvcc (CUDA_HOME, PATH or /usr/local/cuda).
 """
@@ -265,11 +280,28 @@ FUSED_TRAIN_CALLS_PER_STEP = {
        if not k.startswith("flash")},
 }
 
+# the packed optimizer path (`PackedOptimizerStep`, bench.py gpt
+# --packed-update): the train cell's step with one scale_sumsq and one
+# adam_update call a step (the model is all bf16: one dtype group); the
+# parity's masters (fp32, cuda vs cpu) within PACKED_MASTER_RTOL of
+# |master| + |step| plus PACKED_MASTER_LR_SHARE of one lr step. Adam
+# divides each gradient element by its own scale: where that is near eps
+# the two devices' fp32 summation noise moves the step by a share of lr,
+# whatever |master| + |step| is (1% of an lr step seen on a layer-0 dense
+# weight after 3 steps; an element whose gradient is 0 but for rounding,
+# the key bias, takes noise-driven steps on both sides)
+PACKED_TRAIN_CALLS_PER_STEP = {**TRAIN_CALLS_PER_STEP, "scale_sumsq": 1,
+                               "adam_update": 1, "lamb_stage1": 0,
+                               "lamb_stage2": 0, "row_sumsq": 0}
+PACKED_MASTER_RTOL = 1e-5
+PACKED_MASTER_LR_SHARE = 5e-2
+
 PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "train_parity", "train", "bert_train_parity", "bert_train",
           "bert_train_masked_parity", "bert_train_masked", "fmha",
           "xentropy", "fused_softmax_parity", "train_fused_softmax",
-          "bert_train_masked_fused_softmax")
+          "bert_train_masked_fused_softmax", "train_packed_parity",
+          "train_packed")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_attention_segments_with_lse",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -1161,7 +1193,7 @@ def lamb_cases(dev):
         # stage 1: equal copies through kernel and plain version
         km, kv, rm, rv = (_clones(t) for t in (ms, vs, ms, vs))
         rsum = torch.empty((n, 2), device=dev)
-        ksum = ok.lamb_stage1(ps, gs, km, kv, s1, wds, adam_w)
+        ksum = ok.lamb_leaves_stage1(ps, gs, km, kv, s1, wds, adam_w)
         for i in range(n):
             ok.lamb_leaf_stage1_reference(ps[i], gs[i], rm[i], rv[i], s1,
                                           wds[i], adam_w, rsum[i])
@@ -1180,7 +1212,8 @@ def lamb_cases(dev):
         k1, p1, l1 = (sets(ps, gs, ms, vs) for _ in range(3))
 
         def kern1(k1=k1, wds=wds, adam_w=adam_w):
-            return ok.lamb_stage1(*next(k1), s1, wds, adam_w, out=tsum)
+            return ok.lamb_leaves_stage1(*next(k1), s1, wds, adam_w,
+                                         out=tsum)
 
         def plain1(p1=p1, wds=wds, adam_w=adam_w):
             for i, leaf in enumerate(zip(*next(p1))):
@@ -1204,7 +1237,8 @@ def lamb_cases(dev):
         kp, rp = _clones(ps), _clones(ps)
         kc = [torch.empty_like(p, dtype=gdt) for p in ps] if copy else None
         rc = _clones(kc)
-        ok.lamb_stage2(kp, km, kv, s2, lr_ratios, wds, adam_w, model_outs=kc)
+        ok.lamb_leaves_stage2(kp, km, kv, s2, lr_ratios, wds, adam_w,
+                              model_outs=kc)
         for i in range(n):
             ok.lamb_leaf_stage2_reference(
                 rp[i], km[i], kv[i], s2, lr_ratios[i], wds[i], adam_w,
@@ -1218,7 +1252,7 @@ def lamb_cases(dev):
 
         def kern2(k2=k2, wds=wds, adam_w=adam_w):
             tp, tm, tv, tc = next(k2)
-            ok.lamb_stage2(tp, tm, tv, s2, lr_ratios, wds, adam_w,
+            ok.lamb_leaves_stage2(tp, tm, tv, s2, lr_ratios, wds, adam_w,
                            model_outs=tc)
 
         def plain2(p2=p2, wds=wds, adam_w=adam_w):
@@ -1987,6 +2021,343 @@ def softmax_cases(dev):
                        scores(shape, torch.bfloat16), None, 0.2, causal=True)
 
 
+# ---------------------------------------------------------------------------
+# the packed optimizer path: rows 14 and 15 (ops/multi_tensor.py,
+# ops/optim_kernels.py's packed updates)
+# ---------------------------------------------------------------------------
+
+PACKED_KERNELS = ("scale", "scale_sumsq", "axpby", "row_sumsq", "adam_update",
+                  "sgd_update", "adagrad_update", "novograd_update",
+                  "lamb_stage1", "lamb_stage2")
+# the case hyperparameters: of order 1 (lr 0.5, not a training step's
+# 1e-4) with inputs of order 1, so that every output is of order 1 and
+# `TOL`'s fp32 atol 1e-4 is 1e-4 of it; Adam's [lr, b1, 1-b1, b2, 1-b2,
+# eps, bc1, bc2 (step 3), gs]
+_PK_ADAM = [0.5, 0.9, 1.0 - 0.9, 0.999, 1.0 - 0.999, 1e-8, 1 - 0.9 ** 3,
+            1 - 0.999 ** 3, 0.5]
+_PK_LAMB1 = [0.9, 0.999, 1.0 - 0.999, 0.1, 1e-6, 1 - 0.9 ** 3,
+             1 - 0.999 ** 3, 0.5, 0.7]
+_PK_SGD = [0.5, 0.9, 0.1, 0.0, 0.5]
+_PK_ADAGRAD = [0.5, 1e-10, 0.5]
+_PK_NOVOGRAD = [0.5, 0.95, 0.05, 1e-8, 1 - 0.95 ** 3, 1 - 0.98 ** 3, 0.5]
+_PK_SCALE = 2.0 ** -16  # the dynamic scaler's first 1 / loss_scale
+# a row sum: 1e-5 of its L1 mass (`_l1_tol`), the padding rows' exact 0s
+# with a floor that keeps 0 / 0 out of the ratio
+_PK_SUMS_TOL = dict(rtol=0.0, atol=1e-30)
+
+
+def gpt_train_spec():
+    """The PackSpec of the train cell's model copy (bf16, one group):
+    every leaf of `convert.random_params`'s GPT tree."""
+    from rocm_apex_tpu_torch.convert import flatten_params, random_params
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+    from rocm_apex_tpu_torch.ops.packing import build_pack_spec
+
+    cfg = GPTConfig(**TRAIN, params_dtype=torch.float32, dtype=torch.bfloat16)
+    shapes = {k: v.shape for k, v in
+              flatten_params(random_params(cfg, seed=0)["params"]).items()}
+    return build_pack_spec({k: torch.empty(s, dtype=torch.bfloat16,
+                                           device="meta")
+                            for k, s in shapes.items()})
+
+
+def _live_mask(group, dev):
+    """True on the live elements of a group buffer: not a row tail, not a
+    padding row."""
+    from rocm_apex_tpu_torch.ops.packing import WIDTH
+
+    live = torch.zeros(group.rows * WIDTH, dtype=torch.bool, device=dev)
+    for ls in group.leaf_specs:
+        live[ls.row_start * WIDTH:ls.row_start * WIDTH + ls.numel] = True
+    return live.view(group.rows, WIDTH)
+
+
+def _pk_buf(live, gen, scale=1.0, dtype=torch.float32, positive=False):
+    x = torch.randn(live.shape, device=live.device, generator=gen) * scale
+    if positive:
+        x = x.abs()
+    return torch.where(live, x, 0.0).to(dtype)
+
+
+def _pk_col(group, live, gen, scale=0.1):
+    """A (rows, 1) per-tensor column: one value a leaf, 0 on padding."""
+    from rocm_apex_tpu_torch.optimizers._common import per_tensor_to_columns
+
+    vals = torch.rand(len(group.leaf_specs), device=live.device,
+                      generator=gen) * scale + scale
+    return per_tensor_to_columns(group, vals)
+
+
+def _yardstick(name, fn):
+    """``fn``, a library yardstick, or None where this PyTorch lacks the
+    op or its CUDA form (the case then reports no library time)."""
+    if fn is None:
+        return None
+    try:
+        fn()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        log(f"  no library yardstick {name}: {str(e).splitlines()[0][:120]}")
+        return None
+    return fn
+
+
+def packed_cases(dev):
+    """Each of the ten kernels of rows 14 and 15 against its plain version
+    at two sizes: the train cell's packed buffer (every leaf of the bench
+    GPT, 135M elements, one bf16 group: its gradients bf16, masters and
+    moments fp32, as `PackedOptimizerStep` holds them), and a ragged
+    3-leaf tree (a leaf of 2.5 rows, one under a row, a scalar; bf16
+    gradients and fp32 ones). On the ragged tree: an inf and a nan in the
+    last live row trip the nonfinite flag of scale, scale_sumsq and axpby
+    (kernel and plain version alike, and a clean buffer does not); Adam's
+    skip slot with an inf gradient leaves delta 0 and m, v bit for bit;
+    and every output is exactly 0 on the row tails and padding rows.
+    Outputs are held to `TOL`, the row sums to 1e-5 of their L1 mass. The
+    bound counts bytes (Adam and LAMB stage 1 28 B an element in fp32,
+    scale_sumsq from bf16 6 B, stage 2 8 B, the row sums 4 B). Library
+    yardsticks: one PyTorch call doing the same update or pass in place
+    where there is one (`torch._fused_adamw_`, `_fused_sgd_`,
+    `_fused_adagrad_`, the amp unscale, `torch.add`,
+    `torch.linalg.vector_norm(dim=1)`, u times a pre-scaled column)."""
+    from rocm_apex_tpu_torch.ops import multi_tensor as mt
+    from rocm_apex_tpu_torch.ops import optim_kernels as ok
+    from rocm_apex_tpu_torch.ops.packing import (PackedTree, PackSpec,
+                                                 build_pack_spec)
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    f32, bf = torch.float32, torch.bfloat16
+    gpt = gpt_train_spec()
+    rag = build_pack_spec({"w": torch.empty(5, 512, device="meta"),
+                           "b.bias": torch.empty(300, device="meta"),
+                           "s": torch.empty((), device="meta")})
+    sizes = [("the train cell's buffer "
+              f"({sum(ls.numel for ls in gpt.groups[0].leaf_specs)} "
+              f"elements, {gpt.n_leaves} leaves)", gpt, True)]
+    sizes.append(("a ragged 3-leaf tree", rag, False))
+
+    def tree_of(group, buf):
+        """``buf`` as a packed tree of one group."""
+        return PackedTree([buf], PackSpec(None, (group,),
+                                          len(group.leaf_specs)))
+
+    for size, spec, headline in sizes:
+        group = spec.groups[0]
+        live = _live_mask(group, dev)
+        dead = ~live
+        iters = 20 if headline else 100
+        plain_iters = 2 if headline else 10
+        gdts = (bf,) if headline else (bf, f32)
+
+        def case(kernel, name, outs, refs, kern, plain, lib, nbytes_,
+                 tols=None, extra=None, library=None, dtype=f32):
+            for o in outs:
+                if o is not None and o.dim() == 2 and o.shape[1] > 1:
+                    check(not bool(o[dead].any()), f"{kernel} {name}: a "
+                          f"row tail or padding row is not 0")
+            return dict(kernel=kernel, case=f"{size}, {name}", dtype=dtype,
+                        cmp=compare(outs, refs, extra, tols), kern=kern,
+                        plain=plain, lib=lib, nbytes=nbytes_,
+                        ops=8 * group.rows * 1024, headline=headline,
+                        iters=iters, plain_iters=plain_iters,
+                        library=library)
+
+        # ---- row 14: scale, scale_sumsq, axpby, row sums; the gradients
+        # at the dynamic scaler's first scale, so the outputs are of order 1
+        s = torch.tensor([_PK_SCALE], device=dev)
+        a1 = torch.ones(1, device=dev)
+        for gdt in gdts:
+            x = _pk_buf(live, gen, 1.0 / _PK_SCALE, gdt)
+            t = tree_of(group, x)
+            out, found = mt.scale_packed(t, s, f32)
+            ro, rfound = mt.scale_plain(x, s, f32)
+            check(not bool(found) and not bool(rfound),
+                  "scale: a clean buffer tripped the flag")
+            # a copy: the amp unscale scales it in place at every call
+            x32 = x.to(torch.float32, copy=True)
+            amp_flag = torch.zeros(1, device=dev)
+            yield case(
+                "scale", f"{str(gdt)[6:]} -> float32, s 2^-16",
+                list(out.buffers), [ro],
+                lambda t=t: mt.scale_packed(t, s, f32),
+                lambda x=x: mt.scale_plain(x, s, f32),
+                lambda x32=x32, amp_flag=amp_flag:
+                    torch._amp_foreach_non_finite_check_and_unscale_(
+                        [x32], amp_flag, s),
+                nbytes(x, out.buffers[0]), library="the amp unscale, in "
+                "place on an fp32 copy", dtype=gdt)
+            out, found, (rsq,) = mt.scale_sumsq_packed(t, s, f32)
+            ro, _, rr = mt.scale_plain(x, s, f32, sumsq=True)
+            check(not bool(found), "scale_sumsq: a clean buffer tripped "
+                  "the flag")
+            yield case(
+                "scale_sumsq", f"{str(gdt)[6:]} -> float32, s 2^-16",
+                [out.buffers[0], rsq], [ro, rr],
+                lambda t=t: mt.scale_sumsq_packed(t, s, f32),
+                lambda x=x: mt.scale_plain(x, s, f32, sumsq=True), None,
+                nbytes(x, out.buffers[0], rsq),
+                tols=[None, _PK_SUMS_TOL], extra=[None, _l1_tol(rr)],
+                dtype=gdt)
+            y = _pk_buf(live, gen)
+            ty = tree_of(group, y)
+            out, found = mt.axpby_packed(ty, t, 1.0, _PK_SCALE, f32)
+            ro, _ = mt.axpby_plain(y, x, a1, s, f32)
+            check(not bool(found), "axpby: a clean buffer tripped the flag")
+            yield case(
+                "axpby", f"float32 + 2^-16 x {str(gdt)[6:]} -> float32",
+                list(out.buffers), [ro],
+                lambda ty=ty, t=t: mt.axpby_packed(ty, t, 1.0, _PK_SCALE,
+                                                   f32),
+                lambda y=y, x=x: mt.axpby_plain(y, x, a1, s, f32),
+                lambda y=y, x=x: torch.add(y, x, alpha=_PK_SCALE),
+                nbytes(x, y, out.buffers[0]),
+                library="torch.add(y, x, alpha=b)")
+            if not headline:
+                # an inf, then a nan, in the last live element of the
+                # last live row: every pass's flag trips
+                last = max(ls.row_start * 1024 + ls.numel - 1
+                           for ls in group.leaf_specs)
+                for bad in (float("inf"), float("nan")):
+                    xb = x.clone()
+                    xb.view(-1)[last] = bad
+                    tb = tree_of(group, xb)
+                    flags = [bool(mt.scale_packed(tb, s, f32)[1]),
+                             bool(mt.scale_sumsq_packed(tb, s, f32)[1]),
+                             bool(mt.axpby_packed(ty, tb, 1.0, 1.0, f32)[1]),
+                             bool(mt.scale_plain(xb, s, f32)[1])]
+                    log(f"  {size}, {str(gdt)[6:]}: {bad} in the last live "
+                        f"row: flags scale, scale_sumsq, axpby, plain "
+                        f"{flags}")
+                    check(all(flags), f"{bad} did not trip every flag")
+        p = _pk_buf(live, gen)
+        r = mt.row_sumsq(p)
+        rr = mt.row_sumsq_plain(p)
+        yield case("row_sumsq", "float32 masters", [r], [rr],
+                   lambda p=p: mt.row_sumsq(p),
+                   lambda p=p: mt.row_sumsq_plain(p),
+                   lambda p=p: torch.linalg.vector_norm(p, dim=1),
+                   nbytes(p, r), tols=[_PK_SUMS_TOL], extra=[_l1_tol(rr)],
+                   library="torch.linalg.vector_norm(dim=1), the row norms")
+
+        # ---- row 15: the updates, fp32 masters and states
+        wd = _pk_col(group, live, gen)
+        for gdt in ((f32,) if headline else (bf, f32)):
+            p = _pk_buf(live, gen)
+            g = _pk_buf(live, gen, 1.0, gdt)
+            m = _pk_buf(live, gen)
+            v = _pk_buf(live, gen, positive=True)
+            gname = f"grad {str(gdt)[6:]}"
+            for skip in ([0.0] if headline else [0.0, 1.0]):
+                sv = ok.scalar_vector(_PK_ADAM + [skip], dev)
+                outs = ok.adam_update(p, g, m, v, wd, sv, True)
+                refs = ok.adam_plain(p, g, m, v, wd, sv, True)
+                pl, gl = p.clone(), g.float()
+                ml, vl = m.clone(), v.clone()
+                step = torch.tensor(3.0, device=dev)
+                yield case(
+                    "adam_update", f"{gname}, AdamW, skip slot {skip}", outs,
+                    refs,
+                    lambda sv=sv, p=p, g=g, m=m, v=v: ok.adam_update(
+                        p, g, m, v, wd, sv, True),
+                    lambda sv=sv, p=p, g=g, m=m, v=v: ok.adam_plain(
+                        p, g, m, v, wd, sv, True),
+                    _yardstick("torch._fused_adamw_", lambda pl=pl, gl=gl,
+                               ml=ml, vl=vl, step=step: torch._fused_adamw_(
+                                   [pl], [gl], [ml], [vl], [], [step],
+                                   lr=1e-3, beta1=0.9, beta2=0.999,
+                                   weight_decay=0.01, eps=1e-8, amsgrad=False,
+                                   maximize=False)),
+                    nbytes(p, g, m, v, *outs), library="torch._fused_adamw_"
+                    " in place, fp32 gradients")
+            if not headline:
+                # the skip slot with an inf and a nan gradient: frozen
+                gi = g.clone()
+                gi[0, 0], gi[1, 1] = float("inf"), float("nan")
+                d, m2, v2 = ok.adam_update(
+                    p, gi, m, v, wd, ok.scalar_vector(_PK_ADAM + [1.0], dev),
+                    True)
+                frozen = (not bool(d.any()) and torch.equal(m2, m)
+                          and torch.equal(v2, v))
+                log(f"  {size}, {gname}: Adam skip slot with an inf "
+                    f"gradient: delta, m, v "
+                    f"{'bit-frozen' if frozen else 'CHANGED'}")
+                check(frozen, "Adam's skip slot changed a buffer")
+            sv = ok.scalar_vector(_PK_SGD, dev)
+            outs = ok.sgd_update(p, g, m, wd, sv, False, False, True)
+            refs = ok.sgd_plain(p, g, m, wd, sv, False, False, True)
+            fused_sgd = getattr(torch, "_fused_sgd_", None)
+            pl, gl, bl = p.clone(), g.float(), m.clone()
+            yield case(
+                "sgd_update", f"{gname}, momentum 0.9, dampening 0.1", outs,
+                refs,
+                lambda sv=sv, p=p, g=g, m=m: ok.sgd_update(
+                    p, g, m, wd, sv, False, False, True),
+                lambda sv=sv, p=p, g=g, m=m: ok.sgd_plain(
+                    p, g, m, wd, sv, False, False, True),
+                _yardstick("torch._fused_sgd_", None if fused_sgd is None
+                           else (lambda pl=pl, gl=gl, bl=bl: fused_sgd(
+                               [pl], [gl], [bl], weight_decay=0.01,
+                               momentum=0.9, lr=1e-3, dampening=0.1,
+                               nesterov=False, maximize=False,
+                               is_first_step=False))),
+                nbytes(p, g, m, *outs), library="torch._fused_sgd_ in place")
+            sv = ok.scalar_vector(_PK_ADAGRAD, dev)
+            outs = ok.adagrad_update(p, g, v, wd, sv, True)
+            refs = ok.adagrad_plain(p, g, v, wd, sv, True)
+            fused_adagrad = getattr(torch, "_fused_adagrad_", None)
+            pl, gl, hl = p.clone(), g.float(), v.clone()
+            yield case(
+                "adagrad_update", f"{gname}, decoupled decay", outs, refs,
+                lambda sv=sv, p=p, g=g, v=v: ok.adagrad_update(
+                    p, g, v, wd, sv, True),
+                lambda sv=sv, p=p, g=g, v=v: ok.adagrad_plain(
+                    p, g, v, wd, sv, True),
+                _yardstick("torch._fused_adagrad_",
+                           None if fused_adagrad is None else (
+                               lambda pl=pl, gl=gl, hl=hl, step=step:
+                               fused_adagrad([pl], [gl], [hl], [step],
+                                             lr=1e-3, lr_decay=0.0,
+                                             weight_decay=0.01, eps=1e-10,
+                                             maximize=False))),
+                nbytes(p, g, v, *outs), library="torch._fused_adagrad_ in "
+                "place")
+            vcol = _pk_col(group, live, gen, 1.0)
+            sv = ok.scalar_vector(_PK_NOVOGRAD, dev)
+            for reg in (False,) if headline else (False, True):
+                outs = ok.novograd_update(p, g, m, vcol, wd, sv, reg)
+                refs = ok.novograd_plain(p, g, m, vcol, wd, sv, reg)
+                yield case(
+                    "novograd_update", f"{gname}, reg_inside_moment {reg}",
+                    outs, refs,
+                    lambda sv=sv, p=p, g=g, m=m, reg=reg: ok.novograd_update(
+                        p, g, m, vcol, wd, sv, reg),
+                    lambda sv=sv, p=p, g=g, m=m, reg=reg: ok.novograd_plain(
+                        p, g, m, vcol, wd, sv, reg),
+                    None, nbytes(p, g, m, *outs))
+            sv = ok.scalar_vector(_PK_LAMB1, dev)
+            outs = ok.lamb_stage1(p, g, m, v, wd, sv, True)
+            refs = ok.lamb1_plain(p, g, m, v, wd, sv, True)
+            yield case(
+                "lamb_stage1", f"{gname}, AdamW, clip 0.7", outs, refs,
+                lambda sv=sv, p=p, g=g, m=m, v=v: ok.lamb_stage1(
+                    p, g, m, v, wd, sv, True),
+                lambda sv=sv, p=p, g=g, m=m, v=v: ok.lamb1_plain(
+                    p, g, m, v, wd, sv, True),
+                None, nbytes(p, g, m, v, *outs))
+            u = outs[0]
+            ratio = _pk_col(group, live, gen, 1.0)
+            lr = torch.tensor([0.5], device=dev)
+            scaled = -0.5 * ratio
+            (d,) = ok.lamb_stage2(u, ratio, lr)
+            yield case(
+                "lamb_stage2", f"{gname}'s u, a ratio a tensor", [d],
+                list(ok.lamb2_plain(u, ratio, lr)),
+                lambda u=u, ratio=ratio: ok.lamb_stage2(u, ratio, lr),
+                lambda u=u, ratio=ratio: ok.lamb2_plain(u, ratio, lr),
+                lambda u=u, scaled=scaled: torch.mul(u, scaled),
+                nbytes(u, d), library="torch.mul(u, column): the column "
+                "pre-scaled by -lr")
+
+
 CASE_GROUPS = dict(ln=ln_cases, seg=seg_cases, decode=decode_cases,
                    paged=paged_decode_cases, train_ln=train_ln_cases,
                    flash=flash_cases,
@@ -1995,7 +2366,8 @@ CASE_GROUPS = dict(ln=ln_cases, seg=seg_cases, decode=decode_cases,
                    lamb=lamb_cases,
                    unpacked=lambda dev: itertools.chain(
                        unpacked_cases(dev), unpacked_vs_packed_cases(dev)),
-                   seg_train=seg_train_cases, softmax=softmax_cases)
+                   seg_train=seg_train_cases, softmax=softmax_cases,
+                   packed=packed_cases)
 
 
 def run_kernel_phase(dev, generators):
@@ -2543,14 +2915,18 @@ def _train_batch(cfg, batch, seq):
     return torch.from_numpy(tokens), torch.from_numpy(np.roll(tokens, -1, 1))
 
 
-def _trainer(cfg, device, lr):
+def _trainer(cfg, device, lr, opt=None):
+    """``(step, state, scaler state)`` over seeded random weights, with
+    ``opt`` (default: bench.py's MixedPrecisionAdam(lr, wd 0.01))."""
     from rocm_apex_tpu_torch.amp import LossScaler
     from rocm_apex_tpu_torch.convert import (random_params,
                                              train_state_from_jax_params)
     from rocm_apex_tpu_torch.optimizers import MixedPrecisionAdam
     from rocm_apex_tpu_torch.train import make_train_step
 
-    opt = MixedPrecisionAdam(lr, weight_decay=0.01, compute_dtype=cfg.dtype)
+    if opt is None:
+        opt = MixedPrecisionAdam(lr, weight_decay=0.01,
+                                 compute_dtype=cfg.dtype)
     scaler = LossScaler("dynamic")
     model, state = train_state_from_jax_params(
         random_params(cfg, seed=0), cfg, opt, device=device)
@@ -2590,16 +2966,18 @@ def run_train_parity_phase(impl="flash"):
                 skips_cuda=sc, skips_cpu=sp)
 
 
-def run_train_phase(profile, impl="flash", calls=TRAIN_CALLS_PER_STEP):
-    """The GPT train cell under ``impl`` (the model's attention_impl);
-    ``calls``: each kernel's wrapper calls a step."""
+def run_train_phase(profile, impl="flash", calls=TRAIN_CALLS_PER_STEP,
+                    opt=None):
+    """The GPT train cell under ``impl`` (the model's attention_impl),
+    with ``opt`` (default MixedPrecisionAdam); ``calls``: each kernel's
+    wrapper calls a step."""
     from rocm_apex_tpu_torch.models.gpt import GPTConfig
     from rocm_apex_tpu_torch.ops._build import KERNELS
 
     cfg = GPTConfig(**TRAIN, params_dtype=torch.float32,
                     dtype=torch.bfloat16, attention_impl=impl)
     t0 = time.perf_counter()
-    step, state, sstate = _trainer(cfg, "cuda", 1e-4)
+    step, state, sstate = _trainer(cfg, "cuda", 1e-4, opt)
     setup_s = time.perf_counter() - t0
     tokens, labels = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
     tokens, labels = tokens.cuda(), labels.cuda()
@@ -3237,6 +3615,225 @@ def run_fused_softmax_parity_phase():
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 16 and 17: the packed optimizer step
+# ---------------------------------------------------------------------------
+
+
+def _packed_ops(grads, master, sstate):
+    """The packed ops a caller reaches outside the step, on one step's
+    gradients (by name) and the packed masters: the scaler's
+    `unscale_packed`, `multi_tensor_applier`'s axpby and per-tensor
+    l2norm, and the SGD, Adagrad and NovoGrad updates over the buffers.
+    Returns every output, flattened to a list of tensors."""
+    from rocm_apex_tpu_torch.amp import LossScaler
+    from rocm_apex_tpu_torch.multi_tensor_apply import (
+        multi_tensor_applier, multi_tensor_axpby, multi_tensor_l2norm)
+    from rocm_apex_tpu_torch.ops import optim_kernels as ok
+    from rocm_apex_tpu_torch.ops.packing import pack_tree
+    from rocm_apex_tpu_torch.optimizers._common import wd_columns
+
+    pg = pack_tree(grads)
+    unscaled, found = LossScaler().unscale_packed(sstate, pg)
+    axpby, found2 = multi_tensor_applier(multi_tensor_axpby, None,
+                                         [grads, grads, None], 1.0, 0.5)
+    norm, per = multi_tensor_applier(multi_tensor_l2norm, None, [grads],
+                                     True)
+    p, g = master[0], unscaled.buffers[0]
+    (wd,) = wd_columns(pg.spec, 0.01, None, p.device)
+    vcol = wd + 1.0
+    outs = [*unscaled.buffers, found, *axpby.values(), found2, norm,
+            *per.values()]
+    outs += ok.sgd_update(p, g, p * 0.5, wd, [1e-4, 0.9, 0.0, 0.0, 1.0],
+                          True, False, True)
+    outs += ok.adagrad_update(p, g, p * p, wd, [1e-4, 1e-10, 1.0], False)
+    outs += ok.novograd_update(p, g, p * 0.5, vcol, wd,
+                               [1e-4, 0.95, 0.05, 1e-8, 0.05, 0.04, 1.0],
+                               False)
+    return outs
+
+
+def _master_err(card, cpu, initial, spec, lr):
+    """The worst ratio of |card - cpu| to the packed parity's tolerance
+    over the packed masters, and where it falls (leaf, element, the three
+    values)."""
+    from rocm_apex_tpu_torch.ops.packing import WIDTH
+
+    worst, where = 0.0, None
+    for mc, mp, m0, group in zip(card, cpu, initial, spec.groups):
+        tol = (PACKED_MASTER_RTOL * (m0.abs() + (mp - m0).abs())
+               + PACKED_MASTER_LR_SHARE * lr)
+        r = ((mc - mp).abs() / tol).view(-1)
+        i = int(r.argmax())
+        if float(r[i]) > worst:
+            j = max(k for k, ls in enumerate(group.leaf_specs)
+                    if ls.row_start * WIDTH <= i)
+            off = i - group.leaf_specs[j].row_start * WIDTH
+            worst = float(r[i])
+            where = (f"{spec.treedef[group.leaf_indices[j]]}[{off}] (cuda "
+                     f"{float(mc.view(-1)[i]):.9g}, cpu "
+                     f"{float(mp.view(-1)[i]):.9g}, initial "
+                     f"{float(m0.view(-1)[i]):.9g})")
+    return worst, where
+
+
+def run_train_packed_parity_phase():
+    """`PackedOptimizerStep` on the train parity config (full width, 2
+    layers, S 256, B 2, fp32, TF32 off, dropout 0): Adam (weight decay
+    0.01; eps 1e-6, as the CPU tests', so that fp32 noise on a near-zero
+    gradient cannot flip a normalized step) and LAMB (max_grad_norm 1.0),
+    three steps on the card against the CPU, then one step with an inf in
+    a gradient. Losses within PARITY_LOSS_RTOL, the same skips, masters
+    within `PACKED_MASTER_RTOL` of |master| + |applied step| and
+    `PACKED_MASTER_LR_SHARE` of an lr step, the inf step found and
+    bit-frozen on both. Then the packed ops outside the
+    step (`_packed_ops`) on the card's last gradients, card against CPU
+    on the same inputs."""
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+    from rocm_apex_tpu_torch.ops._build import KERNELS
+    from rocm_apex_tpu_torch.ops.packing import build_pack_spec
+    from rocm_apex_tpu_torch.optimizers import PackedOptimizerStep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig(**{**TRAIN, "num_layers": PARITY_TRAIN["num_layers"],
+                       "hidden_dropout": 0.0, "attention_dropout": 0.0},
+                    params_dtype=torch.float32, dtype=torch.float32)
+    tokens, labels = _train_batch(cfg, PARITY_TRAIN["batch"],
+                                  PARITY_TRAIN["seq"])
+    for k in KERNELS:
+        k.launches = 0
+    res = {}
+    for name, kw in (("adam", dict(weight_decay=0.01, eps=1e-6)),
+                     ("lamb", dict(weight_decay=0.01, max_grad_norm=1.0))):
+        runs = {}
+        for dev in (CARD, "cpu"):
+            opt = PackedOptimizerStep(name, 1e-4, compute_dtype=torch.float32,
+                                      **kw)
+            step, state, sstate = _trainer(cfg, dev, 1e-4, opt)
+            master0 = [b.cpu() for b in state.master]
+            spec = build_pack_spec(state.model)
+            losses, skips = [], []
+            for _ in range(PARITY_TRAIN["steps"]):
+                over = sstate.overflows
+                state, sstate, loss = step(state, sstate, tokens, labels)
+                losses.append(float(loss))
+                skips.append(int(sstate.overflows - over))
+            if name == "adam" and dev == CARD:
+                grads = {k: t.grad for k, t in state.model.items()}
+                ops_in = (grads, state.master, sstate)
+            keep = [[b.clone() for b in getattr(state, n)]
+                    for n in ("master", "m", "v")]
+            count = int(state.count)
+            grads = {k: torch.full_like(t, 1e-3)
+                     for k, t in state.model.items()}
+            grads["embedding.word_embeddings.weight"][7, 7] = float("inf")
+            state, inf = opt.step_and_probe(state, grads, grad_scale=1.0)
+            frozen = bool(inf) and int(state.count) == count and all(
+                torch.equal(a, b) for n, kept in zip(("master", "m", "v"),
+                                                     keep)
+                for a, b in zip(getattr(state, n), kept))
+            runs[dev] = dict(losses=losses, skips=skips, frozen=frozen,
+                             master=[b.cpu() for b in state.master])
+        rc, rp = runs[CARD], runs["cpu"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(rc["losses"],
+                                                     rp["losses"]))
+        ratio, worst = _master_err(rc["master"], rp["master"], master0,
+                                   spec, 1e-4)
+        log(f"  {name}: losses cuda {rc['losses']}, cpu {rp['losses']}: "
+            f"max relative difference {rel:.3e} (rtol {PARITY_LOSS_RTOL:g});"
+            f" skips cuda {rc['skips']}, cpu {rp['skips']}; masters worst "
+            f"err/tol {ratio:.3f} at {worst} (tol {PACKED_MASTER_RTOL:g} x "
+            f"(|master| + |step|) + {PACKED_MASTER_LR_SHARE:g} x lr); inf "
+            f"step bit-frozen cuda {rc['frozen']}, cpu {rp['frozen']}")
+        check(all(math.isfinite(x) for x in rc["losses"] + rp["losses"]),
+              "nonfinite packed parity loss")
+        check(rel <= PARITY_LOSS_RTOL, f"{name}: losses differ by {rel:.3e}")
+        check(rc["skips"] == rp["skips"], f"{name}: skips differ")
+        check(ratio <= 1.0, f"{name}: masters differ by {ratio:.3g}x the "
+              f"tolerance")
+        check(rc["frozen"] and rp["frozen"], f"{name}: the inf step changed "
+              f"the state")
+        res[name] = dict(losses_cuda=rc["losses"], losses_cpu=rp["losses"],
+                         max_rel_diff=rel, skips_cuda=rc["skips"],
+                         skips_cpu=rp["skips"], master_err_over_tol=ratio,
+                         inf_step_frozen=True)
+    # the ops outside the step, card against CPU on the card's inputs
+    grads, master, sstate = ops_in
+    card = _packed_ops(grads, master, sstate)
+    cpu = _packed_ops({k: t.cpu() for k, t in grads.items()},
+                      [b.cpu() for b in master],
+                      type(sstate)(*(t.cpu() for t in sstate)))
+    worst = max(float((a.float().cpu() - b.float()).abs().max())
+                / (float(b.float().abs().max()) + 1e-30)
+                for a, b in zip(card, cpu))
+    log(f"  unscale_packed, axpby, l2norm, sgd, adagrad, novograd on the "
+        f"last gradients: card vs cpu worst |err| / max|cpu| {worst:.3e} "
+        f"(limit 1e-5: the norms' sums in two orders)")
+    check(worst <= 1e-5, f"the packed ops differ card vs cpu by {worst:.3e}")
+    res["packed_ops_rel_err"] = worst
+    res["launches"] = {k.name: k.launches for k in KERNELS
+                       if k.name in PACKED_KERNELS}
+    log(f"  card launches: {res['launches']}")
+    for k, n in res["launches"].items():
+        check(n > 0, f"{k} was not launched on the card")
+    return res
+
+
+def run_train_packed_phase(profile, report):
+    """The train cell with `PackedOptimizerStep("adam", 1e-4,
+    weight_decay=0.01)`, as bench.py gpt --packed-update sets it
+    (bench.py:2696): the train phase's 5 + 20 steps and checks, 1
+    scale_sumsq and 1 adam_update call a step (one bf16 group) and no LAMB
+    call; beside it the train phase's step ms from this call. Then the
+    bare update phase on fixed bf16 gradients p * 1e-3 + 1e-5
+    (bench.py:2699-2701), `MixedPrecisionAdam` and `PackedOptimizerStep`
+    in turns (mixed, packed, packed, mixed): the host-clock time of a
+    call (`cuda_ms`) and the device time (`device_ms`)."""
+    from rocm_apex_tpu_torch.convert import flatten_params, random_params
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+    from rocm_apex_tpu_torch.optimizers import (MixedPrecisionAdam,
+                                                PackedOptimizerStep)
+
+    res = run_train_phase(
+        profile, calls=PACKED_TRAIN_CALLS_PER_STEP,
+        opt=PackedOptimizerStep("adam", 1e-4, weight_decay=0.01))
+    train_ms = report.get("train", {}).get("step_ms")
+    res["train_step_ms_same_call"] = train_ms
+    log(f"  packed step {res['step_ms']:.2f} ms against the train phase's "
+        f"{'not run' if train_ms is None else f'{train_ms:.2f} ms'} in this "
+        f"call")
+    torch.cuda.empty_cache()
+
+    cfg = GPTConfig(**TRAIN, params_dtype=torch.float32, dtype=torch.bfloat16)
+    params = {k: torch.from_numpy(v).cuda() for k, v in flatten_params(
+        random_params(cfg, seed=0)["params"]).items()}
+    grads = {k: (p * 1e-3 + 1e-5).to(torch.bfloat16)
+             for k, p in params.items()}
+    opts = {"mixed": MixedPrecisionAdam(1e-4, weight_decay=0.01),
+            "packed": PackedOptimizerStep("adam", 1e-4, weight_decay=0.01)}
+    states = {k: o.init(params) for k, o in opts.items()}
+    n_params = sum(p.numel() for p in params.values())
+    del params
+
+    def update(which):
+        states[which], _ = opts[which].step_and_probe(
+            states[which], grads, grad_scale=1.0)
+
+    times = {k: {"call_ms": [], "device_ms": []} for k in opts}
+    for which in ("mixed", "packed", "packed", "mixed"):
+        times[which]["call_ms"].append(cuda_ms(lambda: update(which), 20))
+        times[which]["device_ms"].append(
+            device_ms(lambda: update(which), 20))
+    res["update_phase"] = times
+    log(f"  bare update phase (fixed bf16 gradients, {n_params} "
+        f"parameters), mixed / packed / packed / mixed: " + "; ".join(
+            f"{k} call {v['call_ms'][0]:.3f}, {v['call_ms'][1]:.3f} ms, "
+            f"device {v['device_ms'][0]:.3f}, {v['device_ms'][1]:.3f} ms"
+            for k, v in times.items()))
+    return res
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3305,8 +3902,8 @@ def main(argv=None):
     phases = list(only)
     from rocm_apex_tpu_torch.ops import (flash_attention,  # noqa: F401
                                          flash_attention_segments,
-                                         layer_norm, optim_kernels, softmax,
-                                         xentropy)
+                                         layer_norm, multi_tensor,
+                                         optim_kernels, softmax, xentropy)
     groups = (only["kernels"].split("+") if only.get("kernels")
               else list(CASE_GROUPS))
     runs = {
@@ -3379,6 +3976,17 @@ def main(argv=None):
             f"{TRAIN_WARMUP} warm-up + {TRAIN_STEPS} timed steps)",
             lambda: run_bert_train_masked_phase(args.profile,
                                                 "fused_softmax")),
+        "train_packed_parity": (
+            "train packed parity (PackedOptimizerStep, 2 layers, S 256, B 2, "
+            "fp32, TF32 off: Adam and LAMB, 3 steps cuda vs cpu, then an inf "
+            "gradient; the packed ops outside the step)",
+            run_train_packed_parity_phase),
+        "train_packed": (
+            f"train packed (the train cell with PackedOptimizerStep('adam'): "
+            f"8 layers, bf16, B {TRAIN_BATCH} x S {TRAIN_SEQ}, dropout 0.1: "
+            f"{TRAIN_WARMUP} warm-up + {TRAIN_STEPS} timed steps; the bare "
+            f"update phase beside MixedPrecisionAdam's)",
+            lambda: run_train_packed_phase(args.profile, report)),
     }
     report["phase_s"] = {}
     for phase in PHASES:
@@ -3423,6 +4031,9 @@ def main(argv=None):
             path = "train_fused_softmax"
         if k.name == "softmax_masked_fwd":
             path = "bert_train_masked_fused_softmax"
+        if k.name in PACKED_KERNELS:
+            path = ("train_packed" if PACKED_TRAIN_CALLS_PER_STEP.get(k.name)
+                    else "train_packed_parity")
         where, _, _ = k.replaces.partition(" ")
         kernels.append(dict(
             name=k.name, route="cuda",

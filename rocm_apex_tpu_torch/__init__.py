@@ -3,15 +3,17 @@
 The JAX package ``rocm_apex_tpu`` is the reference; this package keeps
 its module names so each part can be found beside its counterpart, and
 imports nothing from it. Ported so far, the KV-cached serving path, the
-GPT training step and the BERT masked-LM training step:
+GPT training step (with the per-leaf or the packed optimizer step) and
+the BERT masked-LM training step:
 
     ops            hand-written sm_90a CUDA kernels (csrc/), built with
                    nvcc at first use and bound with ctypes, each with a
                    plain PyTorch version used for CPU tensors (LayerNorm,
                    the attention kernels, the scaled causal and masked
                    softmax, the label-smoothed cross-entropy, the LAMB
-                   stage pair); the chunked fused
-                   linear+cross-entropy head (plain PyTorch)
+                   stage pair, the packed-buffer multi-tensor passes and
+                   optimizer updates); the packed layout; the chunked
+                   fused linear+cross-entropy head (plain PyTorch)
     normalization  `MixedFusedLayerNorm` (forward and backward)
     transformer    tensor-parallel linear/embedding layers at world size 1;
                    `functional.FusedScaleMaskSoftmax`, the enums
@@ -21,9 +23,12 @@ GPT training step and the BERT masked-LM training step:
                    masked-LM forward, with or without a padding mask
     inference      `KVCache`, sampling, the continuous-batching
                    `InferenceEngine` (chunked prefill)
-    amp            the dynamic `LossScaler`
+    amp            the dynamic `LossScaler` (its packed unscale too)
     optimizers     `MixedPrecisionAdam`, `MixedPrecisionLamb` (fp32 masters,
-                   compute-dtype model)
+                   compute-dtype model); `PackedOptimizerStep`,
+                   `packed_adam`, `packed_lamb` (masters and moments in
+                   packed buffers)
+    multi_tensor_apply  `multi_tensor_applier` over the packed ops
     train          `make_train_step` (GPT), `make_bert_train_step`: one
                    mixed-precision training step
     convert        the weight (and optimizer-state) bridge from the JAX

@@ -75,6 +75,16 @@ class LossScaler:
     def loss_scale(self, state: ScalerState) -> torch.Tensor:
         return state.loss_scale
 
+    def unscale_packed(self, state: ScalerState, packed_grads):
+        """Unscale a `PackedTree` of gradient buffers to fp32 and probe it
+        for inf/nan in one pass over each dtype buffer (ops/multi_tensor.py
+        `scale_packed`: the multiply and the probe ride one read). Returns
+        ``(unscaled_packed_f32, found_inf)``, found_inf a device bool."""
+        from rocm_apex_tpu_torch.ops.multi_tensor import scale_packed
+
+        return scale_packed(packed_grads, 1.0 / state.loss_scale,
+                            torch.float32)
+
     def update(
         self, state: ScalerState, found_inf: torch.Tensor
     ) -> Tuple[ScalerState, torch.Tensor]:

@@ -15,7 +15,8 @@ LayerNorm parameters in ``params_dtype``). A `BertConfig` selects
 `train_state_from_jax_params` builds the training state instead: fp32
 masters from the tree and the model's parameters (all of them) in the
 compute dtype; with ``opt_state`` it carries an optimizer state across
-(moments and count), so both sides step from the same state.
+(moments and count, or a packed state's buffers), so both sides step
+from the same state.
 
 `random_params` draws the same tree with numpy from a seed, with the
 JAX model's initializers: normal(``init_method_std``) for the
@@ -91,23 +92,45 @@ def train_state_from_jax_params(
     cfg: GPTConfig,
     opt,
     device: Optional[Union[str, torch.device]] = None,
-    opt_state: Optional[Dict[str, Any]] = None,
+    opt_state: Optional[Any] = None,
 ) -> Tuple[Union[GPTModel, BertModel], Any]:
     """``(model, state)`` for training from the JAX param tree: ``state =
-    opt.init(fp32 leaves of the tree, model)`` (a `MixedPrecisionAdam` or
-    `MixedPrecisionLamb`), so the masters are the tree's values exactly
-    and every model parameter holds its master cast to the optimizer's
-    compute dtype. ``opt_state`` carries a JAX optimizer state across:
-    ``{"m": tree, "v": tree, "count": int}`` shaped like the params
-    (with or without a ``'params'`` level); the moments land in the
-    dtype the optimizer keeps them in."""
+    opt.init(fp32 leaves of the tree, model)`` (a `MixedPrecisionAdam`,
+    `MixedPrecisionLamb` or `PackedOptimizerStep`), so the masters are
+    the tree's values exactly and every model parameter holds its master
+    cast to the optimizer's compute dtype.
+
+    ``opt_state`` carries a JAX optimizer state across. For the
+    per-parameter optimizers: ``{"m": tree, "v": tree, "count": int}``
+    shaped like the params (with or without a ``'params'`` level); the
+    moments land in the dtype the optimizer keeps them in. For a
+    `PackedOptimizerStep`: the JAX ``PackedStepState`` (or a dict with its
+    ``master``, ``m``, ``v`` and ``count``), whose packed buffers become
+    the port's as they are (the two layouts are one, ops/packing.py), and
+    the model's parameters are then set from those masters."""
     model = from_jax_params(tree, cfg, device=device)
     params = {
         k: torch.tensor(np.asarray(v, dtype=np.float32), device=model.device)
         for k, v in flatten_params(tree.get("params", tree)).items()
     }
     state = opt.init(params, model)
-    if opt_state is not None:
+    if opt_state is None:
+        return model, state
+    if hasattr(opt_state, "_asdict"):
+        opt_state = opt_state._asdict()
+    if isinstance(state.master, tuple):  # packed buffers, one a group
+        for name in ("master", "m", "v"):
+            src, dst = opt_state[name], getattr(state, name)
+            shapes = [tuple(np.shape(b)) for b in src]
+            if shapes != [tuple(b.shape) for b in dst]:
+                raise ValueError(
+                    f"opt_state[{name!r}] has buffers {shapes}, the port's "
+                    f"layout {[tuple(b.shape) for b in dst]}"
+                )
+            for d, b in zip(dst, src):
+                d.copy_(torch.tensor(np.asarray(b, dtype=np.float32)))
+        opt.write_model(state)
+    else:
         for name in ("m", "v"):
             src = flatten_params(opt_state[name].get("params",
                                                      opt_state[name]))
@@ -120,8 +143,8 @@ def train_state_from_jax_params(
                 )
             for k, v in src.items():
                 dst[k].copy_(torch.tensor(np.asarray(v, dtype=np.float32)))
-        state = state._replace(count=torch.full_like(
-            state.count, int(opt_state["count"])))
+    state = state._replace(count=torch.full_like(
+        state.count, int(opt_state["count"])))
     return model, state
 
 

@@ -46,25 +46,6 @@ class MixedPrecisionState(NamedTuple):
     v: Dict[str, torch.Tensor]
 
 
-def _masters_and_compute(params, model, compute_dtype):
-    """``(master, compute)``: fp32 copies of ``params`` and their compute
-    copy. With ``model`` (an `nn.Module`), its parameters of the same
-    names are the compute copy, each set to its master cast to the
-    compute dtype; without, the copy is a dict of new tensors."""
-    master = {k: torch.as_tensor(p).detach().to(torch.float32).clone()
-              for k, p in params.items()}
-    if model is None:
-        return master, {k: p.to(compute_dtype) for k, p in master.items()}
-    named = dict(model.named_parameters())
-    missing = sorted(set(master) - set(named))
-    if missing:
-        raise KeyError(f"the model has no parameters {missing}")
-    for k, p in master.items():
-        named[k].data = p.to(device=named[k].device, dtype=compute_dtype)
-        master[k] = p.to(named[k].device)
-    return master, {k: named[k] for k in master}
-
-
 class MixedPrecisionAdam:
     """Fused Adam/AdamW over mixed-precision train state; the JAX
     package's hyperparameters and defaults. ``weight_decay_mask`` maps
@@ -98,7 +79,7 @@ class MixedPrecisionAdam:
         the same names become the compute copy: each is set to its
         master cast to the compute dtype. Without, the compute copy is a
         dict of new tensors."""
-        master, compute = _masters_and_compute(params, model,
+        master, compute = c.masters_and_compute(params, model,
                                                self.compute_dtype)
         device = next(iter(master.values())).device
         return MixedPrecisionState(
@@ -273,7 +254,7 @@ class MixedPrecisionLamb:
         """Masters are fp32 copies of ``params``; with ``model`` its
         parameters of the same names are set to the masters cast to the
         compute dtype (and are ``state.model`` when ``store_model``)."""
-        master, compute = _masters_and_compute(params, model,
+        master, compute = c.masters_and_compute(params, model,
                                                self.compute_dtype)
         device = next(iter(master.values())).device
         return MixedPrecisionState(
@@ -391,9 +372,9 @@ class MixedPrecisionLamb:
         kv = [state.v[k] for k in plan.kernel]
         kwd = [plan.wd[k] for k in plan.kernel]
         if plan.kernel:
-            _ok.lamb_stage1(kp, [g[k].contiguous() for k in plan.kernel],
-                            km, kv, scalars_a, kwd, self.adam_w_mode,
-                            out=sums[:nk])
+            _ok.lamb_leaves_stage1(
+                kp, [g[k].contiguous() for k in plan.kernel], km, kv,
+                scalars_a, kwd, self.adam_w_mode, out=sums[:nk])
         inv_bc1, inv_bc2 = 1.0 / bc1, 1.0 / bc2
         if plan.tree:
             # the small leaves as one flat buffer: a dozen launches for
@@ -434,7 +415,7 @@ class MixedPrecisionLamb:
         scalars_b = torch.cat(
             [plan.consts[3:], torch.stack([bc1, bc2, live])])
         if plan.kernel:
-            _ok.lamb_stage2(
+            _ok.lamb_leaves_stage2(
                 kp, km, kv, scalars_b, lr_ratio[:nk], kwd, self.adam_w_mode,
                 model_outs=(None if state.model is None
                             else [state.model[k] for k in plan.kernel]))

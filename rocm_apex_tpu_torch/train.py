@@ -1,18 +1,20 @@
 """One mixed-precision training step, for GPT and for BERT.
 
-`make_train_step` is the counterpart of ``make_one_step`` in the JAX package's bench.py
-(bench.py:2533-2578): the model's fused-head mean loss, scaled by the
-dynamic loss scale; backward; `MixedPrecisionAdam.step_and_probe` with
-``grad_scale = 1 / loss_scale`` (the unscale and the overflow probe ride
-the update); `LossScaler.update`. `make_bert_train_step` is the
-counterpart of ``one_step`` in ``build_bert_train`` (bench.py:270-284):
-the mean of `BertModel`'s per-token masked-LM losses; backward;
+`make_train_step` is the counterpart of ``make_one_step(opt)`` in the
+JAX package's bench.py (bench.py:2533-2578): the model's fused-head mean
+loss, scaled by the dynamic loss scale; backward; ``opt.step_and_probe``
+with ``grad_scale = 1 / loss_scale`` (the unscale and the overflow probe
+ride the update), ``opt`` a `MixedPrecisionAdam` or a
+`PackedOptimizerStep` (bench.py's ``--packed-update``);
+`LossScaler.update`. `make_bert_train_step` is the counterpart of
+``one_step`` in ``build_bert_train`` (bench.py:270-284): the mean of
+`BertModel`'s per-token masked-LM losses; backward;
 `MixedPrecisionLamb.step_and_probe` with no loss scaler (the global
 gradient norm is the overflow probe). Each step returns the unscaled
 loss as a device tensor and never reads a value back to the host.
 """
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -21,18 +23,21 @@ from rocm_apex_tpu_torch.optimizers import (
     MixedPrecisionAdam,
     MixedPrecisionLamb,
     MixedPrecisionState,
+    PackedOptimizerStep,
 )
 
 __all__ = ["make_bert_train_step", "make_train_step"]
 
 
-def make_train_step(model, opt: MixedPrecisionAdam,
+def make_train_step(model, opt: Union[MixedPrecisionAdam, PackedOptimizerStep],
                     scaler: LossScaler) -> Callable:
     """``step(state, sstate, tokens, labels, loss_mask=None,
     dropout_generator=None) -> (state, sstate, loss)``.
 
     ``state`` is the optimizer's state over ``model`` (see
-    `convert.train_state_from_jax_params`), ``sstate`` the scaler's.
+    `convert.train_state_from_jax_params`), ``sstate`` the scaler's; the
+    state's ``model`` holds the module's own parameters, so the gradients
+    are read by parameter name.
     Inputs move to the model's device (the one `resolve_device` chose
     when the model was built). With ``dropout_generator`` (a CPU
     `torch.Generator`) dropout is on, seeded per site from it; without,
@@ -41,7 +46,7 @@ def make_train_step(model, opt: MixedPrecisionAdam,
     device = model.device
     params = [p for p in model.parameters()]
 
-    def step(state: MixedPrecisionState, sstate: ScalerState,
+    def step(state, sstate: ScalerState,
              tokens: torch.Tensor, labels: torch.Tensor,
              loss_mask: Optional[torch.Tensor] = None,
              dropout_generator: Optional[torch.Generator] = None):

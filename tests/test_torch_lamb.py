@@ -150,10 +150,10 @@ def test_three_steps_match_jax(moment_dtype, store_model, monkeypatch):
     """Masters, moments, count, found_inf and the compute copy after 3
     steps; the kernel route really took the two large leaves."""
     calls = {"stage1": [], "stage2": []}
-    s1, s2 = tok.lamb_stage1, tok.lamb_stage2
-    monkeypatch.setattr(tok, "lamb_stage1", lambda ps, *a, **k: (
+    s1, s2 = tok.lamb_leaves_stage1, tok.lamb_leaves_stage2
+    monkeypatch.setattr(tok, "lamb_leaves_stage1", lambda ps, *a, **k: (
         calls["stage1"].append(len(ps)), s1(ps, *a, **k))[1])
-    monkeypatch.setattr(tok, "lamb_stage2", lambda ps, *a, **k: (
+    monkeypatch.setattr(tok, "lamb_leaves_stage2", lambda ps, *a, **k: (
         calls["stage2"].append(len(ps)), s2(ps, *a, **k))[1])
     jopt, jstate, opt, state = _states(moment_dtype, store_model)
     jstate, state = _run(jopt, jstate, opt, state)
@@ -392,8 +392,9 @@ def test_stage1_refuses_what_the_kernel_does_not_take(bad, match):
 
 
 def test_the_multi_leaf_calls_are_the_per_leaf_calls():
-    """`lamb_stage1` / `lamb_stage2` over a list of leaves give each leaf
-    what the per-leaf wrappers give it, with a trust ratio per leaf."""
+    """`lamb_leaves_stage1` / `lamb_leaves_stage2` over a list of leaves
+    give each leaf what the per-leaf wrappers give it, with a trust ratio
+    per leaf."""
     shapes = [(128, 512), (40, 7), (3,)]
     rng = np.random.default_rng(5)
     mk = lambda scale, pos=False: [torch.tensor(  # noqa: E731
@@ -406,8 +407,8 @@ def test_the_multi_leaf_calls_are_the_per_leaf_calls():
     s2 = s1[[3, 4, 5, 7]].contiguous()
     ratios = torch.tensor([1e-3, 2e-3, 3e-3])
     one = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
-    sums = tok.lamb_stage1(ps, gs, ms, vs, s1, wds, True)
-    tok.lamb_stage2(ps, ms, vs, s2, ratios, wds, True)
+    sums = tok.lamb_leaves_stage1(ps, gs, ms, vs, s1, wds, True)
+    tok.lamb_leaves_stage2(ps, ms, vs, s2, ratios, wds, True)
     assert sums.shape == (3, 2)
     for i in range(3):
         p, m, v = (ts[i] for ts in one)
@@ -417,6 +418,6 @@ def test_the_multi_leaf_calls_are_the_per_leaf_calls():
         assert torch.equal(p, ps[i]) and torch.equal(m, ms[i])
         assert torch.equal(v, vs[i])
     with pytest.raises(ValueError, match="lr_ratios"):
-        tok.lamb_stage2(ps, ms, vs, s2, ratios[:2], wds, True)
+        tok.lamb_leaves_stage2(ps, ms, vs, s2, ratios[:2], wds, True)
     with pytest.raises(ValueError, match="every leaf"):
-        tok.lamb_stage1(ps, gs[:2], ms, vs, s1, wds, True)
+        tok.lamb_leaves_stage1(ps, gs[:2], ms, vs, s1, wds, True)
