@@ -29,7 +29,11 @@ JAX package) through these phases, in order; any failure exits non-zero:
              every mask broadcast and with sq != sk; the ten packed-buffer
              kernels, multi-tensor passes and optimizer updates, at the
              train cell's packed buffer and on a ragged tree, with the
-             nonfinite flag, Adam's skip slot and the padding's zeros);
+             nonfinite flag, Adam's skip slot and the padding's zeros; the
+             fused bottleneck's four conv+BN kernels, every call of a
+             fused block with its flags, at ResNet-50's five stride-1
+             block shapes at B 128 and at a ragged M, W 2 and fp32, beside
+             the whole block fused and unfused);
              kernel, plain and library times with CUDA events, and the
              least time the card could take (bound);
 4. parity    the serving config at full width but 2 layers, fp32 with
@@ -127,16 +131,28 @@ JAX package) through these phases, in order; any failure exits non-zero:
              memory, one scale_sumsq and one adam_update call a step; the
              bare update phase on fixed gradients, `MixedPrecisionAdam`
              and `PackedOptimizerStep` in turns;
-18. report   a ``{"kernels": [...]}`` line, then the device line
+18. rn50_parity  the fused ResNet-50 step (bench.py rn50's widths, B
+             2 x 64 x 64, fp32, TF32 off, O0 with fp32 masters and a
+             dynamic scaler): the first step's gradients and three steps
+             on the card against the same on the CPU (see RN50_PARITY);
+19. rn50_train  bench.py rn50's step on an accelerator: ResNet-50, B 128
+             x 224 x 224, bf16 under amp O5, FusedAdam(1e-3, weight_decay
+             1e-4), every conv on F.conv2d: 5 warm-up and 20 timed steps;
+             images/s, step ms, losses, peak memory;
+20. rn50_train_fused  the same with --fused=1: the 13 stride-1 blocks on
+             the bottleneck kernels (27, 13, 27, 13 wrapper calls a step),
+             the ratio to rn50_train's step in the same call;
+21. report   a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
-spill report to DIR/chip_smoke.json. ``--profile`` adds profiled serve
+spill report to DIR/chip_smoke.json (what ran, also after a failure). ``--profile`` adds profiled serve
 (contiguous and paged) and train (GPT and BERT) windows that report the
 device's busy share. ``--only`` runs a subset of the phases (a check of
 one part; the full run is the smoke); ``kernels:xent+lamb`` there names a
 subset of the kernel phase's case groups (ln, seg, decode, paged,
-train_ln, flash, xent, lamb, unpacked, seg_train, softmax, packed).
+train_ln, flash, xent, lamb, unpacked, seg_train, softmax, packed,
+bottleneck).
 
 It needs one CUDA device and nvcc (CUDA_HOME, PATH or /usr/local/cuda).
 """
@@ -301,7 +317,7 @@ PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "bert_train_masked_parity", "bert_train_masked", "fmha",
           "xentropy", "fused_softmax_parity", "train_fused_softmax",
           "bert_train_masked_fused_softmax", "train_packed_parity",
-          "train_packed")
+          "train_packed", "rn50_parity", "rn50_train", "rn50_train_fused")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_attention_segments_with_lse",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -2358,6 +2374,319 @@ def packed_cases(dev):
                 "pre-scaled by -lr")
 
 
+# ---------------------------------------------------------------------------
+# the fused bottleneck (row 17)
+# ---------------------------------------------------------------------------
+
+# bench.py rn50 on an accelerator (bench.py:119-213): ResNet-50, NHWC
+# (128, 224, 224, 3), 1000 classes, bf16 under amp O5 with
+# FusedAdam(1e-3, weight_decay=1e-4); `fused=1` routes the 13 stride-1
+# bottlenecks through the fused kernels. Its five stride-1 block shapes:
+# (name, H = W, Cin, Cmid, Cout, downsample)
+RN50_BATCH, RN50_SIZE, RN50_CLASSES = 128, 224, 1000
+BNECK_SHAPES = [
+    ("layer1_0", 56, 64, 64, 256, True),
+    ("layer1_1,2", 56, 256, 64, 256, False),
+    ("layer2_1..3", 28, 512, 128, 512, False),
+    ("layer3_1..5", 14, 1024, 256, 1024, False),
+    ("layer4_1,2", 7, 2048, 512, 2048, False),
+]
+BNECK_HEADLINE = "layer3_1..5"  # the shape the step launches most
+BNECK_KERNELS = ("bneck_mm_fwd", "bneck_conv3_fwd", "bneck_mm_bwd",
+                 "bneck_conv3_bwd")
+# wrapper calls a fused step: 3 1x1 forwards (conv1, conv3, the
+# downsample of layer1_0) and backwards a block, 1 3x3 each
+RN50_FUSED_CALLS_PER_STEP = {"bneck_mm_fwd": 27, "bneck_conv3_fwd": 13,
+                             "bneck_mm_bwd": 27, "bneck_conv3_bwd": 13}
+# fp32 sums kernel vs plain version: within 1e-5 of their L1 mass
+# (`_l1_tol`), each with its own order over up to 401408 pixels
+BNECK_SUMS_TOL = dict(rtol=0.0, atol=1e-30)
+
+
+def _bneck_inputs(gen, dev, n, h, cin, cmid, cout, dt):
+    """Seeded raw maps and BN coefficients of one block at (n, h, h):
+    values of order 1 (raw conv outputs), cotangents of 1e-2, BN scales
+    about 1, shifts about 0.1, finalize slopes 1e-3, kernels He-scaled."""
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=dt):
+        return (shift + scale * torch.randn(*shape, device=dev,
+                                            generator=gen)).to(dtype)
+
+    def vec(c, s=0.1, sh=0.0):
+        return rnd(c, scale=s, shift=sh, dtype=torch.float32)
+
+    m = n * h * h
+    return dict(
+        m=m,
+        x=rnd(m, cin), y1=rnd(m, cmid), y2=rnd(m, cmid), y3=rnd(m, cout),
+        z=rnd(m, cout), e3=rnd(m, cout, scale=1e-2),
+        e1=rnd(m, cmid, scale=1e-2), e2=rnd(m, cmid, scale=1e-2),
+        w1=rnd(cin, cmid, scale=math.sqrt(2.0 / cin)),
+        w2=rnd(3, 3, cmid, cmid, scale=math.sqrt(2.0 / (9 * cmid))),
+        w3=rnd(cmid, cout, scale=math.sqrt(2.0 / cmid)),
+        wd=rnd(cin, cout, scale=math.sqrt(2.0 / cin)),
+        a1=vec(cmid, 0.1, 1.0), c1=vec(cmid), a2=vec(cmid, 0.1, 1.0),
+        c2=vec(cmid), mu1=vec(cmid), rs1=vec(cmid, 0.1, 1.0),
+        mu2=vec(cmid), rs2=vec(cmid, 0.1, 1.0),
+        k_mid=(vec(cmid, 0.1, 1.0), vec(cmid, 1e-3), vec(cmid, 1e-3)),
+        k_out=(vec(cout, 0.1, 1.0), vec(cout, 1e-3), vec(cout, 1e-3)),
+    )
+
+
+def _sum_tols(n):
+    return [None] + [BNECK_SUMS_TOL] * n
+
+
+def _bneck_block_times(dev, gen, n, h, cin, cmid, cout):
+    """The fused block's forward + backward and the unfused `Bottleneck`'s
+    (cuDNN convolutions, the BN as torch ops) at the same shape in bf16,
+    from seeded weights: the block-level yardstick."""
+    from rocm_apex_tpu_torch.contrib.bottleneck import (Bottleneck,
+                                                        FusedBottleneck)
+
+    g = torch.Generator().manual_seed(17)
+    x = torch.randn(n, h, h, cin, device=dev, generator=gen).to(
+        torch.bfloat16)
+    dz = (1e-2 * torch.randn(n, h, h, cout, device=dev, generator=gen)).to(
+        torch.bfloat16)
+    fused = FusedBottleneck(cin, cmid, cout, dtype=torch.bfloat16,
+                            device=dev, generator=g)
+    plain = Bottleneck(cin, cmid, cout, dtype=torch.bfloat16, device=dev,
+                       generator=g)
+
+    def run(blk):
+        return lambda: blk(x).backward(dz)
+
+    return dict(block_fused_ms=run(fused), block_unfused_ms=run(plain))
+
+
+def _k1_library(x2, w, a, b, stats, dt):
+    u = x2 if a is None else torch.relu(x2 * a.to(dt) + b.to(dt))
+    y = u @ w
+    if not stats:
+        return y
+    yf = y.float()
+    return torch.stack((yf.sum(0), (yf * yf).sum(0)))
+
+
+def _k3_library(e, w, x2, kw, dt):
+    from rocm_apex_tpu_torch.ops import fused_bottleneck as fb
+
+    dz = fb._finalized(e, kw.get("z"), kw.get("y_fin"))
+    pro = kw.get("prologue")
+    u = x2 if pro is None else torch.relu(x2 * pro[0].to(dt) + pro[1].to(dt))
+    return dz @ w.t(), u.t() @ dz
+
+
+def bottleneck_cases(dev):
+    """The four kernels of row 17 against their plain versions, each call
+    of a fused block with its flags: K1 conv1 (no prologue), conv3 (the
+    prologue) and the downsample; K2 conv2; K3 conv3's backward (pre-mask,
+    finalize, prologue, reductions), conv1's (finalize) and the
+    downsample's (pre-mask, finalize); K4 conv2's. At the five stride-1
+    block shapes of bench.py's ResNet-50 at B 128 (layer3's the headline:
+    five blocks a step), then a ragged M (3 x 7 x 7: no tile divides it)
+    with the bare forms too (no prologue, no statistics; the products
+    alone), W = 2 (4 x 2 x 2, every tap at an edge) and fp32 (8 x 14 x
+    14). Outputs in bf16 held to one ulp + 1e-5 (`TOL`), fp32 to 1e-4, the
+    sums over the pixels (statistics, dw, r1, r2) to 1e-5 of their L1
+    mass. Bounds: each input read once, each output written once;
+    operations 2 M K N a product (x 9 for the 3x3, x 2 for a backward's
+    dgrad and wgrad). Library yardsticks, never called by the port:
+    torch.matmul on the (M, K) view with the prologue, finalize and
+    statistics as torch ops (1x1); F.conv2d, torch.nn.grad.conv2d_input +
+    conv2d_weight in channels_last bf16 (cuDNN) with the same (3x3).
+    Beside each full-size shape's K2 case: the whole fused block's forward
+    + backward against the unfused `Bottleneck` (`block_fused_ms`,
+    `block_unfused_ms`)."""
+    from rocm_apex_tpu_torch.ops import fused_bottleneck as fb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(17)
+    bf = torch.bfloat16
+    shapes = [(nm, RN50_BATCH, h, cin, cmid, cout, ds, bf)
+              for nm, h, cin, cmid, cout, ds in BNECK_SHAPES]
+    shapes += [("ragged M 3 x 7 x 7", 3, 7, 64, 64, 256, True, bf),
+               ("W 2: 4 x 2 x 2", 4, 2, 64, 64, 256, False, bf),
+               ("fp32 8 x 14 x 14", 8, 14, 256, 64, 256, False,
+                torch.float32)]
+    for nm, n, h, cin, cmid, cout, ds, dt in shapes:
+        full = n == RN50_BATCH
+        headline = nm == BNECK_HEADLINE
+        t = _bneck_inputs(gen, dev, n, h, cin, cmid, cout, dt)
+        m = t["m"]
+        lab = f"{nm}: M {m}, {str(dt)[6:]}"
+
+        def case(kernel, what, got, ref, kern, plain, lib, nbytes_, ops,
+                 tols=None, extra=None, library=None, timings=None):
+            return dict(kernel=kernel, case=f"{lab}, {what.lstrip('*')}",
+                        dtype=dt, cmp=compare(got, ref, extra, tols),
+                        kern=kern, plain=plain, lib=lib, nbytes=nbytes_,
+                        ops=ops, headline=headline and what.startswith("*"),
+                        iters=20 if full else 100,
+                        plain_iters=2 if full else 10, library=library,
+                        extra_timings=timings or {})
+
+        # ---- K1: the 1x1 forwards
+        k1_calls = [("conv1 (no prologue)", t["x"], t["w1"], None),
+                    ("*conv3 (prologue)", t["y2"], t["w3"],
+                     (t["a2"], t["c2"]))]
+        if ds:
+            k1_calls.append(("downsample (no prologue)", t["x"], t["wd"],
+                             None))
+        if not full:
+            k1_calls.append(("bare product (no prologue, no statistics)",
+                             t["x"], t["w1"], None))
+        for what, x2, w, pro in k1_calls:
+            stats = "no statistics" not in what
+            a, b = pro if pro else (None, None)
+            y, s = fb.conv1x1_bn_act(x2, w, a, b, stats=stats)
+            ry, rs_ = fb.conv1x1_bn_act_plain(x2, w, a, b, stats=stats)
+            got, ref, extra = [y], [ry], [None]
+            if stats:
+                got += list(s)
+                ref += list(rs_)
+                extra += [_l1_tol(ry.float().abs().sum(0)), _l1_tol(rs_[1])]
+            yield case(
+                "bneck_mm_fwd", what, got, ref,
+                lambda x2=x2, w=w, a=a, b=b, stats=stats:
+                    fb.conv1x1_bn_act(x2, w, a, b, stats=stats),
+                lambda x2=x2, w=w, a=a, b=b, stats=stats:
+                    fb.conv1x1_bn_act_plain(x2, w, a, b, stats=stats),
+                lambda x2=x2, w=w, a=a, b=b, stats=stats:
+                    _k1_library(x2, w, a, b, stats, dt),
+                nbytes(x2, w, a, b, y) + (8 * w.shape[1] if stats else 0),
+                2 * m * w.shape[0] * w.shape[1],
+                tols=_sum_tols(2) if stats else None, extra=extra,
+                library="torch.matmul on the (M, K) view, the prologue and "
+                "statistics as torch ops")
+
+        # ---- K2: the 3x3 forward, and the block-level yardstick
+        x4 = t["y1"].reshape(n, h, h, cmid)
+        a1, c1, w2 = t["a1"], t["c1"], t["w2"]
+        y, s = fb.conv3x3_bn_act(x4, w2, a1, c1)
+        ry, rs_ = fb.conv3x3_bn_act_plain(x4, w2, a1, c1)
+        wcl = w2.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+
+        def lib3(x4=x4, wcl=wcl, a1=a1, c1=c1):
+            u = torch.relu(x4 * a1.to(dt) + c1.to(dt))
+            yf = F.conv2d(u.permute(0, 3, 1, 2), wcl, padding=1).float()
+            return torch.stack((yf.sum((0, 2, 3)), (yf * yf).sum((0, 2, 3))))
+
+        yield case(
+            "bneck_conv3_fwd", "*conv2 (prologue)", [y, *s], [ry, *rs_],
+            lambda x4=x4, w2=w2, a1=a1, c1=c1:
+                fb.conv3x3_bn_act(x4, w2, a1, c1),
+            lambda x4=x4, w2=w2, a1=a1, c1=c1:
+                fb.conv3x3_bn_act_plain(x4, w2, a1, c1),
+            lib3, nbytes(x4, w2, a1, c1, y) + 8 * cmid,
+            2 * m * 9 * cmid * cmid, tols=_sum_tols(2),
+            extra=[None, _l1_tol(ry.float().abs().sum((0, 1, 2))),
+                   _l1_tol(rs_[1])],
+            library="F.conv2d channels_last (cuDNN), the prologue and "
+            "statistics as torch ops",
+            timings=(_bneck_block_times(dev, gen, n, h, cin, cmid, cout)
+                     if full else None))
+        if not full:
+            y, _ = fb.conv3x3_bn_act(x4, w2, stats=False)
+            ry, _ = fb.conv3x3_bn_act_plain(x4, w2, stats=False)
+            yield case(
+                "bneck_conv3_fwd", "bare conv (no prologue, no statistics)",
+                [y], [ry],
+                lambda x4=x4, w2=w2: fb.conv3x3_bn_act(x4, w2, stats=False),
+                lambda x4=x4, w2=w2:
+                    fb.conv3x3_bn_act_plain(x4, w2, stats=False),
+                lambda x4=x4, wcl=wcl:
+                    F.conv2d(x4.permute(0, 3, 1, 2), wcl, padding=1),
+                nbytes(x4, w2, y), 2 * m * 9 * cmid * cmid,
+                library="F.conv2d channels_last (cuDNN)")
+
+        # ---- K3: the 1x1 backwards
+        k3_calls = [
+            ("*conv3 (pre-mask, finalize, prologue, reductions)", t["e3"],
+             t["w3"], t["y2"], dict(z=t["z"], y_fin=(t["y3"], *t["k_out"]),
+                                    prologue=(t["a2"], t["c2"]),
+                                    reduce_stats=(t["mu2"], t["rs2"]))),
+            ("conv1 (finalize)", t["e1"], t["w1"], t["x"],
+             dict(y_fin=(t["y1"], *t["k_mid"]))),
+        ]
+        if ds:
+            k3_calls.append(("downsample (pre-mask, finalize)", t["e3"],
+                             t["wd"], t["x"],
+                             dict(z=t["z"], y_fin=(t["y3"], *t["k_out"]))))
+        if not full:
+            k3_calls.append(("bare products (dgrad, wgrad)", t["e1"],
+                             t["w1"], t["x"], {}))
+        for what, e, w, x2, kw in k3_calls:
+            got = fb.conv1x1_bn_act_bwd(e, w, x2, **kw)
+            ref = fb.conv1x1_bn_act_bwd_plain(e, w, x2, **kw)
+            dz = fb._finalized(e, kw.get("z"), kw.get("y_fin")).float()
+            pro = kw.get("prologue")
+            u = (x2 if pro is None else
+                 torch.clamp_min(x2.float() * pro[0] + pro[1], 0).to(dt))
+            extra = [None, _l1_tol(u.float().abs().t() @ dz.abs())]
+            outs = 2
+            if kw.get("reduce_stats") is not None:
+                mu, rs = kw["reduce_stats"]
+                gf = ref[0].float()
+                extra += [_l1_tol(gf.abs().sum(0)), _l1_tol(
+                    (gf * ((x2.float() - mu) * rs)).abs().sum(0))]
+                outs = 4
+                del gf
+            del dz, u
+            yield case(
+                "bneck_mm_bwd", what, list(got[:outs]), list(ref[:outs]),
+                lambda e=e, w=w, x2=x2, kw=kw:
+                    fb.conv1x1_bn_act_bwd(e, w, x2, **kw),
+                lambda e=e, w=w, x2=x2, kw=kw:
+                    fb.conv1x1_bn_act_bwd_plain(e, w, x2, **kw),
+                lambda e=e, w=w, x2=x2, kw=kw: _k3_library(e, w, x2, kw, dt),
+                nbytes(e, w, x2, kw.get("z"), *(kw.get("y_fin") or ()),
+                       *(kw.get("prologue") or ()),
+                       *(kw.get("reduce_stats") or ()), *got),
+                2 * 2 * m * w.shape[0] * w.shape[1],
+                tols=_sum_tols(outs - 1), extra=extra,
+                library="torch.matmul dgrad + wgrad, the finalize and "
+                "prologue as torch ops")
+
+        # ---- K4: the 3x3 backward
+        e4 = t["e2"].reshape(n, h, h, cmid)
+        yfin = (t["y2"].reshape(n, h, h, cmid), *t["k_mid"])
+        pro, red = (a1, c1), (t["mu1"], t["rs1"])
+        got = fb.conv3x3_bn_act_bwd(e4, w2, x4, yfin, pro, red)
+        ref = fb.conv3x3_bn_act_bwd_plain(e4, w2, x4, yfin, pro, red)
+        l1_dw = fb._conv3_wgrad(fb._apply_dt(x4, *pro).float().abs(),
+                                fb._finalized(e4, None, yfin).float().abs())
+        gf = ref[0].float()
+        extra = [None, _l1_tol(l1_dw), _l1_tol(gf.abs().sum((0, 1, 2))),
+                 _l1_tol((gf * ((x4.float() - red[0]) * red[1])).abs().sum(
+                     (0, 1, 2)))]
+        del gf, l1_dw
+
+        def lib4(e4=e4, x4=x4, wcl=wcl, yfin=yfin, pro=pro):
+            dz = fb._finalized(e4, None, yfin).permute(0, 3, 1, 2)
+            u = torch.relu(x4 * pro[0].to(dt) + pro[1].to(dt))
+            gi = torch.nn.grad.conv2d_input(
+                (n, cmid, h, h), wcl, dz, padding=1)
+            gw = torch.nn.grad.conv2d_weight(
+                u.permute(0, 3, 1, 2), wcl.shape, dz, padding=1)
+            return gi, gw
+
+        yield case(
+            "bneck_conv3_bwd", "*conv2 (finalize, prologue, reductions)",
+            list(got), list(ref),
+            lambda e4=e4, w2=w2, x4=x4, yfin=yfin, pro=pro, red=red:
+                fb.conv3x3_bn_act_bwd(e4, w2, x4, yfin, pro, red),
+            lambda e4=e4, w2=w2, x4=x4, yfin=yfin, pro=pro, red=red:
+                fb.conv3x3_bn_act_bwd_plain(e4, w2, x4, yfin, pro, red),
+            lib4, nbytes(e4, w2, x4, *yfin, *pro, *red, *got),
+            2 * 2 * m * 9 * cmid * cmid, tols=_sum_tols(3), extra=extra,
+            library="torch.nn.grad.conv2d_input + conv2d_weight "
+            "channels_last (cuDNN), the finalize and prologue as torch ops")
+        del t, got, ref
+
+
 CASE_GROUPS = dict(ln=ln_cases, seg=seg_cases, decode=decode_cases,
                    paged=paged_decode_cases, train_ln=train_ln_cases,
                    flash=flash_cases,
@@ -2367,7 +2696,7 @@ CASE_GROUPS = dict(ln=ln_cases, seg=seg_cases, decode=decode_cases,
                    unpacked=lambda dev: itertools.chain(
                        unpacked_cases(dev), unpacked_vs_packed_cases(dev)),
                    seg_train=seg_train_cases, softmax=softmax_cases,
-                   packed=packed_cases)
+                   packed=packed_cases, bottleneck=bottleneck_cases)
 
 
 def run_kernel_phase(dev, generators):
@@ -3834,6 +4163,236 @@ def run_train_packed_phase(profile, report):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 18 to 20: ResNet-50 training, fused and unfused
+# ---------------------------------------------------------------------------
+
+# rn50 parity, cuda vs cpu: ResNet-50's widths (stages (3, 4, 6, 3), 64
+# filters, 1000 classes) fused at B 2, 64 x 64 (layer4 at W 2), fp32 with
+# TF32 off, the bench step at O0 with fp32 masters and a dynamic scaler.
+# From random weights with every residual branch's last BN scale 1 the
+# net is chaotic: on the CPU alone, 1e-6 relative noise on the input
+# moves the logits by 2.3e-4 of their size, some first-step gradients by
+# 15% of their leaf's largest, and bench.py's FusedAdam(1e-3) turns it
+# into 11% and 69% of the second and third losses, so fp32 rounding
+# cannot be told from a fault. With those scales at 0.2
+# (RN50_PARITY_BN3_SCALE, the damped-residual init) and FusedAdam lr 1e-4,
+# eps 1e-3 (the eps keeps a near-zero gradient's noise from taking a full
+# Adam step) the same noise moves the gradients by 5.0e-5 of their leaf's
+# largest and the losses by 1.9e-5 at most (rn50_parity_sensitivity.py
+# measures all of these). Held: the first step's gradients within 1e-3 of
+# each leaf's largest |gradient|, the losses within 1e-4 relative, the
+# masters within 1e-5 of |master| + 1e-5 + half the three lr steps (the
+# biases ahead of a BN have near-cancelling gradients; the noise uses
+# 0.62 of this tolerance), the running statistics within 1e-3 of their
+# scale (|mean| + std for a mean, E[y^2] = var + mean^2 for a variance:
+# the single-pass variance subtracts from E[y^2]; the noise uses 0.14 of
+# it), and the same skips.
+RN50_PARITY = dict(batch=2, size=64, steps=3, lr=1e-4, eps=1e-3)
+RN50_PARITY_BN3_SCALE = 0.2
+RN50_PARITY_GRAD_SHARE = 1e-3
+RN50_PARITY_LOSS_RTOL = 1e-4
+RN50_PARITY_MASTER_TOL = dict(rtol=1e-5, atol=1e-5, lr_share=0.5)
+RN50_PARITY_STATS_RTOL = 1e-3
+
+
+def _rn50(device, fused, dtype):
+    """bench.py's `models.resnet50(num_classes=1000, dtype, fused)` from
+    seeded random weights (the flax initializers' variances)."""
+    from rocm_apex_tpu_torch.models import resnet50
+
+    return resnet50(num_classes=RN50_CLASSES, dtype=dtype, fused=fused,
+                    device=device, generator=torch.Generator().manual_seed(0))
+
+
+def _rn50_batch(batch, size, device):
+    """normal(0, 1) NHWC images and uniform class ids from a seed."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(batch, size, size, 3, generator=gen)
+    y = torch.randint(0, RN50_CLASSES, (batch,), generator=gen)
+    return x.to(device), y.to(device)
+
+
+def _rn50_trainer(model, opt_level, lr=1e-3, eps=1e-8, **overrides):
+    """``(step, params, opt_state, scaler_states)``: bench.py's
+    `amp.initialize(params, FusedAdam(1e-3, weight_decay=1e-4), opt_level)`
+    and its one_step."""
+    from rocm_apex_tpu_torch import amp
+    from rocm_apex_tpu_torch.optimizers import FusedAdam
+    from rocm_apex_tpu_torch.train import make_rn50_train_step
+
+    params, opt, st = amp.initialize(
+        {k: v.detach() for k, v in model.named_parameters()},
+        FusedAdam(lr, weight_decay=1e-4, eps=eps), opt_level=opt_level,
+        verbosity=0, **overrides)
+    return (make_rn50_train_step(model, opt, st), params, opt.init(params),
+            st.scaler_states)
+
+
+def _stats_scale(stats):
+    """Each running statistic's scale: |mean| + std, var + mean^2."""
+    out = {}
+    for k, v in stats.items():
+        base, _, leaf = k.rpartition("mean" if k.endswith("mean") else "var")
+        mean, var = stats[base + "mean"], stats[base + "var"].clamp_min(0)
+        out[k] = (mean.abs() + var.sqrt()) if leaf == "mean" \
+            else (var + mean * mean)
+    return out
+
+
+def _worst(card, cpu, scale, share, atol=0.0):
+    """The worst |card - cpu| / (share * scale + atol) over dicts."""
+    worst = 0.0
+    for k, v in cpu.items():
+        diff = (card[k].detach().to("cpu", torch.float32) - v.float()).abs()
+        worst = max(worst, float((diff / (share * scale[k] + atol)).max()))
+    return worst
+
+
+def run_rn50_parity_phase():
+    """The fused ResNet-50 step, cuda (the bottleneck kernels, fp32) vs
+    cpu (their plain versions): the first step's gradients, then three
+    steps (see RN50_PARITY)."""
+    from rocm_apex_tpu_torch.ops._build import KERNELS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = RN50_PARITY
+    out = {}
+    for dev in (CARD, "cpu"):
+        model = _rn50(dev, True, torch.float32)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith(("bn3_scale", "bn3.scale")):
+                    p.fill_(RN50_PARITY_BN3_SCALE)
+        x, y = _rn50_batch(cfg["batch"], cfg["size"], dev)
+        bufs = {k: b.clone() for k, b in model.named_buffers()}
+        names = [k for k, _ in model.named_parameters()]
+        loss = F.cross_entropy(model(x).float(), y)
+        grads = dict(zip(names, torch.autograd.grad(
+            loss, list(model.parameters()))))
+        with torch.no_grad():
+            for k, b in model.named_buffers():
+                b.copy_(bufs[k])
+        step, params, opt_state, ss = _rn50_trainer(
+            model, "O0", lr=cfg["lr"], eps=cfg["eps"], master_weights=True,
+            loss_scale="dynamic")
+        for k in KERNELS:
+            k.launches = 0
+        losses, skips = [], []
+        for _ in range(cfg["steps"]):
+            params, opt_state, ss2, loss = step(params, opt_state, ss, x, y)
+            skips.append(int(ss2[0].overflows) - int(ss[0].overflows))
+            ss = ss2
+            losses.append(float(loss))
+        out[dev] = dict(losses=losses, skips=skips, grads=grads,
+                        master=opt_state.master,
+                        stats=dict(model.named_buffers()),
+                        launches={k.name: k.launches for k in KERNELS
+                                  if k.name in BNECK_KERNELS})
+    card, cpu = out[CARD], out["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                  cpu["losses"]))
+    gscale = {k: g.abs().max().expand_as(g) for k, g in cpu["grads"].items()}
+    mt = RN50_PARITY_MASTER_TOL
+    lr_steps = cfg["lr"] * cfg["steps"]
+    res = dict(
+        losses_cuda=card["losses"], losses_cpu=cpu["losses"],
+        loss_rel_err=rel, skips_cuda=card["skips"], skips_cpu=cpu["skips"],
+        grad_err_over_tol=_worst(card["grads"], cpu["grads"], gscale,
+                                 RN50_PARITY_GRAD_SHARE, 1e-30),
+        master_err_over_tol=_worst(
+            card["master"], cpu["master"],
+            {k: v.abs() for k, v in cpu["master"].items()}, mt["rtol"],
+            mt["atol"] + mt["lr_share"] * lr_steps),
+        stats_err_over_tol=_worst(card["stats"], cpu["stats"],
+                                  _stats_scale(cpu["stats"]),
+                                  RN50_PARITY_STATS_RTOL, 1e-30),
+        launches_cuda=card["launches"], launches_cpu=cpu["launches"])
+    log(f"  losses cuda {card['losses']} cpu {cpu['losses']}: max rel "
+        f"{rel:.2e} (tol {RN50_PARITY_LOSS_RTOL}); of their tolerances: "
+        f"first-step gradients {res['grad_err_over_tol']:.3f}, masters "
+        f"{res['master_err_over_tol']:.3f}, running stats "
+        f"{res['stats_err_over_tol']:.3f}; skips {card['skips']} / "
+        f"{cpu['skips']}; kernel calls on the card {card['launches']}")
+    check(rel <= RN50_PARITY_LOSS_RTOL, f"rn50 parity: loss rel err {rel:.2e}")
+    check(card["skips"] == cpu["skips"], "rn50 parity: skips differ")
+    for what in ("grad", "master", "stats"):
+        r = res[f"{what}_err_over_tol"]
+        check(r <= 1.0, f"rn50 parity: {what} differ by {r:.3g}x their "
+              f"tolerance")
+    for k, want in RN50_FUSED_CALLS_PER_STEP.items():
+        check(card["launches"][k] == want * cfg["steps"],
+              f"rn50 parity: {k} {card['launches'][k]} calls on the card, "
+              f"expected {want} a step")
+        check(cpu["launches"][k] == 0, f"rn50 parity: {k} launched on cpu")
+    return res
+
+
+def run_rn50_train_phase(profile, fused, report=None):
+    """bench.py's rn50 step at B 128 x 224 x 224, bf16 under amp O5 with
+    FusedAdam(1e-3, weight_decay=1e-4), fused or not: 5 warm-up and 20
+    timed steps on one batch; images/s, step ms, peak memory, losses, and
+    the bottleneck kernels' wrapper calls a step (27/13/27/13 fused, 0
+    unfused)."""
+    from rocm_apex_tpu_torch.ops._build import KERNELS
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = _rn50(CARD, fused, torch.bfloat16)
+    step, params, opt_state, ss = _rn50_trainer(model, "O5")
+    x, y = _rn50_batch(RN50_BATCH, RN50_SIZE, CARD)
+    setup_s = time.perf_counter() - t0
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        params, opt_state, ss, loss = step(params, opt_state, ss, x, y)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        params, opt_state, ss, loss = step(params, opt_state, ss, x, y)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    losses = [float(v) for v in losses]
+    want = (RN50_FUSED_CALLS_PER_STEP if fused
+            else {k: 0 for k in BNECK_KERNELS})
+    res = dict(
+        fused=fused, batch=RN50_BATCH, size=RN50_SIZE, steps=TRAIN_STEPS,
+        seconds=dt, step_ms=1e3 * dt / TRAIN_STEPS,
+        images_per_s=RN50_BATCH * TRAIN_STEPS / dt, setup_s=setup_s,
+        loss_first=losses[0], loss_last=losses[-1], losses=losses,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches,
+        calls_per_step={k: launches[k] / TRAIN_STEPS for k in want})
+    log(f"  {TRAIN_STEPS} steps of B {RN50_BATCH} x {RN50_SIZE}^2: "
+        f"{res['step_ms']:.2f} ms/step, {res['images_per_s']:.1f} images/s; "
+        f"loss {losses[0]:.4f} (first) -> {losses[-1]:.4f} (last); peak "
+        f"{res['peak_mem_gib']:.2f} GiB; wrapper calls per step "
+        f"{res['calls_per_step']} (expected {want})")
+    if fused and report is not None:
+        unfused = report.get("rn50_train", {}).get("step_ms")
+        res["unfused_step_ms_same_call"] = unfused
+        if unfused:
+            res["fused_over_unfused"] = res["step_ms"] / unfused
+            log(f"  fused / unfused step in this call: "
+                f"{res['fused_over_unfused']:.3f}")
+    check(all(math.isfinite(v) for v in losses), "nonfinite rn50 loss")
+    for name, n in want.items():
+        check(launches[name] == n * TRAIN_STEPS,
+              f"{name}: {launches[name]} calls in {TRAIN_STEPS} steps, "
+              f"expected {n} a step")
+    if profile:
+        res["profile"] = profile_window(
+            lambda: [step(params, opt_state, ss, x, y) for _ in range(3)],
+            f"3 rn50 steps ({'fused' if fused else 'unfused'})")
+    return res
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3902,8 +4461,9 @@ def main(argv=None):
     phases = list(only)
     from rocm_apex_tpu_torch.ops import (flash_attention,  # noqa: F401
                                          flash_attention_segments,
-                                         layer_norm, multi_tensor,
-                                         optim_kernels, softmax, xentropy)
+                                         fused_bottleneck, layer_norm,
+                                         multi_tensor, optim_kernels,
+                                         softmax, xentropy)
     groups = (only["kernels"].split("+") if only.get("kernels")
               else list(CASE_GROUPS))
     runs = {
@@ -3987,17 +4547,39 @@ def main(argv=None):
             f"{TRAIN_WARMUP} warm-up + {TRAIN_STEPS} timed steps; the bare "
             f"update phase beside MixedPrecisionAdam's)",
             lambda: run_train_packed_phase(args.profile, report)),
+        "rn50_parity": (
+            f"rn50 parity (ResNet-50 widths fused, B {RN50_PARITY['batch']} x "
+            f"{RN50_PARITY['size']}^2, fp32, TF32 off: "
+            f"{RN50_PARITY['steps']} FusedAdam steps cuda vs cpu)",
+            run_rn50_parity_phase),
+        "rn50_train": (
+            f"rn50 train (bench.py rn50: ResNet-50, B {RN50_BATCH} x "
+            f"{RN50_SIZE}^2, bf16 O5, FusedAdam, every conv on F.conv2d: "
+            f"{TRAIN_WARMUP} warm-up + {TRAIN_STEPS} timed steps)",
+            lambda: run_rn50_train_phase(args.profile, False)),
+        "rn50_train_fused": (
+            f"rn50 train fused (the same step with --fused=1: the 13 "
+            f"stride-1 blocks on the bottleneck kernels)",
+            lambda: run_rn50_train_phase(args.profile, True, report)),
     }
     report["phase_s"] = {}
-    for phase in PHASES:
-        if phase not in phases:
-            continue
-        title, run = runs[phase]
-        log(f"== {title}")
-        t0 = time.perf_counter()
-        report["kernel_cases" if phase == "kernels" else phase] = run()
-        report["phase_s"][phase] = time.perf_counter() - t0
-        log(f"  ({report['phase_s'][phase]:.1f} s)")
+    try:
+        for phase in PHASES:
+            if phase not in phases:
+                continue
+            title, run = runs[phase]
+            log(f"== {title}")
+            t0 = time.perf_counter()
+            report["kernel_cases" if phase == "kernels" else phase] = run()
+            report["phase_s"][phase] = time.perf_counter() - t0
+            log(f"  ({report['phase_s'][phase]:.1f} s)")
+    finally:
+        # what ran so far, also when a phase failed (the file says which
+        # phases finished: `phase_s`)
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+                json.dump(report, f, indent=1)
 
     # one line per kernel: its headline case (the bf16 case its path
     # launches most), every case in the --out file, and its launches in
@@ -4034,6 +4616,8 @@ def main(argv=None):
         if k.name in PACKED_KERNELS:
             path = ("train_packed" if PACKED_TRAIN_CALLS_PER_STEP.get(k.name)
                     else "train_packed_parity")
+        if k.name in BNECK_KERNELS:
+            path = "rn50_train_fused"
         where, _, _ = k.replaces.partition(" ")
         kernels.append(dict(
             name=k.name, route="cuda",
@@ -4047,7 +4631,7 @@ def main(argv=None):
             library=c.get("library"), case=c.get("case"), path=path,
         ))
     if args.out:
-        os.makedirs(args.out, exist_ok=True)
+        report["kernels"] = kernels
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(report, f, indent=1)
     log(json.dumps({"kernels": kernels}))

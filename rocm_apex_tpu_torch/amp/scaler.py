@@ -11,7 +11,7 @@ Constants are the JAX package's (those of the reference apex scaler):
 init 2^16, factor 2, window 2000 clean steps, max 2^24, optional min.
 """
 
-from typing import Iterable, NamedTuple, Optional, Tuple, Union
+from typing import Iterable, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -74,6 +74,25 @@ class LossScaler:
 
     def loss_scale(self, state: ScalerState) -> torch.Tensor:
         return state.loss_scale
+
+    def unscale(self, state: ScalerState, grads: Mapping[str, torch.Tensor]):
+        """``(grads / loss_scale in fp32, found_inf)`` for a dict of
+        gradients; found_inf a device bool (the probe of `all_finite` over
+        the unscaled values)."""
+        inv = 1.0 / state.loss_scale
+        out = {k: g.float() * inv if g.is_floating_point() else g
+               for k, g in grads.items()}
+        return out, torch.logical_not(all_finite(out.values()))
+
+    def unscale_with_stashed(self, state: ScalerState,
+                             stashed: Mapping[str, torch.Tensor],
+                             grads: Mapping[str, torch.Tensor]):
+        """``stashed + grads / loss_scale`` in fp32 and its found_inf: the
+        gradient-accumulation merge."""
+        inv = 1.0 / state.loss_scale
+        out = {k: stashed[k].float() + g.float() * inv
+               for k, g in grads.items()}
+        return out, torch.logical_not(all_finite(out.values()))
 
     def unscale_packed(self, state: ScalerState, packed_grads):
         """Unscale a `PackedTree` of gradient buffers to fp32 and probe it

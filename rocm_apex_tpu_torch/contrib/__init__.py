@@ -2,5 +2,6 @@
 
 One subpackage per kernel family, each importable on its own, as the JAX
 package lays them out. Ported so far: ``fmha`` (packed variable-length
-attention) and ``xentropy`` (label-smoothed softmax cross-entropy).
+attention), ``xentropy`` (label-smoothed softmax cross-entropy) and
+``bottleneck`` (the ResNet bottleneck, plain and fused).
 """

@@ -18,6 +18,14 @@ compute dtype; with ``opt_state`` it carries an optimizer state across
 (moments and count, or a packed state's buffers), so both sides step
 from the same state.
 
+`resnet_from_jax_variables` loads a flax ResNet's ``params`` and
+``batch_stats`` into a port `ResNet` of the same configuration: the
+port's names are the flax paths joined with ``.``; a `Conv` kernel goes
+from flax's HWIO to OIHW and the dense head's kernel from (in, out) to
+(out, in); the fused blocks' flat leaves (``conv*_kernel``,
+``downsample_kernel``, ``bn*_scale``/``bias``, ``bn*_mean``/``var``) and
+`FoldedConvBN`'s keep the JAX layout, which the kernels take as it is.
+
 `random_params` draws the same tree with numpy from a seed, with the
 JAX model's initializers: normal(``init_method_std``) for the
 embeddings and input projections, the output projections (attention
@@ -40,6 +48,7 @@ __all__ = [
     "random_params",
     "flatten_params",
     "train_state_from_jax_params",
+    "resnet_from_jax_variables",
 ]
 
 
@@ -200,3 +209,36 @@ def random_params(cfg: GPTConfig, seed: int = 0) -> Dict[str, Any]:
             params["pooler"] = linear(h, h, std)
             params["binary_head"] = linear(h, 2, std)
     return {"params": params}
+
+
+def resnet_from_jax_variables(params: Dict[str, Any],
+                              batch_stats: Dict[str, Any], model) -> Any:
+    """Copy a flax ResNet's variables (numpy-convertible trees) into
+    ``model`` (a port `ResNet` of the same configuration), in place, each
+    leaf cast to the dtype the model holds it in; returns the model.
+    Raises on a missing or unexpected leaf, or a shape mismatch."""
+    from rocm_apex_tpu_torch.models._layers import Conv
+
+    src = flatten_params(params)
+    src.update(flatten_params(batch_stats))
+    dst = dict(model.named_parameters())
+    dst.update(dict(model.named_buffers()))
+    missing = sorted(set(dst) - set(src))
+    extra = sorted(set(src) - set(dst))
+    if missing or extra:
+        raise KeyError(f"variables do not match the ResNet: missing "
+                       f"{missing}, unexpected {extra}")
+    with torch.no_grad():
+        for key, d in dst.items():
+            a = np.asarray(src[key], dtype=np.float32)
+            owner, _, leaf = key.rpartition(".")
+            mod = model.get_submodule(owner) if owner else model
+            if isinstance(mod, Conv) and leaf == "kernel":
+                a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            elif owner == "fc" and leaf == "kernel":
+                a = a.T  # (in, out) -> (out, in)
+            if tuple(a.shape) != tuple(d.shape):
+                raise ValueError(f"{key}: shape {a.shape} != "
+                                 f"{tuple(d.shape)}")
+            d.copy_(torch.tensor(a, dtype=d.dtype))
+    return model

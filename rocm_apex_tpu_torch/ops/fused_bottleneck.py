@@ -1,0 +1,624 @@
+"""Fused ResNet-bottleneck convolutions: BN-apply prologue + conv + BN
+statistics epilogue, forward and backward, and the whole training-mode
+block as one autograd function.
+
+Port of ``rocm_apex_tpu/ops/fused_bottleneck.py``. The kernels
+(``csrc/bottleneck_fwd.cu``, ``csrc/bottleneck_bwd.cu``) replace the TPU
+kernels ``_mm_fwd_kernel`` (:112), ``_conv3_fwd_kernel`` (:301),
+``_mm_bwd_kernel`` (:445) and ``_conv3_bwd_kernel`` (:624):
+
+    conv1x1_bn_act      y = relu(x * a + b) @ w, with (Σy, Σy²) of the
+                        fp32 product; the prologue optional
+    conv3x3_bn_act      the same for a 3x3 stride-1 SAME conv on NHWC
+    conv1x1_bn_act_bwd  pre-mask e by z > 0, finalize dz = k1 e + k2 y +
+                        k0, dgrad g = dz w^T masked by s = x a + b > 0
+                        (fp32), wgrad dw = relu(s)^T dz, and the upstream
+                        BN's reductions (Σg, Σg x̂)
+    conv3x3_bn_act_bwd  the same for the 3x3 (no pre-mask; the ReLU mask
+                        from u = relu(x a + b) computed in e's dtype)
+
+Each keeps its TPU kernel's rounding: the forward prologue in the input's
+dtype (the product and the sum each rounded), the 1x1 backward's
+recompute in fp32 then u cast, the 3x3 backward's in the input's dtype,
+the finalize in the cotangent's dtype. The statistics are single-pass:
+var = E[y²] - E[y]², clamped at 0 (`bn_coeffs`). Weights keep the JAX
+layout: (K, N) for a 1x1, (3, 3, Cin, Cout) for the 3x3. The TPU's VMEM
+knobs (block sizes, halo slivers, tap bits) are how Mosaic cuts blocks,
+not what the functions compute, and have no counterpart here.
+
+For CUDA tensors the wrappers launch the kernels (bf16 or fp32, every
+channel count a multiple of 16) or raise; for CPU tensors they run the
+plain versions (``*_plain``), which the card compares the kernels with.
+`bottleneck_fused` chains them as the JAX custom VJP does; the bn3 and
+downsample-BN reductions, the residual tail and ``dx = dx_main + dx_res``
+are plain PyTorch there, as they are plain XLA in JAX.
+"""
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
+
+__all__ = [
+    "BNECK_MM_FWD",
+    "BNECK_CONV3_FWD",
+    "BNECK_MM_BWD",
+    "BNECK_CONV3_BWD",
+    "bn_coeffs",
+    "bn_finalize_coeffs",
+    "bottleneck_fused",
+    "conv1x1_bn_act",
+    "conv1x1_bn_act_plain",
+    "conv1x1_bn_act_bwd",
+    "conv1x1_bn_act_bwd_plain",
+    "conv3x3_bn_act",
+    "conv3x3_bn_act_plain",
+    "conv3x3_bn_act_bwd",
+    "conv3x3_bn_act_bwd_plain",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+BNECK_MM_FWD = Kernel(
+    name="bneck_mm_fwd",
+    source="bottleneck_fwd.cu",
+    symbol="bneck_mm_fwd",
+    argtypes=[_P] * 8 + [_L, _I, _I, _I, _P],
+    replaces="rocm_apex_tpu/ops/fused_bottleneck.py:112 _mm_fwd_kernel",
+)
+BNECK_CONV3_FWD = Kernel(
+    name="bneck_conv3_fwd",
+    source="bottleneck_fwd.cu",
+    symbol="bneck_conv3_fwd",
+    argtypes=[_P] * 8 + [_I] * 6 + [_P],
+    replaces="rocm_apex_tpu/ops/fused_bottleneck.py:301 _conv3_fwd_kernel",
+)
+BNECK_MM_BWD = Kernel(
+    name="bneck_mm_bwd",
+    source="bottleneck_bwd.cu",
+    symbol="bneck_mm_bwd",
+    argtypes=[_P] * 18 + [_L, _I, _I, _L, _I, _I, _P],
+    replaces="rocm_apex_tpu/ops/fused_bottleneck.py:445 _mm_bwd_kernel",
+)
+BNECK_CONV3_BWD = Kernel(
+    name="bneck_conv3_bwd",
+    source="bottleneck_bwd.cu",
+    symbol="bneck_conv3_bwd",
+    argtypes=[_P] * 17 + [_I] * 5 + [_L, _I, _I, _P],
+    replaces="rocm_apex_tpu/ops/fused_bottleneck.py:624 _conv3_bwd_kernel",
+)
+
+# the kernels' tiles (csrc/bottleneck.cuh Cfg<T>): rows and columns of an
+# output tile and the depth of a staged reduction chunk
+_TILE_M = {torch.bfloat16: 128, torch.float32: 64}
+_TILE_N = {torch.bfloat16: 64, torch.float32: 64}
+_CHUNK = {torch.bfloat16: 32, torch.float32: 16}
+_RED_CHUNK = 256  # parts a reduction block sums (kRedChunk)
+
+
+# ---------------------------------------------------------------------------
+# the plain versions
+# ---------------------------------------------------------------------------
+
+
+def _apply_dt(x: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """relu(x * a + b) in x's dtype, the product and the sum each rounded
+    (the forward's and the 3x3 backward's prologue)."""
+    dt = x.dtype
+    return torch.clamp_min(x * a.to(dt) + b.to(dt), 0)
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 3, 1, 2)
+
+
+def _oihw(w: torch.Tensor) -> torch.Tensor:
+    return w.permute(3, 2, 0, 1)
+
+
+def conv1x1_bn_act_plain(x2d, w, scale=None, bias=None, stats=True):
+    """The plain PyTorch version of `conv1x1_bn_act`: the product in fp32
+    from the dtype's values, y rounded, the sums of the fp32 product."""
+    u = x2d if scale is None else _apply_dt(x2d, scale, bias)
+    acc = u.float() @ w.to(x2d.dtype).float()
+    y = acc.to(x2d.dtype)
+    if stats:
+        return y, (acc.sum(0), (acc * acc).sum(0))
+    return y, None
+
+
+def conv3x3_bn_act_plain(x, w, scale=None, bias=None, stats=True):
+    """The plain PyTorch version of `conv3x3_bn_act` (an fp32
+    ``F.conv2d`` of the activated input, zero-padded after the prologue)."""
+    u = x if scale is None else _apply_dt(x, scale, bias)
+    acc = F.conv2d(_nchw(u.float()), _oihw(w.to(x.dtype).float()),
+                   padding=1).permute(0, 2, 3, 1)
+    y = acc.to(x.dtype)
+    if stats:
+        return y, (acc.sum((0, 1, 2)), (acc * acc).sum((0, 1, 2)))
+    return y, None
+
+
+def _finalized(e, z, y_fin):
+    """e pre-masked by z > 0 (z given) and finalized k1 e + k2 y + k0 in
+    e's dtype (y_fin = (y, k1, k2, k0) given)."""
+    dt = e.dtype
+    if z is not None:
+        e = torch.where(z.float() > 0, e, torch.zeros((), dtype=dt,
+                                                      device=e.device))
+    if y_fin is None:
+        return e
+    y, k1, k2, k0 = y_fin
+    return k1.to(dt) * e + k2.to(dt) * y + k0.to(dt)
+
+
+def _reductions(g, x, reduce_stats, dims):
+    mu, rs = reduce_stats
+    xhat = (x.float() - mu) * rs
+    return g.sum(dims), (g * xhat).sum(dims)
+
+
+def conv1x1_bn_act_bwd_plain(e, w, x, z=None, y_fin=None, prologue=None,
+                             reduce_stats=None, wgrad=True, dgrad=True):
+    """The plain PyTorch version of `conv1x1_bn_act_bwd`."""
+    dt = e.dtype
+    dz = _finalized(e, z, y_fin)
+    s = None
+    if prologue is not None:
+        a, b = prologue
+        s = x.float() * a.float() + b.float()
+        u = torch.clamp_min(s, 0.0).to(dt)
+    else:
+        u = x
+    dw = u.float().t() @ dz.float() if wgrad else None
+    g = r1 = r2 = None
+    if dgrad:
+        gf = dz.float() @ w.to(dt).float().t()
+        if s is not None:
+            gf = torch.where(s > 0, gf, 0.0)
+        g = gf.to(dt)
+        if reduce_stats is not None:
+            r1, r2 = _reductions(gf, x, reduce_stats, 0)
+    return g, dw, r1, r2
+
+
+def _conv3_wgrad(u: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
+    """dw (3, 3, Cin, Cout) = sum over the pixels p of u[p + off_t]^T
+    dz[p], fp32, as one product over the unfolded taps: a tap whose terms
+    are all 0 sums to exactly 0 (a transform-based cuDNN wgrad does not)."""
+    n, h, wid, cin = u.shape
+    cout = dz.shape[-1]
+    cols = F.unfold(_nchw(u.float()), 3, padding=1)  # (n, cin * 9, h * w)
+    cols = cols.transpose(0, 1).reshape(cin * 9, n * h * wid)
+    dw = cols @ dz.float().reshape(n * h * wid, cout)
+    return dw.reshape(cin, 3, 3, cout).permute(1, 2, 0, 3)
+
+
+def conv3x3_bn_act_bwd_plain(e, w, x, y_fin, prologue, reduce_stats):
+    """The plain PyTorch version of `conv3x3_bn_act_bwd` (fp32 products:
+    the dgrad by ``torch.nn.grad.conv2d_input``, the wgrad over the
+    unfolded taps)."""
+    dt = e.dtype
+    dzh = _finalized(e, None, y_fin)
+    u = _apply_dt(x, *prologue)
+    dw = _conv3_wgrad(u, dzh)
+    gf = torch.nn.grad.conv2d_input(_nchw(x).shape, _oihw(w.to(dt).float()),
+                                    _nchw(dzh.float()),
+                                    padding=1).permute(0, 2, 3, 1)
+    gf = torch.where(u.float() > 0, gf, 0.0)
+    r1, r2 = _reductions(gf, x, reduce_stats, (0, 1, 2))
+    return gf.to(dt), dw, r1, r2
+
+
+# ---------------------------------------------------------------------------
+# BN coefficient plumbing (per-channel PyTorch math between the kernels)
+# ---------------------------------------------------------------------------
+
+
+def bn_coeffs(sums, count, gamma, beta, eps):
+    """(mean, rs, scale, bias) from a kernel's (sum, sum_sq) epilogue:
+    the prologue form u = relu(y * scale + bias) of gamma * x_hat + beta."""
+    s1, s2 = sums
+    mean = s1 / count
+    var = torch.clamp_min(s2 / count - mean * mean, 0.0)
+    rs = torch.rsqrt(var + eps)
+    scale = gamma * rs
+    bias = beta - mean * scale
+    return mean, rs, scale, bias
+
+
+def bn_finalize_coeffs(r1, r2, mean, rs, gamma, count):
+    """(k1, k2, k0) of dy = k1 * e + k2 * y + k0 (the BN backward from
+    the reductions r1 = Σe, r2 = Σe x̂)."""
+    k1 = gamma * rs
+    k2 = -k1 * rs * r2 / count
+    k0 = -k1 * r1 / count - k2 * mean
+    return k1, k2, k0
+
+
+# ---------------------------------------------------------------------------
+# the kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _require_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {t.device}")
+
+
+def _dense(t: Optional[torch.Tensor], dtype=None) -> Optional[torch.Tensor]:
+    """``t`` contiguous, in ``dtype``, at a 16-byte-aligned address (the
+    kernels load 16 bytes at a time)."""
+    if t is None:
+        return None
+    t = t.to(dtype=dtype or t.dtype).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _vec(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else _dense(t.reshape(-1), torch.float32)
+
+
+def _check_channels(dt, *counts, pixels=0):
+    dtype_code(dt)
+    if pixels >= 2 ** 31:
+        raise ValueError(f"the bottleneck kernels index pixels in 32 bits, "
+                         f"got {pixels}")
+    bad = [c for c in counts if c % 16]
+    if bad:
+        raise ValueError(f"the bottleneck kernels take channel counts that "
+                         f"are multiples of 16, got {bad}")
+
+
+def _parts(rows: int, width: int, dt, device):
+    """The per-tile partial buffer (tiles, width) and, past one reduction
+    block's chunk, the scratch of the two-level reduction."""
+    tiles = -(-rows // _TILE_M[dt])
+    if tiles > _RED_CHUNK ** 2:
+        raise ValueError(f"{rows} pixels exceed the reduction's "
+                         f"{_RED_CHUNK ** 2} tiles")
+    part = torch.empty(tiles, width, dtype=torch.float32, device=device)
+    scratch = (torch.empty(-(-tiles // _RED_CHUNK), width,
+                           dtype=torch.float32, device=device)
+               if tiles > _RED_CHUNK else None)
+    return part, scratch
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# wgrad blocks a multiprocessor: four are resident at once (registers),
+# so two rounds of them; each block walks its pixel range one staged
+# chunk at a time, so more, shorter ranges hide more of each chunk's
+# load latency (on the H100, 8 rather than 2 took the fused ResNet-50
+# step's wgrad device time from 36 to 24.5 ms: PERF.md, PR 9)
+_WGRAD_BLOCKS_PER_SM = 8
+
+
+def _wgrad_splits(m: int, out_tiles: int, dt, sms: int) -> Tuple[int, int]:
+    """``(split_len, splits)``: the pixel ranges a wgrad sums separately,
+    so that ``out_tiles`` output tiles x splits give about
+    `_WGRAD_BLOCKS_PER_SM` blocks for each of ``sms`` multiprocessors (at
+    most 256 ranges, each a multiple of the staged chunk)."""
+    bk = _CHUNK[dt]
+    chunks = max(1, -(-m // bk))
+    splits = min(max(1, -(-_WGRAD_BLOCKS_PER_SM * sms // out_tiles)),
+                 _RED_CHUNK, chunks)
+    split_len = -(-chunks // splits) * bk
+    return split_len, max(1, -(-m // split_len))
+
+
+def conv1x1_bn_act(
+    x2d: torch.Tensor,
+    w: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    stats: bool = True,
+):
+    """y = relu(x * scale + bias) @ w over the flattened pixel stream.
+
+    x2d: (M, K) raw upstream conv output (or the block input, with
+    scale/bias None: no activation); w: (K, N). Returns y (M, N) in x's
+    dtype and, with ``stats``, the per-channel (sum, sum_sq) of y in fp32
+    from the unrounded product."""
+    if x2d.device.type == "cpu":
+        return conv1x1_bn_act_plain(x2d, w, scale, bias, stats)
+    _require_cuda(x2d)
+    dt = x2d.dtype
+    m, k = x2d.shape
+    n = w.shape[1]
+    _check_channels(dt, k, n)
+    # the kernel stages w^T straight: rows of K contiguous values
+    x2d, wt = _dense(x2d), _dense(w.t(), dt)
+    y = torch.empty(m, n, dtype=dt, device=x2d.device)
+    part = scratch = sums = None
+    if stats:
+        part, scratch = _parts(m, 2 * n, dt, x2d.device)
+        sums = torch.empty(2, n, dtype=torch.float32, device=x2d.device)
+    if m:
+        BNECK_MM_FWD(ptr(x2d), ptr(_vec(scale)), ptr(_vec(bias)), ptr(wt),
+                     ptr(y), ptr(part), ptr(scratch), ptr(sums), m, k, n,
+                     dtype_code(dt), stream_ptr(x2d.device))
+    return y, ((sums[0], sums[1]) if stats else None)
+
+
+def conv3x3_bn_act(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    stats: bool = True,
+):
+    """3x3 stride-1 SAME conv with the BN-apply + ReLU prologue and the
+    statistics epilogue. x: (N, H, W, C) raw upstream output; w: (3, 3,
+    C, Cout). Returns y (N, H, W, Cout) and the sums as
+    `conv1x1_bn_act`."""
+    if x.device.type == "cpu":
+        return conv3x3_bn_act_plain(x, w, scale, bias, stats)
+    _require_cuda(x)
+    dt = x.dtype
+    nimg, hgt, wid, cin = x.shape
+    cout = w.shape[-1]
+    _check_channels(dt, cin, cout, pixels=nimg * hgt * wid)
+    x = _dense(x)
+    wt = _dense(w.reshape(9, cin, cout).transpose(1, 2), dt)  # (9, Cout, Cin)
+    m = nimg * hgt * wid
+    y = torch.empty(nimg, hgt, wid, cout, dtype=dt, device=x.device)
+    part = scratch = sums = None
+    if stats:
+        part, scratch = _parts(m, 2 * cout, dt, x.device)
+        sums = torch.empty(2, cout, dtype=torch.float32, device=x.device)
+    if m:
+        BNECK_CONV3_FWD(ptr(x), ptr(_vec(scale)), ptr(_vec(bias)), ptr(wt),
+                        ptr(y), ptr(part), ptr(scratch), ptr(sums), nimg,
+                        hgt, wid, cin, cout, dtype_code(dt),
+                        stream_ptr(x.device))
+    return y, ((sums[0], sums[1]) if stats else None)
+
+
+def conv1x1_bn_act_bwd(
+    e: torch.Tensor,
+    w: torch.Tensor,
+    x: Optional[torch.Tensor],
+    z: Optional[torch.Tensor] = None,
+    y_fin: Optional[Tuple] = None,
+    prologue: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    reduce_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    wgrad: bool = True,
+    dgrad: bool = True,
+):
+    """One fused backward pass of a 1x1 conv.
+
+    e: (M, N); w: (K, N); x: (M, K) upstream raw output (the prologue
+    recomputes u and the ReLU mask from it); z: (M, N) block output for
+    the pre-mask; y_fin: (y_raw, k1, k2, k0) finalize inputs;
+    reduce_stats: (mu, rs) of the upstream BN, enabling the r1/r2
+    reductions (with ``dgrad``). Returns (g, dw, r1, r2), None for the
+    parts switched off; dw, r1, r2 fp32."""
+    if e.device.type == "cpu":
+        return conv1x1_bn_act_bwd_plain(e, w, x, z, y_fin, prologue,
+                                        reduce_stats, wgrad, dgrad)
+    _require_cuda(e)
+    if reduce_stats is not None and not dgrad:
+        raise ValueError("the reductions ride the dgrad: dgrad=False "
+                         "leaves none")
+    dt = e.dtype
+    m, n = e.shape
+    k = w.shape[0]
+    _check_channels(dt, k, n)
+    pro, red = prologue is not None, reduce_stats is not None
+    need_x = pro or red or wgrad
+    if need_x and (x is None or x.dtype != dt):
+        raise TypeError(f"x must be given in e's dtype {dt}")
+    dev = e.device
+    y_raw, k1, k2, k0 = y_fin if y_fin is not None else (None,) * 4
+    a, b = prologue if pro else (None, None)
+    mu, rs = reduce_stats if red else (None, None)
+    g = torch.empty(m, k, dtype=dt, device=dev) if dgrad else None
+    dw = (torch.empty(k, n, dtype=torch.float32, device=dev) if wgrad
+          else None)
+    part = scratch = r12 = wsw = None
+    if red:
+        part, scratch = _parts(m, 2 * k, dt, dev)
+        r12 = torch.empty(2, k, dtype=torch.float32, device=dev)
+    split_len, splits = 0, 0
+    if wgrad:
+        tiles = -(-k // _TILE_M[dt]) * -(-n // _TILE_N[dt])
+        split_len, splits = _wgrad_splits(m, tiles, dt, _sm_count(dev.index))
+        wsw = torch.empty(splits, k, n, dtype=torch.float32, device=dev)
+    if m:
+        BNECK_MM_BWD(
+            ptr(_dense(e)), ptr(_dense(z, dt)), ptr(_dense(y_raw, dt)),
+            ptr(_vec(k1)), ptr(_vec(k2)), ptr(_vec(k0)),
+            ptr(_dense(x) if need_x else None), ptr(_vec(a)), ptr(_vec(b)),
+            ptr(_vec(mu)), ptr(_vec(rs)), ptr(_dense(w, dt)), ptr(g),
+            ptr(dw), ptr(r12), ptr(part), ptr(wsw), ptr(scratch), m, k, n,
+            split_len, splits, dtype_code(dt), stream_ptr(dev))
+    elif wgrad:
+        dw.zero_()
+    r1, r2 = (r12[0], r12[1]) if red else (None, None)
+    return g, dw, r1, r2
+
+
+def conv3x3_bn_act_bwd(
+    e: torch.Tensor,
+    w: torch.Tensor,
+    x: torch.Tensor,
+    y_fin: Optional[Tuple],
+    prologue: Tuple[torch.Tensor, torch.Tensor],
+    reduce_stats: Tuple[torch.Tensor, torch.Tensor],
+):
+    """Fused backward of `conv3x3_bn_act`. e: (N, H, W, Cout) masked
+    partial (finalized in the kernel when y_fin = (y_raw, k1, k2, k0) is
+    given); x: the upstream raw (N, H, W, Cin). Returns (g, dw, r1, r2),
+    dw (3, 3, Cin, Cout) fp32."""
+    if e.device.type == "cpu":
+        return conv3x3_bn_act_bwd_plain(e, w, x, y_fin, prologue,
+                                        reduce_stats)
+    _require_cuda(e)
+    dt = e.dtype
+    nimg, hgt, wid, cout = e.shape
+    cin = w.shape[2]
+    _check_channels(dt, cin, cout, pixels=nimg * hgt * wid)
+    if x.dtype != dt:
+        raise TypeError(f"x must be given in e's dtype {dt}")
+    dev = e.device
+    m = nimg * hgt * wid
+    y_raw, k1, k2, k0 = y_fin if y_fin is not None else (None,) * 4
+    a, b = prologue
+    mu, rs = reduce_stats
+    g = torch.empty(nimg, hgt, wid, cin, dtype=dt, device=dev)
+    dw = torch.empty(3, 3, cin, cout, dtype=torch.float32, device=dev)
+    part, scratch = _parts(m, 2 * cin, dt, dev)
+    r12 = torch.empty(2, cin, dtype=torch.float32, device=dev)
+    tiles = 9 * -(-cin // _TILE_M[dt]) * -(-cout // _TILE_N[dt])
+    split_len, splits = _wgrad_splits(m, tiles, dt, _sm_count(dev.index))
+    wsw = torch.empty(9 * splits, cin, cout, dtype=torch.float32, device=dev)
+    if m:
+        BNECK_CONV3_BWD(
+            ptr(_dense(e)), ptr(_dense(y_raw, dt)), ptr(_vec(k1)),
+            ptr(_vec(k2)), ptr(_vec(k0)), ptr(_dense(x)), ptr(_vec(a)),
+            ptr(_vec(b)), ptr(_vec(mu)), ptr(_vec(rs)), ptr(_dense(w, dt)),
+            ptr(g), ptr(dw), ptr(r12), ptr(part), ptr(wsw), ptr(scratch),
+            nimg, hgt, wid, cin, cout, split_len, splits, dtype_code(dt),
+            stream_ptr(dev))
+    else:
+        dw.zero_()
+    return g, dw, r12[0], r12[1]
+
+
+# ---------------------------------------------------------------------------
+# the whole block
+# ---------------------------------------------------------------------------
+
+
+def _var(sums, mu, m):
+    return torch.clamp_min(sums[1] / m - mu * mu, 0.0)
+
+
+class _BottleneckFused(torch.autograd.Function):
+    """The fused block's forward and hand-chained backward (JAX
+    ``_bneck_fwd_impl`` / ``_bneck_bwd_impl``). Outputs: z, then (mean,
+    var) per BN, which carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, eps, downsample, x, w1, g1, b1, w2, g2, b2, w3, g3, b3,
+                wd, gd, bd):
+        nimg, hgt, wid, cin = x.shape
+        m = nimg * hgt * wid
+        cmid = w1.shape[-1]
+        cout = w3.shape[-1]
+        x2 = x.reshape(m, cin)
+
+        y1, s1 = conv1x1_bn_act(x2, w1, stats=True)
+        mu1, rs1, a1, c1 = bn_coeffs(s1, m, g1, b1, eps)
+        y2, s2 = conv3x3_bn_act(y1.reshape(nimg, hgt, wid, cmid), w2, a1, c1,
+                                stats=True)
+        mu2, rs2, a2, c2 = bn_coeffs(s2, m, g2, b2, eps)
+        y2f = y2.reshape(m, cmid)
+        y3, s3 = conv1x1_bn_act(y2f, w3, a2, c2, stats=True)
+        mu3, rs3, a3, c3 = bn_coeffs(s3, m, g3, b3, eps)
+        stats = [mu1, _var(s1, mu1, m), mu2, _var(s2, mu2, m), mu3,
+                 _var(s3, mu3, m)]
+        # the tail relu(y3 a3 + c3 + r) in fp32, r = yd ad + cd or x: each
+        # product and sum rounded once in fp32 as the JAX tail's, in place
+        # on one fp32 buffer (a bf16 operand is promoted exactly)
+        t = y3 * a3
+        t += c3
+        if downsample:
+            yd, sd = conv1x1_bn_act(x2, wd, stats=True)
+            mud, rsd, ad, cd = bn_coeffs(sd, m, gd, bd, eps)
+            r = yd * ad
+            r += cd
+            t += r
+            del r
+            stats += [mud, _var(sd, mud, m)]
+        else:
+            yd = mud = rsd = None
+            t += x2
+        z = t.clamp_min_(0.0).to(x.dtype)
+        del t
+
+        ctx.downsample = downsample
+        ctx.shape = (nimg, hgt, wid)
+        ctx.save_for_backward(x2, y1, y2f, y3, yd, z, mu1, rs1, mu2, rs2,
+                              mu3, rs3, mud, rsd, a1, c1, a2, c2, w1, g1, w2,
+                              g2, w3, g3, wd, gd)
+        ctx.mark_non_differentiable(*stats)
+        return (z.reshape(nimg, hgt, wid, cout), *stats)
+
+    @staticmethod
+    def backward(ctx, dz_out, *_):
+        (x2, y1, y2f, y3, yd, z, mu1, rs1, mu2, rs2, mu3, rs3, mud, rsd, a1,
+         c1, a2, c2, w1, g1, w2, g2, w3, g3, wd, gd) = ctx.saved_tensors
+        nimg, hgt, wid = ctx.shape
+        m = x2.shape[0]
+        cmid = w1.shape[-1]
+
+        dzz = dz_out.reshape(m, -1).to(z.dtype)
+        # the bn3 (and bn_d) reductions over the masked cotangent
+        p = torch.where(z > 0, dzz.float(), 0.0)
+        r1_3 = p.sum(0)
+        xhat3 = (y3.float() - mu3) * rs3
+        r2_3 = (p * xhat3).sum(0)
+        k3 = bn_finalize_coeffs(r1_3, r2_3, mu3, rs3, g3, m)
+
+        e2, dw3, r1_2, r2_2 = conv1x1_bn_act_bwd(
+            dzz, w3, y2f, z=z, y_fin=(y3, *k3), prologue=(a2, c2),
+            reduce_stats=(mu2, rs2))
+        k2 = bn_finalize_coeffs(r1_2, r2_2, mu2, rs2, g2, m)
+
+        e1, dw2, r1_1, r2_1 = conv3x3_bn_act_bwd(
+            e2.reshape(nimg, hgt, wid, cmid), w2,
+            y1.reshape(nimg, hgt, wid, cmid),
+            y_fin=(y2f.reshape(nimg, hgt, wid, cmid), *k2),
+            prologue=(a1, c1), reduce_stats=(mu1, rs1))
+        k1 = bn_finalize_coeffs(r1_1, r2_1, mu1, rs1, g1, m)
+
+        dx_main, dw1, _, _ = conv1x1_bn_act_bwd(
+            e1.reshape(m, cmid), w1, x2, y_fin=(y1, *k1))
+
+        if ctx.downsample:
+            xhatd = (yd.float() - mud) * rsd
+            r2_d = (p * xhatd).sum(0)
+            kd = bn_finalize_coeffs(r1_3, r2_d, mud, rsd, gd, m)
+            dx_res, dwd, _, _ = conv1x1_bn_act_bwd(
+                dzz, wd, x2, z=z, y_fin=(yd, *kd))
+            dgd, dbd = r2_d, r1_3
+        else:
+            dx_res = p.to(dx_main.dtype)
+            dwd = dgd = dbd = None
+
+        # fp32 sum rounded once to the dtype: what a same-dtype add does
+        dx = (dx_main + dx_res.to(dx_main.dtype)).reshape(nimg, hgt, wid, -1)
+        return (None, None, dx.to(dz_out.dtype),
+                dw1, r2_1, r1_1, dw2, r2_2, r1_2, dw3, r2_3, r1_3,
+                dwd, dgd, dbd)
+
+
+def bottleneck_fused(eps, downsample, x, w1, g1, b1, w2, g2, b2, w3, g3, b3,
+                     wd=None, gd=None, bd=None):
+    """Training-mode fused bottleneck: z = relu(bn3(conv3(relu(bn2(
+    conv2(relu(bn1(conv1(x)))))))) + residual), all convs stride 1.
+
+    x: (N, H, W, Cin) NHWC; w1 (Cin, Cmid), w2 (3, 3, Cmid, Cmid), w3
+    (Cmid, Cout); g*/b* the BN scale/offset vectors; (wd, gd, bd) the
+    optional 1x1 downsample projection. Returns (z, batch_stats),
+    batch_stats ((mean, var) per BN, biased var; None for a missing
+    downsample) for the running averages: no gradient flows through it.
+    """
+    outs = _BottleneckFused.apply(eps, bool(downsample), x, w1, g1, b1, w2,
+                                  g2, b2, w3, g3, b3, wd, gd, bd)
+    st = outs[1:]
+    stats = tuple((st[i], st[i + 1]) for i in range(0, 6, 2)) + (
+        (st[6], st[7]) if downsample else None,)
+    return outs[0], stats
+

@@ -1,6 +1,12 @@
-"""Optimizers over mixed-precision training state, and the packed-buffer
-optimizer step."""
+"""Optimizers over mixed-precision training state, the packed-buffer
+optimizer step, and the tree-form `FusedAdam`."""
 
+from rocm_apex_tpu_torch.optimizers._common import FusedOptimizer
+from rocm_apex_tpu_torch.optimizers.fused_adam import (
+    FusedAdam,
+    FusedAdamState,
+    fused_adam,
+)
 from rocm_apex_tpu_torch.optimizers.mixed import (
     MixedPrecisionAdam,
     MixedPrecisionLamb,
@@ -18,6 +24,9 @@ from rocm_apex_tpu_torch.optimizers.packed import (
 )
 
 __all__ = [
+    "FusedAdam",
+    "FusedAdamState",
+    "FusedOptimizer",
     "MixedPrecisionAdam",
     "MixedPrecisionLamb",
     "MixedPrecisionState",
@@ -26,6 +35,7 @@ __all__ = [
     "PackedOptimizerStep",
     "PackedStepState",
     "adam_phase",
+    "fused_adam",
     "lamb_phase",
     "packed_adam",
     "packed_lamb",

@@ -31,7 +31,9 @@ from rocm_apex_tpu_torch.ops.packing import (
 )
 
 __all__ = [
+    "FusedOptimizer",
     "GradientTransformation",
+    "apply_updates",
     "ScalarOrSchedule",
     "deltas_to_updates",
     "foreach_norm_f32",
@@ -45,6 +47,7 @@ __all__ = [
     "wd_per_tensor",
     "wd_tree",
     "zero_group_buffers",
+    "zeros_like_f32",
 ]
 
 ScalarOrSchedule = Union[float, torch.Tensor, Callable]
@@ -57,6 +60,20 @@ class GradientTransformation(NamedTuple):
 
     init: Callable
     update: Callable
+
+
+def apply_updates(params: Mapping[str, torch.Tensor],
+                  updates: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``params + updates`` leaf by leaf, added in the promoted dtype (fp32
+    for a bf16 param and an fp32 delta) and cast back to each param's
+    dtype (optax's ``apply_updates``)."""
+    return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+
+
+def zeros_like_f32(params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An fp32 zero tensor shaped like each param (moment state)."""
+    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for k, p in params.items()}
 
 
 def resolve_lr(lr: ScalarOrSchedule, count):
@@ -194,3 +211,37 @@ def tree_where(pred, new, old):
         return {k: torch.where(pred, new[k], old[k]) for k in new}
     return type(new)(torch.where(pred, n, o) for n, o in zip(new, old))
 
+
+
+class FusedOptimizer:
+    """Class facade over a gradient transformation: ``state =
+    opt.init(params)``, ``params, state = opt.step(params, grads, state,
+    skip=)``; ``update`` is the transformation's. With ``skip`` (a device
+    bool) the params and the state stay as they were: a transformation
+    that takes ``skip`` itself (`packed_adam`, `packed_lamb`) folds it
+    into its update kernels, any other is selected leaf by leaf."""
+
+    def __init__(self, tx):
+        self.tx = tx
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def step(self, params, grads, state, *, skip=None):
+        if skip is not None and getattr(self.tx.update, "kernel_skip",
+                                        False):
+            updates, new_state = self.tx.update(grads, state, params,
+                                                skip=skip)
+            return apply_updates(params, updates), new_state
+        updates, new_state = self.tx.update(grads, state, params)
+        new_params = apply_updates(params, updates)
+        if skip is None:
+            return new_params, new_state
+        from rocm_apex_tpu_torch.amp.handle import skip_step
+
+        return (skip_step(skip, new_params, params),
+                skip_step(skip, new_state, state))
+
+    @property
+    def update(self):
+        return self.tx.update

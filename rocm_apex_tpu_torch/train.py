@@ -1,4 +1,4 @@
-"""One mixed-precision training step, for GPT and for BERT.
+"""One mixed-precision training step, for GPT, for BERT and for ResNet.
 
 `make_train_step` is the counterpart of ``make_one_step(opt)`` in the
 JAX package's bench.py (bench.py:2533-2578): the model's fused-head mean
@@ -12,12 +12,20 @@ ride the update), ``opt`` a `MixedPrecisionAdam` or a
 `MixedPrecisionLamb.step_and_probe` with no loss scaler (the global
 gradient norm is the overflow probe). Each step returns the unscaled
 loss as a device tensor and never reads a value back to the host.
+`make_rn50_train_step` is the counterpart of ``one_step`` in bench.py's
+`bench_rn50` (bench.py:160-184): the mean softmax cross-entropy of the
+ResNet's fp32 logits, `amp.scale_loss`, backward, `amp.unscale_grads`,
+`amp.update_scale`, the optimizer's update on the params dict (through
+`amp.with_master_weights` under O5) and `amp.skip_step`; the batch
+statistics move in the model's buffers.
 """
 
 from typing import Callable, Optional, Union
 
 import torch
+import torch.nn.functional as F
 
+from rocm_apex_tpu_torch import amp
 from rocm_apex_tpu_torch.amp import LossScaler, ScalerState
 from rocm_apex_tpu_torch.optimizers import (
     MixedPrecisionAdam,
@@ -25,8 +33,9 @@ from rocm_apex_tpu_torch.optimizers import (
     MixedPrecisionState,
     PackedOptimizerStep,
 )
+from rocm_apex_tpu_torch.optimizers._common import apply_updates
 
-__all__ = ["make_bert_train_step", "make_train_step"]
+__all__ = ["make_bert_train_step", "make_rn50_train_step", "make_train_step"]
 
 
 def make_train_step(model, opt: Union[MixedPrecisionAdam, PackedOptimizerStep],
@@ -114,5 +123,46 @@ def make_bert_train_step(model, opt: MixedPrecisionLamb) -> Callable:
         grads = {k: named[k].grad for k in state.master}
         state, found_inf = opt.step_and_probe(state, grads)
         return state, loss.detach(), found_inf
+
+    return step
+
+
+def make_rn50_train_step(model, optimizer, amp_state) -> Callable:
+    """``step(params, opt_state, scaler_states, x, y) -> (params,
+    opt_state, scaler_states, loss)``.
+
+    ``model`` is a `ResNet`; ``params`` the dict `amp.initialize` returned
+    for its parameters (names as ``model.named_parameters()``), run
+    through the model with ``torch.func.functional_call``; ``optimizer``
+    the processed optimizer and ``opt_state`` its state; ``amp_state``
+    supplies the policy and the scaler, ``scaler_states`` its current
+    states. ``x`` (NHWC images) is cast to the model's dtype on its
+    device, ``y`` holds class ids. The running statistics are the model's
+    buffers, moved in place by the training-mode forward (as bench.py
+    keeps the batch statistics of every step, skipped or not). A static
+    loss scale (O5's 1) never skips, so its `amp.skip_step` selects are
+    left out: they would return the new tree leaf for leaf."""
+    device = model.device
+    dynamic = amp_state.scaler.dynamic
+
+    def step(params, opt_state, scaler_states, x, y):
+        st = amp_state.replace(scaler_states=scaler_states)
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        logits = torch.func.functional_call(
+            model, p, (x.to(device=device, dtype=model.dtype),),
+            strict=False)
+        ce = F.cross_entropy(logits.float(), y.to(device))
+        scaled = amp.scale_loss(ce, st)
+        names = list(p)
+        grads = dict(zip(names, torch.autograd.grad(
+            scaled, [p[k] for k in names])))
+        grads, found_inf = amp.unscale_grads(grads, st)
+        st2, skip = amp.update_scale(st, found_inf)
+        updates, opt2 = optimizer.update(grads, opt_state, params)
+        new_params = apply_updates(params, updates)
+        if dynamic:
+            new_params = amp.skip_step(skip, new_params, params)
+            opt2 = amp.skip_step(skip, opt2, opt_state)
+        return new_params, opt2, st2.scaler_states, ce.detach()
 
     return step
