@@ -667,9 +667,14 @@ def paged_decode_cases(dev):
     dead row at capacity whose table maps 3 pages, so its bound reaches
     sentinel entries) and piece B (the 256-row chunk, each row against
     its own slot's pre-chunk prefix, pads reading nothing), at page sizes
-    16 and 64. The library yardstick is one masked SDPA over a contiguous
-    view gathered beforehand (the gather is not timed)."""
+    16 and 64. Then the split read's edges on the decode grid ("spans"):
+    an empty row, rows shorter than one span, rows ending inside a span,
+    and at page 64 spans that end mid-page (checked against the plan).
+    Every decode-grid case launches twice on the same inputs and must
+    repeat its bits. The library yardstick is one masked SDPA over a
+    contiguous view gathered beforehand (the gather is not timed)."""
     from rocm_apex_tpu_torch.ops import flash_attention as fa
+    from rocm_apex_tpu_torch.ops._build import sm_count
     from rocm_apex_tpu_torch.ops.paging import paged_view
 
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -677,6 +682,10 @@ def paged_decode_cases(dev):
     h, d = SERVE["num_attention_heads"], SERVE["hidden_size"] // 8
     grid_len = [CAPACITY, CAPACITY, 17, 513, 300, 64, 1000, 129]
     chunk_len = [700, 0, 0, 256, 0, 0, 32, 0]
+    # the split read's edges: empty, shorter than a span, ending inside a
+    # span and (page 64) inside a page, one span long, the capacity
+    span_len_edges = [0, 5, 31, 33, 95, 160, 1000, CAPACITY]
+    spans, span_len = fa.decode_span_plan(SLOTS, h, CAPACITY, sm_count(dev))
     ids_np, _ = chunk_slot_ids(BUDGET, SLOTS)
     slot_ids = torch.from_numpy(ids_np).to(dev)
     key_slot = torch.arange(SLOTS * CAPACITY, device=dev) // CAPACITY
@@ -691,14 +700,27 @@ def paged_decode_cases(dev):
         ("chunk piece B", 16, torch.bfloat16, False),
         ("chunk piece B", 16, torch.bfloat16, True),
         ("chunk piece B", 64, torch.bfloat16, False),
+        ("decode grid, spans", 16, torch.bfloat16, False),
+        ("decode grid, spans", 64, torch.bfloat16, False),
+        ("decode grid, spans", 64, torch.bfloat16, True),
     ]
     for form, ps, dt, int8 in cases:
         num_pages = SLOTS * (CAPACITY // ps)  # the worst-case pool
-        grid = form == "decode grid"
-        lens_list = grid_len if grid else chunk_len
+        grid = form.startswith("decode grid")
+        lens_list = (span_len_edges if form.endswith("spans")
+                     else grid_len if grid else chunk_len)
+        if form.endswith("spans"):
+            live = [n for n in lens_list if n]
+            check(spans > 1 and 0 in lens_list and min(live) < span_len
+                  and any(n % span_len for n in live),
+                  f"the split read's edge case does not reach its edges "
+                  f"({spans} spans of {span_len})")
+            check(ps != 64 or span_len % ps,
+                  f"no span of {span_len} keys ends mid-page at page {ps}")
         lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
         table = _paged_table(lens_list, ps, num_pages, cpu_gen, dev,
-                             mapped={1: 3} if grid else None)
+                             mapped={1: 3} if form == "decode grid"
+                             else None)
         shape = (num_pages, h, ps, d)
         # 4 pool sets in turn, more than the 50 MB L2 together
         pools = []
@@ -735,6 +757,12 @@ def paged_decode_cases(dev):
 
         got, ref = kern(), plain()
         turn[0] = 0
+        if grid:
+            again = kern()
+            turn[0] = 0
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{form}, page {ps}: two launches on the same inputs "
+                  f"differ")
         read_slots = (range(SLOTS) if grid else
                       [s for s in ids_np.tolist() if s < SLOTS])
         n_rows, n_pages = _paged_rows_read(table, lens_list, ps, num_pages,
@@ -777,11 +805,14 @@ def paged_decode_cases(dev):
             kernel=name,
             case=f"{form}: {rows} rows x {h} heads, page {ps}, "
                  f"{'int8' if int8 else str(dt)[6:]} pool "
-                 f"({num_pages}, {h}, {ps}, {d}), q {str(dt)[6:]}",
+                 f"({num_pages}, {h}, {ps}, {d}), q {str(dt)[6:]}"
+                 + (f", {spans} spans of {span_len}" if grid else ""),
             dtype=dt, cmp=compare(got, ref), kern=kern, plain=plain,
             lib=lib, nbytes=(nbytes(q, lens, ids, table, *got) + kv_bytes),
             ops=4 * d * h * int(per_row.sum()),
-            headline=grid and ps == 16 and dt == torch.bfloat16,
+            headline=(form == "decode grid" and ps == 16
+                      and dt == torch.bfloat16),
+            breakdown=form == "decode grid" and ps == 16,
         )
 
 
@@ -2486,11 +2517,14 @@ def bottleneck_cases(dev):
     block shapes of bench.py's ResNet-50 at B 128 (layer3's the headline:
     five blocks a step), then a ragged M (3 x 7 x 7: no tile divides it)
     with the bare forms too (no prologue, no statistics; the products
-    alone), W = 2 (4 x 2 x 2, every tap at an edge) and fp32 (8 x 14 x
-    14). Outputs in bf16 held to one ulp + 1e-5 (`TOL`), fp32 to 1e-4, the
-    sums over the pixels (statistics, dw, r1, r2) to 1e-5 of their L1
-    mass. Bounds: each input read once, each output written once;
-    operations 2 M K N a product (x 9 for the 3x3, x 2 for a backward's
+    alone), W = 2 (4 x 2 x 2, every tap at an edge), fp32 (8 x 14 x 14)
+    and, K4 alone, a ragged split (3 x 13 x 13 at 128 channels: the
+    wgrad's pixel splits end inside image rows, checked against the
+    plan). Every K4 case launches twice on the same inputs and must
+    repeat g, dw, r1 and r2 bit for bit. Outputs in bf16 held to one ulp
+    + 1e-5 (`TOL`), fp32 to 1e-4, the sums over the pixels (statistics,
+    dw, r1, r2) to 1e-5 of their L1 mass. Bounds: each input read once,
+    each output written once; operations 2 M K N a product (x 9 for the 3x3, x 2 for a backward's
     dgrad and wgrad). Library yardsticks, never called by the port:
     torch.matmul on the (M, K) view with the prologue, finalize and
     statistics as torch ops (1x1); F.conv2d, torch.nn.grad.conv2d_input +
@@ -2499,23 +2533,32 @@ def bottleneck_cases(dev):
     + backward against the unfused `Bottleneck` (`block_fused_ms`,
     `block_unfused_ms`)."""
     from rocm_apex_tpu_torch.ops import fused_bottleneck as fb
+    from rocm_apex_tpu_torch.ops._build import sm_count
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(17)
     bf = torch.bfloat16
-    shapes = [(nm, RN50_BATCH, h, cin, cmid, cout, ds, bf)
+    shapes = [(nm, RN50_BATCH, h, cin, cmid, cout, ds, bf, False)
               for nm, h, cin, cmid, cout, ds in BNECK_SHAPES]
-    shapes += [("ragged M 3 x 7 x 7", 3, 7, 64, 64, 256, True, bf),
-               ("W 2: 4 x 2 x 2", 4, 2, 64, 64, 256, False, bf),
+    shapes += [("ragged M 3 x 7 x 7", 3, 7, 64, 64, 256, True, bf, False),
+               ("W 2: 4 x 2 x 2", 4, 2, 64, 64, 256, False, bf, False),
                ("fp32 8 x 14 x 14", 8, 14, 256, 64, 256, False,
-                torch.float32)]
-    for nm, n, h, cin, cmid, cout, ds, dt in shapes:
+                torch.float32, False),
+               ("ragged split 3 x 13 x 13", 3, 13, 128, 128, 512, False, bf,
+                True)]
+    for nm, n, h, cin, cmid, cout, ds, dt, k4_only in shapes:
         full = n == RN50_BATCH
         headline = nm == BNECK_HEADLINE
         t = _bneck_inputs(gen, dev, n, h, cin, cmid, cout, dt)
         m = t["m"]
         lab = f"{nm}: M {m}, {str(dt)[6:]}"
+        if k4_only:
+            plan = fb.conv3_bwd_plan(m, cmid, cmid, dt, sm_count(dev))
+            cuts = [s * plan["split_len"] for s in range(1, plan["splits"])]
+            check(any(c % h for c in cuts),
+                  f"{nm}: no wgrad split ends inside an image row "
+                  f"({plan['splits']} splits of {plan['split_len']})")
 
         def case(kernel, what, got, ref, kern, plain, lib, nbytes_, ops,
                  tols=None, extra=None, library=None, timings=None):
@@ -2525,16 +2568,17 @@ def bottleneck_cases(dev):
                         ops=ops, headline=headline and what.startswith("*"),
                         iters=20 if full else 100,
                         plain_iters=2 if full else 10, library=library,
-                        extra_timings=timings or {})
+                        extra_timings=timings or {},
+                        breakdown=full and kernel == "bneck_conv3_bwd")
 
         # ---- K1: the 1x1 forwards
-        k1_calls = [("conv1 (no prologue)", t["x"], t["w1"], None),
-                    ("*conv3 (prologue)", t["y2"], t["w3"],
-                     (t["a2"], t["c2"]))]
+        k1_calls = [] if k4_only else [
+            ("conv1 (no prologue)", t["x"], t["w1"], None),
+            ("*conv3 (prologue)", t["y2"], t["w3"], (t["a2"], t["c2"]))]
         if ds:
             k1_calls.append(("downsample (no prologue)", t["x"], t["wd"],
                              None))
-        if not full:
+        if not full and not k4_only:
             k1_calls.append(("bare product (no prologue, no statistics)",
                              t["x"], t["w1"], None))
         for what, x2, w, pro in k1_calls:
@@ -2564,46 +2608,49 @@ def bottleneck_cases(dev):
         # ---- K2: the 3x3 forward, and the block-level yardstick
         x4 = t["y1"].reshape(n, h, h, cmid)
         a1, c1, w2 = t["a1"], t["c1"], t["w2"]
-        y, s = fb.conv3x3_bn_act(x4, w2, a1, c1)
-        ry, rs_ = fb.conv3x3_bn_act_plain(x4, w2, a1, c1)
         wcl = w2.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
+        if not k4_only:
+            y, s = fb.conv3x3_bn_act(x4, w2, a1, c1)
+            ry, rs_ = fb.conv3x3_bn_act_plain(x4, w2, a1, c1)
 
-        def lib3(x4=x4, wcl=wcl, a1=a1, c1=c1):
-            u = torch.relu(x4 * a1.to(dt) + c1.to(dt))
-            yf = F.conv2d(u.permute(0, 3, 1, 2), wcl, padding=1).float()
-            return torch.stack((yf.sum((0, 2, 3)), (yf * yf).sum((0, 2, 3))))
+            def lib3(x4=x4, wcl=wcl, a1=a1, c1=c1):
+                u = torch.relu(x4 * a1.to(dt) + c1.to(dt))
+                yf = F.conv2d(u.permute(0, 3, 1, 2), wcl, padding=1).float()
+                return torch.stack((yf.sum((0, 2, 3)),
+                                    (yf * yf).sum((0, 2, 3))))
 
-        yield case(
-            "bneck_conv3_fwd", "*conv2 (prologue)", [y, *s], [ry, *rs_],
-            lambda x4=x4, w2=w2, a1=a1, c1=c1:
-                fb.conv3x3_bn_act(x4, w2, a1, c1),
-            lambda x4=x4, w2=w2, a1=a1, c1=c1:
-                fb.conv3x3_bn_act_plain(x4, w2, a1, c1),
-            lib3, nbytes(x4, w2, a1, c1, y) + 8 * cmid,
-            2 * m * 9 * cmid * cmid, tols=_sum_tols(2),
-            extra=[None, _l1_tol(ry.float().abs().sum((0, 1, 2))),
-                   _l1_tol(rs_[1])],
-            library="F.conv2d channels_last (cuDNN), the prologue and "
-            "statistics as torch ops",
-            timings=(_bneck_block_times(dev, gen, n, h, cin, cmid, cout)
-                     if full else None))
-        if not full:
-            y, _ = fb.conv3x3_bn_act(x4, w2, stats=False)
-            ry, _ = fb.conv3x3_bn_act_plain(x4, w2, stats=False)
             yield case(
-                "bneck_conv3_fwd", "bare conv (no prologue, no statistics)",
-                [y], [ry],
-                lambda x4=x4, w2=w2: fb.conv3x3_bn_act(x4, w2, stats=False),
-                lambda x4=x4, w2=w2:
-                    fb.conv3x3_bn_act_plain(x4, w2, stats=False),
-                lambda x4=x4, wcl=wcl:
-                    F.conv2d(x4.permute(0, 3, 1, 2), wcl, padding=1),
-                nbytes(x4, w2, y), 2 * m * 9 * cmid * cmid,
-                library="F.conv2d channels_last (cuDNN)")
+                "bneck_conv3_fwd", "*conv2 (prologue)", [y, *s], [ry, *rs_],
+                lambda x4=x4, w2=w2, a1=a1, c1=c1:
+                    fb.conv3x3_bn_act(x4, w2, a1, c1),
+                lambda x4=x4, w2=w2, a1=a1, c1=c1:
+                    fb.conv3x3_bn_act_plain(x4, w2, a1, c1),
+                lib3, nbytes(x4, w2, a1, c1, y) + 8 * cmid,
+                2 * m * 9 * cmid * cmid, tols=_sum_tols(2),
+                extra=[None, _l1_tol(ry.float().abs().sum((0, 1, 2))),
+                       _l1_tol(rs_[1])],
+                library="F.conv2d channels_last (cuDNN), the prologue and "
+                "statistics as torch ops",
+                timings=(_bneck_block_times(dev, gen, n, h, cin, cmid, cout)
+                         if full else None))
+            if not full:
+                y, _ = fb.conv3x3_bn_act(x4, w2, stats=False)
+                ry, _ = fb.conv3x3_bn_act_plain(x4, w2, stats=False)
+                yield case(
+                    "bneck_conv3_fwd",
+                    "bare conv (no prologue, no statistics)", [y], [ry],
+                    lambda x4=x4, w2=w2:
+                        fb.conv3x3_bn_act(x4, w2, stats=False),
+                    lambda x4=x4, w2=w2:
+                        fb.conv3x3_bn_act_plain(x4, w2, stats=False),
+                    lambda x4=x4, wcl=wcl:
+                        F.conv2d(x4.permute(0, 3, 1, 2), wcl, padding=1),
+                    nbytes(x4, w2, y), 2 * m * 9 * cmid * cmid,
+                    library="F.conv2d channels_last (cuDNN)")
 
         # ---- K3: the 1x1 backwards
-        k3_calls = [
+        k3_calls = [] if k4_only else [
             ("*conv3 (pre-mask, finalize, prologue, reductions)", t["e3"],
              t["w3"], t["y2"], dict(z=t["z"], y_fin=(t["y3"], *t["k_out"]),
                                     prologue=(t["a2"], t["c2"]),
@@ -2615,7 +2662,7 @@ def bottleneck_cases(dev):
             k3_calls.append(("downsample (pre-mask, finalize)", t["e3"],
                              t["wd"], t["x"],
                              dict(z=t["z"], y_fin=(t["y3"], *t["k_out"]))))
-        if not full:
+        if not full and not k4_only:
             k3_calls.append(("bare products (dgrad, wgrad)", t["e1"],
                              t["w1"], t["x"], {}))
         for what, e, w, x2, kw in k3_calls:
@@ -2655,6 +2702,10 @@ def bottleneck_cases(dev):
         yfin = (t["y2"].reshape(n, h, h, cmid), *t["k_mid"])
         pro, red = (a1, c1), (t["mu1"], t["rs1"])
         got = fb.conv3x3_bn_act_bwd(e4, w2, x4, yfin, pro, red)
+        again = fb.conv3x3_bn_act_bwd(e4, w2, x4, yfin, pro, red)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{lab}: two K4 launches on the same inputs differ")
+        del again
         ref = fb.conv3x3_bn_act_bwd_plain(e4, w2, x4, yfin, pro, red)
         l1_dw = fb._conv3_wgrad(fb._apply_dt(x4, *pro).float().abs(),
                                 fb._finalized(e4, None, yfin).float().abs())
@@ -2699,9 +2750,11 @@ CASE_GROUPS = dict(ln=ln_cases, seg=seg_cases, decode=decode_cases,
                    packed=packed_cases, bottleneck=bottleneck_cases)
 
 
-def run_kernel_phase(dev, generators):
+def run_kernel_phase(dev, generators, profile=False):
     """Check and time each case as its generator yields it (the
-    closures read the generator's loop variables)."""
+    closures read the generator's loop variables). With ``profile``, a
+    case marked ``breakdown`` also gets the device time of each kernel
+    its call launches, over 5 calls (`profile_window`)."""
     out = []
     for c in itertools.chain(*(g(dev) for g in generators)):
         cmp = c["cmp"]
@@ -2723,6 +2776,10 @@ def run_kernel_phase(dev, generators):
         b_ms, b_by = bound_ms(c["nbytes"], c["ops"], c["dtype"])
         extra = {k: device_ms(fn, c.get("iters", 100))
                  for k, fn in c.get("extra_timings", {}).items()}
+        if profile and c.get("breakdown"):
+            extra["breakdown"] = profile_window(
+                lambda c=c: [c["kern"]() for _ in range(5)],
+                f"{c['kernel']} {c['case']}: 5 calls")["top_device_ms"]
         out.append(dict(
             kernel=c["kernel"], case=c["case"], max_abs_err=cmp["err"],
             max_abs_out=cmp["ref_max"], err_over_tol=cmp["ratio"], ms=ms,
@@ -2737,7 +2794,10 @@ def run_kernel_phase(dev, generators):
             f"{'' if lib32_ms is None else f' (on fp32 {lib32_ms:.4f} ms)'}"
             f"{'' if c.get('library') is None else ' [' + c['library'] + ']'}"
             f"  bound {b_ms:.4f} ms ({b_by})"
-            + "".join(f"  {k} {t:.4f}" for k, t in extra.items()))
+            + "".join(f"  {k} {t:.4f}" for k, t in extra.items()
+                      if k != "breakdown"))
+        for name, t in extra.get("breakdown", {}).items():
+            log(f"      {t / 5:.4f} ms a call  {name}")
     return out
 
 
@@ -4469,7 +4529,8 @@ def main(argv=None):
     runs = {
         "kernels": ("kernels (kernel vs plain version on the card)",
                     lambda: run_kernel_phase(
-                        dev, [CASE_GROUPS[g] for g in groups])),
+                        dev, [CASE_GROUPS[g] for g in groups],
+                        args.profile)),
         "parity": ("parity (2 layers, fp32, TF32 off: cuda kernels vs cpu "
                    "plain)", run_parity_phase),
         "serve": ("serve (8 layers, bf16, 32 requests x 64 tokens)",

@@ -1,7 +1,8 @@
 // The fused ResNet bottleneck's convolutions for Hopper (sm_90a): one
-// tiled product core shared by the four kernels of bottleneck_fwd.cu and
-// bottleneck_bwd.cu, the staging helpers that apply a prologue while a
-// tile is written to shared memory, and the fixed-order reduction of
+// tiled product core shared by the kernels of bottleneck_fwd.cu and
+// bottleneck_bwd.cu (all but the bf16 3x3 backward, which runs on
+// bottleneck_pipe.cuh), the staging helpers that apply a prologue while
+// a tile is written to shared memory, and the fixed-order reduction of
 // per-block partial sums.
 //
 // Every product is C (rows x cols) = sum over a reduction axis of

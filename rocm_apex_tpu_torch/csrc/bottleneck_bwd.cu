@@ -21,15 +21,29 @@
 // grid; the H100's blocks run in parallel, so the dgrad writes one
 // (Σg, Σg x̂) partial per tile of pixels and the wgrad splits the pixels
 // into `splits` ranges of `split_len` (a multiple of the staged chunk),
-// each writing its own fp32 dw, summed over the ranges in order.
+// each writing its own fp32 dw, summed over the ranges in order by ONE
+// reduction launch (no atomics: two launches give the same bits).
 //
-// Bound: as the forward (bytes at stage 1, tensor-core operations at
-// stages 3 and 4; backward does twice the forward's products). The
-// design: the finalized cotangent and the activated input are never
-// written to device memory; each product recomputes them while staging
-// its tiles (dz is computed once by the dgrad and once by the wgrad, a
-// few operations an element against a 64- to 4608-deep product).
-#include "bottleneck.cuh"
+// Bound: tensor-core operations for the 3x3 at every ResNet-50 shape
+// (2 x 2 M 9 Cin Cout against ~2 M (Cin + 2 Cout) + 9 Cin Cout elements),
+// bytes for most 1x1s. The 1x1 backward (and the fp32 3x3, the parity
+// runs') stage their tiles on bottleneck.cuh's core, recomputing the
+// finalized cotangent and the activated input while staging. The bf16
+// 3x3 backward, the costliest kernel of the fused ResNet-50 step, was
+// that too and sat at 33x its bound: 72 serial staged chunks a tile with
+// no load in flight during the products, dz and u recomputed 9 times
+// over, half-empty wgrad tiles at Cin 64 and ten reduction launches. It
+// now runs on bottleneck_pipe.cuh: a pre-pass writes dz = finalize(e, y)
+// and u = relu(x a + b) once each in bf16 (the same rounding, so the
+// products see the same values), the dgrad and the wgrad become implicit
+// GEMMs over those rows, fed by a 3-stage cp.async ring (zero-fill for
+// the taps that leave the image) and multiplied by wgmma, the wgrad's
+// output rows are (tap, cin) pairs (9 Cin rows, full tiles at Cin 64)
+// and one launch sums every tap's split partials.
+#include <algorithm>
+#include <numeric>
+
+#include "bottleneck_pipe.cuh"
 
 namespace apex_port {
 namespace bneck {
@@ -184,9 +198,10 @@ struct Conv3Dgrad {
 };
 
 // ws[z] (K, N) = sum over the pixels p of split s of u[p + off_t]^T dz[p]
-// (z = t * splits + s; kTaps 1: the 1x1, off 0, u with the fp32
-// prologue; kTaps 9: the 3x3, tap t's shift and validity, u with the
-// prologue in T)
+// (kTaps 1: the 1x1, z = s, off 0, u with the fp32 prologue; kTaps 9:
+// the fp32 3x3, z = s * 9 + t, so that ws is (splits, 9, K, N) and one
+// reduction over the splits gives dw (9, K, N); tap t's shift and
+// validity, u with the prologue in T)
 template <typename T, int kTaps>
 struct Wgrad {
   using C = Cfg<T>;
@@ -200,10 +215,11 @@ struct Wgrad {
   int64_t M;
   int H, W, K, N;
   int64_t split_len;
-  int splits;
 
   __device__ int64_t p_begin() const {
-    return static_cast<int64_t>(blockIdx.z % splits) * split_len;
+    const int s = kTaps == 9 ? static_cast<int>(blockIdx.z) / 9
+                             : static_cast<int>(blockIdx.z);
+    return static_cast<int64_t>(s) * split_len;
   }
   __device__ int64_t p_end() const {
     const int64_t e = p_begin() + split_len;
@@ -218,7 +234,7 @@ struct Wgrad {
     const int64_t p0 = p_begin() + static_cast<int64_t>(kc) * C::BK;
     const int64_t pe = p_end();
     const int k0 = blockIdx.x * C::BM;
-    const int t = kTaps == 9 ? static_cast<int>(blockIdx.z) / splits : 4;
+    const int t = kTaps == 9 ? static_cast<int>(blockIdx.z) % 9 : 4;
     const int dy = t / 3 - 1, dx = t % 3 - 1;
     // source rows: pixels; columns: channels of x
     auto fn = [&](int r, int c, float (&v)[8]) {
@@ -285,7 +301,7 @@ int mm_bwd(Cot<T> d, Up<T> u, const void* w, void* g, float* dw, float* r12,
     if (err != cudaSuccess) return err;
   }
   if (dw != nullptr) {
-    Wgrad<T, 1> p{d, u, wsw, M, 1, 1, K, N, split_len, splits};
+    Wgrad<T, 1> p{d, u, wsw, M, 1, 1, K, N, split_len};
     err = launch_gemm<T>(
         p, dim3((K + C::BM - 1) / C::BM, (N + C::BN - 1) / C::BN, splits),
         stream);
@@ -300,33 +316,424 @@ int mm_bwd(Cot<T> d, Up<T> u, const void* w, void* g, float* dw, float* r12,
   return err;
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 3x3 backward on bottleneck_pipe.cuh
+// ---------------------------------------------------------------------------
+
+// The pre-pass: dz = finalize(e, y) (M, Cout) when y is given and u =
+// relu(x a + b) (M, Cin), each in T with the rounding of the staged
+// forms (`dz8`, `prologue_dt`), 8 channels a thread. The grid's threads
+// are a multiple of Cin / 8 and of Cout / 8: a thread keeps its channels
+// over its grid-stride steps.
 template <typename T>
-int conv3_bwd(Cot<T> d, Up<T> u, const void* w, void* g, float* dw,
-              float* r12, float* part, float* wsw, float* scratch, int n,
-              int H, int W, int Cin, int Cout, int64_t split_len, int splits,
-              cudaStream_t stream) {
-  using C = Cfg<T>;
+__global__ void __launch_bounds__(256)
+    conv3_prepass_kernel(Cot<T> d, Up<T> up, T* __restrict__ dz,
+                         T* __restrict__ u, int64_t M, int Cin, int Cout) {
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  if (d.y != nullptr) {
+    const int n = static_cast<int>(tid % (Cout / 8)) * 8;
+    float k1[8], k2[8], k0[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      k1[i] = round_to<T>(d.k1[n + i]);
+      k2[i] = round_to<T>(d.k2[n + i]);
+      k0[i] = round_to<T>(d.k0[n + i]);
+    }
+    for (int64_t off = tid * 8; off < M * Cout; off += stride * 8) {
+      float ev[8], yv[8];
+      load8<T>(d.e + off, ev);
+      load8<T>(d.y + off, yv);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        ev[i] = finalize_dt<T>(ev[i], yv[i], k1[i], k2[i], k0[i]);
+      store_vec_packed<T, 8>(dz + off, ev);
+    }
+  }
+  const int k = static_cast<int>(tid % (Cin / 8)) * 8;
+  float a[8], b[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    a[i] = round_to<T>(up.a[k + i]);
+    b[i] = round_to<T>(up.b[k + i]);
+  }
+  for (int64_t off = tid * 8; off < M * Cin; off += stride * 8) {
+    float xv[8];
+    load8<T>(up.x + off, xv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) xv[i] = prologue_dt<T>(xv[i], a[i], b[i]);
+    store_vec_packed<T, 8>(u + off, xv);
+  }
+}
+
+// out[i] = sum over the parts j in order of in[j][i] (a few parts: the
+// pipelined wgrad's splits), 4 columns a thread
+__global__ void __launch_bounds__(256)
+    sum_parts_kernel(const float* __restrict__ in, int parts, int64_t width,
+                     float* __restrict__ out) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x * 4;
+  for (int64_t i = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x) * 4;
+       i < width; i += stride) {
+    float4 s = *reinterpret_cast<const float4*>(in + i);
+    for (int j = 1; j < parts; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(in + j * width + i);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    *reinterpret_cast<float4*>(out + i) = s;
+  }
+}
+
+// (h, w) of flat pixel p of an (n, H, W) stream (32-bit: the wrappers
+// keep the pixel count below 2^31)
+__device__ __forceinline__ void pixel_hw(int64_t p, int H, int W, int& h,
+                                         int& w) {
+  const int rem = static_cast<int>(p) % (H * W);
+  h = rem / W;
+  w = rem - h * W;
+}
+
+// g (M, Cin) = sum over taps t of dz[q - off_t] @ w[t]^T, masked by
+// u > 0, with the (Σg, Σg x̂) partial of each pixel tile. Rows: pixels
+// (BM a tile); reduction: (tap, 64-channel chunk of Cout), tap-major; A
+// and B K-major (rows of Cout contiguous values: dz's pixel rows, w[t]'s
+// rows, one a column ci of the tile).
+template <int BN>
+struct Conv3DgradPipe {
+  using Cfg = PCfg<BN, false>;
+  using T = bf16;
+  const T* dz;  // (M, Cout)
+  const T* u;   // (M, Cin): the mask
+  const T* x;   // (M, Cin): x̂ of the reductions
+  const float* mu;
+  const float* rs;
+  const T* w;  // (9, Cin, Cout)
+  T* g;
+  float* part;  // (tiles over M, 2, Cin)
+  int64_t M;
+  int H, W, Cin, Cout;
+
+  // the A rows a thread stages (tid / 8 + 32 i, segment tid % 8), their
+  // pixels' (h, w) (h far outside the image past the last pixel: no tap
+  // valid), and the next chunk's tap and Cout offset (chunks are loaded
+  // in order)
+  struct Thread {
+    int h[4], w[4];
+    int t, c0;
+  };
+
+  __device__ int chunks() const {
+    return 9 * ((Cout + Cfg::BK - 1) / Cfg::BK);
+  }
+
+  __device__ Thread thread_init() const {
+    Thread th;
+    const int64_t m0 = static_cast<int64_t>(blockIdx.x) * Cfg::BM;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t q = m0 + (threadIdx.x >> 3) + 32 * i;
+      if (q < M) {
+        pixel_hw(q, H, W, th.h[i], th.w[i]);
+      } else {
+        th.h[i] = -4 * H;
+        th.w[i] = 0;
+      }
+    }
+    th.t = 0;
+    th.c0 = 0;
+    return th;
+  }
+
+  __device__ void load(Thread& th, int, unsigned char* As,
+                       unsigned char* Bs) const {
+    const int t = th.t, c0 = th.c0;
+    th.c0 += Cfg::BK;
+    if (th.c0 >= Cout) {
+      th.c0 = 0;
+      ++th.t;
+    }
+    const int dy = t / 3 - 1, dx = t % 3 - 1;
+    const int c = threadIdx.x & 7, co = c0 + c * 8;
+    const int64_t m0 = static_cast<int64_t>(blockIdx.x) * Cfg::BM;
+    // the pair (q - off, q) is the forward's (p, p + off): the source
+    // pixel q - off must lie in the image
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (threadIdx.x >> 3) + 32 * i;
+      const int hs = th.h[i] - dy, ws = th.w[i] - dx;
+      const bool ok =
+          co < Cout && hs >= 0 && hs < H && ws >= 0 && ws < W;
+      const T* src =
+          ok ? dz + (m0 + r - dy * W - dx) * Cout + co : dz;
+      cp_async16(As + sw128(r, c), src, ok);
+    }
+    const int ci0 = blockIdx.y * BN;
+#pragma unroll
+    for (int i = 0; i < BN * 8 / Cfg::kThreads; ++i) {
+      const int v = threadIdx.x + i * Cfg::kThreads;
+      const int r = v >> 3, cc = v & 7;
+      const int ci = ci0 + r, co2 = c0 + cc * 8;
+      const bool ok = ci < Cin && co2 < Cout;
+      const T* src =
+          ok ? w + (static_cast<int64_t>(t) * Cin + ci) * Cout + co2 : w;
+      cp_async16(Bs + sw128(r, cc), src, ok);
+    }
+  }
+
+  // Each thread a 16-byte run of 8 channels down every kRowGroups-th row
+  // of the tile (vector loads of u and x, one vector store of g), its
+  // sums in row order; the row groups' sums then combined in group
+  // order through shared memory (the tile's, free once read).
+  __device__ void epilogue(const WAcc<BN>& acc, float* Cs) const {
+    acc.store(Cs, Cfg::LDC);
+    __syncthreads();
+    constexpr int kSegs = BN / 8;
+    constexpr int kRowGroups = Cfg::kThreads / kSegs;
+    const int64_t m0 = static_cast<int64_t>(blockIdx.x) * Cfg::BM;
+    const int ci0 = blockIdx.y * BN;
+    const int rows = span(M - m0, Cfg::BM);
+    const int cols = min(BN, Cin - ci0);  // a multiple of 16
+    const int seg = threadIdx.x % kSegs, rg = threadIdx.x / kSegs;
+    const int c = seg * 8;
+    float s1[8], s2[8], mu8[8], rs8[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s1[j] = s2[j] = 0.f;
+      mu8[j] = rs8[j] = 0.f;
+    }
+    if (c < cols) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mu8[j] = mu[ci0 + c + j];
+        rs8[j] = rs[ci0 + c + j];
+      }
+#pragma unroll
+      for (int i = 0; i < Cfg::BM / kRowGroups; ++i) {
+        const int r = rg + i * kRowGroups;
+        if (r < rows) {
+          const int64_t off = (m0 + r) * Cin + ci0 + c;
+          float uv[8], xv[8], v[8];
+          load_vec<T, 8>(u + off, uv);
+          load_vec<T, 8>(x + off, xv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            v[j] = uv[j] > 0.f ? Cs[r * Cfg::LDC + c + j] : 0.f;
+            s1[j] += v[j];
+            s2[j] = fmaf(v[j], __fmul_rn(__fsub_rn(xv[j], mu8[j]), rs8[j]),
+                         s2[j]);
+          }
+          store_vec_packed<T, 8>(g + off, v);
+        }
+      }
+    }
+    __syncthreads();  // Cs read: its room holds the row groups' sums
+    float* red = Cs;  // [2][kRowGroups][BN]
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      red[rg * BN + c + j] = s1[j];
+      red[(kRowGroups + rg) * BN + c + j] = s2[j];
+    }
+    __syncthreads();
+    const int col = threadIdx.x;
+    if (col < cols) {
+      float t1 = 0.f, t2 = 0.f;
+#pragma unroll
+      for (int gi = 0; gi < kRowGroups; ++gi) {
+        t1 += red[gi * BN + col];
+        t2 += red[(kRowGroups + gi) * BN + col];
+      }
+      float* p1 = part + static_cast<int64_t>(blockIdx.x) * 2 * Cin + ci0;
+      p1[col] = t1;
+      p1[Cin + col] = t2;
+    }
+  }
+};
+
+// ws[s] (9 Cin, Cout) = sum over the pixels p of split s of
+// u[p + off_t][ci]^T dz[p], row t * Cin + ci: the taps folded into the
+// output rows, so that ws[s] has dw's (3, 3, Cin, Cout) layout. Both
+// sources MN-major (pixels down the tile), as they lie.
+template <int BN>
+struct Conv3WgradPipe {
+  using Cfg = PCfg<BN, true>;
+  using T = bf16;
+  const T* u;   // (M, Cin)
+  const T* dz;  // (M, Cout)
+  float* ws;    // (splits, 9 Cin, Cout)
+  int64_t M;
+  int H, W, Cin, Cout;
+  int64_t split_len;
+
+  // a thread stages the A segment c = tid % 16 (8 channels of one (tap,
+  // cin) run) for pixel rows tid / 16 + 16 i; (h, w) of those rows'
+  // pixels in the next chunk (chunks are loaded in order, BK pixels
+  // apart)
+  struct Thread {
+    int ci, dy, dx;
+    bool row_ok;
+    int h[4], w[4];
+  };
+
+  __device__ int64_t p_begin() const {
+    return static_cast<int64_t>(blockIdx.z) * split_len;
+  }
+  __device__ int64_t p_end() const {
+    const int64_t e = p_begin() + split_len;
+    return e < M ? e : M;
+  }
+  __device__ int chunks() const {
+    const int64_t n = p_end() - p_begin();
+    return n > 0 ? static_cast<int>((n + Cfg::BK - 1) / Cfg::BK) : 0;
+  }
+
+  __device__ Thread thread_init() const {
+    Thread th;
+    const int row = blockIdx.x * Cfg::BM + (threadIdx.x & 15) * 8;
+    const int t = row / Cin;
+    th.ci = row - t * Cin;
+    th.dy = t / 3 - 1;
+    th.dx = t % 3 - 1;
+    th.row_ok = row < 9 * Cin;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pixel_hw(p_begin() + (threadIdx.x >> 4) + 16 * i, H, W, th.h[i],
+               th.w[i]);
+    return th;
+  }
+
+  __device__ void load(Thread& th, int kc, unsigned char* At,
+                       unsigned char* Bt) const {
+    const int64_t p0 = p_begin() + static_cast<int64_t>(kc) * Cfg::BK;
+    const int64_t pe = p_end();
+    const int c = threadIdx.x & 15;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (threadIdx.x >> 4) + 16 * i;
+      const int64_t p = p0 + r;
+      const int h = th.h[i] + th.dy, w = th.w[i] + th.dx;
+      const bool ok = th.row_ok && p < pe && h >= 0 && h < H && w >= 0 &&
+                      w < W;
+      const T* src =
+          ok ? u + (p + th.dy * W + th.dx) * Cin + th.ci : u;
+      cp_async16(At + mnmajor_seg(r, c), src, ok);
+      // the same row of the next chunk: BK pixels on
+      th.w[i] += Cfg::BK;
+      while (th.w[i] >= W) {
+        th.w[i] -= W;
+        if (++th.h[i] == H) th.h[i] = 0;
+      }
+    }
+    const int n0 = blockIdx.y * BN;
+    constexpr int kSegs = BN / 8;  // 16-byte segments a pixel row
+#pragma unroll
+    for (int i = 0; i < Cfg::BK * kSegs / Cfg::kThreads; ++i) {
+      const int v = threadIdx.x + i * Cfg::kThreads;
+      const int r = v / kSegs, cc = v % kSegs;
+      const int64_t p = p0 + r;
+      const int n = n0 + cc * 8;
+      const bool ok = p < pe && n < Cout;
+      cp_async16(Bt + mnmajor_seg(r, cc), ok ? dz + p * Cout + n : dz, ok);
+    }
+  }
+
+  __device__ void epilogue(const WAcc<BN>& acc, float*) const {
+    const int row0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * BN;
+    const int rows = 9 * Cin;
+    float* out = ws + static_cast<int64_t>(blockIdx.z) * rows * Cout;
+    acc.for_pairs([&](int r, int col, float v0, float v1) {
+      // Cout is a multiple of 16: a pair is in or out together
+      if (row0 + r < rows && n0 + col < Cout)
+        *reinterpret_cast<float2*>(
+            out + static_cast<int64_t>(row0 + r) * Cout + n0 + col) =
+            make_float2(v0, v1);
+    });
+  }
+};
+
+// the bf16 3x3 backward: pre-pass, dgrad, wgrad, the sums of the wgrad's
+// split partials (one launch for every tap) and of the dgrad's tile
+// partials. dzbuf is null when y is (dz = e itself).
+inline int conv3_bwd_bf16(Cot<bf16> d, Up<bf16> u, const bf16* w, bf16* g,
+                          float* dw, float* r12, float* part, float* wsw,
+                          float* scratch, bf16* dzbuf, bf16* ubuf, int n,
+                          int H, int W, int Cin, int Cout, int64_t split_len,
+                          int splits, int sms, cudaStream_t stream) {
+  const int64_t M = static_cast<int64_t>(n) * H * W;
+  const int tiles = static_cast<int>((M + 127) / 128);
+  // a multiple of `step` blocks: 256 step threads divide by Cin / 8 and
+  // Cout / 8
+  const int64_t step =
+      std::lcm(std::lcm(int64_t{256}, int64_t{Cin / 8}), int64_t{Cout / 8}) /
+      256;
+  const int64_t segs = M * std::max(Cin, Cout) / 8;
+  const int64_t want =
+      std::min<int64_t>((segs + 255) / 256, static_cast<int64_t>(sms) * 16);
+  const int pre_blocks =
+      segs > 0 ? static_cast<int>((want + step - 1) / step * step) : 0;
+  if (pre_blocks > 0)
+    conv3_prepass_kernel<bf16><<<pre_blocks, 256, 0, stream>>>(
+        d, u, dzbuf, ubuf, M, Cin, Cout);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const bf16* dz = d.y != nullptr ? dzbuf : d.e;
+  if (Cin % 128 == 0) {
+    Conv3DgradPipe<128> p{dz, ubuf, u.x, u.mu, u.rs, w, g, part,
+                          M, H, W, Cin, Cout};
+    err = launch_pipe(p, dim3(tiles, Cin / 128), stream);
+  } else {
+    Conv3DgradPipe<64> p{dz, ubuf, u.x, u.mu, u.rs, w, g, part,
+                         M, H, W, Cin, Cout};
+    err = launch_pipe(p, dim3(tiles, (Cin + 63) / 64), stream);
+  }
+  if (err != cudaSuccess) return err;
+  const unsigned row_tiles = static_cast<unsigned>((9 * Cin + 127) / 128);
+  if (Cout % 128 == 0) {
+    Conv3WgradPipe<128> p{ubuf, dz, wsw, M, H, W, Cin, Cout, split_len};
+    err = launch_pipe(p, dim3(row_tiles, Cout / 128, splits), stream);
+  } else {
+    Conv3WgradPipe<64> p{ubuf, dz, wsw, M, H, W, Cin, Cout, split_len};
+    err = launch_pipe(p, dim3(row_tiles, (Cout + 63) / 64, splits), stream);
+  }
+  if (err != cudaSuccess) return err;
+  const int64_t width = 9 * static_cast<int64_t>(Cin) * Cout;
+  sum_parts_kernel<<<static_cast<int>(std::min<int64_t>(
+                         (width / 4 + 255) / 256,
+                         static_cast<int64_t>(sms) * 16)),
+                     256, 0, stream>>>(wsw, splits, width, dw);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_parts(part, tiles, 2 * static_cast<int64_t>(Cin), r12,
+                      scratch, stream);
+}
+
+// the fp32 3x3 backward (the parity runs'): the staged core, dz and u
+// recomputed while staging; the wgrad's partials (splits, 9, Cin, Cout)
+// reduced in one launch
+inline int conv3_bwd_f32(Cot<float> d, Up<float> u, const float* w,
+                         float* g, float* dw, float* r12, float* part,
+                         float* wsw, float* scratch, int n, int H, int W,
+                         int Cin, int Cout, int64_t split_len, int splits,
+                         cudaStream_t stream) {
+  using C = Cfg<float>;
   const int64_t M = static_cast<int64_t>(n) * H * W;
   const int tiles = static_cast<int>((M + C::BM - 1) / C::BM);
-  Conv3Dgrad<T> pd{d, u, static_cast<const T*>(w), static_cast<T*>(g), part,
-                   M, H, W, Cin, Cout};
+  Conv3Dgrad<float> pd{d, u, w, g, part, M, H, W, Cin, Cout};
   cudaError_t err =
-      launch_gemm<T>(pd, dim3(tiles, (Cin + C::BN - 1) / C::BN), stream);
+      launch_gemm<float>(pd, dim3(tiles, (Cin + C::BN - 1) / C::BN), stream);
   if (err != cudaSuccess) return err;
-  Wgrad<T, 9> pw{d, u, wsw, M, H, W, Cin, Cout, split_len, splits};
-  err = launch_gemm<T>(
+  Wgrad<float, 9> pw{d, u, wsw, M, H, W, Cin, Cout, split_len};
+  err = launch_gemm<float>(
       pw, dim3((Cin + C::BM - 1) / C::BM, (Cout + C::BN - 1) / C::BN,
                9 * splits),
       stream);
   if (err != cudaSuccess) return err;
-  // the 9 taps' partials are (9 * splits, Cin, Cout) in tap-major order:
-  // each tap's splits summed in order into dw[t]
-  for (int t = 0; t < 9; ++t) {
-    const int64_t kn = static_cast<int64_t>(Cin) * Cout;
-    err = reduce_parts(wsw + t * splits * kn, splits, kn, dw + t * kn, nullptr,
-                       stream);
-    if (err != cudaSuccess) return err;
-  }
+  err = reduce_parts(wsw, splits, 9 * static_cast<int64_t>(Cin) * Cout, dw,
+                     nullptr, stream);
+  if (err != cudaSuccess) return err;
   return reduce_parts(part, tiles, 2 * static_cast<int64_t>(Cin), r12,
                       scratch, stream);
 }
@@ -370,30 +777,37 @@ int bneck_mm_bwd(const void* e, const void* z, const void* y,
 }
 
 // The merged 3x3 backward on (n, H, W, C) maps, w (9, Cin, Cout); the
-// finalize optional (y null), the prologue and the reductions not.
+// finalize optional (y null), the prologue and the reductions not. wsw:
+// the wgrad's (splits, 9, Cin, Cout) fp32 partials. bf16 only: dzbuf (M,
+// Cout) (unused without y) and ubuf (M, Cin), the pre-pass's outputs; sms
+// sizes its grid.
 int bneck_conv3_bwd(const void* e, const void* y, const float* k1,
                     const float* k2, const float* k0, const void* x,
                     const float* a, const float* b, const float* mu,
                     const float* rs, const void* w, void* g, float* dw,
                     float* r12, float* part, float* wsw, float* scratch,
-                    int n, int H, int W, int Cin, int Cout,
-                    long long split_len, int splits, int dtype, void* stream) {
+                    void* dzbuf, void* ubuf, int n, int H, int W, int Cin,
+                    int Cout, long long split_len, int splits, int sms,
+                    int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16) {
     using T = __nv_bfloat16;
-    return bneck::conv3_bwd<T>(
+    return bneck::conv3_bwd_bf16(
         {static_cast<const T*>(e), nullptr, static_cast<const T*>(y), k1, k2,
          k0},
-        {static_cast<const T*>(x), a, b, mu, rs}, w, g, dw, r12, part, wsw,
-        scratch, n, H, W, Cin, Cout, split_len, splits, s);
+        {static_cast<const T*>(x), a, b, mu, rs}, static_cast<const T*>(w),
+        static_cast<T*>(g), dw, r12, part, wsw, scratch,
+        static_cast<T*>(dzbuf), static_cast<T*>(ubuf), n, H, W, Cin, Cout,
+        split_len, splits, sms, s);
   }
   if (dtype == kFloat32) {
     using T = float;
-    return bneck::conv3_bwd<T>(
+    return bneck::conv3_bwd_f32(
         {static_cast<const T*>(e), nullptr, static_cast<const T*>(y), k1, k2,
          k0},
-        {static_cast<const T*>(x), a, b, mu, rs}, w, g, dw, r12, part, wsw,
-        scratch, n, H, W, Cin, Cout, split_len, splits, s);
+        {static_cast<const T*>(x), a, b, mu, rs}, static_cast<const T*>(w),
+        static_cast<T*>(g), dw, r12, part, wsw, scratch, n, H, W, Cin, Cout,
+        split_len, splits, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -16,6 +16,7 @@ raises if it is not 0, since a refused launch never runs and a later
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,6 +35,7 @@ __all__ = [
     "build_logs",
     "dtype_code",
     "ptr",
+    "sm_count",
     "stream_ptr",
 ]
 
@@ -72,6 +74,18 @@ def ptr(t) -> ctypes.c_void_p:
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The multiprocessors of a CUDA device (the kernels' grids are sized
+    from it)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def _nvcc() -> str:

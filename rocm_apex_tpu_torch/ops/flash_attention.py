@@ -53,7 +53,11 @@ per-row slot read and the ``(rows, heads, head_dim)`` query layout of
 ``flash_attention_decode``, where the JAX function takes ``(slots*heads,
 t, head_dim)`` and the chunk path broadcasts every token to every slot.
 An int8 key or value is dequantized as the JAX kernel does it, ``(float(x)
-* scale)`` rounded to q's dtype.
+* scale)`` rounded to q's dtype. The read is split over the keys
+(`decode_span_plan`: spans of a (row, head)'s capacity, a warp each, as
+many as fill the card), and the spans' partials are merged in a fixed
+order (`merge_span_partials_plain` is that merge in plain PyTorch,
+`decode_paged_spans_plain` the whole split read).
 
 **Unpacked** (``flash_attention``, ``flash_attention_varlen``,
 ``flash_attention_with_lse``, ``flash_attention_dropout``, the JAX names,
@@ -96,6 +100,7 @@ from rocm_apex_tpu_torch.ops._build import (
     Kernel,
     dtype_code,
     ptr,
+    sm_count,
     stream_ptr,
 )
 from rocm_apex_tpu_torch.ops.paging import paged_view
@@ -121,6 +126,10 @@ __all__ = [
     "flash_attention_decode_plain",
     "flash_attention_decode_paged",
     "flash_attention_decode_paged_plain",
+    "decode_paged_spans_plain",
+    "decode_span_plan",
+    "decode_span_workspace",
+    "merge_span_partials_plain",
     "flash_attention_qkv",
     "flash_attention_qkv_dropout",
     "flash_attention_qkv_bias",
@@ -144,7 +153,8 @@ FLASH_DECODE = Kernel(
               _I, _I, ctypes.c_float, _I, _P, _P, _P],
     replaces="rocm_apex_tpu/ops/flash_attention.py:813 _decode_kernel",
 )
-_PAGED_ARGS = [_I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P]
+_PAGED_ARGS = [_I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P,
+               _P, _P, _P]
 FLASH_DECODE_PAGED = Kernel(
     name="flash_attention_decode_paged",
     source="flash_decode_paged.cu",
@@ -308,6 +318,106 @@ def flash_attention_decode(
     return (o, lse) if return_lse else o
 
 
+# the split paged read (csrc/flash_decode_paged.cu): warps a block, keys
+# a tile, at most 32 spans a (row, head), and the warps a multiprocessor
+# the spans aim at (the decode grid's 8 rows x 8 heads take 32 spans of
+# 32 keys at capacity 1024 on 132 multiprocessors)
+_SPAN_BLOCK_WARPS = 4
+_SPAN_TILE = 32
+_SPAN_MAX = 32
+_SPAN_WARPS_PER_SM = 16
+
+
+def decode_span_plan(rows: int, heads: int, capacity: int,
+                     sms: int) -> tuple:
+    """``(spans, span_len)`` of the split paged read: each (row, head)'s
+    key range ``[0, capacity)`` is cut into ``spans`` (a power of two, at
+    most 32) ranges of ``span_len`` keys (a multiple of the 32-key tile,
+    ``spans * span_len >= capacity`` and no span starting at or past the
+    capacity), doubled while rows x heads x spans stays within
+    `_SPAN_WARPS_PER_SM` warps for each of ``sms`` multiprocessors. It
+    reads no kv_len: a span past its row's bound exits at once on the
+    card."""
+    pairs = rows * heads
+    spans = 1
+    while (spans < _SPAN_MAX and pairs * spans * 2 <= _SPAN_WARPS_PER_SM * sms
+           and capacity >= 2 * spans * _SPAN_TILE):
+        spans *= 2
+    while True:
+        span_len = max(-(-capacity // (spans * _SPAN_TILE)) * _SPAN_TILE,
+                       _SPAN_TILE)
+        # tile rounding may leave the last spans past the capacity
+        if spans == 1 or (spans - 1) * span_len < capacity:
+            return spans, span_len
+        spans //= 2
+
+
+def decode_span_workspace(rows: int, heads: int, head_dim: int,
+                          spans: int) -> int:
+    """fp32 elements of the split read's workspace: each block's merged
+    (acc, m, l) where a (row, head)'s spans take more than one block of
+    `_SPAN_BLOCK_WARPS` warps, else 0."""
+    if spans <= _SPAN_BLOCK_WARPS:
+        return 0
+    return rows * heads * (spans // _SPAN_BLOCK_WARPS) * (head_dim + 2)
+
+
+def merge_span_partials_plain(m, l, acc):
+    """The split read's merge as plain PyTorch: partials along dim -1 of
+    ``m`` and ``l`` (base-2 running maxima and sums, m = -1e30 and l = 0
+    for a span that attended nothing) and dim -2 of ``acc`` (the
+    unnormalized value sums), merged through their maxima in span order:
+    o = sum_i acc_i 2^(m_i - M) / sum_i l_i 2^(m_i - M), M = max_i m_i,
+    and the natural-log lse (M + log2 l) ln 2; zeros and lse = -1e30 where
+    no span attended a key. Returns (o, lse)."""
+    mx = m.max(dim=-1).values
+    f = torch.exp2(m - mx[..., None])
+    lsum = (l * f).sum(-1)
+    o = (acc * f[..., None]).sum(-2)
+    empty = ~(lsum > 0)
+    o = torch.where(empty[..., None], 0.0, o / torch.where(empty, 1.0,
+                                                           lsum)[..., None])
+    lse = torch.where(empty, -1e30,
+                      (mx + torch.log2(torch.where(empty, 1.0, lsum)))
+                      * math.log(2.0))
+    return o, lse
+
+
+def decode_paged_spans_plain(q, k_pool, v_pool, page_table, kv_lengths,
+                             scale, spans, span_len, k_scale=None,
+                             v_scale=None, slot_ids=None):
+    """The split read in plain PyTorch, in fp32: each (row, head)'s keys
+    cut into ``spans`` ranges of ``span_len`` as the kernel cuts them,
+    each range's base-2 (m, l, acc) partial formed alone, then
+    `merge_span_partials_plain`. Returns (o, lse) as
+    `flash_attention_decode_paged_plain`."""
+    k = paged_view(k_pool, page_table, k_scale, out_dtype=q.dtype).float()
+    v = paged_view(v_pool, page_table, v_scale, out_dtype=q.dtype).float()
+    num_slots, cap = k.shape[0], k.shape[1]
+    rows, heads, d = q.shape
+    if slot_ids is None:
+        slot_ids = torch.arange(rows, dtype=torch.int32)
+    ok = (slot_ids >= 0) & (slot_ids < num_slots)
+    sl = torch.where(ok, slot_ids, 0).long()
+    bound = torch.where(ok, kv_lengths.long().clamp(0, cap)[sl], 0)
+    qf = q.float() * (scale * math.log2(math.e))
+    s = torch.einsum("rhd,rchd->rhc", qf, k[sl])  # (rows, heads, cap)
+    pos = torch.arange(spans * span_len)
+    live = (pos[None, :] < bound[:, None])[:, None, :]
+    s = torch.nn.functional.pad(s, (0, spans * span_len - cap),
+                                value=-1e30)
+    s = torch.where(live, s, -1e30).reshape(rows, heads, spans, span_len)
+    live = live.reshape(rows, 1, spans, span_len)
+    m = torch.where(live.any(-1), s.max(-1).values, -1e30)
+    p = torch.where(live, torch.exp2(s - m[..., None]), 0.0)
+    vv = torch.nn.functional.pad(v[sl], (0, 0, 0, 0, 0, spans * span_len
+                                         - cap))
+    vv = vv.reshape(rows, spans, span_len, heads, d)
+    acc = torch.einsum("rhsc,rschd->rhsd", p, vv)
+    o, lse = merge_span_partials_plain(m, p.sum(-1), acc)
+    return o.to(q.dtype), lse
+
+
 def flash_attention_decode_paged_plain(q, k_pool, v_pool, page_table,
                                        kv_lengths, scale, k_scale=None,
                                        v_scale=None, slot_ids=None):
@@ -408,11 +518,18 @@ def flash_attention_decode_paged(
                 ptr(k_scale), ptr(v_scale))
         else:
             kernel = FLASH_DECODE_PAGED
+        spans, span_len = decode_span_plan(rows, heads,
+                                           pages_per_slot * page_size,
+                                           sm_count(q.device))
+        n_ws = decode_span_workspace(rows, heads, d, spans)
+        ws = (torch.empty(n_ws, dtype=torch.float32, device=q.device)
+              if n_ws else None)
         kernel(
             ptr(q), q.stride(0), q.stride(1), *pools, ptr(page_table),
             ptr(kv_lengths), ptr(slot_ids), rows, heads, d, num_slots,
-            pages_per_slot, page_size, num_pages, float(scale),
-            dtype_code(q.dtype), ptr(o), ptr(lse), stream_ptr(q.device),
+            pages_per_slot, page_size, num_pages, float(scale), spans,
+            span_len, dtype_code(q.dtype), ptr(o), ptr(lse), ptr(ws),
+            stream_ptr(q.device),
         )
     return (o, lse) if return_lse else o
 

@@ -26,6 +26,11 @@ layout: (K, N) for a 1x1, (3, 3, Cin, Cout) for the 3x3. The TPU's VMEM
 knobs (block sizes, halo slivers, tap bits) are how Mosaic cuts blocks,
 not what the functions compute, and have no counterpart here.
 
+The bf16 3x3 backward first writes dz and u once (a pre-pass,
+`conv3_bwd_prepass_plain` its plain form), then runs its dgrad and its
+wgrad (the taps folded into the output rows) as pipelined products over
+them; `conv3_bwd_plan` says how it launches and what it allocates.
+
 For CUDA tensors the wrappers launch the kernels (bf16 or fp32, every
 channel count a multiple of 16) or raise; for CPU tensors they run the
 plain versions (``*_plain``), which the card compares the kernels with.
@@ -35,13 +40,18 @@ are plain PyTorch there, as they are plain XLA in JAX.
 """
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
+from rocm_apex_tpu_torch.ops._build import (
+    Kernel,
+    dtype_code,
+    ptr,
+    sm_count,
+    stream_ptr,
+)
 
 __all__ = [
     "BNECK_MM_FWD",
@@ -59,6 +69,8 @@ __all__ = [
     "conv3x3_bn_act_plain",
     "conv3x3_bn_act_bwd",
     "conv3x3_bn_act_bwd_plain",
+    "conv3_bwd_plan",
+    "conv3_bwd_prepass_plain",
 ]
 
 _P = ctypes.c_void_p
@@ -89,7 +101,7 @@ BNECK_CONV3_BWD = Kernel(
     name="bneck_conv3_bwd",
     source="bottleneck_bwd.cu",
     symbol="bneck_conv3_bwd",
-    argtypes=[_P] * 17 + [_I] * 5 + [_L, _I, _I, _P],
+    argtypes=[_P] * 19 + [_I] * 5 + [_L, _I, _I, _I, _P],
     replaces="rocm_apex_tpu/ops/fused_bottleneck.py:624 _conv3_bwd_kernel",
 )
 
@@ -99,6 +111,10 @@ _TILE_M = {torch.bfloat16: 128, torch.float32: 64}
 _TILE_N = {torch.bfloat16: 64, torch.float32: 64}
 _CHUNK = {torch.bfloat16: 32, torch.float32: 16}
 _RED_CHUNK = 256  # parts a reduction block sums (kRedChunk)
+# the bf16 3x3 backward's tiles (csrc/bottleneck_pipe.cuh PCfg): 128
+# output rows, 128 columns where the count divides by 128 (else 64),
+# 64-deep chunks
+_PIPE_TILE_M, _PIPE_CHUNK = 128, 64
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +172,28 @@ def _finalized(e, z, y_fin):
         return e
     y, k1, k2, k0 = y_fin
     return k1.to(dt) * e + k2.to(dt) * y + k0.to(dt)
+
+
+def conv3_bwd_prepass_plain(e, y_fin, x, prologue):
+    """The 3x3 backward's pre-pass (``conv3_prepass_kernel`` in
+    csrc/bottleneck_bwd.cu) op for op: dz = k1 e + k2 y + k0 (None
+    without ``y_fin``) and u = relu(x a + b), every product and sum taken
+    in fp32 and rounded to e's dtype, the coefficients rounded first: the
+    rows the bf16 products read, equal bit for bit to `_finalized` and
+    `_apply_dt`."""
+    dt = e.dtype
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    dz = None
+    if y_fin is not None:
+        y, k1, k2, k0 = y_fin
+        t = rnd(rnd(rnd(k1) * e.float()) + rnd(rnd(k2) * y.float()))
+        dz = (t + rnd(k0)).to(dt)
+    a, b = prologue
+    u = torch.clamp_min(rnd(rnd(x.float() * rnd(a)) + rnd(b)), 0.0).to(dt)
+    return dz, u
 
 
 def _reductions(g, x, reduce_stats, dims):
@@ -290,11 +328,6 @@ def _parts(rows: int, width: int, dt, device):
     return part, scratch
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 # wgrad blocks a multiprocessor: four are resident at once (registers),
 # so two rounds of them; each block walks its pixel range one staged
 # chunk at a time, so more, shorter ranges hide more of each chunk's
@@ -314,6 +347,56 @@ def _wgrad_splits(m: int, out_tiles: int, dt, sms: int) -> Tuple[int, int]:
                  _RED_CHUNK, chunks)
     split_len = -(-chunks // splits) * bk
     return split_len, max(1, -(-m // split_len))
+
+
+# the pipelined wgrad's blocks a multiprocessor: two are resident at once
+# (256 threads, 97 KB of shared memory each), so 2 fill one wave; more
+# give shorter pixel walks against more partials to sum. 3 and 4 came
+# out alike over ResNet-50's five 3x3 shapes on the H100, both ahead of
+# 2; 3 sums fewer partials.
+_PIPE_WGRAD_BLOCKS_PER_SM = 3
+
+
+def _pipe_cols(n: int) -> int:
+    return 128 if n % 128 == 0 else 64
+
+
+def conv3_bwd_plan(m: int, cin: int, cout: int, dt, sms: int) -> dict:
+    """How `conv3x3_bn_act_bwd` launches on ``sms`` multiprocessors for
+    ``m`` pixels: the wgrad's pixel ranges (``split_len``, ``splits``),
+    the grids of the dgrad (pixel tiles x Cin tiles) and of the wgrad
+    (output-row tiles x Cout tiles x splits), and the shapes of the
+    buffers the wrapper allocates: the wgrad's fp32 partials ``ws``
+    (summed over its first axis into dw) and, in bf16, the pre-pass's
+    ``dz`` and ``u``.
+
+    bf16 (csrc/bottleneck_pipe.cuh): the wgrad's output rows are the 9 Cin
+    (tap, cin) pairs; the splits give `_PIPE_WGRAD_BLOCKS_PER_SM` blocks a
+    multiprocessor. fp32 (the staged core): a tap per grid slice, sized
+    as the 1x1's by `_wgrad_splits`."""
+    if dt == torch.bfloat16:
+        rows = 9 * cin
+        row_tiles = -(-rows // _PIPE_TILE_M)
+        col_tiles = -(-cout // _pipe_cols(cout))
+        chunks = max(1, -(-m // _PIPE_CHUNK))
+        splits = min(max(1, -(-_PIPE_WGRAD_BLOCKS_PER_SM * sms
+                              // (row_tiles * col_tiles))),
+                     _RED_CHUNK, chunks)
+        split_len = -(-chunks // splits) * _PIPE_CHUNK
+        splits = max(1, -(-m // split_len))
+        return dict(
+            split_len=split_len, splits=splits,
+            dgrad_grid=(-(-m // _PIPE_TILE_M), -(-cin // _pipe_cols(cin)), 1),
+            wgrad_grid=(row_tiles, col_tiles, splits),
+            ws=(splits, rows, cout), dz=(m, cout), u=(m, cin))
+    tiles = -(-cin // _TILE_M[dt]) * -(-cout // _TILE_N[dt])
+    split_len, splits = _wgrad_splits(m, 9 * tiles, dt, sms)
+    return dict(
+        split_len=split_len, splits=splits,
+        dgrad_grid=(-(-m // _TILE_M[dt]), -(-cin // _TILE_N[dt]), 1),
+        wgrad_grid=(-(-cin // _TILE_M[dt]), -(-cout // _TILE_N[dt]),
+                    9 * splits),
+        ws=(splits, 9 * cin, cout), dz=None, u=None)
 
 
 def conv1x1_bn_act(
@@ -432,7 +515,7 @@ def conv1x1_bn_act_bwd(
     split_len, splits = 0, 0
     if wgrad:
         tiles = -(-k // _TILE_M[dt]) * -(-n // _TILE_N[dt])
-        split_len, splits = _wgrad_splits(m, tiles, dt, _sm_count(dev.index))
+        split_len, splits = _wgrad_splits(m, tiles, dt, sm_count(dev))
         wsw = torch.empty(splits, k, n, dtype=torch.float32, device=dev)
     if m:
         BNECK_MM_BWD(
@@ -479,16 +562,22 @@ def conv3x3_bn_act_bwd(
     dw = torch.empty(3, 3, cin, cout, dtype=torch.float32, device=dev)
     part, scratch = _parts(m, 2 * cin, dt, dev)
     r12 = torch.empty(2, cin, dtype=torch.float32, device=dev)
-    tiles = 9 * -(-cin // _TILE_M[dt]) * -(-cout // _TILE_N[dt])
-    split_len, splits = _wgrad_splits(m, tiles, dt, _sm_count(dev.index))
-    wsw = torch.empty(9 * splits, cin, cout, dtype=torch.float32, device=dev)
+    sms = sm_count(dev)
+    plan = conv3_bwd_plan(m, cin, cout, dt, sms)
+    wsw = torch.empty(plan["ws"], dtype=torch.float32, device=dev)
+    # the bf16 pre-pass's outputs: transient, freed on return
+    dzbuf = (torch.empty(plan["dz"], dtype=dt, device=dev)
+             if plan["dz"] is not None and y_raw is not None else None)
+    ubuf = (torch.empty(plan["u"], dtype=dt, device=dev)
+            if plan["u"] is not None else None)
     if m:
         BNECK_CONV3_BWD(
             ptr(_dense(e)), ptr(_dense(y_raw, dt)), ptr(_vec(k1)),
             ptr(_vec(k2)), ptr(_vec(k0)), ptr(_dense(x)), ptr(_vec(a)),
             ptr(_vec(b)), ptr(_vec(mu)), ptr(_vec(rs)), ptr(_dense(w, dt)),
             ptr(g), ptr(dw), ptr(r12), ptr(part), ptr(wsw), ptr(scratch),
-            nimg, hgt, wid, cin, cout, split_len, splits, dtype_code(dt),
+            ptr(dzbuf), ptr(ubuf), nimg, hgt, wid, cin, cout,
+            plan["split_len"], plan["splits"], sms, dtype_code(dt),
             stream_ptr(dev))
     else:
         dw.zero_()

@@ -1,0 +1,277 @@
+"""The host-side plans of the split paged decode read and of the
+pipelined 3x3 bottleneck backward, and the plain forms of the device
+steps they add, on the CPU.
+
+- The split read (``csrc/flash_decode_paged.cu``): `decode_span_plan`
+  cuts every (row, head)'s keys into spans that cover the capacity once
+  each, none starting past it; `decode_span_workspace` sizes the blocks'
+  partials. `decode_paged_spans_plain` forms each span's partial alone and
+  merges them with `merge_span_partials_plain`, the fixed-order merge the
+  kernels mirror; it is held against the JAX package's
+  `flash_attention_decode_paged` (its Pallas kernel in interpret mode) on
+  numpy-drawn fp32 inputs at 1e-5 (both sides fp32, the summation order
+  differs), float and int8 pools, spans ending mid-page, a dead row and
+  an empty one.
+- The 3x3 backward (``csrc/bottleneck_bwd.cu`` over
+  ``csrc/bottleneck_pipe.cuh``): `conv3_bwd_plan`'s tap-folded wgrad
+  tiles, pixel splits and buffers at ResNet-50's five stride-1 block
+  shapes and the ragged ones; the pre-pass's plain form equal bit for
+  bit to the finalize and prologue the products read.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rocm_apex_tpu.ops.flash_attention import (
+    flash_attention_decode_paged as jax_decode_paged,
+)
+from rocm_apex_tpu_torch.ops import flash_attention as fa
+from rocm_apex_tpu_torch.ops import fused_bottleneck as fb
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+H100_SMS = 132
+
+# ---------------------------------------------------------------------------
+# the split paged read
+# ---------------------------------------------------------------------------
+
+# (rows, heads, capacity, multiprocessors): the serve's decode grid and
+# chunk piece B, a two-row grid, small and odd capacities, a small card
+SPAN_CASES = [
+    (8, 8, 1024, H100_SMS),
+    (256, 8, 1024, H100_SMS),
+    (2, 8, 1024, H100_SMS),
+    (8, 8, 100, H100_SMS),
+    (1, 1, 1056, H100_SMS),
+    (3, 2, 128, H100_SMS),
+    (8, 8, 1024, 8),
+    (1, 1, 16, H100_SMS),
+    (1, 1, 0, H100_SMS),
+]
+
+
+@pytest.mark.parametrize("rows,heads,capacity,sms", SPAN_CASES)
+def test_span_plan_covers_every_key_once(rows, heads, capacity, sms):
+    spans, span_len = fa.decode_span_plan(rows, heads, capacity, sms)
+    assert spans & (spans - 1) == 0 and 1 <= spans <= 32
+    assert span_len % 32 == 0 and span_len >= 32
+    keys = np.concatenate([np.arange(s * span_len,
+                                     min((s + 1) * span_len, capacity))
+                           for s in range(spans)])
+    np.testing.assert_array_equal(keys, np.arange(capacity))
+    # no span starts at or past the capacity (an idle warp)
+    assert spans == 1 or (spans - 1) * span_len < capacity
+    # more than one span only while the warps stay within the card's aim
+    assert spans == 1 or rows * heads * spans <= 16 * sms
+    ws = fa.decode_span_workspace(rows, heads, 128, spans)
+    assert ws == (0 if spans <= 4
+                  else rows * heads * (spans // 4) * (128 + 2))
+
+
+def test_span_plan_fills_the_card_on_the_decode_grid():
+    """The serve's decode grid (8 rows x 8 heads, capacity 1024) takes 32
+    spans of one tile, 2048 warps; the chunk's 256 rows keep one span a
+    row (they fill the card already) and need no workspace."""
+    assert fa.decode_span_plan(8, 8, 1024, H100_SMS) == (32, 32)
+    assert fa.decode_span_workspace(8, 8, 128, 32) == 64 * 8 * 130
+    assert fa.decode_span_plan(256, 8, 1024, H100_SMS) == (1, 1024)
+    assert fa.decode_span_workspace(256, 8, 128, 1) == 0
+
+
+def _pools(rng, page_size, quantized, num_pages=12, heads=2, hd=16):
+    shape = (num_pages, heads, page_size, hd)
+    if quantized:
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = (0.02 * (1 + rng.random((num_pages, heads)))).astype(np.float32)
+        vs = (0.02 * (1 + rng.random((num_pages, heads)))).astype(np.float32)
+        return k, v, ks, vs
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32), None, None)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.asarray(a))
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("page_size,spans,span_len", [
+    (16, None, None),  # the plan's: 4 spans of 32 at capacity 128
+    (24, None, None),  # spans of 32 ending mid-page
+    (24, 2, 96),  # a span of 96 keys over 4 pages
+    (16, 8, 32),  # more spans than live keys need
+])
+def test_split_read_matches_jax(page_size, quantized, spans, span_len):
+    """Slot 0 live over 5 pages but the last key, slot 1 dead (its
+    bound reaches unmapped sentinel entries), slot 2 a row shorter than
+    one span, slot 3 empty: o and lse of the merged spans against the
+    JAX kernel."""
+    rng = np.random.default_rng(page_size + 3 * quantized)
+    k, v, ks, vs = _pools(rng, page_size, quantized)
+    heads, hd = k.shape[1], k.shape[3]
+    pps = -(-128 // page_size)
+    cap = pps * page_size
+    table = np.full((4, pps), k.shape[0], np.int32)
+    table[0, :5] = [3, 7, 0, 11, 5]
+    table[1, :2] = [1, 9]
+    table[2, :1] = [4]
+    lengths = np.array([5 * page_size - 1, cap, 7, 0], np.int32)
+    q = rng.standard_normal((4, heads, hd)).astype(np.float32)
+    scale = 0.3
+    if spans is None:
+        spans, span_len = fa.decode_span_plan(4, heads, cap, H100_SMS)
+        assert spans > 1 and span_len < cap
+    jo, jlse = jax_decode_paged(
+        _j(q.reshape(4 * heads, 1, hd)), _j(k), _j(v), _j(table),
+        _j(lengths), scale, k_scale=_j(ks), v_scale=_j(vs), return_lse=True)
+    o, lse = fa.decode_paged_spans_plain(
+        _t(q), _t(k), _t(v), _t(table), _t(lengths), scale, spans, span_len,
+        _t(ks), _t(vs))
+    np.testing.assert_allclose(
+        o.numpy(), np.asarray(jo).reshape(4, heads, hd), **TOL)
+    np.testing.assert_allclose(
+        lse.numpy(), np.asarray(jlse).reshape(4, heads), **TOL)
+    assert np.all(o[3].numpy() == 0) and np.all(lse[3].numpy() == -1e30)
+
+
+def test_split_read_with_slot_ids_matches_the_plain_read():
+    """Rows naming their slots (the chunk's form), pads out of range:
+    the merged spans equal the one-pass plain read."""
+    rng = np.random.default_rng(5)
+    k, v, _, _ = _pools(rng, 16, False)
+    table = np.full((3, 8), k.shape[0], np.int32)
+    table[0, :4] = [2, 6, 10, 1]
+    table[2, :2] = [8, 0]
+    lengths = np.array([61, 0, 20], np.int32)
+    ids = np.array([2, 0, 3, 0, -1, 2], np.int32)
+    q = rng.standard_normal((6, 2, 16)).astype(np.float32)
+    args = (_t(q), _t(k), _t(v), _t(table), _t(lengths), 0.25)
+    o, lse = fa.decode_paged_spans_plain(*args, 4, 32, slot_ids=_t(ids))
+    ro, rlse = fa.flash_attention_decode_paged_plain(*args,
+                                                     slot_ids=_t(ids))
+    np.testing.assert_allclose(o.numpy(), ro.numpy(), **TOL)
+    np.testing.assert_allclose(lse.numpy(), rlse.numpy(), **TOL)
+    assert np.all(o[[2, 4]].numpy() == 0)
+
+
+def test_merge_drops_empty_partials_exactly():
+    """A span that attended nothing (m = -1e30, l = 0, acc = 0) changes no
+    bit of the merge; all empty gives zeros and lse = -1e30."""
+    rng = np.random.default_rng(9)
+    m = torch.from_numpy(rng.standard_normal((3, 2)).astype(np.float32))
+    l = torch.from_numpy(rng.random((3, 2)).astype(np.float32) + 0.5)
+    acc = torch.from_numpy(rng.standard_normal((3, 2, 8)).astype(np.float32))
+    o, lse = fa.merge_span_partials_plain(m, l, acc)
+    pad = torch.full((3, 1), -1e30)
+    o2, lse2 = fa.merge_span_partials_plain(
+        torch.cat([m[:, :1], pad, m[:, 1:]], 1),
+        torch.cat([l[:, :1], torch.zeros(3, 1), l[:, 1:]], 1),
+        torch.cat([acc[:, :1], torch.zeros(3, 1, 8), acc[:, 1:]], 1))
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o3, lse3 = fa.merge_span_partials_plain(
+        torch.full((2, 4), -1e30), torch.zeros(2, 4), torch.zeros(2, 4, 8))
+    assert torch.equal(o3, torch.zeros(2, 8))
+    assert torch.equal(lse3, torch.full((2,), -1e30))
+
+
+# ---------------------------------------------------------------------------
+# the 3x3 backward
+# ---------------------------------------------------------------------------
+
+# (name, n, H = W, Cin, Cout): ResNet-50's five stride-1 3x3s at B 128,
+# and the ragged shapes of chip_smoke.py's bottleneck group
+CONV3_SHAPES = [
+    ("layer1", 128, 56, 64, 64),
+    ("layer2", 128, 28, 128, 128),
+    ("layer3", 128, 14, 256, 256),
+    ("layer4", 128, 7, 512, 512),
+    ("ragged M", 3, 7, 64, 64),
+    ("ragged split", 3, 13, 128, 128),
+    ("W 2", 4, 2, 64, 64),
+    ("fp32 parity", 8, 14, 64, 64),
+]
+
+
+@pytest.mark.parametrize("name,n,h,cin,cout", CONV3_SHAPES)
+def test_conv3_plan_tiles_and_buffers(name, n, h, cin, cout):
+    m = n * h * h
+    plan = fb.conv3_bwd_plan(m, cin, cout, torch.bfloat16, H100_SMS)
+    rows, cols = plan["wgrad_grid"][:2]
+    bn = 128 if cout % 128 == 0 else 64
+    # the wgrad's output rows are the 9 Cin (tap, cin) pairs
+    assert (rows - 1) * 128 < 9 * cin <= rows * 128
+    assert (cols - 1) * bn < cout <= cols * bn
+    assert plan["dgrad_grid"] == (-(-m // 128),
+                                  -(-cin // (128 if cin % 128 == 0 else 64)),
+                                  1)
+    # pixel splits: whole 64-pixel chunks, every pixel in one split
+    split_len, splits = plan["split_len"], plan["splits"]
+    assert split_len % 64 == 0 and 1 <= splits <= 256
+    assert (splits - 1) * split_len < m <= splits * split_len
+    assert plan["wgrad_grid"][2] == splits
+    # the blocks the splits aim at, a multiprocessor
+    blocks = rows * cols * splits
+    per_sm = fb._PIPE_WGRAD_BLOCKS_PER_SM
+    assert splits == 1 or blocks <= per_sm * H100_SMS + rows * cols
+    assert plan["ws"] == (splits, 9 * cin, cout)
+    assert plan["dz"] == (m, cout) and plan["u"] == (m, cin)
+    # tiles fuller than one tap a tile: at Cin 64, 576 of 640 rows
+    fill = 9 * cin / (rows * 128)
+    assert fill >= cin / (-(-cin // 128) * 128)
+    if cin == 64:
+        assert fill == 0.9
+
+
+def test_conv3_plan_ragged_split_falls_inside_an_image_row():
+    """chip_smoke.py's ragged split case (3 x 13 x 13): a split boundary
+    falls inside an image row, so a split's first pixels take taps whose
+    sources lie in the previous split's rows."""
+    m, w = 3 * 13 * 13, 13
+    plan = fb.conv3_bwd_plan(m, 128, 128, torch.bfloat16, H100_SMS)
+    cuts = [s * plan["split_len"] for s in range(1, plan["splits"])]
+    assert cuts and any(c % w for c in cuts)
+
+
+def test_conv3_plan_fp32_keeps_the_staged_sizes():
+    m, cin, cout = 8 * 14 * 14, 64, 64
+    plan = fb.conv3_bwd_plan(m, cin, cout, torch.float32, H100_SMS)
+    split_len, splits = fb._wgrad_splits(m, 9, torch.float32, H100_SMS)
+    assert (plan["split_len"], plan["splits"]) == (split_len, splits)
+    assert plan["ws"] == (splits, 9 * cin, cout)
+    assert plan["wgrad_grid"] == (1, 1, 9 * splits)
+    assert plan["dz"] is None and plan["u"] is None
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_finalize", [True, False])
+def test_prepass_plain_is_bit_equal_to_the_staged_forms(dt, with_finalize):
+    """dz and u as the pre-pass rounds them equal `_finalized` and
+    `_apply_dt` bit for bit: the products read the values they read when
+    each tile recomputed them."""
+    rng = np.random.default_rng(21)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy(
+            (shift + scale * rng.standard_normal(shape)).astype(np.float32))
+
+    m, cin, cout = 300, 32, 48
+    e = (1e-2 * draw(m, cout)).to(dt)
+    y = draw(m, cout).to(dt)
+    x = draw(m, cin).to(dt)
+    k = (draw(cout, scale=0.1, shift=1.0), draw(cout, scale=1e-3),
+         draw(cout, scale=1e-3))
+    a, b = draw(cin, scale=0.1, shift=1.0), draw(cin, scale=0.1)
+    y_fin = (y, *k) if with_finalize else None
+    dz, u = fb.conv3_bwd_prepass_plain(e, y_fin, x, (a, b))
+    assert u.dtype == dt and torch.equal(u, fb._apply_dt(x, a, b))
+    if with_finalize:
+        ref = fb._finalized(e, None, y_fin)
+        assert dz.dtype == dt and torch.equal(dz, ref)
+    else:
+        assert dz is None
