@@ -15,7 +15,9 @@ JAX package) through these phases, in order; any failure exits non-zero:
              (dropout cases included: both draw the same keep bits; the
              paged decode read at page sizes 16 and 64 over bf16, fp32
              and int8 pools, with prefixes ending mid-page and a dead row
-             whose bound reaches unmapped table entries; the unpacked
+             whose bound reaches unmapped table entries; the contiguous
+             and the paged decode read bit-equal on the same keys, also
+             at a capacity the page size does not divide; the unpacked
              flash forward, backward and dbias at the masked BERT-Large,
              whole-prompt, ragged and varlen shapes, and the unpacked
              kernels equal to the packed ones on a projection's views;
@@ -32,8 +34,10 @@ JAX package) through these phases, in order; any failure exits non-zero:
              nonfinite flag, Adam's skip slot and the padding's zeros; the
              fused bottleneck's four conv+BN kernels, every call of a
              fused block with its flags, at ResNet-50's five stride-1
-             block shapes at B 128 and at a ragged M, W 2 and fp32, beside
-             the whole block fused and unfused);
+             block shapes at B 128 and at a ragged M, W 2, fp32 and (the
+             1x1 backward) widths the pipelined products do not take,
+             beside the whole block fused and unfused; every 1x1 and 3x3
+             backward case launched twice and held bit-equal);
              kernel, plain and library times with CUDA events, and the
              least time the card could take (bound);
 4. parity    the serving config at full width but 2 layers, fp32 with
@@ -58,7 +62,8 @@ JAX package) through these phases, in order; any failure exits non-zero:
              4-16 random tail tokens) with prefix sharing; per form the
              serve's metrics, cache bytes, peak pages in use, the paged
              kernel's launches (> 0 for the variant the form runs) and
-             the requests whose tokens match the contiguous serve's;
+             the requests whose tokens match the contiguous serve's (all
+             32 for the bf16 pages, or the phase fails);
    serve_whole  the serve on the whole-prompt path (bench.py serve's A/B
              baseline: a padded (1, 768) prefill per admit, the causal
              unpacked forward once per admit and layer), its metrics and
@@ -476,6 +481,10 @@ def ln_cases(dev):
                     plain=plain, lib=lib, nbytes=moved, ops=8 * rows * h,
                     headline=(rows == 8 and not residual
                               and dt == torch.bfloat16),
+                    # the library call once more, after every other
+                    # timing of the case: warm
+                    extra_timings=({"library_again_ms": lib}
+                                   if lib is not None else {}),
                 )
 
 
@@ -537,10 +546,52 @@ def seg_cases(dev):
         )
 
 
+def _pools_from_cache(kc, vc, ps, gen):
+    """Page pools holding a contiguous (slots, capacity, heads, d) K/V
+    cache's keys through one permuted table: the capacity rounded up to
+    whole pages of ``ps`` (the rows past it zeros), every page mapped,
+    the table a random permutation of the pool. Returns (k pool, v pool,
+    table)."""
+    slots, cap, h, d = kc.shape
+    pps = -(-cap // ps)
+    perm = torch.randperm(slots * pps, generator=gen).to(kc.device)
+
+    def pool(cache):
+        full = torch.zeros(slots, pps * ps, h, d, dtype=cache.dtype,
+                           device=cache.device)
+        full[:, :cap] = cache
+        out = torch.empty(slots * pps, h, ps, d, dtype=cache.dtype,
+                          device=cache.device)
+        out[perm] = full.reshape(slots, pps, ps, h, d).transpose(
+            2, 3).reshape(slots * pps, h, ps, d)
+        return out
+
+    return pool(kc), pool(vc), perm.reshape(slots, pps).int()
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def decode_cases(dev):
+    """The contiguous decode read (row 5) at the serve's shapes: the
+    decode grid (8 slots x 8 heads x d 128, capacity 1024, mixed bounds)
+    and piece B (the 256-row chunk, each row against its own slot's
+    prefix, pads reading nothing), bf16 and fp32, each against its plain
+    version. Every decode-grid case launches twice on the same inputs and
+    must repeat its bits. Every case must give the same bits, o and lse,
+    as the paged read (row 6) of the same keys: the cache copied into a
+    page-16 pool through a permuted table. Then the same at capacity 1020,
+    which page 16 rounds up to 1024 rows: the paged read given the
+    capacity plans the contiguous read's split (checked to differ from the
+    1024-key plan), so the bits agree there too. The library yardstick is
+    one masked SDPA over (heads, keys, d) copies made outside its
+    timing."""
     from rocm_apex_tpu_torch.ops import flash_attention as fa
+    from rocm_apex_tpu_torch.ops._build import sm_count
 
     gen = torch.Generator(device=dev).manual_seed(3)
+    cpu_gen = torch.Generator().manual_seed(3)
     h, d = SERVE["num_attention_heads"], SERVE["hidden_size"] // 8
     # mixed decode bounds min(lengths + 1, capacity): a full slot, an
     # empty one, long and short prefixes
@@ -586,6 +637,22 @@ def decode_cases(dev):
 
             turn[0] = 0
             got, ref = kern(), plain()
+            turn[0] = 0
+            if ids is None:
+                check(_same_bits(got, kern()),
+                      f"{form}, {dt}: two launches on the same inputs "
+                      f"differ")
+                turn[0] = 0
+            kp, vp, tab = _pools_from_cache(*caches[0], PAGE_SIZE, cpu_gen)
+            paged = fa.flash_attention_decode_paged(
+                q, kp, vp, tab, lens, None, return_lse=True, slot_ids=ids)
+            check(_same_bits(got, paged),
+                  f"{form}, {dt}: the contiguous read and the paged read "
+                  f"of the same keys differ (o {max_err(got[0], paged[0])},"
+                  f" lse {max_err(got[1], paged[1])})")
+            log(f"  {form}, {str(dt)[6:]}: contiguous == paged (page "
+                f"{PAGE_SIZE}, permuted table), o and lse bit for bit")
+            del kp, vp
             per_row = (lens.long() if ids is None
                        else torch.where(slot_ids < SLOTS,
                                         lens.long()[slot_ids.clamp(0, SLOTS - 1)],
@@ -620,15 +687,50 @@ def decode_cases(dev):
                 return F.scaled_dot_product_attention(
                     qs, kt, vt, attn_mask=amask)
 
+            spans, span_len = fa.decode_span_plan(rows, h, CAPACITY,
+                                                  sm_count(dev))
             yield dict(
                 kernel="flash_attention_decode",
                 case=f"{form}: {rows} rows x {h} heads vs ({SLOTS}, "
-                     f"{CAPACITY}, {h}, {d}) {str(dt)[6:]}",
+                     f"{CAPACITY}, {h}, {d}) {str(dt)[6:]}, {spans} "
+                     f"span{'s' * (spans > 1)} of {span_len}",
                 dtype=dt, cmp=compare(got, ref), kern=kern, plain=plain,
                 lib=lib, nbytes=(nbytes(q, lens, ids, *got) + kv_bytes),
                 ops=4 * d * h * keys_read,
                 headline=ids is None and dt == torch.bfloat16,
             )
+    # a capacity page 16 does not divide (the pools round it up to 1024
+    # rows): the paged read takes the capacity and plans on it
+    cap = CAPACITY - 4
+    sms = sm_count(dev)
+    rounded = -(-cap // PAGE_SIZE) * PAGE_SIZE
+    check(fa.decode_span_plan(SLOTS, h, cap, sms)
+          != fa.decode_span_plan(SLOTS, h, rounded, sms),
+          f"capacity {cap} and its pages' {rounded} rows plan one split: "
+          f"the case tests nothing")
+    kc, vc = (torch.randn(SLOTS, cap, h, d, device=dev,
+                          generator=gen).to(torch.bfloat16)
+              for _ in range(2))
+    lens = grid_len.clamp(max=cap)
+    q, _, _ = _qkv(SLOTS, h, d, torch.bfloat16, dev, gen)
+    got = fa.flash_attention_decode(q, kc, vc, lens, return_lse=True)
+    ref = fa.flash_attention_decode_plain(q, kc, vc, lens,
+                                          1.0 / math.sqrt(d))
+    cmp = compare(got, ref)
+    check(cmp["ratio"] <= 1.0, f"decode grid at capacity {cap}: the kernel "
+          f"differs from its plain version by {cmp['ratio']:.3g}x its "
+          f"tolerance")
+    kp, vp, tab = _pools_from_cache(kc, vc, PAGE_SIZE, cpu_gen)
+    paged = fa.flash_attention_decode_paged(q, kp, vp, tab, lens, None,
+                                            return_lse=True, capacity=cap)
+    check(_same_bits(got, paged),
+          f"decode grid at capacity {cap}: the contiguous read and the "
+          f"paged read ({rounded} rows, capacity {cap}) differ (o "
+          f"{max_err(got[0], paged[0])}, lse {max_err(got[1], paged[1])})")
+    log(f"  decode grid at capacity {cap} (pages of {PAGE_SIZE}: {rounded} "
+        f"rows): contiguous == paged bit for bit, err/tol {cmp['ratio']:.3f}"
+        f" against the plain version; split "
+        f"{fa.decode_span_plan(SLOTS, h, cap, sms)}")
 
 
 def _paged_table(lens, ps, num_pages, gen, dev, mapped=None):
@@ -671,8 +773,10 @@ def paged_decode_cases(dev):
     an empty row, rows shorter than one span, rows ending inside a span,
     and at page 64 spans that end mid-page (checked against the plan).
     Every decode-grid case launches twice on the same inputs and must
-    repeat its bits. The library yardstick is one masked SDPA over a
-    contiguous view gathered beforehand (the gather is not timed)."""
+    repeat its bits, and every float-pool case must give the bits of the
+    contiguous read (row 5) over the pool gathered through the table. The
+    library yardstick is one masked SDPA over a contiguous view gathered
+    beforehand (the gather is not timed)."""
     from rocm_apex_tpu_torch.ops import flash_attention as fa
     from rocm_apex_tpu_torch.ops._build import sm_count
     from rocm_apex_tpu_torch.ops.paging import paged_view
@@ -763,6 +867,18 @@ def paged_decode_cases(dev):
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{form}, page {ps}: two launches on the same inputs "
                   f"differ")
+        if not int8:
+            # the contiguous read (row 5) of the same keys, gathered
+            kc, vc = (paged_view(x, table, out_dtype=dt).contiguous()
+                      for x in pools[0][:2])
+            contig = fa.flash_attention_decode(q, kc, vc, lens,
+                                               return_lse=True, slot_ids=ids)
+            check(_same_bits(got, contig),
+                  f"{form}, page {ps}, {dt}: the paged read and the "
+                  f"contiguous read of the same keys differ (o "
+                  f"{max_err(got[0], contig[0])}, lse "
+                  f"{max_err(got[1], contig[1])})")
+            del kc, vc, contig
         read_slots = (range(SLOTS) if grid else
                       [s for s in ids_np.tolist() if s < SLOTS])
         n_rows, n_pages = _paged_rows_read(table, lens_list, ps, num_pages,
@@ -2517,12 +2633,14 @@ def bottleneck_cases(dev):
     block shapes of bench.py's ResNet-50 at B 128 (layer3's the headline:
     five blocks a step), then a ragged M (3 x 7 x 7: no tile divides it)
     with the bare forms too (no prologue, no statistics; the products
-    alone), W = 2 (4 x 2 x 2, every tap at an edge), fp32 (8 x 14 x 14)
-    and, K4 alone, a ragged split (3 x 13 x 13 at 128 channels: the
-    wgrad's pixel splits end inside image rows, checked against the
-    plan). Every K4 case launches twice on the same inputs and must
-    repeat g, dw, r1 and r2 bit for bit. Outputs in bf16 held to one ulp
-    + 1e-5 (`TOL`), fp32 to 1e-4, the sums over the pixels (statistics,
+    alone), W = 2 (4 x 2 x 2, every tap at an edge), fp32 (8 x 14 x 14),
+    K4 alone at a ragged split (3 x 13 x 13 at 128 channels: the wgrad's
+    pixel splits end inside image rows, checked against the plan) and K3
+    alone at widths the pipe does not take (48 and 80 channels: the
+    staged core, checked against `mm_bwd_plan`; every other bf16 K3 case
+    is checked to take the pipe). Every K3 and K4 case launches twice on
+    the same inputs and must repeat g, dw, r1 and r2 bit for bit. Outputs
+    in bf16 held to one ulp + 1e-5 (`TOL`), fp32 to 1e-4, the sums over the pixels (statistics,
     dw, r1, r2) to 1e-5 of their L1 mass. Bounds: each input read once,
     each output written once; operations 2 M K N a product (x 9 for the 3x3, x 2 for a backward's
     dgrad and wgrad). Library yardsticks, never called by the port:
@@ -2539,20 +2657,30 @@ def bottleneck_cases(dev):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(17)
     bf = torch.bfloat16
-    shapes = [(nm, RN50_BATCH, h, cin, cmid, cout, ds, bf, False)
+    shapes = [(nm, RN50_BATCH, h, cin, cmid, cout, ds, bf, None)
               for nm, h, cin, cmid, cout, ds in BNECK_SHAPES]
-    shapes += [("ragged M 3 x 7 x 7", 3, 7, 64, 64, 256, True, bf, False),
-               ("W 2: 4 x 2 x 2", 4, 2, 64, 64, 256, False, bf, False),
+    shapes += [("ragged M 3 x 7 x 7", 3, 7, 64, 64, 256, True, bf, None),
+               ("W 2: 4 x 2 x 2", 4, 2, 64, 64, 256, False, bf, None),
                ("fp32 8 x 14 x 14", 8, 14, 256, 64, 256, False,
-                torch.float32, False),
+                torch.float32, None),
                ("ragged split 3 x 13 x 13", 3, 13, 128, 128, 512, False, bf,
-                True)]
-    for nm, n, h, cin, cmid, cout, ds, dt, k4_only in shapes:
+                "K4"),
+               ("staged widths 3 x 7 x 7", 3, 7, 48, 48, 80, True, bf,
+                "K3")]
+    sms = sm_count(dev)
+    for nm, n, h, cin, cmid, cout, ds, dt, only in shapes:
         full = n == RN50_BATCH
         headline = nm == BNECK_HEADLINE
         t = _bneck_inputs(gen, dev, n, h, cin, cmid, cout, dt)
         m = t["m"]
         lab = f"{nm}: M {m}, {str(dt)[6:]}"
+        k4_only = only == "K4"
+        if only == "K3":
+            # every 1x1 backward of this block: widths the pipe does not
+            # take (48, 80: not multiples of 64)
+            check(all(fb.mm_bwd_plan(m, k, nn, dt, sms)["route"] == "staged"
+                      for k, nn in ((cmid, cout), (cin, cmid), (cin, cout))),
+                  f"{nm}: a width here takes the pipe")
         if k4_only:
             plan = fb.conv3_bwd_plan(m, cmid, cmid, dt, sm_count(dev))
             cuts = [s * plan["split_len"] for s in range(1, plan["splits"])]
@@ -2561,24 +2689,27 @@ def bottleneck_cases(dev):
                   f"({plan['splits']} splits of {plan['split_len']})")
 
         def case(kernel, what, got, ref, kern, plain, lib, nbytes_, ops,
-                 tols=None, extra=None, library=None, timings=None):
-            return dict(kernel=kernel, case=f"{lab}, {what.lstrip('*')}",
+                 tols=None, extra=None, library=None, timings=None,
+                 route=None):
+            return dict(kernel=kernel, case=f"{lab}, {what.lstrip('*')}"
+                        + (f" [{route}]" if route else ""),
                         dtype=dt, cmp=compare(got, ref, extra, tols),
                         kern=kern, plain=plain, lib=lib, nbytes=nbytes_,
                         ops=ops, headline=headline and what.startswith("*"),
                         iters=20 if full else 100,
                         plain_iters=2 if full else 10, library=library,
                         extra_timings=timings or {},
-                        breakdown=full and kernel == "bneck_conv3_bwd")
+                        breakdown=full and kernel in ("bneck_mm_bwd",
+                                                      "bneck_conv3_bwd"))
 
         # ---- K1: the 1x1 forwards
-        k1_calls = [] if k4_only else [
+        k1_calls = [] if only else [
             ("conv1 (no prologue)", t["x"], t["w1"], None),
             ("*conv3 (prologue)", t["y2"], t["w3"], (t["a2"], t["c2"]))]
-        if ds:
+        if ds and not only:
             k1_calls.append(("downsample (no prologue)", t["x"], t["wd"],
                              None))
-        if not full and not k4_only:
+        if not full and not only:
             k1_calls.append(("bare product (no prologue, no statistics)",
                              t["x"], t["w1"], None))
         for what, x2, w, pro in k1_calls:
@@ -2610,7 +2741,7 @@ def bottleneck_cases(dev):
         a1, c1, w2 = t["a1"], t["c1"], t["w2"]
         wcl = w2.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        if not k4_only:
+        if not only:
             y, s = fb.conv3x3_bn_act(x4, w2, a1, c1)
             ry, rs_ = fb.conv3x3_bn_act_plain(x4, w2, a1, c1)
 
@@ -2666,7 +2797,17 @@ def bottleneck_cases(dev):
             k3_calls.append(("bare products (dgrad, wgrad)", t["e1"],
                              t["w1"], t["x"], {}))
         for what, e, w, x2, kw in k3_calls:
+            route = fb.mm_bwd_plan(m, w.shape[0], w.shape[1], dt,
+                                   sms)["route"]
+            check(route == ("pipe" if dt == bf and not only else "staged"),
+                  f"{lab}, {what}: K3 takes the {route} route")
             got = fb.conv1x1_bn_act_bwd(e, w, x2, **kw)
+            again = fb.conv1x1_bn_act_bwd(e, w, x2, **kw)
+            check(_same_bits([t_ for t_ in got if t_ is not None],
+                             [t_ for t_ in again if t_ is not None]),
+                  f"{lab}, {what}: two K3 launches on the same inputs "
+                  f"differ")
+            del again
             ref = fb.conv1x1_bn_act_bwd_plain(e, w, x2, **kw)
             dz = fb._finalized(e, kw.get("z"), kw.get("y_fin")).float()
             pro = kw.get("prologue")
@@ -2695,9 +2836,12 @@ def bottleneck_cases(dev):
                 2 * 2 * m * w.shape[0] * w.shape[1],
                 tols=_sum_tols(outs - 1), extra=extra,
                 library="torch.matmul dgrad + wgrad, the finalize and "
-                "prologue as torch ops")
+                "prologue as torch ops", route=route)
 
         # ---- K4: the 3x3 backward
+        if only == "K3":
+            del t
+            continue
         e4 = t["e2"].reshape(n, h, h, cmid)
         yfin = (t["y2"].reshape(n, h, h, cmid), *t["k_mid"])
         pro, red = (a1, c1), (t["mu1"], t["rs1"])
@@ -3149,9 +3293,14 @@ def run_serve_paged_phase(profile, contiguous_tokens=None):
     pages, and shared-prefix traffic with prefix sharing. Each form's
     launches are counted over its timed run alone; the phase's
     ``launches`` are their sums. Tokens are compared with the contiguous
-    engine's on the same prompts (the serve phase's, or a run here),
-    counted and not asserted: bf16 GEMMs over other chunk mixes may move
-    a logit by an ulp."""
+    engine's on the same prompts (the serve phase's, or a run here). The
+    bf16 pages must give them in every request, as the reference promises
+    (tests/L0/test_paging.py): the same chunks, the same GEMMs and one
+    decode read for both caches (the paged read plans the contiguous
+    read's split), so every logit has the same bits. The int8 and
+    shared-prefix forms are counted, not asserted: int8 rounds K/V, and
+    prefix sharing changes the chunk mix, so a bf16 GEMM over other rows
+    may move a logit by an ulp and flip a near-tied token."""
     model, load_s = _serve_model()
     vocab = model.cfg.vocab_size
     prompts = {"serve": serve_prompts(vocab),
@@ -3187,6 +3336,11 @@ def run_serve_paged_phase(profile, contiguous_tokens=None):
             f"forks, {r['page_stalls']:.0f} stalls; "
             f"{r['requests_matching_contiguous']}/{len(ps)} requests match "
             f"the contiguous tokens")
+        if form == "bf16":
+            check(r["requests_matching_contiguous"] == len(ps),
+                  f"bf16 pages: {r['requests_matching_contiguous']} of "
+                  f"{len(ps)} requests give the contiguous serve's tokens "
+                  f"(the paged cache must reproduce them exactly)")
         for name in PAGED_SERVE_KERNELS + (kernel,):
             check(r["launches"][name] > 0,
                   f"{form}: kernel {name} was not launched on the paged "

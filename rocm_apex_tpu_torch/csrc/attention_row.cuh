@@ -1,6 +1,6 @@
 // One warp, one query row: the online-softmax core shared by the
-// cache-decode read (flash_decode.cu) and the segment-masked chunk
-// attention (flash_segments.cu).
+// split decode read (decode_split.cuh, which resolves its keys' rows
+// itself) and the segment-masked chunk attention (flash_segments.cu).
 //
 // Lane l owns head dims [l*VEC, (l+1)*VEC) of the query, the
 // accumulator and every key/value row it reads, so a warp reads one

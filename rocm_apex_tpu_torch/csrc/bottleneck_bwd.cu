@@ -26,20 +26,23 @@
 //
 // Bound: tensor-core operations for the 3x3 at every ResNet-50 shape
 // (2 x 2 M 9 Cin Cout against ~2 M (Cin + 2 Cout) + 9 Cin Cout elements),
-// bytes for most 1x1s. The 1x1 backward (and the fp32 3x3, the parity
-// runs') stage their tiles on bottleneck.cuh's core, recomputing the
-// finalized cotangent and the activated input while staging. The bf16
-// 3x3 backward, the costliest kernel of the fused ResNet-50 step, was
-// that too and sat at 33x its bound: 72 serial staged chunks a tile with
-// no load in flight during the products, dz and u recomputed 9 times
-// over, half-empty wgrad tiles at Cin 64 and ten reduction launches. It
-// now runs on bottleneck_pipe.cuh: a pre-pass writes dz = finalize(e, y)
-// and u = relu(x a + b) once each in bf16 (the same rounding, so the
-// products see the same values), the dgrad and the wgrad become implicit
-// GEMMs over those rows, fed by a 3-stage cp.async ring (zero-fill for
-// the taps that leave the image) and multiplied by wgmma, the wgrad's
-// output rows are (tap, cin) pairs (9 Cin rows, full tiles at Cin 64)
-// and one launch sums every tap's split partials.
+// bytes for most 1x1s. The fp32 forms (the parity runs') stage their
+// tiles on bottleneck.cuh's core, recomputing the finalized cotangent and
+// the activated input while staging. The bf16 forms, the costliest
+// kernels of the fused ResNet-50 step, were that too and sat at 11-33x
+// their bounds: serial staged chunks with no load in flight during the
+// products, dz and u recomputed by every tile that read them (9 times
+// over for the 3x3). They now run on bottleneck_pipe.cuh: a pre-pass
+// writes dz = finalize(e, y) and u = relu(x a + b) once each in bf16
+// (the same rounding, so the products see the same values), the dgrad
+// and the wgrad become (implicit, for the 3x3) GEMMs over those rows,
+// fed by a 3-stage cp.async ring (zero-fill for the taps that leave the
+// image and the ragged edges) and multiplied by wgmma, and one launch
+// sums the wgrad's split partials (for the 3x3: every tap's, its output
+// rows being (tap, cin) pairs, full tiles at Cin 64). A 1x1 whose
+// channel counts are not multiples of 64 stays on the staged core (the
+// host's plan says so): the pipe's chunks and tiles are 64 channels deep
+// and wide.
 #include <algorithm>
 #include <numeric>
 
@@ -317,10 +320,87 @@ int mm_bwd(Cot<T> d, Up<T> u, const void* w, void* g, float* dw, float* r12,
 }
 
 // ---------------------------------------------------------------------------
-// the bf16 3x3 backward on bottleneck_pipe.cuh
+// the bf16 backwards on bottleneck_pipe.cuh
 // ---------------------------------------------------------------------------
 
-// The pre-pass: dz = finalize(e, y) (M, Cout) when y is given and u =
+// Blocks of 256 threads for a pre-pass over M rows of c1 and of c2
+// channels, 8 a thread, at most 16 a multiprocessor: a multiple of
+// `step` blocks, so that 256 step threads divide by c1 / 8 and c2 / 8
+// and a thread keeps its channels over its grid-stride steps.
+inline int prepass_blocks(int64_t M, int c1, int c2, int sms) {
+  const int64_t step =
+      std::lcm(std::lcm(int64_t{256}, int64_t{c1 / 8}), int64_t{c2 / 8}) /
+      256;
+  const int64_t segs = M * std::max(c1, c2) / 8;
+  const int64_t want =
+      std::min<int64_t>((segs + 255) / 256, static_cast<int64_t>(sms) * 16);
+  return segs > 0 ? static_cast<int>((want + step - 1) / step * step) : 0;
+}
+
+// The 1x1 backward's pre-pass: dz = finalize(premask(e, z), y) (M, N)
+// where dz is given, with `dz8`'s rounding, and u = relu(s) (M, K) where
+// u is given: s = x a + b in fp32, rounded to T once (the staged wgrad's
+// rule, not the 3x3's rounding of each op). 8 channels a thread; the
+// grid as `prepass_blocks` sizes it.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    mm_prepass_kernel(Cot<T> d, Up<T> up, T* __restrict__ dz,
+                      T* __restrict__ u, int64_t M, int K, int N) {
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  if (dz != nullptr) {
+    const int n = static_cast<int>(tid % (N / 8)) * 8;
+    float k1[8], k2[8], k0[8];
+    if (d.y != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        k1[i] = round_to<T>(d.k1[n + i]);
+        k2[i] = round_to<T>(d.k2[n + i]);
+        k0[i] = round_to<T>(d.k0[n + i]);
+      }
+    }
+    for (int64_t off = tid * 8; off < M * N; off += stride * 8) {
+      float ev[8];
+      load8<T>(d.e + off, ev);
+      if (d.z != nullptr) {
+        float zv[8];
+        load8<T>(d.z + off, zv);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) ev[i] = zv[i] > 0.f ? ev[i] : 0.f;
+      }
+      if (d.y != nullptr) {
+        float yv[8];
+        load8<T>(d.y + off, yv);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          ev[i] = finalize_dt<T>(ev[i], yv[i], k1[i], k2[i], k0[i]);
+      }
+      store_vec_packed<T, 8>(dz + off, ev);
+    }
+  }
+  if (u != nullptr) {
+    const int k = static_cast<int>(tid % (K / 8)) * 8;
+    float a[8], b[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      a[i] = up.a[k + i];
+      b[i] = up.b[k + i];
+    }
+    for (int64_t off = tid * 8; off < M * K; off += stride * 8) {
+      float xv[8];
+      load8<T>(up.x + off, xv);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float sv = prologue_f32(xv[i], a[i], b[i]);
+        xv[i] = sv > 0.f ? sv : 0.f;
+      }
+      store_vec_packed<T, 8>(u + off, xv);
+    }
+  }
+}
+
+// The 3x3 pre-pass: dz = finalize(e, y) (M, Cout) when y is given and u =
 // relu(x a + b) (M, Cin), each in T with the rounding of the staged
 // forms (`dz8`, `prologue_dt`), 8 channels a thread. The grid's threads
 // are a multiple of Cin / 8 and of Cout / 8: a thread keeps its channels
@@ -386,6 +466,15 @@ __global__ void __launch_bounds__(256)
     }
     *reinterpret_cast<float4*>(out + i) = s;
   }
+}
+
+inline cudaError_t sum_parts(const float* in, int parts, int64_t width,
+                             float* out, int sms, cudaStream_t stream) {
+  sum_parts_kernel<<<static_cast<int>(std::min<int64_t>(
+                         (width / 4 + 255) / 256,
+                         static_cast<int64_t>(sms) * 16)),
+                     256, 0, stream>>>(in, parts, width, out);
+  return cudaGetLastError();
 }
 
 // (h, w) of flat pixel p of an (n, H, W) stream (32-bit: the wrappers
@@ -654,6 +743,211 @@ struct Conv3WgradPipe {
   }
 };
 
+// g (M, K) = dz (M, N) @ w^T, w (K, N): rows pixels (BM a tile), columns
+// K (BN a tile), reduction N in 64-deep chunks; A and B K-major (dz's
+// pixel rows, w's rows: N contiguous), as they lie. The epilogue masks
+// by s = x a + b > 0 with s recomputed in fp32 from x, a and b (the
+// prologue's own rule: a positive s below bf16's least subnormal rounds
+// to a bf16 u of 0, so u > 0 would drop it), and writes the tile's
+// (Σg, Σg x̂) partial where the reductions run.
+template <int BN>
+struct MmDgradPipe {
+  using Cfg = PCfg<BN, false>;
+  using T = bf16;
+  const T* dz;  // (M, N)
+  const T* w;   // (K, N)
+  const T* x;   // (M, K); null: no mask and no reductions
+  const float* a;   // null: no mask
+  const float* b;
+  const float* mu;  // null: no reductions
+  const float* rs;
+  T* g;
+  float* part;  // (tiles over M, 2, K) or null
+  int64_t M;
+  int K, N;
+
+  struct Thread {};
+
+  __device__ int chunks() const { return (N + Cfg::BK - 1) / Cfg::BK; }
+  __device__ Thread thread_init() const { return Thread{}; }
+
+  __device__ void load(Thread&, int kc, unsigned char* As,
+                       unsigned char* Bs) const {
+    const int c0 = kc * Cfg::BK;
+    const int c = threadIdx.x & 7, n = c0 + c * 8;
+    const int64_t m0 = static_cast<int64_t>(blockIdx.x) * Cfg::BM;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (threadIdx.x >> 3) + 32 * i;
+      const bool ok = m0 + r < M && n < N;
+      cp_async16(As + sw128(r, c), ok ? dz + (m0 + r) * N + n : dz, ok);
+    }
+    const int k0 = blockIdx.y * BN;
+#pragma unroll
+    for (int i = 0; i < BN * 8 / Cfg::kThreads; ++i) {
+      const int v = threadIdx.x + i * Cfg::kThreads;
+      const int r = v >> 3, cc = v & 7;
+      const int k = k0 + r, n2 = c0 + cc * 8;
+      const bool ok = k < K && n2 < N;
+      cp_async16(Bs + sw128(r, cc),
+                 ok ? w + static_cast<int64_t>(k) * N + n2 : w, ok);
+    }
+  }
+
+  // Each thread a 16-byte run of 8 channels down every kRowGroups-th row
+  // of the tile (vector loads of x, one vector store of g), its sums in
+  // row order; the row groups' sums then combined in group order through
+  // shared memory (the tile's, free once read).
+  __device__ void epilogue(const WAcc<BN>& acc, float* Cs) const {
+    acc.store(Cs, Cfg::LDC);
+    __syncthreads();
+    constexpr int kSegs = BN / 8;
+    constexpr int kRowGroups = Cfg::kThreads / kSegs;
+    const int64_t m0 = static_cast<int64_t>(blockIdx.x) * Cfg::BM;
+    const int k0 = blockIdx.y * BN;
+    const int rows = span(M - m0, Cfg::BM);
+    const int cols = min(BN, K - k0);  // a multiple of 64
+    const int seg = threadIdx.x % kSegs, rg = threadIdx.x / kSegs;
+    const int c = seg * 8;
+    float s1[8], s2[8], a8[8], b8[8], mu8[8], rs8[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s1[j] = s2[j] = 0.f;
+      a8[j] = b8[j] = mu8[j] = rs8[j] = 0.f;
+    }
+    if (c < cols) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (a != nullptr) {
+          a8[j] = a[k0 + c + j];
+          b8[j] = b[k0 + c + j];
+        }
+        if (mu != nullptr) {
+          mu8[j] = mu[k0 + c + j];
+          rs8[j] = rs[k0 + c + j];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < Cfg::BM / kRowGroups; ++i) {
+        const int r = rg + i * kRowGroups;
+        if (r < rows) {
+          const int64_t off = (m0 + r) * K + k0 + c;
+          float v[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = Cs[r * Cfg::LDC + c + j];
+          if (x != nullptr) {
+            float xv[8];
+            load_vec<T, 8>(x + off, xv);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              if (a != nullptr && !(prologue_f32(xv[j], a8[j], b8[j]) > 0.f))
+                v[j] = 0.f;
+              if (mu != nullptr) {
+                s1[j] += v[j];
+                s2[j] = fmaf(v[j],
+                             __fmul_rn(__fsub_rn(xv[j], mu8[j]), rs8[j]),
+                             s2[j]);
+              }
+            }
+          }
+          store_vec_packed<T, 8>(g + off, v);
+        }
+      }
+    }
+    if (part == nullptr) return;  // uniform: no reductions
+    __syncthreads();  // Cs read: its room holds the row groups' sums
+    float* red = Cs;  // [2][kRowGroups][BN]
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      red[rg * BN + c + j] = s1[j];
+      red[(kRowGroups + rg) * BN + c + j] = s2[j];
+    }
+    __syncthreads();
+    const int col = threadIdx.x;
+    if (col < cols) {
+      float t1 = 0.f, t2 = 0.f;
+#pragma unroll
+      for (int gi = 0; gi < kRowGroups; ++gi) {
+        t1 += red[gi * BN + col];
+        t2 += red[(kRowGroups + gi) * BN + col];
+      }
+      float* p1 = part + static_cast<int64_t>(blockIdx.x) * 2 * K + k0;
+      p1[col] = t1;
+      p1[K + col] = t2;
+    }
+  }
+};
+
+// ws[s] (K, N) = sum over the pixels p of split s of u[p]^T dz[p]: rows
+// K (BM a tile), columns N (BN a tile), reduction the split's pixels in
+// 64-deep chunks; both sources MN-major (pixels down the tile), as they
+// lie.
+template <int BN>
+struct MmWgradPipe {
+  using Cfg = PCfg<BN, true>;
+  using T = bf16;
+  const T* u;   // (M, K)
+  const T* dz;  // (M, N)
+  float* ws;    // (splits, K, N)
+  int64_t M;
+  int K, N;
+  int64_t split_len;
+
+  struct Thread {};
+
+  __device__ int64_t p_begin() const {
+    return static_cast<int64_t>(blockIdx.z) * split_len;
+  }
+  __device__ int64_t p_end() const {
+    const int64_t e = p_begin() + split_len;
+    return e < M ? e : M;
+  }
+  __device__ int chunks() const {
+    const int64_t n = p_end() - p_begin();
+    return n > 0 ? static_cast<int>((n + Cfg::BK - 1) / Cfg::BK) : 0;
+  }
+  __device__ Thread thread_init() const { return Thread{}; }
+
+  __device__ void load(Thread&, int kc, unsigned char* At,
+                       unsigned char* Bt) const {
+    const int64_t p0 = p_begin() + static_cast<int64_t>(kc) * Cfg::BK;
+    const int64_t pe = p_end();
+    // A: segment c = tid % 16 (8 of the tile's 128 rows of K) of pixel
+    // rows tid / 16 + 16 i
+    const int c = threadIdx.x & 15;
+    const int k = blockIdx.x * Cfg::BM + c * 8;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (threadIdx.x >> 4) + 16 * i;
+      const int64_t p = p0 + r;
+      const bool ok = k < K && p < pe;
+      cp_async16(At + mnmajor_seg(r, c), ok ? u + p * K + k : u, ok);
+    }
+    const int n0 = blockIdx.y * BN;
+    constexpr int kSegs = BN / 8;  // 16-byte segments a pixel row
+#pragma unroll
+    for (int i = 0; i < Cfg::BK * kSegs / Cfg::kThreads; ++i) {
+      const int v = threadIdx.x + i * Cfg::kThreads;
+      const int r = v / kSegs, cc = v % kSegs;
+      const int64_t p = p0 + r;
+      const int n = n0 + cc * 8;
+      const bool ok = p < pe && n < N;
+      cp_async16(Bt + mnmajor_seg(r, cc), ok ? dz + p * N + n : dz, ok);
+    }
+  }
+
+  __device__ void epilogue(const WAcc<BN>& acc, float*) const {
+    const int row0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * BN;
+    float* out = ws + static_cast<int64_t>(blockIdx.z) * K * N;
+    acc.for_pairs([&](int r, int col, float v0, float v1) {
+      if (row0 + r < K && n0 + col < N)
+        *reinterpret_cast<float2*>(
+            out + static_cast<int64_t>(row0 + r) * N + n0 + col) =
+            make_float2(v0, v1);
+    });
+  }
+};
+
 // the bf16 3x3 backward: pre-pass, dgrad, wgrad, the sums of the wgrad's
 // split partials (one launch for every tap) and of the dgrad's tile
 // partials. dzbuf is null when y is (dz = e itself).
@@ -664,16 +958,7 @@ inline int conv3_bwd_bf16(Cot<bf16> d, Up<bf16> u, const bf16* w, bf16* g,
                           int splits, int sms, cudaStream_t stream) {
   const int64_t M = static_cast<int64_t>(n) * H * W;
   const int tiles = static_cast<int>((M + 127) / 128);
-  // a multiple of `step` blocks: 256 step threads divide by Cin / 8 and
-  // Cout / 8
-  const int64_t step =
-      std::lcm(std::lcm(int64_t{256}, int64_t{Cin / 8}), int64_t{Cout / 8}) /
-      256;
-  const int64_t segs = M * std::max(Cin, Cout) / 8;
-  const int64_t want =
-      std::min<int64_t>((segs + 255) / 256, static_cast<int64_t>(sms) * 16);
-  const int pre_blocks =
-      segs > 0 ? static_cast<int>((want + step - 1) / step * step) : 0;
+  const int pre_blocks = prepass_blocks(M, Cin, Cout, sms);
   if (pre_blocks > 0)
     conv3_prepass_kernel<bf16><<<pre_blocks, 256, 0, stream>>>(
         d, u, dzbuf, ubuf, M, Cin, Cout);
@@ -699,15 +984,69 @@ inline int conv3_bwd_bf16(Cot<bf16> d, Up<bf16> u, const bf16* w, bf16* g,
     err = launch_pipe(p, dim3(row_tiles, (Cout + 63) / 64, splits), stream);
   }
   if (err != cudaSuccess) return err;
-  const int64_t width = 9 * static_cast<int64_t>(Cin) * Cout;
-  sum_parts_kernel<<<static_cast<int>(std::min<int64_t>(
-                         (width / 4 + 255) / 256,
-                         static_cast<int64_t>(sms) * 16)),
-                     256, 0, stream>>>(wsw, splits, width, dw);
-  err = cudaGetLastError();
+  err = sum_parts(wsw, splits, 9 * static_cast<int64_t>(Cin) * Cout, dw, sms,
+                  stream);
   if (err != cudaSuccess) return err;
   return reduce_parts(part, tiles, 2 * static_cast<int64_t>(Cin), r12,
                       scratch, stream);
+}
+
+// the bf16 1x1 backward on the pipe (K and N multiples of 64): the
+// pre-pass where there is a pre-mask or a finalize (dzbuf; else dz = e)
+// and where the wgrad runs under a prologue (ubuf; else u = x), the
+// dgrad (g non-null), the wgrad and the sum of its split partials (dw
+// non-null), the sums of the dgrad's tile partials (with the
+// reductions).
+inline int mm_bwd_bf16(Cot<bf16> d, Up<bf16> u, const bf16* w, bf16* g,
+                       float* dw, float* r12, float* part, float* wsw,
+                       float* scratch, bf16* dzbuf, bf16* ubuf, int64_t M,
+                       int K, int N, int64_t split_len, int splits, int sms,
+                       cudaStream_t stream) {
+  const bool need_dz = (d.z != nullptr || d.y != nullptr) &&
+                       (g != nullptr || dw != nullptr);
+  if (K % 64 != 0 || N % 64 != 0 || need_dz != (dzbuf != nullptr) ||
+      (dw != nullptr && u.a != nullptr) != (ubuf != nullptr))
+    return cudaErrorInvalidValue;
+  const int tiles = static_cast<int>((M + 127) / 128);
+  const int pre_blocks =
+      dzbuf != nullptr || ubuf != nullptr ? prepass_blocks(M, K, N, sms) : 0;
+  if (pre_blocks > 0)
+    mm_prepass_kernel<bf16><<<pre_blocks, 256, 0, stream>>>(d, u, dzbuf,
+                                                            ubuf, M, K, N);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const bf16* dz = dzbuf != nullptr ? dzbuf : d.e;
+  if (g != nullptr) {
+    const bf16* x = u.a != nullptr || u.mu != nullptr ? u.x : nullptr;
+    float* p = u.mu != nullptr ? part : nullptr;
+    if (K % 128 == 0) {
+      MmDgradPipe<128> pd{dz, w, x, u.a, u.b, u.mu, u.rs, g, p, M, K, N};
+      err = launch_pipe(pd, dim3(tiles, K / 128), stream);
+    } else {
+      MmDgradPipe<64> pd{dz, w, x, u.a, u.b, u.mu, u.rs, g, p, M, K, N};
+      err = launch_pipe(pd, dim3(tiles, K / 64), stream);
+    }
+    if (err != cudaSuccess) return err;
+  }
+  if (dw != nullptr) {
+    const bf16* src = ubuf != nullptr ? ubuf : u.x;
+    const unsigned row_tiles = static_cast<unsigned>((K + 127) / 128);
+    if (N % 128 == 0) {
+      MmWgradPipe<128> pw{src, dz, wsw, M, K, N, split_len};
+      err = launch_pipe(pw, dim3(row_tiles, N / 128, splits), stream);
+    } else {
+      MmWgradPipe<64> pw{src, dz, wsw, M, K, N, split_len};
+      err = launch_pipe(pw, dim3(row_tiles, N / 64, splits), stream);
+    }
+    if (err != cudaSuccess) return err;
+    err = sum_parts(wsw, splits, static_cast<int64_t>(K) * N, dw, sms,
+                    stream);
+    if (err != cudaSuccess) return err;
+  }
+  if (g != nullptr && u.mu != nullptr)
+    err = reduce_parts(part, tiles, 2 * static_cast<int64_t>(K), r12,
+                       scratch, stream);
+  return err;
 }
 
 // the fp32 3x3 backward (the parity runs'): the staged core, dz and u
@@ -748,15 +1087,31 @@ extern "C" {
 // The merged 1x1 backward (see above). Null pointers switch parts off: z
 // (pre-mask), y (finalize, with k1 k2 k0), a (prologue, with b), mu (the
 // reductions r12 (2, K), with rs, through part (tiles, 2, K) and scratch),
-// g (dgrad), dw (wgrad (K, N) fp32, through wsw (splits, K, N)).
+// g (dgrad), dw (wgrad (K, N) fp32, through wsw (splits, K, N)). pipe:
+// the bf16 form on bottleneck_pipe.cuh (K and N multiples of 64), with
+// the pre-pass's dzbuf (M, N) where z or y is given and ubuf (M, K) where
+// dw and a are (else null); sms sizes the pre-pass and the sums. pipe 0:
+// the staged core (dzbuf, ubuf null).
 int bneck_mm_bwd(const void* e, const void* z, const void* y,
                  const float* k1, const float* k2, const float* k0,
                  const void* x, const float* a, const float* b,
                  const float* mu, const float* rs, const void* w, void* g,
                  float* dw, float* r12, float* part, float* wsw,
-                 float* scratch, long long M, int K, int N,
-                 long long split_len, int splits, int dtype, void* stream) {
+                 float* scratch, void* dzbuf, void* ubuf, long long M, int K,
+                 int N, long long split_len, int splits, int pipe, int sms,
+                 int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (pipe) {
+    if (dtype != kBFloat16) return cudaErrorInvalidValue;
+    using T = __nv_bfloat16;
+    return bneck::mm_bwd_bf16(
+        {static_cast<const T*>(e), static_cast<const T*>(z),
+         static_cast<const T*>(y), k1, k2, k0},
+        {static_cast<const T*>(x), a, b, mu, rs}, static_cast<const T*>(w),
+        static_cast<T*>(g), dw, r12, part, wsw, scratch,
+        static_cast<T*>(dzbuf), static_cast<T*>(ubuf), M, K, N, split_len,
+        splits, sms, s);
+  }
   if (dtype == kBFloat16) {
     using T = __nv_bfloat16;
     return bneck::mm_bwd<T>(

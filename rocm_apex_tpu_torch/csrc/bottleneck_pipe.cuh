@@ -1,7 +1,7 @@
 // A multistage cp.async + wgmma product core for Hopper (sm_90a), beside
-// the staged mma.sync core of bottleneck.cuh: the bf16 3x3 backward
-// (bottleneck_bwd.cu `conv3_bwd_bf16`) runs on it, and the 1x1 kernels
-// and the 3x3 forward may move onto it later.
+// the staged mma.sync core of bottleneck.cuh: the bf16 3x3 and 1x1
+// backwards (bottleneck_bwd.cu `conv3_bwd_bf16`, `mm_bwd_bf16`) run on
+// it, and the forwards may move onto it later.
 //
 // The difference from `gemm_kernel`: the operands of a product are plain
 // bf16 rows in device memory (the 3x3 backward writes the finalized

@@ -308,7 +308,10 @@ class PagedKVCache:
     ``(num_pages, heads)`` fp32 tensor per layer when the pools are int8,
     else None. ``page_table``: ``(num_slots, pages_per_slot)`` int32,
     unmapped entries hold the sentinel ``num_pages`` (writes there
-    drop). ``lengths`` as in `KVCache`.
+    drop). ``lengths`` as in `KVCache`. ``host_capacity``: the capacity
+    the cache was made for (the engine's host bound; `capacity` rounds
+    it up to whole pages), on which the paged decode reads bound and
+    split their keys (None: `capacity`).
     """
 
     k: List[torch.Tensor]
@@ -318,6 +321,7 @@ class PagedKVCache:
     page_table: torch.Tensor
     lengths: torch.Tensor
     page_size: int = 16
+    host_capacity: Optional[int] = None
 
     @classmethod
     def create(
@@ -362,6 +366,7 @@ class PagedKVCache:
                                   dtype=torch.int32, device=dev),
             lengths=torch.zeros((num_slots,), dtype=torch.int32, device=dev),
             page_size=page_size,
+            host_capacity=capacity,
         )
 
     @classmethod

@@ -370,7 +370,7 @@ class ParallelAttention(nn.Module):
                 ctx = flash_attention_chunk_paged(
                     qT, kT, vT, chunk.slots, k_buf, v_buf,
                     paged["page_table"], lengths, scale,
-                    paged["k_scale"], paged["v_scale"],
+                    paged["k_scale"], paged["v_scale"], paged["capacity"],
                 )
             else:
                 # in place: the chunk's rows land at their (slot, position)
@@ -404,6 +404,7 @@ class ParallelAttention(nn.Module):
             ctx = flash_attention_decode_paged(
                 q[:, 0], k_buf, v_buf, table, kv_len, scale,
                 paged["k_scale"], paged["v_scale"],
+                capacity=paged["capacity"],
             ).reshape(b, 1, nh * hd)
         else:
             # in place: each slot's new rows at its length, dead rows
@@ -596,10 +597,14 @@ class ParallelTransformer(nn.Module):
             layer_cache = (cache.k[i], cache.v[i], cache.lengths)
             if rows is not None:
                 # a paged cache (duck-typed: .page_table, .page_size,
-                # .k_scale/.v_scale) adds the table view per layer
+                # .host_capacity, .k_scale/.v_scale) adds the table view
+                # per layer; its reads bound and split their keys on the
+                # capacity the cache was made for, as the contiguous
+                # cache's reads do on theirs
                 layer_cache += (dict(
                     page_table=cache.page_table,
                     page_size=cache.page_size,
+                    capacity=cache.host_capacity,
                     k_scale=(None if cache.k_scale is None
                              else cache.k_scale[i]),
                     v_scale=(None if cache.v_scale is None

@@ -41,7 +41,11 @@ form, both to move fewer bytes:
 The semantics per row are those of the JAX function: online softmax over
 keys ``[0, kv_lengths[slot])`` (a row never reads past its bound), a
 natural-log lse, and zeros with lse = -1e30 for a row with an empty
-prefix, so an lse merge weighs it to zero.
+prefix, so an lse merge weighs it to zero. The read is split over the
+keys (`decode_span_plan`: spans of a (row, head)'s capacity, a warp
+each, as many as fill the card), and the spans' partials are merged in
+a fixed order (`merge_span_partials_plain` is that merge in plain
+PyTorch, `decode_spans_plain` the whole split read).
 
 **Paged decode** (``flash_attention_decode_paged``). The same read
 through a block table over page pools (``inference/paging.py``): the
@@ -53,11 +57,14 @@ per-row slot read and the ``(rows, heads, head_dim)`` query layout of
 ``flash_attention_decode``, where the JAX function takes ``(slots*heads,
 t, head_dim)`` and the chunk path broadcasts every token to every slot.
 An int8 key or value is dequantized as the JAX kernel does it, ``(float(x)
-* scale)`` rounded to q's dtype. The read is split over the keys
-(`decode_span_plan`: spans of a (row, head)'s capacity, a warp each, as
-many as fill the card), and the spans' partials are merged in a fixed
-order (`merge_span_partials_plain` is that merge in plain PyTorch,
-`decode_paged_spans_plain` the whole split read).
+* scale)`` rounded to q's dtype. Both reads are one kernel
+(``csrc/decode_split.cuh``) over two ways of finding a key's row, and
+both plan their split on the slots' key range: the contiguous cache's
+capacity, and the paged cache's ``capacity`` argument (the capacity it
+was made for, which its pages may round up). So the same keys in the
+same dtype give the same bits from either cache, and the paged serve
+reproduces the contiguous serve's greedy tokens
+(`decode_paged_spans_plain` is the paged split read in plain PyTorch).
 
 **Unpacked** (``flash_attention``, ``flash_attention_varlen``,
 ``flash_attention_with_lse``, ``flash_attention_dropout``, the JAX names,
@@ -127,6 +134,7 @@ __all__ = [
     "flash_attention_decode_paged",
     "flash_attention_decode_paged_plain",
     "decode_paged_spans_plain",
+    "decode_spans_plain",
     "decode_span_plan",
     "decode_span_workspace",
     "merge_span_partials_plain",
@@ -150,11 +158,10 @@ FLASH_DECODE = Kernel(
     source="flash_decode.cu",
     symbol="flash_decode",
     argtypes=[_P, _I64, _I64, _P, _P, _I64, _I64, _I64, _P, _P, _I, _I, _I,
-              _I, _I, ctypes.c_float, _I, _P, _P, _P],
+              _I, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P],
     replaces="rocm_apex_tpu/ops/flash_attention.py:813 _decode_kernel",
 )
-_PAGED_ARGS = [_I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P,
-               _P, _P, _P]
+_PAGED_ARGS = [_I] * 8 + [ctypes.c_float, _I, _I, _I, _P, _P, _P, _P]
 FLASH_DECODE_PAGED = Kernel(
     name="flash_attention_decode_paged",
     source="flash_decode_paged.cu",
@@ -308,18 +315,21 @@ def flash_attention_decode(
         if return_lse else None
     )
     if rows > 0:
+        spans, span_len = decode_span_plan(rows, heads, capacity,
+                                           sm_count(q.device))
+        ws = _span_workspace(rows, heads, d, spans, q.device)
         FLASH_DECODE(
             ptr(q), q.stride(0), q.stride(1), ptr(k_cache), ptr(v_cache),
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
             ptr(kv_lengths), ptr(slot_ids), rows, heads, d, num_slots,
-            capacity, float(scale), dtype_code(q.dtype), ptr(o), ptr(lse),
-            stream_ptr(q.device),
+            capacity, float(scale), spans, span_len, dtype_code(q.dtype),
+            ptr(o), ptr(lse), ptr(ws), stream_ptr(q.device),
         )
     return (o, lse) if return_lse else o
 
 
-# the split paged read (csrc/flash_decode_paged.cu): warps a block, keys
-# a tile, at most 32 spans a (row, head), and the warps a multiprocessor
+# the split decode read (csrc/decode_split.cuh): warps a block, keys a
+# tile, at most 32 spans a (row, head), and the warps a multiprocessor
 # the spans aim at (the decode grid's 8 rows x 8 heads take 32 spans of
 # 32 keys at capacity 1024 on 132 multiprocessors)
 _SPAN_BLOCK_WARPS = 4
@@ -330,14 +340,15 @@ _SPAN_WARPS_PER_SM = 16
 
 def decode_span_plan(rows: int, heads: int, capacity: int,
                      sms: int) -> tuple:
-    """``(spans, span_len)`` of the split paged read: each (row, head)'s
-    key range ``[0, capacity)`` is cut into ``spans`` (a power of two, at
-    most 32) ranges of ``span_len`` keys (a multiple of the 32-key tile,
-    ``spans * span_len >= capacity`` and no span starting at or past the
-    capacity), doubled while rows x heads x spans stays within
-    `_SPAN_WARPS_PER_SM` warps for each of ``sms`` multiprocessors. It
-    reads no kv_len: a span past its row's bound exits at once on the
-    card."""
+    """``(spans, span_len)`` of the split decode read, contiguous or
+    paged: each (row, head)'s key range ``[0, capacity)`` is cut into
+    ``spans`` (a power of two, at most 32) ranges of ``span_len`` keys (a
+    multiple of the 32-key tile, ``spans * span_len >= capacity`` and no
+    span starting at or past the capacity), doubled while rows x heads x
+    spans stays within `_SPAN_WARPS_PER_SM` warps for each of ``sms``
+    multiprocessors. It reads no kv_len: a span past its row's bound
+    exits at once on the card. Both reads call it with the slots' key
+    range, so one cache and the other add the same keys in one order."""
     pairs = rows * heads
     spans = 1
     while (spans < _SPAN_MAX and pairs * spans * 2 <= _SPAN_WARPS_PER_SM * sms
@@ -362,6 +373,11 @@ def decode_span_workspace(rows: int, heads: int, head_dim: int,
     return rows * heads * (spans // _SPAN_BLOCK_WARPS) * (head_dim + 2)
 
 
+def _span_workspace(rows, heads, head_dim, spans, device):
+    n = decode_span_workspace(rows, heads, head_dim, spans)
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None
+
+
 def merge_span_partials_plain(m, l, acc):
     """The split read's merge as plain PyTorch: partials along dim -1 of
     ``m`` and ``l`` (base-2 running maxima and sums, m = -1e30 and l = 0
@@ -383,16 +399,14 @@ def merge_span_partials_plain(m, l, acc):
     return o, lse
 
 
-def decode_paged_spans_plain(q, k_pool, v_pool, page_table, kv_lengths,
-                             scale, spans, span_len, k_scale=None,
-                             v_scale=None, slot_ids=None):
+def decode_spans_plain(q, k_cache, v_cache, kv_lengths, scale, spans,
+                       span_len, slot_ids=None):
     """The split read in plain PyTorch, in fp32: each (row, head)'s keys
     cut into ``spans`` ranges of ``span_len`` as the kernel cuts them,
     each range's base-2 (m, l, acc) partial formed alone, then
     `merge_span_partials_plain`. Returns (o, lse) as
-    `flash_attention_decode_paged_plain`."""
-    k = paged_view(k_pool, page_table, k_scale, out_dtype=q.dtype).float()
-    v = paged_view(v_pool, page_table, v_scale, out_dtype=q.dtype).float()
+    `flash_attention_decode_plain`."""
+    k, v = k_cache.float(), v_cache.float()
     num_slots, cap = k.shape[0], k.shape[1]
     rows, heads, d = q.shape
     if slot_ids is None:
@@ -418,14 +432,34 @@ def decode_paged_spans_plain(q, k_pool, v_pool, page_table, kv_lengths,
     return o.to(q.dtype), lse
 
 
+def _paged_cache(pool, page_table, scale, dtype, capacity):
+    """The pool gathered through the table, in ``dtype``, cut to the
+    slots' key range."""
+    return paged_view(pool, page_table, scale, out_dtype=dtype)[:, :capacity]
+
+
+def decode_paged_spans_plain(q, k_pool, v_pool, page_table, kv_lengths,
+                             scale, spans, span_len, k_scale=None,
+                             v_scale=None, slot_ids=None, capacity=None):
+    """The paged split read in plain PyTorch: the pools gathered through
+    the table (int8 dequantized and rounded to q's dtype) and cut to
+    ``capacity``, then `decode_spans_plain`. Returns (o, lse) as
+    `flash_attention_decode_paged_plain`."""
+    k = _paged_cache(k_pool, page_table, k_scale, q.dtype, capacity)
+    v = _paged_cache(v_pool, page_table, v_scale, q.dtype, capacity)
+    return decode_spans_plain(q, k, v, kv_lengths, scale, spans, span_len,
+                              slot_ids)
+
+
 def flash_attention_decode_paged_plain(q, k_pool, v_pool, page_table,
                                        kv_lengths, scale, k_scale=None,
-                                       v_scale=None, slot_ids=None):
+                                       v_scale=None, slot_ids=None,
+                                       capacity=None):
     """The plain PyTorch version: the pools gathered through the table
-    (int8 dequantized and rounded to q's dtype), then
-    `flash_attention_decode_plain`. Returns (o, lse)."""
-    k = paged_view(k_pool, page_table, k_scale, out_dtype=q.dtype)
-    v = paged_view(v_pool, page_table, v_scale, out_dtype=q.dtype)
+    (int8 dequantized and rounded to q's dtype) and cut to ``capacity``,
+    then `flash_attention_decode_plain`. Returns (o, lse)."""
+    k = _paged_cache(k_pool, page_table, k_scale, q.dtype, capacity)
+    v = _paged_cache(v_pool, page_table, v_scale, q.dtype, capacity)
     return flash_attention_decode_plain(q, k, v, kv_lengths, scale, slot_ids)
 
 
@@ -440,6 +474,7 @@ def flash_attention_decode_paged(
     v_scale: Optional[torch.Tensor] = None,
     return_lse: bool = False,
     slot_ids: Optional[torch.Tensor] = None,
+    capacity: Optional[int] = None,
 ):
     """`flash_attention_decode` reading through a block table.
 
@@ -450,8 +485,12 @@ def flash_attention_decode_paged(
     slot's prefix, at most ``pages_per_slot * page_size``. Row r reads
     slot ``slot_ids[r]`` (default: slot r); a slot id outside ``[0,
     num_slots)`` reads nothing. ``k_scale``/``v_scale`` ((num_pages,
-    heads) fp32) mark int8 pools. Returns o (rows, heads, head_dim) in
-    q's dtype, and with ``return_lse`` the natural-log lse (rows, heads)
+    heads) fp32) mark int8 pools. ``capacity``: the slots' key range, at
+    most (and by default) ``pages_per_slot * page_size``; bounds clamp to
+    it and the key split is planned on it, so a paged cache made for a
+    capacity that its pages round up reads as a contiguous cache of that
+    capacity does, bit for bit. Returns o (rows, heads, head_dim) in q's
+    dtype, and with ``return_lse`` the natural-log lse (rows, heads)
     fp32. Forward only.
     """
     rows, heads, d = q.shape
@@ -469,11 +508,16 @@ def flash_attention_decode_paged(
     quantized = k_scale is not None
     if quantized != (v_scale is not None):
         raise ValueError("pass both k_scale and v_scale or neither")
+    if capacity is None:
+        capacity = pages_per_slot * page_size
+    if not 0 <= capacity <= pages_per_slot * page_size:
+        raise ValueError(f"capacity {capacity} outside [0, "
+                         f"{pages_per_slot * page_size}] (the table's rows)")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         o, lse = flash_attention_decode_paged_plain(
             q, k_pool, v_pool, page_table, kv_lengths, scale, k_scale,
-            v_scale, slot_ids,
+            v_scale, slot_ids, capacity,
         )
         return (o, lse) if return_lse else o
     if q.device.type != "cuda":
@@ -518,17 +562,14 @@ def flash_attention_decode_paged(
                 ptr(k_scale), ptr(v_scale))
         else:
             kernel = FLASH_DECODE_PAGED
-        spans, span_len = decode_span_plan(rows, heads,
-                                           pages_per_slot * page_size,
+        spans, span_len = decode_span_plan(rows, heads, capacity,
                                            sm_count(q.device))
-        n_ws = decode_span_workspace(rows, heads, d, spans)
-        ws = (torch.empty(n_ws, dtype=torch.float32, device=q.device)
-              if n_ws else None)
+        ws = _span_workspace(rows, heads, d, spans, q.device)
         kernel(
             ptr(q), q.stride(0), q.stride(1), *pools, ptr(page_table),
             ptr(kv_lengths), ptr(slot_ids), rows, heads, d, num_slots,
-            pages_per_slot, page_size, num_pages, float(scale), spans,
-            span_len, dtype_code(q.dtype), ptr(o), ptr(lse), ptr(ws),
+            pages_per_slot, page_size, num_pages, capacity, float(scale),
+            spans, span_len, dtype_code(q.dtype), ptr(o), ptr(lse), ptr(ws),
             stream_ptr(q.device),
         )
     return (o, lse) if return_lse else o

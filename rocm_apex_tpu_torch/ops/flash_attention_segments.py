@@ -334,17 +334,18 @@ def flash_attention_chunk_paged(
     scale: Optional[float] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    capacity: Optional[int] = None,
 ) -> torch.Tensor:
     """A packed chunk against a paged cache prefix.
 
     ``q``/``k_chunk``/``v_chunk``: (heads, budget, head_dim), the chunk's
     fresh projections; ``segment_ids``: (budget,) int32 slot ids,
-    ``num_slots`` marking padding. Pools, table, pre-chunk lengths and
-    scales as in `flash_attention_decode_paged`. Piece A: segment-causal
-    attention within the chunk. Piece B: each token against its OWN
-    slot's prefix only (a pad reads nothing), not the JAX function's
-    broadcast of the chunk to every slot. Returns fp32 (budget, heads,
-    head_dim).
+    ``num_slots`` marking padding. Pools, table, pre-chunk lengths,
+    scales and capacity as in `flash_attention_decode_paged`. Piece A:
+    segment-causal attention within the chunk. Piece B: each token
+    against its OWN slot's prefix only (a pad reads nothing), not the
+    JAX function's broadcast of the chunk to every slot. Returns fp32
+    (budget, heads, head_dim).
     """
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -354,6 +355,7 @@ def flash_attention_chunk_paged(
     o_b, lse_b = flash_attention_decode_paged(
         q.transpose(0, 1), k_pool, v_pool, page_table, kv_lengths, scale,
         k_scale, v_scale, return_lse=True, slot_ids=segment_ids,
+        capacity=capacity,
     )
     return merge_by_lse(o_a.transpose(0, 1), lse_a.transpose(0, 1), o_b,
                         lse_b)

@@ -26,10 +26,13 @@ layout: (K, N) for a 1x1, (3, 3, Cin, Cout) for the 3x3. The TPU's VMEM
 knobs (block sizes, halo slivers, tap bits) are how Mosaic cuts blocks,
 not what the functions compute, and have no counterpart here.
 
-The bf16 3x3 backward first writes dz and u once (a pre-pass,
-`conv3_bwd_prepass_plain` its plain form), then runs its dgrad and its
-wgrad (the taps folded into the output rows) as pipelined products over
-them; `conv3_bwd_plan` says how it launches and what it allocates.
+The bf16 backwards first write dz and u once (a pre-pass:
+`conv3_bwd_prepass_plain` and `mm_bwd_prepass_plain` its plain forms,
+each with its own rounding), then run their dgrad and their wgrad (for
+the 3x3 the taps folded into the output rows) as pipelined wgmma
+products over them; `conv3_bwd_plan` and `mm_bwd_plan` say how they
+launch and what they allocate. A 1x1 whose channel counts are not
+multiples of 64 runs on the staged core (`mm_bwd_plan`'s rule).
 
 For CUDA tensors the wrappers launch the kernels (bf16 or fp32, every
 channel count a multiple of 16) or raise; for CPU tensors they run the
@@ -71,6 +74,8 @@ __all__ = [
     "conv3x3_bn_act_bwd_plain",
     "conv3_bwd_plan",
     "conv3_bwd_prepass_plain",
+    "mm_bwd_plan",
+    "mm_bwd_prepass_plain",
 ]
 
 _P = ctypes.c_void_p
@@ -94,7 +99,7 @@ BNECK_MM_BWD = Kernel(
     name="bneck_mm_bwd",
     source="bottleneck_bwd.cu",
     symbol="bneck_mm_bwd",
-    argtypes=[_P] * 18 + [_L, _I, _I, _L, _I, _I, _P],
+    argtypes=[_P] * 20 + [_L, _I, _I, _L, _I, _I, _I, _I, _P],
     replaces="rocm_apex_tpu/ops/fused_bottleneck.py:445 _mm_bwd_kernel",
 )
 BNECK_CONV3_BWD = Kernel(
@@ -111,9 +116,10 @@ _TILE_M = {torch.bfloat16: 128, torch.float32: 64}
 _TILE_N = {torch.bfloat16: 64, torch.float32: 64}
 _CHUNK = {torch.bfloat16: 32, torch.float32: 16}
 _RED_CHUNK = 256  # parts a reduction block sums (kRedChunk)
-# the bf16 3x3 backward's tiles (csrc/bottleneck_pipe.cuh PCfg): 128
-# output rows, 128 columns where the count divides by 128 (else 64),
-# 64-deep chunks
+# the bf16 backwards' tiles (csrc/bottleneck_pipe.cuh PCfg): 128 output
+# rows, 128 columns where the count divides by 128 (else 64), 64-deep
+# chunks; the 1x1 takes the pipe where both its channel counts divide by
+# the chunk (every ResNet-50 width), else the staged core
 _PIPE_TILE_M, _PIPE_CHUNK = 128, 64
 
 
@@ -193,6 +199,23 @@ def conv3_bwd_prepass_plain(e, y_fin, x, prologue):
         dz = (t + rnd(k0)).to(dt)
     a, b = prologue
     u = torch.clamp_min(rnd(rnd(x.float() * rnd(a)) + rnd(b)), 0.0).to(dt)
+    return dz, u
+
+
+def mm_bwd_prepass_plain(e, z, y_fin, x, prologue):
+    """The bf16 1x1 backward's pre-pass (``mm_prepass_kernel`` in
+    csrc/bottleneck_bwd.cu): dz = `_finalized` (e pre-masked by z > 0,
+    then k1 e + k2 y + k0 in e's dtype; None with neither z nor y_fin) and
+    u = relu(s) with s = x a + b in fp32, rounded once to e's dtype (None
+    without a prologue: the wgrad reads x). The rows the products read,
+    equal bit for bit to what `conv1x1_bn_act_bwd_plain` forms. (The 3x3's
+    pre-pass rounds each op of its prologue instead.)"""
+    dz = None if z is None and y_fin is None else _finalized(e, z, y_fin)
+    u = None
+    if prologue is not None:
+        a, b = prologue
+        u = torch.clamp_min(x.float() * a.float() + b.float(),
+                            0.0).to(e.dtype)
     return dz, u
 
 
@@ -361,6 +384,19 @@ def _pipe_cols(n: int) -> int:
     return 128 if n % 128 == 0 else 64
 
 
+def _pipe_splits(m: int, out_tiles: int, sms: int) -> Tuple[int, int]:
+    """``(split_len, splits)`` of a pipelined wgrad: pixel ranges of
+    whole chunks, so that ``out_tiles`` x splits give about
+    `_PIPE_WGRAD_BLOCKS_PER_SM` blocks a multiprocessor (at most
+    `_RED_CHUNK` ranges: the cap binds where few output tiles leave the
+    splits all the parallelism, as the 1x1's 64 x 64 dw at layer1)."""
+    chunks = max(1, -(-m // _PIPE_CHUNK))
+    splits = min(max(1, -(-_PIPE_WGRAD_BLOCKS_PER_SM * sms // out_tiles)),
+                 _RED_CHUNK, chunks)
+    split_len = -(-chunks // splits) * _PIPE_CHUNK
+    return split_len, max(1, -(-m // split_len))
+
+
 def conv3_bwd_plan(m: int, cin: int, cout: int, dt, sms: int) -> dict:
     """How `conv3x3_bn_act_bwd` launches on ``sms`` multiprocessors for
     ``m`` pixels: the wgrad's pixel ranges (``split_len``, ``splits``),
@@ -378,12 +414,7 @@ def conv3_bwd_plan(m: int, cin: int, cout: int, dt, sms: int) -> dict:
         rows = 9 * cin
         row_tiles = -(-rows // _PIPE_TILE_M)
         col_tiles = -(-cout // _pipe_cols(cout))
-        chunks = max(1, -(-m // _PIPE_CHUNK))
-        splits = min(max(1, -(-_PIPE_WGRAD_BLOCKS_PER_SM * sms
-                              // (row_tiles * col_tiles))),
-                     _RED_CHUNK, chunks)
-        split_len = -(-chunks // splits) * _PIPE_CHUNK
-        splits = max(1, -(-m // split_len))
+        split_len, splits = _pipe_splits(m, row_tiles * col_tiles, sms)
         return dict(
             split_len=split_len, splits=splits,
             dgrad_grid=(-(-m // _PIPE_TILE_M), -(-cin // _pipe_cols(cin)), 1),
@@ -397,6 +428,39 @@ def conv3_bwd_plan(m: int, cin: int, cout: int, dt, sms: int) -> dict:
         wgrad_grid=(-(-cin // _TILE_M[dt]), -(-cout // _TILE_N[dt]),
                     9 * splits),
         ws=(splits, 9 * cin, cout), dz=None, u=None)
+
+
+def mm_bwd_plan(m: int, k: int, n: int, dt, sms: int) -> dict:
+    """How `conv1x1_bn_act_bwd` launches on ``sms`` multiprocessors for
+    ``m`` pixels, w (k, n): its ``route``, the grids of the dgrad (pixel
+    tiles x K tiles) and of the wgrad (K tiles x N tiles x splits), the
+    wgrad's pixel ranges (``split_len``, ``splits``) and the shapes of
+    the buffers the wrapper allocates: the wgrad's fp32 partials ``ws``
+    (summed over its first axis into dw) and, on the pipe, the pre-pass's
+    bf16 ``dz`` and ``u`` (each allocated only where the call needs it).
+
+    ``"pipe"`` (csrc/bottleneck_pipe.cuh) takes bf16 with k and n
+    multiples of 64: its chunks are 64 channels deep and its tiles 64 or
+    128 wide, so a width with a 16-, 32- or 48-channel tail would run
+    part-empty chunks and tiles everywhere; such a width, and fp32, take
+    ``"staged"`` (csrc/bottleneck.cuh, 32-deep chunks), sized by
+    `_wgrad_splits`. A shape rule, decided here before any launch."""
+    if dt == torch.bfloat16 and k % _PIPE_CHUNK == 0 and n % _PIPE_CHUNK == 0:
+        row_tiles = -(-k // _PIPE_TILE_M)
+        col_tiles = -(-n // _pipe_cols(n))
+        split_len, splits = _pipe_splits(m, row_tiles * col_tiles, sms)
+        return dict(
+            route="pipe", split_len=split_len, splits=splits,
+            dgrad_grid=(-(-m // _PIPE_TILE_M), -(-k // _pipe_cols(k)), 1),
+            wgrad_grid=(row_tiles, col_tiles, splits),
+            ws=(splits, k, n), dz=(m, n), u=(m, k))
+    row_tiles, col_tiles = -(-k // _TILE_M[dt]), -(-n // _TILE_N[dt])
+    split_len, splits = _wgrad_splits(m, row_tiles * col_tiles, dt, sms)
+    return dict(
+        route="staged", split_len=split_len, splits=splits,
+        dgrad_grid=(-(-m // _TILE_M[dt]), -(-k // _TILE_N[dt]), 1),
+        wgrad_grid=(row_tiles, col_tiles, splits),
+        ws=(splits, k, n), dz=None, u=None)
 
 
 def conv1x1_bn_act(
@@ -485,7 +549,8 @@ def conv1x1_bn_act_bwd(
     the pre-mask; y_fin: (y_raw, k1, k2, k0) finalize inputs;
     reduce_stats: (mu, rs) of the upstream BN, enabling the r1/r2
     reductions (with ``dgrad``). Returns (g, dw, r1, r2), None for the
-    parts switched off; dw, r1, r2 fp32."""
+    parts switched off; dw, r1, r2 fp32. On the card it runs on the route
+    `mm_bwd_plan` gives its shape."""
     if e.device.type == "cpu":
         return conv1x1_bn_act_bwd_plain(e, w, x, z, y_fin, prologue,
                                         reduce_stats, wgrad, dgrad)
@@ -512,19 +577,27 @@ def conv1x1_bn_act_bwd(
     if red:
         part, scratch = _parts(m, 2 * k, dt, dev)
         r12 = torch.empty(2, k, dtype=torch.float32, device=dev)
-    split_len, splits = 0, 0
+    sms = sm_count(dev)
+    plan = mm_bwd_plan(m, k, n, dt, sms)
+    pipe = plan["route"] == "pipe"
     if wgrad:
-        tiles = -(-k // _TILE_M[dt]) * -(-n // _TILE_N[dt])
-        split_len, splits = _wgrad_splits(m, tiles, dt, sm_count(dev))
-        wsw = torch.empty(splits, k, n, dtype=torch.float32, device=dev)
+        wsw = torch.empty(plan["ws"], dtype=torch.float32, device=dev)
+    # the pipe's pre-pass outputs, where the call needs them: transient
+    dzbuf = (torch.empty(plan["dz"], dtype=dt, device=dev)
+             if pipe and (z is not None or y_fin is not None)
+             and (dgrad or wgrad) else None)
+    ubuf = (torch.empty(plan["u"], dtype=dt, device=dev)
+            if pipe and pro and wgrad else None)
     if m:
         BNECK_MM_BWD(
             ptr(_dense(e)), ptr(_dense(z, dt)), ptr(_dense(y_raw, dt)),
             ptr(_vec(k1)), ptr(_vec(k2)), ptr(_vec(k0)),
             ptr(_dense(x) if need_x else None), ptr(_vec(a)), ptr(_vec(b)),
             ptr(_vec(mu)), ptr(_vec(rs)), ptr(_dense(w, dt)), ptr(g),
-            ptr(dw), ptr(r12), ptr(part), ptr(wsw), ptr(scratch), m, k, n,
-            split_len, splits, dtype_code(dt), stream_ptr(dev))
+            ptr(dw), ptr(r12), ptr(part), ptr(wsw), ptr(scratch),
+            ptr(dzbuf), ptr(ubuf), m, k, n, plan["split_len"],
+            plan["splits"], int(pipe), sms, dtype_code(dt),
+            stream_ptr(dev))
     elif wgrad:
         dw.zero_()
     r1, r2 = (r12[0], r12[1]) if red else (None, None)

@@ -275,3 +275,183 @@ def test_prepass_plain_is_bit_equal_to_the_staged_forms(dt, with_finalize):
         assert dz.dtype == dt and torch.equal(dz, ref)
     else:
         assert dz is None
+
+
+# ---------------------------------------------------------------------------
+# the 1x1 backward
+# ---------------------------------------------------------------------------
+
+# (block, n, H = W, Cin, Cmid, Cout): ResNet-50's five stride-1 blocks at
+# B 128 and chip_smoke.py's ragged M; each block's three 1x1 backwards
+# as (form, K, N): conv3 (w3 (Cmid, Cout)), conv1 (w1 (Cin, Cmid)), the
+# downsample (wd (Cin, Cout))
+MM_BLOCKS = [
+    ("layer1_0", 128, 56, 64, 64, 256),
+    ("layer1_1", 128, 56, 256, 64, 256),
+    ("layer2", 128, 28, 512, 128, 512),
+    ("layer3", 128, 14, 1024, 256, 1024),
+    ("layer4", 128, 7, 2048, 512, 2048),
+    ("ragged M", 3, 7, 64, 64, 256),
+]
+MM_CASES = [(f"{b} {form}", n * h * h, k, nn)
+            for b, n, h, cin, cmid, cout in MM_BLOCKS
+            for form, k, nn in (("conv3", cmid, cout), ("conv1", cin, cmid),
+                                ("downsample", cin, cout))]
+
+
+@pytest.mark.parametrize("name,m,k,n", MM_CASES)
+def test_mm_plan_tiles_splits_and_buffers(name, m, k, n):
+    plan = fb.mm_bwd_plan(m, k, n, torch.bfloat16, H100_SMS)
+    assert plan["route"] == "pipe"
+    bk = 128 if k % 128 == 0 else 64
+    bn = 128 if n % 128 == 0 else 64
+    assert plan["dgrad_grid"] == (-(-m // 128), k // bk, 1)
+    rows, cols, splits = plan["wgrad_grid"]
+    assert (rows, cols) == (-(-k // 128), n // bn)
+    # pixel splits: whole 64-pixel chunks, every pixel in one split
+    split_len = plan["split_len"]
+    assert split_len % 64 == 0 and 1 <= splits == plan["splits"] <= 256
+    assert (splits - 1) * split_len < m <= splits * split_len
+    # about 3 blocks a multiprocessor, at least the 2 resident ones,
+    # unless the cap of 256 ranges or the pixels bind
+    blocks = rows * cols * splits
+    assert blocks <= 3 * H100_SMS + rows * cols
+    assert blocks >= 2 * H100_SMS or splits >= 250 or m <= 64 * splits
+    assert plan["ws"] == (splits, k, n)
+    assert plan["dz"] == (m, n) and plan["u"] == (m, k)
+
+
+def test_mm_plan_split_cap_binds_on_one_output_tile():
+    """layer1_0's conv1 dw is 64 x 64, one output tile: the 256-range cap
+    leaves 251 ranges of 1600 pixels, not the 396 that 3 blocks a
+    multiprocessor would ask."""
+    plan = fb.mm_bwd_plan(128 * 56 * 56, 64, 64, torch.bfloat16, H100_SMS)
+    assert plan["wgrad_grid"] == (1, 1, 251)
+    assert (plan["split_len"], plan["splits"]) == (1600, 251)
+
+
+@pytest.mark.parametrize("k,n", [(48, 80), (64, 80), (48, 256), (16, 16),
+                                 (96, 64)])
+def test_mm_plan_sends_widths_off_the_pipe_to_the_staged_core(k, n):
+    """A channel count that is not a multiple of 64 (the pipe's chunk and
+    narrowest tile) takes the staged core, sized as it always was; so
+    does fp32 at any width."""
+    m = 3 * 7 * 7
+    for dt in (torch.bfloat16, torch.float32):
+        plan = fb.mm_bwd_plan(m, k, n, dt, H100_SMS)
+        assert plan["route"] == "staged"
+        assert plan["dz"] is None and plan["u"] is None
+        split_len, splits = fb._wgrad_splits(
+            m, -(-k // fb._TILE_M[dt]) * -(-n // fb._TILE_N[dt]), dt,
+            H100_SMS)
+        assert (plan["split_len"], plan["splits"]) == (split_len, splits)
+        assert plan["ws"] == (splits, k, n)
+        assert plan["dgrad_grid"] == (-(-m // fb._TILE_M[dt]),
+                                      -(-k // fb._TILE_N[dt]), 1)
+    assert fb.mm_bwd_plan(m, 64, 128, torch.float32,
+                          H100_SMS)["route"] == "staged"
+
+
+def _mm_inputs(seed, m, k, n, dt):
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy(
+            (shift + scale * rng.standard_normal(shape)).astype(np.float32))
+
+    return dict(
+        e=(1e-2 * draw(m, n)).to(dt), z=draw(m, n).to(dt),
+        y=draw(m, n).to(dt), x=draw(m, k).to(dt), w=draw(k, n, scale=0.3),
+        k=(draw(n, scale=0.1, shift=1.0), draw(n, scale=1e-3),
+           draw(n, scale=1e-3)),
+        a=draw(k, scale=0.2, shift=1.0), b=draw(k, scale=0.2),
+        mu=draw(k, scale=0.1), rs=draw(k, scale=0.2, shift=1.0).abs())
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("premask,finalize,prologue", [
+    (True, True, True), (False, True, False), (True, True, False),
+    (False, False, True), (False, False, False)])
+def test_mm_prepass_plain_is_bit_equal_to_the_plain_backward(
+        dt, premask, finalize, prologue):
+    """dz is `_finalized` bit for bit, and u is the fp32 prologue rounded
+    once, as `conv1x1_bn_act_bwd_plain` forms it (its wgrad with u, over
+    the same dz, is the plain backward's dw bit for bit); a call with no
+    pre-mask and no finalize writes no dz, one with no prologue no u."""
+    t = _mm_inputs(31, 300, 32, 48, dt)
+    z = t["z"] if premask else None
+    y_fin = (t["y"], *t["k"]) if finalize else None
+    pro = (t["a"], t["b"]) if prologue else None
+    dz, u = fb.mm_bwd_prepass_plain(t["e"], z, y_fin, t["x"], pro)
+    if premask or finalize:
+        assert dz.dtype == dt
+        assert torch.equal(dz, fb._finalized(t["e"], z, y_fin))
+    else:
+        assert dz is None
+    if not prologue:
+        assert u is None
+        return
+    s = t["x"].float() * t["a"] + t["b"]
+    assert u.dtype == dt and torch.equal(u, torch.clamp_min(s, 0).to(dt))
+    _, dw, _, _ = fb.conv1x1_bn_act_bwd_plain(
+        t["e"], t["w"], t["x"], z, y_fin, pro, dgrad=False)
+    dz = t["e"] if dz is None else dz
+    assert torch.equal(u.float().t() @ dz.float(), dw)
+
+
+def test_mm_prepass_keeps_a_positive_s_that_rounds_to_a_bf16_zero():
+    """Why the dgrad's mask recomputes s in fp32: an s of 1e-41 is
+    positive but rounds to a bf16 zero, so a mask by u > 0 would drop a
+    gradient the fp32 prologue keeps."""
+    x = torch.tensor([[1.0]], dtype=torch.bfloat16)
+    a, b = torch.tensor([1e-41]), torch.tensor([0.0])
+    _, u = fb.mm_bwd_prepass_plain(x, None, None, x, (a, b))
+    assert float(x.float() * a + b) > 0 and float(u) == 0.0
+    g, _, _, _ = fb.conv1x1_bn_act_bwd_plain(
+        x, torch.ones((1, 1)), x, prologue=(a, b), wgrad=False)
+    assert float(g) == 1.0
+
+
+@pytest.mark.parametrize("form", ["conv3", "conv1", "downsample"])
+def test_mm_pipe_chain_matches_jax(form):
+    """The pipe's chain in plain PyTorch (the pre-pass, then g = dz w^T
+    masked by the fp32 s > 0, dw = u^T dz, and the reductions of the
+    masked g) against the JAX package's `conv1x1_bn_act_bwd`
+    (`_mm_bwd_kernel` in interpret mode) at fp32, in the three flag sets a
+    fused block calls: g at 1e-5, the sums over the pixels within 1e-4 of
+    their largest |value|."""
+    from rocm_apex_tpu.ops import fused_bottleneck as jfb
+
+    m, k, n = 240, 64, 128
+    t = _mm_inputs(41, m, k, n, torch.float32)
+    z = t["z"] if form != "conv1" else None
+    y_fin = (t["y"], *t["k"])
+    pro = (t["a"], t["b"]) if form == "conv3" else None
+    red = (t["mu"], t["rs"]) if form == "conv3" else None
+    assert fb.mm_bwd_plan(m, k, n, torch.bfloat16, H100_SMS)["route"] == \
+        "pipe"
+    dz, u = fb.mm_bwd_prepass_plain(t["e"], z, y_fin, t["x"], pro)
+    u = t["x"] if u is None else u
+    gf = dz @ t["w"].t()
+    if pro is not None:
+        gf = torch.where(t["x"] * t["a"] + t["b"] > 0, gf, 0.0)
+    dw = u.t() @ dz
+    jouts = jfb.conv1x1_bn_act_bwd(
+        *(jnp.asarray(t[i].numpy()) for i in ("e", "w", "x")),
+        z=_j(None if z is None else z.numpy()),
+        y_fin=tuple(jnp.asarray(v.numpy()) for v in y_fin),
+        prologue=None if pro is None else tuple(
+            jnp.asarray(v.numpy()) for v in pro),
+        reduce_stats=None if red is None else tuple(
+            jnp.asarray(v.numpy()) for v in red))
+    np.testing.assert_allclose(gf.numpy(), np.asarray(jouts[0]), **TOL)
+    outs = [dw]
+    if red is not None:
+        xhat = (t["x"] - red[0]) * red[1]
+        outs += [gf.sum(0), (gf * xhat).sum(0)]
+    else:
+        assert jouts[2] is None and jouts[3] is None
+    for got, ref in zip(outs, jouts[1:]):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0.0,
+                                   atol=1e-4 * float(np.abs(ref).max()))
