@@ -528,7 +528,7 @@ def seg_cases(dev):
 
         def plain():
             return fs.flash_attention_segments_plain(
-                q, k, v, seg, True, 1.0 / math.sqrt(d), round_q=False)
+                q, k, v, seg, True, 1.0 / math.sqrt(d))
 
         got, ref = kern(), plain()
         qc, kc, vc = (x.contiguous()[None] for x in (q, k, v))
@@ -571,6 +571,75 @@ def _pools_from_cache(kc, vc, ps, gen):
 
 def _same_bits(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# the device kernels of each flash forward route (csrc/flash_fwd_pipe.cuh,
+# flash_fwd.cu, flash_unpacked_fwd.cuh)
+FWD_ROUTE_KERNELS = {"wgmma": "fwd_pipe_kernel",
+                     "cuda_cores": ("flash_fwd_kernel", "fwd_f32_kernel")}
+
+
+def _device_kernels(fn):
+    """The names of the device kernels two calls of ``fn`` launch, from a
+    profile of the host and the card (as `profile_window` takes it). A
+    profile that recorded no device activity at all observed nothing (the
+    profiler now and then returns none): it is taken again, at most three
+    times, and an empty set is returned only if every one was empty."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if getattr(e, "device_type", None)
+                 == torch.autograd.DeviceType.CUDA}
+        if names:
+            return names
+    return set()
+
+
+def check_fwd_route(fkern, plan, dtype, what, prepass=False):
+    """A flash forward case against its plan: the route is the one its
+    dtype takes (bf16 the wgmma pipe, fp32 the CUDA cores), the bf16
+    forward launched twice gives the same bits, and one call's kernels,
+    as the profiler names them, are the route's (the pipe, with the split
+    merge exactly when the plan splits and the bias pre-pass where
+    ``prepass``) and none of the other route's. Where the profiler
+    recorded no device activity at all (it now and then records none for
+    a whole process), the names cannot be read and the case says so.
+    Returns the route's label for the case name."""
+    route = plan["route"]
+    check(route == ("wgmma" if dtype == torch.bfloat16 else "cuda_cores"),
+          f"{what}: a {dtype} forward planned on the {route} route")
+    if route == "wgmma":
+        check(_same_bits(fkern(), fkern()),
+              f"{what}: two launches of the forward differ")
+    names = _device_kernels(fkern)
+    if not names:
+        log(f"  ({what}: the profiler recorded no device activity; the "
+            f"route is the plan's)")
+        return f"{route}, {plan['splits']} split(s), not observed"
+    want = FWD_ROUTE_KERNELS[route]
+    check(any(k in n for n in names for k in (
+        want if isinstance(want, tuple) else (want,))),
+        f"{what}: the plan says {route}, the call launched {sorted(names)}")
+    other = FWD_ROUTE_KERNELS["cuda_cores" if route == "wgmma" else "wgmma"]
+    check(not any(k in n for n in names for k in (
+        other if isinstance(other, tuple) else (other,))),
+        f"{what}: the call launched another route's kernel: {sorted(names)}")
+    if route == "wgmma":
+        check(any("fwd_merge_kernel" in n for n in names)
+              == (plan["splits"] > 1),
+              f"{what}: {plan['splits']} split(s) planned, launched "
+              f"{sorted(names)}")
+        check(any("qkv_bias_kernel" in n for n in names) == prepass,
+              f"{what}: the bias pre-pass {'missing' if prepass else 'ran'}")
+        return f"wgmma, {plan['splits']} split(s)"
+    return route
 
 
 def decode_cases(dev):
@@ -1016,9 +1085,14 @@ def flash_cases(dev):
     backward: (B 16, S 1024, 8 heads, 3 x 128) bf16 with the projection
     bias and dropout 0.1 (the step's form), without bias or dropout, an
     S that is not a multiple of the 64-row tile (causal and not), and an
-    fp32 case. The library yardstick is SDPA on the biased q/k/v in (B,
-    nh, S, hd), forward, and forward + backward through autograd."""
+    fp32 case, and the bert_train cell's packed shape (B 8, S 512, not
+    causal, bias, no dropout). Every forward case is checked against the
+    plan's route (`check_fwd_route`: the bf16 ones on the wgmma pipe,
+    launched twice for equal bits). The library yardstick is SDPA on the
+    biased q/k/v in (B, nh, S, hd), forward, and forward + backward
+    through autograd."""
     from rocm_apex_tpu_torch.ops import flash_attention as fa
+    from rocm_apex_tpu_torch.ops._build import sm_count
 
     gen = torch.Generator(device=dev).manual_seed(4)
     nh = TRAIN["num_attention_heads"]
@@ -1031,6 +1105,7 @@ def flash_cases(dev):
         (4, 1000, torch.bfloat16, True, 0.1, True),
         (4, 1000, torch.bfloat16, True, 0.1, False),
         (4, TRAIN_SEQ, torch.float32, True, 0.1, True),
+        (BERT_BATCH, BERT_SEQ, torch.bfloat16, True, 0.0, False),
     ):
         qkv = torch.randn(B, S, nh, 3 * hd, device=dev, generator=gen).to(dt)
         bias = ((0.1 * torch.randn(nh * 3 * hd, device=dev, generator=gen))
@@ -1060,11 +1135,15 @@ def flash_cases(dev):
                                                   dropout_p=rate)
 
         o, lse = fkern()
+        plan = fa.flash_fwd_plan(B * nh, S, S, hd, causal, sm_count(dev), dt)
+        route = check_fwd_route(fkern, plan, dt, f"flash fwd {name}",
+                                prepass=with_bias)
         yield dict(
-            kernel="flash_attention_qkv_fwd", case=name, dtype=dt,
-            cmp=compare((o, lse), fplain()), kern=fkern, plain=fplain,
-            lib=flib, nbytes=nbytes(qkv, bias, o, lse), ops=4 * hd * pairs,
-            headline=headline, iters=10, plain_iters=2,
+            kernel="flash_attention_qkv_fwd", case=f"{name} [{route}]",
+            dtype=dt, cmp=compare((o, lse), fplain()), kern=fkern,
+            plain=fplain, lib=flib, nbytes=nbytes(qkv, bias, o, lse),
+            ops=4 * hd * pairs, headline=headline, iters=10, plain_iters=2,
+            breakdown=dt == torch.bfloat16,
         )
 
         def bkern(qkv=qkv, bias=bias, o=o, lse=lse, do=do, rate=rate,
@@ -1491,10 +1570,14 @@ def unpacked_cases(dev):
     than one tile, the dbias kernel (compute_dbias=True) and an lse
     cotangent. The library yardstick is SDPA with the bias as a float
     mask: forward, forward + backward, and for dbias forward + backward
-    with a mask that needs its gradient."""
+    with a mask that needs its gradient. Every forward case is checked
+    against the plan's route (`check_fwd_route`: the bf16 ones on the
+    wgmma pipe, split where the plan splits, launched twice for equal
+    bits)."""
     from rocm_apex_tpu_torch.models.bert import bert_extended_attention_mask
     from rocm_apex_tpu_torch.models.gpt import padding_bias
     from rocm_apex_tpu_torch.ops import flash_attention as fa
+    from rocm_apex_tpu_torch.ops._build import sm_count
 
     gen = torch.Generator(device=dev).manual_seed(9)
     H = BERT["num_attention_heads"]
@@ -1601,11 +1684,15 @@ def unpacked_cases(dev):
         o, lse = fkern()
         ref = fplain()
         extra = [None, LSE_L1_RTOL * ref[1].abs()]
+        plan = fa.flash_fwd_plan(bh, sq, sk, d, causal, sm_count(dev), dt)
+        route = check_fwd_route(fkern, plan, dt, f"unpacked fwd {label}")
         yield dict(
-            kernel="flash_unpacked_fwd", case=label, dtype=dt,
-            cmp=compare((o, lse), ref, extra), kern=fkern, plain=fplain,
-            lib=flib, nbytes=nbytes(q, k, v, bias, lens, o, lse),
-            ops=4 * d * pairs, headline=headline, iters=10, plain_iters=2,
+            kernel="flash_unpacked_fwd", case=f"{label} [{route}]",
+            dtype=dt, cmp=compare((o, lse), ref, extra), kern=fkern,
+            plain=fplain, lib=flib,
+            nbytes=nbytes(q, k, v, bias, lens, o, lse), ops=4 * d * pairs,
+            headline=headline, iters=10, plain_iters=2,
+            breakdown=dt == torch.bfloat16,
         )
 
         def bkern(q=q, k=k, v=v, bias=bias, o=o, lse=lse, do=do, dlse=dlse,

@@ -4,13 +4,24 @@
     python3 kernel_digest.py [--tree DIR]
 
 Imports ``rocm_apex_tpu_torch`` from DIR (default: the directory of this
-script), runs on one CUDA device the paged decode read (bf16, fp32 and
-int8 pools at pages of 16 and 64: the serve's decode grid and chunk
-piece B) and the 3x3 bottleneck backward (ResNet-50's five stride-1
-blocks at B 128 in bf16, a ragged M, W 2, a ragged split, and fp32) on
-inputs drawn from fixed seeds, and prints one JSON line: the sha256 of
-each call's outputs. Two trees whose lines agree give those kernels the
-same bits on the same card and PyTorch build. It imports nothing of JAX.
+script), runs on one CUDA device, on inputs drawn from fixed seeds:
+
+- the paged decode read (row 6: bf16, fp32 and int8 pools at pages of 16
+  and 64, the serve's decode grid and chunk piece B);
+- the 3x3 bottleneck backward (row 17 K4: ResNet-50's five stride-1
+  blocks at B 128 in bf16, a ragged M, W 2, a ragged split, and fp32) and
+  the 1x1 backward (K3: its conv3 and conv1 flag sets at layer3 and
+  layer4, bf16, and fp32);
+- the training segment attention forward and backward (rows 3 and 4, at
+  contrib/fmha's shape, bf16 and fp32), the unpacked backward and bias
+  gradient (rows 9b and 10, masked BERT's shape), and the packed backward
+  (row 11, the GPT train cell's, bf16 and fp32), each backward on a
+  forward's outputs made here by plain torch ops, so that two trees feed
+  it the same o and lse;
+
+and prints one JSON line: the sha256 of each call's outputs. Two trees
+whose lines agree give those kernels the same bits on the same card and
+PyTorch build. It imports nothing of JAX.
 """
 
 import argparse
@@ -31,6 +42,69 @@ def _digest(outs):
     return h.hexdigest()[:16]
 
 
+def _lse(q, k, scale, causal, bias=None):
+    """The natural-log lse of fp32 scores (b, sq, sk), by torch ops: a
+    forward's output for the backward digests, the same on every tree."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.repeat_interleave(s.shape[0] // bias.shape[0], dim=0)
+    if causal:
+        n = s.shape[-1]
+        s = s.masked_fill(~torch.ones(n, n, dtype=torch.bool,
+                                      device=s.device).tril(), float("-inf"))
+    return torch.logsumexp(s, dim=-1).contiguous()
+
+
+def _flash_digests(out, fa, fas, dev, gen):
+    def rnd(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen,
+                                    device=dev)).to(dtype)
+
+    # rows 3 and 4: segment attention, 8 heads x 4096 tokens of 64 dims
+    lens = [300, 1000, 7, 1789, 1000]
+    seg = torch.repeat_interleave(
+        torch.arange(len(lens), device=dev),
+        torch.tensor(lens, device=dev)).int()
+    total, h, d = sum(lens), 8, 64
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = (rnd(h, total, d, dtype=dt) for _ in range(4))
+        o, lse = fas._seg_fwd(q, k, v, seg, True, d ** -0.5)
+        out[f"segments fwd {str(dt)[6:]}"] = _digest((o, lse))
+        o = rnd(h, total, d, dtype=dt)
+        out[f"segments bwd {str(dt)[6:]}"] = _digest(fas._seg_bwd(
+            q, k, v, seg, o, lse, do, True, d ** -0.5))
+    # rows 9b and 10: masked BERT (B 8 x 8 heads, S 512, hd 128), a -1e30
+    # bias on the padded keys, dropout 0.1
+    B, H, S, D = 8, 8, 512, 128
+    bias = torch.zeros(B, S, S, device=dev)
+    for b in range(B):
+        bias[b, :, S - 37 * (b + 1):] = -1e30
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, o, do = (rnd(B, H, S, D, dtype=dt) for _ in range(5))
+        lse = _lse(q.reshape(-1, S, D), k.reshape(-1, S, D), D ** -0.5,
+                   False, bias)
+        args = (q, k, v, bias, o, lse, do, None, False, D ** -0.5, None, 0.1,
+                7)
+        out[f"unpacked bwd {str(dt)[6:]}"] = _digest(
+            fa._unpacked_bwd(*args, False))
+        delta = (do.float() * o.float()).sum(-1).reshape(B * H, S)
+        out[f"dbias {str(dt)[6:]}"] = _digest((fa._flash_dbias(
+            q, k, v, bias, lse, do, delta.contiguous(), False, D ** -0.5,
+            None, 0.1, 7),))
+    # row 11: the packed backward at the GPT train cell, bias, dropout 0.1
+    B, S, nh, hd = 16, 1024, 8, 128
+    for dt in (torch.bfloat16, torch.float32):
+        qkv = rnd(B, S, nh, 3 * hd, dtype=dt)
+        pbias = rnd(nh * 3 * hd, dtype=dt, scale=0.1)
+        o, do = (rnd(B, S, nh * hd, dtype=dt) for _ in range(2))
+        x = (qkv.float() + pbias.float().view(nh, 3 * hd)).to(dt)
+        q, k, _ = x.permute(0, 2, 1, 3).reshape(B * nh, S, 3 * hd).split(
+            hd, dim=-1)
+        lse = _lse(q, k, hd ** -0.5, True)
+        out[f"packed bwd {str(dt)[6:]}"] = _digest(fa._flash_bwd(
+            qkv, pbias, o, lse, do, True, hd ** -0.5, 0.1, 11))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(
@@ -41,6 +115,7 @@ def main(argv=None):
         print("kernel_digest: no CUDA device", file=sys.stderr)
         return 2
     from rocm_apex_tpu_torch.ops import flash_attention as fa
+    from rocm_apex_tpu_torch.ops import flash_attention_segments as fas
     from rocm_apex_tpu_torch.ops import fused_bottleneck as fb
 
     dev = torch.device("cuda", 0)
@@ -101,6 +176,27 @@ def main(argv=None):
         red = (rnd(c, scale=0.1), rnd(c, scale=0.1, shift=1.0))
         out[f"conv3 bwd {name}"] = _digest(
             fb.conv3x3_bn_act_bwd(e, w, x, (y, *kf), pro, red))
+    for name, m, k, n, dt in (
+            ("layer3 conv3", 128 * 14 * 14, 256, 1024, torch.bfloat16),
+            ("layer3 conv1", 128 * 14 * 14, 1024, 256, torch.bfloat16),
+            ("layer4 conv3", 128 * 7 * 7, 512, 2048, torch.bfloat16),
+            ("layer4 conv1", 128 * 7 * 7, 2048, 512, torch.bfloat16),
+            ("fp32", 8 * 14 * 14, 64, 256, torch.float32)):
+        # conv3: z's pre-mask, the finalize, the prologue and reductions;
+        # conv1: the finalize and the prologue, no reductions
+        e = rnd(m, n, scale=1e-2).to(dt)
+        x = rnd(m, k).to(dt)
+        w = rnd(k, n, scale=(2.0 / k) ** 0.5).to(dt)
+        y_fin = (rnd(m, n).to(dt), rnd(n, scale=0.1, shift=1.0),
+                 rnd(n, scale=1e-3), rnd(n, scale=1e-3))
+        pro = (rnd(k, scale=0.1, shift=1.0), rnd(k, scale=0.1))
+        conv3 = "conv3" in name or name == "fp32"
+        z = rnd(m, n).to(dt) if conv3 else None
+        red = ((rnd(k, scale=0.1), rnd(k, scale=0.1, shift=1.0)) if conv3
+               else None)
+        out[f"conv1x1 bwd {name}"] = _digest(
+            fb.conv1x1_bn_act_bwd(e, w, x, z, y_fin, pro, red))
+    _flash_digests(out, fa, fas, dev, gen)
     torch.cuda.synchronize()
     print(json.dumps(out))
     return 0

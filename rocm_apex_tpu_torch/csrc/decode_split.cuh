@@ -49,6 +49,10 @@
 // as a pool's rows are, the contiguous rows ran piece B at 1.4x, with a
 // 64-bit multiply a key, and at 2.5x, with 32-bit offsets, the time the
 // computed rows take on the H100.)
+//
+// The scores follow `_masked_scores` (flash_attention.py:122): a lane's
+// slice of q is multiplied by q_mul = scale * log2(e) in q's dtype and
+// rounded to that dtype once, as the row is loaded; q . k is then fp32.
 #pragma once
 
 #include <type_traits>
@@ -275,7 +279,7 @@ __global__ void __launch_bounds__(128) decode_split_kernel(
     const T* __restrict__ q, int64_t q_row_stride, int64_t q_head_stride,
     Keys keys, const int32_t* __restrict__ kv_len,
     const int32_t* __restrict__ row_slot, int rows, int heads, int num_slots,
-    int capacity, float q_scale, int spans, int span_len,
+    int capacity, float q_mul, int spans, int span_len,
     T* __restrict__ o, float* __restrict__ lse, float* __restrict__ ws) {
   constexpr int D = 32 * VEC;
   const int warp = threadIdx.x >> 5;
@@ -299,7 +303,7 @@ __global__ void __launch_bounds__(128) decode_split_kernel(
       load_vec<T, VEC>(q + r * q_row_stride + h * q_head_stride + lane * VEC,
                        qf);
 #pragma unroll
-      for (int c = 0; c < VEC; ++c) qf[c] *= q_scale;
+      for (int c = 0; c < VEC; ++c) qf[c] = round_to<T>(qf[c] * q_mul);
       // this lane's key in the tile at t0 (past the span's end: the last)
       auto key = [&](int t0) {
         return t0 + min(lane, min(32, hi - t0) - 1);
@@ -387,7 +391,7 @@ struct SplitArgs {
   const int32_t* kv_len;
   const int32_t* row_slot;
   int rows, heads, num_slots, capacity;
-  float q_scale;
+  float q_mul;
   int spans, span_len;
   void* o;
   float* lse;
@@ -412,7 +416,7 @@ static void launch_split(const SplitArgs& a, const Keys& keys) {
   const int blocks = static_cast<int>((warps + kBlockWarps - 1) / kBlockWarps);
   decode_split_kernel<T, VEC, Keys><<<blocks, threads, 0, a.stream>>>(
       static_cast<const T*>(a.q), a.q_rs, a.q_hs, keys, a.kv_len, a.row_slot,
-      a.rows, a.heads, a.num_slots, a.capacity, a.q_scale, a.spans,
+      a.rows, a.heads, a.num_slots, a.capacity, a.q_mul, a.spans,
       a.span_len, static_cast<T*>(a.o), a.lse, a.ws);
   if (a.spans > kBlockWarps) {
     const int pairs = a.rows * a.heads;

@@ -16,7 +16,11 @@
 //             dv += (keep p / (1 - rate))^T do and dk += ds^T q.
 //
 // The probabilities and keep bits are recomputed from the saved lse and
-// dropout.cuh's hash, so no mask or score tile is stored. dq, dk and dv
+// dropout.cuh's hash, so no mask or score tile is stored. The scores are
+// the forward's: the biased q times q_mul = scale * log2(e) in the
+// operand dtype, rounded to it once as the tile is staged (the JAX rule,
+// `_masked_scores`), then the fp32 product with k; dq and dk take the
+// scale at the end, dk from the unscaled biased q, as JAX's. dq, dk and dv
 // are written straight into the (B, S, nh, 3*hd) projection cotangent.
 // With a bias, each block also writes the fp32 column sums of its dq (or
 // dk and dv) rows — partials of shape (B, tiles of 64, nh, 3*hd) that the
@@ -27,9 +31,10 @@
 // Bound: operations (2.5x the forward's products).
 //   bf16: tensor cores (mma.sync, mma.cuh), 4 warps of 16 rows (queries
 //         in the dq pass, keys in the dk/dv pass; 32-query tiles there
-//         to keep the dk and dv accumulators in registers); p and ds
-//         split hi + lo as the A operand of the products that consume
-//         them; operands read along their columns are staged transposed.
+//         to keep the dk and dv accumulators in registers); ds split hi
+//         + lo and p hi + mid + lo (dv's sums are unnormalized) as the A
+//         operand of the products that consume them; operands read along
+//         their columns are staged transposed.
 //   fp32: CUDA cores, as flash_fwd.cu.
 #include "flash_tile.cuh"
 #include "mma.cuh"
@@ -83,9 +88,9 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
                             bf16* __restrict__ dqkv,
                             float* __restrict__ delta_out,
                             float* __restrict__ dbias_part, FlashShape sh,
-                            float scale) {
+                            float scale, float q_mul) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [64][kLdS]
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [64][kLdS], q * q_mul
   bf16* sdo = sq + kTile * kLdS;                  // [64][kLdS]
   bf16* sk = sdo + kTile * kLdS;                  // [64][kLdS]
   bf16* sv = sk + kTile * kLdS;                   // [64][kLdS]
@@ -103,13 +108,12 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
   const int t = lane & 3;
   const int q0 = qt * kTile;
   const int wr = warp * 16;
-  const float s_log2 = scale * kLog2e;
   const int64_t rs = static_cast<int64_t>(sh.nh) * 3 * kHd;
   const int64_t os = static_cast<int64_t>(sh.nh) * kHd;
   const int64_t ohead = (static_cast<int64_t>(b) * sh.S * sh.nh + h) * kHd;
 
   stage_tile<kTile>(sq, kLdS, nullptr, 0, qkv_part(qkv, sh, b, h, 0), rs,
-                    bias_part(bias, h, 0), q0, sh.S, nthreads);
+                    bias_part(bias, h, 0), q0, sh.S, nthreads, q_mul);
   stage_tile<kTile>(sdo, kLdS, nullptr, 0, dout + ohead, os,
                     static_cast<const bf16*>(nullptr), q0, sh.S, nthreads);
   __syncthreads();
@@ -180,7 +184,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
         const int col = kt * kTile + nb * 8 + 2 * t + (e & 1);
         float ds = 0.f;
         if (attends(sh, row[i], col)) {
-          const float p = exp2f(s[nb][e] * s_log2 - slse[r]);
+          const float p = exp2f(s[nb][e] - slse[r]);
           float dpd = dp[nb][e];
           if (sh.drop)
             dpd = keep_bit(rkey[i], col, sh.thr) ? dpd * sh.keep_scale : 0.f;
@@ -232,11 +236,11 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
                              const float* __restrict__ delta,
                              bf16* __restrict__ dqkv,
                              float* __restrict__ dbias_part, FlashShape sh,
-                             float scale) {
+                             float scale, float q_mul) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sk = reinterpret_cast<bf16*>(smem_raw);  // [64][kLdS]
   bf16* sv = sk + kTile * kLdS;                   // [64][kLdS]
-  bf16* sq = sv + kTile * kLdS;                   // [32][kLdS]
+  bf16* sq = sv + kTile * kLdS;                   // [32][kLdS], q * q_mul
   bf16* sdo = sq + kQTile * kLdS;                 // [32][kLdS]
   bf16* sqt = sdo + kQTile * kLdS;                // [128][kLdQT]: q^T
   bf16* sdot = sqt + kHd * kLdQT;                 // [128][kLdQT]: do^T
@@ -253,7 +257,6 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
   const int t = lane & 3;
   const int k0 = kt * kTile;
   const int wr = warp * 16;
-  const float s_log2 = scale * kLog2e;
   const int64_t rs = static_cast<int64_t>(sh.nh) * 3 * kHd;
   const int64_t os = static_cast<int64_t>(sh.nh) * kHd;
   const int64_t ohead = (static_cast<int64_t>(b) * sh.S * sh.nh + h) * kHd;
@@ -273,8 +276,9 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
   for (int qt = sh.causal ? k0 / kQTile : 0; qt < nq; ++qt) {
     const int q0 = qt * kQTile;
     __syncthreads();  // the previous tile's readers are done
+    // sq: q * q_mul for the scores; sqt: the unscaled q for dk
     stage_tile<kQTile>(sq, kLdS, sqt, kLdQT, qkv_part(qkv, sh, b, h, 0), rs,
-                       bias_part(bias, h, 0), q0, sh.S, nthreads);
+                       bias_part(bias, h, 0), q0, sh.S, nthreads, q_mul);
     stage_tile<kQTile>(sdo, kLdS, sdot, kLdQT, dout + ohead, os,
                        static_cast<const bf16*>(nullptr), q0, sh.S,
                        nthreads);
@@ -321,7 +325,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
           const int e = 2 * i + par;
           float pd = 0.f, ds = 0.f;
           if (attends(sh, q, key[i])) {
-            const float p = exp2f(st[nb][e] * s_log2 - slse[qc]);
+            const float p = exp2f(st[nb][e] - slse[qc]);
             float dpd = dpt[nb][e];
             pd = p;
             if (sh.drop) {
@@ -335,11 +339,16 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
           dpt[nb][e] = ds;
         }
       }
-    // dv += pd^T do and dk += ds^T q over the 2 k-steps of 16 queries
+    // dv += pd^T do and dk += ds^T q over the 2 k-steps of 16 queries.
+    // pd is split in three (hi + mid + lo, ~24 bits): dv sums p over
+    // every query that attends the key, unnormalized, so at a key most
+    // queries attend (key 0 under causal masking, ~ln S of p mass) the
+    // two-term split's 2^-18 of that mass reaches the bf16 output's
+    // absolute tolerance; ds keeps two terms
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      uint32_t phi[4], plo[4], shi[4], slo[4];
-      c_to_a(st[2 * j], st[2 * j + 1], phi, plo);
+      uint32_t phi[4], pmid[4], plo[4], shi[4], slo[4];
+      c_to_a3(st[2 * j], st[2 * j + 1], phi, pmid, plo);
       c_to_a(dpt[2 * j], dpt[2 * j + 1], shi, slo);
 #pragma unroll
       for (int n = 0; n < 16; n += 2) {
@@ -349,6 +358,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           mma_bf16(dv[n + u], phi, db[2 * u], db[2 * u + 1]);
+          mma_bf16(dv[n + u], pmid, db[2 * u], db[2 * u + 1]);
           mma_bf16(dv[n + u], plo, db[2 * u], db[2 * u + 1]);
           mma_bf16(dk[n + u], shi, qb[2 * u], qb[2 * u + 1]);
           mma_bf16(dk[n + u], slo, qb[2 * u], qb[2 * u + 1]);
@@ -385,7 +395,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
 static int launch_mma(const void* qkv, const void* bias, const void* o,
                       const void* lse, const void* dout, void* dqkv,
                       void* delta, void* dbias_part, const FlashShape& sh,
-                      float scale, cudaStream_t stream) {
+                      float scale, float q_mul, cudaStream_t stream) {
   const size_t smem_dq = sizeof(bf16) * (4 * kTile * kLdS + kHd * kLdKT) +
                          sizeof(float) * 2 * kTile;
   const size_t smem_dkv =
@@ -404,14 +414,15 @@ static int launch_mma(const void* qkv, const void* bias, const void* o,
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
       static_cast<const bf16*>(o), static_cast<const float*>(lse),
       static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv),
-      static_cast<float*>(delta), static_cast<float*>(dbias_part), sh, scale);
+      static_cast<float*>(delta), static_cast<float*>(dbias_part), sh, scale,
+      q_mul);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_bwd_dkv_mma_kernel<<<grid, kMmaWarps * 32, smem_dkv, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
       static_cast<const float*>(lse), static_cast<const bf16*>(dout),
       static_cast<const float*>(delta), static_cast<bf16*>(dqkv),
-      static_cast<float*>(dbias_part), sh, scale);
+      static_cast<float*>(dbias_part), sh, scale, q_mul);
   return 0;
 }
 
@@ -449,9 +460,9 @@ __global__ void __launch_bounds__(kThreads)
                         float* __restrict__ dqkv,
                         float* __restrict__ delta_out,
                         float* __restrict__ dbias_part, FlashShape sh,
-                        float scale) {
+                        float scale, float q_mul) {
   extern __shared__ float sm[];
-  float* sq = sm;                  // 64 x kLd, q * scale * log2 e
+  float* sq = sm;                  // 64 x kLd, q * q_mul
   float* sdo = sq + kTile * kLd;   // 64 x kLd
   float* sk = sdo + kTile * kLd;   // 64 x kLd
   float* sv = sk + kTile * kLd;    // 64 x kLd
@@ -472,7 +483,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t ohead = (static_cast<int64_t>(b) * sh.S * sh.nh + h) * kHd;
 
   load_tile(sq, kLd, qkv_part(qkv, sh, b, h, 0), rs, bias_part(bias, h, 0),
-            q0, sh.S, scale * kLog2e);
+            q0, sh.S, q_mul);
   load_tile(sdo, kLd, dout + ohead, os, nullptr, q0,
             sh.S, 1.f);
   __syncthreads();
@@ -597,7 +608,7 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ delta,
                          float* __restrict__ dqkv,
                          float* __restrict__ dbias_part,
-                         FlashShape sh, float scale) {
+                         FlashShape sh, float scale, float q_mul) {
   extern __shared__ float sm[];
   float* sk = sm;                  // 64 x kLd (keys of this block)
   float* sv = sk + kTile * kLd;    // 64 x kLd
@@ -617,7 +628,6 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t rs = static_cast<int64_t>(sh.nh) * 3 * kHd;
   const int64_t os = static_cast<int64_t>(sh.nh) * kHd;
   const int64_t ohead = (static_cast<int64_t>(b) * sh.S * sh.nh + h) * kHd;
-  const float s_log2 = scale * kLog2e;
 
   load_tile(sk, kLd, qkv_part(qkv, sh, b, h, 1), rs, bias_part(bias, h, 1),
             k0, sh.S, 1.f);
@@ -661,7 +671,7 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        qv[j] = sq[(tx + 16 * j) * kLd + d];
+        qv[j] = sq[(tx + 16 * j) * kLd + d] * q_mul;  // the scores' q
         dov[j] = sdo[(tx + 16 * j) * kLd + d];
       }
 #pragma unroll
@@ -683,7 +693,7 @@ __global__ void __launch_bounds__(kThreads)
         const int col = k0 + r;
         float pd = 0.f, ds = 0.f;
         if (attends(sh, row, col)) {
-          const float p = exp2f(s[i][j] * s_log2 - slse[c]);
+          const float p = exp2f(s[i][j] - slse[c]);
           float dpd = dp[i][j];
           pd = p;
           if (sh.drop) {
@@ -746,7 +756,7 @@ __global__ void __launch_bounds__(kThreads)
 static int launch(const void* qkv, const void* bias, const void* o,
                   const void* lse, const void* dout, void* dqkv, void* delta,
                   void* dbias_part, const FlashShape& sh, float scale,
-                  cudaStream_t stream) {
+                  float q_mul, cudaStream_t stream) {
   const dim3 grid((sh.S + kTile - 1) / kTile, sh.B * sh.nh);
   const size_t smem_dq =
       sizeof(float) * (4 * kTile * kLd + kTile * kLdP + 2 * kTile);
@@ -766,14 +776,15 @@ static int launch(const void* qkv, const void* bias, const void* o,
       static_cast<const float*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(o), static_cast<const float*>(lse),
       static_cast<const float*>(dout), static_cast<float*>(dqkv),
-      static_cast<float*>(delta), static_cast<float*>(dbias_part), sh, scale);
+      static_cast<float*>(delta), static_cast<float*>(dbias_part), sh, scale,
+      q_mul);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   dkv_kernel<<<grid, kThreads, smem_dkv, stream>>>(
       static_cast<const float*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(lse), static_cast<const float*>(dout),
       static_cast<const float*>(delta), static_cast<float*>(dqkv),
-      static_cast<float*>(dbias_part), sh, scale);
+      static_cast<float*>(dbias_part), sh, scale, q_mul);
   return 0;
 }
 
@@ -783,24 +794,24 @@ static int launch(const void* qkv, const void* bias, const void* o,
 // in qkv's dtype; dqkv: contiguous (B, S, nh, 3*hd) output; delta: an
 // fp32 scratch of (B*nh, S); dbias_part: null without a bias, else an
 // fp32 output of (B, ceil(S/64), nh, 3*hd) partial column sums. hd must
-// be 128.
+// be 128. q_mul is scale * log2(e) rounded to qkv's dtype.
 extern "C" int flash_bwd(const void* qkv, const void* bias, const void* o,
                          const void* lse, const void* dout, void* dqkv,
                          void* delta, void* dbias_part, int B, int S, int nh,
-                         int hd, float scale, int causal, int dropout,
-                         unsigned seed, unsigned thr, float keep_scale,
-                         int dtype, void* stream) {
+                         int hd, float scale, float q_mul, int causal,
+                         int dropout, unsigned seed, unsigned thr,
+                         float keep_scale, int dtype, void* stream) {
   using namespace apex_port;
   if (hd != kHd) return static_cast<int>(cudaErrorInvalidValue);
   const FlashShape sh{B, S, nh, causal, dropout, seed, thr, keep_scale};
   auto st = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == kFloat32)
-    rc = launch(qkv, bias, o, lse, dout, dqkv, delta, dbias_part, sh,
-                       scale, st);
+    rc = launch(qkv, bias, o, lse, dout, dqkv, delta, dbias_part, sh, scale,
+                q_mul, st);
   else if (dtype == kBFloat16)
     rc = launch_mma(qkv, bias, o, lse, dout, dqkv, delta, dbias_part, sh,
-                    scale, st);
+                    scale, q_mul, st);
   else
     rc = static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;

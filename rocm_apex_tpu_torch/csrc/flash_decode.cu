@@ -39,14 +39,15 @@ static int dispatch_dim(int head_dim, const SplitArgs& a,
 // (row r reads slot r); spans, span_len, ws: the key split and its
 // workspace, as flash_decode_paged takes them; o: contiguous (rows,
 // heads, head_dim) in q's dtype; lse: contiguous (rows, heads) fp32 or
-// null.
+// null. q_mul is scale * log2(e) rounded to q's dtype: each row of q is
+// multiplied by it and rounded to that dtype as it is loaded.
 extern "C" int flash_decode(const void* q, int64_t q_row_stride,
                             int64_t q_head_stride, const void* k,
                             const void* v, int64_t c_slot_stride,
                             int64_t c_pos_stride, int64_t c_head_stride,
                             const void* kv_len, const void* row_slot,
                             int rows, int heads, int head_dim, int num_slots,
-                            int capacity, float scale, int spans,
+                            int capacity, float q_mul, int spans,
                             int span_len, int dtype, void* o, void* lse,
                             void* ws, void* stream) {
   using namespace apex_port;
@@ -59,7 +60,7 @@ extern "C" int flash_decode(const void* q, int64_t q_row_stride,
                     heads,
                     num_slots,
                     capacity,
-                    scale * kLog2e,
+                    q_mul,
                     spans,
                     span_len,
                     o,

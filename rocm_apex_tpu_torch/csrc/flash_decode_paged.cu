@@ -75,14 +75,14 @@ static int run(int dtype, int head_dim, const SplitArgs& a,
 static SplitArgs split_args(const void* q, int64_t q_rs, int64_t q_hs,
                             const void* kv_len, const void* row_slot,
                             int rows, int heads, int num_slots, int capacity,
-                            float scale, int spans, int span_len, void* o,
+                            float q_mul, int spans, int span_len, void* o,
                             void* lse, void* ws, void* stream) {
   return SplitArgs{q,         q_rs,
                    q_hs,      static_cast<const int32_t*>(kv_len),
                    static_cast<const int32_t*>(row_slot),
                    rows,      heads,
                    num_slots, capacity,
-                   scale * kLog2e,
+                   q_mul,
                    spans,     span_len,
                    o,         static_cast<float*>(lse),
                    static_cast<float*>(ws),
@@ -100,7 +100,8 @@ static SplitArgs split_args(const void* q, int64_t q_rs, int64_t q_hs,
 // 32 covering the capacity); o: contiguous (rows, heads, head_dim) in q's
 // dtype; lse: contiguous (rows, heads) fp32 or null; ws: fp32 workspace
 // of rows * heads * (spans / 4) * (head_dim + 2) when spans > 4, else
-// null. num_pages * heads * page_size must fit in an int.
+// null. q_mul is scale * log2(e) rounded to q's dtype (as for
+// flash_decode). num_pages * heads * page_size must fit in an int.
 extern "C" int flash_decode_paged(const void* q, int64_t q_row_stride,
                                   int64_t q_head_stride, const void* k,
                                   const void* v, const void* table,
@@ -108,14 +109,14 @@ extern "C" int flash_decode_paged(const void* q, int64_t q_row_stride,
                                   int rows, int heads, int head_dim,
                                   int num_slots, int pages_per_slot,
                                   int page_size, int num_pages, int capacity,
-                                  float scale, int spans, int span_len,
+                                  float q_mul, int spans, int span_len,
                                   int dtype, void* o, void* lse, void* ws,
                                   void* stream) {
   using namespace apex_port;
   return run<false>(
       dtype, head_dim,
       split_args(q, q_row_stride, q_head_stride, kv_len, row_slot, rows,
-                 heads, num_slots, capacity, scale, spans, span_len, o, lse,
+                 heads, num_slots, capacity, q_mul, spans, span_len, o, lse,
                  ws, stream),
       PagedPools{k, v, nullptr, nullptr, static_cast<const int32_t*>(table),
                  pages_per_slot, page_size, num_pages, heads});
@@ -128,13 +129,13 @@ extern "C" int flash_decode_paged_int8(
     const void* k, const void* v, const void* k_scale, const void* v_scale,
     const void* table, const void* kv_len, const void* row_slot, int rows,
     int heads, int head_dim, int num_slots, int pages_per_slot,
-    int page_size, int num_pages, int capacity, float scale, int spans,
+    int page_size, int num_pages, int capacity, float q_mul, int spans,
     int span_len, int dtype, void* o, void* lse, void* ws, void* stream) {
   using namespace apex_port;
   return run<true>(
       dtype, head_dim,
       split_args(q, q_row_stride, q_head_stride, kv_len, row_slot, rows,
-                 heads, num_slots, capacity, scale, spans, span_len, o, lse,
+                 heads, num_slots, capacity, q_mul, spans, span_len, o, lse,
                  ws, stream),
       PagedPools{k, v, static_cast<const float*>(k_scale),
                  static_cast<const float*>(v_scale),

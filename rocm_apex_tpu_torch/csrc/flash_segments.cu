@@ -6,7 +6,10 @@
 // chunk's slices of the fused QKV projection are read without a copy);
 // token i attends token j iff seg[i] == seg[j] (and j <= i when causal).
 // Outputs o (heads, total, head_dim) in q's dtype and the natural-log
-// lse (heads, total).
+// lse (heads, total). The scores are `_masked_scores`' (rocm_apex_tpu/ops/
+// flash_attention.py:122): q times q_mul = scale * log2(e) in q's dtype,
+// the product rounded to that dtype as the row is loaded, then the fp32
+// product with k.
 //
 // Bound: at the serving chunk (8 heads x 256 tokens x 128 dims) the
 // whole call moves under 2 MB and does under 0.3 GFLOP, so launch
@@ -29,7 +32,7 @@ __global__ void __launch_bounds__(128)
                     const T* __restrict__ k, int64_t k_hs, int64_t k_ts,
                     const T* __restrict__ v, int64_t v_hs, int64_t v_ts,
                     const int32_t* __restrict__ seg, int heads, int total,
-                    int causal, float q_scale, T* __restrict__ o,
+                    int causal, float q_mul, T* __restrict__ o,
                     float* __restrict__ lse) {
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -41,7 +44,7 @@ __global__ void __launch_bounds__(128)
   float qf[VEC];
   load_vec<T, VEC>(q + h * q_hs + i * q_ts + lane * VEC, qf);
 #pragma unroll
-  for (int c = 0; c < VEC; ++c) qf[c] *= q_scale;
+  for (int c = 0; c < VEC; ++c) qf[c] = round_to<T>(qf[c] * q_mul);
 
   const int my_seg = seg[i];
   const int kend = causal ? i + 1 : total;
@@ -66,7 +69,7 @@ template <typename T, int VEC>
 static void launch(const void* q, int64_t q_hs, int64_t q_ts, const void* k,
                    int64_t k_hs, int64_t k_ts, const void* v, int64_t v_hs,
                    int64_t v_ts, const int32_t* seg, int heads, int total,
-                   int causal, float q_scale, void* o, float* lse,
+                   int causal, float q_mul, void* o, float* lse,
                    cudaStream_t stream) {
   const int warps = heads * total;
   const int threads = 128;
@@ -74,7 +77,7 @@ static void launch(const void* q, int64_t q_hs, int64_t q_ts, const void* k,
   segments_kernel<T, VEC><<<blocks, threads, 0, stream>>>(
       static_cast<const T*>(q), q_hs, q_ts, static_cast<const T*>(k), k_hs,
       k_ts, static_cast<const T*>(v), v_hs, v_ts, seg, heads, total, causal,
-      q_scale, static_cast<T*>(o), lse);
+      q_mul, static_cast<T*>(o), lse);
 }
 
 template <typename T>
@@ -82,13 +85,13 @@ static int dispatch_dim(int head_dim, const void* q, int64_t q_hs,
                         int64_t q_ts, const void* k, int64_t k_hs,
                         int64_t k_ts, const void* v, int64_t v_hs,
                         int64_t v_ts, const int32_t* seg, int heads,
-                        int total, int causal, float q_scale, void* o,
+                        int total, int causal, float q_mul, void* o,
                         float* lse, cudaStream_t stream) {
   switch (head_dim) {
 #define APEX_SEG_CASE(V)                                                    \
   case 32 * V:                                                              \
     launch<T, V>(q, q_hs, q_ts, k, k_hs, k_ts, v, v_hs, v_ts, seg, heads,   \
-                 total, causal, q_scale, o, lse, stream);                   \
+                 total, causal, q_mul, o, lse, stream);                     \
     return 0;
     APEX_SEG_CASE(1)
     APEX_SEG_CASE(2)
@@ -104,27 +107,27 @@ static int dispatch_dim(int head_dim, const void* q, int64_t q_hs,
 
 // q/k/v: (heads, total, head_dim) views, unit dim stride; seg: (total,)
 // int32; o: contiguous (heads, total, head_dim) in q's dtype; lse:
-// contiguous (heads, total) fp32.
+// contiguous (heads, total) fp32. q_mul is scale * log2(e) rounded to q's
+// dtype.
 extern "C" int flash_segments(const void* q, int64_t q_hs, int64_t q_ts,
                               const void* k, int64_t k_hs, int64_t k_ts,
                               const void* v, int64_t v_hs, int64_t v_ts,
                               const void* seg, int heads, int total,
-                              int head_dim, int causal, float scale,
+                              int head_dim, int causal, float q_mul,
                               int dtype, void* o, void* lse, void* stream) {
   using namespace apex_port;
-  const float q_scale = scale * kLog2e;
   const auto* ids = static_cast<const int32_t*>(seg);
   auto* lse_f = static_cast<float*>(lse);
   auto s = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == kFloat32)
     rc = dispatch_dim<float>(head_dim, q, q_hs, q_ts, k, k_hs, k_ts, v, v_hs,
-                             v_ts, ids, heads, total, causal, q_scale, o,
+                             v_ts, ids, heads, total, causal, q_mul, o,
                              lse_f, s);
   else if (dtype == kBFloat16)
     rc = dispatch_dim<__nv_bfloat16>(head_dim, q, q_hs, q_ts, k, k_hs, k_ts,
                                      v, v_hs, v_ts, ids, heads, total,
-                                     causal, q_scale, o, lse_f, s);
+                                     causal, q_mul, o, lse_f, s);
   else
     rc = static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;

@@ -105,13 +105,17 @@ __device__ __forceinline__ const float* bias_row(const Problem& pb, int bh,
 // (q * q_mul) . k; `len` is kv_len(pb, bh), `brow` bias_row(pb, bh, row),
 // `same` whether row and col share a segment (always, but in segment
 // attention). The bias term is rounded before the add, as the plain
-// version's `s + bias * LOG2E` rounds it.
+// version's `s + bias * LOG2E` rounds it. `key_live` is its mask alone.
+__device__ __forceinline__ bool key_live(const Problem& pb, int len, int row,
+                                         int col, bool same = true) {
+  return !(row >= pb.Sq || col >= len || (pb.causal && col > row) || !same);
+}
+
 __device__ __forceinline__ float masked_score(const Problem& pb, int len,
                                               const float* brow, float raw,
                                               int row, int col,
                                               bool same = true) {
-  if (row >= pb.Sq || col >= len || (pb.causal && col > row) || !same)
-    return masked();
+  if (!key_live(pb, len, row, col, same)) return masked();
   return brow == nullptr ? raw
                          : raw + __fmul_rn(__ldg(brow + col), kLog2e);
 }

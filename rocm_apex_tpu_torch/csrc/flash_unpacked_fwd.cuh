@@ -1,5 +1,7 @@
-// The unpacked flash-attention forward's kernels, included by
-// flash_unpacked_fwd.cu and (with kSeg) flash_segments_fwd.cu.
+// The unpacked flash-attention forward's CUDA-core and mma.sync kernels,
+// included by flash_unpacked_fwd.cu (its fp32 form) and, with kSeg,
+// flash_segments_fwd.cu (segment attention, bf16 and fp32). The unpacked
+// bf16 form runs on the wgmma pipe of flash_fwd_pipe.cuh.
 //
 // Replaces rocm_apex_tpu/ops/flash_attention.py:170 `_fwd_kernel` as `_fwd`
 // (:242) runs it: masked BERT (the -1e30 padding bias), whole-prompt GPT
@@ -17,16 +19,14 @@
 // Bound: operations. At masked BERT-Large (B 8, 8 heads, S 512, D 128)
 // one layer's forward is 8.6 GFLOP against 0.05 GB of q/k/v/o and 8 MiB
 // of bias.
-//   bf16: both products on the tensor cores (mma.sync m16n8k16, fp32
+//   bf16 (segment attention; the unpacked form is the pipe's): both
+//         products on the tensor cores (mma.sync m16n8k16, fp32
 //         accumulate), 4 warps of 16 query rows; the scores stay in
 //         registers and become the A operand of p @ v split hi + lo, so p
-//         keeps fp32-level precision. The bias is read from device memory
-//         per score (each (row, 2 keys) pair one 8-byte sector piece; the
-//         8 heads sharing a bias row read it from L2).
+//         keeps fp32-level precision.
 //   fp32: the products on the CUDA cores (4 x 4 score and 4 x D/16 output
 //         register tiles a thread); held to the fp32 rate.
-// One tile in flight, a barrier between load and use; cp.async/TMA double
-// buffering and wgmma are later work.
+// One tile in flight, a barrier between load and use.
 //
 // With kSeg (flash_segments_fwd.cu) the same body serves segment attention
 // over a packed (H, total, D) stream: a key of another segment is masked as
@@ -389,16 +389,18 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   return 0;
 }
 
-// The forward of every form: bf16 on the tensor cores, fp32 on the CUDA
-// cores, head_dim 64 or 128.
+// fp32 on the CUDA cores and, for segment attention, bf16 on mma.sync
+// (the unpacked bf16 form is the pipe's); head_dim 64 or 128.
 template <bool kSeg>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, const int64_t* st, const Problem& pb, int hd,
                int dtype, cudaStream_t s) {
-  if (dtype == kBFloat16 && hd == 128)
-    return launch_mma<128, kSeg>(q, k, v, o, lse, st, pb, s);
-  if (dtype == kBFloat16 && hd == 64)
-    return launch_mma<64, kSeg>(q, k, v, o, lse, st, pb, s);
+  if constexpr (kSeg) {
+    if (dtype == kBFloat16 && hd == 128)
+      return launch_mma<128, kSeg>(q, k, v, o, lse, st, pb, s);
+    if (dtype == kBFloat16 && hd == 64)
+      return launch_mma<64, kSeg>(q, k, v, o, lse, st, pb, s);
+  }
   if (dtype == kFloat32 && hd == 128)
     return launch_f32<128, kSeg>(q, k, v, o, lse, st, pb, s);
   if (dtype == kFloat32 && hd == 64)

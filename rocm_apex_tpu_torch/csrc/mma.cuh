@@ -80,6 +80,17 @@ __device__ __forceinline__ void load_b2(uint32_t (&b)[4], const bf16* m,
   ldsm_x4(b, m + (n0 + (mi >> 1) * 8 + (lane & 7)) * ld + c0 + (mi & 1) * 8);
 }
 
+// (x0, x1) -> three bf16 pairs whose sum keeps ~24 bits of x: hi, mid =
+// bf16(x - hi), lo = bf16(x - hi - mid) (each difference exact in fp32).
+__device__ __forceinline__ void split3_bf16(float x0, float x1, uint32_t& hi,
+                                            uint32_t& mid, uint32_t& lo) {
+  split_bf16(x0, x1, hi, mid);
+  const __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&hi);
+  const __nv_bfloat162 m = *reinterpret_cast<__nv_bfloat162*>(&mid);
+  const float2 hf = __bfloat1622float2(h), mf = __bfloat1622float2(m);
+  lo = pack_bf16(x0 - hf.x - mf.x, x1 - hf.y - mf.y);
+}
+
 // Split A fragments from a 16 x 16 block held as two C tiles: c0 for
 // columns 0..7, c1 for columns 8..15 (the FA2 register reuse).
 __device__ __forceinline__ void c_to_a(const float (&c0)[4],
@@ -91,19 +102,32 @@ __device__ __forceinline__ void c_to_a(const float (&c0)[4],
   split_bf16(c1[2], c1[3], hi[3], lo[3]);
 }
 
+// c_to_a with the three-term split of split3_bf16.
+__device__ __forceinline__ void c_to_a3(const float (&c0)[4],
+                                        const float (&c1)[4],
+                                        uint32_t (&hi)[4], uint32_t (&mid)[4],
+                                        uint32_t (&lo)[4]) {
+  split3_bf16(c0[0], c0[1], hi[0], mid[0], lo[0]);
+  split3_bf16(c0[2], c0[3], hi[1], mid[1], lo[1]);
+  split3_bf16(c1[0], c1[1], hi[2], mid[2], lo[2]);
+  split3_bf16(c1[2], c1[3], hi[3], mid[3], lo[3]);
+}
+
 // Stage rows [r0, r0 + rows) of a (S, 128) head matrix into shared
 // memory as bf16: element (r, c) = bf16(src[(r0 + r) * row_stride + c]
 // + bias[c]) (the biased operand rounded to the storage dtype, as the
 // JAX kernels' bf16 add is), 0 for rows at or past S. `dst`, if not
-// null, gets the row-major copy (row stride ld, a multiple of 8);
-// `dst_t`, if not null, the transpose (row stride ld_t) for operands read
-// along columns. Lanes walk rows, so the transposed 16-bit stores of a warp
-// hit consecutive addresses.
+// null, gets the row-major copy (row stride ld, a multiple of 8), times
+// `mul` and rounded again to bf16 where mul != 1 (the score rule's q *
+// q_mul); `dst_t`, if not null, the unscaled transpose (row stride ld_t)
+// for operands read along columns. Lanes walk rows, so the transposed
+// 16-bit stores of a warp hit consecutive addresses.
 template <int kRows>
 __device__ __forceinline__ void stage_tile(
     bf16* __restrict__ dst, int ld, bf16* __restrict__ dst_t, int ld_t,
     const bf16* __restrict__ src, int64_t row_stride,
-    const bf16* __restrict__ bias, int r0, int S, int nthreads) {
+    const bf16* __restrict__ bias, int r0, int S, int nthreads,
+    float mul = 1.f) {
   constexpr int kChunks = 128 / 8;  // 16-byte chunks per row
   for (int idx = threadIdx.x; idx < kRows * kChunks; idx += nthreads) {
     const int r = idx % kRows;
@@ -122,11 +146,19 @@ __device__ __forceinline__ void stage_tile(
         for (int i = 0; i < 4; ++i) e[i] = __hadd2(e[i], be[i]);
       }
     }
-    if (dst != nullptr) *reinterpret_cast<uint4*>(dst + r * ld + c) = raw;
     if (dst_t != nullptr) {
       const bf16* e = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
       for (int i = 0; i < 8; ++i) dst_t[(c + i) * ld_t + r] = e[i];
+    }
+    if (dst != nullptr) {
+      if (mul != 1.f) {
+        bf16* e = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          e[i] = __float2bfloat16(__bfloat162float(e[i]) * mul);
+      }
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = raw;
     }
   }
 }

@@ -10,18 +10,28 @@ models/gpt.py:919-951 of the JAX package calls). The forward kernel
 ``_fwd_kernel`` (:170); the backward (``csrc/flash_bwd.cu``, a dq pass and
 a dk/dv pass) replaces ``_bwd_merged_kernel`` (:1324) and the packed use
 of ``_bwd_dkv_kernel``/``_bwd_dq_kernel`` (:316, :384). q/k/v are read
-straight out of the (B, S, nh, 3*hd) projection with the bias added on
-load, the context is written in (B, S, nh*hd), and the backward writes
-dq|dk|dv into the projection's own layout with fp32 bias partials summed
-over batch in fp32. Dropout drops the normalized probabilities (softmax
--> dropout -> @ v, the normalizer from the undropped ones) with
+straight out of the (B, S, nh, 3*hd) projection with the bias added (the
+bf16 forward: by a pre-pass that writes the biased projection once), the
+context is written in (B, S, nh*hd), and the backward writes dq|dk|dv
+into the projection's own layout with fp32 bias partials summed over
+batch in fp32. Dropout drops the normalized probabilities (softmax ->
+dropout -> @ v, the normalizer from the undropped ones) with
 ``ops/_dropout``'s keep bits of (seed, b*nh + h, query, key), regenerated
 in the backward. One forward and one backward kernel serve all four
 entries: no bias is a null pointer, no dropout is rate 0. The kernels
 take head_dim 128 (the packed path's hd % 128 rule at the model's
-widths); they are bound by operations: bf16 runs the products on the
-tensor cores (mma.sync, the computed operands split hi + lo so they keep
-fp32-level precision), fp32 on the CUDA cores (see the sources).
+widths); they are bound by operations: the bf16 forward runs on the
+wgmma pipe it shares with the unpacked forward
+(``csrc/flash_fwd_pipe.cuh``, planned by `flash_fwd_plan`), the bf16
+backward on mma.sync, the computed operands split so they keep fp32-level
+precision, and fp32 on the CUDA cores (see the sources).
+
+**The score rule** of every kernel and plain version here is the JAX
+kernels' (`_masked_scores`, rocm_apex_tpu/ops/flash_attention.py:122, and
+the paged read's): q times ``scale * log2(e)`` in q's dtype (`_q_mul`),
+rounded in that dtype (`_q_scaled`), then the fp32 product with k, in
+base 2. In bf16 the constant itself rounds, so a fold in fp32 would
+leave every score 0.3% off the reference.
 
 **Decode** (``flash_attention_decode``).
 The kernel (``csrc/flash_decode.cu``) replaces the TPU kernel
@@ -75,7 +85,10 @@ form). Three kernels replace the TPU kernels `_fwd` and `_bwd` run
 and dk/dv passes (``csrc/flash_unpacked_bwd.cu``, `_bwd_dq_kernel` :384,
 `_bwd_dkv_kernel` :316) and the bias gradient (``csrc/flash_dbias.cu``,
 `_bwd_dbias_kernel` :440), all on one masked-score function
-(``csrc/flash_unpacked.cuh``). Semantics are `_masked_scores`': base-2
+(``csrc/flash_unpacked.cuh``); the bf16 forward runs on the wgmma pipe
+(``csrc/flash_fwd_pipe.cuh``), split over the keys and merged by lse
+where `flash_fwd_plan` says the card is not filled (the whole-prompt
+window). Semantics are `_masked_scores`': base-2
 scores with scale * log2(e) folded into q in q's dtype, an fp32 additive
 bias (nb, sq, sk) with nb in {1, batch, batch*heads} added as bias *
 log2(e), top-left causal masking, per-row key lengths, the ragged key
@@ -129,6 +142,8 @@ __all__ = [
     "flash_attention_with_lse",
     "flash_unpacked_fwd_plain",
     "flash_unpacked_bwd_plain",
+    "flash_fwd_plan",
+    "flash_fwd_split_plain",
     "flash_attention_decode",
     "flash_attention_decode_plain",
     "flash_attention_decode_paged",
@@ -148,7 +163,24 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 _SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
+
+
+def _q_mul(scale: float, dtype: torch.dtype) -> float:
+    """scale * log2(e) rounded to the operands' dtype: every attention
+    kernel and plain version folds it into q as the JAX kernels do, ``q *
+    asarray(scale * LOG2E, q.dtype)`` rounded in q's dtype
+    (`_masked_scores`, rocm_apex_tpu/ops/flash_attention.py:122)."""
+    return float(torch.tensor(scale * LOG2E, dtype=dtype))
+
+
+def _q_scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """q times `_q_mul`, rounded in q's dtype: the q of the base-2 scores
+    (q . k is then taken in fp32)."""
+    return q * torch.tensor(_q_mul(scale, q.dtype), dtype=q.dtype,
+                            device=q.device)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -182,16 +214,16 @@ FLASH_FWD = Kernel(
     name="flash_attention_qkv_fwd",
     source="flash_fwd.cu",
     symbol="flash_fwd",
-    argtypes=[_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _U, _U, _F, _I,
-              _P],
+    argtypes=[_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _U, _U, _F, _I,
+              _I, _P, _P, _I, _P],
     replaces="rocm_apex_tpu/ops/flash_attention.py:1170 _fwd_single_kernel",
 )
 FLASH_BWD = Kernel(
     name="flash_attention_qkv_bwd",
     source="flash_bwd.cu",
     symbol="flash_bwd",
-    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-              _U, _U, _F, _I, _P],
+    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
+              _I, _U, _U, _F, _I, _P],
     replaces="rocm_apex_tpu/ops/flash_attention.py:1324 _bwd_merged_kernel",
 )
 _PACKED_HEAD_DIM = 128  # csrc/flash_tile.cuh kHd
@@ -222,7 +254,9 @@ def check_head_dim(*tensors: torch.Tensor) -> None:
 
 def flash_attention_decode_plain(q, k_cache, v_cache, kv_lengths, scale,
                                  slot_ids=None):
-    """The plain PyTorch version: returns (o, lse), o in q's dtype."""
+    """The plain PyTorch version: returns (o, lse), o in q's dtype. The
+    scores are `_masked_scores`': q times scale * log2(e), rounded in q's
+    dtype, then the fp32 product with k, in base 2."""
     rows, heads, d = q.shape
     num_slots, capacity = k_cache.shape[:2]
     dev = q.device
@@ -244,16 +278,16 @@ def flash_attention_decode_plain(q, k_cache, v_cache, kv_lengths, scale,
         idx = torch.nonzero((slots == s) & (bound > 0)).squeeze(1)
         if idx.numel() == 0:
             continue
-        qs = q[idx].float()
-        scores = torch.einsum(
-            "nhd,chd->nhc", qs, k_cache[s].float()
-        ) * scale
+        qs = _q_scaled(q[idx], scale).float()
+        scores = torch.einsum("nhd,chd->nhc", qs, k_cache[s].float())
         live = col[None, None, :] < bound[idx][:, None, None]
         scores = scores.masked_fill(~live, float("-inf"))
-        l = torch.logsumexp(scores, dim=-1)
-        p = torch.exp(scores - l[..., None])
-        o[idx] = torch.einsum("nhc,chd->nhd", p, v_cache[s].float())
-        lse[idx] = l
+        m = scores.amax(dim=-1, keepdim=True)
+        p = torch.exp2(scores - m)
+        l = p.sum(dim=-1)
+        o[idx] = torch.einsum("nhc,chd->nhd", p, v_cache[s].float()) / l[
+            ..., None]
+        lse[idx] = (m[..., 0] + torch.log2(l)) * LN2
     return o.to(q.dtype), lse
 
 
@@ -322,7 +356,8 @@ def flash_attention_decode(
             ptr(q), q.stride(0), q.stride(1), ptr(k_cache), ptr(v_cache),
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
             ptr(kv_lengths), ptr(slot_ids), rows, heads, d, num_slots,
-            capacity, float(scale), spans, span_len, dtype_code(q.dtype),
+            capacity, _q_mul(scale, q.dtype), spans, span_len,
+            dtype_code(q.dtype),
             ptr(o), ptr(lse), ptr(ws), stream_ptr(q.device),
         )
     return (o, lse) if return_lse else o
@@ -414,7 +449,7 @@ def decode_spans_plain(q, k_cache, v_cache, kv_lengths, scale, spans,
     ok = (slot_ids >= 0) & (slot_ids < num_slots)
     sl = torch.where(ok, slot_ids, 0).long()
     bound = torch.where(ok, kv_lengths.long().clamp(0, cap)[sl], 0)
-    qf = q.float() * (scale * math.log2(math.e))
+    qf = _q_scaled(q, scale).float()
     s = torch.einsum("rhd,rchd->rhc", qf, k[sl])  # (rows, heads, cap)
     pos = torch.arange(spans * span_len)
     live = (pos[None, :] < bound[:, None])[:, None, :]
@@ -568,8 +603,9 @@ def flash_attention_decode_paged(
         kernel(
             ptr(q), q.stride(0), q.stride(1), *pools, ptr(page_table),
             ptr(kv_lengths), ptr(slot_ids), rows, heads, d, num_slots,
-            pages_per_slot, page_size, num_pages, capacity, float(scale),
-            spans, span_len, dtype_code(q.dtype), ptr(o), ptr(lse), ptr(ws),
+            pages_per_slot, page_size, num_pages, capacity,
+            _q_mul(scale, q.dtype), spans, span_len, dtype_code(q.dtype),
+            ptr(o), ptr(lse), ptr(ws),
             stream_ptr(q.device),
         )
     return (o, lse) if return_lse else o
@@ -581,30 +617,15 @@ def flash_attention_decode_paged(
 
 
 def _heads(qkv, bias):
-    """Biased q, k, v as fp32 (B*nh, S, hd) from the (B, S, nh, 3*hd)
-    projection; the biased values are rounded to qkv's dtype, as the JAX
-    kernels' add in that dtype rounds them (and the kernels stage them)."""
+    """Biased q, k, v (B*nh, S, hd) in qkv's dtype from the (B, S, nh,
+    3*hd) projection: the biased values are rounded to that dtype, as the
+    JAX kernels' add in it rounds them (and the kernels stage them)."""
     B, S, nh, three_hd = qkv.shape
-    hd = three_hd // 3
-    x = qkv.float()
+    x = qkv
     if bias is not None:
-        x = (x + bias.float().view(nh, three_hd)).to(qkv.dtype).float()
+        x = (qkv.float() + bias.float().view(nh, three_hd)).to(qkv.dtype)
     x = x.permute(0, 2, 1, 3).reshape(B * nh, S, three_hd)
-    return x.split(hd, dim=-1)
-
-
-def _probs(q, k, causal, scale, lse=None):
-    """Masked scores and, from ``lse`` (or their own), the softmax."""
-    s = torch.einsum("bqd,bkd->bqk", q, k) * scale
-    if causal:
-        n = s.shape[-1]
-        s = s.masked_fill(
-            ~torch.ones(n, n, dtype=torch.bool, device=s.device).tril(),
-            float("-inf"),
-        )
-    if lse is None:
-        lse = torch.logsumexp(s, dim=-1)
-    return torch.exp(s - lse[..., None]), lse
+    return x.split(three_hd // 3, dim=-1)
 
 
 def _to_rows(x, B, S, nh):
@@ -614,44 +635,30 @@ def _to_rows(x, B, S, nh):
 
 def flash_qkv_fwd_plain(qkv, bias, causal, scale, rate=0.0, seed=0):
     """The plain PyTorch version of the packed forward: returns o
-    (B, S, nh*hd) in qkv's dtype and lse (B*nh, S) fp32."""
-    B, S, nh, three_hd = qkv.shape
+    (B, S, nh*hd) in qkv's dtype and lse (B*nh, S) fp32. It is the
+    unpacked plain forward on the biased heads: the same score rule
+    (`_unpacked_scores`) and dropout stream (b*nh + h)."""
+    B, S, nh, _ = qkv.shape
     q, k, v = _heads(qkv, bias)
-    p, lse = _probs(q, k, causal, scale)
-    if rate > 0.0:
-        keep = _dropout.keep_mask(seed, rate, p.shape, device=p.device)
-        p = torch.where(keep, p * _dropout.keep_scale(rate), 0.0)
-    o = _to_rows(torch.einsum("bqk,bkd->bqd", p, v), B, S, nh)
-    return o.reshape(B, S, -1).to(qkv.dtype), lse
+    o, lse = flash_unpacked_fwd_plain(q, k, v, None, causal, scale, None,
+                                      rate, seed)
+    return _to_rows(o, B, S, nh).reshape(B, S, -1), lse
 
 
 def flash_qkv_bwd_plain(qkv, bias, o, lse, do, causal, scale, rate=0.0,
                         seed=0):
     """The plain PyTorch version of the packed backward: returns the
     (B, S, nh, 3*hd) cotangent in qkv's dtype and, with a bias, its
-    (nh*3*hd,) fp32 cotangent (else None)."""
+    (nh*3*hd,) fp32 cotangent (else None), summed from the fp32 dqkv."""
     B, S, nh, three_hd = qkv.shape
-    hd = three_hd // 3
     q, k, v = _heads(qkv, bias)
-    p, _ = _probs(q, k, causal, scale, lse)
 
     def heads(t):
-        return t.float().reshape(B, S, nh, hd).permute(0, 2, 1, 3).reshape(
-            B * nh, S, hd)
+        return t.reshape(B, S, nh, -1).permute(0, 2, 1, 3).reshape(
+            B * nh, S, -1)
 
-    do_h, o_h = heads(do), heads(o)
-    dp = torch.einsum("bqd,bkd->bqk", do_h, v)
-    pd = p
-    if rate > 0.0:
-        keep = _dropout.keep_mask(seed, rate, p.shape, device=p.device)
-        sc = _dropout.keep_scale(rate)
-        pd = torch.where(keep, p * sc, 0.0)
-        dp = torch.where(keep, dp * sc, 0.0)
-    delta = (do_h * o_h).sum(dim=-1, keepdim=True)
-    ds = p * (dp - delta)
-    dq = torch.einsum("bqk,bkd->bqd", ds, k) * scale
-    dk = torch.einsum("bqk,bqd->bkd", ds, q) * scale
-    dv = torch.einsum("bqk,bqd->bkd", pd, do_h)
+    dq, dk, dv, _ = _unpacked_grads(q, k, v, None, heads(o), lse, heads(do),
+                                    causal, scale, None, rate, seed)
     dqkv = _to_rows(torch.cat([dq, dk, dv], dim=-1), B, S, nh)
     dbias = None if bias is None else dqkv.sum(dim=(0, 1)).reshape(-1)
     return dqkv.to(qkv.dtype).contiguous(), dbias
@@ -698,11 +705,19 @@ def _flash_fwd(qkv, bias, causal, scale, rate, seed):
     o = torch.empty((B, S, nh * hd), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((B * nh, S), dtype=torch.float32, device=qkv.device)
     if o.numel() > 0:
+        plan = flash_fwd_plan(B * nh, S, S, hd, causal, sm_count(qkv.device),
+                              qkv.dtype)
+        # bf16 with a bias: the biased projection, written once by a
+        # pre-pass and read by the pipe
+        scratch = (torch.empty_like(qkv) if bias is not None
+                   and plan["route"] == "wgmma" else None)
         FLASH_FWD(
             ptr(qkv), ptr(bias), ptr(o), ptr(lse), B, S, nh, hd,
-            float(scale), int(bool(causal)), int(rate > 0.0),
-            int(seed) & 0xFFFFFFFF, _dropout.threshold(rate),
-            _dropout.keep_scale(rate), dtype_code(qkv.dtype),
+            float(scale), _q_mul(scale, qkv.dtype), int(bool(causal)),
+            int(rate > 0.0), int(seed) & 0xFFFFFFFF,
+            _dropout.threshold(rate), _dropout.keep_scale(rate),
+            plan["splits"], plan["split_tiles"], ptr(scratch),
+            ptr(_plan_workspace(plan, qkv.device)), dtype_code(qkv.dtype),
             stream_ptr(qkv.device),
         )
     return o, lse
@@ -727,7 +742,8 @@ def _flash_bwd(qkv, bias, o, lse, do, causal, scale, rate, seed):
         FLASH_BWD(
             ptr(qkv), ptr(bias), ptr(o), ptr(lse), ptr(do), ptr(dqkv),
             ptr(delta), ptr(part), B, S, nh, hd, float(scale),
-            int(bool(causal)), int(rate > 0.0), int(seed) & 0xFFFFFFFF,
+            _q_mul(scale, qkv.dtype), int(bool(causal)), int(rate > 0.0),
+            int(seed) & 0xFFFFFFFF,
             _dropout.threshold(rate), _dropout.keep_scale(rate),
             dtype_code(qkv.dtype), stream_ptr(qkv.device),
         )
@@ -791,16 +807,7 @@ def flash_attention_qkv_bias_dropout(qkv, qkv_bias, dropout_seed,
 # per-row key lengths
 # ---------------------------------------------------------------------------
 
-LOG2E = 1.4426950408889634
-LN2 = 0.6931471805599453
 _UNPACKED_HEAD_DIMS = (64, 128)  # the csrc/flash_unpacked.cuh instances
-
-
-def _q_mul(scale: float, dtype: torch.dtype) -> float:
-    """scale * log2(e) rounded to the operands' dtype: the kernels and
-    the plain versions fold it into q as the JAX kernels do, ``q *
-    asarray(scale * LOG2E, q.dtype)`` rounded in q's dtype."""
-    return float(torch.tensor(scale * LOG2E, dtype=dtype))
 
 
 def _bias_groups(bias, bh: int) -> int:
@@ -820,8 +827,7 @@ def _unpacked_scores(q, k, bias, causal, scale, kv_lengths):
     (top-left aligned) is -inf, so it adds nothing to the softmax."""
     bh, sq, _ = q.shape
     sk = k.shape[1]
-    qs = q * torch.tensor(_q_mul(scale, q.dtype), dtype=q.dtype)
-    s = torch.einsum("bqd,bkd->bqk", qs.float(), k.float())
+    s = torch.einsum("bqd,bkd->bqk", _q_scaled(q, scale).float(), k.float())
     if bias is not None:
         hp = _bias_groups(bias, bh)
         s = (s.view(-1, hp, sq, sk) + bias.float()[:, None] * LOG2E).view(
@@ -862,13 +868,12 @@ def flash_unpacked_fwd_plain(q, k, v, bias, causal, scale, kv_lengths=None,
     return o.to(q.dtype), lse[..., 0]
 
 
-def flash_unpacked_bwd_plain(q, k, v, bias, o, lse, do, causal, scale,
-                             kv_lengths=None, rate=0.0, seed=0, dlse=None,
-                             compute_dbias=False):
-    """The plain PyTorch version of the unpacked backward (`_bwd`, :502):
-    dq, dk, dv in the operands' dtype and, with ``compute_dbias``, the
-    fp32 (nb, sq, sk) bias gradient (else None). ``delta = sum(do * o) -
-    dlse`` folds the lse cotangent in, as `_bwd` does at :513-519."""
+def _unpacked_grads(q, k, v, bias, o, lse, do, causal, scale, kv_lengths,
+                    rate, seed, dlse=None):
+    """The backward's formulas in fp32: dq, dk, dv and the score gradient
+    ds. p is rebuilt from the forward's lse by the forward's score rule;
+    ``delta = sum(do * o) - dlse``, ds = p (dp - delta), and dq and dk
+    take the scale at the end, dk from the unscaled q (as JAX's)."""
     s = _unpacked_scores(q, k, bias, causal, scale, kv_lengths)
     p = torch.exp2(s - lse[..., None] * LOG2E)
     delta = (do.float() * o.float()).sum(dim=-1)
@@ -885,6 +890,18 @@ def flash_unpacked_bwd_plain(q, k, v, bias, o, lse, do, causal, scale,
     dq = torch.einsum("bqk,bkd->bqd", ds, k.float()) * scale
     dk = torch.einsum("bqk,bqd->bkd", ds, q.float()) * scale
     dv = torch.einsum("bqk,bqd->bkd", pd, do.float())
+    return dq, dk, dv, ds
+
+
+def flash_unpacked_bwd_plain(q, k, v, bias, o, lse, do, causal, scale,
+                             kv_lengths=None, rate=0.0, seed=0, dlse=None,
+                             compute_dbias=False):
+    """The plain PyTorch version of the unpacked backward (`_bwd`, :502):
+    dq, dk, dv in the operands' dtype and, with ``compute_dbias``, the
+    fp32 (nb, sq, sk) bias gradient (else None). ``delta = sum(do * o) -
+    dlse`` folds the lse cotangent in, as `_bwd` does at :513-519."""
+    dq, dk, dv, ds = _unpacked_grads(q, k, v, bias, o, lse, do, causal,
+                                     scale, kv_lengths, rate, seed, dlse)
     dbias = None
     if compute_dbias:
         hp = _bias_groups(bias, q.shape[0])
@@ -892,12 +909,100 @@ def flash_unpacked_bwd_plain(q, k, v, bias, o, lse, do, causal, scale,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
+# the bf16 forward's pipe (csrc/flash_fwd_pipe.cuh): query rows and keys
+# a tile, the blocks a multiprocessor holds (81 KB of shared memory each
+# at head_dim 128), and the key split's bounds
+_FWD_TILE = 64
+_FWD_BLOCKS_PER_SM = 2
+_FWD_SPLIT_MAX = 16
+_FWD_SPLIT_MIN_TILES = 2
+
+
+def flash_fwd_plan(bh: int, sq: int, sk: int, hd: int, causal: bool,
+                   sms: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The forward kernels' route and grid, from the shape alone, for the
+    packed (``bh`` = B*nh, sq = sk = S) and the unpacked forward.
+
+    ``route``: ``"wgmma"`` for bf16 (the pipe, head_dim 64 or 128: both
+    are instantiated, so no head dim goes elsewhere) and ``"cuda_cores"``
+    for fp32. A pipe unit is (operand row, query tile of 64, key split):
+    where the bh x ceil(sq / 64) pairs cannot fill the card, each query
+    tile's ceil(sk / 64) key tiles are cut into ``splits`` (a power of
+    two, at most 16) runs of ``split_tiles`` tiles, doubled while twice
+    the units stay within two waves of two blocks a multiprocessor and
+    each split keeps at least two tiles; the partials are merged by lse in
+    split order. It reads no lengths: a split past a row's last key exits
+    at once. ``grid`` is the pipe's (bh, query tiles x splits), its query
+    tiles counted down (longest first under ``causal``); ``workspace``
+    the fp32 floats of the split partials (0 unsplit)."""
+    nqt, ntk = -(-sq // _FWD_TILE), -(-sk // _FWD_TILE)
+    if dtype != torch.bfloat16:
+        return dict(route="cuda_cores", rows=_FWD_TILE, splits=1,
+                    split_tiles=max(ntk, 1), grid=(nqt, bh), workspace=0)
+    if hd not in _UNPACKED_HEAD_DIMS:
+        raise ValueError(f"the bf16 forward takes head_dim in "
+                         f"{_UNPACKED_HEAD_DIMS}, got {hd}")
+    units = bh * nqt
+    splits = 1
+    while (splits < _FWD_SPLIT_MAX
+           and units * splits * 2 <= 2 * _FWD_BLOCKS_PER_SM * sms
+           and ntk >= 2 * splits * _FWD_SPLIT_MIN_TILES):
+        splits *= 2
+    split_tiles = max(-(-ntk // splits), 1)
+    splits = max(-(-ntk // split_tiles), 1)  # no split past the last tile
+    workspace = (bh * nqt * splits * _FWD_TILE * (hd + 2) if splits > 1
+                 else 0)
+    return dict(route="wgmma", rows=_FWD_TILE, splits=splits,
+                split_tiles=split_tiles, grid=(bh, nqt * splits),
+                workspace=workspace)
+
+
+def _plan_workspace(plan, device):
+    n = plan["workspace"]
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None
+
+
+def flash_fwd_split_plain(q, k, v, bias, causal, scale, splits, split_tiles,
+                          kv_lengths=None, rate=0.0, seed=0):
+    """The pipe's split forward in plain PyTorch: each row's keys cut into
+    ``splits`` runs of ``split_tiles`` 64-key tiles, each run's base-2
+    (m, l, acc) partial formed alone (m from -1e30, l over the undropped
+    p, acc over the dropped p), then merged in split order through their
+    maxima: o = sum acc_i 2^(m_i - M) / sum l_i 2^(m_i - M), lse = (M +
+    log2 l) ln 2, l = 0 giving o = 0 and M's lse, as the unsplit forward.
+    Returns (o, lse) as `flash_unpacked_fwd_plain`."""
+    s = _unpacked_scores(q, k, bias, causal, scale, kv_lengths)
+    keep = (_dropout.keep_mask(seed, rate, s.shape, device=s.device)
+            if rate > 0.0 else None)
+    span = split_tiles * _FWD_TILE
+    ms, ls, accs = [], [], []
+    for i in range(splits):
+        si = s[..., i * span:(i + 1) * span]
+        m = si.amax(dim=-1, keepdim=True).clamp(min=NEG_INF) if si.shape[
+            -1] else torch.full(s.shape[:-1] + (1,), NEG_INF)
+        p = torch.exp2(si - m)
+        ls.append(p.sum(dim=-1))
+        if keep is not None:
+            p = torch.where(keep[..., i * span:(i + 1) * span],
+                            p * _dropout.keep_scale(rate), 0.0)
+        accs.append(torch.einsum("bqk,bkd->bqd", p,
+                                 v[:, i * span:(i + 1) * span].float()))
+        ms.append(m[..., 0])
+    m, l = torch.stack(ms, -1), torch.stack(ls, -1)
+    mx = m.amax(dim=-1)
+    f = torch.exp2(m - mx[..., None])
+    lsum = (l * f).sum(dim=-1)
+    acc = (torch.stack(accs, -2) * f[..., None]).sum(dim=-2)
+    safe = torch.where(lsum > 0.0, lsum, 1.0)
+    return (acc / safe[..., None]).to(q.dtype), (mx + torch.log2(safe)) * LN2
+
+
 FLASH_UNPACKED_FWD = Kernel(
     name="flash_unpacked_fwd",
     source="flash_unpacked_fwd.cu",
     symbol="flash_unpacked_fwd",
     argtypes=[_P] * 5 + [ctypes.POINTER(_I64), _P, _I, _P] + [_I] * 7
-    + [_U, _U, _F, _F, _F, _I, _P],
+    + [_U, _U, _F, _F, _F, _I, _I, _P, _I, _P],
     replaces="rocm_apex_tpu/ops/flash_attention.py:170 _fwd_kernel (via "
              "_fwd)",
 )
@@ -1004,13 +1109,16 @@ def _unpacked_fwd(q, k, v, bias, causal, scale, kv_lengths, rate, seed,
     o = _rows_layout(B, H, sq, d, q.dtype, q.device, bshd)
     lse = torch.empty((B * H, sq), dtype=torch.float32, device=q.device)
     if o.numel() > 0:
+        plan = flash_fwd_plan(B * H, sq, sk, d, causal, sm_count(q.device),
+                              q.dtype)
         FLASH_UNPACKED_FWD(
             ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), _strides(q, k, v, o),
             ptr(bias), nb, ptr(kv_lengths), B, H, sq, sk, d,
             int(bool(causal)), int(rate > 0.0), int(seed) & 0xFFFFFFFF,
             _dropout.threshold(rate), _dropout.keep_scale(rate),
-            _q_mul(scale, q.dtype), float(scale), dtype_code(q.dtype),
-            stream_ptr(q.device),
+            _q_mul(scale, q.dtype), float(scale), plan["splits"],
+            plan["split_tiles"], ptr(_plan_workspace(plan, q.device)),
+            dtype_code(q.dtype), stream_ptr(q.device),
         )
     return o, lse
 

@@ -14,8 +14,10 @@ path. At the serving chunk's size it is bound by launch latency and the
 per-row serial walk over keys, not by bytes or tensor-core work; its skip
 of key tiles that share no segment with a row is exact per row and tile,
 so it holds for segment ids in any order (the engine packs slot pieces in
-scheduler order, pads carry the id num_slots). It folds scale * log2(e)
-into q in fp32. Forward only.
+scheduler order, pads carry the id num_slots). Its scores are those of
+``_masked_scores`` (rocm_apex_tpu/ops/flash_attention.py:122): q times
+scale * log2(e) rounded in q's dtype, then the fp32 product with k.
+Forward only.
 
 **Training** (``flash_attention_segments``, the JAX function with its
 custom vjp, :342-486; contrib/fmha's packed path). Two kernels on the
@@ -119,20 +121,14 @@ def _segment_bias(segment_ids, device):
                        float("-inf"))[None]
 
 
-def flash_attention_segments_plain(q, k, v, segment_ids, causal, scale,
-                                   round_q=True):
-    """The plain PyTorch version of the segment forward: returns (o, lse),
-    o (heads, total, head_dim) in q's dtype, lse (heads, total)
-    natural-log fp32. The score rule is the unpacked plain version's with
-    the segment mask as a bias: with ``round_q``, q times scale * log2(e)
-    rounded in q's dtype, as the JAX kernels and the training kernel do;
-    without, in fp32, as the serving kernel does."""
-    dt = q.dtype
-    if not round_q:
-        q, k, v = q.float(), k.float(), v.float()
-    o, lse = flash_unpacked_fwd_plain(
+def flash_attention_segments_plain(q, k, v, segment_ids, causal, scale):
+    """The plain PyTorch version of the segment forward, serving and
+    training: returns (o, lse), o (heads, total, head_dim) in q's dtype,
+    lse (heads, total) natural-log fp32. It is the unpacked plain version
+    with the segment mask as a bias, so its scores follow the JAX rule: q
+    times scale * log2(e) rounded in q's dtype, then the fp32 product."""
+    return flash_unpacked_fwd_plain(
         q, k, v, _segment_bias(segment_ids, q.device), causal, scale)
-    return o.to(dt), lse
 
 
 def flash_attention_segments_bwd_plain(q, k, v, segment_ids, o, lse, do,
@@ -165,9 +161,8 @@ def flash_attention_segments_with_lse(
     if segment_ids.shape != (total,):
         raise ValueError(f"segment_ids must be ({total},)")
     if q.device.type == "cpu":
-        return flash_attention_segments_plain(
-            q, k, v, segment_ids, causal, scale, round_q=False
-        )
+        return flash_attention_segments_plain(q, k, v, segment_ids, causal,
+                                              scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -184,7 +179,7 @@ def flash_attention_segments_with_lse(
         FLASH_SEGMENTS(
             ptr(q), q.stride(0), q.stride(1), ptr(k), k.stride(0),
             k.stride(1), ptr(v), v.stride(0), v.stride(1), ptr(segment_ids),
-            h, total, d, int(bool(causal)), float(scale),
+            h, total, d, int(bool(causal)), _q_mul(scale, q.dtype),
             dtype_code(q.dtype), ptr(o), ptr(lse), stream_ptr(q.device),
         )
     return o, lse

@@ -1,0 +1,172 @@
+"""The flash forward's host plan (`flash_fwd_plan`) and the plain form of
+the key split it may choose, on the CPU.
+
+- At the cells' shapes (the GPT train cell, BERT-Large unmasked and
+  masked, the whole-prompt prefill's causal window, the ragged and varlen
+  shapes the card checks) the plan's units cover every query row once and
+  every key tile of a query tile once; query tiles go longest first; a
+  split past a causal row block's last key holds no tile; bf16 takes the
+  wgmma pipe at head_dim 64 and 128, fp32 the CUDA cores, other head dims
+  raise; the split fills the card only where the (head, query tile) pairs
+  cannot.
+- `flash_fwd_split_plain`, the split forward and its merge in plain
+  PyTorch, against the JAX package's `_fwd` (its Pallas `_fwd_kernel` in
+  interpret mode) on numpy-drawn fp32 inputs at 1e-5 (both sides fp32; the
+  summation order differs), with a bias, per-row lengths and causal
+  masking, at the plan's split and at hand-picked ones.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rocm_apex_tpu.ops import flash_attention as jfa
+from rocm_apex_tpu_torch.ops import flash_attention as fa
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+H100_SMS = 132
+TILE = 64
+
+# name, (batch * heads, sq, sk, head_dim, causal)
+CELLS = [
+    ("train", (16 * 8, 1024, 1024, 128, True)),
+    ("bert_train", (8 * 8, 512, 512, 128, False)),
+    ("masked BERT", (8 * 8, 512, 512, 128, False)),
+    ("serve_whole", (1 * 8, 768, 768, 128, True)),
+    ("ragged", (2 * 4, 200, 333, 64, False)),
+    ("ragged causal", (2 * 4, 333, 200, 64, True)),
+    ("varlen", (2 * 4, 300, 300, 64, False)),
+    ("varlen causal", (2 * 4, 300, 300, 128, True)),
+]
+
+
+def _units(plan, sq):
+    """(query tile, split) of each grid row, in launch order."""
+    nqt = -(-sq // TILE)
+    return [(nqt - 1 - y // plan["splits"], y % plan["splits"])
+            for y in range(plan["grid"][1])]
+
+
+@pytest.mark.parametrize("name,shape", CELLS)
+def test_plan_covers_rows_and_key_tiles_once(name, shape):
+    bh, sq, sk, hd, causal = shape
+    plan = fa.flash_fwd_plan(bh, sq, sk, hd, causal, H100_SMS)
+    assert plan["route"] == "wgmma" and plan["rows"] == TILE
+    assert plan["grid"][0] == bh
+    nqt, ntk = -(-sq // TILE), -(-sk // TILE)
+    splits, st = plan["splits"], plan["split_tiles"]
+    units = _units(plan, sq)
+    # every query tile once per split, every split of it once
+    assert sorted(units) == [(qt, s) for qt in range(nqt)
+                             for s in range(splits)]
+    rows = np.concatenate([np.arange(qt * TILE, min(qt * TILE + TILE, sq))
+                           for qt, s in units if s == 0])
+    assert np.array_equal(np.sort(rows), np.arange(sq))
+    # the splits cut each query tile's key tiles into disjoint runs
+    tiles = np.concatenate([np.arange(s * st, min(s * st + st, ntk))
+                            for s in range(splits)])
+    assert np.array_equal(tiles, np.arange(ntk))
+    assert (splits - 1) * st < ntk  # no split starts past the last tile
+    # longest first: query tiles never grow along the launch order
+    qts = [qt for qt, _ in units]
+    assert qts == sorted(qts, reverse=True)
+    if causal:
+        for qt, s in units:
+            # the row block's keys end at its last row; a split past
+            # them holds no tile (the kernel writes an empty partial)
+            last = min(qt * TILE + TILE, sq, sk)
+            n = max(0, min(-(-last // TILE), s * st + st) - s * st)
+            assert n == 0 or s * st * TILE < last
+    want = bh * nqt * splits * TILE * (hd + 2) if splits > 1 else 0
+    assert plan["workspace"] == want
+
+
+def test_plan_splits_only_where_the_pairs_cannot_fill_the_card():
+    """The train and BERT cells have enough (head, query tile) pairs for
+    two blocks a multiprocessor and are not split; the whole-prompt
+    window's 8 x 12 pairs are, into runs of at least two key tiles."""
+    for name, (bh, sq, sk, hd, causal) in CELLS[:3]:
+        assert fa.flash_fwd_plan(bh, sq, sk, hd, causal,
+                                 H100_SMS)["splits"] == 1, name
+    plan = fa.flash_fwd_plan(8, 768, 768, 128, True, H100_SMS)
+    assert plan["splits"] == 4 and plan["split_tiles"] == 3
+    assert plan["grid"] == (8, 12 * 4)
+    # a card of few multiprocessors is filled by the pairs alone
+    assert fa.flash_fwd_plan(8, 768, 768, 128, True, 8)["splits"] == 1
+    # one key tile cannot be split
+    assert fa.flash_fwd_plan(1, 64, 64, 64, False, H100_SMS)["splits"] == 1
+
+
+def test_plan_routes_by_dtype_and_head_dim():
+    for hd in (64, 128):
+        assert fa.flash_fwd_plan(8, 300, 300, hd, False,
+                                 H100_SMS)["route"] == "wgmma"
+    fp32 = fa.flash_fwd_plan(8, 300, 300, 128, True, H100_SMS, torch.float32)
+    assert fp32["route"] == "cuda_cores" and fp32["splits"] == 1
+    assert fp32["workspace"] == 0
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd_plan(8, 300, 300, 32, False, H100_SMS)
+
+
+def _draw(bh, sq, sk, d, seed, nb=1):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((bh, sq, d)).astype(np.float32)
+    k = rng.standard_normal((bh, sk, d)).astype(np.float32)
+    v = rng.standard_normal((bh, sk, d)).astype(np.float32)
+    bias = rng.standard_normal((nb, sq, sk)).astype(np.float32)
+    bias[:, :, sk - 3:] = -1e30  # padded keys
+    return q, k, v, bias
+
+
+# (bh, sq, sk, head_dim, causal, splits, split_tiles; None: the plan's)
+SPLITS = [
+    (8, 300, 300, 64, False, None, None),
+    (8, 300, 300, 128, True, None, None),
+    (2, 200, 333, 64, False, 3, 2),
+    (2, 333, 200, 128, True, 4, 1),
+    (2, 130, 130, 64, True, 1, 3),
+]
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal,splits,split_tiles", SPLITS)
+def test_split_forward_matches_jax(bh, sq, sk, d, causal, splits,
+                                   split_tiles):
+    """o and lse of the split forward and its merge against JAX `_fwd`,
+    with a bias row per operand row and per-row key lengths (one shorter
+    than a tile, one ending inside the last split)."""
+    if splits is None:
+        plan = fa.flash_fwd_plan(bh, sq, sk, d, causal, H100_SMS)
+        splits, split_tiles = plan["splits"], plan["split_tiles"]
+        assert splits > 1
+    q, k, v, bias = _draw(bh, sq, sk, d, seed=sq + d + causal, nb=bh)
+    if causal:
+        bias[:, :, 0] = 0.0  # every causal row keeps a live key
+    lens = np.full((bh,), sk, np.int32)
+    lens[0], lens[1] = 17, sk - 70
+    scale = 1.0 / math.sqrt(d)
+    jo, jlse = jfa._fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        jnp.asarray(bias), causal, scale, 128, 128,
+                        kv_lengths=jnp.asarray(lens))
+    o, lse = fa.flash_fwd_split_plain(
+        *(torch.from_numpy(a) for a in (q, k, v, bias)), causal, scale,
+        splits, split_tiles, torch.from_numpy(lens))
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
+
+
+@pytest.mark.parametrize("splits,split_tiles", [(2, 3), (4, 2), (6, 1)])
+def test_split_forward_equals_the_unsplit_one_with_dropout(splits,
+                                                           split_tiles):
+    """The merge keeps the unsplit forward's semantics under dropout: l
+    over the undropped p, the kept p scaled, the same keep bits."""
+    q, k, v, bias = (torch.from_numpy(a) for a in _draw(4, 300, 300, 64, 3))
+    for causal in (False, True):
+        ref = fa.flash_unpacked_fwd_plain(q, k, v, bias, causal, 0.125,
+                                          None, 0.1, 9)
+        got = fa.flash_fwd_split_plain(q, k, v, bias, causal, 0.125, splits,
+                                       split_tiles, None, 0.1, 9)
+        for a, b in zip(got, ref):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)

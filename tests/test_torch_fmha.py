@@ -111,26 +111,31 @@ def test_plain_backward_is_the_derivative_of_the_plain_forward():
 
 
 def test_plain_forward_rounds_the_scaled_q_in_q_dtype():
-    """With ``round_q`` (the training kernel's rule, JAX's) q times scale
-    * log2(e) is rounded in q's dtype before the product; without it
-    (the serving kernel's) it stays fp32. In bf16 the two differ, and the
-    rounded one equals the fp32 computation on the pre-rounded q."""
+    """The one score rule of the serving and the training forms (JAX's):
+    q times scale * log2(e) is rounded in q's dtype before the fp32
+    product. In bf16 the plain forward, and the serving wrapper's CPU path
+    with it, equal the fp32 computation on the pre-rounded q, and differ
+    from a fold of the scale in fp32."""
     q, k, v, _, seg = _stream([30, 34], h=2, d=64, seed=7)
     tq, tk, tv = (torch.tensor(a).to(torch.bfloat16) for a in (q, k, v))
     tseg = torch.from_numpy(seg)
     scale = 0.125
     o_r, lse_r = tfs.flash_attention_segments_plain(tq, tk, tv, tseg, True,
                                                     scale)
-    o_f, lse_f = tfs.flash_attention_segments_plain(tq, tk, tv, tseg, True,
-                                                    scale, round_q=False)
+    o_s, lse_s = tfs.flash_attention_segments_with_lse(tq, tk, tv, tseg,
+                                                       True, scale)
+    assert torch.equal(o_s, o_r) and torch.equal(lse_s, lse_r)
     c = torch.tensor(scale * 1.4426950408889634, dtype=torch.bfloat16)
     qr = (tq * c).float() / (scale * 1.4426950408889634)
     o_w, lse_w = tfs.flash_attention_segments_plain(
-        qr, tk.float(), tv.float(), tseg, True, scale, round_q=False)
+        qr, tk.float(), tv.float(), tseg, True, scale)
     np.testing.assert_allclose(lse_r.numpy(), lse_w.numpy(), **TOL)
     np.testing.assert_allclose(o_r.float().numpy(), o_w.float().numpy(),
                                rtol=2.0 ** -7, atol=1e-5)
-    assert not torch.equal(o_r, o_f) or not torch.equal(lse_r, lse_f)
+    o_f, lse_f = tfs.flash_attention_segments_plain(
+        tq.float(), tk.float(), tv.float(), tseg, True, scale)
+    assert not torch.equal(o_r, o_f.to(torch.bfloat16)) or not torch.equal(
+        lse_r, lse_f)
 
 
 # cu_seqlens with a zero-length sequence inside and two at the end
