@@ -35,9 +35,12 @@ JAX package) through these phases, in order; any failure exits non-zero:
              fused bottleneck's four conv+BN kernels, every call of a
              fused block with its flags, at ResNet-50's five stride-1
              block shapes at B 128 and at a ragged M, W 2, fp32 and (the
-             1x1 backward) widths the pipelined products do not take,
-             beside the whole block fused and unfused; every 1x1 and 3x3
-             backward case launched twice and held bit-equal);
+             1x1 backward, the 3x3 forward) widths the pipelined products
+             do not take, beside the whole block fused and unfused; every
+             1x1 and 3x3 backward case and every pipelined 3x3 forward
+             case launched twice and held bit-equal; the flash forwards,
+             the packed backward and the 3x3 forward checked against
+             their plans' routes by the kernels a profiled call launches);
              kernel, plain and library times with CUDA events, and the
              least time the card could take (bound);
 4. parity    the serving config at full width but 2 layers, fp32 with
@@ -642,6 +645,44 @@ def check_fwd_route(fkern, plan, dtype, what, prepass=False):
     return route
 
 
+# the device kernels of each route of the packed flash backward (csrc/
+# flash_bwd_pipe.cuh, flash_bwd.cu) and of the 3x3 forward (csrc/
+# bottleneck_fwd.cu over bottleneck_pipe.cuh or bottleneck.cuh)
+BWD_ROUTE_KERNELS = {"wgmma": ("bwd_dq_pipe_kernel", "bwd_dkv_pipe_kernel"),
+                     "cuda_cores": ("flash_bwd_dq_kernel",
+                                    "flash_bwd_dkv_kernel")}
+K2_ROUTE_KERNELS = {"pipe": ("Conv3FwdPipe",), "staged": ("gemm_kernel",)}
+
+
+def check_launches(fn, routes, route, what, prepass_name=None,
+                   prepass=False):
+    """One call's device kernels, as the profiler names them, against a
+    plan's ``route``: every kernel ``routes[route]`` names is launched,
+    none of another route's, and the pre-pass ``prepass_name`` exactly
+    when ``prepass``. Where the profiler recorded no device activity (it
+    now and then records none for a whole process) the case says so.
+    Returns the route's label for the case name."""
+    names = _device_kernels(fn)
+    if not names:
+        log(f"  ({what}: the profiler recorded no device activity; the "
+            f"route is the plan's)")
+        return f"{route}, not observed"
+    for k in routes[route]:
+        check(any(k in n for n in names),
+              f"{what}: the plan says {route}, the call launched "
+              f"{sorted(names)}")
+    for other, ks in routes.items():
+        if other != route:
+            check(not any(k in n for n in names for k in ks),
+                  f"{what}: the call launched the {other} route's kernel: "
+                  f"{sorted(names)}")
+    if prepass_name is not None:
+        check(any(prepass_name in n for n in names) == prepass,
+              f"{what}: the pre-pass {'missing' if prepass else 'ran'}: "
+              f"{sorted(names)}")
+    return route
+
+
 def decode_cases(dev):
     """The contiguous decode read (row 5) at the serve's shapes: the
     decode grid (8 slots x 8 heads x d 128, capacity 1024, mixed bounds)
@@ -1166,14 +1207,27 @@ def flash_cases(dev):
                 qg, kg, vg, is_causal=causal, dropout_p=rate).backward(do_h)
 
         got = bkern()
+        bplan = fa.flash_bwd_plan(B, S, nh, hd, causal, dt)
+        check(bplan["route"] == ("wgmma" if dt == torch.bfloat16
+                                 else "cuda_cores"),
+              f"flash bwd {name}: planned on the {bplan['route']} route")
+        if bplan["route"] == "wgmma":
+            check(_same_bits([t for t in got if t is not None],
+                             [t for t in bkern() if t is not None]),
+                  f"flash bwd {name}: two launches differ")
+        broute = check_launches(bkern, BWD_ROUTE_KERNELS, bplan["route"],
+                                f"flash bwd {name}", "qkv_bias_kernel",
+                                with_bias and bplan["route"] == "wgmma")
         ref = bplain()
         extra = [None, None if bias is None else _l1_tol(
             ref[0].float().abs().sum(dim=(0, 1)).reshape(-1))]
         yield dict(
-            kernel="flash_attention_qkv_bwd", case=name, dtype=dt,
-            cmp=compare(got, ref, extra), kern=bkern, plain=bplain, lib=blib,
-            nbytes=nbytes(qkv, bias, o, lse, do, *got), ops=10 * hd * pairs,
-            headline=headline, iters=5, plain_iters=2,
+            kernel="flash_attention_qkv_bwd", case=f"{name} [{broute}]",
+            dtype=dt, cmp=compare(got, ref, extra), kern=bkern, plain=bplain,
+            lib=blib, nbytes=nbytes(qkv, bias, o, lse, do, *got),
+            ops=10 * hd * pairs, headline=headline, iters=5, plain_iters=2,
+            extra_timings=dict(library_fwd_ms=flib),
+            breakdown=dt == torch.bfloat16,
         )
 
 
@@ -2751,9 +2805,9 @@ def bottleneck_cases(dev):
                ("fp32 8 x 14 x 14", 8, 14, 256, 64, 256, False,
                 torch.float32, None),
                ("ragged split 3 x 13 x 13", 3, 13, 128, 128, 512, False, bf,
-                "K4"),
+                ("K4",)),
                ("staged widths 3 x 7 x 7", 3, 7, 48, 48, 80, True, bf,
-                "K3")]
+                ("K2", "K3"))]
     sms = sm_count(dev)
     for nm, n, h, cin, cmid, cout, ds, dt, only in shapes:
         full = n == RN50_BATCH
@@ -2761,8 +2815,10 @@ def bottleneck_cases(dev):
         t = _bneck_inputs(gen, dev, n, h, cin, cmid, cout, dt)
         m = t["m"]
         lab = f"{nm}: M {m}, {str(dt)[6:]}"
-        k4_only = only == "K4"
-        if only == "K3":
+        runs = only or ("K1", "K2", "K3", "K4")
+        staged_widths = "K4" not in runs and "K3" in runs
+        k4_only = runs == ("K4",)
+        if staged_widths:
             # every 1x1 backward of this block: widths the pipe does not
             # take (48, 80: not multiples of 64)
             check(all(fb.mm_bwd_plan(m, k, nn, dt, sms)["route"] == "staged"
@@ -2786,17 +2842,18 @@ def bottleneck_cases(dev):
                         iters=20 if full else 100,
                         plain_iters=2 if full else 10, library=library,
                         extra_timings=timings or {},
-                        breakdown=full and kernel in ("bneck_mm_bwd",
+                        breakdown=full and kernel in ("bneck_conv3_fwd",
+                                                      "bneck_mm_bwd",
                                                       "bneck_conv3_bwd"))
 
         # ---- K1: the 1x1 forwards
-        k1_calls = [] if only else [
+        k1_calls = [] if "K1" not in runs else [
             ("conv1 (no prologue)", t["x"], t["w1"], None),
             ("*conv3 (prologue)", t["y2"], t["w3"], (t["a2"], t["c2"]))]
-        if ds and not only:
+        if ds and "K1" in runs:
             k1_calls.append(("downsample (no prologue)", t["x"], t["wd"],
                              None))
-        if not full and not only:
+        if not full and "K1" in runs:
             k1_calls.append(("bare product (no prologue, no statistics)",
                              t["x"], t["w1"], None))
         for what, x2, w, pro in k1_calls:
@@ -2828,44 +2885,64 @@ def bottleneck_cases(dev):
         a1, c1, w2 = t["a1"], t["c1"], t["w2"]
         wcl = w2.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        if not only:
-            y, s = fb.conv3x3_bn_act(x4, w2, a1, c1)
-            ry, rs_ = fb.conv3x3_bn_act_plain(x4, w2, a1, c1)
+        k2_calls = [] if "K2" not in runs else [
+            ("*conv2 (prologue)", (a1, c1), True)]
+        if not full and "K2" in runs:
+            k2_calls.append(("bare conv (no prologue, no statistics)",
+                             (None, None), False))
+        k2_plan = fb.conv3_fwd_plan(m, cmid, cmid, dt, sms)
+        check(k2_plan["route"] == ("pipe" if dt == bf and not staged_widths
+                                   else "staged"),
+              f"{lab}: K2 planned on the {k2_plan['route']} route")
+        for what, (a, b), stats in k2_calls:
+            def k2(x4=x4, w2=w2, a=a, b=b, stats=stats):
+                return fb.conv3x3_bn_act(x4, w2, a, b, stats=stats)
 
-            def lib3(x4=x4, wcl=wcl, a1=a1, c1=c1):
-                u = torch.relu(x4 * a1.to(dt) + c1.to(dt))
-                yf = F.conv2d(u.permute(0, 3, 1, 2), wcl, padding=1).float()
-                return torch.stack((yf.sum((0, 2, 3)),
-                                    (yf * yf).sum((0, 2, 3))))
+            def k2_plain(x4=x4, w2=w2, a=a, b=b, stats=stats):
+                return fb.conv3x3_bn_act_plain(x4, w2, a, b, stats=stats)
 
-            yield case(
-                "bneck_conv3_fwd", "*conv2 (prologue)", [y, *s], [ry, *rs_],
-                lambda x4=x4, w2=w2, a1=a1, c1=c1:
-                    fb.conv3x3_bn_act(x4, w2, a1, c1),
-                lambda x4=x4, w2=w2, a1=a1, c1=c1:
-                    fb.conv3x3_bn_act_plain(x4, w2, a1, c1),
-                lib3, nbytes(x4, w2, a1, c1, y) + 8 * cmid,
-                2 * m * 9 * cmid * cmid, tols=_sum_tols(2),
-                extra=[None, _l1_tol(ry.float().abs().sum((0, 1, 2))),
-                       _l1_tol(rs_[1])],
-                library="F.conv2d channels_last (cuDNN), the prologue and "
-                "statistics as torch ops",
-                timings=(_bneck_block_times(dev, gen, n, h, cin, cmid, cout)
-                         if full else None))
-            if not full:
-                y, _ = fb.conv3x3_bn_act(x4, w2, stats=False)
-                ry, _ = fb.conv3x3_bn_act_plain(x4, w2, stats=False)
+            y, s = k2()
+            got = [y, *s] if stats else [y]
+            if k2_plan["route"] == "pipe":
+                y2, s2 = k2()
+                check(_same_bits(got, [y2, *s2] if stats else [y2]),
+                      f"{lab}, {what}: two K2 launches on the same inputs "
+                      f"differ")
+                del y2, s2
+            route = check_launches(k2, K2_ROUTE_KERNELS, k2_plan["route"],
+                                   f"{lab}, K2 {what}",
+                                   "conv3_fwd_prepass_kernel",
+                                   a is not None and k2_plan["route"] ==
+                                   "pipe")
+            ry, rs_ = k2_plain()
+            if stats:
+
+                def lib3(x4=x4, wcl=wcl, a1=a, c1=b):
+                    u = torch.relu(x4 * a1.to(dt) + c1.to(dt))
+                    yf = F.conv2d(u.permute(0, 3, 1, 2), wcl,
+                                  padding=1).float()
+                    return torch.stack((yf.sum((0, 2, 3)),
+                                        (yf * yf).sum((0, 2, 3))))
+
                 yield case(
-                    "bneck_conv3_fwd",
-                    "bare conv (no prologue, no statistics)", [y], [ry],
-                    lambda x4=x4, w2=w2:
-                        fb.conv3x3_bn_act(x4, w2, stats=False),
-                    lambda x4=x4, w2=w2:
-                        fb.conv3x3_bn_act_plain(x4, w2, stats=False),
+                    "bneck_conv3_fwd", what, got, [ry, *rs_], k2, k2_plain,
+                    lib3, nbytes(x4, w2, a, b, y) + 8 * cmid,
+                    2 * m * 9 * cmid * cmid, tols=_sum_tols(2),
+                    extra=[None, _l1_tol(ry.float().abs().sum((0, 1, 2))),
+                           _l1_tol(rs_[1])],
+                    library="F.conv2d channels_last (cuDNN), the prologue "
+                    "and statistics as torch ops",
+                    timings=(_bneck_block_times(dev, gen, n, h, cin, cmid,
+                                                cout) if full else None),
+                    route=route)
+            else:
+                yield case(
+                    "bneck_conv3_fwd", what, got, [ry], k2, k2_plain,
                     lambda x4=x4, wcl=wcl:
                         F.conv2d(x4.permute(0, 3, 1, 2), wcl, padding=1),
                     nbytes(x4, w2, y), 2 * m * 9 * cmid * cmid,
-                    library="F.conv2d channels_last (cuDNN)")
+                    library="F.conv2d channels_last (cuDNN)", route=route)
+            del y, s, got, ry, rs_
 
         # ---- K3: the 1x1 backwards
         k3_calls = [] if k4_only else [
@@ -2886,7 +2963,8 @@ def bottleneck_cases(dev):
         for what, e, w, x2, kw in k3_calls:
             route = fb.mm_bwd_plan(m, w.shape[0], w.shape[1], dt,
                                    sms)["route"]
-            check(route == ("pipe" if dt == bf and not only else "staged"),
+            check(route == ("pipe" if dt == bf and not staged_widths
+                            else "staged"),
                   f"{lab}, {what}: K3 takes the {route} route")
             got = fb.conv1x1_bn_act_bwd(e, w, x2, **kw)
             again = fb.conv1x1_bn_act_bwd(e, w, x2, **kw)
@@ -2926,7 +3004,7 @@ def bottleneck_cases(dev):
                 "prologue as torch ops", route=route)
 
         # ---- K4: the 3x3 backward
-        if only == "K3":
+        if "K4" not in runs:
             del t
             continue
         e4 = t["e2"].reshape(n, h, h, cmid)
@@ -3007,6 +3085,9 @@ def run_kernel_phase(dev, generators, profile=False):
         b_ms, b_by = bound_ms(c["nbytes"], c["ops"], c["dtype"])
         extra = {k: device_ms(fn, c.get("iters", 100))
                  for k, fn in c.get("extra_timings", {}).items()}
+        if lib_ms is not None and "library_fwd_ms" in extra:
+            # the library's backward alone: fwd + bwd less fwd
+            extra["library_bwd_ms"] = lib_ms - extra["library_fwd_ms"]
         if profile and c.get("breakdown"):
             extra["breakdown"] = profile_window(
                 lambda c=c: [c["kern"]() for _ in range(5)],

@@ -12,6 +12,9 @@ script), runs on one CUDA device, on inputs drawn from fixed seeds:
   blocks at B 128 in bf16, a ragged M, W 2, a ragged split, and fp32) and
   the 1x1 backward (K3: its conv3 and conv1 flag sets at layer3 and
   layer4, bf16, and fp32);
+- the bottleneck forwards (K1: the 1x1 with and without its prologue; K2:
+  the 3x3 with its prologue and bare; each at layer3, layer4, a ragged M
+  and W 2, in bf16 and fp32);
 - the training segment attention forward and backward (rows 3 and 4, at
   contrib/fmha's shape, bf16 and fp32), the unpacked backward and bias
   gradient (rows 9b and 10, masked BERT's shape), and the packed backward
@@ -40,6 +43,12 @@ def _digest(outs):
             h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
                      .tobytes())
     return h.hexdigest()[:16]
+
+
+def _flat(out):
+    """(y, sums) of a bottleneck forward as a flat tuple of tensors."""
+    y, sums = out
+    return (y,) + (tuple(sums) if sums is not None else ())
 
 
 def _lse(q, k, scale, causal, bias=None):
@@ -196,6 +205,23 @@ def main(argv=None):
                else None)
         out[f"conv1x1 bwd {name}"] = _digest(
             fb.conv1x1_bn_act_bwd(e, w, x, z, y_fin, pro, red))
+    for name, n, h, c in (("layer3", 128, 14, 256), ("layer4", 128, 7, 512),
+                          ("ragged M", 3, 7, 64), ("W 2", 4, 2, 64)):
+        for dt in (torch.bfloat16, torch.float32):
+            x = rnd(n, h, h, c).to(dt)
+            w3 = rnd(3, 3, c, c, scale=(2.0 / (9 * c)) ** 0.5).to(dt)
+            w1 = rnd(c, 4 * c, scale=(2.0 / c) ** 0.5).to(dt)
+            a, b = rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1)
+            x2 = x.reshape(-1, c)
+            lab = f"{name} {str(dt)[6:]}"
+            out[f"conv1x1 fwd prologue {lab}"] = _digest(
+                _flat(fb.conv1x1_bn_act(x2, w1, a, b)))
+            out[f"conv1x1 fwd bare {lab}"] = _digest(
+                _flat(fb.conv1x1_bn_act(x2, w1)))
+            out[f"conv3 fwd prologue {lab}"] = _digest(
+                _flat(fb.conv3x3_bn_act(x, w3, a, b)))
+            out[f"conv3 fwd bare {lab}"] = _digest(
+                _flat(fb.conv3x3_bn_act(x, w3, stats=False)))
     _flash_digests(out, fa, fas, dev, gen)
     torch.cuda.synchronize()
     print(json.dumps(out))

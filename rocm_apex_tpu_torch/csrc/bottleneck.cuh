@@ -1,7 +1,7 @@
 // The fused ResNet bottleneck's convolutions for Hopper (sm_90a): one
 // tiled product core shared by the kernels of bottleneck_fwd.cu and
-// bottleneck_bwd.cu (all but the bf16 3x3 backward and the bf16 1x1
-// backward at widths that are multiples of 64, which run on
+// bottleneck_bwd.cu (all but the bf16 3x3 forward and backward and the
+// bf16 1x1 backward at widths that are multiples of 64, which run on
 // bottleneck_pipe.cuh), the staging helpers that apply a prologue while
 // a tile is written to shared memory, and the fixed-order reduction of
 // per-block partial sums.

@@ -43,9 +43,6 @@
 // channel counts are not multiples of 64 stays on the staged core (the
 // host's plan says so): the pipe's chunks and tiles are 64 channels deep
 // and wide.
-#include <algorithm>
-#include <numeric>
-
 #include "bottleneck_pipe.cuh"
 
 namespace apex_port {
@@ -323,20 +320,6 @@ int mm_bwd(Cot<T> d, Up<T> u, const void* w, void* g, float* dw, float* r12,
 // the bf16 backwards on bottleneck_pipe.cuh
 // ---------------------------------------------------------------------------
 
-// Blocks of 256 threads for a pre-pass over M rows of c1 and of c2
-// channels, 8 a thread, at most 16 a multiprocessor: a multiple of
-// `step` blocks, so that 256 step threads divide by c1 / 8 and c2 / 8
-// and a thread keeps its channels over its grid-stride steps.
-inline int prepass_blocks(int64_t M, int c1, int c2, int sms) {
-  const int64_t step =
-      std::lcm(std::lcm(int64_t{256}, int64_t{c1 / 8}), int64_t{c2 / 8}) /
-      256;
-  const int64_t segs = M * std::max(c1, c2) / 8;
-  const int64_t want =
-      std::min<int64_t>((segs + 255) / 256, static_cast<int64_t>(sms) * 16);
-  return segs > 0 ? static_cast<int>((want + step - 1) / step * step) : 0;
-}
-
 // The 1x1 backward's pre-pass: dz = finalize(premask(e, z), y) (M, N)
 // where dz is given, with `dz8`'s rounding, and u = relu(s) (M, K) where
 // u is given: s = x a + b in fp32, rounded to T once (the staged wgrad's
@@ -431,20 +414,7 @@ __global__ void __launch_bounds__(256)
       store_vec_packed<T, 8>(dz + off, ev);
     }
   }
-  const int k = static_cast<int>(tid % (Cin / 8)) * 8;
-  float a[8], b[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    a[i] = round_to<T>(up.a[k + i]);
-    b[i] = round_to<T>(up.b[k + i]);
-  }
-  for (int64_t off = tid * 8; off < M * Cin; off += stride * 8) {
-    float xv[8];
-    load8<T>(up.x + off, xv);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) xv[i] = prologue_dt<T>(xv[i], a[i], b[i]);
-    store_vec_packed<T, 8>(u + off, xv);
-  }
+  prologue_rows<T>(up.x, up.a, up.b, u, M, Cin, tid, stride);
 }
 
 // out[i] = sum over the parts j in order of in[j][i] (a few parts: the
@@ -477,15 +447,6 @@ inline cudaError_t sum_parts(const float* in, int parts, int64_t width,
   return cudaGetLastError();
 }
 
-// (h, w) of flat pixel p of an (n, H, W) stream (32-bit: the wrappers
-// keep the pixel count below 2^31)
-__device__ __forceinline__ void pixel_hw(int64_t p, int H, int W, int& h,
-                                         int& w) {
-  const int rem = static_cast<int>(p) % (H * W);
-  h = rem / W;
-  w = rem - h * W;
-}
-
 // g (M, Cin) = sum over taps t of dz[q - off_t] @ w[t]^T, masked by
 // u > 0, with the (Σg, Σg x̂) partial of each pixel tile. Rows: pixels
 // (BM a tile); reduction: (tap, 64-channel chunk of Cout), tap-major; A
@@ -506,14 +467,8 @@ struct Conv3DgradPipe {
   int64_t M;
   int H, W, Cin, Cout;
 
-  // the A rows a thread stages (tid / 8 + 32 i, segment tid % 8), their
-  // pixels' (h, w) (h far outside the image past the last pixel: no tap
-  // valid), and the next chunk's tap and Cout offset (chunks are loaded
-  // in order)
-  struct Thread {
-    int h[4], w[4];
-    int t, c0;
-  };
+  // the A rows a thread stages; chunks over Cout
+  using Thread = TapRows;
 
   __device__ int chunks() const {
     return 9 * ((Cout + Cfg::BK - 1) / Cfg::BK);
@@ -521,30 +476,14 @@ struct Conv3DgradPipe {
 
   __device__ Thread thread_init() const {
     Thread th;
-    const int64_t m0 = static_cast<int64_t>(blockIdx.x) * Cfg::BM;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t q = m0 + (threadIdx.x >> 3) + 32 * i;
-      if (q < M) {
-        pixel_hw(q, H, W, th.h[i], th.w[i]);
-      } else {
-        th.h[i] = -4 * H;
-        th.w[i] = 0;
-      }
-    }
-    th.t = 0;
-    th.c0 = 0;
+    th.init(static_cast<int64_t>(blockIdx.x) * Cfg::BM, M, H, W);
     return th;
   }
 
   __device__ void load(Thread& th, int, unsigned char* As,
                        unsigned char* Bs) const {
-    const int t = th.t, c0 = th.c0;
-    th.c0 += Cfg::BK;
-    if (th.c0 >= Cout) {
-      th.c0 = 0;
-      ++th.t;
-    }
+    int t, c0;
+    th.next(Cfg::BK, Cout, t, c0);
     const int dy = t / 3 - 1, dx = t % 3 - 1;
     const int c = threadIdx.x & 7, co = c0 + c * 8;
     const int64_t m0 = static_cast<int64_t>(blockIdx.x) * Cfg::BM;
@@ -553,9 +492,7 @@ struct Conv3DgradPipe {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = (threadIdx.x >> 3) + 32 * i;
-      const int hs = th.h[i] - dy, ws = th.w[i] - dx;
-      const bool ok =
-          co < Cout && hs >= 0 && hs < H && ws >= 0 && ws < W;
+      const bool ok = co < Cout && th.in_image(i, -dy, -dx, H, W);
       const T* src =
           ok ? dz + (m0 + r - dy * W - dx) * Cout + co : dz;
       cp_async16(As + sw128(r, c), src, ok);
@@ -619,26 +556,9 @@ struct Conv3DgradPipe {
         }
       }
     }
-    __syncthreads();  // Cs read: its room holds the row groups' sums
-    float* red = Cs;  // [2][kRowGroups][BN]
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      red[rg * BN + c + j] = s1[j];
-      red[(kRowGroups + rg) * BN + c + j] = s2[j];
-    }
-    __syncthreads();
-    const int col = threadIdx.x;
-    if (col < cols) {
-      float t1 = 0.f, t2 = 0.f;
-#pragma unroll
-      for (int gi = 0; gi < kRowGroups; ++gi) {
-        t1 += red[gi * BN + col];
-        t2 += red[(kRowGroups + gi) * BN + col];
-      }
-      float* p1 = part + static_cast<int64_t>(blockIdx.x) * 2 * Cin + ci0;
-      p1[col] = t1;
-      p1[Cin + col] = t2;
-    }
+    combine_row_groups<BN, kRowGroups>(
+        s1, s2, rg, c, cols, Cs,
+        part + static_cast<int64_t>(blockIdx.x) * 2 * Cin + ci0, Cin);
   }
 };
 
@@ -855,26 +775,9 @@ struct MmDgradPipe {
       }
     }
     if (part == nullptr) return;  // uniform: no reductions
-    __syncthreads();  // Cs read: its room holds the row groups' sums
-    float* red = Cs;  // [2][kRowGroups][BN]
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      red[rg * BN + c + j] = s1[j];
-      red[(kRowGroups + rg) * BN + c + j] = s2[j];
-    }
-    __syncthreads();
-    const int col = threadIdx.x;
-    if (col < cols) {
-      float t1 = 0.f, t2 = 0.f;
-#pragma unroll
-      for (int gi = 0; gi < kRowGroups; ++gi) {
-        t1 += red[gi * BN + col];
-        t2 += red[(kRowGroups + gi) * BN + col];
-      }
-      float* p1 = part + static_cast<int64_t>(blockIdx.x) * 2 * K + k0;
-      p1[col] = t1;
-      p1[K + col] = t2;
-    }
+    combine_row_groups<BN, kRowGroups>(
+        s1, s2, rg, c, cols, Cs,
+        part + static_cast<int64_t>(blockIdx.x) * 2 * K + k0, K);
   }
 };
 

@@ -15,16 +15,31 @@
 //
 // Bound: bytes at stage 1 (a 256-channel bf16 map of the bench batch is
 // 205.5 MB, the products 64 to 256 deep), tensor-core operations at
-// stages 3 and 4 (K = 1024 .. 9 x 512). The design keeps every map in
-// device memory once: x is read raw and activated while its tile is
-// staged in shared memory, y is written once, and its statistics come
-// from the accumulator in the same pass, so no BN pass reads y again.
-// Rows past M of a ragged last tile are zero in the staged tile and left
-// out of the sums (relu(b) != 0 there would pollute them). The 3x3 tile
-// computes each of its pixels' (h, w) and the tap's validity itself; the
-// TPU's halo slivers and tap bits are not needed. The per-tile sums are
-// fp32 partials reduced over the tiles in a fixed order.
-#include "bottleneck.cuh"
+// stages 3 and 4 (K = 1024 .. 9 x 512) and for every 3x3 (29.6 GFLOP at
+// each ResNet-50 stride-1 shape against ~2 M C bytes). The staged core
+// (bottleneck.cuh) keeps every map in device memory once: x is read raw
+// and activated while its tile is staged in shared memory, y is written
+// once, and its statistics come from the accumulator in the same pass, so
+// no BN pass reads y again. Rows past M of a ragged last tile are zero in
+// the staged tile and left out of the sums (relu(b) != 0 there would
+// pollute them). The 3x3 tile computes each of its pixels' (h, w) and the
+// tap's validity itself; the TPU's halo slivers and tap bits are not
+// needed. The per-tile sums are fp32 partials reduced over the tiles in a
+// fixed order.
+//
+// The bf16 3x3 at channel counts that are multiples of 64 (every ResNet-50
+// width) runs on bottleneck_pipe.cuh instead, as the 3x3 backward's dgrad
+// does: on the staged core it sat at 46-54 TFLOP/s, one chunk staged,
+// then multiplied, the prologue recomputed by each of the 9 taps' reads
+// of a pixel. Here a pre-pass writes u = relu(x a + b) once in bf16 (the
+// staged load's rounding, so the product sees the same values), and the
+// product reads u's rows shifted by each tap through the cp.async ring,
+// zero-filled where the tap leaves the image: the padding is of u, which
+// an inline prologue would get wrong (relu(b) != 0). The bare form (no
+// prologue) reads x itself. The epilogue writes y and the tile's (Σy,
+// Σy²) partial from the fp32 accumulators, reduced as above. The host's
+// `conv3_fwd_plan` picks the route and the tile width from the shape.
+#include "bottleneck_pipe.cuh"
 
 namespace apex_port {
 namespace bneck {
@@ -153,6 +168,118 @@ struct Conv3Fwd {
   }
 };
 
+// The bf16 pre-pass: u = relu(x a + b) (M, Cin) with `prologue_dt`'s
+// rounding, the grid as `prepass_blocks` sizes it
+__global__ void __launch_bounds__(256)
+    conv3_fwd_prepass_kernel(const bf16* __restrict__ x,
+                             const float* __restrict__ a,
+                             const float* __restrict__ b, bf16* __restrict__ u,
+                             int64_t M, int Cin) {
+  prologue_rows<bf16>(x, a, b, u, M, Cin,
+                      static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                          threadIdx.x,
+                      static_cast<int64_t>(gridDim.x) * blockDim.x);
+}
+
+// y = conv3x3(u, w) with the (Σy, Σy²) partial of each pixel tile. Rows:
+// pixels (BM a tile); reduction: (tap, 64-channel chunk of Cin),
+// tap-major; A and B K-major (rows of Cin contiguous values: u's pixel
+// rows shifted by the tap, wt[t]'s rows, one a column co of the tile).
+// The dgrad of the backward (Conv3DgradPipe) with the tap's sign flipped.
+template <int BN>
+struct Conv3FwdPipe {
+  using Cfg = PCfg<BN, false>;
+  using T = bf16;
+  const T* u;   // (M, Cin): the activated input (x in the bare form)
+  const T* wt;  // (9, Cout, Cin)
+  T* y;
+  float* part;  // (tiles over M, 2, Cout) or null: no statistics
+  int64_t M;
+  int H, W, Cin, Cout;
+
+  // the A rows a thread stages; chunks over Cin
+  using Thread = TapRows;
+
+  __device__ int chunks() const {
+    return 9 * ((Cin + Cfg::BK - 1) / Cfg::BK);
+  }
+
+  __device__ Thread thread_init() const {
+    Thread th;
+    th.init(static_cast<int64_t>(blockIdx.x) * Cfg::BM, M, H, W);
+    return th;
+  }
+
+  __device__ void load(Thread& th, int, unsigned char* As,
+                       unsigned char* Bs) const {
+    int t, c0;
+    th.next(Cfg::BK, Cin, t, c0);
+    const int dy = t / 3 - 1, dx = t % 3 - 1;
+    const int c = threadIdx.x & 7, ci = c0 + c * 8;
+    const int64_t m0 = static_cast<int64_t>(blockIdx.x) * Cfg::BM;
+    // output pixel p reads the source pixel p + off, which must lie in
+    // the image
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (threadIdx.x >> 3) + 32 * i;
+      const bool ok = ci < Cin && th.in_image(i, dy, dx, H, W);
+      const T* src = ok ? u + (m0 + r + dy * W + dx) * Cin + ci : u;
+      cp_async16(As + sw128(r, c), src, ok);
+    }
+    const int n0 = blockIdx.y * BN;
+#pragma unroll
+    for (int i = 0; i < BN * 8 / Cfg::kThreads; ++i) {
+      const int v = threadIdx.x + i * Cfg::kThreads;
+      const int r = v >> 3, cc = v & 7;
+      const int n = n0 + r, ci2 = c0 + cc * 8;
+      const bool ok = n < Cout && ci2 < Cin;
+      const T* src =
+          ok ? wt + (static_cast<int64_t>(t) * Cout + n) * Cin + ci2 : wt;
+      cp_async16(Bs + sw128(r, cc), src, ok);
+    }
+  }
+
+  // Each thread a 16-byte run of 8 channels down every kRowGroups-th row
+  // of the tile (one vector store of y), its sums in row order; the row
+  // groups' sums then combined in group order through shared memory (the
+  // tile's, free once read).
+  __device__ void epilogue(const WAcc<BN>& acc, float* Cs) const {
+    acc.store(Cs, Cfg::LDC);
+    __syncthreads();
+    constexpr int kSegs = BN / 8;
+    constexpr int kRowGroups = Cfg::kThreads / kSegs;
+    const int64_t m0 = static_cast<int64_t>(blockIdx.x) * Cfg::BM;
+    const int n0 = blockIdx.y * BN;
+    const int rows = span(M - m0, Cfg::BM);
+    const int cols = min(BN, Cout - n0);  // a multiple of 16
+    const int seg = threadIdx.x % kSegs, rg = threadIdx.x / kSegs;
+    const int c = seg * 8;
+    float s1[8], s2[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s1[j] = s2[j] = 0.f;
+    if (c < cols) {
+#pragma unroll
+      for (int i = 0; i < Cfg::BM / kRowGroups; ++i) {
+        const int r = rg + i * kRowGroups;
+        if (r < rows) {
+          float v[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            v[j] = Cs[r * Cfg::LDC + c + j];
+            s1[j] += v[j];
+            s2[j] = fmaf(v[j], v[j], s2[j]);
+          }
+          store_vec_packed<T, 8>(y + (m0 + r) * Cout + n0 + c, v);
+        }
+      }
+    }
+    if (part == nullptr) return;  // uniform: no statistics
+    combine_row_groups<BN, kRowGroups>(
+        s1, s2, rg, c, cols, Cs,
+        part + static_cast<int64_t>(blockIdx.x) * 2 * Cout + n0, Cout);
+  }
+};
+
 template <typename T>
 int mm_fwd(const void* x, const float* a, const float* b, const void* wt,
            void* y, float* part, float* scratch, float* sums, int64_t M, int K,
@@ -184,6 +311,42 @@ int conv3_fwd(const void* x, const float* a, const float* b, const void* wt,
                       scratch, stream);
 }
 
+// the bf16 3x3 on the pipe (Cin and Cout multiples of 64): the pre-pass
+// where there is a prologue (ubuf; else the product reads x), the
+// product in tiles of 128 pixels x bn channels, the sums of its tile
+// partials
+inline int conv3_fwd_pipe(const bf16* x, const float* a, const float* b,
+                          const bf16* wt, bf16* y, float* part,
+                          float* scratch, float* sums, bf16* ubuf, int n,
+                          int H, int W, int Cin, int Cout, int bn, int sms,
+                          cudaStream_t stream) {
+  const int64_t M = static_cast<int64_t>(n) * H * W;
+  const int tiles = static_cast<int>((M + 127) / 128);
+  if ((a != nullptr) != (ubuf != nullptr) || Cin % 64 || Cout % bn ||
+      (bn != 128 && bn != 64))
+    return cudaErrorInvalidValue;
+  const bf16* u = x;
+  if (a != nullptr) {
+    conv3_fwd_prepass_kernel<<<prepass_blocks(M, Cin, Cin, sms), 256, 0,
+                               stream>>>(x, a, b, ubuf, M, Cin);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    u = ubuf;
+  }
+  float* pp = sums ? part : nullptr;
+  cudaError_t err;
+  if (bn == 128) {
+    Conv3FwdPipe<128> p{u, wt, y, pp, M, H, W, Cin, Cout};
+    err = launch_pipe(p, dim3(tiles, Cout / 128), stream);
+  } else {
+    Conv3FwdPipe<64> p{u, wt, y, pp, M, H, W, Cin, Cout};
+    err = launch_pipe(p, dim3(tiles, Cout / 64), stream);
+  }
+  if (err != cudaSuccess || sums == nullptr) return err;
+  return reduce_parts(part, tiles, 2 * static_cast<int64_t>(Cout), sums,
+                      scratch, stream);
+}
+
 }  // namespace bneck
 }  // namespace apex_port
 
@@ -208,16 +371,25 @@ int bneck_mm_fwd(const void* x, const float* a, const float* b,
   return cudaErrorInvalidValue;
 }
 
-// the 3x3 stride-1 SAME form on x (n, H, W, Cin), wt (9, Cout, Cin)
+// the 3x3 stride-1 SAME form on x (n, H, W, Cin), wt (9, Cout, Cin).
+// bn 128 or 64: bf16 on bottleneck_pipe.cuh in tiles of bn channels, with
+// ubuf (M, Cin) the pre-pass's output when a is given (else null); sms
+// sizes the pre-pass. bn 0: the staged core (ubuf null).
 int bneck_conv3_fwd(const void* x, const float* a, const float* b,
                     const void* wt, void* y, float* part, float* scratch,
-                    float* sums, int n, int H, int W, int Cin, int Cout,
-                    int dtype, void* stream) {
+                    float* sums, void* ubuf, int n, int H, int W, int Cin,
+                    int Cout, int bn, int sms, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16 && bn != 0)
+    return bneck::conv3_fwd_pipe(
+        static_cast<const bf16*>(x), a, b, static_cast<const bf16*>(wt),
+        static_cast<bf16*>(y), part, scratch, sums, static_cast<bf16*>(ubuf),
+        n, H, W, Cin, Cout, bn, sms, s);
+  if (ubuf != nullptr) return cudaErrorInvalidValue;
   if (dtype == kBFloat16)
     return bneck::conv3_fwd<__nv_bfloat16>(x, a, b, wt, y, part, scratch, sums,
                                            n, H, W, Cin, Cout, s);
-  if (dtype == kFloat32)
+  if (dtype == kFloat32 && bn == 0)
     return bneck::conv3_fwd<float>(x, a, b, wt, y, part, scratch, sums, n, H,
                                    W, Cin, Cout, s);
   return cudaErrorInvalidValue;

@@ -1,12 +1,13 @@
 // A multistage cp.async + wgmma product core for Hopper (sm_90a), beside
-// the staged mma.sync core of bottleneck.cuh: the bf16 3x3 and 1x1
-// backwards (bottleneck_bwd.cu `conv3_bwd_bf16`, `mm_bwd_bf16`) run on
-// it, and the forwards may move onto it later.
+// the staged mma.sync core of bottleneck.cuh: the bf16 3x3 forward
+// (bottleneck_fwd.cu `conv3_fwd_bf16`) and the bf16 3x3 and 1x1 backwards
+// (bottleneck_bwd.cu `conv3_bwd_bf16`, `mm_bwd_bf16`) run on it.
 //
 // The difference from `gemm_kernel`: the operands of a product are plain
-// bf16 rows in device memory (the 3x3 backward writes the finalized
-// cotangent and the activated input once, in a pre-pass, rather than
-// recomputing them while staging), so every 16-byte row segment of a
+// bf16 rows in device memory (the 3x3 forward and backward write the
+// activated input, and the backward the finalized cotangent, once, in a
+// pre-pass, rather than recomputing them while staging), so every
+// 16-byte row segment of a
 // tile is one `cp.async` straight into shared memory, with src-size 0
 // (zero-fill) for a segment outside the problem: a tap whose source
 // pixel leaves the image, the ragged edge. A ring of kStages tiles keeps
@@ -25,6 +26,9 @@
 // the copies of chunk kc (`load`) and consumes the fp32 accumulators
 // (`epilogue`). The wgmma and cp.async pieces are in wgmma.cuh.
 #pragma once
+
+#include <algorithm>
+#include <numeric>
 
 #include "bottleneck.cuh"
 #include "wgmma.cuh"
@@ -104,6 +108,38 @@ struct WAcc {
   }
 };
 
+// The tile's two column sums from the row groups' partials: thread
+// (row group rg, 8-column segment at c) holds s1[j], s2[j] of columns c +
+// j over its rows; the groups' sums are combined in group order through
+// `red` (2 x groups x BN floats of shared memory: the tile's, once every
+// thread has read it) into part[col] and part[width + col] for the
+// tile's first `cols` columns. Every thread calls it.
+template <int BN, int kRowGroups>
+__device__ __forceinline__ void combine_row_groups(const float (&s1)[8],
+                                                   const float (&s2)[8],
+                                                   int rg, int c, int cols,
+                                                   float* red, float* part,
+                                                   int width) {
+  __syncthreads();  // every thread is done reading the tile from red
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    red[rg * BN + c + j] = s1[j];
+    red[(kRowGroups + rg) * BN + c + j] = s2[j];
+  }
+  __syncthreads();
+  const int col = threadIdx.x;
+  if (col < cols) {
+    float t1 = 0.f, t2 = 0.f;
+#pragma unroll
+    for (int gi = 0; gi < kRowGroups; ++gi) {
+      t1 += red[gi * BN + col];
+      t2 += red[(kRowGroups + gi) * BN + col];
+    }
+    part[col] = t1;
+    part[width + col] = t2;
+  }
+}
+
 // One block: the ring filled kStages - 1 chunks ahead; each chunk waited
 // for (the copies made visible to wgmma's proxy), multiplied (BK / 16
 // wgmma a warpgroup) while the slot freed a chunk earlier is refilled,
@@ -161,17 +197,115 @@ template <class Prob>
 cudaError_t launch_pipe(const Prob& p, dim3 grid, cudaStream_t stream) {
   using C = typename Prob::Cfg;
   if (grid.x == 0 || grid.y == 0 || grid.z == 0) return cudaSuccess;
-  static bool attr_set = false;  // once per instance and process
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        pipe_kernel<Prob>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::kSmemBytes);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  // every call: a function-local "once" flag in this header would be one
+  // symbol across the libraries that include it (bottleneck_fwd.cu,
+  // bottleneck_bwd.cu), each of which registers its own kernels
+  const cudaError_t err = cudaFuncSetAttribute(
+      pipe_kernel<Prob>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmemBytes);
+  if (err != cudaSuccess) return err;
   pipe_kernel<Prob><<<grid, C::kThreads, C::kSmemBytes, stream>>>(p);
   return cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// the pre-passes' shared pieces
+// ---------------------------------------------------------------------------
+
+// Blocks of 256 threads for a pre-pass over M rows of c1 and of c2
+// channels, 8 a thread, at most 16 a multiprocessor: a multiple of
+// `step` blocks, so that 256 step threads divide by c1 / 8 and c2 / 8
+// and a thread keeps its channels over its grid-stride steps.
+inline int prepass_blocks(int64_t M, int c1, int c2, int sms) {
+  const int64_t step =
+      std::lcm(std::lcm(int64_t{256}, int64_t{c1 / 8}), int64_t{c2 / 8}) /
+      256;
+  const int64_t segs = M * std::max(c1, c2) / 8;
+  const int64_t want =
+      std::min<int64_t>((segs + 255) / 256, static_cast<int64_t>(sms) * 16);
+  return segs > 0 ? static_cast<int>((want + step - 1) / step * step) : 0;
+}
+
+// u = relu(x a + b) over M rows of C channels, in T with `prologue_dt`'s
+// rounding (that of the staged forms), 8 channels a thread from thread
+// `tid` on in steps of `stride` threads (a multiple of C / 8: a thread
+// keeps its channels)
+template <typename T>
+__device__ __forceinline__ void prologue_rows(const T* __restrict__ x,
+                                              const float* __restrict__ a,
+                                              const float* __restrict__ b,
+                                              T* __restrict__ u, int64_t M,
+                                              int C, int64_t tid,
+                                              int64_t stride) {
+  const int k = static_cast<int>(tid % (C / 8)) * 8;
+  float a8[8], b8[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    a8[i] = round_to<T>(a[k + i]);
+    b8[i] = round_to<T>(b[k + i]);
+  }
+  for (int64_t off = tid * 8; off < M * C; off += stride * 8) {
+    float xv[8];
+    load8<T>(x + off, xv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) xv[i] = prologue_dt<T>(xv[i], a8[i], b8[i]);
+    store_vec_packed<T, 8>(u + off, xv);
+  }
+}
+
+// (h, w) of flat pixel p of an (n, H, W) stream (32-bit: the wrappers
+// keep the pixel count below 2^31)
+__device__ __forceinline__ void pixel_hw(int64_t p, int H, int W, int& h,
+                                         int& w) {
+  const int rem = static_cast<int>(p) % (H * W);
+  h = rem / W;
+  w = rem - h * W;
+}
+
+// A thread's share of the A tile of an implicit 3x3 product over 128
+// pixels (the forward, and the backward's dgrad): rows tid / 8 + 32 i at
+// 16-byte segment tid % 8, their pixels' (h, w) (h far outside the image
+// past the last pixel, so that no tap is valid there), and the next
+// chunk's tap and channel offset: chunks are loaded once each, in order,
+// tap-major over C channels in BK-deep runs.
+struct TapRows {
+  int h[4], w[4];
+  int t, c0;
+
+  __device__ __forceinline__ void init(int64_t m0, int64_t M, int H,
+                                       int W) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t q = m0 + (threadIdx.x >> 3) + 32 * i;
+      if (q < M) {
+        pixel_hw(q, H, W, h[i], w[i]);
+      } else {
+        h[i] = -4 * H;
+        w[i] = 0;
+      }
+    }
+    t = 0;
+    c0 = 0;
+  }
+
+  // the chunk's (tap, channel offset), then on to the next chunk
+  __device__ __forceinline__ void next(int bk, int C, int& tap, int& ch) {
+    tap = t;
+    ch = c0;
+    c0 += bk;
+    if (c0 >= C) {
+      c0 = 0;
+      ++t;
+    }
+  }
+
+  // whether row i's pixel shifted by (dy, dx) lies in the image
+  __device__ __forceinline__ bool in_image(int i, int dy, int dx, int H,
+                                           int W) const {
+    const int hs = h[i] + dy, ws = w[i] + dx;
+    return hs >= 0 && hs < H && ws >= 0 && ws < W;
+  }
+};
 
 }  // namespace bneck
 }  // namespace apex_port

@@ -6,12 +6,12 @@
 // (`_bwd_packed`). Blocks run in no order on Hopper, so the TPU's merged
 // single-grid-step kernel becomes two launches with no atomics:
 //
-//   dq pass   one block per (query tile, b*nh): delta = rowsum(do * o) of
-//             its rows (written for the dk/dv pass), then for each key
+//   dq pass   one block per (b*nh, query tile): delta = rowsum(do * o)
+//             of its rows (written for the dk/dv pass), then for each key
 //             tile up to the causal bound p = exp2(s - lse log2 e),
 //             dp = do v^T, ds = p (keep dp / (1 - rate) - delta), and
 //             dq += ds k;
-//   dkv pass  one block per (key tile, b*nh): for each query tile from
+//   dkv pass  one block per (b*nh, key tile): for each query tile from
 //             the causal bound on, the same p and ds, then
 //             dv += (keep p / (1 - rate))^T do and dk += ds^T q.
 //
@@ -29,401 +29,48 @@
 // so two runs on the same inputs give the same bits.
 //
 // Bound: operations (2.5x the forward's products).
-//   bf16: tensor cores (mma.sync, mma.cuh), 4 warps of 16 rows (queries
-//         in the dq pass, keys in the dk/dv pass; 32-query tiles there
-//         to keep the dk and dv accumulators in registers); ds split hi
-//         + lo and p hi + mid + lo (dv's sums are unnormalized) as the A
-//         operand of the products that consume them; operands read along
-//         their columns are staged transposed.
+//   bf16: the wgmma pipe of flash_bwd_pipe.cuh on the projection's
+//         per-head column blocks read through their strides (batch
+//         S*nh*3*hd, head 3*hd, row nh*3*hd), dq, dk and dv written the
+//         same way into dqkv; with a projection bias, a pre-pass first
+//         writes the biased projection once (flash_tile.cuh, the forward's
+//         pre-pass), which both passes then read. The dq pass writes (lse
+//         log2 e, delta) pairs for the dk/dv pass into `stats`.
 //   fp32: CUDA cores, as flash_fwd.cu.
+#include "flash_bwd_pipe.cuh"
 #include "flash_tile.cuh"
-#include "mma.cuh"
 
 namespace apex_port {
 
-// ---- bf16: tensor cores --------------------------------------------------
+// ---- bf16: the bias pre-pass, then the pipe ------------------------------
 
-constexpr int kMmaWarps = 4;          // 16 rows each
-constexpr int kLdS = kHd + 8;         // bf16 row of a [row][d] tile (136)
-constexpr int kLdKT = kTile + 8;      // bf16 row of a [d][64 keys] tile
-constexpr int kQTile = 32;            // query rows per dk/dv step
-constexpr int kLdQT = kQTile + 8;     // bf16 row of a [d][32 rows] tile
-
-// Column sums over the 16 x 128 accumulator tiles of the 4 warps (rows g
-// and g + 8 of acc[n][0..3]) times `mul`, into out[0..128). `red` is
-// 4 x 128 floats of shared memory; the caller synchronizes before.
-__device__ __forceinline__ void mma_column_sums(const float (&acc)[16][4],
-                                                float mul, float* red,
-                                                float* __restrict__ out) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int n = 0; n < 16; ++n) {
-    float c0 = acc[n][0] + acc[n][2];
-    float c1 = acc[n][1] + acc[n][3];
-#pragma unroll
-    for (int o = 4; o < 32; o <<= 1) {  // over g: lanes with equal t
-      c0 += __shfl_xor_sync(kFullMask, c0, o);
-      c1 += __shfl_xor_sync(kFullMask, c1, o);
-    }
-    if (lane < 4) {
-      red[warp * kHd + n * 8 + 2 * lane] = c0;
-      red[warp * kHd + n * 8 + 2 * lane + 1] = c1;
-    }
+static int launch_pipe(const void* qkv, const void* bias, const void* o,
+                       const void* lse, const void* dout, void* dqkv,
+                       void* stats, void* dbias_part, const FlashShape& sh,
+                       float scale, float q_mul, void* scratch,
+                       cudaStream_t stream) {
+  const bf16* x = static_cast<const bf16*>(qkv);
+  if (bias != nullptr) {
+    const cudaError_t e = launch_qkv_bias(qkv, bias, scratch, sh, stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    x = static_cast<const bf16*>(scratch);
   }
-  __syncthreads();
-  if (threadIdx.x < kHd) {
-    float c = 0.f;
-    for (int w = 0; w < kMmaWarps; ++w) c += red[w * kHd + threadIdx.x];
-    out[threadIdx.x] = c * mul;
-  }
-}
-
-__global__ void __launch_bounds__(kMmaWarps * 32)
-    flash_bwd_dq_mma_kernel(const bf16* __restrict__ qkv,
-                            const bf16* __restrict__ bias,
-                            const bf16* __restrict__ o,
-                            const float* __restrict__ lse,
-                            const bf16* __restrict__ dout,
-                            bf16* __restrict__ dqkv,
-                            float* __restrict__ delta_out,
-                            float* __restrict__ dbias_part, FlashShape sh,
-                            float scale, float q_mul) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [64][kLdS], q * q_mul
-  bf16* sdo = sq + kTile * kLdS;                  // [64][kLdS]
-  bf16* sk = sdo + kTile * kLdS;                  // [64][kLdS]
-  bf16* sv = sk + kTile * kLdS;                   // [64][kLdS]
-  bf16* skt = sv + kTile * kLdS;                  // [128][kLdKT]: k^T
-  float* slse = reinterpret_cast<float*>(skt + kHd * kLdKT);  // 64, x log2e
-  float* sdelta = slse + kTile;                               // 64
-  constexpr int nthreads = kMmaWarps * 32;
-  const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / sh.nh;
-  const int h = bh % sh.nh;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = qt * kTile;
-  const int wr = warp * 16;
   const int64_t rs = static_cast<int64_t>(sh.nh) * 3 * kHd;
-  const int64_t os = static_cast<int64_t>(sh.nh) * kHd;
-  const int64_t ohead = (static_cast<int64_t>(b) * sh.S * sh.nh + h) * kHd;
-
-  stage_tile<kTile>(sq, kLdS, nullptr, 0, qkv_part(qkv, sh, b, h, 0), rs,
-                    bias_part(bias, h, 0), q0, sh.S, nthreads, q_mul);
-  stage_tile<kTile>(sdo, kLdS, nullptr, 0, dout + ohead, os,
-                    static_cast<const bf16*>(nullptr), q0, sh.S, nthreads);
-  __syncthreads();
-  // delta = rowsum(do * o): each warp its 16 rows, 4 columns a lane
-  for (int r = wr; r < wr + 16; ++r) {
-    const int row = q0 + r;
-    float acc = 0.f;
-    if (row < sh.S) {
-      const bf16* orow = o + ohead + row * os;
-#pragma unroll
-      for (int c = lane * 4; c < lane * 4 + 4; ++c)
-        acc += __bfloat162float(sdo[r * kLdS + c]) * __bfloat162float(orow[c]);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      const int64_t at = static_cast<int64_t>(bh) * sh.S + row;
-      sdelta[r] = acc;
-      slse[r] = row < sh.S ? lse[at] * kLog2e : 0.f;
-      if (row < sh.S) delta_out[at] = acc;
-    }
-  }
-  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
-  const uint32_t rkey[2] = {dropout_row_key(sh.seed, bh, row[0]),
-                            dropout_row_key(sh.seed, bh, row[1])};
-  float acc[16][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int ntiles = (sh.S + kTile - 1) / kTile;
-  const int nk = sh.causal ? qt + 1 : ntiles;
-  for (int kt = 0; kt < nk; ++kt) {
-    __syncthreads();  // delta/lse written; previous tile's readers done
-    stage_tile<kTile>(sk, kLdS, skt, kLdKT, qkv_part(qkv, sh, b, h, 1), rs,
-                      bias_part(bias, h, 1), kt * kTile, sh.S, nthreads);
-    stage_tile<kTile>(sv, kLdS, nullptr, 0, qkv_part(qkv, sh, b, h, 2), rs,
-                      bias_part(bias, h, 2), kt * kTile, sh.S, nthreads);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a(qa, sq, kLdS, wr, kk * 16);
-      load_a(da, sdo, kLdS, wr, kk * 16);
-#pragma unroll
-      for (int nb = 0; nb < 8; nb += 2) {
-        uint32_t kb[4], vb[4];
-        load_b2(kb, sk, kLdS, nb * 8, kk * 16);
-        load_b2(vb, sv, kLdS, nb * 8, kk * 16);
-        mma_bf16(s[nb], qa, kb[0], kb[1]);
-        mma_bf16(s[nb + 1], qa, kb[2], kb[3]);
-        mma_bf16(dp[nb], da, vb[0], vb[1]);
-        mma_bf16(dp[nb + 1], da, vb[2], vb[3]);
-      }
-    }
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int r = wr + g + 8 * i;
-        const int col = kt * kTile + nb * 8 + 2 * t + (e & 1);
-        float ds = 0.f;
-        if (attends(sh, row[i], col)) {
-          const float p = exp2f(s[nb][e] - slse[r]);
-          float dpd = dp[nb][e];
-          if (sh.drop)
-            dpd = keep_bit(rkey[i], col, sh.thr) ? dpd * sh.keep_scale : 0.f;
-          ds = p * (dpd - sdelta[r]);
-        }
-        s[nb][e] = ds;
-      }
-    // dq += ds k over the 4 k-steps of 16 keys; ds split hi + lo
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t hi[4], lo[4];
-      c_to_a(s[2 * j], s[2 * j + 1], hi, lo);
-#pragma unroll
-      for (int n = 0; n < 16; n += 2) {
-        uint32_t kb[4];
-        load_b2(kb, skt, kLdKT, n * 8, j * 16);
-        mma_bf16(acc[n], hi, kb[0], kb[1]);
-        mma_bf16(acc[n], lo, kb[0], kb[1]);
-        mma_bf16(acc[n + 1], hi, kb[2], kb[3]);
-        mma_bf16(acc[n + 1], lo, kb[2], kb[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= sh.S) continue;
-    bf16* out = dqkv + (static_cast<int64_t>(b) * sh.S + row[i]) * rs +
-                h * 3 * kHd;
-#pragma unroll
-    for (int n = 0; n < 16; ++n)
-      *reinterpret_cast<uint32_t*>(out + n * 8 + 2 * t) = pack_bf16(
-          acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
-  }
-  if (dbias_part != nullptr) {
-    __syncthreads();  // sq is reused as the reduction buffer
-    mma_column_sums(
-        acc, scale, reinterpret_cast<float*>(sq),
-        dbias_part + ((static_cast<int64_t>(b) * ntiles + qt) * sh.nh + h) *
-                         3 * kHd);
-  }
-}
-
-__global__ void __launch_bounds__(kMmaWarps * 32)
-    flash_bwd_dkv_mma_kernel(const bf16* __restrict__ qkv,
-                             const bf16* __restrict__ bias,
-                             const float* __restrict__ lse,
-                             const bf16* __restrict__ dout,
-                             const float* __restrict__ delta,
-                             bf16* __restrict__ dqkv,
-                             float* __restrict__ dbias_part, FlashShape sh,
-                             float scale, float q_mul) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sk = reinterpret_cast<bf16*>(smem_raw);  // [64][kLdS]
-  bf16* sv = sk + kTile * kLdS;                   // [64][kLdS]
-  bf16* sq = sv + kTile * kLdS;                   // [32][kLdS], q * q_mul
-  bf16* sdo = sq + kQTile * kLdS;                 // [32][kLdS]
-  bf16* sqt = sdo + kQTile * kLdS;                // [128][kLdQT]: q^T
-  bf16* sdot = sqt + kHd * kLdQT;                 // [128][kLdQT]: do^T
-  float* slse = reinterpret_cast<float*>(sdot + kHd * kLdQT);  // x log2e
-  float* sdelta = slse + kQTile;
-  constexpr int nthreads = kMmaWarps * 32;
-  const int kt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / sh.nh;
-  const int h = bh % sh.nh;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int k0 = kt * kTile;
-  const int wr = warp * 16;
-  const int64_t rs = static_cast<int64_t>(sh.nh) * 3 * kHd;
-  const int64_t os = static_cast<int64_t>(sh.nh) * kHd;
-  const int64_t ohead = (static_cast<int64_t>(b) * sh.S * sh.nh + h) * kHd;
-
-  stage_tile<kTile>(sk, kLdS, nullptr, 0, qkv_part(qkv, sh, b, h, 1), rs,
-                    bias_part(bias, h, 1), k0, sh.S, nthreads);
-  stage_tile<kTile>(sv, kLdS, nullptr, 0, qkv_part(qkv, sh, b, h, 2), rs,
-                    bias_part(bias, h, 2), k0, sh.S, nthreads);
-  const int key[2] = {k0 + wr + g, k0 + wr + g + 8};
-  float dk[16][4], dv[16][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  const int nq = (sh.S + kQTile - 1) / kQTile;
-  for (int qt = sh.causal ? k0 / kQTile : 0; qt < nq; ++qt) {
-    const int q0 = qt * kQTile;
-    __syncthreads();  // the previous tile's readers are done
-    // sq: q * q_mul for the scores; sqt: the unscaled q for dk
-    stage_tile<kQTile>(sq, kLdS, sqt, kLdQT, qkv_part(qkv, sh, b, h, 0), rs,
-                       bias_part(bias, h, 0), q0, sh.S, nthreads, q_mul);
-    stage_tile<kQTile>(sdo, kLdS, sdot, kLdQT, dout + ohead, os,
-                       static_cast<const bf16*>(nullptr), q0, sh.S,
-                       nthreads);
-    if (threadIdx.x < kQTile) {
-      const int row = q0 + threadIdx.x;
-      const int64_t at = static_cast<int64_t>(bh) * sh.S + row;
-      slse[threadIdx.x] = row < sh.S ? lse[at] * kLog2e : 0.f;
-      sdelta[threadIdx.x] = row < sh.S ? delta[at] : 0.f;
-    }
-    __syncthreads();
-
-    // s^T = k q^T and dp^T = v do^T: 16 keys x 32 queries a warp
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[nb][e] = dpt[nb][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a(ka, sk, kLdS, wr, kk * 16);
-      load_a(va, sv, kLdS, wr, kk * 16);
-#pragma unroll
-      for (int nb = 0; nb < 4; nb += 2) {
-        uint32_t qb[4], db[4];
-        load_b2(qb, sq, kLdS, nb * 8, kk * 16);
-        load_b2(db, sdo, kLdS, nb * 8, kk * 16);
-        mma_bf16(st[nb], ka, qb[0], qb[1]);
-        mma_bf16(st[nb + 1], ka, qb[2], qb[3]);
-        mma_bf16(dpt[nb], va, db[0], db[1]);
-        mma_bf16(dpt[nb + 1], va, db[2], db[3]);
-      }
-    }
-    // st <- dropped p^T, dpt <- ds^T
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-      for (int par = 0; par < 2; ++par) {
-        const int qc = nb * 8 + 2 * t + par;  // query within the tile
-        const int q = q0 + qc;
-        const uint32_t rk = dropout_row_key(sh.seed, bh, q);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int e = 2 * i + par;
-          float pd = 0.f, ds = 0.f;
-          if (attends(sh, q, key[i])) {
-            const float p = exp2f(st[nb][e] - slse[qc]);
-            float dpd = dpt[nb][e];
-            pd = p;
-            if (sh.drop) {
-              const bool keep = keep_bit(rk, key[i], sh.thr);
-              pd = keep ? p * sh.keep_scale : 0.f;
-              dpd = keep ? dpd * sh.keep_scale : 0.f;
-            }
-            ds = p * (dpd - sdelta[qc]);
-          }
-          st[nb][e] = pd;
-          dpt[nb][e] = ds;
-        }
-      }
-    // dv += pd^T do and dk += ds^T q over the 2 k-steps of 16 queries.
-    // pd is split in three (hi + mid + lo, ~24 bits): dv sums p over
-    // every query that attends the key, unnormalized, so at a key most
-    // queries attend (key 0 under causal masking, ~ln S of p mass) the
-    // two-term split's 2^-18 of that mass reaches the bf16 output's
-    // absolute tolerance; ds keeps two terms
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      uint32_t phi[4], pmid[4], plo[4], shi[4], slo[4];
-      c_to_a3(st[2 * j], st[2 * j + 1], phi, pmid, plo);
-      c_to_a(dpt[2 * j], dpt[2 * j + 1], shi, slo);
-#pragma unroll
-      for (int n = 0; n < 16; n += 2) {
-        uint32_t db[4], qb[4];
-        load_b2(db, sdot, kLdQT, n * 8, j * 16);
-        load_b2(qb, sqt, kLdQT, n * 8, j * 16);
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          mma_bf16(dv[n + u], phi, db[2 * u], db[2 * u + 1]);
-          mma_bf16(dv[n + u], pmid, db[2 * u], db[2 * u + 1]);
-          mma_bf16(dv[n + u], plo, db[2 * u], db[2 * u + 1]);
-          mma_bf16(dk[n + u], shi, qb[2 * u], qb[2 * u + 1]);
-          mma_bf16(dk[n + u], slo, qb[2 * u], qb[2 * u + 1]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (key[i] >= sh.S) continue;
-    bf16* out = dqkv + (static_cast<int64_t>(b) * sh.S + key[i]) * rs +
-                h * 3 * kHd;
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      *reinterpret_cast<uint32_t*>(out + kHd + n * 8 + 2 * t) = pack_bf16(
-          dk[n][2 * i] * scale, dk[n][2 * i + 1] * scale);
-      *reinterpret_cast<uint32_t*>(out + 2 * kHd + n * 8 + 2 * t) =
-          pack_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
-    }
-  }
-  if (dbias_part != nullptr) {
-    const int ntiles = (sh.S + kTile - 1) / kTile;
-    float* part = dbias_part +
-                  ((static_cast<int64_t>(b) * ntiles + kt) * sh.nh + h) * 3 *
-                      kHd;
-    __syncthreads();  // sq is reused as the reduction buffer
-    mma_column_sums(dk, scale, reinterpret_cast<float*>(sq), part + kHd);
-    __syncthreads();
-    mma_column_sums(dv, 1.f, reinterpret_cast<float*>(sq), part + 2 * kHd);
-  }
-}
-
-static int launch_mma(const void* qkv, const void* bias, const void* o,
-                      const void* lse, const void* dout, void* dqkv,
-                      void* delta, void* dbias_part, const FlashShape& sh,
-                      float scale, float q_mul, cudaStream_t stream) {
-  const size_t smem_dq = sizeof(bf16) * (4 * kTile * kLdS + kHd * kLdKT) +
-                         sizeof(float) * 2 * kTile;
-  const size_t smem_dkv =
-      sizeof(bf16) * (2 * kTile * kLdS + 2 * kQTile * kLdS + 2 * kHd * kLdQT) +
-      sizeof(float) * 2 * kQTile;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_dq));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem_dkv));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((sh.S + kTile - 1) / kTile, sh.B * sh.nh);
-  flash_bwd_dq_mma_kernel<<<grid, kMmaWarps * 32, smem_dq, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
-      static_cast<const bf16*>(o), static_cast<const float*>(lse),
-      static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv),
-      static_cast<float*>(delta), static_cast<float*>(dbias_part), sh, scale,
-      q_mul);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkv_mma_kernel<<<grid, kMmaWarps * 32, smem_dkv, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
-      static_cast<const float*>(lse), static_cast<const bf16*>(dout),
-      static_cast<const float*>(delta), static_cast<bf16*>(dqkv),
-      static_cast<float*>(dbias_part), sh, scale, q_mul);
-  return 0;
+  const unpacked::Strides in{sh.S * rs, 3 * kHd, rs};
+  const int64_t ors = static_cast<int64_t>(sh.nh) * kHd;
+  const unpacked::Strides out{sh.S * ors, kHd, ors};
+  const int64_t tiles = (sh.S + kTile - 1) / kTile;
+  bf16* g = static_cast<bf16*>(dqkv);
+  const unpacked::BwdArgs a{
+      x, x + kHd, x + 2 * kHd, static_cast<const bf16*>(o),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(stats), g, g + kHd, g + 2 * kHd,
+      static_cast<float*>(dbias_part), in, in, in, out, out, in, in, in,
+      unpacked::Strides{tiles * rs, 3 * kHd, rs}};
+  const unpacked::Problem pb = unpacked::make_problem(
+      sh.B, sh.nh, sh.S, sh.S, sh.causal, nullptr, nullptr, 0, sh.drop,
+      sh.seed, sh.thr, sh.keep_scale, q_mul, scale);
+  return unpacked::launch_pipe_bwd<kHd>(a, pb, stream);
 }
 
 // ---- fp32: CUDA cores ------------------------------------------------------
@@ -791,15 +438,18 @@ static int launch(const void* qkv, const void* bias, const void* o,
 }  // namespace apex_port
 
 // qkv, bias, o, lse as saved by flash_fwd; dout: contiguous (B, S, nh*hd)
-// in qkv's dtype; dqkv: contiguous (B, S, nh, 3*hd) output; delta: an
-// fp32 scratch of (B*nh, S); dbias_part: null without a bias, else an
-// fp32 output of (B, ceil(S/64), nh, 3*hd) partial column sums. hd must
-// be 128. q_mul is scale * log2(e) rounded to qkv's dtype.
+// in qkv's dtype; dqkv: contiguous (B, S, nh, 3*hd) output; dbias_part:
+// null without a bias, else an fp32 output of (B, ceil(S/64), nh, 3*hd)
+// partial column sums. hd must be 128. q_mul is scale * log2(e) rounded
+// to qkv's dtype. stats: bf16, an fp32 scratch of (B*nh, 64 ceil(S/64),
+// 2) (lse log2 e, delta) pairs; fp32, one of (B*nh, S) (delta). scratch:
+// bf16 with a bias, a contiguous (B, S, nh, 3*hd) bf16 buffer for the
+// biased projection, else null (the plan, flash_bwd_plan, names both).
 extern "C" int flash_bwd(const void* qkv, const void* bias, const void* o,
                          const void* lse, const void* dout, void* dqkv,
-                         void* delta, void* dbias_part, int B, int S, int nh,
-                         int hd, float scale, float q_mul, int causal,
-                         int dropout, unsigned seed, unsigned thr,
+                         void* stats, void* dbias_part, void* scratch, int B,
+                         int S, int nh, int hd, float scale, float q_mul,
+                         int causal, int dropout, unsigned seed, unsigned thr,
                          float keep_scale, int dtype, void* stream) {
   using namespace apex_port;
   if (hd != kHd) return static_cast<int>(cudaErrorInvalidValue);
@@ -807,11 +457,11 @@ extern "C" int flash_bwd(const void* qkv, const void* bias, const void* o,
   auto st = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == kFloat32)
-    rc = launch(qkv, bias, o, lse, dout, dqkv, delta, dbias_part, sh, scale,
+    rc = launch(qkv, bias, o, lse, dout, dqkv, stats, dbias_part, sh, scale,
                 q_mul, st);
-  else if (dtype == kBFloat16)
-    rc = launch_mma(qkv, bias, o, lse, dout, dqkv, delta, dbias_part, sh,
-                    scale, q_mul, st);
+  else if (dtype == kBFloat16 && (bias == nullptr) == (scratch == nullptr))
+    rc = launch_pipe(qkv, bias, o, lse, dout, dqkv, stats, dbias_part, sh,
+                     scale, q_mul, scratch, st);
   else
     rc = static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;

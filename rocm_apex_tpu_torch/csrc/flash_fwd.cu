@@ -26,8 +26,6 @@
 //   fp32: the products run on the CUDA cores in fp32 (4 x 4 score and
 //         4 x 8 output register tiles per thread, operands from shared
 //         memory); it is held to the fp32 rate.
-#include <algorithm>
-
 #include "flash_fwd_pipe.cuh"
 #include "flash_tile.cuh"
 
@@ -35,38 +33,13 @@ namespace apex_port {
 
 // ---- bf16: the bias pre-pass, then the pipe ------------------------------
 
-// out = bf16(qkv + bias) over n8 vectors of 8 bf16, the bias repeating
-// every row8 vectors (one (b, s) row of nh*3*hd)
-__global__ void __launch_bounds__(256)
-    qkv_bias_kernel(const uint4* __restrict__ qkv,
-                    const uint4* __restrict__ bias, uint4* __restrict__ out,
-                    int64_t n8, int row8) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n8; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    uint4 raw = qkv[i];
-    const uint4 braw = bias[i % row8];
-    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&raw);
-    const __nv_bfloat162* be = reinterpret_cast<const __nv_bfloat162*>(&braw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) e[j] = __hadd2(e[j], be[j]);
-    out[i] = raw;
-  }
-}
-
 static int launch_pipe(const void* qkv, const void* bias, void* o, void* lse,
                        const FlashShape& sh, float scale, float q_mul,
                        int splits, int split_tiles, void* scratch, void* ws,
                        cudaStream_t stream) {
   const bf16* x = static_cast<const bf16*>(qkv);
   if (bias != nullptr) {
-    const int row8 = sh.nh * 3 * kHd / 8;
-    const int64_t n8 = static_cast<int64_t>(sh.B) * sh.S * row8;
-    const int64_t blocks = std::min<int64_t>((n8 + 255) / 256, 1 << 20);
-    qkv_bias_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-        static_cast<const uint4*>(qkv), static_cast<const uint4*>(bias),
-        static_cast<uint4*>(scratch), n8, row8);
-    const cudaError_t e = cudaGetLastError();
+    const cudaError_t e = launch_qkv_bias(qkv, bias, scratch, sh, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
     x = static_cast<const bf16*>(scratch);
   }

@@ -1,10 +1,12 @@
 // Shared pieces of the packed-QKV flash-attention forward (flash_fwd.cu)
 // and backward (flash_bwd.cu): tile geometry, the tile loader that reads
-// q/k/v straight out of the fused projection, and the masking rule.
+// q/k/v straight out of the fused projection, the masking rule, and the
+// bias pre-pass both bf16 pipes read the biased projection from.
 //
 // Layouts (those of rocm_apex_tpu/ops/flash_attention.py's packed path):
 //   qkv   (B, S, nh, 3*hd): per head, q | k | v columns; read in place
-//   bias  (nh*3*hd,) or null: added to q/k/v as a tile is loaded
+//   bias  (nh*3*hd,) or null: added to q/k/v as an fp32 tile is loaded,
+//         or once by the bf16 pre-pass
 //   o, do (B, S, nh*hd)
 //   lse   (B*nh, S) fp32, natural log
 // Grid row bh = b * nh + h, as on the TPU.
@@ -16,8 +18,11 @@
 // columns tx + 16 j of a 64 x 64 score tile, so a row's 64 scores sit in
 // one half-warp and its softmax reductions are 4 shuffles. Operand rows
 // are padded to 129 floats so the column-strided reads hit distinct
-// banks. (The bf16 kernels' tensor-core helpers are in mma.cuh.)
+// banks. (The bf16 kernels run on flash_fwd_pipe.cuh and
+// flash_bwd_pipe.cuh.)
 #pragma once
+
+#include <algorithm>
 
 #include "common.cuh"
 #include "dropout.cuh"
@@ -107,6 +112,43 @@ template <typename T>
 __device__ __forceinline__ const T* bias_part(const T* bias, int h,
                                               int part) {
   return bias == nullptr ? nullptr : bias + (h * 3 + part) * kHd;
+}
+
+// ---- the bf16 pipes' bias pre-pass ---------------------------------------
+
+// out = bf16(qkv + bias) over n8 vectors of 8 bf16, the bias repeating
+// every row8 vectors (one (b, s) row of nh*3*hd)
+__global__ void __launch_bounds__(256)
+    qkv_bias_kernel(const uint4* __restrict__ qkv,
+                    const uint4* __restrict__ bias, uint4* __restrict__ out,
+                    int64_t n8, int row8) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n8; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    uint4 raw = qkv[i];
+    const uint4 braw = bias[i % row8];
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&raw);
+    const __nv_bfloat162* be = reinterpret_cast<const __nv_bfloat162*>(&braw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) e[j] = __hadd2(e[j], be[j]);
+    out[i] = raw;
+  }
+}
+
+// the biased projection bf16(qkv + bias) of a bf16 (B, S, nh, 3*hd)
+// projection into out, once, for the pipes to read (flash_fwd.cu,
+// flash_bwd.cu)
+inline cudaError_t launch_qkv_bias(const void* qkv, const void* bias,
+                                   void* out, const FlashShape& sh,
+                                   cudaStream_t stream) {
+  const int row8 = sh.nh * 3 * kHd / 8;
+  const int64_t n8 = static_cast<int64_t>(sh.B) * sh.S * row8;
+  const int64_t blocks = std::min<int64_t>((n8 + 255) / 256, 1 << 20);
+  if (blocks == 0) return cudaSuccess;
+  qkv_bias_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      static_cast<const uint4*>(qkv), static_cast<const uint4*>(bias),
+      static_cast<uint4*>(out), n8, row8);
+  return cudaGetLastError();
 }
 
 }  // namespace apex_port

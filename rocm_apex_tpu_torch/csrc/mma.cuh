@@ -1,6 +1,6 @@
 // Tensor-core helpers of the bf16 flash-attention kernels: the
 // mma.sync m16n8k16 product (bf16 in, fp32 accumulate), bf16 packing,
-// and the tile loaders that stage biased q/k/v in shared memory.
+// the fragment loaders and the splits of a computed operand.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major) a0: (g, 2t..2t+1)  a1: (g+8, 2t..)
@@ -100,67 +100,6 @@ __device__ __forceinline__ void c_to_a(const float (&c0)[4],
   split_bf16(c0[2], c0[3], hi[1], lo[1]);
   split_bf16(c1[0], c1[1], hi[2], lo[2]);
   split_bf16(c1[2], c1[3], hi[3], lo[3]);
-}
-
-// c_to_a with the three-term split of split3_bf16.
-__device__ __forceinline__ void c_to_a3(const float (&c0)[4],
-                                        const float (&c1)[4],
-                                        uint32_t (&hi)[4], uint32_t (&mid)[4],
-                                        uint32_t (&lo)[4]) {
-  split3_bf16(c0[0], c0[1], hi[0], mid[0], lo[0]);
-  split3_bf16(c0[2], c0[3], hi[1], mid[1], lo[1]);
-  split3_bf16(c1[0], c1[1], hi[2], mid[2], lo[2]);
-  split3_bf16(c1[2], c1[3], hi[3], mid[3], lo[3]);
-}
-
-// Stage rows [r0, r0 + rows) of a (S, 128) head matrix into shared
-// memory as bf16: element (r, c) = bf16(src[(r0 + r) * row_stride + c]
-// + bias[c]) (the biased operand rounded to the storage dtype, as the
-// JAX kernels' bf16 add is), 0 for rows at or past S. `dst`, if not
-// null, gets the row-major copy (row stride ld, a multiple of 8), times
-// `mul` and rounded again to bf16 where mul != 1 (the score rule's q *
-// q_mul); `dst_t`, if not null, the unscaled transpose (row stride ld_t)
-// for operands read along columns. Lanes walk rows, so the transposed
-// 16-bit stores of a warp hit consecutive addresses.
-template <int kRows>
-__device__ __forceinline__ void stage_tile(
-    bf16* __restrict__ dst, int ld, bf16* __restrict__ dst_t, int ld_t,
-    const bf16* __restrict__ src, int64_t row_stride,
-    const bf16* __restrict__ bias, int r0, int S, int nthreads,
-    float mul = 1.f) {
-  constexpr int kChunks = 128 / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += nthreads) {
-    const int r = idx % kRows;
-    const int c = (idx / kRows) * 8;
-    const int row = r0 + r;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (row < S) {
-      raw = *reinterpret_cast<const uint4*>(src + row * row_stride + c);
-      if (bias != nullptr) {
-        // packed bf16 adds: the exact sum rounded once to bf16
-        const uint4 braw = *reinterpret_cast<const uint4*>(bias + c);
-        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&raw);
-        const __nv_bfloat162* be =
-            reinterpret_cast<const __nv_bfloat162*>(&braw);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) e[i] = __hadd2(e[i], be[i]);
-      }
-    }
-    if (dst_t != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dst_t[(c + i) * ld_t + r] = e[i];
-    }
-    if (dst != nullptr) {
-      if (mul != 1.f) {
-        bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          e[i] = __float2bfloat16(__bfloat162float(e[i]) * mul);
-      }
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = raw;
-    }
-  }
 }
 
 }  // namespace apex_port

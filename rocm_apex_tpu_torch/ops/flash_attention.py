@@ -23,8 +23,10 @@ take head_dim 128 (the packed path's hd % 128 rule at the model's
 widths); they are bound by operations: the bf16 forward runs on the
 wgmma pipe it shares with the unpacked forward
 (``csrc/flash_fwd_pipe.cuh``, planned by `flash_fwd_plan`), the bf16
-backward on mma.sync, the computed operands split so they keep fp32-level
-precision, and fp32 on the CUDA cores (see the sources).
+backward on a wgmma pipe built from its pieces
+(``csrc/flash_bwd_pipe.cuh``, planned by `flash_bwd_plan`), the computed
+operands split so they keep fp32-level precision, and fp32 on the CUDA
+cores (see the sources).
 
 **The score rule** of every kernel and plain version here is the JAX
 kernels' (`_masked_scores`, rocm_apex_tpu/ops/flash_attention.py:122, and
@@ -142,6 +144,7 @@ __all__ = [
     "flash_attention_with_lse",
     "flash_unpacked_fwd_plain",
     "flash_unpacked_bwd_plain",
+    "flash_bwd_plan",
     "flash_fwd_plan",
     "flash_fwd_split_plain",
     "flash_attention_decode",
@@ -222,8 +225,8 @@ FLASH_BWD = Kernel(
     name="flash_attention_qkv_bwd",
     source="flash_bwd.cu",
     symbol="flash_bwd",
-    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
-              _I, _U, _U, _F, _I, _P],
+    argtypes=[_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _I, _U, _U, _F, _I,
+                         _P],
     replaces="rocm_apex_tpu/ops/flash_attention.py:1324 _bwd_merged_kernel",
 )
 _PACKED_HEAD_DIM = 128  # csrc/flash_tile.cuh kHd
@@ -723,6 +726,47 @@ def _flash_fwd(qkv, bias, causal, scale, rate, seed):
     return o, lse
 
 
+def flash_bwd_plan(batch: int, seq: int, heads: int, head_dim: int,
+                   causal: bool, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The packed backward's route, grids and buffers, from the shape
+    alone.
+
+    ``route``: ``"wgmma"`` for bf16 (csrc/flash_bwd_pipe.cuh) and
+    ``"cuda_cores"`` for fp32; the packed kernels take head_dim 128 (others
+    raise). The pipe's two passes run on grids of (batch*heads, 64-row
+    tiles): ``dq_tiles`` lists, in launch order, each dq block's query tile
+    and the key tiles [lo, hi) it walks (query tiles counted down, the
+    causal ones longest first), ``dkv_tiles`` each dk/dv block's key tile
+    and its query tiles (key tiles counted up, the same). ``stats`` is the
+    fp32 scratch the dq pass hands the dk/dv pass: (lse log2 e, delta)
+    pairs for every row of every query tile on the pipe, delta alone on
+    the CUDA cores. ``parts``: the fp32 (batch, tiles, heads, 3 head_dim)
+    column sums of dq|dk|dv a bias's cotangent sums, one a 64-row tile in
+    either route; ``scratch``: the biased projection a bias pre-pass
+    writes on the pipe (the wrapper allocates it where there is a bias)."""
+    if head_dim != _PACKED_HEAD_DIM:
+        raise ValueError(f"the packed CUDA attention kernels take head_dim "
+                         f"{_PACKED_HEAD_DIM}, got {head_dim}")
+    tiles = -(-seq // _PACKED_TILE)
+    bh = batch * heads
+    parts = (batch, tiles, heads, 3 * head_dim)
+    if dtype != torch.bfloat16:
+        return dict(route="cuda_cores", dq_grid=(tiles, bh),
+                    dkv_grid=(tiles, bh),
+                    dq_tiles=[(t, 0, t + 1 if causal else tiles)
+                              for t in range(tiles)],
+                    dkv_tiles=[(t, t if causal else 0, tiles)
+                               for t in range(tiles)],
+                    stats=(bh, seq), parts=parts, scratch=None)
+    return dict(route="wgmma", dq_grid=(bh, tiles), dkv_grid=(bh, tiles),
+                dq_tiles=[(t, 0, t + 1 if causal else tiles)
+                          for t in reversed(range(tiles))],
+                dkv_tiles=[(t, t if causal else 0, tiles)
+                           for t in range(tiles)],
+                stats=(bh, tiles * _PACKED_TILE, 2), parts=parts,
+                scratch=(batch, seq, heads, 3 * head_dim))
+
+
 def _flash_bwd(qkv, bias, o, lse, do, causal, scale, rate, seed):
     do = do.contiguous()
     _check_packed(qkv, bias, o, lse, do)
@@ -731,17 +775,21 @@ def _flash_bwd(qkv, bias, o, lse, do, causal, scale, rate, seed):
                                    rate, seed)
     B, S, nh, three_hd = qkv.shape
     hd = three_hd // 3
+    plan = flash_bwd_plan(B, S, nh, hd, causal, qkv.dtype)
     dqkv = torch.empty_like(qkv)
-    delta = torch.empty((B * nh, S), dtype=torch.float32, device=qkv.device)
-    part = None
+    stats = torch.empty(plan["stats"], dtype=torch.float32,
+                        device=qkv.device)
+    part = scratch = None
     if bias is not None:
-        tiles = -(-S // _PACKED_TILE)
-        part = torch.empty((B, tiles, nh, three_hd), dtype=torch.float32,
+        part = torch.empty(plan["parts"], dtype=torch.float32,
                            device=qkv.device)
+        if plan["route"] == "wgmma":
+            # the biased projection, written once by the pre-pass
+            scratch = torch.empty_like(qkv)
     if dqkv.numel() > 0:
         FLASH_BWD(
             ptr(qkv), ptr(bias), ptr(o), ptr(lse), ptr(do), ptr(dqkv),
-            ptr(delta), ptr(part), B, S, nh, hd, float(scale),
+            ptr(stats), ptr(part), ptr(scratch), B, S, nh, hd, float(scale),
             _q_mul(scale, qkv.dtype), int(bool(causal)), int(rate > 0.0),
             int(seed) & 0xFFFFFFFF,
             _dropout.threshold(rate), _dropout.keep_scale(rate),

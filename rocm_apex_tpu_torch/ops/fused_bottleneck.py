@@ -31,8 +31,12 @@ The bf16 backwards first write dz and u once (a pre-pass:
 each with its own rounding), then run their dgrad and their wgrad (for
 the 3x3 the taps folded into the output rows) as pipelined wgmma
 products over them; `conv3_bwd_plan` and `mm_bwd_plan` say how they
-launch and what they allocate. A 1x1 whose channel counts are not
-multiples of 64 runs on the staged core (`mm_bwd_plan`'s rule).
+launch and what they allocate. The bf16 3x3 forward does the same: a
+pre-pass writes u (`conv3_fwd_prepass_plain`), the product reads u's rows
+shifted by each tap, zero-filled past the image (the padding is of u),
+as `conv3_fwd_plan` says. A 1x1 backward or a 3x3 forward whose channel
+counts are not multiples of 64 runs on the staged core (the plans'
+rule), as do fp32 and the 1x1 forward.
 
 For CUDA tensors the wrappers launch the kernels (bf16 or fp32, every
 channel count a multiple of 16) or raise; for CPU tensors they run the
@@ -74,6 +78,8 @@ __all__ = [
     "conv3x3_bn_act_bwd_plain",
     "conv3_bwd_plan",
     "conv3_bwd_prepass_plain",
+    "conv3_fwd_plan",
+    "conv3_fwd_prepass_plain",
     "mm_bwd_plan",
     "mm_bwd_prepass_plain",
 ]
@@ -92,7 +98,7 @@ BNECK_CONV3_FWD = Kernel(
     name="bneck_conv3_fwd",
     source="bottleneck_fwd.cu",
     symbol="bneck_conv3_fwd",
-    argtypes=[_P] * 8 + [_I] * 6 + [_P],
+    argtypes=[_P] * 9 + [_I] * 8 + [_P],
     replaces="rocm_apex_tpu/ops/fused_bottleneck.py:301 _conv3_fwd_kernel",
 )
 BNECK_MM_BWD = Kernel(
@@ -180,6 +186,27 @@ def _finalized(e, z, y_fin):
     return k1.to(dt) * e + k2.to(dt) * y + k0.to(dt)
 
 
+def _prologue_ops(x, a, b):
+    """relu(x a + b) as the pre-passes write it, op for op: each product
+    and sum taken in fp32 and rounded to x's dtype, the coefficients
+    rounded first; equal bit for bit to `_apply_dt`."""
+    dt = x.dtype
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    return torch.clamp_min(rnd(rnd(x.float() * rnd(a)) + rnd(b)), 0.0).to(dt)
+
+
+def conv3_fwd_prepass_plain(x, scale, bias):
+    """The bf16 3x3 forward's pre-pass (``conv3_fwd_prepass_kernel`` in
+    csrc/bottleneck_fwd.cu): u = relu(x scale + bias) in x's dtype, the
+    rows the pipe's product reads, zero-padded by its loads (the padding
+    is of u); `conv3x3_bn_act_plain` on u with no prologue is the prologue
+    form's y and sums bit for bit."""
+    return _prologue_ops(x, scale, bias)
+
+
 def conv3_bwd_prepass_plain(e, y_fin, x, prologue):
     """The 3x3 backward's pre-pass (``conv3_prepass_kernel`` in
     csrc/bottleneck_bwd.cu) op for op: dz = k1 e + k2 y + k0 (None
@@ -197,9 +224,7 @@ def conv3_bwd_prepass_plain(e, y_fin, x, prologue):
         y, k1, k2, k0 = y_fin
         t = rnd(rnd(rnd(k1) * e.float()) + rnd(rnd(k2) * y.float()))
         dz = (t + rnd(k0)).to(dt)
-    a, b = prologue
-    u = torch.clamp_min(rnd(rnd(x.float() * rnd(a)) + rnd(b)), 0.0).to(dt)
-    return dz, u
+    return dz, _prologue_ops(x, *prologue)
 
 
 def mm_bwd_prepass_plain(e, z, y_fin, x, prologue):
@@ -397,6 +422,34 @@ def _pipe_splits(m: int, out_tiles: int, sms: int) -> Tuple[int, int]:
     return split_len, max(1, -(-m // split_len))
 
 
+def conv3_fwd_plan(m: int, cin: int, cout: int, dt, sms: int) -> dict:
+    """How `conv3x3_bn_act` launches on ``sms`` multiprocessors for ``m``
+    pixels: its ``route``, the tile width ``bn``, the product's ``grid``
+    (pixel tiles x Cout tiles), the shape of the tile partials ``parts``
+    (summed into the statistics) and of the pre-pass's bf16 ``u`` (the
+    wrapper allocates it where the call has a prologue).
+
+    ``"pipe"`` (csrc/bottleneck_pipe.cuh, as the 3x3 backward's dgrad)
+    takes bf16 with cin and cout multiples of 64 (`mm_bwd_plan`'s rule:
+    the chunks are 64 channels deep, the tiles 64 or 128 wide), in tiles
+    of 128 pixels x ``bn`` = 128 channels where cout divides by 128 (at
+    layer4, 49 x 4 = 196 blocks of the 264 a wave of two a
+    multiprocessor holds on 132), else 64. Other widths, and fp32, take
+    ``"staged"`` (csrc/bottleneck.cuh, ``bn`` 0). A shape rule, decided
+    here before any launch; ``sms`` (the pre-pass's grid, which the
+    kernel sizes) changes none of it."""
+    if dt == torch.bfloat16 and cin % _PIPE_CHUNK == 0 and \
+            cout % _PIPE_CHUNK == 0:
+        bn = _pipe_cols(cout)
+        tiles = -(-m // _PIPE_TILE_M)
+        return dict(route="pipe", bn=bn, grid=(tiles, cout // bn, 1),
+                    parts=(tiles, 2 * cout), u=(m, cin))
+    tiles = -(-m // _TILE_M[dt])
+    return dict(route="staged", bn=0,
+                grid=(tiles, -(-cout // _TILE_N[dt]), 1),
+                parts=(tiles, 2 * cout), u=None)
+
+
 def conv3_bwd_plan(m: int, cin: int, cout: int, dt, sms: int) -> dict:
     """How `conv3x3_bn_act_bwd` launches on ``sms`` multiprocessors for
     ``m`` pixels: the wgrad's pixel ranges (``split_len``, ``splits``),
@@ -507,7 +560,8 @@ def conv3x3_bn_act(
     """3x3 stride-1 SAME conv with the BN-apply + ReLU prologue and the
     statistics epilogue. x: (N, H, W, C) raw upstream output; w: (3, 3,
     C, Cout). Returns y (N, H, W, Cout) and the sums as
-    `conv1x1_bn_act`."""
+    `conv1x1_bn_act`. On the card it runs on the route `conv3_fwd_plan`
+    gives its shape."""
     if x.device.type == "cpu":
         return conv3x3_bn_act_plain(x, w, scale, bias, stats)
     _require_cuda(x)
@@ -518,16 +572,21 @@ def conv3x3_bn_act(
     x = _dense(x)
     wt = _dense(w.reshape(9, cin, cout).transpose(1, 2), dt)  # (9, Cout, Cin)
     m = nimg * hgt * wid
+    sms = sm_count(x.device)
+    plan = conv3_fwd_plan(m, cin, cout, dt, sms)
     y = torch.empty(nimg, hgt, wid, cout, dtype=dt, device=x.device)
     part = scratch = sums = None
     if stats:
         part, scratch = _parts(m, 2 * cout, dt, x.device)
         sums = torch.empty(2, cout, dtype=torch.float32, device=x.device)
+    # the pipe's pre-pass output under a prologue: transient
+    ubuf = (torch.empty(plan["u"], dtype=dt, device=x.device)
+            if plan["route"] == "pipe" and scale is not None else None)
     if m:
         BNECK_CONV3_FWD(ptr(x), ptr(_vec(scale)), ptr(_vec(bias)), ptr(wt),
-                        ptr(y), ptr(part), ptr(scratch), ptr(sums), nimg,
-                        hgt, wid, cin, cout, dtype_code(dt),
-                        stream_ptr(x.device))
+                        ptr(y), ptr(part), ptr(scratch), ptr(sums),
+                        ptr(ubuf), nimg, hgt, wid, cin, cout, plan["bn"],
+                        sms, dtype_code(dt), stream_ptr(x.device))
     return y, ((sums[0], sums[1]) if stats else None)
 
 

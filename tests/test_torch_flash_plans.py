@@ -14,6 +14,13 @@ the key split it may choose, on the CPU.
   interpret mode) on numpy-drawn fp32 inputs at 1e-5 (both sides fp32; the
   summation order differs), with a bias, per-row lengths and causal
   masking, at the plan's split and at hand-picked ones.
+- The packed backward's host plan (`flash_bwd_plan`): its two passes
+  cover every attended (query tile, key tile) pair once each, longest
+  first, causal and not, at S 1024, 512 and 1000; its routes, buffers and
+  bias partials. The bias pre-pass it plans is a change of operands, not
+  of results: the plain backward on the biased projection with no bias
+  gives the same dqkv bits, and that dqkv's column sums are the bias's
+  cotangent.
 """
 
 import math
@@ -170,3 +177,86 @@ def test_split_forward_equals_the_unsplit_one_with_dropout(splits,
                                        split_tiles, None, 0.1, 9)
         for a, b in zip(got, ref):
             np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
+
+
+# (batch, S, heads) of the packed backward: the GPT train cell, the
+# bert_train cell and chip_smoke.py's ragged S
+BWD_SHAPES = [(16, 1024, 8), (8, 512, 8), (4, 1000, 8)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("batch,seq,heads", BWD_SHAPES)
+def test_bwd_plan_covers_every_pair_once_in_each_pass(batch, seq, heads,
+                                                      causal):
+    plan = fa.flash_bwd_plan(batch, seq, heads, 128, causal)
+    nt = -(-seq // TILE)
+    assert plan["route"] == "wgmma"
+    assert plan["dq_grid"] == plan["dkv_grid"] == (batch * heads, nt)
+    want = sorted((qt, kt) for qt in range(nt) for kt in range(nt)
+                  if not causal or kt <= qt)
+    dq = [(qt, kt) for qt, lo, hi in plan["dq_tiles"]
+          for kt in range(lo, hi)]
+    dkv = [(qt, kt) for kt, lo, hi in plan["dkv_tiles"]
+           for qt in range(lo, hi)]
+    assert sorted(dq) == want and sorted(dkv) == want
+    # each block owns one tile: every row once
+    assert sorted(t for t, _, _ in plan["dq_tiles"]) == list(range(nt))
+    assert sorted(t for t, _, _ in plan["dkv_tiles"]) == list(range(nt))
+    # longest first along the launch order
+    for tiles in (plan["dq_tiles"], plan["dkv_tiles"]):
+        walks = [hi - lo for _, lo, hi in tiles]
+        assert walks == sorted(walks, reverse=True)
+    # the dq pass's stats: a (lse log2 e, delta) pair for every row of
+    # every query tile, padded to the tile
+    assert plan["stats"] == (batch * heads, nt * TILE, 2)
+    assert plan["parts"] == (batch, nt, heads, 3 * 128)
+    assert plan["scratch"] == (batch, seq, heads, 3 * 128)
+
+
+def test_bwd_plan_routes_by_dtype_and_head_dim():
+    fp32 = fa.flash_bwd_plan(4, 1000, 8, 128, True, torch.float32)
+    assert fp32["route"] == "cuda_cores" and fp32["scratch"] is None
+    assert fp32["stats"] == (32, 1000)  # delta alone
+    assert fp32["parts"] == (4, 16, 8, 384)
+    assert fa.flash_bwd_plan(4, 1000, 8, 128, True)["route"] == "wgmma"
+    for hd in (64, 256):
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_bwd_plan(4, 1000, 8, hd, True)
+
+
+def _packed(seed, batch, seq, heads, dt):
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape, scale=1.0):
+        return torch.from_numpy(
+            (scale * rng.standard_normal(shape)).astype(np.float32)).to(dt)
+
+    qkv = draw(batch, seq, heads, 3 * 64)
+    bias = draw(heads * 3 * 64, scale=0.5)
+    o, do = draw(batch, seq, heads * 64), draw(batch, seq, heads * 64)
+    return qkv, bias, o, do
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,rate", [(True, 0.0), (False, 0.1)])
+def test_bwd_on_the_biased_projection_is_the_bias_form(dt, causal, rate):
+    """The plain packed backward on bf16(qkv + bias) (the pre-pass's
+    rows) with no bias gives the bias form's dqkv bit for bit; the bias's
+    cotangent is the column sums of that dqkv, taken in fp32 (here over a
+    contiguous copy, the plain version over a permuted view: the orders
+    differ, by fp32 rounding, ~sqrt(rows) 2^-24 of the terms' L1 mass)."""
+    batch, seq, heads = 2, 70, 2
+    qkv, bias, o, do = _packed(61 + causal, batch, seq, heads, dt)
+    biased = (qkv.float() + bias.float().view(heads, -1)).to(dt)
+    _, lse = fa.flash_qkv_fwd_plain(qkv, bias, causal, 0.125, rate, 5)
+    dqkv, dbias = fa.flash_qkv_bwd_plain(qkv, bias, o, lse, do, causal,
+                                         0.125, rate, 5)
+    dqkv2, none = fa.flash_qkv_bwd_plain(biased, None, o, lse, do, causal,
+                                         0.125, rate, 5)
+    assert none is None and dqkv.dtype == dt
+    assert torch.equal(dqkv, dqkv2)
+    if dt == torch.float32:  # the fp32 dqkv is the unrounded one
+        l1 = dqkv2.abs().sum(dim=(0, 1)).reshape(-1)
+        np.testing.assert_array_less(
+            (dqkv2.sum(dim=(0, 1)).reshape(-1) - dbias).abs().numpy(),
+            (1e-6 * l1 + 1e-30).numpy())

@@ -17,6 +17,12 @@ steps they add, on the CPU.
   tiles, pixel splits and buffers at ResNet-50's five stride-1 block
   shapes and the ragged ones; the pre-pass's plain form equal bit for
   bit to the finalize and prologue the products read.
+- The 3x3 forward (``csrc/bottleneck_fwd.cu``): `conv3_fwd_plan`'s
+  routes (the pipe at every ResNet-50 width, the staged core at widths
+  that are not multiples of 64 and in fp32), grid, partials and pre-pass
+  buffer; the pipe's chain (the pre-pass, then the bare 3x3 on the
+  zero-padded u) equal bit for bit to the prologue form's plain version,
+  and held against the JAX package's `conv3x3_bn_act` in interpret mode.
 """
 
 import jax.numpy as jnp
@@ -275,6 +281,102 @@ def test_prepass_plain_is_bit_equal_to_the_staged_forms(dt, with_finalize):
         assert dz.dtype == dt and torch.equal(dz, ref)
     else:
         assert dz is None
+
+
+# ---------------------------------------------------------------------------
+# the 3x3 forward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,n,h,cin,cout", CONV3_SHAPES[:7])
+def test_conv3_fwd_plan_routes_tiles_and_buffers(name, n, h, cin, cout):
+    """bf16 at multiples of 64 channels takes the pipe: tiles of 128
+    pixels x 128 channels where Cout divides by 128, else 64, the grid
+    covering M and Cout once; one (Σy, Σy²) partial a 128-pixel tile; u
+    the pre-pass's (M, Cin) rows."""
+    m = n * h * h
+    plan = fb.conv3_fwd_plan(m, cin, cout, torch.bfloat16, H100_SMS)
+    assert plan["route"] == "pipe"
+    bn = plan["bn"]
+    assert bn == (128 if cout % 128 == 0 else 64)
+    rows, cols, depth = plan["grid"]
+    assert depth == 1 and cols * bn == cout
+    assert (rows - 1) * 128 < m <= rows * 128
+    assert plan["parts"] == (-(-m // 128), 2 * cout)
+    assert plan["u"] == (m, cin)
+
+
+def test_conv3_fwd_plan_fills_layer4_with_wide_tiles():
+    """layer4's 49 pixel tiles x 4 tiles of 128 channels: 196 blocks, of
+    the 264 a wave of two a multiprocessor holds."""
+    plan = fb.conv3_fwd_plan(128 * 7 * 7, 512, 512, torch.bfloat16, H100_SMS)
+    assert plan["grid"] == (49, 4, 1) and plan["bn"] == 128
+
+
+@pytest.mark.parametrize("cin,cout,dt", [
+    (48, 48, torch.bfloat16), (48, 80, torch.bfloat16),
+    (16, 32, torch.bfloat16), (64, 80, torch.bfloat16),
+    (64, 64, torch.float32), (256, 256, torch.float32)])
+def test_conv3_fwd_plan_sends_other_widths_and_fp32_to_the_staged_core(
+        cin, cout, dt):
+    m = 3 * 7 * 7
+    plan = fb.conv3_fwd_plan(m, cin, cout, dt, H100_SMS)
+    assert plan["route"] == "staged" and plan["bn"] == 0
+    assert plan["u"] is None
+    tm, tn = fb._TILE_M[dt], fb._TILE_N[dt]
+    rows, cols, _ = plan["grid"]
+    assert (rows - 1) * tm < m <= rows * tm
+    assert (cols - 1) * tn < cout <= cols * tn
+    assert plan["parts"] == (rows, 2 * cout)
+
+
+def _conv3_inputs(seed, shape, cin, cout, dt):
+    rng = np.random.default_rng(seed)
+
+    def draw(*s, scale=1.0, shift=0.0):
+        return torch.from_numpy(
+            (shift + scale * rng.standard_normal(s)).astype(np.float32))
+
+    # b > 0: relu(b) != 0, so a pre-pass that padded x rather than u, or
+    # an inline prologue on a zero-filled edge tap, would show at every
+    # image edge
+    return (draw(*shape, cin).to(dt), draw(3, 3, cin, cout, scale=0.3),
+            draw(cin, scale=0.2, shift=1.0), draw(cin, scale=0.1,
+                                                  shift=0.5).abs())
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_conv3_fwd_chain_is_bit_equal_to_the_prologue_form(dt):
+    """The pre-pass's u, then the bare 3x3 (zero padding of u), gives the
+    prologue form's y and sums bit for bit: the pipe's products see what
+    the staged core's do."""
+    x, w, a, b = _conv3_inputs(51, (2, 6, 7), 32, 48, dt)
+    u = fb.conv3_fwd_prepass_plain(x, a, b)
+    assert u.dtype == dt and torch.equal(u, fb._apply_dt(x, a, b))
+    y, sums = fb.conv3x3_bn_act_plain(u, w)
+    ry, rsums = fb.conv3x3_bn_act_plain(x, w, a, b)
+    assert torch.equal(y, ry)
+    assert torch.equal(sums[0], rsums[0]) and torch.equal(sums[1], rsums[1])
+
+
+def test_conv3_fwd_chain_matches_jax():
+    """The pipe's chain in plain PyTorch against the JAX package's
+    `conv3x3_bn_act` (`_conv3_fwd_kernel` in interpret mode) at fp32 on a
+    3 x 5 x 5 map, b > 0: y at test_torch_fused_bottleneck.py's 1e-5, the
+    sums within 1e-4 of their largest |value|."""
+    from rocm_apex_tpu.ops import fused_bottleneck as jfb
+
+    x, w, a, b = _conv3_inputs(52, (3, 5, 5), 16, 32, torch.float32)
+    assert float(b.min()) > 0
+    u = fb.conv3_fwd_prepass_plain(x, a, b)
+    y, sums = fb.conv3x3_bn_act_plain(u, w)
+    jy, jsums = jfb.conv3x3_bn_act(*(jnp.asarray(t.numpy())
+                                     for t in (x, w, a, b)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    for got, ref in zip(sums, jsums):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0.0,
+                                   atol=1e-4 * float(np.abs(ref).max()))
 
 
 # ---------------------------------------------------------------------------
