@@ -652,6 +652,15 @@ BWD_ROUTE_KERNELS = {"wgmma": ("bwd_dq_pipe_kernel", "bwd_dkv_pipe_kernel"),
                      "cuda_cores": ("flash_bwd_dq_kernel",
                                     "flash_bwd_dkv_kernel")}
 K2_ROUTE_KERNELS = {"pipe": ("Conv3FwdPipe",), "staged": ("gemm_kernel",)}
+K1_ROUTE_KERNELS = {"pipe": ("MmFwdPipe",), "staged": ("gemm_kernel",)}
+# the unpacked backward's routes (csrc/flash_unpacked_bwd.cu: bf16 on
+# flash_bwd_pipe.cuh, fp32 on flash_unpacked_bwd.cuh's CUDA-core bodies);
+# "mma_sync", the bodies bf16 took before and segment attention still
+# takes, is on no plan: a case that launched it fails
+UNPACKED_BWD_ROUTE_KERNELS = {
+    "wgmma": ("bwd_dq_pipe_kernel", "bwd_dkv_pipe_kernel"),
+    "cuda_cores": ("dq_f32_kernel", "dkv_f32_kernel"),
+    "mma_sync": ("dq_mma_kernel", "dkv_mma_kernel")}
 
 
 def check_launches(fn, routes, route, what, prepass_name=None,
@@ -1623,11 +1632,15 @@ def unpacked_cases(dev):
     rows nb = 1 and nb = bh, causal and not), varlen with rows shorter
     than one tile, the dbias kernel (compute_dbias=True) and an lse
     cotangent. The library yardstick is SDPA with the bias as a float
-    mask: forward, forward + backward, and for dbias forward + backward
-    with a mask that needs its gradient. Every forward case is checked
-    against the plan's route (`check_fwd_route`: the bf16 ones on the
-    wgmma pipe, split where the plan splits, launched twice for equal
-    bits)."""
+    mask: forward, forward + backward (and its backward alone, fwd + bwd
+    less fwd in the same call), and for dbias forward + backward with a
+    mask that needs its gradient. Every forward case is checked against
+    the plan's route (`check_fwd_route`: the bf16 ones on the wgmma pipe,
+    split where the plan splits, launched twice for equal bits), every
+    backward case against `flash_unpacked_bwd_plan`'s by the kernels a
+    profiled call launches (bf16: the wgmma backward pipe's two passes,
+    launched twice for equal bits, the dbias call's too; fp32: the CUDA
+    cores; never the mma.sync bodies)."""
     from rocm_apex_tpu_torch.models.bert import bert_extended_attention_mask
     from rocm_apex_tpu_torch.models.gpt import padding_bias
     from rocm_apex_tpu_torch.ops import flash_attention as fa
@@ -1776,20 +1789,49 @@ def unpacked_cases(dev):
 
         if flib is None:
             blib = None
+        got = bkern()
+        bplan = fa.flash_unpacked_bwd_plan(bh, sq, sk, d, causal, dt)
+        check(bplan["route"] == ("wgmma" if dt == torch.bfloat16
+                                 else "cuda_cores"),
+              f"unpacked bwd {label}: planned on the {bplan['route']} route")
+        if bplan["route"] == "wgmma":
+            check(_same_bits(got, bkern()),
+                  f"unpacked bwd {label}: two launches differ")
+        broute = check_launches(bkern, UNPACKED_BWD_ROUTE_KERNELS,
+                                bplan["route"], f"unpacked bwd {label}")
         yield dict(
-            kernel="flash_unpacked_bwd", case=label, dtype=dt,
-            cmp=compare(bkern(), bplain()), kern=bkern, plain=bplain,
+            kernel="flash_unpacked_bwd", case=f"{label} [{broute}]",
+            dtype=dt, cmp=compare(got, bplain()), kern=bkern, plain=bplain,
             lib=blib, nbytes=nbytes(q, k, v, bias, lens, o, lse, do, dlse,
                                     q, k, v),
             ops=10 * d * pairs, headline=headline, iters=5, plain_iters=2,
+            extra_timings=(dict(library_fwd_ms=flib) if blib is not None
+                           else {}),
+            breakdown=dt == torch.bfloat16,
         )
         if not want_db:
             continue
 
-        # dbias: checked through the whole backward, timed alone (delta
-        # from torch, as the dq pass computes it)
-        got = fa._unpacked_bwd(q, k, v, bias, o, lse, do, dlse, causal,
-                               scale, lens, rate, seed, True, bshd=True)[3]
+        # dbias: checked through the whole backward (on the pipe, delta
+        # written by its dq pass where the plan names the buffer), timed
+        # alone (delta from torch, as the dq pass computes it)
+        def bkern_db(q=q, k=k, v=v, bias=bias, o=o, lse=lse, do=do,
+                     dlse=dlse, causal=causal, lens=lens, rate=rate,
+                     scale=scale):
+            return fa._unpacked_bwd(q, k, v, bias, o, lse, do, dlse, causal,
+                                    scale, lens, rate, seed, True, bshd=True)
+
+        full = bkern_db()
+        got = full[3]
+        if bplan["route"] == "wgmma":
+            check(fa.flash_unpacked_bwd_plan(bh, sq, sk, d, causal, dt,
+                                             True)["delta"] == (bh, sq),
+                  f"unpacked bwd {label}: the plan names no delta buffer")
+            check(_same_bits(full, bkern_db()),
+                  f"unpacked bwd {label}, dbias: two launches differ")
+            check_launches(bkern_db, UNPACKED_BWD_ROUTE_KERNELS,
+                           bplan["route"], f"unpacked bwd {label}, dbias")
+        del full
         # per-head ds (a bias row per head) gives the L1 mass of the terms
         nb = bias.shape[0]
         per_head = fa.flash_unpacked_bwd_plain(
@@ -2776,11 +2818,14 @@ def bottleneck_cases(dev):
     with the bare forms too (no prologue, no statistics; the products
     alone), W = 2 (4 x 2 x 2, every tap at an edge), fp32 (8 x 14 x 14),
     K4 alone at a ragged split (3 x 13 x 13 at 128 channels: the wgrad's
-    pixel splits end inside image rows, checked against the plan) and K3
-    alone at widths the pipe does not take (48 and 80 channels: the
-    staged core, checked against `mm_bwd_plan`; every other bf16 K3 case
-    is checked to take the pipe). Every K3 and K4 case launches twice on
-    the same inputs and must repeat g, dw, r1 and r2 bit for bit. Outputs
+    pixel splits end inside image rows, checked against the plan) and K1,
+    K2 and K3 alone at widths the pipe does not take (48 and 80 channels:
+    the staged core, checked against `mm_fwd_plan`, `conv3_fwd_plan` and
+    `mm_bwd_plan`; every other bf16 K1, K2 and K3 case is checked to take
+    the pipe, K1 and K2 by the kernels a profiled call launches, their
+    pre-pass exactly under a prologue). Every K3 and K4 case, and every
+    bf16 K1 and K2 case on the pipe, launches twice on the same inputs and
+    must repeat its outputs bit for bit. Outputs
     in bf16 held to one ulp + 1e-5 (`TOL`), fp32 to 1e-4, the sums over the pixels (statistics,
     dw, r1, r2) to 1e-5 of their L1 mass. Bounds: each input read once,
     each output written once; operations 2 M K N a product (x 9 for the 3x3, x 2 for a backward's
@@ -2807,7 +2852,7 @@ def bottleneck_cases(dev):
                ("ragged split 3 x 13 x 13", 3, 13, 128, 128, 512, False, bf,
                 ("K4",)),
                ("staged widths 3 x 7 x 7", 3, 7, 48, 48, 80, True, bf,
-                ("K2", "K3"))]
+                ("K1", "K2", "K3"))]
     sms = sm_count(dev)
     for nm, n, h, cin, cmid, cout, ds, dt, only in shapes:
         full = n == RN50_BATCH
@@ -2842,7 +2887,8 @@ def bottleneck_cases(dev):
                         iters=20 if full else 100,
                         plain_iters=2 if full else 10, library=library,
                         extra_timings=timings or {},
-                        breakdown=full and kernel in ("bneck_conv3_fwd",
+                        breakdown=full and kernel in ("bneck_mm_fwd",
+                                                      "bneck_conv3_fwd",
                                                       "bneck_mm_bwd",
                                                       "bneck_conv3_bwd"))
 
@@ -2859,17 +2905,35 @@ def bottleneck_cases(dev):
         for what, x2, w, pro in k1_calls:
             stats = "no statistics" not in what
             a, b = pro if pro else (None, None)
-            y, s = fb.conv1x1_bn_act(x2, w, a, b, stats=stats)
+
+            def k1(x2=x2, w=w, a=a, b=b, stats=stats):
+                return fb.conv1x1_bn_act(x2, w, a, b, stats=stats)
+
+            y, s = k1()
+            got = [y, *s] if stats else [y]
+            k1_plan = fb.mm_fwd_plan(m, w.shape[0], w.shape[1], dt, sms,
+                                     prologue=a is not None)
+            check(k1_plan["route"] == ("pipe" if dt == bf
+                                       and not staged_widths else "staged"),
+                  f"{lab}, {what}: K1 planned on the {k1_plan['route']} "
+                  f"route")
+            if k1_plan["route"] == "pipe":
+                y2, s2 = k1()
+                check(_same_bits(got, [y2, *s2] if stats else [y2]),
+                      f"{lab}, {what}: two K1 launches on the same inputs "
+                      f"differ")
+                del y2, s2
+            route = check_launches(k1, K1_ROUTE_KERNELS, k1_plan["route"],
+                                   f"{lab}, K1 {what}",
+                                   "conv3_fwd_prepass_kernel",
+                                   k1_plan["u"] is not None)
             ry, rs_ = fb.conv1x1_bn_act_plain(x2, w, a, b, stats=stats)
-            got, ref, extra = [y], [ry], [None]
+            ref, extra = [ry], [None]
             if stats:
-                got += list(s)
                 ref += list(rs_)
                 extra += [_l1_tol(ry.float().abs().sum(0)), _l1_tol(rs_[1])]
             yield case(
-                "bneck_mm_fwd", what, got, ref,
-                lambda x2=x2, w=w, a=a, b=b, stats=stats:
-                    fb.conv1x1_bn_act(x2, w, a, b, stats=stats),
+                "bneck_mm_fwd", what, got, ref, k1,
                 lambda x2=x2, w=w, a=a, b=b, stats=stats:
                     fb.conv1x1_bn_act_plain(x2, w, a, b, stats=stats),
                 lambda x2=x2, w=w, a=a, b=b, stats=stats:
@@ -2878,7 +2942,7 @@ def bottleneck_cases(dev):
                 2 * m * w.shape[0] * w.shape[1],
                 tols=_sum_tols(2) if stats else None, extra=extra,
                 library="torch.matmul on the (M, K) view, the prologue and "
-                "statistics as torch ops")
+                "statistics as torch ops", route=route)
 
         # ---- K2: the 3x3 forward, and the block-level yardstick
         x4 = t["y1"].reshape(n, h, h, cmid)

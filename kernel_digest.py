@@ -14,10 +14,13 @@ script), runs on one CUDA device, on inputs drawn from fixed seeds:
   layer4, bf16, and fp32);
 - the bottleneck forwards (K1: the 1x1 with and without its prologue; K2:
   the 3x3 with its prologue and bare; each at layer3, layer4, a ragged M
-  and W 2, in bf16 and fp32);
+  and W 2, in bf16 and fp32; and K1 as the ResNet-50 blocks call it,
+  conv1 bare and conv3 under its prologue, at layer1_1 and layer4, bf16);
 - the training segment attention forward and backward (rows 3 and 4, at
   contrib/fmha's shape, bf16 and fp32), the unpacked backward and bias
-  gradient (rows 9b and 10, masked BERT's shape), and the packed backward
+  gradient (rows 9b and 10, masked BERT's shape; 9b's dq, dk and dv
+  apart, and again with o = 0, where delta is 0 in any order), and the
+  packed backward
   (row 11, the GPT train cell's, bf16 and fp32), each backward on a
   forward's outputs made here by plain torch ops, so that two trees feed
   it the same o and lse;
@@ -94,8 +97,15 @@ def _flash_digests(out, fa, fas, dev, gen):
                    False, bias)
         args = (q, k, v, bias, o, lse, do, None, False, D ** -0.5, None, 0.1,
                 7)
-        out[f"unpacked bwd {str(dt)[6:]}"] = _digest(
-            fa._unpacked_bwd(*args, False))
+        for name, g in zip(("dq", "dk", "dv"),
+                           fa._unpacked_bwd(*args, False)[:3]):
+            out[f"unpacked bwd {name} {str(dt)[6:]}"] = _digest((g,))
+        # o = 0: delta is exactly 0 in any summation order, so dq and dk
+        # show the products' bits apart from delta's
+        zargs = args[:4] + (torch.zeros_like(o),) + args[5:]
+        for name, g in zip(("dq", "dk", "dv"),
+                           fa._unpacked_bwd(*zargs, False)[:3]):
+            out[f"unpacked bwd {name} o 0 {str(dt)[6:]}"] = _digest((g,))
         delta = (do.float() * o.float()).sum(-1).reshape(B * H, S)
         out[f"dbias {str(dt)[6:]}"] = _digest((fa._flash_dbias(
             q, k, v, bias, lse, do, delta.contiguous(), False, D ** -0.5,
@@ -218,11 +228,28 @@ def main(argv=None):
                 _flat(fb.conv1x1_bn_act(x2, w1, a, b)))
             out[f"conv1x1 fwd bare {lab}"] = _digest(
                 _flat(fb.conv1x1_bn_act(x2, w1)))
+            # y alone: the products' bits apart from the sums' order
+            out[f"conv1x1 fwd bare y {lab}"] = _digest(
+                (fb.conv1x1_bn_act(x2, w1, stats=False)[0],))
             out[f"conv3 fwd prologue {lab}"] = _digest(
                 _flat(fb.conv3x3_bn_act(x, w3, a, b)))
             out[f"conv3 fwd bare {lab}"] = _digest(
                 _flat(fb.conv3x3_bn_act(x, w3, stats=False)))
     _flash_digests(out, fa, fas, dev, gen)
+    # K1 at the blocks' own widths: conv1 (Cin -> Cmid, bare), conv3 (Cmid
+    # -> Cout under the bn2 prologue)
+    for name, n, h, cin, cmid, cout in (("layer1_1", 128, 56, 256, 64, 256),
+                                        ("layer4", 128, 7, 2048, 512, 2048)):
+        m = n * h * h
+        x = rnd(m, cin).to(torch.bfloat16)
+        w1 = rnd(cin, cmid, scale=(2.0 / cin) ** 0.5).to(torch.bfloat16)
+        y2 = rnd(m, cmid).to(torch.bfloat16)
+        w3 = rnd(cmid, cout, scale=(2.0 / cmid) ** 0.5).to(torch.bfloat16)
+        a, b = rnd(cmid, scale=0.1, shift=1.0), rnd(cmid, scale=0.1)
+        out[f"conv1x1 fwd conv1 {name} bfloat16"] = _digest(
+            _flat(fb.conv1x1_bn_act(x, w1)))
+        out[f"conv1x1 fwd conv3 {name} bfloat16"] = _digest(
+            _flat(fb.conv1x1_bn_act(y2, w3, a, b)))
     torch.cuda.synchronize()
     print(json.dumps(out))
     return 0

@@ -694,24 +694,9 @@ struct MmDgradPipe {
   __device__ void load(Thread&, int kc, unsigned char* As,
                        unsigned char* Bs) const {
     const int c0 = kc * Cfg::BK;
-    const int c = threadIdx.x & 7, n = c0 + c * 8;
-    const int64_t m0 = static_cast<int64_t>(blockIdx.x) * Cfg::BM;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = (threadIdx.x >> 3) + 32 * i;
-      const bool ok = m0 + r < M && n < N;
-      cp_async16(As + sw128(r, c), ok ? dz + (m0 + r) * N + n : dz, ok);
-    }
-    const int k0 = blockIdx.y * BN;
-#pragma unroll
-    for (int i = 0; i < BN * 8 / Cfg::kThreads; ++i) {
-      const int v = threadIdx.x + i * Cfg::kThreads;
-      const int r = v >> 3, cc = v & 7;
-      const int k = k0 + r, n2 = c0 + cc * 8;
-      const bool ok = k < K && n2 < N;
-      cp_async16(Bs + sw128(r, cc),
-                 ok ? w + static_cast<int64_t>(k) * N + n2 : w, ok);
-    }
+    load_kmajor_rows<Cfg::BM, Cfg::kThreads>(
+        As, dz, M, N, static_cast<int64_t>(blockIdx.x) * Cfg::BM, c0);
+    load_kmajor_rows<BN, Cfg::kThreads>(Bs, w, K, N, blockIdx.y * BN, c0);
   }
 
   // Each thread a 16-byte run of 8 channels down every kRowGroups-th row

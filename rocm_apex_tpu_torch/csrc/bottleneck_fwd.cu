@@ -27,18 +27,23 @@
 // needed. The per-tile sums are fp32 partials reduced over the tiles in a
 // fixed order.
 //
-// The bf16 3x3 at channel counts that are multiples of 64 (every ResNet-50
-// width) runs on bottleneck_pipe.cuh instead, as the 3x3 backward's dgrad
-// does: on the staged core it sat at 46-54 TFLOP/s, one chunk staged,
-// then multiplied, the prologue recomputed by each of the 9 taps' reads
-// of a pixel. Here a pre-pass writes u = relu(x a + b) once in bf16 (the
+// The bf16 forwards at channel counts that are multiples of 64 (every
+// ResNet-50 width) run on bottleneck_pipe.cuh instead, as the backwards'
+// dgrads do: on the staged core the 3x3 sat at 46-54 TFLOP/s and the 1x1
+// at 80-98 where its products are deep (layer3, layer4) and 2.4-4x over
+// its bound where it moves bytes (layer1), one chunk staged, then
+// multiplied. Here a pre-pass writes u = relu(x a + b) once in bf16 (the
 // staged load's rounding, so the product sees the same values), and the
-// product reads u's rows shifted by each tap through the cp.async ring,
-// zero-filled where the tap leaves the image: the padding is of u, which
-// an inline prologue would get wrong (relu(b) != 0). The bare form (no
-// prologue) reads x itself. The epilogue writes y and the tile's (Σy,
-// Σy²) partial from the fp32 accumulators, reduced as above. The host's
-// `conv3_fwd_plan` picks the route and the tile width from the shape.
+// product reads u's rows (shifted by each tap for the 3x3) through the
+// cp.async ring, zero-filled where a tap leaves the image: the padding is
+// of u, which an inline prologue would get wrong (relu(b) != 0). The bare
+// forms (no prologue: conv1, the downsample) read x itself. The 1x1 is
+// the 3x3 with one tap: A holds the pixel rows, B the rows of w^T, both
+// K-major. The epilogue writes y and the tile's (Σy, Σy²) partial from
+// the fp32 accumulators, reduced as above. The host's `mm_fwd_plan` and
+// `conv3_fwd_plan` pick the route and the tile width from the shape.
+#include <type_traits>
+
 #include "bottleneck_pipe.cuh"
 
 namespace apex_port {
@@ -168,8 +173,9 @@ struct Conv3Fwd {
   }
 };
 
-// The bf16 pre-pass: u = relu(x a + b) (M, Cin) with `prologue_dt`'s
-// rounding, the grid as `prepass_blocks` sizes it
+// The bf16 pre-pass of the 3x3 and the 1x1 forwards: u = relu(x a + b)
+// (M, Cin) with `prologue_dt`'s rounding, the grid as `prepass_blocks`
+// sizes it
 __global__ void __launch_bounds__(256)
     conv3_fwd_prepass_kernel(const bf16* __restrict__ x,
                              const float* __restrict__ a,
@@ -179,6 +185,52 @@ __global__ void __launch_bounds__(256)
                       static_cast<int64_t>(blockIdx.x) * blockDim.x +
                           threadIdx.x,
                       static_cast<int64_t>(gridDim.x) * blockDim.x);
+}
+
+// The forwards' epilogue: y (M, N) and the (Σy, Σy²) partial of the
+// tile (part, where not null) from the accumulators. Each thread a
+// 16-byte run of 8 channels down every kRowGroups-th row of the tile (one
+// vector store of y), its sums in row order; the row groups' sums then
+// combined in group order through shared memory (the tile's, free once
+// read).
+template <int BN>
+__device__ __forceinline__ void fwd_epilogue(const WAcc<BN>& acc, float* Cs,
+                                             bf16* __restrict__ y,
+                                             float* part, int64_t M, int N) {
+  using Cfg = PCfg<BN, false>;
+  acc.store(Cs, Cfg::LDC);
+  __syncthreads();
+  constexpr int kSegs = BN / 8;
+  constexpr int kRowGroups = Cfg::kThreads / kSegs;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * Cfg::BM;
+  const int n0 = blockIdx.y * BN;
+  const int rows = span(M - m0, Cfg::BM);
+  const int cols = min(BN, N - n0);  // a multiple of 16
+  const int seg = threadIdx.x % kSegs, rg = threadIdx.x / kSegs;
+  const int c = seg * 8;
+  float s1[8], s2[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s1[j] = s2[j] = 0.f;
+  if (c < cols) {
+#pragma unroll
+    for (int i = 0; i < Cfg::BM / kRowGroups; ++i) {
+      const int r = rg + i * kRowGroups;
+      if (r < rows) {
+        float v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          v[j] = Cs[r * Cfg::LDC + c + j];
+          s1[j] += v[j];
+          s2[j] = fmaf(v[j], v[j], s2[j]);
+        }
+        store_vec_packed<bf16, 8>(y + (m0 + r) * N + n0 + c, v);
+      }
+    }
+  }
+  if (part == nullptr) return;  // uniform: no statistics
+  combine_row_groups<BN, kRowGroups>(
+      s1, s2, rg, c, cols, Cs,
+      part + static_cast<int64_t>(blockIdx.x) * 2 * N + n0, N);
 }
 
 // y = conv3x3(u, w) with the (Σy, Σy²) partial of each pixel tile. Rows:
@@ -226,57 +278,46 @@ struct Conv3FwdPipe {
       const T* src = ok ? u + (m0 + r + dy * W + dx) * Cin + ci : u;
       cp_async16(As + sw128(r, c), src, ok);
     }
-    const int n0 = blockIdx.y * BN;
-#pragma unroll
-    for (int i = 0; i < BN * 8 / Cfg::kThreads; ++i) {
-      const int v = threadIdx.x + i * Cfg::kThreads;
-      const int r = v >> 3, cc = v & 7;
-      const int n = n0 + r, ci2 = c0 + cc * 8;
-      const bool ok = n < Cout && ci2 < Cin;
-      const T* src =
-          ok ? wt + (static_cast<int64_t>(t) * Cout + n) * Cin + ci2 : wt;
-      cp_async16(Bs + sw128(r, cc), src, ok);
-    }
+    load_kmajor_rows<BN, Cfg::kThreads>(
+        Bs, wt + static_cast<int64_t>(t) * Cout * Cin, Cout, Cin,
+        blockIdx.y * BN, c0);
   }
 
-  // Each thread a 16-byte run of 8 channels down every kRowGroups-th row
-  // of the tile (one vector store of y), its sums in row order; the row
-  // groups' sums then combined in group order through shared memory (the
-  // tile's, free once read).
   __device__ void epilogue(const WAcc<BN>& acc, float* Cs) const {
-    acc.store(Cs, Cfg::LDC);
-    __syncthreads();
-    constexpr int kSegs = BN / 8;
-    constexpr int kRowGroups = Cfg::kThreads / kSegs;
-    const int64_t m0 = static_cast<int64_t>(blockIdx.x) * Cfg::BM;
-    const int n0 = blockIdx.y * BN;
-    const int rows = span(M - m0, Cfg::BM);
-    const int cols = min(BN, Cout - n0);  // a multiple of 16
-    const int seg = threadIdx.x % kSegs, rg = threadIdx.x / kSegs;
-    const int c = seg * 8;
-    float s1[8], s2[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s1[j] = s2[j] = 0.f;
-    if (c < cols) {
-#pragma unroll
-      for (int i = 0; i < Cfg::BM / kRowGroups; ++i) {
-        const int r = rg + i * kRowGroups;
-        if (r < rows) {
-          float v[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            v[j] = Cs[r * Cfg::LDC + c + j];
-            s1[j] += v[j];
-            s2[j] = fmaf(v[j], v[j], s2[j]);
-          }
-          store_vec_packed<T, 8>(y + (m0 + r) * Cout + n0 + c, v);
-        }
-      }
-    }
-    if (part == nullptr) return;  // uniform: no statistics
-    combine_row_groups<BN, kRowGroups>(
-        s1, s2, rg, c, cols, Cs,
-        part + static_cast<int64_t>(blockIdx.x) * 2 * Cout + n0, Cout);
+    fwd_epilogue<BN>(acc, Cs, y, part, M, Cout);
+  }
+};
+
+// y = u @ w with the (Σy, Σy²) partial of each pixel tile, u (M, K) the
+// pre-pass's rows (x in the bare form), wt = w^T (N, K): rows pixels (BM
+// a tile), reduction K in 64-deep chunks; A and B K-major, as they lie.
+// Conv3FwdPipe with one tap, or the 1x1 backward's dgrad with x in dz's
+// place.
+template <int BN>
+struct MmFwdPipe {
+  using Cfg = PCfg<BN, false>;
+  const bf16* u;
+  const bf16* wt;
+  bf16* y;
+  float* part;  // (tiles over M, 2, N) or null: no statistics
+  int64_t M;
+  int K, N;
+
+  struct Thread {};
+
+  __device__ int chunks() const { return (K + Cfg::BK - 1) / Cfg::BK; }
+  __device__ Thread thread_init() const { return Thread{}; }
+
+  __device__ void load(Thread&, int kc, unsigned char* As,
+                       unsigned char* Bs) const {
+    const int c0 = kc * Cfg::BK;
+    load_kmajor_rows<Cfg::BM, Cfg::kThreads>(
+        As, u, M, K, static_cast<int64_t>(blockIdx.x) * Cfg::BM, c0);
+    load_kmajor_rows<BN, Cfg::kThreads>(Bs, wt, N, K, blockIdx.y * BN, c0);
+  }
+
+  __device__ void epilogue(const WAcc<BN>& acc, float* Cs) const {
+    fwd_epilogue<BN>(acc, Cs, y, part, M, N);
   }
 };
 
@@ -311,40 +352,64 @@ int conv3_fwd(const void* x, const float* a, const float* b, const void* wt,
                       scratch, stream);
 }
 
-// the bf16 3x3 on the pipe (Cin and Cout multiples of 64): the pre-pass
-// where there is a prologue (ubuf; else the product reads x), the
-// product in tiles of 128 pixels x bn channels, the sums of its tile
-// partials
+// The bf16 forwards on the pipe (channel counts multiples of 64): the
+// pre-pass where there is a prologue (u = ubuf, (M, K); else the product
+// reads x), the product `make(bn, u, part)` builds in tiles of 128 pixels
+// x bn channels over a grid of (pixel tiles, N / bn), the sums of its
+// tile partials.
+template <class Make>
+int fwd_pipe(const bf16* x, const float* a, const float* b, bf16* ubuf,
+             float* part, float* scratch, float* sums, int64_t M, int K,
+             int N, int bn, int sms, cudaStream_t stream, Make make) {
+  const int tiles = static_cast<int>((M + 127) / 128);
+  if ((a != nullptr) != (ubuf != nullptr) || K % 64 || N % 64 ||
+      (bn != 128 && bn != 64) || N % bn)
+    return cudaErrorInvalidValue;
+  const bf16* u = x;
+  if (a != nullptr) {
+    conv3_fwd_prepass_kernel<<<prepass_blocks(M, K, K, sms), 256, 0,
+                               stream>>>(x, a, b, ubuf, M, K);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    u = ubuf;
+  }
+  float* pp = sums ? part : nullptr;
+  const dim3 grid(tiles, N / bn);
+  const cudaError_t err =
+      bn == 128
+          ? launch_pipe(make(std::integral_constant<int, 128>{}, u, pp), grid,
+                        stream)
+          : launch_pipe(make(std::integral_constant<int, 64>{}, u, pp), grid,
+                        stream);
+  if (err != cudaSuccess || sums == nullptr) return err;
+  return reduce_parts(part, tiles, 2 * static_cast<int64_t>(N), sums,
+                      scratch, stream);
+}
+
+// the bf16 1x1 on the pipe: y (M, N) = P(x) @ w, wt = w^T (N, K)
+inline int mm_fwd_pipe(const bf16* x, const float* a, const float* b,
+                       const bf16* wt, bf16* y, float* part, float* scratch,
+                       float* sums, bf16* ubuf, int64_t M, int K, int N,
+                       int bn, int sms, cudaStream_t stream) {
+  return fwd_pipe(x, a, b, ubuf, part, scratch, sums, M, K, N, bn, sms,
+                  stream, [&](auto bnc, const bf16* u, float* pp) {
+                    return MmFwdPipe<decltype(bnc)::value>{u, wt, y, pp, M,
+                                                           K, N};
+                  });
+}
+
+// the bf16 3x3 on the pipe: x (n, H, W, Cin), wt (9, Cout, Cin)
 inline int conv3_fwd_pipe(const bf16* x, const float* a, const float* b,
                           const bf16* wt, bf16* y, float* part,
                           float* scratch, float* sums, bf16* ubuf, int n,
                           int H, int W, int Cin, int Cout, int bn, int sms,
                           cudaStream_t stream) {
   const int64_t M = static_cast<int64_t>(n) * H * W;
-  const int tiles = static_cast<int>((M + 127) / 128);
-  if ((a != nullptr) != (ubuf != nullptr) || Cin % 64 || Cout % bn ||
-      (bn != 128 && bn != 64))
-    return cudaErrorInvalidValue;
-  const bf16* u = x;
-  if (a != nullptr) {
-    conv3_fwd_prepass_kernel<<<prepass_blocks(M, Cin, Cin, sms), 256, 0,
-                               stream>>>(x, a, b, ubuf, M, Cin);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    u = ubuf;
-  }
-  float* pp = sums ? part : nullptr;
-  cudaError_t err;
-  if (bn == 128) {
-    Conv3FwdPipe<128> p{u, wt, y, pp, M, H, W, Cin, Cout};
-    err = launch_pipe(p, dim3(tiles, Cout / 128), stream);
-  } else {
-    Conv3FwdPipe<64> p{u, wt, y, pp, M, H, W, Cin, Cout};
-    err = launch_pipe(p, dim3(tiles, Cout / 64), stream);
-  }
-  if (err != cudaSuccess || sums == nullptr) return err;
-  return reduce_parts(part, tiles, 2 * static_cast<int64_t>(Cout), sums,
-                      scratch, stream);
+  return fwd_pipe(x, a, b, ubuf, part, scratch, sums, M, Cin, Cout, bn, sms,
+                  stream, [&](auto bnc, const bf16* u, float* pp) {
+                    return Conv3FwdPipe<decltype(bnc)::value>{
+                        u, wt, y, pp, M, H, W, Cin, Cout};
+                  });
 }
 
 }  // namespace bneck
@@ -356,16 +421,25 @@ extern "C" {
 
 // y (M, N) = relu(x * a + b) @ w (no prologue when a is null), wt = w^T
 // (N, K); with sums (2, N) not null, sums = (Σy, Σy²) through part (tiles,
-// 2, N) and, past 256 tiles, scratch (ceil(tiles / 256), 2, N)
+// 2, N) and, past 256 tiles, scratch (ceil(tiles / 256), 2, N). bn 128 or
+// 64: bf16 on bottleneck_pipe.cuh in tiles of bn channels, with ubuf (M,
+// K) the pre-pass's output when a is given (else null); sms sizes the
+// pre-pass. bn 0: the staged core (ubuf null).
 int bneck_mm_fwd(const void* x, const float* a, const float* b,
                  const void* wt, void* y, float* part, float* scratch,
-                 float* sums, long long M, int K, int N, int dtype,
-                 void* stream) {
+                 float* sums, void* ubuf, long long M, int K, int N, int bn,
+                 int sms, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16 && bn != 0)
+    return bneck::mm_fwd_pipe(
+        static_cast<const bf16*>(x), a, b, static_cast<const bf16*>(wt),
+        static_cast<bf16*>(y), part, scratch, sums, static_cast<bf16*>(ubuf),
+        M, K, N, bn, sms, s);
+  if (ubuf != nullptr) return cudaErrorInvalidValue;
   if (dtype == kBFloat16)
     return bneck::mm_fwd<__nv_bfloat16>(x, a, b, wt, y, part, scratch, sums, M,
                                         K, N, s);
-  if (dtype == kFloat32)
+  if (dtype == kFloat32 && bn == 0)
     return bneck::mm_fwd<float>(x, a, b, wt, y, part, scratch, sums, M, K, N,
                                 s);
   return cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
 // A multistage cp.async + wgmma product core for Hopper (sm_90a), beside
-// the staged mma.sync core of bottleneck.cuh: the bf16 3x3 forward
-// (bottleneck_fwd.cu `conv3_fwd_bf16`) and the bf16 3x3 and 1x1 backwards
-// (bottleneck_bwd.cu `conv3_bwd_bf16`, `mm_bwd_bf16`) run on it.
+// the staged mma.sync core of bottleneck.cuh: the bf16 1x1 and 3x3
+// forwards (bottleneck_fwd.cu `mm_fwd_pipe`, `conv3_fwd_pipe`) and the
+// bf16 3x3 and 1x1 backwards (bottleneck_bwd.cu `conv3_bwd_bf16`,
+// `mm_bwd_bf16`) run on it.
 //
 // The difference from `gemm_kernel`: the operands of a product are plain
 // bf16 rows in device memory (the 3x3 forward and backward write the
@@ -191,6 +192,28 @@ __global__ void __launch_bounds__(256, 2) pipe_kernel(Prob p) {
   cp_async_wait<0>();
   __syncthreads();
   p.epilogue(acc, reinterpret_cast<float*>(smem));
+}
+
+// Rows [r0, r0 + kRows) of a (rows, depth) bf16 matrix whose depth is
+// contiguous, columns [c0, c0 + 64), into a K-major tile (one 16-byte
+// segment a copy, row tid / 8 + 32 i at segment tid % 8 for 256
+// threads); rows at or past `rows` and columns at or past `depth`
+// zero-filled. The A tile of a product over pixel rows, and the B tile of
+// weights stored (N, K).
+template <int kRows, int kThreads>
+__device__ __forceinline__ void load_kmajor_rows(unsigned char* tile,
+                                                 const bf16* src,
+                                                 int64_t rows, int depth,
+                                                 int64_t r0, int c0) {
+#pragma unroll
+  for (int i = 0; i < kRows * 8 / kThreads; ++i) {
+    const int v = threadIdx.x + i * kThreads;
+    const int r = v >> 3, cc = v & 7;
+    const int c = c0 + cc * 8;
+    const bool ok = r0 + r < rows && c < depth;
+    cp_async16(tile + sw128(r, cc), ok ? src + (r0 + r) * depth + c : src,
+               ok);
+  }
 }
 
 template <class Prob>

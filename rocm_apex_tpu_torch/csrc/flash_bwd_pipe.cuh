@@ -1,27 +1,30 @@
 // The bf16 flash-attention backward on Hopper's asynchronous units: the
 // pipe of the packed backward (flash_bwd.cu, row 11: rocm_apex_tpu/ops/
 // flash_attention.py:1324 `_bwd_merged_kernel` and the packed use of :316
-// `_bwd_dkv_kernel` / :384 `_bwd_dq_kernel`), built from the forward
-// pipe's pieces (flash_fwd_pipe.cuh). q, k, v, o and do are read, and dq,
-// dk and dv written, in place through (batch, head, row) strides, so a
-// caller with other layouts passes other strides.
+// `_bwd_dkv_kernel` / :384 `_bwd_dq_kernel`) and of the unpacked one
+// (flash_unpacked_bwd.cu, row 9b: the same two kernels as `_bwd` (:502)
+// runs them), built from the forward pipe's pieces (flash_fwd_pipe.cuh).
+// q, k, v, o and do are read, and dq, dk and dv written, in place through
+// (batch, head, row) strides, so a caller with other layouts passes other
+// strides.
 //
 // Bound: operations. At the GPT train cell (B 16, S 1024, 8 heads, hd
 // 128, causal) the backward issues 11 bf16 products a (query tile, key
 // tile) pair, 189 GFLOP, against ~0.2 GB of operands. What held the
-// mma.sync body at ~90 TFLOP/s issued: 16-row warps, one K/V tile in
+// mma.sync bodies at ~90 TFLOP/s issued: 16-row warps, one K/V tile in
 // flight with barriers around it, and every operand read along its
 // columns (k in the dq pass, q and do in the dk/dv pass) staged
 // transposed element by element. Here:
 //
 // - Two launches, no atomics. The dq pass (a block per (b*H + h, query
 //   tile)) first writes, for its 64 rows, (lse log2 e, delta =
-//   rowsum(do o)) into a stats buffer of (B*H, 64 * query tiles, 2) fp32,
-//   then walks the key tiles up to the causal bound. The dk/dv pass (a
-//   block per (b*H + h, key tile)) walks the query tiles from the causal
-//   bound on, reading a tile's 64 (lse, delta) pairs as it lands. Both
-//   grids go longest first: query tiles counted down in the dq pass, key
-//   tiles up in the dk/dv pass.
+//   rowsum(do o) - dlse) into a stats buffer of (B*H, 64 * query tiles, 2)
+//   fp32 (and, where `delta` is given, delta alone into a (B*H, Sq) buffer,
+//   the bias gradient's input), then walks the key tiles up to the causal
+//   bound. The dk/dv pass (a block per (b*H + h, key tile)) walks the query
+//   tiles from the causal bound on, reading a tile's 64 (lse, delta) pairs
+//   as it lands. Both grids go longest first: query tiles counted down in
+//   the dq pass, key tiles up in the dk/dv pass.
 // - One warpgroup (128 threads) a block, 64 rows (queries in the dq pass,
 //   keys in the dk/dv pass); two blocks share a multiprocessor, so one's
 //   softmax-side arithmetic runs beside the other's products.
@@ -47,10 +50,17 @@
 // - The score rule, the masking rule and the keep bits are the forward
 //   pipe's: `key_live` (causal, lengths, the ragged edge; a tile no edge
 //   crosses skips its tests), dropout.cuh's hash of (seed, b*H + h,
-//   query, key). dq and dk take `scale` at the end, dk from the unscaled
-//   q. Each pass also writes, where `part` is given, the fp32 column sums
-//   of its 64 rows of dq (or dk and dv) in a fixed order: the projection
-//   bias's partials.
+//   query, key). The fp32 score bias of the unpacked forms (`kBias`) is
+//   where S (S^T) starts: each thread loads its fragment positions' bias
+//   log2 e into the accumulators first thing in a tile (the dk/dv pass's
+//   load is 4 queries x 8 consecutive keys a warp, from L2), they land
+//   under the tile's wait and the dP product, issued first, and the S
+//   product adds to them. The sum's rounding order is not the forward's
+//   (score, then bias), a difference at fp32 level; a -1e30 bias still
+//   gives p = 0, and a zero bias the bias-free bits. dq and dk take
+//   `scale` at the end, dk from the unscaled q. Each pass also writes,
+//   where `part` is given, the fp32 column sums of its 64 rows of dq (or
+//   dk and dv) in a fixed order: the projection bias's partials.
 #pragma once
 
 #include "flash_fwd_pipe.cuh"
@@ -76,7 +86,9 @@ struct BwdCfg {
 // (B, H, Sk, HD), dq, dk and dv likewise, each through its strides; lse
 // (B*H, Sq); stats (B*H, 64 * query tiles, 2) fp32, written by the dq
 // pass; part, where not null, the fp32 column sums of each 64-row tile of
-// dq, dk and dv at part_of(bh, tile) + 0, HD and 2 HD.
+// dq, dk and dv at part_of(bh, tile) + 0, HD and 2 HD; dlse, where not
+// null, the (B*H, Sq) cotangent of lse (folded into delta); delta, where
+// not null, a (B*H, Sq) fp32 output of the dq pass's delta.
 struct BwdArgs {
   const bf16* q;
   const bf16* k;
@@ -91,6 +103,8 @@ struct BwdArgs {
   float* part;
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
   Strides ps;  // part's (batch, head, tile) strides
+  const float* dlse = nullptr;
+  float* delta = nullptr;
 };
 
 __device__ __forceinline__ float* part_of(const BwdArgs& a, int bh, int H,
@@ -98,6 +112,24 @@ __device__ __forceinline__ float* part_of(const BwdArgs& a, int bh, int H,
   return a.part + static_cast<int64_t>(bh / H) * a.ps.b +
          static_cast<int64_t>(bh % H) * a.ps.h +
          static_cast<int64_t>(tile) * a.ps.s;
+}
+
+// *p through the read-only path, issued where it stands: a volatile load
+// keeps the compiler from sinking it to its use, so that it lands under
+// what comes between
+__device__ __forceinline__ float ldg_pinned(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// Row `row` of operand row bh's bias, the row clamped into the bias (with
+// the columns clamped as well: a position past Sq or Sk is masked by
+// key_live and its score never read)
+__device__ __forceinline__ const float* bias_at(const Problem& pb, int bh,
+                                                int row) {
+  return pb.bias + (static_cast<int64_t>(bh / pb.hp) * pb.Sq +
+                    min(row, pb.Sq - 1)) * pb.Sk;
 }
 
 // dst <- bf16(src * mul) over a tile (same layout: the map is elementwise)
@@ -183,7 +215,7 @@ __device__ __forceinline__ void c_to_a2(const float (&s)[32],
       split_bf16(s[8 * j + 2 * i], s[8 * j + 2 * i + 1], hi[j][i], lo[j][i]);
 }
 
-template <int HD>
+template <int HD, bool kBias>
 __global__ void __launch_bounds__(128, 2)
     bwd_dq_pipe_kernel(BwdArgs a, Problem pb) {
   using C = BwdCfg<HD>;
@@ -203,6 +235,8 @@ __global__ void __launch_bounds__(128, 2)
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   const uint32_t rkey[2] = {dropout_row_key(pb.seed, bh, row[0]),
                             dropout_row_key(pb.seed, bh, row[1])};
+  const float* brow[2] = {kBias ? bias_at(pb, bh, row[0]) : nullptr,
+                          kBias ? bias_at(pb, bh, row[1]) : nullptr};
   const int len = kv_len(pb, bh);
   const bf16* kh = head(a.k, a.ks, bh, pb.H);
   const bf16* vh = head(a.v, a.vs, bh, pb.H);
@@ -266,11 +300,42 @@ __global__ void __launch_bounds__(128, 2)
       stats[2 * rr + 1] = acc;
     }
   }
+  // the unpacked forms: delta - dlse where the lse has a cotangent (each
+  // thread its two rows, the stats rewritten by the warp's lanes of t 0),
+  // and delta into `delta` where given
+  if (a.dlse != nullptr || a.delta != nullptr) {
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int rr = warp * 16 + g + 8 * k;
+      if (q0 + rr >= pb.Sq) continue;
+      const int64_t at = static_cast<int64_t>(bh) * pb.Sq + q0 + rr;
+      if (a.dlse != nullptr) delta[k] -= a.dlse[at];
+      if (t == 0) {
+        stats[2 * rr + 1] = delta[k];
+        if (a.delta != nullptr) a.delta[at] = delta[k];
+      }
+    }
+  }
 
   float acc[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
   for (int i = 0; i < n; ++i) {
+    // with a bias, S starts from the tile's bias terms (bias log2 e: the
+    // product adds to them; key_live decides which count), their loads
+    // issued first so that they land under the tile's wait and the dP
+    // product
+    const int kbase = i * kTile;
+    float s[32], dp[32];
+    if constexpr (kBias) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * j + e] = ldg_pinned(
+              brow[e >> 1] + min(kbase + j * 8 + 2 * t + (e & 1), pb.Sk - 1));
+    }
     cp_async_wait<C::kStages - 2>();
     fence_proxy_async();  // the folded q and tile i, for wgmma's proxy
     __syncthreads();      // tile i landed; every warp is done with i - 1
@@ -279,26 +344,45 @@ __global__ void __launch_bounds__(128, 2)
     const unsigned char* skt = stage(i);
     const unsigned char* svt = skt + C::kTileBytes;
 
-    // S = (q q_mul) k^T and dP = do v^T: 64 rows x 64 keys each
-    float s[32], dp[32];
+    // S += (q q_mul) k^T and dP = do v^T: 64 rows x 64 keys each; with
+    // a bias dP goes first, and S's start values are awaited while it runs
+    auto s_product = [&] {
 #pragma unroll
-    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
-    reg_fence(s);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_m64n64k16<0, 0>(s, kmajor_desc(sq, kk), kmajor_desc(skt, kk));
+    };
+    auto dp_product = [&] {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_m64n64k16<0, 0>(dp, kmajor_desc(sdo, kk),
+                              kmajor_desc(svt, kk));
+    };
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      dp[e] = 0.f;
+      if constexpr (!kBias) s[e] = 0.f;
+    }
     reg_fence(dp);
-    wgmma_fence();
+    if constexpr (kBias) {
+      wgmma_fence();
+      dp_product();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_m64n64k16<0, 0>(s, kmajor_desc(sq, kk), kmajor_desc(skt, kk));
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_m64n64k16<0, 0>(dp, kmajor_desc(sdo, kk), kmajor_desc(svt, kk));
+      for (int e = 0; e < 32; ++e) s[e] = __fmul_rn(s[e], kLog2e);
+      reg_fence(s);
+      wgmma_fence();
+      s_product();
+    } else {
+      reg_fence(s);
+      wgmma_fence();
+      s_product();
+      dp_product();
+    }
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(s);
     reg_fence(dp);
 
     // ds = p (keep dp / (1 - rate) - delta) into s; e < 2 is row 0
-    const int kbase = i * kTile;
     const bool edge = kbase + kTile > len ||
                       (pb.causal && kbase + kTile - 1 > q0) ||
                       q0 + kTile > pb.Sq;
@@ -348,7 +432,7 @@ __global__ void __launch_bounds__(128, 2)
   }
 }
 
-template <int HD>
+template <int HD, bool kBias>
 __global__ void __launch_bounds__(128, 2)
     bwd_dkv_pipe_kernel(BwdArgs a, Problem pb) {
   using C = BwdCfg<HD>;
@@ -367,6 +451,7 @@ __global__ void __launch_bounds__(128, 2)
   const int g = lane >> 2;
   const int t = lane & 3;
   const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  const int kcol[2] = {min(key[0], pb.Sk - 1), min(key[1], pb.Sk - 1)};
   const int len = kv_len(pb, bh);
   const bf16* qh = head(a.q, a.qs, bh, pb.H);
   const bf16* doh = head(a.dout, a.dos, bh, pb.H);
@@ -394,6 +479,25 @@ __global__ void __launch_bounds__(128, 2)
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
   for (int i = 0; i < n; ++i) {
+    // S^T starts from the bias terms at its fragment positions (bias[q]
+    // [key] log2 e; a warp's load is 4 queries x 8 consecutive keys), their
+    // loads issued first so that they land under the tile's wait, the
+    // scaled q copy and the dP^T product; key_live decides which count
+    const int q0 = (qt0 + i) * kTile;
+    float s[32], dp[32];
+    if constexpr (kBias) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int par = 0; par < 2; ++par) {
+          const float* bq = bias_at(pb, bh, q0 + j * 8 + 2 * t + par);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            s[4 * j + 2 * r + par] = ldg_pinned(bq + kcol[r]);
+            dp[4 * j + 2 * r + par] = 0.f;
+          }
+        }
+    }
     cp_async_wait<C::kStages - 2>();
     __syncthreads();  // tile i landed; every warp is done with i - 1
     if (i + C::kStages - 1 < n) load(i + C::kStages - 1);
@@ -404,28 +508,54 @@ __global__ void __launch_bounds__(128, 2)
     fence_proxy_async();  // tile i and the copy, for wgmma's proxy
     __syncthreads();
 
-    // S^T = k (q q_mul)^T and dP^T = v do^T: 64 keys x 64 queries each
-    float s[32], dp[32];
+    // S^T += k (q q_mul)^T and dP^T = v do^T: 64 keys x 64 queries each;
+    // with a bias dP^T goes first, and S^T's start values are awaited
+    // while it runs
+    auto s_product = [&] {
 #pragma unroll
-    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
-    reg_fence(s);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_m64n64k16<0, 0>(s, kmajor_desc(sk, kk), kmajor_desc(sqs, kk));
+    };
+    auto dp_product = [&] {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_m64n64k16<0, 0>(dp, kmajor_desc(sv, kk),
+                              kmajor_desc(sdot, kk));
+    };
+    if constexpr (!kBias) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+    }
     reg_fence(dp);
-    wgmma_fence();
+    if constexpr (kBias) {
+      wgmma_fence();
+      dp_product();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_m64n64k16<0, 0>(s, kmajor_desc(sk, kk), kmajor_desc(sqs, kk));
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_m64n64k16<0, 0>(dp, kmajor_desc(sv, kk), kmajor_desc(sdot, kk));
+      for (int e = 0; e < 32; ++e) s[e] = __fmul_rn(s[e], kLog2e);
+      reg_fence(s);
+      wgmma_fence();
+      s_product();
+    } else {
+      reg_fence(s);
+      wgmma_fence();
+      s_product();
+      dp_product();
+    }
     wgmma_commit();
     // the tile's (lse log2 e, delta) of this thread's 16 query columns,
-    // loaded under the products (the dq pass padded the rows to the tile)
-    const int q0 = (qt0 + i) * kTile;
-    float4 qst[8];
+    // loaded under the products (the dq pass padded the rows to the tile).
+    // With a bias, whose start values hold 32 more registers through the
+    // products, each lane loads the pairs of queries 2 L and 2 L + 1 and
+    // hands them by shuffles to the lanes that need them
+    float4 qst[kBias ? 1 : 8];
+    if constexpr (kBias) {
+      qst[0] = *reinterpret_cast<const float4*>(stats + (q0 + 2 * lane) * 2);
+    } else {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      qst[j] = *reinterpret_cast<const float4*>(stats +
-                                                (q0 + j * 8 + 2 * t) * 2);
+      for (int j = 0; j < 8; ++j)
+        qst[j] = *reinterpret_cast<const float4*>(stats +
+                                                  (q0 + j * 8 + 2 * t) * 2);
+    }
     wgmma_wait<0>();
     reg_fence(s);
     reg_fence(dp);
@@ -435,12 +565,24 @@ __global__ void __launch_bounds__(128, 2)
     const bool edge = q0 + kTile > pb.Sq || k0 + kTile > len ||
                       (pb.causal && k0 + kTile - 1 > q0);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < 8; ++j) {
+      // (lse log2 e, delta) of queries j * 8 + 2 t and + 1 (with a bias,
+      // lane 4 j + t's)
+      float4 st;
+      if constexpr (kBias) {
+        const int src = 4 * j + t;
+        st = make_float4(__shfl_sync(kFullMask, qst[0].x, src),
+                         __shfl_sync(kFullMask, qst[0].y, src),
+                         __shfl_sync(kFullMask, qst[0].z, src),
+                         __shfl_sync(kFullMask, qst[0].w, src));
+      } else {
+        st = qst[j];
+      }
 #pragma unroll
       for (int par = 0; par < 2; ++par) {
         const int q = q0 + j * 8 + 2 * t + par;
-        const float l2 = par ? qst[j].z : qst[j].x;
-        const float dl = par ? qst[j].w : qst[j].y;
+        const float l2 = par ? st.z : st.x;
+        const float dl = par ? st.w : st.y;
         const uint32_t rk = pb.drop ? dropout_row_key(pb.seed, bh, q) : 0u;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -461,6 +603,7 @@ __global__ void __launch_bounds__(128, 2)
           dp[e] = ds;
         }
       }
+    }
 
     // dv += p^T do (p as hi + mid + lo) and dk += ds^T q (ds as hi + lo)
     // over 4 steps of 16 queries, q and do read MN-major
@@ -516,31 +659,33 @@ __global__ void __launch_bounds__(128, 2)
 
 // The two passes over grids of (b*H + h, 64-row tiles): the dq pass
 // (query tiles, which writes the stats), then the dk/dv pass (key
-// tiles). The score bias of the unpacked forms is not taken here.
-template <int HD>
+// tiles); kBias for a problem with a score bias (the unpacked forms). The
+// segment ids of segment attention are not taken here.
+template <int HD, bool kBias = false>
 int launch_pipe_bwd(const BwdArgs& a, const Problem& pb,
                     cudaStream_t stream) {
   using C = BwdCfg<HD>;
   const int bh = pb.B * pb.H;
   const int nqt = (pb.Sq + kTile - 1) / kTile;
   const int nkt = (pb.Sk + kTile - 1) / kTile;
-  if (pb.bias != nullptr || pb.seg != nullptr || nqt > 65535 || nkt > 65535)
+  if ((pb.bias != nullptr) != kBias || pb.seg != nullptr || nqt > 65535 ||
+      nkt > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (bh == 0 || nqt == 0) return 0;
   // every call, as launch_pipe_fwd sets its own
   cudaError_t e = cudaFuncSetAttribute(
-      bwd_dq_pipe_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::kDqSmem);
+      bwd_dq_pipe_kernel<HD, kBias>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kDqSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(bwd_dkv_pipe_kernel<HD>,
+  e = cudaFuncSetAttribute(bwd_dkv_pipe_kernel<HD, kBias>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            C::kDkvSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bwd_dq_pipe_kernel<HD><<<dim3(bh, nqt), C::kThreads, C::kDqSmem, stream>>>(
-      a, pb);
+  bwd_dq_pipe_kernel<HD, kBias>
+      <<<dim3(bh, nqt), C::kThreads, C::kDqSmem, stream>>>(a, pb);
   e = cudaGetLastError();
   if (e != cudaSuccess || nkt == 0) return static_cast<int>(e);
-  bwd_dkv_pipe_kernel<HD>
+  bwd_dkv_pipe_kernel<HD, kBias>
       <<<dim3(bh, nkt), C::kThreads, C::kDkvSmem, stream>>>(a, pb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,7 @@
-// The unpacked flash-attention backward's kernels, included by
-// flash_unpacked_bwd.cu and (with kSeg) flash_segments_bwd.cu.
+// The unpacked flash-attention backward's CUDA-core and mma.sync
+// kernels: the fp32 form of flash_unpacked_bwd.cu (its bf16 form runs on
+// the wgmma pipe of flash_bwd_pipe.cuh) and both forms of segment
+// attention (kSeg, flash_segments_bwd.cu).
 //
 // Replaces rocm_apex_tpu/ops/flash_attention.py:316 `_bwd_dkv_kernel` and
 // :384 `_bwd_dq_kernel` as `_bwd` (:502) runs them. Blocks run in no order
@@ -28,7 +30,8 @@
 //         pass, keys in the dk/dv pass, which steps over 32-query tiles to
 //         keep its dk and dv accumulators in registers); p and ds split
 //         hi + lo as the A operand of the products that consume them;
-//         operands read along their columns are staged transposed.
+//         operands read along their columns are staged transposed. Only
+//         segment attention takes this form now.
 //   fp32: CUDA cores, as flash_unpacked_fwd.cuh.
 //
 // With kSeg (flash_segments_bwd.cu) the same bodies serve segment
@@ -733,9 +736,10 @@ int launch_f32(const void* const* p, const int64_t* st, const Problem& pb,
   return 0;
 }
 
-// The backward of every form (p as the entries order it: q, k, v, o, lse,
-// dout, dlse, dq, dk, dv, delta): bf16 on the tensor cores, fp32 on the
-// CUDA cores, head_dim 64 or 128.
+// The backward on these bodies (p as the entries order it: q, k, v, o,
+// lse, dout, dlse, dq, dk, dv, delta): bf16 on the tensor cores, fp32 on
+// the CUDA cores, head_dim 64 or 128. Segment attention takes it whole;
+// the unpacked entry takes launch_f32 alone.
 template <bool kSeg>
 int launch_bwd(const void* const* p, const int64_t* st, const Problem& pb,
                int hd, int dtype, cudaStream_t s) {

@@ -90,7 +90,9 @@ and dk/dv passes (``csrc/flash_unpacked_bwd.cu``, `_bwd_dq_kernel` :384,
 (``csrc/flash_unpacked.cuh``); the bf16 forward runs on the wgmma pipe
 (``csrc/flash_fwd_pipe.cuh``), split over the keys and merged by lse
 where `flash_fwd_plan` says the card is not filled (the whole-prompt
-window). Semantics are `_masked_scores`': base-2
+window), and the bf16 backward on the packed backward's wgmma pipe
+(``csrc/flash_bwd_pipe.cuh``, with the score bias and the lse
+cotangent), as `flash_unpacked_bwd_plan` says. Semantics are `_masked_scores`': base-2
 scores with scale * log2(e) folded into q in q's dtype, an fp32 additive
 bias (nb, sq, sk) with nb in {1, batch, batch*heads} added as bias *
 log2(e), top-left causal masking, per-row key lengths, the ragged key
@@ -146,6 +148,7 @@ __all__ = [
     "flash_unpacked_bwd_plain",
     "flash_bwd_plan",
     "flash_fwd_plan",
+    "flash_unpacked_bwd_plan",
     "flash_fwd_split_plain",
     "flash_attention_decode",
     "flash_attention_decode_plain",
@@ -726,6 +729,20 @@ def _flash_fwd(qkv, bias, causal, scale, rate, seed):
     return o, lse
 
 
+def _bwd_tiles(nqt: int, nkt: int, causal: bool, dq_down: bool):
+    """The tile lists of a backward's two passes, in launch order: each dq
+    block's query tile and the key tiles [lo, hi) it walks (query tiles
+    counted down where ``dq_down``, as the pipe's grid runs them, else up),
+    each dk/dv block's key tile and the query tiles [lo, hi) it walks (key
+    tiles counted up). Under ``causal`` (top-left aligned) a query tile
+    walks the key tiles up to its own diagonal and a key tile the query
+    tiles from its own on, so on the pipe the longest walks go first."""
+    order = reversed(range(nqt)) if dq_down else range(nqt)
+    dq = [(t, 0, min(nkt, t + 1) if causal else nkt) for t in order]
+    dkv = [(t, min(t, nqt) if causal else 0, nqt) for t in range(nkt)]
+    return dq, dkv
+
+
 def flash_bwd_plan(batch: int, seq: int, heads: int, head_dim: int,
                    causal: bool, dtype: torch.dtype = torch.bfloat16) -> dict:
     """The packed backward's route, grids and buffers, from the shape
@@ -737,32 +754,29 @@ def flash_bwd_plan(batch: int, seq: int, heads: int, head_dim: int,
     tiles): ``dq_tiles`` lists, in launch order, each dq block's query tile
     and the key tiles [lo, hi) it walks (query tiles counted down, the
     causal ones longest first), ``dkv_tiles`` each dk/dv block's key tile
-    and its query tiles (key tiles counted up, the same). ``stats`` is the
-    fp32 scratch the dq pass hands the dk/dv pass: (lse log2 e, delta)
-    pairs for every row of every query tile on the pipe, delta alone on
-    the CUDA cores. ``parts``: the fp32 (batch, tiles, heads, 3 head_dim)
-    column sums of dq|dk|dv a bias's cotangent sums, one a 64-row tile in
-    either route; ``scratch``: the biased projection a bias pre-pass
-    writes on the pipe (the wrapper allocates it where there is a bias)."""
+    and its query tiles (key tiles counted up, the same; `_bwd_tiles`).
+    ``stats`` is the fp32 scratch the dq pass hands the dk/dv pass: (lse
+    log2 e, delta) pairs for every row of every query tile on the pipe,
+    delta alone on the CUDA cores. ``parts``: the fp32 (batch, tiles,
+    heads, 3 head_dim) column sums of dq|dk|dv a bias's cotangent sums, one
+    a 64-row tile in either route; ``scratch``: the biased projection a
+    bias pre-pass writes on the pipe (the wrapper allocates it where there
+    is a bias)."""
     if head_dim != _PACKED_HEAD_DIM:
         raise ValueError(f"the packed CUDA attention kernels take head_dim "
                          f"{_PACKED_HEAD_DIM}, got {head_dim}")
     tiles = -(-seq // _PACKED_TILE)
     bh = batch * heads
     parts = (batch, tiles, heads, 3 * head_dim)
-    if dtype != torch.bfloat16:
+    pipe = dtype == torch.bfloat16
+    dq_tiles, dkv_tiles = _bwd_tiles(tiles, tiles, causal, dq_down=pipe)
+    if not pipe:
         return dict(route="cuda_cores", dq_grid=(tiles, bh),
-                    dkv_grid=(tiles, bh),
-                    dq_tiles=[(t, 0, t + 1 if causal else tiles)
-                              for t in range(tiles)],
-                    dkv_tiles=[(t, t if causal else 0, tiles)
-                               for t in range(tiles)],
-                    stats=(bh, seq), parts=parts, scratch=None)
+                    dkv_grid=(tiles, bh), dq_tiles=dq_tiles,
+                    dkv_tiles=dkv_tiles, stats=(bh, seq), parts=parts,
+                    scratch=None)
     return dict(route="wgmma", dq_grid=(bh, tiles), dkv_grid=(bh, tiles),
-                dq_tiles=[(t, 0, t + 1 if causal else tiles)
-                          for t in reversed(range(tiles))],
-                dkv_tiles=[(t, t if causal else 0, tiles)
-                           for t in range(tiles)],
+                dq_tiles=dq_tiles, dkv_tiles=dkv_tiles,
                 stats=(bh, tiles * _PACKED_TILE, 2), parts=parts,
                 scratch=(batch, seq, heads, 3 * head_dim))
 
@@ -1005,6 +1019,40 @@ def flash_fwd_plan(bh: int, sq: int, sk: int, hd: int, causal: bool,
                 workspace=workspace)
 
 
+def flash_unpacked_bwd_plan(bh: int, sq: int, sk: int, hd: int,
+                            causal: bool, dtype: torch.dtype = torch.bfloat16,
+                            dbias: bool = False) -> dict:
+    """The unpacked backward's route, grids and buffers, from the shape
+    alone (it reads no lengths, as `flash_fwd_plan` reads none).
+
+    ``route``: ``"wgmma"`` for bf16 (the packed backward's pipe,
+    csrc/flash_bwd_pipe.cuh, head_dim 64 or 128) and ``"cuda_cores"`` for
+    fp32 (csrc/flash_unpacked_bwd.cuh); any other head_dim raises. The two
+    passes' grids and tile lists are `flash_bwd_plan`'s (`_bwd_tiles`), on
+    ``sq`` query rows and ``sk`` keys: on the pipe, (bh, query tiles) for
+    the dq pass, query tiles counted down, and (bh, key tiles) for the
+    dk/dv pass. ``stats``: the fp32 scratch the dq pass hands the dk/dv
+    pass, the (lse log2 e, delta) pairs of every row padded to whole query
+    tiles on the pipe, delta alone, (bh, sq), on the CUDA cores.
+    ``delta``: the (bh, sq) fp32 buffer the pipe's dq pass also writes
+    delta into for the bias gradient (row 10), named only with ``dbias``
+    (on the CUDA cores the stats are that delta, so it is never named)."""
+    if hd not in _UNPACKED_HEAD_DIMS:
+        raise ValueError(f"the unpacked CUDA attention kernels take head_dim "
+                         f"in {_UNPACKED_HEAD_DIMS}, got {hd}")
+    nqt, nkt = -(-sq // _FWD_TILE), -(-sk // _FWD_TILE)
+    pipe = dtype == torch.bfloat16
+    dq_tiles, dkv_tiles = _bwd_tiles(nqt, nkt, causal, dq_down=pipe)
+    if not pipe:
+        return dict(route="cuda_cores", dq_grid=(nqt, bh),
+                    dkv_grid=(nkt, bh), dq_tiles=dq_tiles,
+                    dkv_tiles=dkv_tiles, stats=(bh, sq), delta=None)
+    return dict(route="wgmma", dq_grid=(bh, nqt), dkv_grid=(bh, nkt),
+                dq_tiles=dq_tiles, dkv_tiles=dkv_tiles,
+                stats=(bh, nqt * _FWD_TILE, 2),
+                delta=(bh, sq) if dbias else None)
+
+
 def _plan_workspace(plan, device):
     n = plan["workspace"]
     return torch.empty(n, dtype=torch.float32, device=device) if n else None
@@ -1058,7 +1106,7 @@ FLASH_UNPACKED_BWD = Kernel(
     name="flash_unpacked_bwd",
     source="flash_unpacked_bwd.cu",
     symbol="flash_unpacked_bwd",
-    argtypes=[_P] * 11 + [ctypes.POINTER(_I64), _P, _I, _P] + [_I] * 7
+    argtypes=[_P] * 12 + [ctypes.POINTER(_I64), _P, _I, _P] + [_I] * 7
     + [_U, _U, _F, _F, _F, _I, _P],
     replaces="rocm_apex_tpu/ops/flash_attention.py:316 _bwd_dkv_kernel, "
              ":384 _bwd_dq_kernel (via _bwd)",
@@ -1175,7 +1223,8 @@ def _unpacked_bwd(q, k, v, bias, o, lse, do, dlse, causal, scale,
                   kv_lengths, rate, seed, compute_dbias, bshd=False):
     """The backward wrapper: dq, dk, dv as (B, H, S, D) in the operands'
     dtype and, with ``compute_dbias``, the fp32 (nb, Sq, Sk) bias
-    gradient (the dbias kernel, after the dq pass has written delta)."""
+    gradient (the dbias kernel, after the dq pass has written delta). The
+    buffers are those `flash_unpacked_bwd_plan` names."""
     nb, bias, kv_lengths = _unpacked_common(q, k, v, bias, kv_lengths)
     B, H, sq, d = q.shape
     sk = k.shape[2]
@@ -1191,22 +1240,29 @@ def _unpacked_bwd(q, k, v, bias, o, lse, do, dlse, causal, scale,
     dq = _rows_layout(B, H, sq, d, q.dtype, q.device, bshd)
     dk = _rows_layout(B, H, sk, d, q.dtype, q.device, bshd)
     dv = _rows_layout(B, H, sk, d, q.dtype, q.device, bshd)
-    delta = torch.empty((B * H, sq), dtype=torch.float32, device=q.device)
+    plan = flash_unpacked_bwd_plan(B * H, sq, sk, d, causal, q.dtype,
+                                   compute_dbias)
+    stats = torch.empty(plan["stats"], dtype=torch.float32, device=q.device)
+    delta = (torch.empty(plan["delta"], dtype=torch.float32,
+                         device=q.device)
+             if plan["delta"] is not None else None)
     flags = (B, H, sq, sk, d, int(bool(causal)), int(rate > 0.0),
              int(seed) & 0xFFFFFFFF, _dropout.threshold(rate),
              _dropout.keep_scale(rate), _q_mul(scale, q.dtype))
     if dq.numel() > 0 or dk.numel() > 0:
         FLASH_UNPACKED_BWD(
             ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(do), ptr(dlse),
-            ptr(dq), ptr(dk), ptr(dv), ptr(delta),
+            ptr(dq), ptr(dk), ptr(dv), ptr(stats), ptr(delta),
             _strides(q, k, v, o, do, dq, dk, dv), ptr(bias), nb,
             ptr(kv_lengths), *flags, float(scale), dtype_code(q.dtype),
             stream_ptr(q.device),
         )
     dbias = None
     if compute_dbias:
-        dbias = _flash_dbias(q, k, v, bias, lse, do, delta, causal, scale,
-                             kv_lengths, rate, seed)
+        # on the CUDA cores the stats are delta itself
+        dbias = _flash_dbias(q, k, v, bias, lse, do,
+                             stats if delta is None else delta, causal,
+                             scale, kv_lengths, rate, seed)
     return dq, dk, dv, dbias
 
 

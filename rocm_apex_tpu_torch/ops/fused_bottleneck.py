@@ -31,12 +31,12 @@ The bf16 backwards first write dz and u once (a pre-pass:
 each with its own rounding), then run their dgrad and their wgrad (for
 the 3x3 the taps folded into the output rows) as pipelined wgmma
 products over them; `conv3_bwd_plan` and `mm_bwd_plan` say how they
-launch and what they allocate. The bf16 3x3 forward does the same: a
-pre-pass writes u (`conv3_fwd_prepass_plain`), the product reads u's rows
-shifted by each tap, zero-filled past the image (the padding is of u),
-as `conv3_fwd_plan` says. A 1x1 backward or a 3x3 forward whose channel
-counts are not multiples of 64 runs on the staged core (the plans'
-rule), as do fp32 and the 1x1 forward.
+launch and what they allocate. The bf16 forwards do the same: under a
+prologue a pre-pass writes u (`conv3_fwd_prepass_plain`), and the product
+reads u's rows (for the 3x3 shifted by each tap, zero-filled past the
+image: the padding is of u), as `mm_fwd_plan` and `conv3_fwd_plan` say.
+A kernel whose channel counts are not multiples of 64 runs on the staged
+core (the plans' rule), as does fp32.
 
 For CUDA tensors the wrappers launch the kernels (bf16 or fp32, every
 channel count a multiple of 16) or raise; for CPU tensors they run the
@@ -82,6 +82,7 @@ __all__ = [
     "conv3_fwd_prepass_plain",
     "mm_bwd_plan",
     "mm_bwd_prepass_plain",
+    "mm_fwd_plan",
 ]
 
 _P = ctypes.c_void_p
@@ -91,7 +92,7 @@ BNECK_MM_FWD = Kernel(
     name="bneck_mm_fwd",
     source="bottleneck_fwd.cu",
     symbol="bneck_mm_fwd",
-    argtypes=[_P] * 8 + [_L, _I, _I, _I, _P],
+    argtypes=[_P] * 9 + [_L, _I, _I, _I, _I, _I, _P],
     replaces="rocm_apex_tpu/ops/fused_bottleneck.py:112 _mm_fwd_kernel",
 )
 BNECK_CONV3_FWD = Kernel(
@@ -122,10 +123,10 @@ _TILE_M = {torch.bfloat16: 128, torch.float32: 64}
 _TILE_N = {torch.bfloat16: 64, torch.float32: 64}
 _CHUNK = {torch.bfloat16: 32, torch.float32: 16}
 _RED_CHUNK = 256  # parts a reduction block sums (kRedChunk)
-# the bf16 backwards' tiles (csrc/bottleneck_pipe.cuh PCfg): 128 output
-# rows, 128 columns where the count divides by 128 (else 64), 64-deep
-# chunks; the 1x1 takes the pipe where both its channel counts divide by
-# the chunk (every ResNet-50 width), else the staged core
+# the pipe's tiles (csrc/bottleneck_pipe.cuh PCfg): 128 output rows, 128
+# columns where the count divides by 128 (else 64), 64-deep chunks; a bf16
+# kernel takes the pipe where its channel counts divide by the chunk
+# (every ResNet-50 width), else the staged core
 _PIPE_TILE_M, _PIPE_CHUNK = 128, 64
 
 
@@ -422,12 +423,51 @@ def _pipe_splits(m: int, out_tiles: int, sms: int) -> Tuple[int, int]:
     return split_len, max(1, -(-m // split_len))
 
 
-def conv3_fwd_plan(m: int, cin: int, cout: int, dt, sms: int) -> dict:
+def _fwd_plan(m: int, k: int, n: int, dt, prologue: bool) -> dict:
+    """The forwards' shared plan over ``m`` pixels of ``k`` channels in
+    and ``n`` out: the pipe for bf16 with k and n multiples of 64, tiles
+    of 128 pixels x ``bn`` = 128 channels where n divides by 128, else 64;
+    otherwise the staged core (``bn`` 0). ``parts``: one (Σy, Σy²)
+    partial row a pixel tile; ``u``: the pre-pass's rows, on the pipe
+    under a ``prologue``."""
+    if dt == torch.bfloat16 and k % _PIPE_CHUNK == 0 and n % _PIPE_CHUNK == 0:
+        bn = _pipe_cols(n)
+        tiles = -(-m // _PIPE_TILE_M)
+        return dict(route="pipe", bn=bn, grid=(tiles, n // bn, 1),
+                    parts=(tiles, 2 * n), u=(m, k) if prologue else None)
+    tiles = -(-m // _TILE_M[dt])
+    return dict(route="staged", bn=0, grid=(tiles, -(-n // _TILE_N[dt]), 1),
+                parts=(tiles, 2 * n), u=None)
+
+
+def mm_fwd_plan(m: int, k: int, n: int, dt, sms: int,
+                prologue: bool = True) -> dict:
+    """How `conv1x1_bn_act` launches on ``sms`` multiprocessors for ``m``
+    pixels, w (k, n): its ``route``, the tile width ``bn``, the product's
+    ``grid`` (pixel tiles x N tiles), the shape of the tile partials
+    ``parts`` (summed into the statistics) and of the pre-pass's bf16 ``u``
+    (named on the pipe only for a call with a ``prologue``; the wrapper
+    allocates what is named).
+
+    ``"pipe"`` (csrc/bottleneck_pipe.cuh, `conv3_fwd_plan`'s product with
+    one tap) takes bf16 with k and n multiples of 64 (`mm_bwd_plan`'s
+    rule), in tiles of 128 pixels x ``bn`` = 128 channels where n divides
+    by 128 (layer4's conv1, n 512: 49 x 4 = 196 blocks of the 264 a wave
+    of two a multiprocessor holds on 132), else 64. Other widths, and
+    fp32, take ``"staged"`` (csrc/bottleneck.cuh, ``bn`` 0). A shape rule,
+    decided here before any launch; ``sms`` (the pre-pass's grid, which
+    the kernel sizes) changes none of it."""
+    return _fwd_plan(m, k, n, dt, prologue)
+
+
+def conv3_fwd_plan(m: int, cin: int, cout: int, dt, sms: int,
+                   prologue: bool = True) -> dict:
     """How `conv3x3_bn_act` launches on ``sms`` multiprocessors for ``m``
     pixels: its ``route``, the tile width ``bn``, the product's ``grid``
     (pixel tiles x Cout tiles), the shape of the tile partials ``parts``
-    (summed into the statistics) and of the pre-pass's bf16 ``u`` (the
-    wrapper allocates it where the call has a prologue).
+    (summed into the statistics) and of the pre-pass's bf16 ``u`` (named
+    on the pipe only for a call with a ``prologue``; the wrapper allocates
+    what is named).
 
     ``"pipe"`` (csrc/bottleneck_pipe.cuh, as the 3x3 backward's dgrad)
     takes bf16 with cin and cout multiples of 64 (`mm_bwd_plan`'s rule:
@@ -438,16 +478,7 @@ def conv3_fwd_plan(m: int, cin: int, cout: int, dt, sms: int) -> dict:
     ``"staged"`` (csrc/bottleneck.cuh, ``bn`` 0). A shape rule, decided
     here before any launch; ``sms`` (the pre-pass's grid, which the
     kernel sizes) changes none of it."""
-    if dt == torch.bfloat16 and cin % _PIPE_CHUNK == 0 and \
-            cout % _PIPE_CHUNK == 0:
-        bn = _pipe_cols(cout)
-        tiles = -(-m // _PIPE_TILE_M)
-        return dict(route="pipe", bn=bn, grid=(tiles, cout // bn, 1),
-                    parts=(tiles, 2 * cout), u=(m, cin))
-    tiles = -(-m // _TILE_M[dt])
-    return dict(route="staged", bn=0,
-                grid=(tiles, -(-cout // _TILE_N[dt]), 1),
-                parts=(tiles, 2 * cout), u=None)
+    return _fwd_plan(m, cin, cout, dt, prologue)
 
 
 def conv3_bwd_plan(m: int, cin: int, cout: int, dt, sms: int) -> dict:
@@ -528,7 +559,8 @@ def conv1x1_bn_act(
     x2d: (M, K) raw upstream conv output (or the block input, with
     scale/bias None: no activation); w: (K, N). Returns y (M, N) in x's
     dtype and, with ``stats``, the per-channel (sum, sum_sq) of y in fp32
-    from the unrounded product."""
+    from the unrounded product. On the card it runs on the route
+    `mm_fwd_plan` gives its shape."""
     if x2d.device.type == "cpu":
         return conv1x1_bn_act_plain(x2d, w, scale, bias, stats)
     _require_cuda(x2d)
@@ -536,17 +568,23 @@ def conv1x1_bn_act(
     m, k = x2d.shape
     n = w.shape[1]
     _check_channels(dt, k, n)
-    # the kernel stages w^T straight: rows of K contiguous values
+    # the kernels read w^T straight: rows of K contiguous values
     x2d, wt = _dense(x2d), _dense(w.t(), dt)
+    sms = sm_count(x2d.device)
+    plan = mm_fwd_plan(m, k, n, dt, sms, prologue=scale is not None)
     y = torch.empty(m, n, dtype=dt, device=x2d.device)
     part = scratch = sums = None
     if stats:
         part, scratch = _parts(m, 2 * n, dt, x2d.device)
         sums = torch.empty(2, n, dtype=torch.float32, device=x2d.device)
+    # the pipe's pre-pass output under a prologue: transient
+    ubuf = (torch.empty(plan["u"], dtype=dt, device=x2d.device)
+            if plan["u"] is not None else None)
     if m:
         BNECK_MM_FWD(ptr(x2d), ptr(_vec(scale)), ptr(_vec(bias)), ptr(wt),
-                     ptr(y), ptr(part), ptr(scratch), ptr(sums), m, k, n,
-                     dtype_code(dt), stream_ptr(x2d.device))
+                     ptr(y), ptr(part), ptr(scratch), ptr(sums), ptr(ubuf),
+                     m, k, n, plan["bn"], sms, dtype_code(dt),
+                     stream_ptr(x2d.device))
     return y, ((sums[0], sums[1]) if stats else None)
 
 
@@ -573,7 +611,7 @@ def conv3x3_bn_act(
     wt = _dense(w.reshape(9, cin, cout).transpose(1, 2), dt)  # (9, Cout, Cin)
     m = nimg * hgt * wid
     sms = sm_count(x.device)
-    plan = conv3_fwd_plan(m, cin, cout, dt, sms)
+    plan = conv3_fwd_plan(m, cin, cout, dt, sms, prologue=scale is not None)
     y = torch.empty(nimg, hgt, wid, cout, dtype=dt, device=x.device)
     part = scratch = sums = None
     if stats:
@@ -581,7 +619,7 @@ def conv3x3_bn_act(
         sums = torch.empty(2, cout, dtype=torch.float32, device=x.device)
     # the pipe's pre-pass output under a prologue: transient
     ubuf = (torch.empty(plan["u"], dtype=dt, device=x.device)
-            if plan["route"] == "pipe" and scale is not None else None)
+            if plan["u"] is not None else None)
     if m:
         BNECK_CONV3_FWD(ptr(x), ptr(_vec(scale)), ptr(_vec(bias)), ptr(wt),
                         ptr(y), ptr(part), ptr(scratch), ptr(sums),

@@ -21,6 +21,13 @@ the key split it may choose, on the CPU.
   of results: the plain backward on the biased projection with no bias
   gives the same dqkv bits, and that dqkv's column sums are the bias's
   cotangent.
+- The unpacked backward's host plan (`flash_unpacked_bwd_plan`), on the
+  same tile lists: every live (query tile, key tile) pair once in each
+  pass, causal (top-left) and not, at sq = sk and sq != sk both ways;
+  bf16 on the wgmma pipe at head_dim 64 and 128, fp32 on the CUDA cores,
+  other head dims raise; the stats padded to whole query tiles; the delta
+  buffer named only for the bias gradient. The packed plan's tile lists
+  are those it gave before the two plans shared them.
 """
 
 import math
@@ -260,3 +267,85 @@ def test_bwd_on_the_biased_projection_is_the_bias_form(dt, causal, rate):
         np.testing.assert_array_less(
             (dqkv2.sum(dim=(0, 1)).reshape(-1) - dbias).abs().numpy(),
             (1e-6 * l1 + 1e-30).numpy())
+
+
+# (sq, sk) of the unpacked backward: masked BERT, the whole-prompt
+# window, and chip_smoke.py's ragged shapes both ways
+UNPACKED_BWD_SHAPES = [(512, 512), (768, 768), (200, 333), (333, 200)]
+
+
+def _live_tile_pairs(sq, sk, causal):
+    """The (query tile, key tile) pairs holding at least one attended
+    (query, key): top-left causal keeps key <= query."""
+    nqt, nkt = -(-sq // TILE), -(-sk // TILE)
+    return sorted((qt, kt) for qt in range(nqt) for kt in range(nkt)
+                  if not causal or kt * TILE <= min(qt * TILE + TILE, sq) - 1)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", UNPACKED_BWD_SHAPES)
+def test_unpacked_bwd_plan_covers_every_live_pair_once(sq, sk, causal):
+    bh = 64
+    plan = fa.flash_unpacked_bwd_plan(bh, sq, sk, 128, causal)
+    nqt, nkt = -(-sq // TILE), -(-sk // TILE)
+    assert plan["route"] == "wgmma"
+    assert plan["dq_grid"] == (bh, nqt) and plan["dkv_grid"] == (bh, nkt)
+    want = _live_tile_pairs(sq, sk, causal)
+    dq = [(qt, kt) for qt, lo, hi in plan["dq_tiles"]
+          for kt in range(lo, hi)]
+    dkv = [(qt, kt) for kt, lo, hi in plan["dkv_tiles"]
+           for qt in range(lo, hi)]
+    # each pair once: no repeats, none missing, none dead
+    assert sorted(dq) == want and sorted(dkv) == want
+    assert len(set(dq)) == len(dq) and len(set(dkv)) == len(dkv)
+    # a block a tile: every query row and every key once
+    assert [t for t, _, _ in plan["dq_tiles"]] == list(reversed(range(nqt)))
+    assert [t for t, _, _ in plan["dkv_tiles"]] == list(range(nkt))
+    for tiles in (plan["dq_tiles"], plan["dkv_tiles"]):
+        walks = [max(hi - lo, 0) for _, lo, hi in tiles]
+        assert walks == sorted(walks, reverse=True)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_unpacked_bwd_plan_routes_by_dtype_and_head_dim(hd):
+    bf = fa.flash_unpacked_bwd_plan(8, 300, 300, hd, False, torch.bfloat16)
+    assert bf["route"] == "wgmma"
+    fp32 = fa.flash_unpacked_bwd_plan(8, 300, 300, hd, False, torch.float32,
+                                      True)
+    assert fp32["route"] == "cuda_cores"
+    # the CUDA cores' stats are delta itself, which the bias gradient reads
+    assert fp32["stats"] == (8, 300) and fp32["delta"] is None
+    assert fp32["dq_grid"] == (5, 8) and fp32["dkv_grid"] == (5, 8)
+    for dt in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_unpacked_bwd_plan(8, 300, 300, 96, False, dt)
+
+
+@pytest.mark.parametrize("dbias", [False, True])
+def test_unpacked_bwd_plan_pads_stats_and_names_delta_for_dbias(dbias):
+    plan = fa.flash_unpacked_bwd_plan(8, 200, 333, 64, True, torch.bfloat16,
+                                      dbias)
+    # (lse log2 e, delta) pairs of whole query tiles: 200 rows -> 256
+    assert plan["stats"] == (8, 256, 2)
+    assert plan["delta"] == ((8, 200) if dbias else None)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("batch,seq,heads", BWD_SHAPES)
+def test_bwd_plan_tile_lists_are_the_packed_ones(batch, seq, heads, causal,
+                                                 dt):
+    """`flash_bwd_plan` on the shared tile helper lists what it listed
+    before: on the pipe query tiles counted down, on the CUDA cores up."""
+    tiles = -(-seq // TILE)
+    plan = fa.flash_bwd_plan(batch, seq, heads, 128, causal, dt)
+    order = (reversed(range(tiles)) if dt == torch.bfloat16
+             else range(tiles))
+    assert plan["dq_tiles"] == [(t, 0, t + 1 if causal else tiles)
+                                for t in order]
+    assert plan["dkv_tiles"] == [(t, t if causal else 0, tiles)
+                                 for t in range(tiles)]
+    # the unpacked plan at sq = sk gives the same lists
+    un = fa.flash_unpacked_bwd_plan(batch * heads, seq, seq, 128, causal, dt)
+    assert (un["dq_tiles"], un["dkv_tiles"]) == (plan["dq_tiles"],
+                                                plan["dkv_tiles"])

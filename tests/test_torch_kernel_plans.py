@@ -23,6 +23,13 @@ steps they add, on the CPU.
   buffer; the pipe's chain (the pre-pass, then the bare 3x3 on the
   zero-padded u) equal bit for bit to the prologue form's plain version,
   and held against the JAX package's `conv3x3_bn_act` in interpret mode.
+- The 1x1 forward (``csrc/bottleneck_fwd.cu`` `MmFwdPipe`): `mm_fwd_plan`
+  sends every 1x1 forward of ResNet-50's 13 fused blocks to the pipe and
+  other widths and fp32 to the staged core, its grid covering M and N
+  once, one partial a 128-pixel tile, u named only under a prologue; the
+  chain (the pre-pass, then the bare 1x1) equal bit for bit to the
+  prologue form's plain version, and held against the JAX package's
+  `conv1x1_bn_act` in interpret mode at a ragged M with b > 0.
 """
 
 import jax.numpy as jnp
@@ -557,3 +564,125 @@ def test_mm_pipe_chain_matches_jax(form):
         ref = np.asarray(ref)
         np.testing.assert_allclose(got.numpy(), ref, rtol=0.0,
                                    atol=1e-4 * float(np.abs(ref).max()))
+
+
+# ---------------------------------------------------------------------------
+# the 1x1 forward
+# ---------------------------------------------------------------------------
+
+# every 1x1 forward of ResNet-50's 13 fused blocks at B 128, as (block,
+# form, M, K, N): conv1 (Cin -> Cmid, bare), conv3 (Cmid -> Cout, under
+# the bn2 prologue), and layer1_0's downsample (Cin -> Cout, bare); the
+# blocks of one stage share their shapes
+K1_BLOCKS = [("layer1_0", 56, 64, 64, 256, True),
+             ("layer1_1,2", 56, 256, 64, 256, False),
+             ("layer2_1..3", 28, 512, 128, 512, False),
+             ("layer3_1..5", 14, 1024, 256, 1024, False),
+             ("layer4_1,2", 7, 2048, 512, 2048, False)]
+K1_CASES = [(f"{b} {form}", 128 * h * h, k, n, form == "conv3")
+            for b, h, cin, cmid, cout, ds in K1_BLOCKS
+            for form, k, n in (("conv1", cin, cmid), ("conv3", cmid, cout))
+            + ((("downsample", cin, cout),) if ds else ())]
+
+
+@pytest.mark.parametrize("name,m,k,n,prologue", K1_CASES)
+def test_mm_fwd_plan_takes_the_pipe_at_every_block_shape(name, m, k, n,
+                                                         prologue):
+    """bf16 at multiples of 64 channels: tiles of 128 pixels x 128
+    channels where N divides by 128, else 64; the grid covers M and N
+    once; one (Σy, Σy²) partial row a 128-pixel tile; u the pre-pass's
+    (M, K) rows only under a prologue."""
+    plan = fb.mm_fwd_plan(m, k, n, torch.bfloat16, H100_SMS, prologue)
+    assert plan["route"] == "pipe"
+    bn = plan["bn"]
+    assert bn == (128 if n % 128 == 0 else 64)
+    rows, cols, depth = plan["grid"]
+    assert depth == 1 and cols * bn == n
+    assert (rows - 1) * 128 < m <= rows * 128
+    assert plan["parts"] == (-(-m // 128), 2 * n)
+    assert plan["u"] == ((m, k) if prologue else None)
+
+
+def test_mm_fwd_plan_fills_layer4_with_wide_tiles():
+    """layer4's conv1 (N 512): 49 pixel tiles x 4 tiles of 128 channels,
+    196 blocks of the 264 a wave of two a multiprocessor holds."""
+    plan = fb.mm_fwd_plan(128 * 7 * 7, 2048, 512, torch.bfloat16, H100_SMS)
+    assert plan["grid"] == (49, 4, 1) and plan["bn"] == 128
+
+
+@pytest.mark.parametrize("k,n,dt", [
+    (48, 48, torch.bfloat16), (48, 80, torch.bfloat16),
+    (16, 32, torch.bfloat16), (64, 80, torch.bfloat16),
+    (64, 64, torch.float32), (256, 1024, torch.float32)])
+def test_mm_fwd_plan_sends_other_widths_and_fp32_to_the_staged_core(k, n,
+                                                                    dt):
+    m = 3 * 7 * 7
+    plan = fb.mm_fwd_plan(m, k, n, dt, H100_SMS)
+    assert plan["route"] == "staged" and plan["bn"] == 0
+    assert plan["u"] is None
+    tm, tn = fb._TILE_M[dt], fb._TILE_N[dt]
+    rows, cols, _ = plan["grid"]
+    assert (rows - 1) * tm < m <= rows * tm
+    assert (cols - 1) * tn < n <= cols * tn
+    assert plan["parts"] == (rows, 2 * n)
+
+
+def _mm_fwd_inputs(seed, m, k, n, dt):
+    rng = np.random.default_rng(seed)
+
+    def draw(*s, scale=1.0, shift=0.0):
+        return torch.from_numpy(
+            (shift + scale * rng.standard_normal(s)).astype(np.float32))
+
+    # b > 0: relu(b) != 0, so a padded row of u entering the sums would
+    # show in both of them
+    return (draw(m, k).to(dt), draw(k, n, scale=0.3),
+            draw(k, scale=0.2, shift=1.0), draw(k, scale=0.1,
+                                                shift=0.5).abs())
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_mm_fwd_chain_is_bit_equal_to_the_prologue_form(dt):
+    """The pre-pass's u, then the bare 1x1, gives the prologue form's y
+    and sums bit for bit: the pipe's products see what the staged core's
+    do."""
+    x, w, a, b = _mm_fwd_inputs(53, 147, 64, 128, dt)
+    u = fb.conv3_fwd_prepass_plain(x, a, b)
+    assert u.dtype == dt and torch.equal(u, fb._apply_dt(x, a, b))
+    y, sums = fb.conv1x1_bn_act_plain(u, w)
+    ry, rsums = fb.conv1x1_bn_act_plain(x, w, a, b)
+    assert torch.equal(y, ry)
+    assert torch.equal(sums[0], rsums[0]) and torch.equal(sums[1], rsums[1])
+
+
+def test_mm_fwd_chain_matches_jax():
+    """The pipe's chain in plain PyTorch against the JAX package's
+    `conv1x1_bn_act` (`_mm_fwd_kernel` in interpret mode) at fp32 on a
+    ragged M (147 pixels: no 128-pixel tile divides it), b > 0: y at
+    test_torch_fused_bottleneck.py's 1e-5, the sums within 1e-4 of their
+    largest |value|."""
+    from rocm_apex_tpu.ops import fused_bottleneck as jfb
+
+    m, k, n = 147, 64, 128
+    x, w, a, b = _mm_fwd_inputs(54, m, k, n, torch.float32)
+    assert float(b.min()) > 0 and m % 128
+    assert fb.mm_fwd_plan(m, k, n, torch.bfloat16, H100_SMS)["route"] == \
+        "pipe"
+    u = fb.conv3_fwd_prepass_plain(x, a, b)
+    y, sums = fb.conv1x1_bn_act_plain(u, w)
+    jy, jsums = jfb.conv1x1_bn_act(*(jnp.asarray(t.numpy())
+                                     for t in (x, w, a, b)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    for got, ref in zip(sums, jsums):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0.0,
+                                   atol=1e-4 * float(np.abs(ref).max()))
+
+
+def test_conv3_fwd_plan_names_u_only_under_a_prologue():
+    """The 3x3's plan, on the same rule: the bare form reads x itself."""
+    m = 128 * 14 * 14
+    assert fb.conv3_fwd_plan(m, 256, 256, torch.bfloat16, H100_SMS,
+                             prologue=False)["u"] is None
+    assert fb.conv3_fwd_plan(m, 256, 256, torch.bfloat16,
+                             H100_SMS)["u"] == (m, 256)
