@@ -450,45 +450,84 @@ def compare(got, ref, extra=None, tols=None):
 # ---------------------------------------------------------------------------
 
 
+# the device kernels of each route of the LayerNorm forward's plan
+# (csrc/layer_norm.cu, ops/layer_norm.py `ln_fwd_plan`)
+LN_ROUTE_KERNELS = {"warp": ("ln_fwd_warp_kernel",),
+                    "block": ("ln_fwd_block_kernel",),
+                    "three_pass": ("ln_fwd_kernel",)}
+
+
+def check_ln_fwd(kern, ref, x, d, w, b, what):
+    """A LayerNorm forward case against its plan: launched twice, the
+    same bits; the residual stream s equal to the plain version's bit for
+    bit (elementwise, the same fp32 sum and keep bits); one call's device
+    kernels those of the route `ln_fwd_plan` names. Returns the route's
+    label for the case name."""
+    from rocm_apex_tpu_torch.ops import layer_norm as ln
+
+    got = [t for t in kern() if t is not None]
+    check(_same_bits(got, [t for t in kern() if t is not None]),
+          f"{what}: two launches of the forward differ")
+    if d is not None:
+        check(torch.equal(kern()[1], ref[1]),
+              f"{what}: the stream s differs from the plain version's")
+    plan = ln._plan_of(x, d, w, b)
+    return check_launches(kern, LN_ROUTE_KERNELS, plan["route"], what)
+
+
 def ln_cases(dev):
+    """The LayerNorm forward of the serve (bf16 or fp32 x, fp32 weights
+    and y): 256 and 8 rows of 1024 (the chunk and the decode tick), the
+    mixed tick's 264 rows in bf16, a single row, plain and residual; a
+    width off the 16-byte vector grid (1002) and one past the register
+    row's cap (16384 keys of bf16), which take the three-pass kernel.
+    Every case launched twice for the same bits, its route checked
+    against `ln_fwd_plan`."""
     from rocm_apex_tpu_torch.ops import layer_norm as ln
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    for rows in (256, 8):
-        for residual in (False, True):
-            for dt in (torch.bfloat16, torch.float32):
-                h = SERVE["hidden_size"]
-                x = torch.randn(rows, h, device=dev, generator=gen).to(dt)
-                d = (torch.randn(rows, h, device=dev, generator=gen)
-                     .to(dt) if residual else None)
-                w = 1.0 + 0.1 * torch.randn(h, device=dev, generator=gen)
-                b = 0.1 * torch.randn(h, device=dev, generator=gen)
-                out_dt = torch.float32  # the mixed contract: weight dtype
+    h = SERVE["hidden_size"]
+    shapes = [(rows, h, residual, dt) for rows in (256, 8)
+              for residual in (False, True)
+              for dt in (torch.bfloat16, torch.float32)]
+    shapes += [(264, h, False, torch.bfloat16), (264, h, True, torch.bfloat16),
+               (1, h, False, torch.bfloat16), (8, 1002, False, torch.bfloat16),
+               (8, 1002, True, torch.float32),
+               (2, 16384, False, torch.bfloat16)]
+    for rows, hid, residual, dt in shapes:
+        x = torch.randn(rows, hid, device=dev, generator=gen).to(dt)
+        d = (torch.randn(rows, hid, device=dev, generator=gen)
+             .to(dt) if residual else None)
+        w = 1.0 + 0.1 * torch.randn(hid, device=dev, generator=gen)
+        b = 0.1 * torch.randn(hid, device=dev, generator=gen)
+        out_dt = torch.float32  # the mixed contract: weight dtype
 
-                def kern():
-                    return ln._ln_fwd_impl(x, d, w, b, 1e-5, out_dt)
+        def kern(x=x, d=d, w=w, b=b):
+            return ln._ln_fwd_impl(x, d, w, b, 1e-5, out_dt)
 
-                def plain():
-                    return ln.layer_norm_fwd_plain(x, d, w, b, 1e-5, out_dt)
+        def plain(x=x, d=d, w=w, b=b):
+            return ln.layer_norm_fwd_plain(x, d, w, b, 1e-5, out_dt)
 
-                got, ref = kern(), plain()
-                wl, bl = w.to(dt), b.to(dt)
-                lib = None if residual else (
-                    lambda: F.layer_norm(x, (h,), wl, bl, 1e-5))
-                moved = nbytes(x, d, w, b, *got)
-                yield dict(
-                    kernel="layer_norm_fwd",
-                    case=f"{'residual' if residual else 'plain'} "
-                         f"({rows}, {h}) {str(dt)[6:]}",
-                    dtype=dt, cmp=compare(got, ref), kern=kern,
-                    plain=plain, lib=lib, nbytes=moved, ops=8 * rows * h,
-                    headline=(rows == 8 and not residual
-                              and dt == torch.bfloat16),
-                    # the library call once more, after every other
-                    # timing of the case: warm
-                    extra_timings=({"library_again_ms": lib}
-                                   if lib is not None else {}),
-                )
+        got, ref = kern(), plain()
+        case = (f"{'residual' if residual else 'plain'} ({rows}, {hid}) "
+                f"{str(dt)[6:]}")
+        route = check_ln_fwd(kern, ref, x, d, w, b, f"layer_norm_fwd {case}")
+        wl, bl = w.to(dt), b.to(dt)
+        lib = None if residual else (
+            lambda x=x, wl=wl, bl=bl, hid=hid: F.layer_norm(
+                x, (hid,), wl, bl, 1e-5))
+        yield dict(
+            kernel="layer_norm_fwd", case=f"{case}, {route}",
+            dtype=dt, cmp=compare(got, ref), kern=kern,
+            plain=plain, lib=lib, nbytes=nbytes(x, d, w, b, *got),
+            ops=8 * rows * hid,
+            headline=(rows == 8 and hid == h and not residual
+                      and dt == torch.bfloat16),
+            # the library call once more, after every other timing of
+            # the case: warm
+            extra_timings=({"library_again_ms": lib}
+                           if lib is not None else {}),
+        )
 
 
 def _qkv(t, heads, d, dt, dev, gen):
@@ -1062,10 +1101,13 @@ def _l1_tol(abs_terms_sum):
 
 def train_ln_cases(dev):
     """The LayerNorms of the training step on its (16384, 1024) rows:
-    the residual forward with dropout (16 of the step's 17 forwards),
-    and the backward with the stream cotangent and the regenerated
-    dropout mask (16 of 17) and in the plain affine form (layer 0's
-    ln1)."""
+    the residual forward with dropout (16 of the step's 17 forwards:
+    launched twice for the same bits, s equal to the plain version's bit
+    for bit, its route checked against `ln_fwd_plan`), and the backward
+    with the stream cotangent and the regenerated dropout mask (16 of 17;
+    dd 0 exactly where the forward dropped) and in the plain affine form
+    (layer 0's ln1)."""
+    from rocm_apex_tpu_torch.ops import _dropout
     from rocm_apex_tpu_torch.ops import layer_norm as ln
 
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1084,15 +1126,19 @@ def train_ln_cases(dev):
         def fplain(x=x, d=d, w=w, b=b, dt=dt):
             return ln.layer_norm_fwd_plain(x, d, w, b, 1e-5, dt, rate, seed)
 
-        got = fkern()
+        got, ref = fkern(), fplain()
+        case = f"residual+dropout {rate} ({rows}, {h}) {str(dt)[6:]}"
+        route = check_ln_fwd(fkern, ref, x, d, w, b,
+                             f"layer_norm_fwd_dropout {case}")
         yield dict(
-            kernel="layer_norm_fwd_dropout",
-            case=f"residual+dropout {rate} ({rows}, {h}) {str(dt)[6:]}",
-            dtype=dt, cmp=compare(got, fplain()), kern=fkern, plain=fplain,
+            kernel="layer_norm_fwd_dropout", case=f"{case}, {route}",
+            dtype=dt, cmp=compare(got, ref), kern=fkern, plain=fplain,
             lib=None, nbytes=nbytes(x, d, w, b, *got), ops=10 * rows * h,
             headline=dt == torch.bfloat16, iters=50,
         )
+        del ref
         _, s_, mu, rs = got
+        keep = _dropout.keep_mask(seed, rate, (rows, h), device=dev)
         dy = torch.randn(rows, h, device=dev, generator=gen).to(dt)
         ds = torch.randn(rows, h, device=dev, generator=gen).to(dt)
         xh = (s_.float() - mu[:, None]) * rs[:, None]
@@ -1116,6 +1162,12 @@ def train_ln_cases(dev):
                 F.layer_norm(xg, (h,), wg, bg, 1e-5).backward(dy)
 
             got = bkern()
+            if r > 0.0:
+                # the backward regenerates the forward's keep bits: dd is
+                # 0 exactly where the forward dropped the delta
+                check(torch.equal(got[1] != 0, keep & (got[0] != 0)),
+                      f"layer_norm_bwd {form}: dd's zeros are not the "
+                      f"forward's dropped elements")
             extra = [None, None, _l1_tol((dy.float() * xh).abs().sum(0)),
                      _l1_tol(dy.float().abs().sum(0))]
             yield dict(
@@ -2213,6 +2265,12 @@ SOFTMAX_GPT = (TRAIN_BATCH * TRAIN["num_attention_heads"], TRAIN_SEQ,
 SOFTMAX_BERT = (BERT_BATCH, BERT["num_attention_heads"], BERT_SEQ, BERT_SEQ)
 
 
+# the device kernels of each route of the masked softmax forward's plan
+# (csrc/softmax.cu, ops/softmax.py `softmax_fwd_plan`)
+SOFTMAX_ROUTE_KERNELS = {"register": ("softmax_masked_reg_kernel",),
+                         "streaming": ("softmax_fwd_kernel",)}
+
+
 def _causal_live(sq, sk):
     """Score columns the causal forward reads: min(r + 1, sk) a row."""
     return int(np.minimum(np.arange(1, sq + 1), sk).sum())
@@ -2227,11 +2285,16 @@ def softmax_cases(dev):
     backward there. Others: the GPT shape in bf16 and fp16 (as
     `FusedScaleMaskSoftmax` takes them), sk 333 and 1 (the scalar form),
     rows of 8192 and 16384 keys (a block a row), the mask broadcasts
-    (b, 1, 1, sk) and (1, 1, sq, sk) and none, sq != sk. Library
+    (b, 1, 1, sk) and (1, 1, sq, sk) and none, sq != sk; for K2 also
+    rows of 2048 and 2049 keys (the last register row, the first
+    streaming one), a mask of last stride 2 (read a byte a column) and
+    masked BERT's scores in bf16. Every K2 case is launched twice for the
+    same bits and its route checked against `softmax_fwd_plan`. Library
     yardsticks: `torch.softmax(x, -1)` on the same tensor for the
-    forwards, `torch._softmax_backward_data` for the backward. Bounds
-    count what each call must move: the causal forward reads only the
-    columns at or left of the diagonal."""
+    forwards (for the headline cases timed again, warm, after the rest),
+    `torch._softmax_backward_data` for the backward. Bounds count what
+    each call must move: the causal forward reads only the columns at or
+    left of the diagonal."""
     from rocm_apex_tpu_torch.models.bert import bert_extended_attention_mask
     from rocm_apex_tpu_torch.ops import softmax as sm
 
@@ -2266,11 +2329,28 @@ def softmax_cases(dev):
                                device=dev).triu(1)
             if not bool((got[:, upper] == 0).all()):
                 cmp["ratio"] = math.inf  # the upper triangle is exactly 0
+        else:
+            # K2: two launches give the same bits; the call's kernels are
+            # those of the route `softmax_fwd_plan` names
+            check(torch.equal(got, kern()),
+                  f"{name} {case}: two launches differ")
+            plan = sm._masked_plan_of(
+                x, None if mask is None else sm._expand_mask(mask, x))
+            route = check_launches(kern, SOFTMAX_ROUTE_KERNELS,
+                                   plan["route"], f"{name} {case}")
+            case = (f"{case}, {route}"
+                    + (f", {plan['mask']} mask" if plan["mask"] else ""))
+        def lib(x=x):
+            return torch.softmax(x, -1)
+
         return dict(kernel=name, case=case, dtype=x.dtype, cmp=cmp,
-                    kern=kern, plain=plain,
-                    lib=lambda x=x: torch.softmax(x, -1),
+                    kern=kern, plain=plain, lib=lib,
                     library="torch.softmax(x, -1)",
                     nbytes=nb, ops=5 * live, headline=headline,
+                    # the library call once more, after every other
+                    # timing of the case: warm
+                    extra_timings=({"library_again_ms": lib} if headline
+                                   else {}),
                     iters=20 if x.numel() > 2**26 else 100, plain_iters=3)
 
     def bwd_case(case, y, scale, headline=False):
@@ -2355,6 +2435,24 @@ def softmax_cases(dev):
                    "(2, 2, 64, 16384) fp32, mask (2, 1, 1, 16384)", x, m, 0.1)
     yield bwd_case("(2, 2, 64, 16384) fp32",
                    sm.softmax_masked_fwd(x, m, 0.1), 0.1)
+    # K2's register rows at their longest, the streaming rows past them
+    for sk in (2048, 2049):
+        m = torch.rand((2, 1, 1, sk), device=dev, generator=gen) < 0.1
+        yield fwd_case("softmax_masked_fwd",
+                       f"(2, 4, 32, {sk}) fp32, mask (2, 1, 1, {sk})",
+                       scores((2, 4, 32, sk), torch.float32), m, 0.1)
+    # a mask read through a last stride of 2 (the strided form)
+    m = (torch.rand((2, 1, 64, 1024), device=dev, generator=gen)
+         < 0.2)[..., ::2]
+    yield fwd_case("softmax_masked_fwd",
+                   "(2, 4, 64, 512) fp32, mask (2, 1, 64, 1024)[..., ::2]",
+                   scores((2, 4, 64, 512), torch.float32), m, 0.5)
+    # masked BERT-Large's scores in bf16
+    x = scores(SOFTMAX_BERT, torch.bfloat16)
+    yield fwd_case("softmax_masked_fwd",
+                   f"masked BERT {SOFTMAX_BERT} bf16, mask "
+                   f"{tuple(mask.shape)}", x, mask, bert_scale)
+    del x
     # mask broadcasts and sq != sk
     m = torch.rand((1, 1, 100, 200), device=dev, generator=gen) < 0.3
     x = scores((2, 4, 100, 200), torch.float32)

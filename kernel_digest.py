@@ -24,6 +24,16 @@ script), runs on one CUDA device, on inputs drawn from fixed seeds:
   (row 11, the GPT train cell's, bf16 and fp32), each backward on a
   forward's outputs made here by plain torch ops, so that two trees feed
   it the same o and lse;
+- the LayerNorm forward (row 1: the serve's form, (8, 1024) and (264,
+  1024) bf16 -> fp32; the training form, (16384, 1024) residual +
+  dropout 0.1, bf16 and fp32, its stream s apart from y, mean and
+  rsigma) and backward (row 2: the training step's residual + dropout
+  form with the stream cotangent, bf16 and fp32, and its plain affine
+  form, on statistics made by torch ops);
+- the softmax kernels (row 12: the causal forward K1 at the GPT train
+  cell's (128, 1024, 1024) scores, the masked forward K2 at masked
+  BERT-Large's (8, 8, 512, 512) under a padding mask, the backward K3 at
+  both shapes on a softmax made by torch ops; fp32 and bf16);
 
 and prints one JSON line: the sha256 of each call's outputs. Two trees
 whose lines agree give those kernels the same bits on the same card and
@@ -124,6 +134,67 @@ def _flash_digests(out, fa, fas, dev, gen):
             qkv, pbias, o, lse, do, True, hd ** -0.5, 0.1, 11))
 
 
+def _row_digests(out, ln, sm, dev):
+    """Rows 1, 2 and 12 (the LayerNorm and softmax kernels), on inputs of
+    their own generator."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def rnd(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(*shape, generator=gen,
+                                            device=dev)).to(dtype)
+
+    h = 1024
+    for rows in (8, 264):
+        x = rnd(rows, h, dtype=torch.bfloat16)
+        w, b = rnd(h, scale=0.1, shift=1.0), rnd(h, scale=0.1)
+        y, _, mu, rs = ln._ln_fwd_impl(x, None, w, b, 1e-5, torch.float32)
+        out[f"ln fwd serve ({rows}, {h}) bfloat16 -> float32"] = _digest(
+            (y, mu, rs))
+    rows, rate, seed = 16384, 0.1, 2024
+    for dt in (torch.bfloat16, torch.float32):
+        lab = str(dt)[6:]
+        x, d = rnd(rows, h, dtype=dt), rnd(rows, h, dtype=dt)
+        w, b = rnd(h, scale=0.1, shift=1.0, dtype=dt), rnd(h, scale=0.1,
+                                                           dtype=dt)
+        y, s_, mu, rs = ln._ln_fwd_impl(x, d, w, b, 1e-5, dt, rate, seed)
+        out[f"ln fwd train s {lab}"] = _digest((s_,))
+        out[f"ln fwd train y mean rsigma {lab}"] = _digest((y, mu, rs))
+        # row 2 on statistics made by torch ops: the same on every tree
+        sf = s_.float()
+        mu = sf.mean(1)
+        rs = torch.rsqrt(((sf - mu[:, None]) ** 2).mean(1) + 1e-5)
+        dy, ds = rnd(rows, h, dtype=dt), rnd(rows, h, dtype=dt)
+        out[f"ln bwd residual+dropout {lab}"] = _digest(ln._layer_norm_bwd(
+            s_, dy, ds, mu, rs, w, rate, seed))
+        if dt == torch.bfloat16:
+            out[f"ln bwd plain affine {lab}"] = _digest(ln._layer_norm_bwd(
+                s_, dy, None, mu, rs, w))
+    gpt, bert = (128, 1024, 1024), (8, 8, 512, 512)
+    lens = torch.tensor([512 - 37 * i for i in range(8)], device=dev)
+    pos = torch.arange(512, device=dev)
+    live = pos[None, :] < lens[:, None]
+    mask = ~(live[:, None, :, None] & live[:, None, None, :])
+    for dt in (torch.float32, torch.bfloat16):
+        lab = str(dt)[6:]
+        x = rnd(*gpt, scale=3.0, dtype=dt)
+        out[f"softmax causal fwd GPT {lab}"] = _digest(
+            (sm.softmax_causal_fwd(x, 128 ** -0.5),))
+        upper = torch.ones(gpt[1:], dtype=torch.bool, device=dev).triu(1)
+        y = torch.softmax((x.float() * 128 ** -0.5).masked_fill(
+            upper, float("-inf")), -1).to(dt)
+        del x
+        out[f"softmax bwd GPT {lab}"] = _digest(
+            (sm.softmax_bwd(y, rnd(*gpt, dtype=dt), 128 ** -0.5),))
+        del y
+        x = rnd(*bert, scale=3.0, dtype=dt)
+        out[f"softmax masked fwd BERT {lab}"] = _digest(
+            (sm.softmax_masked_fwd(x, mask, 128 ** -0.5),))
+        y = torch.softmax((x.float() * 128 ** -0.5).masked_fill(
+            mask, -10000.0), -1).to(dt)
+        out[f"softmax bwd BERT {lab}"] = _digest(
+            (sm.softmax_bwd(y, rnd(*bert, dtype=dt), 128 ** -0.5),))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(
@@ -136,6 +207,8 @@ def main(argv=None):
     from rocm_apex_tpu_torch.ops import flash_attention as fa
     from rocm_apex_tpu_torch.ops import flash_attention_segments as fas
     from rocm_apex_tpu_torch.ops import fused_bottleneck as fb
+    from rocm_apex_tpu_torch.ops import layer_norm as ln
+    from rocm_apex_tpu_torch.ops import softmax as sm
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -250,6 +323,7 @@ def main(argv=None):
             _flat(fb.conv1x1_bn_act(x, w1)))
         out[f"conv1x1 fwd conv3 {name} bfloat16"] = _digest(
             _flat(fb.conv1x1_bn_act(y2, w3, a, b)))
+    _row_digests(out, ln, sm, dev)
     torch.cuda.synchronize()
     print(json.dumps(out))
     return 0

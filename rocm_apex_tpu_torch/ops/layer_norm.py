@@ -5,10 +5,13 @@ Port of ``rocm_apex_tpu/ops/layer_norm.py``. The kernels
 (``csrc/layer_norm.cu``) replace the TPU kernels ``_ln_fwd_kernel``
 (rocm_apex_tpu/ops/layer_norm.py:78), plain, residual and with in-kernel
 dropout on the residual delta, and ``_ln_bwd_kernel`` (:204). Both are
-bound by bytes: one warp per row, every pass a coalesced warp load, the
-row re-read from L1 for the later passes; the backward reduces
-dgamma/dbeta in two fixed-order fp32 stages (per-block partials, then a
-column reduction).
+bound by bytes. The forward's layout is `ln_fwd_plan`'s, by shape: the
+row held in registers (read, hashed and written once; a warp a row when
+the rows fill the card, a block a row when they are few), or, for widths
+off the 16-byte vector grid or past the register cap, the three-pass row
+(one warp a row, re-read from L1 for the later passes). The backward is
+one warp a row and reduces dgamma/dbeta in two fixed-order fp32 stages
+(per-block partials, then a column reduction).
 
 For a CUDA tensor the wrappers launch the kernels (or raise); for a CPU
 tensor they run the plain versions. Statistics are fp32 whatever the
@@ -20,12 +23,19 @@ rate's threshold; the backward regenerates the same bits.
 """
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from rocm_apex_tpu_torch.ops import _dropout
-from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
+from rocm_apex_tpu_torch.ops._build import (
+    Kernel,
+    dtype_code,
+    ptr,
+    sm_count,
+    stream_ptr,
+)
 
 __all__ = [
     "LN_FWD",
@@ -37,6 +47,7 @@ __all__ = [
     "layer_norm_residual_dropout_affine",
     "layer_norm_fwd_plain",
     "layer_norm_bwd_plain",
+    "ln_fwd_plan",
 ]
 
 _P = ctypes.c_void_p
@@ -44,7 +55,7 @@ _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
 _FWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _U, _U, _F,
-             _I, _I, _I, _P]
+             _I, _I, _I, _I, _I, _P]
 LN_FWD = Kernel(
     name="layer_norm_fwd",
     source="layer_norm.cu",
@@ -70,6 +81,67 @@ LN_BWD = Kernel(
     replaces="rocm_apex_tpu/ops/layer_norm.py:204 _ln_bwd_kernel",
 )
 _BWD_ROWS_PER_BLOCK = 32  # csrc/layer_norm.cu kBwdRowsPerBlock
+# the register row (csrc/layer_norm.cu): at most kLnMaxValues fp32 values
+# a thread, kLnMaxRowWarps warps a row, kLnWarpRowThreads threads a block
+# of warp rows
+_LN_MAX_VALUES = 32
+_LN_MAX_ROW_WARPS = 8
+_LN_WARP_ROW_THREADS = 128
+# rows fill the card, a warp each, from this many a multiprocessor
+_LN_FILL_ROWS_PER_SM = 8
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=None)
+def ln_fwd_plan(rows: int, hidden: int, dtype: torch.dtype, sms: int,
+                aligned: bool = True) -> dict:
+    """How the LN forward launches on ``sms`` multiprocessors for a (rows,
+    hidden) input of ``dtype``: its ``route``, ``row_warps`` (warps a row),
+    ``vectors`` (16-byte vectors of x a thread), ``threads`` (a block) and
+    ``grid`` (blocks).
+
+    The register row holds each thread's columns, ``vectors`` vectors of
+    16 bytes, in registers: at most `_LN_MAX_VALUES` values a thread,
+    ``vectors`` a power of two. ``"warp"``, a warp a row, four rows a
+    block, when the rows fill the card (`_LN_FILL_ROWS_PER_SM` a
+    multiprocessor: the training and BERT shapes), unless the row needs
+    more warps to keep under the cap; ``"block"``, a block of
+    ``row_warps`` warps a row, when they are fewer (the serve's 8-row
+    decode tick, its 264-row mixed tick), as many warps as give one
+    vector a thread, at most `_LN_MAX_ROW_WARPS`. Widths that are not a
+    whole number of vectors, rows past the cap at `_LN_MAX_ROW_WARPS`
+    warps, and inputs not 16-byte ``aligned`` take ``"three_pass"`` (a
+    warp a row, three strided passes, any width). A shape rule, decided
+    here before any launch; cached, so a call pays a lookup (the dict is
+    shared: read it, do not change it)."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    need = -(-hidden // vec)  # vectors a row
+
+    def vectors_at(warps):
+        return _pow2_at_least(-(-need // (32 * warps)))
+
+    if hidden % vec == 0 and aligned and need > 0:
+        if rows >= _LN_FILL_ROWS_PER_SM * sms:
+            warps = next((w for w in range(1, _LN_MAX_ROW_WARPS + 1)
+                          if vectors_at(w) * vec <= _LN_MAX_VALUES), None)
+        else:
+            warps = min(_LN_MAX_ROW_WARPS, -(-need // 32))
+            if vectors_at(warps) * vec > _LN_MAX_VALUES:
+                warps = None
+        if warps == 1:
+            rows_per_block = _LN_WARP_ROW_THREADS // 32
+            return dict(route="warp", row_warps=1, vectors=vectors_at(1),
+                        threads=_LN_WARP_ROW_THREADS,
+                        grid=-(-rows // rows_per_block))
+        if warps is not None:
+            return dict(route="block", row_warps=warps,
+                        vectors=vectors_at(warps), threads=32 * warps,
+                        grid=rows)
+    return dict(route="three_pass", row_warps=0, vectors=0, threads=128,
+                grid=-(-rows // 4))
 
 
 def _dropped(delta2d, rate, seed):
@@ -108,6 +180,16 @@ def _check_device(*tensors):
                              "on one device")
 
 
+def _plan_of(x2d, delta2d, weight, bias) -> dict:
+    """`ln_fwd_plan` for a call on these CUDA tensors (its outputs are new
+    allocations, 16-byte aligned)."""
+    rows, hidden = x2d.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2d, delta2d, weight, bias)
+                  if t is not None)
+    return ln_fwd_plan(rows, hidden, x2d.dtype, sm_count(x2d.device),
+                       aligned)
+
+
 def _ln_fwd_impl(x2d, delta2d, weight, bias, eps, out_dtype,
                  rate=0.0, seed=0):
     if x2d.dim() != 2:
@@ -140,6 +222,7 @@ def _ln_fwd_impl(x2d, delta2d, weight, bias, eps, out_dtype,
     rsigma = torch.empty_like(mean)
     if rows > 0:
         w_code = dtype_code(weight.dtype) if weight is not None else 0
+        plan = _plan_of(x2d, delta2d, weight, bias)
         kernel = LN_FWD_DROPOUT if rate > 0.0 else LN_FWD
         kernel(
             ptr(x2d), ptr(delta2d), ptr(weight), ptr(bias), ptr(y), ptr(s),
@@ -147,7 +230,7 @@ def _ln_fwd_impl(x2d, delta2d, weight, bias, eps, out_dtype,
             int(rate > 0.0), int(seed) & 0xFFFFFFFF,
             _dropout.threshold(rate), _dropout.keep_scale(rate),
             dtype_code(x2d.dtype), w_code, dtype_code(out_dtype),
-            stream_ptr(x2d.device),
+            plan["row_warps"], plan["vectors"], stream_ptr(x2d.device),
         )
     return y, s, mean, rsigma
 

@@ -19,14 +19,18 @@ a fully masked row comes out as the uniform average over its keys (BERT's
 padded query rows): that is the value the JAX kernel gives, where the
 flash kernels give 0. The mask is bool, True = masked, broadcastable to
 (b, 1, sq, sk): one mask for every head. It gets no gradient. There is no
-key-length ceiling (the JAX kernels keep up to ~16K fp32 keys resident;
-the CUDA rows are read twice, the second time from L2).
+key-length ceiling (the JAX kernels keep up to ~16K fp32 keys resident).
+The masked forward's rows of up to 2048 keys are held in registers,
+read once and written once; longer rows, and the causal forward's, are
+read twice, the second time from L2 (`softmax_fwd_plan` names the
+route).
 
 For a CUDA tensor the wrappers launch the kernel (or raise); for a CPU
 tensor they run the plain version.
 """
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -46,6 +50,7 @@ __all__ = [
     "softmax_bwd",
     "scaled_upper_triang_masked_softmax",
     "scaled_masked_softmax",
+    "softmax_fwd_plan",
 ]
 
 MASK_FILL = -10000.0  # the padding-masked form's fill, after scaling
@@ -65,7 +70,8 @@ SOFTMAX_MASKED_FWD = Kernel(
     name="softmax_masked_fwd",
     source="softmax.cu",
     symbol="softmax_masked_fwd",
-    argtypes=[_P, _P, _P, _L, _I, _I, _I, _L, _L, _L, _F, _I, _P],
+    argtypes=[_P, _P, _P, _L, _I, _I, _I, _L, _L, _L, _F, _I, _I, _I, _I,
+              _P],
     replaces="rocm_apex_tpu/ops/softmax.py:139 _masked_fwd_kernel",
 )
 SOFTMAX_BWD = Kernel(
@@ -78,6 +84,47 @@ SOFTMAX_BWD = Kernel(
 
 # these kernels also take fp16 (csrc/common.cuh kFloat16)
 _CODES = {**DTYPE_CODES, torch.float16: 2}
+# rows up to this many keys take the masked forward's register row
+# (csrc/softmax.cu kWarpRowMax)
+_WARP_ROW_MAX = 2048
+_ROWS_PER_BLOCK = 8  # csrc/softmax.cu kSoftmaxWarps
+
+
+@functools.lru_cache(maxsize=None)
+def softmax_fwd_plan(rows: int, sk: int, dtype: torch.dtype, masked: bool,
+                     mask_sk: Optional[int], aligned: bool = True,
+                     mask_aligned: bool = True) -> dict:
+    """The route of the masked forward (row 12 K2) for ``rows`` rows of
+    ``sk`` keys in ``dtype``: ``route``, ``vec`` (elements a load),
+    ``vectors`` (loads a lane), ``mask`` (how the mask is read) and
+    ``grid``.
+
+    ``"register"`` for rows of up to `_WARP_ROW_MAX` keys: a warp a row,
+    8 rows a block, each lane holding ``vectors`` (a power of two) vectors
+    of ``vec`` in registers. ``vec`` is 16 bytes of elements where the
+    row's bytes are a multiple of 16 and x and y are 16-byte ``aligned``,
+    else 1. The mask (``mask_sk``, its last stride; None: no mask) is
+    read as ``"vector"``s of ``vec`` bytes where ``vec`` > 1, ``mask_sk``
+    is 1 and its rows are ``vec``-byte aligned (``mask_aligned``), else
+    ``"strided"``, a byte a column. Longer rows take ``"streaming"`` (a
+    block a row, two passes, the mask strided). The causal forward (K1)
+    and the backward (K3) keep their one layout: for ``masked`` False the
+    plan names no route. A shape rule, decided here before any launch;
+    cached, so a call pays a lookup (the dict is shared: read it, do not
+    change it)."""
+    if not masked:
+        return dict(route=None)
+    kvec = 16 // torch.empty((), dtype=dtype).element_size()
+    vec = kvec if aligned and sk % kvec == 0 else 1
+    form = None if mask_sk is None else "strided"
+    if sk > _WARP_ROW_MAX:
+        return dict(route="streaming", vec=vec, vectors=0, mask=form,
+                    grid=rows)
+    if form is not None and vec > 1 and mask_sk == 1 and mask_aligned:
+        form = "vector"
+    vectors = 1 << max(0, -(-sk // (32 * vec)) - 1).bit_length()
+    return dict(route="register", vec=vec, vectors=vectors, mask=form,
+                grid=-(-rows // _ROWS_PER_BLOCK))
 
 
 def _max_sub_softmax(x: torch.Tensor) -> torch.Tensor:
@@ -152,6 +199,21 @@ def _expand_mask(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return mask.to(torch.bool).expand(b, 1, sq, sk)
 
 
+def _masked_plan_of(x: torch.Tensor, mask: Optional[torch.Tensor]) -> dict:
+    """`softmax_fwd_plan` for the masked forward on contiguous (b, h, sq,
+    sk) CUDA scores and the mask expanded to (b, 1, sq, sk) (y is a new
+    allocation, 16-byte aligned)."""
+    b, h, sq, sk = x.shape
+    kvec = 16 // x.element_size()
+    return softmax_fwd_plan(
+        b * h * sq, sk, x.dtype, True,
+        None if mask is None else mask.stride(3),
+        aligned=x.data_ptr() % 16 == 0,
+        mask_aligned=mask is not None and all(
+            v % kvec == 0
+            for v in (mask.data_ptr(), mask.stride(0), mask.stride(2))))
+
+
 def softmax_masked_fwd(x: torch.Tensor, mask: Optional[torch.Tensor],
                        scale: float) -> torch.Tensor:
     """The padding-masked forward on (b, h, sq, sk) scores; the mask is
@@ -174,8 +236,11 @@ def softmax_masked_fwd(x: torch.Tensor, mask: Optional[torch.Tensor],
         strides = (mask.stride(0), mask.stride(2), mask.stride(3))
     y = torch.empty_like(x)
     if y.numel():
+        plan = _masked_plan_of(x, mask)
         SOFTMAX_MASKED_FWD(ptr(x), ptr(mask), ptr(y), b * h * sq, h, sq, sk,
-                           *strides, float(scale), code, stream_ptr(x.device))
+                           *strides, float(scale), plan["vec"],
+                           plan["vectors"], int(plan["mask"] == "vector"),
+                           code, stream_ptr(x.device))
     return y
 
 
