@@ -445,6 +445,74 @@ def compare(got, ref, extra=None, tols=None):
                 ref_max=float(ref[0].float().abs().max()))
 
 
+# p and ds (rows 3-11) are rounded to bf16 by the kernels and by the plain
+# versions alike, from fp32 values whose last bits differ (the products'
+# summation order, exp2's): a value on a rounding edge rounds one way on
+# one side and the other way on the other, moving an output by one bf16
+# step of that term. A bf16 attention output is therefore held within
+# `TOL` plus one bf16 step (ROUND_STEP) of the L1 mass of the terms it
+# sums (`attn_compare`), and, to show that both sides round by the same
+# rule in the same frame (a kernel that kept p unrounded, or rounded it
+# against another running max, moves several percent of the elements),
+# with at most FRAME_SHARE of the elements with |plain| > 1e-2 more than
+# one bf16 step (2^-7 |plain|) off: tests/test_torch_p_rounding.py's
+# measure, there against JAX on the CPU.
+ROUND_STEP = 2.0 ** -7
+FRAME_SHARE = 1e-3
+
+
+def _off_share(got, ref):
+    """The share of the elements with |ref| > 1e-2 more than one bf16 step
+    (2^-7 |ref|) from ref."""
+    got, ref = got.float(), ref.float()
+    big = ref.abs() > 1e-2
+    off = ((got - ref).abs() > 2.0 ** -7 * ref.abs()) & big
+    return float(off.sum()) / max(int(big.sum()), 1)
+
+
+def attn_compare(got, ref, l1, extra=None, same_frame=True):
+    """`compare` for attention outputs that sum terms rounded to bf16:
+    ``l1[i]`` is the L1 mass of output i's terms (None where the output is
+    no such sum, and for fp32 outputs, where the rounding is the
+    identity). Adds ROUND_STEP of it to the tolerance and, where both
+    sides round in the same frame, folds the share of elements beyond one
+    bf16 step, over FRAME_SHARE, into the ratio."""
+    ex = list(extra) if extra is not None else [None] * len(got)
+    shares = []
+    for i, (g, r, m) in enumerate(zip(got, ref, l1)):
+        if m is None or g is None or g.dtype != torch.bfloat16:
+            continue
+        add = ROUND_STEP * m.float()
+        ex[i] = add if ex[i] is None else ex[i] + add
+        shares.append(_off_share(g, r))
+    cmp = compare(got, ref, ex)
+    if shares and same_frame:
+        cmp["share"] = max(shares)
+        cmp["ratio"] = max(cmp["ratio"], cmp["share"] / FRAME_SHARE)
+    return cmp
+
+
+def grad_l1(q, k, v, bias, o, lse, do, causal, scale, lens=None, rate=0.0,
+            seed=0, dlse=None):
+    """The L1 masses of the terms of dq, dk and dv on (bh, s, d) operands,
+    from the plain backward's ds and p: scale * sum_k |ds| |k|, scale *
+    sum_q |ds| |q| and sum_q |p_drop| |do|."""
+    from rocm_apex_tpu_torch.ops import _dropout
+    from rocm_apex_tpu_torch.ops import flash_attention as fa
+
+    s = fa._unpacked_scores(q, k, bias, causal, scale, lens)
+    p = torch.exp2(s - lse[..., None] * fa.LOG2E)
+    del s
+    if rate > 0.0:
+        keep = _dropout.keep_mask(seed, rate, p.shape, device=p.device)
+        p = torch.where(keep, p * _dropout.keep_scale(rate), 0.0)
+    ds = fa._unpacked_grads(q, k, v, bias, o, lse, do, causal, scale, lens,
+                            rate, seed, dlse)[3].abs()
+    return (torch.einsum("bqk,bkd->bqd", ds, k.float().abs()) * scale,
+            torch.einsum("bqk,bqd->bkd", ds, q.float().abs()) * scale,
+            torch.einsum("bqk,bqd->bkd", p, do.float().abs()))
+
+
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -570,9 +638,11 @@ def seg_cases(dev):
 
         def plain():
             return fs.flash_attention_segments_plain(
-                q, k, v, seg, True, 1.0 / math.sqrt(d))
+                q, k, v, seg, True, 1.0 / math.sqrt(d), fs.SERVE_FRAME)
 
         got, ref = kern(), plain()
+        l1 = fs.flash_attention_segments_plain(
+            q, k, v.abs(), seg, True, 1.0 / math.sqrt(d), fs.SERVE_FRAME)[0]
         qc, kc, vc = (x.contiguous()[None] for x in (q, k, v))
 
         def lib():
@@ -582,7 +652,8 @@ def seg_cases(dev):
         yield dict(
             kernel="flash_attention_segments_with_lse",
             case=f"causal ({h}, {BUDGET}, {d}) {str(dt)[6:]}, 4 slots + pads",
-            dtype=dt, cmp=compare(got, ref), kern=kern, plain=plain,
+            dtype=dt, cmp=attn_compare(got, ref, [l1, None]), kern=kern,
+            plain=plain,
             lib=lib, nbytes=nbytes(q, k, v, seg, *got),
             ops=4 * d * h * live_pairs, headline=dt == torch.bfloat16,
         )
@@ -621,14 +692,17 @@ FWD_ROUTE_KERNELS = {"wgmma": "fwd_pipe_kernel",
                      "cuda_cores": ("flash_fwd_kernel", "fwd_f32_kernel")}
 
 
-def _device_kernels(fn):
+def _device_kernels(fn, want=()):
     """The names of the device kernels two calls of ``fn`` launch, from a
-    profile of the host and the card (as `profile_window` takes it). A
-    profile that recorded no device activity at all observed nothing (the
-    profiler now and then returns none): it is taken again, at most three
-    times, and an empty set is returned only if every one was empty."""
+    profile of the host and the card (as `profile_window` takes it). The
+    profiler now and then records no device activity, or drops some of a
+    window's kernels (the fp32 unpacked backward's dq pass, once in four
+    processes): a profile that shows none of its kernels, or not every
+    name in ``want``, is taken again, at most three times in all, and the
+    names of every profile taken are returned (empty only if each was)."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = set()
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -636,12 +710,12 @@ def _device_kernels(fn):
             fn()
             fn()
             torch.cuda.synchronize()
-        names = {e.name for e in prof.events()
-                 if getattr(e, "device_type", None)
-                 == torch.autograd.DeviceType.CUDA}
-        if names:
-            return names
-    return set()
+        names |= {e.name for e in prof.events()
+                  if getattr(e, "device_type", None)
+                  == torch.autograd.DeviceType.CUDA}
+        if names and all(any(k in n for n in names) for k in want):
+            break
+    return names
 
 
 def check_fwd_route(fkern, plan, dtype, what, prepass=False):
@@ -660,12 +734,16 @@ def check_fwd_route(fkern, plan, dtype, what, prepass=False):
     if route == "wgmma":
         check(_same_bits(fkern(), fkern()),
               f"{what}: two launches of the forward differ")
-    names = _device_kernels(fkern)
+    want = FWD_ROUTE_KERNELS[route]
+    seen = () if isinstance(want, tuple) else (want,)  # a tuple: any one
+    if route == "wgmma":
+        seen += (("fwd_merge_kernel",) if plan["splits"] > 1 else ()) + (
+            ("qkv_bias_kernel",) if prepass else ())
+    names = _device_kernels(fkern, seen)
     if not names:
         log(f"  ({what}: the profiler recorded no device activity; the "
             f"route is the plan's)")
         return f"{route}, {plan['splits']} split(s), not observed"
-    want = FWD_ROUTE_KERNELS[route]
     check(any(k in n for n in names for k in (
         want if isinstance(want, tuple) else (want,))),
         f"{what}: the plan says {route}, the call launched {sorted(names)}")
@@ -710,7 +788,8 @@ def check_launches(fn, routes, route, what, prepass_name=None,
     when ``prepass``. Where the profiler recorded no device activity (it
     now and then records none for a whole process) the case says so.
     Returns the route's label for the case name."""
-    names = _device_kernels(fn)
+    names = _device_kernels(fn, routes[route] + (
+        (prepass_name,) if prepass_name is not None and prepass else ()))
     if not names:
         log(f"  ({what}: the profiler recorded no device activity; the "
             f"route is the plan's)")
@@ -729,6 +808,56 @@ def check_launches(fn, routes, route, what, prepass_name=None,
               f"{what}: the pre-pass {'missing' if prepass else 'ran'}: "
               f"{sorted(names)}")
     return route
+
+
+def planned_fwd_plain(q, k, v, bias, causal, scale, lens, rate, seed):
+    """The plain forward a flash forward kernel on (bh, s, d) operands is
+    held to: split as `flash_fwd_plan` splits the card's call (each
+    split's p rounded against its own running max, as the pipe's splits
+    round it, then merged), else whole."""
+    from rocm_apex_tpu_torch.ops import flash_attention as fa
+    from rocm_apex_tpu_torch.ops._build import sm_count
+
+    plan = fa.flash_fwd_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                             causal, sm_count(q.device), q.dtype)
+    if plan["splits"] > 1:
+        return fa.flash_fwd_split_plain(q, k, v, bias, causal, scale,
+                                        plan["splits"], plan["split_tiles"],
+                                        lens, rate, seed)
+    return fa.flash_unpacked_fwd_plain(q, k, v, bias, causal, scale, lens,
+                                       rate, seed)
+
+
+def planned_qkv_fwd_plain(qkv, bias, causal, scale, rate, seed,
+                          abs_v=False):
+    """`planned_fwd_plain` for the packed forward on the (B, S, nh, 3 hd)
+    projection: the biased heads, split as the card's call splits them;
+    returns o (B, S, nh hd) and lse, as `flash_qkv_fwd_plain`. With
+    ``abs_v``, on |v|: o is then the L1 mass of o's terms."""
+    from rocm_apex_tpu_torch.ops import flash_attention as fa
+
+    B, S, nh, _ = qkv.shape
+    q, k, v = fa._heads(qkv, bias)
+    o, lse = planned_fwd_plain(q, k, v.abs() if abs_v else v, None, causal,
+                               scale, None, rate, seed)
+    return fa._to_rows(o, B, S, nh).reshape(B, S, -1), lse
+
+
+def packed_grad_l1(qkv, bias, o, lse, do, causal, scale, rate, seed):
+    """`grad_l1` of the packed backward, in dqkv's (B, S, nh, 3 hd)
+    layout."""
+    from rocm_apex_tpu_torch.ops import flash_attention as fa
+
+    B, S, nh, _ = qkv.shape
+    q, k, v = fa._heads(qkv, bias)
+
+    def heads(t):
+        return t.reshape(B, S, nh, -1).permute(0, 2, 1, 3).reshape(
+            B * nh, S, -1)
+
+    l1 = grad_l1(q, k, v, None, heads(o), lse, heads(do), causal, scale,
+                 None, rate, seed)
+    return fa._to_rows(torch.cat(l1, dim=-1), B, S, nh)
 
 
 def decode_cases(dev):
@@ -788,13 +917,19 @@ def decode_cases(dev):
                 return fa.flash_attention_decode(
                     q, kc, vc, lens, return_lse=True, slot_ids=ids)
 
-            def plain(q=q, lens=lens, ids=ids):
+            def plain(q=q, lens=lens, ids=ids, rows=rows):
                 kc, vc = caches[0]
-                return fa.flash_attention_decode_plain(
-                    q, kc, vc, lens, 1.0 / math.sqrt(d), ids)
+                return fa.decode_spans_plain(
+                    q, kc, vc, lens, 1.0 / math.sqrt(d),
+                    *fa.decode_span_plan(rows, h, CAPACITY, sm_count(dev)),
+                    ids)
 
             turn[0] = 0
             got, ref = kern(), plain()
+            l1 = fa.decode_spans_plain(
+                q, caches[0][0], caches[0][1].abs(), lens, 1.0 / math.sqrt(d),
+                *fa.decode_span_plan(rows, h, CAPACITY, sm_count(dev)),
+                ids)[0]
             turn[0] = 0
             if ids is None:
                 check(_same_bits(got, kern()),
@@ -852,7 +987,8 @@ def decode_cases(dev):
                 case=f"{form}: {rows} rows x {h} heads vs ({SLOTS}, "
                      f"{CAPACITY}, {h}, {d}) {str(dt)[6:]}, {spans} "
                      f"span{'s' * (spans > 1)} of {span_len}",
-                dtype=dt, cmp=compare(got, ref), kern=kern, plain=plain,
+                dtype=dt, cmp=attn_compare(got, ref, [l1, None]), kern=kern,
+                plain=plain,
                 lib=lib, nbytes=(nbytes(q, lens, ids, *got) + kv_bytes),
                 ops=4 * d * h * keys_read,
                 headline=ids is None and dt == torch.bfloat16,
@@ -872,9 +1008,11 @@ def decode_cases(dev):
     lens = grid_len.clamp(max=cap)
     q, _, _ = _qkv(SLOTS, h, d, torch.bfloat16, dev, gen)
     got = fa.flash_attention_decode(q, kc, vc, lens, return_lse=True)
-    ref = fa.flash_attention_decode_plain(q, kc, vc, lens,
-                                          1.0 / math.sqrt(d))
-    cmp = compare(got, ref)
+    ref = fa.decode_spans_plain(q, kc, vc, lens, 1.0 / math.sqrt(d),
+                                *fa.decode_span_plan(SLOTS, h, cap, sms))
+    cmp = attn_compare(got, ref, [fa.decode_spans_plain(
+        q, kc, vc.abs(), lens, 1.0 / math.sqrt(d),
+        *fa.decode_span_plan(SLOTS, h, cap, sms))[0], None])
     check(cmp["ratio"] <= 1.0, f"decode grid at capacity {cap}: the kernel "
           f"differs from its plain version by {cmp['ratio']:.3g}x its "
           f"tolerance")
@@ -1012,12 +1150,20 @@ def paged_decode_cases(dev):
                 q, k, v, table, lens, None, ks, vs, return_lse=True,
                 slot_ids=ids)
 
-        def plain(q=q, lens=lens, ids=ids, table=table, pools=pools):
+        def plain(q=q, lens=lens, ids=ids, table=table, pools=pools,
+                  rows=rows):
             k, v, ks, vs = pools[0]
-            return fa.flash_attention_decode_paged_plain(
-                q, k, v, table, lens, 1.0 / math.sqrt(d), ks, vs, ids)
+            return fa.decode_paged_spans_plain(
+                q, k, v, table, lens, 1.0 / math.sqrt(d),
+                *fa.decode_span_plan(rows, h, CAPACITY, sm_count(dev)), ks,
+                vs, ids, CAPACITY)
 
         got, ref = kern(), plain()
+        k0, v0, ks0, vs0 = pools[0]
+        l1 = fa.decode_paged_spans_plain(
+            q, k0, v0.abs(), table, lens, 1.0 / math.sqrt(d),
+            *fa.decode_span_plan(rows, h, CAPACITY, sm_count(dev)), ks0, vs0,
+            ids, CAPACITY)[0]
         turn[0] = 0
         if grid:
             again = kern()
@@ -1081,7 +1227,8 @@ def paged_decode_cases(dev):
                  f"{'int8' if int8 else str(dt)[6:]} pool "
                  f"({num_pages}, {h}, {ps}, {d}), q {str(dt)[6:]}"
                  + (f", {spans} spans of {span_len}" if grid else ""),
-            dtype=dt, cmp=compare(got, ref), kern=kern, plain=plain,
+            dtype=dt, cmp=attn_compare(got, ref, [l1, None]), kern=kern,
+            plain=plain,
             lib=lib, nbytes=(nbytes(q, lens, ids, table, *got) + kv_bytes),
             ops=4 * d * h * int(per_row.sum()),
             headline=(form == "decode grid" and ps == 16
@@ -1099,14 +1246,99 @@ def _l1_tol(abs_terms_sum):
     return 1e-5 * abs_terms_sum
 
 
+# the device kernels of each route of the LayerNorm backward's plan
+# (csrc/layer_norm.cu, ops/layer_norm.py `ln_bwd_plan`)
+LN_BWD_ROUTE_KERNELS = {"warp": ("ln_bwd_warp_kernel",),
+                        "block": ("ln_bwd_block_kernel",),
+                        "three_pass": ("ln_bwd_kernel",)}
+
+
+def ln_bwd_case(dev, gen, rows, h, dt, form, rate, seed, x=None, w=None,
+                b=None, mu=None, rs=None, keep=None, headline=False):
+    """One LayerNorm backward case (row 2): ``form`` "residual+dropout"
+    (the stream cotangent ds and the regenerated keep bits of ``rate``)
+    or "plain affine"; x (the forward's LN input), w, b, mu and rs drawn
+    where not given. Launched twice for the same bits; dd 0 exactly where
+    the forward dropped (``keep``); its route checked against
+    `ln_bwd_plan` by the kernels one call launches. Library: the aten
+    backward alone (`native_layer_norm_backward`, dx, dgamma and dbeta
+    of the plain form) on the same shape, and `F.layer_norm` forward +
+    backward beside it."""
+    from rocm_apex_tpu_torch.ops import _dropout
+    from rocm_apex_tpu_torch.ops import layer_norm as ln
+    from rocm_apex_tpu_torch.ops._build import sm_count
+
+    if x is None:
+        x = torch.randn(rows, h, device=dev, generator=gen).to(dt)
+        w = (1.0 + 0.1 * torch.randn(h, device=dev, generator=gen)).to(dt)
+        b = (0.1 * torch.randn(h, device=dev, generator=gen)).to(dt)
+        mu = x.float().mean(1)
+        rs = torch.rsqrt(((x.float() - mu[:, None]) ** 2).mean(1) + 1e-5)
+    r = rate if form == "residual+dropout" else 0.0
+    if r > 0.0 and keep is None:
+        keep = _dropout.keep_mask(seed, r, (rows, h), device=dev)
+    dy = torch.randn(rows, h, device=dev, generator=gen).to(dt)
+    ds = (torch.randn(rows, h, device=dev, generator=gen).to(dt)
+          if form == "residual+dropout" else None)
+    xh = (x.float() - mu[:, None]) * rs[:, None]
+
+    def bkern(x=x, dy=dy, ds=ds, mu=mu, rs=rs, w=w, r=r):
+        return ln._layer_norm_bwd(x, dy, ds, mu, rs, w, r, seed)
+
+    def bplain(x=x, dy=dy, ds=ds, mu=mu, rs=rs, w=w, r=r):
+        return ln.layer_norm_bwd_plain(x, dy, ds, mu, rs, w, r, seed)
+
+    got = bkern()
+    what = f"layer_norm_bwd {form} ({rows}, {h}) {str(dt)[6:]}"
+    check(_same_bits([t for t in got if t is not None],
+                     [t for t in bkern() if t is not None]),
+          f"{what}: two launches differ")
+    if r > 0.0:
+        # the backward regenerates the forward's keep bits: dd is 0
+        # exactly where the forward dropped the delta
+        check(torch.equal(got[1] != 0, keep & (got[0] != 0)),
+              f"{what}: dd's zeros are not the forward's dropped elements")
+    plan = ln.ln_bwd_plan(rows, h, dt, sm_count(x.device),
+                          all(t.data_ptr() % 16 == 0
+                              for t in (x, dy, ds, w) if t is not None))
+    route = check_launches(bkern, LN_BWD_ROUTE_KERNELS, plan["route"], what)
+    xg = x.detach().clone().requires_grad_(True)
+    wg = w.detach().clone().requires_grad_(True)
+    bg = b.detach().clone().requires_grad_(True)
+
+    def fwd_bwd(xg=xg, wg=wg, bg=bg, dy=dy):
+        xg.grad = wg.grad = bg.grad = None
+        F.layer_norm(xg, (h,), wg, bg, 1e-5).backward(dy)
+
+    _, amu, ars = torch.ops.aten.native_layer_norm(x, (h,), w, b, 1e-5)
+
+    def lib(x=x, dy=dy, w=w, b=b, amu=amu, ars=ars):
+        return torch.ops.aten.native_layer_norm_backward(
+            dy, x, (h,), amu, ars, w, b, [True, True, True])
+
+    extra = [None, None, _l1_tol((dy.float() * xh).abs().sum(0)),
+             _l1_tol(dy.float().abs().sum(0))]
+    return dict(
+        kernel="layer_norm_bwd", case=f"{form} ({rows}, {h}) "
+        f"{str(dt)[6:]}, {route}", dtype=dt, cmp=compare(got, bplain(),
+                                                          extra),
+        kern=bkern, plain=bplain, lib=lib,
+        library="aten native_layer_norm_backward alone",
+        extra_timings={"library_fwd_bwd_ms": fwd_bwd},
+        nbytes=nbytes(x, dy, ds, mu, rs, w, *got), ops=14 * rows * h,
+        headline=headline, iters=50,
+    )
+
+
 def train_ln_cases(dev):
     """The LayerNorms of the training step on its (16384, 1024) rows:
     the residual forward with dropout (16 of the step's 17 forwards:
     launched twice for the same bits, s equal to the plain version's bit
     for bit, its route checked against `ln_fwd_plan`), and the backward
-    with the stream cotangent and the regenerated dropout mask (16 of 17;
-    dd 0 exactly where the forward dropped) and in the plain affine form
-    (layer 0's ln1)."""
+    (`ln_bwd_case`) with the stream cotangent and the regenerated dropout
+    mask (16 of 17) and in the plain affine form (layer 0's ln1); then
+    the backward's other routes: the serve's 8 rows and 264 rows (a block
+    a row), and width 1002 (off the vector grid: the old form)."""
     from rocm_apex_tpu_torch.ops import _dropout
     from rocm_apex_tpu_torch.ops import layer_norm as ln
 
@@ -1139,47 +1371,18 @@ def train_ln_cases(dev):
         del ref
         _, s_, mu, rs = got
         keep = _dropout.keep_mask(seed, rate, (rows, h), device=dev)
-        dy = torch.randn(rows, h, device=dev, generator=gen).to(dt)
-        ds = torch.randn(rows, h, device=dev, generator=gen).to(dt)
-        xh = (s_.float() - mu[:, None]) * rs[:, None]
-        forms = [("residual+dropout", ds, rate)]
+        forms = ["residual+dropout"]
         if dt == torch.bfloat16:
-            forms.append(("plain affine", None, 0.0))
-        for form, ds_, r in forms:
-            def bkern(s_=s_, dy=dy, ds_=ds_, mu=mu, rs=rs, w=w, r=r):
-                return ln._layer_norm_bwd(s_, dy, ds_, mu, rs, w, r, seed)
-
-            def bplain(s_=s_, dy=dy, ds_=ds_, mu=mu, rs=rs, w=w, r=r):
-                return ln.layer_norm_bwd_plain(s_, dy, ds_, mu, rs, w, r,
-                                               seed)
-
-            xg = s_.detach().clone().requires_grad_(True)
-            wg = w.detach().clone().requires_grad_(True)
-            bg = b.detach().clone().requires_grad_(True)
-
-            def lib(xg=xg, wg=wg, bg=bg, dy=dy):
-                xg.grad = wg.grad = bg.grad = None
-                F.layer_norm(xg, (h,), wg, bg, 1e-5).backward(dy)
-
-            got = bkern()
-            if r > 0.0:
-                # the backward regenerates the forward's keep bits: dd is
-                # 0 exactly where the forward dropped the delta
-                check(torch.equal(got[1] != 0, keep & (got[0] != 0)),
-                      f"layer_norm_bwd {form}: dd's zeros are not the "
-                      f"forward's dropped elements")
-            extra = [None, None, _l1_tol((dy.float() * xh).abs().sum(0)),
-                     _l1_tol(dy.float().abs().sum(0))]
-            yield dict(
-                kernel="layer_norm_bwd",
-                case=f"{form} ({rows}, {h}) {str(dt)[6:]}",
-                dtype=dt, cmp=compare(got, bplain(), extra), kern=bkern,
-                plain=bplain, lib=lib,
-                nbytes=nbytes(s_, dy, ds_, mu, rs, w, *got),
-                ops=14 * rows * h,
-                headline=form != "plain affine" and dt == torch.bfloat16,
-                iters=50,
-            )
+            forms.append("plain affine")
+        for form in forms:
+            yield ln_bwd_case(dev, gen, rows, h, dt, form, rate, seed, s_, w,
+                              b, mu, rs, keep,
+                              headline=form != "plain affine"
+                              and dt == torch.bfloat16)
+        del s_, got
+    for n, width, form in ((8, h, "plain affine"), (264, h, "residual+dropout"),
+                           (4096, 1002, "residual+dropout")):
+        yield ln_bwd_case(dev, gen, n, width, torch.bfloat16, form, rate, seed)
 
 
 def flash_cases(dev):
@@ -1225,8 +1428,8 @@ def flash_cases(dev):
             return fa._flash_fwd(qkv, bias, causal, scale, rate, seed)
 
         def fplain(qkv=qkv, bias=bias, rate=rate, causal=causal):
-            return fa.flash_qkv_fwd_plain(qkv, bias, causal, scale, rate,
-                                          seed)
+            return planned_qkv_fwd_plain(qkv, bias, causal, scale, rate,
+                                         seed)
 
         x = qkv if bias is None else qkv + bias.view(nh, 3 * hd)
         q, k, v = (t.contiguous() for t in
@@ -1242,8 +1445,12 @@ def flash_cases(dev):
                                 prepass=with_bias)
         yield dict(
             kernel="flash_attention_qkv_fwd", case=f"{name} [{route}]",
-            dtype=dt, cmp=compare((o, lse), fplain()), kern=fkern,
-            plain=fplain, lib=flib, nbytes=nbytes(qkv, bias, o, lse),
+            dtype=dt, cmp=attn_compare(
+                (o, lse), fplain(),
+                [planned_qkv_fwd_plain(qkv, bias, causal, scale, rate, seed,
+                                       abs_v=True)[0], None]),
+            kern=fkern, plain=fplain, lib=flib,
+            nbytes=nbytes(qkv, bias, o, lse),
             ops=4 * hd * pairs, headline=headline, iters=10, plain_iters=2,
             breakdown=dt == torch.bfloat16,
         )
@@ -1282,9 +1489,12 @@ def flash_cases(dev):
         ref = bplain()
         extra = [None, None if bias is None else _l1_tol(
             ref[0].float().abs().sum(dim=(0, 1)).reshape(-1))]
+        l1 = (packed_grad_l1(qkv, bias, o, lse, do, causal, scale, rate,
+                             seed) if dt == torch.bfloat16 else None)
         yield dict(
             kernel="flash_attention_qkv_bwd", case=f"{name} [{broute}]",
-            dtype=dt, cmp=compare(got, ref, extra), kern=bkern, plain=bplain,
+            dtype=dt, cmp=attn_compare(got, ref, [l1, None], extra),
+            kern=bkern, plain=bplain,
             lib=blib, nbytes=nbytes(qkv, bias, o, lse, do, *got),
             ops=10 * hd * pairs, headline=headline, iters=5, plain_iters=2,
             extra_timings=dict(library_fwd_ms=flib),
@@ -1779,9 +1989,8 @@ def unpacked_cases(dev):
 
         def fplain(q=q, k=k, v=v, bias=bias, causal=causal, lens=lens,
                    rate=rate, scale=scale):
-            o, lse = fa.flash_unpacked_fwd_plain(
-                flat(q), flat(k), flat(v), bias, causal, scale, lens, rate,
-                seed)
+            o, lse = planned_fwd_plain(flat(q), flat(k), flat(v), bias,
+                                       causal, scale, lens, rate, seed)
             return o.view(q.shape), lse
 
         qc, kc, vc = (t.contiguous() for t in (q, k, v))
@@ -1803,11 +2012,14 @@ def unpacked_cases(dev):
         o, lse = fkern()
         ref = fplain()
         extra = [None, LSE_L1_RTOL * ref[1].abs()]
+        l1 = planned_fwd_plain(flat(q), flat(k), flat(v).abs(), bias, causal,
+                               scale, lens, rate, seed)[0].view(q.shape)
         plan = fa.flash_fwd_plan(bh, sq, sk, d, causal, sm_count(dev), dt)
         route = check_fwd_route(fkern, plan, dt, f"unpacked fwd {label}")
         yield dict(
             kernel="flash_unpacked_fwd", case=f"{label} [{route}]",
-            dtype=dt, cmp=compare((o, lse), ref, extra), kern=fkern,
+            dtype=dt, cmp=attn_compare((o, lse), ref, [l1, None], extra),
+            kern=fkern,
             plain=fplain, lib=flib,
             nbytes=nbytes(q, k, v, bias, lens, o, lse), ops=4 * d * pairs,
             headline=headline, iters=10, plain_iters=2,
@@ -1851,9 +2063,15 @@ def unpacked_cases(dev):
                   f"unpacked bwd {label}: two launches differ")
         broute = check_launches(bkern, UNPACKED_BWD_ROUTE_KERNELS,
                                 bplan["route"], f"unpacked bwd {label}")
+        l1 = [None] * 3
+        if dt == torch.bfloat16:
+            l1 = [m.view(t.shape) for m, t in zip(grad_l1(
+                flat(q), flat(k), flat(v), bias, flat(o), lse, flat(do),
+                causal, scale, lens, rate, seed, dlse), (q, k, v))]
         yield dict(
             kernel="flash_unpacked_bwd", case=f"{label} [{broute}]",
-            dtype=dt, cmp=compare(got, bplain()), kern=bkern, plain=bplain,
+            dtype=dt, cmp=attn_compare(got, bplain(), l1), kern=bkern,
+            plain=bplain,
             lib=blib, nbytes=nbytes(q, k, v, bias, lens, o, lse, do, dlse,
                                     q, k, v),
             ops=10 * d * pairs, headline=headline, iters=5, plain_iters=2,
@@ -2085,9 +2303,12 @@ def seg_train_cases(dev):
                                             scale)
         o, lse = fkern()
         ref = fplain()
+        l1 = _per_head(lambda q, k, v: fs.flash_attention_segments_plain(
+            q, k, v.abs(), seg, causal, scale), q, k, v)[0]
         yield dict(
             kernel="flash_segments_fwd", case=label, dtype=dt,
-            cmp=compare((o, lse), ref, [None, LSE_L1_RTOL * ref[1].abs()]),
+            cmp=attn_compare((o, lse), ref, [l1, None],
+                             [None, LSE_L1_RTOL * ref[1].abs()]),
             kern=fkern, plain=fplain, lib=flib, library=lib_form,
             extra_timings=dict(row3_ms=frow3),
             nbytes=nbytes(q, k, v, seg, o, lse), ops=4 * d * pairs,
@@ -2106,9 +2327,15 @@ def seg_train_cases(dev):
                     *ts[:3], seg, *ts[3:], causal, scale),
                 q, k, v, o, lse, do)
 
+        l1 = [None] * 3
+        if dt == torch.bfloat16:
+            l1 = _per_head(lambda q, k, v, o, lse, do: grad_l1(
+                q, k, v, fs._segment_bias(seg, q.device), o, lse, do, causal,
+                scale), q, k, v, o, lse, do)
         yield dict(
             kernel="flash_segments_bwd", case=label, dtype=dt,
-            cmp=compare(bkern(), bplain()), kern=bkern, plain=bplain,
+            cmp=attn_compare(bkern(), bplain(), l1), kern=bkern,
+            plain=bplain,
             lib=blib, library=lib_form,
             nbytes=nbytes(q, k, v, seg, o, lse, do, q, k, v),
             ops=10 * d * pairs, headline=headline, iters=5, plain_iters=1,
@@ -2265,9 +2492,9 @@ SOFTMAX_GPT = (TRAIN_BATCH * TRAIN["num_attention_heads"], TRAIN_SEQ,
 SOFTMAX_BERT = (BERT_BATCH, BERT["num_attention_heads"], BERT_SEQ, BERT_SEQ)
 
 
-# the device kernels of each route of the masked softmax forward's plan
+# the device kernels of each route of the softmax forwards' plan
 # (csrc/softmax.cu, ops/softmax.py `softmax_fwd_plan`)
-SOFTMAX_ROUTE_KERNELS = {"register": ("softmax_masked_reg_kernel",),
+SOFTMAX_ROUTE_KERNELS = {"register": ("softmax_reg_kernel",),
                          "streaming": ("softmax_fwd_kernel",)}
 
 
@@ -2288,8 +2515,9 @@ def softmax_cases(dev):
     (b, 1, 1, sk) and (1, 1, sq, sk) and none, sq != sk; for K2 also
     rows of 2048 and 2049 keys (the last register row, the first
     streaming one), a mask of last stride 2 (read a byte a column) and
-    masked BERT's scores in bf16. Every K2 case is launched twice for the
-    same bits and its route checked against `softmax_fwd_plan`. Library
+    masked BERT's scores in bf16; for K1 also rows of 2048 and 2049 keys.
+    Every K1 and K2 case is launched twice for the same bits and its
+    route checked against `softmax_fwd_plan`. Library
     yardsticks: `torch.softmax(x, -1)` on the same tensor for the
     forwards (for the headline cases timed again, warm, after the rest),
     `torch._softmax_backward_data` for the backward. Bounds count what
@@ -2324,22 +2552,24 @@ def softmax_cases(dev):
             nb = nbytes(x, mask, x)
         got, ref = kern(), plain()
         cmp = compare((got,), (ref,), tols=[SOFTMAX_FWD_TOL[x.dtype]])
+        # two launches give the same bits; the call's kernels are those of
+        # the route `softmax_fwd_plan` names
+        check(torch.equal(got, kern()), f"{name} {case}: two launches differ")
         if causal:
             upper = torch.ones(x.shape[1:], dtype=torch.bool,
                                device=dev).triu(1)
             if not bool((got[:, upper] == 0).all()):
                 cmp["ratio"] = math.inf  # the upper triangle is exactly 0
+            plan = sm.softmax_fwd_plan(x.shape[0] * x.shape[1], x.shape[2],
+                                       x.dtype, False, None,
+                                       aligned=x.data_ptr() % 16 == 0)
         else:
-            # K2: two launches give the same bits; the call's kernels are
-            # those of the route `softmax_fwd_plan` names
-            check(torch.equal(got, kern()),
-                  f"{name} {case}: two launches differ")
             plan = sm._masked_plan_of(
                 x, None if mask is None else sm._expand_mask(mask, x))
-            route = check_launches(kern, SOFTMAX_ROUTE_KERNELS,
-                                   plan["route"], f"{name} {case}")
-            case = (f"{case}, {route}"
-                    + (f", {plan['mask']} mask" if plan["mask"] else ""))
+        route = check_launches(kern, SOFTMAX_ROUTE_KERNELS, plan["route"],
+                               f"{name} {case}")
+        case = (f"{case}, {route}"
+                + (f", {plan['mask']} mask" if plan["mask"] else ""))
         def lib(x=x):
             return torch.softmax(x, -1)
 
@@ -2435,12 +2665,15 @@ def softmax_cases(dev):
                    "(2, 2, 64, 16384) fp32, mask (2, 1, 1, 16384)", x, m, 0.1)
     yield bwd_case("(2, 2, 64, 16384) fp32",
                    sm.softmax_masked_fwd(x, m, 0.1), 0.1)
-    # K2's register rows at their longest, the streaming rows past them
+    # the register rows at their longest, the streaming rows past them
     for sk in (2048, 2049):
         m = torch.rand((2, 1, 1, sk), device=dev, generator=gen) < 0.1
         yield fwd_case("softmax_masked_fwd",
                        f"(2, 4, 32, {sk}) fp32, mask (2, 1, 1, {sk})",
                        scores((2, 4, 32, sk), torch.float32), m, 0.1)
+        yield fwd_case("softmax_causal_fwd", f"(2, {sk}, {sk}) fp32, causal",
+                       scores((2, sk, sk), torch.float32), None, 0.1,
+                       causal=True)
     # a mask read through a last stride of 2 (the strided form)
     m = (torch.rand((2, 1, 64, 1024), device=dev, generator=gen)
          < 0.2)[..., ::2]
@@ -3209,6 +3442,155 @@ def bottleneck_cases(dev):
         del t, got, ref
 
 
+def frame_cases(dev):
+    """p's rounding, a case per bf16 flash kernel at its frame: each kernel
+    at a shape of its path, q drawn 2.5 times wider than the model's so
+    the softmax peaks and p's rounding shows, held to its plain version
+    (p and ds rounded to bf16 as JAX rounds them, a forward's p against
+    the running max after each key tile of the kernel's: 64 keys in the
+    pipes and the mma.sync bodies, 32 in the row walks) by the share of
+    elements more than one bf16 step off, at most `FRAME_SHARE`. Beside it
+    each forward logs the share against the plain version at another frame
+    (twice the kernel's, one span unsplit for the decode reads), which the
+    kernel does not follow. The backward forms p from the final lse and
+    has no frame."""
+    from rocm_apex_tpu_torch.ops import flash_attention as fa
+    from rocm_apex_tpu_torch.ops import flash_attention_segments as fs
+    from rocm_apex_tpu_torch.ops._build import sm_count
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    bf = torch.bfloat16
+    nh, hd = 8, 128
+    scale, seed = 1.0 / math.sqrt(hd), 5
+
+    def randn(*shape, wide=1.0):
+        return (wide * torch.randn(shape, device=dev, generator=gen)).to(bf)
+
+    def case(kernel, what, kern, plain, other=None):
+        got, ref = kern(), plain()
+        shares = [_off_share(g, r) for g, r in zip(got, ref)
+                  if g is not None and g.is_floating_point()
+                  and g.dtype == bf]
+        share = max(shares)
+        what = f"{what}, share beyond one bf16 step {100 * share:.4f}%"
+        if other is not None:
+            what += (f" (at another frame "
+                     f"{100 * _off_share(got[0], other()[0]):.3f}%)")
+        err = max(max_err(g, r) for g, r in zip(got, ref) if g is not None
+                  and g.dtype == bf)
+        return dict(kernel=kernel, case=f"p rounding: {what}", dtype=bf,
+                    cmp=dict(ratio=share / FRAME_SHARE, err=err,
+                             ref_max=float(ref[0].float().abs().max())),
+                    kern=kern, plain=plain, lib=None, nbytes=0, ops=0,
+                    headline=False, iters=5, plain_iters=1)
+
+    # rows 7a/8 and 9a/11: the packed forward and backward, the GPT train
+    # cell's heads at B 2, bias, causal
+    B, S = 2, 1024
+    qkv = torch.randn(B, S, nh, 3 * hd, device=dev, generator=gen)
+    qkv[..., :hd] *= 2.5
+    qkv = qkv.to(bf)
+    bias = randn(nh * 3 * hd, wide=0.1)
+    do = randn(B, S, nh * hd)
+    yield case("flash_attention_qkv_fwd", f"({B}, {S}, {nh}, 384) causal, "
+               "frame 64",
+               lambda: fa._flash_fwd(qkv, bias, True, scale, 0.0, seed),
+               lambda: planned_qkv_fwd_plain(qkv, bias, True, scale, 0.0,
+                                             seed),
+               lambda: fa.flash_qkv_fwd_plain(qkv, bias, True, scale,
+                                              frame=128))
+    o, lse = fa._flash_fwd(qkv, bias, True, scale, 0.0, seed)
+    yield case("flash_attention_qkv_bwd", f"({B}, {S}, {nh}, 384) causal",
+               lambda: fa._flash_bwd(qkv, bias, o, lse, do, True, scale,
+                                     0.0, seed)[:1],
+               lambda: fa.flash_qkv_bwd_plain(qkv, bias, o, lse, do, True,
+                                              scale)[:1])
+    del qkv, o, lse, do
+    # rows 7b and 9b: the unpacked forward and backward under masked
+    # BERT's padding bias, (B 8, 8 heads, S 512)
+    b, s_ = BERT_BATCH, BERT_SEQ
+    lengths = bert_lengths(b)
+    pbias = torch.zeros(b, s_, s_, device=dev)
+    for i, n in enumerate(lengths):
+        pbias[i, :, int(n):] = fa.NEG_INF
+    q, k, v, dou = (randn(b * nh, s_, hd, wide=w) for w in (2.5, 1, 1, 1))
+    view = [t.view(b, nh, s_, hd) for t in (q, k, v, dou)]
+    yield case("flash_unpacked_fwd", f"({b}x{nh}, {s_}, {s_}, {hd}) padding "
+               "bias, frame 64",
+               lambda: (fa._flat(fa._unpacked_fwd(*view[:3], pbias, False,
+                                                  scale, None, 0.0,
+                                                  seed)[0]),),
+               lambda: planned_fwd_plain(q, k, v, pbias, False, scale, None,
+                                         0.0, seed),
+               lambda: fa.flash_unpacked_fwd_plain(q, k, v, pbias, False,
+                                                   scale, frame=128))
+    o, lse = planned_fwd_plain(q, k, v, pbias, False, scale, None, 0.0, seed)
+    yield case("flash_unpacked_bwd", f"({b}x{nh}, {s_}, {s_}, {hd}) padding "
+               "bias",
+               lambda: [fa._flat(t) for t in fa._unpacked_bwd(
+                   *view[:3], pbias, o.view(view[0].shape), lse, view[3],
+                   None, False, scale, None, 0.0, seed, False)[:3]],
+               lambda: fa.flash_unpacked_bwd_plain(q, k, v, pbias, o, lse,
+                                                   dou, False, scale)[:3])
+    del q, k, v, dou, view, o, lse, pbias
+    # rows 5 and 6: the decode grid (8 slots x 8 heads, capacity 1024),
+    # contiguous and through page-16 pools
+    lens = torch.tensor([CAPACITY, 700, 17, 513, 300, 64, 1000, 129],
+                        dtype=torch.int32, device=dev)
+    qd = randn(SLOTS, nh, hd, wide=2.5)
+    kc, vc = randn(SLOTS, CAPACITY, nh, hd), randn(SLOTS, CAPACITY, nh, hd)
+    plan = fa.decode_span_plan(SLOTS, nh, CAPACITY, sm_count(dev))
+    yield case("flash_attention_decode", f"grid, {plan[0]} spans of "
+               f"{plan[1]}, frame 32",
+               lambda: fa.flash_attention_decode(qd, kc, vc, lens,
+                                                 return_lse=True),
+               lambda: fa.decode_spans_plain(qd, kc, vc, lens, scale, *plan),
+               lambda: fa.flash_attention_decode_plain(qd, kc, vc, lens,
+                                                       scale, frame=64))
+    kp, vp, tab = _pools_from_cache(kc, vc, PAGE_SIZE,
+                                    torch.Generator().manual_seed(16))
+    yield case("flash_attention_decode_paged", f"grid, page {PAGE_SIZE}, "
+               "frame 32",
+               lambda: fa.flash_attention_decode_paged(qd, kp, vp, tab, lens,
+                                                       return_lse=True),
+               lambda: fa.decode_paged_spans_plain(qd, kp, vp, tab, lens,
+                                                   scale, *plan),
+               lambda: fa.flash_attention_decode_paged_plain(
+                   qd, kp, vp, tab, lens, scale, frame=64))
+    del kc, vc, kp, vp
+    # row 3: the serving read (the 256-token chunk) and the training form;
+    # row 4: the training backward (3 sequences, causal)
+    ids = torch.from_numpy(chunk_slot_ids(BUDGET, SLOTS)[0]).to(dev)
+    qs, ks, vs = (randn(nh, BUDGET, hd, wide=w) for w in (2.5, 1, 1))
+    yield case("flash_attention_segments_with_lse", f"({nh}, {BUDGET}, {hd})"
+               " chunk, causal, frame 32",
+               lambda: fs.flash_attention_segments_with_lse(qs, ks, vs, ids,
+                                                            True, scale),
+               lambda: fs.flash_attention_segments_plain(
+                   qs, ks, vs, ids, True, scale, fs.SERVE_FRAME),
+               lambda: fs.flash_attention_segments_plain(
+                   qs, ks, vs, ids, True, scale, 64))
+    lens3 = [700, 213, 1135]
+    seg = torch.from_numpy(np.repeat(np.arange(3), lens3).astype(
+        np.int32)).to(dev)
+    qt, kt, vt, dot = (randn(nh, sum(lens3), hd, wide=w)
+                       for w in (2.5, 1, 1, 1))
+    yield case("flash_segments_fwd", f"({nh}, {sum(lens3)}, {hd}) 3 "
+               "sequences, causal, frame 64",
+               lambda: fs._seg_fwd(qt, kt, vt, seg, True, scale),
+               lambda: fs.flash_attention_segments_plain(qt, kt, vt, seg,
+                                                         True, scale),
+               lambda: fs.flash_attention_segments_plain(qt, kt, vt, seg,
+                                                         True, scale, 128))
+    ot, lt = fs._seg_fwd(qt, kt, vt, seg, True, scale)
+    yield case("flash_segments_bwd", f"({nh}, {sum(lens3)}, {hd}) 3 "
+               "sequences, causal",
+               lambda: fs._seg_bwd(qt, kt, vt, seg, ot, lt, dot, True,
+                                   scale),
+               lambda: fs.flash_attention_segments_bwd_plain(
+                   qt, kt, vt, seg, ot, lt, dot, True, scale))
+
+
 CASE_GROUPS = dict(ln=ln_cases, seg=seg_cases, decode=decode_cases,
                    paged=paged_decode_cases, train_ln=train_ln_cases,
                    flash=flash_cases,
@@ -3218,7 +3600,8 @@ CASE_GROUPS = dict(ln=ln_cases, seg=seg_cases, decode=decode_cases,
                    unpacked=lambda dev: itertools.chain(
                        unpacked_cases(dev), unpacked_vs_packed_cases(dev)),
                    seg_train=seg_train_cases, softmax=softmax_cases,
-                   packed=packed_cases, bottleneck=bottleneck_cases)
+                   packed=packed_cases, bottleneck=bottleneck_cases,
+                   frames=frame_cases)
 
 
 def run_kernel_phase(dev, generators, profile=False):
@@ -4333,12 +4716,28 @@ def run_fmha_phase():
     res["launches"] = res["packed"]["launches"]
     log(f"  padded / packed = {res['padded_over_packed']:.3f} (bench.py's "
         f"vs_baseline); qkv {res['qkv_bytes'] / 2**20:.1f} MiB")
-    cmp = compare(outs["packed"], outs["padded"])
+    # the two paths round p to bf16 against running maxima of different
+    # key tiles (the packed stream's 64-token tiles; each padded sequence's
+    # own), as JAX's kernels would: o is held within `TOL` plus one bf16
+    # step of the L1 mass of its terms (o of the padded path on |v|), dqkv
+    # (whose do = 2 o carries o's difference) within one bf16 step in
+    # norm, tensor by tensor
+    absv = qkv.clone()
+    absv[:, 2] = absv[:, 2].abs()
+    l1 = fmha(absv, cu, max_s, causal=True, packed=False)
+    cmp = attn_compare(outs["packed"][:1], outs["padded"][:1], [l1],
+                       same_frame=False)
+    g_rel = float((outs["packed"][1].float() - outs["padded"][1].float())
+                  .norm() / outs["padded"][1].float().norm())
+    cmp["dqkv_rel_norm"] = g_rel
     res["packed_vs_padded"] = cmp
-    log(f"  packed vs padded on the card: max|err| {cmp['err']:.3e}, worst "
-        f"err/tol {cmp['ratio']:.3f}")
-    check(cmp["ratio"] <= 1.0, f"fmha packed and padded differ by "
+    log(f"  packed vs padded on the card: o max|err| {cmp['err']:.3e}, "
+        f"worst err/tol {cmp['ratio']:.3f}; dqkv |diff| / |dqkv| "
+        f"{g_rel:.3e}")
+    check(cmp["ratio"] <= 1.0, f"fmha packed and padded o differ by "
           f"{cmp['ratio']:.3g}x the tolerance")
+    check(g_rel <= ROUND_STEP, f"fmha packed and padded dqkv differ by "
+          f"{g_rel:.3g} of its norm")
     for path, want in (("packed", {"flash_segments_fwd": 1,
                                    "flash_segments_bwd": 1,
                                    "flash_attention_segments_with_lse": 0}),

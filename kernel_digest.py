@@ -16,6 +16,11 @@ script), runs on one CUDA device, on inputs drawn from fixed seeds:
   the 3x3 with its prologue and bare; each at layer3, layer4, a ragged M
   and W 2, in bf16 and fp32; and K1 as the ResNet-50 blocks call it,
   conv1 bare and conv3 under its prologue, at layer1_1 and layer4, bf16);
+- the forwards that round p against their running max (the contiguous
+  decode read, row 5, at the decode grid; the serving segment read, row
+  3, at the serve's chunk; the packed forward, rows 7a/8, at the GPT
+  train cell with bias; the unpacked forward, row 7b, at masked BERT's
+  shape and split at the whole-prompt shape; bf16 and fp32);
 - the training segment attention forward and backward (rows 3 and 4, at
   contrib/fmha's shape, bf16 and fp32), the unpacked backward and bias
   gradient (rows 9b and 10, masked BERT's shape; 9b's dq, dk and dv
@@ -29,9 +34,12 @@ script), runs on one CUDA device, on inputs drawn from fixed seeds:
   dropout 0.1, bf16 and fp32, its stream s apart from y, mean and
   rsigma) and backward (row 2: the training step's residual + dropout
   form with the stream cotangent, bf16 and fp32, and its plain affine
-  form, on statistics made by torch ops);
+  form, on statistics made by torch ops; the serve's 8 rows, a block a
+  row, and width 1002, off the vector grid, its dx and dd apart from
+  dgamma and dbeta);
 - the softmax kernels (row 12: the causal forward K1 at the GPT train
-  cell's (128, 1024, 1024) scores, the masked forward K2 at masked
+  cell's (128, 1024, 1024) scores, at a ragged 333 keys and at 4096
+  keys a row (streaming), the masked forward K2 at masked
   BERT-Large's (8, 8, 512, 512) under a padding mask, the backward K3 at
   both shapes on a softmax made by torch ops; fp32 and bf16);
 
@@ -134,6 +142,42 @@ def _flash_digests(out, fa, fas, dev, gen):
             qkv, pbias, o, lse, do, True, hd ** -0.5, 0.1, 11))
 
 
+def _fwd_digests(out, fa, fas, dev, gen):
+    """The forwards whose p is rounded against a running max (rows 3, 5,
+    7a/8, 7b), bf16 and fp32."""
+    def rnd(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen,
+                                    device=dev)).to(dtype)
+
+    lens = torch.tensor([1024, 0, 17, 513, 300, 64, 1000, 129],
+                        dtype=torch.int32, device=dev)
+    seg = torch.tensor([3] * 97 + [0] * 64 + [5] * 40 + [6] * 32 + [8] * 23,
+                       dtype=torch.int32, device=dev)
+    bias = torch.zeros(8, 512, 512, device=dev)
+    for b in range(8):
+        bias[b, :, 512 - 37 * (b + 1):] = -1e30
+    for dt in (torch.bfloat16, torch.float32):
+        lab = str(dt)[6:]
+        q = rnd(8, 8, 128, dtype=dt, scale=2.0)
+        k, v = (rnd(8, 1024, 8, 128, dtype=dt) for _ in range(2))
+        out[f"decode grid {lab}"] = _digest(fa.flash_attention_decode(
+            q, k, v, lens, return_lse=True))
+        q, k, v = (rnd(8, 256, 128, dtype=dt, scale=2.0) for _ in range(3))
+        out[f"segments serve {lab}"] = _digest(
+            fas.flash_attention_segments_with_lse(q, k, v, seg, True))
+        qkv = rnd(16, 1024, 8, 384, dtype=dt)
+        pbias = rnd(8 * 384, dtype=dt, scale=0.1)
+        out[f"packed fwd {lab}"] = _digest(fa._flash_fwd(
+            qkv, pbias, True, 128 ** -0.5, 0.1, 11))
+        del qkv
+        q, k, v = (rnd(8, 8, 512, 128, dtype=dt) for _ in range(3))
+        out[f"unpacked fwd {lab}"] = _digest(fa._unpacked_fwd(
+            q, k, v, bias, False, 128 ** -0.5, None, 0.1, 7))
+        q, k, v = (rnd(1, 8, 768, 128, dtype=dt) for _ in range(3))
+        out[f"unpacked fwd split {lab}"] = _digest(fa._unpacked_fwd(
+            q, k, v, None, True, 128 ** -0.5, None, 0.0, 7))
+
+
 def _row_digests(out, ln, sm, dev):
     """Rows 1, 2 and 12 (the LayerNorm and softmax kernels), on inputs of
     their own generator."""
@@ -169,6 +213,19 @@ def _row_digests(out, ln, sm, dev):
         if dt == torch.bfloat16:
             out[f"ln bwd plain affine {lab}"] = _digest(ln._layer_norm_bwd(
                 s_, dy, None, mu, rs, w))
+    # row 2's other layouts: the serve's rows (a block a row) and a width
+    # off the vector grid (dx and dd apart from the column sums)
+    for n, width in ((8, h), (4096, 1002)):
+        x = rnd(n, width, dtype=torch.bfloat16)
+        w = rnd(width, scale=0.1, shift=1.0, dtype=torch.bfloat16)
+        xf = x.float()
+        mu = xf.mean(1)
+        rs = torch.rsqrt(((xf - mu[:, None]) ** 2).mean(1) + 1e-5)
+        dy, ds = (rnd(n, width, dtype=torch.bfloat16) for _ in range(2))
+        dx, dd, dg, db = ln._layer_norm_bwd(x, dy, ds, mu, rs, w, rate,
+                                            seed)
+        out[f"ln bwd ({n}, {width}) dx dd"] = _digest((dx, dd))
+        out[f"ln bwd ({n}, {width}) dgamma dbeta"] = _digest((dg, db))
     gpt, bert = (128, 1024, 1024), (8, 8, 512, 512)
     lens = torch.tensor([512 - 37 * i for i in range(8)], device=dev)
     pos = torch.arange(512, device=dev)
@@ -186,6 +243,10 @@ def _row_digests(out, ln, sm, dev):
         out[f"softmax bwd GPT {lab}"] = _digest(
             (sm.softmax_bwd(y, rnd(*gpt, dtype=dt), 128 ** -0.5),))
         del y
+        for shape in ((16, 333, 333), (2, 4096, 4096)):
+            out[f"softmax causal fwd {shape} {lab}"] = _digest(
+                (sm.softmax_causal_fwd(rnd(*shape, scale=3.0, dtype=dt),
+                                       0.1),))
         x = rnd(*bert, scale=3.0, dtype=dt)
         out[f"softmax masked fwd BERT {lab}"] = _digest(
             (sm.softmax_masked_fwd(x, mask, 128 ** -0.5),))
@@ -324,6 +385,8 @@ def main(argv=None):
         out[f"conv1x1 fwd conv3 {name} bfloat16"] = _digest(
             _flat(fb.conv1x1_bn_act(y2, w3, a, b)))
     _row_digests(out, ln, sm, dev)
+    _fwd_digests(out, fa, fas, dev, torch.Generator(device=dev).manual_seed(
+        12))
     torch.cuda.synchronize()
     print(json.dumps(out))
     return 0

@@ -10,7 +10,10 @@
 // five-step butterfly hands lane j the full score of key j with 31
 // shuffles in all (instead of 32 separate warp reductions). The softmax
 // runs in the base-2 domain, like the TPU kernels: the query is
-// pre-scaled by scale*log2(e).
+// pre-scaled by scale*log2(e). Each p is rounded to the operand type
+// before it weighs its value row, against the running max after its
+// tile, as the TPU kernels round p after each key block (`p.astype(
+// v.dtype)`); l sums the unrounded p.
 //
 // `live` (warp-uniform) says which keys of the tile the row attends;
 // keys past `last` (the tile's last in-range key) are not part of the
@@ -99,9 +102,10 @@ __device__ __forceinline__ void attend_tile(const T* __restrict__ k_tile,
   st.l = st.l * corr + warp_sum(p);
 #pragma unroll
   for (int c = 0; c < VEC; ++c) st.acc[c] *= corr;
+  const float pr = round_to<T>(p);
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
-    const float pj = __shfl_sync(kFullMask, p, j);
+    const float pj = __shfl_sync(kFullMask, pr, j);
     float vf[VEC];
     load_vec<T, VEC>(v_tile + min(j, last) * v_stride, vf);
 #pragma unroll

@@ -126,6 +126,44 @@ __device__ __forceinline__ void store_vec_packed(T* __restrict__ p,
   }
 }
 
+// N elements of T at p as fp32, in 16-byte vectors loaded evict-first
+// (`__ldcs`) where N * sizeof(T) is a multiple of 16 (the address aligned
+// to 16), else as `load_vec`: for operands read once, whose lines should
+// give way to data that is read again
+template <typename T, int N>
+__device__ __forceinline__ void load_vec_once(const T* __restrict__ p,
+                                              float (&out)[N]) {
+  constexpr int kPiece = 16 / static_cast<int>(sizeof(T));
+  if constexpr (N % kPiece == 0) {
+#pragma unroll
+    for (int k = 0; k < N / kPiece; ++k) {
+      const float4 w = __ldcs(reinterpret_cast<const float4*>(p) + k);
+      const T* e = reinterpret_cast<const T*>(&w);
+#pragma unroll
+      for (int i = 0; i < kPiece; ++i) out[k * kPiece + i] = to_float(e[i]);
+    }
+  } else {
+    load_vec<T, N>(p, out);
+  }
+}
+
+// N elements rounded from fp32 to T at p, one 16-byte vector stored
+// evict-first (`__stcs`) where N * sizeof(T) is 16, else as
+// `store_vec_packed`: for outputs written once
+template <typename T, int N>
+__device__ __forceinline__ void store_vec_once(T* __restrict__ p,
+                                               const float (&in)[N]) {
+  if constexpr (N * sizeof(T) == 16) {
+    float4 w;
+    T* e = reinterpret_cast<T*>(&w);
+#pragma unroll
+    for (int i = 0; i < N; ++i) e[i] = from_float<T>(in[i]);
+    __stcs(reinterpret_cast<float4*>(p), w);
+  } else {
+    store_vec_packed<T, N>(p, in);
+  }
+}
+
 }  // namespace apex_port
 
 // One definition per shared library: each library is one translation unit.

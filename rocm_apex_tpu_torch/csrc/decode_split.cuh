@@ -208,9 +208,10 @@ __device__ __forceinline__ void attend_rows_tile(const P* __restrict__ k,
   st.l = st.l * corr + warp_sum(p);
 #pragma unroll
   for (int c = 0; c < VEC; ++c) st.acc[c] *= corr;
+  const float pr = round_to<T>(p);  // p in q's type, as attend_tile's
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
-    const float pj = __shfl_sync(kFullMask, p, j);
+    const float pj = __shfl_sync(kFullMask, pr, j);
     float vf[VEC];
     load_vec<P, VEC>(v + tl.row(j), vf);
     if constexpr (kInt8) {

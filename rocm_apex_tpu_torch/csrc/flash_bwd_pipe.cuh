@@ -9,8 +9,8 @@
 // strides.
 //
 // Bound: operations. At the GPT train cell (B 16, S 1024, 8 heads, hd
-// 128, causal) the backward issues 11 bf16 products a (query tile, key
-// tile) pair, 189 GFLOP, against ~0.2 GB of operands. What held the
+// 128, causal) the backward issues 5 bf16 products a (query tile, key
+// tile) pair, 86 GFLOP, against ~0.2 GB of operands. What held the
 // mma.sync bodies at ~90 TFLOP/s issued: 16-row warps, one K/V tile in
 // flight with barriers around it, and every operand read along its
 // columns (k in the dq pass, q and do in the dk/dv pass) staged
@@ -41,12 +41,9 @@
 //   and ds^T become the A fragments of dv += p^T do and dk += ds^T q, q
 //   and do read MN-major. q is staged once: the scores' copy, bf16(q
 //   q_mul), is written beside it in shared memory for every query tile.
-// - The computed operands keep fp32-level precision as the mma.sync
-//   kernels kept it: ds split hi + lo (two products each for dq and dk),
-//   p split hi + mid + lo for dv (dv sums p, unnormalized, over every
-//   query that attends a key: two terms lose 2^-18 of that mass, enough
-//   to fail the bf16 output's check). The dv products, three a 16-query
-//   step, issue one after another from registers.
+// - The computed operands are rounded to bf16 once, as the JAX kernels
+//   round them: ds (`ds.astype(q.dtype)`) for dq and for dk, p_drop
+//   (`p_drop.astype(do.dtype)`) for dv; one product each a 16-row step.
 // - The score rule, the masking rule and the keep bits are the forward
 //   pipe's: `key_live` (causal, lengths, the ragged edge; a tile no edge
 //   crosses skips its tests), dropout.cuh's hash of (seed, b*H + h,
@@ -201,18 +198,6 @@ __device__ __forceinline__ void tile_column_sums(const float (&x)[HD / 2],
     for (int w = 0; w < 4; ++w) c += red[w * HD + threadIdx.x];
     out[threadIdx.x] = c * mul;
   }
-}
-
-// the C accumulators of a 64 x 64 tile as A fragments, each value split
-// hi + lo (split_bf16): step j's A is S blocks 2 j and 2 j + 1
-__device__ __forceinline__ void c_to_a2(const float (&s)[32],
-                                        uint32_t (&hi)[4][4],
-                                        uint32_t (&lo)[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      split_bf16(s[8 * j + 2 * i], s[8 * j + 2 * i + 1], hi[j][i], lo[j][i]);
 }
 
 template <int HD, bool kBias>
@@ -403,23 +388,18 @@ __global__ void __launch_bounds__(128, 2)
         s[4 * j + e] = ds;
       }
 
-    // dq += ds k over 4 steps of 16 keys, ds as hi + lo
-    uint32_t hi[4][4], lo[4][4];
-    c_to_a2(s, hi, lo);
-    reg_fence(hi);
-    reg_fence(lo);
+    // dq += ds k over 4 steps of 16 keys, ds rounded to bf16
+    uint32_t da[4][4];
+    c_to_a_tile(s, da);
+    reg_fence(da);
     reg_fence(acc);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      pv_mma<HD>(acc, hi[j], mnmajor_desc(skt, j));
-      pv_mma<HD>(acc, lo[j], mnmajor_desc(skt, j));
-    }
+    for (int j = 0; j < 4; ++j) pv_mma<HD>(acc, da[j], mnmajor_desc(skt, j));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(acc);
-    reg_fence(hi);
-    reg_fence(lo);
+    reg_fence(da);
   }
 
   cp_async_wait<0>();
@@ -605,43 +585,27 @@ __global__ void __launch_bounds__(128, 2)
       }
     }
 
-    // dv += p^T do (p as hi + mid + lo) and dk += ds^T q (ds as hi + lo)
-    // over 4 steps of 16 queries, q and do read MN-major
-    uint32_t ph[4][4], pm[4][4], pl[4][4], dh[4][4], dlo[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        split3_bf16(s[8 * j + 2 * u], s[8 * j + 2 * u + 1], ph[j][u],
-                    pm[j][u], pl[j][u]);
-    c_to_a2(dp, dh, dlo);
-    reg_fence(ph);
-    reg_fence(pm);
-    reg_fence(pl);
-    reg_fence(dh);
-    reg_fence(dlo);
+    // dv += p^T do and dk += ds^T q over 4 steps of 16 queries, p^T and
+    // ds^T rounded to bf16, q and do read MN-major
+    uint32_t pa[4][4], da[4][4];
+    c_to_a_tile(s, pa);
+    c_to_a_tile(dp, da);
+    reg_fence(pa);
+    reg_fence(da);
     reg_fence(dv);
     reg_fence(dk);
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const uint64_t db = mnmajor_desc(sdot, j);
-      pv_mma<HD>(dv, ph[j], db);
-      pv_mma<HD>(dv, pm[j], db);
-      pv_mma<HD>(dv, pl[j], db);
-      const uint64_t qb = mnmajor_desc(sqt, j);
-      pv_mma<HD>(dk, dh[j], qb);
-      pv_mma<HD>(dk, dlo[j], qb);
+      pv_mma<HD>(dv, pa[j], mnmajor_desc(sdot, j));
+      pv_mma<HD>(dk, da[j], mnmajor_desc(sqt, j));
     }
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(dv);
     reg_fence(dk);
-    reg_fence(ph);
-    reg_fence(pm);
-    reg_fence(pl);
-    reg_fence(dh);
-    reg_fence(dlo);
+    reg_fence(pa);
+    reg_fence(da);
   }
 
   cp_async_wait<0>();

@@ -25,9 +25,10 @@
 // - S = (q q_mul) k^T is wgmma m64n64k16 with both operands K-major in
 //   shared memory. O += p v is wgmma m64n{hd}k16 with A from registers:
 //   the S accumulators become the A fragments in place, and V is read as
-//   it lies, keys down the tile, MN-major (wgmma transposes it). p keeps
-//   fp32-level precision as two products, hi = bf16(p) and lo = bf16(p -
-//   hi), as the plain versions assume.
+//   it lies, keys down the tile, MN-major (wgmma transposes it). p is
+//   rounded to bf16 once, against the running max after each 64-key
+//   tile, as `_fwd_kernel` rounds it after each key block (`p.astype(
+//   v.dtype)`): one product a 16-key step.
 // - The score rule is `_masked_scores`': after the q tile lands, one pass
 //   rounds q q_mul to bf16 in place (q_mul = scale log2 e in bf16); the
 //   scores are masked by flash_unpacked.cuh's `masked_score` rule (causal,
@@ -115,6 +116,17 @@ __device__ __forceinline__ void fold_q(unsigned char* tile, float q_mul) {
       e[i] = __float2bfloat16(__bfloat162float(e[i]) * q_mul);
     *p = raw;
   }
+}
+
+// the C accumulators of a 64 x 64 tile as bf16 A fragments: step j's A is
+// blocks 2 j and 2 j + 1, register for register
+__device__ __forceinline__ void c_to_a_tile(const float (&c)[32],
+                                            uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[j][i] = pack_bf16(c[8 * j + 2 * i], c[8 * j + 2 * i + 1]);
 }
 
 // keeps the compiler from moving registers across the asynchronous
@@ -296,30 +308,19 @@ __global__ void __launch_bounds__(128)
       acc[4 * nb + 3] *= corr[1];
     }
 
-    // o += p v over 4 steps of 16 keys; p as hi + lo A fragments: the S
-    // blocks 2 j and 2 j + 1 are, register for register, step j's A
-    uint32_t hi[4][4], lo[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      split_bf16(s[8 * j], s[8 * j + 1], hi[j][0], lo[j][0]);
-      split_bf16(s[8 * j + 2], s[8 * j + 3], hi[j][1], lo[j][1]);
-      split_bf16(s[8 * j + 4], s[8 * j + 5], hi[j][2], lo[j][2]);
-      split_bf16(s[8 * j + 6], s[8 * j + 7], hi[j][3], lo[j][3]);
-    }
-    reg_fence(hi);
-    reg_fence(lo);
+    // o += p v over 4 steps of 16 keys, p rounded to bf16 as the A
+    // fragments
+    uint32_t pa[4][4];
+    c_to_a_tile(s, pa);
+    reg_fence(pa);
     reg_fence(acc);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      pv_mma<HD>(acc, hi[j], mnmajor_desc(svt, j));
-      pv_mma<HD>(acc, lo[j], mnmajor_desc(svt, j));
-    }
+    for (int j = 0; j < 4; ++j) pv_mma<HD>(acc, pa[j], mnmajor_desc(svt, j));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(acc);
-    reg_fence(hi);
-    reg_fence(lo);
+    reg_fence(pa);
   }
 
   if (splits == 1) {

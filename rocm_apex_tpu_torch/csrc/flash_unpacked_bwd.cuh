@@ -28,8 +28,9 @@
 // s, dp, dv, dk in the other).
 //   bf16: tensor cores (mma.sync), 4 warps of 16 rows (queries in the dq
 //         pass, keys in the dk/dv pass, which steps over 32-query tiles to
-//         keep its dk and dv accumulators in registers); p and ds split
-//         hi + lo as the A operand of the products that consume them;
+//         keep its dk and dv accumulators in registers); p_drop and ds
+//         rounded to bf16 as the A operand of the products that consume
+//         them, as the JAX kernels round them;
 //         operands read along their columns are staged transposed. Only
 //         segment attention takes this form now.
 //   fp32: CUDA cores, as flash_unpacked_fwd.cuh.
@@ -161,19 +162,17 @@ __global__ void __launch_bounds__(kMmaThreads)
           dpd = keep_bit(rkey[i], col, pb.thr) ? dpd * pb.keep_scale : 0.f;
         s[nb][e] = p * (dpd - sdelta[r]);
       }
-    // dq += ds k over the 4 k-steps of 16 keys; ds split hi + lo
+    // dq += ds k over the 4 k-steps of 16 keys, ds rounded to bf16
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      uint32_t hi[4], lo[4];
-      c_to_a(s[2 * j], s[2 * j + 1], hi, lo);
+      uint32_t da[4];
+      c_to_a(s[2 * j], s[2 * j + 1], da);
 #pragma unroll
       for (int n = 0; n < kNo; n += 2) {
         uint32_t kb[4];
         load_b2(kb, skt, kLdKT, n * 8, j * 16);
-        mma_bf16(acc[n], hi, kb[0], kb[1]);
-        mma_bf16(acc[n], lo, kb[0], kb[1]);
-        mma_bf16(acc[n + 1], hi, kb[2], kb[3]);
-        mma_bf16(acc[n + 1], lo, kb[2], kb[3]);
+        mma_bf16(acc[n], da, kb[0], kb[1]);
+        mma_bf16(acc[n + 1], da, kb[2], kb[3]);
       }
     }
   };
@@ -315,12 +314,13 @@ __global__ void __launch_bounds__(kMmaThreads)
           dpt[nb][e] = p * (dpd - sdelta[qc]);
         }
       }
-    // dv += pd^T do and dk += ds^T q over the 2 k-steps of 16 queries
+    // dv += pd^T do and dk += ds^T q over the 2 k-steps of 16 queries,
+    // pd and ds rounded to bf16
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      uint32_t phi[4], plo[4], shi[4], slo[4];
-      c_to_a(st[2 * j], st[2 * j + 1], phi, plo);
-      c_to_a(dpt[2 * j], dpt[2 * j + 1], shi, slo);
+      uint32_t pa[4], da[4];
+      c_to_a(st[2 * j], st[2 * j + 1], pa);
+      c_to_a(dpt[2 * j], dpt[2 * j + 1], da);
 #pragma unroll
       for (int n = 0; n < kNo; n += 2) {
         uint32_t db[4], qb[4];
@@ -328,10 +328,8 @@ __global__ void __launch_bounds__(kMmaThreads)
         load_b2(qb, sqt, kLdQT, n * 8, j * 16);
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
-          mma_bf16(dva[n + u], phi, db[2 * u], db[2 * u + 1]);
-          mma_bf16(dva[n + u], plo, db[2 * u], db[2 * u + 1]);
-          mma_bf16(dka[n + u], shi, qb[2 * u], qb[2 * u + 1]);
-          mma_bf16(dka[n + u], slo, qb[2 * u], qb[2 * u + 1]);
+          mma_bf16(dva[n + u], pa, db[2 * u], db[2 * u + 1]);
+          mma_bf16(dka[n + u], da, qb[2 * u], qb[2 * u + 1]);
         }
       }
     }

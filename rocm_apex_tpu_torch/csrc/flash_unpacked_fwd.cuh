@@ -22,8 +22,9 @@
 //   bf16 (segment attention; the unpacked form is the pipe's): both
 //         products on the tensor cores (mma.sync m16n8k16, fp32
 //         accumulate), 4 warps of 16 query rows; the scores stay in
-//         registers and become the A operand of p @ v split hi + lo, so p
-//         keeps fp32-level precision.
+//         registers and become the A operand of p @ v, p rounded to bf16
+//         against the running max after each 64-key tile, as the JAX
+//         kernel rounds it after each key block.
 //   fp32: the products on the CUDA cores (4 x 4 score and 4 x D/16 output
 //         register tiles a thread); held to the fp32 rate.
 // One tile in flight, a barrier between load and use.
@@ -176,19 +177,17 @@ __global__ void __launch_bounds__(kMmaThreads)
       acc[n][3] *= corr[1];
     }
 
-    // o += p v over the 4 k-steps of 16 keys; p split hi + lo
+    // o += p v over the 4 k-steps of 16 keys, p rounded to bf16
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      uint32_t hi[4], lo[4];
-      c_to_a(s[2 * j], s[2 * j + 1], hi, lo);
+      uint32_t pa[4];
+      c_to_a(s[2 * j], s[2 * j + 1], pa);
 #pragma unroll
       for (int n = 0; n < kNo; n += 2) {
         uint32_t vb[4];
         load_b2(vb, svt, kLdT, n * 8, j * 16);
-        mma_bf16(acc[n], hi, vb[0], vb[1]);
-        mma_bf16(acc[n], lo, vb[0], vb[1]);
-        mma_bf16(acc[n + 1], hi, vb[2], vb[3]);
-        mma_bf16(acc[n + 1], lo, vb[2], vb[3]);
+        mma_bf16(acc[n], pa, vb[0], vb[1]);
+        mma_bf16(acc[n + 1], pa, vb[2], vb[3]);
       }
     }
   };

@@ -15,10 +15,9 @@
 //   cotangent), dd = keep * dx / (1 - rate) with the forward's bits
 //   regenerated, dgamma = sum_rows dy * x̂, dbeta = sum_rows dy.
 // dgamma/dbeta are reduced in two stages in fp32, as on the TPU: each
-// block sums its rows into per-warp shared-memory columns, adds the warps
-// in a fixed order and writes one partial row; `ln_bwd_reduce` adds the
-// partials in a fixed order. No atomics, so the result is the same run
-// to run.
+// block sums its rows into one partial row, adding its warps in a fixed
+// order; `ln_bwd_reduce_kernel` adds the partials in a fixed order. No
+// atomics, so the result is the same run to run.
 //
 // Bound: bytes (a handful of FLOPs per element). The forward's layout is
 // the host's plan (ops/layer_norm.py `ln_fwd_plan`), by shape:
@@ -34,7 +33,20 @@
 //   vector grid, past the register cap, or at unaligned addresses: one
 //   warp a row, the lanes striding over it three times (sum, centred
 //   squares, output), re-reading it from L1 and re-hashing each keep bit.
-// The backward is one warp a row, every pass a coalesced warp load.
+// The backward takes the forward's layouts (ops/layer_norm.py
+// `ln_bwd_plan`): the register row (`ln_bwd_warp_kernel`, a warp a row at
+// the training rows; `ln_bwd_block_kernel`, a block a row at few rows),
+// the grid walking the rows with two or three blocks a multiprocessor. x, dy
+// and ds are read once with 16-byte loads, the row sums of dy gamma and
+// dy gamma x̂ taken from the registers, each keep bit hashed once, dx and
+// dd written once with vector stores. A thread owns the same columns in
+// every row its warp (block) walks, so dgamma and dbeta accumulate in its
+// registers; a block adds its warps' sums once, in warp order, through
+// shared memory, and writes one partial row: (grid, 2, hidden) partials.
+// Widths off the vector grid, past the register cap or at unaligned
+// addresses keep the old form (`ln_bwd_kernel`): a warp a row, x and dy
+// read twice, dgamma/dbeta summed in shared memory an element at a time,
+// a partial row a 32-row block.
 #include "common.cuh"
 #include "dropout.cuh"
 
@@ -343,32 +355,261 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
   }
 }
 
-// dgamma/dbeta = the column sums of the (blocks, 2, hidden) partials. A
-// (32, 8) block: 32 columns, 8 slices of the partial rows, added across
-// slices in a fixed order.
-template <typename W>
-__global__ void __launch_bounds__(256)
-    ln_bwd_reduce_kernel(const float* __restrict__ part, int blocks,
-                         int hidden, W* __restrict__ dgamma,
-                         W* __restrict__ dbeta) {
-  __shared__ float red[2][8][32];
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  float g = 0.f, b = 0.f;
-  if (c < hidden) {
-    for (int k = threadIdx.y; k < blocks; k += 8) {
-      g += part[static_cast<int64_t>(k) * 2 * hidden + c];
-      b += part[static_cast<int64_t>(k) * 2 * hidden + hidden + c];
+// The register row's backward: the row groups of the grid (a warp, or a
+// block of warps) walk rows g, g + groups, ...; thread t of a group of R
+// threads holds the 16-byte vectors of x j * R + t, j < NV, that start
+// inside the row, and the same columns of dy, ds, dx and dd. dgamma and
+// dbeta of those columns accumulate in its registers over the rows it
+// walks; at the end the block's warps add theirs in warp order through
+// `colsum` (a warp route: every warp holds every column) and the block
+// writes part[blockIdx.x] = (dgamma, dbeta) of its rows.
+constexpr int kLnBwdWarpHidden = 32 * kLnMaxValues;  // a warp row's widest
+
+// the line holding p into L2, ahead of its load
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+template <typename T, typename W, typename Y, int NV, bool kBlockRow>
+__device__ __forceinline__ void ln_bwd_row(
+    const T* __restrict__ x, const Y* __restrict__ dy,
+    const T* __restrict__ ds, const float* __restrict__ mean,
+    const float* __restrict__ rsigma, const W* __restrict__ gamma,
+    T* __restrict__ dx, T* __restrict__ dd, float* __restrict__ part,
+    int rows, int hidden, Dropout drop) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  __shared__ float red[2][kLnMaxRowWarps];
+  __shared__ float colsum[kBlockRow ? 1 : 2 * kLnBwdWarpHidden];
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  const int warps = static_cast<int>(blockDim.x >> 5);
+  const int t = kBlockRow ? static_cast<int>(threadIdx.x)
+                          : static_cast<int>(threadIdx.x & 31);
+  const int row_threads = kBlockRow ? static_cast<int>(blockDim.x) : 32;
+  const int groups = kBlockRow ? static_cast<int>(gridDim.x)
+                               : static_cast<int>(gridDim.x) * warps;
+
+  float ag[NV][VEC], ab[NV][VEC];
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) ag[j][i] = ab[j][i] = 0.f;
+
+  for (int row = kBlockRow ? static_cast<int>(blockIdx.x)
+                           : static_cast<int>(blockIdx.x) * warps + warp;
+       row < rows; row += groups) {  // uniform per row group
+    if constexpr (kBlockRow) __syncthreads();  // red's last readers done
+    const int64_t off = static_cast<int64_t>(row) * hidden;
+    // every load first: the row's statistics, x's and ds's 16-byte words,
+    // dy's VEC values
+    const float mu = mean[row];
+    const float rs = rsigma[row];
+    uint4 xw[NV], sw[NV];
+    float g[NV][VEC];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (j * row_threads + t) * VEC;
+      if (c < hidden) {
+        xw[j] = __ldcs(reinterpret_cast<const uint4*>(x + off + c));
+        load_vec_once<Y, VEC>(dy + off + c, g[j]);
+        if (ds != nullptr)
+          sw[j] = __ldcs(reinterpret_cast<const uint4*>(ds + off + c));
+      }
+    }
+    // the group's next row into L2 while this one is worked on: a row
+    // group holds one row's loads in flight, so its next row's wait would
+    // otherwise be a full trip to device memory
+    if (row + groups < rows) {
+      const int64_t nxt = off + static_cast<int64_t>(groups) * hidden;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int c = (j * row_threads + t) * VEC;
+        if (c < hidden) {
+          prefetch_l2(x + nxt + c);
+          prefetch_l2(dy + nxt + c);
+          if (ds != nullptr) prefetch_l2(ds + nxt + c);
+        }
+      }
+    }
+    // the row sums of dy gamma and dy gamma x̂, and the column sums; x̂
+    // and dy gamma are formed again below from the held words (holding
+    // them would cost 2 * NV * VEC registers a thread, and the blocks an
+    // SM keeps in flight)
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (j * row_threads + t) * VEC;
+      if (c < hidden) {
+        float w[VEC];
+        load_wide<W, VEC>(gamma + c, w);
+        const T* xe = reinterpret_cast<const T*>(&xw[j]);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float xh = (to_float(xe[i]) - mu) * rs;
+          const float gg = g[j][i] * w[i];
+          ag[j][i] = fmaf(g[j][i], xh, ag[j][i]);
+          ab[j][i] += g[j][i];
+          s1 += gg;
+          s2 = fmaf(gg, xh, s2);
+        }
+      }
+    }
+    const float c1 = ln_row_sum<kBlockRow>(s1, red[0]) / hidden;
+    const float c2 = ln_row_sum<kBlockRow>(s2, red[1]) / hidden;
+    const uint32_t key = dropout_row_key(drop.seed, 0u, row);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (j * row_threads + t) * VEC;
+      if (c < hidden) {
+        float w[VEC], v[VEC];
+        load_wide<W, VEC>(gamma + c, w);
+        const T* xe = reinterpret_cast<const T*>(&xw[j]);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float xh = (to_float(xe[i]) - mu) * rs;
+          v[i] = rs * (g[j][i] * w[i] - c1 - xh * c2);
+        }
+        if (ds != nullptr) {
+          const T* se = reinterpret_cast<const T*>(&sw[j]);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) v[i] += to_float(se[i]);
+        }
+        store_vec_once<T, VEC>(dx + off + c, v);
+        if (dd != nullptr) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            v[i] = keep_bit(key, c + i, drop.thr) ? v[i] * drop.scale : 0.f;
+          store_vec_once<T, VEC>(dd + off + c, v);
+        }
+      }
     }
   }
-  red[0][threadIdx.y][threadIdx.x] = g;
-  red[1][threadIdx.y][threadIdx.x] = b;
+
+  // the block's partial row: a block row's threads own disjoint columns;
+  // a warp route's warps each own every column, added in warp order
+  float* out = part + static_cast<int64_t>(blockIdx.x) * 2 * hidden;
+  for (int w = 0; w < (kBlockRow ? 1 : warps); ++w) {
+    if (kBlockRow || warp == w) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int c = (j * row_threads + t) * VEC;
+        if (c < hidden) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            float gs = ag[j][i], bs = ab[j][i];
+            if (!kBlockRow && w > 0) {
+              gs = colsum[c + i] + gs;
+              bs = colsum[hidden + c + i] + bs;
+            }
+            if (kBlockRow || w == warps - 1) {
+              out[c + i] = gs;
+              out[hidden + c + i] = bs;
+            } else {
+              colsum[c + i] = gs;
+              colsum[hidden + c + i] = bs;
+            }
+          }
+        }
+      }
+    }
+    if (!kBlockRow) __syncthreads();
+  }
+}
+
+#define APEX_LN_BWD_PARAMS                                                 \
+  const T *__restrict__ x, const Y *__restrict__ dy,                       \
+      const T *__restrict__ ds, const float *__restrict__ mean,            \
+      const float *__restrict__ rsigma, const W *__restrict__ gamma,       \
+      T *__restrict__ dx, T *__restrict__ dd, float *__restrict__ part,    \
+      int rows, int hidden, Dropout drop
+
+// blocks a multiprocessor the warp route keeps in flight (ops/layer_norm.py
+// _LN_BWD_BLOCKS_PER_SM), its registers capped to fit them: three for a
+// 2-byte x (at most 170 registers a thread), two for fp32, whose row
+// words take twice the registers
+template <typename T>
+constexpr int ln_bwd_blocks_per_sm() {
+  return sizeof(T) == 2 ? 3 : 2;
+}
+
+template <typename T, typename W, typename Y, int NV>
+__global__ void __launch_bounds__(kLnWarpRowThreads,
+                                  ln_bwd_blocks_per_sm<T>())
+    ln_bwd_warp_kernel(APEX_LN_BWD_PARAMS) {
+  ln_bwd_row<T, W, Y, NV, false>(x, dy, ds, mean, rsigma, gamma, dx, dd,
+                                 part, rows, hidden, drop);
+}
+
+template <typename T, typename W, typename Y, int NV>
+__global__ void __launch_bounds__(kLnMaxRowWarps * 32)
+    ln_bwd_block_kernel(APEX_LN_BWD_PARAMS) {
+  ln_bwd_row<T, W, Y, NV, true>(x, dy, ds, mean, rsigma, gamma, dx, dd,
+                                part, rows, hidden, drop);
+}
+#undef APEX_LN_BWD_PARAMS
+
+// dgamma/dbeta = the column sums of the (parts, 2, hidden) partials. An
+// (8, 128) block: 8 columns, 128 slices of the partial rows (slice y adds
+// rows y, y + 128, ... in order, four loads in flight), then the slices
+// added in a fixed order, 8 at a time and those 16 sums in turn. Blocks of
+// 8 columns put the reduction on hidden / 8 multiprocessors.
+constexpr int kReduceCols = 8;
+constexpr int kReduceSlices = 128;
+
+template <typename W>
+__global__ void __launch_bounds__(kReduceCols * kReduceSlices)
+    ln_bwd_reduce_kernel(const float* __restrict__ part, int parts,
+                         int hidden, W* __restrict__ dgamma,
+                         W* __restrict__ dbeta) {
+  __shared__ float red[2][kReduceSlices][kReduceCols + 1];
+  const int c = blockIdx.x * kReduceCols + threadIdx.x;
+  const int y = threadIdx.y;
+  float g = 0.f, b = 0.f;
+  if (c < hidden) {
+    const int64_t stride = static_cast<int64_t>(kReduceSlices) * 2 * hidden;
+    const float* p = part + static_cast<int64_t>(y) * 2 * hidden + c;
+    int k = y;
+    for (; k + 3 * kReduceSlices < parts;
+         k += 4 * kReduceSlices, p += 4 * stride) {
+      float pg[4], pb[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        pg[u] = p[u * stride];
+        pb[u] = p[u * stride + hidden];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        g += pg[u];
+        b += pb[u];
+      }
+    }
+    for (; k < parts; k += kReduceSlices, p += stride) {
+      g += p[0];
+      b += p[hidden];
+    }
+  }
+  red[0][y][threadIdx.x] = g;
+  red[1][y][threadIdx.x] = b;
   __syncthreads();
-  if (threadIdx.y == 0 && c < hidden) {
-    g = 0.f;
-    b = 0.f;
-    for (int k = 0; k < 8; ++k) {
-      g += red[0][k][threadIdx.x];
-      b += red[1][k][threadIdx.x];
+  constexpr int kGroups = kReduceSlices / 8;
+  if (y < kGroups) {
+    g = b = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      g += red[0][8 * y + i][threadIdx.x];
+      b += red[1][8 * y + i][threadIdx.x];
+    }
+  }
+  __syncthreads();
+  if (y < kGroups) {
+    red[0][y][threadIdx.x] = g;
+    red[1][y][threadIdx.x] = b;
+  }
+  __syncthreads();
+  if (y == 0 && c < hidden) {
+    g = b = 0.f;
+    for (int i = 0; i < kGroups; ++i) {
+      g += red[0][i][threadIdx.x];
+      b += red[1][i][threadIdx.x];
     }
     dgamma[c] = from_float<W>(g);
     dbeta[c] = from_float<W>(b);
@@ -462,29 +703,78 @@ struct BwdLaunch {
   void *dx, *dd, *part, *dgamma, *dbeta;
   int rows, hidden;
   Dropout drop;
+  int row_warps, vectors, grid;  // the plan's layout; row_warps 0: old form
   cudaStream_t stream;
 
   template <typename T, typename W, typename Y>
   int run() {
-    const int blocks = (rows + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock;
-    const size_t smem = sizeof(float) * kBwdWarps * 2 * hidden;
-    auto kernel = ln_bwd_kernel<T, W, Y>;
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
+    int parts = grid;
+    if (row_warps == 0) {
+      parts = (rows + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock;
+      if (grid != parts) return static_cast<int>(cudaErrorInvalidValue);
+      const size_t smem = sizeof(float) * kBwdWarps * 2 * hidden;
+      auto kernel = ln_bwd_kernel<T, W, Y>;
+      if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+      }
+      kernel<<<parts, kBwdWarps * 32, smem, stream>>>(
+          static_cast<const T*>(x), static_cast<const Y*>(dy),
+          static_cast<const T*>(ds), static_cast<const float*>(mean),
+          static_cast<const float*>(rsigma), static_cast<const W*>(gamma),
+          static_cast<T*>(dx), static_cast<T*>(dd),
+          static_cast<float*>(part), rows, hidden, drop);
+    } else {
+      // the register row takes what its plan checked: 16-byte aligned
+      // addresses, whole vectors, every vector of the row held
+      constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+      const uintptr_t bits =
+          reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy) |
+          reinterpret_cast<uintptr_t>(ds) |
+          reinterpret_cast<uintptr_t>(gamma) |
+          reinterpret_cast<uintptr_t>(dx) | reinterpret_cast<uintptr_t>(dd);
+      if (bits % 16 != 0 || hidden % kVec != 0 || row_warps < 1 ||
+          row_warps > kLnMaxRowWarps || grid < 1 ||
+          (row_warps == 1 && hidden > kLnBwdWarpHidden) ||
+          static_cast<int64_t>(vectors) * 32 * row_warps * kVec < hidden)
+        return static_cast<int>(cudaErrorInvalidValue);
+      const int rc = launch_register<T, W, Y, 1>();
+      if (rc != 0) return rc;
     }
-    kernel<<<blocks, kBwdWarps * 32, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const Y*>(dy),
-        static_cast<const T*>(ds), static_cast<const float*>(mean),
-        static_cast<const float*>(rsigma), static_cast<const W*>(gamma),
-        static_cast<T*>(dx), static_cast<T*>(dd), static_cast<float*>(part),
-        rows, hidden, drop);
-    ln_bwd_reduce_kernel<W><<<(hidden + 31) / 32, dim3(32, 8), 0, stream>>>(
-        static_cast<const float*>(part), blocks, hidden,
-        static_cast<W*>(dgamma), static_cast<W*>(dbeta));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ln_bwd_reduce_kernel<W>
+        <<<(hidden + kReduceCols - 1) / kReduceCols,
+           dim3(kReduceCols, kReduceSlices), 0, stream>>>(
+            static_cast<const float*>(part), parts, hidden,
+            static_cast<W*>(dgamma), static_cast<W*>(dbeta));
     return 0;
+  }
+
+  // the instance of NV == vectors: 1, 2, 4, ... up to kLnMaxValues values
+  template <typename T, typename W, typename Y, int NV>
+  int launch_register() {
+    constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+    if constexpr (NV * kVec > kLnMaxValues) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      if (vectors != NV) return launch_register<T, W, Y, NV * 2>();
+      auto args = [&](auto kernel, int threads) {
+        kernel<<<grid, threads, 0, stream>>>(
+            static_cast<const T*>(x), static_cast<const Y*>(dy),
+            static_cast<const T*>(ds), static_cast<const float*>(mean),
+            static_cast<const float*>(rsigma), static_cast<const W*>(gamma),
+            static_cast<T*>(dx), static_cast<T*>(dd),
+            static_cast<float*>(part), rows, hidden, drop);
+      };
+      if (row_warps == 1)
+        args(ln_bwd_warp_kernel<T, W, Y, NV>, kLnWarpRowThreads);
+      else
+        args(ln_bwd_block_kernel<T, W, Y, NV>, 32 * row_warps);
+      return 0;
+    }
   }
 };
 
@@ -518,17 +808,25 @@ extern "C" int ln_fwd(const void* x, const void* delta, const void* gamma,
 // cotangent in x_dtype or null; mean/rsigma: the forward's (rows,) fp32;
 // gamma: (hidden,) in w_dtype. Writes dx (x_dtype), dd (x_dtype, only
 // with dropout; else null), dgamma/dbeta ((hidden,) in w_dtype) through
-// `part`, an fp32 scratch of ceil(rows / 32) * 2 * hidden.
+// `part`, an fp32 scratch of grid * 2 * hidden. row_warps/vectors/grid:
+// `ln_bwd_plan`'s layout (row_warps 0: the old form, grid ceil(rows /
+// 32); 1: a warp a row, four a block; more: a block of that many warps
+// a row; `vectors` 16-byte vectors of x a thread, `grid` blocks).
 extern "C" int ln_bwd(const void* x, const void* dy, const void* ds,
                       const void* mean, const void* rsigma,
                       const void* gamma, void* dx, void* dd, void* part,
                       void* dgamma, void* dbeta, int rows, int hidden,
                       int dropout, unsigned seed, unsigned thr,
                       float keep_scale, int x_dtype, int w_dtype,
-                      int y_dtype, void* stream) {
+                      int y_dtype, int row_warps, int vectors, int grid,
+                      void* stream) {
   using namespace apex_port;
-  BwdLaunch l{x, dy, ds, mean, rsigma, gamma, dx, dd, part, dgamma, dbeta,
-              rows, hidden, Dropout{dropout, seed, thr, keep_scale},
+  BwdLaunch l{x,     dy,     ds,
+              mean,  rsigma, gamma,
+              dx,    dd,     part,
+              dgamma, dbeta, rows,
+              hidden, Dropout{dropout, seed, thr, keep_scale},
+              row_warps, vectors, grid,
               static_cast<cudaStream_t>(stream)};
   const int rc = dispatch3(x_dtype, w_dtype, y_dtype, l);
   if (rc != 0) return rc;

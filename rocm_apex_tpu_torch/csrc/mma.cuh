@@ -1,6 +1,6 @@
 // Tensor-core helpers of the bf16 flash-attention kernels: the
 // mma.sync m16n8k16 product (bf16 in, fp32 accumulate), bf16 packing,
-// the fragment loaders and the splits of a computed operand.
+// the fragment loaders and the C-to-A handover of a computed operand.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major) a0: (g, 2t..2t+1)  a1: (g+8, 2t..)
@@ -14,10 +14,9 @@
 // registers).
 //
 // A product whose A operand is computed (the probabilities p, the score
-// gradients ds) splits it into hi = bf16(x) and lo = bf16(x - hi) and
-// runs the mma twice: the sum keeps ~16 mantissa bits of x, so the
-// kernels agree with their fp32 plain versions to fp32 rounding, not to
-// bf16's 8 bits. The loaded operands (q, k, v, do) are bf16 already.
+// gradients ds) rounds it to bf16 once, as every JAX attention kernel
+// rounds it (`p.astype(v.dtype)`, `ds.astype(q.dtype)`); the loaded
+// operands (q, k, v, do) are bf16 already.
 #pragma once
 
 #include "common.cuh"
@@ -38,15 +37,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x0, x1) -> hi = bf16 pair, lo = bf16 pair of the remainders.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
 }
 
 // ldmatrix.x4: four 8 x 8 bf16 matrices from shared memory, lane l
@@ -80,26 +70,16 @@ __device__ __forceinline__ void load_b2(uint32_t (&b)[4], const bf16* m,
   ldsm_x4(b, m + (n0 + (mi >> 1) * 8 + (lane & 7)) * ld + c0 + (mi & 1) * 8);
 }
 
-// (x0, x1) -> three bf16 pairs whose sum keeps ~24 bits of x: hi, mid =
-// bf16(x - hi), lo = bf16(x - hi - mid) (each difference exact in fp32).
-__device__ __forceinline__ void split3_bf16(float x0, float x1, uint32_t& hi,
-                                            uint32_t& mid, uint32_t& lo) {
-  split_bf16(x0, x1, hi, mid);
-  const __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&hi);
-  const __nv_bfloat162 m = *reinterpret_cast<__nv_bfloat162*>(&mid);
-  const float2 hf = __bfloat1622float2(h), mf = __bfloat1622float2(m);
-  lo = pack_bf16(x0 - hf.x - mf.x, x1 - hf.y - mf.y);
-}
-
-// Split A fragments from a 16 x 16 block held as two C tiles: c0 for
-// columns 0..7, c1 for columns 8..15 (the FA2 register reuse).
+// The A fragments of a 16 x 16 block held as two C tiles, c0 for columns
+// 0..7 and c1 for columns 8..15, each value rounded to bf16 (the FA2
+// register reuse).
 __device__ __forceinline__ void c_to_a(const float (&c0)[4],
                                        const float (&c1)[4],
-                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split_bf16(c0[0], c0[1], hi[0], lo[0]);
-  split_bf16(c0[2], c0[3], hi[1], lo[1]);
-  split_bf16(c1[0], c1[1], hi[2], lo[2]);
-  split_bf16(c1[2], c1[3], hi[3], lo[3]);
+                                       uint32_t (&a)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 }  // namespace apex_port

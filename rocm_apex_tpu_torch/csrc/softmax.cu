@@ -18,25 +18,27 @@
 // warp, then the warps in index order): no atomics, so a run reproduces
 // bit for bit.
 //
-// The masked forward's rows of up to kWarpRowMax keys take the register
-// row (`softmax_masked_reg_kernel`, the route ops/softmax.py
-// `softmax_fwd_plan` names): a warp a row, each lane holding its
-// columns, NV vectors of VEC, in registers. x is read once (16-byte
-// evict-first loads where the row's bytes are a multiple of 16 at
-// aligned bases, else a scalar a column), the mask beside it (VEC bytes
-// a vector where its last stride is 1 and its rows are aligned, else a
-// byte a column through its strides); then the row's max, one exp an
-// element kept in registers, the row's sum, and y = e * (1 / sum), one
-// evict-first store a vector (a division a lane, not an element). Longer
-// masked rows, and every causal row, take the streaming form: one warp a
-// row up to kWarpRowMax keys, one block of 8 warps a row above that; the
-// row is never held whole: pass 1 keeps a running (max, sum exp) per
-// lane and merges them over the row's threads; pass 2 reads the row
-// again and writes y. The second read comes from L2 (a row is at most
-// 64 KB at 16K fp32 keys, the rows in flight a few MB against the 50 MB
-// L2), so device memory sees each input byte once and each output byte
-// once. The causal form reads only the columns at or left of the
-// diagonal and stores zeros right of it, which is what exp(-inf) gives.
+// Both forwards' rows of up to kWarpRowMax keys take the register row
+// (`softmax_reg_kernel`, the route ops/softmax.py `softmax_fwd_plan`
+// names): a warp a row, each lane holding its columns, NV vectors of VEC,
+// in registers. x is read once (16-byte evict-first loads where the
+// row's bytes are a multiple of 16 at aligned bases, else a scalar a
+// column), the mask beside it (VEC bytes a vector where its last stride
+// is 1 and its rows are aligned, else a byte a column through its
+// strides); then the row's max, one exp an element kept in registers,
+// the row's sum, and y = e * (1 / sum), one evict-first store a vector
+// (a division a lane, not an element). The causal form (kCausal) loads
+// no vector that lies wholly right of the diagonal and stores zeros
+// there; the vector that straddles it is masked by element to -inf, so
+// its right part is exactly 0. Longer rows take the streaming form: one
+// block of 8 warps a row; the row is never held whole: pass 1 keeps a
+// running (max, sum exp) per lane and merges them over the row's
+// threads; pass 2 reads the row again and writes y. The second read
+// comes from L2 (a row is at most 64 KB at 16K fp32 keys, the rows in
+// flight a few MB against the 50 MB L2), so device memory sees each
+// input byte once and each output byte once. The causal form reads only
+// the columns at or left of the diagonal and stores zeros right of it,
+// which is what exp(-inf) gives.
 // The backward reads y and dy twice the same way (their row sum, then
 // dx). Rows whose byte length is a multiple of 16, at 16-byte-aligned
 // bases, take 16-byte loads and stores; any other row the scalar form of
@@ -176,55 +178,26 @@ __global__ void __launch_bounds__(kSoftmaxThreads)
   }
 }
 
-// VEC elements of T at p as fp32, a 16-byte vector loaded evict-first
-// (`__ldcs`): x is read once, so its lines give way to the mask's, which
-// every head of a batch reads again.
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec_once(const T* __restrict__ p,
-                                              float (&out)[VEC]) {
-  if constexpr (VEC * sizeof(T) == 16) {
-    const float4 w = __ldcs(reinterpret_cast<const float4*>(p));
-    const T* e = reinterpret_cast<const T*>(&w);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) out[i] = to_float(e[i]);
-  } else {
-    load_vec<T, VEC>(p, out);
-  }
-}
-
-// VEC elements rounded from fp32 to T at p, a 16-byte vector stored
-// evict-first (`__stcs`): y is written once.
-template <typename T, int VEC>
-__device__ __forceinline__ void store_vec_once(T* __restrict__ p,
-                                               const float (&in)[VEC]) {
-  if constexpr (VEC * sizeof(T) == 16) {
-    float4 w;
-    T* e = reinterpret_cast<T*>(&w);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) e[i] = from_float<T>(in[i]);
-    __stcs(reinterpret_cast<float4*>(p), w);
-  } else {
-    store_vec_packed<T, VEC>(p, in);
-  }
-}
-
-// The masked forward's register row: a warp a row, 8 rows a block. Lane
-// l holds the vectors j * 32 + l, j < NV, that start inside the row.
-// kVecMask reads the mask's VEC bytes beside each vector (its last
-// stride 1, its rows VEC-byte aligned); else a byte a column through
-// mask_sk. mask may be null (nothing masked).
-template <typename T, int VEC, int NV, bool kVecMask>
+// The register row of both forwards: a warp a row, 8 rows a block. Lane
+// l holds the vectors j * 32 + l, j < NV, that start inside the row (the
+// causal form: those that start at or left of the diagonal, the others
+// stored as zeros). kVecMask reads the mask's VEC bytes beside each
+// vector (its last stride 1, its rows VEC-byte aligned); else a byte a
+// column through mask_sk. mask may be null (nothing masked); the causal
+// form takes none.
+template <typename T, int VEC, int NV, bool kVecMask, bool kCausal>
 __global__ void __launch_bounds__(kSoftmaxThreads)
-    softmax_masked_reg_kernel(const T* __restrict__ x, T* __restrict__ y,
-                              const uint8_t* __restrict__ mask, int64_t rows,
-                              int heads, int sq, int sk, int64_t mask_sb,
-                              int64_t mask_sq, int64_t mask_sk, float scale) {
+    softmax_reg_kernel(const T* __restrict__ x, T* __restrict__ y,
+                       const uint8_t* __restrict__ mask, int64_t rows,
+                       int heads, int sq, int sk, int64_t mask_sb,
+                       int64_t mask_sq, int64_t mask_sk, float scale) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kSoftmaxWarps +
                       (threadIdx.x >> 5);
   if (row >= rows) return;  // uniform per warp
   const int lane = threadIdx.x & 31;
   const uint8_t* mrow = nullptr;
-  if (mask != nullptr) {
+  int limit = sk;  // the columns that can carry probability
+  if (kCausal || mask != nullptr) {
     // the row's batch and query, in 32-bit division where the rows allow
     // (a 64-bit one costs a lane more than its 16 columns' arithmetic)
     int64_t bi;
@@ -232,12 +205,15 @@ __global__ void __launch_bounds__(kSoftmaxThreads)
     if (rows <= 0x7fffffff) {
       const uint32_t bh = static_cast<uint32_t>(row) / sq;
       qi = static_cast<int>(static_cast<uint32_t>(row) - bh * sq);
-      bi = bh / heads;
+      bi = kCausal ? 0 : bh / heads;
     } else {
       qi = static_cast<int>(row % sq);
-      bi = row / (static_cast<int64_t>(heads) * sq);
+      bi = kCausal ? 0 : row / (static_cast<int64_t>(heads) * sq);
     }
-    mrow = mask + bi * mask_sb + qi * mask_sq;
+    if constexpr (kCausal)
+      limit = min(qi + 1, sk);
+    else
+      mrow = mask + bi * mask_sb + qi * mask_sq;
   }
   const T* xr = x + row * sk;
   T* yr = y + row * sk;
@@ -252,7 +228,7 @@ __global__ void __launch_bounds__(kSoftmaxThreads)
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     const int c = (j * 32 + lane) * VEC;
-    if (c < sk) {
+    if (c < limit) {
       load_vec_once<T, VEC>(xr + c, v[j]);
       if (mrow != nullptr) {
         if constexpr (kVecMask) {
@@ -267,12 +243,15 @@ __global__ void __launch_bounds__(kSoftmaxThreads)
   float m = -INFINITY;
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
-    if ((j * 32 + lane) * VEC < sk) {
+    const int c = (j * 32 + lane) * VEC;
+    if (c < limit) {
       const uint8_t* mk = reinterpret_cast<const uint8_t*>(&mw[j]);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         float u = v[j][i] * scale;
         if (mrow != nullptr && mk[i]) u = kMaskFill;
+        // the causal form's straddling vector: -inf right of the diagonal
+        if (kCausal && c + i >= limit) u = -INFINITY;
         v[j][i] = u;
         m = fmaxf(m, u);
       }
@@ -282,7 +261,7 @@ __global__ void __launch_bounds__(kSoftmaxThreads)
   float s = 0.f;
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
-    if ((j * 32 + lane) * VEC < sk) {
+    if ((j * 32 + lane) * VEC < limit) {
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         v[j][i] = expf(v[j][i] - m);
@@ -298,7 +277,7 @@ __global__ void __launch_bounds__(kSoftmaxThreads)
     const int c = (j * 32 + lane) * VEC;
     if (c < sk) {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) v[j][i] *= inv;
+      for (int i = 0; i < VEC; ++i) v[j][i] = c < limit ? v[j][i] * inv : 0.f;
       store_vec_once<T, VEC>(yr + c, v[j]);
     }
   }
@@ -350,8 +329,8 @@ static int64_t grid_of(int64_t rows, int sk) {
                            : rows;
 }
 
-// The streaming forward: a warp a row up to kWarpRowMax keys, a block a
-// row above. The masked form comes here only for its longer rows.
+// The streaming forward, a block a row: both forms' rows over
+// kWarpRowMax keys.
 template <typename T, bool kMasked>
 static int launch_fwd(const void* x, const void* mask, void* y, int64_t rows,
                       int heads, int sq, int sk, int64_t mask_sb,
@@ -361,23 +340,11 @@ static int launch_fwd(const void* x, const void* mask, void* y, int64_t rows,
   const bool aligned = sk % kVec == 0 &&
                        reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const int64_t blocks = grid_of(rows, sk);
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  void (*kernel)(const T*, T*, const uint8_t*, int64_t, int, int, int,
-                 int64_t, int64_t, int64_t, float);
-  if constexpr (kMasked) {
-    if (sk <= kWarpRowMax) return static_cast<int>(cudaErrorInvalidValue);
-    kernel = aligned ? softmax_fwd_kernel<T, kVec, kSoftmaxWarps, true>
-                     : softmax_fwd_kernel<T, 1, kSoftmaxWarps, true>;
-  } else {
-    kernel =
-        sk <= kWarpRowMax
-            ? (aligned ? softmax_fwd_kernel<T, kVec, 1, false>
-                       : softmax_fwd_kernel<T, 1, 1, false>)
-            : (aligned ? softmax_fwd_kernel<T, kVec, kSoftmaxWarps, false>
-                       : softmax_fwd_kernel<T, 1, kSoftmaxWarps, false>);
-  }
-  kernel<<<static_cast<unsigned>(blocks), kSoftmaxThreads, 0, stream>>>(
+  if (sk <= kWarpRowMax || rows > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = aligned ? softmax_fwd_kernel<T, kVec, kSoftmaxWarps, kMasked>
+                        : softmax_fwd_kernel<T, 1, kSoftmaxWarps, kMasked>;
+  kernel<<<static_cast<unsigned>(rows), kSoftmaxThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y),
       static_cast<const uint8_t*>(mask), rows, heads, sq, sk, mask_sb,
       mask_sq, mask_sk, scale);
@@ -397,16 +364,16 @@ struct MaskedArgs {
 
 // The register row's instance of NV == vectors: 1, 2, 4, ... up to
 // kWarpRowMax / 32 values a lane.
-template <typename T, int VEC, bool kVecMask, int NV = 1>
-static int launch_masked_reg(const MaskedArgs& a, int vectors) {
+template <typename T, int VEC, bool kVecMask, bool kCausal, int NV = 1>
+static int launch_reg(const MaskedArgs& a, int vectors) {
   if constexpr (NV * VEC * 32 > kWarpRowMax) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (vectors != NV)
-      return launch_masked_reg<T, VEC, kVecMask, NV * 2>(a, vectors);
+      return launch_reg<T, VEC, kVecMask, kCausal, NV * 2>(a, vectors);
     const int64_t blocks = (a.rows + kSoftmaxWarps - 1) / kSoftmaxWarps;
     if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-    softmax_masked_reg_kernel<T, VEC, NV, kVecMask>
+    softmax_reg_kernel<T, VEC, NV, kVecMask, kCausal>
         <<<static_cast<unsigned>(blocks), kSoftmaxThreads, 0, a.stream>>>(
             static_cast<const T*>(a.x), static_cast<T*>(a.y),
             static_cast<const uint8_t*>(a.mask), a.rows, a.heads, a.sq, a.sk,
@@ -415,38 +382,39 @@ static int launch_masked_reg(const MaskedArgs& a, int vectors) {
   }
 }
 
-// The masked forward on `softmax_fwd_plan`'s route: vectors 0 streams
-// (rows over kWarpRowMax keys), else the register row of `vectors`
-// vectors of `vec` a lane, with the mask read as vectors where
-// `vec_mask`. The plan's vec, vectors and mask form are checked against
-// the addresses and strides here: a plan that does not fit raises.
-template <typename T>
-static int launch_masked(const MaskedArgs& a, int vec, int vectors,
-                         int vec_mask) {
+// Either forward on `softmax_fwd_plan`'s route: vectors 0 streams (rows
+// over kWarpRowMax keys), else the register row of `vectors` vectors of
+// `vec` a lane, with the mask read as vectors where `vec_mask`. The
+// plan's vec, vectors and mask form are checked against the addresses and
+// strides here: a plan that does not fit raises.
+template <typename T, bool kCausal>
+static int launch_planned(const MaskedArgs& a, int vec, int vectors,
+                          int vec_mask) {
   constexpr int kVec = vec_of<T>();
   const bool aligned = a.sk % kVec == 0 &&
                        reinterpret_cast<uintptr_t>(a.x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(a.y) % 16 == 0;
-  if (vec != (aligned ? kVec : 1))
+  if (vec != (aligned ? kVec : 1) || (kCausal && a.mask != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (vectors == 0) {
     if (vec_mask) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_fwd<T, true>(a.x, a.mask, a.y, a.rows, a.heads, a.sq, a.sk,
-                               a.mask_sb, a.mask_sq, a.mask_sk, a.scale,
-                               a.stream);
+    return launch_fwd<T, !kCausal>(a.x, a.mask, a.y, a.rows, a.heads, a.sq,
+                                   a.sk, a.mask_sb, a.mask_sq, a.mask_sk,
+                                   a.scale, a.stream);
   }
   if (a.sk > kWarpRowMax || static_cast<int64_t>(vectors) * 32 * vec < a.sk)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!vec_mask) {
-    return vec == 1 ? launch_masked_reg<T, 1, false>(a, vectors)
-                    : launch_masked_reg<T, kVec, false>(a, vectors);
+    return vec == 1 ? launch_reg<T, 1, false, kCausal>(a, vectors)
+                    : launch_reg<T, kVec, false, kCausal>(a, vectors);
   }
   const int64_t mbits = static_cast<int64_t>(
                             reinterpret_cast<uintptr_t>(a.mask)) |
                         a.mask_sb | a.mask_sq;
-  if (vec == 1 || a.mask == nullptr || a.mask_sk != 1 || mbits % vec != 0)
+  if (kCausal || vec == 1 || a.mask == nullptr || a.mask_sk != 1 ||
+      mbits % vec != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_masked_reg<T, kVec, true>(a, vectors);
+  return launch_reg<T, kVec, true, false>(a, vectors);
 }
 
 template <typename T>
@@ -470,33 +438,16 @@ static int launch_bwd(const void* y, const void* dy, void* dx, int64_t rows,
   return 0;
 }
 
-static int dispatch_causal(const void* x, void* y, int64_t rows, int sq,
-                           int sk, float scale, int dtype, cudaStream_t s) {
+template <bool kCausal>
+static int dispatch_fwd(const MaskedArgs& a, int vec, int vectors,
+                        int vec_mask, int dtype) {
   int rc;
   if (dtype == kFloat32) {
-    rc = launch_fwd<float, false>(x, nullptr, y, rows, 1, sq, sk, 0, 0, 0,
-                                  scale, s);
+    rc = launch_planned<float, kCausal>(a, vec, vectors, vec_mask);
   } else if (dtype == kBFloat16) {
-    rc = launch_fwd<__nv_bfloat16, false>(x, nullptr, y, rows, 1, sq, sk, 0,
-                                          0, 0, scale, s);
+    rc = launch_planned<__nv_bfloat16, kCausal>(a, vec, vectors, vec_mask);
   } else if (dtype == kFloat16) {
-    rc = launch_fwd<__half, false>(x, nullptr, y, rows, 1, sq, sk, 0, 0, 0,
-                                   scale, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
-}
-
-static int dispatch_masked(const MaskedArgs& a, int vec, int vectors,
-                           int vec_mask, int dtype) {
-  int rc;
-  if (dtype == kFloat32) {
-    rc = launch_masked<float>(a, vec, vectors, vec_mask);
-  } else if (dtype == kBFloat16) {
-    rc = launch_masked<__nv_bfloat16>(a, vec, vectors, vec_mask);
-  } else if (dtype == kFloat16) {
-    rc = launch_masked<__half>(a, vec, vectors, vec_mask);
+    rc = launch_planned<__half, kCausal>(a, vec, vectors, vec_mask);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -506,13 +457,16 @@ static int dispatch_masked(const MaskedArgs& a, int vec, int vectors,
 }  // namespace apex_port
 
 // x, y: (rows, sk) contiguous in `dtype`, rows = b * sq of a (b, sq, sk)
-// input; the query index of a row is row % sq.
+// input; the query index of a row is row % sq. vec, vectors: the route of
+// `softmax_fwd_plan` (vectors 0: streaming).
 extern "C" int softmax_causal_fwd(const void* x, void* y, long long rows,
-                                  int sq, int sk, float scale, int dtype,
-                                  void* stream) {
+                                  int sq, int sk, float scale, int vec,
+                                  int vectors, int dtype, void* stream) {
   using namespace apex_port;
-  return dispatch_causal(x, y, rows, sq, sk, scale, dtype,
-                         static_cast<cudaStream_t>(stream));
+  const MaskedArgs a{x,  nullptr, y, rows,  1,
+                     sq, sk,      0, 0,     0,
+                     scale, static_cast<cudaStream_t>(stream)};
+  return dispatch_fwd<true>(a, vec, vectors, 0, dtype);
 }
 
 // x, y: (rows, sk) contiguous in `dtype`, rows = b * heads * sq of a (b,
@@ -530,7 +484,7 @@ extern "C" int softmax_masked_fwd(const void* x, const void* mask, void* y,
   const MaskedArgs a{x,  mask,    y,       rows,    heads,
                      sq, sk,      mask_sb, mask_sq, mask_sk,
                      scale, static_cast<cudaStream_t>(stream)};
-  return dispatch_masked(a, vec, vectors, vec_mask, dtype);
+  return dispatch_fwd<false>(a, vec, vectors, vec_mask, dtype);
 }
 
 // y, dy, dx: (rows, sk) contiguous in `dtype`.

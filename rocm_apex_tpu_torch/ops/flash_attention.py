@@ -24,9 +24,23 @@ widths); they are bound by operations: the bf16 forward runs on the
 wgmma pipe it shares with the unpacked forward
 (``csrc/flash_fwd_pipe.cuh``, planned by `flash_fwd_plan`), the bf16
 backward on a wgmma pipe built from its pieces
-(``csrc/flash_bwd_pipe.cuh``, planned by `flash_bwd_plan`), the computed
-operands split so they keep fp32-level precision, and fp32 on the CUDA
-cores (see the sources).
+(``csrc/flash_bwd_pipe.cuh``, planned by `flash_bwd_plan`), p and ds
+rounded to the operands' dtype before the products that consume them, as
+every JAX kernel rounds them, and fp32 on the CUDA cores (see the
+sources).
+
+**p's rounding.** Every JAX attention kernel rounds p (times 1 / (1 -
+rate) where dropout keeps it) to v's dtype before p @ v, p_drop to do's
+before dv, and ds = p (dp - delta) to q's (k's) before dk (dq); the
+products accumulate in fp32 and l sums the unrounded, undropped p. Every
+kernel and plain version here does the same. In a forward p is formed
+against the running max after each key tile, so o depends on the tiling:
+a plain version rounds p in the frame of the kernel it stands for
+(``frame``, `_frame_max`: 64 keys in the flash pipes and the mma.sync
+bodies, 32 in the decode reads and the serving segment read), and JAX's
+``block_k`` set to that frame gives the same o. The backward forms p
+from the final lse and has no frame. In fp32 the rounding is the
+identity.
 
 **The score rule** of every kernel and plain version here is the JAX
 kernels' (`_masked_scores`, rocm_apex_tpu/ops/flash_attention.py:122, and
@@ -188,6 +202,37 @@ def _q_scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
     return q * torch.tensor(_q_mul(scale, q.dtype), dtype=q.dtype,
                             device=q.device)
 
+
+def _frame_max(s: torch.Tensor, frame: int) -> torch.Tensor:
+    """The running max a kernel walking ``frame``-key tiles from key 0
+    holds after the tile of each key of the base-2 scores ``s`` (..., sk):
+    -1e30, then the max over every tile up to and including the key's
+    own, as `_fwd_kernel`'s ``m_new`` after each key block (rocm_apex_tpu/
+    ops/flash_attention.py:209)."""
+    sk = s.shape[-1]
+    nt = -(-sk // frame)
+    t = torch.nn.functional.pad(s, (0, nt * frame - sk), value=float("-inf"))
+    run = t.view(*s.shape[:-1], nt, frame).amax(-1).cummax(-1).values
+    return run.clamp(min=NEG_INF).repeat_interleave(frame, -1)[..., :sk]
+
+
+def _p_rounded(s, m, frame, dtype, keep=None, rate=0.0):
+    """The weights of p @ v relative to the row max ``m`` (..., 1) of the
+    base-2 scores ``s``: p formed against the running max of a walk over
+    ``frame``-key tiles (`_frame_max`), times 1 / (1 - rate) where
+    ``keep`` holds and 0 where it does not, rounded to ``dtype`` (v's) as
+    JAX's kernels round it before p @ v, then carried to ``m`` in fp32.
+    In fp32 the rounding is the identity and p is formed against ``m``
+    itself."""
+    mr = m if dtype == torch.float32 else _frame_max(s, frame)
+    p = torch.exp2(s - mr)
+    if keep is not None:
+        p = torch.where(keep, p * _dropout.keep_scale(rate), 0.0)
+    if dtype == torch.float32:
+        return p
+    return p.to(dtype).float() * torch.exp2(mr - m)
+
+
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
@@ -259,10 +304,14 @@ def check_head_dim(*tensors: torch.Tensor) -> None:
 
 
 def flash_attention_decode_plain(q, k_cache, v_cache, kv_lengths, scale,
-                                 slot_ids=None):
+                                 slot_ids=None, frame=None):
     """The plain PyTorch version: returns (o, lse), o in q's dtype. The
     scores are `_masked_scores`': q times scale * log2(e), rounded in q's
-    dtype, then the fp32 product with k, in base 2."""
+    dtype, then the fp32 product with k, in base 2. p is rounded to v's
+    dtype in the frame of a walk over ``frame``-key tiles (the row
+    walk's 32 by default; JAX `flash_attention_decode` at that block_k
+    gives the same o)."""
+    frame = _SPAN_TILE if frame is None else frame
     rows, heads, d = q.shape
     num_slots, capacity = k_cache.shape[:2]
     dev = q.device
@@ -289,8 +338,8 @@ def flash_attention_decode_plain(q, k_cache, v_cache, kv_lengths, scale,
         live = col[None, None, :] < bound[idx][:, None, None]
         scores = scores.masked_fill(~live, float("-inf"))
         m = scores.amax(dim=-1, keepdim=True)
-        p = torch.exp2(scores - m)
-        l = p.sum(dim=-1)
+        l = torch.exp2(scores - m).sum(dim=-1)
+        p = _p_rounded(scores, m, frame, v_cache.dtype)
         o[idx] = torch.einsum("nhc,chd->nhd", p, v_cache[s].float()) / l[
             ..., None]
         lse[idx] = (m[..., 0] + torch.log2(l)) * LN2
@@ -444,32 +493,35 @@ def decode_spans_plain(q, k_cache, v_cache, kv_lengths, scale, spans,
                        span_len, slot_ids=None):
     """The split read in plain PyTorch, in fp32: each (row, head)'s keys
     cut into ``spans`` ranges of ``span_len`` as the kernel cuts them,
-    each range's base-2 (m, l, acc) partial formed alone, then
-    `merge_span_partials_plain`. Returns (o, lse) as
-    `flash_attention_decode_plain`."""
+    each range's base-2 (m, l, acc) partial formed alone (p rounded to v's
+    dtype against the running max after each 32-key tile of the range, as
+    the kernel's warp walks it), then `merge_span_partials_plain`. Returns
+    (o, lse) as `flash_attention_decode_plain`."""
     k, v = k_cache.float(), v_cache.float()
     num_slots, cap = k.shape[0], k.shape[1]
     rows, heads, d = q.shape
     if slot_ids is None:
-        slot_ids = torch.arange(rows, dtype=torch.int32)
+        slot_ids = torch.arange(rows, dtype=torch.int32, device=q.device)
     ok = (slot_ids >= 0) & (slot_ids < num_slots)
     sl = torch.where(ok, slot_ids, 0).long()
     bound = torch.where(ok, kv_lengths.long().clamp(0, cap)[sl], 0)
     qf = _q_scaled(q, scale).float()
     s = torch.einsum("rhd,rchd->rhc", qf, k[sl])  # (rows, heads, cap)
-    pos = torch.arange(spans * span_len)
+    pos = torch.arange(spans * span_len, device=q.device)
     live = (pos[None, :] < bound[:, None])[:, None, :]
     s = torch.nn.functional.pad(s, (0, spans * span_len - cap),
                                 value=-1e30)
     s = torch.where(live, s, -1e30).reshape(rows, heads, spans, span_len)
     live = live.reshape(rows, 1, spans, span_len)
     m = torch.where(live.any(-1), s.max(-1).values, -1e30)
-    p = torch.where(live, torch.exp2(s - m[..., None]), 0.0)
+    l = torch.where(live, torch.exp2(s - m[..., None]), 0.0).sum(-1)
+    p = torch.where(live, _p_rounded(s, m[..., None], _SPAN_TILE,
+                                     v_cache.dtype), 0.0)
     vv = torch.nn.functional.pad(v[sl], (0, 0, 0, 0, 0, spans * span_len
                                          - cap))
     vv = vv.reshape(rows, spans, span_len, heads, d)
     acc = torch.einsum("rhsc,rschd->rhsd", p, vv)
-    o, lse = merge_span_partials_plain(m, p.sum(-1), acc)
+    o, lse = merge_span_partials_plain(m, l, acc)
     return o.to(q.dtype), lse
 
 
@@ -495,13 +547,15 @@ def decode_paged_spans_plain(q, k_pool, v_pool, page_table, kv_lengths,
 def flash_attention_decode_paged_plain(q, k_pool, v_pool, page_table,
                                        kv_lengths, scale, k_scale=None,
                                        v_scale=None, slot_ids=None,
-                                       capacity=None):
+                                       capacity=None, frame=None):
     """The plain PyTorch version: the pools gathered through the table
     (int8 dequantized and rounded to q's dtype) and cut to ``capacity``,
-    then `flash_attention_decode_plain`. Returns (o, lse)."""
+    then `flash_attention_decode_plain` (``frame`` its frame: the kernel's
+    32-key tile by default, where JAX's is the page). Returns (o, lse)."""
     k = _paged_cache(k_pool, page_table, k_scale, q.dtype, capacity)
     v = _paged_cache(v_pool, page_table, v_scale, q.dtype, capacity)
-    return flash_attention_decode_plain(q, k, v, kv_lengths, scale, slot_ids)
+    return flash_attention_decode_plain(q, k, v, kv_lengths, scale, slot_ids,
+                                        frame)
 
 
 def flash_attention_decode_paged(
@@ -639,15 +693,16 @@ def _to_rows(x, B, S, nh):
     return x.reshape(B, nh, S, -1).permute(0, 2, 1, 3)
 
 
-def flash_qkv_fwd_plain(qkv, bias, causal, scale, rate=0.0, seed=0):
+def flash_qkv_fwd_plain(qkv, bias, causal, scale, rate=0.0, seed=0,
+                        frame=None):
     """The plain PyTorch version of the packed forward: returns o
     (B, S, nh*hd) in qkv's dtype and lse (B*nh, S) fp32. It is the
     unpacked plain forward on the biased heads: the same score rule
-    (`_unpacked_scores`) and dropout stream (b*nh + h)."""
+    (`_unpacked_scores`), dropout stream (b*nh + h) and ``frame``."""
     B, S, nh, _ = qkv.shape
     q, k, v = _heads(qkv, bias)
     o, lse = flash_unpacked_fwd_plain(q, k, v, None, causal, scale, None,
-                                      rate, seed)
+                                      rate, seed, frame)
     return _to_rows(o, B, S, nh).reshape(B, S, -1), lse
 
 
@@ -906,7 +961,7 @@ def _unpacked_scores(q, k, bias, causal, scale, kv_lengths):
 
 
 def flash_unpacked_fwd_plain(q, k, v, bias, causal, scale, kv_lengths=None,
-                             rate=0.0, seed=0):
+                             rate=0.0, seed=0, frame=None):
     """The plain PyTorch version of the unpacked forward (`_fwd` at
     rocm_apex_tpu/ops/flash_attention.py:242): returns o (bh, sq, d) in
     q's dtype and the natural-log lse (bh, sq) fp32.
@@ -916,14 +971,16 @@ def flash_unpacked_fwd_plain(q, k, v, bias, causal, scale, kv_lengths=None,
     has l = 0: its o is 0 and its lse -1e30 * ln 2, as the JAX kernel
     gives without causal masking (under ``causal`` the JAX value of such
     a row depends on its tiling; the port's o stays 0). The normalizer
-    sums the undropped probabilities."""
+    sums the undropped, unrounded probabilities; p @ v takes p rounded to
+    v's dtype in the frame of ``frame``-key tiles (`_p_rounded`; the
+    kernels' 64 by default)."""
+    frame = _FWD_TILE if frame is None else frame
     s = _unpacked_scores(q, k, bias, causal, scale, kv_lengths)
     m = s.amax(dim=-1, keepdim=True).clamp(min=NEG_INF)
-    p = torch.exp2(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    if rate > 0.0:
-        keep = _dropout.keep_mask(seed, rate, p.shape, device=p.device)
-        p = torch.where(keep, p * _dropout.keep_scale(rate), 0.0)
+    l = torch.exp2(s - m).sum(dim=-1, keepdim=True)
+    keep = (_dropout.keep_mask(seed, rate, s.shape, device=s.device)
+            if rate > 0.0 else None)
+    p = _p_rounded(s, m, frame, v.dtype, keep, rate)
     safe = torch.where(l > 0.0, l, 1.0)
     o = torch.einsum("bqk,bkd->bqd", p, v.float()) / safe
     lse = (m + torch.log2(safe)) * LN2
@@ -935,7 +992,10 @@ def _unpacked_grads(q, k, v, bias, o, lse, do, causal, scale, kv_lengths,
     """The backward's formulas in fp32: dq, dk, dv and the score gradient
     ds. p is rebuilt from the forward's lse by the forward's score rule;
     ``delta = sum(do * o) - dlse``, ds = p (dp - delta), and dq and dk
-    take the scale at the end, dk from the unscaled q (as JAX's)."""
+    take the scale at the end, dk from the unscaled q (as JAX's). As
+    JAX's kernels round them, p_drop is rounded to do's dtype before dv
+    and ds to q's (and k's) before dq and dk; the ds returned, the bias
+    gradient's, is not rounded."""
     s = _unpacked_scores(q, k, bias, causal, scale, kv_lengths)
     p = torch.exp2(s - lse[..., None] * LOG2E)
     delta = (do.float() * o.float()).sum(dim=-1)
@@ -949,9 +1009,10 @@ def _unpacked_grads(q, k, v, bias, o, lse, do, causal, scale, kv_lengths,
         pd = torch.where(keep, p * sc, 0.0)
         dp = torch.where(keep, dp * sc, 0.0)
     ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bqk,bkd->bqd", ds, k.float()) * scale
-    dk = torch.einsum("bqk,bqd->bkd", ds, q.float()) * scale
-    dv = torch.einsum("bqk,bqd->bkd", pd, do.float())
+    dsr = ds.to(q.dtype).float()  # q and k share one dtype
+    dq = torch.einsum("bqk,bkd->bqd", dsr, k.float()) * scale
+    dk = torch.einsum("bqk,bqd->bkd", dsr, q.float()) * scale
+    dv = torch.einsum("bqk,bqd->bkd", pd.to(do.dtype).float(), do.float())
     return dq, dk, dv, ds
 
 
@@ -1063,7 +1124,8 @@ def flash_fwd_split_plain(q, k, v, bias, causal, scale, splits, split_tiles,
     """The pipe's split forward in plain PyTorch: each row's keys cut into
     ``splits`` runs of ``split_tiles`` 64-key tiles, each run's base-2
     (m, l, acc) partial formed alone (m from -1e30, l over the undropped
-    p, acc over the dropped p), then merged in split order through their
+    p, acc over the dropped p rounded to v's dtype against the running max
+    after each tile of the run), then merged in split order through their
     maxima: o = sum acc_i 2^(m_i - M) / sum l_i 2^(m_i - M), lse = (M +
     log2 l) ln 2, l = 0 giving o = 0 and M's lse, as the unsplit forward.
     Returns (o, lse) as `flash_unpacked_fwd_plain`."""
@@ -1076,11 +1138,10 @@ def flash_fwd_split_plain(q, k, v, bias, causal, scale, splits, split_tiles,
         si = s[..., i * span:(i + 1) * span]
         m = si.amax(dim=-1, keepdim=True).clamp(min=NEG_INF) if si.shape[
             -1] else torch.full(s.shape[:-1] + (1,), NEG_INF)
-        p = torch.exp2(si - m)
-        ls.append(p.sum(dim=-1))
-        if keep is not None:
-            p = torch.where(keep[..., i * span:(i + 1) * span],
-                            p * _dropout.keep_scale(rate), 0.0)
+        ls.append(torch.exp2(si - m).sum(dim=-1))
+        p = _p_rounded(si, m, _FWD_TILE, v.dtype,
+                       None if keep is None
+                       else keep[..., i * span:(i + 1) * span], rate)
         accs.append(torch.einsum("bqk,bkd->bqd", p,
                                  v[:, i * span:(i + 1) * span].float()))
         ms.append(m[..., 0])

@@ -54,6 +54,7 @@ import torch
 
 from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
 from rocm_apex_tpu_torch.ops.flash_attention import (
+    _SPAN_TILE,
     _aligned,
     _q_mul,
     _strides,
@@ -69,6 +70,7 @@ __all__ = [
     "FLASH_SEGMENTS_FWD",
     "FLASH_SEGMENTS_BWD",
     "DEFAULT_BLOCK",
+    "SERVE_FRAME",
     "flash_attention_segments",
     "flash_attention_segments_with_lse",
     "flash_attention_segments_plain",
@@ -78,6 +80,9 @@ __all__ = [
 ]
 
 DEFAULT_BLOCK = 512  # the JAX default of block_q and block_k
+# the keys a step of the serving read's warp walk (csrc/attention_row.cuh,
+# the decode reads' tile too), the frame its p is rounded in
+SERVE_FRAME = _SPAN_TILE
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -121,14 +126,18 @@ def _segment_bias(segment_ids, device):
                        float("-inf"))[None]
 
 
-def flash_attention_segments_plain(q, k, v, segment_ids, causal, scale):
+def flash_attention_segments_plain(q, k, v, segment_ids, causal, scale,
+                                   frame=None):
     """The plain PyTorch version of the segment forward, serving and
     training: returns (o, lse), o (heads, total, head_dim) in q's dtype,
     lse (heads, total) natural-log fp32. It is the unpacked plain version
     with the segment mask as a bias, so its scores follow the JAX rule: q
-    times scale * log2(e) rounded in q's dtype, then the fp32 product."""
+    times scale * log2(e) rounded in q's dtype, then the fp32 product; p
+    is rounded to v's dtype in the frame of ``frame``-key tiles (the
+    training kernel's 64 by default; the serving read's is `SERVE_FRAME`)."""
     return flash_unpacked_fwd_plain(
-        q, k, v, _segment_bias(segment_ids, q.device), causal, scale)
+        q, k, v, _segment_bias(segment_ids, q.device), causal, scale,
+        frame=frame)
 
 
 def flash_attention_segments_bwd_plain(q, k, v, segment_ids, o, lse, do,
@@ -162,7 +171,7 @@ def flash_attention_segments_with_lse(
         raise ValueError(f"segment_ids must be ({total},)")
     if q.device.type == "cpu":
         return flash_attention_segments_plain(q, k, v, segment_ids, causal,
-                                              scale)
+                                              scale, SERVE_FRAME)
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:

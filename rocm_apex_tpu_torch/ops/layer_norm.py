@@ -9,9 +9,12 @@ bound by bytes. The forward's layout is `ln_fwd_plan`'s, by shape: the
 row held in registers (read, hashed and written once; a warp a row when
 the rows fill the card, a block a row when they are few), or, for widths
 off the 16-byte vector grid or past the register cap, the three-pass row
-(one warp a row, re-read from L1 for the later passes). The backward is
-one warp a row and reduces dgamma/dbeta in two fixed-order fp32 stages
-(per-block partials, then a column reduction).
+(one warp a row, re-read from L1 for the later passes). The backward
+takes the same layouts (`ln_bwd_plan`): the row in registers, read and
+written once, its grid walking the rows with two or three blocks a
+multiprocessor, or off the vector grid the old warp-a-row form; it
+reduces dgamma/dbeta in two fixed-order fp32 stages (a partial row a
+block, then a column reduction).
 
 For a CUDA tensor the wrappers launch the kernels (or raise); for a CPU
 tensor they run the plain versions. Statistics are fp32 whatever the
@@ -48,6 +51,7 @@ __all__ = [
     "layer_norm_fwd_plain",
     "layer_norm_bwd_plain",
     "ln_fwd_plan",
+    "ln_bwd_plan",
 ]
 
 _P = ctypes.c_void_p
@@ -77,10 +81,13 @@ LN_BWD = Kernel(
     source="layer_norm.cu",
     symbol="ln_bwd",
     argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U,
-              _F, _I, _I, _I, _P],
+              _F, _I, _I, _I, _I, _I, _I, _P],
     replaces="rocm_apex_tpu/ops/layer_norm.py:204 _ln_bwd_kernel",
 )
-_BWD_ROWS_PER_BLOCK = 32  # csrc/layer_norm.cu kBwdRowsPerBlock
+_BWD_ROWS_PER_BLOCK = 32  # csrc/layer_norm.cu kBwdRowsPerBlock (old form)
+# the register backward's grid: blocks a multiprocessor by the element
+# size of x (csrc/layer_norm.cu ln_bwd_blocks_per_sm)
+_LN_BWD_BLOCKS_PER_SM = {2: 3, 4: 2}
 # the register row (csrc/layer_norm.cu): at most kLnMaxValues fp32 values
 # a thread, kLnMaxRowWarps warps a row, kLnWarpRowThreads threads a block
 # of warp rows
@@ -142,6 +149,37 @@ def ln_fwd_plan(rows: int, hidden: int, dtype: torch.dtype, sms: int,
                         grid=rows)
     return dict(route="three_pass", row_warps=0, vectors=0, threads=128,
                 grid=-(-rows // 4))
+
+
+@functools.lru_cache(maxsize=None)
+def ln_bwd_plan(rows: int, hidden: int, dtype: torch.dtype, sms: int,
+                aligned: bool = True) -> dict:
+    """How the LN backward launches: `ln_fwd_plan`'s layout for the same
+    shape (``route``, ``row_warps``, ``vectors``, ``threads``), its grid
+    cut to walk the rows, and ``parts``, the rows of the (parts, 2,
+    hidden) fp32 partials of dgamma/dbeta (one a block).
+
+    ``"warp"`` (a warp a row, four a block) and ``"block"`` (a block of
+    ``row_warps`` warps a row): ``grid`` = at most
+    `_LN_BWD_BLOCKS_PER_SM` blocks a multiprocessor (three for a bf16 x,
+    two for fp32, whose registers allow fewer), each row group
+    walking rows g, g + groups, ...; ``"three_pass"`` (widths off the
+    16-byte vector grid, past the register cap, or unaligned inputs) keeps
+    the old form, a warp a row in blocks of 32 rows. ``aligned``: x, dy,
+    ds, gamma (and the new dx, dd) at 16-byte addresses. Cached; read the
+    dict, do not change it."""
+    f = ln_fwd_plan(rows, hidden, dtype, sms, aligned)
+    if f["route"] == "three_pass":
+        blocks = -(-rows // _BWD_ROWS_PER_BLOCK)
+        return dict(route="three_pass", row_warps=0, vectors=0, threads=128,
+                    grid=blocks, parts=blocks)
+    groups = -(-rows // (f["threads"] // (32 * f["row_warps"])))
+    per_sm = _LN_BWD_BLOCKS_PER_SM[torch.empty((), dtype=dtype)
+                                   .element_size()]
+    grid = max(1, min(groups, per_sm * sms))
+    return dict(route=f["route"], row_warps=f["row_warps"],
+                vectors=f["vectors"], threads=f["threads"], grid=grid,
+                parts=grid)
 
 
 def _dropped(delta2d, rate, seed):
@@ -275,16 +313,18 @@ def _layer_norm_bwd(x2d, dy, ds, mean, rsigma, weight, rate=0.0, seed=0):
     dbeta = torch.empty_like(dgamma)
     if rows == 0:
         return dx, dd, dgamma.zero_(), dbeta.zero_()
-    blocks = -(-rows // _BWD_ROWS_PER_BLOCK)
-    part = torch.empty((blocks, 2, hidden), dtype=torch.float32,
+    plan = ln_bwd_plan(rows, hidden, x2d.dtype, sm_count(x2d.device),
+                       all(t.data_ptr() % 16 == 0
+                           for t in (x2d, dy, ds, weight) if t is not None))
+    part = torch.empty((plan["parts"], 2, hidden), dtype=torch.float32,
                        device=x2d.device)
     LN_BWD(
         ptr(x2d), ptr(dy), ptr(ds), ptr(mean), ptr(rsigma), ptr(weight),
         ptr(dx), ptr(dd), ptr(part), ptr(dgamma), ptr(dbeta), rows, hidden,
         int(rate > 0.0), int(seed) & 0xFFFFFFFF, _dropout.threshold(rate),
         _dropout.keep_scale(rate), dtype_code(x2d.dtype),
-        dtype_code(weight.dtype), dtype_code(dy.dtype),
-        stream_ptr(x2d.device),
+        dtype_code(weight.dtype), dtype_code(dy.dtype), plan["row_warps"],
+        plan["vectors"], plan["grid"], stream_ptr(x2d.device),
     )
     return dx, dd, dgamma, dbeta
 

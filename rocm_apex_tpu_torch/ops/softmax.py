@@ -20,10 +20,10 @@ padded query rows): that is the value the JAX kernel gives, where the
 flash kernels give 0. The mask is bool, True = masked, broadcastable to
 (b, 1, sq, sk): one mask for every head. It gets no gradient. There is no
 key-length ceiling (the JAX kernels keep up to ~16K fp32 keys resident).
-The masked forward's rows of up to 2048 keys are held in registers,
-read once and written once; longer rows, and the causal forward's, are
-read twice, the second time from L2 (`softmax_fwd_plan` names the
-route).
+Both forwards' rows of up to 2048 keys are held in registers, read once
+(the causal form: only the columns at or left of the diagonal) and
+written once; longer rows are read twice, the second time from L2
+(`softmax_fwd_plan` names the route).
 
 For a CUDA tensor the wrappers launch the kernel (or raise); for a CPU
 tensor they run the plain version.
@@ -63,7 +63,7 @@ SOFTMAX_CAUSAL_FWD = Kernel(
     name="softmax_causal_fwd",
     source="softmax.cu",
     symbol="softmax_causal_fwd",
-    argtypes=[_P, _P, _L, _I, _I, _F, _I, _P],
+    argtypes=[_P, _P, _L, _I, _I, _F, _I, _I, _I, _P],
     replaces="rocm_apex_tpu/ops/softmax.py:46 _causal_fwd_kernel",
 )
 SOFTMAX_MASKED_FWD = Kernel(
@@ -84,7 +84,7 @@ SOFTMAX_BWD = Kernel(
 
 # these kernels also take fp16 (csrc/common.cuh kFloat16)
 _CODES = {**DTYPE_CODES, torch.float16: 2}
-# rows up to this many keys take the masked forward's register row
+# rows up to this many keys take the forwards' register row
 # (csrc/softmax.cu kWarpRowMax)
 _WARP_ROW_MAX = 2048
 _ROWS_PER_BLOCK = 8  # csrc/softmax.cu kSoftmaxWarps
@@ -94,10 +94,10 @@ _ROWS_PER_BLOCK = 8  # csrc/softmax.cu kSoftmaxWarps
 def softmax_fwd_plan(rows: int, sk: int, dtype: torch.dtype, masked: bool,
                      mask_sk: Optional[int], aligned: bool = True,
                      mask_aligned: bool = True) -> dict:
-    """The route of the masked forward (row 12 K2) for ``rows`` rows of
-    ``sk`` keys in ``dtype``: ``route``, ``vec`` (elements a load),
-    ``vectors`` (loads a lane), ``mask`` (how the mask is read) and
-    ``grid``.
+    """The route of the masked (``masked``, row 12 K2) or the causal
+    forward (K1) for ``rows`` rows of ``sk`` keys in ``dtype``: ``route``,
+    ``vec`` (elements a load), ``vectors`` (loads a lane), ``mask`` (how
+    the mask is read) and ``grid``.
 
     ``"register"`` for rows of up to `_WARP_ROW_MAX` keys: a warp a row,
     8 rows a block, each lane holding ``vectors`` (a power of two) vectors
@@ -107,13 +107,14 @@ def softmax_fwd_plan(rows: int, sk: int, dtype: torch.dtype, masked: bool,
     read as ``"vector"``s of ``vec`` bytes where ``vec`` > 1, ``mask_sk``
     is 1 and its rows are ``vec``-byte aligned (``mask_aligned``), else
     ``"strided"``, a byte a column. Longer rows take ``"streaming"`` (a
-    block a row, two passes, the mask strided). The causal forward (K1)
-    and the backward (K3) keep their one layout: for ``masked`` False the
-    plan names no route. A shape rule, decided here before any launch;
+    block a row, two passes, the mask strided). The causal forward takes
+    the same routes with no mask (``mask_sk`` None): its register row
+    loads only the vectors at or left of the diagonal. The backward (K3)
+    keeps its one layout. A shape rule, decided here before any launch;
     cached, so a call pays a lookup (the dict is shared: read it, do not
     change it)."""
     if not masked:
-        return dict(route=None)
+        mask_sk = None
     kvec = 16 // torch.empty((), dtype=dtype).element_size()
     vec = kvec if aligned and sk % kvec == 0 else 1
     form = None if mask_sk is None else "strided"
@@ -186,7 +187,10 @@ def softmax_causal_fwd(x: torch.Tensor, scale: float) -> torch.Tensor:
     b, sq, sk = x.shape
     y = torch.empty_like(x)
     if y.numel():
-        SOFTMAX_CAUSAL_FWD(ptr(x), ptr(y), b * sq, sq, sk, float(scale), code,
+        plan = softmax_fwd_plan(b * sq, sk, x.dtype, False, None,
+                                aligned=x.data_ptr() % 16 == 0)
+        SOFTMAX_CAUSAL_FWD(ptr(x), ptr(y), b * sq, sq, sk, float(scale),
+                           plan["vec"], plan["vectors"], code,
                            stream_ptr(x.device))
     return y
 

@@ -113,22 +113,23 @@ def test_plain_backward_is_the_derivative_of_the_plain_forward():
 def test_plain_forward_rounds_the_scaled_q_in_q_dtype():
     """The one score rule of the serving and the training forms (JAX's):
     q times scale * log2(e) is rounded in q's dtype before the fp32
-    product. In bf16 the plain forward, and the serving wrapper's CPU path
-    with it, equal the fp32 computation on the pre-rounded q, and differ
-    from a fold of the scale in fp32."""
+    product. In bf16 the plain forward (at the serving read's frame), and
+    the serving wrapper's CPU path with it, equal the fp32 computation on
+    the pre-rounded q, and differ from a fold of the scale in fp32."""
     q, k, v, _, seg = _stream([30, 34], h=2, d=64, seed=7)
     tq, tk, tv = (torch.tensor(a).to(torch.bfloat16) for a in (q, k, v))
     tseg = torch.from_numpy(seg)
     scale = 0.125
     o_r, lse_r = tfs.flash_attention_segments_plain(tq, tk, tv, tseg, True,
-                                                    scale)
+                                                    scale, tfs.SERVE_FRAME)
     o_s, lse_s = tfs.flash_attention_segments_with_lse(tq, tk, tv, tseg,
                                                        True, scale)
     assert torch.equal(o_s, o_r) and torch.equal(lse_s, lse_r)
     c = torch.tensor(scale * 1.4426950408889634, dtype=torch.bfloat16)
     qr = (tq * c).float() / (scale * 1.4426950408889634)
+    # v stays bf16: p is rounded to v's dtype, as the bf16 forward rounds it
     o_w, lse_w = tfs.flash_attention_segments_plain(
-        qr, tk.float(), tv.float(), tseg, True, scale)
+        qr, tk.float(), tv, tseg, True, scale, tfs.SERVE_FRAME)
     np.testing.assert_allclose(lse_r.numpy(), lse_w.numpy(), **TOL)
     np.testing.assert_allclose(o_r.float().numpy(), o_w.float().numpy(),
                                rtol=2.0 ** -7, atol=1e-5)

@@ -1,22 +1,29 @@
 """The host-side plans of the register-row LayerNorm forward (row 1) and
-masked softmax forward (row 12 K2), and their plain versions against the
-JAX package, on the CPU.
+backward (row 2) and the softmax forwards (row 12 K1 and K2), and their
+plain versions against the JAX package, on the CPU.
 
 - `ln_fwd_plan` (``csrc/layer_norm.cu``): every row once and every
   16-byte vector of a row once, at most 32 values a thread; a block a row
   at the serve's 8 and 264 rows, a warp a row at 4096 and 16384 rows of
   1024; widths off the vector grid, past the cap or at unaligned
   addresses on the three-pass kernel.
+- `ln_bwd_plan`: the forward's layout by shape, its grid walking the
+  rows at three blocks a multiprocessor, two in fp32 (every row once, a
+  partial row a block), the old form off the vector grid.
 - `softmax_fwd_plan` (``csrc/softmax.cu``): every column of a row once;
-  the register row up to 2048 keys and the streaming one above; the
-  mask read as vectors only where its last stride is 1 and its rows are
-  aligned; no route for the causal forward (K1) or the backward (K3).
+  the register row up to 2048 keys and the streaming one above, for the
+  masked forward (K2) and the causal one (K1, no mask); the mask read as
+  vectors only where its last stride is 1 and its rows are aligned; the
+  backward (K3) keeps its one layout.
 - The plain versions the kernels are held to on the card, against the
   JAX package's functions run as its own tests run them on the CPU (the
   Pallas kernels in interpret mode): the LN forward at the serve's tick
   shapes (8 and 264 rows of 1024, fp32, plain and residual, no dropout)
   and the masked softmax at (2, 2, 16, 512) fp32 under a padding mask
-  whose padded queries are fully masked (uniform rows). Inputs are
+  whose padded queries are fully masked (uniform rows); the causal
+  softmax (K1) against `scaled_upper_triang_masked_softmax` and the LN
+  backward (row 2) against `_layer_norm_bwd`, both reaching their
+  Pallas kernels (`_causal_fwd_kernel`, `_ln_bwd_kernel`). Inputs are
   numpy-drawn; both sides compute in fp32 and differ in summation order
   only: 1e-5 on LN outputs of order 1, 1e-6 on probabilities.
 """
@@ -119,6 +126,62 @@ def test_ln_plan_of_a_call_reads_its_addresses(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# ln_bwd_plan
+# ---------------------------------------------------------------------------
+
+def _ln_bwd_rows(plan, rows):
+    """The rows each block's row groups walk, block by block: groups g,
+    g + groups, ... for the grid's row groups (a warp each on the warp
+    route, a block each on the block route)."""
+    per_block = plan["threads"] // (32 * plan["row_warps"])
+    groups = plan["grid"] * per_block
+    return [[r for w in range(per_block)
+             for r in range(b * per_block + w, rows, groups)]
+            for b in range(plan["grid"])]
+
+
+@pytest.mark.parametrize("rows,hidden,dt", LN_SHAPES)
+def test_ln_bwd_plan_walks_every_row_once(rows, hidden, dt):
+    """The backward holds the forward's columns (`ln_fwd_plan`'s layout)
+    and its grid walks every row once, a partial row a block, at most
+    three blocks a multiprocessor (two in fp32)."""
+    plan = ln.ln_bwd_plan(rows, hidden, dt, H100_SMS)
+    fwd = ln.ln_fwd_plan(rows, hidden, dt, H100_SMS)
+    for key in ("route", "row_warps", "vectors", "threads"):
+        assert plan[key] == fwd[key], key
+    walked = [r for block in _ln_bwd_rows(plan, rows) for r in block]
+    assert sorted(walked) == list(range(rows))
+    assert plan["parts"] == plan["grid"] <= 3 * H100_SMS
+
+
+@pytest.mark.parametrize("rows,dt,route,row_warps,grid", [
+    (8, BF16, "block", 4, 8),          # the serve's rows: a block a row
+    (264, BF16, "block", 4, 264),
+    (16384, BF16, "warp", 1, 396),     # the training rows: 41 rows a block
+    (16384, FP32, "warp", 1, 264),     # fp32: two blocks a multiprocessor
+    (4096, BF16, "warp", 1, 396),
+    (600, FP32, "block", 8, 264)])
+def test_ln_bwd_plan_layout_follows_the_rows(rows, dt, route, row_warps,
+                                             grid):
+    plan = ln.ln_bwd_plan(rows, 1024, dt, H100_SMS)
+    assert (plan["route"], plan["row_warps"], plan["grid"]) == (
+        route, row_warps, grid)
+
+
+@pytest.mark.parametrize("rows,hidden,dt,aligned", [
+    (8, 1002, BF16, True), (4096, 1020, BF16, True),
+    (2, 16384, BF16, True), (8, 1024, BF16, False)])
+def test_ln_bwd_plan_keeps_the_old_form_off_the_vector_grid(
+        rows, hidden, dt, aligned):
+    """Widths off the vector grid, past the register cap, or unaligned
+    inputs: the old warp-a-row form, a partial row a 32-row block."""
+    plan = ln.ln_bwd_plan(rows, hidden, dt, H100_SMS, aligned)
+    assert (plan["route"], plan["row_warps"], plan["vectors"]) == (
+        "three_pass", 0, 0)
+    assert plan["grid"] == plan["parts"] == -(-rows // 32)
+
+
+# ---------------------------------------------------------------------------
 # softmax_fwd_plan
 # ---------------------------------------------------------------------------
 
@@ -163,11 +226,71 @@ def test_softmax_plan_reads_the_mask_as_vectors_only_at_stride_1(
 
 
 def test_softmax_plan_names_no_route_for_k1_or_k3():
-    """The causal forward (K1) and the backward (K3) keep their one
-    layout: the plan names nothing for them."""
+    """The backward (K3) keeps its one layout and takes no plan; the
+    causal forward (K1), once planned apart from the masked one, now
+    takes the masked forward's routes with no mask: a mask stride handed
+    with ``masked`` False is not read."""
     for sk in (512, 1024, 4096):
-        assert sm.softmax_fwd_plan(128 * 1024, sk, FP32, False,
-                                   None) == dict(route=None)
+        plan = sm.softmax_fwd_plan(128 * 1024, sk, FP32, False, 1)
+        assert plan == sm.softmax_fwd_plan(128 * 1024, sk, FP32, True, None)
+        assert plan["mask"] is None
+
+
+@pytest.mark.parametrize("sk", [1, 7, 333, 1000, 1024, 2047, 2048])
+@pytest.mark.parametrize("dt", [FP32, BF16, torch.float16])
+def test_softmax_plan_holds_causal_rows_in_registers_up_to_2048(sk, dt):
+    """K1's register route: every row of up to 2048 keys, a warp a row,
+    each column held once, 16-byte vectors where the row allows them."""
+    plan = sm.softmax_fwd_plan(128 * sk, sk, dt, False, None)
+    kvec = 16 // torch.empty((), dtype=dt).element_size()
+    assert (plan["route"], plan["mask"]) == ("register", None)
+    assert plan["vec"] == (kvec if sk % kvec == 0 else 1)
+    cols = [(j * 32 + lane) * plan["vec"] for j in range(plan["vectors"])
+            for lane in range(32)]
+    assert sorted(c for c in cols if c < sk) == list(range(0, sk,
+                                                           plan["vec"]))
+    assert plan["grid"] == 16 * sk
+
+
+@pytest.mark.parametrize("sk,dt", [(2049, FP32), (4096, BF16),
+                                   (8192, FP32), (16384, BF16)])
+def test_softmax_plan_streams_causal_rows_past_2048(sk, dt):
+    plan = sm.softmax_fwd_plan(4 * sk, sk, dt, False, None)
+    assert (plan["route"], plan["vectors"], plan["grid"], plan["mask"]) == (
+        "streaming", 0, 4 * sk, None)
+
+
+def test_causal_plan_of_a_call_reads_its_address(monkeypatch):
+    """The causal wrapper hands the kernel its plan's vec and vectors:
+    an aligned (b, sq, sk) input takes 16-byte vectors, one a scalar a
+    column; both on the register route at the GPT cell's 1024 keys."""
+    seen = []
+    monkeypatch.setattr(sm, "SOFTMAX_CAUSAL_FWD",
+                        lambda *args: seen.append(args[6:8]))
+    monkeypatch.setattr(sm, "_require_cuda", lambda x: None)
+    dev = type("Dev", (), {"type": "cuda"})()
+
+    class _X:  # a CUDA-looking (2, 1024, 1024) fp32 tensor at an address
+        def __init__(self, addr):
+            self.addr, self.shape, self.dtype = addr, (2, 1024, 1024), FP32
+            self.device = dev
+
+        def dim(self):
+            return 3
+
+        def contiguous(self):
+            return self
+
+        def data_ptr(self):
+            return self.addr
+
+    monkeypatch.setattr(sm.torch, "empty_like",
+                        lambda x: torch.zeros(1))
+    monkeypatch.setattr(sm, "ptr", lambda t: 0)
+    monkeypatch.setattr(sm, "stream_ptr", lambda d: 0)
+    sm.softmax_causal_fwd(_X(256), 0.125)
+    sm.softmax_causal_fwd(_X(260), 0.125)
+    assert seen == [(4, 8), (1, 32)]
 
 
 def test_softmax_plan_of_a_call_reads_its_mask_and_addresses():
@@ -233,3 +356,48 @@ def test_plain_masked_softmax_matches_jax_with_fully_masked_queries():
     # batch 1's padded queries attend uniformly over all 512 keys
     np.testing.assert_allclose(got[1, :, 9:], 1.0 / sk, rtol=0.0, atol=1e-6)
     np.testing.assert_allclose(got.sum(-1), 1.0, rtol=0.0, atol=1e-5)
+
+
+def test_plain_causal_softmax_matches_jax():
+    """K1's plain version against JAX `scaled_upper_triang_masked_softmax`
+    (`_causal_fwd_kernel` in interpret mode): fp32 at sq = sk = 256, the
+    upper triangle exactly 0."""
+    x = _draw((2, 256, 256), 11, 2.0)
+    got = sm.scaled_upper_triang_masked_softmax(torch.from_numpy(x),
+                                                0.125).numpy()
+    want = np.asarray(jsm.scaled_upper_triang_masked_softmax(
+        jnp.asarray(x), 0.125))
+    np.testing.assert_allclose(got, want, rtol=0.0, atol=1e-6)
+    assert not got[:, np.triu_indices(256, 1)[0],
+                   np.triu_indices(256, 1)[1]].any()
+
+
+@pytest.mark.parametrize("rows", [8, 264])
+@pytest.mark.parametrize("with_ds", [False, True])
+def test_plain_ln_backward_matches_jax(rows, with_ds):
+    """Row 2's plain version (`layer_norm_bwd_plain`) against JAX
+    `_layer_norm_bwd` (`_ln_bwd_kernel` in interpret mode), affine, with
+    and without the stream's cotangent ds, fp32: dx within 1e-5, dgamma
+    and dbeta within 1e-5 of their L1 mass (sums over the rows in
+    another order)."""
+    h = 1024
+    x = torch.from_numpy(_draw((rows, h), rows, 1.0, 0.5))
+    w = torch.from_numpy(_draw((h,), 2, 0.1, 1.0))
+    dy = torch.from_numpy(_draw((rows, h), rows + 1))
+    ds = torch.from_numpy(_draw((rows, h), rows + 2)) if with_ds else None
+    mu = x.mean(dim=1)
+    rs = torch.rsqrt(((x - mu[:, None]) ** 2).mean(dim=1) + 1e-5)
+    dx, dd, dg, db = ln.layer_norm_bwd_plain(x, dy, ds, mu, rs, w)
+    assert dd is None
+    jdx, jdg, jdb = jln._layer_norm_bwd(
+        True, 1e-5, (jnp.asarray(x.numpy()), jnp.asarray(w.numpy()),
+                     jnp.asarray(mu.numpy()), jnp.asarray(rs.numpy())),
+        jnp.asarray(dy.numpy()),
+        ds=None if ds is None else jnp.asarray(ds.numpy()))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), rtol=1e-5,
+                               atol=1e-5)
+    xh = (x - mu[:, None]) * rs[:, None]
+    for got, want, mass in ((dg, jdg, (dy * xh).abs().sum(0)),
+                            (db, jdb, dy.abs().sum(0))):
+        assert np.all(np.abs(got.numpy() - np.asarray(want))
+                      <= 1e-5 * mass.numpy() + 1e-6)
