@@ -24,7 +24,11 @@ JAX package) through these phases, in order; any failure exits non-zero:
              the training segment attention forward and backward at
              bench.py's fmha batch, causal and not, at masked BERT-Large
              lengths with head_dim 128, in fp32 and with ids out of
-             order; the cross-entropy's two-pass backward; the scaled
+             order, each on its `flash_segments_plan` route (the pipes
+             and their segment pre-passes in bf16, launched twice for the
+             same bits, the tables the pre-passes wrote read back and held
+             to their plain version; the CUDA cores in fp32); the
+             cross-entropy's two-pass backward; the scaled
              causal and masked softmax forwards and the softmax backward
              at the GPT train cell's and masked BERT-Large's scores, in
              bf16 and fp16 too, at odd, tiny and 16K-key rows, under
@@ -771,13 +775,20 @@ BWD_ROUTE_KERNELS = {"wgmma": ("bwd_dq_pipe_kernel", "bwd_dkv_pipe_kernel"),
 K2_ROUTE_KERNELS = {"pipe": ("Conv3FwdPipe",), "staged": ("gemm_kernel",)}
 K1_ROUTE_KERNELS = {"pipe": ("MmFwdPipe",), "staged": ("gemm_kernel",)}
 # the unpacked backward's routes (csrc/flash_unpacked_bwd.cu: bf16 on
-# flash_bwd_pipe.cuh, fp32 on flash_unpacked_bwd.cuh's CUDA-core bodies);
-# "mma_sync", the bodies bf16 took before and segment attention still
-# takes, is on no plan: a case that launched it fails
+# flash_bwd_pipe.cuh, fp32 on flash_unpacked_bwd.cuh's CUDA-core bodies)
 UNPACKED_BWD_ROUTE_KERNELS = {
     "wgmma": ("bwd_dq_pipe_kernel", "bwd_dkv_pipe_kernel"),
-    "cuda_cores": ("dq_f32_kernel", "dkv_f32_kernel"),
-    "mma_sync": ("dq_mma_kernel", "dkv_mma_kernel")}
+    "cuda_cores": ("dq_f32_kernel", "dkv_f32_kernel")}
+# the training segment kernels' routes (csrc/flash_segments_{fwd,bwd}.cu,
+# `flash_segments_plan`): bf16 on the two pipes with their segment
+# pre-passes, fp32 on the CUDA-core bodies
+SEG_FWD_ROUTE_KERNELS = {
+    "wgmma": ("fwd_pipe_kernel", "seg_tiles_kernel", "seg_order_kernel"),
+    "cuda_cores": ("fwd_f32_kernel",)}
+SEG_BWD_ROUTE_KERNELS = {
+    "wgmma": ("bwd_dq_pipe_kernel", "bwd_dkv_pipe_kernel",
+              "seg_tiles_kernel", "seg_order_kernel"),
+    "cuda_cores": ("dq_f32_kernel", "dkv_f32_kernel")}
 
 
 def check_launches(fn, routes, route, what, prepass_name=None,
@@ -1902,7 +1913,7 @@ def unpacked_cases(dev):
     backward case against `flash_unpacked_bwd_plan`'s by the kernels a
     profiled call launches (bf16: the wgmma backward pipe's two passes,
     launched twice for equal bits, the dbias call's too; fp32: the CUDA
-    cores; never the mma.sync bodies)."""
+    cores)."""
     from rocm_apex_tpu_torch.models.bert import bert_extended_attention_mask
     from rocm_apex_tpu_torch.models.gpt import padding_bias
     from rocm_apex_tpu_torch.ops import flash_attention as fa
@@ -2240,6 +2251,31 @@ def _per_head(fn, *ts):
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
+def _seg_tables(fs, fn, seg, causal, what):
+    """Runs fn (a training segment kernel's call) with
+    `fs._seg_workspace` recording the workspace each launch is handed, and
+    holds what the pre-passes wrote there to
+    `fs.flash_segments_tables_plain` word for word."""
+    made, make = [], fs._seg_workspace
+
+    def record(plan, device):
+        made.append(make(plan, device))
+        return made[-1]
+
+    fs._seg_workspace = record
+    try:
+        fn()
+    finally:
+        fs._seg_workspace = make
+    torch.cuda.synchronize()
+    want = fs.flash_segments_tables_plain(seg, causal)
+    check(len(made) == 1, f"{what}: {len(made)} workspaces, expected 1")
+    got = made[0].cpu()
+    bad = int((got != want).sum()) if got.shape == want.shape else -1
+    check(bad == 0, f"{what}: the segment tables differ from their plain "
+          f"version ({bad} of {want.numel()} words; -1: the sizes)")
+
+
 def seg_train_cases(dev):
     """The training segment attention (forward; backward, a dq and a dk/dv
     pass) against its plain versions: bench.py's fmha batch (17408 tokens,
@@ -2248,12 +2284,19 @@ def seg_train_cases(dev):
     packed (8 heads x 128, not causal); fp32 on a small ragged batch with
     an empty sequence; ids out of order (every tile range then spans
     several ids, and a range test must still skip no live pair). The
-    plain versions run one head at a time. Beside each: the bound, the
-    plain time, one PyTorch call (SDPA on a jagged nested tensor where it
-    takes the case, else SDPA on the padded batch with the length mask;
-    `library` says which) and, for the forward, the serving kernel's time
-    on the same inputs (`row3_ms`, the per-row kernel that
-    `flash_attention_segments_with_lse` launches)."""
+    plain versions run one head at a time. Each case is checked against
+    `flash_segments_plan`'s route by the kernels a profiled call launches
+    (bf16: the forward pipe, or the backward pipe's two passes, with the
+    segment pre-passes; fp32: the CUDA-core bodies) and launched twice for
+    the same bits. In bf16 the tables the pre-passes wrote (each tile's
+    walk, the units' order, the id ranges; `_seg_tables`), in the forward
+    and again in the backward, must equal `flash_segments_tables_plain`'s
+    word for word. The operations count every head's attended pairs.
+    Beside each: the bound, the plain time, one PyTorch call (SDPA on a
+    jagged nested tensor where it takes the case, else SDPA on the padded
+    batch with the length mask; `library` says which) and, for the
+    forward, the serving kernel's time on the same inputs (`row3_ms`, the
+    per-row kernel that `flash_attention_segments_with_lse` launches)."""
     from rocm_apex_tpu_torch.ops import flash_attention_segments as fs
 
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -2283,9 +2326,14 @@ def seg_train_cases(dev):
         q, k, v = (qkv[:, i].transpose(0, 1) for i in range(3))
         do = torch.randn(total, h, d, device=dev, generator=gen).to(
             dt).transpose(0, 1)
-        pairs = _seg_pairs(seg, causal)
+        pairs = h * _seg_pairs(seg, causal)
         label = (f"{name}, {'causal' if causal else 'not causal'} ({h}, "
                  f"{total}, {d}) {str(dt)[6:]}")
+        plan = fs.flash_segments_plan(h, total, d, dt)
+        check(plan["route"] == ("wgmma" if dt == torch.bfloat16
+                                else "cuda_cores") and plan["splits"] == 1,
+              f"seg_train {label}: planned {plan['route']}, "
+              f"{plan['splits']} split(s)")
 
         def fkern(q=q, k=k, v=v, seg=seg, causal=causal, scale=scale):
             return fs._seg_fwd(q, k, v, seg, causal, scale, token_major=True)
@@ -2302,17 +2350,25 @@ def seg_train_cases(dev):
         flib, blib, lib_form = _seg_library(qkv, do, lens, seg, ids, causal,
                                             scale)
         o, lse = fkern()
+        # the route, the same bits twice, the pre-passes' tables
+        route = check_launches(fkern, SEG_FWD_ROUTE_KERNELS, plan["route"],
+                               f"seg_train fwd {label}")
+        check(_same_bits((o, lse), fkern()),
+              f"seg_train fwd {label}: two launches differ")
+        if plan["route"] == "wgmma":
+            _seg_tables(fs, fkern, seg, causal, f"seg_train fwd {label}")
         ref = fplain()
         l1 = _per_head(lambda q, k, v: fs.flash_attention_segments_plain(
             q, k, v.abs(), seg, causal, scale), q, k, v)[0]
         yield dict(
-            kernel="flash_segments_fwd", case=label, dtype=dt,
+            kernel="flash_segments_fwd", case=f"{label} [{route}]", dtype=dt,
             cmp=attn_compare((o, lse), ref, [l1, None],
                              [None, LSE_L1_RTOL * ref[1].abs()]),
             kern=fkern, plain=fplain, lib=flib, library=lib_form,
             extra_timings=dict(row3_ms=frow3),
             nbytes=nbytes(q, k, v, seg, o, lse), ops=4 * d * pairs,
             headline=headline, iters=10, plain_iters=1,
+            breakdown=dt == torch.bfloat16,
         )
 
         def bkern(q=q, k=k, v=v, seg=seg, o=o, lse=lse, do=do, causal=causal,
@@ -2332,13 +2388,21 @@ def seg_train_cases(dev):
             l1 = _per_head(lambda q, k, v, o, lse, do: grad_l1(
                 q, k, v, fs._segment_bias(seg, q.device), o, lse, do, causal,
                 scale), q, k, v, o, lse, do)
+        got = bkern()
+        broute = check_launches(bkern, SEG_BWD_ROUTE_KERNELS, plan["route"],
+                                f"seg_train bwd {label}")
+        check(_same_bits(got, bkern()),
+              f"seg_train bwd {label}: two launches differ")
+        if plan["route"] == "wgmma":
+            _seg_tables(fs, bkern, seg, causal, f"seg_train bwd {label}")
         yield dict(
-            kernel="flash_segments_bwd", case=label, dtype=dt,
-            cmp=attn_compare(bkern(), bplain(), l1), kern=bkern,
+            kernel="flash_segments_bwd", case=f"{label} [{broute}]",
+            dtype=dt, cmp=attn_compare(got, bplain(), l1), kern=bkern,
             plain=bplain,
             lib=blib, library=lib_form,
             nbytes=nbytes(q, k, v, seg, o, lse, do, q, k, v),
             ops=10 * d * pairs, headline=headline, iters=5, plain_iters=1,
+            breakdown=dt == torch.bfloat16,
         )
 
 
@@ -3448,7 +3512,7 @@ def frame_cases(dev):
     the softmax peaks and p's rounding shows, held to its plain version
     (p and ds rounded to bf16 as JAX rounds them, a forward's p against
     the running max after each key tile of the kernel's: 64 keys in the
-    pipes and the mma.sync bodies, 32 in the row walks) by the share of
+    pipes, 32 in the row walks) by the share of
     elements more than one bf16 step off, at most `FRAME_SHARE`. Beside it
     each forward logs the share against the plain version at another frame
     (twice the kernel's, one span unsplit for the decode reads), which the

@@ -1,20 +1,23 @@
 // The bf16 flash-attention backward on Hopper's asynchronous units: the
 // pipe of the packed backward (flash_bwd.cu, row 11: rocm_apex_tpu/ops/
 // flash_attention.py:1324 `_bwd_merged_kernel` and the packed use of :316
-// `_bwd_dkv_kernel` / :384 `_bwd_dq_kernel`) and of the unpacked one
+// `_bwd_dkv_kernel` / :384 `_bwd_dq_kernel`), of the unpacked one
 // (flash_unpacked_bwd.cu, row 9b: the same two kernels as `_bwd` (:502)
-// runs them), built from the forward pipe's pieces (flash_fwd_pipe.cuh).
+// runs them) and, with kSeg, of the training segment backward
+// (flash_segments_bwd.cu, row 4: ops/flash_attention_segments.py:173
+// `_seg_dq_kernel` and :120 `_seg_dkv_kernel` as `_seg_bwd` runs them),
+// built from the forward pipe's pieces (flash_fwd_pipe.cuh).
 // q, k, v, o and do are read, and dq, dk and dv written, in place through
 // (batch, head, row) strides, so a caller with other layouts passes other
 // strides.
 //
 // Bound: operations. At the GPT train cell (B 16, S 1024, 8 heads, hd
 // 128, causal) the backward issues 5 bf16 products a (query tile, key
-// tile) pair, 86 GFLOP, against ~0.2 GB of operands. What held the
-// mma.sync bodies at ~90 TFLOP/s issued: 16-row warps, one K/V tile in
-// flight with barriers around it, and every operand read along its
-// columns (k in the dq pass, q and do in the dk/dv pass) staged
-// transposed element by element. Here:
+// tile) pair, 86 GFLOP, against ~0.2 GB of operands. What keeps a tile
+// loop far from the tensor peak (mma.sync bodies ran at ~90 TFLOP/s
+// issued): 16-row warps, one K/V tile in flight with barriers around it,
+// and every operand read along its columns (k in the dq pass, q and do in
+// the dk/dv pass) staged transposed element by element. Here:
 //
 // - Two launches, no atomics. The dq pass (a block per (b*H + h, query
 //   tile)) first writes, for its 64 rows, (lse log2 e, delta =
@@ -26,8 +29,9 @@
 //   as it lands. Both grids go longest first: query tiles counted down in
 //   the dq pass, key tiles up in the dk/dv pass.
 // - One warpgroup (128 threads) a block, 64 rows (queries in the dq pass,
-//   keys in the dk/dv pass); two blocks share a multiprocessor, so one's
-//   softmax-side arithmetic runs beside the other's products.
+//   keys in the dk/dv pass); blocks share a multiprocessor (two at hd
+//   128; at hd 64 see the last item), so one's softmax-side arithmetic
+//   runs beside another's products.
 // - Every operand tile is 64 rows of hd bf16 in the forward's 128-byte
 //   swizzle, one cp.async a 16-byte segment (zero-filled past the
 //   sequence), into a ring of two stages: K and V in the dq pass, q and do
@@ -58,6 +62,16 @@
 //   `scale` at the end, dk from the unscaled q. Each pass also writes,
 //   where `part` is given, the fp32 column sums of its 64 rows of dq (or
 //   dk and dv) in a fixed order: the projection bias's partials.
+// - Segment attention (kSeg): each pass walks the tiles of its [lo, hi]
+//   as the forward pipe does (the dk/dv pass from the causal bound on),
+//   ids staged with each tile (keys in the dq pass, queries in the dk/dv
+//   pass) and held in registers for the block's own rows, in the
+//   pre-pass's order `pb.order` (the query tiles' order in the dq pass,
+//   the key tiles' in the dk/dv pass). At head_dim 64 its dq pass runs
+//   four blocks a multiprocessor (128 registers a thread) and its dk/dv
+//   pass three (168, a few spilled): a tile's step there is bound by its
+//   latency, not by its products, so more blocks in flight is what
+//   shortens a pass. The other forms keep two blocks.
 #pragma once
 
 #include "flash_fwd_pipe.cuh"
@@ -200,18 +214,22 @@ __device__ __forceinline__ void tile_column_sums(const float (&x)[HD / 2],
   }
 }
 
-template <int HD, bool kBias>
-__global__ void __launch_bounds__(128, 2)
+template <int HD, bool kBias, bool kSeg>
+__global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 2)
     bwd_dq_pipe_kernel(BwdArgs a, Problem pb) {
+  static_assert(!(kBias && kSeg), "segment attention takes no bias");
   using C = BwdCfg<HD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
   unsigned char* sdo = sq + C::kTileBytes;
   unsigned char* ring = sdo + C::kTileBytes;
+  // segment attention: the ids of each stage's keys
+  int* sids = reinterpret_cast<int*>(ring + C::kStages * C::kStageBytes);
   const int bh = blockIdx.x;
   const int nqt = (pb.Sq + kTile - 1) / kTile;
-  const int qt = nqt - 1 - static_cast<int>(blockIdx.y);
+  int qt = nqt - 1 - static_cast<int>(blockIdx.y);
+  if constexpr (kSeg) qt = __ldg(pb.order + blockIdx.y);
   const int q0 = qt * kTile;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -226,14 +244,31 @@ __global__ void __launch_bounds__(128, 2)
   const bf16* kh = head(a.k, a.ks, bh, pb.H);
   const bf16* vh = head(a.v, a.vs, bh, pb.H);
 
-  // this block's key tiles: [0, n)
+  // this block's key tiles: [t0, t0 + n); with segments, those of [lo, hi],
+  // the rows' ids in registers
   const int kend = key_end(pb, bh, min(q0 + kTile, pb.Sq) - 1);
-  const int n = (kend + kTile - 1) / kTile;
+  int t0 = 0;
+  int n = (kend + kTile - 1) / kTile;
+  int2 qr = make_int2(0, 0);
+  int rseg[2] = {0, 0};
+  if constexpr (kSeg) {
+    const int4 span = __ldg(pb.tiles + qt);
+    n = max(0, min(n, span.y + 1) - span.x);
+    t0 = span.x;
+    qr = tile_range(pb, q0, kTile);
+    rseg[0] = seg_id(pb, row[0]);
+    rseg[1] = seg_id(pb, row[1]);
+  }
   auto stage = [&](int i) { return ring + (i % C::kStages) * C::kStageBytes; };
   auto load = [&](int i) {
     unsigned char* st = stage(i);
-    copy_rows<HD>(st, kh, a.ks.s, i * kTile, pb.Sk);
-    copy_rows<HD>(st + C::kTileBytes, vh, a.vs.s, i * kTile, pb.Sk);
+    copy_rows<HD>(st, kh, a.ks.s, (t0 + i) * kTile, pb.Sk);
+    copy_rows<HD>(st + C::kTileBytes, vh, a.vs.s, (t0 + i) * kTile, pb.Sk);
+    if constexpr (kSeg) {
+      if (threadIdx.x < kTile)
+        sids[(i % C::kStages) * kTile + threadIdx.x] =
+            seg_id(pb, (t0 + i) * kTile + threadIdx.x);
+    }
   };
   copy_rows<HD>(sq, head(a.q, a.qs, bh, pb.H), a.qs.s, q0, pb.Sq);
   copy_rows<HD>(sdo, head(a.dout, a.dos, bh, pb.H), a.dos.s, q0, pb.Sq);
@@ -311,7 +346,7 @@ __global__ void __launch_bounds__(128, 2)
     // product adds to them; key_live decides which count), their loads
     // issued first so that they land under the tile's wait and the dP
     // product
-    const int kbase = i * kTile;
+    const int kbase = (t0 + i) * kTile;
     float s[32], dp[32];
     if constexpr (kBias) {
 #pragma unroll
@@ -328,6 +363,7 @@ __global__ void __launch_bounds__(128, 2)
     cp_async_commit();
     const unsigned char* skt = stage(i);
     const unsigned char* svt = skt + C::kTileBytes;
+    const int* kids = sids + (i % C::kStages) * kTile;
 
     // S += (q q_mul) k^T and dP = do v^T: 64 rows x 64 keys each; with
     // a bias dP goes first, and S's start values are awaited while it runs
@@ -368,9 +404,10 @@ __global__ void __launch_bounds__(128, 2)
     reg_fence(dp);
 
     // ds = p (keep dp / (1 - rate) - delta) into s; e < 2 is row 0
-    const bool edge = kbase + kTile > len ||
-                      (pb.causal && kbase + kTile - 1 > q0) ||
-                      q0 + kTile > pb.Sq;
+    bool edge = kbase + kTile > len || (pb.causal && kbase + kTile - 1 > q0) ||
+                q0 + kTile > pb.Sq;
+    if constexpr (kSeg)
+      edge = edge || !one_segment(qr, tile_range(pb, kbase, kTile));
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -378,7 +415,8 @@ __global__ void __launch_bounds__(128, 2)
         const int r = e >> 1;
         const int col = kbase + j * 8 + 2 * t + (e & 1);
         float ds = 0.f;
-        if (!edge || key_live(pb, len, row[r], col)) {
+        if (!edge || key_live(pb, len, row[r], col,
+                              !kSeg || kids[col - kbase] == rseg[r])) {
           const float p = exp2f(s[4 * j + e] - lse2[r]);
           float dpd = dp[4 * j + e];
           if (pb.drop)
@@ -412,9 +450,10 @@ __global__ void __launch_bounds__(128, 2)
   }
 }
 
-template <int HD, bool kBias>
-__global__ void __launch_bounds__(128, 2)
+template <int HD, bool kBias, bool kSeg>
+__global__ void __launch_bounds__(128, kSeg && HD == 64 ? 3 : 2)
     bwd_dkv_pipe_kernel(BwdArgs a, Problem pb) {
+  static_assert(!(kBias && kSeg), "segment attention takes no bias");
   using C = BwdCfg<HD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sk = reinterpret_cast<unsigned char*>(
@@ -422,10 +461,13 @@ __global__ void __launch_bounds__(128, 2)
   unsigned char* sv = sk + C::kTileBytes;
   unsigned char* sqs = sv + C::kTileBytes;  // bf16(q q_mul) of the tile
   unsigned char* ring = sqs + C::kTileBytes;
+  // segment attention: the ids of each stage's queries
+  int* sids = reinterpret_cast<int*>(ring + C::kStages * C::kStageBytes);
   const int bh = blockIdx.x;
-  const int kt = blockIdx.y;
-  const int k0 = kt * kTile;
   const int nqt = (pb.Sq + kTile - 1) / kTile;
+  int kt = blockIdx.y;
+  if constexpr (kSeg) kt = __ldg(pb.order + nqt + blockIdx.y);
+  const int k0 = kt * kTile;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
@@ -437,15 +479,32 @@ __global__ void __launch_bounds__(128, 2)
   const bf16* doh = head(a.dout, a.dos, bh, pb.H);
   const float* stats = a.stats + static_cast<int64_t>(bh) * nqt * kTile * 2;
 
-  // this block's query tiles: [qt0, nqt) (none past the last live key)
-  const int qt0 = pb.causal ? kt : 0;
-  const int n = k0 < len ? nqt - qt0 : 0;
+  // this block's query tiles: [qt0, qt0 + n) (none past the last live
+  // key); with segments, those of [lo, hi] from the causal bound on, the
+  // keys' ids in registers
+  int qt0 = pb.causal ? kt : 0;
+  int n = k0 < len ? nqt - qt0 : 0;
+  int2 kr = make_int2(0, 0);
+  int kseg[2] = {0, 0};
+  if constexpr (kSeg) {
+    const int4 span = __ldg(pb.tiles + kt);
+    qt0 = max(qt0, span.x);
+    n = max(0, span.y + 1 - qt0);
+    kr = tile_range(pb, k0, kTile);
+    kseg[0] = seg_id(pb, key[0]);
+    kseg[1] = seg_id(pb, key[1]);
+  }
   auto stage = [&](int i) { return ring + (i % C::kStages) * C::kStageBytes; };
   auto load = [&](int i) {
     unsigned char* st = stage(i);
     copy_rows<HD>(st, qh, a.qs.s, (qt0 + i) * kTile, pb.Sq);
     copy_rows<HD>(st + C::kTileBytes, doh, a.dos.s, (qt0 + i) * kTile,
                   pb.Sq);
+    if constexpr (kSeg) {
+      if (threadIdx.x < kTile)
+        sids[(i % C::kStages) * kTile + threadIdx.x] =
+            seg_id(pb, (qt0 + i) * kTile + threadIdx.x);
+    }
   };
   copy_rows<HD>(sk, head(a.k, a.ks, bh, pb.H), a.ks.s, k0, pb.Sk);
   copy_rows<HD>(sv, head(a.v, a.vs, bh, pb.H), a.vs.s, k0, pb.Sk);
@@ -484,6 +543,7 @@ __global__ void __launch_bounds__(128, 2)
     cp_async_commit();
     const unsigned char* sqt = stage(i);
     const unsigned char* sdot = sqt + C::kTileBytes;
+    const int* qids = sids + (i % C::kStages) * kTile;
     scaled_copy<HD>(sqs, sqt, pb.q_mul);
     fence_proxy_async();  // tile i and the copy, for wgmma's proxy
     __syncthreads();
@@ -542,8 +602,10 @@ __global__ void __launch_bounds__(128, 2)
 
     // s <- the dropped p^T, dp <- ds^T; e < 2 is key row 0, e & 1 the
     // query column's parity
-    const bool edge = q0 + kTile > pb.Sq || k0 + kTile > len ||
-                      (pb.causal && k0 + kTile - 1 > q0);
+    bool edge = q0 + kTile > pb.Sq || k0 + kTile > len ||
+                (pb.causal && k0 + kTile - 1 > q0);
+    if constexpr (kSeg)
+      edge = edge || !one_segment(kr, tile_range(pb, q0, kTile));
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       // (lse log2 e, delta) of queries j * 8 + 2 t and + 1 (with a bias,
@@ -568,7 +630,8 @@ __global__ void __launch_bounds__(128, 2)
         for (int r = 0; r < 2; ++r) {
           const int e = 4 * j + 2 * r + par;
           float pd = 0.f, ds = 0.f;
-          if (!edge || key_live(pb, len, q, key[r])) {
+          if (!edge || key_live(pb, len, q, key[r],
+                                !kSeg || qids[q - q0] == kseg[r])) {
             const float p = exp2f(s[e] - l2);
             float dpd = dp[e];
             pd = p;
@@ -623,34 +686,39 @@ __global__ void __launch_bounds__(128, 2)
 
 // The two passes over grids of (b*H + h, 64-row tiles): the dq pass
 // (query tiles, which writes the stats), then the dk/dv pass (key
-// tiles); kBias for a problem with a score bias (the unpacked forms). The
-// segment ids of segment attention are not taken here.
-template <int HD, bool kBias = false>
+// tiles); kBias for a problem with a score bias (the unpacked forms), kSeg
+// for segment attention (pb.seg, pb.ranges, pb.tiles and pb.order filled
+// by launch_seg_tiles).
+template <int HD, bool kBias = false, bool kSeg = false>
 int launch_pipe_bwd(const BwdArgs& a, const Problem& pb,
                     cudaStream_t stream) {
   using C = BwdCfg<HD>;
+  constexpr int kSegBytes = kSeg ? C::kStages * kTile * sizeof(int) : 0;
   const int bh = pb.B * pb.H;
   const int nqt = (pb.Sq + kTile - 1) / kTile;
   const int nkt = (pb.Sk + kTile - 1) / kTile;
-  if ((pb.bias != nullptr) != kBias || pb.seg != nullptr || nqt > 65535 ||
-      nkt > 65535)
+  if ((pb.bias != nullptr) != kBias || (pb.seg != nullptr) != kSeg ||
+      (kSeg && (pb.tiles == nullptr || pb.order == nullptr)) ||
+      nqt > 65535 || nkt > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (bh == 0 || nqt == 0) return 0;
   // every call, as launch_pipe_fwd sets its own
   cudaError_t e = cudaFuncSetAttribute(
-      bwd_dq_pipe_kernel<HD, kBias>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kDqSmem);
+      bwd_dq_pipe_kernel<HD, kBias, kSeg>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kDqSmem + kSegBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(bwd_dkv_pipe_kernel<HD, kBias>,
+  e = cudaFuncSetAttribute(bwd_dkv_pipe_kernel<HD, kBias, kSeg>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           C::kDkvSmem);
+                           C::kDkvSmem + kSegBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bwd_dq_pipe_kernel<HD, kBias>
-      <<<dim3(bh, nqt), C::kThreads, C::kDqSmem, stream>>>(a, pb);
+  bwd_dq_pipe_kernel<HD, kBias, kSeg>
+      <<<dim3(bh, nqt), C::kThreads, C::kDqSmem + kSegBytes, stream>>>(a,
+                                                                       pb);
   e = cudaGetLastError();
   if (e != cudaSuccess || nkt == 0) return static_cast<int>(e);
-  bwd_dkv_pipe_kernel<HD, kBias>
-      <<<dim3(bh, nkt), C::kThreads, C::kDkvSmem, stream>>>(a, pb);
+  bwd_dkv_pipe_kernel<HD, kBias, kSeg>
+      <<<dim3(bh, nkt), C::kThreads, C::kDkvSmem + kSegBytes, stream>>>(a,
+                                                                        pb);
   return static_cast<int>(cudaGetLastError());
 }
 

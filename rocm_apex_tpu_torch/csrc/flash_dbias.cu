@@ -66,13 +66,13 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int hh = 0; live && hh < pb.hp; ++hh) {
     const int bh = n * pb.hp + hh;
     __syncthreads();  // the previous head's readers are done
-    stage_bf16<HD, kTile>(sq, kLdS, nullptr, 0, head(q, qs, bh, pb.H), qs.s,
+    stage_bf16<HD, kTile>(sq, kLdS, head(q, qs, bh, pb.H), qs.s,
                           q0, pb.Sq, pb.q_mul, kMmaThreads);
-    stage_bf16<HD, kTile>(sdo, kLdS, nullptr, 0, head(dout, dos, bh, pb.H),
+    stage_bf16<HD, kTile>(sdo, kLdS, head(dout, dos, bh, pb.H),
                           dos.s, q0, pb.Sq, 1.f, kMmaThreads);
-    stage_bf16<HD, kTile>(sk, kLdS, nullptr, 0, head(k, ks, bh, pb.H), ks.s,
+    stage_bf16<HD, kTile>(sk, kLdS, head(k, ks, bh, pb.H), ks.s,
                           k0, pb.Sk, 1.f, kMmaThreads);
-    stage_bf16<HD, kTile>(sv, kLdS, nullptr, 0, head(v, vs, bh, pb.H), vs.s,
+    stage_bf16<HD, kTile>(sv, kLdS, head(v, vs, bh, pb.H), vs.s,
                           k0, pb.Sk, 1.f, kMmaThreads);
     if (threadIdx.x < kTile) {
       const int r = q0 + threadIdx.x;

@@ -1,22 +1,25 @@
 // The bf16 flash-attention forward on Hopper's asynchronous units: one
 // pipe for the packed forward (flash_fwd.cu, rows 7a and 8: rocm_apex_tpu/
 // ops/flash_attention.py:1170 `_fwd_single_kernel` and the packed use of
-// :170 `_fwd_kernel`) and the unpacked one (flash_unpacked_fwd.cu, row 7b:
-// `_fwd_kernel` as `_fwd` runs it). Both read q, k and v in place through
-// (batch, head, row) strides: the packed form's heads are column blocks of
-// the (B, S, nh, 3 hd) projection, so the two differ only in what they
-// pass.
+// :170 `_fwd_kernel`), the unpacked one (flash_unpacked_fwd.cu, row 7b:
+// `_fwd_kernel` as `_fwd` runs it) and, with kSeg, the training segment
+// forward (flash_segments_fwd.cu, row 3: ops/flash_attention_segments.py:70
+// `_seg_fwd_kernel` as `_seg_fwd` runs it). All read q, k and v in place
+// through (batch, head, row) strides: the packed form's heads are column
+// blocks of the (B, S, nh, 3 hd) projection, so the forms differ only in
+// what they pass.
 //
 // Bound: operations. At the GPT train cell (B 16, S 1024, 8 heads, hd 128,
 // causal) a forward is 34 GFLOP of q k^T and p v against 0.13 GB of q, k,
-// v and o. What held the mma.sync body at 4% of the tensor peak: one K/V
-// tile in flight with two barriers a tile, V transposed element by element
-// while staged, and 16-row mma.sync products fed through ldmatrix. Here:
+// v and o. What keeps a tile loop far from the tensor peak (a 64 x 64
+// mma.sync body ran at 4% of it): one K/V tile in flight with two barriers
+// a tile, V transposed element by element while staged, and 16-row
+// products fed through ldmatrix. Here:
 //
 // - One warpgroup (4 warps, 128 threads) takes 64 query rows; a block is
-//   one warpgroup, so two blocks share a multiprocessor (81 KB of shared
-//   memory each at hd 128) and one's softmax runs beside the other's
-//   products.
+//   one warpgroup, so blocks share a multiprocessor (two at hd 128, 81 KB
+//   of shared memory each; four at hd 64) and one's softmax runs beside
+//   another's products.
 // - Every operand tile is 64 rows of hd bf16, each 16-byte segment one
 //   cp.async (zero-filled past the sequence) into the 128-byte swizzle,
 //   hd / 64 blocks of 64 columns. A ring of two K/V stages keeps the next
@@ -34,10 +37,10 @@
 //   scores are masked by flash_unpacked.cuh's `masked_score` rule (causal,
 //   lengths, the ragged edge, the fp32 score bias, whose values for a tile
 //   are loaded before its products so that they arrive under them); a tile
-//   that no edge crosses skips the mask's tests. Softmax and dropout are
-//   the mma.sync body's: base 2, the running max from -1e30, l over the
-//   undropped p, dropout.cuh's keep bit of (seed, b*H + h, query, key),
-//   o = acc / l with l = 0 giving 0, the natural-log lse.
+//   that no edge crosses skips the mask's tests. Softmax and dropout: base
+//   2, the running max from -1e30, l over the undropped p, dropout.cuh's
+//   keep bit of (seed, b*H + h, query, key), o = acc / l with l = 0 giving
+//   0, the natural-log lse.
 // - A unit is (b*H + h, query tile, key split): the host plan
 //   (`flash_fwd_plan`) cuts each tile's key range into `splits` runs of
 //   `split_tiles` tiles where the (head, query tile) pairs alone cannot
@@ -46,6 +49,19 @@
 //   merges a row's partials in split order: no atomics, two launches give
 //   the same bits. Query tiles go longest first (grid.y counts them down),
 //   so a causal grid's long blocks do not finish last.
+// - Segment attention (kSeg; B = 1, Sq = Sk = the stream's tokens, one
+//   split): a unit walks the key tiles of [lo, hi] that the causal
+//   triangle keeps, lo and hi the first and the last tile whose id range
+//   meets its own (the pre-pass `seg_tiles_kernel`). With sorted ids every
+//   tile between them meets it, so the walk visits no dead tile; with ids
+//   in any order it may visit dead ones, whose keys the mask drops, and
+//   skips no live one. A key's id is staged with its tile (64 ints a
+//   stage), a row's held in registers: `key_live` masks another segment's
+//   key, and a tile whose query and key tiles hold one and the same id
+//   skips the tests as a tile no edge crosses does. The units run in
+//   `pb.order` (`seg_order_kernel`: the longest walk first): the longest
+//   walks are the last tiles of the longest sequences, wherever they lie
+//   in the stream.
 #pragma once
 
 #include "flash_unpacked.cuh"
@@ -153,8 +169,13 @@ __device__ __forceinline__ void pv_mma(float (&o)[HD / 2],
     wgmma_m64n64k16_rs<1>(o, a, db);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(128)
+// Segment attention at head_dim 64 puts four blocks on a multiprocessor
+// (128 registers a thread, a few spilled): a tile's step there is bound by
+// its latency, not by its products, so more blocks in flight is what
+// shortens the pass. It has no key split, so no plan counts its blocks;
+// the other forms keep the occupancy `flash_fwd_plan` sizes its splits by.
+template <int HD, bool kSeg>
+__global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 1)
     fwd_pipe_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     float* __restrict__ lse, Strides qs, Strides ks,
@@ -165,9 +186,12 @@ __global__ void __launch_bounds__(128)
   unsigned char* sq = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
   unsigned char* ring = sq + C::kTileBytes;
+  // segment attention: the ids of each stage's keys
+  int* sids = reinterpret_cast<int*>(ring + C::kStages * C::kStageBytes);
   const int bh = blockIdx.x;
   const int nqt = (pb.Sq + kTile - 1) / kTile;
-  const int qt = nqt - 1 - static_cast<int>(blockIdx.y) / splits;
+  int qt = nqt - 1 - static_cast<int>(blockIdx.y) / splits;
+  if constexpr (kSeg) qt = __ldg(pb.order + blockIdx.y);
   const int split = static_cast<int>(blockIdx.y) % splits;
   const int q0 = qt * kTile;
   const int warp = threadIdx.x >> 5;
@@ -183,15 +207,31 @@ __global__ void __launch_bounds__(128)
   const bf16* kh = head(k, ks, bh, pb.H);
   const bf16* vh = head(v, vs, bh, pb.H);
 
-  // this unit's key tiles: [t0, t0 + n)
+  // this unit's key tiles: [t0, t0 + n); with segments, those of [lo, hi]
+  // (one split), the rows' ids in registers
   const int kend = key_end(pb, bh, min(q0 + kTile, pb.Sq) - 1);
-  const int t0 = split * split_tiles;
-  const int n = max(0, min((kend + kTile - 1) / kTile, t0 + split_tiles) - t0);
+  int t0 = split * split_tiles;
+  int n = max(0, min((kend + kTile - 1) / kTile, t0 + split_tiles) - t0);
+  int2 qr = make_int2(0, 0);
+  int rseg[2] = {0, 0};
+  if constexpr (kSeg) {
+    const int4 span = __ldg(pb.tiles + qt);
+    n = max(0, min(t0 + n, span.y + 1) - span.x);
+    t0 = span.x;
+    qr = tile_range(pb, q0, kTile);
+    rseg[0] = seg_id(pb, row[0]);
+    rseg[1] = seg_id(pb, row[1]);
+  }
   auto stage = [&](int i) { return ring + (i % C::kStages) * C::kStageBytes; };
   auto load = [&](int i) {
     unsigned char* st = stage(i);
     copy_rows<HD>(st, kh, ks.s, (t0 + i) * kTile, pb.Sk);
     copy_rows<HD>(st + C::kTileBytes, vh, vs.s, (t0 + i) * kTile, pb.Sk);
+    if constexpr (kSeg) {
+      if (threadIdx.x < kTile)
+        sids[(i % C::kStages) * kTile + threadIdx.x] =
+            seg_id(pb, (t0 + i) * kTile + threadIdx.x);
+    }
   };
   if (n > 0) {
     copy_rows<HD>(sq, qh, qs.s, q0, pb.Sq);
@@ -220,6 +260,7 @@ __global__ void __launch_bounds__(128)
     cp_async_commit();
     const unsigned char* skt = stage(i);
     const unsigned char* svt = skt + C::kTileBytes;
+    const int* kids = sids + (i % C::kStages) * kTile;
 
     // the tile's bias terms, loaded before the products so that their
     // latency hides under them (masked_score's values: key_live decides)
@@ -251,11 +292,12 @@ __global__ void __launch_bounds__(128)
     reg_fence(s);
 
     // online softmax over the tile; e < 2 is row 0, e >= 2 row 1. Only a
-    // tile on the causal diagonal, the last live key or the last row needs
-    // the mask (uniform per block)
-    const bool edge = kbase + kTile > len ||
-                      (pb.causal && kbase + kTile - 1 > q0) ||
-                      q0 + kTile > pb.Sq;
+    // tile on the causal diagonal, the last live key, the last row or, with
+    // segments, more than one id needs the mask (uniform per block)
+    bool edge = kbase + kTile > len || (pb.causal && kbase + kTile - 1 > q0) ||
+                q0 + kTile > pb.Sq;
+    if constexpr (kSeg)
+      edge = edge || !one_segment(qr, tile_range(pb, kbase, kTile));
     float tmax[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -264,7 +306,8 @@ __global__ void __launch_bounds__(128)
         const int r = e >> 1;
         const int col = kbase + j * 8 + 2 * t + (e & 1);
         float sc = masked();
-        if (!edge || key_live(pb, len, row[r], col))
+        if (!edge || key_live(pb, len, row[r], col,
+                              !kSeg || kids[col - kbase] == rseg[r]))
           sc = brow[r] == nullptr
                    ? s[4 * j + e]
                    : s[4 * j + e] + __fmul_rn(bv[4 * j + e], kLog2e);
@@ -403,29 +446,35 @@ __global__ void __launch_bounds__(128)
 
 // The pipe on q/k/v/o given by base pointers and strides: the grid of
 // (b*H + h, query tiles x splits) units, then, with splits > 1, the merge
-// (ws: B*H * ceil(Sq / 64) * splits * 64 * (HD + 2) floats).
-template <int HD>
+// (ws: B*H * ceil(Sq / 64) * splits * 64 * (HD + 2) floats). kSeg: segment
+// attention (pb.seg, pb.ranges, pb.tiles and pb.order filled by
+// launch_seg_tiles), one split.
+template <int HD, bool kSeg = false>
 int launch_pipe_fwd(const void* q, const void* k, const void* v, void* o,
                     void* lse, const Strides (&st)[4], const Problem& pb,
                     int splits, int split_tiles, void* ws,
                     cudaStream_t stream) {
   using C = PipeCfg<HD>;
+  constexpr int kSmem =
+      C::kSmemBytes + (kSeg ? C::kStages * kTile * sizeof(int) : 0);
   const int bh = pb.B * pb.H;
   const int nqt = (pb.Sq + kTile - 1) / kTile;
   if (splits < 1 || split_tiles < 1 ||
       static_cast<int64_t>(nqt) * splits > 65535 ||
-      (splits > 1 && ws == nullptr))
+      (splits > 1 && ws == nullptr) ||
+      (kSeg && (splits != 1 || pb.tiles == nullptr || pb.order == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bh == 0 || nqt == 0) return 0;
   // every call: a function-local "once" flag in this header would be one
   // symbol across the libraries that include it (flash_fwd.cu,
-  // flash_unpacked_fwd.cu), each of which registers its own kernel
+  // flash_unpacked_fwd.cu, flash_segments_fwd.cu), each of which registers
+  // its own kernel
   const cudaError_t e = cudaFuncSetAttribute(
-      fwd_pipe_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::kSmemBytes);
+      fwd_pipe_kernel<HD, kSeg>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fwd_pipe_kernel<HD><<<dim3(bh, nqt * splits), C::kThreads, C::kSmemBytes,
-                        stream>>>(
+  fwd_pipe_kernel<HD, kSeg><<<dim3(bh, nqt * splits), C::kThreads, kSmem,
+                              stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(lse), st[0], st[1], st[2], st[3], pb, splits,
@@ -442,17 +491,18 @@ int launch_pipe_fwd(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-inline int launch_pipe_fwd(int hd, const void* q, const void* k,
-                           const void* v, void* o, void* lse,
-                           const Strides (&st)[4], const Problem& pb,
-                           int splits, int split_tiles, void* ws,
-                           cudaStream_t stream) {
+// launch_pipe_fwd at head_dim hd (64 or 128)
+template <bool kSeg = false>
+int launch_pipe_fwd_hd(int hd, const void* q, const void* k, const void* v,
+                       void* o, void* lse, const Strides (&st)[4],
+                       const Problem& pb, int splits, int split_tiles,
+                       void* ws, cudaStream_t stream) {
   if (hd == 128)
-    return launch_pipe_fwd<128>(q, k, v, o, lse, st, pb, splits, split_tiles,
-                                ws, stream);
+    return launch_pipe_fwd<128, kSeg>(q, k, v, o, lse, st, pb, splits,
+                                      split_tiles, ws, stream);
   if (hd == 64)
-    return launch_pipe_fwd<64>(q, k, v, o, lse, st, pb, splits, split_tiles,
-                               ws, stream);
+    return launch_pipe_fwd<64, kSeg>(q, k, v, o, lse, st, pb, splits,
+                                     split_tiles, ws, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,9 +1,11 @@
-// Shared pieces of the unpacked flash-attention kernels: the forward
-// (flash_unpacked_fwd.cuh), the backward's dq and dk/dv passes
-// (flash_unpacked_bwd.cuh) and the bias gradient (flash_dbias.cu). The
-// forward and backward bodies are templates on `kSeg`: false for the
-// unpacked entries (flash_unpacked_{fwd,bwd}.cu), true for the segment
-// attention of the packed token stream (flash_segments_{fwd,bwd}.cu).
+// Shared pieces of the unpacked flash-attention kernels: the fp32 forward
+// (flash_unpacked_fwd.cuh), the fp32 backward's dq and dk/dv passes
+// (flash_unpacked_bwd.cuh), the bias gradient (flash_dbias.cu) and the
+// bf16 pipes (flash_fwd_pipe.cuh, flash_bwd_pipe.cuh). The fp32 bodies
+// and the pipes are templates on `kSeg`: false for the unpacked and
+// packed entries, true for the segment attention of the packed token
+// stream (flash_segments_{fwd,bwd}.cu), whose tables (the ranges, the
+// tiles' walks and the units' order) the pre-passes below write.
 //
 // Operands (those of rocm_apex_tpu/ops/flash_attention.py `_fwd`/`_bwd`):
 //   q, o, do, dq   (B, H, Sq, D), k, v, dk, dv (B, H, Sk, D), read and
@@ -17,7 +19,9 @@
 //   lens           (B*H,) int32 or null: row bh attends keys [0, lens[bh])
 //   seg, ranges    segment attention only (else null): B = 1, Sq = Sk =
 //                  total tokens, seg (total,) int32 ids, ranges (ceil(total
-//                  / 32),) the (min, max) id of each 32-token tile
+//                  / 32),) the (min, max) id of each 32-token tile; on the
+//   tiles, order   pipes also tiles (ceil(total / 64),) and order (2
+//                  ceil(total / 64),), `seg_workspace`'s
 // D is 64 or 128 (the kernels are templates on it).
 //
 // `masked_score` is the one masking rule of all three kernels, the
@@ -46,7 +50,7 @@ namespace apex_port {
 namespace unpacked {
 
 constexpr int kTile = 64;          // query rows and keys per tile
-constexpr int kMmaThreads = 128;   // bf16: 4 warps of 16 rows
+constexpr int kMmaThreads = 128;   // bf16 dbias: 4 warps of 16 rows
 constexpr int kThreads = 256;      // fp32: a 16 x 16 thread grid
 constexpr int kLdP = kTile + 1;    // fp32 [row][64] tile row (floats)
 
@@ -67,6 +71,11 @@ struct Problem {
   float scale;
   const int* __restrict__ seg;      // segment attention: ids, else null
   const int2* __restrict__ ranges;  // (min, max) id of each 32-token tile
+  // segment attention on the pipes: each 64-token tile's (lo, hi, cq, ck)
+  // (`seg_tiles_kernel`), and the units' order (`seg_order_kernel`: the
+  // query tiles, then the key tiles)
+  const int4* __restrict__ tiles;
+  const int* __restrict__ order;
 };
 
 // -inf, the score of a masked key
@@ -124,43 +133,27 @@ __device__ __forceinline__ float masked_score(const Problem& pb, int len,
 
 // Rows [r0, r0 + kRows) of a (S, HD) bf16 matrix (row stride rs) into
 // shared memory: dst (row-major, row stride ld) gets bf16(x * mul) (mul 1
-// copies), dst_t, if not null, the unscaled transpose (row stride ld_t);
-// rows at or past S are 0. Lanes walk columns when only dst is written
-// (16-byte loads, a row's bytes together) and rows when dst_t is (so the
-// transposed 2-byte stores of a warp hit consecutive addresses).
+// copies); rows at or past S are 0. Lanes walk columns (16-byte loads, a
+// row's bytes together).
 template <int HD, int kRows>
 __device__ __forceinline__ void stage_bf16(bf16* __restrict__ dst, int ld,
-                                           bf16* __restrict__ dst_t, int ld_t,
                                            const bf16* __restrict__ src,
                                            int64_t rs, int r0, int S,
                                            float mul, int nthreads) {
   constexpr int kChunks = HD / 8;
   for (int idx = threadIdx.x; idx < kRows * kChunks; idx += nthreads) {
-    int r, c;
-    if (dst_t != nullptr) {
-      r = idx % kRows;
-      c = (idx / kRows) * 8;
-    } else {
-      r = idx / kChunks;
-      c = (idx % kChunks) * 8;
-    }
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * 8;
     const int row = r0 + r;
     uint4 raw = make_uint4(0u, 0u, 0u, 0u);
     if (row < S) raw = *reinterpret_cast<const uint4*>(src + row * rs + c);
-    if (dst_t != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+    if (mul != 1.f) {
+      bf16* e = reinterpret_cast<bf16*>(&raw);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) dst_t[(c + i) * ld_t + r] = e[i];
+      for (int i = 0; i < 8; ++i)
+        e[i] = __float2bfloat16(__bfloat162float(e[i]) * mul);
     }
-    if (dst != nullptr) {
-      if (mul != 1.f) {
-        bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          e[i] = __float2bfloat16(__bfloat162float(e[i]) * mul);
-      }
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = raw;
-    }
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = raw;
   }
 }
 
@@ -280,6 +273,96 @@ __device__ __forceinline__ bool ranges_meet(int2 a, int2 b) {
   return a.x <= b.y && a.y >= b.x;
 }
 
+// Whether a tile pair needs no segment test: both tiles hold one id, the
+// same (a diagonal or ragged tile still needs the other tests)
+__device__ __forceinline__ bool one_segment(int2 a, int2 b) {
+  return a.x == a.y && b.x == b.y && a.x == b.x;
+}
+
+// One warp a 64-token tile t of the stream: tiles[t] = (lo, hi, cq, ck),
+// lo and hi the first and the last tile whose id range meets t's (32
+// candidates at a time, one a lane, by a ballot), cq and ck the tiles a
+// pipe unit of t walks as a query tile ([lo, t] when causal, else [lo,
+// hi]) and as a key tile ([t, hi] when causal, else [lo, hi]). With sorted
+// ids every tile of [lo, hi] meets t's.
+__global__ void seg_tiles_kernel(Problem pb, int4* __restrict__ tiles) {
+  const int nt = (pb.Sq + kTile - 1) / kTile;
+  const int t = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (t >= nt) return;
+  const int2 r = tile_range(pb, t * kTile, kTile);
+  int lo = nt, hi = -1;
+  for (int base = 0; base < nt; base += 32) {
+    const int u = base + lane;
+    const unsigned bal = __ballot_sync(
+        kFullMask,
+        u < nt && ranges_meet(r, tile_range(pb, u * kTile, kTile)));
+    if (bal != 0u) {
+      lo = min(lo, base + __ffs(bal) - 1);
+      hi = base + 31 - __clz(bal);
+    }
+  }
+  if (lane == 0)
+    tiles[t] = make_int4(lo, hi, (pb.causal ? t : hi) - lo + 1,
+                         hi - (pb.causal ? t : lo) + 1);
+}
+
+// order[0, nt): the query tiles by the length of their walk, longest
+// first (ties: the later tile first, as the index order counts query tiles
+// down); order[nt, 2 nt): the key tiles likewise (ties: the earlier tile
+// first). One warp a tile t: its lanes count the tiles that rank before
+// t, 32 at a time, then the warp sums the counts.
+__global__ void seg_order_kernel(const int4* __restrict__ tiles, int nt,
+                                 int* __restrict__ order) {
+  const int t = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (t >= nt) return;
+  const int4 me = tiles[t];
+  int rq = 0, rk = 0;
+  for (int u = lane; u < nt; u += 32) {
+    const int4 c = tiles[u];
+    rq += c.z > me.z || (c.z == me.z && u > t);
+    rk += c.w > me.w || (c.w == me.w && u < t);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    rq += __shfl_xor_sync(kFullMask, rq, o);
+    rk += __shfl_xor_sync(kFullMask, rk, o);
+  }
+  if (lane == 0) {
+    order[rq] = t;
+    order[nt + rk] = t;
+  }
+}
+
+// Points pb's segment tables into ws, an int32 workspace of a stream of
+// Sq tokens: the tiles' (lo, hi, cq, ck) (4 words a 64-token tile), the
+// order (2 a tile) and the ranges (2 a 32-token tile), in that order. The
+// fp32 bodies read only the ranges.
+inline void seg_workspace(Problem& pb, void* ws) {
+  const int nt = (pb.Sq + kTile - 1) / kTile;
+  int* w = static_cast<int*>(ws);
+  pb.tiles = reinterpret_cast<const int4*>(w);
+  pb.order = w + 4 * nt;
+  pb.ranges = reinterpret_cast<const int2*>(w + 6 * nt);
+}
+
+// The pipes' segment pre-passes into the tables seg_workspace set: the
+// ranges, the tiles, then the order.
+inline int launch_seg_tiles(const Problem& pb, cudaStream_t stream) {
+  int rc = launch_seg_ranges(pb.seg, pb.Sq, const_cast<int2*>(pb.ranges),
+                             stream);
+  const int nt = (pb.Sq + kTile - 1) / kTile;
+  if (rc != 0 || nt == 0) return rc;
+  seg_tiles_kernel<<<(nt + 7) / 8, 256, 0, stream>>>(
+      pb, const_cast<int4*>(pb.tiles));
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  seg_order_kernel<<<(nt + 7) / 8, 256, 0, stream>>>(
+      pb.tiles, nt, const_cast<int*>(pb.order));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The segment id of token `i` (-1 past the stream, where every score is
 // masked by its index anyway).
 __device__ __forceinline__ int seg_id(const Problem& pb, int i) {
@@ -365,6 +448,8 @@ inline Problem make_problem(int B, int H, int Sq, int Sk, int causal,
   pb.scale = scale;
   pb.seg = nullptr;
   pb.ranges = nullptr;
+  pb.tiles = nullptr;
+  pb.order = nullptr;
   return pb;
 }
 

@@ -33,8 +33,8 @@ extern "C" int flash_unpacked_fwd(const void* q, const void* k, const void* v,
   if (dtype == kBFloat16) {
     const Strides sts[4] = {strides_at(st, 0), strides_at(st, 1),
                             strides_at(st, 2), strides_at(st, 3)};
-    rc = launch_pipe_fwd(hd, q, k, v, o, lse, sts, pb, splits, split_tiles,
-                         ws, s);
+    rc = launch_pipe_fwd_hd(hd, q, k, v, o, lse, sts, pb, splits,
+                            split_tiles, ws, s);
   } else {
     if (!grid_ok(pb)) return static_cast<int>(cudaErrorInvalidValue);
     rc = launch_fwd<false>(q, k, v, o, lse, st, pb, hd, dtype, s);

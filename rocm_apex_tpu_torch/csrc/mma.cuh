@@ -1,6 +1,6 @@
-// Tensor-core helpers of the bf16 flash-attention kernels: the
-// mma.sync m16n8k16 product (bf16 in, fp32 accumulate), bf16 packing,
-// the fragment loaders and the C-to-A handover of a computed operand.
+// Tensor-core helpers of the mma.sync kernels (the bias gradient,
+// flash_dbias.cu, and bottleneck.cuh's staged core): the m16n8k16 product
+// (bf16 in, fp32 accumulate), bf16 packing and the fragment loaders.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major) a0: (g, 2t..2t+1)  a1: (g+8, 2t..)
@@ -9,14 +9,7 @@
 //   C (16 x 8)             c0,c1: (g, 2t..2t+1)   c2,c3: (g+8, 2t..)
 // Each 32-bit register holds two bf16, the lower column in the low half.
 // So an operand whose k runs along a shared-memory row is read with
-// ldmatrix (non-transposed), and a C tile of one product is, register
-// for register, the A tile of the next (the probabilities never leave
-// registers).
-//
-// A product whose A operand is computed (the probabilities p, the score
-// gradients ds) rounds it to bf16 once, as every JAX attention kernel
-// rounds it (`p.astype(v.dtype)`, `ds.astype(q.dtype)`); the loaded
-// operands (q, k, v, do) are bf16 already.
+// ldmatrix (non-transposed).
 #pragma once
 
 #include "common.cuh"
@@ -68,18 +61,6 @@ __device__ __forceinline__ void load_b2(uint32_t (&b)[4], const bf16* m,
   const int lane = threadIdx.x & 31;
   const int mi = lane >> 3;
   ldsm_x4(b, m + (n0 + (mi >> 1) * 8 + (lane & 7)) * ld + c0 + (mi & 1) * 8);
-}
-
-// The A fragments of a 16 x 16 block held as two C tiles, c0 for columns
-// 0..7 and c1 for columns 8..15, each value rounded to bf16 (the FA2
-// register reuse).
-__device__ __forceinline__ void c_to_a(const float (&c0)[4],
-                                       const float (&c1)[4],
-                                       uint32_t (&a)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 }  // namespace apex_port

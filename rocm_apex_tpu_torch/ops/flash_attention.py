@@ -36,8 +36,8 @@ products accumulate in fp32 and l sums the unrounded, undropped p. Every
 kernel and plain version here does the same. In a forward p is formed
 against the running max after each key tile, so o depends on the tiling:
 a plain version rounds p in the frame of the kernel it stands for
-(``frame``, `_frame_max`: 64 keys in the flash pipes and the mma.sync
-bodies, 32 in the decode reads and the serving segment read), and JAX's
+(``frame``, `_frame_max`: 64 keys in the flash pipes, 32 in the decode
+reads and the serving segment read), and JAX's
 ``block_k`` set to that frame gives the same o. The backward forms p
 from the final lse and has no frame. In fp32 the rounding is the
 identity.

@@ -20,13 +20,12 @@ scale * log2(e) rounded in q's dtype, then the fp32 product with k.
 Forward only.
 
 **Training** (``flash_attention_segments``, the JAX function with its
-custom vjp, :342-486; contrib/fmha's packed path). Two kernels on the
-unpacked flash kernels' bodies (``csrc/flash_unpacked_{fwd,bwd}.cuh``
-with segment masking): the forward (``csrc/flash_segments_fwd.cu``)
-replaces ``_seg_fwd_kernel`` as ``_seg_fwd`` (:247) runs it, the backward
-(``csrc/flash_segments_bwd.cu``, a dq pass and a dk/dv pass) replaces
-``_seg_dq_kernel`` (:173) and ``_seg_dkv_kernel`` (:120) as ``_seg_bwd``
-(:281) runs them. All three passes form the score of ``_masked_scores``
+custom vjp, :342-486; contrib/fmha's packed path). The forward
+(``csrc/flash_segments_fwd.cu``) replaces ``_seg_fwd_kernel`` as
+``_seg_fwd`` (:247) runs it, the backward (``csrc/flash_segments_bwd.cu``,
+a dq pass and a dk/dv pass) replaces ``_seg_dq_kernel`` (:173) and
+``_seg_dkv_kernel`` (:120) as ``_seg_bwd`` (:281) runs them. All three
+passes form the score of ``_masked_scores``
 (rocm_apex_tpu/ops/flash_attention.py:122): q times scale * log2(e)
 rounded in q's dtype, an fp32 product, another segment's key or a later
 key under ``causal`` masked, the running max from -1e30; the backward
@@ -37,8 +36,11 @@ if the tiles' [min, max] id ranges meet (``_overlap``, :61) and the causal
 triangle keeps it, so the work follows the sum of squared lengths. A
 range test never skips a live pair, so ids in any order are exact. Tokens
 past the stream in a ragged last tile add exactly 0 (nothing is padded).
-bf16 runs the products on the tensor cores (mma.sync), fp32 on the CUDA
-cores; head_dim 64 or 128 (others raise on CUDA).
+bf16 runs on the wgmma pipes of the flash kernels
+(``csrc/flash_fwd_pipe.cuh``, ``csrc/flash_bwd_pipe.cuh``) with their
+segment flag, planned by `flash_segments_plan`; fp32 on the CUDA-core
+bodies of ``csrc/flash_unpacked_{fwd,bwd}.cuh``; head_dim 64 or 128
+(others raise on CUDA).
 
 `flash_attention_chunk_paged` (port of the JAX function of that name) is
 the chunked-prefill read against a paged cache: the serving kernel within
@@ -54,7 +56,9 @@ import torch
 
 from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
 from rocm_apex_tpu_torch.ops.flash_attention import (
+    _FWD_TILE,
     _SPAN_TILE,
+    _UNPACKED_HEAD_DIMS,
     _aligned,
     _q_mul,
     _strides,
@@ -76,6 +80,8 @@ __all__ = [
     "flash_attention_segments_plain",
     "flash_attention_segments_bwd_plain",
     "flash_attention_chunk_paged",
+    "flash_segments_plan",
+    "flash_segments_tables_plain",
     "merge_by_lse",
 ]
 
@@ -83,6 +89,11 @@ DEFAULT_BLOCK = 512  # the JAX default of block_q and block_k
 # the keys a step of the serving read's warp walk (csrc/attention_row.cuh,
 # the decode reads' tile too), the frame its p is rounded in
 SERVE_FRAME = _SPAN_TILE
+# the tokens of a segment range (csrc/flash_unpacked.cuh kRangeRows), and
+# the most 64-token tiles the bf16 kernels take: their grids carry the tiles
+# on y
+_RANGE_ROWS = 32
+_SEG_PIPE_TILES = 65535
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -208,9 +219,87 @@ def _seg_check(q, k, v, segment_ids):
     return segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
 
 
-def _ranges(total, device):
-    """The kernels' workspace: the (min, max) id of each 32-token tile."""
-    return torch.empty((2 * ((total + 31) // 32),), dtype=torch.int32,
+def flash_segments_plan(h: int, total: int, hd: int,
+                        dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The training segment kernels' route, grids and buffers, from the
+    shape alone.
+
+    ``route``: ``"wgmma"`` for bf16 (the forward and backward pipes,
+    ``csrc/flash_fwd_pipe.cuh`` and ``csrc/flash_bwd_pipe.cuh``, with
+    their segment flag) and ``"cuda_cores"`` for fp32 (the bodies of
+    ``csrc/flash_unpacked_{fwd,bwd}.cuh``); head_dim 64 or 128, any other
+    raises. ``splits`` is 1: the key tiles of a query tile are set by the
+    ids, which a plan does not read, so the forward has no key split and
+    p keeps the unsplit 64-key frame. Each pass is a grid of (head,
+    64-token tile) units, ``tiles`` a head: (h, tiles) on the pipes, in the
+    order of the device's pre-pass (the longest walk first), so at most
+    `_SEG_PIPE_TILES` tiles (a longer bf16 stream raises), and (tiles, h)
+    on the CUDA cores. ``stats``: the fp32 scratch the dq pass hands the
+    dk/dv pass, (h, 64 tiles, 2) pairs of (lse log2 e, delta) on the pipe,
+    delta alone, (h, total), on the CUDA cores. ``workspace``: the int32
+    words of the segment tables, `flash_segments_tables_plain`'s."""
+    if hd not in _UNPACKED_HEAD_DIMS:
+        raise ValueError(f"the segment attention kernels take head_dim in "
+                         f"{_UNPACKED_HEAD_DIMS}, got {hd}")
+    tiles = -(-total // _FWD_TILE)
+    workspace = 6 * tiles + 2 * -(-total // _RANGE_ROWS)
+    if dtype != torch.bfloat16:
+        return dict(route="cuda_cores", rows=_FWD_TILE, splits=1,
+                    tiles=tiles, grid=(tiles, h), stats=(h, total),
+                    workspace=workspace)
+    if tiles > _SEG_PIPE_TILES:
+        raise ValueError(
+            f"the bf16 segment kernels take at most {_SEG_PIPE_TILES} "
+            f"tiles of {_FWD_TILE} tokens (a grid's y), got {tiles} "
+            f"({total} tokens)")
+    return dict(route="wgmma", rows=_FWD_TILE, splits=1, tiles=tiles,
+                grid=(h, tiles), stats=(h, tiles * _FWD_TILE, 2),
+                workspace=workspace)
+
+
+def flash_segments_tables_plain(segment_ids: torch.Tensor,
+                                causal: bool) -> torch.Tensor:
+    """The plain version of the segment pre-passes (csrc/flash_unpacked.cuh
+    `seg_ranges_kernel`, `seg_tiles_kernel`, `seg_order_kernel`): the
+    int32 workspace words they write, in `flash_segments_plan`'s layout.
+    First each 64-token tile t's (lo, hi, cq, ck): lo and hi the first and
+    the last tile whose [min, max] id range meets t's, cq and ck the tiles
+    a pipe unit of t walks as a query tile ([lo, t] when causal, else [lo,
+    hi]) and as a key tile ([t, hi], else [lo, hi]). Then the units' order:
+    the query tiles by cq, longest first (ties: the later tile first, as
+    the pipes' index order counts query tiles down), then the key tiles by
+    ck (ties: the earlier tile first). Last the (min, max) id of each 32
+    tokens (the last of them over the tokens there are)."""
+    seg = segment_ids.to(device="cpu", dtype=torch.int64).flatten()
+    total = seg.numel()
+    if total == 0:
+        return torch.zeros((0,), dtype=torch.int32)
+    n32, nt = -(-total // _RANGE_ROWS), -(-total // _FWD_TILE)
+    pad = n32 * _RANGE_ROWS - total
+    lo32 = torch.cat([seg, seg.new_full((pad,), 2 ** 40)])
+    hi32 = torch.cat([seg, seg.new_full((pad,), -2 ** 40)])
+    lo32, hi32 = lo32.view(n32, _RANGE_ROWS), hi32.view(n32, _RANGE_ROWS)
+    ranges = torch.stack([lo32.amin(1), hi32.amax(1)], dim=1)
+    per = _FWD_TILE // _RANGE_ROWS
+    pad = nt * per - n32
+    rlo = torch.cat([ranges[:, 0], ranges.new_full((pad,), 2 ** 40)])
+    rhi = torch.cat([ranges[:, 1], ranges.new_full((pad,), -2 ** 40)])
+    rlo, rhi = rlo.view(nt, per).amin(1), rhi.view(nt, per).amax(1)
+    meet = (rlo[:, None] <= rhi[None, :]) & (rhi[:, None] >= rlo[None, :])
+    t = torch.arange(nt)
+    lo = meet.int().argmax(1)
+    hi = nt - 1 - meet.flip(1).int().argmax(1)
+    cq = (t if causal else hi) - lo + 1
+    ck = hi - (t if causal else lo) + 1
+    down = t.flip(0)
+    order_q = down[torch.sort(-cq[down], stable=True).indices]
+    order_k = torch.sort(-ck, stable=True).indices
+    return torch.cat([torch.stack([lo, hi, cq, ck], dim=1).flatten(),
+                      order_q, order_k, ranges.flatten()]).to(torch.int32)
+
+
+def _seg_workspace(plan, device):
+    return torch.empty((plan["workspace"],), dtype=torch.int32,
                        device=device)
 
 
@@ -223,6 +312,7 @@ def _seg_fwd(q, k, v, segment_ids, causal, scale, token_major=False):
     h, total, d = q.shape
     if q.device.type == "cpu":
         return flash_attention_segments_plain(q, k, v, seg, causal, scale)
+    plan = flash_segments_plan(h, total, d, q.dtype)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     if token_major:
         o = torch.empty((total, h, d), dtype=q.dtype,
@@ -234,9 +324,9 @@ def _seg_fwd(q, k, v, segment_ids, causal, scale, token_major=False):
         FLASH_SEGMENTS_FWD(
             ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse),
             _strides(q[None], k[None], v[None], o[None]), ptr(seg),
-            ptr(_ranges(total, q.device)), h, total, d, int(bool(causal)),
-            _q_mul(scale, q.dtype), float(scale), dtype_code(q.dtype),
-            stream_ptr(q.device),
+            ptr(_seg_workspace(plan, q.device)), h, total, d,
+            int(bool(causal)), _q_mul(scale, q.dtype), float(scale),
+            dtype_code(q.dtype), stream_ptr(q.device),
         )
     return o, lse
 
@@ -258,17 +348,18 @@ def _seg_bwd(q, k, v, segment_ids, o, lse, do, causal, scale, dqkv=None):
         for out, g in zip((dq, dk, dv), grads):
             out.copy_(g)
         return dq, dk, dv
+    plan = flash_segments_plan(h, total, d, q.dtype)
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do.to(q.dtype)))
     if dqkv is None:
         dq, dk, dv = (torch.empty((h, total, d), dtype=q.dtype,
                                   device=q.device) for _ in range(3))
-    delta = torch.empty((h, total), dtype=torch.float32, device=q.device)
+    stats = torch.empty(plan["stats"], dtype=torch.float32, device=q.device)
     if total * h > 0:
         FLASH_SEGMENTS_BWD(
             ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse.contiguous()), ptr(do),
-            ptr(dq), ptr(dk), ptr(dv), ptr(delta),
+            ptr(dq), ptr(dk), ptr(dv), ptr(stats),
             _strides(*(t[None] for t in (q, k, v, o, do, dq, dk, dv))),
-            ptr(seg), ptr(_ranges(total, q.device)), h, total, d,
+            ptr(seg), ptr(_seg_workspace(plan, q.device)), h, total, d,
             int(bool(causal)), _q_mul(scale, q.dtype), float(scale),
             dtype_code(q.dtype), stream_ptr(q.device),
         )

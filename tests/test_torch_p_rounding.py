@@ -12,8 +12,8 @@ what its kernels are held to on the card, do the same.
 
 A forward forms p against the running max after each key block, so its o
 depends on the tiling: JAX's o on its ``block_k``, the port's on its
-kernel's key tile (64 keys in the flash pipes and the mma.sync bodies, 32
-in the decode reads and the serving segment read). Every forward case
+kernel's key tile (64 keys in the flash pipes, 32 in the decode reads
+and the serving segment read). Every forward case
 here runs JAX at the port's frame (for the paged read, a page of 32); the
 last test pins that dependence. The backward forms p from the final lse
 and has no frame: its cases take JAX's o and lse as input.
@@ -37,7 +37,7 @@ from rocm_apex_tpu_torch.ops import flash_attention as fa
 from rocm_apex_tpu_torch.ops import flash_attention_segments as fas
 
 BF16 = torch.bfloat16
-FWD_FRAME = 64  # the flash pipes' and the mma.sync bodies' key tile
+FWD_FRAME = 64  # the flash pipes' key tile
 ROW_FRAME = 32  # the decode reads' and the serving read's key tile
 SHARE = 1e-3    # at most 0.1% of the elements beyond one bf16 step
 
@@ -285,7 +285,7 @@ def test_serving_segment_read_matches_jax_at_the_row_frame(causal):
 @pytest.mark.parametrize("causal", [True, False])
 def test_training_segments_match_jax(causal):
     """Row 3's training forward (`flash_attention_segments_plain`, the
-    mma.sync body's frame of 64) against JAX `_seg_fwd` at block 64, and
+    forward pipe's frame of 64) against JAX `_seg_fwd` at block 64, and
     row 4's backward against JAX `_seg_bwd` on JAX's o and lse."""
     q, k, v, do, seg = _segments(81 + causal)
     scale = 1.0 / math.sqrt(HD)
