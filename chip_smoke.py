@@ -19,8 +19,13 @@ JAX package) through these phases, in order; any failure exits non-zero:
              and the paged decode read bit-equal on the same keys, also
              at a capacity the page size does not divide; the unpacked
              flash forward, backward and dbias at the masked BERT-Large,
-             whole-prompt, ragged and varlen shapes, and the unpacked
-             kernels equal to the packed ones on a projection's views;
+             whole-prompt, ragged and varlen shapes (dbias on its
+             `flash_dbias_plan` route, launched twice for the same bits),
+             and the unpacked kernels equal to the packed ones on a
+             projection's views; the serving segment read at the serve's
+             chunk on its `flash_segments_serve_plan` route (the tile
+             kernel in bf16, the warp-a-row kernel in fp32), launched
+             twice for the same bits, beside the pipe route's kernels;
              the training segment attention forward and backward at
              bench.py's fmha batch, causal and not, at masked BERT-Large
              lengths with head_dim 128, in fp32 and with ids out of
@@ -330,11 +335,11 @@ PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "xentropy", "fused_softmax_parity", "train_fused_softmax",
           "bert_train_masked_fused_softmax", "train_packed_parity",
           "train_packed", "rn50_parity", "rn50_train", "rn50_train_fused")
-SERVE_KERNELS = ("layer_norm_fwd", "flash_attention_segments_with_lse",
+SERVE_KERNELS = ("layer_norm_fwd", "flash_segments_serve",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
 # paged one, float or int8 by the form's pools
-PAGED_SERVE_KERNELS = ("layer_norm_fwd", "flash_attention_segments_with_lse")
+PAGED_SERVE_KERNELS = ("layer_norm_fwd", "flash_segments_serve")
 PAGED_KERNELS = ("flash_attention_decode_paged",
                  "flash_attention_decode_paged_int8")
 
@@ -623,43 +628,67 @@ def chunk_slot_ids(budget, num_slots):
 
 
 def seg_cases(dev):
+    """Row 3's serving read at the serve's chunk (8 heads x 256 tokens x
+    128, causal, 4 slot pieces out of order and pads), bf16 and fp32, each
+    against the plain version of its `flash_segments_serve_plan` route
+    (`flash_attention_segments_plain` at the route's frame; bf16: the tile
+    kernel, fp32: the warp-a-row kernel), on its route by the kernels a profiled call launches
+    (`SEG_SERVE_ROUTE_KERNELS`), launched twice for the same bits. Beside
+    the bf16 case: the pipe route's kernels on the same inputs (the
+    training forward with its pre-passes, `pipe_ms`)."""
     from rocm_apex_tpu_torch.ops import flash_attention_segments as fs
 
     gen = torch.Generator(device=dev).manual_seed(2)
     h, d = SERVE["num_attention_heads"], SERVE["hidden_size"] // 8
+    scale = 1.0 / math.sqrt(d)
     ids_np, _ = chunk_slot_ids(BUDGET, SLOTS)
     seg = torch.from_numpy(ids_np).to(dev)
     mask = (seg[:, None] == seg[None, :]) & torch.ones(
         BUDGET, BUDGET, dtype=torch.bool, device=dev).tril()
     live_pairs = int(mask.sum())
+    kernel_of = {"tiles": fs.FLASH_SEGMENTS_SERVE.name,
+                 "pipe": fs.FLASH_SEGMENTS_FWD.name,
+                 "rows": fs.FLASH_SEGMENTS.name}
     for dt in (torch.bfloat16, torch.float32):
         q, k, v = (x.transpose(0, 1) for x in _qkv(BUDGET, h, d, dt, dev,
                                                    gen))
+        plan = fs.flash_segments_serve_plan(h, BUDGET, d, dt)
+        check(plan["route"] == ("tiles" if dt == torch.bfloat16 else "rows"),
+              f"segments serve {dt}: planned on the {plan['route']} route")
+        what = f"causal ({h}, {BUDGET}, {d}) {str(dt)[6:]}, 4 slots + pads"
 
-        def kern():
+        def kern(q=q, k=k, v=v):
             return fs.flash_attention_segments_with_lse(
                 q, k, v, seg, causal=True)
 
-        def plain():
-            return fs.flash_attention_segments_plain(
-                q, k, v, seg, True, 1.0 / math.sqrt(d), fs.SERVE_FRAME)
+        def plain(q=q, k=k, v=v, plan=plan):
+            return fs.flash_attention_segments_plain(q, k, v, seg, True,
+                                                     scale, plan["frame"])
 
         got, ref = kern(), plain()
-        l1 = fs.flash_attention_segments_plain(
-            q, k, v.abs(), seg, True, 1.0 / math.sqrt(d), fs.SERVE_FRAME)[0]
+        check(_same_bits(got, kern()),
+              f"segments serve {what}: two launches differ")
+        route = check_launches(kern, SEG_SERVE_ROUTE_KERNELS, plan["route"],
+                               f"segments serve {what}")
+        l1 = fs.flash_attention_segments_plain(q, k, v.abs(), seg, True,
+                                               scale, plan["frame"])[0]
         qc, kc, vc = (x.contiguous()[None] for x in (q, k, v))
 
-        def lib():
+        def lib(qc=qc, kc=kc, vc=vc):
             return F.scaled_dot_product_attention(qc, kc, vc,
                                                   attn_mask=mask)
 
+        extra = {}
+        if dt == torch.bfloat16:
+            extra = dict(pipe_ms=lambda q=q, k=k, v=v: fs._seg_fwd(
+                q, k, v, seg, True, scale))
         yield dict(
-            kernel="flash_attention_segments_with_lse",
-            case=f"causal ({h}, {BUDGET}, {d}) {str(dt)[6:]}, 4 slots + pads",
+            kernel=kernel_of[plan["route"]],
+            case=f"{what} [{route}]",
             dtype=dt, cmp=attn_compare(got, ref, [l1, None]), kern=kern,
-            plain=plain,
-            lib=lib, nbytes=nbytes(q, k, v, seg, *got),
-            ops=4 * d * h * live_pairs, headline=dt == torch.bfloat16,
+            plain=plain, lib=lib, nbytes=nbytes(q, k, v, seg, *got),
+            ops=4 * d * h * live_pairs, headline=True, extra_timings=extra,
+            breakdown=dt == torch.bfloat16,
         )
 
 
@@ -785,6 +814,17 @@ UNPACKED_BWD_ROUTE_KERNELS = {
 SEG_FWD_ROUTE_KERNELS = {
     "wgmma": ("fwd_pipe_kernel", "seg_tiles_kernel", "seg_order_kernel"),
     "cuda_cores": ("fwd_f32_kernel",)}
+# the serving segment read's routes (`flash_segments_serve_plan`): bf16 on
+# the tile kernel (csrc/flash_segments_serve.cu) or, past SERVE_TILES_MAX
+# tokens, the training forward's pipe with its pre-passes; fp32 (and bf16
+# at head_dim 32 or 256) on the warp-a-row kernel (csrc/flash_segments.cu)
+SEG_SERVE_ROUTE_KERNELS = {
+    "tiles": ("serve_tiles_kernel",),
+    "pipe": ("fwd_pipe_kernel", "seg_tiles_kernel", "seg_order_kernel"),
+    "rows": ("segments_kernel",)}
+# the bias gradient's routes (csrc/flash_dbias.cu, `flash_dbias_plan`)
+DBIAS_ROUTE_KERNELS = {"wgmma": ("dbias_wgmma_kernel",),
+                       "cuda_cores": ("dbias_f32_kernel",)}
 SEG_BWD_ROUTE_KERNELS = {
     "wgmma": ("bwd_dq_pipe_kernel", "bwd_dkv_pipe_kernel",
               "seg_tiles_kernel", "seg_order_kernel"),
@@ -1903,8 +1943,9 @@ def unpacked_cases(dev):
     the masked step runs it, and without), the whole-prompt prefill's
     causal window (bh 8, S 768), sq != sk ragged (200 x 333, hd 64, bias
     rows nb = 1 and nb = bh, causal and not), varlen with rows shorter
-    than one tile, the dbias kernel (compute_dbias=True) and an lse
-    cotangent. The library yardstick is SDPA with the bias as a float
+    than one tile, the dbias kernel (compute_dbias=True; bf16 at masked
+    BERT with and without dropout 0.1, the dropout form heading row 10)
+    and an lse cotangent. The library yardstick is SDPA with the bias as a float
     mask: forward, forward + backward (and its backward alone, fwd + bwd
     less fwd in the same call), and for dbias forward + backward with a
     mask that needs its gradient. Every forward case is checked against
@@ -1913,7 +1954,9 @@ def unpacked_cases(dev):
     backward case against `flash_unpacked_bwd_plan`'s by the kernels a
     profiled call launches (bf16: the wgmma backward pipe's two passes,
     launched twice for equal bits, the dbias call's too; fp32: the CUDA
-    cores)."""
+    cores), and every dbias call against `flash_dbias_plan`'s
+    (`DBIAS_ROUTE_KERNELS`: bf16 the wgmma ring, fp32 the CUDA cores),
+    launched twice for equal bits."""
     from rocm_apex_tpu_torch.models.bert import bert_extended_attention_mask
     from rocm_apex_tpu_torch.models.gpt import padding_bias
     from rocm_apex_tpu_torch.ops import flash_attention as fa
@@ -1937,6 +1980,8 @@ def unpacked_cases(dev):
          "bert", False, None, 0.1, False, False, True, False),
         ("masked BERT, dbias", (B, H, S, S, D), torch.bfloat16, "bert",
          False, None, 0.0, True, False, True, False),
+        ("masked BERT, dbias, dropout 0.1", (B, H, S, S, D), torch.bfloat16,
+         "bert", False, None, 0.1, True, False, True, False),
         ("whole-prompt causal", (1, 8, 768, 768, 128), torch.bfloat16, None,
          True, None, 0.0, False, False, False, False),
         ("whole-prompt causal", (1, 8, 768, 768, 128), torch.float32, None,
@@ -2154,13 +2199,23 @@ def unpacked_cases(dev):
             except RuntimeError as e:  # no SDPA backend differentiates it
                 log(f"  (SDPA with a mask that needs grad: {e})"[:160])
                 dlib = None
+        dplan = fa.flash_dbias_plan(nb, bh // nb, sq, sk, d, causal, dt)
+        check(dplan["route"] == ("wgmma" if dt == torch.bfloat16
+                                 else "cuda_cores"),
+              f"dbias {label}: planned on the {dplan['route']} route")
+        check(torch.equal(dkern(), dkern()),
+              f"dbias {label}: two launches differ")
+        droute = check_launches(dkern, DBIAS_ROUTE_KERNELS, dplan["route"],
+                                f"dbias {label}")
         yield dict(
-            kernel="flash_dbias", case=label, dtype=dt,
+            kernel="flash_dbias", case=f"{label} [{droute}]", dtype=dt,
             cmp=compare((got,), (ref_db,), [_l1_tol(l1)]), kern=dkern,
             plain=dplain, lib=dlib,
             nbytes=nbytes(q, k, v, bias, lens, lse, do, delta, got),
             ops=4 * d * pairs,
-            headline=dt == torch.bfloat16 and bias_kind == "bert",
+            # the model's shape with its dropout heads row 10
+            headline=(dt == torch.bfloat16 and bias_kind == "bert"
+                      and rate > 0.0),
             iters=5, plain_iters=2,
         )
 
@@ -2295,8 +2350,8 @@ def seg_train_cases(dev):
     Beside each: the bound, the plain time, one PyTorch call (SDPA on a
     jagged nested tensor where it takes the case, else SDPA on the padded
     batch with the length mask; `library` says which) and, for the
-    forward, the serving kernel's time on the same inputs (`row3_ms`, the
-    per-row kernel that `flash_attention_segments_with_lse` launches)."""
+    forward, the serving read's warp-a-row kernel on the same inputs
+    (`row3_ms`, the rows route of `flash_segments_serve_plan`)."""
     from rocm_apex_tpu_torch.ops import flash_attention_segments as fs
 
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -2344,8 +2399,7 @@ def seg_train_cases(dev):
                     q, k, v, seg, causal, scale), q, k, v)
 
         def frow3(q=q, k=k, v=v, seg=seg, causal=causal, scale=scale):
-            return fs.flash_attention_segments_with_lse(q, k, v, seg, causal,
-                                                        scale)
+            return fs._serve_rows(q, k, v, seg, causal, scale)
 
         flib, blib, lib_form = _seg_library(qkv, do, lens, seg, ids, causal,
                                             scale)
@@ -3512,7 +3566,8 @@ def frame_cases(dev):
     the softmax peaks and p's rounding shows, held to its plain version
     (p and ds rounded to bf16 as JAX rounds them, a forward's p against
     the running max after each key tile of the kernel's: 64 keys in the
-    pipes, 32 in the row walks) by the share of
+    pipes and the serving read's tiles, 32 in the decode
+    reads' row walks) by the share of
     elements more than one bf16 step off, at most `FRAME_SHARE`. Beside it
     each forward logs the share against the plain version at another frame
     (twice the kernel's, one span unsplit for the decode reads), which the
@@ -3626,14 +3681,15 @@ def frame_cases(dev):
     # row 4: the training backward (3 sequences, causal)
     ids = torch.from_numpy(chunk_slot_ids(BUDGET, SLOTS)[0]).to(dev)
     qs, ks, vs = (randn(nh, BUDGET, hd, wide=w) for w in (2.5, 1, 1))
-    yield case("flash_attention_segments_with_lse", f"({nh}, {BUDGET}, {hd})"
-               " chunk, causal, frame 32",
+    plan = fs.flash_segments_serve_plan(nh, BUDGET, hd, bf)
+    yield case(fs.FLASH_SEGMENTS_SERVE.name, f"({nh}, {BUDGET}, {hd}) chunk, "
+               f"causal, frame {plan['frame']}",
                lambda: fs.flash_attention_segments_with_lse(qs, ks, vs, ids,
                                                             True, scale),
                lambda: fs.flash_attention_segments_plain(
-                   qs, ks, vs, ids, True, scale, fs.SERVE_FRAME),
+                   qs, ks, vs, ids, True, scale, plan["frame"]),
                lambda: fs.flash_attention_segments_plain(
-                   qs, ks, vs, ids, True, scale, 64))
+                   qs, ks, vs, ids, True, scale, 2 * plan["frame"]))
     lens3 = [700, 213, 1135]
     seg = torch.from_numpy(np.repeat(np.arange(3), lens3).astype(
         np.int32)).to(dev)
@@ -4058,6 +4114,9 @@ def run_serve_phase(profile):
     for name in SERVE_KERNELS:
         check(res["launches"][name] > 0,
               f"kernel {name} was not launched on the serving path")
+    check(res["launches"]["flash_attention_segments_with_lse"] == 0,
+          "the bf16 serve's chunks left the tile route "
+          "(`flash_segments_serve_plan`)")
     if profile:
         res["profile"] = profile_window(
             lambda: eng.generate(prompts[:SLOTS], max_new_tokens=16),
@@ -4162,8 +4221,9 @@ def run_serve_whole_phase(profile, chunked_tokens=None):
     check(res["launches"]["flash_attention_decode"] > 0,
           "flash_attention_decode was not launched in the whole-prompt "
           "serve")
-    check(res["launches"]["flash_attention_segments_with_lse"] == 0,
-          "the whole-prompt serve launched the chunk kernel")
+    check(res["launches"]["flash_attention_segments_with_lse"] == 0
+          and res["launches"]["flash_segments_serve"] == 0,
+          "the whole-prompt serve launched a chunk kernel")
     if profile:
         res["profile"] = profile_window(
             lambda: eng.generate(prompts[:SLOTS], max_new_tokens=16),
@@ -4804,7 +4864,8 @@ def run_fmha_phase():
           f"{g_rel:.3g} of its norm")
     for path, want in (("packed", {"flash_segments_fwd": 1,
                                    "flash_segments_bwd": 1,
-                                   "flash_attention_segments_with_lse": 0}),
+                                   "flash_attention_segments_with_lse": 0,
+                                   "flash_segments_serve": 0}),
                        ("padded", {"flash_unpacked_fwd": 1,
                                    "flash_unpacked_bwd": 1,
                                    "flash_segments_fwd": 0,

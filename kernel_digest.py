@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Digests of kernel outputs on seeded inputs, to compare two trees' bits.
 
-    python3 kernel_digest.py [--tree DIR]
+    python3 kernel_digest.py [--tree DIR] [--time]
 
 Imports ``rocm_apex_tpu_torch`` from DIR (default: the directory of this
 script), runs on one CUDA device, on inputs drawn from fixed seeds:
@@ -24,7 +24,10 @@ script), runs on one CUDA device, on inputs drawn from fixed seeds:
 - the training segment attention forward and backward (rows 3 and 4, at
   contrib/fmha's shape, bf16 and fp32), the unpacked backward and bias
   gradient (rows 9b and 10, masked BERT's shape; 9b's dq, dk and dv
-  apart, and again with o = 0, where delta is 0 in any order), and the
+  apart, and again with o = 0, where delta is 0 in any order; row 10 in
+  bf16 with and without dropout, and with a bias row a head (no sum over
+  heads), its products S and dP read back through
+  its output, and dP's count of elements off the fp64 product), and the
   packed backward
   (row 11, the GPT train cell's, bf16 and fp32), each backward on a
   forward's outputs made here by plain torch ops, so that two trees feed
@@ -45,7 +48,10 @@ script), runs on one CUDA device, on inputs drawn from fixed seeds:
 
 and prints one JSON line: the sha256 of each call's outputs. Two trees
 whose lines agree give those kernels the same bits on the same card and
-PyTorch build. It imports nothing of JAX.
+PyTorch build. With ``--time`` the serving segment read (the serve's chunk)
+and the bias gradient (masked BERT, dropout 0.1) are timed too, so
+that two trees run in one call give their times on one card. It imports
+nothing of JAX.
 """
 
 import argparse
@@ -53,6 +59,7 @@ import hashlib
 import json
 import os
 import sys
+import time
 
 import torch
 
@@ -64,6 +71,50 @@ def _digest(outs):
             h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
                      .tobytes())
     return h.hexdigest()[:16]
+
+
+# --time: the calls `_timed` digests are also timed, device time alone:
+# behind a sleep kernel twice as long as the host takes to launch
+# TIME_ITERS calls, so that they run back to back between two CUDA events
+# (chip_smoke.py's `device_ms`); the median of TIME_ROUNDS such means,
+# under "<name> ms"
+TIME = False
+TIME_ITERS, TIME_ROUNDS = 20, 5
+_SLEEP_CYCLES_PER_S = []
+
+
+def _device_ms(call):
+    if not _SLEEP_CYCLES_PER_S:
+        torch.cuda._sleep(1000)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        torch.cuda._sleep(10 ** 7)
+        b.record()
+        b.synchronize()
+        _SLEEP_CYCLES_PER_S.append(1e7 / (a.elapsed_time(b) / 1e3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIME_ITERS):
+        call()
+    torch.cuda.synchronize()
+    launch_s = time.perf_counter() - t0
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(2 * launch_s * _SLEEP_CYCLES_PER_S[0]) + 1000)
+    a.record()
+    for _ in range(TIME_ITERS):
+        call()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / TIME_ITERS
+
+
+def _timed(out, name, call):
+    """out[name] = the digest of call()'s outputs; with --time, also the
+    median device ms of one call."""
+    out[name] = _digest(call())
+    if TIME:
+        ms = sorted(_device_ms(call) for _ in range(TIME_ROUNDS))
+        out[f"{name} ms"] = f"{ms[len(ms) // 2]:.4f}"
 
 
 def _flat(out):
@@ -125,9 +176,36 @@ def _flash_digests(out, fa, fas, dev, gen):
                            fa._unpacked_bwd(*zargs, False)[:3]):
             out[f"unpacked bwd {name} o 0 {str(dt)[6:]}"] = _digest((g,))
         delta = (do.float() * o.float()).sum(-1).reshape(B * H, S)
-        out[f"dbias {str(dt)[6:]}"] = _digest((fa._flash_dbias(
-            q, k, v, bias, lse, do, delta.contiguous(), False, D ** -0.5,
-            None, 0.1, 7),))
+        delta = delta.contiguous()
+        _timed(out, f"dbias {str(dt)[6:]}", lambda: (fa._flash_dbias(
+            q, k, v, bias, lse, do, delta, False, D ** -0.5, None, 0.1,
+            7),))
+        if dt == torch.bfloat16:  # the same without dropout; and with a
+            # bias row a head, where no sum over heads is formed
+            _timed(out, "dbias bfloat16 no dropout", lambda: (
+                fa._flash_dbias(q, k, v, bias, lse, do, delta, False,
+                                D ** -0.5, None, 0.0, 7),))
+            out["dbias bfloat16 no dropout, a bias row a head"] = _digest((
+                fa._flash_dbias(q, k, v, bias.repeat_interleave(H, dim=0),
+                                lse, do, delta, False, D ** -0.5, None, 0.0,
+                                7),))
+    # row 10's products read back, bf16, a bias row a head, no dropout: q
+    # = 0, lse = 0, delta = 0 give ds = dP; do = 0, lse = 0, delta = -1
+    # give ds = exp2(S). dP's elements off the fp64 product rounded to fp32
+    # are counted.
+    q, k, v, do = (rnd(B, H, S, D, dtype=torch.bfloat16) for _ in range(4))
+    zb = torch.zeros(B * H, S, S, device=dev)
+    z = torch.zeros(B * H, S, device=dev)
+    dp = fa._flash_dbias(torch.zeros_like(q), k, v, zb, z, do, z, False,
+                         D ** -0.5, None, 0.0, 7)
+    exact = torch.einsum("bhqd,bhkd->bhqk", do.double(), v.double()).reshape(
+        B * H, S, S).float()
+    out["dbias dP readback bfloat16"] = _digest((dp,))
+    out["dbias dP readback bfloat16, off fp64"] = str(int((dp != exact).sum()))
+    out["dbias S readback bfloat16"] = _digest((fa._flash_dbias(
+        q, k, v, zb, z, torch.zeros_like(do), z - 1.0, False, D ** -0.5,
+        None, 0.0, 7),))
+    del zb, dp, exact
     # row 11: the packed backward at the GPT train cell, bias, dropout 0.1
     B, S, nh, hd = 16, 1024, 8, 128
     for dt in (torch.bfloat16, torch.float32):
@@ -163,8 +241,9 @@ def _fwd_digests(out, fa, fas, dev, gen):
         out[f"decode grid {lab}"] = _digest(fa.flash_attention_decode(
             q, k, v, lens, return_lse=True))
         q, k, v = (rnd(8, 256, 128, dtype=dt, scale=2.0) for _ in range(3))
-        out[f"segments serve {lab}"] = _digest(
-            fas.flash_attention_segments_with_lse(q, k, v, seg, True))
+        _timed(out, f"segments serve {lab}",
+               lambda: fas.flash_attention_segments_with_lse(q, k, v, seg,
+                                                             True))
         qkv = rnd(16, 1024, 8, 384, dtype=dt)
         pbias = rnd(8 * 384, dtype=dt, scale=0.1)
         out[f"packed fwd {lab}"] = _digest(fa._flash_fwd(
@@ -260,7 +339,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(
         os.path.abspath(__file__)))
+    ap.add_argument("--time", action="store_true",
+                    help="also time the serving segment read and the bias "
+                         "gradient (\"<name> ms\")")
     args = ap.parse_args(argv)
+    global TIME
+    TIME = args.time
     sys.path.insert(0, os.path.abspath(args.tree))
     if not torch.cuda.is_available():
         print("kernel_digest: no CUDA device", file=sys.stderr)

@@ -117,6 +117,54 @@ __device__ __forceinline__ void copy_rows(unsigned char* tile,
   }
 }
 
+// The same copy by kN threads (thread `tid` of them; kN a multiple of
+// HD / 8, 128 or 256) with a fixed segment a thread: segment tid % (HD /
+// 8) of rows tid / (HD / 8) + j kN / (HD / 8), so the thread's swizzled
+// offset moves by whole 1024-byte periods and its source by a fixed
+// stride, one predicated cp.async a step
+template <int HD, int kN>
+__device__ __forceinline__ void copy_tile(unsigned char* tile,
+                                          const bf16* __restrict__ src,
+                                          int64_t rs, int r0, int S,
+                                          int tid) {
+  constexpr int kChunks = HD / 8;      // 16-byte segments a row
+  constexpr int kRows = kN / kChunks;  // rows a step, a multiple of 8
+  static_assert(kRows % 8 == 0 && kTile % kRows == 0, "whole periods");
+  const int c = tid % kChunks;
+  const int r = tid / kChunks;
+  const bf16* from = src + static_cast<int64_t>(r0 + r) * rs + c * 8;
+  unsigned char* to = tile + mnmajor_seg(r, c);
+#pragma unroll
+  for (int i = 0; i < kTile / kRows; ++i) {
+    const bool ok = r0 + r + i * kRows < S;
+    cp_async16(to + i * kRows * 128, ok ? from + i * kRows * rs : src, ok);
+  }
+}
+
+// tile <- bf16(tile * mul) in place, by kN threads (thread `tid`)
+template <int HD, int kN>
+__device__ __forceinline__ void fold_tile(unsigned char* tile, float mul,
+                                          int tid) {
+  for (int i = tid; i < PipeCfg<HD>::kTileBytes / 16; i += kN) {
+    uint4* p = reinterpret_cast<uint4*>(tile) + i;
+    uint4 raw = *p;
+    bf16* e = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      e[j] = __float2bfloat16(__bfloat162float(e[j]) * mul);
+    *p = raw;
+  }
+}
+
+// The 1024-byte aligned base of a block's dynamic shared memory, as an
+// offset from the array itself (not through an integer), so that the
+// compiler keeps its accesses in the shared space
+__device__ __forceinline__ unsigned char* smem_base_1024(
+    unsigned char* smem) {
+  const uint32_t at = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return smem + ((1024u - (at & 1023u)) & 1023u);
+}
+
 // q <- bf16(q * q_mul) over the landed q tile, in place
 template <int HD>
 __device__ __forceinline__ void fold_q(unsigned char* tile, float q_mul) {

@@ -50,7 +50,6 @@ namespace apex_port {
 namespace unpacked {
 
 constexpr int kTile = 64;          // query rows and keys per tile
-constexpr int kMmaThreads = 128;   // bf16 dbias: 4 warps of 16 rows
 constexpr int kThreads = 256;      // fp32: a 16 x 16 thread grid
 constexpr int kLdP = kTile + 1;    // fp32 [row][64] tile row (floats)
 
@@ -130,32 +129,6 @@ __device__ __forceinline__ float masked_score(const Problem& pb, int len,
 }
 
 // ---- staging -----------------------------------------------------------
-
-// Rows [r0, r0 + kRows) of a (S, HD) bf16 matrix (row stride rs) into
-// shared memory: dst (row-major, row stride ld) gets bf16(x * mul) (mul 1
-// copies); rows at or past S are 0. Lanes walk columns (16-byte loads, a
-// row's bytes together).
-template <int HD, int kRows>
-__device__ __forceinline__ void stage_bf16(bf16* __restrict__ dst, int ld,
-                                           const bf16* __restrict__ src,
-                                           int64_t rs, int r0, int S,
-                                           float mul, int nthreads) {
-  constexpr int kChunks = HD / 8;
-  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += nthreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const int row = r0 + r;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (row < S) raw = *reinterpret_cast<const uint4*>(src + row * rs + c);
-    if (mul != 1.f) {
-      bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        e[i] = __float2bfloat16(__bfloat162float(e[i]) * mul);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = raw;
-  }
-}
 
 // Rows [r0, r0 + 64) of a (S, HD) fp32 matrix into dst (row stride ld)
 // times `mul` (one fp32 rounding, as the plain version's q * c), 0 past S.

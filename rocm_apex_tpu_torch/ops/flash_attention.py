@@ -163,6 +163,7 @@ __all__ = [
     "flash_bwd_plan",
     "flash_fwd_plan",
     "flash_unpacked_bwd_plan",
+    "flash_dbias_plan",
     "flash_fwd_split_plain",
     "flash_attention_decode",
     "flash_attention_decode_plain",
@@ -1154,6 +1155,50 @@ def flash_fwd_split_plain(q, k, v, bias, causal, scale, splits, split_tiles,
     return (acc / safe[..., None]).to(q.dtype), (mx + torch.log2(safe)) * LN2
 
 
+# the bias gradient's blocks (csrc/flash_dbias.cu `DbiasCfg`, which refuses
+# a plan that differs): the key tiles of a block (a warpgroup each, sharing
+# q and do) and the stages of the heads' q, do, k and v tiles by head_dim
+_DBIAS_KEY_TILES = 2
+_DBIAS_STAGES = {64: 3, 128: 2}
+
+
+def flash_dbias_plan(nb: int, hp: int, sq: int, sk: int, hd: int,
+                     causal: bool, dtype: torch.dtype = torch.bfloat16
+                     ) -> dict:
+    """The bias gradient's route, grid and buffers (csrc/flash_dbias.cu),
+    from the shape alone, for ``nb`` bias rows of ``hp`` heads each.
+
+    ``route``: ``"wgmma"`` for bf16 (a block of ``key_tiles`` = 2
+    warpgroups, a 64 x 64 tile of a bias row each, sharing the query
+    tile's q and do; a ring of ``stages`` sets of the heads' tiles in the
+    128-byte swizzle, two at head_dim 128 and three at 64; S and dP on
+    wgmma) and ``"cuda_cores"`` for fp32 (a block a tile, one head's tiles
+    staged at a time); head_dim 64 or 128, any other raises. ``grid``:
+    (key tiles / key_tiles, query tiles, nb); each tile sums its hp heads
+    in ascending order. ``live`` of a row's (query tile, key tile) pairs
+    run the heads, the rest (wholly past the causal bound) write zeros.
+    ``smem``: a block's dynamic shared memory in bytes."""
+    if hd not in _UNPACKED_HEAD_DIMS:
+        raise ValueError(f"the bias gradient kernels take head_dim in "
+                         f"{_UNPACKED_HEAD_DIMS}, got {hd}")
+    if not 0 < nb <= 65535 or hp < 1:
+        raise ValueError(f"the bias gradient takes 1 to 65535 bias rows of "
+                         f"at least one head, got {nb} x {hp}")
+    nqt, nkt = -(-sq // _FWD_TILE), -(-sk // _FWD_TILE)
+    # causal: query tile qt meets key tiles 0..min(qt, nkt - 1)
+    m = min(nqt, nkt)
+    live = m * (m + 1) // 2 + (nqt - m) * nkt if causal else nqt * nkt
+    if dtype != torch.bfloat16:
+        return dict(route="cuda_cores", grid=(nkt, nqt, nb), key_tiles=1,
+                    live=live, stages=1,
+                    smem=4 * (4 * _FWD_TILE * (hd + 1) + 2 * _FWD_TILE))
+    tile = _FWD_TILE * hd * 2
+    stages = _DBIAS_STAGES[hd]
+    return dict(route="wgmma", grid=(-(-nkt // _DBIAS_KEY_TILES), nqt, nb),
+                key_tiles=_DBIAS_KEY_TILES, live=live, stages=stages,
+                smem=stages * (2 + 2 * _DBIAS_KEY_TILES) * tile + 1024)
+
+
 FLASH_UNPACKED_FWD = Kernel(
     name="flash_unpacked_fwd",
     source="flash_unpacked_fwd.cu",
@@ -1177,7 +1222,7 @@ FLASH_DBIAS = Kernel(
     source="flash_dbias.cu",
     symbol="flash_dbias",
     argtypes=[_P] * 7 + [ctypes.POINTER(_I64), _P, _I, _P] + [_I] * 7
-    + [_U, _U, _F, _F, _I, _P],
+    + [_U, _U, _F, _F, _I, _I, _I, _P],
     replaces="rocm_apex_tpu/ops/flash_attention.py:440 _bwd_dbias_kernel",
 )
 
@@ -1331,19 +1376,22 @@ def _flash_dbias(q, k, v, bias, lse, do, delta, causal, scale, kv_lengths,
                  rate, seed):
     """The dbias kernel on card operands as `_unpacked_bwd` prepares them,
     ``delta`` (B*H, Sq) fp32 = rowsum(do * o) - dlse: the fp32 (nb, Sq,
-    Sk) gradient of the bias."""
+    Sk) gradient of the bias, on `flash_dbias_plan`'s route (the kernel
+    takes the route by dtype and refuses a plan whose key tiles a block
+    or stages are not its own)."""
     B, H, sq, d = q.shape
     nb, sk = bias.shape[0], k.shape[2]
     dbias = torch.empty((nb, sq, sk), dtype=torch.float32, device=q.device)
     if dbias.numel() > 0:
+        plan = flash_dbias_plan(nb, B * H // nb, sq, sk, d, causal, q.dtype)
         FLASH_DBIAS(
             ptr(q), ptr(k), ptr(v), ptr(lse), ptr(do), ptr(delta),
             ptr(dbias), _strides(q, k, v, do), ptr(bias), nb,
             ptr(kv_lengths), B, H, sq, sk, d, int(bool(causal)),
             int(rate > 0.0), int(seed) & 0xFFFFFFFF,
             _dropout.threshold(rate), _dropout.keep_scale(rate),
-            _q_mul(scale, q.dtype), dtype_code(q.dtype),
-            stream_ptr(q.device),
+            _q_mul(scale, q.dtype), dtype_code(q.dtype), plan["key_tiles"],
+            plan["stages"], stream_ptr(q.device),
         )
     return dbias
 

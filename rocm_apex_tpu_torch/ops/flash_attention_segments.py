@@ -7,17 +7,24 @@ with ``causal``, ``j <= i`` in packed order (within-segment causality when
 segments are contiguous).
 
 **Serving** (``flash_attention_segments_with_lse``, port of the JAX
-function of that name). Its kernel (``csrc/flash_segments.cu``) replaces
-the TPU kernel ``_seg_fwd_kernel``
-(rocm_apex_tpu/ops/flash_attention_segments.py:70) on the chunked-prefill
-path. At the serving chunk's size it is bound by launch latency and the
-per-row serial walk over keys, not by bytes or tensor-core work; its skip
-of key tiles that share no segment with a row is exact per row and tile,
-so it holds for segment ids in any order (the engine packs slot pieces in
-scheduler order, pads carry the id num_slots). Its scores are those of
-``_masked_scores`` (rocm_apex_tpu/ops/flash_attention.py:122): q times
-scale * log2(e) rounded in q's dtype, then the fp32 product with k.
-Forward only.
+function of that name), on the chunked-prefill path; it replaces the TPU
+kernel ``_seg_fwd_kernel`` (rocm_apex_tpu/ops/flash_attention_segments.py:
+70) on one of three routes that `flash_segments_serve_plan` names from the
+shape. bf16 at head_dim 64 or 128 up to `SERVE_TILES_MAX` tokens (the
+serve chunk) takes ``"tiles"`` (``csrc/flash_segments_serve.cu``): a block
+a (head, 64-query tile) on the forward pipe's wgmma tile step, its walk of
+key tiles formed in the block from the ids (no pre-pass launch) and
+taken in ascending order, as the JAX kernel takes them.
+A longer bf16 stream takes ``"pipe"``, the training forward below. fp32,
+and bf16 at head_dim 32 or 256, take ``"rows"``
+(``csrc/flash_segments.cu``): a warp a query row walking its keys 32 at a
+time on the CUDA cores. A skip by id ranges never drops a live pair, so
+every route is exact for segment ids in any order (the engine packs slot
+pieces in scheduler order, pads carry the id num_slots). Its scores are
+those of ``_masked_scores`` (rocm_apex_tpu/ops/flash_attention.py:122): q
+times scale * log2(e) rounded in q's dtype, then the fp32 product with k;
+p is rounded to v's dtype in the route's frame (``frame`` keys). Forward
+only.
 
 **Training** (``flash_attention_segments``, the JAX function with its
 custom vjp, :342-486; contrib/fmha's packed path). The forward
@@ -58,6 +65,7 @@ from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
 from rocm_apex_tpu_torch.ops.flash_attention import (
     _FWD_TILE,
     _SPAN_TILE,
+    _SUPPORTED_HEAD_DIMS,
     _UNPACKED_HEAD_DIMS,
     _aligned,
     _q_mul,
@@ -71,24 +79,30 @@ from rocm_apex_tpu_torch.ops.flash_attention import (
 
 __all__ = [
     "FLASH_SEGMENTS",
+    "FLASH_SEGMENTS_SERVE",
     "FLASH_SEGMENTS_FWD",
     "FLASH_SEGMENTS_BWD",
     "DEFAULT_BLOCK",
     "SERVE_FRAME",
+    "SERVE_TILES_MAX",
     "flash_attention_segments",
     "flash_attention_segments_with_lse",
     "flash_attention_segments_plain",
     "flash_attention_segments_bwd_plain",
     "flash_attention_chunk_paged",
     "flash_segments_plan",
+    "flash_segments_serve_plan",
     "flash_segments_tables_plain",
     "merge_by_lse",
 ]
 
 DEFAULT_BLOCK = 512  # the JAX default of block_q and block_k
 # the keys a step of the serving read's warp walk (csrc/attention_row.cuh,
-# the decode reads' tile too), the frame its p is rounded in
+# the decode reads' tile too), the frame its p is rounded in on "rows"
 SERVE_FRAME = _SPAN_TILE
+# the serving read's "tiles" route (csrc/flash_segments_serve.cu): a walk
+# is a 32-bit mask of 64-token tiles, so at most 2048 tokens
+SERVE_TILES_MAX = 32 * _FWD_TILE
 # the tokens of a segment range (csrc/flash_unpacked.cuh kRangeRows), and
 # the most 64-token tiles the bf16 kernels take: their grids carry the tiles
 # on y
@@ -105,6 +119,17 @@ FLASH_SEGMENTS = Kernel(
     argtypes=[_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _P, _I, _I, _I,
               _I, ctypes.c_float, _I, _P, _P, _P],
     replaces="rocm_apex_tpu/ops/flash_attention_segments.py:70 _seg_fwd_kernel",
+)
+
+
+FLASH_SEGMENTS_SERVE = Kernel(
+    name="flash_segments_serve",
+    source="flash_segments_serve.cu",
+    symbol="flash_segments_serve",
+    argtypes=[_P, _P, _P, ctypes.POINTER(_I64), _P, _I, _I, _I, _I,
+              ctypes.c_float, _P, _P, _P],
+    replaces="rocm_apex_tpu/ops/flash_attention_segments.py:70 "
+             "_seg_fwd_kernel (serving, tensor cores)",
 )
 
 
@@ -145,7 +170,8 @@ def flash_attention_segments_plain(q, k, v, segment_ids, causal, scale,
     with the segment mask as a bias, so its scores follow the JAX rule: q
     times scale * log2(e) rounded in q's dtype, then the fp32 product; p
     is rounded to v's dtype in the frame of ``frame``-key tiles (the
-    training kernel's 64 by default; the serving read's is `SERVE_FRAME`)."""
+    training kernel's 64 by default; the serving read's is its route's,
+    `flash_segments_serve_plan`)."""
     return flash_unpacked_fwd_plain(
         q, k, v, _segment_bias(segment_ids, q.device), causal, scale,
         frame=frame)
@@ -163,6 +189,34 @@ def flash_attention_segments_bwd_plain(q, k, v, segment_ids, o, lse, do,
     return dq, dk, dv
 
 
+def flash_segments_serve_plan(h: int, total: int, hd: int,
+                              dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The serving read's route, from the shape alone.
+
+    ``route``: ``"tiles"`` for bf16 at head_dim 64 or 128 up to
+    `SERVE_TILES_MAX` tokens (csrc/flash_segments_serve.cu: a block of one
+    warpgroup a (query tile, head), ``grid``, walking its key tiles in
+    ascending order); ``"pipe"`` for a longer bf16 stream (the training
+    forward, `_seg_fwd`, on the forward pipe with its pre-passes);
+    ``"rows"`` for fp32 and for bf16 at head_dim 32 or 256
+    (csrc/flash_segments.cu, a warp a query row). Any other head_dim
+    raises. ``frame``: the keys a tile step rounds p over, 64 on the tiles
+    and the pipe, `SERVE_FRAME` on the rows; the route's plain version is
+    `flash_attention_segments_plain` at that frame."""
+    if hd not in _SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"the serving segment read takes head_dim in "
+                         f"{_SUPPORTED_HEAD_DIMS}, got {hd}")
+    tiles = -(-total // _FWD_TILE)
+    if dtype == torch.bfloat16 and hd in _UNPACKED_HEAD_DIMS:
+        if total <= SERVE_TILES_MAX:
+            return dict(route="tiles", frame=_FWD_TILE, tiles=tiles,
+                        grid=(tiles, h))
+        return dict(route="pipe", frame=_FWD_TILE, tiles=tiles,
+                    grid=flash_segments_plan(h, total, hd, dtype)["grid"])
+    return dict(route="rows", frame=SERVE_FRAME, tiles=tiles,
+                grid=(-(-h * total // 4),))
+
+
 def flash_attention_segments_with_lse(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -173,7 +227,10 @@ def flash_attention_segments_with_lse(
 ):
     """Packed attention over (heads, total, head_dim) q/k/v with
     (total,) int32 segment ids; returns ``(o, lse)``: o (heads, total,
-    head_dim) in q's dtype, lse (heads, total) natural-log fp32."""
+    head_dim) in q's dtype, lse (heads, total) natural-log fp32. On CUDA
+    the kernel of `flash_segments_serve_plan`'s route; on the CPU the
+    plain version of that route (of the rows' frame at a head_dim no
+    route takes)."""
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError("q/k/v must all be (heads, total, head_dim)")
     h, total, d = q.shape
@@ -181,8 +238,10 @@ def flash_attention_segments_with_lse(
     if segment_ids.shape != (total,):
         raise ValueError(f"segment_ids must be ({total},)")
     if q.device.type == "cpu":
+        frame = (flash_segments_serve_plan(h, total, d, q.dtype)["frame"]
+                 if d in _SUPPORTED_HEAD_DIMS else SERVE_FRAME)
         return flash_attention_segments_plain(q, k, v, segment_ids, causal,
-                                              scale, SERVE_FRAME)
+                                              scale, frame)
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -193,6 +252,18 @@ def flash_attention_segments_with_lse(
     if segment_ids.dtype != torch.int32 or not segment_ids.is_contiguous():
         raise TypeError("segment_ids must be contiguous int32")
     check_head_dim(q, k, v)
+    plan = flash_segments_serve_plan(h, total, d, q.dtype)
+    if plan["route"] == "pipe":
+        return _seg_fwd(q, k, v, segment_ids, causal, scale)
+    if plan["route"] == "tiles":
+        return _serve_tiles(q, k, v, segment_ids, causal, scale)
+    return _serve_rows(q, k, v, segment_ids, causal, scale)
+
+
+def _serve_rows(q, k, v, segment_ids, causal, scale):
+    """The "rows" route's kernel on card operands (chip_smoke.py also
+    times it on the other routes' inputs)."""
+    h, total, d = q.shape
     o = torch.empty((h, total, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((h, total), dtype=torch.float32, device=q.device)
     if h * total > 0:
@@ -201,6 +272,23 @@ def flash_attention_segments_with_lse(
             k.stride(1), ptr(v), v.stride(0), v.stride(1), ptr(segment_ids),
             h, total, d, int(bool(causal)), _q_mul(scale, q.dtype),
             dtype_code(q.dtype), ptr(o), ptr(lse), stream_ptr(q.device),
+        )
+    return o, lse
+
+
+def _serve_tiles(q, k, v, segment_ids, causal, scale):
+    """The "tiles" route's kernel on card operands."""
+    h, total, d = q.shape
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    o = torch.empty((h, total, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((h, total), dtype=torch.float32, device=q.device)
+    if h * total > 0:
+        st = (_I64 * 6)(q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                        v.stride(0), v.stride(1))
+        FLASH_SEGMENTS_SERVE(
+            ptr(q), ptr(k), ptr(v), st, ptr(segment_ids), h, total, d,
+            int(bool(causal)), _q_mul(scale, q.dtype), ptr(o), ptr(lse),
+            stream_ptr(q.device),
         )
     return o, lse
 

@@ -258,24 +258,39 @@ def test_paged_decode_matches_jax_at_a_page_of_32(quantized):
 SEG_LENS = (150, 41, 129)
 
 
-def _segments(seed):
+def _segments(seed, lens=SEG_LENS, hd=HD):
     rng = np.random.default_rng(seed)
-    total = sum(SEG_LENS)
-    seg = torch.from_numpy(np.repeat(np.arange(len(SEG_LENS)),
-                                     SEG_LENS).astype(np.int32))
-    q, k, v, do = (_bf16(rng, HEADS, total, HD) for _ in range(4))
+    total = sum(lens)
+    seg = torch.from_numpy(np.repeat(np.arange(len(lens)),
+                                     lens).astype(np.int32))
+    q, k, v, do = (_bf16(rng, HEADS, total, hd) for _ in range(4))
     return q, k, v, do, seg
 
 
+# the (segment lengths, head_dim) of a bf16 stream that
+# `flash_segments_serve_plan` puts on each route
+SERVE_ROUTES = {"rows": (SEG_LENS, 32), "tiles": (SEG_LENS, HD),
+                "pipe": ((1500, 41, 529), 64)}
+
+
+@pytest.mark.parametrize("route", sorted(SERVE_ROUTES))
 @pytest.mark.parametrize("causal", [True, False])
-def test_serving_segment_read_matches_jax_at_the_row_frame(causal):
+def test_serving_segment_read_matches_jax_at_the_row_frame(causal, route):
     """Row 3's serving read (`flash_attention_segments_with_lse` on the
-    CPU) against the JAX function at block_k 32."""
-    q, k, v, _, seg = _segments(71 + causal)
-    scale = 1.0 / math.sqrt(HD)
+    CPU) on a stream of each route of its plan against the JAX function
+    at block_q = block_k = that route's frame: 32 keys on the rows, 64 on
+    the tiles and the pipe, which walk the key tiles in JAX's ascending
+    order."""
+    lens, hd = SERVE_ROUTES[route]
+    q, k, v, _, seg = _segments(71 + causal, lens, hd)
+    scale = 1.0 / math.sqrt(hd)
+    plan = fas.flash_segments_serve_plan(HEADS, seg.numel(), hd, BF16)
+    assert plan["route"] == route
+    frame = plan["frame"]
+    assert frame == (ROW_FRAME if route == "rows" else FWD_FRAME)
     jo, jlse = jfs.flash_attention_segments_with_lse(
         _j(q), _j(k), _j(v), jnp.asarray(seg.numpy()), causal, scale,
-        block_q=ROW_FRAME, block_k=ROW_FRAME)
+        block_q=frame, block_k=frame)
     o, lse = fas.flash_attention_segments_with_lse(q, k, v, seg, causal,
                                                    scale)
     _close(o, _t(jo), "o")

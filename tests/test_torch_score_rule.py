@@ -23,10 +23,10 @@ evaluation on the pre-rounded q. o is held to JAX's o within one bf16
 step: both round p to bf16 before p @ v against the running max after
 each key block, so the port's plain version runs at JAX's block_k (its
 ``frame``; JAX at the packed cases' blocks, the decode read at block_k
-32, the paged read's page of 16, the serving read at block 32). The
-packed backward's dqkv is held to fp32 autograd of the evaluation, with
-ds and p rounded to bf16 where JAX's backward kernels round them (the
-tolerances are stated at `GRAD_FLOORS`).
+32, the paged read's page of 16, the serving read at its route's frame
+of 32 or 64 keys). The packed backward's dqkv is held to fp32 autograd
+of the evaluation, with ds and p rounded to bf16 where JAX's backward
+kernels round them (the tolerances are stated at `GRAD_FLOORS`).
 """
 
 import math
@@ -327,20 +327,30 @@ def test_paged_decode_lse_matches_jax(quantized):
                    np.asarray(jlse).reshape(SLOTS, HEADS), rlse, live)
 
 
+# the (segment lengths, head_dim) of a bf16 chunk that
+# `flash_segments_serve_plan` puts on each route
+SERVE_ROUTES = {"rows": ([50, 7, 71], 32), "tiles": ([50, 7, 71], DHEAD),
+                "pipe": ([1100, 7, 971], 64)}
+
+
+@pytest.mark.parametrize("route", sorted(SERVE_ROUTES))
 @pytest.mark.parametrize("causal", [True, False])
-def test_serving_segment_read_lse_matches_jax(causal):
+def test_serving_segment_read_lse_matches_jax(causal, route):
     """Row 3's serving read (`flash_attention_segments_with_lse`) over a
-    packed chunk of three sequences against the JAX function, at block
-    32, the serving read's frame."""
+    packed chunk of three sequences, on each route of its plan, against
+    the JAX function at block_q = block_k = the route's frame (32 keys on
+    the rows, 64 on the tiles and the pipe)."""
     rng = np.random.default_rng(8 + causal)
-    lens = [50, 7, 71]
+    lens, d = SERVE_ROUTES[route]
     total = sum(lens)
     seg = torch.from_numpy(np.repeat(np.arange(3), lens).astype(np.int32))
-    q, k, v = (_bf16(rng, HEADS, total, DHEAD) for _ in range(3))
-    scale = 1.0 / math.sqrt(DHEAD)
+    q, k, v = (_bf16(rng, HEADS, total, d) for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    plan = fas.flash_segments_serve_plan(HEADS, total, d, BF16)
+    assert plan["route"] == route
     jo, jlse = jfs.flash_attention_segments_with_lse(
         _j(q), _j(k), _j(v), jnp.asarray(seg.numpy()), causal, scale,
-        block_q=fas.SERVE_FRAME, block_k=fas.SERVE_FRAME)
+        block_q=plan["frame"], block_k=plan["frame"])
     o, lse = fas.flash_attention_segments_with_lse(q, k, v, seg, causal,
                                                    scale)
     live = seg[:, None] == seg[None, :]
