@@ -159,7 +159,29 @@ JAX package) through these phases, in order; any failure exits non-zero:
 20. rn50_train_fused  the same with --fused=1: the 13 stride-1 blocks on
              the bottleneck kernels (27, 13, 27, 13 wrapper calls a step),
              the ratio to rn50_train's step in the same call;
-21. report   a ``{"kernels": [...]}`` line, then the device line
+21. mha      contrib/multihead_attn at Transformer-big's widths (16
+             heads of 64, bf16 with fp32 parameters): self attention
+             over B 8 x 512 with BERT-style key padding, encoder-decoder
+             attention of 8 x 256 queries over 8 x 512 keys; with and
+             without norm_add, under the key padding and under an
+             attention mask alone; eval and (dropout 0) training forward
+             + backward against the same modules on the plain versions,
+             one unpacked forward and backward a call (rows 7b, 9b); the
+             dropout branch at 0.1 (no flash launch, its formula, the
+             kept share, a fully padded row); then the normalization API
+             (the non-affine backward among its launches);
+22. context_parallel  four spawned ranks of a gloo group on the one
+             card: ring and Ulysses attention (B 2 x 8 heads of 128, a
+             4096-token sequence, bf16, causal and not), forward and
+             q/k/v gradients against unsharded attention on the card;
+             the GPT at the train widths on B 2 x 4096 (fp32): logits and
+             rank-summed gradients against the unsharded model, one step
+             at hidden dropout 0.1 with a different mask a rank;
+23. serve_jnp  attention_impl="jnp": card == CPU greedy tokens at 2
+             layers (contiguous, paged, int8 pages, whole-prompt), then
+             the serve at 8 layers bf16 in the four forms, no attention
+             kernel launched, the requests matching the flash serve;
+24. report   a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
@@ -168,8 +190,8 @@ spill report to DIR/chip_smoke.json (what ran, also after a failure). ``--profil
 device's busy share. ``--only`` runs a subset of the phases (a check of
 one part; the full run is the smoke); ``kernels:xent+lamb`` there names a
 subset of the kernel phase's case groups (ln, seg, decode, paged,
-train_ln, flash, xent, lamb, unpacked, seg_train, softmax, packed,
-bottleneck).
+train_ln, ln_plain, flash, xent, lamb, unpacked, seg_train, softmax,
+packed, bottleneck, frames).
 
 It needs one CUDA device and nvcc (CUDA_HOME, PATH or /usr/local/cuda).
 """
@@ -334,7 +356,8 @@ PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "bert_train_masked_parity", "bert_train_masked", "fmha",
           "xentropy", "fused_softmax_parity", "train_fused_softmax",
           "bert_train_masked_fused_softmax", "train_packed_parity",
-          "train_packed", "rn50_parity", "rn50_train", "rn50_train_fused")
+          "train_packed", "rn50_parity", "rn50_train", "rn50_train_fused",
+          "mha", "context_parallel", "serve_jnp")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_segments_serve",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -1436,6 +1459,94 @@ def train_ln_cases(dev):
         yield ln_bwd_case(dev, gen, n, width, torch.bfloat16, form, rate, seed)
 
 
+def ln_plain_cases(dev):
+    """Row 2's non-affine form and the non-affine forward (the
+    normalization API's `fused_layer_norm`, `FusedLayerNorm(
+    elementwise_affine=False)`): forward and backward at the training
+    rows (16384, 1024) and the serve's 8 rows, bf16 and fp32, against the
+    plain versions (`layer_norm_fwd_plain`, `layer_norm_bwd_plain` with no
+    weight) on the same card tensors; each launched twice for the same
+    bits, its route checked against `ln_fwd_plan` / `ln_bwd_plan`. The
+    yardstick: `F.layer_norm` without a weight, the forward alone, and
+    forward + backward for the backward case (`library_fwd_bwd_ms`
+    beside the aten backward alone)."""
+    from rocm_apex_tpu_torch.ops import layer_norm as ln
+    from rocm_apex_tpu_torch.ops._build import sm_count
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    h = TRAIN["hidden_size"]
+    for rows in (TRAIN_BATCH * TRAIN_SEQ, 8):
+        for dt in (torch.bfloat16, torch.float32):
+            lab = f"({rows}, {h}) {str(dt)[6:]}"
+            x = (0.5 + 2.0 * torch.randn(rows, h, device=dev,
+                                         generator=gen)).to(dt)
+            dy = torch.randn(rows, h, device=dev, generator=gen).to(dt)
+
+            def fkern(x=x):
+                return ln._ln_fwd_impl(x, None, None, None, 1e-5, None)
+
+            def fplain(x=x, dt=dt):
+                return ln.layer_norm_fwd_plain(x, None, None, None, 1e-5, dt)
+
+            got, ref = fkern(), fplain()
+            route = check_ln_fwd(fkern, ref, x, None, None, None,
+                                 f"layer_norm_fwd non-affine {lab}")
+            yield dict(
+                kernel="layer_norm_fwd", case=f"non-affine {lab}, {route}",
+                dtype=dt, cmp=compare(got, ref), kern=fkern, plain=fplain,
+                lib=lambda x=x: F.layer_norm(x, (h,)),
+                library="F.layer_norm, no weight",
+                nbytes=nbytes(x, got[0], got[2], got[3]), ops=8 * rows * h,
+                headline=False, iters=50,
+            )
+            _, _, mu, rs = ref
+
+            def bkern(x=x, dy=dy, mu=mu, rs=rs):
+                return ln._layer_norm_bwd(x, dy, None, mu, rs, None)
+
+            def bplain(x=x, dy=dy, mu=mu, rs=rs):
+                return ln.layer_norm_bwd_plain(x, dy, None, mu, rs, None)
+
+            bgot = bkern()
+            what = f"layer_norm_bwd_noaffine {lab}"
+            check(bgot[1] is None and bgot[2] is None and bgot[3] is None,
+                  f"{what}: the non-affine form returned dd/dgamma/dbeta")
+            check(_same_bits(bgot[:1], bkern()[:1]),
+                  f"{what}: two launches differ")
+            plan = ln.ln_bwd_plan(rows, h, dt, sm_count(x.device),
+                                  all(t.data_ptr() % 16 == 0
+                                      for t in (x, dy)))
+            broute = check_launches(bkern, LN_BWD_ROUTE_KERNELS,
+                                    plan["route"], what)
+            names = _device_kernels(bkern)
+            check(not any("ln_bwd_reduce_kernel" in n for n in names),
+                  f"{what}: the non-affine backward launched the "
+                  f"dgamma/dbeta reduction")
+            xg = x.detach().clone().requires_grad_(True)
+            _, amu, ars = torch.ops.aten.native_layer_norm(x, (h,), None,
+                                                           None, 1e-5)
+
+            def fwd_bwd(xg=xg, dy=dy):
+                xg.grad = None
+                F.layer_norm(xg, (h,)).backward(dy)
+
+            def lib(x=x, dy=dy, amu=amu, ars=ars):
+                return torch.ops.aten.native_layer_norm_backward(
+                    dy, x, (h,), amu, ars, None, None, [True, False, False])
+
+            yield dict(
+                kernel="layer_norm_bwd_noaffine",
+                case=f"non-affine {lab}, {broute}", dtype=dt,
+                cmp=compare(bgot[:1], bplain()[:1]), kern=bkern,
+                plain=bplain, lib=lib,
+                library="aten native_layer_norm_backward alone, no weight",
+                extra_timings={"library_fwd_bwd_ms": fwd_bwd},
+                nbytes=nbytes(x, dy, mu, rs, bgot[0]), ops=10 * rows * h,
+                headline=rows > 8 and dt == torch.bfloat16, iters=50,
+            )
+            del x, dy, got, ref, bgot
+
+
 def flash_cases(dev):
     """The packed-QKV attention of the training step, forward and
     backward: (B 16, S 1024, 8 heads, 3 x 128) bf16 with the projection
@@ -1945,9 +2056,11 @@ def unpacked_cases(dev):
     rows nb = 1 and nb = bh, causal and not), varlen with rows shorter
     than one tile, the dbias kernel (compute_dbias=True; bf16 at masked
     BERT with and without dropout 0.1, the dropout form heading row 10)
-    and an lse cotangent. The library yardstick is SDPA with the bias as a float
-    mask: forward, forward + backward (and its backward alone, fwd + bwd
-    less fwd in the same call), and for dbias forward + backward with a
+    and an lse cotangent, among them a context-parallel ring hop's
+    shapes (16 x 1024 x 1024, hd 128, full and causal, bf16 and fp32).
+    The library yardstick is SDPA with the bias as a float mask:
+    forward, forward + backward (and its backward alone, fwd + bwd less
+    fwd in the same call), and for dbias forward + backward with a
     mask that needs its gradient. Every forward case is checked against
     the plan's route (`check_fwd_route`: the bf16 ones on the wgmma pipe,
     split where the plan splits, launched twice for equal bits), every
@@ -1998,6 +2111,18 @@ def unpacked_cases(dev):
          "lens", 0.0, False, False, False, False),
         ("varlen causal, lse cotangent", (2, 4, 300, 300, 128),
          torch.float32, None, True, "lens", 0.0, False, True, False, False),
+        # a context-parallel hop (B 2 x 8 heads of 128, 1024 tokens a
+        # rank): full and causal, with the lse cotangent that the ring's
+        # merge hands each hop's backward; bf16 as the ring attention
+        # runs it, fp32 as the context-parallel GPT does
+        ("ring hop, lse cotangent", (2, 8, 1024, 1024, 128),
+         torch.bfloat16, None, False, None, 0.0, False, True, False, False),
+        ("ring hop causal, lse cotangent", (2, 8, 1024, 1024, 128),
+         torch.bfloat16, None, True, None, 0.0, False, True, False, False),
+        ("ring hop, lse cotangent", (2, 8, 1024, 1024, 128),
+         torch.float32, None, False, None, 0.0, False, True, False, False),
+        ("ring hop causal, lse cotangent", (2, 8, 1024, 1024, 128),
+         torch.float32, None, True, None, 0.0, False, True, False, False),
     ]
     for (name, (b, h, sq, sk, d), dt, bias_kind, causal, lens_kind, rate,
          want_db, want_dlse, inplace, headline) in cases:
@@ -3713,6 +3838,7 @@ def frame_cases(dev):
 
 CASE_GROUPS = dict(ln=ln_cases, seg=seg_cases, decode=decode_cases,
                    paged=paged_decode_cases, train_ln=train_ln_cases,
+                   ln_plain=ln_plain_cases,
                    flash=flash_cases,
                    xent=lambda dev: itertools.chain(xent_cases(dev),
                                                     xent_bwd_cases(dev)),
@@ -5461,6 +5587,758 @@ def run_rn50_train_phase(profile, fused, report=None):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 22 to 24: contrib/multihead_attn, context parallelism, "jnp"
+# ---------------------------------------------------------------------------
+
+# contrib/multihead_attn at Transformer-big's widths (Vaswani et al. 2017,
+# Table 3, "big": d_model 1024, 16 heads of 64), bf16 compute with fp32
+# parameters: self attention over B 8 x 512 with `bert_lengths` key
+# padding, encoder-decoder attention of 8 x 256 queries over 8 x 512
+# keys with the encoder's padding
+MHA = dict(hidden=1024, heads=16, batch=8, seq=512, dec_seq=256)
+MHA_DROPOUT = 0.1
+MHA_ITERS = 20
+# the modules on the kernels against the same modules on the plain
+# versions, the weights and inputs the same, on the card: only the
+# attention and LayerNorm differ (cuBLAS takes the projections in both),
+# each rounding p and o on one rule from fp32 sums in another order, so
+# an attention output moves by about a bf16 step (2^-8 relative); through
+# the bf16 output projection and the gradients' bf16 products each
+# output, and each gradient, is held within MHA_REL_TOL of its largest
+# element
+MHA_REL_TOL = 2e-2
+
+
+def _rel_err(a, b):
+    """max |a - b| over max |b| (NaN fails: inf)."""
+    a, b = a.detach().float(), b.detach().float()
+    d = float((a - b).abs().max())
+    if math.isnan(d):
+        return math.inf
+    return d / max(float(b.abs().max()), 1e-30)
+
+
+class plain_versions:
+    """While open, the unpacked attention and the LayerNorm wrappers run
+    their plain PyTorch versions on card tensors (the autograd functions
+    unchanged, their forward and backward bodies swapped): the modules'
+    reference on the same card inputs."""
+
+    def __enter__(self):
+        from rocm_apex_tpu_torch.ops import flash_attention as fa
+        from rocm_apex_tpu_torch.ops import layer_norm as ln
+
+        self.fa, self.ln = fa, ln
+        self.saved = (fa._unpacked_fwd, fa._unpacked_bwd, ln._ln_fwd_impl,
+                      ln._layer_norm_bwd)
+
+        def fwd(q, k, v, bias, causal, scale, kv_lengths, rate, seed,
+                bshd=False):
+            B, H, sq, d = q.shape
+            o, lse = fa.flash_unpacked_fwd_plain(
+                fa._flat(q), fa._flat(k), fa._flat(v), bias, causal, scale,
+                kv_lengths, rate, seed)
+            return o.view(B, H, sq, d), lse
+
+        def bwd(q, k, v, bias, o, lse, do, dlse, causal, scale, kv_lengths,
+                rate, seed, compute_dbias, bshd=False):
+            dq, dk, dv, dbias = fa.flash_unpacked_bwd_plain(
+                fa._flat(q), fa._flat(k), fa._flat(v), bias, fa._flat(o),
+                lse, fa._flat(do), causal, scale, kv_lengths, rate, seed,
+                dlse, compute_dbias)
+            return dq.view(q.shape), dk.view(k.shape), dv.view(v.shape), dbias
+
+        def lnf(x2d, delta2d, weight, bias, eps, out_dtype, rate=0.0, seed=0):
+            return ln.layer_norm_fwd_plain(x2d, delta2d, weight, bias, eps,
+                                           out_dtype or x2d.dtype, rate, seed)
+
+        fa._unpacked_fwd, fa._unpacked_bwd = fwd, bwd
+        ln._ln_fwd_impl, ln._layer_norm_bwd = lnf, ln.layer_norm_bwd_plain
+        return self
+
+    def __exit__(self, *exc):
+        (self.fa._unpacked_fwd, self.fa._unpacked_bwd, self.ln._ln_fwd_impl,
+         self.ln._layer_norm_bwd) = self.saved
+        return False
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _zero_launches():
+    from rocm_apex_tpu_torch.ops._build import KERNELS
+
+    _sync()
+    for k in KERNELS:
+        k.launches = 0
+
+
+def _launches():
+    from rocm_apex_tpu_torch.ops._build import KERNELS
+
+    _sync()
+    return {k.name: k.launches for k in KERNELS if k.launches}
+
+
+def _mha_run(mod, xs, kpm, am, train, dout=None, **kw):
+    """One call: the output, and with ``train`` the gradients of sum(out
+    * dout) in the inputs and every parameter, in a fixed order."""
+    if not train:
+        with torch.no_grad():
+            return [mod(*xs, key_padding_mask=kpm, attn_mask=am, **kw)]
+    xs = [x.detach().requires_grad_(True) for x in xs]
+    mod.zero_grad(set_to_none=True)
+    out = mod(*xs, key_padding_mask=kpm, attn_mask=am, deterministic=False,
+              **kw)
+    (out.float() * dout).sum().backward()
+    return ([out.detach()] + [x.grad for x in xs]
+            + [p.grad for _, p in sorted(mod.named_parameters())])
+
+
+def _mha_modules(dev):
+    """(name, module, inputs, key padding mask, attention mask, dout) for
+    every case: Self and EncDec, each with and without norm_add, under
+    their key padding and under an attention mask alone."""
+    from rocm_apex_tpu_torch.contrib import (EncdecMultiheadAttn,
+                                             SelfMultiheadAttn)
+
+    h, heads, b, s, sd = (MHA[k] for k in ("hidden", "heads", "batch", "seq",
+                                           "dec_seq"))
+    gen = torch.Generator(device=dev).manual_seed(23)
+    enc = torch.randn(b, s, h, device=dev, generator=gen)
+    dec = torch.randn(b, sd, h, device=dev, generator=gen)
+    lens = torch.from_numpy(bert_lengths(b)).to(dev)
+    kpm = torch.arange(s, device=dev)[None, :] >= lens[:, None]
+    self_am = torch.ones(s, s, dtype=torch.bool, device=dev).triu(1)
+    # a band: each decoder query sees the encoder keys within 128 of 2q
+    qi = torch.arange(sd, device=dev)[:, None] * 2
+    ki = torch.arange(s, device=dev)[None, :]
+    encdec_am = (ki - qi).abs() > 128
+    out = []
+    for norm_add in (False, True):
+        torch.manual_seed(31)
+        sm = SelfMultiheadAttn(heads, h, include_norm_add=norm_add,
+                               dtype=torch.bfloat16, device=dev)
+        em = EncdecMultiheadAttn(heads, h, include_norm_add=norm_add,
+                                 dtype=torch.bfloat16, device=dev)
+        for m in (sm, em):
+            if norm_add:
+                with torch.no_grad():
+                    m.lyr_norm.weight.normal_(1.0, 0.1)
+                    m.lyr_norm.bias.normal_(0.0, 0.1)
+        tag = "norm_add" if norm_add else "plain"
+        d_self = torch.randn(b, s, h, device=dev, generator=gen)
+        d_enc = torch.randn(b, sd, h, device=dev, generator=gen)
+        out += [(f"self {tag} key padding", sm, (enc,), kpm, None, d_self),
+                (f"self {tag} attn mask", sm, (enc,), None, self_am, d_self),
+                (f"encdec {tag} key padding", em, (dec, enc), kpm, None,
+                 d_enc),
+                (f"encdec {tag} attn mask", em, (dec, enc), None, encdec_am,
+                 d_enc)]
+    return out
+
+
+def _mha_dropout_reference(mod, query, kpm, seed):
+    """`SelfMultiheadAttn`'s training branch recomputed from its formula
+    with the keep bits of ``seed`` (ops._dropout): fp32 scores of the
+    bf16 q, k plus the padding bias, an fp32 softmax (a row whose every
+    key is padding: the uniform average), bf16 probabilities, dropout,
+    then probs @ v and the output projection."""
+    from rocm_apex_tpu_torch.ops import _dropout
+
+    b, s, h = query.shape
+    heads, d = mod.num_heads, h // mod.num_heads
+    with torch.no_grad():
+        qkv = mod.qkv_proj(query)
+        q, k, v = (t.view(b, s, heads, d).transpose(1, 2)
+                   for t in qkv.split(h, -1))
+        sc = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        sc = sc / math.sqrt(d)
+        sc = sc + torch.where(kpm[:, None, None, :], -1e30, 0.0)
+        p = torch.softmax(sc, -1).to(q.dtype)
+        keep = _dropout.keep_mask(seed, MHA_DROPOUT, (b * heads, s, s),
+                                  device=query.device).view(p.shape)
+        p = torch.where(keep, p / (1 - MHA_DROPOUT), 0.0).to(q.dtype)
+        ctx = torch.matmul(p, v).transpose(1, 2).reshape(b, s, h)
+        return mod.out_proj(ctx), keep
+
+
+def run_mha_phase():
+    """contrib/multihead_attn and the normalization API on the card (see
+    MHA): every case's eval forward and (dropout 0) training forward +
+    backward against the same module on the plain versions; per call one
+    unpacked forward (row 7b), one unpacked backward (row 9b) in
+    training, and one LayerNorm forward and backward (rows 1, 2) with
+    norm_add; the headline case timed (a call, and the device alone);
+    then the dropout branch at 0.1 in training (no flash launch; its
+    output equal to its formula with the recovered keep bits, whose kept
+    share is within 5 sigma of 0.9; a batch row whose every key is
+    padding gives the flash path's 0 in eval and the uniform average in
+    training); then `FusedLayerNorm` affine and not,
+    `fused_layer_norm_affine` and `mixed_dtype_fused_layer_norm_affine`
+    on the self-attention input, forward + backward, against their
+    plain versions, with their launches (the non-affine backward's among
+    them)."""
+    from rocm_apex_tpu_torch import normalization as norm
+
+    dev = torch.device(CARD, 0) if CARD == "cuda" else torch.device(CARD)
+    res = dict(cases={}, launches={})
+    cases = _mha_modules(dev)
+    for name, mod, xs, kpm, am, dout in cases:
+        for train in (False, True):
+            _zero_launches()
+            got = _mha_run(mod, xs, kpm, am, train, dout)
+            calls = _launches()
+            with plain_versions():
+                ref = _mha_run(mod, xs, kpm, am, train, dout)
+            errs = [_rel_err(g, r) for g, r in zip(got, ref)
+                    if g is not None]
+            worst = max(errs)
+            what = f"mha {name} {'train' if train else 'eval'}"
+            log(f"  {what}: worst max|kernel - plain| / max|plain| "
+                f"{worst:.3e} over {len(errs)} tensors (tol "
+                f"{MHA_REL_TOL:g}); launches {calls}")
+            check(all(bool(torch.isfinite(t).all()) for t in got
+                      if t is not None), f"{what}: nonfinite output")
+            check(worst <= MHA_REL_TOL, f"{what}: the kernels differ from "
+                  f"the plain versions by {worst:.3e} of the largest element")
+            want = {"flash_unpacked_fwd": 1,
+                    "flash_unpacked_bwd": int(train)}
+            if mod.include_norm_add:
+                want.update(layer_norm_fwd=1, layer_norm_bwd=int(train))
+            for k, n in want.items():
+                check(calls.get(k, 0) == n, f"{what}: {k} launched "
+                      f"{calls.get(k, 0)} times, expected {n}")
+            check(set(calls) <= set(want), f"{what}: unexpected launches "
+                  f"{calls}")
+            res["cases"][what] = dict(rel_err=worst, launches=calls)
+            for k, n in calls.items():
+                res["launches"][k] = res["launches"].get(k, 0) + n
+    # the headline: self attention with key padding, norm_add off
+    name, mod, xs, kpm, am, dout = cases[0]
+    # each call timed twice: back to back between two events (the host's
+    # launch time where that is longer), and queued behind a sleep kernel
+    # (the device's time alone); their ratio is the card's busy share
+    ev, tr = (lambda: _mha_run(mod, xs, kpm, am, False),
+              lambda: _mha_run(mod, xs, kpm, am, True, dout))
+    eval_ms, train_ms = cuda_ms(ev, MHA_ITERS), cuda_ms(tr, MHA_ITERS)
+    eval_dev, train_dev = device_ms(ev, MHA_ITERS), device_ms(tr, MHA_ITERS)
+    res.update(eval_ms=eval_ms, train_ms=train_ms, eval_device_ms=eval_dev,
+               train_device_ms=train_dev, headline=name)
+    log(f"  {name}: eval forward {eval_ms:.3f} ms a call ({eval_dev:.3f} "
+        f"ms on the device, busy {eval_dev / eval_ms:.0%}), training "
+        f"forward + backward {train_ms:.3f} ms ({train_dev:.3f} ms on the "
+        f"device, busy {train_dev / train_ms:.0%}) (B {MHA['batch']} x "
+        f"{MHA['seq']}, {MHA['heads']} heads of "
+        f"{MHA['hidden'] // MHA['heads']}, bf16)")
+
+    # the dropout branch, with a batch row whose every key is padding
+    query = xs[0]
+    kpm_full = kpm.clone()
+    kpm_full[1] = True
+    mod.dropout = MHA_DROPOUT
+    _zero_launches()
+    got = _mha_run(mod, xs, kpm_full, None, True, dout, dropout_seed=77)
+    calls = _launches()
+    check(not any(k.startswith("flash") for k in calls),
+          f"mha dropout: the training branch launched {calls}")
+    with torch.no_grad():
+        drop = mod(query, key_padding_mask=kpm_full, deterministic=False,
+                   dropout_seed=77)
+    want, keep = _mha_dropout_reference(mod, query, kpm_full, 77)
+    err = _rel_err(drop, want)
+    n = keep.numel()
+    frac = float(keep.float().mean())
+    sigma = math.sqrt(MHA_DROPOUT * (1 - MHA_DROPOUT) / n)
+    log(f"  dropout {MHA_DROPOUT} (training branch): no flash launch "
+        f"({calls}); output against its formula with the recovered keep "
+        f"bits {err:.3e} of the largest element; kept share {frac:.6f} "
+        f"(0.9 +- 5 sigma = {5 * sigma:.2e})")
+    check(err <= MHA_REL_TOL, f"mha dropout: output off its formula by "
+          f"{err:.3e}")
+    check(abs(frac - (1 - MHA_DROPOUT)) <= 5 * sigma,
+          f"mha dropout: kept share {frac} off 0.9")
+    check(all(bool(torch.isfinite(t).all()) for t in got if t is not None),
+          "mha dropout: nonfinite gradient")
+    mod.dropout = 0.0
+    with torch.no_grad():
+        ev = mod(query, key_padding_mask=kpm_full)
+    # the fully padded row's context is 0: its output is out_proj's bias
+    bias_err = _rel_err(ev[1], mod.out_proj.bias.to(ev.dtype).expand(
+        MHA["seq"], -1))
+    log(f"  the fully padded batch row, eval (flash): max|out - out_proj "
+        f"bias| / max|bias| {bias_err:.3e}")
+    check(bias_err <= 2.0 ** -8, "mha: the fully padded row of the flash "
+          "path is not 0 through out_proj")
+    res["dropout"] = dict(rel_err=err, kept_share=frac, five_sigma=5 * sigma,
+                          launches=calls)
+
+    # the normalization API on the same input
+    h = MHA["hidden"]
+    dy = torch.randn(query.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+    xb = query.to(torch.bfloat16)
+    nonaff = norm.FusedLayerNorm(h, elementwise_affine=False, device=dev)
+    aff = norm.FusedLayerNorm(h, device=dev)
+    w = 1.0 + 0.1 * torch.randn(h, device=dev)
+    bb = 0.1 * torch.randn(h, device=dev)
+    fns = {
+        "FusedLayerNorm non-affine": (nonaff, [xb], []),
+        "FusedLayerNorm affine": (aff, [xb], list(aff.parameters())),
+        "fused_layer_norm_affine": (
+            lambda x, w, b: norm.fused_layer_norm_affine(x, w, b, h),
+            [xb, w, bb], []),
+        "mixed_dtype_fused_layer_norm_affine": (
+            lambda x, w, b: norm.mixed_dtype_fused_layer_norm_affine(
+                x, w, b, h), [xb, w, bb], []),
+    }
+    res["normalization"] = {}
+    for name, (fn, args, params) in fns.items():
+        def run(fn=fn, args=args, params=params):
+            a = [t.detach().requires_grad_(True) for t in args]
+            for p in params:
+                p.grad = None
+            y = fn(*a)
+            (y.float() * dy).sum().backward()
+            return [y.detach()] + [t.grad for t in a] + [p.grad
+                                                         for p in params]
+
+        _zero_launches()
+        got = run()
+        calls = _launches()
+        with plain_versions():
+            ref = run()
+        worst = max(_rel_err(g, r) for g, r in zip(got, ref))
+        bwd = ("layer_norm_bwd_noaffine" if name.endswith("non-affine")
+               else "layer_norm_bwd")
+        log(f"  {name} ({' x '.join(map(str, xb.shape))} bf16): forward + "
+            f"backward "
+            f"{worst:.3e} of the largest element off the plain versions; "
+            f"launches {calls}")
+        check(worst <= MHA_REL_TOL, f"{name}: off its plain version by "
+              f"{worst:.3e}")
+        check(calls == {"layer_norm_fwd": 1, bwd: 1},
+              f"{name}: launches {calls}, expected one layer_norm_fwd and "
+              f"one {bwd}")
+        res["normalization"][name] = dict(rel_err=worst, launches=calls)
+        for k, n in calls.items():
+            res["launches"][k] = res["launches"].get(k, 0) + n
+    return res
+
+
+# context parallelism on the one card: four ranks of a gloo group (the
+# exchanges staged through host memory), each a process of its own. Ring
+# and Ulysses attention at the GPT train cell's heads (B 2 x 8 heads of
+# 128) over a 4096-token sequence, 1024 a rank, bf16; then the GPT at the
+# train cell's widths (8 layers) with max_position_embeddings 4096 on B 2
+# x 4096 tokens, fp32 with TF32 off (both sides on their fp32 kernels:
+# the ring on the unpacked ones, the unsharded model on the packed ones).
+CP_RANKS = 4
+CP_ATTN = dict(batch=2, heads=8, head_dim=128, seq=4096)
+CP_GPT_SEQ, CP_GPT_BATCH = 4096, 2
+CP_JOIN_S = 300
+# the ring rounds each hop's o to bf16 before the fp32 merge (as JAX's
+# ring does) where the unsharded kernel rounds once: about a bf16 step
+# of each output and, through the backward's products, of each gradient
+CP_ATTN_REL_TOL = 3e-2
+# fp32 on both sides, summation order only: the logits within
+# PARITY_LOGIT_ATOL, each rank-summed gradient within 1e-4 of its
+# largest element
+CP_GRAD_REL_TOL = 1e-4
+
+
+def _cp_rank(rank, n, workdir, spec):
+    """One rank of the context-parallel phase (spawned): bind the
+    "context" axis to the gloo group, run the cases, write rank<r>.pt
+    (an ``error`` entry if a case raised)."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        dev = torch.device(spec["device"], 0) if spec["device"] == "cuda" \
+            else torch.device(spec["device"])
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", init_method=f"file://{workdir}/store", rank=rank,
+            world_size=n, timeout=datetime.timedelta(seconds=120))
+        from rocm_apex_tpu_torch.transformer import parallel_state
+
+        parallel_state.set_axis_group("context")
+        _cp_attention(rank, n, dev, spec, out)
+        _cp_gpt(rank, n, dev, spec, out)
+        parallel_state.clear_axis_groups()
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:  # noqa: BLE001 - the parent reports it
+        out["error"] = traceback.format_exc()
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def _cp_attention(rank, n, dev, spec, out):
+    from rocm_apex_tpu_torch.ops.flash_attention import (
+        flash_attention_with_lse)
+    from rocm_apex_tpu_torch.transformer.context_parallel import (
+        ring_flash_attention, ulysses_attention)
+
+    b, h, d, s = (spec["attn"][k] for k in ("batch", "heads", "head_dim",
+                                            "seq"))
+    sl = slice(rank * s // n, (rank + 1) * s // n)
+    gen = torch.Generator().manual_seed(7)  # the same draw on every rank
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen).to(
+        torch.bfloat16).to(dev) for _ in range(4))
+    for causal in (True, False):
+        # the unsharded reference on the card: (b*h, s, d)
+        fl = [t.reshape(b * h, s, d).clone().requires_grad_(True)
+              for t in (q, k, v)]
+        o_ref, _ = flash_attention_with_lse(*fl, None, causal)
+        (o_ref.float() * do.reshape(b * h, s, d).float()).sum().backward()
+        ref = [o_ref.detach()] + [t.grad for t in fl]
+        ref = [t.view(b, h, s, d)[:, :, sl] for t in ref]
+        shapes = dict(
+            # ring: (b*h, s_local, d) shards
+            ring=(ring_flash_attention,
+                  lambda t: t[:, :, sl].reshape(b * h, -1, d),
+                  lambda t: t.view(b, h, -1, d), rank + 1 if causal else n),
+            # Ulysses: (b, s_local, h, d) shards
+            ulysses=(ulysses_attention,
+                     lambda t: t[:, :, sl].transpose(1, 2).contiguous(),
+                     lambda t: t.transpose(1, 2), 1))
+        for kind, (fn, shard, unshard, hops) in shapes.items():
+            def run(fn=fn, shard=shard, unshard=unshard):
+                sh = [shard(t).clone().requires_grad_(True)
+                      for t in (q, k, v)]
+                o = fn(*sh, "context", causal)
+                (o.float() * shard(do).float()).sum().backward()
+                return [unshard(t) for t in [o.detach()] + [t.grad
+                                                            for t in sh]]
+
+            _zero_launches()
+            got = run()
+            calls = _launches()
+            # the same exchange on the plain versions, on the same shards:
+            # each hop's kernels (the forward, the backward with its lse
+            # cotangent) held to their plain versions at the hop's shapes
+            with plain_versions():
+                plain = run()
+            out[f"{kind} causal={causal}"] = dict(
+                rel_err=[_rel_err(g, r) for g, r in zip(got, ref)],
+                plain_rel_err=[_rel_err(g, r) for g, r in zip(got, plain)],
+                launches=calls, want_hops=hops)
+
+
+def _cp_gpt(rank, n, dev, spec, out):
+    import torch.distributed as dist
+
+    from rocm_apex_tpu_torch.convert import from_jax_params, random_params
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig, hidden_dropout_seed
+
+    base = dict(spec["gpt"], params_dtype=torch.float32, dtype=torch.float32)
+    tree = random_params(GPTConfig(**base), seed=0)
+    rng = np.random.default_rng(0)
+    b, s = spec["gpt_batch"], spec["gpt_seq"]
+    tokens = torch.from_numpy(rng.integers(0, base["vocab_size"], (b, s))).to(
+        dev)
+    labels = torch.roll(tokens, -1, 1)
+    sl = slice(rank * s // n, (rank + 1) * s // n)
+    ref = from_jax_params(tree, GPTConfig(**base), device=dev)
+    cp = from_jax_params(tree, GPTConfig(**base,
+                                         context_parallel_axis="context"),
+                         device=dev)
+    with torch.no_grad():
+        want = ref(tokens)[:, sl]
+        _zero_launches()
+        got = cp(tokens[:, sl])
+        calls = _launches()
+        # the same shard on the plain versions: the fp32 hops' kernels
+        # held to their plain versions at the hop's shapes
+        with plain_versions():
+            plain = cp(tokens[:, sl])
+    out["gpt logits"] = dict(max_abs_err=float((got - want).abs().max()),
+                             plain_max_abs_err=float(
+                                 (got - plain).abs().max()),
+                             finite=bool(torch.isfinite(got).all()),
+                             launches=calls)
+    del want, got, plain
+    ref(tokens, labels=labels).sum().backward()
+    with plain_versions():
+        cp(tokens[:, sl], labels=labels[:, sl]).sum().backward()
+    plain = {k: p.grad for k, p in cp.named_parameters()}
+    cp.zero_grad(set_to_none=True)
+    cp(tokens[:, sl], labels=labels[:, sl]).sum().backward()
+    perrs = {k: _rel_err(p.grad, plain[k]) for k, p in cp.named_parameters()}
+    out["gpt plain grads"] = dict(worst=max(perrs.values()),
+                                  worst_name=max(perrs, key=perrs.get))
+    del plain
+    names = [k for k, _ in cp.named_parameters()]
+    flat = torch.cat([p.grad.reshape(-1) for _, p in cp.named_parameters()])
+    flat = flat.cpu()
+    dist.all_reduce(flat)  # the caller's all-reduce over the group
+    errs, at = {}, 0
+    refs = dict(ref.named_parameters())
+    for k in names:
+        g = refs[k].grad
+        part = flat[at:at + g.numel()].view(g.shape).to(dev)
+        at += g.numel()
+        errs[k] = _rel_err(part, g)
+    out["gpt grads"] = dict(worst=max(errs.values()),
+                            worst_name=max(errs, key=errs.get))
+    del ref, flat
+    cp.zero_grad(set_to_none=True)
+    # one step at hidden dropout 0.1 from one generator state on every
+    # rank: the rank folds into each site's seed
+    drop = from_jax_params(tree, GPTConfig(
+        **{**base, "hidden_dropout": 0.1}, context_parallel_axis="context"),
+        device=dev)
+    loss = drop(tokens[:, sl], labels=labels[:, sl], deterministic=False,
+                dropout_generator=torch.Generator().manual_seed(3),
+                loss_reduction="mean")
+    loss.backward()
+    out["gpt dropout"] = dict(
+        loss=float(loss.detach()),
+        seed=hidden_dropout_seed(torch.Generator().manual_seed(3), drop.cfg),
+        grads_finite=all(bool(torch.isfinite(p.grad).all())
+                         for p in drop.parameters()))
+
+
+def run_context_parallel_phase(spec=None):
+    """Context parallelism on one card (see CP_RANKS): four spawned ranks
+    of a gloo group; ring and Ulysses attention forward and q/k/v
+    gradients against unsharded `flash_attention_with_lse` on the card
+    and against the same exchange on the same shards on the plain
+    versions (`plain_versions`: each hop's forward and its backward with
+    the lse cotangent held to their plain versions at the hop's shapes),
+    with each rank's launches (the ring: one forward and one backward a
+    hop it attends, none for a later rank's block under causal); the
+    context-parallel GPT's logits and rank-summed parameter gradients
+    against the unsharded model on the card (no packed launch under
+    CP), and its logits and rank-local gradients against the same shard
+    on the plain versions; one step at hidden dropout 0.1 with finite
+    loss and a different seed, so a different mask, on every rank. The
+    phase's times are the kernels' alone (one hop's forward timed
+    here): the ranks share one card and exchange through host memory,
+    which says nothing of a real interconnect."""
+    import multiprocessing
+    import tempfile
+
+    from rocm_apex_tpu_torch.ops.flash_attention import (
+        flash_attention_with_lse)
+
+    spec = spec or dict(
+        device=CARD, attn=CP_ATTN,
+        gpt={**TRAIN, "max_position_embeddings": CP_GPT_SEQ,
+             "hidden_dropout": 0.0, "attention_dropout": 0.0},
+        gpt_batch=CP_GPT_BATCH, gpt_seq=CP_GPT_SEQ)
+    n = CP_RANKS
+    res = dict(ranks=n, attn=spec["attn"], gpt_seq=spec["gpt_seq"])
+    with tempfile.TemporaryDirectory() as workdir:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_cp_rank, args=(r, n, workdir, spec))
+                 for r in range(n)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(CP_JOIN_S)
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        res["ranks_s"] = time.perf_counter() - t0
+        check(not hung, f"context_parallel: ranks {hung} did not finish in "
+              f"{CP_JOIN_S} s")
+        outs = []
+        for r in range(n):
+            path = os.path.join(workdir, f"rank{r}.pt")
+            check(os.path.exists(path), f"context_parallel: rank {r} wrote "
+                  f"nothing (exit code {procs[r].exitcode})")
+            outs.append(torch.load(path, weights_only=False))
+    for r, o in enumerate(outs):
+        check("error" not in o, f"context_parallel rank {r}:\n"
+              f"{o.get('error')}")
+    res["cases"] = {}
+    for kind in ("ring", "ulysses"):
+        for causal in (True, False):
+            key = f"{kind} causal={causal}"
+            worst = max(max(o[key]["rel_err"]) for o in outs)
+            plain = max(max(o[key]["plain_rel_err"]) for o in outs)
+            log(f"  {key}: o, dq, dk, dv against unsharded "
+                f"flash_attention_with_lse: worst max|err| / max|ref| "
+                f"{worst:.3e}; against the same {kind} on the plain "
+                f"versions {plain:.3e} (tol {CP_ATTN_REL_TOL:g}); launches "
+                f"by rank {[o[key]['launches'] for o in outs]}")
+            check(worst <= CP_ATTN_REL_TOL, f"{key}: off unsharded "
+                  f"attention by {worst:.3e}")
+            check(plain <= CP_ATTN_REL_TOL, f"{key}: off its plain "
+                  f"versions by {plain:.3e}")
+            for r, o in enumerate(outs):
+                calls, hops = o[key]["launches"], o[key]["want_hops"]
+                check(calls.get("flash_unpacked_fwd", 0) == hops
+                      and calls.get("flash_unpacked_bwd", 0) == hops,
+                      f"{key} rank {r}: launches {calls}, expected {hops} "
+                      f"unpacked forwards and backwards")
+            res["cases"][key] = dict(worst_rel_err=worst,
+                                     worst_plain_rel_err=plain,
+                                     launches=[o[key]["launches"]
+                                               for o in outs])
+    lg = [o["gpt logits"] for o in outs]
+    err = max(x["max_abs_err"] for x in lg)
+    perr = max(x["plain_max_abs_err"] for x in lg)
+    log(f"  GPT ({spec['gpt']['num_layers']} layers, B "
+        f"{spec['gpt_batch']} x {spec['gpt_seq']}, fp32): logits shard by "
+        f"shard max|cp - unsharded| {err:.3e}, max|cp - cp on the plain "
+        f"versions| {perr:.3e} (atol {PARITY_LOGIT_ATOL:g}); launches by "
+        f"rank {[x['launches'] for x in lg]}")
+    check(all(x["finite"] for x in lg), "context_parallel: nonfinite logits")
+    check(err <= PARITY_LOGIT_ATOL, f"context_parallel GPT logits differ by "
+          f"{err:.3e}")
+    check(perr <= PARITY_LOGIT_ATOL, f"context_parallel GPT logits differ "
+          f"from the plain versions' by {perr:.3e}")
+    check(all(not any(k.startswith("flash_attention_qkv") for k in
+                      x["launches"]) for x in lg),
+          "context_parallel: the GPT launched the packed kernels")
+    layers = spec["gpt"]["num_layers"]
+    check(all(x["launches"].get("flash_unpacked_fwd", 0) == layers * (r + 1)
+              for r, x in enumerate(lg)),
+          "context_parallel: the GPT's ring forwards are not one a layer "
+          "and attended hop")
+    g = outs[0]["gpt grads"]
+    log(f"  GPT rank-summed gradients against the unsharded model's: worst "
+        f"max|err| / max|ref| {g['worst']:.3e} ({g['worst_name']}; tol "
+        f"{CP_GRAD_REL_TOL:g})")
+    check(g["worst"] <= CP_GRAD_REL_TOL, f"context_parallel: summed gradient "
+          f"{g['worst_name']} off by {g['worst']:.3e}")
+    pg = max((o["gpt plain grads"] for o in outs), key=lambda x: x["worst"])
+    log(f"  GPT rank-local gradients against the same shard on the plain "
+        f"versions: worst max|err| / max|ref| {pg['worst']:.3e} "
+        f"({pg['worst_name']}; tol {CP_GRAD_REL_TOL:g})")
+    check(pg["worst"] <= CP_GRAD_REL_TOL, f"context_parallel: gradient "
+          f"{pg['worst_name']} off its plain versions by {pg['worst']:.3e}")
+    dr = [o["gpt dropout"] for o in outs]
+    log(f"  hidden dropout 0.1: losses {[x['loss'] for x in dr]}, first "
+        f"site seeds {[x['seed'] for x in dr]}")
+    check(all(math.isfinite(x["loss"]) and x["grads_finite"] for x in dr),
+          "context_parallel: nonfinite dropout loss or gradient")
+    check(len({x["seed"] for x in dr}) == n,
+          "context_parallel: ranks drew the same dropout mask")
+    res.update(gpt_logit_max_abs_err=err, gpt_grad_worst_rel_err=g["worst"],
+               gpt_plain_logit_max_abs_err=perr,
+               gpt_plain_grad_worst_rel_err=pg["worst"],
+               dropout_losses=[x["loss"] for x in dr],
+               dropout_seeds=[x["seed"] for x in dr])
+    # the kernels' times alone: one ring hop's forward (full and causal)
+    # and the unsharded forward it stands in for
+    if spec["device"] == "cuda":
+        b, h, d, s = (spec["attn"][k] for k in ("batch", "heads",
+                                                "head_dim", "seq"))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        q, k, v = (torch.randn(b * h, s, d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+        sl = s // n
+        res["hop_full_ms"] = device_ms(lambda: flash_attention_with_lse(
+            q[:, :sl], k[:, :sl], v[:, :sl], None, False), 50)
+        res["hop_causal_ms"] = device_ms(lambda: flash_attention_with_lse(
+            q[:, :sl], k[:, :sl], v[:, :sl], None, True), 50)
+        res["unsharded_causal_ms"] = device_ms(
+            lambda: flash_attention_with_lse(q, k, v, None, True), 50)
+        log(f"  kernel times alone (not the exchange): a hop's forward "
+            f"({b * h}, {sl}, {sl}, {d}) {res['hop_full_ms']:.4f} ms full, "
+            f"{res['hop_causal_ms']:.4f} ms causal; the unsharded causal "
+            f"forward ({b * h}, {s}, {s}, {d}) "
+            f"{res['unsharded_causal_ms']:.4f} ms. The ranks' "
+            f"{res['ranks_s']:.1f} s of wall time include spawning and the "
+            f"host-staged gloo exchange on one card, which says nothing of "
+            f"a real interconnect")
+    res["launches"] = {}
+    for x in lg:
+        for k, c in x["launches"].items():
+            res["launches"][k] = res["launches"].get(k, 0) + c
+    return res
+
+
+# the "jnp" serve: the serve phases' engines under attention_impl="jnp"
+# (the one-pass reference attention in plain PyTorch; no attention kernel)
+JNP_FORMS = (("contiguous", dict()),
+             ("paged", dict(paged=True, page_size=PAGE_SIZE)),
+             ("paged_int8", dict(paged=True, page_size=PAGE_SIZE,
+                                 kv_dtype=torch.int8)),
+             ("whole_prompt", dict(whole=True)))
+
+
+def _attention_kernel_names():
+    from rocm_apex_tpu_torch.ops._build import KERNELS
+
+    return [k.name for k in KERNELS
+            if k.source.startswith("flash_") or k.source == "softmax.cu"]
+
+
+def run_serve_jnp_phase(flash_tokens=None):
+    """attention_impl="jnp" on the serving engines: first parity at 2
+    layers, fp32, TF32 off (the card's "jnp" engine gives the CPU "jnp"
+    engine's greedy tokens on the same weights, in each form of
+    JNP_FORMS), then the serve at SERVE (8 layers, bf16) in each form: 32
+    requests, every one to MAX_NEW, no attention kernel launched and the
+    LayerNorm forward present; the share of requests whose tokens equal
+    the flash engine's (the serve phase's, or a run here) is printed."""
+    from rocm_apex_tpu_torch.convert import from_jax_params, random_params
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig(**{**SERVE, "num_layers": 2}, params_dtype=torch.float32,
+                    dtype=torch.float32, attention_impl="jnp")
+    tree = random_params(cfg, seed=0)
+    models = {dev: from_jax_params(tree, cfg, device=dev)
+              for dev in (CARD, "cpu")}
+    prompts = serve_prompts(cfg.vocab_size)[:6]
+    res = dict(parity={}, forms={})
+    for form, kw in JNP_FORMS:
+        toks = {dev: _tokens(_engine(m, **kw), prompts, PARITY_NEW)
+                for dev, m in models.items()}
+        same = toks[CARD] == toks["cpu"]
+        log(f"  parity, {form}: \"jnp\" greedy tokens of {len(prompts)} "
+            f"requests x {PARITY_NEW}, 2 layers fp32: cuda "
+            f"{'==' if same else '!='} cpu")
+        check(same, f"serve_jnp parity {form}: {toks}")
+        res["parity"][form] = same
+    del models
+    flash_model, load_s = _serve_model()
+    prompts = serve_prompts(SERVE["vocab_size"])
+    if flash_tokens is None:
+        flash_tokens = _tokens(_engine(flash_model), prompts, MAX_NEW)
+    jcfg = GPTConfig(**SERVE, params_dtype=torch.float32,
+                     dtype=torch.bfloat16, attention_impl="jnp")
+    model = from_jax_params(random_params(jcfg, seed=0), jcfg, device=CARD)
+    attention = _attention_kernel_names()
+    res["launches"] = {}
+    for form, kw in JNP_FORMS:
+        log(f"  -- {form}")
+        eng = _engine(model, **kw)
+        eng.generate(prompts[:SLOTS], max_new_tokens=3)  # warm-up
+        r, tokens = timed_serve(eng, prompts)
+        r["requests_matching_flash"] = sum(
+            a == b for a, b in zip(tokens, flash_tokens))
+        log(f"  {r['requests_matching_flash']}/{len(prompts)} requests give "
+            f"the flash engine's tokens (contiguous flash serve)")
+        launched = {k: r["launches"][k] for k in attention
+                    if r["launches"].get(k)}
+        check(not launched, f"serve_jnp {form}: attention kernels launched "
+              f"{launched}")
+        check(r["launches"]["layer_norm_fwd"] > 0,
+              f"serve_jnp {form}: no LayerNorm forward")
+        res["forms"][form] = r
+        for k, n in r["launches"].items():
+            res["launches"][k] = res["launches"].get(k, 0) + n
+    return res
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5630,6 +6508,23 @@ def main(argv=None):
             f"rn50 train fused (the same step with --fused=1: the 13 "
             f"stride-1 blocks on the bottleneck kernels)",
             lambda: run_rn50_train_phase(args.profile, True, report)),
+        "mha": (
+            f"mha (contrib/multihead_attn at Transformer-big's widths: "
+            f"{MHA['heads']} heads x {MHA['hidden'] // MHA['heads']}, self "
+            f"B {MHA['batch']} x {MHA['seq']}, encdec {MHA['dec_seq']} over "
+            f"{MHA['seq']}, bf16; kernels vs plain versions, dropout "
+            f"{MHA_DROPOUT}; the normalization API)", run_mha_phase),
+        "context_parallel": (
+            f"context_parallel ({CP_RANKS} gloo ranks on one card: ring and "
+            f"Ulysses at {CP_ATTN}, bf16; the GPT at the train widths, B "
+            f"{CP_GPT_BATCH} x {CP_GPT_SEQ}, fp32)",
+            run_context_parallel_phase),
+        "serve_jnp": (
+            "serve_jnp (attention_impl='jnp': parity 2 layers fp32 cuda vs "
+            "cpu, then the serve at 8 layers bf16: contiguous, paged, int8 "
+            "pages, whole-prompt)",
+            lambda: run_serve_jnp_phase(
+                report.get("serve", {}).get("tokens"))),
     }
     report["phase_s"] = {}
     try:
@@ -5687,6 +6582,8 @@ def main(argv=None):
                     else "train_packed_parity")
         if k.name in BNECK_KERNELS:
             path = "rn50_train_fused"
+        if k.name == "layer_norm_bwd_noaffine":
+            path = "mha"
         where, _, _ = k.replaces.partition(" ")
         kernels.append(dict(
             name=k.name, route="cuda",

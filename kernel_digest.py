@@ -39,7 +39,8 @@ script), runs on one CUDA device, on inputs drawn from fixed seeds:
   form with the stream cotangent, bf16 and fp32, and its plain affine
   form, on statistics made by torch ops; the serve's 8 rows, a block a
   row, and width 1002, off the vector grid, its dx and dd apart from
-  dgamma and dbeta);
+  dgamma and dbeta; the non-affine forward and backward at (16384, 1024)
+  bf16 and fp32, where the tree has that form);
 - the softmax kernels (row 12: the causal forward K1 at the GPT train
   cell's (128, 1024, 1024) scores, at a ragged 333 keys and at 4096
   keys a row (streaming), the masked forward K2 at masked
@@ -333,6 +334,23 @@ def _row_digests(out, ln, sm, dev):
             mask, -10000.0), -1).to(dt)
         out[f"softmax bwd BERT {lab}"] = _digest(
             (sm.softmax_bwd(y, rnd(*bert, dtype=dt), 128 ** -0.5),))
+    if not hasattr(ln, "LN_BWD_NOAFFINE"):
+        return  # a tree without row 2's non-affine form
+    # rows 1 and 2 without a weight (the non-affine forward, and the
+    # backward with no dgamma/dbeta and no reduction), on a generator of
+    # their own so that the inputs above stay as they were
+    gen2 = torch.Generator(device=dev).manual_seed(16)
+    for dt in (torch.bfloat16, torch.float32):
+        lab = str(dt)[6:]
+        x, dy = (torch.randn(16384, h, generator=gen2, device=dev).to(dt)
+                 for _ in range(2))
+        y, _, mu, rs = ln._ln_fwd_impl(x, None, None, None, 1e-5, dt)
+        out[f"ln fwd non-affine (16384, {h}) {lab}"] = _digest((y, mu, rs))
+        xf = x.float()
+        mu = xf.mean(1)
+        rs = torch.rsqrt(((xf - mu[:, None]) ** 2).mean(1) + 1e-5)
+        out[f"ln bwd non-affine (16384, {h}) {lab}"] = _digest(
+            ln._layer_norm_bwd(x, dy, None, mu, rs, None)[:1])
 
 
 def main(argv=None):

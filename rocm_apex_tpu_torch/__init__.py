@@ -16,19 +16,24 @@ fused bottleneck):
                    optimizer updates, the fused bottleneck's 1x1 and 3x3
                    conv+BN forward and backward); the packed layout; the
                    chunked fused linear+cross-entropy head (plain PyTorch)
-    normalization  `MixedFusedLayerNorm` (forward and backward)
+    normalization  `FusedLayerNorm`, `MixedFusedLayerNorm` and the
+                   functional forms (affine or not, forward and backward)
     transformer    tensor-parallel linear/embedding layers at world size 1;
-                   `functional.FusedScaleMaskSoftmax`, the enums
+                   `functional.FusedScaleMaskSoftmax`, the enums; ring and
+                   Ulysses attention over torch.distributed groups
+                   (`context_parallel`, `parallel_state`)
     models         `GPTModel`: the uncached (training) forward and the
-                   cached chunk and decode branches, flash or
-                   ``attention_impl="fused_softmax"``; `BertModel`: the
+                   cached chunk and decode branches, flash,
+                   ``attention_impl="fused_softmax"`` or ``"jnp"``, and
+                   context-parallel training; `BertModel`: the
                    masked-LM forward, with or without a padding mask;
                    the ResNet family (NHWC, flax-semantics BatchNorm)
     inference      `KVCache`, sampling, the continuous-batching
                    `InferenceEngine` (chunked prefill)
     amp            the O0/O2/O3/O5 policies (`initialize`), fp32 master
                    weights, the loss-scaling flow, the `LossScaler`
-    contrib        `fmha`, `xentropy`, `bottleneck` (`FusedBottleneck`)
+    contrib        `fmha`, `xentropy`, `bottleneck` (`FusedBottleneck`),
+                   `multihead_attn`
     optimizers     `MixedPrecisionAdam`, `MixedPrecisionLamb` (fp32 masters,
                    compute-dtype model); `PackedOptimizerStep`,
                    `packed_adam`, `packed_lamb` (masters and moments in
@@ -37,7 +42,8 @@ fused bottleneck):
     train          `make_train_step` (GPT), `make_bert_train_step`,
                    `make_rn50_train_step`: one mixed-precision training step
     convert        the weight (and optimizer-state) bridge from the JAX
-                   GPT's, BERT's and ResNet's variables
+                   GPT's, BERT's, ResNet's and multi-head attention's
+                   variables
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

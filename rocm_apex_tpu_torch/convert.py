@@ -26,6 +26,12 @@ from flax's HWIO to OIHW and the dense head's kernel from (in, out) to
 ``downsample_kernel``, ``bn*_scale``/``bias``, ``bn*_mean``/``var``) and
 `FoldedConvBN`'s keep the JAX layout, which the kernels take as it is.
 
+`mha_from_jax_params` loads a flax `SelfMultiheadAttn` or
+`EncdecMultiheadAttn`'s params (``qkv_proj``/``q_proj``/``kv_proj``/
+``out_proj`` kernels and biases, ``lyr_norm`` weight and bias) into the
+port module of the same options: a ``Dense`` kernel goes from (in, out)
+to ``nn.Linear``'s (out, in).
+
 `random_params` draws the same tree with numpy from a seed, with the
 JAX model's initializers: normal(``init_method_std``) for the
 embeddings and input projections, the output projections (attention
@@ -49,6 +55,7 @@ __all__ = [
     "flatten_params",
     "train_state_from_jax_params",
     "resnet_from_jax_variables",
+    "mha_from_jax_params",
 ]
 
 
@@ -242,3 +249,33 @@ def resnet_from_jax_variables(params: Dict[str, Any],
                                  f"{tuple(d.shape)}")
             d.copy_(torch.tensor(a, dtype=d.dtype))
     return model
+
+
+def mha_from_jax_params(tree: Dict[str, Any], module) -> Any:
+    """Copy a flax multi-head attention module's params (numpy-convertible,
+    with or without the ``'params'`` level) into ``module``, a port
+    `SelfMultiheadAttn` or `EncdecMultiheadAttn` with the same ``bias``
+    and ``include_norm_add``, in place; returns the module. Each ``kernel``
+    is transposed to the (out, in) ``weight``. Raises on a missing or
+    unexpected leaf, or a shape mismatch."""
+    src = {}
+    for key, a in flatten_params(tree.get("params", tree)).items():
+        owner, _, leaf = key.rpartition(".")
+        a = np.asarray(a, dtype=np.float32)
+        if leaf == "kernel":
+            key, a = f"{owner}.weight", a.T
+        src[key] = a
+    dst = dict(module.named_parameters())
+    missing = sorted(set(dst) - set(src))
+    extra = sorted(set(src) - set(dst))
+    if missing or extra:
+        raise KeyError(f"params do not match {type(module).__name__}: "
+                       f"missing {missing}, unexpected {extra}")
+    with torch.no_grad():
+        for key, d in dst.items():
+            if tuple(src[key].shape) != tuple(d.shape):
+                raise ValueError(f"{key}: shape {src[key].shape} != "
+                                 f"{tuple(d.shape)}")
+            d.copy_(torch.tensor(np.ascontiguousarray(src[key]),
+                                 dtype=d.dtype))
+    return module

@@ -17,7 +17,10 @@
 // dgamma/dbeta are reduced in two stages in fp32, as on the TPU: each
 // block sums its rows into one partial row, adding its warps in a fixed
 // order; `ln_bwd_reduce_kernel` adds the partials in a fixed order. No
-// atomics, so the result is the same run to run.
+// atomics, so the result is the same run to run. A null gamma is the
+// non-affine form (`_ln_bwd_kernel` with affine=False): g = dy, no
+// partials and no reduction launch; each kernel takes it as a template
+// flag, so the affine instances are the code they were.
 //
 // Bound: bytes (a handful of FLOPs per element). The forward's layout is
 // the host's plan (ops/layer_norm.py `ln_fwd_plan`), by shape:
@@ -295,7 +298,7 @@ __global__ void __launch_bounds__(kLnMaxRowWarps * 32)
 constexpr int kBwdWarps = 4;
 constexpr int kBwdRowsPerBlock = 32;
 
-template <typename T, typename W, typename Y>
+template <typename T, typename W, typename Y, bool kAffine>
 __global__ void __launch_bounds__(kBwdWarps * 32)
     ln_bwd_kernel(const T* __restrict__ x, const Y* __restrict__ dy,
                   const T* __restrict__ ds, const float* __restrict__ mean,
@@ -308,9 +311,11 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
   const int lane = threadIdx.x & 31;
   float* sg = sm + warp * 2 * hidden;
   float* sb = sg + hidden;
-  for (int c = lane; c < hidden; c += 32) {
-    sg[c] = 0.f;
-    sb[c] = 0.f;
+  if constexpr (kAffine) {
+    for (int c = lane; c < hidden; c += 32) {
+      sg[c] = 0.f;
+      sb[c] = 0.f;
+    }
   }
   const int row0 = blockIdx.x * kBwdRowsPerBlock;
   const int row_end = min(row0 + kBwdRowsPerBlock, rows);
@@ -322,18 +327,21 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
     for (int c = lane; c < hidden; c += 32) {
       const float xh = (to_float(x[off + c]) - mu) * rs;
       const float g = to_float(dy[off + c]);
-      const float gg = g * to_float(gamma[c]);
+      const float gg = kAffine ? g * to_float(gamma[c]) : g;
       s1 += gg;
       s2 = fmaf(gg, xh, s2);
-      sg[c] = fmaf(g, xh, sg[c]);  // lane-private columns: no race
-      sb[c] += g;
+      if constexpr (kAffine) {
+        sg[c] = fmaf(g, xh, sg[c]);  // lane-private columns: no race
+        sb[c] += g;
+      }
     }
     const float c1 = warp_sum(s1) / hidden;
     const float c2 = warp_sum(s2) / hidden;
     const uint32_t key = dropout_row_key(drop.seed, 0u, row);
     for (int c = lane; c < hidden; c += 32) {
       const float xh = (to_float(x[off + c]) - mu) * rs;
-      const float gg = to_float(dy[off + c]) * to_float(gamma[c]);
+      const float g = to_float(dy[off + c]);
+      const float gg = kAffine ? g * to_float(gamma[c]) : g;
       float v = rs * (gg - c1 - xh * c2);
       if (ds != nullptr) v += to_float(ds[off + c]);
       dx[off + c] = from_float<T>(v);
@@ -342,16 +350,18 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
             keep_bit(key, c, drop.thr) ? v * drop.scale : 0.f);
     }
   }
-  __syncthreads();
-  float* out = part + static_cast<int64_t>(blockIdx.x) * 2 * hidden;
-  for (int c = threadIdx.x; c < hidden; c += blockDim.x) {
-    float g = 0.f, b = 0.f;
-    for (int w = 0; w < kBwdWarps; ++w) {
-      g += sm[w * 2 * hidden + c];
-      b += sm[w * 2 * hidden + hidden + c];
+  if constexpr (kAffine) {
+    __syncthreads();
+    float* out = part + static_cast<int64_t>(blockIdx.x) * 2 * hidden;
+    for (int c = threadIdx.x; c < hidden; c += blockDim.x) {
+      float g = 0.f, b = 0.f;
+      for (int w = 0; w < kBwdWarps; ++w) {
+        g += sm[w * 2 * hidden + c];
+        b += sm[w * 2 * hidden + hidden + c];
+      }
+      out[c] = g;
+      out[hidden + c] = b;
     }
-    out[c] = g;
-    out[hidden + c] = b;
   }
 }
 
@@ -362,7 +372,8 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
 // dbeta of those columns accumulate in its registers over the rows it
 // walks; at the end the block's warps add theirs in warp order through
 // `colsum` (a warp route: every warp holds every column) and the block
-// writes part[blockIdx.x] = (dgamma, dbeta) of its rows.
+// writes part[blockIdx.x] = (dgamma, dbeta) of its rows. Without
+// kAffine, g = dy and no column sums are kept or written.
 constexpr int kLnBwdWarpHidden = 32 * kLnMaxValues;  // a warp row's widest
 
 // the line holding p into L2, ahead of its load
@@ -370,7 +381,8 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
-template <typename T, typename W, typename Y, int NV, bool kBlockRow>
+template <typename T, typename W, typename Y, int NV, bool kBlockRow,
+          bool kAffine>
 __device__ __forceinline__ void ln_bwd_row(
     const T* __restrict__ x, const Y* __restrict__ dy,
     const T* __restrict__ ds, const float* __restrict__ mean,
@@ -379,7 +391,8 @@ __device__ __forceinline__ void ln_bwd_row(
     int rows, int hidden, Dropout drop) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   __shared__ float red[2][kLnMaxRowWarps];
-  __shared__ float colsum[kBlockRow ? 1 : 2 * kLnBwdWarpHidden];
+  __shared__ float colsum[kBlockRow || !kAffine ? 1
+                                                : 2 * kLnBwdWarpHidden];
   const int warp = static_cast<int>(threadIdx.x >> 5);
   const int warps = static_cast<int>(blockDim.x >> 5);
   const int t = kBlockRow ? static_cast<int>(threadIdx.x)
@@ -440,14 +453,16 @@ __device__ __forceinline__ void ln_bwd_row(
       const int c = (j * row_threads + t) * VEC;
       if (c < hidden) {
         float w[VEC];
-        load_wide<W, VEC>(gamma + c, w);
+        if constexpr (kAffine) load_wide<W, VEC>(gamma + c, w);
         const T* xe = reinterpret_cast<const T*>(&xw[j]);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
           const float xh = (to_float(xe[i]) - mu) * rs;
-          const float gg = g[j][i] * w[i];
-          ag[j][i] = fmaf(g[j][i], xh, ag[j][i]);
-          ab[j][i] += g[j][i];
+          const float gg = kAffine ? g[j][i] * w[i] : g[j][i];
+          if constexpr (kAffine) {
+            ag[j][i] = fmaf(g[j][i], xh, ag[j][i]);
+            ab[j][i] += g[j][i];
+          }
           s1 += gg;
           s2 = fmaf(gg, xh, s2);
         }
@@ -461,12 +476,12 @@ __device__ __forceinline__ void ln_bwd_row(
       const int c = (j * row_threads + t) * VEC;
       if (c < hidden) {
         float w[VEC], v[VEC];
-        load_wide<W, VEC>(gamma + c, w);
+        if constexpr (kAffine) load_wide<W, VEC>(gamma + c, w);
         const T* xe = reinterpret_cast<const T*>(&xw[j]);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
           const float xh = (to_float(xe[i]) - mu) * rs;
-          v[i] = rs * (g[j][i] * w[i] - c1 - xh * c2);
+          v[i] = rs * ((kAffine ? g[j][i] * w[i] : g[j][i]) - c1 - xh * c2);
         }
         if (ds != nullptr) {
           const T* se = reinterpret_cast<const T*>(&sw[j]);
@@ -485,9 +500,12 @@ __device__ __forceinline__ void ln_bwd_row(
   }
 
   // the block's partial row: a block row's threads own disjoint columns;
-  // a warp route's warps each own every column, added in warp order
-  float* out = part + static_cast<int64_t>(blockIdx.x) * 2 * hidden;
-  for (int w = 0; w < (kBlockRow ? 1 : warps); ++w) {
+  // a warp route's warps each own every column, added in warp order (no
+  // partial row without kAffine)
+  float* out = part + (kAffine ? static_cast<int64_t>(blockIdx.x) * 2 *
+                                     hidden
+                               : 0);
+  for (int w = 0; w < (!kAffine ? 0 : kBlockRow ? 1 : warps); ++w) {
     if (kBlockRow || warp == w) {
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
@@ -531,19 +549,19 @@ constexpr int ln_bwd_blocks_per_sm() {
   return sizeof(T) == 2 ? 3 : 2;
 }
 
-template <typename T, typename W, typename Y, int NV>
+template <typename T, typename W, typename Y, int NV, bool kAffine>
 __global__ void __launch_bounds__(kLnWarpRowThreads,
                                   ln_bwd_blocks_per_sm<T>())
     ln_bwd_warp_kernel(APEX_LN_BWD_PARAMS) {
-  ln_bwd_row<T, W, Y, NV, false>(x, dy, ds, mean, rsigma, gamma, dx, dd,
-                                 part, rows, hidden, drop);
+  ln_bwd_row<T, W, Y, NV, false, kAffine>(x, dy, ds, mean, rsigma, gamma,
+                                          dx, dd, part, rows, hidden, drop);
 }
 
-template <typename T, typename W, typename Y, int NV>
+template <typename T, typename W, typename Y, int NV, bool kAffine>
 __global__ void __launch_bounds__(kLnMaxRowWarps * 32)
     ln_bwd_block_kernel(APEX_LN_BWD_PARAMS) {
-  ln_bwd_row<T, W, Y, NV, true>(x, dy, ds, mean, rsigma, gamma, dx, dd,
-                                part, rows, hidden, drop);
+  ln_bwd_row<T, W, Y, NV, true, kAffine>(x, dy, ds, mean, rsigma, gamma,
+                                         dx, dd, part, rows, hidden, drop);
 }
 #undef APEX_LN_BWD_PARAMS
 
@@ -706,14 +724,27 @@ struct BwdLaunch {
   int row_warps, vectors, grid;  // the plan's layout; row_warps 0: old form
   cudaStream_t stream;
 
+  // a null gamma: the non-affine form, instantiated for W == T only (the
+  // host passes x's dtype code for the absent weight)
   template <typename T, typename W, typename Y>
   int run() {
+    if (gamma != nullptr) return run_form<T, W, Y, true>();
+    if constexpr (std::is_same<T, W>::value) {
+      return run_form<T, W, Y, false>();
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+
+  template <typename T, typename W, typename Y, bool kAffine>
+  int run_form() {
     int parts = grid;
     if (row_warps == 0) {
       parts = (rows + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock;
       if (grid != parts) return static_cast<int>(cudaErrorInvalidValue);
-      const size_t smem = sizeof(float) * kBwdWarps * 2 * hidden;
-      auto kernel = ln_bwd_kernel<T, W, Y>;
+      const size_t smem = kAffine ? sizeof(float) * kBwdWarps * 2 * hidden
+                                  : 0;
+      auto kernel = ln_bwd_kernel<T, W, Y, kAffine>;
       if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -740,27 +771,29 @@ struct BwdLaunch {
           (row_warps == 1 && hidden > kLnBwdWarpHidden) ||
           static_cast<int64_t>(vectors) * 32 * row_warps * kVec < hidden)
         return static_cast<int>(cudaErrorInvalidValue);
-      const int rc = launch_register<T, W, Y, 1>();
+      const int rc = launch_register<T, W, Y, 1, kAffine>();
       if (rc != 0) return rc;
     }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
-    ln_bwd_reduce_kernel<W>
-        <<<(hidden + kReduceCols - 1) / kReduceCols,
-           dim3(kReduceCols, kReduceSlices), 0, stream>>>(
-            static_cast<const float*>(part), parts, hidden,
-            static_cast<W*>(dgamma), static_cast<W*>(dbeta));
+    if constexpr (kAffine) {
+      ln_bwd_reduce_kernel<W>
+          <<<(hidden + kReduceCols - 1) / kReduceCols,
+             dim3(kReduceCols, kReduceSlices), 0, stream>>>(
+              static_cast<const float*>(part), parts, hidden,
+              static_cast<W*>(dgamma), static_cast<W*>(dbeta));
+    }
     return 0;
   }
 
   // the instance of NV == vectors: 1, 2, 4, ... up to kLnMaxValues values
-  template <typename T, typename W, typename Y, int NV>
+  template <typename T, typename W, typename Y, int NV, bool kAffine>
   int launch_register() {
     constexpr int kVec = 16 / static_cast<int>(sizeof(T));
     if constexpr (NV * kVec > kLnMaxValues) {
       return static_cast<int>(cudaErrorInvalidValue);
     } else {
-      if (vectors != NV) return launch_register<T, W, Y, NV * 2>();
+      if (vectors != NV) return launch_register<T, W, Y, NV * 2, kAffine>();
       auto args = [&](auto kernel, int threads) {
         kernel<<<grid, threads, 0, stream>>>(
             static_cast<const T*>(x), static_cast<const Y*>(dy),
@@ -770,9 +803,9 @@ struct BwdLaunch {
             static_cast<float*>(part), rows, hidden, drop);
       };
       if (row_warps == 1)
-        args(ln_bwd_warp_kernel<T, W, Y, NV>, kLnWarpRowThreads);
+        args(ln_bwd_warp_kernel<T, W, Y, NV, kAffine>, kLnWarpRowThreads);
       else
-        args(ln_bwd_block_kernel<T, W, Y, NV>, 32 * row_warps);
+        args(ln_bwd_block_kernel<T, W, Y, NV, kAffine>, 32 * row_warps);
       return 0;
     }
   }
@@ -806,9 +839,10 @@ extern "C" int ln_fwd(const void* x, const void* delta, const void* gamma,
 // x: the saved (rows, hidden) LN input (the stream s of the residual
 // forms) in x_dtype; dy: (rows, hidden) in y_dtype; ds: the stream's
 // cotangent in x_dtype or null; mean/rsigma: the forward's (rows,) fp32;
-// gamma: (hidden,) in w_dtype. Writes dx (x_dtype), dd (x_dtype, only
-// with dropout; else null), dgamma/dbeta ((hidden,) in w_dtype) through
-// `part`, an fp32 scratch of grid * 2 * hidden. row_warps/vectors/grid:
+// gamma: (hidden,) in w_dtype, or null for the non-affine form (w_dtype
+// then x_dtype; part, dgamma and dbeta null). Writes dx (x_dtype), dd
+// (x_dtype, only with dropout; else null), dgamma/dbeta ((hidden,) in
+// w_dtype) through `part`, an fp32 scratch of grid * 2 * hidden. row_warps/vectors/grid:
 // `ln_bwd_plan`'s layout (row_warps 0: the old form, grid ceil(rows /
 // 32); 1: a warp a row, four a block; more: a block of that many warps
 // a row; `vectors` 16-byte vectors of x a thread, `grid` blocks).

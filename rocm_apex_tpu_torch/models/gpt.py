@@ -64,6 +64,27 @@ Port of ``rocm_apex_tpu/models/gpt.py`` at tensor-parallel world size 1.
   engine's slots start empty); a paged cache refuses it, as in JAX.
   These branches run the flash kernels under ``"fused_softmax"`` too, as
   the JAX model does (it tests for ``"jnp"`` only, gpt.py:820-900).
+* ``attention_impl="jnp"`` is the JAX model's one-pass reference
+  attention, in plain PyTorch: no attention kernel launches (the
+  LayerNorm kernels do). Uncached, it is the materialized path with the
+  softmax kernels off (gpt.py:488-490). The packed chunk, after its
+  scatter, attends each token's own slot's cache rows ``[0, pos + 1)``
+  in one bounded fp32 softmax, the slot picked by a one-hot contraction
+  (gpt.py:589-640; a paged cache is read through `paged_view`,
+  dequantized when int8); the decode reads a materialized softmax over
+  ``[0, length + 1)`` (gpt.py:810-880) and the whole-prompt prefill a
+  causal one (gpt.py:896-910).
+* ``context_parallel_axis`` (gpt.py:114-119): the uncached model runs on
+  this rank's contiguous shard of the sequence, over the process group
+  bound to the axis (`transformer.parallel_state`). Each layer's causal
+  attention is `ring_flash_attention` over the unpacked kernels, never
+  the packed ones (gpt.py:958-966); default positions are offset by
+  rank * s_local (gpt.py:1402-1407), and the hidden-dropout seeds fold
+  the rank in, so the shards draw different masks (gpt.py:270-285). It
+  takes attention_impl "flash", the causal type and no attention
+  dropout in training, as the JAX model (gpt.py:476-486). The
+  all-reduce of the replicated parameters' gradients over the group is
+  the caller's.
 
 Module and parameter names follow the JAX model's param tree, so its
 flattened paths are this module's ``state_dict`` keys (see ``convert.py``).
@@ -102,17 +123,24 @@ from rocm_apex_tpu_torch.ops.flash_attention_segments import (
     flash_attention_segments_with_lse,
     merge_by_lse,
 )
+from rocm_apex_tpu_torch.ops import _dropout as _keep_bits
 from rocm_apex_tpu_torch.ops.paging import (
     PagedRows,
     paged_rows,
     paged_scatter,
+    paged_view,
     quantized_paged_scatter,
 )
 from rocm_apex_tpu_torch.ops.softmax import (
+    ScoresFp32,
     scaled_masked_softmax,
     scaled_upper_triang_masked_softmax,
 )
 from rocm_apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss_fused
+from rocm_apex_tpu_torch.transformer import parallel_state
+from rocm_apex_tpu_torch.transformer.context_parallel import (
+    ring_flash_attention,
+)
 from rocm_apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -121,6 +149,7 @@ from rocm_apex_tpu_torch.transformer.tensor_parallel import (
 
 __all__ = [
     "GPTConfig",
+    "hidden_dropout_seed",
     "GPTModel",
     "gpt_loss_fn",
     "ParallelMLP",
@@ -155,35 +184,45 @@ class GPTConfig:
     # False: the fused-softmax path's softmax is plain, -inf fills for
     # both mask types (a fully masked row is NaN there, as in JAX)
     use_pallas_softmax: bool = True
-    # "flash" (the flash kernels) or "fused_softmax" (materialized scores
-    # and the softmax kernels on the uncached path); "jnp" is not ported
+    # "flash" (the flash kernels), "fused_softmax" (materialized scores
+    # and the softmax kernels on the uncached path) or "jnp" (the one-pass
+    # reference attention in plain PyTorch on every path)
     attention_impl: str = "flash"
     checkpoint_activations: bool = False
     label_smoothing: float = 0.0
     ignore_index: Optional[int] = None
     fused_lm_head: bool = True
     lm_head_chunk_size: Optional[int] = None
+    # the uncached model on this rank's shard of the sequence, ring
+    # attention over the process group bound to this axis name
+    # (transformer.parallel_state)
     context_parallel_axis: Optional[str] = None
+    sequence_parallel: bool = False
 
     def __post_init__(self):
+        if self.sequence_parallel and self.context_parallel_axis is not None:
+            raise ValueError(
+                "sequence_parallel shards the sequence over the tensor "
+                "axis and context_parallel_axis shards it over "
+                f"{self.context_parallel_axis!r}: the axes collide on "
+                "the sequence dimension — enable one or the other"
+            )
+        if self.attention_impl not in ("flash", "fused_softmax", "jnp"):
+            raise ValueError(
+                f"unknown attention_impl {self.attention_impl!r}")
         unported = [
             (self.tensor_parallel_size not in (None, 1),
              "tensor_parallel_size > 1 (ROADMAP Queue 1 item 8, tp>1 "
              "serving)"),
-            (self.attention_impl not in ("flash", "fused_softmax"),
-             f"attention_impl={self.attention_impl!r} (the one-pass "
-             f"reference attention and its cached paths, ROADMAP Queue 1 "
-             f"item 11)"),
+            (self.sequence_parallel,
+             "sequence_parallel=True (ROADMAP Queue 1 item 10, rest of the "
+             "training stack)"),
             (self.checkpoint_activations,
              "checkpoint_activations=True (ROADMAP Queue 1 item 10, rest "
              "of the training stack)"),
             (self.apply_residual_connection_post_layernorm,
              "apply_residual_connection_post_layernorm=True (ROADMAP "
              "Queue 1 item 10, rest of the training stack)"),
-            (self.context_parallel_axis is not None,
-             "context_parallel_axis (ring attention over the lse kernel "
-             "across process groups, ROADMAP Queue 1 item 3, "
-             "transformer/context_parallel.py)"),
         ]
         for bad, what in unported:
             if bad:
@@ -204,6 +243,25 @@ def _draw_seed(generator: torch.Generator) -> int:
     """One dropout site's int32 seed, drawn on the host from a CPU
     generator (no device sync)."""
     return int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+
+
+def _cp_rank(cfg: GPTConfig) -> Optional[int]:
+    """This process's rank along the context-parallel axis, or None."""
+    if cfg.context_parallel_axis is None:
+        return None
+    return parallel_state.axis_rank(cfg.context_parallel_axis)
+
+
+def hidden_dropout_seed(generator: torch.Generator, cfg: GPTConfig) -> int:
+    """A hidden-dropout site's int32 seed: `_draw_seed`, with the
+    context-parallel rank folded in (the hash of (seed, rank)), so every
+    shard draws its own mask from one generator state (the JAX model's
+    ``fold_in`` of the axis index, gpt.py:270-285)."""
+    seed = _draw_seed(generator)
+    rank = _cp_rank(cfg)
+    if rank is None:
+        return seed
+    return int(_keep_bits.hash32(seed, rank, 0, 0)) & 0x7FFFFFFF
 
 
 def _paged_write(k_buf, v_buf, paged, k_new, v_new) -> None:
@@ -231,37 +289,6 @@ def _dropout(x, seed: int, rate: float):
     gen = torch.Generator(device=x.device).manual_seed(seed)
     keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
-
-
-class _ScoresFp32(torch.autograd.Function):
-    """q·kᵀ over the last axis as fp32 scores from q, k in the compute
-    dtype: the JAX einsum's ``preferred_element_type=float32``
-    (gpt.py:1012-1014). A 16-bit matmul would round the scores to 16 bits
-    before the softmax; here the products of the 16-bit values are summed
-    in fp32 and never rounded: on CUDA by cuBLAS with a 16-bit input and
-    fp32 output (``torch.bmm(..., out_dtype=torch.float32)``), on the CPU
-    by an fp32 product of the widened inputs (exact products, fp32 sums).
-    The backward takes the fp32 cotangent to q's dtype and multiplies in
-    it (one rounding of each fp32-accumulated gradient); in fp32 compute
-    that is the exact transpose."""
-
-    @staticmethod
-    def forward(ctx, q, k):
-        ctx.save_for_backward(q, k)
-        kt = k.transpose(-1, -2)
-        if q.dtype == torch.float32:
-            return torch.matmul(q, kt)
-        if q.device.type != "cuda":
-            return torch.matmul(q.float(), kt.float())
-        lead, (sq, hd), sk = q.shape[:-2], q.shape[-2:], k.shape[-2]
-        return torch.bmm(q.reshape(-1, sq, hd), kt.reshape(-1, hd, sk),
-                         out_dtype=torch.float32).view(*lead, sq, sk)
-
-    @staticmethod
-    def backward(ctx, ds):
-        q, k = ctx.saved_tensors
-        ds = ds.to(q.dtype)
-        return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q)
 
 
 class ParallelMLP(nn.Module):
@@ -335,8 +362,10 @@ class ParallelAttention(nn.Module):
         are the segment ids), None for the decode and the whole-prompt
         prefill."""
         if cache is None:
+            if self.cfg.context_parallel_axis is not None:
+                return self._forward_ring(x, dropout_seed)
             mask = attention_mask if self.attn_mask_type == "padding" else None
-            if self.cfg.attention_impl == "fused_softmax":
+            if self.cfg.attention_impl in ("fused_softmax", "jnp"):
                 return self._forward_fused_softmax(x, dropout_seed, mask)
             if mask is None and self.cfg.head_dim % 128 == 0:
                 return self._forward_packed(x, dropout_seed)
@@ -355,6 +384,7 @@ class ParallelAttention(nn.Module):
         qkv, _ = self.query_key_value(x)
         # the fused projection is interleaved PER HEAD: (b, s, nh, 3*hd)
         q, k, v = qkv.view(b, sq, nh, 3 * hd).split(hd, dim=-1)
+        jnp_ref = cfg.attention_impl == "jnp"
         if chunk is not None:
             if b != 1:
                 raise ValueError(
@@ -363,7 +393,21 @@ class ParallelAttention(nn.Module):
                 )
             qq, kq, vq = q[0], k[0], v[0]  # (budget, nh, hd) views
             qT, kT, vT = (t.transpose(0, 1) for t in (qq, kq, vq))
-            if paged is not None:
+            if jnp_ref:
+                # the chunk's K/V into the cache first; then each token
+                # reads its slot's rows [0, pos + 1) back in one softmax
+                if paged is not None:
+                    _paged_write(k_buf, v_buf, paged, kq, vq)
+                    table = paged["page_table"]
+                    kc = paged_view(k_buf, table, paged["k_scale"])
+                    vc = paged_view(v_buf, table, paged["v_scale"])
+                else:
+                    scatter_chunk(k_buf, chunk, kq)
+                    scatter_chunk(v_buf, chunk, vq)
+                    kc, vc = k_buf, v_buf
+                ctx = _reference_chunk(qq, kc, vc, chunk.slots,
+                                       chunk.positions, scale)
+            elif paged is not None:
                 # in place, through the table; then piece A within the
                 # chunk and piece B over each token's own slot's pages
                 _paged_write(k_buf, v_buf, paged, kq, vq)
@@ -401,11 +445,18 @@ class ParallelAttention(nn.Module):
             table = paged["page_table"]
             capacity = table.shape[1] * paged["page_size"]
             kv_len = torch.clamp(lengths + 1, max=capacity)
-            ctx = flash_attention_decode_paged(
-                q[:, 0], k_buf, v_buf, table, kv_len, scale,
-                paged["k_scale"], paged["v_scale"],
-                capacity=paged["capacity"],
-            ).reshape(b, 1, nh * hd)
+            if jnp_ref:
+                ctx = _reference_decode(
+                    q[:, 0], paged_view(k_buf, table, paged["k_scale"]),
+                    paged_view(v_buf, table, paged["v_scale"]), kv_len,
+                    scale)
+            else:
+                ctx = flash_attention_decode_paged(
+                    q[:, 0], k_buf, v_buf, table, kv_len, scale,
+                    paged["k_scale"], paged["v_scale"],
+                    capacity=paged["capacity"],
+                )
+            ctx = ctx.to(cfg.dtype).reshape(b, 1, nh * hd)
         else:
             # in place: each slot's new rows at its length, dead rows
             # included
@@ -415,14 +466,22 @@ class ParallelAttention(nn.Module):
                 # whole-prompt prefill: the slots start empty, so causal
                 # attention over the fresh window is the whole history
                 # (the cache is written, not read)
-                ctx = flash_attention_heads(
-                    *(t.permute(0, 2, 1, 3) for t in (q, k, v)),
-                    causal=True, scale=scale,
-                )
+                if jnp_ref:
+                    ctx = _reference_prefill(q, k, v, scale).to(cfg.dtype)
+                else:
+                    ctx = flash_attention_heads(
+                        *(t.permute(0, 2, 1, 3) for t in (q, k, v)),
+                        causal=True, scale=scale,
+                    )
             else:
                 kv_len = torch.clamp(lengths + 1, max=k_buf.shape[1])
-                ctx = flash_attention_decode(q[:, 0], k_buf, v_buf, kv_len,
-                                             scale).reshape(b, 1, nh * hd)
+                if jnp_ref:
+                    ctx = _reference_decode(q[:, 0], k_buf, v_buf, kv_len,
+                                            scale).to(cfg.dtype)
+                else:
+                    ctx = flash_attention_decode(q[:, 0], k_buf, v_buf,
+                                                 kv_len, scale)
+                ctx = ctx.reshape(b, 1, nh * hd)
         y, _ = self.dense(ctx)
         return y
 
@@ -465,24 +524,54 @@ class ParallelAttention(nn.Module):
         y, _ = self.dense(ctx)
         return y
 
+    def _forward_ring(self, x, dropout_seed):
+        """Context parallelism (gpt.py:958-966): x is this rank's sequence
+        shard; the causal attention of the per-head q/k/v column blocks,
+        as contiguous (b*nh, s_local, hd) shards, is the ring over the
+        unpacked kernels. The JAX model's refusals, with its message
+        (gpt.py:476-486)."""
+        cfg = self.cfg
+        if (cfg.attention_impl != "flash" or self.attn_mask_type != "causal"
+                or dropout_seed is not None):
+            # attending within the local shard only would be a wrong
+            # model; context parallelism rides the ring-flash path
+            raise ValueError(
+                "context_parallel_axis requires attention_impl='flash', "
+                "causal masking, and attention_dropout=0 in training "
+                f"(got impl={cfg.attention_impl!r}, "
+                f"mask={self.attn_mask_type!r}, "
+                f"attn_dropout={cfg.attention_dropout})"
+            )
+        b, s, _ = x.shape
+        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        qkv, _ = self.query_key_value(x)
+        q, k, v = (t.permute(0, 2, 1, 3).reshape(b * nh, s, hd) for t in
+                   qkv.view(b, s, nh, 3 * hd).split(hd, dim=-1))
+        ctx = ring_flash_attention(q, k, v, cfg.context_parallel_axis,
+                                   causal=True, scale=1.0 / math.sqrt(hd))
+        ctx = ctx.view(b, nh, s, hd).permute(0, 2, 1, 3).reshape(b, s, nh * hd)
+        y, _ = self.dense(ctx)
+        return y
+
     def _forward_fused_softmax(self, x, dropout_seed, mask):
         """The materialized path (gpt.py:1010-1053): fp32 scores of the
-        per-head q/k column blocks (`_ScoresFp32`), the scaled softmax
+        per-head q/k column blocks (`ScoresFp32`), the scaled softmax
         (the causal kernel on (b*nh, s, s); the padding type's masked
         kernel with ``mask``, or a plain fp32 softmax without one; with
-        ``use_pallas_softmax=False`` a plain softmax with -inf fills), the
-        probabilities in the compute dtype, their dropout with a seed,
-        then probs·v in the compute dtype."""
+        ``use_pallas_softmax=False``, and always under ``"jnp"``, a plain
+        softmax with -inf fills), the probabilities in the compute dtype,
+        their dropout with a seed, then probs·v in the compute dtype."""
         cfg = self.cfg
+        use_kernel = cfg.use_pallas_softmax and cfg.attention_impl != "jnp"
         b, s, _ = x.shape
         nh, hd = cfg.num_attention_heads, cfg.head_dim
         scale = 1.0 / math.sqrt(hd)
         qkv, _ = self.query_key_value(x)
         q, k, v = (t.permute(0, 2, 1, 3) for t in
                    qkv.view(b, s, nh, 3 * hd).split(hd, dim=-1))
-        scores = _ScoresFp32.apply(q, k)  # (b, nh, s, s) fp32
+        scores = ScoresFp32.apply(q, k)  # (b, nh, s, s) fp32
         if self.attn_mask_type == "causal":
-            if cfg.use_pallas_softmax:
+            if use_kernel:
                 probs = scaled_upper_triang_masked_softmax(
                     scores.view(b * nh, s, s), scale).view(b, nh, s, s)
             else:
@@ -492,7 +581,7 @@ class ParallelAttention(nn.Module):
                     (scores * scale).masked_fill(upper, float("-inf")), -1)
         elif mask is None:
             probs = torch.softmax(scores * scale, dim=-1)
-        elif cfg.use_pallas_softmax:
+        elif use_kernel:
             probs = scaled_masked_softmax(scores, mask, scale)
         else:
             probs = torch.softmax(
@@ -543,7 +632,7 @@ class ParallelTransformerLayer(nn.Module):
         hrate = cfg.hidden_dropout if seeds is not None else 0.0
 
         def hseed():
-            return _draw_seed(seeds) if hrate > 0.0 else 0
+            return hidden_dropout_seed(seeds, cfg) if hrate > 0.0 else 0
 
         if delta is None:
             ln1 = self.input_layernorm(x)
@@ -642,7 +731,8 @@ class ParallelTransformer(nn.Module):
         rate = self.cfg.hidden_dropout if seeds is not None else 0.0
         x, _ = self.final_layernorm(
             delta.to(x.dtype), residual=x, dropout_rate=rate,
-            dropout_seed=_draw_seed(seeds) if rate > 0.0 else 0,
+            dropout_seed=hidden_dropout_seed(seeds, self.cfg)
+            if rate > 0.0 else 0,
         )
         return x.to(self.cfg.dtype)
 
@@ -748,12 +838,17 @@ class GPTModel(nn.Module):
         if position_ids is None:
             position_ids = torch.arange(tokens.shape[1],
                                         device=tokens.device)[None, :]
+            rank = _cp_rank(cfg)
+            if rank is not None:
+                # this rank's shard of the sequence starts here
+                position_ids = position_ids + rank * tokens.shape[1]
         seeds = None
         if not deterministic:
             seeds = dropout_generator or torch.default_generator
         x = self.embedding(tokens, position_ids)
         if seeds is not None and cfg.hidden_dropout > 0.0:
-            x = _dropout(x, _draw_seed(seeds), cfg.hidden_dropout)
+            x = _dropout(x, hidden_dropout_seed(seeds, cfg),
+                         cfg.hidden_dropout)
         x = self.transformer(x, seeds=seeds)
         if labels is None:
             return self.embedding.attend(x)
@@ -812,6 +907,57 @@ class GPTModel(nn.Module):
         x = self.transformer(x, cache, rows if chunk is not None else None,
                              rows=rows if paged else None)
         return self.embedding.attend(x), cache
+
+
+def _bounded_softmax(scores, live):
+    """softmax over the last axis of fp32 scores, -inf where not live."""
+    return torch.softmax(scores.masked_fill(~live, float("-inf")), dim=-1)
+
+
+def _reference_chunk(qq, kc, vc, slots, positions, scale):
+    """`attention_impl="jnp"` on the packed chunk (gpt.py:589-640): token
+    t (query (budget, nh, hd)) attends its own slot's cache rows ``[0,
+    pos + 1)`` (the chunk's rows already written) in one fp32 softmax.
+    The slot rides a one-hot contraction over the (num_slots, capacity,
+    nh, hd) cache, as in JAX: the product with every slot's rows, then
+    the one-hot sum over slots (a pad's id clamps onto the last slot).
+    Returns the (budget, nh, hd) fp32 context."""
+    num_slots, capacity = kc.shape[0], kc.shape[1]
+    slot_c = slots.long().clamp(0, num_slots - 1)
+    onehot = (slot_c[:, None] == torch.arange(
+        num_slots, device=qq.device)[None, :]).float()  # (budget, slots)
+    prod = torch.einsum("tnd,scnd->tnsc", qq.float(), kc.float())
+    scores = torch.einsum("tnsc,ts->tnc", prod, onehot) * scale
+    col = torch.arange(capacity, device=qq.device)
+    live = col[None, None, :] < (positions.long() + 1)[:, None, None]
+    probs = _bounded_softmax(scores, live)
+    spread = torch.einsum("tnc,ts->tnsc", probs, onehot)
+    return torch.einsum("tnsc,scnd->tnd", spread, vc.float())
+
+
+def _reference_decode(q, kc, vc, kv_len, scale):
+    """`attention_impl="jnp"` on the single-token decode (gpt.py:
+    810-880): each slot's query (slots, nh, hd) over its cache rows
+    ``[0, kv_len)`` (kc, vc (slots, capacity, nh, hd), contiguous or a
+    paged view), one fp32 softmax; the (slots, nh, hd) fp32 context."""
+    capacity = kc.shape[1]
+    scores = torch.einsum("bnd,bcnd->bnc", q.float(), kc.float()) * scale
+    col = torch.arange(capacity, device=q.device)
+    live = col[None, None, :] < kv_len.long()[:, None, None]
+    probs = _bounded_softmax(scores, live)
+    return torch.einsum("bnc,bcnd->bnd", probs, vc.float())
+
+
+def _reference_prefill(q, k, v, scale):
+    """`attention_impl="jnp"` on the whole-prompt prefill (gpt.py:
+    896-910): causal attention over the (b, s, nh, hd) window in one fp32
+    softmax; the (b, s, nh * hd) fp32 context."""
+    b, s, nh, hd = q.shape
+    scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * scale
+    live = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    probs = _bounded_softmax(scores, live)
+    ctx = torch.einsum("bnqk,bknd->bqnd", probs, v.float())
+    return ctx.reshape(b, s, nh * hd)
 
 
 def _serial_cross_entropy(logits, labels, smoothing=0.0, padding_idx=None):

@@ -14,7 +14,8 @@ takes the same layouts (`ln_bwd_plan`): the row in registers, read and
 written once, its grid walking the rows with two or three blocks a
 multiprocessor, or off the vector grid the old warp-a-row form; it
 reduces dgamma/dbeta in two fixed-order fp32 stages (a partial row a
-block, then a column reduction).
+block, then a column reduction). Without a weight (the non-affine form,
+``layer_norm``) it reduces nothing: g = dy, dx alone.
 
 For a CUDA tensor the wrappers launch the kernels (or raise); for a CPU
 tensor they run the plain versions. Statistics are fp32 whatever the
@@ -44,6 +45,8 @@ __all__ = [
     "LN_FWD",
     "LN_FWD_DROPOUT",
     "LN_BWD",
+    "LN_BWD_NOAFFINE",
+    "layer_norm",
     "layer_norm_fwd",
     "layer_norm_affine",
     "layer_norm_residual_affine",
@@ -76,13 +79,24 @@ LN_FWD_DROPOUT = Kernel(
     argtypes=_FWD_ARGS,
     replaces="rocm_apex_tpu/ops/layer_norm.py:78 _ln_fwd_kernel",
 )
+_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U,
+             _U, _F, _I, _I, _I, _I, _I, _I, _P]
 LN_BWD = Kernel(
     name="layer_norm_bwd",
     source="layer_norm.cu",
     symbol="ln_bwd",
-    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U,
-              _F, _I, _I, _I, _I, _I, _I, _P],
+    argtypes=_BWD_ARGS,
     replaces="rocm_apex_tpu/ops/layer_norm.py:204 _ln_bwd_kernel",
+)
+# the same kernel without a weight (affine=False): no dgamma/dbeta and
+# no reduction launch; counted apart
+LN_BWD_NOAFFINE = Kernel(
+    name="layer_norm_bwd_noaffine",
+    source="layer_norm.cu",
+    symbol="ln_bwd",
+    argtypes=_BWD_ARGS,
+    replaces="rocm_apex_tpu/ops/layer_norm.py:204 _ln_bwd_kernel "
+             "(affine=False)",
 )
 _BWD_ROWS_PER_BLOCK = 32  # csrc/layer_norm.cu kBwdRowsPerBlock (old form)
 # the register backward's grid: blocks a multiprocessor by the element
@@ -275,11 +289,12 @@ def _ln_fwd_impl(x2d, delta2d, weight, bias, eps, out_dtype,
 
 def layer_norm_bwd_plain(x2d, dy, ds, mean, rsigma, weight, rate=0.0,
                          seed=0):
-    """The plain PyTorch version of the affine backward: returns
-    (dx, dd, dgamma, dbeta); dd is None without dropout."""
+    """The plain PyTorch version of the backward: returns (dx, dd, dgamma,
+    dbeta); dd is None without dropout, dgamma and dbeta None without a
+    ``weight`` (the non-affine form, g = dy)."""
     xh = (x2d.float() - mean[:, None]) * rsigma[:, None]
     g = dy.float()
-    gg = g * weight.float()
+    gg = g * weight.float() if weight is not None else g
     c1 = gg.mean(dim=1, keepdim=True)
     c2 = (gg * xh).mean(dim=1, keepdim=True)
     dx = rsigma[:, None] * (gg - c1 - xh * c2)
@@ -290,14 +305,18 @@ def layer_norm_bwd_plain(x2d, dy, ds, mean, rsigma, weight, rate=0.0,
         keep = _dropout.keep_mask(seed, rate, dx.shape, device=dx.device)
         dd = torch.where(keep, dx * _dropout.keep_scale(rate), 0.0)
         dd = dd.to(x2d.dtype)
+    if weight is None:
+        return dx.to(x2d.dtype), dd, None, None
     return (dx.to(x2d.dtype), dd, (g * xh).sum(dim=0).to(weight.dtype),
             g.sum(dim=0).to(weight.dtype))
 
 
 def _layer_norm_bwd(x2d, dy, ds, mean, rsigma, weight, rate=0.0, seed=0):
-    """Affine LN backward on (rows, hidden): x2d is the forward's LN input
-    (the stream s of the residual forms), ds the stream's cotangent or
-    None. Returns (dx, dd, dgamma, dbeta), dd None without dropout."""
+    """LN backward on (rows, hidden): x2d is the forward's LN input (the
+    stream s of the residual forms), ds the stream's cotangent or None,
+    ``weight`` None for the non-affine form. Returns (dx, dd, dgamma,
+    dbeta), dd None without dropout, dgamma/dbeta None without a
+    weight."""
     if x2d.device.type == "cpu":
         return layer_norm_bwd_plain(x2d, dy, ds, mean, rsigma, weight,
                                     rate, seed)
@@ -307,26 +326,51 @@ def _layer_norm_bwd(x2d, dy, ds, mean, rsigma, weight, rate=0.0, seed=0):
     if ds is not None and ds.dtype != x2d.dtype:
         raise TypeError("the stream cotangent must be in the stream's dtype")
     rows, hidden = x2d.shape
+    affine = weight is not None
     dx = torch.empty_like(x2d)
     dd = torch.empty_like(x2d) if rate > 0.0 else None
-    dgamma = torch.empty((hidden,), dtype=weight.dtype, device=x2d.device)
-    dbeta = torch.empty_like(dgamma)
+    dgamma = dbeta = None
+    if affine:
+        dgamma = torch.empty((hidden,), dtype=weight.dtype,
+                             device=x2d.device)
+        dbeta = torch.empty_like(dgamma)
     if rows == 0:
-        return dx, dd, dgamma.zero_(), dbeta.zero_()
+        if affine:
+            dgamma.zero_(), dbeta.zero_()
+        return dx, dd, dgamma, dbeta
     plan = ln_bwd_plan(rows, hidden, x2d.dtype, sm_count(x2d.device),
                        all(t.data_ptr() % 16 == 0
                            for t in (x2d, dy, ds, weight) if t is not None))
-    part = torch.empty((plan["parts"], 2, hidden), dtype=torch.float32,
-                       device=x2d.device)
-    LN_BWD(
+    part = (torch.empty((plan["parts"], 2, hidden), dtype=torch.float32,
+                        device=x2d.device) if affine else None)
+    kernel = LN_BWD if affine else LN_BWD_NOAFFINE
+    kernel(
         ptr(x2d), ptr(dy), ptr(ds), ptr(mean), ptr(rsigma), ptr(weight),
         ptr(dx), ptr(dd), ptr(part), ptr(dgamma), ptr(dbeta), rows, hidden,
         int(rate > 0.0), int(seed) & 0xFFFFFFFF, _dropout.threshold(rate),
         _dropout.keep_scale(rate), dtype_code(x2d.dtype),
-        dtype_code(weight.dtype), dtype_code(dy.dtype), plan["row_warps"],
-        plan["vectors"], plan["grid"], stream_ptr(x2d.device),
+        dtype_code((weight if affine else x2d).dtype), dtype_code(dy.dtype),
+        plan["row_warps"], plan["vectors"], plan["grid"],
+        stream_ptr(x2d.device),
     )
     return dx, dd, dgamma, dbeta
+
+
+class _LayerNorm(torch.autograd.Function):
+    """Non-affine LN (rocm_apex_tpu/ops/layer_norm.py:360-378): the
+    forward with no weight, the backward without dgamma/dbeta."""
+
+    @staticmethod
+    def forward(ctx, x2d, eps):
+        y, _, mu, rs = _ln_fwd_impl(x2d, None, None, None, eps, None)
+        ctx.save_for_backward(x2d, mu, rs)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, mu, rs = ctx.saved_tensors
+        dx, _, _, _ = _layer_norm_bwd(x2d, dy, None, mu, rs, None)
+        return dx, None
 
 
 class _LayerNormAffine(torch.autograd.Function):
@@ -377,6 +421,12 @@ def layer_norm_fwd(
     Not differentiable: the autograd forms are the ``*_affine`` ones."""
     y, _, mu, rs = _ln_fwd_impl(x2d, None, weight, bias, eps, out_dtype)
     return y, mu, rs
+
+
+def layer_norm(x2d, eps):
+    """Non-affine LN on (rows, hidden) with the fused backward; output in
+    x's dtype."""
+    return _LayerNorm.apply(x2d, eps)
 
 
 def layer_norm_affine(x2d, weight, bias, eps, out_dtype=None):

@@ -53,6 +53,7 @@ class PagedRows(NamedTuple):
     keep: torch.Tensor  # (kept,) long indices of the tokens that land
     pages: torch.Tensor  # (kept,) long pool pages
     offsets: torch.Tensor  # (kept,) long rows within the page
+    positions: Optional[torch.Tensor] = None  # (tokens,) every position
 
 
 def paged_destinations(
@@ -92,7 +93,7 @@ def paged_rows(
         page_table, slots, positions, page_size, num_pages
     )
     keep = torch.nonzero((pages >= 0) & (pages < num_pages)).squeeze(1)
-    return PagedRows(slots, keep, pages[keep], offs[keep])
+    return PagedRows(slots, keep, pages[keep], offs[keep], positions)
 
 
 def paged_scatter(

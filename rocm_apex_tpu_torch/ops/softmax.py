@@ -39,6 +39,7 @@ from rocm_apex_tpu_torch.ops._build import DTYPE_CODES, Kernel, ptr, stream_ptr
 
 __all__ = [
     "MASK_FILL",
+    "ScoresFp32",
     "SOFTMAX_CAUSAL_FWD",
     "SOFTMAX_MASKED_FWD",
     "SOFTMAX_BWD",
@@ -310,3 +311,36 @@ def scaled_masked_softmax(x: torch.Tensor, mask: Optional[torch.Tensor],
     broadcast over heads from (b|1, 1, sq|1, sk); None masks nothing (the
     all-False mask). Differentiable in x; the mask gets no gradient."""
     return _MaskedSoftmax.apply(x, mask, float(scale))
+
+
+class ScoresFp32(torch.autograd.Function):
+    """q·kᵀ over the last axis as fp32 scores from q, k in the compute
+    dtype: the JAX einsum's ``preferred_element_type=float32``
+    (rocm_apex_tpu/models/gpt.py:1012-1014): the scores that the GPT's
+    materialized paths and the multi-head attention's dropout branch feed
+    the softmax. A 16-bit matmul would round the scores to 16 bits before
+    the softmax; here the products of the 16-bit values are summed in
+    fp32 and never rounded: on CUDA by cuBLAS with a 16-bit input and
+    fp32 output (``torch.bmm(..., out_dtype=torch.float32)``), on the CPU
+    by an fp32 product of the widened inputs (exact products, fp32 sums).
+    The backward takes the fp32 cotangent to q's dtype and multiplies in
+    it (one rounding of each fp32-accumulated gradient); in fp32 compute
+    that is the exact transpose."""
+
+    @staticmethod
+    def forward(ctx, q, k):
+        ctx.save_for_backward(q, k)
+        kt = k.transpose(-1, -2)
+        if q.dtype == torch.float32:
+            return torch.matmul(q, kt)
+        if q.device.type != "cuda":
+            return torch.matmul(q.float(), kt.float())
+        lead, (sq, hd), sk = q.shape[:-2], q.shape[-2:], k.shape[-2]
+        return torch.bmm(q.reshape(-1, sq, hd), kt.reshape(-1, hd, sk),
+                         out_dtype=torch.float32).view(*lead, sq, sk)
+
+    @staticmethod
+    def backward(ctx, ds):
+        q, k = ctx.saved_tensors
+        ds = ds.to(q.dtype)
+        return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q)

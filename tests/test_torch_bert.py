@@ -197,9 +197,8 @@ class TestForward:
 
     def test_the_masked_branch_raises_by_name(self, jax_run):
         """The masked branch runs (tests/test_torch_bert_masked.py holds
-        it against the JAX model); what it still refuses, context
-        parallelism (ring attention over the lse kernel), raises naming
-        its ROADMAP item. The extended mask masks a pair unless both
+        it against the JAX model); context parallelism, which takes the
+        causal type only, raises the JAX model's ValueError. The extended mask masks a pair unless both
         positions are valid."""
         model = from_jax_params(jax_run["tree"], torch_cfg(), device="cpu")
         tokens, _, _ = _batch()
@@ -209,9 +208,11 @@ class TestForward:
             logits, _ = model(torch.from_numpy(tokens).long(),
                               attention_mask=mask)
         assert bool(torch.isfinite(logits).all())
-        with pytest.raises(NotImplementedError,
-                           match="context_parallel_axis.*ROADMAP"):
-            torch_cfg(context_parallel_axis="cp")
+        cp = from_jax_params(jax_run["tree"],
+                             torch_cfg(context_parallel_axis="cp"),
+                             device="cpu")
+        with pytest.raises(ValueError, match="causal masking"):
+            cp(torch.from_numpy(tokens).long(), attention_mask=mask)
         ext = bert_extended_attention_mask(mask)
         assert ext.shape == (BATCH, 1, SEQ, SEQ) and ext.dtype == torch.bool
         assert not bool(ext[0, 0, 0, 0]) and bool(ext[0, 0, 0, -1])

@@ -208,17 +208,25 @@ class TestCachedSteps:
 
 class TestEntryPoints:
     def test_unported_paths_raise(self, models):
-        """Context parallelism, tp > 1 and the GPT options the port
-        cannot run yet raise, naming their ROADMAP item; whole-prompt
-        prefill runs on the contiguous cache (tests/
+        """tp > 1 and the GPT options the port cannot run yet raise,
+        naming their ROADMAP item; "jnp" attention and context
+        parallelism construct (tests/test_torch_gpt_jnp.py,
+        tests/test_torch_context_parallel.py), an unknown impl and the
+        sequence-parallel collision raise ValueError as in JAX;
+        whole-prompt prefill runs on the contiguous cache (tests/
         test_torch_engine_whole.py) and a paged cache refuses it, as the
         JAX model does."""
         _, _, model = models
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GPTConfig(**SHAPE, attention_impl="jnp")
+        assert GPTConfig(**SHAPE, attention_impl="jnp").attention_impl == "jnp"
+        assert GPTConfig(**SHAPE, context_parallel_axis="cp")
+        with pytest.raises(ValueError, match="attention_impl"):
+            GPTConfig(**SHAPE, attention_impl="xla")
+        with pytest.raises(ValueError, match="collide"):
+            GPTConfig(**SHAPE, context_parallel_axis="cp",
+                      sequence_parallel=True)
         with pytest.raises(NotImplementedError,
-                           match="context_parallel_axis.*ROADMAP"):
-            GPTConfig(**SHAPE, context_parallel_axis="cp")
+                           match="sequence_parallel.*ROADMAP"):
+            GPTConfig(**SHAPE, sequence_parallel=True)
         # the materialized head runs now (tests/test_torch_bert.py)
         assert not GPTConfig(**SHAPE, fused_lm_head=False).fused_lm_head
         paged = PagedKVCache.for_model(torch_cfg(), 1, CAPACITY, page_size=8,

@@ -37,6 +37,7 @@ from rocm_apex_tpu_torch.inference import InferenceEngine, SamplingParams
 from rocm_apex_tpu_torch.models import gpt as port_gpt
 from rocm_apex_tpu_torch.models.bert import BertConfig
 from rocm_apex_tpu_torch.models.gpt import GPTConfig
+from rocm_apex_tpu_torch.ops.softmax import ScoresFp32
 from rocm_apex_tpu_torch.optimizers import MixedPrecisionAdam
 from rocm_apex_tpu_torch.train import make_train_step
 
@@ -257,7 +258,7 @@ def test_scores_are_fp32_sums_of_the_16bit_products():
     q, k = (torch.from_numpy(rng.standard_normal((2, 3, 16, 8)).astype(
         np.float32)).to(torch.bfloat16).requires_grad_(True)
         for _ in range(2))
-    scores = port_gpt._ScoresFp32.apply(q, k)
+    scores = ScoresFp32.apply(q, k)
     assert scores.dtype == torch.float32
     exact = torch.matmul(q.detach().double(),
                          k.detach().double().transpose(-1, -2))
@@ -361,16 +362,15 @@ class TestOptions:
         np.testing.assert_allclose(blogits[0], jb[0], **LOGIT_TOL)
 
     @pytest.mark.parametrize("field,value,item", [
-        ("attention_impl", "jnp", 11),
         ("tensor_parallel_size", 2, 8),
         ("checkpoint_activations", True, 10),
         ("apply_residual_connection_post_layernorm", True, 10),
-        ("context_parallel_axis", "cp", 3),
+        ("sequence_parallel", True, 10),
     ])
     def test_unported_options_name_their_current_roadmap_item(
             self, field, value, item):
-        """"jnp" stays refused; each refusal names the ROADMAP Queue 1
-        item that holds it now."""
+        """Each refusal names the ROADMAP Queue 1 item that holds it
+        now."""
         with pytest.raises(NotImplementedError,
                            match=rf"{field}.*ROADMAP Queue 1 item {item}\b"):
             _tcfg(GPTConfig, GPT_SHAPE, **{field: value})

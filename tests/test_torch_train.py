@@ -298,7 +298,7 @@ class TestEntryPoints:
                                         torch_cfg(), opt)
 
     @pytest.mark.parametrize("field,value", [
-        ("attention_impl", "jnp"),
+        ("sequence_parallel", True),
         ("tensor_parallel_size", 2),
         ("checkpoint_activations", True),
         ("apply_residual_connection_post_layernorm", True),
