@@ -181,7 +181,24 @@ JAX package) through these phases, in order; any failure exits non-zero:
              layers (contiguous, paged, int8 pages, whole-prompt), then
              the serve at 8 layers bf16 in the four forms, no attention
              kernel launched, the requests matching the flash serve;
-24. report   a ``{"kernels": [...]}`` line, then the device line
+24. optim_amp  the rest of the optimizers and amp: FusedSGD (plain,
+             momentum with dampening, nesterov, wd_after_momentum),
+             FusedAdagrad (both modes), FusedNovoGrad (norms 2 and 0,
+             reg_inside_moment on and off), FusedLAMB (tree and packed),
+             FusedMixedPrecisionLamb (a found_inf step bit-frozen), the
+             contrib FusedAdam, FP16_Optimizer (an overflow) and the
+             transformer GradScaler (no axis bound): three steps on the
+             card against the CPU on BERT-Large's leaves at 2 layers;
+             bert_pretrain.py's recipe at bench.py bert's shape (tree and
+             packed FusedLAMB with the no-decay mask; the packed LAMB
+             pair's launches counted, the first losses equal, the
+             packed masters after step 1 held to the tree's; each step's
+             device time) beside bert_train's step; imagenet_train.py's FusedSGD on the fused
+             ResNet-50 under O5 beside rn50_train_fused's step; the GPT at
+             the train widths under O4 (fp32 params and gradients, the
+             loss in `amp.policy_function`, the train phase's kernel
+             calls a step); O1 on a decorated matmul and softmax;
+25. report   a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
@@ -357,7 +374,7 @@ PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "xentropy", "fused_softmax_parity", "train_fused_softmax",
           "bert_train_masked_fused_softmax", "train_packed_parity",
           "train_packed", "rn50_parity", "rn50_train", "rn50_train_fused",
-          "mha", "context_parallel", "serve_jnp")
+          "mha", "context_parallel", "serve_jnp", "optim_amp")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_segments_serve",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -4888,6 +4905,10 @@ def run_bert_train_phase(profile):
     for name, n in want.items():
         check(launches[name] == n, f"{name}: {launches[name]} launches in "
               f"{TRAIN_STEPS} steps and one evaluation, expected {n}")
+    res["device_step_ms"] = device_ms(lambda: step(state, tokens, labels),
+                                      LAMB_DEVICE_STEPS, warmup=1)
+    log(f"  {res['device_step_ms']:.2f} ms a step on the device, busy "
+        f"{res['device_step_ms'] / res['step_ms']:.0%}")
     if profile:
         res["profile"] = profile_window(
             lambda: [step(state, tokens, labels) for _ in range(3)],
@@ -5407,18 +5428,20 @@ def _rn50_batch(batch, size, device):
     return x.to(device), y.to(device)
 
 
-def _rn50_trainer(model, opt_level, lr=1e-3, eps=1e-8, **overrides):
+def _rn50_trainer(model, opt_level, lr=1e-3, eps=1e-8, optimizer=None,
+                  **overrides):
     """``(step, params, opt_state, scaler_states)``: bench.py's
     `amp.initialize(params, FusedAdam(1e-3, weight_decay=1e-4), opt_level)`
-    and its one_step."""
+    (or ``optimizer``) and its one_step."""
     from rocm_apex_tpu_torch import amp
     from rocm_apex_tpu_torch.optimizers import FusedAdam
     from rocm_apex_tpu_torch.train import make_rn50_train_step
 
+    if optimizer is None:
+        optimizer = FusedAdam(lr, weight_decay=1e-4, eps=eps)
     params, opt, st = amp.initialize(
         {k: v.detach() for k, v in model.named_parameters()},
-        FusedAdam(lr, weight_decay=1e-4, eps=eps), opt_level=opt_level,
-        verbosity=0, **overrides)
+        optimizer, opt_level=opt_level, verbosity=0, **overrides)
     return (make_rn50_train_step(model, opt, st), params, opt.init(params),
             st.scaler_states)
 
@@ -5523,18 +5546,19 @@ def run_rn50_parity_phase():
     return res
 
 
-def run_rn50_train_phase(profile, fused, report=None):
+def run_rn50_train_phase(profile, fused, report=None, optimizer=None):
     """bench.py's rn50 step at B 128 x 224 x 224, bf16 under amp O5 with
-    FusedAdam(1e-3, weight_decay=1e-4), fused or not: 5 warm-up and 20
-    timed steps on one batch; images/s, step ms, peak memory, losses, and
-    the bottleneck kernels' wrapper calls a step (27/13/27/13 fused, 0
-    unfused)."""
+    FusedAdam(1e-3, weight_decay=1e-4) (or ``optimizer``), fused or not:
+    5 warm-up and 20 timed steps on one batch; images/s, step ms, peak
+    memory, losses, and the bottleneck kernels' wrapper calls a step
+    (27/13/27/13 fused, 0 unfused)."""
     from rocm_apex_tpu_torch.ops._build import KERNELS
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     model = _rn50(CARD, fused, torch.bfloat16)
-    step, params, opt_state, ss = _rn50_trainer(model, "O5")
+    step, params, opt_state, ss = _rn50_trainer(model, "O5",
+                                                optimizer=optimizer)
     x, y = _rn50_batch(RN50_BATCH, RN50_SIZE, CARD)
     setup_s = time.perf_counter() - t0
     losses = []
@@ -6339,6 +6363,579 @@ def run_serve_jnp_phase(flash_tokens=None):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the rest of the optimizers and amp's function casting
+# ---------------------------------------------------------------------------
+
+# card-vs-CPU parity of each optimizer on the leaves of BERT-Large's widths
+# at 2 layers (hidden 1024, FFN 4096, the 30592-row embedding: BERT's
+# `random_params`, 59.5M values), three steps of seeded normal gradients
+# times OPTIM_GRAD_SCALE. Both devices compute in fp32 and differ only in
+# the summation order of the norms (NovoGrad's, LAMB's) and in contracted
+# multiply-adds: each param within PACKED_MASTER_RTOL of |p0| + |step|
+# plus OPTIM_STEP_SHARE of its leaf's largest step on the CPU (the step
+# each optimizer really takes: a LAMB step is lr times a trust ratio of
+# ~0.02, an SGD step lr times a gradient of ~1e-2, so a share of lr would
+# pass a trust ratio off by 2x), a bf16 param to one bf16 step (2^-7) of
+# the CPU's beside them; every state leaf within OPTIM_STATE_RTOL of its
+# largest CPU element; a skipped step bit for bit as its input, on both
+# devices
+OPTIM_PARITY_LAYERS = 2
+OPTIM_PARITY_STEPS = 3
+OPTIM_GRAD_SCALE = 1e-2
+OPTIM_STATE_RTOL = 1e-5
+OPTIM_STEP_SHARE = 1e-2
+OPTIM_BF16_STEP = 2.0 ** -7
+# the LAMB pair over packed buffers (`FusedLAMB(packed=True)`, one dtype
+# group of fp32 masters): wrapper calls a step, the fused unscale and
+# probe pass, the trust ratio's two segmented row sums, stages 1 and 2
+PACKED_LAMB_CALLS_PER_STEP = {"scale_sumsq": 1, "row_sumsq": 2,
+                              "lamb_stage1": 1, "lamb_stage2": 1,
+                              "adam_update": 0, "lamb_leaf_stage1": 0,
+                              "lamb_leaf_stage2": 0}
+OPTIM_KERNELS = ("lamb_stage1", "lamb_stage2", "row_sumsq")
+OPTIM_INF_LEAF = "embedding.word_embeddings.weight"  # where an inf goes
+O4_STEPS = 3
+LAMB_DEVICE_STEPS = 5  # steps a LAMB step's device time is taken over
+
+
+def _optim_leaves():
+    """The parity leaves (fp32, CPU) by name, their no-decay mask
+    (bert_pretrain.py's: ndim <= 1, LayerNorms, biases) and the three
+    steps' gradients."""
+    from rocm_apex_tpu_torch.convert import flatten_params, random_params
+    from rocm_apex_tpu_torch.models.bert import BertConfig
+
+    cfg = BertConfig(**{**BERT, "num_layers": OPTIM_PARITY_LAYERS})
+    flat = flatten_params(random_params(cfg, seed=0)["params"])
+    leaves = {k: torch.from_numpy(np.asarray(v, np.float32))
+              for k, v in flat.items()}
+    gen = torch.Generator().manual_seed(5)
+    grads = [{k: OPTIM_GRAD_SCALE * torch.randn(v.shape, generator=gen)
+              for k, v in leaves.items()} for _ in range(OPTIM_PARITY_STEPS)]
+    return leaves, bert_no_decay_mask(leaves), grads
+
+
+def bert_no_decay_mask(params):
+    """bert_pretrain.py's LAMB decay mask: no decay for leaves of ndim <=
+    1, LayerNorms and biases."""
+    return {k: not (v.ndim <= 1 or "layernorm" in k.lower()
+                    or "bias" in k.lower()) for k, v in params.items()}
+
+
+def _state_leaves(state, prefix="state"):
+    """(name, tensor) for every tensor of an optimizer state: NamedTuple
+    fields, dicts by name, tuples (packed buffers) by index."""
+    if torch.is_tensor(state):
+        return [(prefix, state)]
+    if hasattr(state, "_fields"):
+        items = zip(state._fields, state)
+    elif isinstance(state, dict):
+        items = state.items()
+    else:
+        items = enumerate(state)
+    return [x for k, v in items for x in _state_leaves(v, f"{prefix}.{k}")]
+
+
+def _param_err(card, cpu, p0):
+    """The worst |card - cpu| over its tolerance among the params, and
+    where: PACKED_MASTER_RTOL of |p0| + |step| plus OPTIM_STEP_SHARE of
+    the leaf's largest step |cpu - p0| (plus one bf16 step for a bf16
+    param). Computed a leaf at a time on ``card``'s device."""
+    worst, where = 0.0, None
+    for k, v in cpu.items():
+        c = card[k].float()
+        v, p = v.to(c.device).float(), p0[k].to(c.device).float()
+        step = (v - p).abs()
+        tol = (PACKED_MASTER_RTOL * (p.abs() + step)
+               + OPTIM_STEP_SHARE * step.max())
+        if cpu[k].dtype == torch.bfloat16:
+            tol = tol + OPTIM_BF16_STEP * v.abs()
+        # equal values pass where the tolerance is 0 (a leaf that did
+        # not move); any difference there is infinitely over it
+        r = float(torch.where(c == v, 0.0, (c - v).abs() / tol).max())
+        if r > worst:
+            worst, where = r, k
+    return worst, where
+
+
+def _state_err(card, cpu):
+    """The worst |card - cpu| / (OPTIM_STATE_RTOL * max |cpu|) over the
+    state's float leaves; the int leaves (counts) must be equal."""
+    worst, where = 0.0, None
+    for (k, c), (_, v) in zip(_state_leaves(card), _state_leaves(cpu)):
+        c = c.cpu()
+        if not v.is_floating_point():
+            check(torch.equal(c, v), f"{k}: {c} on the card, {v} on the cpu")
+            continue
+        r = float((c.float() - v.float()).abs().max() / (
+            OPTIM_STATE_RTOL * v.float().abs().max() + 1e-30))
+        if r > worst:
+            worst, where = r, k
+    return worst, where
+
+
+def _same_tree(a, b):
+    return all(torch.equal(x, y) for (_, x), (_, y) in
+               zip(_state_leaves(a), _state_leaves(b)))
+
+
+def _optim_configs(mask):
+    """(name, factory) of every optimizer configuration the parity
+    runs."""
+    from rocm_apex_tpu_torch import optimizers as o
+
+    def novo(n, inside):
+        return lambda: o.FusedNovoGrad(1e-3, weight_decay=1e-3, norm_type=n,
+                                       reg_inside_moment=inside)
+
+    return [
+        ("sgd", lambda: o.FusedSGD(0.1)),
+        ("sgd_momentum_dampening",
+         lambda: o.FusedSGD(0.1, momentum=0.9, dampening=0.1)),
+        ("sgd_nesterov",
+         lambda: o.FusedSGD(0.1, momentum=0.9, nesterov=True)),
+        ("sgd_wd_after_momentum",
+         lambda: o.FusedSGD(0.1, momentum=0.9, weight_decay=1e-4,
+                            wd_after_momentum=True)),
+        ("adagrad", lambda: o.FusedAdagrad(1e-2, weight_decay=1e-4)),
+        ("adagrad_w_mode",
+         lambda: o.FusedAdagrad(1e-2, weight_decay=1e-4,
+                                adagrad_w_mode=True)),
+        *[(f"novograd_norm{n}_{'inside' if r else 'decoupled'}",
+           novo(n, r)) for n in (2, 0) for r in (True, False)],
+        ("lamb_tree",
+         lambda: o.FusedLAMB(1e-3, weight_decay=0.01, weight_decay_mask=mask)),
+        ("lamb_packed",
+         lambda: o.FusedLAMB(1e-3, weight_decay=0.01, weight_decay_mask=mask,
+                             packed=True)),
+    ]
+
+
+def _to(tree, dev):
+    return {k: v.to(dev) for k, v in tree.items()}
+
+
+def _optim_parity(leaves, mask, grads):
+    """Each configuration of `_optim_configs` three steps on the card and
+    on the CPU, then the scaler-aware optimizers with a skipped step."""
+    import warnings
+
+    from rocm_apex_tpu_torch import fp16_utils
+    from rocm_apex_tpu_torch.amp import all_finite
+    from rocm_apex_tpu_torch.contrib.optimizers import FusedAdam as CAdam
+    from rocm_apex_tpu_torch.optimizers import (FusedAdam,
+                                                FusedMixedPrecisionLamb)
+    from rocm_apex_tpu_torch.transformer import parallel_state
+    from rocm_apex_tpu_torch.transformer.amp import GradScaler
+
+    out = {}
+
+    def record(name, runs, p0, extra=None):
+        (pc, sc), (pp, sp) = runs[CARD], runs["cpu"]
+        perr, pwhere = _param_err(pc, pp, p0)
+        serr, swhere = _state_err(sc, sp)
+        out[name] = dict(param_err_over_tol=perr, param_worst=pwhere,
+                         state_err_over_tol=serr, state_worst=swhere,
+                         **(extra or {}))
+        log(f"  {name}: params {perr:.3f} of their tolerance ({pwhere}), "
+            f"state {serr:.3f} ({swhere})"
+            + (f"; {extra}" if extra else ""))
+        check(perr <= 1.0 and serr <= 1.0,
+              f"optim parity {name}: params {perr:.3g}, state {serr:.3g} "
+              f"of their tolerances")
+
+    for name, make in _optim_configs(mask):
+        runs = {}
+        for dev in (CARD, "cpu"):
+            opt, p = make(), _to(leaves, dev)
+            s = opt.init(p)
+            for g in grads:
+                p, s = opt.step(p, _to(g, dev), s)
+            runs[dev] = (p, s)
+        record(name, runs, leaves)
+
+    # FusedMixedPrecisionLamb on mixed fp32/bf16 leaves (the matrices in
+    # bf16), gradients carrying a loss scale of 1024 with inv_scale, and
+    # an inf in one gradient at step 2: found_inf on the device, a step
+    # that leaves params, moments and count bit for bit as they were
+    mixed = {k: v.to(torch.bfloat16) if v.ndim >= 2 else v
+             for k, v in leaves.items()}
+    seq = grads[:2] + [{k: v.clone() for k, v in grads[2].items()}] + \
+        grads[2:]
+    seq[2][OPTIM_INF_LEAF][7, 7] = float("inf")
+    runs, frozen = {}, True
+    for dev in (CARD, "cpu"):
+        opt, p = FusedMixedPrecisionLamb(1e-3, weight_decay=0.01,
+                                         weight_decay_mask=mask), \
+            _to(mixed, dev)
+        s = opt.init(p)
+        for g in seq:
+            g = {k: (v * 1024.0).to(mixed[k].dtype).to(dev)
+                 for k, v in g.items()}
+            found = torch.logical_not(all_finite(g.values()))
+            p2, s2 = opt.step(p, g, s, inv_scale=1.0 / 1024, found_inf=found)
+            if bool(found):
+                frozen &= _same_tree(p2, p) and _same_tree(s2, s)
+            p, s = p2, s2
+        runs[dev] = (p, s)
+    record("mp_lamb", runs, mixed,
+           dict(found_inf_step_frozen=frozen,
+                count=int(runs[CARD][1].count)))
+    check(frozen and int(runs[CARD][1].count) == OPTIM_PARITY_STEPS,
+          "mp_lamb: the found_inf step changed params, moments or count")
+
+    # the deprecated contrib FusedAdam: gradients times 128,
+    # step_with_scale(scale=128)
+    runs = {}
+    for dev in (CARD, "cpu"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            opt = CAdam(1e-3, weight_decay=0.01)
+        p = _to(leaves, dev)
+        s = opt.init(p)
+        for g in grads:
+            p, s = opt.step_with_scale(
+                p, {k: v.to(dev) * 128.0 for k, v in g.items()}, s,
+                scale=128.0)
+        runs[dev] = (p, s)
+    record("contrib_fused_adam", runs, leaves)
+
+    # FP16_Optimizer over FusedAdam: fp16 params, dynamic scaling from
+    # 2^16, the fp16 gradients of the scaled loss (made on the CPU, the
+    # same bits to both devices), an inf at step 1: skipped, the scale
+    # halved
+    half = fp16_utils.network_to_half(leaves)
+    runs, frozen, scales = {}, True, {}
+    for dev in (CARD, "cpu"):
+        opt = fp16_utils.FP16_Optimizer(
+            FusedAdam(1e-3, weight_decay=0.01), dynamic_loss_scale=True,
+            dynamic_loss_args=dict(init_scale=2.0 ** 16))
+        st = opt.init(_to(half, dev))
+        scales[dev] = []
+        for i, g in enumerate(grads):
+            scale = float(st.scaler_state.loss_scale)
+            g16 = {k: (v * scale).half() for k, v in g.items()}
+            if i == 1:
+                g16[OPTIM_INF_LEAF][7, 7] = float("inf")
+            st2 = opt.step(st, _to(g16, dev))
+            if i == 1:
+                frozen &= _same_tree(st2.master_params, st.master_params) \
+                    and _same_tree(st2.inner_state, st.inner_state) \
+                    and _same_tree(st2.model_params, st.model_params)
+            st = st2
+            scales[dev].append(float(st.scaler_state.loss_scale))
+        runs[dev] = (st.master_params, st.inner_state)
+    record("fp16_optimizer", runs, half,
+           dict(loss_scales=scales[CARD], overflow_step_frozen=frozen))
+    check(frozen and scales[CARD] == scales["cpu"] == [2.0 ** 16, 2.0 ** 15,
+                                                        2.0 ** 15],
+          f"fp16_optimizer: the overflow step (frozen {frozen}, scales "
+          f"{scales})")
+
+    # the transformer GradScaler, one rank and no axis bound: the found_inf
+    # of each step's gradients (an inf at step 1) passes through unsynced
+    parallel_state.clear_axis_groups()
+    states = {}
+    for dev in (CARD, "cpu"):
+        scaler = GradScaler(init_scale=2.0 ** 16, growth_interval=2)
+        ss, states[dev] = scaler.init(torch.device(dev)), []
+        for i, g in enumerate(grads + grads[:1]):
+            g = {k: v.to(dev, copy=True) for k, v in g.items()}
+            if i == 1:
+                g[OPTIM_INF_LEAF][7, 7] = float("nan")
+            ss, skip = scaler.update(ss, torch.logical_not(
+                all_finite(g.values())))
+            states[dev].append((float(ss.loss_scale), int(ss.unskipped),
+                                int(ss.overflows), bool(skip)))
+    out["grad_scaler"] = dict(states=states[CARD])
+    log(f"  grad_scaler (no axis bound): {states[CARD]}")
+    check(states[CARD] == states["cpu"] and [x[3] for x in states[CARD]]
+          == [False, True, False, False], f"grad_scaler: {states}")
+    return out
+
+
+def _bert_lamb_trainer(cfg, packed):
+    """``(step, master, state)``: bert_pretrain.py's recipe at bench.py
+    bert's shape: fp32 params (the masters), the model holding their
+    compute copy, the tree (or packed) `FusedLAMB(1e-4, wd 0.01)` with
+    the example's no-decay mask, the mean of the per-token losses. A
+    leaf the loss does not reach (the token-type embedding: no ids are
+    given) takes a zero gradient, as under `jax.grad`."""
+    from rocm_apex_tpu_torch.convert import (flatten_params, from_jax_params,
+                                             random_params)
+    from rocm_apex_tpu_torch.optimizers import FusedLAMB
+
+    tree = random_params(cfg, seed=0)
+    model = from_jax_params(tree, cfg, device=CARD)
+    master = {k: torch.from_numpy(np.asarray(v, np.float32)).to(CARD)
+              for k, v in flatten_params(tree["params"]).items()}
+    opt = FusedLAMB(1e-4, weight_decay=0.01,
+                    weight_decay_mask=bert_no_decay_mask(master),
+                    packed=packed)
+    named = dict(model.named_parameters())
+    zeros = {k: torch.zeros_like(p) for k, p in master.items()}
+
+    def step(master, state, tokens, labels):
+        with torch.no_grad():
+            for k, p in master.items():
+                named[k].copy_(p)
+        for p in named.values():
+            p.grad = None
+        losses, _ = model(tokens, lm_labels=labels)
+        loss = losses.mean()
+        loss.backward()
+        grads = {k: zeros[k] if named[k].grad is None else named[k].grad
+                 for k in master}
+        master, state = opt.step(master, grads, state)
+        return master, state, loss.detach()
+
+    return step, master, opt.init(master)
+
+
+def _bert_lamb_run(packed, tree_first=None):
+    """One form's run: TRAIN_WARMUP steps, TRAIN_STEPS timed, then the
+    device time of a step. Returns ``(res, first)``: ``first`` is the
+    tree run's masters before and after its first step, on the host; the
+    packed run (``tree_first`` given) holds its masters after its first
+    step, the same params and batch, to the tree's by `_param_err`."""
+    from rocm_apex_tpu_torch.models.bert import BertConfig
+
+    torch.cuda.empty_cache()
+    # bert_pretrain.py's model has no binary head
+    cfg = BertConfig(**BERT, params_dtype=torch.float32,
+                     dtype=torch.bfloat16, add_binary_head=False)
+    t0 = time.perf_counter()
+    step, master, state = _bert_lamb_trainer(cfg, packed)
+    setup_s = time.perf_counter() - t0
+    tokens, labels = _bert_batch(cfg, BERT_BATCH, BERT_SEQ)
+    tokens, labels = tokens.to(CARD), labels.to(CARD)
+    form = "packed" if packed else "tree"
+    first, vs_tree = None, None
+    if tree_first is None:
+        p0 = {k: v.cpu() for k, v in master.items()}
+    losses = []
+    for i in range(TRAIN_WARMUP):
+        master, state, loss = step(master, state, tokens, labels)
+        losses.append(loss)
+        if i == 0 and tree_first is None:
+            first = (p0, {k: v.cpu() for k, v in master.items()})
+        elif i == 0:
+            err, where = _param_err(master, tree_first[1], tree_first[0])
+            vs_tree = dict(err_over_tol=err, worst=where)
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        master, state, loss = step(master, state, tokens, labels)
+        losses.append(loss)
+    _sync()
+    dt = time.perf_counter() - t0
+    launches = _launches()
+    losses = [float(x) for x in losses]
+    want = {**bert_calls(cfg.num_layers, 0, TRAIN_STEPS, 0),
+            **{k: (n if packed else 0) * TRAIN_STEPS
+               for k, n in PACKED_LAMB_CALLS_PER_STEP.items()}}
+    res = dict(form=form, step_ms=1e3 * dt / TRAIN_STEPS, seconds=dt,
+               tokens_per_s=BERT_BATCH * BERT_SEQ * TRAIN_STEPS / dt,
+               loss_first=losses[0], loss_last=losses[-1], losses=losses,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               setup_s=setup_s, launches=launches, expected_launches=want,
+               count=int(state.count), first_step_vs_tree=vs_tree)
+    log(f"  BERT-Large FusedLAMB ({form}): {res['step_ms']:.2f} ms/step, "
+        f"{res['tokens_per_s']:.1f} tokens/s; loss {losses[0]:.4f} (first) "
+        f"-> {losses[-1]:.4f} (last); peak {res['peak_mem_gib']:.2f} GiB; "
+        f"launches {launches}")
+    if vs_tree is not None:
+        log(f"  masters after the first step, packed vs tree: "
+            f"{vs_tree['err_over_tol']:.3g} of the tolerance (worst "
+            f"{vs_tree['worst']})")
+        check(vs_tree["err_over_tol"] <= 1.0, f"packed LAMB's first step "
+              f"differs from the tree's: {vs_tree}")
+    check(all(math.isfinite(x) for x in losses), f"nonfinite {form} loss")
+    check(losses[-1] < losses[0], f"the {form} LAMB loss did not fall")
+    check(res["count"] == TRAIN_WARMUP + TRAIN_STEPS, f"{form}: count "
+          f"{res['count']}")
+    for name, n in want.items():
+        check(launches.get(name, 0) == n, f"{form} LAMB: {name} "
+              f"{launches.get(name, 0)} launches in {TRAIN_STEPS} steps, "
+              f"expected {n}")
+    # the step's device time alone (calls queued behind a sleep): beside
+    # step_ms it says how much of the step the host holds the card back
+    res["device_step_ms"] = device_ms(
+        lambda: step(master, state, tokens, labels), LAMB_DEVICE_STEPS,
+        warmup=1)
+    log(f"  ({form}: {res['device_step_ms']:.2f} ms a step on the device, "
+        f"busy {res['device_step_ms'] / res['step_ms']:.0%})")
+    return res, first
+
+
+def _o4_gpt_run():
+    """The GPT at the train widths under amp O4: fp32 params, the loss in
+    `amp.policy_function` (a bf16 compute copy made by the cast, fp32
+    gradients through it), the tree FusedAdam with O4's loss scale 1."""
+    from rocm_apex_tpu_torch import amp
+    from rocm_apex_tpu_torch.convert import flatten_params, random_params
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+    from rocm_apex_tpu_torch.optimizers import FusedAdam
+    from rocm_apex_tpu_torch.optimizers._common import apply_updates
+
+    torch.cuda.empty_cache()
+    cfg = GPTConfig(**TRAIN, params_dtype=torch.float32,
+                    dtype=torch.bfloat16)
+    model = GPTModel(cfg, device=CARD)
+    params = {k: torch.from_numpy(np.asarray(v, np.float32)).to(CARD)
+              for k, v in flatten_params(
+                  random_params(cfg, seed=0)["params"]).items()}
+    params, opt, st = amp.initialize(
+        params, FusedAdam(1e-4, weight_decay=0.01), opt_level="O4",
+        verbosity=0)
+    check(amp.current_policy() is st.policy and all(
+        p.dtype == torch.float32 for p in params.values()),
+        "O4: params not fp32 or the policy not active")
+    opt_state = opt.init(params)
+
+    @amp.policy_function
+    def loss_fn(p, tokens, labels, gen):
+        return torch.func.functional_call(
+            model, p, (tokens,), dict(labels=labels, loss_reduction="mean",
+                                      deterministic=False,
+                                      dropout_generator=gen))
+
+    tokens, labels = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens, labels = tokens.to(CARD), labels.to(CARD)
+    gen = torch.Generator().manual_seed(0)
+    grad_dtypes = set()
+
+    def step(params, opt_state, st):
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        scaled = amp.scale_loss(loss_fn(p, tokens, labels, gen), st)
+        names = list(p)
+        grads = dict(zip(names, torch.autograd.grad(
+            scaled, [p[k] for k in names])))
+        grad_dtypes.update((k, g.dtype) for k, g in grads.items())
+        grads, found_inf = amp.unscale_grads(grads, st)
+        st, _ = amp.update_scale(st, found_inf)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, st, scaled.detach()
+
+    params, opt_state, st, loss = step(params, opt_state, st)  # warm-up
+    losses = [loss]
+    _sync()
+    _zero_launches()
+    t0 = time.perf_counter()
+    for _ in range(O4_STEPS):
+        params, opt_state, st, loss = step(params, opt_state, st)
+        losses.append(loss)
+    _sync()
+    dt = time.perf_counter() - t0
+    launches = _launches()
+    losses = [float(x) for x in losses]
+    non_f32 = sorted(k for k, d in grad_dtypes if d != torch.float32)
+    res = dict(step_ms=1e3 * dt / O4_STEPS, losses=losses,
+               loss_scale=float(st.loss_scale), launches=launches,
+               grads_fp32=not non_f32, params_fp32=all(
+                   p.dtype == torch.float32 for p in params.values()))
+    log(f"  GPT O4 (policy_function, fp32 params, tree FusedAdam): "
+        f"{res['step_ms']:.2f} ms/step over {O4_STEPS} steps; losses "
+        f"{losses}; loss scale {res['loss_scale']:g}; launches {launches}")
+    check(all(math.isfinite(x) for x in losses), "O4: nonfinite loss")
+    check(not non_f32, f"O4: gradients not fp32: {non_f32}")
+    check(res["params_fp32"] and res["loss_scale"] == 1.0,
+          "O4: params left fp32 or the loss scale left 1")
+    for name, n in TRAIN_CALLS_PER_STEP.items():
+        check(launches.get(name, 0) == n * O4_STEPS,
+              f"O4: {name} {launches.get(name, 0)} calls in {O4_STEPS} "
+              f"steps, expected {n} a step")
+    return res
+
+
+def _o1_check():
+    """O1 on a decorated matmul and softmax: fp16 out of `half_function`,
+    fp32 out of `float_function`, uncast inside `disable_casts()`, and
+    uncast again after `amp.initialize(opt_level="O5")`."""
+    from rocm_apex_tpu_torch import amp
+
+    @amp.half_function
+    def mm(a, b):
+        return a @ b
+
+    @amp.float_function
+    def sm(x):
+        return torch.softmax(x, dim=-1)
+
+    gen = torch.Generator().manual_seed(2)
+    a, b = (torch.randn(1024, 1024, generator=gen).to(CARD)
+            for _ in range(2))
+    amp.initialize({"w": a}, opt_level="O1", verbosity=0)
+    y = mm(a, b)
+    z = sm(y)
+    with amp.disable_casts():
+        y_off = mm(a, b)
+    amp.initialize({"w": a}, opt_level="O5", verbosity=0)
+    y_o5 = mm(a, b)
+    res = dict(o1=str(y.dtype), softmax=str(z.dtype),
+               disable_casts=str(y_off.dtype), after_o5=str(y_o5.dtype),
+               mm_equal=bool(torch.equal(y, a.half() @ b.half())),
+               softmax_err=max_err(z, torch.softmax(y.float(), dim=-1)))
+    log(f"  O1: {res}")
+    check(y.dtype == torch.float16 and z.dtype == torch.float32
+          and y_off.dtype == torch.float32 and y_o5.dtype == torch.float32
+          and amp.current_policy() is None and res["mm_equal"]
+          and res["softmax_err"] == 0.0, f"O1 casting: {res}")
+    return res
+
+
+def run_optim_amp_phase(report):
+    """Queue 1 item 7 on the card: (1) each new optimizer card vs CPU; (2)
+    bert_pretrain.py's recipe (tree and packed FusedLAMB) at bench.py
+    bert's shape beside bert_train's MixedPrecisionLamb step; (3)
+    imagenet_train.py's FusedSGD on the fused ResNet-50 under O5 beside
+    rn50_train_fused's FusedAdam step; (4) O4 on the GPT at the train
+    widths and O1 on decorated functions."""
+    from rocm_apex_tpu_torch import amp
+    from rocm_apex_tpu_torch.optimizers import FusedSGD
+
+    try:
+        leaves, mask, grads = _optim_leaves()
+        log(f"  parity leaves: {len(leaves)}, "
+            f"{sum(v.numel() for v in leaves.values()) / 1e6:.1f}M values")
+        res = dict(parity=_optim_parity(leaves, mask, grads))
+        del leaves, grads
+        tree, first = _bert_lamb_run(False)
+        packed, _ = _bert_lamb_run(True, tree_first=first)
+        del first
+        mp = report.get("bert_train", {}).get("step_ms")
+        mp_dev = report.get("bert_train", {}).get("device_step_ms")
+        res["bert"] = dict(tree=tree, packed=packed,
+                           mixed_precision_lamb_step_ms_same_call=mp,
+                           mixed_precision_lamb_device_step_ms=mp_dev)
+        log(f"  BERT-Large step ms: tree {tree['step_ms']:.2f}, packed "
+            f"{packed['step_ms']:.2f}, MixedPrecisionLamb (bert_train) "
+            f"{mp if mp is None else f'{mp:.2f}'}; on the device: "
+            f"{tree['device_step_ms']:.2f}, {packed['device_step_ms']:.2f},"
+            f" {mp_dev if mp_dev is None else f'{mp_dev:.2f}'}; first "
+            f"losses {tree['loss_first']!r} / {packed['loss_first']!r}")
+        check(tree["loss_first"] == packed["loss_first"],
+              "the tree and packed LAMB runs' first losses differ")
+        # the launches of this phase's main path: the packed LAMB steps
+        res["launches"] = packed["launches"]
+        sgd = run_rn50_train_phase(False, True, optimizer=FusedSGD(
+            0.1, momentum=0.9, weight_decay=1e-4))
+        adam = report.get("rn50_train_fused", {}).get("step_ms")
+        sgd["fused_adam_step_ms_same_call"] = adam
+        log(f"  ResNet-50 fused O5 step ms: FusedSGD {sgd['step_ms']:.2f}, "
+            f"FusedAdam (rn50_train_fused) "
+            f"{adam if adam is None else f'{adam:.2f}'}")
+        res["rn50_sgd"] = sgd
+        res["o4_gpt"] = _o4_gpt_run()
+        res["o1"] = _o1_check()
+    finally:
+        amp.init(None)
+    return res
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6525,6 +7122,12 @@ def main(argv=None):
             "pages, whole-prompt)",
             lambda: run_serve_jnp_phase(
                 report.get("serve", {}).get("tokens"))),
+        "optim_amp": (
+            f"optim_amp (the optimizers card vs cpu on BERT-Large's leaves at "
+            f"{OPTIM_PARITY_LAYERS} layers; BERT-Large under tree and packed "
+            f"FusedLAMB, ResNet-50 under FusedSGD: {TRAIN_WARMUP} warm-up + "
+            f"{TRAIN_STEPS} timed steps; the GPT under O4, {O4_STEPS} steps; "
+            f"O1 casting)", lambda: run_optim_amp_phase(report)),
     }
     report["phase_s"] = {}
     try:
@@ -6584,6 +7187,8 @@ def main(argv=None):
             path = "rn50_train_fused"
         if k.name == "layer_norm_bwd_noaffine":
             path = "mha"
+        if k.name in OPTIM_KERNELS:
+            path = "optim_amp"
         where, _, _ = k.replaces.partition(" ")
         kernels.append(dict(
             name=k.name, route="cuda",

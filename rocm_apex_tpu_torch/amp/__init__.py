@@ -1,7 +1,22 @@
-"""Mixed precision: the opt-level policies, the master-weight optimizer
-wrapper, the loss-scaling flow and the loss scaler. The function-casting
-levels (O1, O4) wait for ``amp/amp.py`` and ``amp/lists/``."""
+"""Mixed precision: the opt-level policies, the function-casting
+decorators of O1/O4 (``amp/amp.py``, the cast lists of ``amp/lists/``),
+the master-weight optimizer wrapper, the loss-scaling flow and the loss
+scaler."""
 
+from rocm_apex_tpu_torch.amp.amp import (
+    bfloat16_function,
+    current_policy,
+    disable_casts,
+    float_function,
+    half_function,
+    init,
+    policy_function,
+    promote_function,
+    register_bfloat16_function,
+    register_float_function,
+    register_half_function,
+    register_promote_function,
+)
 from rocm_apex_tpu_torch.amp._process_optimizer import (
     MasterWeightsState,
     process_optimizer,
@@ -34,12 +49,24 @@ __all__ = [
     "Properties",
     "ScalerState",
     "all_finite",
+    "bfloat16_function",
     "build_policy",
+    "current_policy",
+    "disable_casts",
+    "float_function",
+    "half_function",
+    "init",
     "initialize",
     "load_state_dict",
     "master_params",
     "opt_levels",
+    "policy_function",
     "process_optimizer",
+    "promote_function",
+    "register_bfloat16_function",
+    "register_float_function",
+    "register_half_function",
+    "register_promote_function",
     "scale_loss",
     "skip_step",
     "state_dict",

@@ -11,10 +11,9 @@ that threads through functions (the dtypes are torch's):
 * ``master_weights``       keep fp32 master params in the optimizer state;
 * ``loss_scale``           a float or "dynamic" (bf16 levels: 1).
 
-`initialize` casts a params dict and wraps an optimizer; the levels that
-cast around functions (O1, O4) need the function-casting layer
-(``amp/amp.py`` and ``amp/lists/``), which is not ported: `initialize`
-refuses them by name.
+`initialize` casts a params dict, wraps an optimizer and activates the
+policy for the function decorators of ``amp/amp.py`` (O1, O4), or clears
+them at a level that does not cast around functions.
 """
 
 import logging
@@ -208,18 +207,17 @@ def initialize(params: Mapping[str, torch.Tensor], optimizer=None,
     name, `is_batchnorm_path` unless ``is_batchnorm`` is given) kept fp32
     under ``keep_batchnorm_fp32``; the optimizer (a gradient
     transformation) is wrapped with fp32 masters under
-    ``master_weights``; ``amp_state`` holds the policy and ``num_losses``
-    loss-scaler states on the params' device."""
+    ``master_weights``; the decorators of ``amp/amp.py`` cast under the
+    policy when it casts around functions (O1, O4); ``amp_state`` holds
+    the policy and ``num_losses`` loss-scaler states on the params'
+    device."""
     from rocm_apex_tpu_torch.amp._process_optimizer import process_optimizer
     from rocm_apex_tpu_torch.amp.handle import AmpState
     from rocm_apex_tpu_torch.amp.scaler import LossScaler
 
+    from rocm_apex_tpu_torch.amp import amp as _amp
+
     policy = build_policy(opt_level, **overrides)
-    if policy.cast_functions:
-        raise NotImplementedError(
-            f"opt_level {policy.opt_level} casts around functions, which "
-            "needs amp/amp.py and amp/lists/: not ported yet (ROADMAP.md "
-            "Queue 1 item 7)")
     if verbosity:
         _log.info("amp.initialize: opt_level=%s -> %r", opt_level, policy)
     if policy.cast_model_dtype not in (None, False):
@@ -228,6 +226,9 @@ def initialize(params: Mapping[str, torch.Tensor], optimizer=None,
             keep = is_batchnorm or is_batchnorm_path
         params = tree_cast(params, policy.cast_model_dtype,
                            keep_fp32_predicate=keep)
+    # unconditional: initializing again at a level that does not cast
+    # around functions clears an earlier O1/O4 policy
+    _amp.init(policy if policy.cast_functions else None)
     device = next((t.device for t in params.values()
                    if isinstance(t, torch.Tensor)), None)
     scaler = LossScaler(policy.loss_scale)

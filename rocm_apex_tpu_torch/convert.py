@@ -32,6 +32,12 @@ from flax's HWIO to OIHW and the dense head's kernel from (in, out) to
 port module of the same options: a ``Dense`` kernel goes from (in, out)
 to ``nn.Linear``'s (out, in).
 
+`optimizer_state_from_jax` turns a JAX optimizer state (`FusedAdamState`,
+`FusedSGDState`, `FusedAdagradState`, `FusedNovoGradState`,
+`FusedLAMBState`, `FP16OptimizerState`) into the port's, each tree
+flattened by name as `flatten_params` does, so a port step resumes from
+it.
+
 `random_params` draws the same tree with numpy from a seed, with the
 JAX model's initializers: normal(``init_method_std``) for the
 embeddings and input projections, the output projections (attention
@@ -56,6 +62,7 @@ __all__ = [
     "train_state_from_jax_params",
     "resnet_from_jax_variables",
     "mha_from_jax_params",
+    "optimizer_state_from_jax",
 ]
 
 
@@ -279,3 +286,46 @@ def mha_from_jax_params(tree: Dict[str, Any], module) -> Any:
             d.copy_(torch.tensor(np.ascontiguousarray(src[key]),
                                  dtype=d.dtype))
     return module
+
+
+def _tensor_from_jax(a, device) -> torch.Tensor:
+    """A numpy-convertible array as a tensor of its dtype (bf16 too)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def optimizer_state_from_jax(state: Any, device=None) -> Any:
+    """The port's state for a JAX optimizer state: the same NamedTuple's
+    fields, ``count`` an int32 scalar tensor, each tree a dict by the
+    names `flatten_params` gives it (NovoGrad's per-leaf norms 0-dim
+    tensors); an `FP16OptimizerState`'s inner state converted the same
+    way and its scaler state a `ScalerState`. Dispatches on the type's
+    name, so the JAX package is not imported."""
+    from rocm_apex_tpu_torch import optimizers as o
+    from rocm_apex_tpu_torch.amp.scaler import ScalerState
+    from rocm_apex_tpu_torch.fp16_utils import FP16OptimizerState
+
+    def flat(tree):
+        return {k: _tensor_from_jax(v, device)
+                for k, v in flatten_params(tree).items()}
+
+    name = type(state).__name__
+    if name == "FP16OptimizerState":
+        return FP16OptimizerState(
+            model_params=flat(state.model_params),
+            master_params=flat(state.master_params),
+            inner_state=optimizer_state_from_jax(state.inner_state, device),
+            scaler_state=ScalerState(*(_tensor_from_jax(x, device)
+                                       for x in state.scaler_state)))
+    classes = {c.__name__: c for c in (
+        o.FusedAdamState, o.FusedSGDState, o.FusedAdagradState,
+        o.FusedNovoGradState, o.FusedLAMBState)}
+    if name not in classes:
+        raise TypeError(f"no port state for a JAX {name}")
+    return classes[name](**{
+        f: (_tensor_from_jax(v, device).to(torch.int32) if f == "count"
+            else flat(v))
+        for f, v in zip(state._fields, state)})

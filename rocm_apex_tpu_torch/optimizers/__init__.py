@@ -1,11 +1,36 @@
-"""Optimizers over mixed-precision training state, the packed-buffer
-optimizer step, and the tree-form `FusedAdam`."""
+"""Fused optimizers over params dicts (the JAX package's
+``optimizers/__init__.py`` names: Adam, Adagrad, LAMB, NovoGrad, SGD,
+the scaler-aware mixed-precision LAMB and the packed step), and the
+mixed-precision training states' `MixedPrecisionAdam` / `Lamb`."""
 
 from rocm_apex_tpu_torch.optimizers._common import FusedOptimizer
+from rocm_apex_tpu_torch.optimizers.fused_adagrad import (
+    FusedAdagrad,
+    FusedAdagradState,
+    fused_adagrad,
+)
 from rocm_apex_tpu_torch.optimizers.fused_adam import (
     FusedAdam,
     FusedAdamState,
     fused_adam,
+)
+from rocm_apex_tpu_torch.optimizers.fused_lamb import (
+    FusedLAMB,
+    FusedLAMBState,
+    fused_lamb,
+)
+from rocm_apex_tpu_torch.optimizers.fused_mixed_precision_lamb import (
+    FusedMixedPrecisionLamb,
+)
+from rocm_apex_tpu_torch.optimizers.fused_novograd import (
+    FusedNovoGrad,
+    FusedNovoGradState,
+    fused_novograd,
+)
+from rocm_apex_tpu_torch.optimizers.fused_sgd import (
+    FusedSGD,
+    FusedSGDState,
+    fused_sgd,
 )
 from rocm_apex_tpu_torch.optimizers.mixed import (
     MixedPrecisionAdam,
@@ -26,6 +51,20 @@ from rocm_apex_tpu_torch.optimizers.packed import (
 __all__ = [
     "FusedAdam",
     "FusedAdamState",
+    "fused_adam",
+    "FusedAdagrad",
+    "FusedAdagradState",
+    "fused_adagrad",
+    "FusedLAMB",
+    "FusedLAMBState",
+    "fused_lamb",
+    "FusedMixedPrecisionLamb",
+    "FusedNovoGrad",
+    "FusedNovoGradState",
+    "fused_novograd",
+    "FusedSGD",
+    "FusedSGDState",
+    "fused_sgd",
     "FusedOptimizer",
     "MixedPrecisionAdam",
     "MixedPrecisionLamb",
@@ -35,7 +74,6 @@ __all__ = [
     "PackedOptimizerStep",
     "PackedStepState",
     "adam_phase",
-    "fused_adam",
     "lamb_phase",
     "packed_adam",
     "packed_lamb",

@@ -77,10 +77,7 @@ def fused_adam(
         wd = c.wd_tree(params, weight_decay, weight_decay_mask)
         wds = [wd[k] for k in names]
         pf = [params[k].float() for k in names]
-        gf = [grads[k].float() for k in names]
-        if grad_scale is not None:
-            gf = torch._foreach_mul(gf, torch.as_tensor(
-                grad_scale, dtype=torch.float32, device=t.device))
+        gf = c.scaled_grads_f32(grads, names, grad_scale, t.device)
         if not adam_w_mode:
             gf = torch._foreach_add(gf, torch._foreach_mul(pf, wds))
         m2 = torch._foreach_add(

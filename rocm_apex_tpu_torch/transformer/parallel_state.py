@@ -1,7 +1,8 @@
-"""The context axis's name and the process groups behind axis names.
+"""The axis names and the process groups behind them.
 
 The part of ``rocm_apex_tpu/transformer/parallel_state.py`` that context
-parallelism needs: ``CONTEXT_AXIS``, and a registry that maps an axis
+parallelism and the transformer GradScaler need: the ``CONTEXT_AXIS``,
+``TENSOR_AXIS`` and ``PIPE_AXIS`` names, and a registry that maps an axis
 name to a `torch.distributed` process group, where the JAX package binds
 the name to a mesh axis inside `shard_map`. The caller creates the groups
 (`torch.distributed.init_process_group`, `new_group`) and registers
@@ -15,6 +16,8 @@ import torch.distributed as dist
 
 __all__ = [
     "CONTEXT_AXIS",
+    "PIPE_AXIS",
+    "TENSOR_AXIS",
     "set_axis_group",
     "get_axis_group",
     "clear_axis_groups",
@@ -23,6 +26,8 @@ __all__ = [
 ]
 
 CONTEXT_AXIS = "context"
+PIPE_AXIS = "pipe"
+TENSOR_AXIS = "tensor"
 
 _GROUPS: Dict[str, "dist.ProcessGroup"] = {}
 

@@ -4,7 +4,7 @@
 
 Checked: the O0-O5 policies field for field; O5's leaf dtypes on a fused
 ResNet's params against JAX's `tree_cast`; the function-casting levels
-refused; `FusedAdam` (AdamW, L2, a decay mask) and `with_master_weights`
+activated (fp32 params, the policy active, cleared by a later O5); `FusedAdam` (AdamW, L2, a decay mask) and `with_master_weights`
 over three steps of numpy-drawn gradients; bench.py's `one_step` three
 times at O0 in fp32 on a small fused ResNet (loss, params, running
 statistics), the JAX fused blocks in interpret mode; one O5 step in bf16
@@ -104,9 +104,17 @@ def test_initialize_o5_dtypes():
 
 
 @pytest.mark.parametrize("level", ["O1", "O4"])
-def test_casting_levels_refused(level):
-    with pytest.raises(NotImplementedError, match="amp/lists"):
-        amp.initialize({"w": torch.zeros(2)}, opt_level=level)
+def test_casting_levels_activate(level):
+    try:
+        params, _, state = amp.initialize({"w": torch.zeros(2)},
+                                          opt_level=level, verbosity=0)
+        assert params["w"].dtype == torch.float32
+        assert amp.current_policy() is state.policy
+        assert state.policy.cast_functions
+        amp.initialize({"w": torch.zeros(2)}, opt_level="O5", verbosity=0)
+        assert amp.current_policy() is None
+    finally:
+        amp.init(None)
 
 
 def _leaves(seed):
