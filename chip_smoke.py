@@ -198,7 +198,24 @@ JAX package) through these phases, in order; any failure exits non-zero:
              the train widths under O4 (fp32 params and gradients, the
              loss in `amp.policy_function`, the train phase's kernel
              calls a step); O1 on a decorated matmul and softmax;
-25. report   a ``{"kernels": [...]}`` line, then the device line
+25. head_dims  every head dim up to 256 on the flash kernels: GPT-J-6B's
+             attention shape (hidden 4096, 16 heads of 256, ffn 16384,
+             vocab 50400, the packed branch), GPT-3 2.7B's (hidden 2560,
+             32 heads of 80: the unpacked kernels at width 128 with zero
+             columns) and the JAX recipes' GPT and masked BERT (hidden
+             256, 8 heads of 32 at width 64), each at 2 or 4 layers: three
+             O5 train steps (MixedPrecisionAdam, dropout 0.1 on the wide
+             ones; the BERT under MixedPrecisionLamb with a padding
+             mask), step ms, peak memory, the flash kernels' launches,
+             the losses finite and falling; the wide ones serve 32
+             requests contiguous then on pages of 16 (the pages give the
+             contiguous tokens in every request); each model's one-layer
+             twin in fp32, card against CPU (losses, greedy tokens). The
+             kernel groups flash, unpacked, seg_train, seg, decode and
+             paged also hold their kernels at hd 32, 80 and 256 (and 96,
+             and 20 on the padded route), bf16 and fp32, on their plans'
+             routes, beside the bound at the instance's width;
+26. report   a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
@@ -356,17 +373,17 @@ FUSED_TRAIN_CALLS_PER_STEP = {
 # --packed-update): the train cell's step with one scale_sumsq and one
 # adam_update call a step (the model is all bf16: one dtype group); the
 # parity's masters (fp32, cuda vs cpu) within PACKED_MASTER_RTOL of
-# |master| + |step| plus PACKED_MASTER_LR_SHARE of one lr step. Adam
-# divides each gradient element by its own scale: where that is near eps
-# the two devices' fp32 summation noise moves the step by a share of lr,
-# whatever |master| + |step| is (1% of an lr step seen on a layer-0 dense
-# weight after 3 steps; an element whose gradient is 0 but for rounding,
-# the key bias, takes noise-driven steps on both sides)
+# |master| + |step| plus OPTIM_STEP_SHARE of the largest step the CPU
+# took on that master's leaf, the optim_amp phase's rule (`_param_err`).
+# Adam divides each gradient element by its own scale: where that is
+# near eps the two devices' fp32 summation noise moves the step by a
+# share of lr (1% of an lr step seen on a layer-0 dense weight after 3
+# steps), which the leaf's share covers, where a floor of a share of lr
+# let a LAMB trust ratio 1.5x its value pass
 PACKED_TRAIN_CALLS_PER_STEP = {**TRAIN_CALLS_PER_STEP, "scale_sumsq": 1,
                                "adam_update": 1, "lamb_stage1": 0,
                                "lamb_stage2": 0, "row_sumsq": 0}
 PACKED_MASTER_RTOL = 1e-5
-PACKED_MASTER_LR_SHARE = 5e-2
 
 PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "train_parity", "train", "bert_train_parity", "bert_train",
@@ -374,7 +391,7 @@ PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "xentropy", "fused_softmax_parity", "train_fused_softmax",
           "bert_train_masked_fused_softmax", "train_packed_parity",
           "train_packed", "rn50_parity", "rn50_train", "rn50_train_fused",
-          "mha", "context_parallel", "serve_jnp", "optim_amp")
+          "mha", "context_parallel", "serve_jnp", "optim_amp", "head_dims")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_segments_serve",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -382,6 +399,56 @@ SERVE_KERNELS = ("layer_norm_fwd", "flash_segments_serve",
 PAGED_SERVE_KERNELS = ("layer_norm_fwd", "flash_segments_serve")
 PAGED_KERNELS = ("flash_attention_decode_paged",
                  "flash_attention_decode_paged_int8")
+
+# the head dims the flash kernels take (every one from 1 to 256): public
+# models' attention shapes on the repo's GPTModel / BertModel (there is no
+# rotary embedding, so each is that model's shape, not the model), at 2
+# layers: GPT-J-6B (hd 256, the packed branch, as models/gpt.py routes
+# hd % 128 == 0), GPT-3 2.7B / OPT-2.7B (hd 80: the unpacked kernels on
+# the width-128 instance with zero columns; OPT-2.7B's vocab) and the JAX
+# package's recipes (hidden 256, 8 heads, hd 32 on the width-64 instance:
+# examples/gpt_train.py:141 at its 4 layers, S 256, B 4, and
+# examples/bert_pretrain.py:39 at its 4 layers, S 128, B 8)
+HD_MODELS = {
+    "gptj": dict(vocab_size=50400, hidden_size=4096, num_layers=2,
+                 num_attention_heads=16, ffn_hidden_size=16384,
+                 max_position_embeddings=2048, tensor_parallel_size=1),
+    "gpt3_2.7b": dict(vocab_size=50272, hidden_size=2560, num_layers=2,
+                      num_attention_heads=32, ffn_hidden_size=10240,
+                      max_position_embeddings=2048, tensor_parallel_size=1),
+    "recipe_gpt": dict(vocab_size=8192, hidden_size=256, num_layers=4,
+                       num_attention_heads=8, max_position_embeddings=256,
+                       tensor_parallel_size=1),
+    "recipe_bert": dict(vocab_size=8192, hidden_size=256, num_layers=4,
+                        num_attention_heads=8, max_position_embeddings=128,
+                        tensor_parallel_size=1),
+}
+# (batch, seq) of each model's train steps: GPT-J and GPT-3 at their 2048
+# context, the recipes at their own defaults
+HD_TRAIN_SHAPES = {"gptj": (2, 2048), "gpt3_2.7b": (2, 2048),
+                   "recipe_gpt": (4, 256), "recipe_bert": (8, 128)}
+HD_TRAIN_STEPS = 3
+HD_DROPOUT = 0.1
+# the engine on the two wide models: 32 requests of 16 new tokens on 8
+# slots (prompts of 32 to 256 tokens), contiguous, then on pages of 16
+HD_SERVE = dict(requests=32, max_new=16, capacity=1024, budget=256)
+# each model's reduced-depth twin, fp32 with TF32 off, card against CPU:
+# one layer at the model's widths, B 1 x S 128, three Adam steps (LAMB for
+# the BERT) at lr 1e-5 (losses at PARITY_LOSS_RTOL), then greedy tokens of
+# 4 requests x 6. At lr 1e-4 the wide twins memorize the batch in two
+# steps (GPT-J's 11.81 -> 0.204 -> 0.0004): a loss of 4e-4 holds the
+# two sides' fp32 noise at 1.7e-2 of itself, which says nothing of the
+# kernels
+HD_TWIN = dict(num_layers=1, batch=1, seq=128, steps=3, requests=4,
+               max_new=6, lr=1e-5)
+# the flash kernels of the head_dims phase's paths, whose launches it
+# reads
+HD_FLASH_KERNELS = ("flash_attention_qkv_fwd", "flash_attention_qkv_bwd",
+                    "flash_unpacked_fwd", "flash_unpacked_bwd",
+                    "flash_segments_serve",
+                    "flash_attention_segments_with_lse",
+                    "flash_segments_fwd", "flash_attention_decode",
+                    "flash_attention_decode_paged")
 
 
 class SmokeFailure(RuntimeError):
@@ -667,9 +734,10 @@ def chunk_slot_ids(budget, num_slots):
     return ids, at
 
 
-def seg_cases(dev):
+def seg_cases(dev, h=None, d=None, seed=2):
     """Row 3's serving read at the serve's chunk (8 heads x 256 tokens x
-    128, causal, 4 slot pieces out of order and pads), bf16 and fp32, each
+    128, causal, 4 slot pieces out of order and pads; ``h`` heads of ``d``
+    where given), bf16 and fp32, each
     against the plain version of its `flash_segments_serve_plan` route
     (`flash_attention_segments_plain` at the route's frame; bf16: the tile
     kernel, fp32: the warp-a-row kernel), on its route by the kernels a profiled call launches
@@ -678,8 +746,9 @@ def seg_cases(dev):
     training forward with its pre-passes, `pipe_ms`)."""
     from rocm_apex_tpu_torch.ops import flash_attention_segments as fs
 
-    gen = torch.Generator(device=dev).manual_seed(2)
-    h, d = SERVE["num_attention_heads"], SERVE["hidden_size"] // 8
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if h is None:
+        h, d = SERVE["num_attention_heads"], SERVE["hidden_size"] // 8
     scale = 1.0 / math.sqrt(d)
     ids_np, _ = chunk_slot_ids(BUDGET, SLOTS)
     seg = torch.from_numpy(ids_np).to(dev)
@@ -693,7 +762,8 @@ def seg_cases(dev):
         q, k, v = (x.transpose(0, 1) for x in _qkv(BUDGET, h, d, dt, dev,
                                                    gen))
         plan = fs.flash_segments_serve_plan(h, BUDGET, d, dt)
-        check(plan["route"] == ("tiles" if dt == torch.bfloat16 else "rows"),
+        check(plan["route"] == ("tiles" if dt == torch.bfloat16 and d <= 128
+                                else "rows"),
               f"segments serve {dt}: planned on the {plan['route']} route")
         what = f"causal ({h}, {BUDGET}, {d}) {str(dt)[6:]}, 4 slots + pads"
 
@@ -720,8 +790,8 @@ def seg_cases(dev):
 
         extra = {}
         if dt == torch.bfloat16:
-            extra = dict(pipe_ms=lambda q=q, k=k, v=v: fs._seg_fwd(
-                q, k, v, seg, True, scale))
+            extra = dict(pipe_ms=lambda q=q, k=k, v=v, scale=scale:
+                         fs._seg_fwd(q, k, v, seg, True, scale))
         yield dict(
             kernel=kernel_of[plan["route"]],
             case=f"{what} [{route}]",
@@ -765,18 +835,24 @@ FWD_ROUTE_KERNELS = {"wgmma": "fwd_pipe_kernel",
                      "cuda_cores": ("flash_fwd_kernel", "fwd_f32_kernel")}
 
 
+# profiles `_device_kernels` takes at most for one call
+PROFILE_TRIES = 6
+
+
 def _device_kernels(fn, want=()):
     """The names of the device kernels two calls of ``fn`` launch, from a
     profile of the host and the card (as `profile_window` takes it). The
     profiler now and then records no device activity, or drops some of a
     window's kernels (the fp32 unpacked backward's dq pass, once in four
-    processes): a profile that shows none of its kernels, or not every
-    name in ``want``, is taken again, at most three times in all, and the
-    names of every profile taken are returned (empty only if each was)."""
+    processes; the bf16 one's three times in a row late in a full run,
+    after a few hundred profiles): a profile that shows none of
+    its kernels, or not every name in ``want``, is taken again, at most
+    PROFILE_TRIES times in all, and the names of every profile taken are
+    returned (empty only if each was)."""
     from torch.profiler import ProfilerActivity, profile
 
     names = set()
-    for _ in range(3):
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -951,9 +1027,10 @@ def packed_grad_l1(qkv, bias, o, lse, do, causal, scale, rate, seed):
     return fa._to_rows(torch.cat(l1, dim=-1), B, S, nh)
 
 
-def decode_cases(dev):
+def decode_cases(dev, h=None, d=None, seed=3):
     """The contiguous decode read (row 5) at the serve's shapes: the
-    decode grid (8 slots x 8 heads x d 128, capacity 1024, mixed bounds)
+    decode grid (8 slots x 8 heads x d 128, capacity 1024, mixed bounds;
+    ``h`` heads of ``d`` where given, without the capacity-1020 tail)
     and piece B (the 256-row chunk, each row against its own slot's
     prefix, pads reading nothing), bf16 and fp32, each against its plain
     version. Every decode-grid case launches twice on the same inputs and
@@ -968,9 +1045,11 @@ def decode_cases(dev):
     from rocm_apex_tpu_torch.ops import flash_attention as fa
     from rocm_apex_tpu_torch.ops._build import sm_count
 
-    gen = torch.Generator(device=dev).manual_seed(3)
-    cpu_gen = torch.Generator().manual_seed(3)
-    h, d = SERVE["num_attention_heads"], SERVE["hidden_size"] // 8
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cpu_gen = torch.Generator().manual_seed(seed)
+    tail = h is None
+    if h is None:
+        h, d = SERVE["num_attention_heads"], SERVE["hidden_size"] // 8
     # mixed decode bounds min(lengths + 1, capacity): a full slot, an
     # empty one, long and short prefixes
     grid_len = torch.tensor([1024, 0, 17, 513, 300, 64, 1000, 129],
@@ -1002,13 +1081,13 @@ def decode_cases(dev):
             q, _, _ = _qkv(rows, h, d, dt, dev, gen)
             turn = [0]
 
-            def kern(q=q, lens=lens, ids=ids):
+            def kern(q=q, lens=lens, ids=ids, caches=caches, turn=turn):
                 kc, vc = caches[turn[0] % 4]
                 turn[0] += 1
                 return fa.flash_attention_decode(
                     q, kc, vc, lens, return_lse=True, slot_ids=ids)
 
-            def plain(q=q, lens=lens, ids=ids, rows=rows):
+            def plain(q=q, lens=lens, ids=ids, rows=rows, caches=caches):
                 kc, vc = caches[0]
                 return fa.decode_spans_plain(
                     q, kc, vc, lens, 1.0 / math.sqrt(d),
@@ -1084,6 +1163,8 @@ def decode_cases(dev):
                 ops=4 * d * h * keys_read,
                 headline=ids is None and dt == torch.bfloat16,
             )
+    if not tail:
+        return
     # a capacity page 16 does not divide (the pools round it up to 1024
     # rows): the paged read takes the capacity and plans on it
     cap = CAPACITY - 4
@@ -1149,10 +1230,11 @@ def _paged_rows_read(table, lens, ps, num_pages, slots):
     return keys.numel(), torch.unique(keys // ps).numel()
 
 
-def paged_decode_cases(dev):
+def paged_decode_cases(dev, h=None, d=None, cases=None, seed=6):
     """The paged decode read (float pools, and int8 pools with fp32
-    scales) at the serve's shapes: the decode grid (8 slots x 8 heads x
-    d 128, prefixes up to 1024: ragged, ending mid-page, and slot 1 a
+    scales) at the serve's shapes (``h`` heads of ``d`` and the ``cases``
+    where given): the decode grid (8 slots x 8 heads x d 128, prefixes up
+    to 1024: ragged, ending mid-page, and slot 1 a
     dead row at capacity whose table maps 3 pages, so its bound reaches
     sentinel entries) and piece B (the 256-row chunk, each row against
     its own slot's pre-chunk prefix, pads reading nothing), at page sizes
@@ -1168,9 +1250,10 @@ def paged_decode_cases(dev):
     from rocm_apex_tpu_torch.ops._build import sm_count
     from rocm_apex_tpu_torch.ops.paging import paged_view
 
-    gen = torch.Generator(device=dev).manual_seed(6)
-    cpu_gen = torch.Generator().manual_seed(6)
-    h, d = SERVE["num_attention_heads"], SERVE["hidden_size"] // 8
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cpu_gen = torch.Generator().manual_seed(seed)
+    if h is None:
+        h, d = SERVE["num_attention_heads"], SERVE["hidden_size"] // 8
     grid_len = [CAPACITY, CAPACITY, 17, 513, 300, 64, 1000, 129]
     chunk_len = [700, 0, 0, 256, 0, 0, 32, 0]
     # the split read's edges: empty, shorter than a span, ending inside a
@@ -1181,7 +1264,7 @@ def paged_decode_cases(dev):
     slot_ids = torch.from_numpy(ids_np).to(dev)
     key_slot = torch.arange(SLOTS * CAPACITY, device=dev) // CAPACITY
     key_pos = torch.arange(SLOTS * CAPACITY, device=dev) % CAPACITY
-    cases = [
+    cases = cases or [
         ("decode grid", 16, torch.bfloat16, False),
         ("decode grid", 16, torch.float32, False),
         ("decode grid", 16, torch.bfloat16, True),
@@ -1326,6 +1409,21 @@ def paged_decode_cases(dev):
                       and dt == torch.bfloat16),
             breakdown=form == "decode grid" and ps == 16,
         )
+
+
+def _dbias_flip_tol(l1):
+    """The part of a bf16 packed bias gradient's tolerance that its rows'
+    ds rounding flips take: the bias gradient sums dq|dk|dv over the
+    (B, S) rows in fp32, and each of those may move by one bf16 step of
+    its terms' L1 mass ``l1`` (B, S, nh, 3 hd) where p or ds rounds the
+    other way on the two sides, in at most FRAME_SHARE of the elements
+    (`attn_compare`'s rule for dq|dk|dv themselves); so each column is
+    allowed ROUND_STEP times the sum of its ceil(FRAME_SHARE B S) largest
+    L1 masses. At B 1 x S 2048 the fp32-order term alone (`_l1_tol`) read
+    1.8-2.0x at head_dim 128 and 256 alike, dq|dk|dv 0.5."""
+    rows = l1.reshape(-1, l1.shape[-2] * l1.shape[-1]).float()
+    k = max(1, math.ceil(FRAME_SHARE * rows.shape[0]))
+    return ROUND_STEP * rows.topk(k, dim=0).values.sum(dim=0)
 
 
 def _l1_tol(abs_terms_sum):
@@ -1564,7 +1662,7 @@ def ln_plain_cases(dev):
             del x, dy, got, ref, bgot
 
 
-def flash_cases(dev):
+def flash_cases(dev, nh=None, hd=None, shapes=None, seed=4, flips=False):
     """The packed-QKV attention of the training step, forward and
     backward: (B 16, S 1024, 8 heads, 3 x 128) bf16 with the projection
     bias and dropout 0.1 (the step's form), without bias or dropout, an
@@ -1574,15 +1672,20 @@ def flash_cases(dev):
     plan's route (`check_fwd_route`: the bf16 ones on the wgmma pipe,
     launched twice for equal bits). The library yardstick is SDPA on the
     biased q/k/v in (B, nh, S, hd), forward, and forward + backward
-    through autograd."""
+    through autograd. ``nh`` heads of ``hd`` and the ``shapes`` where
+    given: at hd 256 the fp32 form runs on the unpacked CUDA-core bodies
+    (`flash_bwd_plan`'s ``form``), its bias through an fp32 pre-pass.
+    With ``flips``, a bf16 bias gradient is also allowed the ds rounding
+    flips its rows carry (`_dbias_flip_tol`)."""
     from rocm_apex_tpu_torch.ops import flash_attention as fa
     from rocm_apex_tpu_torch.ops._build import sm_count
 
-    gen = torch.Generator(device=dev).manual_seed(4)
-    nh = TRAIN["num_attention_heads"]
-    hd = TRAIN["hidden_size"] // nh
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if nh is None:
+        nh = TRAIN["num_attention_heads"]
+        hd = TRAIN["hidden_size"] // nh
     scale, seed = 1.0 / math.sqrt(hd), 77
-    for B, S, dt, with_bias, rate, causal in (
+    for B, S, dt, with_bias, rate, causal in shapes or (
         (TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16, True, 0.1, True),
         (TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16, False, 0.0, True),
         (TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16, True, 0.0, True),
@@ -1662,14 +1765,22 @@ def flash_cases(dev):
             check(_same_bits([t for t in got if t is not None],
                              [t for t in bkern() if t is not None]),
                   f"flash bwd {name}: two launches differ")
-        broute = check_launches(bkern, BWD_ROUTE_KERNELS, bplan["route"],
-                                f"flash bwd {name}", "qkv_bias_kernel",
-                                with_bias and bplan["route"] == "wgmma")
+        if bplan["form"] == "unpacked":  # fp32 at hd 256
+            broute = check_launches(bkern, UNPACKED_BWD_ROUTE_KERNELS,
+                                    bplan["route"], f"flash bwd {name}",
+                                    "qkv_bias_f32_kernel", with_bias)
+        else:
+            broute = check_launches(bkern, BWD_ROUTE_KERNELS,
+                                    bplan["route"], f"flash bwd {name}",
+                                    "qkv_bias_kernel",
+                                    with_bias and bplan["route"] == "wgmma")
         ref = bplain()
         extra = [None, None if bias is None else _l1_tol(
             ref[0].float().abs().sum(dim=(0, 1)).reshape(-1))]
         l1 = (packed_grad_l1(qkv, bias, o, lse, do, causal, scale, rate,
                              seed) if dt == torch.bfloat16 else None)
+        if flips and bias is not None and l1 is not None:
+            extra[1] = extra[1] + _dbias_flip_tol(l1)
         yield dict(
             kernel="flash_attention_qkv_bwd", case=f"{name} [{broute}]",
             dtype=dt, cmp=attn_compare(got, ref, [l1, None], extra),
@@ -2062,7 +2173,7 @@ DEV_CPU = torch.device("cpu")
 LSE_L1_RTOL = 1e-5
 
 
-def unpacked_cases(dev):
+def unpacked_cases(dev, cases=None, seed=9):
     """The unpacked flash kernels (forward, backward, dbias) against
     their plain versions, bf16 and fp32, at the paths' shapes: masked
     BERT-Large (B 8 x 8 heads, S 512, hd 128, q/k/v read in place from a
@@ -2092,14 +2203,14 @@ def unpacked_cases(dev):
     from rocm_apex_tpu_torch.ops import flash_attention as fa
     from rocm_apex_tpu_torch.ops._build import sm_count
 
-    gen = torch.Generator(device=dev).manual_seed(9)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     H = BERT["num_attention_heads"]
     D = BERT["hidden_size"] // H
     B, S = BERT_BATCH, BERT_SEQ
     mask = padding_mask(bert_lengths(B), S).to(dev)
     bert_bias = padding_bias(bert_extended_attention_mask(mask), B, S)
     seed = 31
-    cases = [
+    cases = cases or [
         # name, (B, H, sq, sk, D), dtype, bias, causal, lens, rate,
         # dbias, dlse, in-place projection views, headline
         ("masked BERT, dropout 0.1", (B, H, S, S, D), torch.bfloat16,
@@ -2473,7 +2584,7 @@ def _seg_tables(fs, fn, seg, causal, what):
           f"version ({bad} of {want.numel()} words; -1: the sizes)")
 
 
-def seg_train_cases(dev):
+def seg_train_cases(dev, cases=None, seed=13):
     """The training segment attention (forward; backward, a dq and a dk/dv
     pass) against its plain versions: bench.py's fmha batch (17408 tokens,
     8 heads x 64, bf16, q/k/v read in place from the packed (total, 3, h,
@@ -2496,10 +2607,10 @@ def seg_train_cases(dev):
     (`row3_ms`, the rows route of `flash_segments_serve_plan`)."""
     from rocm_apex_tpu_torch.ops import flash_attention_segments as fs
 
-    gen = torch.Generator(device=dev).manual_seed(13)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.RandomState(1)
     shuffled = rng.permutation(np.repeat(np.arange(9), 4)).tolist()
-    cases = [
+    cases = cases or [
         # name, lengths, heads, head_dim, dtype, causal, ids, headline
         ("fmha batch", fmha_lengths(), FMHA_HEADS, FMHA_HD, torch.bfloat16,
          True, None, True),
@@ -3853,16 +3964,148 @@ def frame_cases(dev):
                    qt, kt, vt, seg, ot, lt, dot, True, scale))
 
 
-CASE_GROUPS = dict(ln=ln_cases, seg=seg_cases, decode=decode_cases,
-                   paged=paged_decode_cases, train_ln=train_ln_cases,
+# ---------------------------------------------------------------------------
+# the head dims (PERF.md §6's head-dim forms): each flash kernel at hd 32,
+# 80 and 256 (and 96, and 20, which the wrappers pad), bf16 and fp32,
+# through the groups' own case generators at those shapes
+# ---------------------------------------------------------------------------
+
+
+def _hd_cases(cases, hd, rows=False):
+    """The head-dim cases of a group, off the kernels line's headline (the
+    models' own shapes head it), each with its instance's width (`rows`:
+    the warp-a-row reads', whose widths include 32) and the operations at
+    that width beside those at hd (`ops_width`)."""
+    from rocm_apex_tpu_torch.ops import flash_attention as fa
+
+    for c in cases:
+        # the serving read's rows route is a warp-a-row read too
+        on_rows = rows or c["kernel"] == "flash_attention_segments_with_lse"
+        width = fa.head_dim_plan(
+            hd, fa.ROW_WIDTHS if on_rows else fa.PIPE_WIDTHS)["width"]
+        c["headline"] = False
+        c["hd"], c["width"] = hd, width
+        c["ops_width"] = c["ops"] * width // hd
+        yield c
+
+
+def hd_flash_cases(dev):
+    """The packed path at hd 256 (GPT-J's 16 heads): the train form (S
+    2048, bias, dropout 0.1, causal), a ragged S not causal, and fp32
+    (the unpacked CUDA-core bodies behind the fp32 bias pre-pass)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    yield from _hd_cases(flash_cases(dev, 16, 256, shapes=(
+        (1, 2048, bf, True, 0.1, True),
+        (2, 1000, bf, True, 0.1, False),
+        (1, 512, f32, True, 0.1, True),
+        (1, 512, f32, False, 0.0, False),
+    ), seed=41, flips=True), 256)
+
+
+# name, (B, H, sq, sk, D), dtype, bias, causal, lens, rate, dbias, dlse,
+# in-place projection views, headline (`unpacked_cases`)
+HD_UNPACKED_CASES = [
+    ("GPT-3 2.7B attention, dropout 0.1", (1, 32, 2048, 2048, 80),
+     torch.bfloat16, None, True, None, 0.1, False, False, True, False),
+    ("GPT-3 2.7B attention", (1, 4, 512, 512, 80), torch.float32, None,
+     True, None, 0.0, False, False, True, False),
+    ("hd 80, bias nb 1, dbias, dropout 0.1", (2, 4, 256, 256, 80),
+     torch.bfloat16, 1, False, None, 0.1, True, False, False, False),
+    ("hd 80 ragged, bias nb 1, dbias", (2, 2, 200, 333, 80), torch.float32,
+     1, False, None, 0.0, True, False, False, False),
+    ("recipe attention, dropout 0.1", (4, 8, 256, 256, 32), torch.bfloat16,
+     None, True, None, 0.1, False, False, True, False),
+    ("hd 32 ragged causal, bias nb bh, dbias", (2, 4, 200, 333, 32),
+     torch.bfloat16, 8, True, None, 0.0, True, True, False, False),
+    ("hd 32 ragged causal, bias nb bh, dbias", (2, 4, 200, 333, 32),
+     torch.float32, 8, True, None, 0.1, True, True, False, False),
+    ("hd 256, bias nb 1, dbias, lse cotangent", (1, 16, 1024, 1024, 256),
+     torch.bfloat16, 1, False, None, 0.0, True, True, False, False),
+    ("hd 256 ragged causal, bias nb bh, dbias", (2, 2, 200, 333, 256),
+     torch.float32, 4, True, None, 0.1, True, True, False, False),
+    ("hd 96 (GPT-NeoX), varlen", (2, 4, 300, 300, 96), torch.bfloat16, None,
+     False, "lens", 0.0, False, False, False, False),
+    ("hd 20 (padded), bias nb 1, dbias", (2, 2, 200, 333, 20),
+     torch.bfloat16, 1, False, None, 0.0, True, False, False, False),
+    ("hd 20 (padded) causal, bias nb 1, dbias", (2, 2, 200, 333, 20),
+     torch.float32, 1, True, None, 0.0, True, False, False, False),
+]
+
+
+def hd_unpacked_cases(dev):
+    for i, case in enumerate(HD_UNPACKED_CASES):
+        yield from _hd_cases(unpacked_cases(dev, [case], seed=90 + i),
+                             case[1][4])
+
+
+def hd_seg_train_cases(dev):
+    """The training segment kernels at the models' head dims: packed
+    streams of GPT-3 2.7B's (32 heads of 80), the recipe's (8 of 32) and
+    GPT-J's (16 of 256), bf16, causal; fp32 on the small ragged batch with
+    an empty sequence at each head dim."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("GPT-3 2.7B heads", [700, 37, 0, 1024, 300], 32, 80, bf, True,
+         None, False),
+        ("recipe heads", [256, 256, 256, 100, 3], 8, 32, bf, True, None,
+         False),
+        ("GPT-J heads", [2048, 300, 64], 16, 256, bf, True, None, False),
+        ("ragged, an empty sequence", FMHA_PARITY_LENS, 4, 80, f32, True,
+         None, False),
+        ("ragged, an empty sequence", FMHA_PARITY_LENS, 4, 32, f32, False,
+         None, False),
+        ("ragged, an empty sequence", FMHA_PARITY_LENS, 4, 256, f32, True,
+         None, False),
+    ]
+    for i, case in enumerate(cases):
+        yield from _hd_cases(seg_train_cases(dev, [case], seed=130 + i),
+                             case[3])
+
+
+# (heads, head_dim) of the serving reads' head-dim cases: the recipe's,
+# GPT-3 2.7B's and GPT-J's; the decode read also at hd 20 (padded)
+HD_SERVE_DIMS = ((8, 32), (32, 80), (16, 256))
+
+
+def hd_seg_cases(dev):
+    for i, (h, d) in enumerate(HD_SERVE_DIMS):
+        yield from _hd_cases(seg_cases(dev, h, d, seed=20 + i), d)
+
+
+def hd_decode_cases(dev):
+    for i, (h, d) in enumerate(HD_SERVE_DIMS + ((4, 20),)):
+        yield from _hd_cases(decode_cases(dev, h, d, seed=30 + i), d,
+                             rows=True)
+
+
+def hd_paged_cases(dev):
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [("decode grid", 16, bf, False), ("decode grid", 16, f32, False),
+             ("decode grid", 16, bf, True), ("chunk piece B", 16, bf, False)]
+    for i, (h, d) in enumerate(HD_SERVE_DIMS):
+        yield from _hd_cases(
+            paged_decode_cases(dev, h, d, cases, seed=60 + i), d, rows=True)
+
+
+CASE_GROUPS = dict(ln=ln_cases, seg=lambda dev: itertools.chain(
+                       seg_cases(dev), hd_seg_cases(dev)),
+                   decode=lambda dev: itertools.chain(
+                       decode_cases(dev), hd_decode_cases(dev)),
+                   paged=lambda dev: itertools.chain(
+                       paged_decode_cases(dev), hd_paged_cases(dev)),
+                   train_ln=train_ln_cases,
                    ln_plain=ln_plain_cases,
-                   flash=flash_cases,
+                   flash=lambda dev: itertools.chain(
+                       flash_cases(dev), hd_flash_cases(dev)),
                    xent=lambda dev: itertools.chain(xent_cases(dev),
                                                     xent_bwd_cases(dev)),
                    lamb=lamb_cases,
                    unpacked=lambda dev: itertools.chain(
-                       unpacked_cases(dev), unpacked_vs_packed_cases(dev)),
-                   seg_train=seg_train_cases, softmax=softmax_cases,
+                       unpacked_cases(dev), unpacked_vs_packed_cases(dev),
+                       hd_unpacked_cases(dev)),
+                   seg_train=lambda dev: itertools.chain(
+                       seg_train_cases(dev), hd_seg_train_cases(dev)),
+                   softmax=softmax_cases,
                    packed=packed_cases, bottleneck=bottleneck_cases,
                    frames=frame_cases)
 
@@ -3893,6 +4136,13 @@ def run_kernel_phase(dev, generators, profile=False):
         b_ms, b_by = bound_ms(c["nbytes"], c["ops"], c["dtype"])
         extra = {k: device_ms(fn, c.get("iters", 100))
                  for k, fn in c.get("extra_timings", {}).items()}
+        if "ops_width" in c:
+            # a head-dim case: its instance's width, and the bound of the
+            # operations at that width (zero columns included) beside the
+            # bound at hd
+            extra.update(hd=c["hd"], width=c["width"],
+                         bound_width_ms=bound_ms(c["nbytes"], c["ops_width"],
+                                                 c["dtype"])[0])
         if lib_ms is not None and "library_fwd_ms" in extra:
             # the library's backward alone: fwd + bwd less fwd
             extra["library_bwd_ms"] = lib_ms - extra["library_fwd_ms"]
@@ -4438,9 +4688,10 @@ def _train_batch(cfg, batch, seq):
     return torch.from_numpy(tokens), torch.from_numpy(np.roll(tokens, -1, 1))
 
 
-def _trainer(cfg, device, lr, opt=None):
-    """``(step, state, scaler state)`` over seeded random weights, with
-    ``opt`` (default: bench.py's MixedPrecisionAdam(lr, wd 0.01))."""
+def _trainer(cfg, device, lr, opt=None, tree=None):
+    """``(step, state, scaler state)`` over seeded random weights (or the
+    param ``tree``), with ``opt`` (default: bench.py's
+    MixedPrecisionAdam(lr, wd 0.01))."""
     from rocm_apex_tpu_torch.amp import LossScaler
     from rocm_apex_tpu_torch.convert import (random_params,
                                              train_state_from_jax_params)
@@ -4452,7 +4703,8 @@ def _trainer(cfg, device, lr, opt=None):
                                  compute_dtype=cfg.dtype)
     scaler = LossScaler("dynamic")
     model, state = train_state_from_jax_params(
-        random_params(cfg, seed=0), cfg, opt, device=device)
+        random_params(cfg, seed=0) if tree is None else tree, cfg, opt,
+        device=device)
     return (make_train_step(model, opt, scaler), state,
             scaler.init(model.device))
 
@@ -4571,18 +4823,18 @@ def _bert_batch(cfg, batch, seq):
     return torch.from_numpy(tokens), torch.from_numpy(np.roll(tokens, 1, 1))
 
 
-def _bert_trainer(cfg, device, moment_dtype):
-    """``(step, state, model, opt)``: bench.py's optimizer over seeded
-    random weights."""
+def _bert_trainer(cfg, device, moment_dtype, lr=1e-4, tree=None):
+    """``(step, state, model, opt)``: bench.py's optimizer (at ``lr``)
+    over seeded random weights (or the param ``tree``)."""
     from rocm_apex_tpu_torch.convert import (flatten_params, random_params,
                                              train_state_from_jax_params)
     from rocm_apex_tpu_torch.optimizers import MixedPrecisionLamb
     from rocm_apex_tpu_torch.train import make_bert_train_step
 
-    tree = random_params(cfg, seed=0)
+    tree = random_params(cfg, seed=0) if tree is None else tree
     mask = {k: not (k.endswith("bias") or "layernorm" in k.lower())
             for k in flatten_params(tree["params"])}
-    opt = MixedPrecisionLamb(1e-4, weight_decay=0.01, weight_decay_mask=mask,
+    opt = MixedPrecisionLamb(lr, weight_decay=0.01, weight_decay_mask=mask,
                              compute_dtype=cfg.dtype,
                              moment_dtype=moment_dtype, store_model=False)
     model, state = train_state_from_jax_params(tree, cfg, opt, device=device)
@@ -5197,17 +5449,25 @@ def _packed_ops(grads, master, sstate):
     return outs
 
 
-def _master_err(card, cpu, initial, spec, lr):
+def _master_err(card, cpu, initial, spec):
     """The worst ratio of |card - cpu| to the packed parity's tolerance
     over the packed masters, and where it falls (leaf, element, the three
-    values)."""
+    values): PACKED_MASTER_RTOL of |initial| + |step| plus
+    OPTIM_STEP_SHARE of the largest step |cpu - initial| of the element's
+    leaf, as `_param_err` holds the tree optimizers' params."""
     from rocm_apex_tpu_torch.ops.packing import WIDTH
 
     worst, where = 0.0, None
     for mc, mp, m0, group in zip(card, cpu, initial, spec.groups):
-        tol = (PACKED_MASTER_RTOL * (m0.abs() + (mp - m0).abs())
-               + PACKED_MASTER_LR_SHARE * lr)
-        r = ((mc - mp).abs() / tol).view(-1)
+        step = (mp - m0).abs()
+        share = torch.zeros_like(step).view(-1)
+        for ls in group.leaf_specs:
+            at = slice(ls.row_start * WIDTH, ls.row_start * WIDTH + ls.numel)
+            share[at] = OPTIM_STEP_SHARE * float(step.view(-1)[at].max())
+        tol = PACKED_MASTER_RTOL * (m0.abs() + step) + share.view(step.shape)
+        # equal values pass where the tolerance is 0 (the padding, a leaf
+        # that did not move); any difference there is infinitely over it
+        r = torch.where(mc == mp, 0.0, (mc - mp).abs() / tol).view(-1)
         i = int(r.argmax())
         if float(r[i]) > worst:
             j = max(k for k, ls in enumerate(group.leaf_specs)
@@ -5229,8 +5489,8 @@ def run_train_packed_parity_phase():
     three steps on the card against the CPU, then one step with an inf in
     a gradient. Losses within PARITY_LOSS_RTOL, the same skips, masters
     within `PACKED_MASTER_RTOL` of |master| + |applied step| and
-    `PACKED_MASTER_LR_SHARE` of an lr step, the inf step found and
-    bit-frozen on both. Then the packed ops outside the
+    `OPTIM_STEP_SHARE` of the leaf's largest CPU step (`_master_err`), the
+    inf step found and bit-frozen on both. Then the packed ops outside the
     step (`_packed_ops`) on the card's last gradients, card against CPU
     on the same inputs."""
     from rocm_apex_tpu_torch.models.gpt import GPTConfig
@@ -5283,12 +5543,13 @@ def run_train_packed_parity_phase():
         rel = max(abs(a - b) / abs(b) for a, b in zip(rc["losses"],
                                                      rp["losses"]))
         ratio, worst = _master_err(rc["master"], rp["master"], master0,
-                                   spec, 1e-4)
+                                   spec)
         log(f"  {name}: losses cuda {rc['losses']}, cpu {rp['losses']}: "
             f"max relative difference {rel:.3e} (rtol {PARITY_LOSS_RTOL:g});"
             f" skips cuda {rc['skips']}, cpu {rp['skips']}; masters worst "
             f"err/tol {ratio:.3f} at {worst} (tol {PACKED_MASTER_RTOL:g} x "
-            f"(|master| + |step|) + {PACKED_MASTER_LR_SHARE:g} x lr); inf "
+            f"(|master| + |step|) + {OPTIM_STEP_SHARE:g} x the leaf's "
+            f"largest step); inf "
             f"step bit-frozen cuda {rc['frozen']}, cpu {rp['frozen']}")
         check(all(math.isfinite(x) for x in rc["losses"] + rp["losses"]),
               "nonfinite packed parity loss")
@@ -6936,6 +7197,302 @@ def run_optim_amp_phase(report):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase head_dims: GPT/BERT at the public models' head dims
+# ---------------------------------------------------------------------------
+
+
+def _hd_cfg(name, dtype, **kw):
+    from rocm_apex_tpu_torch.models.bert import BertConfig
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+
+    cls = BertConfig if name.endswith("bert") else GPTConfig
+    return cls(**{**HD_MODELS[name], **kw}, params_dtype=torch.float32,
+               dtype=dtype)
+
+
+def _hd_flash_launches():
+    return {k: v for k, v in _launches().items() if k in HD_FLASH_KERNELS}
+
+
+def _hd_prompts(vocab, n, seed=0, lengths=(32, 64, 128, 256)):
+    """``n`` prompts of uniform token ids, their lengths drawn from
+    ``lengths`` (RandomState(seed))."""
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, vocab, size=int(rng.choice(lengths))).tolist()
+            for _ in range(n)]
+
+
+def _hd_losses_fall(name, losses):
+    check(all(math.isfinite(x) for x in losses),
+          f"{name}: a nonfinite loss {losses}")
+    check(losses[-1] < losses[0], f"{name}: the loss did not fall {losses}")
+
+
+def _hd_train(name, lr, tree):
+    """HD_TRAIN_STEPS O5 steps of ``name`` (MixedPrecisionAdam under the
+    dynamic LossScaler; the wide models with dropout HD_DROPOUT, the
+    recipe at its own dropout 0) on one batch: each step's ms, the peak
+    memory, the flash kernels' launches over the steps."""
+    drop = HD_DROPOUT if name in ("gptj", "gpt3_2.7b") else 0.0
+    cfg = _hd_cfg(name, torch.bfloat16, hidden_dropout=drop,
+                  attention_dropout=drop)
+    b, s = HD_TRAIN_SHAPES[name]
+    t0 = time.perf_counter()
+    step, state, sstate = _trainer(cfg, CARD, lr, tree=tree)
+    setup_s = time.perf_counter() - t0
+    tokens, labels = (t.to(CARD) for t in _train_batch(cfg, b, s))
+    gen = torch.Generator().manual_seed(0)  # CPU: the dropout seeds
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    losses, step_ms = [], []
+    for _ in range(HD_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, sstate, loss = step(state, sstate, tokens, labels,
+                                   dropout_generator=gen)
+        losses.append(float(loss))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    res = dict(batch=b, seq=s, head_dim=cfg.head_dim, dropout=drop, lr=lr,
+               losses=losses, step_ms=step_ms, setup_s=setup_s,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=_hd_flash_launches(),
+               overflows=int(sstate.overflows))
+    del step, state, sstate
+    torch.cuda.empty_cache()
+    return res
+
+
+def _hd_bert_train(name, lr, tree):
+    """HD_TRAIN_STEPS masked steps of the BERT recipe under
+    MixedPrecisionLamb (bf16 moments as bench.py's BERT), a padding mask
+    of seeded lengths."""
+    from rocm_apex_tpu_torch.convert import (flatten_params,
+                                             train_state_from_jax_params)
+    from rocm_apex_tpu_torch.optimizers import MixedPrecisionLamb
+    from rocm_apex_tpu_torch.train import make_bert_train_step
+
+    cfg = _hd_cfg(name, torch.bfloat16, hidden_dropout=0.0,
+                  attention_dropout=0.0)
+    b, s = HD_TRAIN_SHAPES[name]
+    mask = {k: not (k.endswith("bias") or "layernorm" in k.lower())
+            for k in flatten_params(tree["params"])}
+    opt = MixedPrecisionLamb(lr, weight_decay=0.01, weight_decay_mask=mask,
+                             compute_dtype=cfg.dtype,
+                             moment_dtype=torch.bfloat16, store_model=False)
+    model, state = train_state_from_jax_params(tree, cfg, opt, device=CARD)
+    step = make_bert_train_step(model, opt)
+    tokens, labels = (t.to(CARD) for t in _bert_batch(cfg, b, s))
+    lens = np.random.RandomState(3).randint(s // 4, s + 1, b)
+    lens[0] = s
+    amask = padding_mask(lens, s).to(CARD)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    losses, step_ms, found = [], [], []
+    for _ in range(HD_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss, inf = step(state, tokens, labels, attention_mask=amask)
+        losses.append(float(loss))
+        found.append(bool(inf))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    check(not any(found), f"{name}: a LAMB step found an overflow")
+    return dict(batch=b, seq=s, head_dim=cfg.head_dim, lr=lr,
+                lengths=[int(x) for x in lens], losses=losses,
+                step_ms=step_ms,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches=_hd_flash_launches())
+
+
+def _hd_serve(name, tree):
+    """The bf16 model on the chunked engine (8 slots, capacity 1024,
+    budget 256, greedy): HD_SERVE's requests on the contiguous cache,
+    then on pages of PAGE_SIZE, each timed with the flash kernels'
+    launches; the pages must give the contiguous tokens in every
+    request."""
+    from rocm_apex_tpu_torch.convert import from_jax_params
+
+    cfg = _hd_cfg(name, torch.bfloat16)
+    model = from_jax_params(tree, cfg, device=CARD)
+    prompts = _hd_prompts(cfg.vocab_size, HD_SERVE["requests"])
+    res, tokens = {}, {}
+    for form, kw in (("contiguous", {}),
+                     ("paged", dict(paged=True, page_size=PAGE_SIZE))):
+        eng = _engine(model, **kw)
+        eng.generate(prompts[:SLOTS], max_new_tokens=2)  # warm-up
+        _zero_launches()
+        t0 = time.perf_counter()
+        tokens[form] = _tokens(eng, prompts, HD_SERVE["max_new"])
+        _sync()
+        dt = time.perf_counter() - t0
+        gen = sum(len(t) for t in tokens[form])
+        check(all(len(t) == HD_SERVE["max_new"] and all(
+            0 <= x < cfg.vocab_size for x in t) for t in tokens[form]),
+              f"{name} {form}: a request did not run to its tokens")
+        res[form] = dict(seconds=dt, tokens_per_s=gen / dt,
+                         launches=_hd_flash_launches())
+    same = sum(a == b for a, b in zip(tokens["paged"], tokens["contiguous"]))
+    res["paged_requests_matching_contiguous"] = same
+    check(same == len(prompts), f"{name}: bf16 pages give the contiguous "
+          f"tokens in {same} of {len(prompts)} requests")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _first_layers(tree, n):
+    """A copy of a GPT/BERT param tree cut to its first ``n`` layers."""
+    def cut(node):
+        return {k: (cut(v) if isinstance(v, dict) else np.array(v))
+                for k, v in node.items()
+                if not (k.startswith("layer_") and int(k[6:]) >= n)}
+    return cut(tree)
+
+
+def _hd_twin(name, tree):
+    """The reduced-depth twin (HD_TWIN), fp32 with TF32 off, card against
+    CPU: the losses of three Adam steps (LAMB for the BERT recipe, with its
+    padding mask) within PARITY_LOSS_RTOL; for the GPTs also the engine's
+    greedy tokens, equal."""
+    from rocm_apex_tpu_torch.convert import from_jax_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _hd_cfg(name, torch.float32, num_layers=HD_TWIN["num_layers"],
+                  hidden_dropout=0.0, attention_dropout=0.0)
+    tree = _first_layers(tree, HD_TWIN["num_layers"])
+    b, s = HD_TWIN["batch"], HD_TWIN["seq"]
+    bert = name.endswith("bert")
+    runs = {}
+    for dev in (CARD, "cpu"):
+        losses = []
+        if bert:
+            step, state, _, _ = _bert_trainer(cfg, dev, torch.float32,
+                                              HD_TWIN["lr"],
+                                              _first_layers(tree, 99))
+            tokens, labels = _bert_batch(cfg, b, s)
+            amask = padding_mask([s - 29] * b, s)
+            for _ in range(HD_TWIN["steps"]):
+                state, loss, _ = step(state, tokens, labels,
+                                      attention_mask=amask)
+                losses.append(float(loss))
+        else:
+            step, state, sstate = _trainer(cfg, dev, HD_TWIN["lr"],
+                                           tree=_first_layers(tree, 99))
+            tokens, labels = _train_batch(cfg, b, s)
+            for _ in range(HD_TWIN["steps"]):
+                state, sstate, loss = step(state, sstate, tokens, labels)
+                losses.append(float(loss))
+        runs[dev] = losses
+        del step, state
+    lc, lp = runs[CARD], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    log(f"  {name} twin ({HD_TWIN['num_layers']} layer, fp32): losses cuda "
+        f"{lc}, cpu {lp}: max relative difference {rel:.3e} (rtol "
+        f"{PARITY_LOSS_RTOL:g})")
+    check(all(math.isfinite(x) for x in lc + lp),
+          f"{name} twin: a nonfinite loss")
+    check(rel <= PARITY_LOSS_RTOL,
+          f"{name} twin: card and CPU losses differ by {rel:.3e}")
+    res = dict(losses_cuda=lc, losses_cpu=lp, max_rel_diff=rel)
+    if not bert:
+        from rocm_apex_tpu_torch.inference import (InferenceEngine,
+                                                   SamplingParams)
+
+        prompts = _hd_prompts(cfg.vocab_size, HD_TWIN["requests"], seed=1,
+                              lengths=(16, 32, 48))
+        cap = min(CAPACITY, cfg.max_position_embeddings)
+        toks = {dev: _tokens(InferenceEngine(
+            from_jax_params(tree, cfg, device=dev), num_slots=SLOTS,
+            capacity=cap, prefill_token_budget=min(BUDGET, cap),
+            sampling=SamplingParams(temperature=0.0)), prompts,
+            HD_TWIN["max_new"]) for dev in (CARD, "cpu")}
+        same = toks[CARD] == toks["cpu"]
+        log(f"  {name} twin: greedy tokens of {len(prompts)} requests x "
+            f"{HD_TWIN['max_new']}: cuda {'==' if same else '!='} cpu")
+        check(same, f"{name} twin: greedy tokens differ: {toks}")
+        res["tokens_identical"] = same
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_head_dims_phase():
+    """GPT-J-6B's attention shape (hd 256: the packed branch), GPT-3
+    2.7B's (hd 80: the unpacked kernels at width 128 with zero columns)
+    and the JAX recipes' (hd 32 at width 64): each wide model trains
+    HD_TRAIN_STEPS O5 steps (dropout 0.1) and serves HD_SERVE's requests
+    contiguous and paged; the recipes' GPT trains under Adam and masked
+    BERT under LAMB; each prints its step ms, peak memory and the flash
+    kernels' launches, and its losses must be finite and fall. Each
+    model's reduced-depth twin then holds card against CPU."""
+    from rocm_apex_tpu_torch.ops import flash_attention as fa
+
+    res = dict(launches={})
+    expect = {  # the flash kernels each path must launch
+        "gptj": ("flash_attention_qkv_fwd", "flash_attention_qkv_bwd"),
+        "gpt3_2.7b": ("flash_unpacked_fwd", "flash_unpacked_bwd"),
+        "recipe_gpt": ("flash_unpacked_fwd", "flash_unpacked_bwd"),
+        "recipe_bert": ("flash_unpacked_fwd", "flash_unpacked_bwd"),
+    }
+    lrs = {"gptj": 3e-4, "gpt3_2.7b": 3e-4, "recipe_gpt": 1e-4,
+           "recipe_bert": 1e-3}
+    from rocm_apex_tpu_torch.convert import random_params
+
+    for name in HD_MODELS:
+        hd = HD_MODELS[name]["hidden_size"] // HD_MODELS[name][
+            "num_attention_heads"]
+        # one seeded tree a model: its train, serve and twin start from it
+        tree = random_params(_hd_cfg(name, torch.float32), seed=0)
+        plan = fa.head_dim_plan(hd)
+        log(f"  -- {name}: hd {hd} (width {plan['width']}, "
+            f"{plan['hd_route']})")
+        r = dict(head_dim=hd, width=plan["width"], hd_route=plan["hd_route"])
+        r["train"] = (_hd_bert_train(name, lrs[name], tree)
+                      if name.endswith("bert")
+                      else _hd_train(name, lrs[name], tree))
+        t = r["train"]
+        log(f"  {name} train: B {t['batch']} x S {t['seq']}, losses "
+            f"{[round(x, 4) for x in t['losses']]}, step ms "
+            f"{[round(x, 2) for x in t['step_ms']]}, peak "
+            f"{t['peak_mem_gib']:.2f} GiB; flash launches {t['launches']}")
+        _hd_losses_fall(f"{name} train", t["losses"])
+        for k in expect[name]:
+            check(t["launches"].get(k, 0) > 0,
+                  f"{name} train: {k} was not launched")
+        other = ({"flash_unpacked_fwd", "flash_unpacked_bwd"}
+                 if name == "gptj" else
+                 {"flash_attention_qkv_fwd", "flash_attention_qkv_bwd"})
+        check(not any(t["launches"].get(k, 0) for k in other),
+              f"{name} train: the other attention branch ran "
+              f"{t['launches']}")
+        if name in ("gptj", "gpt3_2.7b"):
+            r["serve"] = _hd_serve(name, tree)
+            for form in ("contiguous", "paged"):
+                sv = r["serve"][form]
+                log(f"  {name} serve {form}: {HD_SERVE['requests']} requests "
+                    f"x {HD_SERVE['max_new']} tokens in {sv['seconds']:.3f} s "
+                    f"({sv['tokens_per_s']:.1f} tok/s); flash launches "
+                    f"{sv['launches']}")
+            chunk = ("flash_segments_serve" if hd <= 128
+                     else "flash_attention_segments_with_lse")
+            check(r["serve"]["contiguous"]["launches"].get(chunk, 0) > 0
+                  and r["serve"]["contiguous"]["launches"].get(
+                      "flash_attention_decode", 0) > 0,
+                  f"{name} serve: the chunk read ({chunk}) or the decode read "
+                  f"was not launched")
+            check(r["serve"]["paged"]["launches"].get(
+                "flash_attention_decode_paged", 0) > 0,
+                f"{name} paged serve: the paged read was not launched")
+            log(f"  {name}: bf16 pages give the contiguous tokens in "
+                f"{r['serve']['paged_requests_matching_contiguous']} of "
+                f"{HD_SERVE['requests']} requests")
+        r["twin"] = _hd_twin(name, tree)
+        res[name] = r
+        for part in (r["train"], *(r.get("serve", {}).get(f, {})
+                                   for f in ("contiguous", "paged"))):
+            for k, n in part.get("launches", {}).items():
+                res["launches"][k] = res["launches"].get(k, 0) + n
+    return res
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7128,6 +7685,12 @@ def main(argv=None):
             f"FusedLAMB, ResNet-50 under FusedSGD: {TRAIN_WARMUP} warm-up + "
             f"{TRAIN_STEPS} timed steps; the GPT under O4, {O4_STEPS} steps; "
             f"O1 casting)", lambda: run_optim_amp_phase(report)),
+        "head_dims": (
+            "head_dims (GPT-J-6B's attention shape at hd 256, GPT-3 2.7B's at "
+            "hd 80, the JAX recipes' GPT and masked BERT at hd 32: "
+            f"{HD_TRAIN_STEPS} train steps each, the wide ones served "
+            "contiguous and paged; each model's reduced-depth twin card vs "
+            "cpu)", run_head_dims_phase),
     }
     report["phase_s"] = {}
     try:

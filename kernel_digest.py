@@ -47,6 +47,12 @@ script), runs on one CUDA device, on inputs drawn from fixed seeds:
   BERT-Large's (8, 8, 512, 512) under a padding mask, the backward K3 at
   both shapes on a softmax made by torch ops; fp32 and bf16);
 
+- the flash kernels at head dims 32, 80 and 256 (`_head_dim_digests`:
+  the unpacked forward, backward and bias gradient, the training and
+  serving segment reads, the contiguous and paged decode reads, bf16 and
+  fp32, and the packed forward and backward at 256; "refused" on a tree
+  whose kernels do not take the head dim);
+
 and prints one JSON line: the sha256 of each call's outputs. Two trees
 whose lines agree give those kernels the same bits on the same card and
 PyTorch build. With ``--time`` the serving segment read (the serve's chunk)
@@ -353,6 +359,89 @@ def _row_digests(out, ln, sm, dev):
             ln._layer_norm_bwd(x, dy, None, mu, rs, None)[:1])
 
 
+def _head_dim_digests(out, fa, fas, dev, gen):
+    """The flash kernels at head dims 32, 80 and 256 (the instances'
+    zero-column and width-256 forms): the unpacked forward and backward
+    with a bias (and its gradient), the training segment forward and
+    backward, the serving segment read and the contiguous and paged
+    decode reads, bf16 and fp32, and the packed forward and backward at
+    256 with its bias and dropout. A tree whose kernels refuse a head dim
+    digests "refused"."""
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def digest(name, call):
+        try:
+            out[name] = _digest(call())
+        except (ValueError, RuntimeError) as e:
+            out[name] = "refused"
+            torch.cuda.synchronize()
+            del e
+
+    for hd in (32, 80, 256):
+        for dt in (torch.bfloat16, torch.float32):
+            lab = f"hd {hd} {str(dt)[6:]}"
+            b, h, sq, sk = 2, 4, 200, 333
+            q, do = rnd(b, h, sq, hd, dtype=dt), rnd(b, h, sq, hd, dtype=dt)
+            k, v = rnd(b, h, sk, hd, dtype=dt), rnd(b, h, sk, hd, dtype=dt)
+            bias = rnd(b * h, sq, sk)
+            scale = 1.0 / hd ** 0.5
+            try:
+                o, lse = fa._unpacked_fwd(q, k, v, bias, True, scale, None,
+                                          0.1, 5)
+                out[f"unpacked fwd {lab}"] = _digest((o, lse))
+                out[f"unpacked bwd dbias {lab}"] = _digest(fa._unpacked_bwd(
+                    q, k, v, bias, o, lse, do, None, True, scale, None, 0.1,
+                    5, True))
+            except (ValueError, RuntimeError):
+                out[f"unpacked fwd {lab}"] = "refused"
+                out[f"unpacked bwd dbias {lab}"] = "refused"
+            total = 300
+            ids = torch.tensor([0] * 70 + [1] * 130 + [2] * 100,
+                               dtype=torch.int32, device=dev)
+            qs, ks, vs, dos = (rnd(h, total, hd, dtype=dt) for _ in range(4))
+
+            def seg_train():
+                so, sl = fas._seg_fwd(qs, ks, vs, ids, True, scale)
+                return (so, sl) + tuple(fas._seg_bwd(
+                    qs, ks, vs, ids, so, sl, dos, True, scale))
+
+            digest(f"segments train {lab}", seg_train)
+            digest(f"segments serve {lab}", lambda: (
+                fas.flash_attention_segments_with_lse(qs, ks, vs, ids,
+                                                      causal=True)))
+            slots, cap = 8, 512
+            kc, vc = (rnd(slots, cap, h, hd, dtype=dt) for _ in range(2))
+            lens = torch.tensor([512, 0, 17, 300, 64, 129, 511, 1],
+                                dtype=torch.int32, device=dev)
+            qd = rnd(slots, h, hd, dtype=dt)
+            digest(f"decode grid {lab}", lambda: fa.flash_attention_decode(
+                qd, kc, vc, lens, return_lse=True))
+            ps = 16
+            pool = [x.view(slots, cap // ps, ps, h, hd).permute(
+                0, 1, 3, 2, 4).reshape(-1, h, ps, hd).contiguous()
+                for x in (kc, vc)]
+            table = torch.arange(slots * cap // ps, dtype=torch.int32,
+                                 device=dev).view(slots, -1)
+            digest(f"paged grid {lab}", lambda: fa.flash_attention_decode_paged(
+                qd, pool[0], pool[1], table, lens, return_lse=True))
+    for dt in (torch.bfloat16, torch.float32):
+        B, S, nh, hd = 2, 300, 4, 256
+        qkv = rnd(B, S, nh, 3 * hd, dtype=dt)
+        pbias = (0.1 * rnd(nh * 3 * hd)).to(dt)
+        pdo = rnd(B, S, nh * hd, dtype=dt)
+        scale = 1.0 / hd ** 0.5
+        lab = f"hd 256 {str(dt)[6:]}"
+        try:
+            po, plse = fa._flash_fwd(qkv, pbias, True, scale, 0.1, 9)
+            out[f"packed fwd {lab}"] = _digest((po, plse))
+            out[f"packed bwd {lab}"] = _digest(fa._flash_bwd(
+                qkv, pbias, po, plse, pdo, True, scale, 0.1, 9))
+        except (ValueError, RuntimeError):
+            out[f"packed fwd {lab}"] = out[f"packed bwd {lab}"] = "refused"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(
@@ -489,6 +578,8 @@ def main(argv=None):
     _row_digests(out, ln, sm, dev)
     _fwd_digests(out, fa, fas, dev, torch.Generator(device=dev).manual_seed(
         12))
+    _head_dim_digests(out, fa, fas, dev,
+                      torch.Generator(device=dev).manual_seed(21))
     torch.cuda.synchronize()
     print(json.dumps(out))
     return 0

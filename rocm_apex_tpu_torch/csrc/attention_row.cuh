@@ -27,6 +27,11 @@
 // not be passed in (the callers skip it), so after the first call the
 // running max is a real score. Dead keys weigh exactly 0, so the values
 // they load must be finite: they are rows of the same live operands.
+//
+// Head dims: the warp's width is 32 VEC (32, 64, 128 or 256), the next at
+// or above the head dim hd (a multiple of 8, so a lane's VEC dims are all
+// inside it or all past it): a lane whose dims lie past hd loads nothing,
+// holds zeros, and stores nothing.
 #pragma once
 
 #include "common.cuh"
@@ -83,12 +88,13 @@ __device__ __forceinline__ void attend_tile(const T* __restrict__ k_tile,
                                             const T* __restrict__ v_tile,
                                             int64_t v_stride, uint32_t live,
                                             int last, const float (&q)[VEC],
-                                            RowState<VEC>& st, int lane) {
+                                            RowState<VEC>& st, int lane,
+                                            bool dims) {
   float part[32];
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
-    float kf[VEC];
-    load_vec<T, VEC>(k_tile + min(j, last) * k_stride, kf);
+    float kf[VEC] = {};
+    if (dims) load_vec<T, VEC>(k_tile + min(j, last) * k_stride, kf);
     float dot = 0.f;
 #pragma unroll
     for (int c = 0; c < VEC; ++c) dot = fmaf(q[c], kf[c], dot);
@@ -106,8 +112,8 @@ __device__ __forceinline__ void attend_tile(const T* __restrict__ k_tile,
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
     const float pj = __shfl_sync(kFullMask, pr, j);
-    float vf[VEC];
-    load_vec<T, VEC>(v_tile + min(j, last) * v_stride, vf);
+    float vf[VEC] = {};
+    if (dims) load_vec<T, VEC>(v_tile + min(j, last) * v_stride, vf);
 #pragma unroll
     for (int c = 0; c < VEC; ++c) st.acc[c] = fmaf(pj, vf[c], st.acc[c]);
   }
@@ -116,16 +122,17 @@ __device__ __forceinline__ void attend_tile(const T* __restrict__ k_tile,
 
 // o = acc / l and the natural-log lse; a row that attended nothing
 // emits zeros and lse = -1e30 (the TPU decode kernel's empty-row rule).
+// Only the lanes whose dims lie inside the head dim (`dims`) store.
 template <typename T, int VEC>
 __device__ __forceinline__ void finish_row(const RowState<VEC>& st,
                                            T* __restrict__ o_row,
                                            float* __restrict__ lse,
-                                           int lane) {
+                                           int lane, bool dims) {
   const bool empty = !(st.l > 0.f);
   float out[VEC];
 #pragma unroll
   for (int c = 0; c < VEC; ++c) out[c] = empty ? 0.f : st.acc[c] / st.l;
-  store_vec<T, VEC>(o_row + lane * VEC, out);
+  if (dims) store_vec<T, VEC>(o_row + lane * VEC, out);
   if (lse != nullptr && lane == 0)
     *lse = empty ? kNegInf : (st.m + log2f(st.l)) * kLn2;
 }

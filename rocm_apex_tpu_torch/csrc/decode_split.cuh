@@ -123,6 +123,7 @@ struct PagedKeys {
   const float* v_scale;
   const int32_t* table;
   int pages_per_slot, page_size, num_pages, heads;
+  int hd;  // a pool row's elements (the head dim, at most D)
 
   // lane j's pool row reaches every lane by shuffles before the tile's
   // loads, so the 32 loads depend on no shuffle and go out back to back
@@ -130,9 +131,10 @@ struct PagedKeys {
     const P* k;
     const P* v;
     int rows[32];
+    int hd;
     float k_sc, v_sc;
     __device__ __forceinline__ int64_t row(int j) const {
-      return static_cast<int64_t>(rows[j]) * D;
+      return static_cast<int64_t>(rows[j]) * hd;
     }
   };
 
@@ -142,7 +144,7 @@ struct PagedKeys {
     const float* k_scale;
     const float* v_scale;
     const int32_t* pages;
-    int page_size, num_pages, heads, h;
+    int page_size, num_pages, heads, h, hd;
     int entry;  // the table entry of this tile's key
 
     // the next tile's entry is loaded while this one is read
@@ -154,6 +156,7 @@ struct PagedKeys {
       Tile tl;
       tl.k = k;
       tl.v = v;
+      tl.hd = hd;
 #pragma unroll
       for (int j = 0; j < 32; ++j) tl.rows[j] = __shfl_sync(kFullMask, row, j);
       tl.k_sc = tl.v_sc = 1.f;
@@ -169,7 +172,8 @@ struct PagedKeys {
   __device__ __forceinline__ Walk walk(int slot, int h, int t) const {
     const int32_t* pages = table + static_cast<int64_t>(slot) * pages_per_slot;
     return Walk{k,         v,         k_scale, v_scale, pages,
-                page_size, num_pages, heads,   h,       pages[t / page_size]};
+                page_size, num_pages, heads,   h,       hd,
+                pages[t / page_size]};
   }
 };
 
@@ -183,13 +187,13 @@ __device__ __forceinline__ void attend_rows_tile(const P* __restrict__ k,
                                                  uint32_t live,
                                                  const float (&q)[VEC],
                                                  RowState<VEC>& st,
-                                                 int lane) {
+                                                 int lane, bool dims) {
   constexpr bool kInt8 = std::is_same<P, int8_t>::value;
   float part[32];
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
-    float kf[VEC];
-    load_vec<P, VEC>(k + tl.row(j), kf);
+    float kf[VEC] = {};
+    if (dims) load_vec<P, VEC>(k + tl.row(j), kf);
     if constexpr (kInt8) {
       const float sj = __shfl_sync(kFullMask, tl.k_sc, j);
 #pragma unroll
@@ -212,8 +216,8 @@ __device__ __forceinline__ void attend_rows_tile(const P* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
     const float pj = __shfl_sync(kFullMask, pr, j);
-    float vf[VEC];
-    load_vec<P, VEC>(v + tl.row(j), vf);
+    float vf[VEC] = {};
+    if (dims) load_vec<P, VEC>(v + tl.row(j), vf);
     if constexpr (kInt8) {
       const float sj = __shfl_sync(kFullMask, tl.v_sc, j);
 #pragma unroll
@@ -281,10 +285,12 @@ __global__ void __launch_bounds__(128) decode_split_kernel(
     Keys keys, const int32_t* __restrict__ kv_len,
     const int32_t* __restrict__ row_slot, int rows, int heads, int num_slots,
     int capacity, float q_mul, int spans, int span_len,
-    T* __restrict__ o, float* __restrict__ lse, float* __restrict__ ws) {
-  constexpr int D = 32 * VEC;
+    T* __restrict__ o, float* __restrict__ lse, float* __restrict__ ws,
+    int hd) {
+  constexpr int D = 32 * VEC;  // the width; o's rows are hd long
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const bool dims = lane * VEC < hd;  // this lane's dims inside the head
   const SpanSlot sl = span_slot(spans, warp);
   const bool live_pair = sl.pair < rows * heads;  // uniform per warp
   const int r = sl.pair / heads;
@@ -300,9 +306,10 @@ __global__ void __launch_bounds__(128) decode_split_kernel(
     const int lo = sl.span * span_len;
     const int hi = min(bound, lo + span_len);
     if (lo < hi) {
-      float qf[VEC];
-      load_vec<T, VEC>(q + r * q_row_stride + h * q_head_stride + lane * VEC,
-                       qf);
+      float qf[VEC] = {};
+      if (dims)
+        load_vec<T, VEC>(
+            q + r * q_row_stride + h * q_head_stride + lane * VEC, qf);
 #pragma unroll
       for (int c = 0; c < VEC; ++c) qf[c] = round_to<T>(qf[c] * q_mul);
       // this lane's key in the tile at t0 (past the span's end: the last)
@@ -316,15 +323,15 @@ __global__ void __launch_bounds__(128) decode_split_kernel(
         const auto tl =
             w.tile(t0, n, key(t0), t0 + 32 < hi ? key(t0 + 32) : -1);
         attend_rows_tile<T, VEC>(tl.k + lane * VEC, tl.v + lane * VEC, tl,
-                                 live, qf, st, lane);
+                                 live, qf, st, lane, dims);
       }
     }
   }
   if (spans == 1) {  // uniform per launch: the warp's row is whole
     if (live_pair)
-      finish_row<T, VEC>(st, o + (static_cast<int64_t>(r) * heads + h) * D,
+      finish_row<T, VEC>(st, o + (static_cast<int64_t>(r) * heads + h) * hd,
                          lse != nullptr ? lse + r * heads + h : nullptr,
-                         lane);
+                         lane, dims);
     return;
   }
   __shared__ float sm_ml[2][kBlockWarps];
@@ -341,8 +348,9 @@ __global__ void __launch_bounds__(128) decode_split_kernel(
   merge_partials<VEC>(&sm_ml[0][warp], &sm_ml[1][warp], &sm_acc[warp][0], n,
                       1, D, st, lane);
   if (spans <= kBlockWarps) {
-    finish_row<T, VEC>(st, o + (static_cast<int64_t>(r) * heads + h) * D,
-                       lse != nullptr ? lse + r * heads + h : nullptr, lane);
+    finish_row<T, VEC>(st, o + (static_cast<int64_t>(r) * heads + h) * hd,
+                       lse != nullptr ? lse + r * heads + h : nullptr, lane,
+                       dims);
     return;
   }
   // this block's partial: ws holds acc (pairs, groups, D) then (m, l)
@@ -364,7 +372,7 @@ __global__ void __launch_bounds__(128) decode_split_kernel(
 template <typename T, int VEC>
 __global__ void __launch_bounds__(128) decode_merge_kernel(
     const float* __restrict__ ws, int rows, int heads, int groups,
-    T* __restrict__ o, float* __restrict__ lse) {
+    T* __restrict__ o, float* __restrict__ lse, int hd) {
   constexpr int D = 32 * VEC;
   const int pair = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -374,8 +382,9 @@ __global__ void __launch_bounds__(128) decode_merge_kernel(
   RowState<VEC> st;
   merge_partials<VEC>(wml + pg * 2, wml + pg * 2 + 1, ws + pg * D, groups, 2,
                       D, st, lane);
-  finish_row<T, VEC>(st, o + static_cast<int64_t>(pair) * D,
-                     lse != nullptr ? lse + pair : nullptr, lane);
+  finish_row<T, VEC>(st, o + static_cast<int64_t>(pair) * hd,
+                     lse != nullptr ? lse + pair : nullptr, lane,
+                     lane * VEC < hd);
 }
 
 // What both forms pass besides their keys. q: (rows, heads, head_dim)
@@ -384,11 +393,12 @@ __global__ void __launch_bounds__(128) decode_merge_kernel(
 // spans, span_len: the key split (a power of two times a multiple of 32
 // covering the capacity); o: contiguous (rows, heads, head_dim) in q's
 // dtype; lse: contiguous (rows, heads) fp32 or null; ws: fp32 workspace
-// of rows * heads * (spans / 4) * (head_dim + 2) when spans > 4, else
-// null.
+// of rows * heads * (spans / 4) * (width + 2) when spans > 4, else null
+// (the width: the smallest of 32, 64, 128, 256 at or above head_dim).
 struct SplitArgs {
   const void* q;
   int64_t q_rs, q_hs;
+  int hd;
   const int32_t* kv_len;
   const int32_t* row_slot;
   int rows, heads, num_slots, capacity;
@@ -404,7 +414,8 @@ struct SplitArgs {
 // workspace where the blocks' partials need one
 inline bool split_args_ok(const SplitArgs& a) {
   const bool pow2 = a.spans > 0 && (a.spans & (a.spans - 1)) == 0;
-  return pow2 && a.span_len > 0 && a.span_len % 32 == 0 &&
+  return pow2 && a.hd >= 8 && a.hd <= 256 && a.hd % 8 == 0 &&
+         a.span_len > 0 && a.span_len % 32 == 0 &&
          a.capacity >= 0 &&
          static_cast<int64_t>(a.spans) * a.span_len >= a.capacity &&
          (a.spans <= kBlockWarps || a.ws != nullptr);
@@ -418,13 +429,13 @@ static void launch_split(const SplitArgs& a, const Keys& keys) {
   decode_split_kernel<T, VEC, Keys><<<blocks, threads, 0, a.stream>>>(
       static_cast<const T*>(a.q), a.q_rs, a.q_hs, keys, a.kv_len, a.row_slot,
       a.rows, a.heads, a.num_slots, a.capacity, a.q_mul, a.spans,
-      a.span_len, static_cast<T*>(a.o), a.lse, a.ws);
+      a.span_len, static_cast<T*>(a.o), a.lse, a.ws, a.hd);
   if (a.spans > kBlockWarps) {
     const int pairs = a.rows * a.heads;
     decode_merge_kernel<T, VEC>
         <<<(pairs + kBlockWarps - 1) / kBlockWarps, threads, 0, a.stream>>>(
             a.ws, a.rows, a.heads, a.spans / kBlockWarps,
-            static_cast<T*>(a.o), a.lse);
+            static_cast<T*>(a.o), a.lse, a.hd);
   }
 }
 

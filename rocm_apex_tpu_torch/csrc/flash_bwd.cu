@@ -37,13 +37,21 @@
 //         pre-pass), which both passes then read. The dq pass writes (lse
 //         log2 e, delta) pairs for the dk/dv pass into `stats`.
 //   fp32: CUDA cores, as flash_fwd.cu.
+// Head dims as flash_fwd.cu's: bf16 on the pipe's widths 128 and 256 (at
+// 256 its dk/dv pass split by columns, flash_bwd_pipe.cuh), fp32 at 256 on
+// the unpacked backward's CUDA-core bodies through the projection's
+// strides, after the fp32 bias pre-pass, with the bias partials summed
+// from dqkv by `qkv_column_sums_kernel` (one 64-row tile each, in row
+// order).
 #include "flash_bwd_pipe.cuh"
 #include "flash_tile.cuh"
+#include "flash_unpacked_bwd.cuh"
 
 namespace apex_port {
 
 // ---- bf16: the bias pre-pass, then the pipe ------------------------------
 
+template <int HD>
 static int launch_pipe(const void* qkv, const void* bias, const void* o,
                        const void* lse, const void* dout, void* dqkv,
                        void* stats, void* dbias_part, const FlashShape& sh,
@@ -51,26 +59,63 @@ static int launch_pipe(const void* qkv, const void* bias, const void* o,
                        cudaStream_t stream) {
   const bf16* x = static_cast<const bf16*>(qkv);
   if (bias != nullptr) {
-    const cudaError_t e = launch_qkv_bias(qkv, bias, scratch, sh, stream);
+    const cudaError_t e = launch_qkv_bias(qkv, bias, scratch, sh, HD, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
     x = static_cast<const bf16*>(scratch);
   }
-  const int64_t rs = static_cast<int64_t>(sh.nh) * 3 * kHd;
-  const unpacked::Strides in{sh.S * rs, 3 * kHd, rs};
-  const int64_t ors = static_cast<int64_t>(sh.nh) * kHd;
-  const unpacked::Strides out{sh.S * ors, kHd, ors};
+  const int64_t rs = static_cast<int64_t>(sh.nh) * 3 * HD;
+  const unpacked::Strides in{sh.S * rs, 3 * HD, rs};
+  const int64_t ors = static_cast<int64_t>(sh.nh) * HD;
+  const unpacked::Strides out{sh.S * ors, HD, ors};
   const int64_t tiles = (sh.S + kTile - 1) / kTile;
   bf16* g = static_cast<bf16*>(dqkv);
   const unpacked::BwdArgs a{
-      x, x + kHd, x + 2 * kHd, static_cast<const bf16*>(o),
+      x, x + HD, x + 2 * HD, static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(stats), g, g + kHd, g + 2 * kHd,
+      static_cast<float*>(stats), g, g + HD, g + 2 * HD,
       static_cast<float*>(dbias_part), in, in, in, out, out, in, in, in,
-      unpacked::Strides{tiles * rs, 3 * kHd, rs}};
+      unpacked::Strides{tiles * rs, 3 * HD, rs}};
   const unpacked::Problem pb = unpacked::make_problem(
       sh.B, sh.nh, sh.S, sh.S, sh.causal, nullptr, nullptr, 0, sh.drop,
-      sh.seed, sh.thr, sh.keep_scale, q_mul, scale);
-  return unpacked::launch_pipe_bwd<kHd>(a, pb, stream);
+      sh.seed, sh.thr, sh.keep_scale, q_mul, scale, HD);
+  return unpacked::launch_pipe_bwd<HD>(a, pb, stream);
+}
+
+// ---- fp32 at head_dim 256: the bias pre-pass, the unpacked bodies, the
+// bias partials ----------------------------------------------------------
+
+static int launch_wide(const void* qkv, const void* bias, const void* o,
+                       const void* lse, const void* dout, void* dqkv,
+                       void* delta, void* dbias_part, const FlashShape& sh,
+                       int hd, float scale, float q_mul, void* scratch,
+                       cudaStream_t stream) {
+  const float* x = static_cast<const float*>(qkv);
+  if (bias != nullptr) {
+    const cudaError_t e =
+        launch_qkv_bias_f32(qkv, bias, scratch, sh, hd, stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    x = static_cast<const float*>(scratch);
+  }
+  const int64_t rs = static_cast<int64_t>(sh.nh) * 3 * hd;
+  const int64_t ors = static_cast<int64_t>(sh.nh) * hd;
+  const int64_t in[3] = {sh.S * rs, 3 * hd, rs};
+  const int64_t out[3] = {sh.S * ors, hd, ors};
+  int64_t st[24];  // q, k, v, o, do, dq, dk, dv
+  for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < 3; ++j)
+      st[3 * i + j] = (i == 3 || i == 4) ? out[j] : in[j];
+  float* g = static_cast<float*>(dqkv);
+  const void* p[11] = {x, x + hd, x + 2 * hd, o,          lse,  dout,
+                       nullptr,   g,          g + hd, g + 2 * hd, delta};
+  const unpacked::Problem pb = unpacked::make_problem(
+      sh.B, sh.nh, sh.S, sh.S, sh.causal, nullptr, nullptr, 0, sh.drop,
+      sh.seed, sh.thr, sh.keep_scale, q_mul, scale, hd);
+  if (!unpacked::grid_ok(pb)) return static_cast<int>(cudaErrorInvalidValue);
+  int rc = unpacked::launch_bwd<false>(p, st, pb, kFloat32, stream);
+  if (rc == 0) rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || dbias_part == nullptr) return rc;
+  return static_cast<int>(
+      launch_qkv_column_sums(dqkv, dbias_part, sh, hd, stream));
 }
 
 // ---- fp32: CUDA cores ------------------------------------------------------
@@ -440,11 +485,12 @@ static int launch(const void* qkv, const void* bias, const void* o,
 // qkv, bias, o, lse as saved by flash_fwd; dout: contiguous (B, S, nh*hd)
 // in qkv's dtype; dqkv: contiguous (B, S, nh, 3*hd) output; dbias_part:
 // null without a bias, else an fp32 output of (B, ceil(S/64), nh, 3*hd)
-// partial column sums. hd must be 128. q_mul is scale * log2(e) rounded
+// partial column sums. hd is 128 or 256. q_mul is scale * log2(e) rounded
 // to qkv's dtype. stats: bf16, an fp32 scratch of (B*nh, 64 ceil(S/64),
 // 2) (lse log2 e, delta) pairs; fp32, one of (B*nh, S) (delta). scratch:
-// bf16 with a bias, a contiguous (B, S, nh, 3*hd) bf16 buffer for the
-// biased projection, else null (the plan, flash_bwd_plan, names both).
+// with a bias in bf16, and in fp32 at hd 256, a contiguous (B, S, nh,
+// 3*hd) buffer in qkv's dtype for the biased projection, else null (the
+// plan, flash_bwd_plan, names both).
 extern "C" int flash_bwd(const void* qkv, const void* bias, const void* o,
                          const void* lse, const void* dout, void* dqkv,
                          void* stats, void* dbias_part, void* scratch, int B,
@@ -452,16 +498,23 @@ extern "C" int flash_bwd(const void* qkv, const void* bias, const void* o,
                          int causal, int dropout, unsigned seed, unsigned thr,
                          float keep_scale, int dtype, void* stream) {
   using namespace apex_port;
-  if (hd != kHd) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd != 128 && hd != 256) return static_cast<int>(cudaErrorInvalidValue);
   const FlashShape sh{B, S, nh, causal, dropout, seed, thr, keep_scale};
   auto st = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == kFloat32)
+  if (dtype == kFloat32 && hd == kHd)
     rc = launch(qkv, bias, o, lse, dout, dqkv, stats, dbias_part, sh, scale,
                 q_mul, st);
+  else if (dtype == kFloat32 && (bias == nullptr) == (scratch == nullptr))
+    rc = launch_wide(qkv, bias, o, lse, dout, dqkv, stats, dbias_part, sh,
+                     hd, scale, q_mul, scratch, st);
   else if (dtype == kBFloat16 && (bias == nullptr) == (scratch == nullptr))
-    rc = launch_pipe(qkv, bias, o, lse, dout, dqkv, stats, dbias_part, sh,
-                     scale, q_mul, scratch, st);
+    rc = hd == 256 ? launch_pipe<256>(qkv, bias, o, lse, dout, dqkv, stats,
+                                      dbias_part, sh, scale, q_mul, scratch,
+                                      st)
+                   : launch_pipe<128>(qkv, bias, o, lse, dout, dqkv, stats,
+                                      dbias_part, sh, scale, q_mul, scratch,
+                                      st);
   else
     rc = static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;

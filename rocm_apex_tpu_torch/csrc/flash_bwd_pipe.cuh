@@ -72,6 +72,18 @@
 //   pass three (168, a few spilled): a tile's step there is bound by its
 //   latency, not by its products, so more blocks in flight is what
 //   shortens a pass. The other forms keep two blocks.
+// - Head dims: the forward pipe's widths and zero columns (64, 128, 256;
+//   copy_rows zero-fills the segments past hd, the S and dP k-steps stop
+//   at ceil(hd / 16), only hd columns are stored). At width 256 the dq
+//   pass holds 128 fp32 accumulators a thread, as the forward does, in
+//   193 KB of shared memory. Its dk/dv pass cannot hold both 256-column
+//   accumulators (256 fp32 a thread), so it is split by columns: the grid
+//   gets a z of 2, and block z owns columns [128 z, 128 z + 128) of dk and
+//   dv, recomputing S^T and dP^T over the whole head dim (1.5x the
+//   pass's products). Its shared memory is k, v and the scaled q copy (3 x
+//   32 KB) and two q/do stages (2 x 64 KB): 230,400 bytes with the
+//   alignment, 230,912 with segment ids, within the 232,448 a block may
+//   take.
 #pragma once
 
 #include "flash_fwd_pipe.cuh"
@@ -91,6 +103,8 @@ struct BwdCfg {
                                  1024;
   static constexpr int kDkvSmem = 3 * kTileBytes + kStages * kStageBytes +
                                   1024;
+  // the dk/dv columns a block owns (a grid z of HD / kOut blocks a tile)
+  static constexpr int kOut = HD > 128 ? 128 : HD;
 };
 
 // The operands of one backward: q, o and do of (B, H, Sq, HD), k and v of
@@ -161,12 +175,13 @@ __device__ __forceinline__ void scaled_copy(unsigned char* dst,
 
 // x (64 rows x HD, the warpgroup's C layout, fp32) times `mul`, rounded
 // to bf16, into rows [r0, r0 + 64) of a (rows, HD) matrix with row
-// stride rs; rows at or past `rows` are left out
+// stride rs; rows at or past `rows` and columns at or past `cols` are left
+// out
 template <int HD>
 __device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
                                            int64_t rs, int r0, int rows,
                                            const float (&x)[HD / 2],
-                                           float mul) {
+                                           float mul, int cols) {
   const int lane = threadIdx.x & 31;
   const int r = r0 + (threadIdx.x >> 5) * 16 + (lane >> 2);
   const int t = lane & 3;
@@ -176,8 +191,9 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
     bf16* row = dst + static_cast<int64_t>(r + 8 * h) * rs;
 #pragma unroll
     for (int nb = 0; nb < HD / 8; ++nb)
-      *reinterpret_cast<uint32_t*>(row + nb * 8 + 2 * t) = pack_bf16(
-          x[4 * nb + 2 * h] * mul, x[4 * nb + 2 * h + 1] * mul);
+      if (nb * 8 < cols)
+        *reinterpret_cast<uint32_t*>(row + nb * 8 + 2 * t) = pack_bf16(
+            x[4 * nb + 2 * h] * mul, x[4 * nb + 2 * h + 1] * mul);
   }
 }
 
@@ -206,11 +222,11 @@ __device__ __forceinline__ void tile_column_sums(const float (&x)[HD / 2],
     }
   }
   __syncthreads();
-  if (threadIdx.x < HD) {
+  for (int col = threadIdx.x; col < HD; col += 128) {
     float c = 0.f;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) c += red[w * HD + threadIdx.x];
-    out[threadIdx.x] = c * mul;
+    for (int w = 0; w < 4; ++w) c += red[w * HD + col];
+    out[col] = c * mul;
   }
 }
 
@@ -262,16 +278,18 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 2)
   auto stage = [&](int i) { return ring + (i % C::kStages) * C::kStageBytes; };
   auto load = [&](int i) {
     unsigned char* st = stage(i);
-    copy_rows<HD>(st, kh, a.ks.s, (t0 + i) * kTile, pb.Sk);
-    copy_rows<HD>(st + C::kTileBytes, vh, a.vs.s, (t0 + i) * kTile, pb.Sk);
+    copy_rows<HD>(st, kh, a.ks.s, (t0 + i) * kTile, pb.Sk, pb.hd);
+    copy_rows<HD>(st + C::kTileBytes, vh, a.vs.s, (t0 + i) * kTile, pb.Sk,
+                  pb.hd);
     if constexpr (kSeg) {
       if (threadIdx.x < kTile)
         sids[(i % C::kStages) * kTile + threadIdx.x] =
             seg_id(pb, (t0 + i) * kTile + threadIdx.x);
     }
   };
-  copy_rows<HD>(sq, head(a.q, a.qs, bh, pb.H), a.qs.s, q0, pb.Sq);
-  copy_rows<HD>(sdo, head(a.dout, a.dos, bh, pb.H), a.dos.s, q0, pb.Sq);
+  copy_rows<HD>(sq, head(a.q, a.qs, bh, pb.H), a.qs.s, q0, pb.Sq, pb.hd);
+  copy_rows<HD>(sdo, head(a.dout, a.dos, bh, pb.H), a.dos.s, q0, pb.Sq,
+                pb.hd);
   cp_async_commit();
 #pragma unroll
   for (int i = 0; i < C::kStages - 1; ++i) {
@@ -293,7 +311,7 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 2)
     const int rr = warp * 16 + r;
     const int c = lane * kVec;
     float acc = 0.f;
-    if (q0 + rr < pb.Sq) {
+    if (q0 + rr < pb.Sq && c < pb.hd) {  // a lane's kVec columns: all or none
       float dv[kVec], ov[kVec];
       load_vec<bf16, kVec>(reinterpret_cast<const bf16*>(
                                sdo + mnmajor_seg(rr, c >> 3)) + (c & 7), dv);
@@ -370,13 +388,15 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 2)
     auto s_product = [&] {
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_m64n64k16<0, 0>(s, kmajor_desc(sq, kk), kmajor_desc(skt, kk));
+        if (kstep_live(kk, pb.hd))
+          wgmma_m64n64k16<0, 0>(s, kmajor_desc(sq, kk), kmajor_desc(skt, kk));
     };
     auto dp_product = [&] {
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_m64n64k16<0, 0>(dp, kmajor_desc(sdo, kk),
-                              kmajor_desc(svt, kk));
+        if (kstep_live(kk, pb.hd))
+          wgmma_m64n64k16<0, 0>(dp, kmajor_desc(sdo, kk),
+                                kmajor_desc(svt, kk));
     };
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
@@ -442,7 +462,7 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 2)
 
   cp_async_wait<0>();
   store_rows<HD>(head(a.dq, a.dqs, bh, pb.H), a.dqs.s, q0, pb.Sq, acc,
-                 pb.scale);
+                 pb.scale, pb.hd);
   if (a.part != nullptr) {
     __syncthreads();  // sq is the reduction buffer
     tile_column_sums<HD>(acc, pb.scale, reinterpret_cast<float*>(sq),
@@ -463,6 +483,8 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 3 : 2)
   unsigned char* ring = sqs + C::kTileBytes;
   // segment attention: the ids of each stage's queries
   int* sids = reinterpret_cast<int*>(ring + C::kStages * C::kStageBytes);
+  constexpr int kOut = C::kOut;
+  const int c0 = static_cast<int>(blockIdx.z) * kOut;  // dk/dv columns owned
   const int bh = blockIdx.x;
   const int nqt = (pb.Sq + kTile - 1) / kTile;
   int kt = blockIdx.y;
@@ -497,26 +519,26 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 3 : 2)
   auto stage = [&](int i) { return ring + (i % C::kStages) * C::kStageBytes; };
   auto load = [&](int i) {
     unsigned char* st = stage(i);
-    copy_rows<HD>(st, qh, a.qs.s, (qt0 + i) * kTile, pb.Sq);
+    copy_rows<HD>(st, qh, a.qs.s, (qt0 + i) * kTile, pb.Sq, pb.hd);
     copy_rows<HD>(st + C::kTileBytes, doh, a.dos.s, (qt0 + i) * kTile,
-                  pb.Sq);
+                  pb.Sq, pb.hd);
     if constexpr (kSeg) {
       if (threadIdx.x < kTile)
         sids[(i % C::kStages) * kTile + threadIdx.x] =
             seg_id(pb, (qt0 + i) * kTile + threadIdx.x);
     }
   };
-  copy_rows<HD>(sk, head(a.k, a.ks, bh, pb.H), a.ks.s, k0, pb.Sk);
-  copy_rows<HD>(sv, head(a.v, a.vs, bh, pb.H), a.vs.s, k0, pb.Sk);
+  copy_rows<HD>(sk, head(a.k, a.ks, bh, pb.H), a.ks.s, k0, pb.Sk, pb.hd);
+  copy_rows<HD>(sv, head(a.v, a.vs, bh, pb.H), a.vs.s, k0, pb.Sk, pb.hd);
 #pragma unroll
   for (int i = 0; i < C::kStages - 1; ++i) {
     if (i < n) load(i);
     cp_async_commit();
   }
 
-  float dk[HD / 2], dv[HD / 2];
+  float dk[kOut / 2], dv[kOut / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < kOut / 2; ++i) dk[i] = dv[i] = 0.f;
   for (int i = 0; i < n; ++i) {
     // S^T starts from the bias terms at its fragment positions (bias[q]
     // [key] log2 e; a warp's load is 4 queries x 8 consecutive keys), their
@@ -554,13 +576,15 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 3 : 2)
     auto s_product = [&] {
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_m64n64k16<0, 0>(s, kmajor_desc(sk, kk), kmajor_desc(sqs, kk));
+        if (kstep_live(kk, pb.hd))
+          wgmma_m64n64k16<0, 0>(s, kmajor_desc(sk, kk), kmajor_desc(sqs, kk));
     };
     auto dp_product = [&] {
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_m64n64k16<0, 0>(dp, kmajor_desc(sv, kk),
-                              kmajor_desc(sdot, kk));
+        if (kstep_live(kk, pb.hd))
+          wgmma_m64n64k16<0, 0>(dp, kmajor_desc(sv, kk),
+                                kmajor_desc(sdot, kk));
     };
     if constexpr (!kBias) {
 #pragma unroll
@@ -649,7 +673,8 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 3 : 2)
     }
 
     // dv += p^T do and dk += ds^T q over 4 steps of 16 queries, p^T and
-    // ds^T rounded to bf16, q and do read MN-major
+    // ds^T rounded to bf16, q and do read MN-major (the block's columns
+    // [c0, c0 + kOut): c0 / 64 blocks of 64 columns on)
     uint32_t pa[4][4], da[4][4];
     c_to_a_tile(s, pa);
     c_to_a_tile(dp, da);
@@ -660,8 +685,8 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 3 : 2)
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      pv_mma<HD>(dv, pa[j], mnmajor_desc(sdot, j));
-      pv_mma<HD>(dk, da[j], mnmajor_desc(sqt, j));
+      pv_mma<kOut>(dv, pa[j], mnmajor_desc(sdot + (c0 / 64) * kTile * 128, j));
+      pv_mma<kOut>(dk, da[j], mnmajor_desc(sqt + (c0 / 64) * kTile * 128, j));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -672,15 +697,18 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 3 : 2)
   }
 
   cp_async_wait<0>();
-  store_rows<HD>(head(a.dk, a.dks, bh, pb.H), a.dks.s, k0, pb.Sk, dk,
-                 pb.scale);
-  store_rows<HD>(head(a.dv, a.dvs, bh, pb.H), a.dvs.s, k0, pb.Sk, dv, 1.f);
+  store_rows<kOut>(head(a.dk, a.dks, bh, pb.H) + c0, a.dks.s, k0, pb.Sk, dk,
+                   pb.scale, pb.hd - c0);
+  store_rows<kOut>(head(a.dv, a.dvs, bh, pb.H) + c0, a.dvs.s, k0, pb.Sk, dv,
+                   1.f, pb.hd - c0);
   if (a.part != nullptr) {
     __syncthreads();  // sk is the reduction buffer
-    float* part = part_of(a, bh, pb.H, kt);
-    tile_column_sums<HD>(dk, pb.scale, reinterpret_cast<float*>(sk), part + HD);
+    float* part = part_of(a, bh, pb.H, kt) + c0;
+    tile_column_sums<kOut>(dk, pb.scale, reinterpret_cast<float*>(sk),
+                           part + HD);
     __syncthreads();
-    tile_column_sums<HD>(dv, 1.f, reinterpret_cast<float*>(sk), part + 2 * HD);
+    tile_column_sums<kOut>(dv, 1.f, reinterpret_cast<float*>(sk),
+                           part + 2 * HD);
   }
 }
 
@@ -717,9 +745,18 @@ int launch_pipe_bwd(const BwdArgs& a, const Problem& pb,
   e = cudaGetLastError();
   if (e != cudaSuccess || nkt == 0) return static_cast<int>(e);
   bwd_dkv_pipe_kernel<HD, kBias, kSeg>
-      <<<dim3(bh, nkt), C::kThreads, C::kDkvSmem + kSegBytes, stream>>>(a,
-                                                                        pb);
+      <<<dim3(bh, nkt, HD / C::kOut), C::kThreads, C::kDkvSmem + kSegBytes,
+         stream>>>(a, pb);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_pipe_bwd at pb.hd, on its width (`at_width`)
+template <bool kBias = false, bool kSeg = false>
+int launch_pipe_bwd_hd(const BwdArgs& a, const Problem& pb,
+                       cudaStream_t stream) {
+  return at_width(pb.hd, [&](auto w) {
+    return launch_pipe_bwd<decltype(w)::value, kBias, kSeg>(a, pb, stream);
+  });
 }
 
 }  // namespace unpacked

@@ -37,6 +37,13 @@
 //     load-then-compute rounds a block, the bias read from device memory
 //     for every element and head.
 //   fp32 ("cuda_cores"): CUDA cores (4 x 4 scores a thread).
+// Head dims: widths 64, 128 and 256 (`at_width`), the columns past pb.hd
+// zero-filled as they are staged. S and dP are the only products, so at
+// width 256 both routes stage each head in two 128-column parts and sum
+// the products over them in order: on the ring a stage is one (head,
+// part), the width-128 stage (two stages, 192 KB), s and dP kept across
+// a head's two parts; on the CUDA cores the four tiles of a part (132
+// KB where one pass over 256 would take 263).
 #include "flash_bwd_pipe.cuh"
 
 namespace apex_port {
@@ -44,7 +51,7 @@ namespace unpacked {
 
 // ---- bf16: the wgmma ring over the heads -----------------------------------
 
-template <int HD>
+template <int HD>  // HD: the staged width, 64 or 128
 struct DbiasCfg {
   // two warpgroups a block, each a key tile, sharing the query tile's q
   // and do: a head's tiles are 6 where two blocks of one warpgroup read 8
@@ -59,6 +66,7 @@ struct DbiasCfg {
   static constexpr int kSmemBytes = kStages * kStageBytes + 1024;
 };
 
+// HD: the width; a head is staged in kParts stages of kW columns
 template <int HD>
 __global__ void __launch_bounds__(256, 1)
     dbias_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -68,7 +76,9 @@ __global__ void __launch_bounds__(256, 1)
                        const float* __restrict__ delta,
                        float* __restrict__ dbias, Strides qs, Strides ks,
                        Strides vs, Strides dos, Problem pb) {
-  using C = DbiasCfg<HD>;
+  constexpr int kW = HD > 128 ? 128 : HD;
+  constexpr int kParts = HD / kW;
+  using C = DbiasCfg<kW>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = smem_base_1024(smem_raw);
   const int wg = threadIdx.x >> 7;
@@ -94,21 +104,26 @@ __global__ void __launch_bounds__(256, 1)
                      ? 0
                      : pb.hp;
   auto stage = [&](int i) { return ring + (i % C::kStages) * C::kStageBytes; };
-  auto load = [&](int i) {  // head i of bias row n
-    const int bh = n * pb.hp + i;
+  auto load = [&](int i) {  // part i % kParts of head i / kParts of row n
+    const int bh = n * pb.hp + i / kParts;
+    const int c0 = (i % kParts) * kW;
+    const int cw = pb.hd - c0;  // the part's live columns
     unsigned char* st = stage(i);
-    copy_tile<HD, C::kThreads>(st, head(q, qs, bh, pb.H), qs.s, q0, pb.Sq,
-                               threadIdx.x);
-    copy_tile<HD, C::kThreads>(st + C::kTileBytes, head(dout, dos, bh, pb.H),
-                               dos.s, q0, pb.Sq, threadIdx.x);
+    copy_tile<kW, C::kThreads>(st, head(q, qs, bh, pb.H) + c0, qs.s, q0,
+                               pb.Sq, threadIdx.x, cw);
+    copy_tile<kW, C::kThreads>(st + C::kTileBytes,
+                               head(dout, dos, bh, pb.H) + c0, dos.s, q0,
+                               pb.Sq, threadIdx.x, cw);
     unsigned char* kv = st + (2 + 2 * wg) * C::kTileBytes;
-    copy_tile<HD, 128>(kv, head(k, ks, bh, pb.H), ks.s, k0, pb.Sk, wt);
-    copy_tile<HD, 128>(kv + C::kTileBytes, head(v, vs, bh, pb.H), vs.s, k0,
-                       pb.Sk, wt);
+    copy_tile<kW, 128>(kv, head(k, ks, bh, pb.H) + c0, ks.s, k0, pb.Sk, wt,
+                       cw);
+    copy_tile<kW, 128>(kv + C::kTileBytes, head(v, vs, bh, pb.H) + c0, vs.s,
+                       k0, pb.Sk, wt, cw);
   };
+  const int units = nh * kParts;
 #pragma unroll
   for (int i = 0; i < C::kStages - 1; ++i) {
-    if (i < nh) load(i);
+    if (i < units) load(i);
     cp_async_commit();
   }
 
@@ -131,45 +146,61 @@ __global__ void __launch_bounds__(256, 1)
   const bool tile_edge = q0 + kTile > pb.Sq || k0 + kTile > pb.Sk ||
                          (pb.causal && k0 + kTile - 1 > q0);
 
-  for (int i = 0; i < nh; ++i) {
-    const int bh = n * pb.hp + i;
+  float s[32], dp[32];
+  float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  for (int i = 0; i < units; ++i) {
+    const int bh = n * pb.hp + i / kParts;
+    const int part = i % kParts;
+    const int cw = pb.hd - part * kW;  // the part's live columns
     // this head's lse log2 e and delta of the thread's two rows, issued
     // before the wait so that they land under it
-    float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+    if (part == 0) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (row[r] < pb.Sq) {
-        const int64_t at = static_cast<int64_t>(bh) * pb.Sq + row[r];
-        lse2[r] = ldg_pinned(lse + at);
-        dl[r] = ldg_pinned(delta + at);
+      for (int r = 0; r < 2; ++r) {
+        if (row[r] < pb.Sq) {
+          const int64_t at = static_cast<int64_t>(bh) * pb.Sq + row[r];
+          lse2[r] = ldg_pinned(lse + at);
+          dl[r] = ldg_pinned(delta + at);
+        }
       }
     }
     cp_async_wait<C::kStages - 2>();
-    __syncthreads();  // head i landed; every warp is done with head i - 1
-    if (i + C::kStages - 1 < nh) load(i + C::kStages - 1);
+    __syncthreads();  // unit i landed; every warp is done with unit i - 1
+    if (i + C::kStages - 1 < units) load(i + C::kStages - 1);
     cp_async_commit();
     unsigned char* sqt = stage(i);
     const unsigned char* sdot = sqt + C::kTileBytes;
     const unsigned char* skt = sqt + (2 + 2 * wg) * C::kTileBytes;
     const unsigned char* svt = skt + C::kTileBytes;
-    fold_tile<HD, C::kThreads>(sqt, pb.q_mul, threadIdx.x);  // bf16(q q_mul)
+    fold_tile<kW, C::kThreads>(sqt, pb.q_mul, threadIdx.x);  // bf16(q q_mul)
     fence_proxy_async();  // the folded q and the tiles, for wgmma
     __syncthreads();
 
-    // S = (q q_mul) k^T and dP = do v^T: 64 rows x 64 keys each
-    float s[32], dp[32];
+    // S = (q q_mul) k^T and dP = do v^T: 64 rows x 64 keys each, summed
+    // over the head's parts
+    if (part == 0) {
 #pragma unroll
-    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+      for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+    }
     reg_fence(s);
     reg_fence(dp);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_m64n64k16<0, 0>(s, kmajor_desc(sqt, kk), kmajor_desc(skt, kk));
+    for (int kk = 0; kk < kW / 16; ++kk)
+      if (kstep_live(kk, cw))
+        wgmma_m64n64k16<0, 0>(s, kmajor_desc(sqt, kk), kmajor_desc(skt, kk));
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_m64n64k16<0, 0>(dp, kmajor_desc(sdot, kk), kmajor_desc(svt, kk));
+    for (int kk = 0; kk < kW / 16; ++kk)
+      if (kstep_live(kk, cw))
+        wgmma_m64n64k16<0, 0>(dp, kmajor_desc(sdot, kk),
+                              kmajor_desc(svt, kk));
     wgmma_commit();
+    if (part != kParts - 1) {  // the head's next part adds to s and dp
+      wgmma_wait<0>();
+      reg_fence(s);
+      reg_fence(dp);
+      continue;
+    }
     // the keep bits of the thread's 32 positions while the products run
     // (a bit 4 j + e each; the hash is integer work the tensor cores do
     // not wait for)
@@ -234,7 +265,7 @@ __global__ void __launch_bounds__(256, 1)
 template <int HD>
 int launch_wgmma(const void* const* p, const int64_t* st, const Problem& pb,
                  int nb, int key_tiles, int stages, cudaStream_t stream) {
-  using C = DbiasCfg<HD>;
+  using C = DbiasCfg<(HD > 128 ? 128 : HD)>;
   if (key_tiles != C::kWarpgroups || stages != C::kStages)
     return static_cast<int>(cudaErrorInvalidValue);  // not this plan
   // every call, as launch_pipe_fwd sets its own
@@ -265,7 +296,9 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ delta,
                      float* __restrict__ dbias, Strides qs, Strides ks,
                      Strides vs, Strides dos, Problem pb) {
-  constexpr int kLd = HD + 1;
+  constexpr int kW = HD > 128 ? 128 : HD;  // columns staged at a time
+  constexpr int kParts = HD / kW;
+  constexpr int kLd = kW + 1;
   extern __shared__ float sm[];
   float* sq = sm;                  // 64 x kLd, q * q_mul
   float* sdo = sq + kTile * kLd;   // 64 x kLd
@@ -289,45 +322,51 @@ __global__ void __launch_bounds__(kThreads)
   const bool live = !(pb.causal && k0 > min(q0 + kTile, pb.Sq) - 1);
   for (int hh = 0; live && hh < pb.hp; ++hh) {
     const int bh = n * pb.hp + hh;
-    __syncthreads();
-    stage_f32<HD>(sq, kLd, head(q, qs, bh, pb.H), qs.s, q0, pb.Sq, pb.q_mul);
-    stage_f32<HD>(sdo, kLd, head(dout, dos, bh, pb.H), dos.s, q0, pb.Sq,
-                  1.f);
-    stage_f32<HD>(sk, kLd, head(k, ks, bh, pb.H), ks.s, k0, pb.Sk, 1.f);
-    stage_f32<HD>(sv, kLd, head(v, vs, bh, pb.H), vs.s, k0, pb.Sk, 1.f);
-    if (threadIdx.x < kTile) {
-      const int r = q0 + threadIdx.x;
-      const int64_t at = static_cast<int64_t>(bh) * pb.Sq + r;
-      slse[threadIdx.x] = r < pb.Sq ? lse[at] * kLog2e : 0.f;
-      sdelta[threadIdx.x] = r < pb.Sq ? delta[at] : 0.f;
-    }
-    __syncthreads();
-
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll
+    for (int part = 0; part < kParts; ++part) {
+      const int c0 = part * kW;
+      __syncthreads();
+      stage_f32<kW>(sq, kLd, head(q, qs, bh, pb.H) + c0, qs.s, q0, pb.Sq,
+                    pb.q_mul, pb.hd - c0);
+      stage_f32<kW>(sdo, kLd, head(dout, dos, bh, pb.H) + c0, dos.s, q0,
+                    pb.Sq, 1.f, pb.hd - c0);
+      stage_f32<kW>(sk, kLd, head(k, ks, bh, pb.H) + c0, ks.s, k0, pb.Sk,
+                    1.f, pb.hd - c0);
+      stage_f32<kW>(sv, kLd, head(v, vs, bh, pb.H) + c0, vs.s, k0, pb.Sk,
+                    1.f, pb.hd - c0);
+      if (part == 0 && threadIdx.x < kTile) {
+        const int r = q0 + threadIdx.x;
+        const int64_t at = static_cast<int64_t>(bh) * pb.Sq + r;
+        slse[threadIdx.x] = r < pb.Sq ? lse[at] * kLog2e : 0.f;
+        sdelta[threadIdx.x] = r < pb.Sq ? delta[at] : 0.f;
+      }
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
+      for (int d = 0; d < kW; ++d) {
+        float qv[4], dov[4], kv[4], vv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = sq[(ty + 16 * i) * kLd + d];
-        dov[i] = sdo[(ty + 16 * i) * kLd + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = sk[(tx + 16 * j) * kLd + d];
-        vv[j] = sv[(tx + 16 * j) * kLd + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          qv[i] = sq[(ty + 16 * i) * kLd + d];
+          dov[i] = sdo[(ty + 16 * i) * kLd + d];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+          kv[j] = sk[(tx + 16 * j) * kLd + d];
+          vv[j] = sv[(tx + 16 * j) * kLd + d];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+            dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+          }
+      }
     }
     const int len = kv_len(pb, bh);
 #pragma unroll
@@ -367,7 +406,8 @@ int launch_f32(const void* const* p, const int64_t* st, const Problem& pb,
                int nb, int key_tiles, int stages, cudaStream_t stream) {
   if (key_tiles != 1 || stages != 1)
     return static_cast<int>(cudaErrorInvalidValue);  // not this plan
-  const size_t smem = sizeof(float) * (4 * kTile * (HD + 1) + 2 * kTile);
+  const size_t smem =
+      sizeof(float) * (4 * kTile * ((HD > 128 ? 128 : HD) + 1) + 2 * kTile);
   const cudaError_t e = cudaFuncSetAttribute(
       dbias_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -404,20 +444,23 @@ extern "C" int flash_dbias(const void* q, const void* k, const void* v,
   using namespace apex_port;
   using namespace apex_port::unpacked;
   const Problem pb = make_problem(B, H, Sq, Sk, causal, lens, bias, nb,
-                                  dropout, seed, thr, keep_scale, q_mul, 1.f);
+                                  dropout, seed, thr, keep_scale, q_mul, 1.f,
+                                  hd);
   if (bias == nullptr || nb <= 0 || nb > 65535 || (B * H) % nb != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* p[7] = {q, k, v, lse, dout, delta, dbias};
   auto s = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == kBFloat16 && hd == 128)
-    rc = launch_wgmma<128>(p, st, pb, nb, key_tiles, stages, s);
-  else if (dtype == kBFloat16 && hd == 64)
-    rc = launch_wgmma<64>(p, st, pb, nb, key_tiles, stages, s);
-  else if (dtype == kFloat32 && hd == 128)
-    rc = launch_f32<128>(p, st, pb, nb, key_tiles, stages, s);
-  else if (dtype == kFloat32 && hd == 64)
-    rc = launch_f32<64>(p, st, pb, nb, key_tiles, stages, s);
+  if (dtype == kBFloat16)
+    rc = at_width(hd, [&](auto w) {
+      return launch_wgmma<decltype(w)::value>(p, st, pb, nb, key_tiles,
+                                              stages, s);
+    });
+  else if (dtype == kFloat32)
+    rc = at_width(hd, [&](auto w) {
+      return launch_f32<decltype(w)::value>(p, st, pb, nb, key_tiles, stages,
+                                            s);
+    });
   else
     rc = static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;

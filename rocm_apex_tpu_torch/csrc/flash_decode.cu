@@ -19,16 +19,20 @@
 
 namespace apex_port {
 
+// the warp's width: the smallest of 32, 64, 128, 256 at or above the head
+// dim (split_args_ok has checked it: a multiple of 8 up to 256)
 template <typename T>
 static int dispatch_dim(int head_dim, const SplitArgs& a,
                         const CacheKeys<T>& keys) {
-  switch (head_dim) {
-    case 32: launch_split<T, 1>(a, keys); return 0;
-    case 64: launch_split<T, 2>(a, keys); return 0;
-    case 128: launch_split<T, 4>(a, keys); return 0;
-    case 256: launch_split<T, 8>(a, keys); return 0;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (head_dim <= 32)
+    launch_split<T, 1>(a, keys);
+  else if (head_dim <= 64)
+    launch_split<T, 2>(a, keys);
+  else if (head_dim <= 128)
+    launch_split<T, 4>(a, keys);
+  else
+    launch_split<T, 8>(a, keys);
+  return 0;
 }
 
 }  // namespace apex_port
@@ -54,6 +58,7 @@ extern "C" int flash_decode(const void* q, int64_t q_row_stride,
   const SplitArgs a{q,
                     q_row_stride,
                     q_head_stride,
+                    head_dim,
                     static_cast<const int32_t*>(kv_len),
                     static_cast<const int32_t*>(row_slot),
                     rows,

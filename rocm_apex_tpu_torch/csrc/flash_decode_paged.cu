@@ -23,7 +23,7 @@ struct PagedPools {
   const float* k_scale;
   const float* v_scale;
   const int32_t* table;
-  int pages_per_slot, page_size, num_pages, heads;
+  int pages_per_slot, page_size, num_pages, heads, hd;
 
   template <typename P, int D>
   PagedKeys<P, D> keys() const {
@@ -35,21 +35,25 @@ struct PagedPools {
                            pages_per_slot,
                            page_size,
                            num_pages,
-                           heads};
+                           heads,
+                           hd};
   }
 };
 
 // P is the pool element type: T itself, or int8_t.
+// on the width at or above the head dim, as flash_decode.cu's
 template <typename T, typename P>
 static int dispatch_dim(int head_dim, const SplitArgs& a,
                         const PagedPools& pp) {
-  switch (head_dim) {
-    case 32: launch_split<T, 1>(a, pp.keys<P, 32>()); return 0;
-    case 64: launch_split<T, 2>(a, pp.keys<P, 64>()); return 0;
-    case 128: launch_split<T, 4>(a, pp.keys<P, 128>()); return 0;
-    case 256: launch_split<T, 8>(a, pp.keys<P, 256>()); return 0;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (head_dim <= 32)
+    launch_split<T, 1>(a, pp.keys<P, 32>());
+  else if (head_dim <= 64)
+    launch_split<T, 2>(a, pp.keys<P, 64>());
+  else if (head_dim <= 128)
+    launch_split<T, 4>(a, pp.keys<P, 128>());
+  else
+    launch_split<T, 8>(a, pp.keys<P, 256>());
+  return 0;
 }
 
 template <bool kInt8>
@@ -73,12 +77,13 @@ static int run(int dtype, int head_dim, const SplitArgs& a,
 }
 
 static SplitArgs split_args(const void* q, int64_t q_rs, int64_t q_hs,
-                            const void* kv_len, const void* row_slot,
+                            int hd, const void* kv_len, const void* row_slot,
                             int rows, int heads, int num_slots, int capacity,
                             float q_mul, int spans, int span_len, void* o,
                             void* lse, void* ws, void* stream) {
   return SplitArgs{q,         q_rs,
-                   q_hs,      static_cast<const int32_t*>(kv_len),
+                   q_hs,      hd,
+                   static_cast<const int32_t*>(kv_len),
                    static_cast<const int32_t*>(row_slot),
                    rows,      heads,
                    num_slots, capacity,
@@ -115,11 +120,11 @@ extern "C" int flash_decode_paged(const void* q, int64_t q_row_stride,
   using namespace apex_port;
   return run<false>(
       dtype, head_dim,
-      split_args(q, q_row_stride, q_head_stride, kv_len, row_slot, rows,
-                 heads, num_slots, capacity, q_mul, spans, span_len, o, lse,
-                 ws, stream),
+      split_args(q, q_row_stride, q_head_stride, head_dim, kv_len, row_slot,
+                 rows, heads, num_slots, capacity, q_mul, spans, span_len, o,
+                 lse, ws, stream),
       PagedPools{k, v, nullptr, nullptr, static_cast<const int32_t*>(table),
-                 pages_per_slot, page_size, num_pages, heads});
+                 pages_per_slot, page_size, num_pages, heads, head_dim});
 }
 
 // As flash_decode_paged, with int8 pools and their contiguous
@@ -134,11 +139,11 @@ extern "C" int flash_decode_paged_int8(
   using namespace apex_port;
   return run<true>(
       dtype, head_dim,
-      split_args(q, q_row_stride, q_head_stride, kv_len, row_slot, rows,
-                 heads, num_slots, capacity, q_mul, spans, span_len, o, lse,
-                 ws, stream),
+      split_args(q, q_row_stride, q_head_stride, head_dim, kv_len, row_slot,
+                 rows, heads, num_slots, capacity, q_mul, spans, span_len, o,
+                 lse, ws, stream),
       PagedPools{k, v, static_cast<const float*>(k_scale),
                  static_cast<const float*>(v_scale),
                  static_cast<const int32_t*>(table), pages_per_slot,
-                 page_size, num_pages, heads});
+                 page_size, num_pages, heads, head_dim});
 }

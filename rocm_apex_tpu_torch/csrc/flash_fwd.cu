@@ -26,33 +26,64 @@
 //   fp32: the products run on the CUDA cores in fp32 (4 x 4 score and
 //         4 x 8 output register tiles per thread, operands from shared
 //         memory); it is held to the fp32 rate.
+// Head dims: the packed path takes hd % 128 == 0 up to 256 (the JAX
+// package's rule at the models' widths, models/gpt.py:370): bf16 on the
+// pipe's width-128 and width-256 instances; fp32 at 128 on the kernel
+// below, at 256 on the unpacked forward's CUDA-core body (width 256)
+// through the projection's strides, after an fp32 bias pre-pass.
 #include "flash_fwd_pipe.cuh"
 #include "flash_tile.cuh"
+#include "flash_unpacked_fwd.cuh"
 
 namespace apex_port {
 
 // ---- bf16: the bias pre-pass, then the pipe ------------------------------
 
+template <int HD>
 static int launch_pipe(const void* qkv, const void* bias, void* o, void* lse,
                        const FlashShape& sh, float scale, float q_mul,
                        int splits, int split_tiles, void* scratch, void* ws,
                        cudaStream_t stream) {
   const bf16* x = static_cast<const bf16*>(qkv);
   if (bias != nullptr) {
-    const cudaError_t e = launch_qkv_bias(qkv, bias, scratch, sh, stream);
+    const cudaError_t e = launch_qkv_bias(qkv, bias, scratch, sh, HD, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
     x = static_cast<const bf16*>(scratch);
   }
-  const int64_t rs = static_cast<int64_t>(sh.nh) * 3 * kHd;
-  const unpacked::Strides in{sh.S * rs, 3 * kHd, rs};
-  const int64_t ors = static_cast<int64_t>(sh.nh) * kHd;
+  const int64_t rs = static_cast<int64_t>(sh.nh) * 3 * HD;
+  const unpacked::Strides in{sh.S * rs, 3 * HD, rs};
+  const int64_t ors = static_cast<int64_t>(sh.nh) * HD;
   const unpacked::Strides st[4] = {in, in, in,
-                                   unpacked::Strides{sh.S * ors, kHd, ors}};
+                                   unpacked::Strides{sh.S * ors, HD, ors}};
   const unpacked::Problem pb = unpacked::make_problem(
       sh.B, sh.nh, sh.S, sh.S, sh.causal, nullptr, nullptr, 0, sh.drop,
-      sh.seed, sh.thr, sh.keep_scale, q_mul, scale);
-  return unpacked::launch_pipe_fwd<kHd>(x, x + kHd, x + 2 * kHd, o, lse, st,
-                                        pb, splits, split_tiles, ws, stream);
+      sh.seed, sh.thr, sh.keep_scale, q_mul, scale, HD);
+  return unpacked::launch_pipe_fwd<HD>(x, x + HD, x + 2 * HD, o, lse, st,
+                                       pb, splits, split_tiles, ws, stream);
+}
+
+// ---- fp32 at head_dim 256: the bias pre-pass, then the unpacked body ------
+
+static int launch_wide(const void* qkv, const void* bias, void* o, void* lse,
+                       const FlashShape& sh, int hd, float scale, float q_mul,
+                       void* scratch, cudaStream_t stream) {
+  const float* x = static_cast<const float*>(qkv);
+  if (bias != nullptr) {
+    const cudaError_t e =
+        launch_qkv_bias_f32(qkv, bias, scratch, sh, hd, stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    x = static_cast<const float*>(scratch);
+  }
+  const int64_t rs = static_cast<int64_t>(sh.nh) * 3 * hd;
+  const int64_t ors = static_cast<int64_t>(sh.nh) * hd;
+  const int64_t st[12] = {sh.S * rs,  3 * hd, rs, sh.S * rs,  3 * hd, rs,
+                          sh.S * rs,  3 * hd, rs, sh.S * ors, hd,     ors};
+  const unpacked::Problem pb = unpacked::make_problem(
+      sh.B, sh.nh, sh.S, sh.S, sh.causal, nullptr, nullptr, 0, sh.drop,
+      sh.seed, sh.thr, sh.keep_scale, q_mul, scale, hd);
+  if (!unpacked::grid_ok(pb)) return static_cast<int>(cudaErrorInvalidValue);
+  return unpacked::launch_fwd<false>(x, x + hd, x + 2 * hd, o, lse, st, pb,
+                                     kFloat32, stream);
 }
 
 // ---- fp32: CUDA cores ------------------------------------------------------
@@ -200,12 +231,13 @@ static int launch(const void* qkv, const void* bias, void* o, void* lse,
 
 // qkv: contiguous (B, S, nh, 3*hd); bias: (nh*3*hd,) in the same dtype
 // or null; o: contiguous (B, S, nh*hd); lse: contiguous (B*nh, S) fp32.
-// hd must be 128. dropout != 0 drops p with keep bit hash(seed, b*nh+h,
+// hd is 128 or 256. dropout != 0 drops p with keep bit hash(seed, b*nh+h,
 // query, key) >= thr and scale 1/(1 - rate). q_mul is scale * log2(e)
 // rounded to qkv's dtype. bf16: splits and split_tiles are the plan's key
 // split (flash_fwd_plan), ws its fp32 workspace when splits > 1, else
-// null; scratch, with a bias, a contiguous (B, S, nh, 3*hd) bf16 buffer
-// for the biased projection, else null. fp32 ignores the four.
+// null; scratch, with a bias, a contiguous (B, S, nh, 3*hd) buffer in
+// qkv's dtype for the biased projection (bf16, and fp32 at hd 256), else
+// null. fp32 ignores splits, split_tiles and ws.
 extern "C" int flash_fwd(const void* qkv, const void* bias, void* o,
                          void* lse, int B, int S, int nh, int hd,
                          float scale, float q_mul, int causal, int dropout,
@@ -213,15 +245,19 @@ extern "C" int flash_fwd(const void* qkv, const void* bias, void* o,
                          int splits, int split_tiles, void* scratch,
                          void* ws, int dtype, void* stream) {
   using namespace apex_port;
-  if (hd != kHd) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd != 128 && hd != 256) return static_cast<int>(cudaErrorInvalidValue);
   const FlashShape sh{B, S, nh, causal, dropout, seed, thr, keep_scale};
   auto st = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == kFloat32)
+  if (dtype == kFloat32 && hd == kHd)
     rc = launch(qkv, bias, o, lse, sh, q_mul, st);
+  else if (dtype == kFloat32 && (bias == nullptr || scratch != nullptr))
+    rc = launch_wide(qkv, bias, o, lse, sh, hd, scale, q_mul, scratch, st);
   else if (dtype == kBFloat16 && (bias == nullptr || scratch != nullptr))
-    rc = launch_pipe(qkv, bias, o, lse, sh, scale, q_mul, splits,
-                     split_tiles, scratch, ws, st);
+    rc = hd == 256 ? launch_pipe<256>(qkv, bias, o, lse, sh, scale, q_mul,
+                                      splits, split_tiles, scratch, ws, st)
+                   : launch_pipe<128>(qkv, bias, o, lse, sh, scale, q_mul,
+                                      splits, split_tiles, scratch, ws, st);
   else
     rc = static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;

@@ -62,6 +62,13 @@
 //   `pb.order` (`seg_order_kernel`: the longest walk first): the longest
 //   walks are the last tiles of the longest sequences, wherever they lie
 //   in the stream.
+// - Head dims: instances at widths 64, 128 and 256 (`at_width`). A head
+//   dim below its width (a multiple of 8) runs with zero columns formed in
+//   shared memory: cp.async zero-fills the 16-byte segments at or past it,
+//   the q k^T k-steps stop at ceil(hd / 16) (the rest would add exact
+//   zeros), and only its columns are stored. At width 256 q is 32 KB and a
+//   K/V stage 64 KB (161 KB with the alignment), the accumulator 128 fp32
+//   a thread, and o += p v is two 128-column products a 16-key step.
 #pragma once
 
 #include "flash_unpacked.cuh"
@@ -82,7 +89,7 @@ struct PipeCfg {
   static constexpr int kChunks = HD / 8;  // 16-byte segments a row
   // fp32 workspace floats of one unit's partial: 64 rows of (acc, m, l)
   static constexpr int kUnitFloats = kTile * (HD + 2);
-  static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
+  static_assert(HD == 64 || HD == 128 || HD == 256, "width 64, 128 or 256");
 };
 
 // The descriptor of q or k for the 16-deep step kk over hd: K-major, each
@@ -100,18 +107,19 @@ __device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile,
   return gmma_desc(tile + j * 16 * 128, kTile * 128, 1024);
 }
 
-// Rows [r0, r0 + 64) of a (S, HD) bf16 matrix with row stride rs into a
-// swizzled tile, asynchronously; rows at or past S are zero-filled.
+// Rows [r0, r0 + 64) of a (S, hd) bf16 matrix with row stride rs into a
+// swizzled tile of HD columns, asynchronously; rows at or past S and the
+// columns [hd, HD) are zero-filled.
 template <int HD>
 __device__ __forceinline__ void copy_rows(unsigned char* tile,
                                           const bf16* __restrict__ src,
-                                          int64_t rs, int r0, int S) {
+                                          int64_t rs, int r0, int S, int hd) {
   constexpr int kChunks = PipeCfg<HD>::kChunks;
   for (int idx = threadIdx.x; idx < kTile * kChunks;
        idx += PipeCfg<HD>::kThreads) {
     const int r = idx / kChunks;
     const int c = idx % kChunks;
-    const bool ok = r0 + r < S;
+    const bool ok = r0 + r < S && c * 8 < hd;
     cp_async16(tile + mnmajor_seg(r, c),
                ok ? src + (r0 + r) * rs + c * 8 : src, ok);
   }
@@ -126,17 +134,18 @@ template <int HD, int kN>
 __device__ __forceinline__ void copy_tile(unsigned char* tile,
                                           const bf16* __restrict__ src,
                                           int64_t rs, int r0, int S,
-                                          int tid) {
+                                          int tid, int hd) {
   constexpr int kChunks = HD / 8;      // 16-byte segments a row
   constexpr int kRows = kN / kChunks;  // rows a step, a multiple of 8
   static_assert(kRows % 8 == 0 && kTile % kRows == 0, "whole periods");
   const int c = tid % kChunks;
   const int r = tid / kChunks;
+  const bool col = c * 8 < hd;  // a segment past hd is zero-filled
   const bf16* from = src + static_cast<int64_t>(r0 + r) * rs + c * 8;
   unsigned char* to = tile + mnmajor_seg(r, c);
 #pragma unroll
   for (int i = 0; i < kTile / kRows; ++i) {
-    const bool ok = r0 + r + i * kRows < S;
+    const bool ok = col && r0 + r + i * kRows < S;
     cp_async16(to + i * kRows * 128, ok ? from + i * kRows * rs : src, ok);
   }
 }
@@ -208,13 +217,25 @@ __device__ __forceinline__ void reg_fence(uint32_t (&a)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
+// o (64 x HD) += a (64 x 16) times the MN-major 16 x HD tile at db: at
+// HD 256 the columns' second half starts two 64-column blocks on
 template <int HD>
 __device__ __forceinline__ void pv_mma(float (&o)[HD / 2],
                                        const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HD == 128)
+  if constexpr (HD == 256) {
+    wgmma_m64n128k16_rs_at<1, 0>(o, a, db);
+    wgmma_m64n128k16_rs_at<1, 64>(
+        o, a, db + ((2 * kTile * 128) >> 4));  // start address, 16 B units
+  } else if constexpr (HD == 128) {
     wgmma_m64n128k16_rs<1>(o, a, db);
-  else
+  } else {
     wgmma_m64n64k16_rs<1>(o, a, db);
+  }
+}
+
+// the q k^T k-steps a head dim needs: the rest would multiply zero columns
+__device__ __forceinline__ bool kstep_live(int kk, int hd) {
+  return kk * 16 < hd;
 }
 
 // Segment attention at head_dim 64 puts four blocks on a multiprocessor
@@ -273,8 +294,9 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 1)
   auto stage = [&](int i) { return ring + (i % C::kStages) * C::kStageBytes; };
   auto load = [&](int i) {
     unsigned char* st = stage(i);
-    copy_rows<HD>(st, kh, ks.s, (t0 + i) * kTile, pb.Sk);
-    copy_rows<HD>(st + C::kTileBytes, vh, vs.s, (t0 + i) * kTile, pb.Sk);
+    copy_rows<HD>(st, kh, ks.s, (t0 + i) * kTile, pb.Sk, pb.hd);
+    copy_rows<HD>(st + C::kTileBytes, vh, vs.s, (t0 + i) * kTile, pb.Sk,
+                  pb.hd);
     if constexpr (kSeg) {
       if (threadIdx.x < kTile)
         sids[(i % C::kStages) * kTile + threadIdx.x] =
@@ -282,7 +304,7 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 1)
     }
   };
   if (n > 0) {
-    copy_rows<HD>(sq, qh, qs.s, q0, pb.Sq);
+    copy_rows<HD>(sq, qh, qs.s, q0, pb.Sq, pb.hd);
 #pragma unroll
     for (int i = 0; i < C::kStages - 1; ++i) {
       if (i < n) load(i);
@@ -334,7 +356,8 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_m64n64k16<0, 0>(s, kmajor_desc(sq, kk), kmajor_desc(skt, kk));
+      if (kstep_live(kk, pb.hd))
+        wgmma_m64n64k16<0, 0>(s, kmajor_desc(sq, kk), kmajor_desc(skt, kk));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(s);
@@ -423,8 +446,9 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 1)
       bf16* orow = oh + row[r] * os.s;
 #pragma unroll
       for (int nb = 0; nb < HD / 8; ++nb)
-        *reinterpret_cast<uint32_t*>(orow + nb * 8 + 2 * t) = pack_bf16(
-            acc[4 * nb + 2 * r] / safe_l, acc[4 * nb + 2 * r + 1] / safe_l);
+        if (nb * 8 < pb.hd)
+          *reinterpret_cast<uint32_t*>(orow + nb * 8 + 2 * t) = pack_bf16(
+              acc[4 * nb + 2 * r] / safe_l, acc[4 * nb + 2 * r + 1] / safe_l);
       if (t == 0)
         lse[static_cast<int64_t>(bh) * pb.Sq + row[r]] =
             (m[r] + log2f(safe_l)) * kLn2;
@@ -458,7 +482,7 @@ template <int HD>
 __global__ void __launch_bounds__(128)
     fwd_merge_kernel(const float* __restrict__ ws, bf16* __restrict__ o,
                      float* __restrict__ lse, Strides os, int BH, int H,
-                     int Sq, int splits) {
+                     int Sq, int splits, int hd) {
   constexpr int VEC = HD / 32;
   const int64_t w =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
@@ -487,7 +511,8 @@ __global__ void __launch_bounds__(128)
   const float safe_l = lsum > 0.f ? lsum : 1.f;
   bf16* orow = head(o, os, bh, H) + row * os.s + lane * VEC;
 #pragma unroll
-  for (int c = 0; c < VEC; ++c) orow[c] = __float2bfloat16(acc[c] / safe_l);
+  for (int c = 0; c < VEC; ++c)
+    if (lane * VEC + c < hd) orow[c] = __float2bfloat16(acc[c] / safe_l);
   if (lane == 0)
     lse[static_cast<int64_t>(bh) * Sq + row] = (mx + log2f(safe_l)) * kLn2;
 }
@@ -534,24 +559,21 @@ int launch_pipe_fwd(const void* q, const void* k, const void* v, void* o,
     fwd_merge_kernel<HD><<<static_cast<unsigned>((warps + 3) / 4), 128, 0,
                            stream>>>(
         static_cast<const float*>(ws), static_cast<bf16*>(o),
-        static_cast<float*>(lse), st[3], bh, pb.H, pb.Sq, splits);
+        static_cast<float*>(lse), st[3], bh, pb.H, pb.Sq, splits, pb.hd);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// launch_pipe_fwd at head_dim hd (64 or 128)
+// launch_pipe_fwd at pb.hd, on its width (`at_width`)
 template <bool kSeg = false>
-int launch_pipe_fwd_hd(int hd, const void* q, const void* k, const void* v,
-                       void* o, void* lse, const Strides (&st)[4],
-                       const Problem& pb, int splits, int split_tiles,
-                       void* ws, cudaStream_t stream) {
-  if (hd == 128)
-    return launch_pipe_fwd<128, kSeg>(q, k, v, o, lse, st, pb, splits,
-                                      split_tiles, ws, stream);
-  if (hd == 64)
-    return launch_pipe_fwd<64, kSeg>(q, k, v, o, lse, st, pb, splits,
-                                     split_tiles, ws, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+int launch_pipe_fwd_hd(const void* q, const void* k, const void* v, void* o,
+                       void* lse, const Strides (&st)[4], const Problem& pb,
+                       int splits, int split_tiles, void* ws,
+                       cudaStream_t stream) {
+  return at_width(pb.hd, [&](auto w) {
+    return launch_pipe_fwd<decltype(w)::value, kSeg>(
+        q, k, v, o, lse, st, pb, splits, split_tiles, ws, stream);
+  });
 }
 
 }  // namespace unpacked

@@ -33,16 +33,16 @@ __global__ void __launch_bounds__(128)
                     const T* __restrict__ v, int64_t v_hs, int64_t v_ts,
                     const int32_t* __restrict__ seg, int heads, int total,
                     int causal, float q_mul, T* __restrict__ o,
-                    float* __restrict__ lse) {
+                    float* __restrict__ lse, int hd) {
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= heads * total) return;  // uniform per warp
   const int h = warp / total;
   const int i = warp - h * total;
-  constexpr int D = 32 * VEC;
+  const bool dims = lane * VEC < hd;  // this lane's dims inside the head
 
-  float qf[VEC];
-  load_vec<T, VEC>(q + h * q_hs + i * q_ts + lane * VEC, qf);
+  float qf[VEC] = {};
+  if (dims) load_vec<T, VEC>(q + h * q_hs + i * q_ts + lane * VEC, qf);
 #pragma unroll
   for (int c = 0; c < VEC; ++c) qf[c] = round_to<T>(qf[c] * q_mul);
 
@@ -59,17 +59,17 @@ __global__ void __launch_bounds__(128)
     const uint32_t live = __ballot_sync(kFullMask, hit);
     if (live == 0u) continue;
     attend_tile<T, VEC>(k_head + t0 * k_ts, k_ts, v_head + t0 * v_ts, v_ts,
-                        live, min(31, kend - 1 - t0), qf, st, lane);
+                        live, min(31, kend - 1 - t0), qf, st, lane, dims);
   }
-  finish_row<T, VEC>(st, o + (static_cast<int64_t>(h) * total + i) * D,
-                     lse + static_cast<int64_t>(h) * total + i, lane);
+  finish_row<T, VEC>(st, o + (static_cast<int64_t>(h) * total + i) * hd,
+                     lse + static_cast<int64_t>(h) * total + i, lane, dims);
 }
 
 template <typename T, int VEC>
 static void launch(const void* q, int64_t q_hs, int64_t q_ts, const void* k,
                    int64_t k_hs, int64_t k_ts, const void* v, int64_t v_hs,
                    int64_t v_ts, const int32_t* seg, int heads, int total,
-                   int causal, float q_mul, void* o, float* lse,
+                   int causal, float q_mul, void* o, float* lse, int hd,
                    cudaStream_t stream) {
   const int warps = heads * total;
   const int threads = 128;
@@ -77,7 +77,7 @@ static void launch(const void* q, int64_t q_hs, int64_t q_ts, const void* k,
   segments_kernel<T, VEC><<<blocks, threads, 0, stream>>>(
       static_cast<const T*>(q), q_hs, q_ts, static_cast<const T*>(k), k_hs,
       k_ts, static_cast<const T*>(v), v_hs, v_ts, seg, heads, total, causal,
-      q_mul, static_cast<T*>(o), lse);
+      q_mul, static_cast<T*>(o), lse, hd);
 }
 
 template <typename T>
@@ -87,20 +87,22 @@ static int dispatch_dim(int head_dim, const void* q, int64_t q_hs,
                         int64_t v_ts, const int32_t* seg, int heads,
                         int total, int causal, float q_mul, void* o,
                         float* lse, cudaStream_t stream) {
-  switch (head_dim) {
-#define APEX_SEG_CASE(V)                                                    \
-  case 32 * V:                                                              \
-    launch<T, V>(q, q_hs, q_ts, k, k_hs, k_ts, v, v_hs, v_ts, seg, heads,   \
-                 total, causal, q_mul, o, lse, stream);                     \
-    return 0;
-    APEX_SEG_CASE(1)
-    APEX_SEG_CASE(2)
-    APEX_SEG_CASE(4)
-    APEX_SEG_CASE(8)
-#undef APEX_SEG_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // the warp's width: the smallest of 32, 64, 128, 256 at or above it
+  if (head_dim < 8 || head_dim > 256 || head_dim % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define APEX_SEG_LAUNCH(V)                                                  \
+  launch<T, V>(q, q_hs, q_ts, k, k_hs, k_ts, v, v_hs, v_ts, seg, heads,     \
+               total, causal, q_mul, o, lse, head_dim, stream)
+  if (head_dim <= 32)
+    APEX_SEG_LAUNCH(1);
+  else if (head_dim <= 64)
+    APEX_SEG_LAUNCH(2);
+  else if (head_dim <= 128)
+    APEX_SEG_LAUNCH(4);
+  else
+    APEX_SEG_LAUNCH(8);
+#undef APEX_SEG_LAUNCH
+  return 0;
 }
 
 }  // namespace apex_port

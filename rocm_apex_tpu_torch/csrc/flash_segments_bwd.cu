@@ -38,14 +38,14 @@ extern "C" int flash_segments_bwd(const void* q, const void* k, const void* v,
   using namespace apex_port;
   using namespace apex_port::unpacked;
   Problem pb = make_problem(1, H, total, total, causal, nullptr, nullptr, 0,
-                            0, 0u, 0u, 1.f, q_mul, scale);
+                            0, 0u, 0u, 1.f, q_mul, scale, hd);
   pb.seg = static_cast<const int*>(seg);
   seg_workspace(pb, ws);
   if (!grid_ok(pb) || stats == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == kBFloat16 && (hd == 64 || hd == 128)) {
+  if (dtype == kBFloat16) {
     rc = launch_seg_tiles(pb, s);
     if (rc != 0) return rc;
     const BwdArgs a{static_cast<const bf16*>(q),
@@ -68,13 +68,12 @@ extern "C" int flash_segments_bwd(const void* q, const void* k, const void* v,
                     strides_at(st, 6),
                     strides_at(st, 7),
                     Strides{0, 0, 0}};
-    rc = hd == 128 ? launch_pipe_bwd<128, false, true>(a, pb, s)
-                   : launch_pipe_bwd<64, false, true>(a, pb, s);
+    rc = launch_pipe_bwd_hd<false, true>(a, pb, s);
   } else {
     rc = launch_seg_ranges(seg, total, const_cast<int2*>(pb.ranges), s);
     if (rc != 0) return rc;
     const void* p[11] = {q, k, v, o, lse, dout, nullptr, dq, dk, dv, stats};
-    rc = launch_bwd<true>(p, st, pb, hd, dtype, s);
+    rc = launch_bwd<true>(p, st, pb, dtype, s);
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());

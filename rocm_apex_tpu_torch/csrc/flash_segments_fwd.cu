@@ -31,7 +31,8 @@
 // (unused, head, token) of q, k, v, o (unit stride on hd; every stride and
 // base 16-byte aligned); lse: contiguous (H, total) fp32; seg: (total,)
 // int32; ws: an int32 workspace of 6 ceil(total / 64) + 2 ceil(total /
-// 32) words (16-byte aligned). hd is 64 or 128; q_mul is scale * log2(e)
+// 32) words (16-byte aligned). hd is a multiple of 8 up to 256 (on
+// `at_width`'s width); q_mul is scale * log2(e)
 // rounded to the operand dtype.
 extern "C" int flash_segments_fwd(const void* q, const void* k, const void* v,
                                   void* o, void* lse, const int64_t* st,
@@ -41,7 +42,7 @@ extern "C" int flash_segments_fwd(const void* q, const void* k, const void* v,
   using namespace apex_port;
   using namespace apex_port::unpacked;
   Problem pb = make_problem(1, H, total, total, causal, nullptr, nullptr, 0,
-                            0, 0u, 0u, 1.f, q_mul, scale);
+                            0, 0u, 0u, 1.f, q_mul, scale, hd);
   pb.seg = static_cast<const int*>(seg);
   seg_workspace(pb, ws);
   if (!grid_ok(pb)) return static_cast<int>(cudaErrorInvalidValue);
@@ -53,12 +54,12 @@ extern "C" int flash_segments_fwd(const void* q, const void* k, const void* v,
     const Strides sts[4] = {strides_at(st, 0), strides_at(st, 1),
                             strides_at(st, 2), strides_at(st, 3)};
     const int nt = (total + kTile - 1) / kTile;
-    rc = launch_pipe_fwd_hd<true>(hd, q, k, v, o, lse, sts, pb, 1,
+    rc = launch_pipe_fwd_hd<true>(q, k, v, o, lse, sts, pb, 1,
                                   nt > 0 ? nt : 1, nullptr, s);
   } else {
     rc = launch_seg_ranges(seg, total, const_cast<int2*>(pb.ranges), s);
     if (rc != 0) return rc;
-    rc = launch_fwd<true>(q, k, v, o, lse, st, pb, hd, dtype, s);
+    rc = launch_fwd<true>(q, k, v, o, lse, st, pb, dtype, s);
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());

@@ -1,7 +1,9 @@
 // Segment-masked packed attention with lse, the serving read on the tensor
 // cores, for Hopper (sm_90a): the "tiles" route of
 // `flash_segments_serve_plan` (ops/flash_attention_segments.py), bf16 at
-// head_dim 64 or 128 over a stream of at most kServeMaxTokens tokens.
+// a head_dim up to 128 (a multiple of 8, on the pipe's width 64 or 128
+// with zero columns past it, as flash_fwd_pipe.cuh forms them) over a
+// stream of at most kServeMaxTokens tokens.
 //
 // Replaces rocm_apex_tpu/ops/flash_attention_segments.py:70
 // `_seg_fwd_kernel` as the chunked-prefill serve runs it
@@ -73,7 +75,7 @@ __global__ void __launch_bounds__(128)
                        const bf16* __restrict__ v, Strides qs, Strides ks,
                        Strides vs, const int* __restrict__ seg, int total,
                        int causal, float q_mul, bf16* __restrict__ o,
-                       float* __restrict__ lse) {
+                       float* __restrict__ lse, int hd) {
   using C = ServeCfg<HD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = smem_base_1024(smem_raw);
@@ -95,14 +97,14 @@ __global__ void __launch_bounds__(128)
   const bf16* vh = v + static_cast<int64_t>(hh) * vs.h;
   auto stage = [&](int i) { return ring + (i % C::kStages) * C::kStageBytes; };
   auto load = [&](unsigned char* to, int kt) {  // key tile kt's K, then V
-    copy_tile<HD, C::kThreads>(to, kh, ks.s, kt * kTile, total, tid);
+    copy_tile<HD, C::kThreads>(to, kh, ks.s, kt * kTile, total, tid, hd);
     copy_tile<HD, C::kThreads>(to + C::kTileBytes, vh, vs.s, kt * kTile,
-                               total, tid);
+                               total, tid, hd);
   };
 
   // q and the diagonal tile in flight first (groups Q and D)
   copy_tile<HD, C::kThreads>(sq, q + static_cast<int64_t>(hh) * qs.h, qs.s,
-                             q0, total, tid);
+                             q0, total, tid, hd);
   cp_async_commit();
   load(sdiag, qt);
   cp_async_commit();
@@ -196,7 +198,8 @@ __global__ void __launch_bounds__(128)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_m64n64k16<0, 0>(s, kmajor_desc(sq, kk), kmajor_desc(skt, kk));
+      if (kstep_live(kk, hd))
+        wgmma_m64n64k16<0, 0>(s, kmajor_desc(sq, kk), kmajor_desc(skt, kk));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(s);
@@ -281,17 +284,18 @@ __global__ void __launch_bounds__(128)
   // o = acc / l (0 where l = 0) and lse = (m + log2 l) ln 2 of the
   // thread's two rows (no row of a segment stream is empty: a token
   // attends itself)
-  bf16* oh = o + static_cast<int64_t>(hh) * total * HD;
+  bf16* oh = o + static_cast<int64_t>(hh) * total * hd;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= total) continue;
     const float safe_l = l[r] > 0.f ? l[r] : 1.f;
     const float inv = 1.f / safe_l;
-    bf16* orow = oh + static_cast<int64_t>(row[r]) * HD;
+    bf16* orow = oh + static_cast<int64_t>(row[r]) * hd;
 #pragma unroll
     for (int nb = 0; nb < HD / 8; ++nb)
-      *reinterpret_cast<uint32_t*>(orow + nb * 8 + 2 * t) = pack_bf16(
-          acc[4 * nb + 2 * r] * inv, acc[4 * nb + 2 * r + 1] * inv);
+      if (nb * 8 < hd)
+        *reinterpret_cast<uint32_t*>(orow + nb * 8 + 2 * t) = pack_bf16(
+            acc[4 * nb + 2 * r] * inv, acc[4 * nb + 2 * r + 1] * inv);
     if (t == 0)
       lse[static_cast<int64_t>(hh) * total + row[r]] =
           (m[r] + log2f(safe_l)) * kLn2;
@@ -301,7 +305,7 @@ __global__ void __launch_bounds__(128)
 template <int HD>
 int launch_serve_tiles(const void* q, const void* k, const void* v,
                        const int64_t* st, const int* seg, int H, int total,
-                       int causal, float q_mul, void* o, void* lse,
+                       int hd, int causal, float q_mul, void* o, void* lse,
                        cudaStream_t stream) {
   using C = ServeCfg<HD>;
   // every call, as launch_pipe_fwd sets its own
@@ -315,7 +319,7 @@ int launch_serve_tiles(const void* q, const void* k, const void* v,
          stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                    static_cast<const bf16*>(v), qs, ks, vs, seg, total,
                    causal, q_mul, static_cast<bf16*>(o),
-                   static_cast<float*>(lse));
+                   static_cast<float*>(lse), hd);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -325,8 +329,9 @@ int launch_serve_tiles(const void* q, const void* k, const void* v,
 // q, k, v: (H, total, hd) bf16 views through the element strides st[0..5]
 // = (head, token) of q, k, v (unit stride on hd; every stride and base
 // 16-byte aligned); seg: (total,) int32; o: contiguous (H, total, hd) bf16;
-// lse: contiguous (H, total) fp32. hd is 64 or 128, total 1 to
-// kServeMaxTokens; q_mul is scale * log2(e) rounded to bf16.
+// lse: contiguous (H, total) fp32. hd is a multiple of 8 up to 128 (on
+// width 64 or 128), total 1 to kServeMaxTokens; q_mul is scale * log2(e)
+// rounded to bf16.
 extern "C" int flash_segments_serve(const void* q, const void* k,
                                     const void* v, const int64_t* st,
                                     const void* seg, int H, int total,
@@ -337,15 +342,13 @@ extern "C" int flash_segments_serve(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* ids = static_cast<const int*>(seg);
   auto s = static_cast<cudaStream_t>(stream);
-  int rc;
-  if (hd == 128)
-    rc = launch_serve_tiles<128>(q, k, v, st, ids, H, total, causal, q_mul,
-                                 o, lse, s);
-  else if (hd == 64)
-    rc = launch_serve_tiles<64>(q, k, v, st, ids, H, total, causal, q_mul,
-                                o, lse, s);
-  else
-    rc = static_cast<int>(cudaErrorInvalidValue);
+  if (hd < 8 || hd > 128 || hd % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc =
+      hd > 64 ? launch_serve_tiles<128>(q, k, v, st, ids, H, total, hd,
+                                        causal, q_mul, o, lse, s)
+              : launch_serve_tiles<64>(q, k, v, st, ids, H, total, hd,
+                                       causal, q_mul, o, lse, s);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,8 +11,12 @@
 //   lse   (B*nh, S) fp32, natural log
 // Grid row bh = b * nh + h, as on the TPU.
 //
-// Tiles are 64 query rows x 64 keys x hd = 128 in both paths. The rest
-// serves the fp32 kernels, which run the products on the CUDA cores:
+// The bf16 pipes take hd 128 and 256 (their widths); the fp32 kernels
+// below take hd = kHd = 128, and hd 256 in fp32 runs on the unpacked
+// CUDA-core bodies (flash_unpacked_{fwd,bwd}.cuh) through the projection's
+// strides, after the fp32 bias pre-pass (`launch_qkv_bias_f32`), with the
+// bias partials summed by `qkv_column_sums_kernel`. Tiles are 64 query
+// rows x 64 keys. The rest serves the fp32 kernels, which run the products on the CUDA cores:
 // tiles are staged in shared memory as fp32; 256 threads form a 16 x 16
 // grid (tx = tid % 16, ty = tid / 16); a thread owns rows ty + 16 i and
 // columns tx + 16 j of a 64 x 64 score tile, so a row's 64 scores sit in
@@ -139,15 +143,77 @@ __global__ void __launch_bounds__(256)
 // projection into out, once, for the pipes to read (flash_fwd.cu,
 // flash_bwd.cu)
 inline cudaError_t launch_qkv_bias(const void* qkv, const void* bias,
-                                   void* out, const FlashShape& sh,
+                                   void* out, const FlashShape& sh, int hd,
                                    cudaStream_t stream) {
-  const int row8 = sh.nh * 3 * kHd / 8;
+  const int row8 = sh.nh * 3 * hd / 8;
   const int64_t n8 = static_cast<int64_t>(sh.B) * sh.S * row8;
   const int64_t blocks = std::min<int64_t>((n8 + 255) / 256, 1 << 20);
   if (blocks == 0) return cudaSuccess;
   qkv_bias_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
       static_cast<const uint4*>(qkv), static_cast<const uint4*>(bias),
       static_cast<uint4*>(out), n8, row8);
+  return cudaGetLastError();
+}
+
+// ---- fp32 at head_dim 256: the bias pre-pass and the bias partials --------
+
+// out = qkv + bias over n4 vectors of 4 fp32, the bias repeating every
+// row4 vectors (the add load_tile makes, once)
+__global__ void __launch_bounds__(256)
+    qkv_bias_f32_kernel(const float4* __restrict__ qkv,
+                        const float4* __restrict__ bias,
+                        float4* __restrict__ out, int64_t n4, int row4) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n4; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const float4 x = qkv[i];
+    const float4 b = bias[i % row4];
+    out[i] = make_float4(x.x + b.x, x.y + b.y, x.z + b.z, x.w + b.w);
+  }
+}
+
+inline cudaError_t launch_qkv_bias_f32(const void* qkv, const void* bias,
+                                       void* out, const FlashShape& sh,
+                                       int hd, cudaStream_t stream) {
+  const int row4 = sh.nh * 3 * hd / 4;
+  const int64_t n4 = static_cast<int64_t>(sh.B) * sh.S * row4;
+  const int64_t blocks = std::min<int64_t>((n4 + 255) / 256, 1 << 20);
+  if (blocks == 0) return cudaSuccess;
+  qkv_bias_f32_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      static_cast<const float4*>(qkv), static_cast<const float4*>(bias),
+      static_cast<float4*>(out), n4, row4);
+  return cudaGetLastError();
+}
+
+// part[b, tile, c] = the sum of dqkv[b, r, c] over the tile's 64 rows r in
+// ascending order (c over the nh*3*hd columns): the fp32 bias partials of
+// (B, ceil(S / 64), nh, 3*hd), a thread a column of a (b, tile)
+__global__ void __launch_bounds__(256)
+    qkv_column_sums_kernel(const float* __restrict__ dqkv,
+                           float* __restrict__ part, int S, int width) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ntl = (S + kTile - 1) / kTile;
+  const int b = blockIdx.y / ntl;
+  const int tl = blockIdx.y % ntl;
+  if (c >= width) return;
+  const float* col = dqkv + (static_cast<int64_t>(b) * S) * width + c;
+  float acc = 0.f;
+  for (int r = tl * kTile; r < min(S, tl * kTile + kTile); ++r)
+    acc += col[static_cast<int64_t>(r) * width];
+  part[static_cast<int64_t>(blockIdx.y) * width + c] = acc;
+}
+
+inline cudaError_t launch_qkv_column_sums(const void* dqkv, void* part,
+                                          const FlashShape& sh, int hd,
+                                          cudaStream_t stream) {
+  const int width = sh.nh * 3 * hd;
+  const int64_t rows = static_cast<int64_t>(sh.B) * ((sh.S + kTile - 1) / kTile);
+  if (rows == 0 || width == 0) return cudaSuccess;
+  if (rows > 65535) return cudaErrorInvalidValue;
+  qkv_column_sums_kernel<<<dim3((width + 255) / 256, static_cast<unsigned>(rows)),
+                           256, 0, stream>>>(static_cast<const float*>(dqkv),
+                                             static_cast<float*>(part), sh.S,
+                                             width);
   return cudaGetLastError();
 }
 

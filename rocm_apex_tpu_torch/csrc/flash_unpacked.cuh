@@ -22,7 +22,12 @@
 //                  / 32),) the (min, max) id of each 32-token tile; on the
 //   tiles, order   pipes also tiles (ceil(total / 64),) and order (2
 //                  ceil(total / 64),), `seg_workspace`'s
-// D is 64 or 128 (the kernels are templates on it).
+// The kernels are templates on a width W of 64, 128 or 256 and take any
+// head dim D = pb.hd that is a multiple of 8 up to W on the smallest W at
+// or above it (`at_width`): the columns in [D, W) are zero in shared
+// memory (zero-filled as they are staged) and in registers, add nothing to
+// a score, and are never stored. The wrappers pad a head dim that is not a
+// multiple of 8 (`head_dim_plan`).
 //
 // `masked_score` is the one masking rule of all three kernels, the
 // counterpart of `_masked_scores` (:122): a score is in base 2,
@@ -68,6 +73,7 @@ struct Problem {
   float keep_scale;  // 1 / (1 - rate)
   float q_mul;       // scale * log2(e) in the operand dtype
   float scale;
+  int hd;  // the head dim, a multiple of 8 up to the kernel's width
   const int* __restrict__ seg;      // segment attention: ids, else null
   const int2* __restrict__ ranges;  // (min, max) id of each 32-token tile
   // segment attention on the pipes: each 64-token tile's (lo, hi, cq, ck)
@@ -130,20 +136,21 @@ __device__ __forceinline__ float masked_score(const Problem& pb, int len,
 
 // ---- staging -----------------------------------------------------------
 
-// Rows [r0, r0 + 64) of a (S, HD) fp32 matrix into dst (row stride ld)
-// times `mul` (one fp32 rounding, as the plain version's q * c), 0 past S.
+// Rows [r0, r0 + 64) of a (S, hd) fp32 matrix into dst (row stride ld,
+// HD columns) times `mul` (one fp32 rounding, as the plain version's q *
+// c), 0 past S and in the columns [hd, HD).
 template <int HD>
 __device__ __forceinline__ void stage_f32(float* __restrict__ dst, int ld,
                                           const float* __restrict__ src,
                                           int64_t rs, int r0, int S,
-                                          float mul) {
+                                          float mul, int hd) {
   constexpr int kPerRow = HD / 4;
   for (int idx = threadIdx.x; idx < kTile * kPerRow; idx += kThreads) {
     const int r = idx / kPerRow;
     const int c = (idx % kPerRow) * 4;
     const int row = r0 + r;
     float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row < S) load_vec<float, 4>(src + row * rs + c, v);
+    if (row < S && c < hd) load_vec<float, 4>(src + row * rs + c, v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) dst[r * ld + c + i] = v[i] * mul;
   }
@@ -163,8 +170,8 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 }
 
 // delta = rowsum(do * o) - dlse for rows [r0, r0 + 64) of operand row bh,
-// do from shared memory (row stride ld, type T), o from device memory; one
-// warp per row in turn. Writes sdelta[64] and, for live rows, delta_out;
+// over the hd columns, do from shared memory (row stride ld, type T) or
+// device memory, o from device memory; one warp per row in turn. Writes sdelta[64] and, for live rows, delta_out;
 // slse[64] gets lse * log2(e) (0 past Sq: every score of such a row is
 // -inf).
 template <int HD, typename T>
@@ -172,14 +179,14 @@ __device__ __forceinline__ void row_delta(
     const T* sdo, int ld, const T* __restrict__ oh, int64_t o_rs,
     const float* __restrict__ lse, const float* __restrict__ dlse,
     float* __restrict__ delta_out, float* sdelta, float* slse, int bh, int r0,
-    int Sq, int nwarps) {
+    int Sq, int nwarps, int hd) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   for (int r = warp; r < kTile; r += nwarps) {
     const int row = r0 + r;
     float acc = 0.f;
     if (row < Sq) {
-      for (int c = lane; c < HD; c += 32)
+      for (int c = lane; c < min(HD, hd); c += 32)
         acc += to_float(sdo[r * ld + c]) * to_float(oh[row * o_rs + c]);
     }
     acc = warp_sum(acc);
@@ -403,7 +410,8 @@ constexpr int seg_smem_ints() {
 inline Problem make_problem(int B, int H, int Sq, int Sk, int causal,
                             const void* lens, const void* bias, int nb,
                             int drop, uint32_t seed, uint32_t thr,
-                            float keep_scale, float q_mul, float scale) {
+                            float keep_scale, float q_mul, float scale,
+                            int hd) {
   Problem pb;
   pb.B = B;
   pb.H = H;
@@ -419,6 +427,7 @@ inline Problem make_problem(int B, int H, int Sq, int Sk, int causal,
   pb.keep_scale = keep_scale;
   pb.q_mul = q_mul;
   pb.scale = scale;
+  pb.hd = hd;
   pb.seg = nullptr;
   pb.ranges = nullptr;
   pb.tiles = nullptr;
@@ -428,6 +437,18 @@ inline Problem make_problem(int B, int H, int Sq, int Sk, int causal,
 
 inline Strides strides_at(const int64_t* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+}
+
+// The width a head dim runs on, as f(std::integral_constant<int, W>): the
+// smallest of 64, 128 and 256 at or above hd; hd must be a multiple of 8
+// (16-byte segments of bf16) from 8 to 256, else the call is refused.
+template <class F>
+int at_width(int hd, F&& f) {
+  if (hd < 8 || hd > 256 || hd % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 64) return f(std::integral_constant<int, 64>{});
+  if (hd <= 128) return f(std::integral_constant<int, 128>{});
+  return f(std::integral_constant<int, 256>{});
 }
 
 // grid.y carries batch * heads

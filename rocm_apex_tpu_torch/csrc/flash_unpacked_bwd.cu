@@ -10,11 +10,10 @@
 namespace apex_port {
 namespace unpacked {
 
-template <int HD>
-int launch_unpacked_pipe(const BwdArgs& a, const Problem& pb,
-                         cudaStream_t stream) {
-  return pb.bias != nullptr ? launch_pipe_bwd<HD, true>(a, pb, stream)
-                            : launch_pipe_bwd<HD, false>(a, pb, stream);
+inline int launch_unpacked_pipe(const BwdArgs& a, const Problem& pb,
+                                cudaStream_t stream) {
+  return pb.bias != nullptr ? launch_pipe_bwd_hd<true>(a, pb, stream)
+                            : launch_pipe_bwd_hd<false>(a, pb, stream);
 }
 
 }  // namespace unpacked
@@ -40,12 +39,12 @@ extern "C" int flash_unpacked_bwd(
   using namespace apex_port::unpacked;
   const Problem pb = make_problem(B, H, Sq, Sk, causal, lens, bias, nb,
                                   dropout, seed, thr, keep_scale, q_mul,
-                                  scale);
+                                  scale, hd);
   if (!grid_ok(pb) || stats == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == kBFloat16 && (hd == 64 || hd == 128)) {
+  if (dtype == kBFloat16) {
     BwdArgs a{static_cast<const bf16*>(q),
               static_cast<const bf16*>(k),
               static_cast<const bf16*>(v),
@@ -68,16 +67,10 @@ extern "C" int flash_unpacked_bwd(
               Strides{0, 0, 0},
               static_cast<const float*>(dlse),
               static_cast<float*>(delta)};
-    rc = hd == 128 ? launch_unpacked_pipe<128>(a, pb, s)
-                   : launch_unpacked_pipe<64>(a, pb, s);
+    rc = launch_unpacked_pipe(a, pb, s);
   } else if (dtype == kFloat32 && delta == nullptr) {
     const void* p[11] = {q, k, v, o, lse, dout, dlse, dq, dk, dv, stats};
-    if (hd == 128)
-      rc = launch_f32<128, false>(p, st, pb, s);
-    else if (hd == 64)
-      rc = launch_f32<64, false>(p, st, pb, s);
-    else
-      rc = static_cast<int>(cudaErrorInvalidValue);
+    rc = launch_bwd<false>(p, st, pb, dtype, s);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }

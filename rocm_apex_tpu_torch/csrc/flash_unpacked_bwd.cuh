@@ -32,6 +32,17 @@
 // total, D) stream: a key of another segment is masked as well, and each
 // pass visits only the tiles whose segment-id ranges meet its own tile's
 // (`for_tiles`).
+//
+// Head dims: widths 64, 128 and 256 (`at_width`), the columns past pb.hd
+// staged as zeros and not stored. At width 256 four 64 x 257 fp32 tiles
+// (263 KB) would not fit a block, so the operands are staged in two
+// 128-column parts (kParts, 4 x 64 x 129 floats): s and dp sum over the
+// first part's columns, then the second's (the same order of terms as one
+// pass over 256); then the second part's tile, still staged, feeds its
+// half of the output columns, and the first part is staged again for the
+// other half. q and do are restaged with each key tile in the dq pass,
+// k and v with each query tile in the dk/dv pass; the dq pass's delta
+// reads do from device memory.
 #pragma once
 
 #include "flash_unpacked.cuh"
@@ -49,8 +60,11 @@ __global__ void __launch_bounds__(kThreads)
                   float* __restrict__ delta_out, Strides qs, Strides ks,
                   Strides vs, Strides os, Strides dos, Strides dqs,
                   Problem pb) {
-  constexpr int kLd = HD + 1;
+  constexpr int kW = HD > 128 ? 128 : HD;  // columns staged at a time
+  constexpr int kParts = HD / kW;
+  constexpr int kLd = kW + 1;
   constexpr int kNj = HD / 16;
+  constexpr int kNjP = kW / 16;  // output columns a thread owns a part
   extern __shared__ float sm[];
   float* sq = sm;                  // 64 x kLd, q * q_mul
   float* sdo = sq + kTile * kLd;   // 64 x kLd
@@ -67,15 +81,25 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const int q0 = qt * kTile;
+  const float* qh = head(q, qs, bh, pb.H);
+  const float* doh = head(dout, dos, bh, pb.H);
   const float* kh = head(k, ks, bh, pb.H);
   const float* vh = head(v, vs, bh, pb.H);
   const int len = kv_len(pb, bh);
 
-  stage_f32<HD>(sq, kLd, head(q, qs, bh, pb.H), qs.s, q0, pb.Sq, pb.q_mul);
-  stage_f32<HD>(sdo, kLd, head(dout, dos, bh, pb.H), dos.s, q0, pb.Sq, 1.f);
-  __syncthreads();
-  row_delta<HD>(sdo, kLd, head(o, os, bh, pb.H), os.s, lse, dlse, delta_out,
-                sdelta, slse, bh, q0, pb.Sq, kThreads / 32);
+  if constexpr (kParts == 1) {
+    stage_f32<HD>(sq, kLd, qh, qs.s, q0, pb.Sq, pb.q_mul, pb.hd);
+    stage_f32<HD>(sdo, kLd, doh, dos.s, q0, pb.Sq, 1.f, pb.hd);
+    __syncthreads();
+    row_delta<HD>(sdo, kLd, head(o, os, bh, pb.H), os.s, lse, dlse,
+                  delta_out, sdelta, slse, bh, q0, pb.Sq, kThreads / 32,
+                  pb.hd);
+  } else {  // do from device memory: the staged parts hold half its columns
+    row_delta<HD>(doh + static_cast<int64_t>(q0) * dos.s,
+                  static_cast<int>(dos.s), head(o, os, bh, pb.H), os.s, lse,
+                  dlse, delta_out, sdelta, slse, bh, q0, pb.Sq,
+                  kThreads / 32, pb.hd);
+  }
 
   float acc[4][kNj];
   uint32_t key[4];
@@ -99,37 +123,49 @@ __global__ void __launch_bounds__(kThreads)
     return ranges_meet(qrange, tile_range(pb, kt * kTile, kTile));
   };
   auto tile = [&](int kt) {
-    __syncthreads();
-    stage_f32<HD>(sk, kLd, kh, ks.s, kt * kTile, pb.Sk, 1.f);
-    stage_f32<HD>(sv, kLd, vh, vs.s, kt * kTile, pb.Sk, 1.f);
-    if constexpr (kSeg) stage_seg(pb, sseg, kt * kTile, kTile);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    // s and dp over the parts' columns in order (one part below width 256)
+#pragma unroll
+    for (int part = 0; part < kParts; ++part) {
+      const int c0 = part * kW;
+      __syncthreads();
+      if constexpr (kParts > 1) {
+        stage_f32<kW>(sq, kLd, qh + c0, qs.s, q0, pb.Sq, pb.q_mul,
+                      pb.hd - c0);
+        stage_f32<kW>(sdo, kLd, doh + c0, dos.s, q0, pb.Sq, 1.f, pb.hd - c0);
+      }
+      stage_f32<kW>(sk, kLd, kh + c0, ks.s, kt * kTile, pb.Sk, 1.f,
+                    pb.hd - c0);
+      stage_f32<kW>(sv, kLd, vh + c0, vs.s, kt * kTile, pb.Sk, 1.f,
+                    pb.hd - c0);
+      if constexpr (kSeg)
+        if (part == 0) stage_seg(pb, sseg, kt * kTile, kTile);
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
+      for (int d = 0; d < kW; ++d) {
+        float qv[4], dov[4], kv[4], vv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = sq[(ty + 16 * i) * kLd + d];
-        dov[i] = sdo[(ty + 16 * i) * kLd + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = sk[(tx + 16 * j) * kLd + d];
-        vv[j] = sv[(tx + 16 * j) * kLd + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          qv[i] = sq[(ty + 16 * i) * kLd + d];
+          dov[i] = sdo[(ty + 16 * i) * kLd + d];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+          kv[j] = sk[(tx + 16 * j) * kLd + d];
+          vv[j] = sv[(tx + 16 * j) * kLd + d];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+            dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+          }
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -148,17 +184,29 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
+    // dq += ds k: the last part's k is staged; the others are staged again
+#pragma unroll
+    for (int part = kParts - 1; part >= 0; --part) {
+      if (part != kParts - 1) {
+        __syncthreads();
+        stage_f32<kW>(sk, kLd, kh + part * kW, ks.s, kt * kTile, pb.Sk, 1.f,
+                      pb.hd - part * kW);
+        __syncthreads();
+      }
 #pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float dsv[4], kv[kNj];
+      for (int c = 0; c < kTile; ++c) {
+        float dsv[4], kv[kNjP];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = sds[(ty + 16 * i) * kLdP + c];
+        for (int i = 0; i < 4; ++i) dsv[i] = sds[(ty + 16 * i) * kLdP + c];
 #pragma unroll
-      for (int j = 0; j < kNj; ++j) kv[j] = sk[c * kLd + tx + 16 * j];
+        for (int j = 0; j < kNjP; ++j) kv[j] = sk[c * kLd + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < kNj; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
+          for (int j = 0; j < kNjP; ++j)
+            acc[i][part * kNjP + j] =
+                fmaf(dsv[i], kv[j], acc[i][part * kNjP + j]);
+      }
     }
   };
   for_tiles<kSeg, kThreads>(0, nk, slist, scount, live, tile);
@@ -170,7 +218,8 @@ __global__ void __launch_bounds__(kThreads)
     if (row >= pb.Sq) continue;
 #pragma unroll
     for (int j = 0; j < kNj; ++j)
-      dqh[row * dqs.s + tx + 16 * j] = acc[i][j] * pb.scale;
+      if (tx + 16 * j < pb.hd)
+        dqh[row * dqs.s + tx + 16 * j] = acc[i][j] * pb.scale;
   }
 }
 
@@ -182,8 +231,11 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ delta, float* __restrict__ dk,
                    float* __restrict__ dv, Strides qs, Strides ks, Strides vs,
                    Strides dos, Strides dks, Strides dvs, Problem pb) {
-  constexpr int kLd = HD + 1;
+  constexpr int kW = HD > 128 ? 128 : HD;  // columns staged at a time
+  constexpr int kParts = HD / kW;
+  constexpr int kLd = kW + 1;
   constexpr int kNj = HD / 16;
+  constexpr int kNjP = kW / 16;
   extern __shared__ float sm[];
   float* sk = sm;                  // 64 x kLd, the block's keys
   float* sv = sk + kTile * kLd;    // 64 x kLd
@@ -203,10 +255,14 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = kt * kTile;
   const float* qh = head(q, qs, bh, pb.H);
   const float* doh = head(dout, dos, bh, pb.H);
+  const float* kh = head(k, ks, bh, pb.H);
+  const float* vh = head(v, vs, bh, pb.H);
   const int len = kv_len(pb, bh);
 
-  stage_f32<HD>(sk, kLd, head(k, ks, bh, pb.H), ks.s, k0, pb.Sk, 1.f);
-  stage_f32<HD>(sv, kLd, head(v, vs, bh, pb.H), vs.s, k0, pb.Sk, 1.f);
+  if constexpr (kParts == 1) {
+    stage_f32<HD>(sk, kLd, kh, ks.s, k0, pb.Sk, 1.f, pb.hd);
+    stage_f32<HD>(sv, kLd, vh, vs.s, k0, pb.Sk, 1.f, pb.hd);
+  }
 
   float dka[4][kNj], dva[4][kNj];
 #pragma unroll
@@ -227,45 +283,52 @@ __global__ void __launch_bounds__(kThreads)
   };
   auto tile = [&](int qt) {
     const int q0 = qt * kTile;
-    __syncthreads();
-    stage_f32<HD>(sq, kLd, qh, qs.s, q0, pb.Sq, 1.f);
-    stage_f32<HD>(sdo, kLd, doh, dos.s, q0, pb.Sq, 1.f);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      const int64_t at = static_cast<int64_t>(bh) * pb.Sq + row;
-      slse[threadIdx.x] = row < pb.Sq ? lse[at] * kLog2e : 0.f;
-      sdelta[threadIdx.x] = row < pb.Sq ? delta[at] : 0.f;
-      if constexpr (kSeg) sseg[threadIdx.x] = seg_id(pb, row);
-    }
-    __syncthreads();
-
     // s^T with q * q_mul formed as it is read (one fp32 rounding, the
-    // value the forward staged)
+    // value the forward staged), over the parts' columns in order
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll
+    for (int part = 0; part < kParts; ++part) {
+      const int c0 = part * kW;
+      __syncthreads();
+      if constexpr (kParts > 1) {
+        stage_f32<kW>(sk, kLd, kh + c0, ks.s, k0, pb.Sk, 1.f, pb.hd - c0);
+        stage_f32<kW>(sv, kLd, vh + c0, vs.s, k0, pb.Sk, 1.f, pb.hd - c0);
+      }
+      stage_f32<kW>(sq, kLd, qh + c0, qs.s, q0, pb.Sq, 1.f, pb.hd - c0);
+      stage_f32<kW>(sdo, kLd, doh + c0, dos.s, q0, pb.Sq, 1.f, pb.hd - c0);
+      if (part == 0 && threadIdx.x < kTile) {
+        const int row = q0 + threadIdx.x;
+        const int64_t at = static_cast<int64_t>(bh) * pb.Sq + row;
+        slse[threadIdx.x] = row < pb.Sq ? lse[at] * kLog2e : 0.f;
+        sdelta[threadIdx.x] = row < pb.Sq ? delta[at] : 0.f;
+        if constexpr (kSeg) sseg[threadIdx.x] = seg_id(pb, row);
+      }
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float kv[4], vv[4], qv[4], dov[4];
+      for (int d = 0; d < kW; ++d) {
+        float kv[4], vv[4], qv[4], dov[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = sk[(ty + 16 * i) * kLd + d];
-        vv[i] = sv[(ty + 16 * i) * kLd + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = __fmul_rn(sq[(tx + 16 * j) * kLd + d], pb.q_mul);
-        dov[j] = sdo[(tx + 16 * j) * kLd + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          kv[i] = sk[(ty + 16 * i) * kLd + d];
+          vv[i] = sv[(ty + 16 * i) * kLd + d];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
+          qv[j] = __fmul_rn(sq[(tx + 16 * j) * kLd + d], pb.q_mul);
+          dov[j] = sdo[(tx + 16 * j) * kLd + d];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+            dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
+          }
+      }
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -291,26 +354,41 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
+    // dv += p^T do, dk += ds^T q: the last part's q and do are staged;
+    // the others are staged again
+#pragma unroll
+    for (int part = kParts - 1; part >= 0; --part) {
+      if (part != kParts - 1) {
+        __syncthreads();
+        stage_f32<kW>(sq, kLd, qh + part * kW, qs.s, q0, pb.Sq, 1.f,
+                      pb.hd - part * kW);
+        stage_f32<kW>(sdo, kLd, doh + part * kW, dos.s, q0, pb.Sq, 1.f,
+                      pb.hd - part * kW);
+        __syncthreads();
+      }
 #pragma unroll 2
-    for (int c = 0; c < kTile; ++c) {
-      float pv[4], dsv[4], dov[kNj], qv[kNj];
+      for (int c = 0; c < kTile; ++c) {
+        float pv[4], dsv[4], dov[kNjP], qv[kNjP];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = sp[(ty + 16 * i) * kLdP + c];
-        dsv[i] = sds[(ty + 16 * i) * kLdP + c];
-      }
-#pragma unroll
-      for (int j = 0; j < kNj; ++j) {
-        dov[j] = sdo[c * kLd + tx + 16 * j];
-        qv[j] = sq[c * kLd + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kNj; ++j) {
-          dva[i][j] = fmaf(pv[i], dov[j], dva[i][j]);
-          dka[i][j] = fmaf(dsv[i], qv[j], dka[i][j]);
+        for (int i = 0; i < 4; ++i) {
+          pv[i] = sp[(ty + 16 * i) * kLdP + c];
+          dsv[i] = sds[(ty + 16 * i) * kLdP + c];
         }
+#pragma unroll
+        for (int j = 0; j < kNjP; ++j) {
+          dov[j] = sdo[c * kLd + tx + 16 * j];
+          qv[j] = sq[c * kLd + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < kNjP; ++j) {
+            dva[i][part * kNjP + j] =
+                fmaf(pv[i], dov[j], dva[i][part * kNjP + j]);
+            dka[i][part * kNjP + j] =
+                fmaf(dsv[i], qv[j], dka[i][part * kNjP + j]);
+          }
+      }
     }
   };
   for_tiles<kSeg, kThreads>(pb.causal ? kt : 0, nq, slist, scount, live,
@@ -324,6 +402,7 @@ __global__ void __launch_bounds__(kThreads)
     if (kr >= pb.Sk) continue;
 #pragma unroll
     for (int j = 0; j < kNj; ++j) {
+      if (tx + 16 * j >= pb.hd) continue;
       dkh[kr * dks.s + tx + 16 * j] = dka[i][j] * pb.scale;
       dvh[kr * dvs.s + tx + 16 * j] = dva[i][j];
     }
@@ -333,7 +412,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int HD, bool kSeg>
 int launch_f32(const void* const* p, const int64_t* st, const Problem& pb,
                cudaStream_t stream) {
-  constexpr int kLd = HD + 1;
+  constexpr int kLd = (HD > 128 ? 128 : HD) + 1;  // a staged part's row
   constexpr size_t kSegBytes =
       kSeg ? sizeof(int) * seg_smem_ints<kThreads>() : 0;
   const size_t smem_dq =
@@ -376,15 +455,14 @@ int launch_f32(const void* const* p, const int64_t* st, const Problem& pb,
 }
 
 // The backward on these bodies (p as the entries order it: q, k, v, o,
-// lse, dout, dlse, dq, dk, dv, delta): fp32, head_dim 64 or 128.
+// lse, dout, dlse, dq, dk, dv, delta): fp32, at pb.hd's width.
 template <bool kSeg>
 int launch_bwd(const void* const* p, const int64_t* st, const Problem& pb,
-               int hd, int dtype, cudaStream_t s) {
-  if (dtype == kFloat32 && hd == 128)
-    return launch_f32<128, kSeg>(p, st, pb, s);
-  if (dtype == kFloat32 && hd == 64)
-    return launch_f32<64, kSeg>(p, st, pb, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+               int dtype, cudaStream_t s) {
+  if (dtype != kFloat32) return static_cast<int>(cudaErrorInvalidValue);
+  return at_width(pb.hd, [&](auto w) {
+    return launch_f32<decltype(w)::value, kSeg>(p, st, pb, s);
+  });
 }
 
 }  // namespace unpacked

@@ -22,6 +22,10 @@
 // total, D) stream: a key of another segment is masked as well, and a
 // block visits only the key tiles whose segment-id range meets its own
 // (`for_tiles`), gathered by a ballot so dead tiles cost no barrier.
+//
+// Head dims: widths 64, 128 and 256 (`at_width`), the columns past pb.hd
+// staged as zeros and not stored. At width 256 the staged q, k, v and p
+// take 209 KB of shared memory, and a thread 64 output accumulators.
 #pragma once
 
 #include "flash_unpacked.cuh"
@@ -54,7 +58,8 @@ __global__ void __launch_bounds__(kThreads)
   const float* vh = head(v, vs, bh, pb.H);
   const int len = kv_len(pb, bh);
 
-  stage_f32<HD>(sq, kLd, head(q, qs, bh, pb.H), qs.s, q0, pb.Sq, pb.q_mul);
+  stage_f32<HD>(sq, kLd, head(q, qs, bh, pb.H), qs.s, q0, pb.Sq, pb.q_mul,
+                pb.hd);
 
   float m[4], l[4], acc[4][kNj];
   uint32_t key[4];
@@ -81,8 +86,8 @@ __global__ void __launch_bounds__(kThreads)
   };
   auto tile = [&](int kt) {
     __syncthreads();  // the previous tile's readers of sk/sv/sp are done
-    stage_f32<HD>(sk, kLd, kh, ks.s, kt * kTile, pb.Sk, 1.f);
-    stage_f32<HD>(sv, HD, vh, vs.s, kt * kTile, pb.Sk, 1.f);
+    stage_f32<HD>(sk, kLd, kh, ks.s, kt * kTile, pb.Sk, 1.f, pb.hd);
+    stage_f32<HD>(sv, HD, vh, vs.s, kt * kTile, pb.Sk, 1.f, pb.hd);
     if constexpr (kSeg) stage_seg(pb, sseg, kt * kTile, kTile);
     __syncthreads();
 
@@ -158,7 +163,7 @@ __global__ void __launch_bounds__(kThreads)
     const float safe_l = l[i] > 0.f ? l[i] : 1.f;
 #pragma unroll
     for (int j = 0; j < kNj; ++j)
-      oh[row * os.s + tx + 16 * j] = acc[i][j] / safe_l;
+      if (tx + 16 * j < pb.hd) oh[row * os.s + tx + 16 * j] = acc[i][j] / safe_l;
     if (tx == 0)
       lse[static_cast<int64_t>(bh) * pb.Sq + row] =
           (m[i] + log2f(safe_l)) * kLn2;
@@ -185,16 +190,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   return 0;
 }
 
-// fp32 on the CUDA cores, head_dim 64 or 128.
+// fp32 on the CUDA cores, at pb.hd's width.
 template <bool kSeg>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               void* lse, const int64_t* st, const Problem& pb, int hd,
-               int dtype, cudaStream_t s) {
-  if (dtype == kFloat32 && hd == 128)
-    return launch_f32<128, kSeg>(q, k, v, o, lse, st, pb, s);
-  if (dtype == kFloat32 && hd == 64)
-    return launch_f32<64, kSeg>(q, k, v, o, lse, st, pb, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+               void* lse, const int64_t* st, const Problem& pb, int dtype,
+               cudaStream_t s) {
+  if (dtype != kFloat32) return static_cast<int>(cudaErrorInvalidValue);
+  return at_width(pb.hd, [&](auto w) {
+    return launch_f32<decltype(w)::value, kSeg>(q, k, v, o, lse, st, pb, s);
+  });
 }
 
 }  // namespace unpacked

@@ -182,7 +182,40 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(kTransB));
 }
-
+// wgmma_m64n128k16_rs into d[kOff, kOff + 64) of a longer accumulator:
+// at head_dim 256 the 256 columns of p v are two 128-column products,
+// d[0, 64) the first and d[64, 128) the second (the m64nN layout puts
+// 8-column block nb at d[4 nb, 4 nb + 4), so the halves keep the indexing
+// of one 256-column accumulator)
+#define APEX_WG_F8(o)                                                     \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),             \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+template <int kTransB, int kOff, int N>
+__device__ __forceinline__ void wgmma_m64n128k16_rs_at(
+    float (&d)[N], const uint32_t (&a)[4], uint64_t db) {
+  static_assert(kOff + 64 <= N, "the accumulator's slice");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : APEX_WG_F8(kOff), APEX_WG_F8(kOff + 8), APEX_WG_F8(kOff + 16),
+        APEX_WG_F8(kOff + 24), APEX_WG_F8(kOff + 32), APEX_WG_F8(kOff + 40),
+        APEX_WG_F8(kOff + 48), APEX_WG_F8(kOff + 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(kTransB));
+}
+#undef APEX_WG_F8
 
 // where 16-byte segment (r, c) of an MN-major tile lies: BK rows of k,
 // the MN axis in blocks of 64 (c over the MN axis); a K-major tile is

@@ -19,8 +19,8 @@ dropout -> @ v, the normalizer from the undropped ones) with
 ``ops/_dropout``'s keep bits of (seed, b*nh + h, query, key), regenerated
 in the backward. One forward and one backward kernel serve all four
 entries: no bias is a null pointer, no dropout is rate 0. The kernels
-take head_dim 128 (the packed path's hd % 128 rule at the model's
-widths); they are bound by operations: the bf16 forward runs on the
+take head_dim 128 and 256 (the packed path's hd % 128 rule up to the
+JAX layout's bound of 256); they are bound by operations: the bf16 forward runs on the
 wgmma pipe it shares with the unpacked forward
 (``csrc/flash_fwd_pipe.cuh``, planned by `flash_fwd_plan`), the bf16
 backward on a wgmma pipe built from its pieces
@@ -28,6 +28,23 @@ backward on a wgmma pipe built from its pieces
 rounded to the operands' dtype before the products that consume them, as
 every JAX kernel rounds them, and fp32 on the CUDA cores (see the
 sources).
+
+**Head dims.** Every kernel here takes every head dim from 1 to 256, as
+the JAX kernels do (they pad it to the 128-lane width with zero
+columns, rocm_apex_tpu/ops/flash_attention.py:19, :245-254); past 256
+they raise (ROADMAP Queue 2). `head_dim_plan` names, from the head dim
+alone, the kernel instance (``width``: 64, 128 or 256 for the
+tensor-core pipes and the CUDA-core bodies, also 32 for the warp-a-row
+reads) and how the head dim reaches it (``hd_route``): ``"native"`` at
+the width itself; ``"zero_columns"`` below it for a multiple of 8 (one
+16-byte segment of bf16): the kernel forms the columns past the head
+dim as zeros in shared memory or registers, cuts the q k^T k-steps to
+those it needs and stores only the head dim's columns, with no padded
+copy in HBM; ``"padded"`` for any other head dim: the wrapper pads q, k,
+v (and the cache) with zero columns to the next multiple of 8, as JAX
+pads, and slices the outputs (``pad_bytes`` counts the copies). A zero
+column adds exactly 0 to a score and to every sum, so each route
+computes what the JAX kernel computes at that head dim.
 
 **p's rounding.** Every JAX attention kernel rounds p (times 1 / (1 -
 rate) where dropout keeps it) to v's dtype before p @ v, p_drop to do's
@@ -186,7 +203,44 @@ __all__ = [
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
-_SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
+# the widest head dim the kernels take: the JAX layout's bound
+# (rocm_apex_tpu/ops/flash_attention.py:19); past it ROADMAP Queue 2
+HEAD_DIM_MAX = 256
+# the kernels' instances: the tensor-core pipes and the CUDA-core bodies
+# (csrc/flash_unpacked.cuh `at_width`), and the warp-a-row reads
+# (csrc/attention_row.cuh: 32 VEC, VEC a lane's dims)
+PIPE_WIDTHS = (64, 128, 256)
+ROW_WIDTHS = (32, 64, 128, 256)
+_HD_SEGMENT = 8  # elements of a 16-byte cp.async segment of bf16
+
+
+def head_dim_plan(hd: int, widths: tuple = PIPE_WIDTHS) -> dict:
+    """How head dim ``hd`` reaches the kernels, from it alone: ``width``,
+    the instance (the smallest of ``widths`` at or above it); ``kernel_hd``,
+    the head dim the kernel is handed (``hd`` rounded up to a multiple of
+    8); ``hd_route``, ``"native"`` (hd is the width), ``"zero_columns"``
+    (a multiple of 8 below it: the kernel forms the rest as zeros) or
+    ``"padded"`` (the wrapper pads to ``kernel_hd``). Past `HEAD_DIM_MAX`
+    it raises: the JAX layout's bound, kept as a named refusal (ROADMAP
+    Queue 2)."""
+    if not 1 <= hd <= HEAD_DIM_MAX:
+        raise ValueError(
+            f"the CUDA attention kernels take head_dim 1 to {HEAD_DIM_MAX} "
+            f"(the JAX layout's bound, rocm_apex_tpu/ops/flash_attention.py"
+            f":19), got {hd}; a wider head dim is ROADMAP Queue 2's entry "
+            f"'head dims past 256'")
+    kernel_hd = -(-hd // _HD_SEGMENT) * _HD_SEGMENT
+    width = min(w for w in widths if w >= kernel_hd)
+    route = ("native" if hd == width else
+             "zero_columns" if hd == kernel_hd else "padded")
+    return dict(width=width, kernel_hd=kernel_hd, hd_route=route)
+
+
+def _pad_hd(t: torch.Tensor, kernel_hd: int) -> torch.Tensor:
+    """``t`` with zero columns to ``kernel_hd`` on its last dim (the
+    "padded" route's copy), or ``t`` itself."""
+    pad = kernel_hd - t.shape[-1]
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
 def _q_mul(scale: float, dtype: torch.dtype) -> float:
@@ -278,21 +332,29 @@ FLASH_BWD = Kernel(
                          _P],
     replaces="rocm_apex_tpu/ops/flash_attention.py:1324 _bwd_merged_kernel",
 )
-_PACKED_HEAD_DIM = 128  # csrc/flash_tile.cuh kHd
+# the packed kernels' head dims (models/gpt.py routes hd % 128 == 0 there):
+# the pipes' widths 128 and 256; fp32 at csrc/flash_tile.cuh kHd on its own
+# kernels, at 256 on the unpacked CUDA-core bodies
+_PACKED_HEAD_DIMS = (128, 256)
+_PACKED_F32_HD = 128  # csrc/flash_tile.cuh kHd
 _PACKED_TILE = 64  # csrc/flash_tile.cuh kTile
 
 
 def check_head_dim(*tensors: torch.Tensor) -> None:
-    """The kernels' layout contract: head_dim in 32/64/128/256, unit
-    stride on the last dim, every other stride and the base address
-    aligned to one lane's vector (head_dim/32 elements)."""
+    """The warp-a-row kernels' layout contract: a head_dim that is a
+    multiple of 8 up to 256 (`head_dim_plan` over `ROW_WIDTHS`: the
+    wrappers pad another), unit stride on the last dim, every other
+    stride and the base address aligned to one lane's vector (width/32
+    elements, the width the smallest of 32, 64, 128, 256 at or above the
+    head dim)."""
     d = tensors[0].shape[-1]
-    if d not in _SUPPORTED_HEAD_DIMS:
+    plan = head_dim_plan(d, ROW_WIDTHS)
+    if plan["hd_route"] == "padded":
         raise ValueError(
-            f"the CUDA attention kernels take head_dim in "
-            f"{_SUPPORTED_HEAD_DIMS}, got {d}"
+            f"the CUDA attention kernels take a head_dim that is a multiple "
+            f"of {_HD_SEGMENT} (the wrappers pad another), got {d}"
         )
-    vec = d // 32
+    vec = plan["width"] // 32
     for t in tensors:
         if t.stride(-1) != 1:
             raise ValueError("attention operands need a unit head_dim stride")
@@ -398,6 +460,14 @@ def flash_attention_decode(
         raise ValueError("slot_ids must be (rows,)")
     if kv_lengths.shape != (num_slots,):
         raise ValueError("kv_lengths must be (num_slots,)")
+    hp = head_dim_plan(d, ROW_WIDTHS)
+    if hp["hd_route"] == "padded":
+        o, lse = flash_attention_decode(
+            _pad_hd(q, hp["kernel_hd"]), _pad_hd(k_cache, hp["kernel_hd"]),
+            _pad_hd(v_cache, hp["kernel_hd"]), kv_lengths, scale,
+            return_lse=True, slot_ids=slot_ids)
+        o = o[..., :d].contiguous()
+        return (o, lse) if return_lse else o
     check_head_dim(q, k_cache, v_cache)
     o = torch.empty((rows, heads, d), dtype=q.dtype, device=q.device)
     lse = (
@@ -457,11 +527,13 @@ def decode_span_plan(rows: int, heads: int, capacity: int,
 def decode_span_workspace(rows: int, heads: int, head_dim: int,
                           spans: int) -> int:
     """fp32 elements of the split read's workspace: each block's merged
-    (acc, m, l) where a (row, head)'s spans take more than one block of
-    `_SPAN_BLOCK_WARPS` warps, else 0."""
+    (acc, m, l) at the warp's width (`ROW_WIDTHS`) where a (row, head)'s
+    spans take more than one block of `_SPAN_BLOCK_WARPS` warps, else
+    0."""
     if spans <= _SPAN_BLOCK_WARPS:
         return 0
-    return rows * heads * (spans // _SPAN_BLOCK_WARPS) * (head_dim + 2)
+    width = head_dim_plan(head_dim, ROW_WIDTHS)["width"]
+    return rows * heads * (spans // _SPAN_BLOCK_WARPS) * (width + 2)
 
 
 def _span_workspace(rows, heads, head_dim, spans, device):
@@ -645,6 +717,15 @@ def flash_attention_decode_paged(
         raise ValueError("kv_lengths must be (num_slots,)")
     if num_pages * heads * page_size >= 2**31:
         raise ValueError("the kernel indexes pool rows with 32-bit ints")
+    hp = head_dim_plan(d, ROW_WIDTHS)
+    if hp["hd_route"] == "padded":
+        kd = hp["kernel_hd"]
+        o, lse = flash_attention_decode_paged(
+            _pad_hd(q, kd), _pad_hd(k_pool, kd), _pad_hd(v_pool, kd),
+            page_table, kv_lengths, scale, k_scale, v_scale,
+            return_lse=True, slot_ids=slot_ids, capacity=capacity)
+        o = o[..., :d].contiguous()
+        return (o, lse) if return_lse else o
     check_head_dim(q, k_pool, v_pool)
     o = torch.empty((rows, heads, d), dtype=q.dtype, device=q.device)
     lse = (
@@ -743,10 +824,11 @@ def _check_packed(qkv, bias, *more):
         return
     if qkv.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {qkv.device}")
-    if three_hd // 3 != _PACKED_HEAD_DIM:
+    if three_hd // 3 not in _PACKED_HEAD_DIMS:
         raise ValueError(
-            f"the packed CUDA attention kernels take head_dim "
-            f"{_PACKED_HEAD_DIM}, got {three_hd // 3}"
+            f"the packed CUDA attention kernels take head_dim in "
+            f"{_PACKED_HEAD_DIMS} (the packed path's hd % 128 rule up to "
+            f"{HEAD_DIM_MAX}), got {three_hd // 3}"
         )
     for t in (qkv, bias, *more):
         if t is not None and (t.device != qkv.device or not t.is_contiguous()
@@ -769,10 +851,10 @@ def _flash_fwd(qkv, bias, causal, scale, rate, seed):
     if o.numel() > 0:
         plan = flash_fwd_plan(B * nh, S, S, hd, causal, sm_count(qkv.device),
                               qkv.dtype)
-        # bf16 with a bias: the biased projection, written once by a
-        # pre-pass and read by the pipe
+        # with a bias on the pipe (and in fp32 at hd 256): the biased
+        # projection, written once by a pre-pass and read by the kernel
         scratch = (torch.empty_like(qkv) if bias is not None
-                   and plan["route"] == "wgmma" else None)
+                   and _packed_prepass(hd, qkv.dtype) else None)
         FLASH_FWD(
             ptr(qkv), ptr(bias), ptr(o), ptr(lse), B, S, nh, hd,
             float(scale), _q_mul(scale, qkv.dtype), int(bool(causal)),
@@ -783,6 +865,13 @@ def _flash_fwd(qkv, bias, causal, scale, rate, seed):
             stream_ptr(qkv.device),
         )
     return o, lse
+
+
+def _packed_prepass(hd: int, dtype: torch.dtype) -> bool:
+    """Whether the packed kernels add a bias by a pre-pass into a scratch
+    projection: bf16 always, fp32 at head_dim 256 (the unpacked CUDA-core
+    bodies it runs on take no bias on load)."""
+    return dtype == torch.bfloat16 or hd != _PACKED_F32_HD
 
 
 def _bwd_tiles(nqt: int, nkt: int, causal: bool, dq_down: bool):
@@ -805,8 +894,10 @@ def flash_bwd_plan(batch: int, seq: int, heads: int, head_dim: int,
     alone.
 
     ``route``: ``"wgmma"`` for bf16 (csrc/flash_bwd_pipe.cuh) and
-    ``"cuda_cores"`` for fp32; the packed kernels take head_dim 128 (others
-    raise). The pipe's two passes run on grids of (batch*heads, 64-row
+    ``"cuda_cores"`` for fp32; the packed kernels take head_dim 128 and
+    256 (``width``, `head_dim_plan`; others raise): fp32 at 256 runs on the
+    unpacked backward's CUDA-core bodies (``form`` ``"unpacked"``, else
+    ``"packed"``). The pipe's two passes run on grids of (batch*heads, 64-row
     tiles): ``dq_tiles`` lists, in launch order, each dq block's query tile
     and the key tiles [lo, hi) it walks (query tiles counted down, the
     causal ones longest first), ``dkv_tiles`` each dk/dv block's key tile
@@ -817,24 +908,43 @@ def flash_bwd_plan(batch: int, seq: int, heads: int, head_dim: int,
     heads, 3 head_dim) column sums of dq|dk|dv a bias's cotangent sums, one
     a 64-row tile in either route; ``scratch``: the biased projection a
     bias pre-pass writes on the pipe (the wrapper allocates it where there
-    is a bias)."""
-    if head_dim != _PACKED_HEAD_DIM:
+    is a bias). On the pipe at width 256 the dk/dv pass is split by
+    columns: ``dkv_grid`` has a third axis of 2 column halves."""
+    if head_dim not in _PACKED_HEAD_DIMS:
         raise ValueError(f"the packed CUDA attention kernels take head_dim "
-                         f"{_PACKED_HEAD_DIM}, got {head_dim}")
+                         f"in {_PACKED_HEAD_DIMS}, got {head_dim}")
+    hp = head_dim_plan(head_dim)
     tiles = -(-seq // _PACKED_TILE)
     bh = batch * heads
     parts = (batch, tiles, heads, 3 * head_dim)
     pipe = dtype == torch.bfloat16
     dq_tiles, dkv_tiles = _bwd_tiles(tiles, tiles, causal, dq_down=pipe)
+    scratch = ((batch, seq, heads, 3 * head_dim)
+               if _packed_prepass(head_dim, dtype) else None)
     if not pipe:
         return dict(route="cuda_cores", dq_grid=(tiles, bh),
                     dkv_grid=(tiles, bh), dq_tiles=dq_tiles,
                     dkv_tiles=dkv_tiles, stats=(bh, seq), parts=parts,
-                    scratch=None)
-    return dict(route="wgmma", dq_grid=(bh, tiles), dkv_grid=(bh, tiles),
+                    scratch=scratch, **hp,
+                    form="packed" if head_dim == _PACKED_F32_HD
+                    else "unpacked")
+    return dict(route="wgmma", dq_grid=(bh, tiles),
+                dkv_grid=_dkv_grid(bh, tiles, hp["width"]),
                 dq_tiles=dq_tiles, dkv_tiles=dkv_tiles,
                 stats=(bh, tiles * _PACKED_TILE, 2), parts=parts,
-                scratch=(batch, seq, heads, 3 * head_dim))
+                scratch=scratch, form="packed", **hp)
+
+
+# the backward pipe's dk/dv columns a block (csrc/flash_bwd_pipe.cuh
+# BwdCfg::kOut): at width 256 two blocks a key tile, a column half each
+_DKV_COLUMNS = 128
+
+
+def _dkv_grid(bh: int, nkt: int, width: int) -> tuple:
+    """The pipe's dk/dv grid: (bh, key tiles), with a third axis of column
+    halves at width 256."""
+    halves = -(-width // _DKV_COLUMNS)
+    return (bh, nkt) if halves == 1 else (bh, nkt, halves)
 
 
 def _flash_bwd(qkv, bias, o, lse, do, causal, scale, rate, seed):
@@ -853,7 +963,7 @@ def _flash_bwd(qkv, bias, o, lse, do, causal, scale, rate, seed):
     if bias is not None:
         part = torch.empty(plan["parts"], dtype=torch.float32,
                            device=qkv.device)
-        if plan["route"] == "wgmma":
+        if plan["scratch"] is not None:
             # the biased projection, written once by the pre-pass
             scratch = torch.empty_like(qkv)
     if dqkv.numel() > 0:
@@ -925,7 +1035,6 @@ def flash_attention_qkv_bias_dropout(qkv, qkv_bias, dropout_seed,
 # per-row key lengths
 # ---------------------------------------------------------------------------
 
-_UNPACKED_HEAD_DIMS = (64, 128)  # the csrc/flash_unpacked.cuh instances
 
 
 def _bias_groups(bias, bh: int) -> int:
@@ -1035,9 +1144,10 @@ def flash_unpacked_bwd_plain(q, k, v, bias, o, lse, do, causal, scale,
 
 # the bf16 forward's pipe (csrc/flash_fwd_pipe.cuh): query rows and keys
 # a tile, the blocks a multiprocessor holds (81 KB of shared memory each
-# at head_dim 128), and the key split's bounds
+# at width 128; one block of 161 KB at 256), and the key split's bounds
 _FWD_TILE = 64
 _FWD_BLOCKS_PER_SM = 2
+_FWD_BLOCKS_PER_SM_256 = 1
 _FWD_SPLIT_MAX = 16
 _FWD_SPLIT_MIN_TILES = 2
 
@@ -1047,9 +1157,10 @@ def flash_fwd_plan(bh: int, sq: int, sk: int, hd: int, causal: bool,
     """The forward kernels' route and grid, from the shape alone, for the
     packed (``bh`` = B*nh, sq = sk = S) and the unpacked forward.
 
-    ``route``: ``"wgmma"`` for bf16 (the pipe, head_dim 64 or 128: both
-    are instantiated, so no head dim goes elsewhere) and ``"cuda_cores"``
-    for fp32. A pipe unit is (operand row, query tile of 64, key split):
+    ``route``: ``"wgmma"`` for bf16 (the pipe) and ``"cuda_cores"`` for
+    fp32, each at `head_dim_plan`'s ``width`` (64, 128 or 256) and
+    ``hd_route`` for any head dim 1 to 256 (``pad_bytes``: the padded
+    route's copies of q, k, v and o, else 0). A pipe unit is (operand row, query tile of 64, key split):
     where the bh x ceil(sq / 64) pairs cannot fill the card, each query
     tile's ceil(sk / 64) key tiles are cut into ``splits`` (a power of
     two, at most 16) runs of ``split_tiles`` tiles, doubled while twice
@@ -1058,27 +1169,37 @@ def flash_fwd_plan(bh: int, sq: int, sk: int, hd: int, causal: bool,
     split order. It reads no lengths: a split past a row's last key exits
     at once. ``grid`` is the pipe's (bh, query tiles x splits), its query
     tiles counted down (longest first under ``causal``); ``workspace``
-    the fp32 floats of the split partials (0 unsplit)."""
+    the fp32 floats of the split partials (0 unsplit, at the width)."""
+    hp = head_dim_plan(hd)
+    hp["pad_bytes"] = _pad_bytes(hp, bh * (2 * sq + 2 * sk), dtype)
     nqt, ntk = -(-sq // _FWD_TILE), -(-sk // _FWD_TILE)
     if dtype != torch.bfloat16:
         return dict(route="cuda_cores", rows=_FWD_TILE, splits=1,
-                    split_tiles=max(ntk, 1), grid=(nqt, bh), workspace=0)
-    if hd not in _UNPACKED_HEAD_DIMS:
-        raise ValueError(f"the bf16 forward takes head_dim in "
-                         f"{_UNPACKED_HEAD_DIMS}, got {hd}")
+                    split_tiles=max(ntk, 1), grid=(nqt, bh), workspace=0,
+                    **hp)
+    width = hp["width"]
+    per_sm = _FWD_BLOCKS_PER_SM if width <= 128 else _FWD_BLOCKS_PER_SM_256
     units = bh * nqt
     splits = 1
     while (splits < _FWD_SPLIT_MAX
-           and units * splits * 2 <= 2 * _FWD_BLOCKS_PER_SM * sms
+           and units * splits * 2 <= 2 * per_sm * sms
            and ntk >= 2 * splits * _FWD_SPLIT_MIN_TILES):
         splits *= 2
     split_tiles = max(-(-ntk // splits), 1)
     splits = max(-(-ntk // split_tiles), 1)  # no split past the last tile
-    workspace = (bh * nqt * splits * _FWD_TILE * (hd + 2) if splits > 1
+    workspace = (bh * nqt * splits * _FWD_TILE * (width + 2) if splits > 1
                  else 0)
     return dict(route="wgmma", rows=_FWD_TILE, splits=splits,
                 split_tiles=split_tiles, grid=(bh, nqt * splits),
-                workspace=workspace)
+                workspace=workspace, **hp)
+
+
+def _pad_bytes(hp: dict, rows: int, dtype: torch.dtype) -> int:
+    """The bytes the "padded" route's copies write: ``rows`` rows of the
+    kernel's head dim (0 on the other routes)."""
+    if hp["hd_route"] != "padded":
+        return 0
+    return rows * hp["kernel_hd"] * torch.empty((), dtype=dtype).element_size()
 
 
 def flash_unpacked_bwd_plan(bh: int, sq: int, sk: int, hd: int,
@@ -1088,8 +1209,12 @@ def flash_unpacked_bwd_plan(bh: int, sq: int, sk: int, hd: int,
     alone (it reads no lengths, as `flash_fwd_plan` reads none).
 
     ``route``: ``"wgmma"`` for bf16 (the packed backward's pipe,
-    csrc/flash_bwd_pipe.cuh, head_dim 64 or 128) and ``"cuda_cores"`` for
-    fp32 (csrc/flash_unpacked_bwd.cuh); any other head_dim raises. The two
+    csrc/flash_bwd_pipe.cuh) and ``"cuda_cores"`` for fp32
+    (csrc/flash_unpacked_bwd.cuh), each at `head_dim_plan`'s ``width`` and
+    ``hd_route`` (head dims 1 to 256; ``pad_bytes`` the padded route's
+    copies of q, k, v, o, do and the gradients). At width 256 the pipe's
+    dk/dv grid has a third axis of 2 column halves and the CUDA cores
+    stage 128-column parts. The two
     passes' grids and tile lists are `flash_bwd_plan`'s (`_bwd_tiles`), on
     ``sq`` query rows and ``sk`` keys: on the pipe, (bh, query tiles) for
     the dq pass, query tiles counted down, and (bh, key tiles) for the
@@ -1099,20 +1224,20 @@ def flash_unpacked_bwd_plan(bh: int, sq: int, sk: int, hd: int,
     ``delta``: the (bh, sq) fp32 buffer the pipe's dq pass also writes
     delta into for the bias gradient (row 10), named only with ``dbias``
     (on the CUDA cores the stats are that delta, so it is never named)."""
-    if hd not in _UNPACKED_HEAD_DIMS:
-        raise ValueError(f"the unpacked CUDA attention kernels take head_dim "
-                         f"in {_UNPACKED_HEAD_DIMS}, got {hd}")
+    hp = head_dim_plan(hd)
+    hp["pad_bytes"] = _pad_bytes(hp, bh * (4 * sq + 4 * sk), dtype)
     nqt, nkt = -(-sq // _FWD_TILE), -(-sk // _FWD_TILE)
     pipe = dtype == torch.bfloat16
     dq_tiles, dkv_tiles = _bwd_tiles(nqt, nkt, causal, dq_down=pipe)
     if not pipe:
         return dict(route="cuda_cores", dq_grid=(nqt, bh),
                     dkv_grid=(nkt, bh), dq_tiles=dq_tiles,
-                    dkv_tiles=dkv_tiles, stats=(bh, sq), delta=None)
-    return dict(route="wgmma", dq_grid=(bh, nqt), dkv_grid=(bh, nkt),
+                    dkv_tiles=dkv_tiles, stats=(bh, sq), delta=None, **hp)
+    return dict(route="wgmma", dq_grid=(bh, nqt),
+                dkv_grid=_dkv_grid(bh, nkt, hp["width"]),
                 dq_tiles=dq_tiles, dkv_tiles=dkv_tiles,
                 stats=(bh, nqt * _FWD_TILE, 2),
-                delta=(bh, sq) if dbias else None)
+                delta=(bh, sq) if dbias else None, **hp)
 
 
 def _plan_workspace(plan, device):
@@ -1157,9 +1282,11 @@ def flash_fwd_split_plain(q, k, v, bias, causal, scale, splits, split_tiles,
 
 # the bias gradient's blocks (csrc/flash_dbias.cu `DbiasCfg`, which refuses
 # a plan that differs): the key tiles of a block (a warpgroup each, sharing
-# q and do) and the stages of the heads' q, do, k and v tiles by head_dim
+# q and do) and the stages of the heads' q, do, k and v tiles by staged
+# width (width 256 stages 128-column parts)
 _DBIAS_KEY_TILES = 2
 _DBIAS_STAGES = {64: 3, 128: 2}
+_DBIAS_PART = 128
 
 
 def flash_dbias_plan(nb: int, hp: int, sq: int, sk: int, hd: int,
@@ -1173,14 +1300,16 @@ def flash_dbias_plan(nb: int, hp: int, sq: int, sk: int, hd: int,
     tile's q and do; a ring of ``stages`` sets of the heads' tiles in the
     128-byte swizzle, two at head_dim 128 and three at 64; S and dP on
     wgmma) and ``"cuda_cores"`` for fp32 (a block a tile, one head's tiles
-    staged at a time); head_dim 64 or 128, any other raises. ``grid``:
+    staged at a time); at `head_dim_plan`'s ``width`` and ``hd_route`` for
+    head dims 1 to 256, a head staged in ``parts`` 128-column parts at width
+    256 (S and dP summed over them). ``grid``:
     (key tiles / key_tiles, query tiles, nb); each tile sums its hp heads
     in ascending order. ``live`` of a row's (query tile, key tile) pairs
     run the heads, the rest (wholly past the causal bound) write zeros.
     ``smem``: a block's dynamic shared memory in bytes."""
-    if hd not in _UNPACKED_HEAD_DIMS:
-        raise ValueError(f"the bias gradient kernels take head_dim in "
-                         f"{_UNPACKED_HEAD_DIMS}, got {hd}")
+    hdp = head_dim_plan(hd)
+    staged = min(hdp["width"], _DBIAS_PART)
+    hdp["parts"] = hdp["width"] // staged
     if not 0 < nb <= 65535 or hp < 1:
         raise ValueError(f"the bias gradient takes 1 to 65535 bias rows of "
                          f"at least one head, got {nb} x {hp}")
@@ -1191,12 +1320,14 @@ def flash_dbias_plan(nb: int, hp: int, sq: int, sk: int, hd: int,
     if dtype != torch.bfloat16:
         return dict(route="cuda_cores", grid=(nkt, nqt, nb), key_tiles=1,
                     live=live, stages=1,
-                    smem=4 * (4 * _FWD_TILE * (hd + 1) + 2 * _FWD_TILE))
-    tile = _FWD_TILE * hd * 2
-    stages = _DBIAS_STAGES[hd]
+                    smem=4 * (4 * _FWD_TILE * (staged + 1) + 2 * _FWD_TILE),
+                    **hdp)
+    tile = _FWD_TILE * staged * 2
+    stages = _DBIAS_STAGES[staged]
     return dict(route="wgmma", grid=(-(-nkt // _DBIAS_KEY_TILES), nqt, nb),
                 key_tiles=_DBIAS_KEY_TILES, live=live, stages=stages,
-                smem=stages * (2 + 2 * _DBIAS_KEY_TILES) * tile + 1024)
+                smem=stages * (2 + 2 * _DBIAS_KEY_TILES) * tile + 1024,
+                **hdp)
 
 
 FLASH_UNPACKED_FWD = Kernel(
@@ -1271,9 +1402,7 @@ def _unpacked_common(q, k, v, bias, kv_lengths):
         if q.device.type != "cpu":
             raise RuntimeError(f"no kernel for device {q.device}")
         return nb, bias, kv_lengths
-    if d not in _UNPACKED_HEAD_DIMS:
-        raise ValueError(f"the unpacked CUDA attention kernels take head_dim "
-                         f"in {_UNPACKED_HEAD_DIMS}, got {d}")
+    head_dim_plan(d)  # raises past 256
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share one dtype of "
                         f"{tuple(DTYPE_CODES)}, got {q.dtype}, {k.dtype}, "
@@ -1307,12 +1436,17 @@ def _unpacked_fwd(q, k, v, bias, causal, scale, kv_lengths, rate, seed,
                                           causal, scale, kv_lengths, rate,
                                           seed)
         return o.view(B, H, sq, d), lse
+    plan = flash_fwd_plan(B * H, sq, sk, d, causal, sm_count(q.device),
+                          q.dtype)
+    if plan["hd_route"] == "padded":
+        o, lse = _unpacked_fwd(*(_pad_hd(t, plan["kernel_hd"])
+                                 for t in (q, k, v)), bias, causal, scale,
+                               kv_lengths, rate, seed, bshd)
+        return o[..., :d], lse
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = _rows_layout(B, H, sq, d, q.dtype, q.device, bshd)
     lse = torch.empty((B * H, sq), dtype=torch.float32, device=q.device)
     if o.numel() > 0:
-        plan = flash_fwd_plan(B * H, sq, sk, d, causal, sm_count(q.device),
-                              q.dtype)
         FLASH_UNPACKED_FWD(
             ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), _strides(q, k, v, o),
             ptr(bias), nb, ptr(kv_lengths), B, H, sq, sk, d,
@@ -1339,6 +1473,15 @@ def _unpacked_bwd(q, k, v, bias, o, lse, do, dlse, causal, scale,
             _flat(q), _flat(k), _flat(v), bias, _flat(o), lse, _flat(do),
             causal, scale, kv_lengths, rate, seed, dlse, compute_dbias)
         return (dq.view(q.shape), dk.view(k.shape), dv.view(v.shape), dbias)
+    plan = flash_unpacked_bwd_plan(B * H, sq, sk, d, causal, q.dtype,
+                                   compute_dbias)
+    if plan["hd_route"] == "padded":
+        kd = plan["kernel_hd"]
+        dq, dk, dv, dbias = _unpacked_bwd(
+            _pad_hd(q, kd), _pad_hd(k, kd), _pad_hd(v, kd), bias,
+            _pad_hd(o, kd), lse, _pad_hd(do, kd), dlse, causal, scale,
+            kv_lengths, rate, seed, compute_dbias, bshd)
+        return dq[..., :d], dk[..., :d], dv[..., :d], dbias
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do.to(q.dtype)))
     lse = lse.contiguous()
     if dlse is not None:
@@ -1346,8 +1489,6 @@ def _unpacked_bwd(q, k, v, bias, o, lse, do, dlse, causal, scale,
     dq = _rows_layout(B, H, sq, d, q.dtype, q.device, bshd)
     dk = _rows_layout(B, H, sk, d, q.dtype, q.device, bshd)
     dv = _rows_layout(B, H, sk, d, q.dtype, q.device, bshd)
-    plan = flash_unpacked_bwd_plan(B * H, sq, sk, d, causal, q.dtype,
-                                   compute_dbias)
     stats = torch.empty(plan["stats"], dtype=torch.float32, device=q.device)
     delta = (torch.empty(plan["delta"], dtype=torch.float32,
                          device=q.device)
@@ -1384,6 +1525,11 @@ def _flash_dbias(q, k, v, bias, lse, do, delta, causal, scale, kv_lengths,
     dbias = torch.empty((nb, sq, sk), dtype=torch.float32, device=q.device)
     if dbias.numel() > 0:
         plan = flash_dbias_plan(nb, B * H // nb, sq, sk, d, causal, q.dtype)
+        if plan["hd_route"] == "padded":
+            kd = plan["kernel_hd"]
+            return _flash_dbias(_pad_hd(q, kd), _pad_hd(k, kd),
+                                _pad_hd(v, kd), bias, lse, _pad_hd(do, kd),
+                                delta, causal, scale, kv_lengths, rate, seed)
         FLASH_DBIAS(
             ptr(q), ptr(k), ptr(v), ptr(lse), ptr(do), ptr(delta),
             ptr(dbias), _strides(q, k, v, do), ptr(bias), nb,

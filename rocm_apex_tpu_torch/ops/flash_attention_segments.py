@@ -65,14 +65,16 @@ from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
 from rocm_apex_tpu_torch.ops.flash_attention import (
     _FWD_TILE,
     _SPAN_TILE,
-    _SUPPORTED_HEAD_DIMS,
-    _UNPACKED_HEAD_DIMS,
+    ROW_WIDTHS,
     _aligned,
+    _pad_bytes,
+    _pad_hd,
     _q_mul,
     _strides,
     _unpacked_common,
     check_head_dim,
     flash_attention_decode_paged,
+    head_dim_plan,
     flash_unpacked_bwd_plain,
     flash_unpacked_fwd_plain,
 )
@@ -101,8 +103,10 @@ DEFAULT_BLOCK = 512  # the JAX default of block_q and block_k
 # the decode reads' tile too), the frame its p is rounded in on "rows"
 SERVE_FRAME = _SPAN_TILE
 # the serving read's "tiles" route (csrc/flash_segments_serve.cu): a walk
-# is a 32-bit mask of 64-token tiles, so at most 2048 tokens
+# is a 32-bit mask of 64-token tiles, so at most 2048 tokens, and its
+# widths are 64 and 128 (a wider head dim reads on the rows)
 SERVE_TILES_MAX = 32 * _FWD_TILE
+_SERVE_TILES_HD_MAX = 128
 # the tokens of a segment range (csrc/flash_unpacked.cuh kRangeRows), and
 # the most 64-token tiles the bf16 kernels take: their grids carry the tiles
 # on y
@@ -193,28 +197,33 @@ def flash_segments_serve_plan(h: int, total: int, hd: int,
                               dtype: torch.dtype = torch.bfloat16) -> dict:
     """The serving read's route, from the shape alone.
 
-    ``route``: ``"tiles"`` for bf16 at head_dim 64 or 128 up to
+    ``route``: ``"tiles"`` for bf16 at a head_dim up to 128 over up to
     `SERVE_TILES_MAX` tokens (csrc/flash_segments_serve.cu: a block of one
     warpgroup a (query tile, head), ``grid``, walking its key tiles in
     ascending order); ``"pipe"`` for a longer bf16 stream (the training
     forward, `_seg_fwd`, on the forward pipe with its pre-passes);
-    ``"rows"`` for fp32 and for bf16 at head_dim 32 or 256
-    (csrc/flash_segments.cu, a warp a query row). Any other head_dim
-    raises. ``frame``: the keys a tile step rounds p over, 64 on the tiles
-    and the pipe, `SERVE_FRAME` on the rows; the route's plain version is
+    ``"rows"`` for fp32 and for bf16 past head_dim 128
+    (csrc/flash_segments.cu, a warp a query row). Each at `head_dim_plan`'s
+    ``width`` (64 or 128 on the tiles and the pipe, 32 to 256 on the rows)
+    and ``hd_route`` for any head dim 1 to 256 (past it, it raises).
+    ``frame``: the keys a tile step rounds p over, 64 on the tiles and the
+    pipe, `SERVE_FRAME` on the rows; the route's plain version is
     `flash_attention_segments_plain` at that frame."""
-    if hd not in _SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"the serving segment read takes head_dim in "
-                         f"{_SUPPORTED_HEAD_DIMS}, got {hd}")
+    head_dim_plan(hd)  # raises past 256
     tiles = -(-total // _FWD_TILE)
-    if dtype == torch.bfloat16 and hd in _UNPACKED_HEAD_DIMS:
+    if dtype == torch.bfloat16 and hd <= _SERVE_TILES_HD_MAX:
+        hp = head_dim_plan(hd)
+        hp["pad_bytes"] = _pad_bytes(hp, 3 * h * total, dtype)
         if total <= SERVE_TILES_MAX:
             return dict(route="tiles", frame=_FWD_TILE, tiles=tiles,
-                        grid=(tiles, h))
+                        grid=(tiles, h), **hp)
         return dict(route="pipe", frame=_FWD_TILE, tiles=tiles,
-                    grid=flash_segments_plan(h, total, hd, dtype)["grid"])
+                    grid=flash_segments_plan(h, total, hd, dtype)["grid"],
+                    **hp)
+    hp = head_dim_plan(hd, ROW_WIDTHS)
+    hp["pad_bytes"] = _pad_bytes(hp, 3 * h * total, dtype)
     return dict(route="rows", frame=SERVE_FRAME, tiles=tiles,
-                grid=(-(-h * total // 4),))
+                grid=(-(-h * total // 4),), **hp)
 
 
 def flash_attention_segments_with_lse(
@@ -229,8 +238,7 @@ def flash_attention_segments_with_lse(
     (total,) int32 segment ids; returns ``(o, lse)``: o (heads, total,
     head_dim) in q's dtype, lse (heads, total) natural-log fp32. On CUDA
     the kernel of `flash_segments_serve_plan`'s route; on the CPU the
-    plain version of that route (of the rows' frame at a head_dim no
-    route takes)."""
+    plain version of that route."""
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError("q/k/v must all be (heads, total, head_dim)")
     h, total, d = q.shape
@@ -238,8 +246,7 @@ def flash_attention_segments_with_lse(
     if segment_ids.shape != (total,):
         raise ValueError(f"segment_ids must be ({total},)")
     if q.device.type == "cpu":
-        frame = (flash_segments_serve_plan(h, total, d, q.dtype)["frame"]
-                 if d in _SUPPORTED_HEAD_DIMS else SERVE_FRAME)
+        frame = flash_segments_serve_plan(h, total, d, q.dtype)["frame"]
         return flash_attention_segments_plain(q, k, v, segment_ids, causal,
                                               scale, frame)
     if q.device.type != "cuda":
@@ -251,8 +258,14 @@ def flash_attention_segments_with_lse(
             raise ValueError("all operands must be on q's device")
     if segment_ids.dtype != torch.int32 or not segment_ids.is_contiguous():
         raise TypeError("segment_ids must be contiguous int32")
-    check_head_dim(q, k, v)
     plan = flash_segments_serve_plan(h, total, d, q.dtype)
+    if plan["hd_route"] == "padded":
+        kd = plan["kernel_hd"]
+        o, lse = flash_attention_segments_with_lse(
+            _pad_hd(q, kd), _pad_hd(k, kd), _pad_hd(v, kd), segment_ids,
+            causal, scale)
+        return o[..., :d].contiguous(), lse
+    check_head_dim(q, k, v)
     if plan["route"] == "pipe":
         return _seg_fwd(q, k, v, segment_ids, causal, scale)
     if plan["route"] == "tiles":
@@ -315,8 +328,9 @@ def flash_segments_plan(h: int, total: int, hd: int,
     ``route``: ``"wgmma"`` for bf16 (the forward and backward pipes,
     ``csrc/flash_fwd_pipe.cuh`` and ``csrc/flash_bwd_pipe.cuh``, with
     their segment flag) and ``"cuda_cores"`` for fp32 (the bodies of
-    ``csrc/flash_unpacked_{fwd,bwd}.cuh``); head_dim 64 or 128, any other
-    raises. ``splits`` is 1: the key tiles of a query tile are set by the
+    ``csrc/flash_unpacked_{fwd,bwd}.cuh``), each at `head_dim_plan`'s
+    ``width`` and ``hd_route`` for any head dim 1 to 256 (past it, it
+    raises). ``splits`` is 1: the key tiles of a query tile are set by the
     ids, which a plan does not read, so the forward has no key split and
     p keeps the unsplit 64-key frame. Each pass is a grid of (head,
     64-token tile) units, ``tiles`` a head: (h, tiles) on the pipes, in the
@@ -326,15 +340,14 @@ def flash_segments_plan(h: int, total: int, hd: int,
     dk/dv pass, (h, 64 tiles, 2) pairs of (lse log2 e, delta) on the pipe,
     delta alone, (h, total), on the CUDA cores. ``workspace``: the int32
     words of the segment tables, `flash_segments_tables_plain`'s."""
-    if hd not in _UNPACKED_HEAD_DIMS:
-        raise ValueError(f"the segment attention kernels take head_dim in "
-                         f"{_UNPACKED_HEAD_DIMS}, got {hd}")
+    hp = head_dim_plan(hd)
+    hp["pad_bytes"] = _pad_bytes(hp, 8 * h * total, dtype)
     tiles = -(-total // _FWD_TILE)
     workspace = 6 * tiles + 2 * -(-total // _RANGE_ROWS)
     if dtype != torch.bfloat16:
         return dict(route="cuda_cores", rows=_FWD_TILE, splits=1,
                     tiles=tiles, grid=(tiles, h), stats=(h, total),
-                    workspace=workspace)
+                    workspace=workspace, **hp)
     if tiles > _SEG_PIPE_TILES:
         raise ValueError(
             f"the bf16 segment kernels take at most {_SEG_PIPE_TILES} "
@@ -342,7 +355,7 @@ def flash_segments_plan(h: int, total: int, hd: int,
             f"({total} tokens)")
     return dict(route="wgmma", rows=_FWD_TILE, splits=1, tiles=tiles,
                 grid=(h, tiles), stats=(h, tiles * _FWD_TILE, 2),
-                workspace=workspace)
+                workspace=workspace, **hp)
 
 
 def flash_segments_tables_plain(segment_ids: torch.Tensor,
@@ -401,6 +414,11 @@ def _seg_fwd(q, k, v, segment_ids, causal, scale, token_major=False):
     if q.device.type == "cpu":
         return flash_attention_segments_plain(q, k, v, seg, causal, scale)
     plan = flash_segments_plan(h, total, d, q.dtype)
+    if plan["hd_route"] == "padded":
+        kd = plan["kernel_hd"]
+        o, lse = _seg_fwd(_pad_hd(q, kd), _pad_hd(k, kd), _pad_hd(v, kd),
+                          seg, causal, scale, token_major)
+        return o[..., :d], lse
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     if token_major:
         o = torch.empty((total, h, d), dtype=q.dtype,
@@ -437,6 +455,16 @@ def _seg_bwd(q, k, v, segment_ids, o, lse, do, causal, scale, dqkv=None):
             out.copy_(g)
         return dq, dk, dv
     plan = flash_segments_plan(h, total, d, q.dtype)
+    if plan["hd_route"] == "padded":
+        kd = plan["kernel_hd"]
+        grads = _seg_bwd(*(_pad_hd(t, kd) for t in (q, k, v)), seg,
+                         _pad_hd(o, kd), lse, _pad_hd(do, kd), causal, scale)
+        grads = tuple(g[..., :d] for g in grads)
+        if dqkv is None:
+            return grads
+        for out, g in zip((dq, dk, dv), grads):
+            out.copy_(g)
+        return dq, dk, dv
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do.to(q.dtype)))
     if dqkv is None:
         dq, dk, dv = (torch.empty((h, total, d), dtype=q.dtype,

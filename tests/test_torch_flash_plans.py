@@ -121,8 +121,17 @@ def test_plan_routes_by_dtype_and_head_dim():
     fp32 = fa.flash_fwd_plan(8, 300, 300, 128, True, H100_SMS, torch.float32)
     assert fp32["route"] == "cuda_cores" and fp32["splits"] == 1
     assert fp32["workspace"] == 0
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_fwd_plan(8, 300, 300, 32, False, H100_SMS)
+    # hd 32 (the JAX recipes' width) runs on the width-64 pipe with zero
+    # columns; the split workspace is sized at the width
+    p32 = fa.flash_fwd_plan(8, 300, 300, 32, False, H100_SMS)
+    assert (p32["route"], p32["width"], p32["hd_route"]) == (
+        "wgmma", 64, "zero_columns")
+    split = fa.flash_fwd_plan(1, 64, 4096, 80, False, H100_SMS)
+    assert split["splits"] > 1 and split["workspace"] == (
+        split["splits"] * 64 * (128 + 2))
+    for hd in (264, 512):
+        with pytest.raises(ValueError, match="head_dim.*Queue 2"):
+            fa.flash_fwd_plan(8, 300, 300, hd, False, H100_SMS)
 
 
 def _draw(bh, sq, sk, d, seed, nb=1):
@@ -226,7 +235,20 @@ def test_bwd_plan_routes_by_dtype_and_head_dim():
     assert fp32["stats"] == (32, 1000)  # delta alone
     assert fp32["parts"] == (4, 16, 8, 384)
     assert fa.flash_bwd_plan(4, 1000, 8, 128, True)["route"] == "wgmma"
-    for hd in (64, 256):
+    # hd 256 (GPT-J's), the packed branch: the width-256 pipe with its
+    # dk/dv pass split into two column halves; in fp32 the unpacked
+    # CUDA-core bodies behind the bias pre-pass
+    p256 = fa.flash_bwd_plan(4, 1000, 8, 256, True)
+    assert (p256["route"], p256["width"], p256["hd_route"]) == (
+        "wgmma", 256, "native")
+    assert p256["dkv_grid"] == (32, 16, 2) and p256["dq_grid"] == (32, 16)
+    f256 = fa.flash_bwd_plan(4, 1000, 8, 256, True, torch.float32)
+    assert f256["form"] == "unpacked" and f256["scratch"] == (
+        4, 1000, 8, 768)
+    assert f256["parts"] == (4, 16, 8, 768)
+    # the packed path takes hd % 128 == 0 (models/gpt.py routes the rest
+    # to the unpacked kernels); 64 and past 256 raise
+    for hd in (64, 264, 512):
         with pytest.raises(ValueError, match="head_dim"):
             fa.flash_bwd_plan(4, 1000, 8, hd, True)
 
@@ -316,9 +338,15 @@ def test_unpacked_bwd_plan_routes_by_dtype_and_head_dim(hd):
     # the CUDA cores' stats are delta itself, which the bias gradient reads
     assert fp32["stats"] == (8, 300) and fp32["delta"] is None
     assert fp32["dq_grid"] == (5, 8) and fp32["dkv_grid"] == (5, 8)
+    # hd 96 (GPT-NeoX's) on the width-128 instance with zero columns,
+    # both routes; past 256 a named refusal
     for dt in (torch.bfloat16, torch.float32):
-        with pytest.raises(ValueError, match="head_dim"):
-            fa.flash_unpacked_bwd_plan(8, 300, 300, 96, False, dt)
+        p96 = fa.flash_unpacked_bwd_plan(8, 300, 300, 96, False, dt)
+        assert (p96["width"], p96["hd_route"], p96["pad_bytes"]) == (
+            128, "zero_columns", 0)
+        for bad in (264, 512):
+            with pytest.raises(ValueError, match="head_dim.*Queue 2"):
+                fa.flash_unpacked_bwd_plan(8, 300, 300, bad, False, dt)
 
 
 @pytest.mark.parametrize("dbias", [False, True])

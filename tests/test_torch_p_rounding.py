@@ -268,8 +268,9 @@ def _segments(seed, lens=SEG_LENS, hd=HD):
 
 
 # the (segment lengths, head_dim) of a bf16 stream that
-# `flash_segments_serve_plan` puts on each route
-SERVE_ROUTES = {"rows": (SEG_LENS, 32), "tiles": (SEG_LENS, HD),
+# `flash_segments_serve_plan` puts on each route (bf16 reads on the rows
+# past head_dim 128)
+SERVE_ROUTES = {"rows": (SEG_LENS, 256), "tiles": (SEG_LENS, HD),
                 "pipe": ((1500, 41, 529), 64)}
 
 

@@ -100,7 +100,21 @@ def test_plan_routes_by_dtype_and_head_dim(dtype, hd):
 @pytest.mark.parametrize("hd", [32, 96, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_plan_refuses_other_head_dims(dtype, hd):
-    with pytest.raises(ValueError, match="head_dim"):
+    """The head dims other than 64 and 128, once refused, now name their
+    instance and route: 32 on width 64, 96 on 128 (zero columns), 256 on
+    its own width; the route is the dtype's as at 64 and 128."""
+    plan = fas.flash_segments_plan(8, 1000, hd, dtype)
+    assert plan["route"] == ("wgmma" if dtype == torch.bfloat16
+                             else "cuda_cores")
+    assert plan["width"] == {32: 64, 96: 128, 256: 256}[hd]
+    assert plan["hd_route"] == ("native" if hd == 256 else "zero_columns")
+    assert plan["pad_bytes"] == 0
+
+
+@pytest.mark.parametrize("hd", [264, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_plan_refuses_head_dims_past_256(dtype, hd):
+    with pytest.raises(ValueError, match="head_dim.*Queue 2"):
         fas.flash_segments_plan(8, 1000, hd, dtype)
 
 

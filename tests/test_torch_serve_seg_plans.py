@@ -94,7 +94,9 @@ def test_the_serve_chunk_is_on_the_tiles():
     """The serve's chunk (budget 256, 8 heads of 128) in bf16: a block of
     one warpgroup a (query tile, head)."""
     plan = fas.flash_segments_serve_plan(8, 256, 128, BF16)
-    assert plan == dict(route="tiles", frame=64, tiles=4, grid=(4, 8))
+    assert plan == dict(route="tiles", frame=64, tiles=4, grid=(4, 8),
+                        width=128, kernel_hd=128, hd_route="native",
+                        pad_bytes=0)
 
 
 @pytest.mark.parametrize("hd", [64, 128])
@@ -112,17 +114,46 @@ def test_a_longer_bf16_stream_takes_the_pipe(hd):
                                       (BF16, 256)])
 @pytest.mark.parametrize("total", [256, 5000])
 def test_fp32_and_the_other_head_dims_take_the_rows(dtype, hd, total):
+    """fp32, and bf16 past head_dim 128, read on the rows at the warp's
+    width; bf16 at hd 32 now takes the tiles (or, past SERVE_TILES_MAX
+    tokens, the pipe) at width 64 with zero columns."""
     plan = fas.flash_segments_serve_plan(8, total, hd, dtype)
+    if dtype == BF16 and hd <= 128:
+        assert plan["route"] == ("tiles" if total <= fas.SERVE_TILES_MAX
+                                 else "pipe")
+        assert (plan["width"], plan["hd_route"]) == (64, "zero_columns")
+        return
     assert plan["route"] == "rows"
     assert plan["frame"] == fas.SERVE_FRAME == 32
     assert plan["grid"] == (-(-8 * total // 4),)  # 4 warps (rows) a block
+    assert plan["width"] == hd and plan["hd_route"] == "native"
 
 
 @pytest.mark.parametrize("dtype", [BF16, torch.float32])
 @pytest.mark.parametrize("hd", [16, 96, 512])
 def test_other_head_dims_raise(dtype, hd):
-    with pytest.raises(ValueError, match="head_dim"):
-        fas.flash_segments_serve_plan(8, 256, hd, dtype)
+    """Past 256 the read raises (ROADMAP Queue 2); 16 and 96, once
+    refused, take their width with zero columns (bf16 on the tiles at 64
+    and 128, fp32 on the rows at 32 and 128)."""
+    if hd > 256:
+        with pytest.raises(ValueError, match="head_dim.*Queue 2"):
+            fas.flash_segments_serve_plan(8, 256, hd, dtype)
+        return
+    plan = fas.flash_segments_serve_plan(8, 256, hd, dtype)
+    assert plan["route"] == ("tiles" if dtype == BF16 else "rows")
+    assert plan["width"] == ({16: 64, 96: 128} if dtype == BF16
+                             else {16: 32, 96: 128})[hd]
+    assert plan["hd_route"] == "zero_columns"
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+@pytest.mark.parametrize("hd", [264, 512])
+def test_head_dims_past_256_raise(dtype, hd):
+    for plan in (lambda: fas.flash_segments_serve_plan(8, 256, hd, dtype),
+                 lambda: fa.flash_dbias_plan(8, 8, 512, 512, hd, False,
+                                             dtype)):
+        with pytest.raises(ValueError, match="head_dim.*Queue 2"):
+            plan()
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +161,8 @@ def test_other_head_dims_raise(dtype, hd):
 # ---------------------------------------------------------------------------
 
 # the head_dim each route is drawn at, and a shape whose plan names it
-ROUTES = {"rows": (32, 320), "tiles": (64, 320),
+# bf16 reads on the rows past head_dim 128 only
+ROUTES = {"rows": (256, 320), "tiles": (64, 320),
           "pipe": (64, fas.SERVE_TILES_MAX + 1)}
 
 
@@ -327,8 +359,17 @@ def test_dbias_causal_blocks_past_the_bound_run_no_head(sq, sk):
 @pytest.mark.parametrize("dtype", [BF16, torch.float32])
 @pytest.mark.parametrize("hd", [32, 96, 256])
 def test_dbias_other_head_dims_raise(dtype, hd):
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_dbias_plan(8, 8, 512, 512, hd, False, dtype)
+    """The head dims other than 64 and 128, once refused, name their
+    width and route: 32 on 64, 96 on 128 (zero columns), 256 staged in
+    two 128-column parts (on the ring, two stages of the width-128 set)."""
+    plan = fa.flash_dbias_plan(8, 8, 512, 512, hd, False, dtype)
+    assert plan["route"] == ("wgmma" if dtype == BF16 else "cuda_cores")
+    assert plan["width"] == {32: 64, 96: 128, 256: 256}[hd]
+    assert plan["hd_route"] == ("native" if hd == 256 else "zero_columns")
+    assert plan["parts"] == (2 if hd == 256 else 1)
+    if dtype == BF16:
+        assert plan["stages"] == (3 if hd == 32 else 2)
+        assert plan["smem"] <= 232448
 
 
 def test_dbias_refuses_what_its_grid_cannot_carry():
