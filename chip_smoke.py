@@ -10,7 +10,8 @@ JAX package) through these phases, in order; any failure exits non-zero:
 2. build     every kernel of ``rocm_apex_tpu_torch/csrc`` with nvcc
              (one process per source, started together);
 3. kernels   each kernel's wrapper on card tensors at the shapes of the
-             serve and of the training step, in bf16 and fp32, held
+             serve and of the training step, in bf16 and fp32 (and in
+             fp16 at each row's main path shape, `FP16_CASES`), held
              against its plain PyTorch version on the same inputs
              (dropout cases included: both draw the same keep bits; the
              paged decode read at page sizes 16 and 64 over bf16, fp32
@@ -215,7 +216,19 @@ JAX package) through these phases, in order; any failure exits non-zero:
              paged also hold their kernels at hd 32, 80 and 256 (and 96,
              and 20 on the padded route), bf16 and fp32, on their plans'
              routes, beside the bound at the instance's width;
-26. report   a ``{"kernels": [...]}`` line, then the device line
+26. fp16     amp O2 in fp16: the GPT train cell (fp16 compute, fp32
+             masters, MixedPrecisionAdam under the dynamic loss scaler,
+             a warm-up then timed steps that skip none, rows 1, 2, 8, 11
+             at the train phase's calls a step) and its 2-layer twin, one
+             step on the kernels against one under `plain_versions()` on
+             the same card, weights and batch (loss and every gradient),
+             and under PackedOptimizerStep (rows 14, 15); the serve cell
+             in fp16, contiguous and on fp16 pages (32 of 32 requests
+             equal; rows 1, 3, 5, 6); BERT-Large under MixedPrecisionLamb
+             unmasked and masked (rows 7b, 8, 9b, 11, 13a, 16); ResNet-50
+             with FusedBottleneck under O2 at B 128 x 224^2 (row 17) and
+             its B 2 x 64^2 twin against `plain_bottleneck()`;
+27. report   a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
@@ -225,7 +238,7 @@ device's busy share. ``--only`` runs a subset of the phases (a check of
 one part; the full run is the smoke); ``kernels:xent+lamb`` there names a
 subset of the kernel phase's case groups (ln, seg, decode, paged,
 train_ln, ln_plain, flash, xent, lamb, unpacked, seg_train, softmax,
-packed, bottleneck, frames).
+packed, bottleneck, frames; fp16 runs every group's fp16 cases alone).
 
 It needs one CUDA device and nvcc (CUDA_HOME, PATH or /usr/local/cuda).
 """
@@ -336,7 +349,10 @@ XENT_CONTRIB_KERNELS = ("xent_fwd", "xent_bwd")
 # that noise may flip the last bit: one bf16 ulp is at most 2^-7 of the
 # value, so rtol 2^-7, with atol 1e-5 for the fp32 noise near zero.
 TOL = {torch.float32: dict(rtol=0.0, atol=1e-4),
-       torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5)}
+       torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5),
+       torch.float16: dict(rtol=2.0 ** -10, atol=1e-5)}
+# fp16 holds the same rules in its own precision: one fp16 step is 2^-10
+# of the value (10 stored mantissa bits)
 # the engine's first-chunk logits, card (cuBLAS fp32, no TF32) vs CPU:
 # summation order over K = 1024..4096 through 2 layers, ~1e-5 observed
 # scale on logits of order 1; 1e-3 leaves two orders of margin
@@ -391,7 +407,8 @@ PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "xentropy", "fused_softmax_parity", "train_fused_softmax",
           "bert_train_masked_fused_softmax", "train_packed_parity",
           "train_packed", "rn50_parity", "rn50_train", "rn50_train_fused",
-          "mha", "context_parallel", "serve_jnp", "optim_amp", "head_dims")
+          "mha", "context_parallel", "serve_jnp", "optim_amp", "head_dims",
+          "fp16")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_segments_serve",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -519,6 +536,12 @@ def device_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def half_float(dtype):
+    """A 2-byte float type: the kernels' tensor-core routes take bf16 and
+    fp16 alike (ops/_build.py `half_float`)."""
+    return dtype in (torch.bfloat16, torch.float16)
+
+
 def bound_ms(nbytes, ops, dtype):
     """The least time for the work: bytes over HBM rate or operations
     over the peak rate of the input type, whichever is larger."""
@@ -575,14 +598,17 @@ def compare(got, ref, extra=None, tols=None):
 # measure, there against JAX on the CPU.
 ROUND_STEP = 2.0 ** -7
 FRAME_SHARE = 1e-3
+# one step of each 2-byte type (fp16's p and ds round by the same rule)
+ROUND_STEPS = {torch.bfloat16: ROUND_STEP, torch.float16: 2.0 ** -10}
 
 
 def _off_share(got, ref):
-    """The share of the elements with |ref| > 1e-2 more than one bf16 step
-    (2^-7 |ref|) from ref."""
+    """The share of the elements with |ref| > 1e-2 more than one step of
+    got's 2-byte type (2^-7 |ref| in bf16, 2^-10 in fp16) from ref."""
+    step = ROUND_STEPS[got.dtype]
     got, ref = got.float(), ref.float()
     big = ref.abs() > 1e-2
-    off = ((got - ref).abs() > 2.0 ** -7 * ref.abs()) & big
+    off = ((got - ref).abs() > step * ref.abs()) & big
     return float(off.sum()) / max(int(big.sum()), 1)
 
 
@@ -596,9 +622,9 @@ def attn_compare(got, ref, l1, extra=None, same_frame=True):
     ex = list(extra) if extra is not None else [None] * len(got)
     shares = []
     for i, (g, r, m) in enumerate(zip(got, ref, l1)):
-        if m is None or g is None or g.dtype != torch.bfloat16:
+        if m is None or g is None or g.dtype not in ROUND_STEPS:
             continue
-        add = ROUND_STEP * m.float()
+        add = ROUND_STEPS[g.dtype] * m.float()
         ex[i] = add if ex[i] is None else ex[i] + add
         shares.append(_off_share(g, r))
     cmp = compare(got, ref, ex)
@@ -659,7 +685,7 @@ def check_ln_fwd(kern, ref, x, d, w, b, what):
     return check_launches(kern, LN_ROUTE_KERNELS, plan["route"], what)
 
 
-def ln_cases(dev):
+def ln_cases(dev, shapes=None):
     """The LayerNorm forward of the serve (bf16 or fp32 x, fp32 weights
     and y): 256 and 8 rows of 1024 (the chunk and the decode tick), the
     mixed tick's 264 rows in bf16, a single row, plain and residual; a
@@ -671,13 +697,16 @@ def ln_cases(dev):
 
     gen = torch.Generator(device=dev).manual_seed(1)
     h = SERVE["hidden_size"]
-    shapes = [(rows, h, residual, dt) for rows in (256, 8)
-              for residual in (False, True)
-              for dt in (torch.bfloat16, torch.float32)]
-    shapes += [(264, h, False, torch.bfloat16), (264, h, True, torch.bfloat16),
-               (1, h, False, torch.bfloat16), (8, 1002, False, torch.bfloat16),
-               (8, 1002, True, torch.float32),
-               (2, 16384, False, torch.bfloat16)]
+    if shapes is None:
+        shapes = [(rows, h, residual, dt) for rows in (256, 8)
+                  for residual in (False, True)
+                  for dt in (torch.bfloat16, torch.float32)]
+        shapes += [(264, h, False, torch.bfloat16),
+                   (264, h, True, torch.bfloat16),
+                   (1, h, False, torch.bfloat16),
+                   (8, 1002, False, torch.bfloat16),
+                   (8, 1002, True, torch.float32),
+                   (2, 16384, False, torch.bfloat16)]
     for rows, hid, residual, dt in shapes:
         x = torch.randn(rows, hid, device=dev, generator=gen).to(dt)
         d = (torch.randn(rows, hid, device=dev, generator=gen)
@@ -734,7 +763,8 @@ def chunk_slot_ids(budget, num_slots):
     return ids, at
 
 
-def seg_cases(dev, h=None, d=None, seed=2):
+def seg_cases(dev, h=None, d=None, seed=2,
+              dtypes=(torch.bfloat16, torch.float32)):
     """Row 3's serving read at the serve's chunk (8 heads x 256 tokens x
     128, causal, 4 slot pieces out of order and pads; ``h`` heads of ``d``
     where given), bf16 and fp32, each
@@ -758,11 +788,11 @@ def seg_cases(dev, h=None, d=None, seed=2):
     kernel_of = {"tiles": fs.FLASH_SEGMENTS_SERVE.name,
                  "pipe": fs.FLASH_SEGMENTS_FWD.name,
                  "rows": fs.FLASH_SEGMENTS.name}
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in dtypes:
         q, k, v = (x.transpose(0, 1) for x in _qkv(BUDGET, h, d, dt, dev,
                                                    gen))
         plan = fs.flash_segments_serve_plan(h, BUDGET, d, dt)
-        check(plan["route"] == ("tiles" if dt == torch.bfloat16 and d <= 128
+        check(plan["route"] == ("tiles" if half_float(dt) and d <= 128
                                 else "rows"),
               f"segments serve {dt}: planned on the {plan['route']} route")
         what = f"causal ({h}, {BUDGET}, {d}) {str(dt)[6:]}, 4 slots + pads"
@@ -797,8 +827,8 @@ def seg_cases(dev, h=None, d=None, seed=2):
             case=f"{what} [{route}]",
             dtype=dt, cmp=attn_compare(got, ref, [l1, None]), kern=kern,
             plain=plain, lib=lib, nbytes=nbytes(q, k, v, seg, *got),
-            ops=4 * d * h * live_pairs, headline=True, extra_timings=extra,
-            breakdown=dt == torch.bfloat16,
+            ops=4 * d * h * live_pairs, headline=dt != torch.float16,
+            extra_timings=extra, breakdown=dt == torch.bfloat16,
         )
 
 
@@ -836,7 +866,7 @@ FWD_ROUTE_KERNELS = {"wgmma": "fwd_pipe_kernel",
 
 
 # profiles `_device_kernels` takes at most for one call
-PROFILE_TRIES = 6
+PROFILE_TRIES = 12
 
 
 def _device_kernels(fn, want=()):
@@ -845,17 +875,18 @@ def _device_kernels(fn, want=()):
     profiler now and then records no device activity, or drops some of a
     window's kernels (the fp32 unpacked backward's dq pass, once in four
     processes; the bf16 one's three times in a row late in a full run,
-    after a few hundred profiles): a profile that shows none of
-    its kernels, or not every name in ``want``, is taken again, at most
-    PROFILE_TRIES times in all, and the names of every profile taken are
-    returned (empty only if each was)."""
+    after a few hundred profiles, and six times in a row once the fp16
+    cases had added theirs): a profile that shows none of its kernels,
+    or not every name in ``want``, is taken again, at most PROFILE_TRIES
+    times in all, and the names of every profile taken are returned
+    (empty only if each was). The profiles record the device's activity
+    alone: the names are the device kernels'."""
     from torch.profiler import ProfilerActivity, profile
 
     names = set()
     for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             fn()
             torch.cuda.synchronize()
@@ -878,7 +909,7 @@ def check_fwd_route(fkern, plan, dtype, what, prepass=False):
     a whole process), the names cannot be read and the case says so.
     Returns the route's label for the case name."""
     route = plan["route"]
-    check(route == ("wgmma" if dtype == torch.bfloat16 else "cuda_cores"),
+    check(route == ("wgmma" if half_float(dtype) else "cuda_cores"),
           f"{what}: a {dtype} forward planned on the {route} route")
     if route == "wgmma":
         check(_same_bits(fkern(), fkern()),
@@ -1027,7 +1058,8 @@ def packed_grad_l1(qkv, bias, o, lse, do, causal, scale, rate, seed):
     return fa._to_rows(torch.cat(l1, dim=-1), B, S, nh)
 
 
-def decode_cases(dev, h=None, d=None, seed=3):
+def decode_cases(dev, h=None, d=None, seed=3,
+                 dtypes=(torch.bfloat16, torch.float32)):
     """The contiguous decode read (row 5) at the serve's shapes: the
     decode grid (8 slots x 8 heads x d 128, capacity 1024, mixed bounds;
     ``h`` heads of ``d`` where given, without the capacity-1020 tail)
@@ -1064,7 +1096,7 @@ def decode_cases(dev, h=None, d=None, seed=3):
     # slot's prefix
     key_slot = torch.arange(SLOTS * CAPACITY, device=dev) // CAPACITY
     key_pos = torch.arange(SLOTS * CAPACITY, device=dev) % CAPACITY
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in dtypes:
         # 4 caches in turn: 4 x 32 MB (bf16) exceeds the 50 MB L2, so
         # each launch finds its cache cold, as each layer does in a tick
         caches = [
@@ -1519,7 +1551,7 @@ def ln_bwd_case(dev, gen, rows, h, dt, form, rate, seed, x=None, w=None,
     )
 
 
-def train_ln_cases(dev):
+def train_ln_cases(dev, dtypes=(torch.bfloat16, torch.float32), tail=True):
     """The LayerNorms of the training step on its (16384, 1024) rows:
     the residual forward with dropout (16 of the step's 17 forwards:
     launched twice for the same bits, s equal to the plain version's bit
@@ -1534,7 +1566,7 @@ def train_ln_cases(dev):
     gen = torch.Generator(device=dev).manual_seed(5)
     rows, h = TRAIN_BATCH * TRAIN_SEQ, TRAIN["hidden_size"]
     rate, seed = TRAIN["hidden_dropout"], 2024
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in dtypes:
         x = torch.randn(rows, h, device=dev, generator=gen).to(dt)
         d = torch.randn(rows, h, device=dev, generator=gen).to(dt)
         # the training state holds LN parameters in the compute dtype
@@ -1569,12 +1601,14 @@ def train_ln_cases(dev):
                               headline=form != "plain affine"
                               and dt == torch.bfloat16)
         del s_, got
+    if not tail:
+        return
     for n, width, form in ((8, h, "plain affine"), (264, h, "residual+dropout"),
                            (4096, 1002, "residual+dropout")):
         yield ln_bwd_case(dev, gen, n, width, torch.bfloat16, form, rate, seed)
 
 
-def ln_plain_cases(dev):
+def ln_plain_cases(dev, dtypes=(torch.bfloat16, torch.float32)):
     """Row 2's non-affine form and the non-affine forward (the
     normalization API's `fused_layer_norm`, `FusedLayerNorm(
     elementwise_affine=False)`): forward and backward at the training
@@ -1591,7 +1625,7 @@ def ln_plain_cases(dev):
     gen = torch.Generator(device=dev).manual_seed(19)
     h = TRAIN["hidden_size"]
     for rows in (TRAIN_BATCH * TRAIN_SEQ, 8):
-        for dt in (torch.bfloat16, torch.float32):
+        for dt in dtypes:
             lab = f"({rows}, {h}) {str(dt)[6:]}"
             x = (0.5 + 2.0 * torch.randn(rows, h, device=dev,
                                          generator=gen)).to(dt)
@@ -1758,7 +1792,7 @@ def flash_cases(dev, nh=None, hd=None, shapes=None, seed=4, flips=False):
 
         got = bkern()
         bplan = fa.flash_bwd_plan(B, S, nh, hd, causal, dt)
-        check(bplan["route"] == ("wgmma" if dt == torch.bfloat16
+        check(bplan["route"] == ("wgmma" if half_float(dt)
                                  else "cuda_cores"),
               f"flash bwd {name}: planned on the {bplan['route']} route")
         if bplan["route"] == "wgmma":
@@ -1778,7 +1812,7 @@ def flash_cases(dev, nh=None, hd=None, shapes=None, seed=4, flips=False):
         extra = [None, None if bias is None else _l1_tol(
             ref[0].float().abs().sum(dim=(0, 1)).reshape(-1))]
         l1 = (packed_grad_l1(qkv, bias, o, lse, do, causal, scale, rate,
-                             seed) if dt == torch.bfloat16 else None)
+                             seed) if half_float(dt) else None)
         if flips and bias is not None and l1 is not None:
             extra[1] = extra[1] + _dbias_flip_tol(l1)
         yield dict(
@@ -1801,14 +1835,18 @@ def flash_cases(dev, nh=None, hd=None, shapes=None, seed=4, flips=False):
 # be off by) allows the fp32 noise left there. A bf16 dg rounds both to 8
 # mantissa bits: one ulp, at most 2^-7 of the value, and the same atol.
 XENT_DG_TOL = {torch.float32: dict(rtol=2e-5, atol=1e-9),
-               torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-9)}
+               torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-9),
+               torch.float16: dict(rtol=2.0 ** -10, atol=2.0 ** -24)}
+# fp16 holds dg's smallest terms (the softmax at vocab 30592 is about 3e-5,
+# below fp16's least normal 6.1e-5) as subnormals, a step of 2^-24 apart:
+# one fp16 step there is that absolute step, not 2^-10 of the value
 # the sum of |dg| over a case, divided by its rows (about 2): last-bit
 # flips of single elements move it by a few 1e-6 of itself, a wrong
 # factor by its error
 XENT_DG_L1_RTOL = 1e-4
 
 
-def xent_cases(dev):
+def xent_cases(dev, cases=None):
     """The cross-entropy kernel's two forms at the BERT head's shape,
     (B 8 x S 512, vocab 30592) bf16 logits, with smoothing 0 (the bench)
     and 0.1; an fp32 case; a vocab that is no multiple of 8 (the scalar
@@ -1829,7 +1867,7 @@ def xent_cases(dev):
 
     gen = torch.Generator(device=dev).manual_seed(8)
     rows_full, vocab = BERT_BATCH * BERT_SEQ, BERT["vocab_size"]
-    for rows, v, dt, eps in (
+    for rows, v, dt, eps in cases or (
         (rows_full, vocab, torch.bfloat16, 0.0),
         (rows_full, vocab, torch.bfloat16, 0.1),
         (1024, vocab, torch.float32, 0.1),
@@ -1901,12 +1939,14 @@ _LAMB_LR_RATIO = 0.7
 # fp32 moments are held to 1e-5 of the value plus 2e-6 (terms up to 5 may
 # cancel); bf16 moments to one ulp (2^-7 of the value) plus the same.
 LAMB_MOMENT_TOL = {torch.float32: dict(rtol=1e-5, atol=2e-6),
-                   torch.bfloat16: dict(rtol=2.0 ** -7, atol=2e-6)}
+                   torch.bfloat16: dict(rtol=2.0 ** -7, atol=2e-6),
+                   torch.float16: dict(rtol=2.0 ** -10, atol=2e-6)}
 # the new master and its compute copy: `LAMB_STEP_RTOL` of |old master| +
 # |applied step| as atol (the two may cancel), and for a bf16 copy one
 # ulp of the value besides
 LAMB_STEP_RTOL = 1e-5
-LAMB_COPY_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+LAMB_COPY_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+                  torch.float16: 2.0 ** -10}
 
 
 def _lamb_leaves(shapes, gdt, mdt, dev, gen):
@@ -2002,7 +2042,7 @@ def bert_kernel_leaves():
     return shapes + [(h, h), (h, h)]  # lm_head.dense, pooler
 
 
-def lamb_cases(dev):
+def lamb_cases(dev, cases=None):
     """The LAMB stage pair: first as the BERT step calls it, ALL 100
     kernel leaves of the bench BERT (333M parameters) in one call a
     stage, bf16 gradients and moments, weight decay 0.01, AdamW, no
@@ -2020,13 +2060,14 @@ def lamb_cases(dev):
     (with one decay and one ratio for all)."""
     from rocm_apex_tpu_torch.ops import optim_kernels as ok
 
-    lamb_frozen_check(dev)
+    if cases is None:
+        lamb_frozen_check(dev)
     gen = torch.Generator(device=dev).manual_seed(9)
     s1 = torch.tensor(_LAMB_SCALARS + [1.0], device=dev)
     s2 = s1[[3, 4, 5, 7]].contiguous()
     bf, f32 = torch.bfloat16, torch.float32
     mixed = [(1024, 1024), (1001, 1023)] + [(256, 512), (512, 384)] * 19
-    for what, shapes, gdt, mdt, wd, adam_w, copy in (
+    for what, shapes, gdt, mdt, wd, adam_w, copy in cases or (
         ("the bench BERT's 100 leaves", bert_kernel_leaves(), bf, bf, 0.01,
          True, False),
         ("(1024, 4096)", [(1024, 4096)], bf, bf, 0.01, True, False),
@@ -2045,7 +2086,7 @@ def lamb_cases(dev):
             1.0 + torch.arange(n, device=dev) / 128.0)
         name = (f"{what} grad {str(gdt)[6:]}, moments {str(mdt)[6:]}, "
                 f"wd {wd}, {'AdamW' if adam_w else 'L2'}")
-        headline = n == 100
+        headline = n == 100 and gdt != torch.float16
 
         # stage 1: equal copies through kernel and plain version
         km, kv, rm, rv = (_clones(t) for t in (ms, vs, ms, vs))
@@ -2364,7 +2405,7 @@ def unpacked_cases(dev, cases=None, seed=9):
             blib = None
         got = bkern()
         bplan = fa.flash_unpacked_bwd_plan(bh, sq, sk, d, causal, dt)
-        check(bplan["route"] == ("wgmma" if dt == torch.bfloat16
+        check(bplan["route"] == ("wgmma" if half_float(dt)
                                  else "cuda_cores"),
               f"unpacked bwd {label}: planned on the {bplan['route']} route")
         if bplan["route"] == "wgmma":
@@ -2373,7 +2414,7 @@ def unpacked_cases(dev, cases=None, seed=9):
         broute = check_launches(bkern, UNPACKED_BWD_ROUTE_KERNELS,
                                 bplan["route"], f"unpacked bwd {label}")
         l1 = [None] * 3
-        if dt == torch.bfloat16:
+        if half_float(dt):
             l1 = [m.view(t.shape) for m, t in zip(grad_l1(
                 flat(q), flat(k), flat(v), bias, flat(o), lse, flat(do),
                 causal, scale, lens, rate, seed, dlse), (q, k, v))]
@@ -2453,7 +2494,7 @@ def unpacked_cases(dev, cases=None, seed=9):
                 log(f"  (SDPA with a mask that needs grad: {e})"[:160])
                 dlib = None
         dplan = fa.flash_dbias_plan(nb, bh // nb, sq, sk, d, causal, dt)
-        check(dplan["route"] == ("wgmma" if dt == torch.bfloat16
+        check(dplan["route"] == ("wgmma" if half_float(dt)
                                  else "cuda_cores"),
               f"dbias {label}: planned on the {dplan['route']} route")
         check(torch.equal(dkern(), dkern()),
@@ -2638,7 +2679,7 @@ def seg_train_cases(dev, cases=None, seed=13):
         label = (f"{name}, {'causal' if causal else 'not causal'} ({h}, "
                  f"{total}, {d}) {str(dt)[6:]}")
         plan = fs.flash_segments_plan(h, total, d, dt)
-        check(plan["route"] == ("wgmma" if dt == torch.bfloat16
+        check(plan["route"] == ("wgmma" if half_float(dt)
                                 else "cuda_cores") and plan["splits"] == 1,
               f"seg_train {label}: planned {plan['route']}, "
               f"{plan['splits']} split(s)")
@@ -2691,7 +2732,7 @@ def seg_train_cases(dev, cases=None, seed=13):
                 q, k, v, o, lse, do)
 
         l1 = [None] * 3
-        if dt == torch.bfloat16:
+        if half_float(dt):
             l1 = _per_head(lambda q, k, v, o, lse, do: grad_l1(
                 q, k, v, fs._segment_bias(seg, q.device), o, lse, do, causal,
                 scale), q, k, v, o, lse, do)
@@ -2781,7 +2822,7 @@ def _seg_library(qkv, do, lens, seg, ids, causal, scale):
     return flib, blib, "sdpa_padded_mask"
 
 
-def xent_bwd_cases(dev):
+def xent_bwd_cases(dev, cases=None):
     """The two-pass backward form (contrib/xentropy's) against
     `xent_bwd_reference` on the same lse: the BERT head's (4096, 30592)
     bf16 logits with smoothing 0.1 and rows at padding_idx (their
@@ -2796,9 +2837,9 @@ def xent_bwd_cases(dev):
 
     gen = torch.Generator(device=dev).manual_seed(14)
     rows_full, vocab = BERT_BATCH * BERT_SEQ, BERT["vocab_size"]
-    for rows, v, dt in ((rows_full, vocab, torch.bfloat16),
-                        (1024, vocab, torch.float32),
-                        (512, 30001, torch.bfloat16)):
+    for rows, v, dt in cases or ((rows_full, vocab, torch.bfloat16),
+                                 (1024, vocab, torch.float32),
+                                 (512, 30001, torch.bfloat16)):
         x = (2.0 * torch.randn(rows, v, device=dev, generator=gen)).to(dt)
         labels = torch.randint(0, v, (rows,), device=dev, generator=gen)
         labels[0], labels[1] = 0, v - 1
@@ -3010,9 +3051,8 @@ def softmax_cases(dev):
         yield fwd_case("softmax_causal_fwd",
                        f"GPT {SOFTMAX_GPT} {str(dt)[6:]}, causal", x, None,
                        gpt_scale, causal=True)
-        if dt == torch.bfloat16:
-            yield bwd_case(f"GPT {SOFTMAX_GPT} bf16",
-                           sm.softmax_causal_fwd(x, gpt_scale), gpt_scale)
+        yield bwd_case(f"GPT {SOFTMAX_GPT} {str(dt)[6:]}",
+                       sm.softmax_causal_fwd(x, gpt_scale), gpt_scale)
         del x
     # odd and tiny key counts: the scalar form
     for shape in ((16, 333, 333), (4, 7, 1)):
@@ -3149,7 +3189,7 @@ def _yardstick(name, fn):
     return fn
 
 
-def packed_cases(dev):
+def packed_cases(dev, half=torch.bfloat16):
     """Each of the ten kernels of rows 14 and 15 against its plain version
     at two sizes: the train cell's packed buffer (every leaf of the bench
     GPT, 135M elements, one bf16 group: its gradients bf16, masters and
@@ -3173,7 +3213,7 @@ def packed_cases(dev):
                                                  build_pack_spec)
 
     gen = torch.Generator(device=dev).manual_seed(14)
-    f32, bf = torch.float32, torch.bfloat16
+    f32 = torch.float32
     gpt = gpt_train_spec()
     rag = build_pack_spec({"w": torch.empty(5, 512, device="meta"),
                            "b.bias": torch.empty(300, device="meta"),
@@ -3194,7 +3234,10 @@ def packed_cases(dev):
         dead = ~live
         iters = 20 if headline else 100
         plain_iters = 2 if headline else 10
-        gdts = (bf,) if headline else (bf, f32)
+        # fp32 gradients once, in the bf16 pass
+        gdts = (half,) if headline or half != torch.bfloat16 else (half, f32)
+        # the train buffer heads its kernels' lines in the bf16 pass
+        main, headline = headline, headline and half == torch.bfloat16
 
         def case(kernel, name, outs, refs, kern, plain, lib, nbytes_,
                  tols=None, extra=None, library=None, dtype=f32):
@@ -3211,10 +3254,14 @@ def packed_cases(dev):
 
         # ---- row 14: scale, scale_sumsq, axpby, row sums; the gradients
         # at the dynamic scaler's first scale, so the outputs are of order 1
-        s = torch.tensor([_PK_SCALE], device=dev)
+        # fp16 holds at most 65504: its gradients come scaled by 2^10
+        # (a scale the dynamic scaler settles at), bf16's by 2^16
+        pk = _PK_SCALE if half == torch.bfloat16 else 2.0 ** -10
+        pk_name = f"2^{int(math.log2(pk))}"
+        s = torch.tensor([pk], device=dev)
         a1 = torch.ones(1, device=dev)
         for gdt in gdts:
-            x = _pk_buf(live, gen, 1.0 / _PK_SCALE, gdt)
+            x = _pk_buf(live, gen, 1.0 / pk, gdt)
             t = tree_of(group, x)
             out, found = mt.scale_packed(t, s, f32)
             ro, rfound = mt.scale_plain(x, s, f32)
@@ -3224,7 +3271,7 @@ def packed_cases(dev):
             x32 = x.to(torch.float32, copy=True)
             amp_flag = torch.zeros(1, device=dev)
             yield case(
-                "scale", f"{str(gdt)[6:]} -> float32, s 2^-16",
+                "scale", f"{str(gdt)[6:]} -> float32, s {pk_name}",
                 list(out.buffers), [ro],
                 lambda t=t: mt.scale_packed(t, s, f32),
                 lambda x=x: mt.scale_plain(x, s, f32),
@@ -3238,7 +3285,7 @@ def packed_cases(dev):
             check(not bool(found), "scale_sumsq: a clean buffer tripped "
                   "the flag")
             yield case(
-                "scale_sumsq", f"{str(gdt)[6:]} -> float32, s 2^-16",
+                "scale_sumsq", f"{str(gdt)[6:]} -> float32, s {pk_name}",
                 [out.buffers[0], rsq], [ro, rr],
                 lambda t=t: mt.scale_sumsq_packed(t, s, f32),
                 lambda x=x: mt.scale_plain(x, s, f32, sumsq=True), None,
@@ -3247,19 +3294,19 @@ def packed_cases(dev):
                 dtype=gdt)
             y = _pk_buf(live, gen)
             ty = tree_of(group, y)
-            out, found = mt.axpby_packed(ty, t, 1.0, _PK_SCALE, f32)
+            out, found = mt.axpby_packed(ty, t, 1.0, pk, f32)
             ro, _ = mt.axpby_plain(y, x, a1, s, f32)
             check(not bool(found), "axpby: a clean buffer tripped the flag")
             yield case(
-                "axpby", f"float32 + 2^-16 x {str(gdt)[6:]} -> float32",
+                "axpby", f"float32 + {pk_name} x {str(gdt)[6:]} -> float32",
                 list(out.buffers), [ro],
-                lambda ty=ty, t=t: mt.axpby_packed(ty, t, 1.0, _PK_SCALE,
+                lambda ty=ty, t=t: mt.axpby_packed(ty, t, 1.0, pk,
                                                    f32),
                 lambda y=y, x=x: mt.axpby_plain(y, x, a1, s, f32),
-                lambda y=y, x=x: torch.add(y, x, alpha=_PK_SCALE),
+                lambda y=y, x=x: torch.add(y, x, alpha=pk),
                 nbytes(x, y, out.buffers[0]),
                 library="torch.add(y, x, alpha=b)")
-            if not headline:
+            if not main:
                 # an inf, then a nan, in the last live element of the
                 # last live row: every pass's flag trips
                 last = max(ls.row_start * 1024 + ls.numel - 1
@@ -3288,13 +3335,16 @@ def packed_cases(dev):
 
         # ---- row 15: the updates, fp32 masters and states
         wd = _pk_col(group, live, gen)
-        for gdt in ((f32,) if headline else (bf, f32)):
+        # the headline gradients fp32 (the unscaled bf16 step's), an fp16
+        # pass's in fp16 (`half`: rows 14 and 15 at the O2 step's type)
+        for gdt in ((f32,) if headline else (half,) if main
+                    or half != torch.bfloat16 else (half, f32)):
             p = _pk_buf(live, gen)
             g = _pk_buf(live, gen, 1.0, gdt)
             m = _pk_buf(live, gen)
             v = _pk_buf(live, gen, positive=True)
             gname = f"grad {str(gdt)[6:]}"
-            for skip in ([0.0] if headline else [0.0, 1.0]):
+            for skip in ([0.0] if main else [0.0, 1.0]):
                 sv = ok.scalar_vector(_PK_ADAM + [skip], dev)
                 outs = ok.adam_update(p, g, m, v, wd, sv, True)
                 refs = ok.adam_plain(p, g, m, v, wd, sv, True)
@@ -3316,7 +3366,7 @@ def packed_cases(dev):
                                    maximize=False)),
                     nbytes(p, g, m, v, *outs), library="torch._fused_adamw_"
                     " in place, fp32 gradients")
-            if not headline:
+            if not main:
                 # the skip slot with an inf and a nan gradient: frozen
                 gi = g.clone()
                 gi[0, 0], gi[1, 1] = float("inf"), float("nan")
@@ -3370,7 +3420,7 @@ def packed_cases(dev):
                 "place")
             vcol = _pk_col(group, live, gen, 1.0)
             sv = ok.scalar_vector(_PK_NOVOGRAD, dev)
-            for reg in (False,) if headline else (False, True):
+            for reg in (False,) if main else (False, True):
                 outs = ok.novograd_update(p, g, m, vcol, wd, sv, reg)
                 refs = ok.novograd_plain(p, g, m, vcol, wd, sv, reg)
                 yield case(
@@ -3509,7 +3559,7 @@ def _k3_library(e, w, x2, kw, dt):
     return dz @ w.t(), u.t() @ dz
 
 
-def bottleneck_cases(dev):
+def bottleneck_cases(dev, shapes=None):
     """The four kernels of row 17 against their plain versions, each call
     of a fused block with its flags: K1 conv1 (no prologue), conv3 (the
     prologue) and the downsample; K2 conv2; K3 conv3's backward (pre-mask,
@@ -3545,23 +3595,34 @@ def bottleneck_cases(dev):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(17)
     bf = torch.bfloat16
-    shapes = [(nm, RN50_BATCH, h, cin, cmid, cout, ds, bf, None)
-              for nm, h, cin, cmid, cout, ds in BNECK_SHAPES]
-    shapes += [("ragged M 3 x 7 x 7", 3, 7, 64, 64, 256, True, bf, None),
+    shapes = shapes or [(nm, RN50_BATCH, h, cin, cmid, cout, ds, bf, None)
+                        for nm, h, cin, cmid, cout, ds in BNECK_SHAPES] + [
+               ("ragged M 3 x 7 x 7", 3, 7, 64, 64, 256, True, bf, None),
                ("W 2: 4 x 2 x 2", 4, 2, 64, 64, 256, False, bf, None),
                ("fp32 8 x 14 x 14", 8, 14, 256, 64, 256, False,
                 torch.float32, None),
                ("ragged split 3 x 13 x 13", 3, 13, 128, 128, 512, False, bf,
                 ("K4",)),
                ("staged widths 3 x 7 x 7", 3, 7, 48, 48, 80, True, bf,
-                ("K1", "K2", "K3"))]
+                ("K1", "K2", "K3")),
+               # counts that are no multiple of 16 (8: the grain; 20: a
+               # tail of 4 padded to 24, `channel_plan`)
+               ("widths 8 3 x 7 x 7", 3, 7, 8, 8, 8, True, bf, None),
+               ("widths 20 3 x 7 x 7", 3, 7, 20, 20, 20, True,
+                torch.float32, None)]
     sms = sm_count(dev)
     for nm, n, h, cin, cmid, cout, ds, dt, only in shapes:
         full = n == RN50_BATCH
-        headline = nm == BNECK_HEADLINE
+        headline = nm == BNECK_HEADLINE and dt == bf
+        # the pipe takes 2-byte types at multiples of 64 (the plans' rule)
+        pipe = half_float(dt) and all(c % 64 == 0 for c in (cin, cmid, cout))
+        cplan = fb.channel_plan((cin, cmid, cout), n * h * h, dt)
         t = _bneck_inputs(gen, dev, n, h, cin, cmid, cout, dt)
         m = t["m"]
-        lab = f"{nm}: M {m}, {str(dt)[6:]}"
+        lab = (f"{nm}: M {m}, {str(dt)[6:]}"
+               + (", channels padded to "
+                  f"{cplan['kernel_counts']}" if cplan["route"] == "padded"
+                  else ""))
         runs = only or ("K1", "K2", "K3", "K4")
         staged_widths = "K4" not in runs and "K3" in runs
         k4_only = runs == ("K4",)
@@ -3615,8 +3676,7 @@ def bottleneck_cases(dev):
             got = [y, *s] if stats else [y]
             k1_plan = fb.mm_fwd_plan(m, w.shape[0], w.shape[1], dt, sms,
                                      prologue=a is not None)
-            check(k1_plan["route"] == ("pipe" if dt == bf
-                                       and not staged_widths else "staged"),
+            check(k1_plan["route"] == ("pipe" if pipe else "staged"),
                   f"{lab}, {what}: K1 planned on the {k1_plan['route']} "
                   f"route")
             if k1_plan["route"] == "pipe":
@@ -3657,8 +3717,7 @@ def bottleneck_cases(dev):
             k2_calls.append(("bare conv (no prologue, no statistics)",
                              (None, None), False))
         k2_plan = fb.conv3_fwd_plan(m, cmid, cmid, dt, sms)
-        check(k2_plan["route"] == ("pipe" if dt == bf and not staged_widths
-                                   else "staged"),
+        check(k2_plan["route"] == ("pipe" if pipe else "staged"),
               f"{lab}: K2 planned on the {k2_plan['route']} route")
         for what, (a, b), stats in k2_calls:
             def k2(x4=x4, w2=w2, a=a, b=b, stats=stats):
@@ -3699,7 +3758,8 @@ def bottleneck_cases(dev):
                     library="F.conv2d channels_last (cuDNN), the prologue "
                     "and statistics as torch ops",
                     timings=(_bneck_block_times(dev, gen, n, h, cin, cmid,
-                                                cout) if full else None),
+                                                cout)
+                             if full and dt == bf else None),
                     route=route)
             else:
                 yield case(
@@ -3729,8 +3789,7 @@ def bottleneck_cases(dev):
         for what, e, w, x2, kw in k3_calls:
             route = fb.mm_bwd_plan(m, w.shape[0], w.shape[1], dt,
                                    sms)["route"]
-            check(route == ("pipe" if dt == bf and not staged_widths
-                            else "staged"),
+            check(route == ("pipe" if pipe else "staged"),
                   f"{lab}, {what}: K3 takes the {route} route")
             got = fb.conv1x1_bn_act_bwd(e, w, x2, **kw)
             again = fb.conv1x1_bn_act_bwd(e, w, x2, **kw)
@@ -4087,27 +4146,85 @@ def hd_paged_cases(dev):
             paged_decode_cases(dev, h, d, cases, seed=60 + i), d, rows=True)
 
 
-CASE_GROUPS = dict(ln=ln_cases, seg=lambda dev: itertools.chain(
-                       seg_cases(dev), hd_seg_cases(dev)),
-                   decode=lambda dev: itertools.chain(
-                       decode_cases(dev), hd_decode_cases(dev)),
-                   paged=lambda dev: itertools.chain(
-                       paged_decode_cases(dev), hd_paged_cases(dev)),
-                   train_ln=train_ln_cases,
-                   ln_plain=ln_plain_cases,
-                   flash=lambda dev: itertools.chain(
-                       flash_cases(dev), hd_flash_cases(dev)),
-                   xent=lambda dev: itertools.chain(xent_cases(dev),
-                                                    xent_bwd_cases(dev)),
-                   lamb=lamb_cases,
-                   unpacked=lambda dev: itertools.chain(
-                       unpacked_cases(dev), unpacked_vs_packed_cases(dev),
-                       hd_unpacked_cases(dev)),
-                   seg_train=lambda dev: itertools.chain(
-                       seg_train_cases(dev), hd_seg_train_cases(dev)),
-                   softmax=softmax_cases,
-                   packed=packed_cases, bottleneck=bottleneck_cases,
-                   frames=frame_cases)
+# fp16, every row at its main path's shape (the O2 models' type), through
+# each group's own generator: the bf16 rules in fp16's precision (`TOL`,
+# `ROUND_STEPS`, the tables of the groups), on the plan's route, the
+# tensor-core routes launched twice for the same bits. None heads its
+# kernel's line. Bottleneck widths 8, 12, 40 and 13 run here too (12 and 13
+# through `channel_plan`'s padded copy).
+FP16 = torch.float16
+FP16_CASES = dict(
+    ln=lambda dev: ln_cases(dev, shapes=[
+        (8, SERVE["hidden_size"], False, FP16),
+        (BUDGET, SERVE["hidden_size"], True, FP16)]),
+    seg=lambda dev: seg_cases(dev, dtypes=(FP16,)),
+    decode=lambda dev: decode_cases(
+        dev, SERVE["num_attention_heads"],
+        SERVE["hidden_size"] // SERVE["num_attention_heads"],
+        dtypes=(FP16,)),
+    paged=lambda dev: paged_decode_cases(dev, cases=[
+        ("decode grid", PAGE_SIZE, FP16, False),
+        ("decode grid", PAGE_SIZE, FP16, True)]),
+    train_ln=lambda dev: train_ln_cases(dev, dtypes=(FP16,), tail=False),
+    ln_plain=lambda dev: ln_plain_cases(dev, dtypes=(FP16,)),
+    flash=lambda dev: flash_cases(dev, shapes=(
+        (TRAIN_BATCH, TRAIN_SEQ, FP16, True, 0.1, True),
+        (BERT_BATCH, BERT_SEQ, FP16, True, 0.0, False))),
+    xent=lambda dev: itertools.chain(
+        xent_cases(dev, cases=[(BERT_BATCH * BERT_SEQ, BERT["vocab_size"],
+                                FP16, 0.0)]),
+        xent_bwd_cases(dev, cases=[(BERT_BATCH * BERT_SEQ,
+                                    BERT["vocab_size"], FP16)])),
+    lamb=lambda dev: lamb_cases(dev, cases=[
+        ("the bench BERT's 100 leaves", bert_kernel_leaves(), FP16,
+         torch.float32, 0.01, True, True)]),
+    unpacked=lambda dev: unpacked_cases(dev, cases=[
+        ("masked BERT, dbias, dropout 0.1",
+         (BERT_BATCH, BERT["num_attention_heads"], BERT_SEQ, BERT_SEQ,
+          BERT["hidden_size"] // BERT["num_attention_heads"]), FP16, "bert",
+         False, None, 0.1, True, False, True, False)]),
+    seg_train=lambda dev: seg_train_cases(dev, cases=[
+        ("fmha batch", fmha_lengths(), FMHA_HEADS, FMHA_HD, FP16, True, None,
+         False)]),
+    packed=lambda dev: packed_cases(dev, half=FP16),
+    bottleneck=lambda dev: bottleneck_cases(dev, shapes=[
+        ("layer3_1..5", RN50_BATCH, 14, 1024, 256, 1024, False, FP16, None),
+        ("widths 8 3 x 7 x 7", 3, 7, 8, 8, 8, True, FP16, None),
+        ("widths 12 3 x 7 x 7", 3, 7, 12, 12, 12, True, FP16, None),
+        ("widths 40 3 x 7 x 7", 3, 7, 40, 40, 40, True, FP16, None),
+        ("widths 13 (odd) 3 x 7 x 7", 3, 7, 13, 13, 13, True, FP16, None)]),
+)
+
+_GROUPS = dict(ln=ln_cases, seg=lambda dev: itertools.chain(
+                   seg_cases(dev), hd_seg_cases(dev)),
+               decode=lambda dev: itertools.chain(
+                   decode_cases(dev), hd_decode_cases(dev)),
+               paged=lambda dev: itertools.chain(
+                   paged_decode_cases(dev), hd_paged_cases(dev)),
+               train_ln=train_ln_cases,
+               ln_plain=ln_plain_cases,
+               flash=lambda dev: itertools.chain(
+                   flash_cases(dev), hd_flash_cases(dev)),
+               xent=lambda dev: itertools.chain(xent_cases(dev),
+                                                xent_bwd_cases(dev)),
+               lamb=lamb_cases,
+               unpacked=lambda dev: itertools.chain(
+                   unpacked_cases(dev), unpacked_vs_packed_cases(dev),
+                   hd_unpacked_cases(dev)),
+               seg_train=lambda dev: itertools.chain(
+                   seg_train_cases(dev), hd_seg_train_cases(dev)),
+               softmax=softmax_cases,
+               packed=packed_cases, bottleneck=bottleneck_cases,
+               frames=frame_cases)
+# each group's cases, its fp16 ones last; `--only kernels:fp16` runs the
+# fp16 cases of every group alone (not in the default list: the groups
+# run them already)
+CASE_GROUPS = {g: (lambda dev, g=g: itertools.chain(
+    _GROUPS[g](dev), FP16_CASES[g](dev) if g in FP16_CASES else ()))
+    for g in _GROUPS}
+FP16_GROUP = "fp16"
+ALL_GROUPS = {**CASE_GROUPS, FP16_GROUP: lambda dev: itertools.chain(
+    *(f(dev) for f in FP16_CASES.values()))}
 
 
 def run_kernel_phase(dev, generators, profile=False):
@@ -4742,15 +4859,18 @@ def run_train_parity_phase(impl="flash"):
 
 
 def run_train_phase(profile, impl="flash", calls=TRAIN_CALLS_PER_STEP,
-                    opt=None):
+                    opt=None, dtype=torch.bfloat16, warmup=TRAIN_WARMUP,
+                    steps=TRAIN_STEPS):
     """The GPT train cell under ``impl`` (the model's attention_impl),
-    with ``opt`` (default MixedPrecisionAdam); ``calls``: each kernel's
-    wrapper calls a step."""
+    with ``opt`` (default MixedPrecisionAdam), in the compute ``dtype``
+    (bf16; fp16 is amp O2's), ``warmup`` + ``steps`` timed steps;
+    ``calls``: each kernel's wrapper calls a step. Reports the steps the
+    dynamic loss scaler skipped, in the warm-up and in the timed run."""
     from rocm_apex_tpu_torch.models.gpt import GPTConfig
     from rocm_apex_tpu_torch.ops._build import KERNELS
 
     cfg = GPTConfig(**TRAIN, params_dtype=torch.float32,
-                    dtype=torch.bfloat16, attention_impl=impl)
+                    dtype=dtype, attention_impl=impl)
     t0 = time.perf_counter()
     step, state, sstate = _trainer(cfg, "cuda", 1e-4, opt)
     setup_s = time.perf_counter() - t0
@@ -4758,16 +4878,17 @@ def run_train_phase(profile, impl="flash", calls=TRAIN_CALLS_PER_STEP,
     tokens, labels = tokens.cuda(), labels.cuda()
     gen = torch.Generator().manual_seed(0)  # CPU: the dropout seeds
     losses = []
-    for _ in range(TRAIN_WARMUP):
+    for _ in range(warmup):
         state, sstate, loss = step(state, sstate, tokens, labels,
                                    dropout_generator=gen)
         losses.append(loss)
     torch.cuda.synchronize()
+    warm_overflows = int(sstate.overflows)
     torch.cuda.reset_peak_memory_stats()
     for k in KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         state, sstate, loss = step(state, sstate, tokens, labels,
                                    dropout_generator=gen)
         losses.append(loss)
@@ -4778,29 +4899,38 @@ def run_train_phase(profile, impl="flash", calls=TRAIN_CALLS_PER_STEP,
     scale = float(sstate.loss_scale)
     overflows = int(sstate.overflows)
     res = dict(
-        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, seconds=dt,
-        step_ms=1e3 * dt / TRAIN_STEPS,
-        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / dt,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=steps, seconds=dt,
+        step_ms=1e3 * dt / steps,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ * steps / dt,
         loss_first=losses[0], loss_last=losses[-1], losses=losses,
         loss_scale=scale, overflows=overflows, setup_s=setup_s,
+        dtype=str(dtype)[6:], skipped_warmup=warm_overflows,
+        skipped_timed=overflows - warm_overflows,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         launches=launches,
         attention_impl=impl,
-        calls_per_step={k: launches[k] / TRAIN_STEPS for k in calls},
+        calls_per_step={k: launches[k] / steps for k in calls},
     )
-    log(f"  {TRAIN_STEPS} steps of B {TRAIN_BATCH} x S {TRAIN_SEQ}: "
+    log(f"  {steps} steps of B {TRAIN_BATCH} x S {TRAIN_SEQ}: "
         f"{res['step_ms']:.2f} ms/step, {res['tokens_per_s']:.1f} tokens/s; "
         f"loss {losses[0]:.4f} (first) -> {losses[-1]:.4f} (last); loss "
-        f"scale {scale:g}, {overflows} overflows; peak "
+        f"scale {scale:g}, {overflows} overflows (skipped steps: "
+        f"{warm_overflows} in the warm-up, {overflows - warm_overflows} "
+        f"timed); peak "
         f"{res['peak_mem_gib']:.2f} GiB")
     log(f"  wrapper calls per step: {res['calls_per_step']} (expected "
         f"{calls})")
     check(all(math.isfinite(x) for x in losses), "nonfinite training loss")
     check(losses[-1] < losses[0], "the training loss did not fall")
     check(scale >= 2.0**12, f"the loss scale collapsed to {scale:g}")
+    if dtype == torch.float16:
+        # amp O2: skipped steps only while the scale settles
+        check(overflows == warm_overflows, f"{overflows - warm_overflows} "
+              f"timed fp16 steps skipped: the loss scale had not settled "
+              f"after the warm-up")
     for name, want in calls.items():
-        check(launches[name] == want * TRAIN_STEPS,
-              f"{name}: {launches[name]} calls in {TRAIN_STEPS} steps, "
+        check(launches[name] == want * steps,
+              f"{name}: {launches[name]} calls in {steps} steps, "
               f"expected {want} per step")
     if profile:
         res["profile"] = profile_window(
@@ -5905,10 +6035,10 @@ def _rel_err(a, b):
 
 
 class plain_versions:
-    """While open, the unpacked attention and the LayerNorm wrappers run
-    their plain PyTorch versions on card tensors (the autograd functions
-    unchanged, their forward and backward bodies swapped): the modules'
-    reference on the same card inputs."""
+    """While open, the unpacked and the packed attention and the LayerNorm
+    wrappers run their plain PyTorch versions on card tensors (the
+    autograd functions unchanged, their forward and backward bodies
+    swapped): the modules' reference on the same card inputs."""
 
     def __enter__(self):
         from rocm_apex_tpu_torch.ops import flash_attention as fa
@@ -5916,7 +6046,7 @@ class plain_versions:
 
         self.fa, self.ln = fa, ln
         self.saved = (fa._unpacked_fwd, fa._unpacked_bwd, ln._ln_fwd_impl,
-                      ln._layer_norm_bwd)
+                      ln._layer_norm_bwd, fa._flash_fwd, fa._flash_bwd)
 
         def fwd(q, k, v, bias, causal, scale, kv_lengths, rate, seed,
                 bshd=False):
@@ -5940,11 +6070,38 @@ class plain_versions:
 
         fa._unpacked_fwd, fa._unpacked_bwd = fwd, bwd
         ln._ln_fwd_impl, ln._layer_norm_bwd = lnf, ln.layer_norm_bwd_plain
+        fa._flash_fwd = fa.flash_qkv_fwd_plain
+        fa._flash_bwd = lambda qkv, bias, o, lse, do, *a: (
+            fa.flash_qkv_bwd_plain(qkv, bias, o, lse, do.contiguous(), *a))
         return self
 
     def __exit__(self, *exc):
         (self.fa._unpacked_fwd, self.fa._unpacked_bwd, self.ln._ln_fwd_impl,
-         self.ln._layer_norm_bwd) = self.saved
+         self.ln._layer_norm_bwd, self.fa._flash_fwd,
+         self.fa._flash_bwd) = self.saved
+        return False
+
+
+class plain_bottleneck:
+    """While open, the four fused bottleneck ops run their plain PyTorch
+    versions on card tensors (`bottleneck_fused`'s autograd function
+    unchanged): the fused ResNet's reference on the same card inputs."""
+
+    NAMES = ("conv1x1_bn_act", "conv3x3_bn_act", "conv1x1_bn_act_bwd",
+             "conv3x3_bn_act_bwd")
+
+    def __enter__(self):
+        from rocm_apex_tpu_torch.ops import fused_bottleneck as fb
+
+        self.fb = fb
+        self.saved = {n: getattr(fb, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(fb, n, getattr(fb, n + "_plain"))
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.fb, n, f)
         return False
 
 
@@ -7493,6 +7650,382 @@ def run_head_dims_phase():
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 27: fp16 (amp O2) on the card
+# ---------------------------------------------------------------------------
+
+# the fp16 GPT cell: the train cell's model and batch under amp O2 (fp16
+# compute copy, fp32 masters, MixedPrecisionAdam, the dynamic LossScaler)
+FP16_TRAIN_WARMUP, FP16_TRAIN_STEPS = 3, 5
+# the 2-layer twin: one O2 step on the kernels and one under
+# `plain_versions()` on the same card, weights and batch, both fp16. The
+# loss is an fp32 mean over 512 tokens of terms whose fp16 operands the
+# two sides round alike but for the last bits of p and ds (the attention
+# frames) and the summation order: 1e-3 relative is 30x the spread such
+# flips give at this size. A gradient leaf sums fp16-rounded products over
+# 512 rows; 1e-2 of the leaf's largest element allows a few fp16 steps of
+# its largest terms.
+FP16_TWIN = dict(num_layers=2, batch=2, seq=256)
+FP16_TWIN_LOSS_RTOL = 1e-3
+FP16_TWIN_GRAD_SHARE = 1e-2
+FP16_PACKED_STEPS = 3
+FP16_BERT_STEPS = 3
+# amp O2's dynamic scale starts at 2^16 and halves on each overflow; the
+# fused ResNet-50 may skip several steps while it settles (six at B 4 x
+# 64^2 on the CPU, one at B 128 on the card), so a warm-up of 8 steps,
+# then 3 timed steps that must skip none
+FP16_RN50_WARMUP, FP16_RN50_STEPS = 8, 3
+# the fused ResNet's twin: rn50_parity's widths and damped residuals
+# (RN50_PARITY_BN3_SCALE) at B 2 x 64^2 in fp16 on the card, the
+# bottleneck kernels against their plain versions on the same input: the
+# loss within FP16_TWIN_LOSS_RTOL; and the first step's gradients, which
+# this net at this batch cannot hold leaf by leaf: the plain versions on
+# the input moved by one fp16 step (2^-10 relative) move the median leaf
+# by about a quarter of its largest entry (the twin logs it). So the
+# median over the leaves of |kernels - plain| / max |plain| is held to
+# that of the moved input, FP16_RN50_TWIN_MEDIAN_SHARE times it: a fault
+# that moves the gradients more than one fp16 step of input does, such as
+# a dgrad scaled by 1.5 in one kernel, fails it; smaller ones are for the
+# kernel cases of group `bottleneck`, which hold each call to one fp16
+# step
+FP16_RN50_TWIN = dict(batch=2, size=64)
+FP16_RN50_TWIN_MEDIAN_SHARE = 1.0
+
+
+def _fp16_gpt_twin():
+    """One O2 step of the 2-layer GPT twin on the card, on the kernels and
+    under `plain_versions()`: the losses and every gradient leaf (read
+    unscaled from the step's parameters)."""
+    from rocm_apex_tpu_torch.convert import random_params
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig(**{**TRAIN, "num_layers": FP16_TWIN["num_layers"],
+                       "hidden_dropout": 0.0, "attention_dropout": 0.0},
+                    params_dtype=torch.float32, dtype=torch.float16)
+    tree = random_params(cfg, seed=0)
+    tokens, labels = _train_batch(cfg, FP16_TWIN["batch"], FP16_TWIN["seq"])
+    runs = {}
+    for form in ("kernels", "plain"):
+        step, state, sstate = _trainer(cfg, CARD, 1e-4, tree=tree)
+        inv = 1.0 / float(sstate.loss_scale)
+        _zero_launches()
+        if form == "plain":
+            with plain_versions():
+                state, sstate, loss = step(state, sstate, tokens, labels)
+        else:
+            state, sstate, loss = step(state, sstate, tokens, labels)
+        runs[form] = dict(
+            loss=float(loss), launches=_launches(),
+            grads={k: p.grad.float() * inv for k, p in state.model.items()})
+        del step, state
+    kern, plain = runs["kernels"], runs["plain"]
+    rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+    worst, at = 0.0, None
+    for k, g in plain["grads"].items():
+        r = float((kern["grads"][k] - g).abs().max()) / max(
+            FP16_TWIN_GRAD_SHARE * float(g.abs().max()), 1e-30)
+        if math.isnan(r) or r > worst:
+            worst, at = (math.inf if math.isnan(r) else r), k
+    log(f"  O2 twin ({FP16_TWIN['num_layers']} layers, B "
+        f"{FP16_TWIN['batch']} x S {FP16_TWIN['seq']}, fp16): loss kernels "
+        f"{kern['loss']:.6f}, plain versions {plain['loss']:.6f}, relative "
+        f"{rel:.3e} (rtol {FP16_TWIN_LOSS_RTOL:g}); worst gradient leaf "
+        f"{worst:.3f} of its tolerance ({at}); launches on the kernels "
+        f"{kern['launches']}, under plain_versions {plain['launches']}")
+    check(math.isfinite(kern["loss"]) and math.isfinite(plain["loss"]),
+          "O2 twin: a nonfinite loss")
+    check(rel <= FP16_TWIN_LOSS_RTOL, f"O2 twin: losses differ by {rel:.3e}")
+    check(worst <= 1.0, f"O2 twin: gradient {at} differs by {worst:.3g}x "
+          f"its tolerance")
+    for name in ("layer_norm_fwd", "layer_norm_bwd",
+                 "flash_attention_qkv_fwd", "flash_attention_qkv_bwd"):
+        check(kern["launches"].get(name, 0) > 0,
+              f"O2 twin: {name} was not launched")
+    check(not plain["launches"], f"O2 twin: kernels launched under "
+          f"plain_versions: {plain['launches']}")
+    return dict(loss_kernels=kern["loss"], loss_plain=plain["loss"],
+                loss_rel_err=rel, grad_err_over_tol=worst, worst_leaf=at)
+
+
+def _fp16_packed_twin():
+    """The twin's step under `PackedOptimizerStep("adam")` in fp16: the
+    packed passes (rows 14, 15) on fp16 gradients, a few steps."""
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+    from rocm_apex_tpu_torch.optimizers import PackedOptimizerStep
+
+    cfg = GPTConfig(**{**TRAIN, "num_layers": FP16_TWIN["num_layers"]},
+                    params_dtype=torch.float32, dtype=torch.float16)
+    step, state, sstate = _trainer(
+        cfg, CARD, 1e-4, opt=PackedOptimizerStep(
+            "adam", 1e-4, weight_decay=0.01, compute_dtype=torch.float16))
+    tokens, labels = _train_batch(cfg, FP16_TWIN["batch"], FP16_TWIN["seq"])
+    gen = torch.Generator().manual_seed(0)
+    _zero_launches()
+    losses = []
+    for _ in range(FP16_PACKED_STEPS):
+        state, sstate, loss = step(state, sstate, tokens, labels,
+                                   dropout_generator=gen)
+        losses.append(float(loss))
+    launches = _launches()
+    log(f"  O2 twin under PackedOptimizerStep('adam'): losses {losses}, "
+        f"{int(sstate.overflows)} skipped; packed launches "
+        f"{ {k: launches.get(k, 0) for k in ('scale_sumsq', 'adam_update')} }")
+    check(all(math.isfinite(x) for x in losses),
+          "packed O2 twin: a nonfinite loss")
+    for name in ("scale_sumsq", "adam_update"):
+        check(launches.get(name, 0) == FP16_PACKED_STEPS,
+              f"packed O2 twin: {name} launched {launches.get(name, 0)} "
+              f"times in {FP16_PACKED_STEPS} steps")
+    return dict(losses=losses, launches=launches)
+
+
+def _fp16_serve():
+    """The serve cell's engine with the model in fp16: contiguous, then
+    on fp16 pages of PAGE_SIZE; the paged tokens must equal the
+    contiguous ones in every request."""
+    from rocm_apex_tpu_torch.convert import from_jax_params, random_params
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig(**SERVE, params_dtype=torch.float32, dtype=torch.float16)
+    t0 = time.perf_counter()
+    model = from_jax_params(random_params(cfg, seed=0), cfg, device=CARD)
+    load_s = time.perf_counter() - t0
+    prompts = serve_prompts(cfg.vocab_size)
+    out = {}
+    for form, kw in (("contiguous", {}),
+                     ("paged", dict(paged=True, page_size=PAGE_SIZE))):
+        log(f"  -- fp16 serve, {form}")
+        eng = _engine(model, **kw)
+        eng.generate(prompts[:SLOTS], max_new_tokens=3)  # warm-up
+        r, tokens = timed_serve(eng, prompts)
+        r["tokens"] = tokens
+        out[form] = r
+        del eng
+    same = sum(a == b for a, b in zip(out["paged"]["tokens"],
+                                      out["contiguous"]["tokens"]))
+    log(f"  fp16 pages: {same}/{len(prompts)} requests give the contiguous "
+        f"serve's tokens")
+    check(same == len(prompts), f"fp16 pages: {same} of {len(prompts)} "
+          f"requests give the contiguous serve's tokens")
+    for name in SERVE_KERNELS:
+        check(out["contiguous"]["launches"][name] > 0,
+              f"fp16 serve: {name} was not launched")
+    check(out["contiguous"]["launches"]["flash_attention_segments_with_lse"]
+          == 0, "the fp16 serve's chunks left the tile route")
+    check(out["paged"]["launches"]["flash_attention_decode_paged"] > 0,
+          "fp16 paged serve: the paged read was not launched")
+    for r in out.values():
+        r.pop("tokens")
+    return dict(weights_load_s=load_s, requests_matching=same, **out)
+
+
+def _fp16_bert():
+    """BERT-Large (the bert_train cell's model, B 8 x S 512) under O2 with
+    `MixedPrecisionLamb` (fp32 moments): FP16_BERT_STEPS steps without a
+    mask (the packed kernels, the cross-entropy, the LAMB pair), then as
+    many with the masked batch's padding mask and dropout 0.1 (the
+    unpacked kernels), on one model."""
+    from rocm_apex_tpu_torch.models.bert import BertConfig
+
+    cfg = BertConfig(**{**BERT, "hidden_dropout": BERT_MASKED_DROPOUT,
+                        "attention_dropout": BERT_MASKED_DROPOUT},
+                     params_dtype=torch.float32, dtype=torch.float16)
+    t0 = time.perf_counter()
+    step, state, _, _ = _bert_trainer(cfg, CARD, torch.float32)
+    setup_s = time.perf_counter() - t0
+    tokens, labels = _bert_batch(cfg, BERT_BATCH, BERT_SEQ)
+    amask = padding_mask(bert_lengths(BERT_BATCH), BERT_SEQ)
+    gen = torch.Generator().manual_seed(0)
+    res = dict(setup_s=setup_s)
+    for form, kw in (("unmasked", {}),
+                     ("masked", dict(attention_mask=amask,
+                                     dropout_generator=gen))):
+        _zero_launches()
+        t0 = time.perf_counter()
+        losses, skipped = [], 0
+        for _ in range(FP16_BERT_STEPS):
+            state, loss, inf = step(state, tokens, labels, **kw)
+            losses.append(float(loss))
+            skipped += int(bool(inf))
+        dt = time.perf_counter() - t0
+        launches = _launches()
+        res[form] = dict(losses=losses, skipped=skipped, launches=launches,
+                         step_ms=1e3 * dt / FP16_BERT_STEPS)
+        log(f"  BERT-Large O2 {form}: losses {losses}, {skipped} skipped, "
+            f"{res[form]['step_ms']:.1f} ms a step (the first with its "
+            f"allocations); launches {launches}")
+        check(all(math.isfinite(x) for x in losses),
+              f"BERT O2 {form}: a nonfinite loss")
+        check(losses[-1] < losses[0], f"BERT O2 {form}: the loss did not "
+              f"fall")
+        want = (("flash_attention_qkv_fwd", "flash_attention_qkv_bwd",
+                 "xent_fwd_dg", "lamb_leaf_stage1", "lamb_leaf_stage2")
+                if form == "unmasked"
+                else ("flash_unpacked_fwd", "flash_unpacked_bwd"))
+        for name in want:
+            check(launches.get(name, 0) > 0,
+                  f"BERT O2 {form}: {name} was not launched")
+    return res
+
+
+def _fp16_rn50():
+    """ResNet-50 with `FusedBottleneck` under amp O2 at bench.py's B 128 x
+    224^2 (FusedAdam): FP16_RN50_STEPS steps on the bottleneck kernels in
+    fp16; then the twin, rn50_parity's widths at B 2 x 64^2, the kernels
+    against their plain versions (`plain_bottleneck`) on the card."""
+    from rocm_apex_tpu_torch.ops._build import KERNELS
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = _rn50(CARD, True, torch.float16)
+    step, params, opt_state, ss = _rn50_trainer(model, "O2")
+    x, y = _rn50_batch(RN50_BATCH, RN50_SIZE, CARD)
+    setup_s = time.perf_counter() - t0
+    losses = []
+    for _ in range(FP16_RN50_WARMUP):
+        params, opt_state, ss, loss = step(params, opt_state, ss, x, y)
+        losses.append(float(loss))
+    warm_skipped = int(ss[0].overflows)
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FP16_RN50_STEPS):
+        params, opt_state, ss, loss = step(params, opt_state, ss, x, y)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    skipped = int(ss[0].overflows) - warm_skipped
+    launches = {k.name: k.launches for k in KERNELS}
+    res = dict(setup_s=setup_s, losses=losses, skipped_warmup=warm_skipped,
+               skipped_timed=skipped, loss_scale=float(ss[0].loss_scale),
+               step_ms=1e3 * dt / FP16_RN50_STEPS,
+               images_per_s=RN50_BATCH * FP16_RN50_STEPS / dt,
+               launches={k: launches[k] for k in BNECK_KERNELS})
+    log(f"  ResNet-50 fused O2, B {RN50_BATCH} x {RN50_SIZE}^2: losses "
+        f"{losses}; skipped steps {warm_skipped} in the warm-up (loss scale "
+        f"now {res['loss_scale']:g}), {skipped} timed; {res['step_ms']:.1f} "
+        f"ms a step, {res['images_per_s']:.1f} images/s; bottleneck calls "
+        f"{res['launches']}")
+    check(all(math.isfinite(v) for v in losses), "rn50 O2: nonfinite loss")
+    check(skipped == 0, f"rn50 O2: {skipped} timed steps skipped (the scale "
+          f"had not settled)")
+    check(losses[-1] < losses[FP16_RN50_WARMUP - 1],
+          "rn50 O2: the loss did not fall over the timed steps")
+    for name, n in RN50_FUSED_CALLS_PER_STEP.items():
+        check(launches[name] == n * FP16_RN50_STEPS,
+              f"rn50 O2: {name} {launches[name]} calls in "
+              f"{FP16_RN50_STEPS} steps, expected {n} a step")
+    del model, step, params, opt_state, x, y
+
+    tw = FP16_RN50_TWIN
+    runs = {}
+    for form in ("kernels", "plain", "plain, input moved"):
+        model = _rn50(CARD, True, torch.float16)
+        with torch.no_grad():  # rn50_parity's damped residuals
+            for name, p in model.named_parameters():
+                if name.endswith(("bn3_scale", "bn3.scale")):
+                    p.fill_(RN50_PARITY_BN3_SCALE)
+        x, y = _rn50_batch(tw["batch"], tw["size"], CARD)
+        if form == "plain, input moved":  # one fp16 step, relative
+            x = x * (1.0 + 2.0 ** -10 * torch.randn(
+                x.shape, generator=torch.Generator().manual_seed(5)).to(
+                    x.device))
+        names = [k for k, _ in model.named_parameters()]
+        _zero_launches()
+        if form.startswith("plain"):
+            with plain_bottleneck():
+                loss = F.cross_entropy(model(x).float(), y)
+                grads = torch.autograd.grad(loss, list(model.parameters()))
+        else:
+            loss = F.cross_entropy(model(x).float(), y)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        runs[form] = dict(loss=float(loss.detach()), launches=_launches(),
+                          grads=dict(zip(names, (g.float() for g in grads))))
+        del model
+    plain = runs["plain"]
+
+    def leaf_errs(other):
+        return {k: float((other["grads"][k] - g).abs().max())
+                / max(float(g.abs().max()), 1e-30)
+                for k, g in plain["grads"].items()}
+
+    kern, moved = runs["kernels"], runs["plain, input moved"]
+    ek, em = leaf_errs(kern), leaf_errs(moved)
+    med_k = float(np.median(list(ek.values())))
+    med_m = float(np.median(list(em.values())))
+    at = max(ek, key=ek.get)
+    rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+    log(f"  fused ResNet-50 twin, B {tw['batch']} x {tw['size']}^2 fp16: "
+        f"loss kernels {kern['loss']:.6f}, plain {plain['loss']:.6f}, "
+        f"relative {rel:.3e} (rtol {FP16_TWIN_LOSS_RTOL:g}); the gradient "
+        f"leaves' error over their largest entry, median {med_k:.3e} "
+        f"(worst {ek[at]:.3e}, {at}) against {med_m:.3e} for the plain "
+        f"versions on the input moved by one fp16 step (limit: that, "
+        f"x{FP16_RN50_TWIN_MEDIAN_SHARE:g})")
+    check(rel <= FP16_TWIN_LOSS_RTOL, f"rn50 O2 twin: losses differ by "
+          f"{rel:.3e}")
+    check(med_k <= FP16_RN50_TWIN_MEDIAN_SHARE * med_m,
+          f"rn50 O2 twin: the gradients' median error {med_k:.3e} is above "
+          f"{FP16_RN50_TWIN_MEDIAN_SHARE:g}x the one-step input noise's "
+          f"{med_m:.3e}")
+    for name in BNECK_KERNELS:
+        check(kern["launches"].get(name, 0) > 0,
+              f"rn50 O2 twin: {name} was not launched")
+    check(not any(plain["launches"].get(n) for n in BNECK_KERNELS),
+          "rn50 O2 twin: a bottleneck kernel launched under the plain "
+          "versions")
+    res["twin"] = dict(loss_kernels=kern["loss"], loss_plain=plain["loss"],
+                       loss_rel_err=rel, grad_median_err=med_k,
+                       grad_median_err_input_moved=med_m,
+                       grad_worst_err=ek[at], worst_leaf=at)
+    return res
+
+
+def run_fp16_phase(profile):
+    """amp O2 in fp16 on the card through the port's entry points: the
+    GPT train cell (`run_train_phase` in fp16, FP16_TRAIN_WARMUP +
+    FP16_TRAIN_STEPS steps: rows 1, 2, 8, 11) and its 2-layer twin
+    (kernels against plain versions, then under PackedOptimizerStep: rows
+    14, 15); the fp16 serve, contiguous and paged (rows 1, 3, 5, 6);
+    BERT-Large under MixedPrecisionLamb, unmasked and masked (rows 7b, 8,
+    9b, 11, 13a, 16); ResNet-50 with FusedBottleneck and its twin (row
+    17). The kernel cases in fp16 are each group's (`FP16_CASES`)."""
+    out = {}
+    log("  -- GPT train cell, amp O2 (fp16)")
+    out["train"] = run_train_phase(profile, dtype=torch.float16,
+                                   warmup=FP16_TRAIN_WARMUP,
+                                   steps=FP16_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    log("  -- the 2-layer O2 twin")
+    out["twin"] = _fp16_gpt_twin()
+    out["packed"] = _fp16_packed_twin()
+    torch.cuda.empty_cache()
+    log("  -- GPT serve, fp16")
+    out["serve"] = _fp16_serve()
+    torch.cuda.empty_cache()
+    log("  -- BERT-Large, amp O2")
+    out["bert"] = _fp16_bert()
+    torch.cuda.empty_cache()
+    log("  -- ResNet-50 fused, amp O2")
+    out["rn50"] = _fp16_rn50()
+    torch.cuda.empty_cache()
+    # the phase's launches: the GPT cell's timed steps, the serves', the
+    # BERT and ResNet steps
+    launches = {}
+    for part in (out["train"]["launches"], out["packed"]["launches"],
+                 out["serve"]["contiguous"]["launches"],
+                 out["serve"]["paged"]["launches"],
+                 out["bert"]["unmasked"]["launches"],
+                 out["bert"]["masked"]["launches"],
+                 out["rn50"]["launches"]):
+        for k, n in part.items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
+    return out
+
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7566,10 +8099,12 @@ def main(argv=None):
                                          softmax, xentropy)
     groups = (only["kernels"].split("+") if only.get("kernels")
               else list(CASE_GROUPS))
+    check(set(groups) <= set(ALL_GROUPS), f"--only kernels: no group "
+          f"named {sorted(set(groups) - set(ALL_GROUPS))}")
     runs = {
         "kernels": ("kernels (kernel vs plain version on the card)",
                     lambda: run_kernel_phase(
-                        dev, [CASE_GROUPS[g] for g in groups],
+                        dev, [ALL_GROUPS[g] for g in groups],
                         args.profile)),
         "parity": ("parity (2 layers, fp32, TF32 off: cuda kernels vs cpu "
                    "plain)", run_parity_phase),
@@ -7691,6 +8226,15 @@ def main(argv=None):
             f"{HD_TRAIN_STEPS} train steps each, the wide ones served "
             "contiguous and paged; each model's reduced-depth twin card vs "
             "cpu)", run_head_dims_phase),
+        "fp16": (
+            f"fp16 (amp O2: the GPT train cell, {FP16_TRAIN_WARMUP} + "
+            f"{FP16_TRAIN_STEPS} steps, its 2-layer twin on the kernels vs "
+            f"the plain versions and under PackedOptimizerStep; the serve "
+            f"contiguous and on fp16 pages; BERT-Large under "
+            f"MixedPrecisionLamb, {FP16_BERT_STEPS} steps unmasked and "
+            f"masked; ResNet-50 fused, {FP16_RN50_STEPS} steps, and its B "
+            f"{FP16_RN50_TWIN['batch']} x {FP16_RN50_TWIN['size']}^2 twin)",
+            lambda: run_fp16_phase(args.profile)),
     }
     report["phase_s"] = {}
     try:

@@ -52,6 +52,9 @@ script), runs on one CUDA device, on inputs drawn from fixed seeds:
   serving segment reads, the contiguous and paged decode reads, bf16 and
   fp32, and the packed forward and backward at 256; "refused" on a tree
   whose kernels do not take the head dim);
+- every row in fp16 (`_fp16_digests`: rows 1-17 at their main paths'
+  shapes, the bottleneck also at widths 8 and 12; "refused" on a tree
+  whose kernels do not take fp16);
 
 and prints one JSON line: the sha256 of each call's outputs. Two trees
 whose lines agree give those kernels the same bits on the same card and
@@ -442,6 +445,181 @@ def _head_dim_digests(out, fa, fas, dev, gen):
             out[f"packed fwd {lab}"] = out[f"packed bwd {lab}"] = "refused"
 
 
+def _fp16_digests(out, mods, dev, gen):
+    """Every kernel row in fp16 (the f16 instances), on inputs of their
+    own generator: LayerNorm forward and backward (1, 2), the packed,
+    unpacked, segment and decode attention kernels (3-11), the softmax
+    forward and backward (12, which took fp16 before the rest), the
+    cross-entropy forms (13), the multi-tensor passes (14), a packed Adam
+    update (15), the LAMB stage pair (16) and the bottleneck ops at
+    layer3 and at widths 8 and 12 (17; 12 through the padded copy). A
+    tree whose kernels refuse fp16 (or the width) digests "refused"."""
+    fa, fas, fb, ln, sm = (mods[k] for k in ("fa", "fas", "fb", "ln", "sm"))
+    from rocm_apex_tpu_torch.ops import multi_tensor as mt
+    from rocm_apex_tpu_torch.ops import optim_kernels as ok
+    from rocm_apex_tpu_torch.ops import packing as pk
+    from rocm_apex_tpu_torch.ops import xentropy as xe
+
+    f16 = torch.float16
+
+    def rnd(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(*shape, generator=gen,
+                                            device=dev)).to(dtype)
+
+    def digest(name, call):
+        try:
+            out[f"fp16 {name}"] = _digest(call())
+        except (ValueError, RuntimeError, TypeError):
+            out[f"fp16 {name}"] = "refused"
+            torch.cuda.synchronize()
+
+    h, rows, rate, seed = 1024, 16384, 0.1, 2024
+    x, d = rnd(rows, h, dtype=f16), rnd(rows, h, dtype=f16)
+    w, b = rnd(h, scale=0.1, shift=1.0, dtype=f16), rnd(h, scale=0.1,
+                                                        dtype=f16)
+    digest("ln fwd train", lambda: ln._ln_fwd_impl(x, d, w, b, 1e-5, f16,
+                                                    rate, seed))
+    xf = x.float()
+    mu = xf.mean(1)
+    rs = torch.rsqrt(((xf - mu[:, None]) ** 2).mean(1) + 1e-5)
+    dy, ds = rnd(rows, h, dtype=f16), rnd(rows, h, dtype=f16)
+    digest("ln bwd residual+dropout", lambda: ln._layer_norm_bwd(
+        x, dy, ds, mu, rs, w, rate, seed))
+    xs = rnd(8, h, dtype=f16)
+    digest("ln fwd serve (8, 1024) -> float32", lambda: ln._ln_fwd_impl(
+        xs, None, w.float(), b.float(), 1e-5, torch.float32))
+    del x, d, xf, dy, ds
+    B, S, nh, hd = 16, 1024, 8, 128
+    qkv = rnd(B, S, nh, 3 * hd, dtype=f16)
+    pbias = (0.1 * rnd(nh * 3 * hd)).to(f16)
+    pdo = rnd(B, S, nh * hd, dtype=f16)
+    scale = 1.0 / hd ** 0.5
+
+    def packed():
+        po, plse = fa._flash_fwd(qkv, pbias, True, scale, 0.1, 9)
+        return (po, plse) + tuple(fa._flash_bwd(qkv, pbias, po, plse, pdo,
+                                                True, scale, 0.1, 9))
+
+    digest("packed fwd bwd (16, 1024, 8, 384)", packed)
+    del qkv, pdo
+    b2, h2, s2 = 8, 8, 512
+    q, k, v, do = (rnd(b2, h2, s2, hd, dtype=f16) for _ in range(4))
+    bias = rnd(b2 * h2, s2, s2, scale=0.5)
+
+    def unpacked():
+        o, lse = fa._unpacked_fwd(q, k, v, bias, False, scale, None, 0.1, 5)
+        return (o, lse) + tuple(fa._unpacked_bwd(
+            q, k, v, bias, o, lse, do, None, False, scale, None, 0.1, 5,
+            True))
+
+    digest("unpacked fwd bwd dbias (64, 512, 512, 128)", unpacked)
+    total = 2048
+    ids = torch.repeat_interleave(
+        torch.arange(6, dtype=torch.int32, device=dev),
+        torch.tensor([700, 300, 64, 500, 84, 400], device=dev))
+    qs, ks, vs, dos = (rnd(8, total, 64, dtype=f16) for _ in range(4))
+
+    def seg_train():
+        so, sl = fas._seg_fwd(qs, ks, vs, ids, True, 0.125)
+        return (so, sl) + tuple(fas._seg_bwd(qs, ks, vs, ids, so, sl, dos,
+                                             True, 0.125))
+
+    digest("segments train (8, 2048, 64)", seg_train)
+    sid = ids[:256].contiguous()
+    q3, k3, v3 = (rnd(8, 256, hd, dtype=f16) for _ in range(3))
+    digest("segments serve (8, 256, 128)", lambda: (
+        fas.flash_attention_segments_with_lse(q3, k3, v3, sid,
+                                              causal=True)))
+    slots, cap = 8, 1024
+    kc, vc = (rnd(slots, cap, 8, hd, dtype=f16) for _ in range(2))
+    lens = torch.tensor([1024, 0, 17, 513, 300, 64, 1000, 129],
+                        dtype=torch.int32, device=dev)
+    qd = rnd(slots, 8, hd, dtype=f16)
+    digest("decode grid", lambda: fa.flash_attention_decode(
+        qd, kc, vc, lens, return_lse=True))
+    ps = 16
+    pool = [t.view(slots, cap // ps, ps, 8, hd).permute(
+        0, 1, 3, 2, 4).reshape(-1, 8, ps, hd).contiguous() for t in (kc, vc)]
+    table = torch.arange(slots * cap // ps, dtype=torch.int32,
+                         device=dev).view(slots, -1)
+    digest("paged grid", lambda: fa.flash_attention_decode_paged(
+        qd, pool[0], pool[1], table, lens, return_lse=True))
+    del kc, vc, pool
+    sc = rnd(128, 1024, 1024, dtype=f16)
+    digest("softmax causal fwd bwd (128, 1024, 1024)", lambda: (
+        sm.softmax_causal_fwd(sc, 0.088),
+        sm.softmax_bwd(sm.softmax_causal_fwd(sc, 0.088), sc, 0.088)))
+    del sc
+    logits = rnd(4096, 30592, dtype=f16, scale=2.0)
+    labels = torch.randint(0, 30592, (4096,), generator=gen, device=dev)
+    dl = rnd(4096)
+
+    def xent():
+        loss, dg = xe.xent_fwd_dg(logits, labels, 0.0)
+        _, lse = xe.xent_fwd(logits, labels, 0.1)
+        return loss, dg, lse, xe.xent_bwd(logits, labels, lse, dl, 0.1)
+
+    digest("xentropy fwd_dg fwd bwd (4096, 30592)", xent)
+    del logits
+    tree = {"w": rnd(1000, 1024, dtype=f16, scale=1024.0),
+            "b": rnd(3000, dtype=f16, scale=1024.0)}
+    packed_g = pk.pack_tree(tree)
+
+    def multi():
+        o1, f1 = mt.scale_packed(packed_g, 1.0 / 1024, torch.float32)
+        o2, f2, r2 = mt.scale_sumsq_packed(packed_g, 1.0 / 1024, f16)
+        o3, f3 = mt.axpby_packed(packed_g, packed_g, 0.5, 0.25,
+                                 torch.float32)
+        return (*o1.buffers, f1, *o2.buffers, f2, *r2, *o3.buffers, f3,
+                mt.row_sumsq(packed_g.buffers[0]))
+
+    digest("multi_tensor scale scale_sumsq axpby row_sumsq", multi)
+    pp, gg, mm = rnd(4096, 1024), rnd(4096, 1024, dtype=f16), rnd(4096, 1024)
+    vv, wd = rnd(4096, 1024).abs(), rnd(4096, 1, scale=0.01).abs()
+    s_adam = [1e-3, 0.9, 0.1, 0.999, 0.001, 1e-8, 1 - 0.9 ** 3,
+              1 - 0.999 ** 3, 0.5]
+    digest("packed adam fp16 gradients", lambda: ok.adam_update(
+        pp, gg, mm, vv, wd, s_adam, True))
+    shapes = [(1024, 4096), (1001, 1023), (30592, 1024)]
+    lp = [rnd(*t) for t in shapes]
+    lg = [rnd(*t, dtype=f16) for t in shapes]
+    lm = [rnd(*t) for t in shapes]
+    lv = [rnd(*t).abs() for t in shapes]
+    s1 = torch.tensor([0.9, 0.999, 0.1, 1e-6, 1 - 0.9 ** 3, 1 - 0.999 ** 3,
+                       0.7, 1.0], device=dev)
+
+    def lamb():
+        sums = ok.lamb_leaves_stage1(lp, lg, lm, lv, s1, [0.01] * 3, True)
+        copies = [torch.empty_like(t, dtype=f16) for t in lp]
+        ok.lamb_leaves_stage2(lp, lm, lv, s1[[3, 4, 5, 7]].contiguous(),
+                              torch.full((3,), 0.7, device=dev),
+                              [0.01] * 3, True, model_outs=copies)
+        return (sums, *lm, *lv, *lp, *copies)
+
+    digest("lamb stages fp16 gradients, fp16 copies", lamb)
+    for name, n, hh, c in (("layer3", 128, 14, 256), ("widths 8", 3, 7, 8),
+                           ("widths 12", 3, 7, 12)):
+        e = rnd(n, hh, hh, c, dtype=f16, scale=1e-2)
+        xb = rnd(n, hh, hh, c, dtype=f16)
+        yb = rnd(n, hh, hh, c, dtype=f16)
+        w3 = rnd(3, 3, c, c, scale=(2.0 / (9 * c)) ** 0.5, dtype=f16)
+        w1 = rnd(c, 4 * c, scale=(2.0 / c) ** 0.5, dtype=f16)
+        kf = (rnd(c, scale=0.1, shift=1.0), rnd(c, scale=1e-3),
+              rnd(c, scale=1e-3))
+        pro = (rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1))
+        red = (rnd(c, scale=0.1), rnd(c, scale=0.1, shift=1.0))
+        x2 = xb.reshape(-1, c)
+        e1 = rnd(x2.shape[0], 4 * c, dtype=f16, scale=1e-2)
+        digest(f"conv1x1 fwd prologue {name}", lambda: _flat(
+            fb.conv1x1_bn_act(x2, w1, *pro)))
+        digest(f"conv3 fwd prologue {name}", lambda: _flat(
+            fb.conv3x3_bn_act(xb, w3, *pro)))
+        digest(f"conv1x1 bwd {name}", lambda: fb.conv1x1_bn_act_bwd(
+            e1, w1, x2, None, None, pro, red))
+        digest(f"conv3 bwd {name}", lambda: fb.conv3x3_bn_act_bwd(
+            e, w3, xb, (yb, *kf), pro, red))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(
@@ -580,6 +758,8 @@ def main(argv=None):
         12))
     _head_dim_digests(out, fa, fas, dev,
                       torch.Generator(device=dev).manual_seed(21))
+    _fp16_digests(out, dict(fa=fa, fas=fas, fb=fb, ln=ln, sm=sm), dev,
+                  torch.Generator(device=dev).manual_seed(22))
     torch.cuda.synchronize()
     print(json.dumps(out))
     return 0

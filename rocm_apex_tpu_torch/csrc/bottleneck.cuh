@@ -20,8 +20,8 @@
 // partial per block, and reduced over the blocks in a fixed order by
 // `reduce_parts`: no atomics, so a run repeats itself bit for bit.
 //
-// bf16: 128 x 64 tiles, 4 warps of 64 x 32, mma.sync m16n8k16 with fp32
-// accumulators, fragments by ldmatrix from rows padded to 80 bytes; a
+// bf16 and fp16: 128 x 64 tiles, 4 warps of 64 x 32, mma.sync m16n8k16
+// with fp32 accumulators, fragments by ldmatrix from rows padded to 80 bytes; a
 // wgrad, whose reduction axis (the pixels) runs down both sources, stages
 // its tiles k-major as they lie and forms the fragments with
 // ldmatrix.trans.
@@ -39,8 +39,8 @@ namespace bneck {
 template <typename T>
 struct Cfg;
 
-template <>
-struct Cfg<__nv_bfloat16> {
+// the 2-byte types (bf16, fp16) share one layout and one mma.sync body
+struct CfgHalf {
   static constexpr int BM = 128, BN = 64, BK = 32, kThreads = 128;
   static constexpr int LDS = BK + 8;  // 80-byte rows: 16-byte aligned
   static constexpr int LDC = BN + 4;
@@ -48,6 +48,10 @@ struct Cfg<__nv_bfloat16> {
   // 272 and 144 bytes, 16-byte aligned, 8 rows on distinct bank groups
   static constexpr int LDA_T = BM + 8, LDB_T = BN + 8;
 };
+template <>
+struct Cfg<__nv_bfloat16> : CfgHalf {};
+template <>
+struct Cfg<__half> : CfgHalf {};
 
 template <>
 struct Cfg<float> {
@@ -185,7 +189,8 @@ __device__ __forceinline__ void stage(T* __restrict__ dst, Fn fn) {
 // ---------------------------------------------------------------------------
 
 // ldmatrix.x4.trans: as ldsm_x4, each 8 x 8 matrix transposed on the way
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+template <typename T>
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const T* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
@@ -197,9 +202,10 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
 template <typename T>
 struct Acc;
 
-template <>
-struct Acc<__nv_bfloat16> {
-  using C = Cfg<__nv_bfloat16>;
+// the 2-byte types' accumulator: mma.sync m16n8k16 on T operands
+template <typename T>
+struct AccHalf {
+  using C = Cfg<T>;
   static constexpr int MI = 4, NI = 4;  // 16-row and 8-column fragments
   float c[MI][NI][4];
 
@@ -212,7 +218,7 @@ struct Acc<__nv_bfloat16> {
         for (int k = 0; k < 4; ++k) c[i][j][k] = 0.f;
   }
 
-  __device__ __forceinline__ void mac(const bf16* As, const bf16* Bs) {
+  __device__ __forceinline__ void mac(const T* As, const T* Bs) {
     const int warp = threadIdx.x >> 5;
     const int wm = (warp >> 1) * 64, wn = (warp & 1) * 32;
 #pragma unroll
@@ -226,8 +232,8 @@ struct Acc<__nv_bfloat16> {
         load_b2(b, Bs, C::LDS, wn + jj * 16, k0);
 #pragma unroll
         for (int i = 0; i < MI; ++i) {
-          mma_bf16(c[i][2 * jj], a[i], b[0], b[1]);
-          mma_bf16(c[i][2 * jj + 1], a[i], b[2], b[3]);
+          mma16<T>(c[i][2 * jj], a[i], b[0], b[1]);
+          mma16<T>(c[i][2 * jj + 1], a[i], b[2], b[3]);
         }
       }
     }
@@ -236,7 +242,7 @@ struct Acc<__nv_bfloat16> {
   // the same product from k-major tiles At[BK][LDA_T], Bt[BK][LDB_T]
   // (rows = the reduction axis): ldmatrix.trans turns each 8 x 8 block
   // stored k-major into the row-major A and n-major B fragments
-  __device__ __forceinline__ void mac_t(const bf16* At, const bf16* Bt) {
+  __device__ __forceinline__ void mac_t(const T* At, const T* Bt) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int wm = (warp >> 1) * 64, wn = (warp & 1) * 32;
     const int mi = lane >> 3, r8 = lane & 7;
@@ -254,8 +260,8 @@ struct Acc<__nv_bfloat16> {
                          jj * 16 + (mi >> 1) * 8);
 #pragma unroll
         for (int i = 0; i < MI; ++i) {
-          mma_bf16(c[i][2 * jj], a[i], b[0], b[1]);
-          mma_bf16(c[i][2 * jj + 1], a[i], b[2], b[3]);
+          mma16<T>(c[i][2 * jj], a[i], b[0], b[1]);
+          mma16<T>(c[i][2 * jj + 1], a[i], b[2], b[3]);
         }
       }
     }
@@ -277,6 +283,11 @@ struct Acc<__nv_bfloat16> {
       }
   }
 };
+
+template <>
+struct Acc<__nv_bfloat16> : AccHalf<__nv_bfloat16> {};
+template <>
+struct Acc<__half> : AccHalf<__half> {};
 
 template <>
 struct Acc<float> {
@@ -318,7 +329,7 @@ struct Acc<float> {
 
 // One block: the tile of blockIdx, every reduction chunk staged and
 // multiplied in turn, then the epilogue over the fp32 tile in Cs. A
-// problem with kKMajor stages k-major tiles (bf16 only).
+// problem with kKMajor stages k-major tiles (the 2-byte types only).
 template <typename T, class Prob>
 __global__ void __launch_bounds__(Cfg<T>::kThreads) gemm_kernel(Prob p) {
   using C = Cfg<T>;

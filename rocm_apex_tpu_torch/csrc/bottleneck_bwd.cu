@@ -317,7 +317,7 @@ int mm_bwd(Cot<T> d, Up<T> u, const void* w, void* g, float* dw, float* r12,
 }
 
 // ---------------------------------------------------------------------------
-// the bf16 backwards on bottleneck_pipe.cuh
+// the bf16 and fp16 backwards on bottleneck_pipe.cuh
 // ---------------------------------------------------------------------------
 
 // The 1x1 backward's pre-pass: dz = finalize(premask(e, z), y) (M, N)
@@ -452,10 +452,9 @@ inline cudaError_t sum_parts(const float* in, int parts, int64_t width,
 // (BM a tile); reduction: (tap, 64-channel chunk of Cout), tap-major; A
 // and B K-major (rows of Cout contiguous values: dz's pixel rows, w[t]'s
 // rows, one a column ci of the tile).
-template <int BN>
+template <typename T, int BN>
 struct Conv3DgradPipe {
-  using Cfg = PCfg<BN, false>;
-  using T = bf16;
+  using Cfg = PCfg<T, BN, false>;
   const T* dz;  // (M, Cout)
   const T* u;   // (M, Cin): the mask
   const T* x;   // (M, Cin): x̂ of the reductions
@@ -514,7 +513,7 @@ struct Conv3DgradPipe {
   // of the tile (vector loads of u and x, one vector store of g), its
   // sums in row order; the row groups' sums then combined in group
   // order through shared memory (the tile's, free once read).
-  __device__ void epilogue(const WAcc<BN>& acc, float* Cs) const {
+  __device__ void epilogue(const WAcc<T, BN>& acc, float* Cs) const {
     acc.store(Cs, Cfg::LDC);
     __syncthreads();
     constexpr int kSegs = BN / 8;
@@ -566,10 +565,9 @@ struct Conv3DgradPipe {
 // u[p + off_t][ci]^T dz[p], row t * Cin + ci: the taps folded into the
 // output rows, so that ws[s] has dw's (3, 3, Cin, Cout) layout. Both
 // sources MN-major (pixels down the tile), as they lie.
-template <int BN>
+template <typename T, int BN>
 struct Conv3WgradPipe {
-  using Cfg = PCfg<BN, true>;
-  using T = bf16;
+  using Cfg = PCfg<T, BN, true>;
   const T* u;   // (M, Cin)
   const T* dz;  // (M, Cout)
   float* ws;    // (splits, 9 Cin, Cout)
@@ -649,7 +647,7 @@ struct Conv3WgradPipe {
     }
   }
 
-  __device__ void epilogue(const WAcc<BN>& acc, float*) const {
+  __device__ void epilogue(const WAcc<T, BN>& acc, float*) const {
     const int row0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * BN;
     const int rows = 9 * Cin;
     float* out = ws + static_cast<int64_t>(blockIdx.z) * rows * Cout;
@@ -670,10 +668,9 @@ struct Conv3WgradPipe {
 // prologue's own rule: a positive s below bf16's least subnormal rounds
 // to a bf16 u of 0, so u > 0 would drop it), and writes the tile's
 // (Σg, Σg x̂) partial where the reductions run.
-template <int BN>
+template <typename T, int BN>
 struct MmDgradPipe {
-  using Cfg = PCfg<BN, false>;
-  using T = bf16;
+  using Cfg = PCfg<T, BN, false>;
   const T* dz;  // (M, N)
   const T* w;   // (K, N)
   const T* x;   // (M, K); null: no mask and no reductions
@@ -703,7 +700,7 @@ struct MmDgradPipe {
   // of the tile (vector loads of x, one vector store of g), its sums in
   // row order; the row groups' sums then combined in group order through
   // shared memory (the tile's, free once read).
-  __device__ void epilogue(const WAcc<BN>& acc, float* Cs) const {
+  __device__ void epilogue(const WAcc<T, BN>& acc, float* Cs) const {
     acc.store(Cs, Cfg::LDC);
     __syncthreads();
     constexpr int kSegs = BN / 8;
@@ -770,10 +767,9 @@ struct MmDgradPipe {
 // K (BM a tile), columns N (BN a tile), reduction the split's pixels in
 // 64-deep chunks; both sources MN-major (pixels down the tile), as they
 // lie.
-template <int BN>
+template <typename T, int BN>
 struct MmWgradPipe {
-  using Cfg = PCfg<BN, true>;
-  using T = bf16;
+  using Cfg = PCfg<T, BN, true>;
   const T* u;   // (M, K)
   const T* dz;  // (M, N)
   float* ws;    // (splits, K, N)
@@ -824,7 +820,7 @@ struct MmWgradPipe {
     }
   }
 
-  __device__ void epilogue(const WAcc<BN>& acc, float*) const {
+  __device__ void epilogue(const WAcc<T, BN>& acc, float*) const {
     const int row0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * BN;
     float* out = ws + static_cast<int64_t>(blockIdx.z) * K * N;
     acc.for_pairs([&](int r, int col, float v0, float v1) {
@@ -836,39 +832,40 @@ struct MmWgradPipe {
   }
 };
 
-// the bf16 3x3 backward: pre-pass, dgrad, wgrad, the sums of the wgrad's
-// split partials (one launch for every tap) and of the dgrad's tile
-// partials. dzbuf is null when y is (dz = e itself).
-inline int conv3_bwd_bf16(Cot<bf16> d, Up<bf16> u, const bf16* w, bf16* g,
-                          float* dw, float* r12, float* part, float* wsw,
-                          float* scratch, bf16* dzbuf, bf16* ubuf, int n,
-                          int H, int W, int Cin, int Cout, int64_t split_len,
-                          int splits, int sms, cudaStream_t stream) {
+// the 3x3 backward on the pipe: pre-pass, dgrad, wgrad, the sums of the
+// wgrad's split partials (one launch for every tap) and of the dgrad's
+// tile partials. dzbuf is null when y is (dz = e itself).
+template <typename T>
+int conv3_bwd_pipe(Cot<T> d, Up<T> u, const T* w, T* g, float* dw,
+                   float* r12, float* part, float* wsw, float* scratch,
+                   T* dzbuf, T* ubuf, int n, int H, int W, int Cin, int Cout,
+                   int64_t split_len, int splits, int sms,
+                   cudaStream_t stream) {
   const int64_t M = static_cast<int64_t>(n) * H * W;
   const int tiles = static_cast<int>((M + 127) / 128);
   const int pre_blocks = prepass_blocks(M, Cin, Cout, sms);
   if (pre_blocks > 0)
-    conv3_prepass_kernel<bf16><<<pre_blocks, 256, 0, stream>>>(
+    conv3_prepass_kernel<T><<<pre_blocks, 256, 0, stream>>>(
         d, u, dzbuf, ubuf, M, Cin, Cout);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const bf16* dz = d.y != nullptr ? dzbuf : d.e;
+  const T* dz = d.y != nullptr ? dzbuf : d.e;
   if (Cin % 128 == 0) {
-    Conv3DgradPipe<128> p{dz, ubuf, u.x, u.mu, u.rs, w, g, part,
+    Conv3DgradPipe<T, 128> p{dz, ubuf, u.x, u.mu, u.rs, w, g, part,
                           M, H, W, Cin, Cout};
     err = launch_pipe(p, dim3(tiles, Cin / 128), stream);
   } else {
-    Conv3DgradPipe<64> p{dz, ubuf, u.x, u.mu, u.rs, w, g, part,
+    Conv3DgradPipe<T, 64> p{dz, ubuf, u.x, u.mu, u.rs, w, g, part,
                          M, H, W, Cin, Cout};
     err = launch_pipe(p, dim3(tiles, (Cin + 63) / 64), stream);
   }
   if (err != cudaSuccess) return err;
   const unsigned row_tiles = static_cast<unsigned>((9 * Cin + 127) / 128);
   if (Cout % 128 == 0) {
-    Conv3WgradPipe<128> p{ubuf, dz, wsw, M, H, W, Cin, Cout, split_len};
+    Conv3WgradPipe<T, 128> p{ubuf, dz, wsw, M, H, W, Cin, Cout, split_len};
     err = launch_pipe(p, dim3(row_tiles, Cout / 128, splits), stream);
   } else {
-    Conv3WgradPipe<64> p{ubuf, dz, wsw, M, H, W, Cin, Cout, split_len};
+    Conv3WgradPipe<T, 64> p{ubuf, dz, wsw, M, H, W, Cin, Cout, split_len};
     err = launch_pipe(p, dim3(row_tiles, (Cout + 63) / 64, splits), stream);
   }
   if (err != cudaSuccess) return err;
@@ -879,17 +876,17 @@ inline int conv3_bwd_bf16(Cot<bf16> d, Up<bf16> u, const bf16* w, bf16* g,
                       scratch, stream);
 }
 
-// the bf16 1x1 backward on the pipe (K and N multiples of 64): the
+// the 1x1 backward on the pipe (K and N multiples of 64): the
 // pre-pass where there is a pre-mask or a finalize (dzbuf; else dz = e)
 // and where the wgrad runs under a prologue (ubuf; else u = x), the
 // dgrad (g non-null), the wgrad and the sum of its split partials (dw
 // non-null), the sums of the dgrad's tile partials (with the
 // reductions).
-inline int mm_bwd_bf16(Cot<bf16> d, Up<bf16> u, const bf16* w, bf16* g,
-                       float* dw, float* r12, float* part, float* wsw,
-                       float* scratch, bf16* dzbuf, bf16* ubuf, int64_t M,
-                       int K, int N, int64_t split_len, int splits, int sms,
-                       cudaStream_t stream) {
+template <typename T>
+int mm_bwd_pipe(Cot<T> d, Up<T> u, const T* w, T* g, float* dw, float* r12,
+                float* part, float* wsw, float* scratch, T* dzbuf, T* ubuf,
+                int64_t M, int K, int N, int64_t split_len, int splits,
+                int sms, cudaStream_t stream) {
   const bool need_dz = (d.z != nullptr || d.y != nullptr) &&
                        (g != nullptr || dw != nullptr);
   if (K % 64 != 0 || N % 64 != 0 || need_dz != (dzbuf != nullptr) ||
@@ -899,31 +896,31 @@ inline int mm_bwd_bf16(Cot<bf16> d, Up<bf16> u, const bf16* w, bf16* g,
   const int pre_blocks =
       dzbuf != nullptr || ubuf != nullptr ? prepass_blocks(M, K, N, sms) : 0;
   if (pre_blocks > 0)
-    mm_prepass_kernel<bf16><<<pre_blocks, 256, 0, stream>>>(d, u, dzbuf,
-                                                            ubuf, M, K, N);
+    mm_prepass_kernel<T><<<pre_blocks, 256, 0, stream>>>(d, u, dzbuf, ubuf,
+                                                         M, K, N);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const bf16* dz = dzbuf != nullptr ? dzbuf : d.e;
+  const T* dz = dzbuf != nullptr ? dzbuf : d.e;
   if (g != nullptr) {
-    const bf16* x = u.a != nullptr || u.mu != nullptr ? u.x : nullptr;
+    const T* x = u.a != nullptr || u.mu != nullptr ? u.x : nullptr;
     float* p = u.mu != nullptr ? part : nullptr;
     if (K % 128 == 0) {
-      MmDgradPipe<128> pd{dz, w, x, u.a, u.b, u.mu, u.rs, g, p, M, K, N};
+      MmDgradPipe<T, 128> pd{dz, w, x, u.a, u.b, u.mu, u.rs, g, p, M, K, N};
       err = launch_pipe(pd, dim3(tiles, K / 128), stream);
     } else {
-      MmDgradPipe<64> pd{dz, w, x, u.a, u.b, u.mu, u.rs, g, p, M, K, N};
+      MmDgradPipe<T, 64> pd{dz, w, x, u.a, u.b, u.mu, u.rs, g, p, M, K, N};
       err = launch_pipe(pd, dim3(tiles, K / 64), stream);
     }
     if (err != cudaSuccess) return err;
   }
   if (dw != nullptr) {
-    const bf16* src = ubuf != nullptr ? ubuf : u.x;
+    const T* src = ubuf != nullptr ? ubuf : u.x;
     const unsigned row_tiles = static_cast<unsigned>((K + 127) / 128);
     if (N % 128 == 0) {
-      MmWgradPipe<128> pw{src, dz, wsw, M, K, N, split_len};
+      MmWgradPipe<T, 128> pw{src, dz, wsw, M, K, N, split_len};
       err = launch_pipe(pw, dim3(row_tiles, N / 128, splits), stream);
     } else {
-      MmWgradPipe<64> pw{src, dz, wsw, M, K, N, split_len};
+      MmWgradPipe<T, 64> pw{src, dz, wsw, M, K, N, split_len};
       err = launch_pipe(pw, dim3(row_tiles, N / 64, splits), stream);
     }
     if (err != cudaSuccess) return err;
@@ -990,23 +987,27 @@ int bneck_mm_bwd(const void* e, const void* z, const void* y,
                  int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (pipe) {
-    if (dtype != kBFloat16) return cudaErrorInvalidValue;
-    using T = __nv_bfloat16;
-    return bneck::mm_bwd_bf16(
-        {static_cast<const T*>(e), static_cast<const T*>(z),
-         static_cast<const T*>(y), k1, k2, k0},
-        {static_cast<const T*>(x), a, b, mu, rs}, static_cast<const T*>(w),
-        static_cast<T*>(g), dw, r12, part, wsw, scratch,
-        static_cast<T*>(dzbuf), static_cast<T*>(ubuf), M, K, N, split_len,
-        splits, sms, s);
+    if (!is_half_code(dtype)) return cudaErrorInvalidValue;
+    return with_half(dtype, [&](auto h) {
+      using T = decltype(h);
+      return bneck::mm_bwd_pipe<T>(
+          {static_cast<const T*>(e), static_cast<const T*>(z),
+           static_cast<const T*>(y), k1, k2, k0},
+          {static_cast<const T*>(x), a, b, mu, rs}, static_cast<const T*>(w),
+          static_cast<T*>(g), dw, r12, part, wsw, scratch,
+          static_cast<T*>(dzbuf), static_cast<T*>(ubuf), M, K, N, split_len,
+          splits, sms, s);
+    });
   }
-  if (dtype == kBFloat16) {
-    using T = __nv_bfloat16;
-    return bneck::mm_bwd<T>(
-        {static_cast<const T*>(e), static_cast<const T*>(z),
-         static_cast<const T*>(y), k1, k2, k0},
-        {static_cast<const T*>(x), a, b, mu, rs}, w, g, dw, r12, part, wsw,
-        scratch, M, K, N, split_len, splits, s);
+  if (is_half_code(dtype)) {
+    return with_half(dtype, [&](auto h) {
+      using T = decltype(h);
+      return bneck::mm_bwd<T>(
+          {static_cast<const T*>(e), static_cast<const T*>(z),
+           static_cast<const T*>(y), k1, k2, k0},
+          {static_cast<const T*>(x), a, b, mu, rs}, w, g, dw, r12, part, wsw,
+          scratch, M, K, N, split_len, splits, s);
+    });
   }
   if (dtype == kFloat32) {
     using T = float;
@@ -1033,15 +1034,17 @@ int bneck_conv3_bwd(const void* e, const void* y, const float* k1,
                     int Cout, long long split_len, int splits, int sms,
                     int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16) {
-    using T = __nv_bfloat16;
-    return bneck::conv3_bwd_bf16(
-        {static_cast<const T*>(e), nullptr, static_cast<const T*>(y), k1, k2,
-         k0},
-        {static_cast<const T*>(x), a, b, mu, rs}, static_cast<const T*>(w),
-        static_cast<T*>(g), dw, r12, part, wsw, scratch,
-        static_cast<T*>(dzbuf), static_cast<T*>(ubuf), n, H, W, Cin, Cout,
-        split_len, splits, sms, s);
+  if (is_half_code(dtype)) {
+    return with_half(dtype, [&](auto h) {
+      using T = decltype(h);
+      return bneck::conv3_bwd_pipe<T>(
+          {static_cast<const T*>(e), nullptr, static_cast<const T*>(y), k1,
+           k2, k0},
+          {static_cast<const T*>(x), a, b, mu, rs}, static_cast<const T*>(w),
+          static_cast<T*>(g), dw, r12, part, wsw, scratch,
+          static_cast<T*>(dzbuf), static_cast<T*>(ubuf), n, H, W, Cin, Cout,
+          split_len, splits, sms, s);
+    });
   }
   if (dtype == kFloat32) {
     using T = float;

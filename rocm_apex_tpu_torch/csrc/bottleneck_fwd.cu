@@ -173,15 +173,16 @@ struct Conv3Fwd {
   }
 };
 
-// The bf16 pre-pass of the 3x3 and the 1x1 forwards: u = relu(x a + b)
-// (M, Cin) with `prologue_dt`'s rounding, the grid as `prepass_blocks`
-// sizes it
+// The pipe's pre-pass of the 3x3 and the 1x1 forwards: u = relu(x a + b)
+// (M, Cin) in T with `prologue_dt`'s rounding, the grid as
+// `prepass_blocks` sizes it
+template <typename T>
 __global__ void __launch_bounds__(256)
-    conv3_fwd_prepass_kernel(const bf16* __restrict__ x,
+    conv3_fwd_prepass_kernel(const T* __restrict__ x,
                              const float* __restrict__ a,
-                             const float* __restrict__ b, bf16* __restrict__ u,
+                             const float* __restrict__ b, T* __restrict__ u,
                              int64_t M, int Cin) {
-  prologue_rows<bf16>(x, a, b, u, M, Cin,
+  prologue_rows<T>(x, a, b, u, M, Cin,
                       static_cast<int64_t>(blockIdx.x) * blockDim.x +
                           threadIdx.x,
                       static_cast<int64_t>(gridDim.x) * blockDim.x);
@@ -193,11 +194,11 @@ __global__ void __launch_bounds__(256)
 // vector store of y), its sums in row order; the row groups' sums then
 // combined in group order through shared memory (the tile's, free once
 // read).
-template <int BN>
-__device__ __forceinline__ void fwd_epilogue(const WAcc<BN>& acc, float* Cs,
-                                             bf16* __restrict__ y,
+template <typename T, int BN>
+__device__ __forceinline__ void fwd_epilogue(const WAcc<T, BN>& acc,
+                                             float* Cs, T* __restrict__ y,
                                              float* part, int64_t M, int N) {
-  using Cfg = PCfg<BN, false>;
+  using Cfg = PCfg<T, BN, false>;
   acc.store(Cs, Cfg::LDC);
   __syncthreads();
   constexpr int kSegs = BN / 8;
@@ -223,7 +224,7 @@ __device__ __forceinline__ void fwd_epilogue(const WAcc<BN>& acc, float* Cs,
           s1[j] += v[j];
           s2[j] = fmaf(v[j], v[j], s2[j]);
         }
-        store_vec_packed<bf16, 8>(y + (m0 + r) * N + n0 + c, v);
+        store_vec_packed<T, 8>(y + (m0 + r) * N + n0 + c, v);
       }
     }
   }
@@ -238,10 +239,9 @@ __device__ __forceinline__ void fwd_epilogue(const WAcc<BN>& acc, float* Cs,
 // tap-major; A and B K-major (rows of Cin contiguous values: u's pixel
 // rows shifted by the tap, wt[t]'s rows, one a column co of the tile).
 // The dgrad of the backward (Conv3DgradPipe) with the tap's sign flipped.
-template <int BN>
+template <typename T, int BN>
 struct Conv3FwdPipe {
-  using Cfg = PCfg<BN, false>;
-  using T = bf16;
+  using Cfg = PCfg<T, BN, false>;
   const T* u;   // (M, Cin): the activated input (x in the bare form)
   const T* wt;  // (9, Cout, Cin)
   T* y;
@@ -283,8 +283,8 @@ struct Conv3FwdPipe {
         blockIdx.y * BN, c0);
   }
 
-  __device__ void epilogue(const WAcc<BN>& acc, float* Cs) const {
-    fwd_epilogue<BN>(acc, Cs, y, part, M, Cout);
+  __device__ void epilogue(const WAcc<T, BN>& acc, float* Cs) const {
+    fwd_epilogue<T, BN>(acc, Cs, y, part, M, Cout);
   }
 };
 
@@ -293,12 +293,12 @@ struct Conv3FwdPipe {
 // a tile), reduction K in 64-deep chunks; A and B K-major, as they lie.
 // Conv3FwdPipe with one tap, or the 1x1 backward's dgrad with x in dz's
 // place.
-template <int BN>
+template <typename T, int BN>
 struct MmFwdPipe {
-  using Cfg = PCfg<BN, false>;
-  const bf16* u;
-  const bf16* wt;
-  bf16* y;
+  using Cfg = PCfg<T, BN, false>;
+  const T* u;
+  const T* wt;
+  T* y;
   float* part;  // (tiles over M, 2, N) or null: no statistics
   int64_t M;
   int K, N;
@@ -316,8 +316,8 @@ struct MmFwdPipe {
     load_kmajor_rows<BN, Cfg::kThreads>(Bs, wt, N, K, blockIdx.y * BN, c0);
   }
 
-  __device__ void epilogue(const WAcc<BN>& acc, float* Cs) const {
-    fwd_epilogue<BN>(acc, Cs, y, part, M, N);
+  __device__ void epilogue(const WAcc<T, BN>& acc, float* Cs) const {
+    fwd_epilogue<T, BN>(acc, Cs, y, part, M, N);
   }
 };
 
@@ -352,23 +352,24 @@ int conv3_fwd(const void* x, const float* a, const float* b, const void* wt,
                       scratch, stream);
 }
 
-// The bf16 forwards on the pipe (channel counts multiples of 64): the
+// The bf16 and fp16 forwards on the pipe (channel counts multiples of 64):
+// the
 // pre-pass where there is a prologue (u = ubuf, (M, K); else the product
 // reads x), the product `make(bn, u, part)` builds in tiles of 128 pixels
 // x bn channels over a grid of (pixel tiles, N / bn), the sums of its
 // tile partials.
-template <class Make>
-int fwd_pipe(const bf16* x, const float* a, const float* b, bf16* ubuf,
+template <typename T, class Make>
+int fwd_pipe(const T* x, const float* a, const float* b, T* ubuf,
              float* part, float* scratch, float* sums, int64_t M, int K,
              int N, int bn, int sms, cudaStream_t stream, Make make) {
   const int tiles = static_cast<int>((M + 127) / 128);
   if ((a != nullptr) != (ubuf != nullptr) || K % 64 || N % 64 ||
       (bn != 128 && bn != 64) || N % bn)
     return cudaErrorInvalidValue;
-  const bf16* u = x;
+  const T* u = x;
   if (a != nullptr) {
-    conv3_fwd_prepass_kernel<<<prepass_blocks(M, K, K, sms), 256, 0,
-                               stream>>>(x, a, b, ubuf, M, K);
+    conv3_fwd_prepass_kernel<T><<<prepass_blocks(M, K, K, sms), 256, 0,
+                                  stream>>>(x, a, b, ubuf, M, K);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     u = ubuf;
@@ -386,28 +387,29 @@ int fwd_pipe(const bf16* x, const float* a, const float* b, bf16* ubuf,
                       scratch, stream);
 }
 
-// the bf16 1x1 on the pipe: y (M, N) = P(x) @ w, wt = w^T (N, K)
-inline int mm_fwd_pipe(const bf16* x, const float* a, const float* b,
-                       const bf16* wt, bf16* y, float* part, float* scratch,
-                       float* sums, bf16* ubuf, int64_t M, int K, int N,
-                       int bn, int sms, cudaStream_t stream) {
+// the 1x1 on the pipe: y (M, N) = P(x) @ w, wt = w^T (N, K)
+template <typename T>
+int mm_fwd_pipe(const T* x, const float* a, const float* b, const T* wt,
+                T* y, float* part, float* scratch, float* sums, T* ubuf,
+                int64_t M, int K, int N, int bn, int sms,
+                cudaStream_t stream) {
   return fwd_pipe(x, a, b, ubuf, part, scratch, sums, M, K, N, bn, sms,
-                  stream, [&](auto bnc, const bf16* u, float* pp) {
-                    return MmFwdPipe<decltype(bnc)::value>{u, wt, y, pp, M,
-                                                           K, N};
+                  stream, [&](auto bnc, const T* u, float* pp) {
+                    return MmFwdPipe<T, decltype(bnc)::value>{u, wt, y, pp,
+                                                              M, K, N};
                   });
 }
 
-// the bf16 3x3 on the pipe: x (n, H, W, Cin), wt (9, Cout, Cin)
-inline int conv3_fwd_pipe(const bf16* x, const float* a, const float* b,
-                          const bf16* wt, bf16* y, float* part,
-                          float* scratch, float* sums, bf16* ubuf, int n,
-                          int H, int W, int Cin, int Cout, int bn, int sms,
-                          cudaStream_t stream) {
+// the 3x3 on the pipe: x (n, H, W, Cin), wt (9, Cout, Cin)
+template <typename T>
+int conv3_fwd_pipe(const T* x, const float* a, const float* b, const T* wt,
+                   T* y, float* part, float* scratch, float* sums, T* ubuf,
+                   int n, int H, int W, int Cin, int Cout, int bn, int sms,
+                   cudaStream_t stream) {
   const int64_t M = static_cast<int64_t>(n) * H * W;
   return fwd_pipe(x, a, b, ubuf, part, scratch, sums, M, Cin, Cout, bn, sms,
-                  stream, [&](auto bnc, const bf16* u, float* pp) {
-                    return Conv3FwdPipe<decltype(bnc)::value>{
+                  stream, [&](auto bnc, const T* u, float* pp) {
+                    return Conv3FwdPipe<T, decltype(bnc)::value>{
                         u, wt, y, pp, M, H, W, Cin, Cout};
                   });
 }
@@ -430,15 +432,20 @@ int bneck_mm_fwd(const void* x, const float* a, const float* b,
                  float* sums, void* ubuf, long long M, int K, int N, int bn,
                  int sms, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16 && bn != 0)
-    return bneck::mm_fwd_pipe(
-        static_cast<const bf16*>(x), a, b, static_cast<const bf16*>(wt),
-        static_cast<bf16*>(y), part, scratch, sums, static_cast<bf16*>(ubuf),
-        M, K, N, bn, sms, s);
+  if (is_half_code(dtype) && bn != 0)
+    return with_half(dtype, [&](auto h) {
+      using T = decltype(h);
+      return bneck::mm_fwd_pipe<T>(
+          static_cast<const T*>(x), a, b, static_cast<const T*>(wt),
+          static_cast<T*>(y), part, scratch, sums, static_cast<T*>(ubuf), M,
+          K, N, bn, sms, s);
+    });
   if (ubuf != nullptr) return cudaErrorInvalidValue;
-  if (dtype == kBFloat16)
-    return bneck::mm_fwd<__nv_bfloat16>(x, a, b, wt, y, part, scratch, sums, M,
-                                        K, N, s);
+  if (is_half_code(dtype))
+    return with_half(dtype, [&](auto h) {
+      return bneck::mm_fwd<decltype(h)>(x, a, b, wt, y, part, scratch, sums,
+                                        M, K, N, s);
+    });
   if (dtype == kFloat32 && bn == 0)
     return bneck::mm_fwd<float>(x, a, b, wt, y, part, scratch, sums, M, K, N,
                                 s);
@@ -454,15 +461,20 @@ int bneck_conv3_fwd(const void* x, const float* a, const float* b,
                     float* sums, void* ubuf, int n, int H, int W, int Cin,
                     int Cout, int bn, int sms, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16 && bn != 0)
-    return bneck::conv3_fwd_pipe(
-        static_cast<const bf16*>(x), a, b, static_cast<const bf16*>(wt),
-        static_cast<bf16*>(y), part, scratch, sums, static_cast<bf16*>(ubuf),
-        n, H, W, Cin, Cout, bn, sms, s);
+  if (is_half_code(dtype) && bn != 0)
+    return with_half(dtype, [&](auto h) {
+      using T = decltype(h);
+      return bneck::conv3_fwd_pipe<T>(
+          static_cast<const T*>(x), a, b, static_cast<const T*>(wt),
+          static_cast<T*>(y), part, scratch, sums, static_cast<T*>(ubuf), n,
+          H, W, Cin, Cout, bn, sms, s);
+    });
   if (ubuf != nullptr) return cudaErrorInvalidValue;
-  if (dtype == kBFloat16)
-    return bneck::conv3_fwd<__nv_bfloat16>(x, a, b, wt, y, part, scratch, sums,
-                                           n, H, W, Cin, Cout, s);
+  if (is_half_code(dtype))
+    return with_half(dtype, [&](auto h) {
+      return bneck::conv3_fwd<decltype(h)>(x, a, b, wt, y, part, scratch,
+                                           sums, n, H, W, Cin, Cout, s);
+    });
   if (dtype == kFloat32 && bn == 0)
     return bneck::conv3_fwd<float>(x, a, b, wt, y, part, scratch, sums, n, H,
                                    W, Cin, Cout, s);

@@ -1,11 +1,11 @@
 // A multistage cp.async + wgmma product core for Hopper (sm_90a), beside
-// the staged mma.sync core of bottleneck.cuh: the bf16 1x1 and 3x3
-// forwards (bottleneck_fwd.cu `mm_fwd_pipe`, `conv3_fwd_pipe`) and the
-// bf16 3x3 and 1x1 backwards (bottleneck_bwd.cu `conv3_bwd_bf16`,
-// `mm_bwd_bf16`) run on it.
+// the staged mma.sync core of bottleneck.cuh: the bf16 and fp16 (T, a
+// template parameter of every piece) 1x1 and 3x3 forwards
+// (bottleneck_fwd.cu `mm_fwd_pipe`, `conv3_fwd_pipe`) and 3x3 and 1x1
+// backwards (bottleneck_bwd.cu `conv3_bwd_pipe`, `mm_bwd_pipe`) run on it.
 //
 // The difference from `gemm_kernel`: the operands of a product are plain
-// bf16 rows in device memory (the 3x3 forward and backward write the
+// T rows in device memory (the 3x3 forward and backward write the
 // activated input, and the backward the finalized cotangent, once, in a
 // pre-pass, rather than recomputing them while staging), so every
 // 16-byte row segment of a
@@ -13,7 +13,7 @@
 // (zero-fill) for a segment outside the problem: a tap whose source
 // pixel leaves the image, the ragged edge. A ring of kStages tiles keeps
 // the loads of the next chunks in flight while chunk k multiplies, with
-// one barrier a chunk. The product: wgmma m64nNk16 (bf16 in, fp32
+// one barrier a chunk. The product: wgmma m64nNk16 (T in, fp32
 // accumulators in registers), two warpgroups each taking 64 rows of a
 // 128 x BN tile (BN 128 or 64), the operands read from shared memory in
 // the 128-byte-swizzled layout wgmma's descriptors name: K-major (k
@@ -37,8 +37,9 @@
 namespace apex_port {
 namespace bneck {
 
-template <int BN_, bool kMNMajor_>
+template <typename T_, int BN_, bool kMNMajor_>
 struct PCfg {
+  using T = T_;  // bf16 or fp16
   static constexpr int BM = 128, BN = BN_, BK = 64;
   static constexpr int kStages = 3, kThreads = 256;
   static constexpr bool kMNMajor = kMNMajor_;
@@ -64,7 +65,7 @@ struct PCfg {
 // The tile's fp32 accumulators: warpgroup g holds rows 64 g .. 64 g +
 // 63, warp w of it rows 16 w .., each thread in wgmma's (mma.sync's) C
 // layout per 8-column block.
-template <int BN>
+template <typename T, int BN>
 struct WAcc {
   float d[BN / 2];
 
@@ -83,9 +84,9 @@ struct WAcc {
   template <int kTrans>
   __device__ __forceinline__ void mma(uint64_t da, uint64_t db) {
     if constexpr (BN == 128)
-      wgmma_m64n128k16<kTrans, kTrans>(d, da, db);
+      wgmma_m64n128k16<T, kTrans, kTrans>(d, da, db);
     else
-      wgmma_m64n64k16<kTrans, kTrans>(d, da, db);
+      wgmma_m64n64k16<T, kTrans, kTrans>(d, da, db);
   }
 
   // fn(r, col, v0, v1): the tile's elements (r, col) and (r, col + 1)
@@ -161,7 +162,7 @@ __global__ void __launch_bounds__(256, 2) pipe_kernel(Prob p) {
              smem + s * C::kStageBytes + C::kABytes);
     cp_async_commit();
   }
-  WAcc<C::BN> acc;
+  WAcc<typename C::T, C::BN> acc;
   acc.zero();
   const uint32_t a_off = (threadIdx.x >> 7) * C::kWarpgroupA;
   for (int kc = 0; kc < n; ++kc) {
@@ -194,15 +195,15 @@ __global__ void __launch_bounds__(256, 2) pipe_kernel(Prob p) {
   p.epilogue(acc, reinterpret_cast<float*>(smem));
 }
 
-// Rows [r0, r0 + kRows) of a (rows, depth) bf16 matrix whose depth is
+// Rows [r0, r0 + kRows) of a (rows, depth) 2-byte matrix whose depth is
 // contiguous, columns [c0, c0 + 64), into a K-major tile (one 16-byte
 // segment a copy, row tid / 8 + 32 i at segment tid % 8 for 256
 // threads); rows at or past `rows` and columns at or past `depth`
 // zero-filled. The A tile of a product over pixel rows, and the B tile of
 // weights stored (N, K).
-template <int kRows, int kThreads>
+template <int kRows, int kThreads, typename T>
 __device__ __forceinline__ void load_kmajor_rows(unsigned char* tile,
-                                                 const bf16* src,
+                                                 const T* src,
                                                  int64_t rows, int depth,
                                                  int64_t r0, int c0) {
 #pragma unroll

@@ -11,6 +11,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 namespace apex_port {
@@ -55,6 +56,67 @@ __device__ __forceinline__ __half from_float<__half>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
+}
+
+// whether a 2-byte float type is fp16 (else bf16): the tensor-core
+// products' operand type (".f16" or ".bf16")
+template <typename T>
+constexpr bool kIsF16 = std::is_same<T, __half>::value;
+
+// a 2-byte float type's two-element vector (its __hadd2 and friends)
+template <typename T>
+struct Pair;
+template <>
+struct Pair<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+};
+template <>
+struct Pair<__half> {
+  using type = __half2;
+};
+
+// two floats as one 32-bit word of a 2-byte type, lo in the low half
+// (round to nearest even; fp16 keeps subnormals, as the plain versions)
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  static_assert(sizeof(T) == 2, "a 2-byte float type");
+  if constexpr (kIsF16<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// The dtype code of the one 2-byte float type of a call whose buffers are
+// each fp32 or that type (kBFloat16 where every buffer is fp32); -1 where
+// bf16 and fp16 meet in one call or a code is unknown. Each kernel is
+// instanced once per 2-byte type, not per mix of them.
+inline int half_family(int a, int b = kFloat32, int c = kFloat32,
+                       int d = kFloat32) {
+  int h = kFloat32;
+  for (int x : {a, b, c, d}) {
+    if (x == kFloat32) continue;
+    if ((x != kBFloat16 && x != kFloat16) || (h != kFloat32 && h != x))
+      return -1;
+    h = x;
+  }
+  return h == kFloat32 ? kBFloat16 : h;
+}
+
+// a 2-byte float type's code: the tensor-core kernels' operand types
+inline bool is_half_code(int code) {
+  return code == kBFloat16 || code == kFloat16;
+}
+
+// f(H{}) for the 2-byte type H of a half_family code (the caller picks
+// each buffer's type from its code: float or H)
+template <typename F>
+inline int with_half(int family, F&& f) {
+  if (family == kFloat16) return f(__half{});
+  if (family == kBFloat16) return f(__nv_bfloat16{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -49,29 +49,30 @@
 
 namespace apex_port {
 
-// ---- bf16: the bias pre-pass, then the pipe ------------------------------
+// ---- bf16 and fp16 (T): the bias pre-pass, then the pipe -----------------
 
-template <int HD>
+template <typename T, int HD>
 static int launch_pipe(const void* qkv, const void* bias, const void* o,
                        const void* lse, const void* dout, void* dqkv,
                        void* stats, void* dbias_part, const FlashShape& sh,
                        float scale, float q_mul, void* scratch,
                        cudaStream_t stream) {
-  const bf16* x = static_cast<const bf16*>(qkv);
+  const T* x = static_cast<const T*>(qkv);
   if (bias != nullptr) {
-    const cudaError_t e = launch_qkv_bias(qkv, bias, scratch, sh, HD, stream);
+    const cudaError_t e =
+        launch_qkv_bias<T>(qkv, bias, scratch, sh, HD, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
-    x = static_cast<const bf16*>(scratch);
+    x = static_cast<const T*>(scratch);
   }
   const int64_t rs = static_cast<int64_t>(sh.nh) * 3 * HD;
   const unpacked::Strides in{sh.S * rs, 3 * HD, rs};
   const int64_t ors = static_cast<int64_t>(sh.nh) * HD;
   const unpacked::Strides out{sh.S * ors, HD, ors};
   const int64_t tiles = (sh.S + kTile - 1) / kTile;
-  bf16* g = static_cast<bf16*>(dqkv);
-  const unpacked::BwdArgs a{
-      x, x + HD, x + 2 * HD, static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+  T* g = static_cast<T*>(dqkv);
+  const unpacked::BwdArgs<T> a{
+      x, x + HD, x + 2 * HD, static_cast<const T*>(o),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<float*>(stats), g, g + HD, g + 2 * HD,
       static_cast<float*>(dbias_part), in, in, in, out, out, in, in, in,
       unpacked::Strides{tiles * rs, 3 * HD, rs}};
@@ -508,13 +509,16 @@ extern "C" int flash_bwd(const void* qkv, const void* bias, const void* o,
   else if (dtype == kFloat32 && (bias == nullptr) == (scratch == nullptr))
     rc = launch_wide(qkv, bias, o, lse, dout, dqkv, stats, dbias_part, sh,
                      hd, scale, q_mul, scratch, st);
-  else if (dtype == kBFloat16 && (bias == nullptr) == (scratch == nullptr))
-    rc = hd == 256 ? launch_pipe<256>(qkv, bias, o, lse, dout, dqkv, stats,
-                                      dbias_part, sh, scale, q_mul, scratch,
-                                      st)
-                   : launch_pipe<128>(qkv, bias, o, lse, dout, dqkv, stats,
-                                      dbias_part, sh, scale, q_mul, scratch,
-                                      st);
+  else if (is_half_code(dtype) && (bias == nullptr) == (scratch == nullptr))
+    rc = with_half(dtype, [&](auto h) {
+      using T = decltype(h);
+      return hd == 256 ? launch_pipe<T, 256>(qkv, bias, o, lse, dout, dqkv,
+                                             stats, dbias_part, sh, scale,
+                                             q_mul, scratch, st)
+                       : launch_pipe<T, 128>(qkv, bias, o, lse, dout, dqkv,
+                                             stats, dbias_part, sh, scale,
+                                             q_mul, scratch, st);
+    });
   else
     rc = static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;

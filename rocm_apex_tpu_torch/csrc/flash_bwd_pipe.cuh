@@ -1,4 +1,5 @@
-// The bf16 flash-attention backward on Hopper's asynchronous units: the
+// The bf16 and fp16 flash-attention backward on Hopper's asynchronous
+// units (the element type T a template parameter of every piece): the
 // pipe of the packed backward (flash_bwd.cu, row 11: rocm_apex_tpu/ops/
 // flash_attention.py:1324 `_bwd_merged_kernel` and the packed use of :316
 // `_bwd_dkv_kernel` / :384 `_bwd_dq_kernel`), of the unpacked one
@@ -12,7 +13,7 @@
 // strides.
 //
 // Bound: operations. At the GPT train cell (B 16, S 1024, 8 heads, hd
-// 128, causal) the backward issues 5 bf16 products a (query tile, key
+// 128, causal) the backward issues 5 products a (query tile, key
 // tile) pair, 86 GFLOP, against ~0.2 GB of operands. What keeps a tile
 // loop far from the tensor peak (mma.sync bodies ran at ~90 TFLOP/s
 // issued): 16-row warps, one K/V tile in flight with barriers around it,
@@ -32,7 +33,7 @@
 //   keys in the dk/dv pass); blocks share a multiprocessor (two at hd
 //   128; at hd 64 see the last item), so one's softmax-side arithmetic
 //   runs beside another's products.
-// - Every operand tile is 64 rows of hd bf16 in the forward's 128-byte
+// - Every operand tile is 64 rows of hd T in the forward's 128-byte
 //   swizzle, one cp.async a 16-byte segment (zero-filled past the
 //   sequence), into a ring of two stages: K and V in the dq pass, q and do
 //   in the dk/dv pass; one barrier a tile (two in the dk/dv pass, whose
@@ -43,9 +44,9 @@
 //   MN-major as the forward reads V.
 // - dk/dv pass: S^T = k (q q_mul)^T and dP^T = v do^T the same way; p^T
 //   and ds^T become the A fragments of dv += p^T do and dk += ds^T q, q
-//   and do read MN-major. q is staged once: the scores' copy, bf16(q
+//   and do read MN-major. q is staged once: the scores' copy, T(q
 //   q_mul), is written beside it in shared memory for every query tile.
-// - The computed operands are rounded to bf16 once, as the JAX kernels
+// - The computed operands are rounded to T once, as the JAX kernels
 //   round them: ds (`ds.astype(q.dtype)`) for dq and for dk, p_drop
 //   (`p_drop.astype(do.dtype)`) for dv; one product each a 16-row step.
 // - The score rule, the masking rule and the keep bits are the forward
@@ -114,17 +115,18 @@ struct BwdCfg {
 // dq, dk and dv at part_of(bh, tile) + 0, HD and 2 HD; dlse, where not
 // null, the (B*H, Sq) cotangent of lse (folded into delta); delta, where
 // not null, a (B*H, Sq) fp32 output of the dq pass's delta.
+template <typename T>
 struct BwdArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* o;
-  const bf16* dout;
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* o;
+  const T* dout;
   const float* lse;
   float* stats;
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
+  T* dq;
+  T* dk;
+  T* dv;
   float* part;
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
   Strides ps;  // part's (batch, head, tile) strides
@@ -132,7 +134,8 @@ struct BwdArgs {
   float* delta = nullptr;
 };
 
-__device__ __forceinline__ float* part_of(const BwdArgs& a, int bh, int H,
+template <typename T>
+__device__ __forceinline__ float* part_of(const BwdArgs<T>& a, int bh, int H,
                                           int tile) {
   return a.part + static_cast<int64_t>(bh / H) * a.ps.b +
          static_cast<int64_t>(bh % H) * a.ps.h +
@@ -157,28 +160,27 @@ __device__ __forceinline__ const float* bias_at(const Problem& pb, int bh,
                     min(row, pb.Sq - 1)) * pb.Sk;
 }
 
-// dst <- bf16(src * mul) over a tile (same layout: the map is elementwise)
-template <int HD>
+// dst <- T(src * mul) over a tile (same layout: the map is elementwise)
+template <int HD, typename T>
 __device__ __forceinline__ void scaled_copy(unsigned char* dst,
                                             const unsigned char* src,
                                             float mul) {
   for (int i = threadIdx.x; i < BwdCfg<HD>::kTileBytes / 16;
        i += BwdCfg<HD>::kThreads) {
     uint4 raw = reinterpret_cast<const uint4*>(src)[i];
-    bf16* e = reinterpret_cast<bf16*>(&raw);
+    T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      e[j] = __float2bfloat16(__bfloat162float(e[j]) * mul);
+    for (int j = 0; j < 8; ++j) e[j] = from_float<T>(to_float(e[j]) * mul);
     reinterpret_cast<uint4*>(dst)[i] = raw;
   }
 }
 
 // x (64 rows x HD, the warpgroup's C layout, fp32) times `mul`, rounded
-// to bf16, into rows [r0, r0 + 64) of a (rows, HD) matrix with row
+// to T, into rows [r0, r0 + 64) of a (rows, HD) matrix with row
 // stride rs; rows at or past `rows` and columns at or past `cols` are left
 // out
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
+template <int HD, typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst,
                                            int64_t rs, int r0, int rows,
                                            const float (&x)[HD / 2],
                                            float mul, int cols) {
@@ -188,11 +190,11 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (r + 8 * h >= rows) continue;
-    bf16* row = dst + static_cast<int64_t>(r + 8 * h) * rs;
+    T* row = dst + static_cast<int64_t>(r + 8 * h) * rs;
 #pragma unroll
     for (int nb = 0; nb < HD / 8; ++nb)
       if (nb * 8 < cols)
-        *reinterpret_cast<uint32_t*>(row + nb * 8 + 2 * t) = pack_bf16(
+        *reinterpret_cast<uint32_t*>(row + nb * 8 + 2 * t) = pack2<T>(
             x[4 * nb + 2 * h] * mul, x[4 * nb + 2 * h + 1] * mul);
   }
 }
@@ -230,9 +232,9 @@ __device__ __forceinline__ void tile_column_sums(const float (&x)[HD / 2],
   }
 }
 
-template <int HD, bool kBias, bool kSeg>
+template <typename T, int HD, bool kBias, bool kSeg>
 __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 2)
-    bwd_dq_pipe_kernel(BwdArgs a, Problem pb) {
+    bwd_dq_pipe_kernel(BwdArgs<T> a, Problem pb) {
   static_assert(!(kBias && kSeg), "segment attention takes no bias");
   using C = BwdCfg<HD>;
   extern __shared__ unsigned char smem_raw[];
@@ -257,8 +259,8 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 2)
   const float* brow[2] = {kBias ? bias_at(pb, bh, row[0]) : nullptr,
                           kBias ? bias_at(pb, bh, row[1]) : nullptr};
   const int len = kv_len(pb, bh);
-  const bf16* kh = head(a.k, a.ks, bh, pb.H);
-  const bf16* vh = head(a.v, a.vs, bh, pb.H);
+  const T* kh = head(a.k, a.ks, bh, pb.H);
+  const T* vh = head(a.v, a.vs, bh, pb.H);
 
   // this block's key tiles: [t0, t0 + n); with segments, those of [lo, hi],
   // the rows' ids in registers
@@ -297,14 +299,14 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 2)
     cp_async_commit();
   }
 
-  // q and do landed: q <- bf16(q q_mul) in place; delta = rowsum(do o)
+  // q and do landed: q <- T(q q_mul) in place; delta = rowsum(do o)
   // of each warp's 16 rows (HD / 32 columns a lane, then the warp), and
   // the rows' (lse log2 e, delta) into the stats for the dk/dv pass
   cp_async_wait<C::kStages - 1>();
   __syncthreads();
-  fold_q<HD>(sq, pb.q_mul);
+  fold_q<HD, T>(sq, pb.q_mul);
   constexpr int kVec = HD / 32;
-  const bf16* oh = head(a.o, a.os, bh, pb.H);
+  const T* oh = head(a.o, a.os, bh, pb.H);
   float lse2[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
   float* stats = a.stats + (static_cast<int64_t>(bh) * nqt + qt) * kTile * 2;
   for (int r = 0; r < 16; ++r) {
@@ -313,10 +315,9 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 2)
     float acc = 0.f;
     if (q0 + rr < pb.Sq && c < pb.hd) {  // a lane's kVec columns: all or none
       float dv[kVec], ov[kVec];
-      load_vec<bf16, kVec>(reinterpret_cast<const bf16*>(
-                               sdo + mnmajor_seg(rr, c >> 3)) + (c & 7), dv);
-      load_vec<bf16, kVec>(oh + static_cast<int64_t>(q0 + rr) * a.os.s + c,
-                           ov);
+      load_vec<T, kVec>(reinterpret_cast<const T*>(
+                            sdo + mnmajor_seg(rr, c >> 3)) + (c & 7), dv);
+      load_vec<T, kVec>(oh + static_cast<int64_t>(q0 + rr) * a.os.s + c, ov);
 #pragma unroll
       for (int i = 0; i < kVec; ++i) acc += dv[i] * ov[i];
     }
@@ -389,14 +390,15 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 2)
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
         if (kstep_live(kk, pb.hd))
-          wgmma_m64n64k16<0, 0>(s, kmajor_desc(sq, kk), kmajor_desc(skt, kk));
+          wgmma_m64n64k16<T, 0, 0>(s, kmajor_desc(sq, kk),
+                                   kmajor_desc(skt, kk));
     };
     auto dp_product = [&] {
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
         if (kstep_live(kk, pb.hd))
-          wgmma_m64n64k16<0, 0>(dp, kmajor_desc(sdo, kk),
-                                kmajor_desc(svt, kk));
+          wgmma_m64n64k16<T, 0, 0>(dp, kmajor_desc(sdo, kk),
+                                   kmajor_desc(svt, kk));
     };
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
@@ -446,14 +448,15 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 2)
         s[4 * j + e] = ds;
       }
 
-    // dq += ds k over 4 steps of 16 keys, ds rounded to bf16
+    // dq += ds k over 4 steps of 16 keys, ds rounded to T
     uint32_t da[4][4];
-    c_to_a_tile(s, da);
+    c_to_a_tile<T>(s, da);
     reg_fence(da);
     reg_fence(acc);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) pv_mma<HD>(acc, da[j], mnmajor_desc(skt, j));
+    for (int j = 0; j < 4; ++j)
+      pv_mma<HD, T>(acc, da[j], mnmajor_desc(skt, j));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(acc);
@@ -470,16 +473,16 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 2)
   }
 }
 
-template <int HD, bool kBias, bool kSeg>
+template <typename T, int HD, bool kBias, bool kSeg>
 __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 3 : 2)
-    bwd_dkv_pipe_kernel(BwdArgs a, Problem pb) {
+    bwd_dkv_pipe_kernel(BwdArgs<T> a, Problem pb) {
   static_assert(!(kBias && kSeg), "segment attention takes no bias");
   using C = BwdCfg<HD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sk = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
   unsigned char* sv = sk + C::kTileBytes;
-  unsigned char* sqs = sv + C::kTileBytes;  // bf16(q q_mul) of the tile
+  unsigned char* sqs = sv + C::kTileBytes;  // T(q q_mul) of the tile
   unsigned char* ring = sqs + C::kTileBytes;
   // segment attention: the ids of each stage's queries
   int* sids = reinterpret_cast<int*>(ring + C::kStages * C::kStageBytes);
@@ -497,8 +500,8 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 3 : 2)
   const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
   const int kcol[2] = {min(key[0], pb.Sk - 1), min(key[1], pb.Sk - 1)};
   const int len = kv_len(pb, bh);
-  const bf16* qh = head(a.q, a.qs, bh, pb.H);
-  const bf16* doh = head(a.dout, a.dos, bh, pb.H);
+  const T* qh = head(a.q, a.qs, bh, pb.H);
+  const T* doh = head(a.dout, a.dos, bh, pb.H);
   const float* stats = a.stats + static_cast<int64_t>(bh) * nqt * kTile * 2;
 
   // this block's query tiles: [qt0, qt0 + n) (none past the last live
@@ -566,7 +569,7 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 3 : 2)
     const unsigned char* sqt = stage(i);
     const unsigned char* sdot = sqt + C::kTileBytes;
     const int* qids = sids + (i % C::kStages) * kTile;
-    scaled_copy<HD>(sqs, sqt, pb.q_mul);
+    scaled_copy<HD, T>(sqs, sqt, pb.q_mul);
     fence_proxy_async();  // tile i and the copy, for wgmma's proxy
     __syncthreads();
 
@@ -577,14 +580,15 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 3 : 2)
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
         if (kstep_live(kk, pb.hd))
-          wgmma_m64n64k16<0, 0>(s, kmajor_desc(sk, kk), kmajor_desc(sqs, kk));
+          wgmma_m64n64k16<T, 0, 0>(s, kmajor_desc(sk, kk),
+                                   kmajor_desc(sqs, kk));
     };
     auto dp_product = [&] {
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
         if (kstep_live(kk, pb.hd))
-          wgmma_m64n64k16<0, 0>(dp, kmajor_desc(sv, kk),
-                                kmajor_desc(sdot, kk));
+          wgmma_m64n64k16<T, 0, 0>(dp, kmajor_desc(sv, kk),
+                                   kmajor_desc(sdot, kk));
     };
     if constexpr (!kBias) {
 #pragma unroll
@@ -673,11 +677,11 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 3 : 2)
     }
 
     // dv += p^T do and dk += ds^T q over 4 steps of 16 queries, p^T and
-    // ds^T rounded to bf16, q and do read MN-major (the block's columns
+    // ds^T rounded to T, q and do read MN-major (the block's columns
     // [c0, c0 + kOut): c0 / 64 blocks of 64 columns on)
     uint32_t pa[4][4], da[4][4];
-    c_to_a_tile(s, pa);
-    c_to_a_tile(dp, da);
+    c_to_a_tile<T>(s, pa);
+    c_to_a_tile<T>(dp, da);
     reg_fence(pa);
     reg_fence(da);
     reg_fence(dv);
@@ -685,8 +689,10 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 3 : 2)
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      pv_mma<kOut>(dv, pa[j], mnmajor_desc(sdot + (c0 / 64) * kTile * 128, j));
-      pv_mma<kOut>(dk, da[j], mnmajor_desc(sqt + (c0 / 64) * kTile * 128, j));
+      pv_mma<kOut, T>(dv, pa[j],
+                      mnmajor_desc(sdot + (c0 / 64) * kTile * 128, j));
+      pv_mma<kOut, T>(dk, da[j],
+                      mnmajor_desc(sqt + (c0 / 64) * kTile * 128, j));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -717,8 +723,8 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 3 : 2)
 // tiles); kBias for a problem with a score bias (the unpacked forms), kSeg
 // for segment attention (pb.seg, pb.ranges, pb.tiles and pb.order filled
 // by launch_seg_tiles).
-template <int HD, bool kBias = false, bool kSeg = false>
-int launch_pipe_bwd(const BwdArgs& a, const Problem& pb,
+template <int HD, bool kBias = false, bool kSeg = false, typename T>
+int launch_pipe_bwd(const BwdArgs<T>& a, const Problem& pb,
                     cudaStream_t stream) {
   using C = BwdCfg<HD>;
   constexpr int kSegBytes = kSeg ? C::kStages * kTile * sizeof(int) : 0;
@@ -732,27 +738,27 @@ int launch_pipe_bwd(const BwdArgs& a, const Problem& pb,
   if (bh == 0 || nqt == 0) return 0;
   // every call, as launch_pipe_fwd sets its own
   cudaError_t e = cudaFuncSetAttribute(
-      bwd_dq_pipe_kernel<HD, kBias, kSeg>,
+      bwd_dq_pipe_kernel<T, HD, kBias, kSeg>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::kDqSmem + kSegBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(bwd_dkv_pipe_kernel<HD, kBias, kSeg>,
+  e = cudaFuncSetAttribute(bwd_dkv_pipe_kernel<T, HD, kBias, kSeg>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            C::kDkvSmem + kSegBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bwd_dq_pipe_kernel<HD, kBias, kSeg>
+  bwd_dq_pipe_kernel<T, HD, kBias, kSeg>
       <<<dim3(bh, nqt), C::kThreads, C::kDqSmem + kSegBytes, stream>>>(a,
                                                                        pb);
   e = cudaGetLastError();
   if (e != cudaSuccess || nkt == 0) return static_cast<int>(e);
-  bwd_dkv_pipe_kernel<HD, kBias, kSeg>
+  bwd_dkv_pipe_kernel<T, HD, kBias, kSeg>
       <<<dim3(bh, nkt, HD / C::kOut), C::kThreads, C::kDkvSmem + kSegBytes,
          stream>>>(a, pb);
   return static_cast<int>(cudaGetLastError());
 }
 
 // launch_pipe_bwd at pb.hd, on its width (`at_width`)
-template <bool kBias = false, bool kSeg = false>
-int launch_pipe_bwd_hd(const BwdArgs& a, const Problem& pb,
+template <bool kBias = false, bool kSeg = false, typename T>
+int launch_pipe_bwd_hd(const BwdArgs<T>& a, const Problem& pb,
                        cudaStream_t stream) {
   return at_width(pb.hd, [&](auto w) {
     return launch_pipe_bwd<decltype(w)::value, kBias, kSeg>(a, pb, stream);

@@ -49,7 +49,7 @@
 namespace apex_port {
 namespace unpacked {
 
-// ---- bf16: the wgmma ring over the heads -----------------------------------
+// ---- bf16 and fp16 (T): the wgmma ring over the heads ---------------------
 
 template <int HD>  // HD: the staged width, 64 or 128
 struct DbiasCfg {
@@ -67,12 +67,12 @@ struct DbiasCfg {
 };
 
 // HD: the width; a head is staged in kParts stages of kW columns
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(256, 1)
-    dbias_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
+    dbias_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v,
                        const float* __restrict__ lse,
-                       const bf16* __restrict__ dout,
+                       const T* __restrict__ dout,
                        const float* __restrict__ delta,
                        float* __restrict__ dbias, Strides qs, Strides ks,
                        Strides vs, Strides dos, Problem pb) {
@@ -172,7 +172,7 @@ __global__ void __launch_bounds__(256, 1)
     const unsigned char* sdot = sqt + C::kTileBytes;
     const unsigned char* skt = sqt + (2 + 2 * wg) * C::kTileBytes;
     const unsigned char* svt = skt + C::kTileBytes;
-    fold_tile<kW, C::kThreads>(sqt, pb.q_mul, threadIdx.x);  // bf16(q q_mul)
+    fold_tile<kW, C::kThreads, T>(sqt, pb.q_mul, threadIdx.x);  // T(q q_mul)
     fence_proxy_async();  // the folded q and the tiles, for wgmma
     __syncthreads();
 
@@ -188,12 +188,13 @@ __global__ void __launch_bounds__(256, 1)
 #pragma unroll
     for (int kk = 0; kk < kW / 16; ++kk)
       if (kstep_live(kk, cw))
-        wgmma_m64n64k16<0, 0>(s, kmajor_desc(sqt, kk), kmajor_desc(skt, kk));
+        wgmma_m64n64k16<T, 0, 0>(s, kmajor_desc(sqt, kk),
+                                 kmajor_desc(skt, kk));
 #pragma unroll
     for (int kk = 0; kk < kW / 16; ++kk)
       if (kstep_live(kk, cw))
-        wgmma_m64n64k16<0, 0>(dp, kmajor_desc(sdot, kk),
-                              kmajor_desc(svt, kk));
+        wgmma_m64n64k16<T, 0, 0>(dp, kmajor_desc(sdot, kk),
+                                 kmajor_desc(svt, kk));
     wgmma_commit();
     if (part != kParts - 1) {  // the head's next part adds to s and dp
       wgmma_wait<0>();
@@ -262,7 +263,7 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
-template <int HD>
+template <typename T, int HD>
 int launch_wgmma(const void* const* p, const int64_t* st, const Problem& pb,
                  int nb, int key_tiles, int stages, cudaStream_t stream) {
   using C = DbiasCfg<(HD > 128 ? 128 : HD)>;
@@ -270,16 +271,16 @@ int launch_wgmma(const void* const* p, const int64_t* st, const Problem& pb,
     return static_cast<int>(cudaErrorInvalidValue);  // not this plan
   // every call, as launch_pipe_fwd sets its own
   const cudaError_t e = cudaFuncSetAttribute(
-      dbias_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dbias_wgmma_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int nkt = (pb.Sk + kTile - 1) / kTile;
   const dim3 grid((nkt + C::kWarpgroups - 1) / C::kWarpgroups,
                   (pb.Sq + kTile - 1) / kTile, nb);
-  dbias_wgmma_kernel<HD><<<grid, C::kThreads, C::kSmemBytes, stream>>>(
-      static_cast<const bf16*>(p[0]), static_cast<const bf16*>(p[1]),
-      static_cast<const bf16*>(p[2]), static_cast<const float*>(p[3]),
-      static_cast<const bf16*>(p[4]), static_cast<const float*>(p[5]),
+  dbias_wgmma_kernel<T, HD><<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+      static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
+      static_cast<const T*>(p[2]), static_cast<const float*>(p[3]),
+      static_cast<const T*>(p[4]), static_cast<const float*>(p[5]),
       static_cast<float*>(const_cast<void*>(p[6])), strides_at(st, 0),
       strides_at(st, 1), strides_at(st, 2), strides_at(st, 3), pb);
   return 0;
@@ -451,10 +452,12 @@ extern "C" int flash_dbias(const void* q, const void* k, const void* v,
   const void* p[7] = {q, k, v, lse, dout, delta, dbias};
   auto s = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == kBFloat16)
-    rc = at_width(hd, [&](auto w) {
-      return launch_wgmma<decltype(w)::value>(p, st, pb, nb, key_tiles,
-                                              stages, s);
+  if (is_half_code(dtype))
+    rc = with_half(dtype, [&](auto h) {
+      return at_width(hd, [&](auto w) {
+        return launch_wgmma<decltype(h), decltype(w)::value>(
+            p, st, pb, nb, key_tiles, stages, s);
+      });
     });
   else if (dtype == kFloat32)
     rc = at_width(hd, [&](auto w) {

@@ -87,6 +87,12 @@ extern "C" int flash_decode(const void* q, int64_t q_row_stride,
         CacheKeys<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(k),
                                  static_cast<const __nv_bfloat16*>(v),
                                  c_slot_stride, pos, c_head_stride});
+  else if (dtype == kFloat16)
+    rc = dispatch_dim<__half>(
+        head_dim, a,
+        CacheKeys<__half>{static_cast<const __half*>(k),
+                          static_cast<const __half*>(v), c_slot_stride, pos,
+                          c_head_stride});
   else
     rc = static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;

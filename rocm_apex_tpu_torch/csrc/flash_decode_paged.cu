@@ -6,7 +6,7 @@
 // slot's positions onto pool pages. Each query row reads the prefix
 // [0, kv_len[slot]) of ONE slot, bounded by the slots' key range (at
 // most pages_per_slot * page_size), walking the slot's page list through
-// the table. Two pool forms: the query's own dtype (bf16 or fp32), or
+// the table. Two pool forms: the query's own dtype (fp32, bf16 or fp16), or
 // int8 with one fp32 scale per (page, head).
 //
 // Bound: bytes (one FLOP per byte in bf16, two in int8). The read is the
@@ -69,6 +69,9 @@ static int run(int dtype, int head_dim, const SplitArgs& a,
   else if (dtype == kBFloat16)
     rc = dispatch_dim<__nv_bfloat16,
                       std::conditional_t<kInt8, int8_t, __nv_bfloat16>>(
+        head_dim, a, pp);
+  else if (dtype == kFloat16)
+    rc = dispatch_dim<__half, std::conditional_t<kInt8, int8_t, __half>>(
         head_dim, a, pp);
   else
     rc = static_cast<int>(cudaErrorInvalidValue);

@@ -37,18 +37,19 @@
 
 namespace apex_port {
 
-// ---- bf16: the bias pre-pass, then the pipe ------------------------------
+// ---- bf16 and fp16 (T): the bias pre-pass, then the pipe -----------------
 
-template <int HD>
+template <typename T, int HD>
 static int launch_pipe(const void* qkv, const void* bias, void* o, void* lse,
                        const FlashShape& sh, float scale, float q_mul,
                        int splits, int split_tiles, void* scratch, void* ws,
                        cudaStream_t stream) {
-  const bf16* x = static_cast<const bf16*>(qkv);
+  const T* x = static_cast<const T*>(qkv);
   if (bias != nullptr) {
-    const cudaError_t e = launch_qkv_bias(qkv, bias, scratch, sh, HD, stream);
+    const cudaError_t e =
+        launch_qkv_bias<T>(qkv, bias, scratch, sh, HD, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
-    x = static_cast<const bf16*>(scratch);
+    x = static_cast<const T*>(scratch);
   }
   const int64_t rs = static_cast<int64_t>(sh.nh) * 3 * HD;
   const unpacked::Strides in{sh.S * rs, 3 * HD, rs};
@@ -58,8 +59,9 @@ static int launch_pipe(const void* qkv, const void* bias, void* o, void* lse,
   const unpacked::Problem pb = unpacked::make_problem(
       sh.B, sh.nh, sh.S, sh.S, sh.causal, nullptr, nullptr, 0, sh.drop,
       sh.seed, sh.thr, sh.keep_scale, q_mul, scale, HD);
-  return unpacked::launch_pipe_fwd<HD>(x, x + HD, x + 2 * HD, o, lse, st,
-                                       pb, splits, split_tiles, ws, stream);
+  return unpacked::launch_pipe_fwd<T, HD>(x, x + HD, x + 2 * HD, o, lse, st,
+                                          pb, splits, split_tiles, ws,
+                                          stream);
 }
 
 // ---- fp32 at head_dim 256: the bias pre-pass, then the unpacked body ------
@@ -253,11 +255,16 @@ extern "C" int flash_fwd(const void* qkv, const void* bias, void* o,
     rc = launch(qkv, bias, o, lse, sh, q_mul, st);
   else if (dtype == kFloat32 && (bias == nullptr || scratch != nullptr))
     rc = launch_wide(qkv, bias, o, lse, sh, hd, scale, q_mul, scratch, st);
-  else if (dtype == kBFloat16 && (bias == nullptr || scratch != nullptr))
-    rc = hd == 256 ? launch_pipe<256>(qkv, bias, o, lse, sh, scale, q_mul,
-                                      splits, split_tiles, scratch, ws, st)
-                   : launch_pipe<128>(qkv, bias, o, lse, sh, scale, q_mul,
-                                      splits, split_tiles, scratch, ws, st);
+  else if (is_half_code(dtype) && (bias == nullptr || scratch != nullptr))
+    rc = with_half(dtype, [&](auto h) {
+      using T = decltype(h);
+      return hd == 256 ? launch_pipe<T, 256>(qkv, bias, o, lse, sh, scale,
+                                             q_mul, splits, split_tiles,
+                                             scratch, ws, st)
+                       : launch_pipe<T, 128>(qkv, bias, o, lse, sh, scale,
+                                             q_mul, splits, split_tiles,
+                                             scratch, ws, st);
+    });
   else
     rc = static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;

@@ -1,4 +1,5 @@
-// The bf16 flash-attention forward on Hopper's asynchronous units: one
+// The bf16 and fp16 flash-attention forward on Hopper's asynchronous
+// units (the element type T a template parameter of every piece): one
 // pipe for the packed forward (flash_fwd.cu, rows 7a and 8: rocm_apex_tpu/
 // ops/flash_attention.py:1170 `_fwd_single_kernel` and the packed use of
 // :170 `_fwd_kernel`), the unpacked one (flash_unpacked_fwd.cu, row 7b:
@@ -20,7 +21,7 @@
 //   one warpgroup, so blocks share a multiprocessor (two at hd 128, 81 KB
 //   of shared memory each; four at hd 64) and one's softmax runs beside
 //   another's products.
-// - Every operand tile is 64 rows of hd bf16, each 16-byte segment one
+// - Every operand tile is 64 rows of hd T, each 16-byte segment one
 //   cp.async (zero-filled past the sequence) into the 128-byte swizzle,
 //   hd / 64 blocks of 64 columns. A ring of two K/V stages keeps the next
 //   tile's copies in flight while the current one multiplies, one barrier
@@ -29,11 +30,11 @@
 //   shared memory. O += p v is wgmma m64n{hd}k16 with A from registers:
 //   the S accumulators become the A fragments in place, and V is read as
 //   it lies, keys down the tile, MN-major (wgmma transposes it). p is
-//   rounded to bf16 once, against the running max after each 64-key
+//   rounded to T once, against the running max after each 64-key
 //   tile, as `_fwd_kernel` rounds it after each key block (`p.astype(
 //   v.dtype)`): one product a 16-key step.
 // - The score rule is `_masked_scores`': after the q tile lands, one pass
-//   rounds q q_mul to bf16 in place (q_mul = scale log2 e in bf16); the
+//   rounds q q_mul to T in place (q_mul = scale log2 e in T); the
 //   scores are masked by flash_unpacked.cuh's `masked_score` rule (causal,
 //   lengths, the ragged edge, the fp32 score bias, whose values for a tile
 //   are loaded before its products so that they arrive under them); a tile
@@ -81,7 +82,7 @@ template <int HD>
 struct PipeCfg {
   static constexpr int kThreads = 128;                // one warpgroup
   static constexpr int kStages = 2;                   // K/V tiles in flight
-  static constexpr int kTileBytes = kTile * HD * 2;   // 64 rows of hd bf16
+  static constexpr int kTileBytes = kTile * HD * 2;   // 64 rows of hd T
   static constexpr int kStageBytes = 2 * kTileBytes;  // K, then V
   // q, the ring, and 1024 to align the tiles to the swizzle's period
   static constexpr int kSmemBytes =
@@ -107,12 +108,12 @@ __device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile,
   return gmma_desc(tile + j * 16 * 128, kTile * 128, 1024);
 }
 
-// Rows [r0, r0 + 64) of a (S, hd) bf16 matrix with row stride rs into a
-// swizzled tile of HD columns, asynchronously; rows at or past S and the
-// columns [hd, HD) are zero-filled.
-template <int HD>
+// Rows [r0, r0 + 64) of a (S, hd) matrix of a 2-byte type with row stride
+// rs into a swizzled tile of HD columns, asynchronously; rows at or past S
+// and the columns [hd, HD) are zero-filled.
+template <int HD, typename T>
 __device__ __forceinline__ void copy_rows(unsigned char* tile,
-                                          const bf16* __restrict__ src,
+                                          const T* __restrict__ src,
                                           int64_t rs, int r0, int S, int hd) {
   constexpr int kChunks = PipeCfg<HD>::kChunks;
   for (int idx = threadIdx.x; idx < kTile * kChunks;
@@ -130,9 +131,9 @@ __device__ __forceinline__ void copy_rows(unsigned char* tile,
 // 8) of rows tid / (HD / 8) + j kN / (HD / 8), so the thread's swizzled
 // offset moves by whole 1024-byte periods and its source by a fixed
 // stride, one predicated cp.async a step
-template <int HD, int kN>
+template <int HD, int kN, typename T>
 __device__ __forceinline__ void copy_tile(unsigned char* tile,
-                                          const bf16* __restrict__ src,
+                                          const T* __restrict__ src,
                                           int64_t rs, int r0, int S,
                                           int tid, int hd) {
   constexpr int kChunks = HD / 8;      // 16-byte segments a row
@@ -141,7 +142,7 @@ __device__ __forceinline__ void copy_tile(unsigned char* tile,
   const int c = tid % kChunks;
   const int r = tid / kChunks;
   const bool col = c * 8 < hd;  // a segment past hd is zero-filled
-  const bf16* from = src + static_cast<int64_t>(r0 + r) * rs + c * 8;
+  const T* from = src + static_cast<int64_t>(r0 + r) * rs + c * 8;
   unsigned char* to = tile + mnmajor_seg(r, c);
 #pragma unroll
   for (int i = 0; i < kTile / kRows; ++i) {
@@ -150,17 +151,16 @@ __device__ __forceinline__ void copy_tile(unsigned char* tile,
   }
 }
 
-// tile <- bf16(tile * mul) in place, by kN threads (thread `tid`)
-template <int HD, int kN>
+// tile <- T(tile * mul) in place, by kN threads (thread `tid`)
+template <int HD, int kN, typename T>
 __device__ __forceinline__ void fold_tile(unsigned char* tile, float mul,
                                           int tid) {
   for (int i = tid; i < PipeCfg<HD>::kTileBytes / 16; i += kN) {
     uint4* p = reinterpret_cast<uint4*>(tile) + i;
     uint4 raw = *p;
-    bf16* e = reinterpret_cast<bf16*>(&raw);
+    T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      e[j] = __float2bfloat16(__bfloat162float(e[j]) * mul);
+    for (int j = 0; j < 8; ++j) e[j] = from_float<T>(to_float(e[j]) * mul);
     *p = raw;
   }
 }
@@ -174,8 +174,8 @@ __device__ __forceinline__ unsigned char* smem_base_1024(
   return smem + ((1024u - (at & 1023u)) & 1023u);
 }
 
-// q <- bf16(q * q_mul) over the landed q tile, in place
-template <int HD>
+// q <- T(q * q_mul) over the landed q tile, in place
+template <int HD, typename T>
 __device__ __forceinline__ void fold_q(unsigned char* tile, float q_mul) {
   constexpr int kChunks = PipeCfg<HD>::kChunks;
   for (int idx = threadIdx.x; idx < kTile * kChunks;
@@ -183,23 +183,23 @@ __device__ __forceinline__ void fold_q(unsigned char* tile, float q_mul) {
     uint4* p = reinterpret_cast<uint4*>(
         tile + mnmajor_seg(idx / kChunks, idx % kChunks));
     uint4 raw = *p;
-    bf16* e = reinterpret_cast<bf16*>(&raw);
+    T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      e[i] = __float2bfloat16(__bfloat162float(e[i]) * q_mul);
+    for (int i = 0; i < 8; ++i) e[i] = from_float<T>(to_float(e[i]) * q_mul);
     *p = raw;
   }
 }
 
-// the C accumulators of a 64 x 64 tile as bf16 A fragments: step j's A is
+// the C accumulators of a 64 x 64 tile as T A fragments: step j's A is
 // blocks 2 j and 2 j + 1, register for register
+template <typename T>
 __device__ __forceinline__ void c_to_a_tile(const float (&c)[32],
                                             uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      a[j][i] = pack_bf16(c[8 * j + 2 * i], c[8 * j + 2 * i + 1]);
+      a[j][i] = pack2<T>(c[8 * j + 2 * i], c[8 * j + 2 * i + 1]);
 }
 
 // keeps the compiler from moving registers across the asynchronous
@@ -219,17 +219,17 @@ __device__ __forceinline__ void reg_fence(uint32_t (&a)[N][4]) {
 
 // o (64 x HD) += a (64 x 16) times the MN-major 16 x HD tile at db: at
 // HD 256 the columns' second half starts two 64-column blocks on
-template <int HD>
+template <int HD, typename T>
 __device__ __forceinline__ void pv_mma(float (&o)[HD / 2],
                                        const uint32_t (&a)[4], uint64_t db) {
   if constexpr (HD == 256) {
-    wgmma_m64n128k16_rs_at<1, 0>(o, a, db);
-    wgmma_m64n128k16_rs_at<1, 64>(
+    wgmma_m64n128k16_rs_at<T, 1, 0>(o, a, db);
+    wgmma_m64n128k16_rs_at<T, 1, 64>(
         o, a, db + ((2 * kTile * 128) >> 4));  // start address, 16 B units
   } else if constexpr (HD == 128) {
-    wgmma_m64n128k16_rs<1>(o, a, db);
+    wgmma_m64n128k16_rs<T, 1>(o, a, db);
   } else {
-    wgmma_m64n64k16_rs<1>(o, a, db);
+    wgmma_m64n64k16_rs<T, 1>(o, a, db);
   }
 }
 
@@ -243,10 +243,10 @@ __device__ __forceinline__ bool kstep_live(int kk, int hd) {
 // its latency, not by its products, so more blocks in flight is what
 // shortens the pass. It has no key split, so no plan counts its blocks;
 // the other forms keep the occupancy `flash_fwd_plan` sizes its splits by.
-template <int HD, bool kSeg>
+template <typename T, int HD, bool kSeg>
 __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 1)
-    fwd_pipe_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o,
+    fwd_pipe_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
                     float* __restrict__ lse, Strides qs, Strides ks,
                     Strides vs, Strides os, Problem pb, int splits,
                     int split_tiles, float* __restrict__ ws) {
@@ -272,9 +272,9 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 1)
   const uint32_t rkey[2] = {dropout_row_key(pb.seed, bh, row[0]),
                             dropout_row_key(pb.seed, bh, row[1])};
   const int len = kv_len(pb, bh);
-  const bf16* qh = head(q, qs, bh, pb.H);
-  const bf16* kh = head(k, ks, bh, pb.H);
-  const bf16* vh = head(v, vs, bh, pb.H);
+  const T* qh = head(q, qs, bh, pb.H);
+  const T* kh = head(k, ks, bh, pb.H);
+  const T* vh = head(v, vs, bh, pb.H);
 
   // this unit's key tiles: [t0, t0 + n); with segments, those of [lo, hi]
   // (one split), the rows' ids in registers
@@ -322,7 +322,7 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 1)
     fence_proxy_async();
     __syncthreads();  // tile i landed; every warp is done with tile i - 1
     if (i == 0) {
-      fold_q<HD>(sq, pb.q_mul);
+      fold_q<HD, T>(sq, pb.q_mul);
       fence_proxy_async();
       __syncthreads();
     }
@@ -357,7 +357,8 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 1)
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
       if (kstep_live(kk, pb.hd))
-        wgmma_m64n64k16<0, 0>(s, kmajor_desc(sq, kk), kmajor_desc(skt, kk));
+        wgmma_m64n64k16<T, 0, 0>(s, kmajor_desc(sq, kk),
+                                 kmajor_desc(skt, kk));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(s);
@@ -422,15 +423,15 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 1)
       acc[4 * nb + 3] *= corr[1];
     }
 
-    // o += p v over 4 steps of 16 keys, p rounded to bf16 as the A
-    // fragments
+    // o += p v over 4 steps of 16 keys, p rounded to T as the A fragments
     uint32_t pa[4][4];
-    c_to_a_tile(s, pa);
+    c_to_a_tile<T>(s, pa);
     reg_fence(pa);
     reg_fence(acc);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) pv_mma<HD>(acc, pa[j], mnmajor_desc(svt, j));
+    for (int j = 0; j < 4; ++j)
+      pv_mma<HD, T>(acc, pa[j], mnmajor_desc(svt, j));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(acc);
@@ -438,16 +439,16 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 1)
   }
 
   if (splits == 1) {
-    bf16* oh = head(o, os, bh, pb.H);
+    T* oh = head(o, os, bh, pb.H);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (row[r] >= pb.Sq) continue;
       const float safe_l = l[r] > 0.f ? l[r] : 1.f;
-      bf16* orow = oh + row[r] * os.s;
+      T* orow = oh + row[r] * os.s;
 #pragma unroll
       for (int nb = 0; nb < HD / 8; ++nb)
         if (nb * 8 < pb.hd)
-          *reinterpret_cast<uint32_t*>(orow + nb * 8 + 2 * t) = pack_bf16(
+          *reinterpret_cast<uint32_t*>(orow + nb * 8 + 2 * t) = pack2<T>(
               acc[4 * nb + 2 * r] / safe_l, acc[4 * nb + 2 * r + 1] / safe_l);
       if (t == 0)
         lse[static_cast<int64_t>(bh) * pb.Sq + row[r]] =
@@ -478,9 +479,9 @@ __global__ void __launch_bounds__(128, kSeg && HD == 64 ? 4 : 1)
 // split order through their maxima, o = sum acc_i 2^(m_i - M) / sum l_i
 // 2^(m_i - M) (0 where the sum is 0) and lse = (M + log2 l) ln 2, as the
 // unsplit pipe writes them.
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(128)
-    fwd_merge_kernel(const float* __restrict__ ws, bf16* __restrict__ o,
+    fwd_merge_kernel(const float* __restrict__ ws, T* __restrict__ o,
                      float* __restrict__ lse, Strides os, int BH, int H,
                      int Sq, int splits, int hd) {
   constexpr int VEC = HD / 32;
@@ -509,10 +510,10 @@ __global__ void __launch_bounds__(128)
     for (int c = 0; c < VEC; ++c) acc[c] = fmaf(p[lane * VEC + c], f, acc[c]);
   }
   const float safe_l = lsum > 0.f ? lsum : 1.f;
-  bf16* orow = head(o, os, bh, H) + row * os.s + lane * VEC;
+  T* orow = head(o, os, bh, H) + row * os.s + lane * VEC;
 #pragma unroll
   for (int c = 0; c < VEC; ++c)
-    if (lane * VEC + c < hd) orow[c] = __float2bfloat16(acc[c] / safe_l);
+    if (lane * VEC + c < hd) orow[c] = from_float<T>(acc[c] / safe_l);
   if (lane == 0)
     lse[static_cast<int64_t>(bh) * Sq + row] = (mx + log2f(safe_l)) * kLn2;
 }
@@ -522,7 +523,7 @@ __global__ void __launch_bounds__(128)
 // (ws: B*H * ceil(Sq / 64) * splits * 64 * (HD + 2) floats). kSeg: segment
 // attention (pb.seg, pb.ranges, pb.tiles and pb.order filled by
 // launch_seg_tiles), one split.
-template <int HD, bool kSeg = false>
+template <typename T, int HD, bool kSeg = false>
 int launch_pipe_fwd(const void* q, const void* k, const void* v, void* o,
                     void* lse, const Strides (&st)[4], const Problem& pb,
                     int splits, int split_tiles, void* ws,
@@ -543,35 +544,35 @@ int launch_pipe_fwd(const void* q, const void* k, const void* v, void* o,
   // flash_unpacked_fwd.cu, flash_segments_fwd.cu), each of which registers
   // its own kernel
   const cudaError_t e = cudaFuncSetAttribute(
-      fwd_pipe_kernel<HD, kSeg>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+      fwd_pipe_kernel<T, HD, kSeg>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fwd_pipe_kernel<HD, kSeg><<<dim3(bh, nqt * splits), C::kThreads, kSmem,
-                              stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+  fwd_pipe_kernel<T, HD, kSeg><<<dim3(bh, nqt * splits), C::kThreads, kSmem,
+                                 stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<float*>(lse), st[0], st[1], st[2], st[3], pb, splits,
       split_tiles, static_cast<float*>(ws));
   if (splits > 1) {
     const cudaError_t le = cudaGetLastError();
     if (le != cudaSuccess) return static_cast<int>(le);
     const int64_t warps = static_cast<int64_t>(bh) * pb.Sq;
-    fwd_merge_kernel<HD><<<static_cast<unsigned>((warps + 3) / 4), 128, 0,
-                           stream>>>(
-        static_cast<const float*>(ws), static_cast<bf16*>(o),
+    fwd_merge_kernel<T, HD><<<static_cast<unsigned>((warps + 3) / 4), 128, 0,
+                              stream>>>(
+        static_cast<const float*>(ws), static_cast<T*>(o),
         static_cast<float*>(lse), st[3], bh, pb.H, pb.Sq, splits, pb.hd);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // launch_pipe_fwd at pb.hd, on its width (`at_width`)
-template <bool kSeg = false>
+template <typename T, bool kSeg = false>
 int launch_pipe_fwd_hd(const void* q, const void* k, const void* v, void* o,
                        void* lse, const Strides (&st)[4], const Problem& pb,
                        int splits, int split_tiles, void* ws,
                        cudaStream_t stream) {
   return at_width(pb.hd, [&](auto w) {
-    return launch_pipe_fwd<decltype(w)::value, kSeg>(
+    return launch_pipe_fwd<T, decltype(w)::value, kSeg>(
         q, k, v, o, lse, st, pb, splits, split_tiles, ws, stream);
   });
 }

@@ -130,6 +130,10 @@ extern "C" int flash_segments(const void* q, int64_t q_hs, int64_t q_ts,
     rc = dispatch_dim<__nv_bfloat16>(head_dim, q, q_hs, q_ts, k, k_hs, k_ts,
                                      v, v_hs, v_ts, ids, heads, total,
                                      causal, q_mul, o, lse_f, s);
+  else if (dtype == kFloat16)
+    rc = dispatch_dim<__half>(head_dim, q, q_hs, q_ts, k, k_hs, k_ts, v, v_hs,
+                              v_ts, ids, heads, total, causal, q_mul, o,
+                              lse_f, s);
   else
     rc = static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;

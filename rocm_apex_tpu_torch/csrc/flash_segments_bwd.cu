@@ -45,30 +45,33 @@ extern "C" int flash_segments_bwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == kBFloat16) {
+  if (is_half_code(dtype)) {
     rc = launch_seg_tiles(pb, s);
     if (rc != 0) return rc;
-    const BwdArgs a{static_cast<const bf16*>(q),
-                    static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v),
-                    static_cast<const bf16*>(o),
-                    static_cast<const bf16*>(dout),
-                    static_cast<const float*>(lse),
-                    static_cast<float*>(stats),
-                    static_cast<bf16*>(dq),
-                    static_cast<bf16*>(dk),
-                    static_cast<bf16*>(dv),
-                    nullptr,
-                    strides_at(st, 0),
-                    strides_at(st, 1),
-                    strides_at(st, 2),
-                    strides_at(st, 3),
-                    strides_at(st, 4),
-                    strides_at(st, 5),
-                    strides_at(st, 6),
-                    strides_at(st, 7),
-                    Strides{0, 0, 0}};
-    rc = launch_pipe_bwd_hd<false, true>(a, pb, s);
+    rc = with_half(dtype, [&](auto h) {
+      using T = decltype(h);
+      const BwdArgs<T> a{static_cast<const T*>(q),
+                         static_cast<const T*>(k),
+                         static_cast<const T*>(v),
+                         static_cast<const T*>(o),
+                         static_cast<const T*>(dout),
+                         static_cast<const float*>(lse),
+                         static_cast<float*>(stats),
+                         static_cast<T*>(dq),
+                         static_cast<T*>(dk),
+                         static_cast<T*>(dv),
+                         nullptr,
+                         strides_at(st, 0),
+                         strides_at(st, 1),
+                         strides_at(st, 2),
+                         strides_at(st, 3),
+                         strides_at(st, 4),
+                         strides_at(st, 5),
+                         strides_at(st, 6),
+                         strides_at(st, 7),
+                         Strides{0, 0, 0}};
+      return launch_pipe_bwd_hd<false, true>(a, pb, s);
+    });
   } else {
     rc = launch_seg_ranges(seg, total, const_cast<int2*>(pb.ranges), s);
     if (rc != 0) return rc;

@@ -48,14 +48,16 @@ extern "C" int flash_segments_fwd(const void* q, const void* k, const void* v,
   if (!grid_ok(pb)) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == kBFloat16) {
+  if (is_half_code(dtype)) {
     rc = launch_seg_tiles(pb, s);
     if (rc != 0) return rc;
     const Strides sts[4] = {strides_at(st, 0), strides_at(st, 1),
                             strides_at(st, 2), strides_at(st, 3)};
     const int nt = (total + kTile - 1) / kTile;
-    rc = launch_pipe_fwd_hd<true>(q, k, v, o, lse, sts, pb, 1,
-                                  nt > 0 ? nt : 1, nullptr, s);
+    rc = with_half(dtype, [&](auto h) {
+      return launch_pipe_fwd_hd<decltype(h), true>(
+          q, k, v, o, lse, sts, pb, 1, nt > 0 ? nt : 1, nullptr, s);
+    });
   } else {
     rc = launch_seg_ranges(seg, total, const_cast<int2*>(pb.ranges), s);
     if (rc != 0) return rc;

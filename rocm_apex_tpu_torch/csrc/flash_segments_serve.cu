@@ -1,9 +1,9 @@
 // Segment-masked packed attention with lse, the serving read on the tensor
 // cores, for Hopper (sm_90a): the "tiles" route of
-// `flash_segments_serve_plan` (ops/flash_attention_segments.py), bf16 at
-// a head_dim up to 128 (a multiple of 8, on the pipe's width 64 or 128
-// with zero columns past it, as flash_fwd_pipe.cuh forms them) over a
-// stream of at most kServeMaxTokens tokens.
+// `flash_segments_serve_plan` (ops/flash_attention_segments.py), bf16 or
+// fp16 (T) at a head_dim up to 128 (a multiple of 8, on the pipe's width 64
+// or 128 with zero columns past it, as flash_fwd_pipe.cuh forms them) over
+// a stream of at most kServeMaxTokens tokens.
 //
 // Replaces rocm_apex_tpu/ops/flash_attention_segments.py:70
 // `_seg_fwd_kernel` as the chunked-prefill serve runs it
@@ -11,9 +11,9 @@
 // head_dim) views of the chunk's fused QKV projection, read in place
 // through their (head, token) strides; token i attends token j iff
 // seg[i] == seg[j] (and j <= i when causal); o (heads, total, head_dim)
-// in bf16 and the natural-log lse (heads, total). The scores are
+// in T and the natural-log lse (heads, total). The scores are
 // `_masked_scores`' (rocm_apex_tpu/ops/flash_attention.py:122): q times
-// q_mul = scale * log2(e), rounded to bf16, then the fp32 product with k.
+// q_mul = scale * log2(e), rounded to T, then the fp32 product with k.
 //
 // Bound: latency. At the serve chunk (8 heads x 256 tokens x 128 dims,
 // causal) the call does ~35 MFLOP over ~2 MB: well under a microsecond of
@@ -24,8 +24,8 @@
 //
 // - One block, one warpgroup, per (head, 64-query tile): the forward
 //   pipe's tile step (flash_fwd_pipe.cuh) on K/V tiles in its 128-byte
-//   swizzle through a two-stage cp.async ring, S = bf16(q q_mul) k^T and
-//   O += p v on wgmma, p rounded to bf16 against the running max after
+//   swizzle through a two-stage cp.async ring, S = T(q q_mul) k^T and
+//   O += p v on wgmma, p rounded to T against the running max after
 //   each 64-key tile, the running max from -1e30.
 // - The tile walk is formed in the block, with no pre-pass launch (at
 //   this size a launch costs as much as the work): the block reads the
@@ -69,12 +69,12 @@ struct ServeCfg {
                                     kServeMaxTiles * 8 + 1024;
 };
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(128)
-    serve_tiles_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, Strides qs, Strides ks,
+    serve_tiles_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, Strides qs, Strides ks,
                        Strides vs, const int* __restrict__ seg, int total,
-                       int causal, float q_mul, bf16* __restrict__ o,
+                       int causal, float q_mul, T* __restrict__ o,
                        float* __restrict__ lse, int hd) {
   using C = ServeCfg<HD>;
   extern __shared__ unsigned char smem_raw[];
@@ -93,8 +93,8 @@ __global__ void __launch_bounds__(128)
   const int g = lane >> 2;
   const int t = lane & 3;
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const bf16* kh = k + static_cast<int64_t>(hh) * ks.h;
-  const bf16* vh = v + static_cast<int64_t>(hh) * vs.h;
+  const T* kh = k + static_cast<int64_t>(hh) * ks.h;
+  const T* vh = v + static_cast<int64_t>(hh) * vs.h;
   auto stage = [&](int i) { return ring + (i % C::kStages) * C::kStageBytes; };
   auto load = [&](unsigned char* to, int kt) {  // key tile kt's K, then V
     copy_tile<HD, C::kThreads>(to, kh, ks.s, kt * kTile, total, tid, hd);
@@ -153,10 +153,10 @@ __global__ void __launch_bounds__(128)
   const int lim[2] = {row[0] < total ? (causal ? row[0] : total - 1) : -1,
                       row[1] < total ? (causal ? row[1] : total - 1) : -1};
 
-  // q landed (D and R0 may still be on their way): q <- bf16(q q_mul)
+  // q landed (D and R0 may still be on their way): q <- T(q q_mul)
   cp_async_wait<2>();
   __syncthreads();
-  fold_tile<HD, C::kThreads>(sq, q_mul, tid);
+  fold_tile<HD, C::kThreads, T>(sq, q_mul, tid);
   fence_proxy_async();
   __syncthreads();
 
@@ -199,7 +199,8 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
       if (kstep_live(kk, hd))
-        wgmma_m64n64k16<0, 0>(s, kmajor_desc(sq, kk), kmajor_desc(skt, kk));
+        wgmma_m64n64k16<T, 0, 0>(s, kmajor_desc(sq, kk),
+                                 kmajor_desc(skt, kk));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(s);
@@ -266,15 +267,15 @@ __global__ void __launch_bounds__(128)
       acc[4 * nb + 3] *= corr[1];
     }
 
-    // o += p v over 4 steps of 16 keys, p rounded to bf16 as the A
-    // fragments
+    // o += p v over 4 steps of 16 keys, p rounded to T as the A fragments
     uint32_t pa[4][4];
-    c_to_a_tile(s, pa);
+    c_to_a_tile<T>(s, pa);
     reg_fence(pa);
     reg_fence(acc);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) pv_mma<HD>(acc, pa[j], mnmajor_desc(svt, j));
+    for (int j = 0; j < 4; ++j)
+      pv_mma<HD, T>(acc, pa[j], mnmajor_desc(svt, j));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(acc);
@@ -284,17 +285,17 @@ __global__ void __launch_bounds__(128)
   // o = acc / l (0 where l = 0) and lse = (m + log2 l) ln 2 of the
   // thread's two rows (no row of a segment stream is empty: a token
   // attends itself)
-  bf16* oh = o + static_cast<int64_t>(hh) * total * hd;
+  T* oh = o + static_cast<int64_t>(hh) * total * hd;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= total) continue;
     const float safe_l = l[r] > 0.f ? l[r] : 1.f;
     const float inv = 1.f / safe_l;
-    bf16* orow = oh + static_cast<int64_t>(row[r]) * hd;
+    T* orow = oh + static_cast<int64_t>(row[r]) * hd;
 #pragma unroll
     for (int nb = 0; nb < HD / 8; ++nb)
       if (nb * 8 < hd)
-        *reinterpret_cast<uint32_t*>(orow + nb * 8 + 2 * t) = pack_bf16(
+        *reinterpret_cast<uint32_t*>(orow + nb * 8 + 2 * t) = pack2<T>(
             acc[4 * nb + 2 * r] * inv, acc[4 * nb + 2 * r + 1] * inv);
     if (t == 0)
       lse[static_cast<int64_t>(hh) * total + row[r]] =
@@ -302,7 +303,7 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-template <int HD>
+template <typename T, int HD>
 int launch_serve_tiles(const void* q, const void* k, const void* v,
                        const int64_t* st, const int* seg, int H, int total,
                        int hd, int causal, float q_mul, void* o, void* lse,
@@ -310,15 +311,15 @@ int launch_serve_tiles(const void* q, const void* k, const void* v,
   using C = ServeCfg<HD>;
   // every call, as launch_pipe_fwd sets its own
   const cudaError_t e = cudaFuncSetAttribute(
-      serve_tiles_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      serve_tiles_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const Strides qs{0, st[0], st[1]}, ks{0, st[2], st[3]}, vs{0, st[4], st[5]};
-  serve_tiles_kernel<HD>
+  serve_tiles_kernel<T, HD>
       <<<dim3((total + kTile - 1) / kTile, H), C::kThreads, C::kSmemBytes,
-         stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                   static_cast<const bf16*>(v), qs, ks, vs, seg, total,
-                   causal, q_mul, static_cast<bf16*>(o),
+         stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                   static_cast<const T*>(v), qs, ks, vs, seg, total,
+                   causal, q_mul, static_cast<T*>(o),
                    static_cast<float*>(lse), hd);
   return static_cast<int>(cudaGetLastError());
 }
@@ -326,29 +327,33 @@ int launch_serve_tiles(const void* q, const void* k, const void* v,
 }  // namespace unpacked
 }  // namespace apex_port
 
-// q, k, v: (H, total, hd) bf16 views through the element strides st[0..5]
-// = (head, token) of q, k, v (unit stride on hd; every stride and base
-// 16-byte aligned); seg: (total,) int32; o: contiguous (H, total, hd) bf16;
-// lse: contiguous (H, total) fp32. hd is a multiple of 8 up to 128 (on
-// width 64 or 128), total 1 to kServeMaxTokens; q_mul is scale * log2(e)
-// rounded to bf16.
+// q, k, v: (H, total, hd) views in dtype (bf16 or fp16) through the
+// element strides st[0..5] = (head, token) of q, k, v (unit stride on hd;
+// every stride and base 16-byte aligned); seg: (total,) int32; o:
+// contiguous (H, total, hd) in dtype; lse: contiguous (H, total) fp32. hd
+// is a multiple of 8 up to 128 (on width 64 or 128), total 1 to
+// kServeMaxTokens; q_mul is scale * log2(e) rounded to dtype.
 extern "C" int flash_segments_serve(const void* q, const void* k,
                                     const void* v, const int64_t* st,
                                     const void* seg, int H, int total,
                                     int hd, int causal, float q_mul,
-                                    void* o, void* lse, void* stream) {
+                                    void* o, void* lse, int dtype,
+                                    void* stream) {
+  using namespace apex_port;
   using namespace apex_port::unpacked;
   if (total < 1 || total > kServeMaxTokens || H < 1 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* ids = static_cast<const int*>(seg);
   auto s = static_cast<cudaStream_t>(stream);
-  if (hd < 8 || hd > 128 || hd % 8 != 0)
+  if (hd < 8 || hd > 128 || hd % 8 != 0 || !is_half_code(dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rc =
-      hd > 64 ? launch_serve_tiles<128>(q, k, v, st, ids, H, total, hd,
-                                        causal, q_mul, o, lse, s)
-              : launch_serve_tiles<64>(q, k, v, st, ids, H, total, hd,
-                                       causal, q_mul, o, lse, s);
+  const int rc = with_half(dtype, [&](auto h) {
+    using T = decltype(h);
+    return hd > 64 ? launch_serve_tiles<T, 128>(q, k, v, st, ids, H, total,
+                                                hd, causal, q_mul, o, lse, s)
+                   : launch_serve_tiles<T, 64>(q, k, v, st, ids, H, total, hd,
+                                               causal, q_mul, o, lse, s);
+  });
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -118,10 +118,11 @@ __device__ __forceinline__ const T* bias_part(const T* bias, int h,
   return bias == nullptr ? nullptr : bias + (h * 3 + part) * kHd;
 }
 
-// ---- the bf16 pipes' bias pre-pass ---------------------------------------
+// ---- the bf16 and fp16 pipes' bias pre-pass -------------------------------
 
-// out = bf16(qkv + bias) over n8 vectors of 8 bf16, the bias repeating
-// every row8 vectors (one (b, s) row of nh*3*hd)
+// out = T(qkv + bias) over n8 vectors of 8 T, the bias repeating every
+// row8 vectors (one (b, s) row of nh*3*hd)
+template <typename T>
 __global__ void __launch_bounds__(256)
     qkv_bias_kernel(const uint4* __restrict__ qkv,
                     const uint4* __restrict__ bias, uint4* __restrict__ out,
@@ -131,17 +132,18 @@ __global__ void __launch_bounds__(256)
        i < n8; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     uint4 raw = qkv[i];
     const uint4 braw = bias[i % row8];
-    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&raw);
-    const __nv_bfloat162* be = reinterpret_cast<const __nv_bfloat162*>(&braw);
+    using T2 = typename Pair<T>::type;
+    T2* e = reinterpret_cast<T2*>(&raw);
+    const T2* be = reinterpret_cast<const T2*>(&braw);
 #pragma unroll
     for (int j = 0; j < 4; ++j) e[j] = __hadd2(e[j], be[j]);
     out[i] = raw;
   }
 }
 
-// the biased projection bf16(qkv + bias) of a bf16 (B, S, nh, 3*hd)
-// projection into out, once, for the pipes to read (flash_fwd.cu,
-// flash_bwd.cu)
+// the biased projection T(qkv + bias) of a (B, S, nh, 3*hd) projection in
+// T into out, once, for the pipes to read (flash_fwd.cu, flash_bwd.cu)
+template <typename T>
 inline cudaError_t launch_qkv_bias(const void* qkv, const void* bias,
                                    void* out, const FlashShape& sh, int hd,
                                    cudaStream_t stream) {
@@ -149,7 +151,7 @@ inline cudaError_t launch_qkv_bias(const void* qkv, const void* bias,
   const int64_t n8 = static_cast<int64_t>(sh.B) * sh.S * row8;
   const int64_t blocks = std::min<int64_t>((n8 + 255) / 256, 1 << 20);
   if (blocks == 0) return cudaSuccess;
-  qkv_bias_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+  qkv_bias_kernel<T><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
       static_cast<const uint4*>(qkv), static_cast<const uint4*>(bias),
       static_cast<uint4*>(out), n8, row8);
   return cudaGetLastError();

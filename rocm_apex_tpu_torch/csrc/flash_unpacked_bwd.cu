@@ -1,6 +1,6 @@
 // Unpacked flash-attention backward for Hopper (sm_90a): the gradients of
-// q, k and v for the forward of flash_unpacked_fwd.cu. bf16 runs on the
-// wgmma backward pipe (flash_bwd_pipe.cuh, the pipe of the packed
+// q, k and v for the forward of flash_unpacked_fwd.cu. bf16 and fp16 run
+// on the wgmma backward pipe (flash_bwd_pipe.cuh, the pipe of the packed
 // backward, with the fp32 score bias and the lse cotangent), fp32 on the
 // CUDA cores (flash_unpacked_bwd.cuh). The host plan is
 // `flash_unpacked_bwd_plan` (ops/flash_attention.py).
@@ -10,7 +10,8 @@
 namespace apex_port {
 namespace unpacked {
 
-inline int launch_unpacked_pipe(const BwdArgs& a, const Problem& pb,
+template <typename T>
+int launch_unpacked_pipe(const BwdArgs<T>& a, const Problem& pb,
                                 cudaStream_t stream) {
   return pb.bias != nullptr ? launch_pipe_bwd_hd<true>(a, pb, stream)
                             : launch_pipe_bwd_hd<false>(a, pb, stream);
@@ -44,30 +45,33 @@ extern "C" int flash_unpacked_bwd(
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == kBFloat16) {
-    BwdArgs a{static_cast<const bf16*>(q),
-              static_cast<const bf16*>(k),
-              static_cast<const bf16*>(v),
-              static_cast<const bf16*>(o),
-              static_cast<const bf16*>(dout),
-              static_cast<const float*>(lse),
-              static_cast<float*>(stats),
-              static_cast<bf16*>(dq),
-              static_cast<bf16*>(dk),
-              static_cast<bf16*>(dv),
-              nullptr,
-              strides_at(st, 0),
-              strides_at(st, 1),
-              strides_at(st, 2),
-              strides_at(st, 3),
-              strides_at(st, 4),
-              strides_at(st, 5),
-              strides_at(st, 6),
-              strides_at(st, 7),
-              Strides{0, 0, 0},
-              static_cast<const float*>(dlse),
-              static_cast<float*>(delta)};
-    rc = launch_unpacked_pipe(a, pb, s);
+  if (is_half_code(dtype)) {
+    rc = with_half(dtype, [&](auto h) {
+      using T = decltype(h);
+      const BwdArgs<T> a{static_cast<const T*>(q),
+                         static_cast<const T*>(k),
+                         static_cast<const T*>(v),
+                         static_cast<const T*>(o),
+                         static_cast<const T*>(dout),
+                         static_cast<const float*>(lse),
+                         static_cast<float*>(stats),
+                         static_cast<T*>(dq),
+                         static_cast<T*>(dk),
+                         static_cast<T*>(dv),
+                         nullptr,
+                         strides_at(st, 0),
+                         strides_at(st, 1),
+                         strides_at(st, 2),
+                         strides_at(st, 3),
+                         strides_at(st, 4),
+                         strides_at(st, 5),
+                         strides_at(st, 6),
+                         strides_at(st, 7),
+                         Strides{0, 0, 0},
+                         static_cast<const float*>(dlse),
+                         static_cast<float*>(delta)};
+      return launch_unpacked_pipe(a, pb, s);
+    });
   } else if (dtype == kFloat32 && delta == nullptr) {
     const void* p[11] = {q, k, v, o, lse, dout, dlse, dq, dk, dv, stats};
     rc = launch_bwd<false>(p, st, pb, dtype, s);

@@ -1,7 +1,7 @@
 // Unpacked flash-attention forward for Hopper (sm_90a): (B*H, S, D)
 // operands, an additive fp32 bias, per-row key lengths, causal masking and
-// in-kernel dropout. bf16 runs on the wgmma pipe (flash_fwd_pipe.cuh), fp32
-// on the CUDA cores (flash_unpacked_fwd.cuh).
+// in-kernel dropout. bf16 and fp16 run on the wgmma pipe
+// (flash_fwd_pipe.cuh), fp32 on the CUDA cores (flash_unpacked_fwd.cuh).
 #include "flash_fwd_pipe.cuh"
 #include "flash_unpacked_fwd.cuh"
 
@@ -31,11 +31,13 @@ extern "C" int flash_unpacked_fwd(const void* q, const void* k, const void* v,
   if (B * H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == kBFloat16) {
+  if (is_half_code(dtype)) {
     const Strides sts[4] = {strides_at(st, 0), strides_at(st, 1),
                             strides_at(st, 2), strides_at(st, 3)};
-    rc = launch_pipe_fwd_hd(q, k, v, o, lse, sts, pb, splits, split_tiles,
-                            ws, s);
+    rc = with_half(dtype, [&](auto h) {
+      return launch_pipe_fwd_hd<decltype(h)>(q, k, v, o, lse, sts, pb, splits,
+                                             split_tiles, ws, s);
+    });
   } else {
     if (!grid_ok(pb)) return static_cast<int>(cudaErrorInvalidValue);
     rc = launch_fwd<false>(q, k, v, o, lse, st, pb, dtype, s);

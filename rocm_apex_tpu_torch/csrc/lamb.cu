@@ -7,7 +7,7 @@
 //   m2 = b1 * m + b3 * g
 //   v2 = b2 * v + (1 - b2) * g * g
 //   u  = (m2 / bc1) / (sqrt(v2 / bc2) + eps) (+ wd * p in AdamW mode)
-// m and v are rewritten in place in their storage dtype (fp32 or bf16)
+// m and v are rewritten in place in their storage dtype (fp32, bf16 or fp16)
 // where live > 0 and left bit-identical otherwise; u is never stored.
 // Each leaf's sum p^2 and sum u^2 (u from the fp32 m2/v2, before any
 // rounding to the storage dtype) go to its row of `out`.
@@ -295,17 +295,21 @@ extern "C" int lamb_stage1(int leaves, void* const* p, void* const* g,
   launch_stage1<GG, MM>(l, static_cast<const float*>(scalars),          \
                         static_cast<float*>(part), static_cast<float*>(out), \
                         adam_w_mode, s)
-  if (g_dtype == kFloat32 && m_dtype == kFloat32) {
-    APEX_LAMB1(float, float);
-  } else if (g_dtype == kFloat32 && m_dtype == kBFloat16) {
-    APEX_LAMB1(float, __nv_bfloat16);
-  } else if (g_dtype == kBFloat16 && m_dtype == kFloat32) {
-    APEX_LAMB1(__nv_bfloat16, float);
-  } else if (g_dtype == kBFloat16 && m_dtype == kBFloat16) {
-    APEX_LAMB1(__nv_bfloat16, __nv_bfloat16);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // g and the moments each fp32 or the call's one 2-byte type
+  const int rc = with_half(half_family(g_dtype, m_dtype), [&](auto h) {
+    using H = decltype(h);
+    if (g_dtype == kFloat32 && m_dtype == kFloat32) {
+      APEX_LAMB1(float, float);
+    } else if (g_dtype == kFloat32) {
+      APEX_LAMB1(float, H);
+    } else if (m_dtype == kFloat32) {
+      APEX_LAMB1(H, float);
+    } else {
+      APEX_LAMB1(H, H);
+    }
+    return 0;
+  });
+  if (rc != 0) return rc;
 #undef APEX_LAMB1
   return static_cast<int>(cudaGetLastError());
 }
@@ -327,17 +331,21 @@ extern "C" int lamb_stage2(int leaves, void* const* p, void* const* m,
 #define APEX_LAMB2(MM, CC)                                              \
   launch_stage2<MM, CC>(l, static_cast<const float*>(scalars),          \
                         static_cast<const float*>(lr_ratios), adam_w_mode, s)
-  if (m_dtype == kFloat32 && c_dtype == kFloat32) {
-    APEX_LAMB2(float, float);
-  } else if (m_dtype == kFloat32 && c_dtype == kBFloat16) {
-    APEX_LAMB2(float, __nv_bfloat16);
-  } else if (m_dtype == kBFloat16 && c_dtype == kFloat32) {
-    APEX_LAMB2(__nv_bfloat16, float);
-  } else if (m_dtype == kBFloat16 && c_dtype == kBFloat16) {
-    APEX_LAMB2(__nv_bfloat16, __nv_bfloat16);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // the moments and the copies each fp32 or the call's one 2-byte type
+  const int rc = with_half(half_family(m_dtype, c_dtype), [&](auto h) {
+    using H = decltype(h);
+    if (m_dtype == kFloat32 && c_dtype == kFloat32) {
+      APEX_LAMB2(float, float);
+    } else if (m_dtype == kFloat32) {
+      APEX_LAMB2(float, H);
+    } else if (c_dtype == kFloat32) {
+      APEX_LAMB2(H, float);
+    } else {
+      APEX_LAMB2(H, H);
+    }
+    return 0;
+  });
+  if (rc != 0) return rc;
 #undef APEX_LAMB2
   return static_cast<int>(cudaGetLastError());
 }

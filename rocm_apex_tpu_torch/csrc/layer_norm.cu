@@ -634,22 +634,30 @@ __global__ void __launch_bounds__(kReduceCols * kReduceSlices)
   }
 }
 
-// Calls F::template run<T, W, Y>() for the three dtype codes.
+// Calls F::template run<T, W, Y>() for the three dtype codes: each fp32
+// or the call's one 2-byte type (bf16 or fp16; the two do not mix). An
+// fp16 call has fp16 x (the O2 models' LayerNorms), so the fp16 instances
+// are the four of T = fp16.
 template <typename F>
 static int dispatch3(int t, int w, int y, F&& f) {
+  const int family = half_family(t, w, y);
+  if (family == kFloat16 && t != kFloat16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_half(family, [&](auto h) -> int {
+    using H = decltype(h);
 #define APEX_LN_Y(TT, WW)                                                  \
   if (y == kFloat32) return f.template run<TT, WW, float>();              \
-  if (y == kBFloat16) return f.template run<TT, WW, __nv_bfloat16>();     \
-  return static_cast<int>(cudaErrorInvalidValue);
+  return f.template run<TT, WW, H>();
 #define APEX_LN_W(TT)                                                      \
   if (w == kFloat32) { APEX_LN_Y(TT, float) }                              \
-  if (w == kBFloat16) { APEX_LN_Y(TT, __nv_bfloat16) }                     \
-  return static_cast<int>(cudaErrorInvalidValue);
-  if (t == kFloat32) { APEX_LN_W(float) }
-  if (t == kBFloat16) { APEX_LN_W(__nv_bfloat16) }
-  return static_cast<int>(cudaErrorInvalidValue);
+  APEX_LN_Y(TT, H)
+    if constexpr (!kIsF16<H>) {
+      if (t == kFloat32) { APEX_LN_W(float) }
+    }
+    APEX_LN_W(H)
 #undef APEX_LN_W
 #undef APEX_LN_Y
+  });
 }
 
 struct FwdLaunch {

@@ -113,98 +113,73 @@ int launch_rows(long long rows, const void* x, const void* y, const float* a,
 
 using namespace apex_port;
 
-// Dispatch on the dtype codes (0 fp32, 1 bf16) of up to three buffers.
-#define MT_DISPATCH(MODE, XC, YC, OC, ...)                                     \
-  do {                                                                        \
-    const int code_ = (XC) * 4 + (YC) * 2 + (OC);                             \
-    switch (code_) {                                                          \
-      case 0: return launch_rows<MODE, float, float, float>(__VA_ARGS__);     \
-      case 1:                                                                 \
-        return launch_rows<MODE, float, float, __nv_bfloat16>(__VA_ARGS__);   \
-      case 2:                                                                 \
-        return launch_rows<MODE, float, __nv_bfloat16, float>(__VA_ARGS__);   \
-      case 3:                                                                 \
-        return launch_rows<MODE, float, __nv_bfloat16, __nv_bfloat16>(        \
-            __VA_ARGS__);                                                     \
-      case 4:                                                                 \
-        return launch_rows<MODE, __nv_bfloat16, float, float>(__VA_ARGS__);   \
-      case 5:                                                                 \
-        return launch_rows<MODE, __nv_bfloat16, float, __nv_bfloat16>(        \
-            __VA_ARGS__);                                                     \
-      case 6:                                                                 \
-        return launch_rows<MODE, __nv_bfloat16, __nv_bfloat16, float>(        \
-            __VA_ARGS__);                                                     \
-      default:                                                                \
-        return launch_rows<MODE, __nv_bfloat16, __nv_bfloat16,                \
-                           __nv_bfloat16>(__VA_ARGS__);                       \
-    }                                                                         \
-  } while (0)
+// Dispatch on the dtype codes of up to three buffers: each fp32 or the
+// call's one 2-byte type H (bf16 or fp16; half_family refuses a mix).
+template <int kMode, typename H>
+int dispatch_rows(int xc, int yc, int oc, long long rows, const void* x,
+                  const void* y, const float* a, const float* b, void* out,
+                  int* flag, float* rowsq, cudaStream_t stream) {
+  switch ((xc != kFloat32) * 4 + (yc != kFloat32) * 2 + (oc != kFloat32)) {
+#define MT_CASE(C, X, Y, O)                                                  \
+  case C:                                                                    \
+    return launch_rows<kMode, X, Y, O>(rows, x, y, a, b, out, flag, rowsq,  \
+                                       stream);
+    MT_CASE(0, float, float, float)
+    MT_CASE(1, float, float, H)
+    MT_CASE(2, float, H, float)
+    MT_CASE(3, float, H, H)
+    MT_CASE(4, H, float, float)
+    MT_CASE(5, H, float, H)
+    MT_CASE(6, H, H, float)
+    default:
+      return launch_rows<kMode, H, H, H>(rows, x, y, a, b, out, flag, rowsq,
+                                         stream);
+#undef MT_CASE
+  }
+}
+
+template <int kMode>
+int dispatch_codes(int xc, int yc, int oc, long long rows, const void* x,
+                   const void* y, const float* a, const float* b, void* out,
+                   int* flag, float* rowsq, void* stream) {
+  return with_half(half_family(xc, yc, oc), [&](auto h) {
+    return dispatch_rows<kMode, decltype(h)>(
+        xc, yc, oc, rows, x, y, a, b, out, flag, rowsq,
+        static_cast<cudaStream_t>(stream));
+  });
+}
 
 extern "C" {
 
-// out = x * s; flag = 1 where a value is not finite
+// out = x * s; flag = 1 where a value is not finite (y is unused: its code
+// is x's, so no more instances than (x, out))
 int mt_scale(long long rows, const void* x, int x_dt, const float* s,
              void* out, int out_dt, int* flag, void* stream) {
-  // y is unused: its code is x's, so no more instances than (x, out)
-  if (x_dt == 0) {
-    if (out_dt == 0)
-      return launch_rows<0, float, float, float>(
-          rows, x, nullptr, s, nullptr, out, flag, nullptr,
-          static_cast<cudaStream_t>(stream));
-    return launch_rows<0, float, float, __nv_bfloat16>(
-        rows, x, nullptr, s, nullptr, out, flag, nullptr,
-        static_cast<cudaStream_t>(stream));
-  }
-  if (out_dt == 0)
-    return launch_rows<0, __nv_bfloat16, __nv_bfloat16, float>(
-        rows, x, nullptr, s, nullptr, out, flag, nullptr,
-        static_cast<cudaStream_t>(stream));
-  return launch_rows<0, __nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
-      rows, x, nullptr, s, nullptr, out, flag, nullptr,
-      static_cast<cudaStream_t>(stream));
+  return dispatch_codes<0>(x_dt, x_dt, out_dt, rows, x, nullptr, s, nullptr,
+                           out, flag, nullptr, stream);
 }
 
 // the same, and rowsq[r] = sum over row r of (x * s)^2
 int mt_scale_sumsq(long long rows, const void* x, int x_dt, const float* s,
                    void* out, int out_dt, int* flag, float* rowsq,
                    void* stream) {
-  if (x_dt == 0) {
-    if (out_dt == 0)
-      return launch_rows<1, float, float, float>(
-          rows, x, nullptr, s, nullptr, out, flag, rowsq,
-          static_cast<cudaStream_t>(stream));
-    return launch_rows<1, float, float, __nv_bfloat16>(
-        rows, x, nullptr, s, nullptr, out, flag, rowsq,
-        static_cast<cudaStream_t>(stream));
-  }
-  if (out_dt == 0)
-    return launch_rows<1, __nv_bfloat16, __nv_bfloat16, float>(
-        rows, x, nullptr, s, nullptr, out, flag, rowsq,
-        static_cast<cudaStream_t>(stream));
-  return launch_rows<1, __nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
-      rows, x, nullptr, s, nullptr, out, flag, rowsq,
-      static_cast<cudaStream_t>(stream));
+  return dispatch_codes<1>(x_dt, x_dt, out_dt, rows, x, nullptr, s, nullptr,
+                           out, flag, rowsq, stream);
 }
 
 // out = a * x + b * y; flag = 1 where a value is not finite
 int mt_axpby(long long rows, const void* x, int x_dt, const void* y, int y_dt,
              const float* a, const float* b, void* out, int out_dt, int* flag,
              void* stream) {
-  MT_DISPATCH(2, x_dt, y_dt, out_dt, rows, x, y, a, b, out, flag, nullptr,
-              static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaErrorInvalidValue);  // not reached
+  return dispatch_codes<2>(x_dt, y_dt, out_dt, rows, x, y, a, b, out, flag,
+                           nullptr, stream);
 }
 
 // rowsq[r] = sum over row r of x^2
 int mt_row_sumsq(long long rows, const void* x, int x_dt, float* rowsq,
                  void* stream) {
-  if (x_dt == 0)
-    return launch_rows<3, float, float, float>(
-        rows, x, nullptr, nullptr, nullptr, nullptr, nullptr, rowsq,
-        static_cast<cudaStream_t>(stream));
-  return launch_rows<3, __nv_bfloat16, __nv_bfloat16, float>(
-      rows, x, nullptr, nullptr, nullptr, nullptr, nullptr, rowsq,
-      static_cast<cudaStream_t>(stream));
+  return dispatch_codes<3>(x_dt, x_dt, kFloat32, rows, x, nullptr, nullptr,
+                           nullptr, nullptr, nullptr, rowsq, stream);
 }
 
 }  // extern "C"

@@ -256,21 +256,25 @@ int launch_update(const UpdateArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, g and the state buffers each fp32 (0) or bf16 (1)
+// x, g and the state buffers each fp32 or the call's one 2-byte type
+// (bf16 or fp16; half_family refuses a mix)
 template <class Op>
 int dispatch(const UpdateArgs& a, int x_dt, int g_dt, int m_dt, void* stream) {
-  using bf = __nv_bfloat16;
   auto st = static_cast<cudaStream_t>(stream);
-  switch (x_dt * 4 + g_dt * 2 + m_dt) {
-    case 0: return launch_update<Op, float, float, float>(a, st);
-    case 1: return launch_update<Op, float, float, bf>(a, st);
-    case 2: return launch_update<Op, float, bf, float>(a, st);
-    case 3: return launch_update<Op, float, bf, bf>(a, st);
-    case 4: return launch_update<Op, bf, float, float>(a, st);
-    case 5: return launch_update<Op, bf, float, bf>(a, st);
-    case 6: return launch_update<Op, bf, bf, float>(a, st);
-    default: return launch_update<Op, bf, bf, bf>(a, st);
-  }
+  return with_half(half_family(x_dt, g_dt, m_dt), [&](auto h) {
+    using H = decltype(h);
+    switch ((x_dt != kFloat32) * 4 + (g_dt != kFloat32) * 2 +
+            (m_dt != kFloat32)) {
+      case 0: return launch_update<Op, float, float, float>(a, st);
+      case 1: return launch_update<Op, float, float, H>(a, st);
+      case 2: return launch_update<Op, float, H, float>(a, st);
+      case 3: return launch_update<Op, float, H, H>(a, st);
+      case 4: return launch_update<Op, H, float, float>(a, st);
+      case 5: return launch_update<Op, H, float, H>(a, st);
+      case 6: return launch_update<Op, H, H, float>(a, st);
+      default: return launch_update<Op, H, H, H>(a, st);
+    }
+  });
 }
 
 }  // namespace apex_port
@@ -297,14 +301,17 @@ PACKED_ENTRY(packed_adagrad, AdagradOp)
 PACKED_ENTRY(packed_novograd, NovogradOp)
 PACKED_ENTRY(packed_lamb1, Lamb1Op)
 
-// stage 2 reads u (fp32 or bf16) alone: one instance per u dtype
+// stage 2 reads u (fp32, bf16 or fp16) alone: one instance per u dtype
 int packed_lamb2(long long rows, const void* u, int u_dt, const float* ratio,
                  const float* scalars, float* d, void* stream) {
   const UpdateArgs a{u, nullptr, nullptr, nullptr, ratio, nullptr, scalars,
                      d, nullptr, nullptr, rows,    0};
   auto st = static_cast<cudaStream_t>(stream);
-  if (u_dt == 0) return launch_update<Lamb2Op, float, float, float>(a, st);
-  return launch_update<Lamb2Op, __nv_bfloat16, float, float>(a, st);
+  if (u_dt == kFloat32)
+    return launch_update<Lamb2Op, float, float, float>(a, st);
+  return with_half(half_family(u_dt), [&](auto h) {
+    return launch_update<Lamb2Op, decltype(h), float, float>(a, st);
+  });
 }
 
 }  // extern "C"

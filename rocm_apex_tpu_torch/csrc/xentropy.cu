@@ -197,6 +197,8 @@ extern "C" int xent_fwd(const void* x, const void* labels, void* loss,
   } else if (x_dtype == kBFloat16) {
     launch_xent<__nv_bfloat16>(x, labels, loss, lse, dg, rows, vocab,
                                smoothing, s);
+  } else if (x_dtype == kFloat16) {
+    launch_xent<__half>(x, labels, loss, lse, dg, rows, vocab, smoothing, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -216,6 +218,9 @@ extern "C" int xent_bwd(const void* x, const void* labels, const void* lse,
   } else if (x_dtype == kBFloat16) {
     launch_xent_bwd<__nv_bfloat16>(x, labels, lse, dl, dx, rows, vocab,
                                    smoothing, s);
+  } else if (x_dtype == kFloat16) {
+    launch_xent_bwd<__half>(x, labels, lse, dl, dx, rows, vocab, smoothing,
+                            s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

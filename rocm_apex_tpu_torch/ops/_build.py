@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List
 
@@ -34,6 +35,7 @@ __all__ = [
     "build_all",
     "build_logs",
     "dtype_code",
+    "half_float",
     "ptr",
     "sm_count",
     "stream_ptr",
@@ -50,7 +52,7 @@ NVCC_FLAGS = (
 )
 
 # the dtype codes of csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -62,9 +64,16 @@ KERNELS: List["Kernel"] = []
 def dtype_code(dtype: torch.dtype) -> int:
     if dtype not in DTYPE_CODES:
         raise TypeError(
-            f"the CUDA kernels take float32 or bfloat16, got {dtype}"
+            f"the CUDA kernels take float32, bfloat16 or float16, got {dtype}"
         )
     return DTYPE_CODES[dtype]
+
+
+def half_float(dtype: torch.dtype) -> bool:
+    """A 2-byte float type (bfloat16 or float16): the plans send these to
+    the tensor-core routes (wgmma takes either at the same shapes, f32
+    accumulators), fp32 to the CUDA cores."""
+    return dtype in (torch.bfloat16, torch.float16)
 
 
 def ptr(t) -> ctypes.c_void_p:
@@ -140,10 +149,20 @@ def build_all() -> Dict[str, Path]:
         procs.append((src, lib, tmp, log, subprocess.Popen(
             cmd, stdout=log, stderr=subprocess.STDOUT
         )))
+    # each source's seconds from the start of the build to its end, at the
+    # end of its log (the build takes its slowest source's)
+    t0, ended = time.perf_counter(), {}
+    while len(ended) < len(procs):
+        for src, _, _, _, proc in procs:
+            if src not in ended and proc.poll() is not None:
+                ended[src] = time.perf_counter() - t0
+        time.sleep(0.05)
     failed = []
     for src, lib, tmp, log, proc in procs:
         rc = proc.wait()
         log.close()
+        with open(lib.with_suffix(".log"), "a") as f:
+            f.write(f"\nbuild seconds: {ended[src]:.1f}\n")
         if rc != 0:
             failed.append(
                 f"{src.name} (exit {rc}):\n"

@@ -154,6 +154,7 @@ from rocm_apex_tpu_torch.ops._build import (
     DTYPE_CODES,
     Kernel,
     dtype_code,
+    half_float,
     ptr,
     sm_count,
     stream_ptr,
@@ -869,9 +870,9 @@ def _flash_fwd(qkv, bias, causal, scale, rate, seed):
 
 def _packed_prepass(hd: int, dtype: torch.dtype) -> bool:
     """Whether the packed kernels add a bias by a pre-pass into a scratch
-    projection: bf16 always, fp32 at head_dim 256 (the unpacked CUDA-core
-    bodies it runs on take no bias on load)."""
-    return dtype == torch.bfloat16 or hd != _PACKED_F32_HD
+    projection: bf16 and fp16 always, fp32 at head_dim 256 (the unpacked
+    CUDA-core bodies it runs on take no bias on load)."""
+    return half_float(dtype) or hd != _PACKED_F32_HD
 
 
 def _bwd_tiles(nqt: int, nkt: int, causal: bool, dq_down: bool):
@@ -893,7 +894,7 @@ def flash_bwd_plan(batch: int, seq: int, heads: int, head_dim: int,
     """The packed backward's route, grids and buffers, from the shape
     alone.
 
-    ``route``: ``"wgmma"`` for bf16 (csrc/flash_bwd_pipe.cuh) and
+    ``route``: ``"wgmma"`` for bf16 and fp16 (csrc/flash_bwd_pipe.cuh) and
     ``"cuda_cores"`` for fp32; the packed kernels take head_dim 128 and
     256 (``width``, `head_dim_plan`; others raise): fp32 at 256 runs on the
     unpacked backward's CUDA-core bodies (``form`` ``"unpacked"``, else
@@ -917,7 +918,7 @@ def flash_bwd_plan(batch: int, seq: int, heads: int, head_dim: int,
     tiles = -(-seq // _PACKED_TILE)
     bh = batch * heads
     parts = (batch, tiles, heads, 3 * head_dim)
-    pipe = dtype == torch.bfloat16
+    pipe = half_float(dtype)
     dq_tiles, dkv_tiles = _bwd_tiles(tiles, tiles, causal, dq_down=pipe)
     scratch = ((batch, seq, heads, 3 * head_dim)
                if _packed_prepass(head_dim, dtype) else None)
@@ -1157,13 +1158,14 @@ def flash_fwd_plan(bh: int, sq: int, sk: int, hd: int, causal: bool,
     """The forward kernels' route and grid, from the shape alone, for the
     packed (``bh`` = B*nh, sq = sk = S) and the unpacked forward.
 
-    ``route``: ``"wgmma"`` for bf16 (the pipe) and ``"cuda_cores"`` for
-    fp32, each at `head_dim_plan`'s ``width`` (64, 128 or 256) and
-    ``hd_route`` for any head dim 1 to 256 (``pad_bytes``: the padded
-    route's copies of q, k, v and o, else 0). A pipe unit is (operand row, query tile of 64, key split):
-    where the bh x ceil(sq / 64) pairs cannot fill the card, each query
-    tile's ceil(sk / 64) key tiles are cut into ``splits`` (a power of
-    two, at most 16) runs of ``split_tiles`` tiles, doubled while twice
+    ``route``: ``"wgmma"`` for bf16 and fp16 (the pipe) and
+    ``"cuda_cores"`` for fp32, each at `head_dim_plan`'s ``width`` (64,
+    128 or 256) and ``hd_route`` for any head dim 1 to 256
+    (``pad_bytes``: the padded route's copies of q, k, v and o, else 0).
+    A pipe unit is (operand row, query tile of 64, key split): where the
+    bh x ceil(sq / 64) pairs cannot fill the card, each query tile's
+    ceil(sk / 64) key tiles are cut into ``splits`` (a power of two, at
+    most 16) runs of ``split_tiles`` tiles, doubled while twice
     the units stay within two waves of two blocks a multiprocessor and
     each split keeps at least two tiles; the partials are merged by lse in
     split order. It reads no lengths: a split past a row's last key exits
@@ -1173,7 +1175,7 @@ def flash_fwd_plan(bh: int, sq: int, sk: int, hd: int, causal: bool,
     hp = head_dim_plan(hd)
     hp["pad_bytes"] = _pad_bytes(hp, bh * (2 * sq + 2 * sk), dtype)
     nqt, ntk = -(-sq // _FWD_TILE), -(-sk // _FWD_TILE)
-    if dtype != torch.bfloat16:
+    if not half_float(dtype):
         return dict(route="cuda_cores", rows=_FWD_TILE, splits=1,
                     split_tiles=max(ntk, 1), grid=(nqt, bh), workspace=0,
                     **hp)
@@ -1208,7 +1210,7 @@ def flash_unpacked_bwd_plan(bh: int, sq: int, sk: int, hd: int,
     """The unpacked backward's route, grids and buffers, from the shape
     alone (it reads no lengths, as `flash_fwd_plan` reads none).
 
-    ``route``: ``"wgmma"`` for bf16 (the packed backward's pipe,
+    ``route``: ``"wgmma"`` for bf16 and fp16 (the packed backward's pipe,
     csrc/flash_bwd_pipe.cuh) and ``"cuda_cores"`` for fp32
     (csrc/flash_unpacked_bwd.cuh), each at `head_dim_plan`'s ``width`` and
     ``hd_route`` (head dims 1 to 256; ``pad_bytes`` the padded route's
@@ -1227,7 +1229,7 @@ def flash_unpacked_bwd_plan(bh: int, sq: int, sk: int, hd: int,
     hp = head_dim_plan(hd)
     hp["pad_bytes"] = _pad_bytes(hp, bh * (4 * sq + 4 * sk), dtype)
     nqt, nkt = -(-sq // _FWD_TILE), -(-sk // _FWD_TILE)
-    pipe = dtype == torch.bfloat16
+    pipe = half_float(dtype)
     dq_tiles, dkv_tiles = _bwd_tiles(nqt, nkt, causal, dq_down=pipe)
     if not pipe:
         return dict(route="cuda_cores", dq_grid=(nqt, bh),
@@ -1295,7 +1297,7 @@ def flash_dbias_plan(nb: int, hp: int, sq: int, sk: int, hd: int,
     """The bias gradient's route, grid and buffers (csrc/flash_dbias.cu),
     from the shape alone, for ``nb`` bias rows of ``hp`` heads each.
 
-    ``route``: ``"wgmma"`` for bf16 (a block of ``key_tiles`` = 2
+    ``route``: ``"wgmma"`` for bf16 and fp16 (a block of ``key_tiles`` = 2
     warpgroups, a 64 x 64 tile of a bias row each, sharing the query
     tile's q and do; a ring of ``stages`` sets of the heads' tiles in the
     128-byte swizzle, two at head_dim 128 and three at 64; S and dP on
@@ -1317,7 +1319,7 @@ def flash_dbias_plan(nb: int, hp: int, sq: int, sk: int, hd: int,
     # causal: query tile qt meets key tiles 0..min(qt, nkt - 1)
     m = min(nqt, nkt)
     live = m * (m + 1) // 2 + (nqt - m) * nkt if causal else nqt * nkt
-    if dtype != torch.bfloat16:
+    if not half_float(dtype):
         return dict(route="cuda_cores", grid=(nkt, nqt, nb), key_tiles=1,
                     live=live, stages=1,
                     smem=4 * (4 * _FWD_TILE * (staged + 1) + 2 * _FWD_TILE),

@@ -61,7 +61,13 @@ from typing import Optional
 
 import torch
 
-from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
+from rocm_apex_tpu_torch.ops._build import (
+    Kernel,
+    dtype_code,
+    half_float,
+    ptr,
+    stream_ptr,
+)
 from rocm_apex_tpu_torch.ops.flash_attention import (
     _FWD_TILE,
     _SPAN_TILE,
@@ -131,7 +137,7 @@ FLASH_SEGMENTS_SERVE = Kernel(
     source="flash_segments_serve.cu",
     symbol="flash_segments_serve",
     argtypes=[_P, _P, _P, ctypes.POINTER(_I64), _P, _I, _I, _I, _I,
-              ctypes.c_float, _P, _P, _P],
+              ctypes.c_float, _P, _P, _I, _P],
     replaces="rocm_apex_tpu/ops/flash_attention_segments.py:70 "
              "_seg_fwd_kernel (serving, tensor cores)",
 )
@@ -197,7 +203,7 @@ def flash_segments_serve_plan(h: int, total: int, hd: int,
                               dtype: torch.dtype = torch.bfloat16) -> dict:
     """The serving read's route, from the shape alone.
 
-    ``route``: ``"tiles"`` for bf16 at a head_dim up to 128 over up to
+    ``route``: ``"tiles"`` for bf16 and fp16 at a head_dim up to 128 over up to
     `SERVE_TILES_MAX` tokens (csrc/flash_segments_serve.cu: a block of one
     warpgroup a (query tile, head), ``grid``, walking its key tiles in
     ascending order); ``"pipe"`` for a longer bf16 stream (the training
@@ -211,7 +217,7 @@ def flash_segments_serve_plan(h: int, total: int, hd: int,
     `flash_attention_segments_plain` at that frame."""
     head_dim_plan(hd)  # raises past 256
     tiles = -(-total // _FWD_TILE)
-    if dtype == torch.bfloat16 and hd <= _SERVE_TILES_HD_MAX:
+    if half_float(dtype) and hd <= _SERVE_TILES_HD_MAX:
         hp = head_dim_plan(hd)
         hp["pad_bytes"] = _pad_bytes(hp, 3 * h * total, dtype)
         if total <= SERVE_TILES_MAX:
@@ -301,7 +307,7 @@ def _serve_tiles(q, k, v, segment_ids, causal, scale):
         FLASH_SEGMENTS_SERVE(
             ptr(q), ptr(k), ptr(v), st, ptr(segment_ids), h, total, d,
             int(bool(causal)), _q_mul(scale, q.dtype), ptr(o), ptr(lse),
-            stream_ptr(q.device),
+            dtype_code(q.dtype), stream_ptr(q.device),
         )
     return o, lse
 
@@ -325,7 +331,7 @@ def flash_segments_plan(h: int, total: int, hd: int,
     """The training segment kernels' route, grids and buffers, from the
     shape alone.
 
-    ``route``: ``"wgmma"`` for bf16 (the forward and backward pipes,
+    ``route``: ``"wgmma"`` for bf16 and fp16 (the forward and backward pipes,
     ``csrc/flash_fwd_pipe.cuh`` and ``csrc/flash_bwd_pipe.cuh``, with
     their segment flag) and ``"cuda_cores"`` for fp32 (the bodies of
     ``csrc/flash_unpacked_{fwd,bwd}.cuh``), each at `head_dim_plan`'s
@@ -344,13 +350,13 @@ def flash_segments_plan(h: int, total: int, hd: int,
     hp["pad_bytes"] = _pad_bytes(hp, 8 * h * total, dtype)
     tiles = -(-total // _FWD_TILE)
     workspace = 6 * tiles + 2 * -(-total // _RANGE_ROWS)
-    if dtype != torch.bfloat16:
+    if not half_float(dtype):
         return dict(route="cuda_cores", rows=_FWD_TILE, splits=1,
                     tiles=tiles, grid=(tiles, h), stats=(h, total),
                     workspace=workspace, **hp)
     if tiles > _SEG_PIPE_TILES:
         raise ValueError(
-            f"the bf16 segment kernels take at most {_SEG_PIPE_TILES} "
+            f"the {dtype} segment kernels take at most {_SEG_PIPE_TILES} "
             f"tiles of {_FWD_TILE} tokens (a grid's y), got {tiles} "
             f"({total} tokens)")
     return dict(route="wgmma", rows=_FWD_TILE, splits=1, tiles=tiles,

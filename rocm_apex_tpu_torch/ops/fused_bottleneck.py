@@ -26,21 +26,23 @@ layout: (K, N) for a 1x1, (3, 3, Cin, Cout) for the 3x3. The TPU's VMEM
 knobs (block sizes, halo slivers, tap bits) are how Mosaic cuts blocks,
 not what the functions compute, and have no counterpart here.
 
-The bf16 backwards first write dz and u once (a pre-pass:
+The bf16 and fp16 backwards first write dz and u once (a pre-pass:
 `conv3_bwd_prepass_plain` and `mm_bwd_prepass_plain` its plain forms,
 each with its own rounding), then run their dgrad and their wgrad (for
 the 3x3 the taps folded into the output rows) as pipelined wgmma
 products over them; `conv3_bwd_plan` and `mm_bwd_plan` say how they
-launch and what they allocate. The bf16 forwards do the same: under a
-prologue a pre-pass writes u (`conv3_fwd_prepass_plain`), and the product
-reads u's rows (for the 3x3 shifted by each tap, zero-filled past the
-image: the padding is of u), as `mm_fwd_plan` and `conv3_fwd_plan` say.
-A kernel whose channel counts are not multiples of 64 runs on the staged
+launch and what they allocate. The bf16 and fp16 forwards do the same:
+under a prologue a pre-pass writes u (`conv3_fwd_prepass_plain`), and the
+product reads u's rows (for the 3x3 shifted by each tap, zero-filled past
+the image: the padding is of u), as `mm_fwd_plan` and `conv3_fwd_plan`
+say. A kernel whose channel counts are not multiples of 64 runs on the staged
 core (the plans' rule), as does fp32.
 
-For CUDA tensors the wrappers launch the kernels (bf16 or fp32, every
-channel count a multiple of 16) or raise; for CPU tensors they run the
-plain versions (``*_plain``), which the card compares the kernels with.
+For CUDA tensors the wrappers launch the kernels (bf16, fp16 or fp32) or
+raise; for CPU tensors they run the plain versions (``*_plain``), which
+the card compares the kernels with. Any channel count: a count that is
+not a multiple of 8 goes through a zero-padded copy on either device
+(`channel_plan`), so the CPU runs the padding the card runs.
 `bottleneck_fused` chains them as the JAX custom VJP does; the bn3 and
 downsample-BN reductions, the residual tail and ``dx = dx_main + dx_res``
 are plain PyTorch there, as they are plain XLA in JAX.
@@ -53,8 +55,10 @@ import torch
 import torch.nn.functional as F
 
 from rocm_apex_tpu_torch.ops._build import (
+    DTYPE_CODES,
     Kernel,
     dtype_code,
+    half_float,
     ptr,
     sm_count,
     stream_ptr,
@@ -118,10 +122,16 @@ BNECK_CONV3_BWD = Kernel(
 )
 
 # the kernels' tiles (csrc/bottleneck.cuh Cfg<T>): rows and columns of an
-# output tile and the depth of a staged reduction chunk
-_TILE_M = {torch.bfloat16: 128, torch.float32: 64}
-_TILE_N = {torch.bfloat16: 64, torch.float32: 64}
-_CHUNK = {torch.bfloat16: 32, torch.float32: 16}
+# output tile and the depth of a staged reduction chunk, one layout for
+# the 2-byte types (bf16, fp16: mma.sync) and one for fp32
+_TILE_M = {dt: 128 if half_float(dt) else 64 for dt in DTYPE_CODES}
+_TILE_N = {dt: 64 for dt in DTYPE_CODES}
+_CHUNK = {dt: 32 if half_float(dt) else 16 for dt in DTYPE_CODES}
+# the channel grain of the kernels: a 16-byte row segment of a 2-byte type
+# (csrc/bottleneck.cuh `load8`; a tile's channel tail past the count is
+# zero-filled in shared memory at this grain); `channel_plan` pads other
+# counts up to it
+_CHANNEL_GRAIN = 8
 _RED_CHUNK = 256  # parts a reduction block sums (kRedChunk)
 # the pipe's tiles (csrc/bottleneck_pipe.cuh PCfg): 128 output rows, 128
 # columns where the count divides by 128 (else 64), 64-deep chunks; a bf16
@@ -357,10 +367,40 @@ def _check_channels(dt, *counts, pixels=0):
     if pixels >= 2 ** 31:
         raise ValueError(f"the bottleneck kernels index pixels in 32 bits, "
                          f"got {pixels}")
-    bad = [c for c in counts if c % 16]
-    if bad:
-        raise ValueError(f"the bottleneck kernels take channel counts that "
-                         f"are multiples of 16, got {bad}")
+    if any(c < 1 for c in counts):
+        raise ValueError(f"the bottleneck kernels take channel counts of at "
+                         f"least 1, got {counts}")
+
+
+def channel_plan(counts, m: int = 0, dt=torch.bfloat16) -> dict:
+    """How the kernels take a call's channel counts, from the counts
+    alone. ``route``: ``"native"`` where every count is a multiple of
+    `_CHANNEL_GRAIN` (8): the staged core's tiles predicate their channel
+    tail at that grain and zero-fill it in shared memory, and the pipe
+    takes multiples of `_PIPE_CHUNK` (64) as `mm_fwd_plan` says;
+    ``"padded"`` for any other count: the wrapper copies the operands with
+    zero channels up to the next multiple of 8 (``kernel_counts``), the
+    BN coefficients (scale, bias, k1, k2, k0, mu, rs) padded with 0, so a
+    pad channel is exactly 0 in every output and sum, and slices the
+    outputs back. ``pad_bytes``: the bytes the padded copies of ``m``
+    pixels add over the call's maps (one extra channel a map per pad
+    channel), as the head dims' `pad_bytes` counts them."""
+    kernel = tuple(-(-c // _CHANNEL_GRAIN) * _CHANNEL_GRAIN for c in counts)
+    extra = sum(kc - c for kc, c in zip(kernel, counts))
+    route = "native" if kernel == tuple(counts) else "padded"
+    return dict(route=route, kernel_counts=kernel,
+                pad_bytes=m * extra * torch.empty((), dtype=dt).element_size())
+
+
+def _pad(t: Optional[torch.Tensor], *sizes) -> Optional[torch.Tensor]:
+    """t zero-padded at the end of its last len(sizes) axes to ``sizes``
+    (None stays None)."""
+    if t is None:
+        return None
+    pad = []
+    for ax, to in zip(range(t.dim() - 1, -1, -1), reversed(sizes)):
+        pad += [0, to - t.shape[ax]]
+    return F.pad(t, pad) if any(pad) else t
 
 
 def _parts(rows: int, width: int, dt, device):
@@ -430,7 +470,7 @@ def _fwd_plan(m: int, k: int, n: int, dt, prologue: bool) -> dict:
     otherwise the staged core (``bn`` 0). ``parts``: one (Σy, Σy²)
     partial row a pixel tile; ``u``: the pre-pass's rows, on the pipe
     under a ``prologue``."""
-    if dt == torch.bfloat16 and k % _PIPE_CHUNK == 0 and n % _PIPE_CHUNK == 0:
+    if half_float(dt) and k % _PIPE_CHUNK == 0 and n % _PIPE_CHUNK == 0:
         bn = _pipe_cols(n)
         tiles = -(-m // _PIPE_TILE_M)
         return dict(route="pipe", bn=bn, grid=(tiles, n // bn, 1),
@@ -494,7 +534,7 @@ def conv3_bwd_plan(m: int, cin: int, cout: int, dt, sms: int) -> dict:
     (tap, cin) pairs; the splits give `_PIPE_WGRAD_BLOCKS_PER_SM` blocks a
     multiprocessor. fp32 (the staged core): a tap per grid slice, sized
     as the 1x1's by `_wgrad_splits`."""
-    if dt == torch.bfloat16:
+    if half_float(dt):
         rows = 9 * cin
         row_tiles = -(-rows // _PIPE_TILE_M)
         col_tiles = -(-cout // _pipe_cols(cout))
@@ -529,7 +569,7 @@ def mm_bwd_plan(m: int, k: int, n: int, dt, sms: int) -> dict:
     part-empty chunks and tiles everywhere; such a width, and fp32, take
     ``"staged"`` (csrc/bottleneck.cuh, 32-deep chunks), sized by
     `_wgrad_splits`. A shape rule, decided here before any launch."""
-    if dt == torch.bfloat16 and k % _PIPE_CHUNK == 0 and n % _PIPE_CHUNK == 0:
+    if half_float(dt) and k % _PIPE_CHUNK == 0 and n % _PIPE_CHUNK == 0:
         row_tiles = -(-k // _PIPE_TILE_M)
         col_tiles = -(-n // _pipe_cols(n))
         split_len, splits = _pipe_splits(m, row_tiles * col_tiles, sms)
@@ -561,12 +601,20 @@ def conv1x1_bn_act(
     dtype and, with ``stats``, the per-channel (sum, sum_sq) of y in fp32
     from the unrounded product. On the card it runs on the route
     `mm_fwd_plan` gives its shape."""
-    if x2d.device.type == "cpu":
-        return conv1x1_bn_act_plain(x2d, w, scale, bias, stats)
-    _require_cuda(x2d)
     dt = x2d.dtype
     m, k = x2d.shape
     n = w.shape[1]
+    cp = channel_plan((k, n), m, dt)
+    if cp["route"] == "padded":
+        kp, np_ = cp["kernel_counts"]
+        y, st = conv1x1_bn_act(_pad(x2d, kp), _pad(w, kp, np_),
+                               _pad(scale, kp), _pad(bias, kp),
+                               stats)
+        return (y[:, :n].contiguous(),
+                (st[0][:n], st[1][:n]) if stats else None)
+    if x2d.device.type == "cpu":
+        return conv1x1_bn_act_plain(x2d, w, scale, bias, stats)
+    _require_cuda(x2d)
     _check_channels(dt, k, n)
     # the kernels read w^T straight: rows of K contiguous values
     x2d, wt = _dense(x2d), _dense(w.t(), dt)
@@ -600,12 +648,20 @@ def conv3x3_bn_act(
     C, Cout). Returns y (N, H, W, Cout) and the sums as
     `conv1x1_bn_act`. On the card it runs on the route `conv3_fwd_plan`
     gives its shape."""
-    if x.device.type == "cpu":
-        return conv3x3_bn_act_plain(x, w, scale, bias, stats)
-    _require_cuda(x)
     dt = x.dtype
     nimg, hgt, wid, cin = x.shape
     cout = w.shape[-1]
+    cp = channel_plan((cin, cout), nimg * hgt * wid, dt)
+    if cp["route"] == "padded":
+        cip, cop = cp["kernel_counts"]
+        y, st = conv3x3_bn_act(_pad(x, cip), _pad(w, cip, cop),
+                               _pad(scale, cip), _pad(bias, cip),
+                               stats)
+        return (y[..., :cout].contiguous(),
+                (st[0][:cout], st[1][:cout]) if stats else None)
+    if x.device.type == "cpu":
+        return conv3x3_bn_act_plain(x, w, scale, bias, stats)
+    _require_cuda(x)
     _check_channels(dt, cin, cout, pixels=nimg * hgt * wid)
     x = _dense(x)
     wt = _dense(w.reshape(9, cin, cout).transpose(1, 2), dt)  # (9, Cout, Cin)
@@ -648,6 +704,23 @@ def conv1x1_bn_act_bwd(
     reductions (with ``dgrad``). Returns (g, dw, r1, r2), None for the
     parts switched off; dw, r1, r2 fp32. On the card it runs on the route
     `mm_bwd_plan` gives its shape."""
+    dt = e.dtype
+    m, n = e.shape
+    k = w.shape[0]
+    cp = channel_plan((k, n), m, dt)
+    if cp["route"] == "padded":
+        kp, np_ = cp["kernel_counts"]
+        def each(ts, to):
+            return None if ts is None else tuple(_pad(t, to) for t in ts)
+
+        g, dw, r1, r2 = conv1x1_bn_act_bwd(
+            _pad(e, np_), _pad(w, kp, np_), _pad(x, kp), _pad(z, np_),
+            each(y_fin, np_), each(prologue, kp), each(reduce_stats, kp),
+            wgrad, dgrad)
+        return (None if g is None else g[:, :k].contiguous(),
+                None if dw is None else dw[:k, :n].contiguous(),
+                None if r1 is None else r1[:k],
+                None if r2 is None else r2[:k])
     if e.device.type == "cpu":
         return conv1x1_bn_act_bwd_plain(e, w, x, z, y_fin, prologue,
                                         reduce_stats, wgrad, dgrad)
@@ -655,9 +728,6 @@ def conv1x1_bn_act_bwd(
     if reduce_stats is not None and not dgrad:
         raise ValueError("the reductions ride the dgrad: dgrad=False "
                          "leaves none")
-    dt = e.dtype
-    m, n = e.shape
-    k = w.shape[0]
     _check_channels(dt, k, n)
     pro, red = prologue is not None, reduce_stats is not None
     need_x = pro or red or wgrad
@@ -713,13 +783,23 @@ def conv3x3_bn_act_bwd(
     partial (finalized in the kernel when y_fin = (y_raw, k1, k2, k0) is
     given); x: the upstream raw (N, H, W, Cin). Returns (g, dw, r1, r2),
     dw (3, 3, Cin, Cout) fp32."""
+    dt = e.dtype
+    nimg, hgt, wid, cout = e.shape
+    cin = w.shape[2]
+    cp = channel_plan((cin, cout), nimg * hgt * wid, dt)
+    if cp["route"] == "padded":
+        cip, cop = cp["kernel_counts"]
+        g, dw, r1, r2 = conv3x3_bn_act_bwd(
+            _pad(e, cop), _pad(w, cip, cop), _pad(x, cip),
+            None if y_fin is None else tuple(_pad(t, cop) for t in y_fin),
+            tuple(_pad(t, cip) for t in prologue),
+            tuple(_pad(t, cip) for t in reduce_stats))
+        return (g[..., :cin].contiguous(), dw[:, :, :cin, :cout].contiguous(),
+                r1[:cin], r2[:cin])
     if e.device.type == "cpu":
         return conv3x3_bn_act_bwd_plain(e, w, x, y_fin, prologue,
                                         reduce_stats)
     _require_cuda(e)
-    dt = e.dtype
-    nimg, hgt, wid, cout = e.shape
-    cin = w.shape[2]
     _check_channels(dt, cin, cout, pixels=nimg * hgt * wid)
     if x.dtype != dt:
         raise TypeError(f"x must be given in e's dtype {dt}")

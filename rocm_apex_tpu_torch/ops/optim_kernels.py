@@ -202,9 +202,9 @@ def lamb_leaves_stage1(
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Stage 1 on every leaf in one call: ``ps`` the fp32 masters, ``gs``
-    their gradients (fp32 or bf16, one dtype), ``ms``/``vs`` the moments
-    (fp32 or bf16, one dtype), updated in place; ``wds`` each leaf's
-    weight decay. ``scalars`` = fp32 ``[b1, b2, b3, eps, bc1, bc2,
+    their gradients (fp32, bf16 or fp16, one dtype), ``ms``/``vs`` the
+    moments (fp32, bf16 or fp16, one dtype), updated in place; ``wds``
+    each leaf's weight decay. ``scalars`` = fp32 ``[b1, b2, b3, eps, bc1, bc2,
     gs * clip, live]`` on the device. Returns ``out``, (leaves, 2) fp32 on
     the device (allocated when not given): each leaf's ``sum p^2`` and
     ``sum u^2``."""
@@ -255,7 +255,7 @@ def lamb_leaves_stage2(
 ) -> None:
     """Stage 2 on every leaf in one call: recompute ``u`` from each
     master and its stored moments and apply ``p -= lr_ratio * u`` in
-    place; with ``model_outs`` (fp32 or bf16, one dtype, the masters'
+    place; with ``model_outs`` (fp32, bf16 or fp16, one dtype, the masters'
     shapes) also write each new master into its copy in that dtype.
     ``scalars`` = fp32 ``[eps, bc1, bc2, live]`` and ``lr_ratios`` one
     fp32 value per leaf, both on the device."""

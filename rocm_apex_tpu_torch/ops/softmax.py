@@ -35,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from rocm_apex_tpu_torch.ops._build import DTYPE_CODES, Kernel, ptr, stream_ptr
+from rocm_apex_tpu_torch.ops._build import Kernel, dtype_code, ptr, stream_ptr
 
 __all__ = [
     "MASK_FILL",
@@ -83,8 +83,6 @@ SOFTMAX_BWD = Kernel(
     replaces="rocm_apex_tpu/ops/softmax.py:62 _softmax_bwd_kernel",
 )
 
-# these kernels also take fp16 (csrc/common.cuh kFloat16)
-_CODES = {**DTYPE_CODES, torch.float16: 2}
 # rows up to this many keys take the forwards' register row
 # (csrc/softmax.cu kWarpRowMax)
 _WARP_ROW_MAX = 2048
@@ -164,13 +162,6 @@ def softmax_bwd_plain(y: torch.Tensor, dy: torch.Tensor,
     return (scale * yf * (dyf - s)).to(y.dtype)
 
 
-def _code(x: torch.Tensor) -> int:
-    if x.dtype not in _CODES:
-        raise TypeError(f"the softmax kernels take float32, bfloat16 or "
-                        f"float16, got {x.dtype}")
-    return _CODES[x.dtype]
-
-
 def _require_cuda(x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
@@ -183,7 +174,7 @@ def softmax_causal_fwd(x: torch.Tensor, scale: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return causal_softmax_fwd_plain(x, scale)
     _require_cuda(x)
-    code = _code(x)
+    code = dtype_code(x.dtype)
     x = x.contiguous()
     b, sq, sk = x.shape
     y = torch.empty_like(x)
@@ -231,7 +222,7 @@ def softmax_masked_fwd(x: torch.Tensor, mask: Optional[torch.Tensor],
     if x.device.type == "cpu":
         return masked_softmax_fwd_plain(x, mask, scale)
     _require_cuda(x)
-    code = _code(x)
+    code = dtype_code(x.dtype)
     x = x.contiguous()
     b, h, sq, sk = x.shape
     strides = (0, 0, 0)
@@ -258,7 +249,7 @@ def softmax_bwd(y: torch.Tensor, dy: torch.Tensor,
     if y.device.type == "cpu":
         return softmax_bwd_plain(y, dy, scale)
     _require_cuda(y)
-    code = _code(y)
+    code = dtype_code(y.dtype)
     y = y.contiguous()
     dy = dy.to(device=y.device, dtype=y.dtype).contiguous()
     dx = torch.empty_like(y)

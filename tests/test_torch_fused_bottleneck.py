@@ -287,3 +287,96 @@ def test_fused_bottleneck_module(cin):
     with torch.no_grad():
         tze = tm(_t(x), train=False)
     _close(tze, ze, "eval z", **FWD)
+
+
+# ---------------------------------------------------------------------------
+# channel counts that are no multiple of 16: the kernels take multiples of
+# 8 natively (their tiles zero-fill the channel tail at that grain) and any
+# other count through a zero-padded copy (`channel_plan`), on either
+# device; JAX takes every count
+# ---------------------------------------------------------------------------
+
+WIDTHS = [8, 12, 20, 40, 13]
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+def test_channel_plan_names_each_count(c):
+    """No refusal; the route is "native" at a multiple of 8, else
+    "padded" to the next one, its copies' bytes counted; the product
+    plans send such a count to the staged core (the pipe takes multiples
+    of 64)."""
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        fb._check_channels(dt, c, c, c)
+        plan = fb.channel_plan((c, c), 240, dt)
+        padded = -(-c // 8) * 8
+        assert plan["route"] == ("native" if c % 8 == 0 else "padded")
+        assert plan["kernel_counts"] == (padded, padded)
+        assert plan["pad_bytes"] == 240 * 2 * (padded - c) * (
+            torch.empty((), dtype=dt).element_size())
+        assert fb.mm_fwd_plan(240, c, c, dt, 132)["route"] == "staged"
+        assert fb.conv3_fwd_plan(240, c, c, dt, 132)["route"] == "staged"
+        assert fb.mm_bwd_plan(240, c, c, dt, 132)["route"] == "staged"
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+def test_widths_match_jax(c):
+    """The four ops at c channels in and out against JAX's kernels: the
+    1x1 and 3x3 forwards with the prologue and statistics, the 1x1
+    backward with every part on, the 3x3 backward with the finalize."""
+    m = int(np.prod(SHAPE))
+    x = _draw((m, c), 50 + c)
+    w = _draw((c, c), 51 + c, 0.3)
+    a, b = _draw((c,), 52 + c, 0.2, 1.0), _draw((c,), 53 + c, 0.2)
+    jy, js = jfb.conv1x1_bn_act(_j(x), _j(w), _j(a), _j(b), stats=True)
+    ty, ts = fb.conv1x1_bn_act(_t(x), _t(w), _t(a), _t(b), stats=True)
+    _close(ty, jy, "1x1 y", **FWD)
+    _close_scaled(ts[0], js[0], "1x1 sum")
+    _close_scaled(ts[1], js[1], "1x1 sum of squares")
+    x4, w3 = x.reshape(SHAPE + (c,)), _draw((3, 3, c, c), 54 + c, 0.3)
+    jy, js = jfb.conv3x3_bn_act(_j(x4), _j(w3), _j(a), _j(b), stats=True)
+    ty, ts = fb.conv3x3_bn_act(_t(x4), _t(w3), _t(a), _t(b), stats=True)
+    _close(ty, jy, "3x3 y", **FWD)
+    _close_scaled(ts[1], js[1], "3x3 sum of squares")
+    e, z = _draw((m, c), 55 + c), _draw((m, c), 56 + c)
+    y_fin = (_draw((m, c), 57 + c), _draw((c,), 58 + c, 0.3, 1.0),
+             _draw((c,), 59 + c, 0.1), _draw((c,), 60 + c, 0.1))
+    red = (_draw((c,), 61 + c, 0.1), np.abs(_draw((c,), 62 + c, 0.2, 1.0)))
+    jouts = jfb.conv1x1_bn_act_bwd(
+        _j(e), _j(w), _j(x), z=_j(z), y_fin=tuple(map(_j, y_fin)),
+        prologue=(_j(a), _j(b)), reduce_stats=tuple(map(_j, red)))
+    touts = fb.conv1x1_bn_act_bwd(
+        _t(e), _t(w), _t(x), z=_t(z), y_fin=tuple(map(_t, y_fin)),
+        prologue=(_t(a), _t(b)), reduce_stats=tuple(map(_t, red)))
+    _close(touts[0], jouts[0], "1x1 g", **FWD)
+    for name, tv, jv in zip(("dw", "r1", "r2"), touts[1:], jouts[1:]):
+        assert tuple(tv.shape) == tuple(jv.shape), name
+        _close_scaled(tv, jv, "1x1 " + name)
+    e4, y4 = e.reshape(SHAPE + (c,)), y_fin[0].reshape(SHAPE + (c,))
+    jouts = jfb.conv3x3_bn_act_bwd(
+        _j(e4), _j(w3), _j(x4), (_j(y4), *map(_j, y_fin[1:])),
+        (_j(a), _j(b)), tuple(map(_j, red)))
+    touts = fb.conv3x3_bn_act_bwd(
+        _t(e4), _t(w3), _t(x4), (_t(y4), *map(_t, y_fin[1:])),
+        (_t(a), _t(b)), tuple(map(_t, red)))
+    _close(touts[0], jouts[0], "3x3 g", **FWD)
+    for name, tv, jv in zip(("dw", "r1", "r2"), touts[1:], jouts[1:]):
+        assert tuple(tv.shape) == tuple(jv.shape), name
+        _close_scaled(tv, jv, "3x3 " + name)
+
+
+@pytest.mark.parametrize("c", [12, 13])
+def test_padded_copy_is_the_plain_version_exactly(c):
+    """The padded route adds channels of exact zeros: its outputs equal
+    the plain version at the count itself bit for bit (the products gain
+    only exact-zero terms; the sums only zeros)."""
+    m = int(np.prod(SHAPE))
+    x, w = _t(_draw((m, c), 70 + c)), _t(_draw((c, c), 71 + c, 0.3))
+    a, b = _t(_draw((c,), 72 + c, 0.2, 1.0)), _t(_draw((c,), 73 + c, 0.2))
+    y, s = fb.conv1x1_bn_act(x, w, a, b)
+    ry, rs = fb.conv1x1_bn_act_plain(x, w, a, b)
+    assert torch.equal(y, ry)
+    assert torch.equal(s[0], rs[0]) and torch.equal(s[1], rs[1])
+    e = _t(_draw((m, c), 74 + c))
+    got = fb.conv1x1_bn_act_bwd(e, w, x, prologue=(a, b))
+    ref = fb.conv1x1_bn_act_bwd_plain(e, w, x, prologue=(a, b))
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
