@@ -228,7 +228,32 @@ JAX package) through these phases, in order; any failure exits non-zero:
              unmasked and masked (rows 7b, 8, 9b, 11, 13a, 16); ResNet-50
              with FusedBottleneck under O2 at B 128 x 224^2 (row 17) and
              its B 2 x 64^2 twin against `plain_bottleneck()`;
-27. report   a ``{"kernels": [...]}`` line, then the device line
+27. serve_spec  speculative decoding at the serve's width (bench.py
+             serve --spec-k=4): 16 periodic prompts x 128 tokens, budget
+             40, spec_k 4 against 0 on the contiguous cache, bf16 and
+             int8 pages of 16: tokens/s of each in one call, TPOT p95,
+             acceptance, drafted/accepted/rolled-back tokens (each > 0
+             over the phase), rows 1, 3, 5, 6's launches (row 3 on its
+             tile route), the timed serves under `sync_audit` (a device
+             sync outside the engine's fetch, input copy and table push
+             fails; one fetch a tick), no page left in use, the
+             requests whose speculative tokens equal the plain ones
+             (counted); the 2-layer fp32 twin card == cpu with and
+             without speculation on every layout, speculative == plain on
+             the contiguous cache and bf16 pages, an always-wrong drafter
+             harmless;
+28. serve_chaos  the fault harness (bench.py serve --chaos=0): the
+             seeded FaultPlan (device_step, logits, host_fetch p 0.05,
+             page_alloc) on the serve's 32 requests x 64 with max_queue
+             30 and two retries, a leased request cancelled after two
+             ticks, drain; contiguous, bf16 and int8 pages: the
+             accounting identity, quarantined == error results, >= 2
+             fires, the allocator back to its snapshot, the survivors
+             matching the fault-free tokens (counted); the fp32 twin's
+             survivors equal on every layout; a page_alloc fault on every
+             call raising the watchdog with the stuck slot named and its
+             dump written;
+29. report   a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
@@ -244,6 +269,7 @@ It needs one CUDA device and nvcc (CUDA_HOME, PATH or /usr/local/cuda).
 """
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -408,7 +434,7 @@ PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "bert_train_masked_fused_softmax", "train_packed_parity",
           "train_packed", "rn50_parity", "rn50_train", "rn50_train_fused",
           "mha", "context_parallel", "serve_jnp", "optim_amp", "head_dims",
-          "fp16")
+          "fp16", "serve_spec", "serve_chaos")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_segments_serve",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -4550,11 +4576,53 @@ def _serve_model():
     return _SERVE_MODEL["model"], _SERVE_MODEL["load_s"]
 
 
-def timed_serve(eng, prompts):
-    """One timed serve of ``prompts`` x MAX_NEW greedy tokens on a warm
-    engine: every kernel's launch count is set to 0 just before and read
-    just after. Checks that every request ran to MAX_NEW finite,
-    in-vocabulary tokens; returns (metrics, the requests' tokens)."""
+# the engine's own device syncs: its fetch of the sampled tokens, its
+# blocking input copy (made on an idle stream, before a step's first
+# launch) and its page-table push
+ENGINE_SYNCS = ("_fetch", "_upload", "_push_table")
+
+
+@contextlib.contextmanager
+def sync_audit(eng):
+    """Every device sync in the window raises
+    (``torch.cuda.set_sync_debug_mode("error")``: a ``.item()``, a
+    ``nonzero``, a blocking copy either way), except inside the engine's
+    `ENGINE_SYNCS`, whose calls are counted. Yields the counts."""
+    counts = dict.fromkeys(ENGINE_SYNCS, 0)
+
+    def allowed(name, fn):
+        def call(*a, **kw):
+            # a table push copies only when the mapping changed
+            counts[name] += (int(eng._table_dirty) if name == "_push_table"
+                             else 1)
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return call
+
+    for name in ENGINE_SYNCS:
+        setattr(eng, name, allowed(name, getattr(eng, name)))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield counts
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        for name in ENGINE_SYNCS:
+            delattr(eng, name)
+
+
+def timed_serve(eng, prompts, max_new=MAX_NEW, audit=False):
+    """One timed serve of ``prompts`` x ``max_new`` greedy tokens on a
+    warm engine: every kernel's launch count is set to 0 just before and
+    read just after. Checks that every request ran to ``max_new``
+    finite, in-vocabulary tokens; returns (metrics, the requests'
+    tokens). ``host_fetches_per_tick``: the engine's reads of device
+    values (its fetch of the sampled tokens) over its device steps.
+    ``audit``: the serve runs under `sync_audit`, so a device sync
+    outside the engine's `ENGINE_SYNCS` fails it; ``syncs_per_tick``
+    counts those calls."""
     from rocm_apex_tpu_torch.ops._build import KERNELS
 
     vocab = eng.model.cfg.vocab_size
@@ -4564,12 +4632,13 @@ def timed_serve(eng, prompts):
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ids = [eng.add_request(p, MAX_NEW) for p in prompts]
-    done, peak_pages = {}, 0
-    while eng.has_work():
-        for r in eng.step():
-            done[r.request_id] = r
-        peak_pages = max(peak_pages, eng.pages_used)
+    with (sync_audit(eng) if audit else contextlib.nullcontext()) as syncs:
+        ids = [eng.add_request(p, max_new) for p in prompts]
+        done, peak_pages = {}, 0
+        while eng.has_work():
+            for r in eng.step():
+                done[r.request_id] = r
+            peak_pages = max(peak_pages, eng.pages_used)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k.name: k.launches for k in KERNELS}
@@ -4577,7 +4646,7 @@ def timed_serve(eng, prompts):
     s = eng.stats()
     gen = sum(len(r.tokens) for r in results)
     ticks = int(s["mixed_steps"] + s["decode_only_steps"])
-    check(all(r.finish_reason == "length" and len(r.tokens) == MAX_NEW
+    check(all(r.finish_reason == "length" and len(r.tokens) == max_new
               for r in results), "a request did not run to max_new_tokens")
     check(s["quarantined"] == 0, "nonfinite logits in the serve run")
     check(all(0 <= t < vocab for r in results for t in r.tokens),
@@ -4588,6 +4657,9 @@ def timed_serve(eng, prompts):
         ttft_ms_p50=s["ttft_ms_p50"], ttft_ms_p95=s["ttft_ms_p95"],
         tpot_ms_p50=float(np.percentile(
             [c["tpot_ms"] for c in eng.completions], 50)),
+        tpot_ms_p95=float(np.percentile(
+            [c["tpot_ms"] for c in eng.completions], 95)),
+        host_fetches_per_tick=s["host_fetches"] / max(ticks, 1),
         mixed_ticks=int(s["mixed_steps"]),
         decode_only_ticks=int(s["decode_only_steps"]),
         ticks=ticks, mixed_tick_ms=s["prefill_ms_avg"],
@@ -4595,6 +4667,9 @@ def timed_serve(eng, prompts):
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         cache_bytes=eng.cache_bytes(),
     )
+    if audit:
+        res["syncs_per_tick"] = {k.lstrip("_"): n / max(ticks, 1)
+                                 for k, n in syncs.items()}
     if eng.paged:
         res.update(peak_pages_used=peak_pages,
                    pages_total=int(s["pages_total"]),
@@ -8026,6 +8101,395 @@ def run_fp16_phase(profile):
 
 
 
+# ---------------------------------------------------------------------------
+# phases 27 and 28: speculative decoding, the fault harness
+# ---------------------------------------------------------------------------
+
+# bench.py serve --spec-k=4 on an accelerator (bench.py:544-566): 16
+# periodic prompts (periods 3-6, 8 repeats), 128 new tokens, greedy; the
+# budget fits every slot's span, SLOTS * (max(k, 2) + 1) = 40 rows
+SPEC_K = 4
+SPEC_REQUESTS, SPEC_REPS, SPEC_NEW, SPEC_WARM_NEW = 16, 8, 128, 10
+SPEC_BUDGET = SLOTS * (max(SPEC_K, 2) + 1)
+SPEC_LAYOUTS = (
+    ("contiguous", {}, "flash_attention_decode"),
+    ("bf16_pages", dict(paged=True, page_size=PAGE_SIZE),
+     "flash_attention_decode_paged"),
+    ("int8_pages", dict(paged=True, page_size=PAGE_SIZE,
+                        kv_dtype=torch.int8),
+     "flash_attention_decode_paged_int8"),
+)
+# the twins: 2 layers at the serve's width, fp32, TF32 off, card vs CPU
+SPEC_TWIN = dict(num_layers=2, requests=8, max_new=24)
+CHAOS_TWIN_NEW = 16
+WATCHDOG_TIMEOUT_S = 0.5
+
+
+def spec_prompts(vocab, n=SPEC_REQUESTS):
+    """bench.py serve --spec-k's workload: from RandomState(0), request i
+    repeats a random cycle of 3 + i % 4 tokens SPEC_REPS times, cut to
+    period * SPEC_REPS + i % 3 tokens."""
+    rng = np.random.RandomState(0)
+    prompts = []
+    for i in range(n):
+        p = 3 + i % 4
+        cyc = rng.randint(1, vocab, size=p).tolist()
+        prompts.append((cyc * (SPEC_REPS + 1))[: p * SPEC_REPS + i % 3])
+    return prompts
+
+
+class _ShiftedDrafter:
+    """The n-gram drafter's proposals shifted by +1 mod vocab (JAX
+    tests/L0/test_speculative.py:237): wrong on nearly every token."""
+
+    def __init__(self, k, vocab):
+        from rocm_apex_tpu_torch.inference import NGramDrafter
+
+        self._inner = NGramDrafter(k)
+        self.window = self._inner.window
+        self._vocab = vocab
+
+    def __call__(self, histories, lengths):
+        drafts, counts = self._inner(histories, lengths)
+        return (drafts + 1) % self._vocab, counts
+
+
+_TWINS = {}
+
+
+def _twin_models(num_layers):
+    """The serve's width at ``num_layers`` in fp32 on the card and on the
+    CPU, from the same seeded weights (TF32 off); built once."""
+    from rocm_apex_tpu_torch.convert import from_jax_params, random_params
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if num_layers not in _TWINS:
+        cfg = GPTConfig(**{**SERVE, "num_layers": num_layers},
+                        params_dtype=torch.float32, dtype=torch.float32)
+        tree = random_params(cfg, seed=0)
+        _TWINS[num_layers] = {dev: from_jax_params(tree, cfg, device=dev)
+                              for dev in (CARD, "cpu")}
+    return _TWINS[num_layers]
+
+
+def _spec_twin():
+    """The fp32 twin, card against CPU: greedy tokens equal with and
+    without speculation on every layout; speculative tokens equal to the
+    non-speculative ones on the contiguous cache and bf16 pages; an
+    always-wrong drafter changes nothing."""
+    models = _twin_models(SPEC_TWIN["num_layers"])
+    vocab = models["cpu"].cfg.vocab_size
+    prompts = spec_prompts(vocab, SPEC_TWIN["requests"])
+    new = SPEC_TWIN["max_new"]
+    out, tokens = {}, {}
+    for form, kw, _ in SPEC_LAYOUTS:
+        for k in (0, SPEC_K):
+            for dev, model in models.items():
+                eng = _engine(model, prefill_token_budget=SPEC_BUDGET,
+                              spec_k=k, **kw)
+                tokens[form, k, dev] = _tokens(eng, prompts, new)
+                if k:
+                    out[f"{form}_drafted_{dev}"] = eng.stats()[
+                        "tokens_drafted"]
+            same = tokens[form, k, CARD] == tokens[form, k, "cpu"]
+            out[f"{form}_spec{k}_card_equals_cpu"] = same
+            check(same, f"spec twin, {form}, spec_k={k}: card tokens differ "
+                  f"from the CPU's")
+        same = tokens[form, SPEC_K, CARD] == tokens[form, 0, CARD]
+        out[f"{form}_spec_equals_plain"] = same
+        if form != "int8_pages":
+            check(same, f"spec twin, {form}: speculative tokens differ from "
+                  f"the non-speculative ones")
+    eng = _engine(models[CARD], prefill_token_budget=SPEC_BUDGET,
+                  spec_k=SPEC_K, drafter=_ShiftedDrafter(SPEC_K, vocab))
+    wrong = _tokens(eng, prompts, new)
+    s = eng.stats()
+    out.update(wrong_drafter_equals_plain=wrong == tokens["contiguous", 0,
+                                                           CARD],
+               wrong_drafter=dict(**{c: s[c] for c in (
+                   "tokens_drafted", "tokens_accepted", "rollbacks")}))
+    check(out["wrong_drafter_equals_plain"], "spec twin: an always-wrong "
+          "drafter changed the tokens")
+    check(s["rollbacks"] > 0, "spec twin: the always-wrong drafter rolled "
+          "nothing back")
+    log(f"  fp32 twin ({SPEC_TWIN['num_layers']} layers, "
+        f"{len(prompts)} requests x {new}): card == cpu with and without "
+        f"speculation on {', '.join(f for f, _, _ in SPEC_LAYOUTS)}; "
+        f"spec == plain: " + ", ".join(
+            f"{f} {out[f'{f}_spec_equals_plain']}" for f, _, _ in
+            SPEC_LAYOUTS) + f"; always-wrong drafter: {out['wrong_drafter']}")
+    return out
+
+
+def _spec_counters(s):
+    return {c: s[c] for c in ("tokens_drafted", "tokens_accepted",
+                              "rollbacks", "acceptance_rate")}
+
+
+def run_serve_spec_phase():
+    """Speculative decoding at the serve's full width (bench.py serve
+    --spec-k=4): spec_k=4 against spec_k=0 in one call, on the
+    contiguous cache, bf16 pages and int8 pages, each engine warmed then
+    timed over the periodic workload with every kernel's count set to 0
+    just before. Generated tokens/s of each (the ratio is reported, not
+    claimed), TPOT p95, acceptance, drafted, accepted and rolled-back
+    tokens, rows 1, 3, 5 and 6's launches, and the device syncs a tick:
+    each timed serve runs under `sync_audit`, so any sync but the
+    engine's fetch, input copies and table pushes fails it, and the
+    fetch must come once a tick (the commit reads no device value). The
+    bf16 requests whose speculative tokens equal the non-speculative ones
+    are counted, not asserted: a chunk row and a grid row go through
+    GEMMs of different M, so an ulp may flip a near-tied token. Then the
+    fp32 twin, where they must be equal."""
+    model, load_s = _serve_model()
+    vocab = model.cfg.vocab_size
+    prompts = spec_prompts(vocab)
+    res = dict(weights_load_s=load_s, budget=SPEC_BUDGET, spec_k=SPEC_K,
+               requests=len(prompts), max_new=SPEC_NEW, forms={},
+               launches={})
+    totals = dict(tokens_drafted=0.0, tokens_accepted=0.0, rollbacks=0.0)
+    for form, kw, decode_kernel in SPEC_LAYOUTS:
+        runs, tokens = {}, {}
+        for k in (0, SPEC_K):
+            eng = _engine(model, prefill_token_budget=SPEC_BUDGET, spec_k=k,
+                          **kw)
+            eng.generate(prompts[:SLOTS], max_new_tokens=SPEC_WARM_NEW)
+            log(f"  -- {form}, spec_k={k}")
+            r, tokens[k] = timed_serve(eng, prompts, SPEC_NEW, audit=True)
+            s = eng.stats()
+            r.update(_spec_counters(s))
+            # the audit raised on any other sync; the fetch is one a tick
+            check(r["syncs_per_tick"]["fetch"] == 1.0,
+                  f"{form} spec_k={k}: {r['syncs_per_tick']['fetch']} host "
+                  f"fetches a tick")
+            log(f"  device syncs a tick (none elsewhere): "
+                f"{r['syncs_per_tick']}")
+            check(r["launches"]["flash_attention_segments_with_lse"] == 0,
+                  f"{form} spec_k={k}: the chunks left row 3's tile route "
+                  f"(`flash_segments_serve_plan`)")
+            for name in ("layer_norm_fwd", "flash_segments_serve",
+                         decode_kernel):
+                check(r["launches"][name] > 0, f"{form} spec_k={k}: "
+                      f"{name} was not launched")
+            if eng.paged:
+                check(r["pages_used_after"] == 0,
+                      f"{form} spec_k={k}: pages left in use")
+            for name, n in r["launches"].items():
+                res["launches"][name] = res["launches"].get(name, 0) + n
+            runs[f"spec{k}"] = r
+            del eng
+        for c in totals:
+            totals[c] += runs[f"spec{SPEC_K}"][c]
+        same = sum(a == b for a, b in zip(tokens[SPEC_K], tokens[0]))
+        ratio = (runs[f"spec{SPEC_K}"]["tokens_per_s"]
+                 / runs["spec0"]["tokens_per_s"])
+        runs.update(requests_spec_equals_plain=same,
+                    tokens_per_s_ratio=ratio)
+        log(f"  {form}: spec_k={SPEC_K} "
+            f"{runs[f'spec{SPEC_K}']['tokens_per_s']:.1f} vs spec_k=0 "
+            f"{runs['spec0']['tokens_per_s']:.1f} generated tok/s (x"
+            f"{ratio:.3f}); TPOT p95 "
+            f"{runs[f'spec{SPEC_K}']['tpot_ms_p95']:.2f} vs "
+            f"{runs['spec0']['tpot_ms_p95']:.2f} ms; "
+            f"{_spec_counters(runs[f'spec{SPEC_K}'])}; {same}/{len(prompts)}"
+            f" requests give the non-speculative tokens")
+        res["forms"][form] = runs
+    for c, n in totals.items():
+        check(n > 0, f"serve_spec: {c} is 0 over the phase")
+    res["totals"] = totals
+    torch.cuda.empty_cache()
+    log("  -- the fp32 twin, card vs cpu")
+    res["twin"] = _spec_twin()
+    return res
+
+
+def chaos_plan(seed=0):
+    """bench.py serve --chaos=SEED's plan (bench.py:1628-1642): a
+    device_step fault at a seeded tick, a logits fault poisoning a
+    seeded slot at a seeded tick, host_fetch faults with p 0.05 (twice
+    at most), a page_alloc fault at a seeded call (paged engines only)."""
+    from rocm_apex_tpu_torch.inference import Fault, FaultPlan
+
+    rng = np.random.RandomState(seed)
+    return FaultPlan([
+        Fault(site="device_step", tick=int(rng.randint(1, 5))),
+        Fault(site="logits", tick=int(rng.randint(5, 10)),
+              payload={"slot": int(rng.randint(0, SLOTS))}),
+        Fault(site="host_fetch", p=0.05, times=2),
+        Fault(site="page_alloc", nth=int(rng.randint(2, 7))),
+    ], seed=seed)
+
+
+def _chaos_run(eng, prompts, max_new):
+    """bench.py serve --chaos's traffic: every request submitted (the
+    queue bound sheds the last two), two ticks, a leased request
+    cancelled, then `drain`. Checks the accounting identity; returns the
+    results by request id and the counters."""
+    from rocm_apex_tpu_torch.inference import FINISH_REASONS
+
+    plan = eng.faults
+    baseline = eng._allocator.snapshot() if eng.paged else None
+    ids = [eng.add_request(p, max_new) for p in prompts]
+    done = {}
+    for _ in range(2):
+        for r in eng.step():
+            done[r.request_id] = r
+    victim = next(st.req.request_id for st in eng._slots if st is not None)
+    done[victim] = eng.cancel(victim)
+    done.update({r.request_id: r for r in eng.drain()})
+    s = eng.stats()
+    reasons = [c["finish_reason"] for c in eng.completions]
+    completed = sum(r in ("eos", "length", "capacity") for r in reasons)
+    n = len(prompts)
+    counts = dict(completed=completed, shed=int(s["shed"]),
+                  quarantined=int(s["quarantined"]),
+                  cancelled=int(s["cancelled"]),
+                  expired=int(s["deadline_exceeded"]),
+                  step_retries=int(s["step_retries"]),
+                  preemptions=int(s["preemptions"]),
+                  page_stalls=int(s["page_stalls"]),
+                  fires=dict(plan.fires), victim=victim)
+    check(sorted(done) == sorted(ids) and len(reasons) == n,
+          f"{n} submitted, {len(reasons)} accounted")
+    check(set(reasons) <= set(FINISH_REASONS), f"unknown reasons {reasons}")
+    check(completed + counts["shed"] + counts["quarantined"]
+          + counts["cancelled"] + counts["expired"] == n,
+          f"completion accounting leaked: {counts}")
+    check(counts["quarantined"] == reasons.count("error"),
+          "quarantined != the error results")
+    check(sum(plan.fires.values()) >= 2, f"the plan barely fired: "
+          f"{plan.fires}")
+    if eng.paged:
+        eng._allocator.assert_consistent()
+        check(eng._allocator.snapshot() == baseline,
+              "pages leaked across the chaos run")
+    return done, counts
+
+
+def _survivors_match(done, reference):
+    """Requests the plan did not shed, cancel or quarantine whose tokens
+    equal the fault-free run's, and how many there are."""
+    kept = [i for i, r in done.items() if r.finish_reason == "length"]
+    return sum(done[i].tokens == reference[i] for i in kept), len(kept)
+
+
+def _chaos_twin():
+    """The plan on the fp32 twin (the serve's 32 requests x
+    CHAOS_TWIN_NEW): on every layout the survivors give the fault-free
+    run's tokens exactly."""
+    model = _twin_models(SPEC_TWIN["num_layers"])[CARD]
+    prompts = serve_prompts(model.cfg.vocab_size)
+    out = {}
+    for form, kw, _ in SPEC_LAYOUTS:
+        reference = _tokens(_engine(model, **kw), prompts, CHAOS_TWIN_NEW)
+        eng = _engine(model, faults=chaos_plan(0), max_step_retries=2,
+                      max_queue=len(prompts) - 2, **kw)
+        done, counts = _chaos_run(eng, prompts, CHAOS_TWIN_NEW)
+        same, kept = _survivors_match(done, reference)
+        out[form] = dict(counts, survivors=kept, survivors_matching=same)
+        check(same == kept, f"chaos twin, {form}: {same} of {kept} "
+              f"surviving requests give the fault-free tokens")
+    log("  fp32 twin: survivors equal the fault-free run on "
+        + ", ".join(f"{f} ({o['survivors_matching']}/{o['survivors']})"
+                    for f, o in out.items()))
+    return out
+
+
+def _watchdog_run(tmp):
+    """A page_alloc fault on every call wedges a paged engine's first
+    prefill: the watchdog must raise naming the stuck slot, after
+    writing its dump."""
+    from rocm_apex_tpu_torch.inference import Fault, FaultPlan
+
+    model = _twin_models(SPEC_TWIN["num_layers"])[CARD]
+    dump = os.path.join(tmp, "watchdog.json")
+    eng = _engine(model, paged=True, page_size=PAGE_SIZE,
+                  faults=FaultPlan([Fault(site="page_alloc", every=1,
+                                          times=None)]),
+                  watchdog_timeout=WATCHDOG_TIMEOUT_S,
+                  watchdog_dump_path=dump)
+    eng.add_request(serve_prompts(model.cfg.vocab_size)[0], 4)
+    err = None
+    t0 = time.perf_counter()
+    while err is None and time.perf_counter() - t0 < 20 * WATCHDOG_TIMEOUT_S:
+        try:
+            eng.step()
+        except RuntimeError as e:
+            err = str(e)
+        time.sleep(0.01)
+    check(err is not None and "serving watchdog" in err
+          and "slot 0: request 0 prefilling" in err,
+          f"the watchdog did not name the stuck slot: {err}")
+    with open(dump) as f:
+        bundle = json.load(f)
+    check(bundle["event"] == "watchdog" and "slot 0" in bundle["diagnosis"],
+          f"watchdog dump: {bundle}")
+    log(f"  watchdog: {err[:160]}")
+    return dict(error=err, dump_diagnosis=bundle["diagnosis"],
+                stalled_seconds=bundle["stalled_seconds"],
+                watchdog_fires=bundle["stats"]["watchdog_fires"])
+
+
+def run_serve_chaos_phase(contiguous_tokens=None):
+    """The fault harness at the serve's full width (bench.py serve
+    --chaos=0): the seeded plan on the serve's 32 requests x MAX_NEW with
+    max_queue 30 and two step retries, on the contiguous cache, bf16
+    pages and int8 pages; a leased request cancelled after two ticks,
+    then `drain`. The accounting identity, quarantined == the error
+    results, at least two fires, the allocator consistent and back to its
+    snapshot; each layout's launches counted over its own chaos run (the
+    fault-free references run first) and its decode read among them. The
+    survivors' tokens against the fault-free serve's
+    (contiguous tokens for the contiguous cache and bf16 pages, an int8
+    run for int8 pages) are counted: a cancel or a quarantine changes
+    which prompt pieces share a chunk, so a survivor's chunk rows may
+    split differently and a bf16 logit move by an ulp. The fp32 twin
+    holds them exactly; then the watchdog."""
+    import tempfile
+
+    model, load_s = _serve_model()
+    prompts = serve_prompts(model.cfg.vocab_size)
+    if contiguous_tokens is None:
+        contiguous_tokens = _tokens(_engine(model), prompts, MAX_NEW)
+    # the fault-free references run before any count is set to 0
+    references = {form: contiguous_tokens for form, _, _ in SPEC_LAYOUTS}
+    int8_kw = next(kw for form, kw, _ in SPEC_LAYOUTS
+                   if form == "int8_pages")
+    references["int8_pages"] = _tokens(_engine(model, **int8_kw), prompts,
+                                       MAX_NEW)
+    res = dict(weights_load_s=load_s, requests=len(prompts),
+               max_queue=len(prompts) - 2, forms={}, launches={})
+    for form, kw, decode_kernel in SPEC_LAYOUTS:
+        eng = _engine(model, faults=chaos_plan(0), max_step_retries=2,
+                      max_queue=len(prompts) - 2, **kw)
+        _zero_launches()
+        t0 = time.perf_counter()
+        done, counts = _chaos_run(eng, prompts, MAX_NEW)
+        counts["seconds"] = time.perf_counter() - t0
+        launches = _launches()
+        for name in ("layer_norm_fwd", "flash_segments_serve",
+                     decode_kernel):
+            check(launches.get(name, 0) > 0,
+                  f"serve_chaos {form}: {name} was not launched")
+        same, kept = _survivors_match(done, references[form])
+        counts.update(survivors=kept, survivors_matching=same,
+                      launches=launches)
+        log(f"  {form}: {counts}")
+        res["forms"][form] = counts
+        for name, n in launches.items():
+            res["launches"][name] = res["launches"].get(name, 0) + n
+        del eng
+    torch.cuda.empty_cache()
+    log("  -- the fp32 twin")
+    res["twin"] = _chaos_twin()
+    log("  -- the watchdog")
+    with tempfile.TemporaryDirectory() as tmp:
+        res["watchdog"] = _watchdog_run(tmp)
+    return res
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -8235,6 +8699,19 @@ def main(argv=None):
             f"masked; ResNet-50 fused, {FP16_RN50_STEPS} steps, and its B "
             f"{FP16_RN50_TWIN['batch']} x {FP16_RN50_TWIN['size']}^2 twin)",
             lambda: run_fp16_phase(args.profile)),
+        "serve_spec": (
+            f"serve_spec (bench.py serve --spec-k={SPEC_K}: {SPEC_REQUESTS} "
+            f"periodic requests x {SPEC_NEW} tokens, budget {SPEC_BUDGET}, "
+            f"spec_k {SPEC_K} vs 0 on the contiguous cache, bf16 and int8 "
+            f"pages of {PAGE_SIZE}; the {SPEC_TWIN['num_layers']}-layer fp32 "
+            f"twin card vs cpu)", run_serve_spec_phase),
+        "serve_chaos": (
+            f"serve_chaos (bench.py serve --chaos=0: the seeded FaultPlan on "
+            f"the serve's {N_REQUESTS} requests x {MAX_NEW}, max_queue "
+            f"{N_REQUESTS - 2}, a cancel, drain; contiguous, bf16 and int8 "
+            f"pages; the fp32 twin; the watchdog)",
+            lambda: run_serve_chaos_phase(
+                report.get("serve", {}).get("tokens"))),
     }
     report["phase_s"] = {}
     try:

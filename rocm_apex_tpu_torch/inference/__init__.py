@@ -1,5 +1,8 @@
-"""Serving tier: the KV caches (contiguous and paged), sampling and the
-continuous-batching engine (chunked prefill)."""
+"""Serving tier: the KV caches (contiguous and paged), sampling, the
+continuous-batching engine (chunked prefill, speculative decoding, the
+request lifecycle), the n-gram drafter and the fault plans."""
+
+from rocm_apex_tpu_torch.inference.drafting import NGramDrafter  # noqa: F401
 
 from rocm_apex_tpu_torch.inference.engine import (  # noqa: F401
     FINISH_REASONS,
@@ -7,6 +10,12 @@ from rocm_apex_tpu_torch.inference.engine import (  # noqa: F401
     InferenceEngine,
     Request,
     SamplingParams,
+)
+from rocm_apex_tpu_torch.inference.faults import (  # noqa: F401
+    NO_FAULTS,
+    Fault,
+    FaultInjected,
+    FaultPlan,
 )
 from rocm_apex_tpu_torch.inference.kv_cache import KVCache  # noqa: F401
 from rocm_apex_tpu_torch.inference.paging import (  # noqa: F401
@@ -23,9 +32,14 @@ from rocm_apex_tpu_torch.inference.sampling import (  # noqa: F401
 
 __all__ = [
     "FINISH_REASONS",
+    "Fault",
+    "FaultInjected",
+    "FaultPlan",
     "GenerationResult",
     "InferenceEngine",
     "KVCache",
+    "NGramDrafter",
+    "NO_FAULTS",
     "PageAllocator",
     "PagedKVCache",
     "PrefixStore",

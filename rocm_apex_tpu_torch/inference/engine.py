@@ -14,8 +14,11 @@ grid. Ticks with no pending prompt token take the decode-only path.
 Inactive slots ride along as dead rows: their sampled tokens are
 discarded, their cache writes land in rows no live request reads (on a
 paged cache they sit at capacity and drop), and their lengths are
-pinned. The host's cursors are the truth for the lengths a mixed step
-starts from.
+pinned. The host's cursors are the truth for the lengths every device
+step starts from, and the host resolves every cache write's destination
+(`KVCache.host_rows`, `PagedKVCache.host_rows`): a tick sends its inputs
+in one copy, reads no device value but its one fetch of the sampled
+tokens, and, with speculation, adds one commit call that reads none.
 
 ``prefill_token_budget=None`` is the legacy whole-prompt path, the A/B
 baseline of ``bench.py serve`` (the JAX engine's `_step_whole`): each
@@ -39,14 +42,50 @@ tokens are kept and whose cache is recomputed on re-admission.
 by reference (`PrefixStore`) and copy-on-write forks a borrowed page
 before the borrower writes into it.
 
-Not ported yet, and refused at construction: speculative decoding
-(``spec_k``; with it the speculative commits into pages), the fault
-harness (``faults``; with it the ``page_alloc`` site), multi-LoRA
-(``adapter_pool``; with it tier preemption), tracing and the metric
-registry (``tracer``, ``registry``), tensor parallelism (tp>1
-head-sharded pools) and page shipping between engines. A row whose
-logits are not finite is quarantined (finish reason ``error``), as the
-JAX engine does.
+Speculative decoding (``spec_k``, JAX engine.py:954-1001, 3136-3420,
+3621-3716): each decoding slot's span — its last generated token plus up
+to k tokens a drafter proposes (`NGramDrafter` on the slot's history,
+host numpy) — rides the tick's chunk. Attention follows the span's slot;
+its K/V writes do not happen in the forward (the row carries the pad id
+in ``commit_slots``), and the model hands back each layer's packed chunk
+K/V. The accept walk keeps the longest prefix of drafts the model's own
+samples agree with, plus the model's next token, and ONE commit call
+(`write_at`) writes the accepted rows after the decode grid: a rejected
+draft is never written, so it cannot touch a shared prefix page or raise
+an int8 page's scale, and the contiguous grid's dead-row write at the
+span's first position cannot clobber a committed row. Speculative
+engines run the mixed step every tick, with the host cursors as lengths.
+
+The robustness layer (JAX engine.py:1723-2043, 2887-3124): per-request
+deadlines and queue TTLs (``add_request(timeout=, queue_ttl=)``,
+checked at tick boundaries), `cancel`, `drain`/`reopen`, a bounded queue
+(``max_queue``: an arrival at a full queue is shed with a ``queue_full``
+result the next `step` delivers), a stall watchdog (``watchdog_timeout``
+seconds without token progress raises with the stuck slots named, after
+writing a JSON dump to ``watchdog_dump_path``), device-step retry with a
+capped exponential backoff (``max_step_retries``,
+``step_retry_backoff``; exhaustion requeues the in-flight requests, then
+raises), and quarantine of a slot whose logits are not finite (finish
+reason ``error``). ``faults`` takes a seeded `FaultPlan` that injects
+failures at the ``page_alloc``, ``device_step``, ``logits`` and
+``host_fetch`` sites.
+
+The port's cache is written IN PLACE inside the forward, where the JAX
+engine's functional cache "only moves forward on success". A retry
+therefore re-runs the tick from the host cursors over the rows the
+failed attempt may have written: the writes are the same values at the
+same rows, the sampling generator's state is restored, and the one
+int8 page a tick writes twice (a prompt's last chunk rows and its first
+decode row) is restored from a copy taken before the call, so a retry
+gives the fault-free run's tokens, pools and scales bit for bit.
+Prefix-store registration and page-table changes stay after the device
+call succeeds.
+
+Not ported yet, and refused at construction: multi-LoRA
+(``adapter_pool``; with it tier preemption), request tracing, the
+metric registry, the flight recorder and the time series (``tracer``,
+``registry``, ``flight_recorder``, ``timeseries``), tensor parallelism
+(tp>1 head-sharded pools) and page shipping between engines.
 
 Sampling draws from an engine-owned `torch.Generator` seeded with
 ``seed``: a fixed seed replays the same stream on one device, but not
@@ -55,12 +94,15 @@ the JAX engine's stream. Greedy decoding draws nothing.
 
 import collections
 import dataclasses
+import json
 import time
 from typing import Any, Deque, Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
 
+from rocm_apex_tpu_torch.inference.drafting import NGramDrafter
+from rocm_apex_tpu_torch.inference.faults import NO_FAULTS, FaultInjected
 from rocm_apex_tpu_torch.inference.kv_cache import KVCache
 from rocm_apex_tpu_torch.inference.paging import (
     PageAllocator,
@@ -77,12 +119,17 @@ __all__ = [
     "FINISH_REASONS",
 ]
 
-FINISH_REASONS = ("eos", "length", "capacity", "error")
+#: every finish_reason a `GenerationResult` can carry
+FINISH_REASONS = (
+    "eos", "length", "capacity",  # normal completion paths
+    "deadline", "cancelled", "error", "queue_full",  # robustness paths
+)
 
 _NOT_PORTED = (
     "{what} is not ported yet (ROADMAP Queue 1, {item}); the engine "
-    "serves the contiguous or the paged cache with the chunked scheduler, "
-    "and the contiguous one on the whole-prompt path"
+    "serves the contiguous or the paged cache with the chunked scheduler "
+    "(speculative decoding and the fault harness included), and the "
+    "contiguous one on the whole-prompt path"
 )
 
 
@@ -102,6 +149,10 @@ class Request:
     max_new_tokens: int
     # enqueue wall time (perf_counter): the queue-wait and TTFT anchor
     enqueued_at: float = 0.0
+    # absolute perf_counter bounds (None: unbounded): ``deadline`` is
+    # end to end, ``queue_deadline`` the admission TTL
+    deadline: Optional[float] = None
+    queue_deadline: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -149,7 +200,12 @@ class InferenceEngine:
     ``prefill_token_budget`` is the prompt tokens absorbed per tick
     across requests (None: the whole-prompt path, prompts padded to
     ``max_prompt_len``, default the capacity); ``prefill_chunk``
-    optionally caps one request's share of it.
+    optionally caps one request's share of it. ``spec_k`` > 0 turns on
+    speculative decoding with ``drafter`` (default an `NGramDrafter`
+    over the last ``spec_window`` tokens). ``faults``, ``max_queue``,
+    ``max_step_retries``, ``step_retry_backoff``, ``watchdog_timeout``
+    and ``watchdog_dump_path`` are the robustness layer's knobs (see the
+    module docstring).
     """
 
     # consecutive ticks without token progress before generate() gives up
@@ -175,26 +231,20 @@ class InferenceEngine:
         kv_dtype: Optional[torch.dtype] = None,
         prefix_sharing: bool = False,
         spec_k: int = 0,
+        drafter=None,
+        spec_window: int = 64,
         faults=None,
+        max_queue: Optional[int] = None,
+        max_step_retries: int = 2,
+        step_retry_backoff: float = 0.0,
+        watchdog_timeout: Optional[float] = None,
+        watchdog_dump_path: Optional[str] = None,
         adapter_pool=None,
         tracer=None,
         registry=None,
+        flight_recorder=None,
+        timeseries=None,
     ):
-        refused = [
-            (spec_k, "speculative decoding (spec_k), and with it "
-             "speculative commits into pages", "item 8"),
-            (faults is not None, "the fault harness (faults), and with "
-             "it the page_alloc site", "item 8"),
-            (adapter_pool is not None, "multi-LoRA serving (adapter_pool)"
-             ", and with it tier preemption", "item 8"),
-            (tracer is not None or registry is not None,
-             "request tracing and the metric registry", "item 9"),
-        ]
-        for asked, what, item in refused:
-            if asked:
-                raise NotImplementedError(
-                    _NOT_PORTED.format(what=what, item=item)
-                )
         cfg = model.cfg
         self.model = model
         self.device = model.device
@@ -224,6 +274,66 @@ class InferenceEngine:
         self.prefill_chunk = prefill_chunk
         self.eos_id = eos_id
         self.sampling = sampling or SamplingParams()
+        self.spec_k = int(spec_k)
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if self.spec_k > 0:
+            if self.prefill_token_budget is None:
+                raise ValueError(
+                    "speculative decoding rides the chunked mixed step; "
+                    "set prefill_token_budget (chunked mode) to use "
+                    "spec_k"
+                )
+            if self.spec_k + 1 > self.prefill_token_budget:
+                raise ValueError(
+                    f"spec_k={self.spec_k} needs spec_k + 1 <= "
+                    f"prefill_token_budget="
+                    f"{self.prefill_token_budget} chunk rows (the "
+                    f"verified span is the last token plus k drafts)"
+                )
+            if drafter is None:
+                drafter = NGramDrafter(self.spec_k, window=spec_window)
+        self._drafter = drafter if self.spec_k > 0 else None
+        self._spec_window = int(
+            getattr(self._drafter, "window", spec_window)
+        )
+        if adapter_pool is not None and self.spec_k > 0:
+            raise ValueError(
+                "adapter_pool does not compose with speculative "
+                "decoding yet (the drafter is base-model-only; a "
+                "per-adapter draft would be wrong for every "
+                "non-base slot)"
+            )
+        refused = [
+            (adapter_pool is not None, "multi-LoRA serving (adapter_pool)"
+             ", and with it tier preemption", "item 8"),
+            (any(x is not None for x in
+                 (tracer, registry, flight_recorder, timeseries)),
+             "the monitor layer (tracer, registry, flight_recorder, "
+             "timeseries)", "item 9"),
+        ]
+        for asked, what, item in refused:
+            if asked:
+                raise NotImplementedError(
+                    _NOT_PORTED.format(what=what, item=item)
+                )
+        self.faults = faults if faults is not None else NO_FAULTS
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self.max_queue = max_queue
+        if max_step_retries < 0:
+            raise ValueError(
+                f"max_step_retries must be >= 0, got {max_step_retries}"
+            )
+        self.max_step_retries = int(max_step_retries)
+        self.step_retry_backoff = float(step_retry_backoff)
+        if watchdog_timeout is not None and watchdog_timeout <= 0:
+            raise ValueError(
+                f"watchdog_timeout must be > 0 seconds, got "
+                f"{watchdog_timeout}"
+            )
+        self.watchdog_timeout = watchdog_timeout
+        self.watchdog_dump_path = watchdog_dump_path
         self.paged = bool(paged)
         self.prefix_sharing = bool(prefix_sharing)
         self._allocator: Optional[PageAllocator] = None
@@ -270,8 +380,15 @@ class InferenceEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._queue: Deque[Request] = collections.deque()
+        # set by the first request with a deadline or a TTL: until then
+        # the tick-boundary sweep has nothing to look for
+        self._any_deadline = False
         self._slots: List[Optional[_Slot]] = [None] * num_slots
         self._next_id = 0
+        self._draining = False
+        self._tick = 0  # step() count, the fault plans' tick domain
+        # queue_full results awaiting delivery through the next step()
+        self._shed_results: List[GenerationResult] = []
         self.reset_stats()
 
     # ------------------------------------------------------------------
@@ -297,14 +414,26 @@ class InferenceEngine:
         return len(self._queue)
 
     def has_work(self) -> bool:
-        return bool(self._queue) or self.num_active > 0
+        return (bool(self._queue) or self.num_active > 0
+                or bool(self._shed_results))
+
+    @property
+    def draining(self) -> bool:
+        """True once `drain()` was called: admission is closed."""
+        return self._draining
+
+    @property
+    def tick_count(self) -> int:
+        """Engine ticks so far, the `FaultPlan` tick domain."""
+        return self._tick
 
     @property
     def completions(self) -> List[Dict[str, float]]:
         """Per-request completion records in finish order:
         ``request_id``, ``finish_reason``, ``prompt_tokens``,
         ``new_tokens``, ``chunks``, ``queue_wait_ms``, ``ttft_ms``,
-        ``tpot_ms`` (mean inter-token time after the first), ``e2e_ms``."""
+        ``tpot_ms`` (mean inter-token time after the first), ``e2e_ms``.
+        Shed, expired and cancelled requests have one too."""
         return list(self._completions)
 
     def reset_stats(self) -> None:
@@ -325,6 +454,17 @@ class InferenceEngine:
         self._prefix_hit_tokens = 0
         self._page_stalls = 0
         self._preemptions = 0
+        # speculative decoding: every drafted token ends up accepted or
+        # rolled back
+        self._tokens_drafted = 0
+        self._tokens_accepted = 0
+        self._rollbacks = 0
+        self._cancelled = 0
+        self._deadline_exceeded = 0
+        self._step_retries = 0
+        self._shed = 0
+        self._watchdog_fires = 0
+        self._host_fetches = 0
         self._queue_waits: Deque[float] = collections.deque(
             maxlen=self._STATS_RETENTION
         )
@@ -334,6 +474,9 @@ class InferenceEngine:
         self._completions: Deque[Dict[str, float]] = collections.deque(
             maxlen=self._STATS_RETENTION
         )
+        # the watchdog's progress snapshot tracks the counters zeroed
+        self._progress_mark = (0, 0, 0)
+        self._last_progress = time.perf_counter()
 
     def stats(self) -> Dict[str, float]:
         """Serving telemetry as one flat name -> float dict: the gauges
@@ -352,7 +495,14 @@ class InferenceEngine:
         ``shared_page_ratio`` (mapped table entries on a page with more
         than one reference) and counters ``cow_forks``, ``prefix_hits``,
         ``prefix_hit_tokens``, ``page_stalls``, ``preemptions`` are zeros
-        on the contiguous cache."""
+        on the contiguous cache. The robustness counters ``cancelled``,
+        ``deadline_exceeded``, ``step_retries``, ``shed``,
+        ``watchdog_fires``: completed + shed + quarantined + cancelled +
+        expired equals submitted. Speculative decoding (zeros at
+        ``spec_k == 0``): ``tokens_drafted``, ``tokens_accepted``,
+        ``acceptance_rate`` (their ratio), ``rollbacks`` (spans with at
+        least one rejected draft). ``host_fetches``: the engine's reads
+        of device values (one a device step)."""
 
         def pct_ms(samples, q):
             if not samples:
@@ -381,12 +531,25 @@ class InferenceEngine:
             "prefix_hit_tokens": float(self._prefix_hit_tokens),
             "page_stalls": float(self._page_stalls),
             "preemptions": float(self._preemptions),
+            "cancelled": float(self._cancelled),
+            "deadline_exceeded": float(self._deadline_exceeded),
+            "quarantined": float(self._quarantined),
+            "step_retries": float(self._step_retries),
+            "shed": float(self._shed),
+            "watchdog_fires": float(self._watchdog_fires),
+            "tokens_drafted": float(self._tokens_drafted),
+            "tokens_accepted": float(self._tokens_accepted),
+            "acceptance_rate": (
+                self._tokens_accepted / self._tokens_drafted
+                if self._tokens_drafted else 0.0
+            ),
+            "rollbacks": float(self._rollbacks),
+            "host_fetches": float(self._host_fetches),
             "queue_depth": float(self.num_queued),
             "slots_active": float(self.num_active),
             "slot_occupancy": self.num_active / self.num_slots,
             "admitted": float(self._admitted),
             "evicted": float(self._evicted),
-            "quarantined": float(self._quarantined),
             "prompt_tokens": float(self._prompt_tokens),
             "generated_tokens": float(self._generated_tokens),
             "decode_steps": float(self._decode_steps),
@@ -433,10 +596,26 @@ class InferenceEngine:
         prompt: Sequence[int],
         max_new_tokens: int,
         request_id: Optional[int] = None,
+        *,
+        timeout: Optional[float] = None,
+        queue_ttl: Optional[float] = None,
     ) -> int:
         """Queue a prompt; returns the request id. A later `step`
         leases it a free slot and streams its prompt through the
-        prefill budget. A prompt must fit in ``capacity`` cache rows."""
+        prefill budget. A prompt must fit in ``capacity`` cache rows.
+
+        ``timeout`` (seconds) is the request's end-to-end deadline, queue
+        wait included; ``queue_ttl`` bounds the queue wait alone. Both
+        are checked at tick boundaries and finish the request with
+        ``deadline``. With ``max_queue`` set, an arrival at a full queue
+        is shed, never dropped silently: it gets its id and the next
+        `step` delivers its ``queue_full`` result. After `drain`
+        admission is closed and this raises."""
+        if self._draining:
+            raise RuntimeError(
+                "engine is draining: admission is closed "
+                "(drain() was called)"
+            )
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("prompt must be non-empty")
@@ -454,32 +633,145 @@ class InferenceEngine:
             )
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if timeout is not None and timeout <= 0:
+            raise ValueError(f"timeout must be > 0 s, got {timeout}")
+        if queue_ttl is not None and queue_ttl <= 0:
+            raise ValueError(f"queue_ttl must be > 0 s, got {queue_ttl}")
         if request_id is None:
             request_id = self._next_id
         self._next_id = max(self._next_id, request_id) + 1
-        self._queue.append(
-            Request(request_id, prompt, int(max_new_tokens),
-                    enqueued_at=time.perf_counter())
-        )
+        now = time.perf_counter()
+        if self.max_queue is not None and len(self._queue) >= self.max_queue:
+            # shed the newest: the queued requests keep their places
+            self._shed += 1
+            self._completions.append({
+                "request_id": request_id,
+                "finish_reason": "queue_full",
+                "prompt_tokens": len(prompt),
+                "new_tokens": 0,
+                "chunks": 0,
+                "queue_wait_ms": 0.0,
+                "ttft_ms": 0.0,
+                "tpot_ms": 0.0,
+                "e2e_ms": 0.0,
+            })
+            self._shed_results.append(GenerationResult(
+                request_id=request_id, prompt=prompt, tokens=[],
+                finish_reason="queue_full",
+            ))
+            return request_id
+        if timeout is not None or queue_ttl is not None:
+            self._any_deadline = True
+        self._queue.append(Request(
+            request_id, prompt, int(max_new_tokens), enqueued_at=now,
+            deadline=(now + timeout) if timeout is not None else None,
+            queue_deadline=(now + queue_ttl) if queue_ttl is not None
+            else None,
+        ))
         return request_id
 
     def step(self) -> List[GenerationResult]:
         """One engine tick. Chunked: admit queued requests into free
-        slots, pack up to the token budget of pending prompt tokens, run
-        the mixed chunk+decode step (or the decode-only step when nothing
-        is prefilling). Whole-prompt: one padded prefill per admit, then
-        the decode step. Returns the requests that finished this tick;
-        their slots are already free for the next."""
+        slots, pack up to the token budget of pending prompt tokens (and,
+        with ``spec_k``, the speculative spans), run the mixed
+        chunk+decode step (or the decode-only step when nothing is
+        prefilling). Whole-prompt: one padded prefill per admit, then
+        the decode step. Returns the requests that finished this tick,
+        the shed and expired ones included, so every submitted request
+        yields exactly one result; their slots are already free."""
+        now = time.perf_counter()
+        self._check_watchdog(now)
+        out: List[GenerationResult] = []
+        if self._shed_results:
+            out.extend(self._shed_results)
+            self._shed_results = []
+        out.extend(self._expire_deadlines(now))
         if self.chunked:
-            return self._step_chunked()
-        return self._step_whole()
+            out.extend(self._step_chunked())
+        else:
+            out.extend(self._step_whole())
+        self._tick += 1
+        self._note_progress()
+        return out
+
+    def cancel(self, request_id: int) -> Optional[GenerationResult]:
+        """Cancel one request wherever it is (queued, prefilling,
+        decoding) and return its partial result (``cancelled``, the
+        tokens generated so far), or None for an unknown or finished id.
+        In-flight work tears down through the ordinary eviction, so the
+        slot frees and its pages release."""
+        now = time.perf_counter()
+        for req in self._queue:
+            if req.request_id == request_id:
+                self._queue.remove(req)
+                self._cancelled += 1
+                return self._finalize_queued(req, "cancelled", now)
+        for slot, st in enumerate(self._slots):
+            if st is not None and st.req.request_id == request_id:
+                self._cancelled += 1
+                return self._evict(slot, st, "cancelled")
+        return None
+
+    def drain(self, shed_queue: bool = False) -> List[GenerationResult]:
+        """Close admission (`add_request` raises from here on), run the
+        engine until all accepted work finishes, and return those
+        results. ``shed_queue=True`` cancels the still-queued requests
+        up front, so only the in-flight slots run to completion.
+        Idempotent; `reopen` is the way back."""
+        self._draining = True
+        now = time.perf_counter()
+        out: List[GenerationResult] = []
+        if shed_queue:
+            while self._queue:
+                req = self._queue.popleft()
+                self._cancelled += 1
+                out.append(self._finalize_queued(req, "cancelled", now))
+        while self.has_work():
+            out.extend(self.step())
+        return out
+
+    def reopen(self) -> None:
+        """Reopen admission after `drain`: the drain flag, the watchdog
+        count and the progress anchors reset on the same engine (cache
+        and prefix store survive). Raises unless the engine is clean: no
+        leased slot, empty queue, no preempted carryover, no undelivered
+        shed result, and (paged) an all-sentinel table with the
+        allocator's invariants intact."""
+        dirty = []
+        if any(st is not None for st in self._slots):
+            dirty.append(f"{self.num_active} leased slot(s)")
+        if self._queue:
+            dirty.append(f"{len(self._queue)} queued request(s)")
+        if self._preempted:
+            dirty.append(f"{len(self._preempted)} preempted carryover(s)")
+        if self._shed_results:
+            dirty.append(
+                f"{len(self._shed_results)} undelivered shed result(s)"
+            )
+        if self.paged:
+            mapped = int((self._table != self.cache.num_pages).sum())
+            if mapped:
+                dirty.append(f"{mapped} mapped page-table entries")
+        if dirty:
+            raise RuntimeError(
+                "reopen() on a dirty engine: " + ", ".join(dirty)
+                + " — drain() first"
+            )
+        if self.paged:
+            self._allocator.assert_consistent()
+        self._draining = False
+        self._watchdog_fires = 0
+        self._progress_mark = (
+            self._prompt_tokens, self._generated_tokens, self._evicted,
+        )
+        self._last_progress = time.perf_counter()
 
     def generate(
         self, prompts: Sequence[Sequence[int]], max_new_tokens: int
     ) -> List[GenerationResult]:
         """Queue every prompt, run the loop dry, and return the results
         in prompt order. Raises after ``_GENERATE_STALL_TICKS`` ticks in
-        a row without token progress."""
+        a row without token progress, naming the stuck slots."""
         ids = [self.add_request(p, max_new_tokens) for p in prompts]
         done: Dict[int, GenerationResult] = {}
         stale = 0
@@ -497,7 +789,8 @@ class InferenceEngine:
             if stale >= self._GENERATE_STALL_TICKS:
                 raise RuntimeError(
                     f"generate() stalled: {stale} consecutive ticks "
-                    f"without token progress"
+                    f"without token progress; {self._stall_diagnosis()}"
+                    f" (set watchdog_timeout for a wall-clock bound)"
                 )
         return [done[i] for i in ids]
 
@@ -505,59 +798,164 @@ class InferenceEngine:
     # device steps
     # ------------------------------------------------------------------
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+    def _upload(self, *arrays) -> List[torch.Tensor]:
+        """Host int arrays to the device in ONE copy (a blocking copy
+        syncs the stream, so a tick makes it before its first launch);
+        returns contiguous int32 device views, one per array, each
+        starting 256 bytes into the buffer past the previous one, as a
+        fresh allocation would (the kernels take int32 ids and lengths)."""
+        sizes = [np.size(a) for a in arrays]
+        starts, end = [], 0
+        for n in sizes:
+            starts.append(end)
+            end += -(-n // 64) * 64
+        host = np.zeros((end,), np.int32)
+        for a, at, n in zip(arrays, starts, sizes):
+            host[at:at + n] = np.ravel(a)  # the cast to int32 on assignment
+        buf = torch.from_numpy(host).to(self.device)
+        return [buf[at:at + n] for at, n in zip(starts, sizes)]
 
-    def _sample(self, logits: torch.Tensor):
-        """Tokens and per-row nonfinite flags for ``(rows, vocab)``."""
+    def _fetch(self, *tensors) -> np.ndarray:
+        """THE host fetch of a device step (its one device sync): the
+        stacked int32 values (tokens, nonfinite flags) in one copy."""
+        self._host_fetches += 1
+        return torch.stack([t.to(torch.int32) for t in tensors]
+                           ).cpu().numpy()
+
+    def _sample(self, logits: torch.Tensor, poison=None):
+        """Tokens and per-row nonfinite flags for ``(rows, vocab)``.
+        ``poison``: the ``logits`` fault's per-row addend (NaN/Inf on the
+        faulted slot's rows, +0.0 elsewhere), None when nothing fires."""
+        if poison is not None:
+            logits = logits.float() + poison[:, None]
         sp = self.sampling
         bad = ~torch.isfinite(logits).all(dim=-1)
         tok = sample(logits, sp.temperature, sp.top_k, sp.top_p,
                      generator=self._gen)
         return tok, bad
 
-    def _decode_body(self, tokens, active):
-        """The decode grid: every slot writes its token at its length
-        and reads its prefix; inactive slots' lengths are pinned. On a
-        paged cache a dead row runs at the device capacity, so its write
-        drops: at its own length it could land in a live page, maybe a
-        shared one, and raise an int8 page's scale."""
-        lengths0 = self.cache.lengths
+    def _grid_rows(self, active: np.ndarray, lengths: np.ndarray):
+        """A paged decode grid's write destinations, resolved on the
+        host: each live slot's row at its length; a dead row at the
+        device capacity, which drops. None on the contiguous cache."""
+        if not self.paged:
+            return None
+        S = self.num_slots
+        pos = np.where(active, lengths, self.cache.capacity)
+        return (np.arange(S), pos,
+                *self.cache.host_rows(np.arange(S), pos, self._table))
+
+    def _decode_body(self, tokens, active, lengths, rows=None,
+                     poison=None):
+        """The decode grid from the host ``lengths``: every slot writes
+        its token at its length and reads its prefix; inactive slots'
+        lengths are pinned. On a paged cache a dead row runs at the
+        device capacity, so its write drops (``rows``: the grid's
+        resolved destinations): at its own length it could land in a
+        live page, maybe a shared one, and raise an int8 page's scale.
+        ``lengths`` is int32, as `_upload` gives it (the kernels' type)."""
         if self.paged:
             self.cache.lengths = torch.where(
-                active, lengths0, self.cache.capacity
-            ).to(torch.int32)
-        logits, _ = self.model(tokens[:, None], cache=self.cache)
-        self.cache.lengths = torch.where(active, self.cache.lengths, lengths0)
-        tok, bad = self._sample(logits[:, -1, :])
+                active, lengths, self.cache.capacity
+            )
+        else:
+            self.cache.lengths = lengths
+        logits, _ = self.model(tokens[:, None], cache=self.cache, rows=rows)
+        self.cache.lengths = torch.where(active, self.cache.lengths, lengths)
+        tok, bad = self._sample(logits[:, -1, :], poison)
         return torch.where(active, tok, 0), bad
 
     @torch.no_grad()
-    def _mixed(self, chunk_tokens, chunk_slots, chunk_pos, lengths_before,
-               lengths_after, completion_idx, dec_tokens, dec_active):
+    def _mixed(self, chunk_tokens, chunk_slots, chunk_pos, commit_slots,
+               lengths_before, lengths_after, completion_idx, dec_tokens,
+               dec_active, chunk_poison=None, dec_poison=None):
         """The packed prompt chunk, then the whole decode grid, with the
-        first token of every prompt that completed fed straight in."""
-        t = self._tensor
-        self.cache.lengths = t(lengths_before)
-        logits_c, _ = self.model(
-            t(chunk_tokens)[None, :], cache=self.cache,
-            chunk=(t(chunk_slots), t(chunk_pos)),
+        first token of every prompt that completed fed straight in.
+        ``commit_slots`` (speculative engines): who writes K/V in the
+        forward; a speculative row carries the pad id, and the forward
+        returns the chunk's per-layer K/V for the later commit. Returns
+        the chunk's and the grid's tokens and nonfinite flags (host
+        numpy, one fetch) and the chunk K/V (None without
+        speculation)."""
+        B, S = chunk_tokens.shape[0], self.num_slots
+        spec = commit_slots is not None
+        write = commit_slots if spec else chunk_slots
+        if self.paged:
+            chunk_dst = self.cache.host_rows(write, chunk_pos, self._table)
+        else:
+            chunk_dst = self.cache.host_rows(write, chunk_pos)
+        grid_active = dec_active | (completion_idx >= 0)
+        grid = self._grid_rows(grid_active, lengths_after)
+        dev = self._upload(
+            chunk_tokens, chunk_slots, chunk_pos, write, lengths_before,
+            lengths_after, completion_idx, dec_tokens, dec_active,
+            *chunk_dst, *(grid or ()),
         )
-        chunk_tok, chunk_bad = self._sample(logits_c[0])
-        # commit the chunk: cursors advance by what was packed
-        self.cache.lengths = t(lengths_after)
-        comp = t(completion_idx)
+        (tok_c, slots_c, pos_c, write_c, len_b, len_a, comp, dec_tok_in,
+         dec_act) = dev[:9]
+        rows = self.cache.rows_from(slots_c, pos_c, *dev[9:12])
+        grid_rows = self.cache.rows_from(*dev[12:17]) if grid else None
+        poisons = self._poisons(chunk_poison, dec_poison)
+        self.cache.lengths = len_b
+        chunk = (slots_c, pos_c, write_c) if spec else (slots_c, pos_c)
+        out = self.model(tok_c[None, :], cache=self.cache, chunk=chunk,
+                         rows=rows)
+        chunk_kv = out[2] if spec else None
+        chunk_tok, chunk_bad = self._sample(out[0][0], poisons[0])
         has_comp = comp >= 0
-        first_tok = chunk_tok[comp.clamp(0, chunk_tokens.shape[0] - 1)]
-        dec = torch.where(has_comp, first_tok, t(dec_tokens))
-        dec_tok, dec_bad = self._decode_body(dec, t(dec_active) | has_comp)
-        # ONE fetch per tick (the device sync)
-        out = torch.stack([
-            torch.cat([chunk_tok, dec_tok]),
-            torch.cat([chunk_bad, dec_bad]).to(chunk_tok.dtype),
-        ]).cpu().numpy()
-        b = chunk_tokens.shape[0]
-        return out[0, :b], out[0, b:], out[1, :b] != 0, out[1, b:] != 0
+        first_tok = chunk_tok[comp.clamp(0, B - 1)]
+        dec = torch.where(has_comp, first_tok, dec_tok_in)
+        # the chunk's cursors: every slot's length after its rows
+        dec_tok, dec_bad = self._decode_body(
+            dec, dec_act.bool() | has_comp, len_a, grid_rows, poisons[1],
+        )
+        self._maybe_fail_fetch()
+        out = self._fetch(torch.cat([chunk_tok, dec_tok]),
+                          torch.cat([chunk_bad, dec_bad]))
+        return (out[0, :B].astype(np.int64), out[0, B:].astype(np.int64),
+                out[1, :B] != 0, out[1, B:] != 0, chunk_kv)
+
+    @torch.no_grad()
+    def _decode(self, dec_tokens, dec_active, lengths, dec_poison=None,
+                fetch_site=True):
+        grid = self._grid_rows(dec_active, lengths)
+        dev = self._upload(dec_tokens, dec_active, lengths, *(grid or ()))
+        grid_rows = self.cache.rows_from(*dev[3:8]) if grid else None
+        poison = self._poisons(None, dec_poison)[1]
+        tok, bad = self._decode_body(
+            dev[0], dev[1].bool(), dev[2], grid_rows, poison,
+        )
+        # the chunked scheduler's site; the whole-prompt path has none
+        if fetch_site:
+            self._maybe_fail_fetch()
+        out = self._fetch(tok, bad)
+        return out[0].astype(np.int64), out[1] != 0
+
+    def _poisons(self, chunk_poison, dec_poison):
+        """The ``logits`` fault's addends on the device, None when it
+        does not fire this tick (the fault-free path adds nothing)."""
+        if chunk_poison is None and dec_poison is None:
+            return None, None
+        t = [None if p is None else torch.from_numpy(p).to(self.device)
+             for p in (chunk_poison, dec_poison)]
+        return t[0], t[1]
+
+    @torch.no_grad()
+    def _commit(self, chunk_kv, slots: np.ndarray, positions: np.ndarray):
+        """The post-verification commit: the accepted rows' packed chunk
+        K/V into the cache at ``(slot, position)``, every layer, through
+        `write_at` (int8 pages through `quantized_paged_scatter`); pad
+        rows drop. One call a tick, destinations resolved on the host."""
+        if self.paged:
+            dst = self.cache.host_rows(slots, positions, self._table)
+        else:
+            dst = self.cache.host_rows(slots, positions)
+        dev = self._upload(slots, positions, *dst)
+        rows = self.cache.rows_from(*dev)
+        ks, vs = chunk_kv
+        for layer in range(len(ks)):
+            self.cache.write_at(layer, None, None, ks[layer], vs[layer],
+                                rows=rows)
 
     @torch.no_grad()
     def _prefill(self, tokens: np.ndarray, slot: int, length: int):
@@ -570,19 +968,219 @@ class InferenceEngine:
         ``length - 1``, as a device tensor (no sync)."""
         sub = self.cache.slot_view(slot)
         sub.lengths = torch.zeros_like(sub.lengths)
-        logits, sub = self.model(self._tensor(tokens), cache=sub)
+        logits, sub = self.model(
+            torch.from_numpy(tokens).to(self.device), cache=sub
+        )
         sub.lengths = torch.full_like(sub.lengths, length)
         self.cache.write_back(slot, sub)
         tok, _ = self._sample(logits[0, length - 1][None, :])
         return tok
 
-    @torch.no_grad()
-    def _decode(self, dec_tokens, dec_active):
-        tok, bad = self._decode_body(
-            self._tensor(dec_tokens), self._tensor(dec_active)
+    # ------------------------------------------------------------------
+    # the robustness layer
+    # ------------------------------------------------------------------
+
+    def _maybe_fail_fetch(self) -> None:
+        """The ``host_fetch`` site: after the device work, before the
+        value fetch. The forward has already written its K/V in place."""
+        if self.faults.enabled and self.faults.fire(
+            "host_fetch", tick=self._tick,
+        ) is not None:
+            raise FaultInjected(
+                f"injected host_fetch fault (tick {self._tick})"
+            )
+
+    def _int8_restore_point(self, wrote_chunk: np.ndarray,
+                            grid_writes: np.ndarray,
+                            lengths_after: np.ndarray):
+        """A retry rewrites the rows the failed attempt wrote, at the
+        same values. On an int8 page that is bitwise only if the page was
+        written once: a rewrite under the grown scale keeps it (ratio
+        exactly 1) and requantizes nothing. The page a tick writes twice
+        — a slot's last chunk rows, then its decode-grid row on the same
+        page — would requantize the chunk rows a second time, so it is
+        copied (pools and scales, every layer) before the call and put
+        back before a retry. Returns the restore function, or None."""
+        if not (self.paged and self.cache.quantized
+                and self.max_step_retries > 0):
+            return None
+        ps = self.cache.page_size
+        pages = sorted({
+            int(self._table[s, lengths_after[s] // ps])
+            for s in range(self.num_slots)
+            if wrote_chunk[s] and grid_writes[s] and lengths_after[s] % ps
+        })
+        if not pages:
+            return None
+        idx = self._upload(np.array(pages))[0].long()
+        c = self.cache
+        saved = [(buf, buf[idx])
+                 for buf in (*c.k, *c.v, *c.k_scale, *c.v_scale)]
+
+        def restore():
+            for buf, old in saved:
+                buf[idx] = old
+
+        return restore
+
+    def _call_device(self, thunk, restore=None):
+        """Run one device step (and its fetch) with the ``device_step``
+        site and a capped exponential-backoff retry. The cache is written
+        in place, so a retry re-runs the tick from where it started: the
+        sampling generator's state and the cache's lengths as they were
+        before the first attempt, ``restore`` (an int8 page written twice
+        in the tick) put back. On exhaustion every in-flight request is
+        requeued, then the failure propagates."""
+        # only a drawing sampler advances the generator: a greedy tick
+        # (or one that cannot retry) saves nothing
+        gen_state = (self._gen.get_state()
+                     if self.sampling.temperature > 0
+                     and self.max_step_retries > 0 else None)
+        lengths = self.cache.lengths
+        attempt = 0
+        while True:
+            try:
+                if self.faults.enabled and self.faults.fire(
+                    "device_step", tick=self._tick,
+                ) is not None:
+                    raise FaultInjected(
+                        f"injected device_step fault (tick {self._tick})"
+                    )
+                return thunk()
+            except Exception:
+                if attempt >= self.max_step_retries:
+                    self._requeue_in_flight()
+                    raise
+                attempt += 1
+                self._step_retries += 1
+                if self.step_retry_backoff > 0:
+                    time.sleep(min(
+                        self.step_retry_backoff * (2 ** (attempt - 1)), 1.0,
+                    ))
+                if gen_state is not None:
+                    self._gen.set_state(gen_state)
+                self.cache.lengths = lengths
+                if restore is not None:
+                    restore()
+
+    def _requeue_in_flight(self) -> None:
+        """Retries exhausted: hand every in-flight request back to the
+        queue head (slot order kept), pages released, tokens carried, so
+        a caller that catches the failure finds a consistent engine and
+        the next successful tick recomputes. The failed tick's pages
+        never registered in the prefix store (registration waits for the
+        device call)."""
+        for slot in range(self.num_slots - 1, -1, -1):
+            st = self._slots[slot]
+            if st is None:
+                continue
+            if self.paged:
+                self._release_slot_pages(st, slot)
+            self._slots[slot] = None
+            if st.generated:
+                self._preempted[st.req.request_id] = (
+                    list(st.generated), st.first_token_at, st.chunks,
+                )
+            self._queue.appendleft(st.req)
+            self._preemptions += 1
+        if self.paged:
+            self._push_table()
+
+    def _expire_deadlines(self, now: float) -> List[GenerationResult]:
+        """Tick-boundary sweep: queued requests past their TTL or
+        deadline expire without a slot; in-flight ones past their
+        deadline tear down through the ordinary eviction."""
+        out: List[GenerationResult] = []
+        if not self._any_deadline:
+            return out
+        if self._queue:
+            keep: Deque[Request] = collections.deque()
+            for req in self._queue:
+                if ((req.queue_deadline is not None
+                     and now > req.queue_deadline)
+                        or (req.deadline is not None and now > req.deadline)):
+                    self._deadline_exceeded += 1
+                    out.append(self._finalize_queued(req, "deadline", now))
+                else:
+                    keep.append(req)
+            self._queue = keep
+        for slot, st in enumerate(self._slots):
+            if (st is not None and st.req.deadline is not None
+                    and now > st.req.deadline):
+                self._deadline_exceeded += 1
+                out.append(self._evict(slot, st, "deadline"))
+        return out
+
+    def _finalize_queued(self, req: Request, reason: str, now: float
+                         ) -> GenerationResult:
+        """Finish a request that holds no slot (expired or cancelled in
+        the queue, shed by drain). A preempted one returns the tokens it
+        had generated."""
+        carried = self._preempted.pop(req.request_id, None)
+        tokens = list(carried[0]) if carried is not None else []
+        self._completions.append({
+            "request_id": req.request_id,
+            "finish_reason": reason,
+            "prompt_tokens": len(req.prompt),
+            "new_tokens": len(tokens),
+            "chunks": carried[2] if carried is not None else 0,
+            "queue_wait_ms": 1e3 * (now - req.enqueued_at),
+            "ttft_ms": 0.0,
+            "tpot_ms": 0.0,
+            "e2e_ms": 1e3 * (now - req.enqueued_at),
+        })
+        return GenerationResult(
+            request_id=req.request_id, prompt=list(req.prompt),
+            tokens=tokens, finish_reason=reason,
         )
-        out = torch.stack([tok, bad.to(tok.dtype)]).cpu().numpy()
-        return out[0], out[1] != 0
+
+    def _note_progress(self) -> None:
+        """Token progress: prompt tokens absorbed, tokens generated, or
+        slots evicted, the signals the stall watchdog watches."""
+        work = (self._prompt_tokens, self._generated_tokens, self._evicted)
+        if work != self._progress_mark:
+            self._progress_mark = work
+            self._last_progress = time.perf_counter()
+
+    def _check_watchdog(self, now: float) -> None:
+        if self.watchdog_timeout is None or not self.has_work():
+            return
+        stalled = now - self._last_progress
+        if stalled <= self.watchdog_timeout:
+            return
+        self._watchdog_fires += 1
+        diag = self._stall_diagnosis()
+        if self.watchdog_dump_path is not None:
+            with open(self.watchdog_dump_path, "w") as f:
+                json.dump({
+                    "event": "watchdog",
+                    "stalled_seconds": stalled,
+                    "tick": self._tick,
+                    "diagnosis": diag,
+                    "stats": self.stats(),
+                }, f, indent=2)
+        raise RuntimeError(
+            f"serving watchdog: no token progress for {stalled:.2f}s "
+            f"(watchdog_timeout={self.watchdog_timeout}s); {diag}"
+        )
+
+    def _stall_diagnosis(self) -> str:
+        """The stuck slots, named: the watchdog's and generate()'s
+        diagnostic."""
+        parts = []
+        for slot, st in enumerate(self._slots):
+            if st is None:
+                continue
+            phase = "prefilling" if st.prefilling else "decoding"
+            parts.append(
+                f"slot {slot}: request {st.req.request_id} {phase} "
+                f"pos={st.pos} cursor={st.cursor}/{len(st.prefix)} "
+                f"generated={len(st.generated)}"
+            )
+        if not parts:
+            parts.append("no slots leased")
+        return (f"queue_depth={self.num_queued}, "
+                f"draining={self._draining}; " + "; ".join(parts))
 
     # ------------------------------------------------------------------
     # the chunked scheduler
@@ -647,7 +1245,12 @@ class InferenceEngine:
         """Page ``idx`` of ``slot`` is mapped and privately owned after
         this call: a fresh page for an unmapped entry, or a copy-on-write
         fork of a borrowed one. False when the pool cannot supply a page
-        (the caller backpressures; nothing clamps)."""
+        (the caller backpressures; nothing clamps). The ``page_alloc``
+        fault site fails it as an exhausted pool would."""
+        if self.faults.enabled and self.faults.fire(
+            "page_alloc", tick=self._tick, slot=slot, page_idx=idx,
+        ) is not None:
+            return False
         page = int(self._table[slot, idx])
         if page == self.cache.num_pages:
             got = self._allocator.alloc(1)
@@ -756,6 +1359,26 @@ class InferenceEngine:
                     f"{self.capacity}"
                 )
 
+    def _draft(self):
+        """One drafter call a tick over every decoding slot's history
+        (the last ``spec_window`` tokens of prompt + generated, left-
+        padded with -1): host numpy in and out. None when no slot
+        decodes."""
+        S, W = self.num_slots, self._spec_window
+        hist = np.full((S, W), -1, np.int32)
+        hist_len = np.zeros((S,), np.int32)
+        any_decoding = False
+        for slot, st in enumerate(self._slots):
+            if st is None or not st.generated or st.prefilling:
+                continue
+            any_decoding = True
+            h = (st.req.prompt + st.generated)[-W:]
+            hist[slot, W - len(h):] = h
+            hist_len[slot] = len(h)
+        if not any_decoding:
+            return None, None
+        return self._drafter(hist, hist_len)
+
     def _step_chunked(self) -> List[GenerationResult]:
         finished: List[GenerationResult] = []
         self._admit_free_slots(time.perf_counter())
@@ -767,60 +1390,117 @@ class InferenceEngine:
         # the segment mask keeps pads attending only each other
         chunk_slots = np.full((budget,), S, np.int32)
         chunk_pos = np.zeros((budget,), np.int32)
+        # speculative engines only: who writes K/V in the forward.
+        # Prompt rows do; a speculative row keeps the pad id (the host
+        # commits its accepted prefix after verification)
+        commit_slots = np.full((budget,), S, np.int32)
         lengths_before = np.zeros((S,), np.int32)
         lengths_after = np.zeros((S,), np.int32)
+        # the ``logits`` fault poisons ONE slot's rows for the tick
+        poison_slot, poison_val = -1, 0.0
+        if self.faults.enabled:
+            flt = self.faults.fire("logits", tick=self._tick)
+            if flt is not None:
+                pay = (flt.payload if isinstance(flt.payload, dict)
+                       else {"slot": flt.payload})
+                s = pay.get("slot")
+                poison_slot = int(s) if s is not None else 0
+                poison_val = float(pay.get("value", float("nan")))
         completions = []  # (slot, chunk index of its last prompt token, fed)
         reg_pending = []  # paged slots whose full prompt pages register
+        # (slot, first chunk row, drafted count, drafts, pre-span position)
+        spec_entries = []
         used = 0
+        prefill_used = 0
+        drafts_np = counts_np = None
+        if self.spec_k > 0:
+            drafts_np, counts_np = self._draft()
+        # slot order keeps the packed segment ids non-decreasing; a slot
+        # contributes prompt rows or a speculative span, never both
         for slot in range(S):
             st = self._slots[slot]
             if st is not None:
                 lengths_before[slot] = st.pos
                 lengths_after[slot] = st.pos
-            if st is None or used >= budget or not st.prefilling:
+            if st is None or used >= budget:
                 continue
-            n = min(budget - used, len(st.prefix) - st.cursor)
-            if self.prefill_chunk is not None:
-                n = min(n, self.prefill_chunk)
-            if self.paged:
-                # pool backpressure: only tokens whose pages exist (or
-                # could be allocated or forked) are scheduled
-                n = self._secure_prefill_pages(st, slot, n)
-                if n <= 0:
-                    continue
-            chunk_tokens[used:used + n] = st.prefix[st.cursor:st.cursor + n]
-            chunk_slots[used:used + n] = slot
-            chunk_pos[used:used + n] = np.arange(st.cursor, st.cursor + n)
-            st.cursor += n
-            st.pos = st.cursor
-            st.chunks += 1
-            lengths_after[slot] = st.cursor
-            self._prompt_tokens += n
-            if self._store is not None:
-                reg_pending.append((st, slot))
-            if not st.prefilling and not st.resumed:
-                # the first sampled token feeds the same tick's decode,
-                # unless that decode write has nowhere to land: a prompt
-                # that exactly fills capacity (evicted after its first
-                # token instead) or a paged slot whose next page the pool
-                # cannot supply yet (it decodes on a later tick). A
-                # resumed request's tokens exist already: it rejoins the
-                # decode grid below.
-                fed = st.cursor < self.capacity
-                if fed and self.paged:
-                    fed = self._ensure_writable(
-                        st, slot, st.cursor // self.cache.page_size
-                    )
-                    if not fed:
-                        self._page_stalls += 1
-                completions.append((slot, used + n - 1, fed))
-            used += n
+            if st.prefilling:
+                n = min(budget - used, len(st.prefix) - st.cursor)
+                if self.prefill_chunk is not None:
+                    n = min(n, self.prefill_chunk)
+                if self.paged:
+                    # pool backpressure: only tokens whose pages exist (or
+                    # could be allocated or forked) are scheduled
+                    n = self._secure_prefill_pages(st, slot, n)
+                    if n <= 0:
+                        continue
+                chunk_tokens[used:used + n] = st.prefix[
+                    st.cursor:st.cursor + n]
+                chunk_slots[used:used + n] = slot
+                commit_slots[used:used + n] = slot
+                chunk_pos[used:used + n] = np.arange(st.cursor, st.cursor + n)
+                st.cursor += n
+                st.pos = st.cursor
+                st.chunks += 1
+                lengths_after[slot] = st.cursor
+                self._prompt_tokens += n
+                if self._store is not None:
+                    reg_pending.append((st, slot))
+                if not st.prefilling and not st.resumed:
+                    # the first sampled token feeds the same tick's
+                    # decode, unless that decode write has nowhere to
+                    # land: a prompt that exactly fills capacity (evicted
+                    # after its first token instead) or a paged slot
+                    # whose next page the pool cannot supply yet (it
+                    # decodes on a later tick). A resumed request's
+                    # tokens exist already: it rejoins the decode grid
+                    # below.
+                    fed = st.cursor < self.capacity
+                    if fed and self.paged:
+                        fed = self._ensure_writable(
+                            st, slot, st.cursor // self.cache.page_size
+                        )
+                        if not fed:
+                            self._page_stalls += 1
+                    completions.append((slot, used + n - 1, fed))
+                used += n
+                prefill_used += n
+                continue
+            # the speculative span: [last generated token, n drafts],
+            # clamped by the drafter's count, k, the budget left (one
+            # row is the last token), capacity (each accepted token and
+            # the bonus need a row) and the request's remaining tokens
+            if drafts_np is None or not st.generated:
+                continue
+            n = min(int(counts_np[slot]), self.spec_k, budget - used - 1,
+                    self.capacity - st.pos - 1,
+                    st.req.max_new_tokens - len(st.generated) - 1)
+            if n < 1:
+                continue
+            if self.paged and not self._ensure_writable(
+                st, slot, st.pos // self.cache.page_size
+            ):
+                # no page even for the last token's row: the decode grid
+                # hits the same wall and stalls the slot for the tick
+                continue
+            drafts = [int(t) for t in drafts_np[slot, :n]]
+            chunk_tokens[used] = st.generated[-1]
+            chunk_tokens[used + 1:used + 1 + n] = drafts
+            chunk_slots[used:used + n + 1] = slot
+            chunk_pos[used:used + n + 1] = np.arange(st.pos, st.pos + n + 1)
+            spec_entries.append((slot, used, n, drafts, st.pos))
+            self._tokens_drafted += n
+            used += n + 1
 
         active = np.array(
             [s is not None and bool(s.generated) and not s.prefilling
              for s in self._slots],
             dtype=bool,
         )
+        # a slot with a span advances through the accept walk, not the
+        # grid: it rides the grid as a dead row
+        for slot, _, _, _, _ in spec_entries:
+            active[slot] = False
         self._guard_capacity(active)
         if self.paged:
             for slot, st in enumerate(self._slots):
@@ -839,6 +1519,15 @@ class InferenceEngine:
         completion_idx = np.full((S,), -1, np.int32)
         for slot, idx, fed in completions:
             completion_idx[slot] = idx if fed else -1
+        chunk_poison = dec_poison = None
+        if poison_slot >= 0:
+            # the faulted slot's chunk rows too: a prompt completion or a
+            # speculative span quarantines as a decode row does
+            chunk_poison = np.zeros((budget,), np.float32)
+            dec_poison = np.zeros((S,), np.float32)
+            chunk_poison[chunk_slots == poison_slot] = poison_val
+            if poison_slot < S:
+                dec_poison[poison_slot] = poison_val
         if self.paged:
             if used == 0 and not active.any() and not completions \
                     and self.has_work():
@@ -847,20 +1536,42 @@ class InferenceEngine:
                 self._preempt_for_pages()
             self._push_table()
 
-        chunk_out = chunk_bad = dec_out = dec_bad = None
-        if used > 0:
-            t0 = time.perf_counter()
-            chunk_out, dec_out, chunk_bad, dec_bad = self._mixed(
-                chunk_tokens, chunk_slots, chunk_pos, lengths_before,
-                lengths_after, completion_idx, dec_tokens, active,
+        chunk_out = chunk_bad = dec_out = dec_bad = chunk_kv = None
+        spec = self.spec_k > 0
+        if used > 0 or (spec and active.any()):
+            # speculative engines run the mixed step every tick: the
+            # host cursors ride in as lengths, which the accept walk
+            # moves past the device's
+            wrote_chunk = np.zeros((S,), bool)
+            wrote_chunk[commit_slots[commit_slots < S]] = True
+            restore = self._int8_restore_point(
+                wrote_chunk, active | (completion_idx >= 0), lengths_after,
             )
-            self._prefill_seconds += time.perf_counter() - t0
-            self._mixed_steps += 1
-            if active.any() or completions:
+            t0 = time.perf_counter()
+            chunk_out, dec_out, chunk_bad, dec_bad, chunk_kv = (
+                self._call_device(lambda: self._mixed(
+                    chunk_tokens, chunk_slots, chunk_pos,
+                    commit_slots if spec else None, lengths_before,
+                    lengths_after, completion_idx, dec_tokens, active,
+                    chunk_poison, dec_poison,
+                ), restore)
+            )
+            dt = time.perf_counter() - t0
+            if prefill_used > 0:
+                self._prefill_seconds += dt
+                self._mixed_steps += 1
+            else:
+                self._decode_seconds += dt
+                self._decode_only_steps += 1
+            if active.any() or completions or spec_entries:
                 self._decode_steps += 1
         elif active.any():
+            lengths = np.array([s.pos if s is not None else 0
+                                for s in self._slots], np.int32)
             t0 = time.perf_counter()
-            dec_out, dec_bad = self._decode(dec_tokens, active)
+            dec_out, dec_bad = self._call_device(lambda: self._decode(
+                dec_tokens, active, lengths, dec_poison,
+            ))
             self._decode_seconds += time.perf_counter() - t0
             self._decode_steps += 1
             self._decode_only_steps += 1
@@ -908,6 +1619,73 @@ class InferenceEngine:
                 done = self._finish_reason(st)
                 if done is not None:
                     finished.append(self._evict(slot, st, done))
+        if spec_entries:
+            finished.extend(self._accept(spec_entries, chunk_out,
+                                         chunk_bad, chunk_kv))
+        return finished
+
+    def _accept(self, spec_entries, chunk_out, chunk_bad, chunk_kv
+                ) -> List[GenerationResult]:
+        """The accept walk. Row j of a span was sampled under the model
+        conditioned on the drafts before it, so (for a point-mass
+        drafter) draft j is accepted iff the model's own sample at row j
+        equals it; the first disagreeing row's sample is the bonus
+        token: m accepted drafts emit m + 1 tokens. A span with
+        nonfinite logits quarantines its slot, its rows never written.
+        Then ONE commit call writes every kept span's last-token row and
+        its m accepted rows (the bonus token stays the slot's unwritten
+        next input), after the decode grid, whose dead-row write on a
+        contiguous cache lands at the span's first position."""
+        finished: List[GenerationResult] = []
+        budget, S = self.prefill_token_budget, self.num_slots
+        commit_np = np.full((budget,), S, np.int32)
+        commit_pos_np = np.zeros((budget,), np.int32)
+        any_commit = False
+        for slot, r0, n, drafts, pos0 in spec_entries:
+            st = self._slots[slot]
+            if chunk_bad[r0:r0 + n + 1].any():
+                finished.append(self._quarantine(slot, st))
+                continue
+            out = chunk_out[r0:r0 + n + 1]
+            m = 0
+            while m < n and int(out[m]) == drafts[m]:
+                m += 1
+            if self.paged and m > 0:
+                # accepted tokens become cache writes: clamp the accept
+                # length to pages the pool can supply (forking shared
+                # ones as usual)
+                ps = self.cache.page_size
+                for j in range(1, m + 1):
+                    if not self._ensure_writable(st, slot, (pos0 + j) // ps):
+                        self._page_stalls += 1
+                        m = j - 1
+                        break
+            emit = drafts[:m] + [int(out[m])]
+            accepted = 0
+            done = None
+            for i, tok in enumerate(emit):
+                st.pos += 1
+                st.generated.append(int(tok))
+                self._generated_tokens += 1
+                if i < m:
+                    accepted += 1
+                    self._tokens_accepted += 1
+                done = self._finish_reason(st)
+                if done is not None:
+                    break
+            if n - accepted > 0:
+                self._rollbacks += 1
+            if done is not None:
+                # its unwritten rows die with the lease
+                finished.append(self._evict(slot, st, done))
+                continue
+            commit_np[r0:r0 + m + 1] = slot
+            commit_pos_np[r0:r0 + m + 1] = np.arange(pos0, pos0 + m + 1)
+            any_commit = True
+        if any_commit:
+            if self.paged:
+                self._push_table()  # forks from the clamp above
+            self._commit(chunk_kv, commit_np, commit_pos_np)
         return finished
 
     # ------------------------------------------------------------------
@@ -938,7 +1716,7 @@ class InferenceEngine:
             )
             pending.append((slot, tok))
         if pending:
-            first = torch.cat([t for _, t in pending]).cpu().numpy()
+            first = self._fetch(torch.cat([t for _, t in pending]))[0]
             now = time.perf_counter()
             self._prefill_seconds += now - t_admit
             for (slot, _), tok in zip(pending, first):
@@ -959,8 +1737,11 @@ class InferenceEngine:
                  for s in self._slots],
                 np.int32,
             )
+            lengths = np.array([s.pos if s is not None else 0
+                                for s in self._slots], np.int32)
             t0 = time.perf_counter()
-            dec_out, dec_bad = self._decode(tokens, active)
+            dec_out, dec_bad = self._decode(tokens, active, lengths,
+                                            fetch_site=False)
             self._decode_seconds += time.perf_counter() - t0
             self._decode_steps += 1
             self._decode_only_steps += 1
@@ -990,6 +1771,8 @@ class InferenceEngine:
         return None
 
     def _quarantine(self, slot: int, st: _Slot) -> GenerationResult:
+        """Nonfinite logits on ONE slot evict that slot only (``error``);
+        the tick's other slots took their tokens from the same fetch."""
         self._quarantined += 1
         return self._evict(slot, st, "error")
 
@@ -1001,6 +1784,8 @@ class InferenceEngine:
         finished_at = time.perf_counter()
         req = st.req
         n_new = len(st.generated)
+        # a request torn down before its first token (cancel, deadline,
+        # quarantine mid-prefill) has no TTFT anchor: the teardown time
         first_at = st.first_token_at or finished_at
         self._completions.append({
             "request_id": req.request_id,

@@ -23,6 +23,7 @@ its length.
 import dataclasses
 from typing import List, NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from rocm_apex_tpu_torch._device import resolve_device
@@ -174,12 +175,38 @@ class KVCache:
         positions: torch.Tensor,
         k_new: torch.Tensor,
         v_new: torch.Tensor,
+        rows: Optional[ChunkRows] = None,
     ) -> "KVCache":
         """`scatter_chunk` into ``layer`` at per-token ``(slot,
         position)`` rows; rows with an out-of-range slot id (padding
         carries ``num_slots``) or position are dropped. Does not advance
-        ``lengths``."""
-        rows = chunk_rows(slots, positions, self.num_slots, self.capacity)
+        ``lengths``. ``rows``: the destinations resolved already (from
+        `host_rows`), shared by every layer of one commit. The drop
+        rule is the speculative engine's deferred commit: draft rows
+        ride the chunk with the pad id, and the engine replays this
+        write after verification with the accepted rows' real slots, so
+        a rejected draft is never written rather than undone."""
+        if rows is None:
+            rows = chunk_rows(slots, positions, self.num_slots,
+                              self.capacity)
         scatter_chunk(self.k[layer], rows, k_new)
         scatter_chunk(self.v[layer], rows, v_new)
         return self
+
+    def host_rows(self, slots: np.ndarray, positions: np.ndarray):
+        """`chunk_rows`' drop rule on host-held destinations, in numpy:
+        ``(keep, keep_slots, keep_positions)``. With `rows_from` the
+        engine resolves a write without reading a device value."""
+        slots, positions = np.asarray(slots), np.asarray(positions)
+        keep = np.flatnonzero((slots >= 0) & (slots < self.num_slots)
+                              & (positions >= 0)
+                              & (positions < self.capacity))
+        return keep, slots[keep], positions[keep]
+
+    @staticmethod
+    def rows_from(slots, positions, keep, keep_slots, keep_positions
+                  ) -> ChunkRows:
+        """`ChunkRows` of device tensors: `host_rows`' arrays sent to
+        the device, with ``slots`` the segment ids of the rows."""
+        return ChunkRows(slots, positions, keep.long(), keep_slots.long(),
+                         keep_positions.long())

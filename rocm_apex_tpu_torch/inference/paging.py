@@ -23,10 +23,12 @@ import collections
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from rocm_apex_tpu_torch._device import resolve_device
 from rocm_apex_tpu_torch.ops.paging import (
+    PagedRows,
     paged_fork,
     paged_rows,
     paged_scatter,
@@ -431,9 +433,10 @@ class PagedKVCache:
                    *(self.v_scale or ()), self.page_table, self.lengths]
         return sum(t.numel() * t.element_size() for t in tensors)
 
-    def _scatter(self, layer, slots, positions, k_new, v_new):
-        rows = paged_rows(self.page_table, slots, positions,
-                          self.page_size, self.num_pages)
+    def _scatter(self, layer, slots, positions, k_new, v_new, rows=None):
+        if rows is None:
+            rows = paged_rows(self.page_table, slots, positions,
+                              self.page_size, self.num_pages)
         if self.quantized:
             quantized_paged_scatter(self.k[layer], self.k_scale[layer],
                                     self.page_table, slots, positions,
@@ -472,11 +475,39 @@ class PagedKVCache:
         positions: torch.Tensor,
         k_new: torch.Tensor,
         v_new: torch.Tensor,
+        rows: Optional[PagedRows] = None,
     ) -> "PagedKVCache":
         """`KVCache.write_at` semantics (a packed chunk at per-token
         destinations; pads carry slot id >= num_slots and drop) through
-        the table."""
-        return self._scatter(layer, slots, positions, k_new, v_new)
+        the table; int8 pools through `quantized_paged_scatter`.
+        ``rows``: the destinations resolved already (`host_rows`). As
+        the speculative engine's deferred commit, a rejected draft row
+        is never scattered: it can never have touched a shared page or
+        raised an int8 page's scale."""
+        return self._scatter(layer, slots, positions, k_new, v_new, rows)
+
+    def host_rows(self, slots: np.ndarray, positions: np.ndarray,
+                  table: np.ndarray):
+        """`ops.paging.paged_rows`' drop rule on host-held destinations,
+        through ``table`` (the engine's host mirror of `page_table`, equal
+        to it), in numpy: ``(keep, pages, offsets)``. With `rows_from`
+        the engine resolves a write without reading a device value."""
+        slots, positions = np.asarray(slots), np.asarray(positions)
+        ps = self.page_size
+        valid = np.flatnonzero((slots >= 0) & (slots < self.num_slots)
+                               & (positions >= 0)
+                               & (positions < self.capacity))
+        pages = table[slots[valid], positions[valid] // ps]
+        mapped = (pages >= 0) & (pages < self.num_pages)
+        keep = valid[mapped]
+        return keep, pages[mapped], positions[keep] % ps
+
+    @staticmethod
+    def rows_from(slots, positions, keep, pages, offsets) -> PagedRows:
+        """`PagedRows` of device tensors: `host_rows`' arrays sent to the
+        device, with ``slots`` the segment ids of the rows."""
+        return PagedRows(slots, keep.long(), pages.long(), offsets.long(),
+                         positions)
 
     def advance(self, t: int, active: Optional[torch.Tensor] = None
                 ) -> "PagedKVCache":

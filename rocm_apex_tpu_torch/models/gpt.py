@@ -348,7 +348,8 @@ class ParallelAttention(nn.Module):
     def forward(self, x, cache=None,
                 chunk: Optional[Union[ChunkRows, PagedRows]] = None,
                 dropout_seed: Optional[int] = None,
-                attention_mask: Optional[torch.Tensor] = None):
+                attention_mask: Optional[torch.Tensor] = None,
+                kv_out: Optional[list] = None):
         """``attention_mask``: the uncached padding type's mask in the form
         its path reads, which the transformer builds once per forward: the
         additive fp32 (b, sq, sk) bias of `padding_bias` for the flash
@@ -359,8 +360,12 @@ class ParallelAttention(nn.Module):
         ``page_table``, ``page_size``, the layer's ``k_scale``/``v_scale``
         (None unless int8) and ``rows``, this forward's write
         destinations. ``chunk``: the packed chunk's rows (their ``slots``
-        are the segment ids), None for the decode and the whole-prompt
-        prefill."""
+        are the segment ids; the rows that land in the cache are the
+        commit destinations, which the speculative chunk splits from the
+        segment ids), None for the decode and the whole-prompt prefill.
+        ``kv_out``: a list the chunk path appends this layer's packed
+        ``(kq, vq)`` to (the speculative chunk's deferred commit reads
+        them)."""
         if cache is None:
             if self.cfg.context_parallel_axis is not None:
                 return self._forward_ring(x, dropout_seed)
@@ -393,6 +398,8 @@ class ParallelAttention(nn.Module):
                 )
             qq, kq, vq = q[0], k[0], v[0]  # (budget, nh, hd) views
             qT, kT, vT = (t.transpose(0, 1) for t in (qq, kq, vq))
+            if kv_out is not None:
+                kv_out.append((kq, vq))
             if jnp_ref:
                 # the chunk's K/V into the cache first; then each token
                 # reads its slot's rows [0, pos + 1) back in one softmax
@@ -405,8 +412,20 @@ class ParallelAttention(nn.Module):
                     scatter_chunk(k_buf, chunk, kq)
                     scatter_chunk(v_buf, chunk, vq)
                     kc, vc = k_buf, v_buf
-                ctx = _reference_chunk(qq, kc, vc, chunk.slots,
-                                       chunk.positions, scale)
+                if kv_out is None:
+                    ctx = _reference_chunk(qq, kc, vc, chunk.slots,
+                                           chunk.positions, scale)
+                else:
+                    # speculative rows are not in the cache (their write
+                    # is the engine's deferred commit): the committed
+                    # prefix [0, lengths) from the cache, the chunk's own
+                    # rows from the projections (gpt.py:630-671)
+                    quantized = paged is not None and (
+                        paged["k_scale"] is not None)
+                    ctx = _reference_chunk_spec(
+                        qq, kq, vq, kc, vc, chunk.slots, chunk.positions,
+                        lengths, scale, None if quantized else k_buf.dtype,
+                    )
             elif paged is not None:
                 # in place, through the table; then piece A within the
                 # chunk and piece B over each token's own slot's pages
@@ -613,9 +632,10 @@ class ParallelTransformerLayer(nn.Module):
         )
         self.mlp = ParallelMLP(cfg, device)
 
-    def forward(self, x, cache=None, chunk: Optional[ChunkRows] = None):
+    def forward(self, x, cache=None, chunk: Optional[ChunkRows] = None,
+                kv_out: Optional[list] = None):
         ln1 = self.input_layernorm(x)
-        attn = self.self_attention(ln1, cache, chunk)
+        attn = self.self_attention(ln1, cache, chunk, kv_out=kv_out)
         ln2, x = self.post_attention_layernorm(attn.to(x.dtype), residual=x)
         mlp = self.mlp(ln2)
         return (x + mlp.to(x.dtype)).to(self.cfg.dtype)
@@ -673,11 +693,13 @@ class ParallelTransformer(nn.Module):
     def forward(self, x, cache=None,
                 chunk: Optional[Union[ChunkRows, PagedRows]] = None,
                 seeds: Optional[torch.Generator] = None,
-                rows: Optional[PagedRows] = None, attention_mask=None):
+                rows: Optional[PagedRows] = None, attention_mask=None,
+                kv_out: Optional[list] = None):
         """``rows``: a paged cache's write destinations for this forward
         (the chunk's, or the decode grid's). ``attention_mask``: the
         uncached path's padding mask, True = masked (read by the padding
-        type only, as in the JAX model)."""
+        type only, as in the JAX model). ``kv_out``: collects each
+        layer's packed chunk ``(kq, vq)``."""
         if cache is None:
             return self._forward_chained(x, seeds, attention_mask)
         if attention_mask is not None:
@@ -700,7 +722,7 @@ class ParallelTransformer(nn.Module):
                              else cache.v_scale[i]),
                     rows=rows,
                 ),)
-            x = getattr(self, name)(x, layer_cache, chunk)
+            x = getattr(self, name)(x, layer_cache, chunk, kv_out)
         x = self.final_layernorm(x).to(self.cfg.dtype)
         if chunk is None:
             # every layer wrote at the same offsets: advance once, for
@@ -791,7 +813,18 @@ class GPTModel(nn.Module):
     and ``lengths`` advance by one. ``chunk=(slot_ids, positions)`` with
     ``tokens`` (1, budget) is the packed chunk: padding tokens carry slot
     id ``num_slots``, and ``lengths`` (each slot's pre-chunk prefix) are
-    not advanced. Runs on CUDA unless ``device`` says otherwise.
+    not advanced. The speculative chunk ``chunk=(slot_ids, positions,
+    commit_slots)`` (gpt.py:519-590) splits who attends from who
+    commits: attention follows ``slot_ids``, the K/V writes follow
+    ``commit_slots`` (a row carrying ``num_slots`` there is not written),
+    and the forward returns ``(logits, cache, chunk_kv)``, ``chunk_kv``
+    being ``(ks, vs)``, each layer's packed ``(budget, heads, head_dim)``
+    chunk K and V, for the engine's commit of the accepted rows.
+    ``rows``: the write destinations, resolved by the caller (the engine
+    resolves them on the host, so the forward reads no device value):
+    the chunk's (its ``slots`` the segment ids), or a paged cache's
+    decode grid's; None resolves them here. Runs on CUDA unless
+    ``device`` says otherwise.
     """
 
     def __init__(self, cfg: GPTConfig,
@@ -813,6 +846,7 @@ class GPTModel(nn.Module):
         chunk: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         loss_reduction: Optional[str] = None,
         dropout_generator: Optional[torch.Generator] = None,
+        rows: Optional[Union[ChunkRows, PagedRows]] = None,
     ):
         if cache is not None:
             if labels is not None:
@@ -826,7 +860,7 @@ class GPTModel(nn.Module):
                 )
             with torch.no_grad():
                 return self._forward_cached(tokens, position_ids, cache,
-                                            chunk)
+                                            chunk, rows)
         if chunk is not None:
             raise ValueError(
                 "chunked prefill writes into a KV cache; pass cache= "
@@ -870,19 +904,25 @@ class GPTModel(nn.Module):
             losses = losses * loss_mask
         return losses
 
-    def _forward_cached(self, tokens, position_ids, cache, chunk):
+    def _forward_cached(self, tokens, position_ids, cache, chunk, rows=None):
         paged = getattr(cache, "page_table", None) is not None
-        rows = None
+        kv_out = None
         if chunk is not None:
             if tokens.shape[0] != 1:
                 raise ValueError("chunked prefill takes tokens of shape (1, budget)")
-            slots, positions = chunk
-            if paged:
-                rows = paged_rows(cache.page_table, slots, positions,
-                                  cache.page_size, cache.num_pages)
-            else:
-                rows = chunk_rows(slots, positions, cache.num_slots,
-                                  cache.capacity)
+            slots, positions = chunk[0], chunk[1]
+            commit = slots
+            if len(chunk) == 3:
+                commit, kv_out = chunk[2], []
+            if rows is None:
+                if paged:
+                    rows = paged_rows(cache.page_table, commit, positions,
+                                      cache.page_size, cache.num_pages)
+                else:
+                    rows = chunk_rows(commit, positions, cache.num_slots,
+                                      cache.capacity)
+                # the segment ids stay the attending slots
+                rows = rows._replace(slots=slots)
             if position_ids is None:
                 position_ids = positions[None, :]
         else:
@@ -896,7 +936,7 @@ class GPTModel(nn.Module):
                 position_ids = cache.lengths[:, None] + torch.arange(
                     tokens.shape[1], device=tokens.device
                 )
-            if paged:
+            if paged and rows is None:
                 # every slot writes at its length; a dead row sits at
                 # capacity and drops
                 slots = torch.arange(cache.num_slots, dtype=torch.int32,
@@ -905,7 +945,10 @@ class GPTModel(nn.Module):
                                   cache.page_size, cache.num_pages)
         x = self.embedding(tokens, position_ids)
         x = self.transformer(x, cache, rows if chunk is not None else None,
-                             rows=rows if paged else None)
+                             rows=rows if paged else None, kv_out=kv_out)
+        if kv_out is not None:
+            chunk_kv = ([k for k, _ in kv_out], [v for _, v in kv_out])
+            return self.embedding.attend(x), cache, chunk_kv
         return self.embedding.attend(x), cache
 
 
@@ -933,6 +976,41 @@ def _reference_chunk(qq, kc, vc, slots, positions, scale):
     probs = _bounded_softmax(scores, live)
     spread = torch.einsum("tnc,ts->tnsc", probs, onehot)
     return torch.einsum("tnsc,scnd->tnd", spread, vc.float())
+
+
+def _reference_chunk_spec(qq, kq, vq, kc, vc, slots, positions, lengths,
+                          scale, cache_dtype):
+    """`attention_impl="jnp"` on the speculative chunk (gpt.py:630-671):
+    token t attends its slot's COMMITTED cache rows ``[0, lengths[slot])``
+    and, from the packed projections, the chunk rows of its own slot at
+    positions <= its own, under one fp32 softmax over the concatenated
+    axis. ``cache_dtype``: the float cache's dtype, through which the
+    chunk's K/V round-trip (their bytes as a read of scattered rows would
+    give them); None for int8 pages, where the raw projection is read.
+    Returns the (budget, nh, hd) fp32 context."""
+    num_slots, capacity = kc.shape[0], kc.shape[1]
+    slot_c = slots.long().clamp(0, num_slots - 1)
+    onehot = (slot_c[:, None] == torch.arange(
+        num_slots, device=qq.device)[None, :]).float()
+    prod = torch.einsum("tnd,scnd->tnsc", qq.float(), kc.float())
+    scores = torch.einsum("tnsc,ts->tnc", prod, onehot) * scale
+    col = torch.arange(capacity, device=qq.device)
+    bound = lengths.long()[slot_c]
+    scores = scores.masked_fill(
+        ~(col[None, None, :] < bound[:, None, None]), float("-inf"))
+    if cache_dtype is not None:
+        kb = kq.to(cache_dtype).float()
+        vb = vq.to(cache_dtype).float()
+    else:
+        kb, vb = kq.float(), vq.float()
+    scores_b = torch.einsum("tnd,jnd->tnj", qq.float(), kb) * scale
+    intra = ((slots[None, :] == slots[:, None])
+             & (positions[None, :] <= positions[:, None]))
+    scores_b = scores_b.masked_fill(~intra[:, None, :], float("-inf"))
+    probs = torch.softmax(torch.cat([scores, scores_b], dim=-1), dim=-1)
+    spread = torch.einsum("tnc,ts->tnsc", probs[..., :capacity], onehot)
+    return (torch.einsum("tnsc,scnd->tnd", spread, vc.float())
+            + torch.einsum("tnj,jnd->tnd", probs[..., capacity:], vb))
 
 
 def _reference_decode(q, kc, vc, kv_len, scale):

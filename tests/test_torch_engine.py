@@ -134,9 +134,10 @@ class TestEngineSurface:
         assert eng.stats()["generated_tokens"] == 0.0
 
     @pytest.mark.parametrize("kw", [
-        dict(paged=True, spec_k=2), dict(paged=True, faults=object()),
-        dict(spec_k=2),
-        dict(faults=object()), dict(adapter_pool=object()),
+        dict(paged=True, adapter_pool=object()),
+        dict(paged=True, tracer=object()),
+        dict(flight_recorder=object()),
+        dict(timeseries=object()), dict(adapter_pool=object()),
         dict(tracer=object()), dict(registry=object()),
     ])
     def test_unported_options_raise(self, engines, kw):

@@ -167,8 +167,9 @@ def test_pages_used_per_step_match_jax(engines):
 
 
 @pytest.mark.parametrize("kw, error, match", [
-    (dict(paged=True, spec_k=2), NotImplementedError, "not ported"),
-    (dict(paged=True, faults=object()), NotImplementedError, "page_alloc"),
+    (dict(paged=True, flight_recorder=object()), NotImplementedError,
+     "not ported"),
+    (dict(paged=True, timeseries=object()), NotImplementedError, "item 9"),
     (dict(paged=True, adapter_pool=object()), NotImplementedError,
      "not ported"),
     (dict(paged=True, tracer=object()), NotImplementedError, "not ported"),
