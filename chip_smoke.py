@@ -50,7 +50,7 @@ JAX package) through these phases, in order; any failure exits non-zero:
              1x1 and 3x3 backward case and every pipelined 3x3 forward
              case launched twice and held bit-equal; the flash forwards,
              the packed backward and the 3x3 forward checked against
-             their plans' routes by the kernels a profiled call launches);
+             their plans' routes by the kernels a call launches (the launch tables));
              kernel, plain and library times with CUDA events, and the
              least time the card could take (bound);
 4. parity    the serving config at full width but 2 layers, fp32 with
@@ -253,7 +253,26 @@ JAX package) through these phases, in order; any failure exits non-zero:
              survivors equal on every layout; a page_alloc fault on every
              call raising the watchdog with the stuck slot named and its
              dump written;
-29. report   a ``{"kernels": [...]}`` line, then the device line
+29. serve_lora  multi-LoRA serving (the engine with an AdapterPool of 4
+             slots at rank 16, 8 seeded adapters of ranks 4-16 in 3
+             tiers) on the serve's 32 requests x 64, a quarter on the
+             base, contiguous and on bf16 pages, under `sync_audit`:
+             rows 1, 3 and the decode read launched; adapter uploads,
+             evictions and revivals > 0, stalls counted; the pool back to
+             its base slot; the segmented delta against the dense
+             per-adapter product; a tier preemption; the fp32 twin card
+             == cpu on both layouts, adapter 0 == the plain engine, the
+             preempted requests' tokens == an undisturbed run's;
+30. serve_router  two replicas of the serve model on the card under
+             `sync_audit`: the fleet against the single engine (tokens
+             counted), a replica_kill mid-decode (each request delivered
+             once, the accounting identity), a kill on bf16 pages (no
+             page leaked), the prefill/decode fleet on bf16 and int8
+             pages (handoffs shipping pages, each imported page bit-equal
+             to its source), a rolling drain and rejoin; every replica
+             launches rows 1, 3 and its decode read; the fp32 twin's
+             fleets == the single engine == the CPU;
+31. report   a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
@@ -434,7 +453,7 @@ PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "bert_train_masked_fused_softmax", "train_packed_parity",
           "train_packed", "rn50_parity", "rn50_train", "rn50_train_fused",
           "mha", "context_parallel", "serve_jnp", "optim_amp", "head_dims",
-          "fp16", "serve_spec", "serve_chaos")
+          "fp16", "serve_spec", "serve_chaos", "serve_lora", "serve_router")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_segments_serve",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -796,7 +815,7 @@ def seg_cases(dev, h=None, d=None, seed=2,
     where given), bf16 and fp32, each
     against the plain version of its `flash_segments_serve_plan` route
     (`flash_attention_segments_plain` at the route's frame; bf16: the tile
-    kernel, fp32: the warp-a-row kernel), on its route by the kernels a profiled call launches
+    kernel, fp32: the warp-a-row kernel), on its route by the kernels a call launches (the launch tables)
     (`SEG_SERVE_ROUTE_KERNELS`), launched twice for the same bits. Beside
     the bf16 case: the pipe route's kernels on the same inputs (the
     training forward with its pre-passes, `pipe_ms`)."""
@@ -891,48 +910,32 @@ FWD_ROUTE_KERNELS = {"wgmma": "fwd_pipe_kernel",
                      "cuda_cores": ("flash_fwd_kernel", "fwd_f32_kernel")}
 
 
-# profiles `_device_kernels` takes at most for one call
-PROFILE_TRIES = 12
+def _launched_kernels(fn):
+    """The names of the device kernels two calls of ``fn`` launch, read
+    from the kernel libraries' host launch tables (csrc/common.cuh
+    ``launch_log``, `_build.device_launches`): each C entry point notes
+    every kernel it launches, by name, as its launch call returns without
+    error. The tables are cleared just before the calls."""
+    from rocm_apex_tpu_torch.ops._build import (
+        device_launches,
+        reset_device_launches,
+    )
 
-
-def _device_kernels(fn, want=()):
-    """The names of the device kernels two calls of ``fn`` launch, from a
-    profile of the host and the card (as `profile_window` takes it). The
-    profiler now and then records no device activity, or drops some of a
-    window's kernels (the fp32 unpacked backward's dq pass, once in four
-    processes; the bf16 one's three times in a row late in a full run,
-    after a few hundred profiles, and six times in a row once the fp16
-    cases had added theirs): a profile that shows none of its kernels,
-    or not every name in ``want``, is taken again, at most PROFILE_TRIES
-    times in all, and the names of every profile taken are returned
-    (empty only if each was). The profiles record the device's activity
-    alone: the names are the device kernels'."""
-    from torch.profiler import ProfilerActivity, profile
-
-    names = set()
-    for _ in range(PROFILE_TRIES):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            fn()
-            torch.cuda.synchronize()
-        names |= {e.name for e in prof.events()
-                  if getattr(e, "device_type", None)
-                  == torch.autograd.DeviceType.CUDA}
-        if names and all(any(k in n for n in names) for k in want):
-            break
-    return names
+    torch.cuda.synchronize()
+    reset_device_launches()
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    return set(device_launches())
 
 
 def check_fwd_route(fkern, plan, dtype, what, prepass=False):
     """A flash forward case against its plan: the route is the one its
     dtype takes (bf16 the wgmma pipe, fp32 the CUDA cores), the bf16
     forward launched twice gives the same bits, and one call's kernels,
-    as the profiler names them, are the route's (the pipe, with the split
-    merge exactly when the plan splits and the bias pre-pass where
-    ``prepass``) and none of the other route's. Where the profiler
-    recorded no device activity at all (it now and then records none for
-    a whole process), the names cannot be read and the case says so.
+    as the launch tables name them (`_launched_kernels`), are the route's
+    (the pipe, with the split merge exactly when the plan splits and the
+    bias pre-pass where ``prepass``) and none of the other route's.
     Returns the route's label for the case name."""
     route = plan["route"]
     check(route == ("wgmma" if half_float(dtype) else "cuda_cores"),
@@ -940,16 +943,8 @@ def check_fwd_route(fkern, plan, dtype, what, prepass=False):
     if route == "wgmma":
         check(_same_bits(fkern(), fkern()),
               f"{what}: two launches of the forward differ")
-    want = FWD_ROUTE_KERNELS[route]
-    seen = () if isinstance(want, tuple) else (want,)  # a tuple: any one
-    if route == "wgmma":
-        seen += (("fwd_merge_kernel",) if plan["splits"] > 1 else ()) + (
-            ("qkv_bias_kernel",) if prepass else ())
-    names = _device_kernels(fkern, seen)
-    if not names:
-        log(f"  ({what}: the profiler recorded no device activity; the "
-            f"route is the plan's)")
-        return f"{route}, {plan['splits']} split(s), not observed"
+    want = FWD_ROUTE_KERNELS[route]  # a tuple: any one
+    names = _launched_kernels(fkern)
     check(any(k in n for n in names for k in (
         want if isinstance(want, tuple) else (want,))),
         f"{what}: the plan says {route}, the call launched {sorted(names)}")
@@ -1006,18 +1001,12 @@ SEG_BWD_ROUTE_KERNELS = {
 
 def check_launches(fn, routes, route, what, prepass_name=None,
                    prepass=False):
-    """One call's device kernels, as the profiler names them, against a
-    plan's ``route``: every kernel ``routes[route]`` names is launched,
-    none of another route's, and the pre-pass ``prepass_name`` exactly
-    when ``prepass``. Where the profiler recorded no device activity (it
-    now and then records none for a whole process) the case says so.
-    Returns the route's label for the case name."""
-    names = _device_kernels(fn, routes[route] + (
-        (prepass_name,) if prepass_name is not None and prepass else ()))
-    if not names:
-        log(f"  ({what}: the profiler recorded no device activity; the "
-            f"route is the plan's)")
-        return f"{route}, not observed"
+    """One call's device kernels, as the launch tables name them
+    (`_launched_kernels`), against a plan's ``route``: every kernel
+    ``routes[route]`` names is launched, none of another route's, and the
+    pre-pass ``prepass_name`` exactly when ``prepass``. Returns the
+    route's label for the case name."""
+    names = _launched_kernels(fn)
     for k in routes[route]:
         check(any(k in n for n in names),
               f"{what}: the plan says {route}, the call launched "
@@ -1693,7 +1682,7 @@ def ln_plain_cases(dev, dtypes=(torch.bfloat16, torch.float32)):
                                       for t in (x, dy)))
             broute = check_launches(bkern, LN_BWD_ROUTE_KERNELS,
                                     plan["route"], what)
-            names = _device_kernels(bkern)
+            names = _launched_kernels(bkern)
             check(not any("ln_bwd_reduce_kernel" in n for n in names),
                   f"{what}: the non-affine backward launched the "
                   f"dgamma/dbeta reduction")
@@ -2260,7 +2249,7 @@ def unpacked_cases(dev, cases=None, seed=9):
     the plan's route (`check_fwd_route`: the bf16 ones on the wgmma pipe,
     split where the plan splits, launched twice for equal bits), every
     backward case against `flash_unpacked_bwd_plan`'s by the kernels a
-    profiled call launches (bf16: the wgmma backward pipe's two passes,
+    call launches (the launch tables; bf16: the wgmma backward pipe's two passes,
     launched twice for equal bits, the dbias call's too; fp32: the CUDA
     cores), and every dbias call against `flash_dbias_plan`'s
     (`DBIAS_ROUTE_KERNELS`: bf16 the wgmma ring, fp32 the CUDA cores),
@@ -2660,7 +2649,7 @@ def seg_train_cases(dev, cases=None, seed=13):
     an empty sequence; ids out of order (every tile range then spans
     several ids, and a range test must still skip no live pair). The
     plain versions run one head at a time. Each case is checked against
-    `flash_segments_plan`'s route by the kernels a profiled call launches
+    `flash_segments_plan`'s route by the kernels a call launches (the launch tables)
     (bf16: the forward pipe, or the backward pipe's two passes, with the
     segment pre-passes; fp32: the CUDA-core bodies) and launched twice for
     the same bits. In bf16 the tables the pre-passes wrote (each tile's
@@ -3600,7 +3589,7 @@ def bottleneck_cases(dev, shapes=None):
     K2 and K3 alone at widths the pipe does not take (48 and 80 channels:
     the staged core, checked against `mm_fwd_plan`, `conv3_fwd_plan` and
     `mm_bwd_plan`; every other bf16 K1, K2 and K3 case is checked to take
-    the pipe, K1 and K2 by the kernels a profiled call launches, their
+    the pipe, K1 and K2 by the kernels a call launches (the launch tables), their
     pre-pass exactly under a prologue). Every K3 and K4 case, and every
     bf16 K1 and K2 case on the pipe, launches twice on the same inputs and
     must repeat its outputs bit for bit. Outputs
@@ -4583,14 +4572,15 @@ ENGINE_SYNCS = ("_fetch", "_upload", "_push_table")
 
 
 @contextlib.contextmanager
-def sync_audit(eng):
+def sync_audit(*engs):
     """Every device sync in the window raises
     (``torch.cuda.set_sync_debug_mode("error")``: a ``.item()``, a
-    ``nonzero``, a blocking copy either way), except inside the engine's
-    `ENGINE_SYNCS`, whose calls are counted. Yields the counts."""
+    ``nonzero``, a blocking copy either way), except inside the engines'
+    `ENGINE_SYNCS`, whose calls are counted (summed over ``engs``, a
+    router's replicas). Yields the counts."""
     counts = dict.fromkeys(ENGINE_SYNCS, 0)
 
-    def allowed(name, fn):
+    def allowed(eng, name, fn):
         def call(*a, **kw):
             # a table push copies only when the mapping changed
             counts[name] += (int(eng._table_dirty) if name == "_push_table"
@@ -4602,18 +4592,20 @@ def sync_audit(eng):
                 torch.cuda.set_sync_debug_mode("error")
         return call
 
-    for name in ENGINE_SYNCS:
-        setattr(eng, name, allowed(name, getattr(eng, name)))
+    for eng in engs:
+        for name in ENGINE_SYNCS:
+            setattr(eng, name, allowed(eng, name, getattr(eng, name)))
     torch.cuda.set_sync_debug_mode("error")
     try:
         yield counts
     finally:
         torch.cuda.set_sync_debug_mode(0)
-        for name in ENGINE_SYNCS:
-            delattr(eng, name)
+        for eng in engs:
+            for name in ENGINE_SYNCS:
+                delattr(eng, name)
 
 
-def timed_serve(eng, prompts, max_new=MAX_NEW, audit=False):
+def timed_serve(eng, prompts, max_new=MAX_NEW, audit=False, adapters=None):
     """One timed serve of ``prompts`` x ``max_new`` greedy tokens on a
     warm engine: every kernel's launch count is set to 0 just before and
     read just after. Checks that every request ran to ``max_new``
@@ -4622,7 +4614,8 @@ def timed_serve(eng, prompts, max_new=MAX_NEW, audit=False):
     values (its fetch of the sampled tokens) over its device steps.
     ``audit``: the serve runs under `sync_audit`, so a device sync
     outside the engine's `ENGINE_SYNCS` fails it; ``syncs_per_tick``
-    counts those calls."""
+    counts those calls. ``adapters``: each prompt's adapter id (multi-LoRA
+    engines)."""
     from rocm_apex_tpu_torch.ops._build import KERNELS
 
     vocab = eng.model.cfg.vocab_size
@@ -4633,7 +4626,8 @@ def timed_serve(eng, prompts, max_new=MAX_NEW, audit=False):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with (sync_audit(eng) if audit else contextlib.nullcontext()) as syncs:
-        ids = [eng.add_request(p, max_new) for p in prompts]
+        ids = [eng.add_request(p, max_new, adapter_id=a) for p, a in
+               zip(prompts, adapters or [0] * len(prompts))]
         done, peak_pages = {}, 0
         while eng.has_work():
             for r in eng.step():
@@ -8490,6 +8484,568 @@ def run_serve_chaos_phase(contiguous_tokens=None):
     return res
 
 
+# ---------------------------------------------------------------------------
+# multi-LoRA serving and the replica router
+# ---------------------------------------------------------------------------
+
+# multi-LoRA at the serve's width (the JAX engine's adapter pool, JAX
+# tests/L0/test_adapters.py's protocol): a pool of LORA_RESIDENT device
+# slots (slot 0 the base) at rank LORA_MAX_RANK; LORA_RANKS adapters with
+# RandomState(100 + i) factors of scale LORA_SCALE (alpha = rank) in
+# LORA_TIERS tiers (tier i % 3); the serve's 32 prompts, every fourth on
+# the base and the rest on a RandomState(1) draw of the adapters with the
+# skew LORA_P (a few hot tenants), so slots park, revive and evict
+LORA_RESIDENT, LORA_MAX_RANK, LORA_TIERS = 4, 16, 3
+LORA_RANKS = (4, 6, 8, 10, 12, 14, 16, 16)
+LORA_SCALE = 0.05
+LORA_P = (0.3, 0.2, 0.15, 0.1, 0.08, 0.07, 0.05, 0.05)
+LORA_LAYOUTS = (
+    ("contiguous", {}, "flash_attention_decode"),
+    ("bf16_pages", dict(paged=True, page_size=PAGE_SIZE),
+     "flash_attention_decode_paged"),
+)
+# the tier-preemption run: SLOTS tier-0 requests fill the engine, then
+# TIER_VIPS tier-2 ones arrive after TIER_TICKS ticks
+TIER_VIPS, TIER_TICKS = 2, 3
+# the fp32 twins (2 layers at the serve's width, TF32 off), card vs CPU
+LORA_TWIN = dict(num_layers=2, requests=8, max_new=16)
+# the router: 2 replicas on the one card sharing the model's weights; the
+# kill lands mid-decode (every prompt's chunks are through by then)
+ROUTER_REPLICAS, ROUTER_KILL_TICK = 2, 12
+
+
+def lora_factors(cfg, rank, seed):
+    """One adapter's per-layer numpy factors at ``cfg``'s widths."""
+    rng = np.random.RandomState(seed)
+    h = cfg.hidden_size
+    return [{"qkv": (LORA_SCALE * rng.randn(h, rank),
+                     LORA_SCALE * rng.randn(rank, 3 * h)),
+             "dense": (LORA_SCALE * rng.randn(h, rank),
+                       LORA_SCALE * rng.randn(rank, h))}
+            for _ in range(cfg.num_layers)]
+
+
+def lora_pool(cfg, device):
+    """A fresh pool with the LORA_RANKS adapters registered; returns it
+    and their ids."""
+    from rocm_apex_tpu_torch.inference import AdapterPool
+
+    pool = AdapterPool(cfg.num_layers, cfg.hidden_size,
+                       max_resident=LORA_RESIDENT, max_rank=LORA_MAX_RANK,
+                       device=device)
+    ids = [pool.register(f"tenant{i}", lora_factors(cfg, r, 100 + i),
+                         rank=r, tier=i % LORA_TIERS)
+           for i, r in enumerate(LORA_RANKS)]
+    return pool, ids
+
+
+def lora_assignment(ids, n):
+    rng = np.random.RandomState(1)
+    return [0 if i % 4 == 0 else ids[int(rng.choice(len(ids), p=LORA_P))]
+            for i in range(n)]
+
+
+def _pool_counters(eng):
+    s = eng.stats()
+    return {k: s[k] for k in ("adapter_uploads", "adapter_evictions",
+                              "adapter_revivals", "adapter_stalls",
+                              "tier_preemptions", "tier_sheds")}
+
+
+def _lora_delta_case(pool):
+    """`segmented_lora_delta` on the card at the chunk's shape (BUDGET
+    rows of the hidden width, layer 0's qkv factors of every slot, a
+    seeded slot per row) against the dense per-adapter x @ (A_a @ B_a)
+    of each token group in fp64 on the CPU: within 1e-5 of the largest
+    |delta| (fp32 sums over h, then r, against fp64)."""
+    from rocm_apex_tpu_torch.ops.lora import segmented_lora_delta
+
+    A, B = (t[0] for t in pool.buffers["qkv"])  # (P, h, r), (P, r, o)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(BUDGET, A.shape[1], generator=g)
+    ids = np.random.RandomState(2).randint(0, A.shape[0], size=BUDGET)
+    xd = x.to(A.device)
+    idd = torch.from_numpy(ids.astype(np.int32)).to(A.device)
+    got = segmented_lora_delta(xd, A, B, idd).cpu().double()
+    A64, B64, x64 = A.cpu().double(), B.cpu().double(), x.double()
+    ref = torch.zeros_like(got)
+    for a in np.unique(ids):
+        rows = torch.from_numpy(ids == a)
+        ref[rows] = x64[rows] @ (A64[a] @ B64[a])
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(scale > 0 and err <= 1e-5 * scale,
+          f"segmented_lora_delta: max |card - dense fp64| {err:.3e} vs "
+          f"largest |delta| {scale:.3e}")
+    ms = cuda_ms(lambda: segmented_lora_delta(xd, A, B, idd), 50)
+    log(f"  segmented_lora_delta ({BUDGET} x {A.shape[1]} -> {B.shape[2]}, "
+        f"rank {A.shape[2]}, {A.shape[0]} slots): max abs err {err:.3e} of "
+        f"{scale:.3e}, {ms:.4f} ms")
+    return dict(max_abs_err=err, max_abs_delta=scale, ms=ms)
+
+
+def _tier_run(model, tier_preemption):
+    """SLOTS requests on the first tier-0 adapter fill the engine, then
+    TIER_VIPS on the first tier-2 adapter arrive after TIER_TICKS ticks
+    (the serve's first prompts; 24 and 8 new tokens); returns the results
+    by request id and the engine's counters."""
+    pool, ids = lora_pool(model.cfg, model.device)
+    tier0 = next(a for a in ids if pool.tier_of(a) == 0)
+    tier2 = next(a for a in ids if pool.tier_of(a) == 2)
+    eng = _engine(model, adapter_pool=pool, tier_preemption=tier_preemption)
+    prompts = serve_prompts(model.cfg.vocab_size)
+    done = {}
+    for i in range(SLOTS):
+        eng.add_request(prompts[i], 24, adapter_id=tier0)
+    for _ in range(TIER_TICKS):
+        done.update({r.request_id: r for r in eng.step()})
+    for i in range(TIER_VIPS):
+        eng.add_request(prompts[SLOTS + i], 8, adapter_id=tier2)
+    while eng.has_work():
+        done.update({r.request_id: r for r in eng.step()})
+    pool.assert_consistent()
+    check(pool.snapshot()["refs"] == 1, "tier run: adapter refs leaked")
+    return done, _pool_counters(eng)
+
+
+def _lora_twin():
+    """The fp32 twin, card vs CPU: the serve's first requests on their
+    adapters give the same tokens on both devices, contiguous and paged;
+    all-base traffic through a pool with resident adapters gives the
+    plain engine's tokens bit for bit; tier preemption leaves the
+    preempted requests' tokens as an undisturbed run's."""
+    models = _twin_models(LORA_TWIN["num_layers"])
+    vocab = models["cpu"].cfg.vocab_size
+    prompts = serve_prompts(vocab)[:LORA_TWIN["requests"]]
+    new = LORA_TWIN["max_new"]
+    out = {}
+    for form, kw, _ in LORA_LAYOUTS:
+        tokens = {}
+        for dev, model in models.items():
+            pool, ids = lora_pool(model.cfg, dev)
+            eng = _engine(model, adapter_pool=pool, **kw)
+            aids = lora_assignment(ids, len(prompts))
+            rids = [eng.add_request(p, new, adapter_id=a)
+                    for p, a in zip(prompts, aids)]
+            done = {}
+            while eng.has_work():
+                done.update({r.request_id: r for r in eng.step()})
+            tokens[dev] = [done[i].tokens for i in rids]
+        same = tokens[CARD] == tokens["cpu"]
+        out[f"{form}_card_equals_cpu"] = same
+        check(same, f"lora twin, {form}: card tokens differ from the CPU's")
+    model = models[CARD]
+    pool, ids = lora_pool(model.cfg, CARD)
+    for a in ids[:LORA_RESIDENT - 1]:  # resident, then parked
+        pool.acquire(a)
+        pool.release(a)
+    base = _tokens(_engine(model, adapter_pool=pool), prompts, new)
+    plain = _tokens(_engine(model), prompts, new)
+    out["adapter0_equals_plain"] = base == plain
+    check(base == plain, "lora twin: adapter-0 requests differ from the "
+          "plain engine's tokens")
+    calm, _ = _tier_run(model, False)
+    busy, counters = _tier_run(model, True)
+    check(counters["tier_preemptions"] >= 1, "lora twin: no tier "
+          "preemption fired")
+    same = all(busy[i].tokens == calm[i].tokens for i in range(SLOTS))
+    out.update(tier_preemptions=counters["tier_preemptions"],
+               preempted_equal_undisturbed=same)
+    check(same, "lora twin: a preempted request's tokens differ from the "
+          "undisturbed run's")
+    log(f"  fp32 twin ({LORA_TWIN['num_layers']} layers, {len(prompts)} "
+        f"requests x {new}): {out}")
+    return out
+
+
+def run_serve_lora_phase(contiguous_tokens=None):
+    """Multi-LoRA serving at the serve's width: the engine with an
+    `AdapterPool` (LORA_RESIDENT slots, rank LORA_MAX_RANK, the
+    LORA_RANKS adapters in LORA_TIERS tiers) on the serve's 32 requests x
+    MAX_NEW, a quarter on the base, contiguous and on bf16 pages; each
+    timed serve under `sync_audit` (the adapter uploads are asynchronous
+    copies from pinned memory) with the launch counts set to 0 just
+    before: rows 1, 3 and the layout's decode read launched; uploads and
+    evictions > 0 over the serves, stalls counted; the pool consistent
+    and back to its base slot's one ref. Tier order admits the top tier
+    first, so a serve submitted at once revives a parked slot only by
+    chance: after each serve one short request for every adapter it left
+    parked (returning tenants, under the audit too) revives those slots
+    without an upload, and revivals > 0 over the phase. The base
+    requests' tokens against the base serve's are counted, not asserted
+    (tier order moves which prompt pieces share a chunk). Then the
+    segmented delta on the card against the dense form, a tier
+    preemption at bf16 (counted), and the fp32 twin."""
+    model, load_s = _serve_model()
+    vocab = model.cfg.vocab_size
+    prompts = serve_prompts(vocab)
+    if contiguous_tokens is None:
+        contiguous_tokens = _tokens(_engine(model), prompts, MAX_NEW)
+    res = dict(weights_load_s=load_s, resident=LORA_RESIDENT,
+               max_rank=LORA_MAX_RANK, ranks=list(LORA_RANKS), forms={},
+               launches={})
+    totals = dict(adapter_uploads=0.0, adapter_evictions=0.0,
+                  adapter_revivals=0.0)
+    pool = None
+    for form, kw, decode_kernel in LORA_LAYOUTS:
+        pool, ids = lora_pool(model.cfg, CARD)
+        aids = lora_assignment(ids, len(prompts))
+        eng = _engine(model, adapter_pool=pool, **kw)
+        eng.generate(prompts[:SLOTS], max_new_tokens=3)  # warm-up, base
+        log(f"  -- {form}")
+        r, tokens = timed_serve(eng, prompts, audit=True, adapters=aids)
+        r.update(_pool_counters(eng), tenants=eng.tenant_stats())
+        check(r["launches"]["flash_attention_segments_with_lse"] == 0,
+              f"serve_lora {form}: the chunks left row 3's tile route")
+        for name in ("layer_norm_fwd", "flash_segments_serve",
+                     decode_kernel):
+            check(r["launches"][name] > 0,
+                  f"serve_lora {form}: {name} was not launched")
+        pool.assert_consistent()
+        check(pool.snapshot()["refs"] == 1,
+              f"serve_lora {form}: adapter refs left after the serve")
+        if eng.paged:
+            check(r["pages_used_after"] == 0,
+                  f"serve_lora {form}: pages left in use")
+        # returning tenants: one short request for each adapter the serve
+        # left parked in the pool revives its slot (no upload)
+        parked = [a for a in ids if pool.resident(a) and pool.refs(a) == 0]
+        before = eng.stats()["adapter_revivals"]
+        with sync_audit(eng):
+            back = [eng.add_request(prompts[0], 4, adapter_id=a)
+                    for a in parked]
+            while eng.has_work():
+                eng.step()
+        r["returning_tenants"] = len(back)
+        r["adapter_revivals"] = eng.stats()["adapter_revivals"] - before
+        pool.assert_consistent()
+        base = [i for i, a in enumerate(aids) if a == 0]
+        r["base_requests_matching_base_serve"] = sum(
+            tokens[i] == contiguous_tokens[i] for i in base)
+        r["base_requests"] = len(base)
+        log(f"  pool: {_pool_counters(eng)}; syncs a tick "
+            f"{r['syncs_per_tick']}; {r['base_requests_matching_base_serve']}"
+            f"/{len(base)} base requests give the base serve's tokens")
+        for c in totals:
+            totals[c] += r[c]
+        for name, n in r["launches"].items():
+            res["launches"][name] = res["launches"].get(name, 0) + n
+        res["forms"][form] = r
+        del eng
+    for c, n in totals.items():
+        check(n > 0, f"serve_lora: {c} is 0 over the phase")
+    res["totals"] = totals
+    res["delta"] = _lora_delta_case(pool)
+    calm, _ = _tier_run(model, False)
+    busy, counters = _tier_run(model, True)
+    res["tier_bf16"] = dict(counters, preempted_matching_undisturbed=sum(
+        busy[i].tokens == calm[i].tokens for i in range(SLOTS)))
+    log(f"  tier preemption (bf16): {res['tier_bf16']}")
+    check(counters["tier_preemptions"] >= 1, "serve_lora: no tier "
+          "preemption fired")
+    torch.cuda.empty_cache()
+    log("  -- the fp32 twin, card vs cpu")
+    res["twin"] = _lora_twin()
+    return res
+
+
+class _ReplicaLaunches:
+    """Each replica's kernel launches: its engine's `step` is wrapped to
+    add the launch counts' growth over the call to the replica's own."""
+
+    def __init__(self, router):
+        from rocm_apex_tpu_torch.ops._build import KERNELS
+
+        self.counts = [dict() for _ in range(router.num_replicas)]
+        for i in range(router.num_replicas):
+            eng = router.replica(i)
+            inner = eng.step
+
+            def step(inner=inner, mine=self.counts[i]):
+                before = {k.name: k.launches for k in KERNELS}
+                try:
+                    return inner()
+                finally:
+                    for k in KERNELS:
+                        n = k.launches - before[k.name]
+                        if n:
+                            mine[k.name] = mine.get(k.name, 0) + n
+
+            eng.step = step
+
+
+def _fleet_run(router, prompts, max_new, audit=True, during=None):
+    """Submit every prompt, step the fleet dry (under `sync_audit` over
+    every replica), checking each request is delivered once; ``during``
+    runs after the third tick. Returns the tokens in prompt order, the
+    router's stats and the audit's sync counts."""
+    engs = [router.replica(i) for i in range(router.num_replicas)]
+    s0 = router.stats()
+    ids = [router.add_request(p, max_new) for p in prompts]
+    done, ticks = {}, 0
+    with (sync_audit(*engs) if audit else contextlib.nullcontext()) as syncs:
+        while router.has_work():
+            for r in router.step():
+                check(r.request_id not in done,
+                      f"request {r.request_id} delivered twice")
+                done[r.request_id] = r
+            ticks += 1
+            if ticks == 3 and during is not None:
+                during()
+            check(ticks < 20000, "the fleet did not drain")
+    s = router.stats()
+    check(sorted(done) == sorted(ids), "a request was never delivered")
+    check(s["completed"] - s0["completed"] == s["submitted"] - s0["submitted"]
+          == len(prompts) and s["pending_depth"] == s["in_flight"] == 0,
+          f"fleet accounting: {s}")
+    check(all(done[i].finish_reason == "length" for i in ids),
+          "a fleet request did not run to max_new_tokens")
+    return [done[i].tokens for i in ids], s, dict(syncs or {}), ticks
+
+
+def _ship_checks(router):
+    """Record every shipped page as the source's pool holds it (before
+    the source releases it), as the payload carries it and as the
+    destination's pool holds it after the import, as device copies (no
+    sync); `_ship_equal` compares them after the run."""
+    records = {}
+
+    def blocks(cache, pages):
+        # the check's own index copy is not the engine's: the audit's
+        # mode is off for it
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            idx = torch.tensor(pages, device=cache.k[0].device)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        out = [x.index_select(0, idx) for x in (*cache.k, *cache.v)]
+        if cache.quantized:
+            out += [x.index_select(0, idx)
+                    for x in (*cache.k_scale, *cache.v_scale)]
+        return out
+
+    for i in range(router.num_replicas):
+        eng = router.replica(i)
+        export, imp = eng._export_slot_pages, eng._import_shipped_pages
+
+        def export_checked(st, slot, eng=eng, export=export):
+            payload = export(st, slot)
+            if payload is not None:
+                n = len(payload["k"][0])
+                pages = [int(p) for p in eng._table[slot, :n]]
+                sent = [*payload["k"], *payload["v"]]
+                if payload["quantized"]:
+                    sent += [*payload["k_scale"], *payload["v_scale"]]
+                records.setdefault(st.req.request_id, []).append(
+                    [blocks(eng.cache, pages), [t.clone() for t in sent]])
+            return payload
+
+        def import_checked(st, slot, payload, eng=eng, imp=imp):
+            ok = imp(st, slot, payload)
+            if ok:
+                n = len(payload["k"][0])
+                pages = [int(p) for p in eng._table[slot, :n]]
+                records[st.req.request_id][-1].append(
+                    blocks(eng.cache, pages))
+            return ok
+
+        eng._export_slot_pages = export_checked
+        eng._import_shipped_pages = import_checked
+    return records
+
+
+def _ship_equal(records):
+    """Every imported page: source == payload == destination, bit for
+    bit (pool blocks and int8 scale rows). Returns the pages checked."""
+    pages = 0
+    for rid, hops in records.items():
+        for hop in hops:
+            if len(hop) < 3:
+                continue  # replayed (no import)
+            src, sent, dst = (
+                [t.view(torch.uint8) if t.dtype != torch.int8 else t
+                 for t in ts] for ts in hop)
+            for a, b, c in zip(src, sent, dst):
+                check(torch.equal(a, b) and torch.equal(b, c),
+                      f"request {rid}: a shipped page's bits changed")
+            pages += src[0].shape[0]
+    return pages
+
+
+def _router(model, **kw):
+    from rocm_apex_tpu_torch.inference import ReplicaRouter, SamplingParams
+
+    ekw = dict(num_slots=SLOTS, capacity=CAPACITY,
+               prefill_token_budget=BUDGET,
+               sampling=SamplingParams(temperature=0.0),
+               **kw.pop("engine_kwargs", {}))
+    return ReplicaRouter(model, replicas=ROUTER_REPLICAS, engine_kwargs=ekw,
+                         **kw)
+
+
+def _kill_plan():
+    from rocm_apex_tpu_torch.inference import Fault, FaultPlan
+
+    return FaultPlan([Fault(site="replica_kill", tick=ROUTER_KILL_TICK,
+                            payload={"replica": 0})], seed=0)
+
+
+def _router_runs(model, prompts, max_new, audit, count):
+    """(a) the contiguous fleet, (b) a replica_kill mid-decode, (c) a
+    kill on bf16 pages, (d) the disaggregated fleet on bf16 and int8
+    pages, (e) a rolling drain and rejoin; with ``count`` each run's
+    per-replica launches are recorded. Returns {run: result}."""
+    paged = dict(paged=True, page_size=PAGE_SIZE)
+    runs = {
+        "a_fleet": (dict(), None),
+        "b_kill": (dict(faults=_kill_plan(), rejoin_after=4), None),
+        "c_kill_bf16_pages": (dict(faults=_kill_plan(),
+                                   engine_kwargs=paged), None),
+        "d_disagg_bf16_pages": (dict(engine_kwargs=paged,
+                                     replica_classes=["prefill", "decode"]),
+                                None),
+        "d_disagg_int8_pages": (dict(engine_kwargs=dict(
+            paged, kv_dtype=torch.int8),
+            replica_classes=["prefill", "decode"]), None),
+        "e_rolling_drain": (dict(), "drain"),
+    }
+    out = {}
+    for name, (kw, action) in runs.items():
+        router = _router(model, **kw)
+        counter = _ReplicaLaunches(router) if count else None
+        records = (_ship_checks(router) if name.startswith("d_")
+                   else None)
+
+        def during(router=router, action=action):
+            if action == "drain":
+                router.drain_replica(0)
+                check(router.replica_state(0) == "drained"
+                      and router.replica(0).num_active == 0,
+                      "drain_replica left work on the replica")
+
+        tokens, s, syncs, ticks = _fleet_run(router, prompts, max_new,
+                                             audit, during)
+        r = dict(tokens=tokens, stats=s, syncs=syncs, ticks=ticks)
+        if action == "drain":
+            router.rejoin_replica(0)
+            check(router.replica_state(0) == "up"
+                  and router.healthy_replicas == ROUTER_REPLICAS,
+                  "rejoin_replica did not restore the fleet")
+            again, _, _, _ = _fleet_run(router, prompts[:2], 4, audit)
+            r["after_rejoin"] = again
+        if kw.get("faults") is not None:
+            check(router.fault_log == [("replica_kill", ROUTER_KILL_TICK, 0)]
+                  and s["replica_kills"] == 1 and s["migrations"] >= 1,
+                  f"{name}: the kill did not migrate work: {s}")
+        for i in range(router.num_replicas):
+            eng = router.replica(i)
+            check(eng.num_active == 0 and eng.num_queued == 0,
+                  f"{name}: replica {i} kept work")
+            if eng.paged:
+                eng._allocator.assert_consistent()
+                check(eng.pages_used == 0,
+                      f"{name}: replica {i} leaked {eng.pages_used} pages")
+        if records is not None:
+            check(s["handoffs"] > 0 and s["page_migrations"] > 0,
+                  f"{name}: no handoff shipped pages: {s}")
+            check(router.replica(1).stats()["page_ships"] > 0,
+                  f"{name}: the decode replica imported no page")
+            r["pages_bit_equal"] = _ship_equal(records)
+            check(r["pages_bit_equal"] > 0, f"{name}: no page was imported")
+        if counter is not None:
+            r["replica_launches"] = counter.counts
+        out[name] = r
+        del router
+    return out
+
+
+def _router_twin():
+    """The fp32 twin: the contiguous fleet, the kill and the
+    disaggregated fleet (fp32 pages) give the single engine's tokens on
+    the card, which are the CPU's."""
+    models = _twin_models(LORA_TWIN["num_layers"])
+    prompts = serve_prompts(models["cpu"].cfg.vocab_size)[
+        :LORA_TWIN["requests"]]
+    new = LORA_TWIN["max_new"]
+    paged = dict(paged=True, page_size=PAGE_SIZE)
+    single = {}
+    for layout, kw in (("contiguous", {}), ("paged", paged)):
+        for dev, model in models.items():
+            single[layout, dev] = _tokens(_engine(model, **kw), prompts, new)
+        check(single[layout, CARD] == single[layout, "cpu"],
+              f"router twin: the {layout} single engine's card tokens "
+              f"differ from the CPU's")
+    model = models[CARD]
+    out = {}
+    for name, kw, layout in (
+        ("a_fleet", dict(), "contiguous"),
+        ("b_kill", dict(faults=_kill_plan()), "contiguous"),
+        ("d_disagg_pages", dict(engine_kwargs=paged,
+                                replica_classes=["prefill", "decode"]),
+         "paged"),
+    ):
+        router = _router(model, **kw)
+        tokens, s, _, _ = _fleet_run(router, prompts, new, audit=False)
+        same = tokens == single[layout, CARD]
+        out[name] = dict(fleet_equals_single=same,
+                         migrations=s["migrations"], handoffs=s["handoffs"])
+        check(same, f"router twin, {name}: fleet tokens differ from the "
+              f"single engine's")
+    log(f"  fp32 twin ({LORA_TWIN['num_layers']} layers, {len(prompts)} "
+        f"requests x {new}): fleet == single == cpu: {out}")
+    return out
+
+
+def run_serve_router_phase(contiguous_tokens=None):
+    """The replica router at the serve's width: ROUTER_REPLICAS engines
+    of the serve model on the one card (they share its weights), every
+    run on the serve's 32 requests x MAX_NEW under `sync_audit` over
+    both replicas (the page export and import each take one `_upload`
+    of their page indices, counted with the engines' other uploads; no
+    other sync): (a) the contiguous fleet, its tokens against the single
+    engine's counted at bf16; (b) a replica_kill mid-decode, every
+    request delivered once, the accounting identity; (c) the kill on
+    bf16 pages, no page left on either replica; (d) the disaggregated
+    fleet (prefill, decode) on bf16 and int8 pages: handoffs and page
+    migrations > 0, every imported page's blocks and scales the same
+    bits in the source's pool, the payload and the destination's pool;
+    (e) a rolling drain and rejoin. Each replica launches rows 1 and 3
+    and its layout's decode read in each run. Then the fp32 twin."""
+    model, load_s = _serve_model()
+    prompts = serve_prompts(model.cfg.vocab_size)
+    if contiguous_tokens is None:
+        contiguous_tokens = _tokens(_engine(model), prompts, MAX_NEW)
+    _zero_launches()
+    runs = _router_runs(model, prompts, MAX_NEW, audit=True, count=True)
+    launches = _launches()
+    res = dict(weights_load_s=load_s, replicas=ROUTER_REPLICAS,
+               kill_tick=ROUTER_KILL_TICK, runs={}, launches=launches)
+    for name, r in runs.items():
+        decode = ("flash_attention_decode_paged_int8" if "int8" in name
+                  else "flash_attention_decode_paged" if "pages" in name
+                  else "flash_attention_decode")
+        for i, counts in enumerate(r["replica_launches"]):
+            for k in ("layer_norm_fwd", "flash_segments_serve", decode):
+                check(counts.get(k, 0) > 0,
+                      f"serve_router {name}: replica {i} never launched {k}")
+        r["requests_matching_single"] = sum(
+            a == b for a, b in zip(r.pop("tokens"), contiguous_tokens))
+        keep = ("migrations", "handoffs", "page_migrations", "replica_kills",
+                "replica_quarantines", "replica_rejoins", "affinity_hits")
+        r["stats"] = {k: r["stats"][k] for k in keep}
+        log(f"  {name}: {r['ticks']} ticks, {r['stats']}, syncs "
+            f"{r['syncs']}, {r['requests_matching_single']}/{len(prompts)} "
+            f"requests give the single engine's tokens"
+            + (f", {r['pages_bit_equal']} shipped pages bit-equal"
+               if "pages_bit_equal" in r else ""))
+        res["runs"][name] = r
+    torch.cuda.empty_cache()
+    log("  -- the fp32 twin, card vs cpu")
+    res["twin"] = _router_twin()
+    return res
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -8711,6 +9267,21 @@ def main(argv=None):
             f"{N_REQUESTS - 2}, a cancel, drain; contiguous, bf16 and int8 "
             f"pages; the fp32 twin; the watchdog)",
             lambda: run_serve_chaos_phase(
+                report.get("serve", {}).get("tokens"))),
+        "serve_lora": (
+            f"serve_lora (multi-LoRA: {len(LORA_RANKS)} adapters of ranks "
+            f"{LORA_RANKS[0]}-{LORA_MAX_RANK} in {LORA_TIERS} tiers, "
+            f"{LORA_RESIDENT} pool slots; the serve's {N_REQUESTS} requests x "
+            f"{MAX_NEW}, contiguous and bf16 pages; tier preemption; the "
+            f"{LORA_TWIN['num_layers']}-layer fp32 twin card vs cpu)",
+            lambda: run_serve_lora_phase(
+                report.get("serve", {}).get("tokens"))),
+        "serve_router": (
+            f"serve_router ({ROUTER_REPLICAS} replicas on the card: the "
+            f"fleet, a replica_kill, a kill on bf16 pages, the "
+            f"prefill/decode fleet on bf16 and int8 pages, a rolling drain; "
+            f"{N_REQUESTS} requests x {MAX_NEW}; the fp32 twin)",
+            lambda: run_serve_router_phase(
                 report.get("serve", {}).get("tokens"))),
     }
     report["phase_s"] = {}

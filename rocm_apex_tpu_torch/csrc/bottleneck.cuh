@@ -359,6 +359,7 @@ template <typename T, class Prob>
 cudaError_t launch_gemm(const Prob& p, dim3 grid, cudaStream_t stream) {
   if (grid.x == 0 || grid.y == 0 || grid.z == 0) return cudaSuccess;
   gemm_kernel<T, Prob><<<grid, Cfg<T>::kThreads, 0, stream>>>(p);
+  note_launch("gemm_kernel");
   return cudaGetLastError();
 }
 
@@ -439,14 +440,17 @@ inline cudaError_t reduce_parts(const float* in, int parts, int64_t width,
   if (parts <= kRedChunk) {
     reduce_parts_kernel<<<dim3(gx, 1), block, 0, stream>>>(in, parts, width,
                                                             out);
+    note_launch("reduce_parts_kernel");
     return cudaGetLastError();
   }
   const int mid = (parts + kRedChunk - 1) / kRedChunk;
   if (mid > kRedChunk || scratch == nullptr) return cudaErrorInvalidValue;
   reduce_parts_kernel<<<dim3(gx, mid), block, 0, stream>>>(in, parts, width,
                                                             scratch);
+  note_launch("reduce_parts_kernel");
   reduce_parts_kernel<<<dim3(gx, 1), block, 0, stream>>>(scratch, mid, width,
                                                           out);
+  note_launch("reduce_parts_kernel");
   return cudaGetLastError();
 }
 

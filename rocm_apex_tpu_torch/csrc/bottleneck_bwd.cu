@@ -444,6 +444,7 @@ inline cudaError_t sum_parts(const float* in, int parts, int64_t width,
                          (width / 4 + 255) / 256,
                          static_cast<int64_t>(sms) * 16)),
                      256, 0, stream>>>(in, parts, width, out);
+  note_launch("sum_parts_kernel");
   return cudaGetLastError();
 }
 
@@ -844,9 +845,11 @@ int conv3_bwd_pipe(Cot<T> d, Up<T> u, const T* w, T* g, float* dw,
   const int64_t M = static_cast<int64_t>(n) * H * W;
   const int tiles = static_cast<int>((M + 127) / 128);
   const int pre_blocks = prepass_blocks(M, Cin, Cout, sms);
-  if (pre_blocks > 0)
+  if (pre_blocks > 0) {
     conv3_prepass_kernel<T><<<pre_blocks, 256, 0, stream>>>(
         d, u, dzbuf, ubuf, M, Cin, Cout);
+    note_launch("conv3_prepass_kernel");
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const T* dz = d.y != nullptr ? dzbuf : d.e;
@@ -895,9 +898,11 @@ int mm_bwd_pipe(Cot<T> d, Up<T> u, const T* w, T* g, float* dw, float* r12,
   const int tiles = static_cast<int>((M + 127) / 128);
   const int pre_blocks =
       dzbuf != nullptr || ubuf != nullptr ? prepass_blocks(M, K, N, sms) : 0;
-  if (pre_blocks > 0)
+  if (pre_blocks > 0) {
     mm_prepass_kernel<T><<<pre_blocks, 256, 0, stream>>>(d, u, dzbuf, ubuf,
                                                          M, K, N);
+    note_launch("mm_prepass_kernel");
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const T* dz = dzbuf != nullptr ? dzbuf : d.e;

@@ -370,6 +370,7 @@ int fwd_pipe(const T* x, const float* a, const float* b, T* ubuf,
   if (a != nullptr) {
     conv3_fwd_prepass_kernel<T><<<prepass_blocks(M, K, K, sms), 256, 0,
                                   stream>>>(x, a, b, ubuf, M, K);
+    note_launch("conv3_fwd_prepass_kernel");
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     u = ubuf;

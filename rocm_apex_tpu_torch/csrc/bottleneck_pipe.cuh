@@ -229,6 +229,7 @@ cudaError_t launch_pipe(const Prob& p, dim3 grid, cudaStream_t stream) {
       C::kSmemBytes);
   if (err != cudaSuccess) return err;
   pipe_kernel<Prob><<<grid, C::kThreads, C::kSmemBytes, stream>>>(p);
+  note_launch("pipe_kernel", typeid(Prob).name());
   return cudaGetLastError();
 }
 

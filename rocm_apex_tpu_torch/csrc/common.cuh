@@ -11,8 +11,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cstdio>
+#include <cstring>
 #include <initializer_list>
 #include <type_traits>
+#include <typeinfo>
 
 namespace apex_port {
 
@@ -232,3 +235,64 @@ __device__ __forceinline__ void store_vec_once(T* __restrict__ p,
 extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// The host's record of launches, which chip_smoke.py reads to check each
+// call's route: every entry point notes each kernel it launches, by name,
+// once the launch call left no error pending. One table a library: the
+// table and `note_launch` have internal linkage (each library is one
+// translation unit), so no library writes or reads another's.
+namespace launch_table {
+constexpr int kEntries = 128;
+constexpr int kNameBytes = 160;
+struct Entry {
+  char name[kNameBytes];
+  long long count;
+};
+static Entry entries[kEntries];
+static int used = 0;
+}  // namespace launch_table
+
+// ``detail`` (e.g. a problem type's typeid name) joins the name as
+// name<detail>; a kernel past the table's capacity is not recorded.
+[[maybe_unused]] static void note_launch(const char* name,
+                                         const char* detail = nullptr) {
+  using namespace launch_table;
+  if (cudaPeekAtLastError() != cudaSuccess) return;
+  char key[kNameBytes];
+  if (detail != nullptr)
+    snprintf(key, sizeof(key), "%s<%s>", name, detail);
+  else
+    snprintf(key, sizeof(key), "%s", name);
+  for (int i = 0; i < used; ++i) {
+    if (strcmp(entries[i].name, key) == 0) {
+      ++entries[i].count;
+      return;
+    }
+  }
+  if (used < kEntries) {
+    snprintf(entries[used].name, kNameBytes, "%s", key);
+    entries[used].count = 1;
+    ++used;
+  }
+}
+
+// The table as "name count" lines into buf (cap bytes, NUL-terminated);
+// returns the bytes the whole table needs, NUL included.
+extern "C" int launch_log(char* buf, int cap) {
+  using namespace launch_table;
+  int need = 1, at = 0;
+  for (int i = 0; i < used; ++i) {
+    char line[kNameBytes + 24];
+    const int n = snprintf(line, sizeof(line), "%s %lld\n", entries[i].name,
+                           entries[i].count);
+    need += n;
+    if (buf != nullptr && at + n < cap) {
+      memcpy(buf + at, line, n);
+      at += n;
+    }
+  }
+  if (buf != nullptr && cap > 0) buf[at] = '\0';
+  return need;
+}
+
+extern "C" void launch_log_reset() { launch_table::used = 0; }

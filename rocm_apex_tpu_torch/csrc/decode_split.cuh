@@ -430,12 +430,14 @@ static void launch_split(const SplitArgs& a, const Keys& keys) {
       static_cast<const T*>(a.q), a.q_rs, a.q_hs, keys, a.kv_len, a.row_slot,
       a.rows, a.heads, a.num_slots, a.capacity, a.q_mul, a.spans,
       a.span_len, static_cast<T*>(a.o), a.lse, a.ws, a.hd);
+  note_launch("decode_split_kernel");
   if (a.spans > kBlockWarps) {
     const int pairs = a.rows * a.heads;
     decode_merge_kernel<T, VEC>
         <<<(pairs + kBlockWarps - 1) / kBlockWarps, threads, 0, a.stream>>>(
             a.ws, a.rows, a.heads, a.spans / kBlockWarps,
             static_cast<T*>(a.o), a.lse, a.hd);
+    note_launch("decode_merge_kernel");
   }
 }
 

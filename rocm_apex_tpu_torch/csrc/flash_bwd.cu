@@ -471,6 +471,7 @@ static int launch(const void* qkv, const void* bias, const void* o,
       static_cast<const float*>(dout), static_cast<float*>(dqkv),
       static_cast<float*>(delta), static_cast<float*>(dbias_part), sh, scale,
       q_mul);
+  note_launch("flash_bwd_dq_kernel");
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   dkv_kernel<<<grid, kThreads, smem_dkv, stream>>>(
@@ -478,6 +479,7 @@ static int launch(const void* qkv, const void* bias, const void* o,
       static_cast<const float*>(lse), static_cast<const float*>(dout),
       static_cast<const float*>(delta), static_cast<float*>(dqkv),
       static_cast<float*>(dbias_part), sh, scale, q_mul);
+  note_launch("flash_bwd_dkv_kernel");
   return 0;
 }
 

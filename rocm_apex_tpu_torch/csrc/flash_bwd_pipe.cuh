@@ -748,11 +748,13 @@ int launch_pipe_bwd(const BwdArgs<T>& a, const Problem& pb,
   bwd_dq_pipe_kernel<T, HD, kBias, kSeg>
       <<<dim3(bh, nqt), C::kThreads, C::kDqSmem + kSegBytes, stream>>>(a,
                                                                        pb);
+  note_launch("bwd_dq_pipe_kernel");
   e = cudaGetLastError();
   if (e != cudaSuccess || nkt == 0) return static_cast<int>(e);
   bwd_dkv_pipe_kernel<T, HD, kBias, kSeg>
       <<<dim3(bh, nkt, HD / C::kOut), C::kThreads, C::kDkvSmem + kSegBytes,
          stream>>>(a, pb);
+  note_launch("bwd_dkv_pipe_kernel");
   return static_cast<int>(cudaGetLastError());
 }
 

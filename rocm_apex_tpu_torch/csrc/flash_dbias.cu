@@ -283,6 +283,7 @@ int launch_wgmma(const void* const* p, const int64_t* st, const Problem& pb,
       static_cast<const T*>(p[4]), static_cast<const float*>(p[5]),
       static_cast<float*>(const_cast<void*>(p[6])), strides_at(st, 0),
       strides_at(st, 1), strides_at(st, 2), strides_at(st, 3), pb);
+  note_launch("dbias_wgmma_kernel");
   return 0;
 }
 
@@ -421,6 +422,7 @@ int launch_f32(const void* const* p, const int64_t* st, const Problem& pb,
       static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
       static_cast<float*>(const_cast<void*>(p[6])), strides_at(st, 0),
       strides_at(st, 1), strides_at(st, 2), strides_at(st, 3), pb);
+  note_launch("dbias_f32_kernel");
   return 0;
 }
 

@@ -226,6 +226,7 @@ static int launch(const void* qkv, const void* bias, void* o, void* lse,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(qkv), static_cast<const float*>(bias),
       static_cast<float*>(o), static_cast<float*>(lse), sh, q_mul);
+  note_launch("flash_fwd_kernel");
   return 0;
 }
 

@@ -553,6 +553,7 @@ int launch_pipe_fwd(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<float*>(lse), st[0], st[1], st[2], st[3], pb, splits,
       split_tiles, static_cast<float*>(ws));
+  note_launch("fwd_pipe_kernel");
   if (splits > 1) {
     const cudaError_t le = cudaGetLastError();
     if (le != cudaSuccess) return static_cast<int>(le);
@@ -561,6 +562,7 @@ int launch_pipe_fwd(const void* q, const void* k, const void* v, void* o,
                               stream>>>(
         static_cast<const float*>(ws), static_cast<T*>(o),
         static_cast<float*>(lse), st[3], bh, pb.H, pb.Sq, splits, pb.hd);
+    note_launch("fwd_merge_kernel");
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -78,6 +78,7 @@ static void launch(const void* q, int64_t q_hs, int64_t q_ts, const void* k,
       static_cast<const T*>(q), q_hs, q_ts, static_cast<const T*>(k), k_hs,
       k_ts, static_cast<const T*>(v), v_hs, v_ts, seg, heads, total, causal,
       q_mul, static_cast<T*>(o), lse, hd);
+  note_launch("segments_kernel");
 }
 
 template <typename T>

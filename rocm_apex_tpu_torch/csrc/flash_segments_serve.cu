@@ -321,6 +321,7 @@ int launch_serve_tiles(const void* q, const void* k, const void* v,
                    static_cast<const T*>(v), qs, ks, vs, seg, total,
                    causal, q_mul, static_cast<T*>(o),
                    static_cast<float*>(lse), hd);
+  note_launch("serve_tiles_kernel");
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -154,6 +154,7 @@ inline cudaError_t launch_qkv_bias(const void* qkv, const void* bias,
   qkv_bias_kernel<T><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
       static_cast<const uint4*>(qkv), static_cast<const uint4*>(bias),
       static_cast<uint4*>(out), n8, row8);
+  note_launch("qkv_bias_kernel");
   return cudaGetLastError();
 }
 
@@ -184,6 +185,7 @@ inline cudaError_t launch_qkv_bias_f32(const void* qkv, const void* bias,
   qkv_bias_f32_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
       static_cast<const float4*>(qkv), static_cast<const float4*>(bias),
       static_cast<float4*>(out), n4, row4);
+  note_launch("qkv_bias_f32_kernel");
   return cudaGetLastError();
 }
 
@@ -216,6 +218,7 @@ inline cudaError_t launch_qkv_column_sums(const void* dqkv, void* part,
                            256, 0, stream>>>(static_cast<const float*>(dqkv),
                                              static_cast<float*>(part), sh.S,
                                              width);
+  note_launch("qkv_column_sums_kernel");
   return cudaGetLastError();
 }
 

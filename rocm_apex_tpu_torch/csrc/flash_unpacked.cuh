@@ -229,6 +229,7 @@ inline int launch_seg_ranges(const void* seg, int total, void* ranges,
   if (n == 0) return 0;
   seg_ranges_kernel<<<(n + 7) / 8, 256, 0, stream>>>(
       static_cast<const int*>(seg), total, static_cast<int2*>(ranges));
+  note_launch("seg_ranges_kernel");
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -336,10 +337,12 @@ inline int launch_seg_tiles(const Problem& pb, cudaStream_t stream) {
   if (rc != 0 || nt == 0) return rc;
   seg_tiles_kernel<<<(nt + 7) / 8, 256, 0, stream>>>(
       pb, const_cast<int4*>(pb.tiles));
+  note_launch("seg_tiles_kernel");
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   seg_order_kernel<<<(nt + 7) / 8, 256, 0, stream>>>(
       pb.tiles, nt, const_cast<int*>(pb.order));
+  note_launch("seg_order_kernel");
   return static_cast<int>(cudaGetLastError());
 }
 

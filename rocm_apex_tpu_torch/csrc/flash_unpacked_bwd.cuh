@@ -440,6 +440,7 @@ int launch_f32(const void* const* p, const int64_t* st, const Problem& pb,
       static_cast<float*>(const_cast<void*>(p[10])), strides_at(st, 0),
       strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
       strides_at(st, 4), strides_at(st, 5), pb);
+  note_launch("dq_f32_kernel");
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   dkv_f32_kernel<HD, kSeg><<<dim3((pb.Sk + kTile - 1) / kTile, bh), kThreads,
@@ -451,6 +452,7 @@ int launch_f32(const void* const* p, const int64_t* st, const Problem& pb,
       static_cast<float*>(const_cast<void*>(p[9])), strides_at(st, 0),
       strides_at(st, 1), strides_at(st, 2), strides_at(st, 4),
       strides_at(st, 6), strides_at(st, 7), pb);
+  note_launch("dkv_f32_kernel");
   return 0;
 }
 

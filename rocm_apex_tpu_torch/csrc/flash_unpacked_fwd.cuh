@@ -187,6 +187,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), strides_at(st, 0), strides_at(st, 1),
       strides_at(st, 2), strides_at(st, 3), pb);
+  note_launch("fwd_f32_kernel");
   return 0;
 }
 

@@ -248,8 +248,10 @@ static void launch_stage1(const Leaves& l, const float* scalars, float* part,
         vec ? lamb_stage1_kernel<G, M, 4> : lamb_stage1_kernel<G, M, 1>;
     kernel<<<blocks, kLambThreads, 0, stream>>>(t, scalars, part,
                                                 adam_w_mode);
+    note_launch("lamb_stage1_kernel");
     lamb_reduce_kernel<<<t.leaves, kLambThreads, 0, stream>>>(
         t, part, out + 2 * first);
+    note_launch("lamb_reduce_kernel");
     part += 2 * blocks;
   }
 }
@@ -269,6 +271,7 @@ static void launch_stage2(const Leaves& l, const float* scalars,
     kernel<<<blocks, kLambThreads, 0, stream>>>(t, scalars,
                                                 lr_ratios + first,
                                                 adam_w_mode);
+    note_launch("lamb_stage2_kernel");
   }
 }
 

@@ -679,6 +679,7 @@ struct FwdLaunch {
           static_cast<const W*>(gamma), static_cast<const W*>(beta),
           static_cast<Y*>(y), static_cast<T*>(s), static_cast<float*>(mean),
           static_cast<float*>(rsigma), rows, hidden, eps, drop);
+      note_launch("ln_fwd_kernel");
       return 0;
     }
     // the register row takes what its plan checked: 16-byte aligned
@@ -704,20 +705,23 @@ struct FwdLaunch {
       return static_cast<int>(cudaErrorInvalidValue);
     } else {
       if (vectors != NV) return launch_register<T, W, Y, NV * 2>();
-      auto args = [&](auto kernel, int blocks, int threads) {
+      auto args = [&](auto kernel, const char* name, int blocks,
+                      int threads) {
         kernel<<<blocks, threads, 0, stream>>>(
             static_cast<const T*>(x), static_cast<const T*>(delta),
             static_cast<const W*>(gamma), static_cast<const W*>(beta),
             static_cast<Y*>(y), static_cast<T*>(s),
             static_cast<float*>(mean), static_cast<float*>(rsigma), rows,
             hidden, eps, drop);
+        note_launch(name);
       };
       if (row_warps == 1) {
         constexpr int kRows = kLnWarpRowThreads / 32;
-        args(ln_fwd_warp_kernel<T, W, Y, NV>, (rows + kRows - 1) / kRows,
-             kLnWarpRowThreads);
+        args(ln_fwd_warp_kernel<T, W, Y, NV>, "ln_fwd_warp_kernel",
+             (rows + kRows - 1) / kRows, kLnWarpRowThreads);
       } else {
-        args(ln_fwd_block_kernel<T, W, Y, NV>, rows, 32 * row_warps);
+        args(ln_fwd_block_kernel<T, W, Y, NV>, "ln_fwd_block_kernel", rows,
+             32 * row_warps);
       }
       return 0;
     }
@@ -765,6 +769,7 @@ struct BwdLaunch {
           static_cast<const float*>(rsigma), static_cast<const W*>(gamma),
           static_cast<T*>(dx), static_cast<T*>(dd),
           static_cast<float*>(part), rows, hidden, drop);
+      note_launch("ln_bwd_kernel");
     } else {
       // the register row takes what its plan checked: 16-byte aligned
       // addresses, whole vectors, every vector of the row held
@@ -790,6 +795,7 @@ struct BwdLaunch {
              dim3(kReduceCols, kReduceSlices), 0, stream>>>(
               static_cast<const float*>(part), parts, hidden,
               static_cast<W*>(dgamma), static_cast<W*>(dbeta));
+      note_launch("ln_bwd_reduce_kernel");
     }
     return 0;
   }
@@ -802,18 +808,21 @@ struct BwdLaunch {
       return static_cast<int>(cudaErrorInvalidValue);
     } else {
       if (vectors != NV) return launch_register<T, W, Y, NV * 2, kAffine>();
-      auto args = [&](auto kernel, int threads) {
+      auto args = [&](auto kernel, const char* name, int threads) {
         kernel<<<grid, threads, 0, stream>>>(
             static_cast<const T*>(x), static_cast<const Y*>(dy),
             static_cast<const T*>(ds), static_cast<const float*>(mean),
             static_cast<const float*>(rsigma), static_cast<const W*>(gamma),
             static_cast<T*>(dx), static_cast<T*>(dd),
             static_cast<float*>(part), rows, hidden, drop);
+        note_launch(name);
       };
       if (row_warps == 1)
-        args(ln_bwd_warp_kernel<T, W, Y, NV, kAffine>, kLnWarpRowThreads);
+        args(ln_bwd_warp_kernel<T, W, Y, NV, kAffine>, "ln_bwd_warp_kernel",
+             kLnWarpRowThreads);
       else
-        args(ln_bwd_block_kernel<T, W, Y, NV, kAffine>, 32 * row_warps);
+        args(ln_bwd_block_kernel<T, W, Y, NV, kAffine>, "ln_bwd_block_kernel",
+             32 * row_warps);
       return 0;
     }
   }

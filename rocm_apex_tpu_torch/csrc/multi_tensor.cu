@@ -105,6 +105,7 @@ int launch_rows(long long rows, const void* x, const void* y, const float* a,
     mt_row_kernel<kMode, X, Y, O><<<grid, kMtThreads, 0, stream>>>(
         static_cast<const X*>(x), static_cast<const Y*>(y), a, b,
         static_cast<O*>(out), flag, rowsq);
+    note_launch("mt_row_kernel");
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -252,6 +252,7 @@ int launch_update(const UpdateArgs& a, cudaStream_t stream) {
     const unsigned grid = static_cast<unsigned>(want < 132 * 16 ? want
                                                                 : 132 * 16);
     packed_update_kernel<Op, X, G, M><<<grid, kPoThreads, 0, stream>>>(a);
+    note_launch("packed_update_kernel");
   }
   return static_cast<int>(cudaGetLastError());
 }

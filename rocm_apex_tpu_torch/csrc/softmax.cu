@@ -348,6 +348,7 @@ static int launch_fwd(const void* x, const void* mask, void* y, int64_t rows,
       static_cast<const T*>(x), static_cast<T*>(y),
       static_cast<const uint8_t*>(mask), rows, heads, sq, sk, mask_sb,
       mask_sq, mask_sk, scale);
+  note_launch("softmax_fwd_kernel");
   return 0;
 }
 
@@ -378,6 +379,7 @@ static int launch_reg(const MaskedArgs& a, int vectors) {
             static_cast<const T*>(a.x), static_cast<T*>(a.y),
             static_cast<const uint8_t*>(a.mask), a.rows, a.heads, a.sq, a.sk,
             a.mask_sb, a.mask_sq, a.mask_sk, a.scale);
+    note_launch("softmax_reg_kernel");
     return 0;
   }
 }
@@ -435,6 +437,7 @@ static int launch_bwd(const void* y, const void* dy, void* dx, int64_t rows,
   kernel<<<static_cast<unsigned>(blocks), kSoftmaxThreads, 0, stream>>>(
       static_cast<const T*>(y), static_cast<const T*>(dy),
       static_cast<T*>(dx), rows, sk, scale);
+  note_launch("softmax_bwd_kernel");
   return 0;
 }
 

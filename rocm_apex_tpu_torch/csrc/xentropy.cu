@@ -162,6 +162,7 @@ static int launch_xent_bwd(const void* x, const void* labels, const void* lse,
       static_cast<const T*>(x), static_cast<const int64_t*>(labels),
       static_cast<const float*>(lse), static_cast<const float*>(dl),
       static_cast<T*>(dx), vocab, smoothing);
+  note_launch("xent_bwd_kernel");
   return 0;
 }
 
@@ -178,6 +179,7 @@ static int launch_xent(const void* x, const void* labels, void* loss,
       static_cast<const T*>(x), static_cast<const int64_t*>(labels),
       static_cast<float*>(loss), static_cast<float*>(lse),
       static_cast<T*>(dg), vocab, smoothing);
+  note_launch("xent_fwd_kernel");
   return 0;
 }
 

@@ -1,6 +1,12 @@
 """Serving tier: the KV caches (contiguous and paged), sampling, the
 continuous-batching engine (chunked prefill, speculative decoding, the
-request lifecycle), the n-gram drafter and the fault plans."""
+request lifecycle, multi-LoRA, migration), the n-gram drafter, the fault
+plans, the adapter pool and the multi-replica router."""
+
+from rocm_apex_tpu_torch.inference.adapters import (  # noqa: F401
+    BASE_ADAPTER_ID,
+    AdapterPool,
+)
 
 from rocm_apex_tpu_torch.inference.drafting import NGramDrafter  # noqa: F401
 
@@ -23,6 +29,12 @@ from rocm_apex_tpu_torch.inference.paging import (  # noqa: F401
     PagedKVCache,
     PrefixStore,
 )
+from rocm_apex_tpu_torch.inference.router import (  # noqa: F401
+    REPLICA_CLASSES,
+    REPLICA_STATES,
+    ReplicaRouter,
+    SharedPrefixRegistry,
+)
 from rocm_apex_tpu_torch.inference.sampling import (  # noqa: F401
     greedy,
     sample,
@@ -31,6 +43,8 @@ from rocm_apex_tpu_torch.inference.sampling import (  # noqa: F401
 )
 
 __all__ = [
+    "AdapterPool",
+    "BASE_ADAPTER_ID",
     "FINISH_REASONS",
     "Fault",
     "FaultInjected",
@@ -43,8 +57,12 @@ __all__ = [
     "PageAllocator",
     "PagedKVCache",
     "PrefixStore",
+    "REPLICA_CLASSES",
+    "REPLICA_STATES",
+    "ReplicaRouter",
     "Request",
     "SamplingParams",
+    "SharedPrefixRegistry",
     "greedy",
     "sample",
     "top_k_logits",

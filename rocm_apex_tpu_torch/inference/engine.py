@@ -81,11 +81,33 @@ gives the fault-free run's tokens, pools and scales bit for bit.
 Prefix-store registration and page-table changes stay after the device
 call succeeds.
 
-Not ported yet, and refused at construction: multi-LoRA
-(``adapter_pool``; with it tier preemption), request tracing, the
+Multi-LoRA serving (``adapter_pool``, JAX engine.py:471-520,
+2723-2810): each request names an adapter of an `AdapterPool`
+(``add_request(adapter_id=, tenant=)``); admission is tier-ordered and
+acquire-or-skip (a request whose adapter finds every pool slot pinned
+waits, ``adapter_stalls``), a full queue sheds its lowest tier first
+(``tier_sheds``), and with ``tier_preemption`` a queued request that
+outranks the lowest in-flight tier preempts it through the requeue
+path. Every teardown path releases the lease's adapter ref once. The
+tick's per-token pool slots (chunk rows, decode rows) ride its one
+int32 upload; whether any is nonzero is known on the host, so a
+pure-base tick runs no adapter work.
+
+The migration surface (JAX engine.py:2043-2330, 2399-2529): `outstanding`
+snapshots every owned request as a record (prompt, emitted tokens,
+clocks, adapter, tenant, trace id); `evacuate` and `evacuate_request`
+hand records off, with ``ship_pages=True`` carrying the slot's KV pages
+(pool blocks and int8 scale rows, gathered on the device);
+`resume_request` admits a record on another engine, whose admission
+copies shipped pages into pages it allocates (`index_copy_`, the
+pool's own bytes) and replays only the last prefix token, or replays
+the whole prefix when the payload does not fit (``page_ship``
+fault, geometry, pool pressure).
+
+Not ported yet, and refused at construction: request tracing, the
 metric registry, the flight recorder and the time series (``tracer``,
-``registry``, ``flight_recorder``, ``timeseries``), tensor parallelism
-(tp>1 head-sharded pools) and page shipping between engines.
+``registry``, ``flight_recorder``, ``timeseries``; ROADMAP Queue 1
+item 9). Tensor parallelism is refused by `GPTConfig` (item 8e).
 
 Sampling draws from an engine-owned `torch.Generator` seeded with
 ``seed``: a fixed seed replays the same stream on one device, but not
@@ -96,7 +118,7 @@ import collections
 import dataclasses
 import json
 import time
-from typing import Any, Deque, Dict, List, Optional, Sequence, Set
+from typing import Any, Deque, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -110,6 +132,7 @@ from rocm_apex_tpu_torch.inference.paging import (
     PrefixStore,
 )
 from rocm_apex_tpu_torch.inference.sampling import sample
+from rocm_apex_tpu_torch.monitor.trace import mint_trace_id
 
 __all__ = [
     "SamplingParams",
@@ -128,8 +151,9 @@ FINISH_REASONS = (
 _NOT_PORTED = (
     "{what} is not ported yet (ROADMAP Queue 1, {item}); the engine "
     "serves the contiguous or the paged cache with the chunked scheduler "
-    "(speculative decoding and the fault harness included), and the "
-    "contiguous one on the whole-prompt path"
+    "(speculative decoding, the fault harness, multi-LoRA and the "
+    "migration surface included), and the contiguous one on the "
+    "whole-prompt path"
 )
 
 
@@ -153,6 +177,12 @@ class Request:
     # end to end, ``queue_deadline`` the admission TTL
     deadline: Optional[float] = None
     queue_deadline: Optional[float] = None
+    # multi-LoRA: the adapter this request decodes under (0 = base) and
+    # the tenant it bills to (None on an engine without a pool)
+    adapter_id: int = 0
+    tenant: Optional[str] = None
+    # minted once at admission and carried across every migration hop
+    trace_id: str = ""
 
 
 @dataclasses.dataclass
@@ -184,6 +214,9 @@ class _Slot:
     borrowed: Set[int] = dataclasses.field(default_factory=set)
     chain_key: Any = None
     reg_pages: int = 0
+    # the adapter-pool slot this lease holds one ref on (0 = base, no
+    # ref; -1 = released, the teardown guard)
+    adapter_slot: int = 0
 
     @property
     def prefilling(self) -> bool:
@@ -204,8 +237,10 @@ class InferenceEngine:
     speculative decoding with ``drafter`` (default an `NGramDrafter`
     over the last ``spec_window`` tokens). ``faults``, ``max_queue``,
     ``max_step_retries``, ``step_retry_backoff``, ``watchdog_timeout``
-    and ``watchdog_dump_path`` are the robustness layer's knobs (see the
-    module docstring).
+    and ``watchdog_dump_path`` are the robustness layer's knobs;
+    ``adapter_pool`` (an `AdapterPool` of the model's geometry, chunked
+    engines only, not with ``spec_k``) and ``tier_preemption`` the
+    multi-LoRA ones (see the module docstring).
     """
 
     # consecutive ticks without token progress before generate() gives up
@@ -240,6 +275,7 @@ class InferenceEngine:
         watchdog_timeout: Optional[float] = None,
         watchdog_dump_path: Optional[str] = None,
         adapter_pool=None,
+        tier_preemption: bool = False,
         tracer=None,
         registry=None,
         flight_recorder=None,
@@ -297,26 +333,43 @@ class InferenceEngine:
         self._spec_window = int(
             getattr(self._drafter, "window", spec_window)
         )
-        if adapter_pool is not None and self.spec_k > 0:
-            raise ValueError(
-                "adapter_pool does not compose with speculative "
-                "decoding yet (the drafter is base-model-only; a "
-                "per-adapter draft would be wrong for every "
-                "non-base slot)"
-            )
-        refused = [
-            (adapter_pool is not None, "multi-LoRA serving (adapter_pool)"
-             ", and with it tier preemption", "item 8"),
-            (any(x is not None for x in
-                 (tracer, registry, flight_recorder, timeseries)),
-             "the monitor layer (tracer, registry, flight_recorder, "
-             "timeseries)", "item 9"),
-        ]
-        for asked, what, item in refused:
-            if asked:
-                raise NotImplementedError(
-                    _NOT_PORTED.format(what=what, item=item)
+        # multi-LoRA (JAX engine.py:471-520); tp > 1 never reaches here
+        # (`GPTConfig` refuses it)
+        self.adapter_pool = adapter_pool
+        self.tier_preemption = bool(tier_preemption)
+        if adapter_pool is not None:
+            if self.spec_k > 0:
+                raise ValueError(
+                    "adapter_pool does not compose with speculative "
+                    "decoding yet (the drafter is base-model-only; a "
+                    "per-adapter draft would be wrong for every "
+                    "non-base slot)"
                 )
+            if self.prefill_token_budget is None:
+                raise ValueError(
+                    "adapter_pool rides the chunked mixed step; set "
+                    "prefill_token_budget"
+                )
+            if (
+                adapter_pool.num_layers != cfg.num_layers
+                or adapter_pool.hidden != cfg.hidden_size
+                or adapter_pool.out_dims["qkv"] != 3 * cfg.hidden_size
+            ):
+                raise ValueError(
+                    f"adapter pool geometry (layers="
+                    f"{adapter_pool.num_layers}, hidden="
+                    f"{adapter_pool.hidden}, qkv_out="
+                    f"{adapter_pool.out_dims['qkv']}) does not match "
+                    f"the model (layers={cfg.num_layers}, hidden="
+                    f"{cfg.hidden_size})"
+                )
+        if any(x is not None for x in
+               (tracer, registry, flight_recorder, timeseries)):
+            raise NotImplementedError(_NOT_PORTED.format(
+                what="the monitor layer (tracer, registry, "
+                     "flight_recorder, timeseries)", item="item 9"))
+        # host-side per-tenant completion accounting (JAX engine.py:488)
+        self._tenant_counts: Dict[str, Dict[str, int]] = {}
         self.faults = faults if faults is not None else NO_FAULTS
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
@@ -341,6 +394,8 @@ class InferenceEngine:
         # preempted-request carryover: request_id -> (generated tokens,
         # first_token_at, chunk count), restored on re-admission
         self._preempted: Dict[int, Any] = {}
+        # shipped KV payloads of resumed requests, imported at admission
+        self._shipped: Dict[int, Dict[str, Any]] = {}
         if not self.paged:
             if prefix_sharing:
                 raise ValueError("prefix_sharing requires paged=True")
@@ -465,6 +520,13 @@ class InferenceEngine:
         self._shed = 0
         self._watchdog_fires = 0
         self._host_fetches = 0
+        self._evacuated = 0
+        self._page_ships = 0
+        self._page_ship_fallbacks = 0
+        self._adapter_stalls = 0
+        self._tier_preemptions = 0
+        self._tier_sheds = 0
+        self._tenant_counts.clear()
         self._queue_waits: Deque[float] = collections.deque(
             maxlen=self._STATS_RETENTION
         )
@@ -502,7 +564,13 @@ class InferenceEngine:
         ``spec_k == 0``): ``tokens_drafted``, ``tokens_accepted``,
         ``acceptance_rate`` (their ratio), ``rollbacks`` (spans with at
         least one rejected draft). ``host_fetches``: the engine's reads
-        of device values (one a device step)."""
+        of device values (one a device step). Migration: ``evacuated``
+        (records handed off), ``page_ships`` (shipped payloads imported)
+        and ``page_ship_fallbacks`` (payloads replayed instead). The
+        multi-LoRA pool's ``adapters_registered``, ``adapters_resident``,
+        ``adapter_uploads``, ``adapter_evictions``, ``adapter_revivals``
+        (zeros without a pool) and the admission counters
+        ``adapter_stalls``, ``tier_preemptions``, ``tier_sheds``."""
 
         def pct_ms(samples, q):
             if not samples:
@@ -520,6 +588,8 @@ class InferenceEngine:
                 shared_ratio = shared / mapped.size
         decode_generated = self._generated_tokens - self._admitted
         prefill_ticks = self._mixed_steps if self.chunked else self._admitted
+        snap = (self.adapter_pool.snapshot()
+                if self.adapter_pool is not None else {})
         return {
             "pages_total": pages_total,
             "pages_used": pages_used,
@@ -531,12 +601,23 @@ class InferenceEngine:
             "prefix_hit_tokens": float(self._prefix_hit_tokens),
             "page_stalls": float(self._page_stalls),
             "preemptions": float(self._preemptions),
+            "page_ships": float(self._page_ships),
+            "page_ship_fallbacks": float(self._page_ship_fallbacks),
+            "adapters_registered": float(snap.get("registered", 0)),
+            "adapters_resident": float(snap.get("resident", 0)),
+            "adapter_uploads": float(snap.get("uploads", 0)),
+            "adapter_evictions": float(snap.get("evictions", 0)),
+            "adapter_revivals": float(snap.get("revivals", 0)),
+            "adapter_stalls": float(self._adapter_stalls),
+            "tier_preemptions": float(self._tier_preemptions),
+            "tier_sheds": float(self._tier_sheds),
             "cancelled": float(self._cancelled),
             "deadline_exceeded": float(self._deadline_exceeded),
             "quarantined": float(self._quarantined),
             "step_retries": float(self._step_retries),
             "shed": float(self._shed),
             "watchdog_fires": float(self._watchdog_fires),
+            "evacuated": float(self._evacuated),
             "tokens_drafted": float(self._tokens_drafted),
             "tokens_accepted": float(self._tokens_accepted),
             "acceptance_rate": (
@@ -577,6 +658,26 @@ class InferenceEngine:
             "ttft_ms_p95": pct_ms(self._ttfts, 95),
         }
 
+    def _record_completion(self, rec: Dict[str, Any]) -> None:
+        """Keep a completion record; with an adapter pool, tally it
+        under its tenant too (JAX engine.py:1418-1432)."""
+        self._completions.append(rec)
+        if self.adapter_pool is not None:
+            tc = self._tenant_counts.setdefault(
+                rec.get("tenant") or "base",
+                {"completed": 0, "prompt_tokens": 0, "generated_tokens": 0},
+            )
+            tc["completed"] += 1
+            tc["prompt_tokens"] += int(rec["prompt_tokens"])
+            tc["generated_tokens"] += int(rec["new_tokens"])
+
+    def tenant_stats(self) -> Dict[str, Dict[str, int]]:
+        """Per-tenant completion accounting: tenant -> {completed,
+        prompt_tokens, generated_tokens}, empty without an adapter pool.
+        Summed over tenants it equals the completion records' count and
+        token totals."""
+        return {t: dict(c) for t, c in self._tenant_counts.items()}
+
     def cache_bytes(self) -> int:
         """Device bytes the KV cache holds: buffers or pools, scales,
         the page table and the lengths."""
@@ -599,6 +700,9 @@ class InferenceEngine:
         *,
         timeout: Optional[float] = None,
         queue_ttl: Optional[float] = None,
+        adapter_id: int = 0,
+        tenant: Optional[str] = None,
+        trace_id: Optional[str] = None,
     ) -> int:
         """Queue a prompt; returns the request id. A later `step`
         leases it a free slot and streams its prompt through the
@@ -610,7 +714,14 @@ class InferenceEngine:
         ``deadline``. With ``max_queue`` set, an arrival at a full queue
         is shed, never dropped silently: it gets its id and the next
         `step` delivers its ``queue_full`` result. After `drain`
-        admission is closed and this raises."""
+        admission is closed and this raises.
+
+        ``adapter_id`` picks an adapter registered in the engine's
+        `AdapterPool` (0 = base); ``tenant`` defaults to the adapter's.
+        With a pool a full queue sheds tier-aware: an arrival that
+        outranks the lowest queued tier sheds that request (the newest
+        of its tier) instead of itself (``tier_sheds``). ``trace_id`` is
+        carried as given, else minted."""
         if self._draining:
             raise RuntimeError(
                 "engine is draining: admission is closed "
@@ -637,29 +748,53 @@ class InferenceEngine:
             raise ValueError(f"timeout must be > 0 s, got {timeout}")
         if queue_ttl is not None and queue_ttl <= 0:
             raise ValueError(f"queue_ttl must be > 0 s, got {queue_ttl}")
+        adapter_id, tenant = self._check_adapter(adapter_id, tenant)
         if request_id is None:
             request_id = self._next_id
         self._next_id = max(self._next_id, request_id) + 1
+        if trace_id is None:
+            trace_id = mint_trace_id()
         now = time.perf_counter()
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
-            # shed the newest: the queued requests keep their places
+            # shed the newest: the queued requests keep their places;
+            # with a pool, the newest of the lowest tier below the
+            # arrival's, which then takes its place at the tail
+            victim_idx = None
+            if self.adapter_pool is not None:
+                inc_tier = self.adapter_pool.tier_of(adapter_id)
+                min_tier = inc_tier
+                for i, q in enumerate(self._queue):
+                    t = self.adapter_pool.tier_of(q.adapter_id)
+                    if t <= min_tier and t < inc_tier:
+                        min_tier, victim_idx = t, i
+            if victim_idx is not None:
+                victim = self._queue[victim_idx]
+                del self._queue[victim_idx]
+                self._tier_sheds += 1
+                shed_id, shed_prompt, shed_tenant = (
+                    victim.request_id, victim.prompt, victim.tenant)
+            else:
+                shed_id, shed_prompt, shed_tenant = (
+                    request_id, prompt, tenant)
             self._shed += 1
-            self._completions.append({
-                "request_id": request_id,
+            self._record_completion({
+                "request_id": shed_id,
                 "finish_reason": "queue_full",
-                "prompt_tokens": len(prompt),
+                "prompt_tokens": len(shed_prompt),
                 "new_tokens": 0,
                 "chunks": 0,
                 "queue_wait_ms": 0.0,
                 "ttft_ms": 0.0,
                 "tpot_ms": 0.0,
                 "e2e_ms": 0.0,
+                "tenant": shed_tenant,
             })
             self._shed_results.append(GenerationResult(
-                request_id=request_id, prompt=prompt, tokens=[],
+                request_id=shed_id, prompt=list(shed_prompt), tokens=[],
                 finish_reason="queue_full",
             ))
-            return request_id
+            if victim_idx is None:
+                return request_id
         if timeout is not None or queue_ttl is not None:
             self._any_deadline = True
         self._queue.append(Request(
@@ -667,8 +802,25 @@ class InferenceEngine:
             deadline=(now + timeout) if timeout is not None else None,
             queue_deadline=(now + queue_ttl) if queue_ttl is not None
             else None,
+            adapter_id=adapter_id, tenant=tenant, trace_id=trace_id,
         ))
         return request_id
+
+    def _check_adapter(self, adapter_id, tenant):
+        """A request's adapter id, checked against the pool, and its
+        tenant (the adapter's when not given)."""
+        adapter_id = int(adapter_id)
+        if adapter_id != 0:
+            if self.adapter_pool is None:
+                raise ValueError(
+                    f"adapter_id={adapter_id} but the engine has no "
+                    f"adapter_pool"
+                )
+            if not self.adapter_pool.known(adapter_id):
+                raise KeyError(f"unknown adapter_id {adapter_id}")
+        if tenant is None and self.adapter_pool is not None:
+            tenant = self.adapter_pool.tenant_of(adapter_id)
+        return adapter_id, tenant
 
     def step(self) -> List[GenerationResult]:
         """One engine tick. Chunked: admit queued requests into free
@@ -766,6 +918,197 @@ class InferenceEngine:
         )
         self._last_progress = time.perf_counter()
 
+    # ------------------------------------------------------------------
+    # the migration surface (JAX engine.py:2043-2323)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _record(req: Request, generated, first_at, chunks) -> Dict[str, Any]:
+        return {
+            "request_id": req.request_id,
+            "prompt": list(req.prompt),
+            "max_new_tokens": req.max_new_tokens,
+            "generated": list(generated),
+            "enqueued_at": req.enqueued_at,
+            "deadline": req.deadline,
+            "queue_deadline": req.queue_deadline,
+            "first_token_at": first_at,
+            "chunks": chunks,
+            "adapter_id": req.adapter_id,
+            "tenant": req.tenant,
+            "trace_id": req.trace_id,
+        }
+
+    def outstanding(self) -> List[Dict[str, Any]]:
+        """Every request this engine owns, in-flight slots (slot order)
+        then the queue, as migration records: ``request_id``,
+        ``prompt``, ``max_new_tokens``, ``generated`` (tokens emitted so
+        far), ``enqueued_at``/``deadline``/``queue_deadline`` (absolute
+        perf_counter times), ``first_token_at``, ``chunks``,
+        ``adapter_id``, ``tenant``, ``trace_id``. Another engine's
+        `resume_request` continues a record token for token. A pure
+        read."""
+        recs = [self._record(st.req, st.generated, st.first_token_at,
+                             st.chunks)
+                for st in self._slots if st is not None]
+        for req in self._queue:
+            generated, first_at, chunks = self._preempted.get(
+                req.request_id, ([], 0.0, 0))
+            recs.append(self._record(req, generated, first_at, chunks))
+        return recs
+
+    def evacuate(self, ship_pages: bool = False) -> List[Dict[str, Any]]:
+        """Hand every owned request off: snapshot `outstanding`, then
+        release all slots, pages and adapter refs and empty the queue,
+        leaving the engine clean for `reopen`. No completion is recorded:
+        the caller (the router) owns the records' delivery.
+        ``ship_pages=True`` on a paged cache attaches each slot's KV
+        pages to its record (``rec["pages"]``, `_export_slot_pages`)."""
+        recs = self.outstanding()
+        by_id = {rec["request_id"]: rec for rec in recs}
+        for slot in range(self.num_slots - 1, -1, -1):
+            st = self._slots[slot]
+            if st is None:
+                continue
+            if self.paged:
+                if ship_pages:
+                    payload = self._export_slot_pages(st, slot)
+                    if payload is not None:
+                        by_id[st.req.request_id]["pages"] = payload
+                self._release_slot_pages(st, slot)
+            self._release_adapter(st)
+            self._slots[slot] = None
+        if self.paged:
+            self._push_table()
+        self._queue.clear()
+        self._preempted.clear()
+        self._shipped.clear()
+        self._evacuated += len(recs)
+        return recs
+
+    def evacuate_request(self, request_id: int, ship_pages: bool = False
+                         ) -> Optional[Dict[str, Any]]:
+        """Hand off ONE owned request (the disaggregation handoff): its
+        record, with its KV pages when ``ship_pages`` and it holds a
+        slot; this engine forgets it. None when it is not owned here."""
+        for slot, st in enumerate(self._slots):
+            if st is None or st.req.request_id != request_id:
+                continue
+            rec = self._record(st.req, st.generated, st.first_token_at,
+                               st.chunks)
+            if self.paged:
+                if ship_pages:
+                    payload = self._export_slot_pages(st, slot)
+                    if payload is not None:
+                        rec["pages"] = payload
+                self._release_slot_pages(st, slot)
+                self._push_table()
+            self._release_adapter(st)
+            self._slots[slot] = None
+            self._evacuated += 1
+            return rec
+        for i, req in enumerate(self._queue):
+            if req.request_id != request_id:
+                continue
+            generated, first_at, chunks = self._preempted.pop(
+                request_id, ([], 0.0, 0))
+            del self._queue[i]
+            self._shipped.pop(request_id, None)
+            self._evacuated += 1
+            return self._record(req, generated, first_at, chunks)
+        return None
+
+    def resume_request(
+        self,
+        prompt: Sequence[int],
+        max_new_tokens: int,
+        request_id: int,
+        *,
+        generated: Sequence[int] = (),
+        enqueued_at: Optional[float] = None,
+        deadline: Optional[float] = None,
+        queue_deadline: Optional[float] = None,
+        first_token_at: float = 0.0,
+        chunks: int = 0,
+        pages: Optional[Dict[str, Any]] = None,
+        adapter_id: int = 0,
+        tenant: Optional[str] = None,
+        trace_id: Optional[str] = None,
+    ) -> int:
+        """Admit a request migrated from another engine with the tokens
+        it already emitted (an `outstanding`/`evacuate` record).
+        Re-admission recomputes prompt + generated[:-1] through the
+        chunked prefill, as after preemption, so greedy decode continues
+        token for token. Deadlines are absolute. A full queue never sheds
+        a resumed request (it was admitted once already).
+
+        ``pages`` (a record's ``rec["pages"]``): when the request leases
+        a slot, the payload's KV blocks land in this engine's pool and
+        only the last prefix token replays; a payload that cannot be
+        used (geometry, pool pressure, a ``page_ship`` fault) falls back
+        to the full replay, with the same tokens."""
+        if self._draining:
+            raise RuntimeError(
+                "engine is draining: admission is closed "
+                "(drain() was called)"
+            )
+        prompt = [int(t) for t in prompt]
+        generated = [int(t) for t in generated]
+        if not prompt:
+            raise ValueError("prompt must be non-empty")
+        if len(prompt) > self.capacity:
+            raise ValueError(
+                f"prompt length {len(prompt)} exceeds the cache "
+                f"capacity {self.capacity} (rows per slot)"
+            )
+        if generated and not self.chunked:
+            raise ValueError(
+                "resume with carried tokens needs the chunked engine "
+                "(prefill_token_budget): the recompute prefix "
+                "prompt + generated[:-1] streams through the budget"
+            )
+        if len(generated) >= max_new_tokens:
+            raise ValueError(
+                f"carried {len(generated)} tokens >= max_new_tokens="
+                f"{max_new_tokens}: the request already finished"
+            )
+        adapter_id, tenant = self._check_adapter(adapter_id, tenant)
+        now = time.perf_counter()
+        self._next_id = max(self._next_id, request_id) + 1
+        if not trace_id:
+            trace_id = mint_trace_id()
+        req = Request(
+            request_id, prompt, int(max_new_tokens),
+            enqueued_at=enqueued_at if enqueued_at is not None else now,
+            deadline=deadline, queue_deadline=queue_deadline,
+            adapter_id=adapter_id, tenant=tenant, trace_id=trace_id,
+        )
+        if deadline is not None or queue_deadline is not None:
+            self._any_deadline = True
+        if generated:
+            self._preempted[request_id] = (
+                list(generated), first_token_at or now, int(chunks),
+            )
+        if pages is not None and self.paged:
+            self._shipped[request_id] = pages
+        self._queue.append(req)
+        return request_id
+
+    def prefix_match_tokens(self, prompt: Sequence[int]) -> int:
+        """Tokens of ``prompt`` this engine's `PrefixStore` holds
+        materialized (0 without prefix sharing): the router's prefix
+        affinity signal. A pure read."""
+        if self._store is None:
+            return 0
+        return self._store.match([int(t) for t in prompt])[1]
+
+    @property
+    def progress_marker(self) -> Tuple[int, int, int]:
+        """(prompt_tokens, generated_tokens, evicted): the watchdog's
+        progress signals, for an outside zero-progress probe (the
+        router's)."""
+        return (self._prompt_tokens, self._generated_tokens, self._evicted)
+
     def generate(
         self, prompts: Sequence[Sequence[int]], max_new_tokens: int
     ) -> List[GenerationResult]:
@@ -845,8 +1188,18 @@ class InferenceEngine:
         return (np.arange(S), pos,
                 *self.cache.host_rows(np.arange(S), pos, self._table))
 
+    def _adapters(self, ids: Optional[torch.Tensor], host_ids):
+        """The model's multi-LoRA view for one forward: the pool's
+        buffers, the rows' device pool slots and the host flag that any
+        is nonzero (a pure-base forward launches no adapter work). None
+        without a pool."""
+        if self.adapter_pool is None:
+            return None
+        return dict(self.adapter_pool.buffers, ids=ids,
+                    active=bool(np.any(host_ids)))
+
     def _decode_body(self, tokens, active, lengths, rows=None,
-                     poison=None):
+                     poison=None, adapters=None):
         """The decode grid from the host ``lengths``: every slot writes
         its token at its length and reads its prefix; inactive slots'
         lengths are pinned. On a paged cache a dead row runs at the
@@ -860,7 +1213,8 @@ class InferenceEngine:
             )
         else:
             self.cache.lengths = lengths
-        logits, _ = self.model(tokens[:, None], cache=self.cache, rows=rows)
+        logits, _ = self.model(tokens[:, None], cache=self.cache, rows=rows,
+                               adapters=adapters)
         self.cache.lengths = torch.where(active, self.cache.lengths, lengths)
         tok, bad = self._sample(logits[:, -1, :], poison)
         return torch.where(active, tok, 0), bad
@@ -868,7 +1222,8 @@ class InferenceEngine:
     @torch.no_grad()
     def _mixed(self, chunk_tokens, chunk_slots, chunk_pos, commit_slots,
                lengths_before, lengths_after, completion_idx, dec_tokens,
-               dec_active, chunk_poison=None, dec_poison=None):
+               dec_active, chunk_poison=None, dec_poison=None,
+               chunk_adp=None, dec_adp=None):
         """The packed prompt chunk, then the whole decode grid, with the
         first token of every prompt that completed fed straight in.
         ``commit_slots`` (speculative engines): who writes K/V in the
@@ -876,7 +1231,9 @@ class InferenceEngine:
         returns the chunk's per-layer K/V for the later commit. Returns
         the chunk's and the grid's tokens and nonfinite flags (host
         numpy, one fetch) and the chunk K/V (None without
-        speculation)."""
+        speculation). ``chunk_adp``/``dec_adp``: with an adapter pool,
+        each chunk row's and each decode row's pool slot, riding the
+        same upload."""
         B, S = chunk_tokens.shape[0], self.num_slots
         spec = commit_slots is not None
         write = commit_slots if spec else chunk_slots
@@ -886,28 +1243,36 @@ class InferenceEngine:
             chunk_dst = self.cache.host_rows(write, chunk_pos)
         grid_active = dec_active | (completion_idx >= 0)
         grid = self._grid_rows(grid_active, lengths_after)
+        lora = () if self.adapter_pool is None else (chunk_adp, dec_adp)
         dev = self._upload(
             chunk_tokens, chunk_slots, chunk_pos, write, lengths_before,
             lengths_after, completion_idx, dec_tokens, dec_active,
-            *chunk_dst, *(grid or ()),
+            *chunk_dst, *(grid or ()), *lora,
         )
         (tok_c, slots_c, pos_c, write_c, len_b, len_a, comp, dec_tok_in,
          dec_act) = dev[:9]
         rows = self.cache.rows_from(slots_c, pos_c, *dev[9:12])
         grid_rows = self.cache.rows_from(*dev[12:17]) if grid else None
+        chunk_lora = dec_lora = None
+        if lora:
+            chunk_lora = self._adapters(dev[-2], chunk_adp)
+            dec_lora = self._adapters(dev[-1], dec_adp)
         poisons = self._poisons(chunk_poison, dec_poison)
         self.cache.lengths = len_b
         chunk = (slots_c, pos_c, write_c) if spec else (slots_c, pos_c)
         out = self.model(tok_c[None, :], cache=self.cache, chunk=chunk,
-                         rows=rows)
+                         rows=rows, adapters=chunk_lora)
         chunk_kv = out[2] if spec else None
         chunk_tok, chunk_bad = self._sample(out[0][0], poisons[0])
         has_comp = comp >= 0
         first_tok = chunk_tok[comp.clamp(0, B - 1)]
         dec = torch.where(has_comp, first_tok, dec_tok_in)
         # the chunk's cursors: every slot's length after its rows
+        # the adapters ride as a keyword only with a pool (a subclass
+        # may override `_decode_body` without them)
         dec_tok, dec_bad = self._decode_body(
             dec, dec_act.bool() | has_comp, len_a, grid_rows, poisons[1],
+            **({} if dec_lora is None else {"adapters": dec_lora}),
         )
         self._maybe_fail_fetch()
         out = self._fetch(torch.cat([chunk_tok, dec_tok]),
@@ -917,13 +1282,17 @@ class InferenceEngine:
 
     @torch.no_grad()
     def _decode(self, dec_tokens, dec_active, lengths, dec_poison=None,
-                fetch_site=True):
+                fetch_site=True, dec_adp=None):
         grid = self._grid_rows(dec_active, lengths)
-        dev = self._upload(dec_tokens, dec_active, lengths, *(grid or ()))
+        lora = () if self.adapter_pool is None else (dec_adp,)
+        dev = self._upload(dec_tokens, dec_active, lengths, *(grid or ()),
+                           *lora)
         grid_rows = self.cache.rows_from(*dev[3:8]) if grid else None
         poison = self._poisons(None, dec_poison)[1]
         tok, bad = self._decode_body(
             dev[0], dev[1].bool(), dev[2], grid_rows, poison,
+            **({"adapters": self._adapters(dev[-1], dec_adp)} if lora
+               else {}),
         )
         # the chunked scheduler's site; the whole-prompt path has none
         if fetch_site:
@@ -1076,6 +1445,7 @@ class InferenceEngine:
                 continue
             if self.paged:
                 self._release_slot_pages(st, slot)
+            self._release_adapter(st)
             self._slots[slot] = None
             if st.generated:
                 self._preempted[st.req.request_id] = (
@@ -1118,7 +1488,8 @@ class InferenceEngine:
         had generated."""
         carried = self._preempted.pop(req.request_id, None)
         tokens = list(carried[0]) if carried is not None else []
-        self._completions.append({
+        self._shipped.pop(req.request_id, None)
+        self._record_completion({
             "request_id": req.request_id,
             "finish_reason": reason,
             "prompt_tokens": len(req.prompt),
@@ -1128,6 +1499,7 @@ class InferenceEngine:
             "ttft_ms": 0.0,
             "tpot_ms": 0.0,
             "e2e_ms": 1e3 * (now - req.enqueued_at),
+            "tenant": req.tenant,
         })
         return GenerationResult(
             request_id=req.request_id, prompt=list(req.prompt),
@@ -1186,19 +1558,86 @@ class InferenceEngine:
     # the chunked scheduler
     # ------------------------------------------------------------------
 
+    def _release_adapter(self, st: _Slot) -> None:
+        """Drop the lease's adapter ref, exactly once (``adapter_slot =
+        -1`` closes it, so overlapping teardown paths cannot release
+        twice); the pool slot parks at refcount zero."""
+        if self.adapter_pool is None or st.adapter_slot < 0:
+            return
+        self.adapter_pool.release(st.req.adapter_id)
+        st.adapter_slot = -1
+
+    def _pick_queued(self) -> Optional[Tuple[Request, int]]:
+        """The next admissible queued request and its adapter slot (the
+        ref already held). Without a pool: FIFO. With one: highest tier
+        first, FIFO within a tier, and acquire-or-skip: a request whose
+        adapter finds every pool slot pinned is skipped
+        (``adapter_stalls``) and a lower one whose adapter fits admits."""
+        if not self._queue:
+            return None
+        if self.adapter_pool is None:
+            return self._queue.popleft(), 0
+        pool = self.adapter_pool
+        order = sorted(range(len(self._queue)), key=lambda i: (
+            -pool.tier_of(self._queue[i].adapter_id), i))
+        for i in order:
+            req = self._queue[i]
+            aslot = pool.acquire(req.adapter_id)
+            if aslot is None:
+                self._adapter_stalls += 1
+                continue
+            del self._queue[i]
+            return req, aslot
+        return None
+
+    def _preempt_for_tier(self) -> None:
+        """``tier_preemption`` on a full engine: a queued request that
+        outranks the lowest in-flight tier preempts that request (the
+        youngest lease of the tier), at most one a tick, through the
+        requeue path: tokens kept, cache recomputed on re-admission."""
+        pool = self.adapter_pool
+        top = max(pool.tier_of(q.adapter_id) for q in self._queue)
+        victim, vslot, vtier = None, -1, 0
+        for slot, st in enumerate(self._slots):
+            t = pool.tier_of(st.req.adapter_id)
+            if (victim is None or t < vtier
+                    or (t == vtier and st.leased_at >= victim.leased_at)):
+                victim, vslot, vtier = st, slot, t
+        if top <= vtier:
+            return
+        if self.paged:
+            self._release_slot_pages(victim, vslot)
+        self._release_adapter(victim)
+        self._slots[vslot] = None
+        self._preempted[victim.req.request_id] = (
+            list(victim.generated), victim.first_token_at, victim.chunks,
+        )
+        self._queue.appendleft(victim.req)
+        self._tier_preemptions += 1
+
     def _admit_free_slots(self, now: float) -> None:
-        """Lease free slots to queued requests. A preempted request gets
-        its tokens back and recomputes prompt + generated[:-1]; with
-        prefix sharing, a prompt that extends a materialized page chain
-        maps those pages by reference and starts past them."""
+        """Lease free slots to queued requests (`_pick_queued`'s order).
+        A preempted or migrated request gets its tokens back and
+        recomputes prompt + generated[:-1]; one with shipped pages
+        imports them and replays only its last prefix token; with prefix
+        sharing, a prompt that extends a materialized page chain maps
+        those pages by reference and starts past them."""
+        if (self.tier_preemption and self.adapter_pool is not None
+                and self._queue
+                and all(s is not None for s in self._slots)):
+            self._preempt_for_tier()
         for slot in range(self.num_slots):
             if self._slots[slot] is not None or not self._queue:
                 continue
-            req = self._queue.popleft()
+            picked = self._pick_queued()
+            if picked is None:
+                # nothing admissible this tick (adapter residency)
+                break
+            req, aslot = picked
             self._admitted += 1
             self._queue_waits.append(now - req.enqueued_at)
             st = _Slot(req=req, generated=[], prefix=list(req.prompt),
-                       leased_at=now)
+                       leased_at=now, adapter_slot=aslot)
             carried = self._preempted.pop(req.request_id, None)
             if carried is not None:
                 generated, first_at, chunks = carried
@@ -1211,6 +1650,13 @@ class InferenceEngine:
                     st.prefix = list(req.prompt) + list(generated[:-1])
                     st.resumed = True
             self._slots[slot] = st
+            shipped = self._shipped.pop(req.request_id, None)
+            if shipped is not None and self._import_shipped_pages(
+                st, slot, shipped
+            ):
+                # the cursor covers the shipped rows, at least what a
+                # local prefix match could offer
+                continue
             if self._store is None:
                 continue
             pages, matched, partial, key = self._store.match(req.prompt)
@@ -1315,6 +1761,97 @@ class InferenceEngine:
         self._table_dirty = True
         st.borrowed.clear()
 
+    def _export_slot_pages(self, st: _Slot, slot: int
+                           ) -> Optional[Dict[str, Any]]:
+        """The slot's mapped KV pages as a migration payload: the pages
+        covering its ``st.pos`` materialized rows, every layer's pool
+        blocks (and int8 scale rows) gathered on the device
+        (`index_select`: copies of the pool's own bytes, which outlive
+        the source's release of the pages). One `_upload` of the page
+        indices is its only sync. None when the slot holds no rows."""
+        ps = self.cache.page_size
+        rows = int(st.pos)
+        if rows <= 0:
+            return None
+        n = -(-rows // ps)  # a partial last page ships whole
+        pages = [int(p) for p in self._table[slot, :n]]
+        if any(p == self.cache.num_pages for p in pages):
+            return None
+        c = self.cache
+        idx = self._upload(np.asarray(pages))[0]
+        payload: Dict[str, Any] = {
+            "rows": rows,
+            "page_size": int(ps),
+            "quantized": bool(c.quantized),
+            "dtype": str(c.k[0].dtype),
+            "k": [pool.index_select(0, idx) for pool in c.k],
+            "v": [pool.index_select(0, idx) for pool in c.v],
+        }
+        if c.quantized:
+            payload["k_scale"] = [x.index_select(0, idx) for x in c.k_scale]
+            payload["v_scale"] = [x.index_select(0, idx) for x in c.v_scale]
+        return payload
+
+    def _import_shipped_pages(self, st: _Slot, slot: int, payload) -> bool:
+        """Land a shipped payload in this engine's pool: allocate pages,
+        copy the blocks in (`index_copy_`; one `_upload` of the
+        destination indices is its only sync), map the slot's table rows
+        and start the cursor past the shipped rows. The last prefix
+        token always replays through the chunk, which re-derives the
+        slot's lengths and first decode input as a replay would (it
+        rewrites its row with the value it shipped with).
+
+        False, with ``page_ship_fallbacks`` counted, when the payload
+        cannot be used as it is: the ``page_ship`` fault fires, the
+        geometry differs (page size, dtype, quantization, pool shape) or
+        the pool is out of pages. Nothing was mapped then, so nothing
+        leaks, and the request replays its whole prefix."""
+        if self.faults.enabled and self.faults.fire(
+            "page_ship", tick=self._tick, slot=slot,
+        ) is not None:
+            self._page_ship_fallbacks += 1
+            return False
+        cache = self.cache
+        ps = cache.page_size
+        rows = int(payload.get("rows", 0))
+        target = min(rows, len(st.prefix) - 1)
+        if target <= 0:
+            return False
+        k_bufs = payload.get("k", ())
+        v_bufs = payload.get("v", ())
+        compatible = (
+            int(payload.get("page_size", -1)) == ps
+            and bool(payload.get("quantized")) == cache.quantized
+            and payload.get("dtype") == str(cache.k[0].dtype)
+            and len(k_bufs) == cache.num_layers
+            and len(v_bufs) == cache.num_layers
+            and all(tuple(b.shape[1:]) == tuple(cache.k[0].shape[1:])
+                    for b in list(k_bufs) + list(v_bufs))
+        )
+        n = len(k_bufs[0]) if compatible else 0
+        if not compatible or n < -(-rows // ps) or n > cache.pages_per_slot:
+            self._page_ship_fallbacks += 1
+            return False
+        got = self._allocator.alloc(n)
+        if got is None:
+            # pool pressure at admission: replay rather than hold the
+            # slot waiting for pages
+            self._page_ship_fallbacks += 1
+            return False
+        dst = self._upload(np.asarray(got))[0].long()
+        pairs = [*zip(cache.k, k_bufs), *zip(cache.v, v_bufs)]
+        if cache.quantized:
+            pairs += [*zip(cache.k_scale, payload["k_scale"]),
+                      *zip(cache.v_scale, payload["v_scale"])]
+        for pool, buf in pairs:
+            pool.index_copy_(0, dst, buf.to(pool.device))
+        for i, page in enumerate(got):
+            self._map_page(slot, i, page)
+        st.cursor = target
+        st.pos = target
+        self._page_ships += 1
+        return True
+
     def _preempt_for_pages(self) -> None:
         """Break a pool deadlock: preempt page-holding slots, youngest
         lease first, until a page is free. A preempted request keeps its
@@ -1340,6 +1877,7 @@ class InferenceEngine:
                     "the expected live tokens, or admit less concurrency"
                 )
             self._release_slot_pages(victim, vslot)
+            self._release_adapter(victim)
             self._slots[vslot] = None
             self._preempted[victim.req.request_id] = (
                 list(victim.generated), victim.first_token_at,
@@ -1396,6 +1934,12 @@ class InferenceEngine:
         commit_slots = np.full((budget,), S, np.int32)
         lengths_before = np.zeros((S,), np.int32)
         lengths_after = np.zeros((S,), np.int32)
+        # multi-LoRA: each chunk row's and decode row's adapter pool
+        # slot; pads and dead rows stay 0 (the base, zeros)
+        chunk_adp = dec_adp = None
+        if self.adapter_pool is not None:
+            chunk_adp = np.zeros((budget,), np.int32)
+            dec_adp = np.zeros((S,), np.int32)
         # the ``logits`` fault poisons ONE slot's rows for the tick
         poison_slot, poison_val = -1, 0.0
         if self.faults.enabled:
@@ -1439,6 +1983,8 @@ class InferenceEngine:
                 chunk_slots[used:used + n] = slot
                 commit_slots[used:used + n] = slot
                 chunk_pos[used:used + n] = np.arange(st.cursor, st.cursor + n)
+                if chunk_adp is not None:
+                    chunk_adp[used:used + n] = st.adapter_slot
                 st.cursor += n
                 st.pos = st.cursor
                 st.chunks += 1
@@ -1519,6 +2065,12 @@ class InferenceEngine:
         completion_idx = np.full((S,), -1, np.int32)
         for slot, idx, fed in completions:
             completion_idx[slot] = idx if fed else -1
+        if dec_adp is not None:
+            # only rows the decode grid emits carry their slot
+            for slot, st in enumerate(self._slots):
+                if st is not None and (active[slot]
+                                       or completion_idx[slot] >= 0):
+                    dec_adp[slot] = st.adapter_slot
         chunk_poison = dec_poison = None
         if poison_slot >= 0:
             # the faulted slot's chunk rows too: a prompt completion or a
@@ -1553,7 +2105,7 @@ class InferenceEngine:
                     chunk_tokens, chunk_slots, chunk_pos,
                     commit_slots if spec else None, lengths_before,
                     lengths_after, completion_idx, dec_tokens, active,
-                    chunk_poison, dec_poison,
+                    chunk_poison, dec_poison, chunk_adp, dec_adp,
                 ), restore)
             )
             dt = time.perf_counter() - t0
@@ -1570,7 +2122,7 @@ class InferenceEngine:
                                 for s in self._slots], np.int32)
             t0 = time.perf_counter()
             dec_out, dec_bad = self._call_device(lambda: self._decode(
-                dec_tokens, active, lengths, dec_poison,
+                dec_tokens, active, lengths, dec_poison, dec_adp=dec_adp,
             ))
             self._decode_seconds += time.perf_counter() - t0
             self._decode_steps += 1
@@ -1777,17 +2329,20 @@ class InferenceEngine:
         return self._evict(slot, st, "error")
 
     def _evict(self, slot: int, st: _Slot, reason: str) -> GenerationResult:
+        """The one teardown of a leased slot for finish, cancel,
+        deadline and quarantine: pages and the adapter ref release."""
         self._slots[slot] = None
         self._evicted += 1
         if self.paged:
             self._release_slot_pages(st, slot)
+        self._release_adapter(st)
         finished_at = time.perf_counter()
         req = st.req
         n_new = len(st.generated)
         # a request torn down before its first token (cancel, deadline,
         # quarantine mid-prefill) has no TTFT anchor: the teardown time
         first_at = st.first_token_at or finished_at
-        self._completions.append({
+        self._record_completion({
             "request_id": req.request_id,
             "finish_reason": reason,
             "prompt_tokens": len(req.prompt),
@@ -1797,6 +2352,7 @@ class InferenceEngine:
             "ttft_ms": 1e3 * (first_at - req.enqueued_at),
             "tpot_ms": 1e3 * (finished_at - first_at) / max(n_new - 1, 1),
             "e2e_ms": 1e3 * (finished_at - req.enqueued_at),
+            "tenant": req.tenant,
         })
         return GenerationResult(
             request_id=req.request_id,

@@ -206,6 +206,12 @@ class PrefixStore:
         # a set): a tie between partial matches goes to the oldest page
         self._children: Dict[Any, Dict[_StoreEntry, None]] = {}
         self._by_page: Dict[int, _StoreEntry] = {}
+        # optional hooks, called as ``hook(chain_key, page)`` when a
+        # registration appears in or leaves this store (the router's
+        # `SharedPrefixRegistry` subscribes; chain keys are pure token
+        # tuples, so a subscriber indexes them without the store)
+        self.on_register = None
+        self.on_unregister = None
 
     def __len__(self) -> int:
         return len(self._by_page)
@@ -234,6 +240,8 @@ class PrefixStore:
         self._by_chain[key] = entry
         self._children.setdefault(parent_key, {})[entry] = None
         self._by_page[page] = entry
+        if self.on_register is not None:
+            self.on_register(key, page)
         return key
 
     def chain_key(self, parent_key, tokens: Sequence[int]):
@@ -246,6 +254,8 @@ class PrefixStore:
         if entry is None:
             return
         del self._by_chain[entry.key]
+        if self.on_unregister is not None:
+            self.on_unregister(entry.key, page)
         kids = self._children.get(entry.parent)
         if kids is not None:
             kids.pop(entry, None)

@@ -64,6 +64,10 @@ Port of ``rocm_apex_tpu/models/gpt.py`` at tensor-parallel world size 1.
   engine's slots start empty); a paged cache refuses it, as in JAX.
   These branches run the flash kernels under ``"fused_softmax"`` too, as
   the JAX model does (it tests for ``"jnp"`` only, gpt.py:820-900).
+* ``adapters=`` (the cached branches only, as in JAX gpt.py:1214): the
+  multi-LoRA pool's segmented delta (`ops.lora.apply_lora`, plain fp32
+  gathers and contractions) joins the fused qkv projection's output
+  (gpt.py:466-473) and the output projection's (gpt.py:1066-1069).
 * ``attention_impl="jnp"`` is the JAX model's one-pass reference
   attention, in plain PyTorch: no attention kernel launches (the
   LayerNorm kernels do). Uncached, it is the materialized path with the
@@ -124,6 +128,7 @@ from rocm_apex_tpu_torch.ops.flash_attention_segments import (
     merge_by_lse,
 )
 from rocm_apex_tpu_torch.ops import _dropout as _keep_bits
+from rocm_apex_tpu_torch.ops.lora import apply_lora
 from rocm_apex_tpu_torch.ops.paging import (
     PagedRows,
     paged_rows,
@@ -349,7 +354,7 @@ class ParallelAttention(nn.Module):
                 chunk: Optional[Union[ChunkRows, PagedRows]] = None,
                 dropout_seed: Optional[int] = None,
                 attention_mask: Optional[torch.Tensor] = None,
-                kv_out: Optional[list] = None):
+                kv_out: Optional[list] = None, adapters=None):
         """``attention_mask``: the uncached padding type's mask in the form
         its path reads, which the transformer builds once per forward: the
         additive fp32 (b, sq, sk) bias of `padding_bias` for the flash
@@ -365,7 +370,11 @@ class ParallelAttention(nn.Module):
         segment ids), None for the decode and the whole-prompt prefill.
         ``kv_out``: a list the chunk path appends this layer's packed
         ``(kq, vq)`` to (the speculative chunk's deferred commit reads
-        them)."""
+        them). ``adapters``: this layer's multi-LoRA view (the cached
+        paths only), ``{"qkv": (A, B), "dense": (A, B), "ids", "active"}``
+        with (P, h, r) / (P, r, o) pool slices, the per-token pool slots
+        and the host flag that any is nonzero; the segmented delta joins
+        the fused projection's output and the output projection's."""
         if cache is None:
             if self.cfg.context_parallel_axis is not None:
                 return self._forward_ring(x, dropout_seed)
@@ -387,6 +396,9 @@ class ParallelAttention(nn.Module):
         scale = 1.0 / math.sqrt(hd)
         b, sq, _ = x.shape
         qkv, _ = self.query_key_value(x)
+        if adapters is not None:
+            qkv = apply_lora(qkv, x, adapters["qkv"], adapters["ids"],
+                             adapters["active"])
         # the fused projection is interleaved PER HEAD: (b, s, nh, 3*hd)
         q, k, v = qkv.view(b, sq, nh, 3 * hd).split(hd, dim=-1)
         jnp_ref = cfg.attention_impl == "jnp"
@@ -502,6 +514,9 @@ class ParallelAttention(nn.Module):
                                                  kv_len, scale)
                 ctx = ctx.reshape(b, 1, nh * hd)
         y, _ = self.dense(ctx)
+        if adapters is not None:
+            y = apply_lora(y, ctx, adapters["dense"], adapters["ids"],
+                           adapters["active"])
         return y
 
     def _forward_packed(self, x, dropout_seed):
@@ -633,9 +648,10 @@ class ParallelTransformerLayer(nn.Module):
         self.mlp = ParallelMLP(cfg, device)
 
     def forward(self, x, cache=None, chunk: Optional[ChunkRows] = None,
-                kv_out: Optional[list] = None):
+                kv_out: Optional[list] = None, adapters=None):
         ln1 = self.input_layernorm(x)
-        attn = self.self_attention(ln1, cache, chunk, kv_out=kv_out)
+        attn = self.self_attention(ln1, cache, chunk, kv_out=kv_out,
+                                   adapters=adapters)
         ln2, x = self.post_attention_layernorm(attn.to(x.dtype), residual=x)
         mlp = self.mlp(ln2)
         return (x + mlp.to(x.dtype)).to(self.cfg.dtype)
@@ -694,12 +710,13 @@ class ParallelTransformer(nn.Module):
                 chunk: Optional[Union[ChunkRows, PagedRows]] = None,
                 seeds: Optional[torch.Generator] = None,
                 rows: Optional[PagedRows] = None, attention_mask=None,
-                kv_out: Optional[list] = None):
+                kv_out: Optional[list] = None, adapters=None):
         """``rows``: a paged cache's write destinations for this forward
         (the chunk's, or the decode grid's). ``attention_mask``: the
         uncached path's padding mask, True = masked (read by the padding
         type only, as in the JAX model). ``kv_out``: collects each
-        layer's packed chunk ``(kq, vq)``."""
+        layer's packed chunk ``(kq, vq)``. ``adapters``: the multi-LoRA
+        pool view of `GPTModel.forward`, sliced per layer here."""
         if cache is None:
             return self._forward_chained(x, seeds, attention_mask)
         if attention_mask is not None:
@@ -722,7 +739,18 @@ class ParallelTransformer(nn.Module):
                              else cache.v_scale[i]),
                     rows=rows,
                 ),)
-            x = getattr(self, name)(x, layer_cache, chunk, kv_out)
+            layer_adapters = None
+            if adapters is not None:
+                # the layer's (P, h, r) / (P, r, o) pool slices; the ids
+                # and the host flag are shared across the stack
+                layer_adapters = {
+                    t: (adapters[t][0][i], adapters[t][1][i])
+                    for t in ("qkv", "dense")
+                }
+                layer_adapters.update(ids=adapters["ids"],
+                                      active=adapters["active"])
+            x = getattr(self, name)(x, layer_cache, chunk, kv_out,
+                                    layer_adapters)
         x = self.final_layernorm(x).to(self.cfg.dtype)
         if chunk is None:
             # every layer wrote at the same offsets: advance once, for
@@ -823,7 +851,12 @@ class GPTModel(nn.Module):
     ``rows``: the write destinations, resolved by the caller (the engine
     resolves them on the host, so the forward reads no device value):
     the chunk's (its ``slots`` the segment ids), or a paged cache's
-    decode grid's; None resolves them here. Runs on CUDA unless
+    decode grid's; None resolves them here. ``adapters`` (cached paths
+    only): the multi-LoRA view ``{"qkv": (A, B), "dense": (A, B),
+    "ids", "active"}``, A/B the `AdapterPool`'s (L, P, h, r) / (L, P, r,
+    o) buffers, ``ids`` each token's pool slot (the chunk's rows, or
+    the decode grid's slots) and ``active`` the host flag that any id is
+    nonzero (gpt.py:1267-1281 of the JAX model). Runs on CUDA unless
     ``device`` says otherwise.
     """
 
@@ -847,7 +880,12 @@ class GPTModel(nn.Module):
         loss_reduction: Optional[str] = None,
         dropout_generator: Optional[torch.Generator] = None,
         rows: Optional[Union[ChunkRows, PagedRows]] = None,
+        adapters=None,
     ):
+        if adapters is not None and cache is None:
+            raise ValueError(
+                "adapters= is a KV-cached serving feature; pass cache="
+            )
         if cache is not None:
             if labels is not None:
                 raise ValueError(
@@ -860,7 +898,7 @@ class GPTModel(nn.Module):
                 )
             with torch.no_grad():
                 return self._forward_cached(tokens, position_ids, cache,
-                                            chunk, rows)
+                                            chunk, rows, adapters)
         if chunk is not None:
             raise ValueError(
                 "chunked prefill writes into a KV cache; pass cache= "
@@ -904,7 +942,8 @@ class GPTModel(nn.Module):
             losses = losses * loss_mask
         return losses
 
-    def _forward_cached(self, tokens, position_ids, cache, chunk, rows=None):
+    def _forward_cached(self, tokens, position_ids, cache, chunk, rows=None,
+                        adapters=None):
         paged = getattr(cache, "page_table", None) is not None
         kv_out = None
         if chunk is not None:
@@ -945,7 +984,8 @@ class GPTModel(nn.Module):
                                   cache.page_size, cache.num_pages)
         x = self.embedding(tokens, position_ids)
         x = self.transformer(x, cache, rows if chunk is not None else None,
-                             rows=rows if paged else None, kv_out=kv_out)
+                             rows=rows if paged else None, kv_out=kv_out,
+                             adapters=adapters)
         if kv_out is not None:
             chunk_kv = ([k for k, _ in kv_out], [v for _, v in kv_out])
             return self.embedding.attend(x), cache, chunk_kv

@@ -12,7 +12,11 @@ reuse the libraries.
 
 Every C entry point returns ``cudaGetLastError()``; `Kernel.__call__`
 raises if it is not 0, since a refused launch never runs and a later
-``torch.cuda.synchronize()`` would not report it.
+``torch.cuda.synchronize()`` would not report it. Each library also keeps
+a host table of the device kernels its entry points launched, by name
+(``launch_log``, csrc/common.cuh): `device_launches` reads every loaded
+library's, `reset_device_launches` clears them, `Kernel.device_launches`
+reads its own library's.
 """
 
 import ctypes
@@ -34,6 +38,8 @@ __all__ = [
     "DTYPE_CODES",
     "build_all",
     "build_logs",
+    "device_launches",
+    "reset_device_launches",
     "dtype_code",
     "half_float",
     "ptr",
@@ -194,8 +200,47 @@ def _library(source: str) -> ctypes.CDLL:
                     lib = ctypes.CDLL(str(path))
                     lib.kernel_error_string.argtypes = [ctypes.c_int]
                     lib.kernel_error_string.restype = ctypes.c_char_p
+                    lib.launch_log.argtypes = [ctypes.c_char_p, ctypes.c_int]
+                    lib.launch_log.restype = ctypes.c_int
+                    lib.launch_log_reset.argtypes = []
+                    lib.launch_log_reset.restype = None
                     _libs[name] = lib
         return _libs[source]
+
+
+def _launch_log(lib: ctypes.CDLL) -> Dict[str, int]:
+    need = lib.launch_log(None, 0)
+    buf = ctypes.create_string_buffer(need)
+    lib.launch_log(buf, need)
+    out = {}
+    for line in buf.value.decode().splitlines():
+        name, count = line.rsplit(" ", 1)
+        out[name] = int(count)
+    return out
+
+
+def device_launches() -> Dict[str, int]:
+    """Device kernel name -> launches since the last
+    `reset_device_launches`, over every library this process loaded (a
+    name launched from two libraries sums). The names are the kernels'
+    own (``fwd_pipe_kernel``; a bottleneck pipe's as ``pipe_kernel<``
+    its problem type's typeid name ``>``), recorded on the host as each
+    launch call returns without error."""
+    out: Dict[str, int] = {}
+    with _lock:
+        libs = list(_libs.values())
+    for lib in libs:
+        for name, n in _launch_log(lib).items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def reset_device_launches() -> None:
+    """Clear the launch table of every loaded library."""
+    with _lock:
+        libs = list(_libs.values())
+    for lib in libs:
+        lib.launch_log_reset()
 
 
 class Kernel:
@@ -228,3 +273,9 @@ class Kernel:
                 f"{self.name}: CUDA launch failed with error {rc} ({msg})"
             )
         self.launches += 1
+
+    def device_launches(self) -> Dict[str, int]:
+        """Device kernel name -> launches recorded by this kernel's
+        library (every entry point of its source) since the last
+        `reset_device_launches`."""
+        return _launch_log(_library(self.source))

@@ -134,10 +134,10 @@ class TestEngineSurface:
         assert eng.stats()["generated_tokens"] == 0.0
 
     @pytest.mark.parametrize("kw", [
-        dict(paged=True, adapter_pool=object()),
+        dict(paged=True, registry=object()),
         dict(paged=True, tracer=object()),
         dict(flight_recorder=object()),
-        dict(timeseries=object()), dict(adapter_pool=object()),
+        dict(timeseries=object()), dict(registry=object(), tracer=object()),
         dict(tracer=object()), dict(registry=object()),
     ])
     def test_unported_options_raise(self, engines, kw):

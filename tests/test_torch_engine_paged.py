@@ -170,7 +170,7 @@ def test_pages_used_per_step_match_jax(engines):
     (dict(paged=True, flight_recorder=object()), NotImplementedError,
      "not ported"),
     (dict(paged=True, timeseries=object()), NotImplementedError, "item 9"),
-    (dict(paged=True, adapter_pool=object()), NotImplementedError,
+    (dict(paged=True, registry=object()), NotImplementedError,
      "not ported"),
     (dict(paged=True, tracer=object()), NotImplementedError, "not ported"),
     (dict(prefix_sharing=True), ValueError, "paged=True"),
