@@ -272,7 +272,25 @@ JAX package) through these phases, in order; any failure exits non-zero:
              to its source), a rolling drain and rejoin; every replica
              launches rows 1, 3 and its decode read; the fp32 twin's
              fleets == the single engine == the CPU;
-31. report   a ``{"kernels": [...]}`` line, then the device line
+31. serve_tp  tensor-parallel serving at tp=2: rows 1, 3 and 6 first
+             held to their plain versions at a rank's bf16 shapes (LN
+             on 128 and 8 rows, the segment read and the paged grid and
+             piece B on 4 heads, float and int8 pools); then two spawned
+             ranks of a gloo group on the one card (the exchanges staged
+             through host memory), each with its shard of the serve model sliced
+             from the serve's tp=1 checkpoint by `shard_tp1_params`: the
+             serve's 32 requests x 64 on bf16 and int8 pages of 16 beside
+             the tp=1 paged serve in the same call (tok/s a figure; the
+             tp=1 tokens counted): half the KV bytes a rank, rows 1, 3
+             and 6 on their plans' routes at the rank's shapes, one fetch
+             a tick and the exchanges a step the layout implies under
+             `sync_audit`, both ranks the same tokens; a migration with
+             full-head pages (each rank's heads its own pool's bits, a
+             tp=1 payload's layout); spec_k 4 drafting, accepting and
+             rolling back; the fp32 twin tp=2 card == tp=2 cpu == tp=1
+             card on both layouts with and without speculation, and a
+             tp=2 payload resumed by a tp=1 engine;
+32. report   a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
@@ -453,7 +471,8 @@ PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "bert_train_masked_fused_softmax", "train_packed_parity",
           "train_packed", "rn50_parity", "rn50_train", "rn50_train_fused",
           "mha", "context_parallel", "serve_jnp", "optim_amp", "head_dims",
-          "fp16", "serve_spec", "serve_chaos", "serve_lora", "serve_router")
+          "fp16", "serve_spec", "serve_chaos", "serve_lora", "serve_router",
+          "serve_tp")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_segments_serve",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -4577,32 +4596,57 @@ def sync_audit(*engs):
     (``torch.cuda.set_sync_debug_mode("error")``: a ``.item()``, a
     ``nonzero``, a blocking copy either way), except inside the engines'
     `ENGINE_SYNCS`, whose calls are counted (summed over ``engs``, a
-    router's replicas). Yields the counts."""
-    counts = dict.fromkeys(ENGINE_SYNCS, 0)
+    router's replicas), and, with a tensor-parallel engine among them,
+    inside `parallel_state.exchange` (the staged exchanges of the tensor
+    group: a gloo collective copies its card tensors through host
+    memory), counted by kind as ``exchange:<kind>`` (`exchange_count`
+    sums them). Yields the counts. Without a card (a CPU rehearsal of
+    the ranks) nothing can sync one, and the window only counts."""
+    from rocm_apex_tpu_torch.transformer import parallel_state
 
-    def allowed(eng, name, fn):
+    tp = any(getattr(eng, "tp", 1) > 1 for eng in engs)
+    counts = dict.fromkeys(ENGINE_SYNCS, 0)
+    mode = (torch.cuda.set_sync_debug_mode if torch.cuda.is_available()
+            else lambda _: None)
+
+    def allowed(key, fn):
         def call(*a, **kw):
-            # a table push copies only when the mapping changed
-            counts[name] += (int(eng._table_dirty) if name == "_push_table"
-                             else 1)
-            torch.cuda.set_sync_debug_mode(0)
+            name, n = key(*a)
+            counts[name] = counts.get(name, 0) + n
+            mode(0)
             try:
                 return fn(*a, **kw)
             finally:
-                torch.cuda.set_sync_debug_mode("error")
+                mode("error")
         return call
+
+    def engine_sync(eng, name):
+        # a table push copies only when the mapping changed
+        return lambda *_: (name, int(eng._table_dirty)
+                           if name == "_push_table" else 1)
 
     for eng in engs:
         for name in ENGINE_SYNCS:
-            setattr(eng, name, allowed(eng, name, getattr(eng, name)))
-    torch.cuda.set_sync_debug_mode("error")
+            setattr(eng, name, allowed(engine_sync(eng, name),
+                                       getattr(eng, name)))
+    exchange = parallel_state.exchange
+    if tp:
+        parallel_state.exchange = allowed(
+            lambda kind, *_: (f"exchange:{kind}", 1), exchange)
+    mode("error")
     try:
         yield counts
     finally:
-        torch.cuda.set_sync_debug_mode(0)
+        mode(0)
+        parallel_state.exchange = exchange
         for eng in engs:
             for name in ENGINE_SYNCS:
                 delattr(eng, name)
+
+
+def exchange_count(counts):
+    """The exchanges of every kind that `sync_audit` counted."""
+    return sum(n for k, n in counts.items() if k.startswith("exchange:"))
 
 
 def timed_serve(eng, prompts, max_new=MAX_NEW, audit=False, adapters=None):
@@ -9046,6 +9090,622 @@ def run_serve_router_phase(contiguous_tokens=None):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 31: tensor-parallel serving at tp=2
+# ---------------------------------------------------------------------------
+
+# tp=2 serving on the one card: two ranks of a gloo group (the exchanges
+# staged through host memory), each a process of its own holding its
+# shard of the serve model, sliced from the serve's tp=1 checkpoint
+# (`shard_tp1_params`, the same seeded tree as `_serve_model`'s). Each
+# serves the serve's requests on pages of PAGE_SIZE in the model's dtype
+# and in int8; then a migration with its pages, a speculative serve and
+# the fp32 twin. The ranks share one card's multiprocessors and exchange
+# through host memory: their times say nothing of an interconnect.
+TP_RANKS = 2
+TP_LAYOUTS = (("pages", {}, "flash_attention_decode_paged"),
+              ("int8_pages", dict(kv_dtype=torch.int8),
+               "flash_attention_decode_paged_int8"))
+# the migration: the first requests evacuate (with their pages) once each
+# has generated `after` tokens, into a fresh engine
+TP_SHIP = dict(requests=4, after=4)
+TP_SPEC = dict(requests=16, max_new=32)  # periodic prompts, spec_k SPEC_K
+TP_JOIN_S = 420
+TP_THREADS = 3  # CPU threads a rank (the twin's CPU engines)
+# a migrated payload against the tp=1 engine's for the same requests: the
+# largest |difference| over max |tp=1 value| a block. The row-parallel
+# sums add two partial products where tp=1 adds one, so a value moves by
+# its dtype's rounding through the layers; a row in another slot moves it
+# by its own size
+TP_PAYLOAD_TOL = {torch.bfloat16: 0.1, torch.float32: 1e-4}
+
+
+def _tp_models(spec, rank, dtype, devices, **over):
+    """The serve's config (``over`` changed) at tp=2: this rank's shard of
+    the seeded tp=1 tree (seed 0, as `_serve_model` and `_twin_models`
+    draw it), one model a device. ``rank`` None: the tp=1 model."""
+    import dataclasses
+
+    from rocm_apex_tpu_torch.convert import from_jax_params, random_params
+    from rocm_apex_tpu_torch.inference import shard_tp1_params
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+
+    cfg = GPTConfig(**{**spec["serve"], **over}, params_dtype=torch.float32,
+                    dtype=dtype)
+    tree = random_params(cfg, seed=0)
+    cfg = dataclasses.replace(cfg, tensor_parallel_size=TP_RANKS)
+    tree = shard_tp1_params(GPTModel(cfg, device="meta"), tree, rank)
+    return [from_jax_params(tree, cfg, device=d) for d in devices]
+
+
+def _tp_engine(model, spec, **kw):
+    """A greedy paged engine of the serve's geometry (sizes from
+    ``spec``, so a rehearsal may shrink them in the spawned ranks)."""
+    from rocm_apex_tpu_torch.inference import InferenceEngine, SamplingParams
+
+    kw.setdefault("prefill_token_budget", spec["budget"])
+    return InferenceEngine(model, num_slots=spec["slots"],
+                           capacity=spec["capacity"], paged=True,
+                           page_size=spec["page_size"],
+                           sampling=SamplingParams(temperature=0.0), **kw)
+
+
+def _tp_timed(eng, prompts, max_new):
+    """One timed serve on a warm engine, under `sync_audit`: launches
+    (wrapper counts and the device kernels of the launch tables) set to
+    0 just before, read just after; each device step's exchanges (the
+    audit's counts) recorded by step kind; tokens, tok/s, syncs a tick,
+    this rank's KV bytes."""
+    from rocm_apex_tpu_torch.ops._build import (
+        device_launches,
+        reset_device_launches,
+    )
+
+    per_step = {"mixed": [], "decode": []}
+
+    def step(name, fn):
+        def call(*a, **kw):
+            before = exchange_count(syncs)
+            out = fn(*a, **kw)
+            per_step[name].append(exchange_count(syncs) - before)
+            return out
+        return call
+
+    eng._mixed, eng._decode = step("mixed", eng._mixed), step("decode",
+                                                              eng._decode)
+    eng.reset_stats()
+    _zero_launches()
+    reset_device_launches()
+    try:
+        t0 = time.perf_counter()
+        with sync_audit(eng) as syncs:
+            results = eng.generate(prompts, max_new_tokens=max_new)
+        _sync()
+        dt = time.perf_counter() - t0
+    finally:
+        del eng._mixed, eng._decode
+    s = eng.stats()
+    ticks = int(s["mixed_steps"] + s["decode_only_steps"])
+    gen = sum(len(r.tokens) for r in results)
+    return dict(
+        tokens=[r.tokens for r in results],
+        reasons=sorted({r.finish_reason for r in results}),
+        quarantined=s["quarantined"], seconds=dt, tokens_per_s=gen / dt,
+        ticks=ticks, mixed_ticks=int(s["mixed_steps"]),
+        decode_only_ticks=int(s["decode_only_steps"]),
+        exchanges={k.split(":")[1]: n for k, n in syncs.items()
+                   if k.startswith("exchange:")},
+        exchanges_per_step={k: sorted(set(v)) for k, v in per_step.items()},
+        syncs_per_tick={k.lstrip("_"): n / max(ticks, 1)
+                        for k, n in syncs.items()},
+        launches=_launches(), device_kernels=sorted(device_launches()),
+        kv_bytes=eng.per_chip_kv_bytes(), pages_used_after=eng.pages_used,
+        **{c: s[c] for c in ("tokens_drafted", "tokens_accepted",
+                             "rollbacks")})
+
+
+def _tp_ship(model, spec, rank=0):
+    """The migration: the first ``spec["ship"]["requests"]`` prompts run
+    until each generated ``after`` tokens, the engine evacuates with its
+    pages into a fresh engine, which finishes them. ``own_blocks_equal``:
+    every payload's heads of this rank are its pool's blocks bit for bit
+    (read before the evacuation released the pages). Returns the records
+    (payloads on the host), the tokens by request id, the same requests'
+    tokens on an undisturbed engine, and the import counters."""
+    n, after = spec["ship"]["requests"], spec["ship"]["after"]
+    prompts, max_new = spec["prompts"][:n], spec["max_new"]
+    base = [r.tokens for r in _tp_engine(model, spec).generate(prompts,
+                                                               max_new)]
+    src = _tp_engine(model, spec)
+    for p in prompts:
+        src.add_request(p, max_new)
+    done = {}
+    for _ in range(10 * max_new):
+        for r in src.step():
+            done[r.request_id] = r.tokens
+        live = [st for st in src._slots if st is not None]
+        if live and all(len(st.generated) >= after for st in live):
+            break
+    c, ps = src.cache, src.cache.page_size
+    own = {}
+    for slot, st in enumerate(src._slots):
+        if st is not None:
+            idx = torch.as_tensor(src._table[slot, :-(-st.pos // ps)],
+                                  dtype=torch.long, device=c.k[0].device)
+            own[st.req.request_id] = [b.index_select(0, idx) for b in (
+                *c.k, *c.v, *(c.k_scale or ()), *(c.v_scale or ()))]
+    heads = c.k[0].shape[1]
+    recs = src.evacuate(ship_pages=True)
+    equal = True
+    for rec in recs:
+        pay = rec.get("pages")
+        blocks = [*pay["k"], *pay["v"], *pay.get("k_scale", ()),
+                  *pay.get("v_scale", ())]
+        equal &= all(torch.equal(b.narrow(1, rank * heads, heads), o)
+                     for b, o in zip(blocks, own[rec["request_id"]]))
+        for key in ("k", "v", "k_scale", "v_scale"):
+            if key in pay:
+                pay[key] = [b.cpu() for b in pay[key]]
+    dst = _tp_engine(model, spec)
+    for rec in recs:
+        dst.resume_request(rec["prompt"], rec["max_new_tokens"],
+                           rec["request_id"], generated=rec["generated"],
+                           first_token_at=rec["first_token_at"],
+                           chunks=rec["chunks"], pages=rec.get("pages"))
+    while dst.has_work():
+        for r in dst.step():
+            done[r.request_id] = r.tokens
+    s = dst.stats()
+    return dict(records=recs, tokens=[done[i] for i in sorted(done)],
+                base=base, own_blocks_equal=bool(equal),
+                page_ships=s["page_ships"],
+                page_ship_fallbacks=s["page_ship_fallbacks"],
+                pages_used_after=(src.pages_used, dst.pages_used))
+
+
+def _tp_serves(rank, dev, spec, out):
+    """The serve on both layouts, the migration, the speculative serve
+    (bf16 pages), each timed under the audit."""
+    (model,) = _tp_models(spec, rank, torch.bfloat16, [dev])
+    for form, kw, _ in TP_LAYOUTS:
+        eng = _tp_engine(model, spec, **kw)
+        eng.generate(spec["prompts"][:spec["slots"]], max_new_tokens=3)
+        out[form] = _tp_timed(eng, spec["prompts"], spec["max_new"])
+        del eng
+    out["ship"] = _tp_ship(model, spec, rank)
+    eng = _tp_engine(model, spec, spec_k=spec["spec_k"],
+                     prefill_token_budget=spec["spec_budget"])
+    eng.generate(spec["spec_prompts"][:spec["slots"]],
+                 max_new_tokens=spec["spec_warm_new"])
+    out["spec"] = _tp_timed(eng, spec["spec_prompts"], spec["spec_new"])
+
+
+def _tp_twin(rank, dev, spec, out):
+    """The fp32 twin (``twin_layers`` layers, TF32 off) at tp=2 on the
+    card and on the CPU, every layout with and without speculation, and
+    the migration on the card."""
+    card, cpu = _tp_models(spec, rank, torch.float32, [dev, "cpu"],
+                           num_layers=spec["twin_layers"])
+    prompts, new = spec["twin_prompts"], spec["twin_new"]
+    res = {}
+    for form, kw, _ in TP_LAYOUTS:
+        for k in (0, spec["spec_k"]):
+            for where, m in (("card", card), ("cpu", cpu)):
+                eng = _tp_engine(m, spec, spec_k=k,
+                                 prefill_token_budget=spec["spec_budget"],
+                                 **kw)
+                res[form, k, where] = [r.tokens for r in
+                                       eng.generate(prompts, new)]
+    res["ship"] = _tp_ship(card, {**spec, "prompts": prompts,
+                                  "max_new": new}, rank)
+    out["twin"] = res
+
+
+def _tp_rank(rank, n, workdir, spec):
+    """One rank of the serve_tp phase (spawned): the gloo group, the
+    tensor axis (`initialize_model_parallel`), the serves and the twin;
+    writes rank<r>.pt (an ``error`` entry if anything raised)."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        dev = (torch.device(spec["device"], 0) if spec["device"] == "cuda"
+               else torch.device(spec["device"]))
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        torch.set_num_threads(spec["threads"])
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", init_method=f"file://{workdir}/store", rank=rank,
+            world_size=n, timeout=datetime.timedelta(seconds=120))
+        from rocm_apex_tpu_torch.transformer import parallel_state
+
+        parallel_state.initialize_model_parallel(n)
+        t0 = time.perf_counter()
+        _tp_serves(rank, dev, spec, out)
+        _tp_twin(rank, dev, spec, out)
+        out["rank_s"] = time.perf_counter() - t0
+        dist.barrier()
+        parallel_state.destroy_model_parallel()
+        dist.destroy_process_group()
+    except Exception:  # noqa: BLE001 - the parent reports it
+        out["error"] = traceback.format_exc()
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def _tp_spawn(spec):
+    """The ranks, spawned; their outputs (fails on a hang, a missing file
+    or a rank's error) and the seconds they took."""
+    import multiprocessing
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as workdir:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_tp_rank, args=(r, TP_RANKS, workdir,
+                                                    spec))
+                 for r in range(TP_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(TP_JOIN_S)
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        ranks_s = time.perf_counter() - t0
+        check(not hung, f"serve_tp: ranks {hung} did not finish in "
+              f"{TP_JOIN_S} s")
+        outs = []
+        for r in range(TP_RANKS):
+            path = os.path.join(workdir, f"rank{r}.pt")
+            check(os.path.exists(path), f"serve_tp: rank {r} wrote nothing "
+                  f"(exit code {procs[r].exitcode})")
+            outs.append(torch.load(path, weights_only=False))
+    for r, o in enumerate(outs):
+        check("error" not in o, f"serve_tp rank {r}:\n{o.get('error')}")
+    return outs, ranks_s
+
+
+def _tp_routes(cfg, spec, dtype):
+    """The device kernels rows 1, 3 and 6 must launch on a rank, by their
+    plans at the rank's shapes, and those they must not: the LN forward
+    on the chunk's rows a rank (``budget / tp``) and the grid's, the
+    serving segment read over the rank's heads of the whole chunk, the
+    paged read's split (its merge when the grid's key range splits over
+    more than one block)."""
+    from rocm_apex_tpu_torch.ops import flash_attention as fa
+    from rocm_apex_tpu_torch.ops import layer_norm as ln
+    from rocm_apex_tpu_torch.ops._build import sm_count
+    from rocm_apex_tpu_torch.ops.flash_attention_segments import (
+        flash_segments_serve_plan)
+
+    sms = sm_count(torch.device(CARD, 0))
+    heads, hd = cfg.num_attention_heads // TP_RANKS, cfg.head_dim
+    ln_routes = {ln.ln_fwd_plan(rows, cfg.hidden_size, dtype, sms)["route"]
+                 for rows in (spec["budget"] // TP_RANKS, spec["slots"])}
+    seg = flash_segments_serve_plan(heads, spec["budget"], hd, dtype)["route"]
+    spans, _ = fa.decode_span_plan(spec["slots"], heads, spec["capacity"],
+                                   sms)
+    need = {k for r in ln_routes for k in LN_ROUTE_KERNELS[r]}
+    need |= set(SEG_SERVE_ROUTE_KERNELS[seg]) | {"decode_split_kernel"}
+    if fa.decode_span_workspace(spec["slots"], heads, hd, spans):
+        need.add("decode_merge_kernel")
+    banned = {k for r, ks in LN_ROUTE_KERNELS.items() if r not in ln_routes
+              for k in ks}
+    banned |= {k for r, ks in SEG_SERVE_ROUTE_KERNELS.items() if r != seg
+               for k in ks} - need
+    return dict(ln=sorted(ln_routes), seg=seg, spans=spans), need, banned
+
+
+def _tp_kernel_cases(dev, cfg):
+    """Rows 1, 3 and 6 at a rank's shapes in the tp=2 bf16 serve, each
+    against its plain version on the same card inputs by the kernel
+    phase's own case generators, checks and tolerances
+    (`run_kernel_phase`; routes by the launch tables): the LN forward on
+    the chunk's sequence shard (``BUDGET / tp`` rows) and on the grid's
+    ``SLOTS`` rows, plain and residual; the serving segment read over
+    the whole chunk on the rank's heads; the paged read's grid and
+    chunk piece B on the rank's heads, float and int8 pools."""
+    bf = torch.bfloat16
+    h, d = cfg.num_attention_heads // TP_RANKS, cfg.head_dim
+    ln_shapes = [(rows, cfg.hidden_size, residual, bf)
+                 for rows in (BUDGET // TP_RANKS, SLOTS)
+                 for residual in (False, True)]
+    paged = [(form, PAGE_SIZE, bf, int8)
+             for form in ("decode grid", "chunk piece B")
+             for int8 in (False, True)]
+    return run_kernel_phase(dev, [
+        lambda dev: ln_cases(dev, ln_shapes),
+        lambda dev: seg_cases(dev, h, d, seed=250, dtypes=(bf,)),
+        lambda dev: paged_decode_cases(dev, h, d, paged, seed=251)])
+
+
+def _payload_diff(got, want):
+    """A tp=2 payload against the tp=1 engine's for the same request:
+    the same keys, shapes and dtypes (checked), whether layer 0's blocks
+    have the same bits, the largest |difference| over max |tp=1 value|
+    of the float blocks (int8: the largest step)."""
+    check(set(got) == set(want) and all(
+        got[k] == want[k] for k in ("rows", "page_size", "quantized",
+                                    "dtype")),
+          "serve_tp: the payload's fields differ from a tp=1 payload's")
+    layer0, worst = True, 0.0
+    for key in ("k", "v", "k_scale", "v_scale"):
+        for layer, (a, b) in enumerate(zip(got.get(key, ()),
+                                           want.get(key, ()))):
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"serve_tp: payload {key} {layer}: {tuple(a.shape)} "
+                  f"{a.dtype} where tp=1 has {tuple(b.shape)} {b.dtype}")
+            layer0 &= layer > 0 or torch.equal(a, b.cpu())
+            d = (a.float() - b.float().cpu()).abs().max()
+            worst = max(worst, float(d) if a.dtype == torch.int8 else
+                        float(d) / max(float(b.float().abs().max()), 1e-30))
+    return layer0, worst
+
+
+def run_serve_tp_phase(spec=None):
+    """Tensor-parallel serving at tp=2 (see TP_RANKS): rows 1, 3 and 6
+    at a rank's bf16 shapes against their plain versions
+    (`_tp_kernel_cases`), then the tp=1 paged serve on the card (tokens, tok/s, KV bytes, a migration's
+    payload, the twin's tokens), then two spawned ranks. On each rank
+    and layout: the serve's requests all to their length, this rank's
+    pools and scales half the tp=1 engine's bytes, rows 1, 3 and 6
+    launched (wrapper counts) on their plans' routes at the rank's
+    shapes (the launch tables), one fetch a tick and no sync outside
+    the engine's and the staged exchanges (`sync_audit`), each mixed
+    step's and decode step's exchanges the count the layout implies; both
+    ranks the same tokens; the bf16 tokens equal to the tp=1 serve's
+    counted, not asserted (the row-parallel partial sums add in another
+    order). The migration: every payload carries every head (each rank's
+    heads its own pool's bits, both ranks' payloads the same bits, the
+    layout of a tp=1 payload, layer 0 and the worst difference to it
+    reported), imported whole into a fresh tp=2 engine, no page left.
+    The speculative serve drafts, accepts and rolls back. The fp32 twin:
+    tp=2 card == tp=2 CPU == tp=1 card tokens on both layouts with and
+    without speculation; the migration's tokens == the undisturbed tp=2
+    run's, and its payload imported by a tp=1 engine gives the tp=1
+    run's tokens."""
+    model, load_s = _serve_model()
+    cfg = model.cfg
+    vocab = cfg.vocab_size
+    dev = torch.device(CARD, 0) if CARD == "cuda" else torch.device(CARD)
+    spec = spec or dict(
+        device=CARD, serve=SERVE, slots=SLOTS, capacity=CAPACITY,
+        budget=BUDGET, page_size=PAGE_SIZE, prompts=serve_prompts(vocab),
+        max_new=MAX_NEW, ship=TP_SHIP, spec_k=SPEC_K,
+        spec_budget=SPEC_BUDGET,
+        spec_prompts=spec_prompts(vocab, TP_SPEC["requests"]),
+        spec_new=TP_SPEC["max_new"], spec_warm_new=SPEC_WARM_NEW,
+        twin_layers=SPEC_TWIN["num_layers"],
+        twin_prompts=spec_prompts(vocab, SPEC_TWIN["requests"]),
+        twin_new=SPEC_TWIN["max_new"], threads=TP_THREADS)
+    L = spec["serve"]["num_layers"]
+    # exchanges a device step: the chunk's embedding all-reduce, four
+    # ring hops a layer (the QKV and fc1 gathers, the dense and fc2
+    # reduce-scatters), the exit gather and the logits' vocab gather;
+    # the grid's embedding all-reduce, two all-reduces a layer, the
+    # logits' gather
+    want_steps = {"mixed": [(4 * L + 3) + (2 * L + 2)],
+                  "decode": [2 * L + 2]}
+    res = dict(ranks=TP_RANKS, weights_load_s=load_s,
+               exchanges_want=want_steps, forms={})
+    if dev.type == "cuda":
+        log(f"  -- rows 1, 3 and 6 at a rank's shapes (tp={TP_RANKS}, bf16) "
+            f"against their plain versions")
+        res["kernel_cases"] = [
+            {k: c[k] for k in ("kernel", "case", "max_abs_err",
+                               "err_over_tol", "ms", "plain_ms",
+                               "bound_ms")}
+            for c in _tp_kernel_cases(dev, cfg)]
+    log("  -- tp=1 references on the card")
+    ref = {}
+    for form, kw, _ in TP_LAYOUTS:
+        eng = _tp_engine(model, spec, **kw)
+        eng.generate(spec["prompts"][:spec["slots"]], max_new_tokens=3)
+        ref[form] = _tp_timed(eng, spec["prompts"], spec["max_new"])
+        del eng
+    ref["ship"] = _tp_ship(model, spec)
+    twin1 = _twin_models(spec["twin_layers"])[CARD]
+    for form, kw, _ in TP_LAYOUTS:
+        for k in (0, spec["spec_k"]):
+            eng = _tp_engine(twin1, spec, spec_k=k,
+                             prefill_token_budget=spec["spec_budget"], **kw)
+            ref["twin", form, k] = [r.tokens for r in eng.generate(
+                spec["twin_prompts"], spec["twin_new"])]
+    twin_spec = {**spec, "prompts": spec["twin_prompts"],
+                 "max_new": spec["twin_new"]}
+    ref["twin_ship"] = _tp_ship(twin1, twin_spec)
+    torch.cuda.empty_cache()
+
+    log(f"  -- {TP_RANKS} ranks")
+    outs, res["ranks_s"] = _tp_spawn(spec)
+    routes, need, banned = _tp_routes(cfg, spec, cfg.dtype)
+    res["routes"] = routes
+    for form, kw, decode in TP_LAYOUTS:
+        want = ref[form]
+        r_out = [o[form] for o in outs]
+        for r, got in enumerate(r_out):
+            what = f"serve_tp {form} rank {r}"
+            check(got["reasons"] == ["length"] and got["quarantined"] == 0
+                  and all(len(t) == spec["max_new"] and all(
+                      0 <= x < vocab for x in t) for t in got["tokens"]),
+                  f"{what}: a request did not run to its length with "
+                  f"in-vocabulary tokens")
+            check(got["kv_bytes"] * TP_RANKS == want["kv_bytes"],
+                  f"{what}: {got['kv_bytes']} KV bytes, tp=1 holds "
+                  f"{want['kv_bytes']}")
+            for name in ("layer_norm_fwd", "flash_segments_serve", decode):
+                check(got["launches"].get(name, 0) > 0,
+                      f"{what}: {name} was not launched")
+            check(got["launches"].get("flash_attention_segments_with_lse",
+                                      0) == 0,
+                  f"{what}: the chunk left row 3's serving route")
+            names = got["device_kernels"]
+            check(all(any(k in x for x in names) for k in need)
+                  and not any(k in x for x in names for k in banned),
+                  f"{what}: launched {names}; the plans {routes} need "
+                  f"{sorted(need)} and none of {sorted(banned)}")
+            check(got["syncs_per_tick"].get("fetch") == 1.0,
+                  f"{what}: {got['syncs_per_tick']} syncs a tick")
+            check(got["exchanges_per_step"] == want_steps,
+                  f"{what}: exchanges a step {got['exchanges_per_step']}, "
+                  f"want {want_steps}")
+            check(got["pages_used_after"] == 0, f"{what}: pages left in use")
+        check(r_out[0]["tokens"] == r_out[1]["tokens"],
+              f"serve_tp {form}: the ranks' tokens differ")
+        same = sum(a == b for a, b in zip(r_out[0]["tokens"],
+                                          want["tokens"]))
+        row = dict(
+            tokens_per_s=[g["tokens_per_s"] for g in r_out],
+            tp1_tokens_per_s=want["tokens_per_s"],
+            requests_matching_tp1=same, kv_bytes=r_out[0]["kv_bytes"],
+            tp1_kv_bytes=want["kv_bytes"], ticks=r_out[0]["ticks"],
+            mixed_ticks=r_out[0]["mixed_ticks"],
+            exchanges=r_out[0]["exchanges"],
+            exchanges_per_step=r_out[0]["exchanges_per_step"],
+            syncs_per_tick=r_out[0]["syncs_per_tick"],
+            launches=[g["launches"] for g in r_out], seconds=[
+                g["seconds"] for g in r_out], tp1_seconds=want["seconds"])
+        res["forms"][form] = row
+        log(f"  {form}: ranks {[round(x, 1) for x in row['tokens_per_s']]} "
+            f"generated tok/s beside tp=1's {want['tokens_per_s']:.1f} (the "
+            f"same call; two ranks on one card's multiprocessors, "
+            f"exchanging through host memory); {same}/"
+            f"{len(want['tokens'])} requests give the tp=1 paged serve's "
+            f"tokens; KV bytes a rank {row['kv_bytes']} = tp=1's "
+            f"{want['kv_bytes']} / {TP_RANKS}; {row['ticks']} ticks "
+            f"({row['mixed_ticks']} mixed); exchanges a step "
+            f"{row['exchanges_per_step']} ({row['exchanges']}); syncs a "
+            f"tick {row['syncs_per_tick']}")
+        log(f"  launches by rank {row['launches']}")
+
+    log("  -- the migration (bf16 pages)")
+    ships = [o["ship"] for o in outs]
+    for r, sh in enumerate(ships):
+        check(sh["own_blocks_equal"], f"serve_tp rank {r}: a payload's "
+              f"heads of this rank are not its pool's blocks")
+        check(sh["page_ships"] >= 1 and sh["page_ship_fallbacks"] == 0,
+              f"serve_tp rank {r}: {sh['page_ships']} payloads imported, "
+              f"{sh['page_ship_fallbacks']} replayed")
+        check(sh["pages_used_after"] == (0, 0),
+              f"serve_tp rank {r}: pages left in use {sh['pages_used_after']}")
+    check(ships[0]["tokens"] == ships[1]["tokens"],
+          "serve_tp: the migrated requests' tokens differ between ranks")
+    layer0, worst, n_pages = True, 0.0, 0
+    check(len(ships[0]["records"]) == len(ref["ship"]["records"]),
+          "serve_tp: tp=2 and tp=1 evacuated other requests")
+    for rec0, rec1, rec_tp1 in zip(ships[0]["records"], ships[1]["records"],
+                                   ref["ship"]["records"]):
+        p0, p1 = rec0["pages"], rec1["pages"]
+        check(rec0["request_id"] == rec_tp1["request_id"],
+              "serve_tp: tp=2 and tp=1 evacuated other requests")
+        check(all(torch.equal(a, b) for key in p0 if isinstance(p0[key], list)
+                  for a, b in zip(p0[key], p1[key])),
+              "serve_tp: the ranks' payloads differ")
+        l0, w = _payload_diff(p0, rec_tp1["pages"])
+        layer0, worst = layer0 and l0, max(worst, w)
+        n_pages += p0["k"][0].shape[0]
+    check(worst <= TP_PAYLOAD_TOL[cfg.dtype], f"serve_tp: a payload differs "
+          f"from the tp=1 engine's by {worst:.3e} of its scale")
+    same = sum(a == b for a, b in zip(ships[0]["tokens"], ships[0]["base"]))
+    res["ship"] = dict(requests=len(ships[0]["records"]), pages=n_pages,
+                       layer0_bits_equal_tp1=layer0,
+                       worst_rel_diff_tp1=worst,
+                       requests_matching_undisturbed=same,
+                       page_ships=ships[0]["page_ships"])
+    log(f"  {res['ship']['requests']} requests evacuated with {n_pages} "
+        f"full-head pages each: every rank's heads its own pool's bits, "
+        f"both ranks' payloads the same bits, a tp=1 payload's layout; "
+        f"layer 0 bit-equal to the tp=1 engine's payload: {layer0}; worst "
+        f"difference to it {worst:.3e} of its scale; {same}/"
+        f"{len(ships[0]['tokens'])} requests give the undisturbed tp=2 "
+        f"run's tokens (counted at bf16)")
+    for r, o in enumerate(outs):
+        sp = o["spec"]
+        check(sp["reasons"] == ["length"] and sp["quarantined"] == 0,
+              f"serve_tp spec rank {r}: a request did not finish")
+        for c in ("tokens_drafted", "tokens_accepted", "rollbacks"):
+            check(sp[c] > 0, f"serve_tp spec rank {r}: {c} is 0")
+        check(sp["syncs_per_tick"].get("fetch") == 1.0
+              and sp["exchanges_per_step"] == {
+                  "mixed": want_steps["mixed"], "decode": []},
+              f"serve_tp spec rank {r}: syncs {sp['syncs_per_tick']}, "
+              f"exchanges {sp['exchanges_per_step']}")
+    check(outs[0]["spec"]["tokens"] == outs[1]["spec"]["tokens"],
+          "serve_tp: the ranks' speculative tokens differ")
+    sp = outs[0]["spec"]
+    res["spec"] = dict(tokens_per_s=[o["spec"]["tokens_per_s"]
+                                     for o in outs],
+                       **{c: sp[c] for c in ("tokens_drafted",
+                                             "tokens_accepted", "rollbacks",
+                                             "ticks")})
+    log(f"  spec_k={spec['spec_k']} on bf16 pages: {res['spec']}")
+
+    log("  -- the fp32 twin: tp=2 card vs tp=2 cpu vs tp=1 card")
+    twin = {}
+    for form, _, _ in TP_LAYOUTS:
+        for k in (0, spec["spec_k"]):
+            got = [o["twin"][form, k, w] for o in outs for w in ("card",
+                                                                 "cpu")]
+            same = all(g == ref["twin", form, k] for g in got)
+            twin[f"{form}_spec{k}"] = same
+            check(same, f"serve_tp twin {form} spec_k={k}: tp=2 card, tp=2 "
+                  f"cpu and tp=1 card tokens differ")
+    tsh = [o["twin"]["ship"] for o in outs]
+    for sh in tsh:
+        check(sh["tokens"] == sh["base"] and sh["page_ships"] >= 1
+              and sh["own_blocks_equal"],
+              "serve_tp twin: the migrated tokens differ from the "
+              "undisturbed tp=2 run's")
+    check(tsh[0]["base"] == ref["twin_ship"]["base"],
+          "serve_tp twin: the tp=2 run's tokens differ from tp=1's")
+    twin_worst = 0.0
+    for a, b in zip(tsh[0]["records"], ref["twin_ship"]["records"]):
+        check(a["request_id"] == b["request_id"], "serve_tp twin: tp=2 and "
+              "tp=1 evacuated other requests")
+        twin_worst = max(twin_worst, _payload_diff(a["pages"], b["pages"])[1])
+    twin["payload_worst_rel_diff_tp1"] = twin_worst
+    check(twin_worst <= TP_PAYLOAD_TOL[torch.float32], f"serve_tp twin: a "
+          f"payload differs from the tp=1 engine's by {twin_worst:.3e} of "
+          f"its scale")
+    # the tp=2 payload into a tp=1 engine: shipped pages are tp-agnostic
+    one = _tp_engine(twin1, spec)
+    done = {}
+    for rec in tsh[0]["records"]:
+        one.resume_request(rec["prompt"], rec["max_new_tokens"],
+                           rec["request_id"], generated=rec["generated"],
+                           first_token_at=rec["first_token_at"],
+                           chunks=rec["chunks"], pages=rec.get("pages"))
+    while one.has_work():
+        for r in one.step():
+            done[r.request_id] = r.tokens
+    check(one.stats()["page_ships"] >= 1,
+          "serve_tp twin: the tp=1 engine imported no tp=2 payload")
+    twin["ship_tp2_to_tp2"] = True  # checked above
+    twin["ship_tp2_to_tp1"] = [done[i] for i in sorted(done)] == ref[
+        "twin_ship"]["base"]
+    check(twin["ship_tp2_to_tp1"], "serve_tp twin: a tp=1 engine resuming "
+          "the tp=2 payloads gives other tokens than the tp=1 run")
+    res["twin"] = twin
+    log(f"  fp32 twin ({spec['twin_layers']} layers, "
+        f"{len(spec['twin_prompts'])} requests x {spec['twin_new']}): {twin}")
+    res["rank_s"] = [o["rank_s"] for o in outs]
+    res["launches"] = {}
+    for o in outs:
+        for form, _, _ in TP_LAYOUTS:
+            for k, c in o[form]["launches"].items():
+                res["launches"][k] = res["launches"].get(k, 0) + c
+    log(f"  ranks' wall time {res['ranks_s']:.1f} s (spawn included), "
+        f"{[round(x, 1) for x in res['rank_s']]} s of work a rank")
+    return res
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -9283,6 +9943,13 @@ def main(argv=None):
             f"{N_REQUESTS} requests x {MAX_NEW}; the fp32 twin)",
             lambda: run_serve_router_phase(
                 report.get("serve", {}).get("tokens"))),
+        "serve_tp": (
+            f"serve_tp (tensor parallelism at tp={TP_RANKS}: {TP_RANKS} gloo "
+            f"ranks on the one card, the serve's {N_REQUESTS} requests x "
+            f"{MAX_NEW} on pages and int8 pages of {PAGE_SIZE} beside the "
+            f"tp=1 paged serve, a migration with its pages, spec_k "
+            f"{SPEC_K}; the {SPEC_TWIN['num_layers']}-layer fp32 twin tp=2 "
+            f"card vs cpu vs tp=1)", run_serve_tp_phase),
     }
     report["phase_s"] = {}
     try:

@@ -1,7 +1,8 @@
 """Serving tier: the KV caches (contiguous and paged), sampling, the
 continuous-batching engine (chunked prefill, speculative decoding, the
-request lifecycle, multi-LoRA, migration), the n-gram drafter, the fault
-plans, the adapter pool and the multi-replica router."""
+request lifecycle, multi-LoRA, migration, tensor parallelism with
+`shard_tp1_params`), the n-gram drafter, the fault plans, the adapter
+pool and the multi-replica router."""
 
 from rocm_apex_tpu_torch.inference.adapters import (  # noqa: F401
     BASE_ADAPTER_ID,
@@ -16,6 +17,7 @@ from rocm_apex_tpu_torch.inference.engine import (  # noqa: F401
     InferenceEngine,
     Request,
     SamplingParams,
+    shard_tp1_params,
 )
 from rocm_apex_tpu_torch.inference.faults import (  # noqa: F401
     NO_FAULTS,
@@ -65,6 +67,7 @@ __all__ = [
     "SharedPrefixRegistry",
     "greedy",
     "sample",
+    "shard_tp1_params",
     "top_k_logits",
     "top_p_logits",
 ]

@@ -104,10 +104,27 @@ pool's own bytes) and replays only the last prefix token, or replays
 the whole prefix when the payload does not fit (``page_ship``
 fault, geometry, pool pressure).
 
+Tensor-parallel serving (``cfg.tensor_parallel_size`` > 1, JAX
+engine.py:294-306, 366-412, 789-830): one engine a rank of the process
+group `parallel_state.initialize_model_parallel(tp)` binds to the tensor
+axis, each holding its shard of the model (`shard_tp1_params` slices a
+tp=1 checkpoint) and its ``heads // tp`` of every paged pool and int8
+scale (`per_chip_kv_bytes`). It needs the paged cache and the chunked
+scheduler. The chunk runs the sequence-parallel layout, each rank on
+``budget / tp`` rows between the embedding and the head, its edges
+collective-matmul rings; the decode grid runs plain tensor parallelism.
+Both share one set of parameter tensors. The vocab-parallel logits are
+gathered before sampling, so every rank samples the same tokens (a
+drawing sampler from one seed draws one stream), runs the same host
+scheduler on them and calls the collectives in one order; a tick keeps
+its one fetch. Shipped pages carry every head: the export gathers the
+ranks' head shards (a collective every rank calls), the import takes
+this rank's, so a payload is laid out as a tp=1 engine's.
+
 Not ported yet, and refused at construction: request tracing, the
 metric registry, the flight recorder and the time series (``tracer``,
 ``registry``, ``flight_recorder``, ``timeseries``; ROADMAP Queue 1
-item 9). Tensor parallelism is refused by `GPTConfig` (item 8e).
+item 9).
 
 Sampling draws from an engine-owned `torch.Generator` seeded with
 ``seed``: a fixed seed replays the same stream on one device, but not
@@ -133,6 +150,10 @@ from rocm_apex_tpu_torch.inference.paging import (
 )
 from rocm_apex_tpu_torch.inference.sampling import sample
 from rocm_apex_tpu_torch.monitor.trace import mint_trace_id
+from rocm_apex_tpu_torch.transformer import parallel_state
+from rocm_apex_tpu_torch.transformer.tensor_parallel import (
+    gather_from_tensor_model_parallel_region,
+)
 
 __all__ = [
     "SamplingParams",
@@ -140,6 +161,7 @@ __all__ = [
     "GenerationResult",
     "InferenceEngine",
     "FINISH_REASONS",
+    "shard_tp1_params",
 ]
 
 #: every finish_reason a `GenerationResult` can carry
@@ -155,6 +177,45 @@ _NOT_PORTED = (
     "migration surface included), and the contiguous one on the "
     "whole-prompt path"
 )
+
+
+def shard_tp1_params(model, params_tp1, rank: Optional[int] = None):
+    """This rank's shard of a tp=1 param tree, for the tp>1 ``model``
+    (JAX engine.py:79-150): the tree (the JAX model's, as numpy arrays,
+    with or without its ``'params'`` level: what `convert.from_jax_params`
+    reads) with each leaf sliced along the one axis on which the model's
+    parameter of that name is smaller, tp equal blocks, block ``rank``
+    (default this process's rank in the tensor group). Leaves the model
+    holds whole (LayerNorms, position embeddings, a row-parallel layer's
+    bias) pass through. A tp>1 model loaded from it computes the tp=1
+    model's function. ``model`` may live on the ``"meta"`` device: only
+    its shapes are read."""
+    tp = model.tp
+    if rank is None:
+        rank = parallel_state.get_tensor_model_parallel_rank()
+    local = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+    def piece(key, full):
+        full = np.asarray(full)
+        if key not in local:
+            raise KeyError(f"tp=1 leaf {key} is not a parameter of the model")
+        g, l = tuple(full.shape), local[key]
+        if g == l:
+            return full
+        diff = [i for i, (a, b) in enumerate(zip(g, l)) if a != b]
+        if len(g) != len(l) or len(diff) != 1 or g[diff[0]] != l[diff[0]] * tp:
+            raise ValueError(f"cannot map tp=1 leaf {key} {g} onto tp={tp} "
+                             f"local shape {l}")
+        return np.split(full, tp, axis=diff[0])[rank]
+
+    def walk(tree, prefix):
+        return {name: (walk(sub, f"{prefix}{name}.") if isinstance(sub, dict)
+                       else piece(f"{prefix}{name}", sub))
+                for name, sub in tree.items()}
+
+    if "params" in params_tp1:
+        return {"params": walk(params_tp1["params"], "")}
+    return walk(params_tp1, "")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,6 +343,44 @@ class InferenceEngine:
         timeseries=None,
     ):
         cfg = model.cfg
+        tp = parallel_state.resolve_tensor_parallel_size(
+            cfg.tensor_parallel_size)
+        self.tp = tp
+        if tp > 1:
+            # JAX's checks, in its order (engine.py:366-412)
+            if not parallel_state.model_parallel_is_initialized():
+                raise ValueError(
+                    "tp>1 serving needs parallel_state."
+                    "initialize_model_parallel(tp) before engine "
+                    "construction (the tensor group comes from it)"
+                )
+            if parallel_state.get_tensor_model_parallel_world_size() != tp:
+                raise ValueError(
+                    f"model cfg.tensor_parallel_size={tp} but the "
+                    f"initialized tensor group has size "
+                    f"{parallel_state.get_tensor_model_parallel_world_size()}"
+                )
+            if not paged:
+                raise ValueError(
+                    "tp>1 serving shards the PagedKVCache pools over "
+                    "heads; set paged=True"
+                )
+            if prefill_token_budget is None:
+                raise ValueError(
+                    "tp>1 serving rides the chunked mixed step; set "
+                    "prefill_token_budget"
+                )
+            if prefill_token_budget % tp != 0:
+                raise ValueError(
+                    f"prefill_token_budget={prefill_token_budget} must "
+                    f"divide by tp={tp} (the chunk stream is "
+                    f"sequence-scattered over the tensor axis)"
+                )
+            if cfg.num_attention_heads % tp != 0:
+                raise ValueError(
+                    f"num_attention_heads={cfg.num_attention_heads} "
+                    f"must divide by tp={tp}"
+                )
         self.model = model
         self.device = model.device
         self.capacity = int(capacity or cfg.max_position_embeddings)
@@ -333,11 +432,16 @@ class InferenceEngine:
         self._spec_window = int(
             getattr(self._drafter, "window", spec_window)
         )
-        # multi-LoRA (JAX engine.py:471-520); tp > 1 never reaches here
-        # (`GPTConfig` refuses it)
+        # multi-LoRA (JAX engine.py:471-520)
         self.adapter_pool = adapter_pool
         self.tier_preemption = bool(tier_preemption)
         if adapter_pool is not None:
+            if tp > 1:
+                raise ValueError(
+                    "adapter_pool serving is tp=1 only for now (the "
+                    "segmented gather would need head-sharded adapter "
+                    "buffers)"
+                )
             if self.spec_k > 0:
                 raise ValueError(
                     "adapter_pool does not compose with speculative "
@@ -432,6 +536,16 @@ class InferenceEngine:
                 self.cache.num_pages, np.int32,
             )
             self._table_dirty = False
+        # the tp>1 variants (JAX engine.py:789-812): the chunk on the
+        # sequence-parallel layout with the rings, the decode grid plain
+        # tensor-parallel; both on the caller's parameter tensors
+        self._chunk_model = self._decode_model = model
+        if tp > 1:
+            self._chunk_model = model.with_config(sequence_parallel=True,
+                                                  collective_matmul=True)
+            if cfg.sequence_parallel:
+                self._decode_model = model.with_config(
+                    sequence_parallel=False, collective_matmul=False)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._queue: Deque[Request] = collections.deque()
@@ -677,6 +791,15 @@ class InferenceEngine:
         Summed over tenants it equals the completion records' count and
         token totals."""
         return {t: dict(c) for t, c in self._tenant_counts.items()}
+
+    def per_chip_kv_bytes(self) -> int:
+        """The KV pool and int8 scale bytes this rank holds (JAX
+        engine.py:1290-1310): a tp=1 engine's whole pools, a tp rank's
+        1/tp of them."""
+        c = self.cache
+        tensors = [*c.k, *c.v, *(getattr(c, "k_scale", None) or ()),
+                   *(getattr(c, "v_scale", None) or ())]
+        return sum(t.numel() * t.element_size() for t in tensors)
 
     def cache_bytes(self) -> int:
         """Device bytes the KV cache holds: buffers or pools, scales,
@@ -1169,6 +1292,11 @@ class InferenceEngine:
         """Tokens and per-row nonfinite flags for ``(rows, vocab)``.
         ``poison``: the ``logits`` fault's per-row addend (NaN/Inf on the
         faulted slot's rows, +0.0 elsewhere), None when nothing fires."""
+        if self.tp > 1:
+            # the vocab-parallel logits' full rows, the same bits on every
+            # rank (JAX engine.py:813-826)
+            logits = gather_from_tensor_model_parallel_region(
+                logits, self.model.cfg.tensor_axis)
         if poison is not None:
             logits = logits.float() + poison[:, None]
         sp = self.sampling
@@ -1213,8 +1341,8 @@ class InferenceEngine:
             )
         else:
             self.cache.lengths = lengths
-        logits, _ = self.model(tokens[:, None], cache=self.cache, rows=rows,
-                               adapters=adapters)
+        logits, _ = self._decode_model(tokens[:, None], cache=self.cache,
+                                       rows=rows, adapters=adapters)
         self.cache.lengths = torch.where(active, self.cache.lengths, lengths)
         tok, bad = self._sample(logits[:, -1, :], poison)
         return torch.where(active, tok, 0), bad
@@ -1260,8 +1388,8 @@ class InferenceEngine:
         poisons = self._poisons(chunk_poison, dec_poison)
         self.cache.lengths = len_b
         chunk = (slots_c, pos_c, write_c) if spec else (slots_c, pos_c)
-        out = self.model(tok_c[None, :], cache=self.cache, chunk=chunk,
-                         rows=rows, adapters=chunk_lora)
+        out = self._chunk_model(tok_c[None, :], cache=self.cache,
+                                chunk=chunk, rows=rows, adapters=chunk_lora)
         chunk_kv = out[2] if spec else None
         chunk_tok, chunk_bad = self._sample(out[0][0], poisons[0])
         has_comp = comp >= 0
@@ -1784,12 +1912,19 @@ class InferenceEngine:
             "page_size": int(ps),
             "quantized": bool(c.quantized),
             "dtype": str(c.k[0].dtype),
-            "k": [pool.index_select(0, idx) for pool in c.k],
-            "v": [pool.index_select(0, idx) for pool in c.v],
         }
+        groups = [("k", "v", c.k, c.v)]
         if c.quantized:
-            payload["k_scale"] = [x.index_select(0, idx) for x in c.k_scale]
-            payload["v_scale"] = [x.index_select(0, idx) for x in c.v_scale]
+            groups.append(("k_scale", "v_scale", c.k_scale, c.v_scale))
+        for kn, vn, kb, vb in groups:
+            blocks = [b.index_select(0, idx) for b in (*kb, *vb)]
+            if self.tp > 1:
+                # every head: the ranks' shards gathered in rank order
+                # (head order) along dim 1, one exchange for the group
+                blocks = list(parallel_state.all_gather(
+                    torch.stack(blocks), parallel_state.resolve_group(
+                        self.model.cfg.tensor_axis), 2).unbind(0))
+            payload[kn], payload[vn] = blocks[:len(kb)], blocks[len(kb):]
         return payload
 
     def _import_shipped_pages(self, st: _Slot, slot: int, payload) -> bool:
@@ -1819,13 +1954,16 @@ class InferenceEngine:
             return False
         k_bufs = payload.get("k", ())
         v_bufs = payload.get("v", ())
+        # a payload carries every head: tp times this rank's
+        heads = cache.k[0].shape[1]
+        full = (heads * self.tp, *cache.k[0].shape[2:])
         compatible = (
             int(payload.get("page_size", -1)) == ps
             and bool(payload.get("quantized")) == cache.quantized
             and payload.get("dtype") == str(cache.k[0].dtype)
             and len(k_bufs) == cache.num_layers
             and len(v_bufs) == cache.num_layers
-            and all(tuple(b.shape[1:]) == tuple(cache.k[0].shape[1:])
+            and all(tuple(b.shape[1:]) == full
                     for b in list(k_bufs) + list(v_bufs))
         )
         n = len(k_bufs[0]) if compatible else 0
@@ -1843,8 +1981,11 @@ class InferenceEngine:
         if cache.quantized:
             pairs += [*zip(cache.k_scale, payload["k_scale"]),
                       *zip(cache.v_scale, payload["v_scale"])]
+        at = (parallel_state.axis_rank(self.model.cfg.tensor_axis) * heads
+              if self.tp > 1 else 0)
         for pool, buf in pairs:
-            pool.index_copy_(0, dst, buf.to(pool.device))
+            # this rank's heads (dim 1 of the blocks and of the scales)
+            pool.index_copy_(0, dst, buf.narrow(1, at, heads).to(pool.device))
         for i, page in enumerate(got):
             self._map_page(slot, i, page)
         st.cursor = target

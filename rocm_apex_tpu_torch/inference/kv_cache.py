@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from rocm_apex_tpu_torch._device import resolve_device
+from rocm_apex_tpu_torch.transformer import parallel_state
 
 __all__ = [
     "KVCache",
@@ -123,13 +124,16 @@ class KVCache:
         dtype: Optional[torch.dtype] = None,
         device: Optional[Union[str, torch.device]] = None,
     ) -> "KVCache":
-        """Cache sized for a `GPTConfig` (tensor-parallel world size 1),
-        in the model's compute dtype unless ``dtype`` says otherwise."""
+        """Cache sized for a `GPTConfig` (this rank's heads, as
+        `PagedKVCache.for_model`), in the model's compute dtype unless
+        ``dtype`` says otherwise."""
+        tp = parallel_state.resolve_tensor_parallel_size(
+            cfg.tensor_parallel_size)
         return cls.create(
             cfg.num_layers,
             num_slots,
             capacity or cfg.max_position_embeddings,
-            cfg.num_attention_heads,
+            cfg.num_attention_heads // tp,
             cfg.head_dim,
             dtype if dtype is not None else cfg.dtype,
             device,

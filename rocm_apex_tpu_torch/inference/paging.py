@@ -34,6 +34,7 @@ from rocm_apex_tpu_torch.ops.paging import (
     paged_scatter,
     quantized_paged_scatter,
 )
+from rocm_apex_tpu_torch.transformer import parallel_state
 
 __all__ = ["PageAllocator", "PrefixStore", "PagedKVCache"]
 
@@ -393,14 +394,18 @@ class PagedKVCache:
         quantized: bool = False,
         device: Optional[Union[str, torch.device]] = None,
     ) -> "PagedKVCache":
-        """Paged cache sized for a `GPTConfig` (tensor-parallel world
-        size 1), float pools in the compute dtype unless ``dtype`` says
-        otherwise."""
+        """Paged cache sized for a `GPTConfig`, float pools in the compute
+        dtype unless ``dtype`` says otherwise. Its heads are this rank's,
+        ``num_attention_heads // tp`` (JAX paging.py:418-448): a
+        tensor-parallel rank's pools and scales are its slice of the tp=1
+        cache's, by head."""
+        tp = parallel_state.resolve_tensor_parallel_size(
+            cfg.tensor_parallel_size)
         return cls.create(
             cfg.num_layers,
             num_slots,
             capacity or cfg.max_position_embeddings,
-            cfg.num_attention_heads,
+            cfg.num_attention_heads // tp,
             cfg.head_dim,
             page_size=page_size,
             num_pages=num_pages,

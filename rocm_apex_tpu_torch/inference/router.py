@@ -271,6 +271,11 @@ class ReplicaRouter:
         if not engines:
             raise ValueError("need at least one replica")
         for i, eng in enumerate(engines):
+            if eng.tp > 1:
+                raise NotImplementedError(
+                    f"replica {i} is a tensor-parallel engine (tp="
+                    f"{eng.tp}); a router over tp>1 engines is not ported "
+                    f"yet (ROADMAP Queue 1 item 8f)")
             if not eng.chunked:
                 raise ValueError(
                     f"replica {i} is a whole-prompt engine; the "

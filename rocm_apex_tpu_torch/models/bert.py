@@ -43,6 +43,7 @@ from rocm_apex_tpu_torch.models.gpt import (
     TransformerEmbedding,
     _draw_seed,
     _dropout,
+    _resolve_tp,
     _serial_cross_entropy,
 )
 from rocm_apex_tpu_torch.normalization import MixedFusedLayerNorm
@@ -57,6 +58,19 @@ class BertConfig(GPTConfig):
 
     num_token_types: int = 2
     add_binary_head: bool = True
+
+    def __post_init__(self):
+        super().__post_init__()
+        # BERT is a training path: tensor and sequence parallelism there
+        # are tp>1 training
+        for bad, what in (
+                (self.tensor_parallel_size not in (None, 1),
+                 "BertConfig(tensor_parallel_size > 1)"),
+                (self.sequence_parallel, "BertConfig(sequence_parallel=True)")):
+            if bad:
+                raise NotImplementedError(
+                    f"{what} is not ported yet (ROADMAP Queue 1 item 10, "
+                    f"tp>1 training)")
 
 
 def bert_extended_attention_mask(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -118,6 +132,10 @@ class BertModel(nn.Module):
     def __init__(self, cfg: BertConfig,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__()
+        if _resolve_tp(cfg) > 1:  # the tensor size parallel_state holds
+            raise NotImplementedError(
+                "BertModel at tensor_parallel_size > 1 is not ported yet "
+                "(ROADMAP Queue 1 item 10, tp>1 training)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.embedding = TransformerEmbedding(cfg, self.device)

@@ -1,7 +1,7 @@
 """Megatron-style GPT in PyTorch: the training forward and the
 KV-cached serving branches.
 
-Port of ``rocm_apex_tpu/models/gpt.py`` at tensor-parallel world size 1.
+Port of ``rocm_apex_tpu/models/gpt.py``.
 
 * The uncached forward (training, rocm_apex_tpu/models/gpt.py:1097-1188,
   1234-1336, 1573-1637) is the JAX model's pre-LN stack with CHAINED
@@ -89,6 +89,19 @@ Port of ``rocm_apex_tpu/models/gpt.py`` at tensor-parallel world size 1.
   dropout in training, as the JAX model (gpt.py:476-486). The
   all-reduce of the replicated parameters' gradients over the group is
   the caller's.
+* ``tensor_parallel_size`` > 1 (None: `parallel_state`'s tensor size once
+  initialized, else 1; JAX gpt.py:176-198): each rank holds its shard of
+  the layers (`transformer.tensor_parallel`) over the process group bound
+  to ``tensor_axis``, attention runs its ``heads // tp`` heads, and the
+  tied head returns vocab-parallel logits (the rank's vocab columns).
+  ``sequence_parallel`` (active at tp > 1 only) scatters the embedding's
+  rows over the group and gathers them back before the head (gpt.py:
+  1413-1419, 1549-1573); the layer stack between runs on this rank's
+  rows, its edges all-gathers and reduce-scatters, rings with
+  ``collective_matmul``. The serving engine's chunk model runs so and its
+  decode grid plain tensor-parallel; the cached decode refuses sequence
+  parallelism, as JAX (gpt.py:389, 1527). Training at tp > 1 (``labels``,
+  dropout) is ROADMAP Queue 1 item 10 and raises.
 
 Module and parameter names follow the JAX model's param tree, so its
 flattened paths are this module's ``state_dict`` keys (see ``convert.py``).
@@ -128,6 +141,7 @@ from rocm_apex_tpu_torch.ops.flash_attention_segments import (
     merge_by_lse,
 )
 from rocm_apex_tpu_torch.ops import _dropout as _keep_bits
+from rocm_apex_tpu_torch.ops.collective_matmul import check_comm_dtype
 from rocm_apex_tpu_torch.ops.lora import apply_lora
 from rocm_apex_tpu_torch.ops.paging import (
     PagedRows,
@@ -150,6 +164,8 @@ from rocm_apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    gather_from_sequence_parallel_region,
+    scatter_to_sequence_parallel_region,
 )
 
 __all__ = [
@@ -184,7 +200,8 @@ class GPTConfig:
     apply_residual_connection_post_layernorm: bool = False
     params_dtype: torch.dtype = torch.float32
     dtype: torch.dtype = torch.bfloat16
-    tensor_parallel_size: Optional[int] = None
+    tensor_parallel_size: Optional[int] = None  # None -> parallel_state
+    tensor_axis: str = parallel_state.TENSOR_AXIS
     init_method_std: float = 0.02
     # False: the fused-softmax path's softmax is plain, -inf fills for
     # both mask types (a fully masked row is NaN there, as in JAX)
@@ -202,7 +219,15 @@ class GPTConfig:
     # attention over the process group bound to this axis name
     # (transformer.parallel_state)
     context_parallel_axis: Optional[str] = None
+    # at tp > 1: the stack between the embedding and the head on this
+    # rank's rows of the sequence, its edges all-gathers and
+    # reduce-scatters (rings with collective_matmul, pieces of
+    # collective_matmul_chunk rows)
     sequence_parallel: bool = False
+    collective_matmul: bool = False
+    collective_matmul_chunk: Optional[int] = None
+    comm_dtype: str = "fp32"
+    activation_stats: bool = False
 
     def __post_init__(self):
         if self.sequence_parallel and self.context_parallel_axis is not None:
@@ -215,13 +240,11 @@ class GPTConfig:
         if self.attention_impl not in ("flash", "fused_softmax", "jnp"):
             raise ValueError(
                 f"unknown attention_impl {self.attention_impl!r}")
+        check_comm_dtype(self.comm_dtype)
         unported = [
-            (self.tensor_parallel_size not in (None, 1),
-             "tensor_parallel_size > 1 (ROADMAP Queue 1 item 8, tp>1 "
-             "serving)"),
-            (self.sequence_parallel,
-             "sequence_parallel=True (ROADMAP Queue 1 item 10, rest of the "
-             "training stack)"),
+            (self.activation_stats,
+             "activation_stats=True (ROADMAP Queue 1 item 9, the monitor "
+             "layer)"),
             (self.checkpoint_activations,
              "checkpoint_activations=True (ROADMAP Queue 1 item 10, rest "
              "of the training stack)"),
@@ -242,6 +265,27 @@ class GPTConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+
+def _resolve_tp(cfg: GPTConfig) -> int:
+    return parallel_state.resolve_tensor_parallel_size(
+        cfg.tensor_parallel_size)
+
+
+def _sp_active(cfg: GPTConfig, tp: int) -> bool:
+    return cfg.sequence_parallel and tp > 1
+
+
+def _tp_kwargs(cfg: GPTConfig, tp: int) -> dict:
+    """A tensor-parallel linear's group and sequence-parallel options
+    (JAX `_sp_kwargs`)."""
+    kw = dict(world_size=tp, axis_name=cfg.tensor_axis)
+    if _sp_active(cfg, tp):
+        kw.update(sequence_parallel=True,
+                  collective_matmul=cfg.collective_matmul,
+                  collective_matmul_chunk=cfg.collective_matmul_chunk,
+                  comm_dtype=cfg.comm_dtype)
+    return kw
 
 
 def _draw_seed(generator: torch.Generator) -> int:
@@ -301,12 +345,13 @@ class ParallelMLP(nn.Module):
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
-        kw = dict(dtype=cfg.dtype, device=device)
+        kw = dict(dtype=cfg.dtype, device=device,
+                  **_tp_kwargs(cfg, _resolve_tp(cfg)))
         self.dense_h_to_4h = ColumnParallelLinear(
-            cfg.hidden_size, cfg.ffn_size, **kw
+            cfg.hidden_size, cfg.ffn_size, gather_output=False, **kw
         )
         self.dense_4h_to_h = RowParallelLinear(
-            cfg.ffn_size, cfg.hidden_size, **kw
+            cfg.ffn_size, cfg.hidden_size, input_is_parallel=True, **kw
         )
 
     def forward(self, x):
@@ -342,12 +387,18 @@ class ParallelAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.attn_mask_type = _check_mask_type(attn_mask_type)
-        kw = dict(dtype=cfg.dtype, device=device)
+        tp = _resolve_tp(cfg)
+        if cfg.num_attention_heads % tp:
+            raise ValueError(f"num_attention_heads {cfg.num_attention_heads} "
+                             f"must divide by tensor_parallel_size {tp}")
+        self.nh = cfg.num_attention_heads // tp  # this rank's heads
+        self.sp = _sp_active(cfg, tp)
+        kw = dict(dtype=cfg.dtype, device=device, **_tp_kwargs(cfg, tp))
         self.query_key_value = ColumnParallelLinear(
-            cfg.hidden_size, 3 * cfg.hidden_size, **kw
+            cfg.hidden_size, 3 * cfg.hidden_size, gather_output=False, **kw
         )
         self.dense = RowParallelLinear(
-            cfg.hidden_size, cfg.hidden_size, **kw
+            cfg.hidden_size, cfg.hidden_size, input_is_parallel=True, **kw
         )
 
     def forward(self, x, cache=None,
@@ -389,13 +440,21 @@ class ParallelAttention(nn.Module):
                 "KV-cached attention is causal-only "
                 f"(got attn_mask_type={self.attn_mask_type!r})"
             )
+        if self.sp and chunk is None:
+            raise ValueError(
+                "sequence_parallel composes with KV-cached inference "
+                "only on the packed chunk path (the decode step's "
+                "width-1 sequence axis cannot be sequence-sharded)"
+            )
         cfg = self.cfg
         k_buf, v_buf, lengths = cache[:3]
         paged = cache[3] if len(cache) > 3 else None
-        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        nh, hd = self.nh, cfg.head_dim
         scale = 1.0 / math.sqrt(hd)
-        b, sq, _ = x.shape
+        # under sequence parallelism x holds this rank's rows and the
+        # projection's all-gather gives every row (JAX gpt.py:376-393)
         qkv, _ = self.query_key_value(x)
+        b, sq = qkv.shape[:2]
         if adapters is not None:
             qkv = apply_lora(qkv, x, adapters["qkv"], adapters["ids"],
                              adapters["active"])
@@ -523,9 +582,9 @@ class ParallelAttention(nn.Module):
         """The packed path: the projection bias rides into the flash
         kernels (added on tile load; its gradient from fp32 partials)."""
         cfg = self.cfg
-        b, s, _ = x.shape
-        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        nh, hd = self.nh, cfg.head_dim
         qkv, bias = self.query_key_value(x, skip_bias_add=True)
+        b, s = qkv.shape[:2]
         qkv = qkv.view(b, s, nh, 3 * hd)
         scale = 1.0 / math.sqrt(hd)
         causal = self.attn_mask_type == "causal"
@@ -545,9 +604,9 @@ class ParallelAttention(nn.Module):
         type adds ``bias`` (or none: full bidirectional), the causal type
         masks in-kernel. Attention dropout with a seed, in-kernel."""
         cfg = self.cfg
-        b, s, _ = x.shape
-        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        nh, hd = self.nh, cfg.head_dim
         qkv, _ = self.query_key_value(x)
+        b, s = qkv.shape[:2]
         q, k, v = (t.permute(0, 2, 1, 3) for t in
                    qkv.view(b, s, nh, 3 * hd).split(hd, dim=-1))
         ctx = flash_attention_heads(
@@ -576,9 +635,9 @@ class ParallelAttention(nn.Module):
                 f"mask={self.attn_mask_type!r}, "
                 f"attn_dropout={cfg.attention_dropout})"
             )
-        b, s, _ = x.shape
-        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        nh, hd = self.nh, cfg.head_dim
         qkv, _ = self.query_key_value(x)
+        b, s = qkv.shape[:2]
         q, k, v = (t.permute(0, 2, 1, 3).reshape(b * nh, s, hd) for t in
                    qkv.view(b, s, nh, 3 * hd).split(hd, dim=-1))
         ctx = ring_flash_attention(q, k, v, cfg.context_parallel_axis,
@@ -597,10 +656,10 @@ class ParallelAttention(nn.Module):
         their dropout with a seed, then probs·v in the compute dtype."""
         cfg = self.cfg
         use_kernel = cfg.use_pallas_softmax and cfg.attention_impl != "jnp"
-        b, s, _ = x.shape
-        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        nh, hd = self.nh, cfg.head_dim
         scale = 1.0 / math.sqrt(hd)
         qkv, _ = self.query_key_value(x)
+        b, s = qkv.shape[:2]
         q, k, v = (t.permute(0, 2, 1, 3) for t in
                    qkv.view(b, s, nh, 3 * hd).split(hd, dim=-1))
         scores = ScoresFp32.apply(q, k)  # (b, nh, s, s) fp32
@@ -795,8 +854,11 @@ class TransformerEmbedding(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        tp = _resolve_tp(cfg)
+        self.sp = _sp_active(cfg, tp)
         self.word_embeddings = VocabParallelEmbedding(
             cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype, device=device,
+            world_size=tp, axis_name=cfg.tensor_axis,
         )
         self.position_embeddings = nn.Parameter(
             torch.zeros(cfg.max_position_embeddings, cfg.hidden_size,
@@ -809,7 +871,12 @@ class TransformerEmbedding(nn.Module):
         pos = self.position_embeddings[
             position_ids.clamp(0, self.cfg.max_position_embeddings - 1)
         ].to(self.cfg.dtype)
-        return words + pos
+        x = words + pos
+        if self.sp:
+            # the sequence-parallel region starts here: this rank's rows
+            x = scatter_to_sequence_parallel_region(x, self.cfg.tensor_axis,
+                                                    dim=1)
+        return x
 
     def attend(self, hidden):
         return self.word_embeddings.attend(hidden)
@@ -865,8 +932,29 @@ class GPTModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.tp = _resolve_tp(cfg)
         self.embedding = TransformerEmbedding(cfg, self.device)
         self.transformer = ParallelTransformer(cfg, self.device)
+
+    def with_config(self, **changes) -> "GPTModel":
+        """This model under a config whose ``changes`` keep every
+        parameter's shape (``sequence_parallel``, ``collective_matmul``):
+        a module tree of its own whose parameters are this model's
+        tensors, not copies (the tp>1 engine's chunk model, JAX
+        engine.py:789-812)."""
+        twin = type(self)(dataclasses.replace(self.cfg, **changes),
+                          device="meta")
+        twin.load_state_dict(self.state_dict(keep_vars=True), assign=True)
+        twin.device = self.device
+        return twin
+
+    def _gather_rows(self, x):
+        """The sequence-parallel region's exit: every row, for the
+        vocab-parallel head (whose cotangent is whole on every rank)."""
+        if not _sp_active(self.cfg, self.tp):
+            return x
+        return gather_from_sequence_parallel_region(
+            x, self.cfg.tensor_axis, dim=1, tensor_parallel_output_grad=False)
 
     def forward(
         self,
@@ -896,6 +984,13 @@ class GPTModel(nn.Module):
                 raise ValueError(
                     "KV-cached attention requires deterministic=True"
                 )
+            if self.cfg.sequence_parallel and chunk is None:
+                raise ValueError(
+                    "sequence_parallel composes with KV-cached inference "
+                    "only on the packed chunk path (pass chunk=, or use a "
+                    "model config with sequence_parallel=False for "
+                    "decode/prefill applies)"
+                )
             with torch.no_grad():
                 return self._forward_cached(tokens, position_ids, cache,
                                             chunk, rows, adapters)
@@ -906,6 +1001,12 @@ class GPTModel(nn.Module):
             )
         if loss_reduction not in (None, "mean"):
             raise ValueError(f"unknown loss_reduction {loss_reduction!r}")
+        if self.tp > 1 and (labels is not None or not deterministic):
+            raise NotImplementedError(
+                f"training at tensor_parallel_size={self.tp} (labels=, or "
+                f"dropout with deterministic=False) is not ported yet "
+                f"(ROADMAP Queue 1 item 10); the tp>1 model serves and "
+                f"returns vocab-parallel logits")
         cfg = self.cfg
         if position_ids is None:
             position_ids = torch.arange(tokens.shape[1],
@@ -921,7 +1022,7 @@ class GPTModel(nn.Module):
         if seeds is not None and cfg.hidden_dropout > 0.0:
             x = _dropout(x, hidden_dropout_seed(seeds, cfg),
                          cfg.hidden_dropout)
-        x = self.transformer(x, seeds=seeds)
+        x = self._gather_rows(self.transformer(x, seeds=seeds))
         if labels is None:
             return self.embedding.attend(x)
         if cfg.fused_lm_head:
@@ -986,6 +1087,7 @@ class GPTModel(nn.Module):
         x = self.transformer(x, cache, rows if chunk is not None else None,
                              rows=rows if paged else None, kv_out=kv_out,
                              adapters=adapters)
+        x = self._gather_rows(x)
         if kv_out is not None:
             chunk_kv = ([k for k, _ in kv_out], [v for _, v in kv_out])
             return self.embedding.attend(x), cache, chunk_kv

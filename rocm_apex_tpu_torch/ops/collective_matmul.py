@@ -1,0 +1,172 @@
+"""The collective matmuls at the sequence-parallel edges, as rings.
+
+Port of ``rocm_apex_tpu/ops/collective_matmul.py``'s forward (the JAX
+module has no Pallas kernel: its rings are ``ppermute`` hops beside
+``jnp`` dots, so the port's are `parallel_state.shift` hops beside
+``torch.matmul``):
+
+* `all_gather_matmul(x, w, axis)`: ``all_gather(x, rows) @ w`` for the
+  local rows shard ``x`` (..., rows_local, k). At hop i the resident
+  shard, rank ``idx + i``'s, multiplies into its output slot, piece by
+  piece, each piece shifted onward (to rank - 1) for hop i + 1.
+* `matmul_reduce_scatter(x, w, axis)`: ``psum_scatter(x @ w, rows)`` for
+  full rows ``x`` (..., rows, k_local). A rotating fp32 accumulator per
+  piece picks up this rank's partial product of one row block a hop and
+  lands on the block's owner after the last hop (shifted to rank + 1).
+
+The rows axis is -2, the contraction the last axis against ``w``'s
+first; ``chunk`` rows a piece (None: one piece a shard), and a chunk
+that does not tile the shard falls back to the plain collective and one
+matmul, as JAX's `_ring_chunks`. An axis with no group bound, or a group
+of one, is the plain matmul. The gather ring's partial products are
+``torch.matmul`` in the inputs' dtype (JAX's fp32 product cast once to
+it); the reduce-scatter ring's are fp32 products of the inputs' values,
+summed in fp32 and cast once at the end, as JAX's.
+
+The backward (JAX ``_ag_mm_bwd``, ``_mm_rs_bwd``) is tp>1 training,
+ROADMAP Queue 1 item 10, and raises; so does ``comm_dtype="int8"``
+(``ops/quantized_collectives.py``, item 10).
+"""
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from rocm_apex_tpu_torch.transformer import parallel_state
+
+__all__ = ["all_gather_matmul", "matmul_reduce_scatter",
+           "check_comm_dtype"]
+
+COMM_DTYPES = ("fp32", "int8")
+
+
+def check_comm_dtype(comm_dtype: str) -> None:
+    """JAX's comm dtypes: "fp32" runs, "int8" is not ported yet."""
+    if comm_dtype not in COMM_DTYPES:
+        raise ValueError(f"comm_dtype must be one of {COMM_DTYPES}, got "
+                         f"{comm_dtype!r}")
+    if comm_dtype == "int8":
+        raise NotImplementedError(
+            "comm_dtype='int8' (the quantized ring payloads of "
+            "ops/quantized_collectives.py) is not ported yet (ROADMAP "
+            "Queue 1 item 10)")
+
+
+def _bound_group(axis_name):
+    """The axis's group when it is bound and holds more than one rank,
+    else None (the plain matmul)."""
+    if isinstance(axis_name, str):
+        try:
+            group = parallel_state.get_axis_group(axis_name)
+        except KeyError:
+            return None
+    else:
+        group = axis_name
+    return group if dist.get_world_size(group) > 1 else None
+
+
+def _ring_chunks(rows: int, chunk: Optional[int]) -> Optional[int]:
+    """Pieces a shard, or None when ``chunk`` does not tile ``rows``."""
+    if chunk is None:
+        return 1
+    if chunk <= 0 or rows % chunk:
+        return None
+    return rows // chunk
+
+
+def _ring_ag_mm(x, w, group, m):
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    rows = x.shape[-2]
+    chunk = rows // m
+    out = x.new_empty(x.shape[:-2] + (n * rows, w.shape[-1]))
+    pieces = list(x.split(chunk, dim=-2))
+    for i in range(n):
+        src = (idx + i) % n
+        nxt = []
+        for j, piece in enumerate(pieces):
+            if i + 1 < n:
+                # receive from rank + 1: hop i leaves rank idx + i's shard
+                nxt.append(parallel_state.shift(piece, group, -1))
+            at = src * rows + j * chunk
+            out[..., at:at + chunk, :] = torch.matmul(piece, w)
+        pieces = nxt or pieces
+    return out
+
+
+def _ring_mm_rs(x, w, group, m):
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    rows = x.shape[-2] // n
+    chunk = rows // m
+    wf = w.float()
+    acc = [None] * m
+    for i in range(n):
+        # the block this rank adds to now reaches its owner in the
+        # remaining n - 1 - i hops (each to rank + 1)
+        dst = (idx + n - 1 - i) % n
+        for j in range(m):
+            at = dst * rows + j * chunk
+            part = torch.matmul(x[..., at:at + chunk, :].float(), wf)
+            if acc[j] is not None:
+                acc[j] = parallel_state.shift(acc[j], group, 1) + part
+            else:
+                acc[j] = part
+    return torch.cat(acc, dim=-2).to(x.dtype)
+
+
+def _plain_ag_mm(x, w, group, m):
+    return torch.matmul(parallel_state.all_gather(x, group, x.dim() - 2), w)
+
+
+def _plain_mm_rs(x, w, group, m):
+    y = torch.matmul(x.float(), w.float())
+    return parallel_state.reduce_scatter(y, group, y.dim() - 2).to(x.dtype)
+
+
+class _ForwardOnly(torch.autograd.Function):
+    """A ring or its plain fallback, differentiable by name only: its
+    backward is item 10's."""
+
+    @staticmethod
+    def forward(ctx, fn, x, w, group, m):
+        return fn(x, w, group, m)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "the collective matmul's backward (JAX _ag_mm_bwd, _mm_rs_bwd) "
+            "is tp>1 training, not ported yet (ROADMAP Queue 1 item 10)")
+
+
+def all_gather_matmul(x: torch.Tensor, w: torch.Tensor, axis_name,
+                      chunk: Optional[int] = None,
+                      comm_dtype: str = "fp32") -> torch.Tensor:
+    """``all_gather(x, -2) @ w``: x the local rows shard (..., rows, k), w
+    this rank's (k, n) column shard; returns (..., size * rows, n) in x's
+    dtype. The gathered x never exists whole on the ring path."""
+    check_comm_dtype(comm_dtype)
+    group = _bound_group(axis_name)
+    if group is None:
+        return torch.matmul(x, w)
+    m = _ring_chunks(x.shape[-2], chunk)
+    return _ForwardOnly.apply(_plain_ag_mm if m is None else _ring_ag_mm,
+                              x, w, group, m)
+
+
+def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, axis_name,
+                          chunk: Optional[int] = None,
+                          comm_dtype: str = "fp32") -> torch.Tensor:
+    """``psum_scatter(x @ w, -2)``: x full rows (..., rows, k_local), w
+    this rank's (k_local, n) row shard; returns this rank's block of
+    rows / size rows, summed over the group, in x's dtype. The full
+    pre-reduce product never exists on the ring path."""
+    check_comm_dtype(comm_dtype)
+    group = _bound_group(axis_name)
+    if group is None:
+        return torch.matmul(x, w)
+    n = dist.get_world_size(group)
+    if x.shape[-2] % n:
+        raise ValueError(f"rows {x.shape[-2]} not divisible by axis size {n}")
+    m = _ring_chunks(x.shape[-2] // n, chunk)
+    return _ForwardOnly.apply(_plain_mm_rs if m is None else _ring_mm_rs,
+                              x, w, group, m)

@@ -1,3 +1,3 @@
-"""Transformer building blocks: tensor-parallel layers at world size 1,
-`functional`, the enums, and context parallelism (`context_parallel`
-over `parallel_state`'s process groups)."""
+"""Transformer building blocks: the tensor-parallel layers and mappings,
+`functional`, the enums, and context parallelism (`context_parallel`),
+over `parallel_state`'s process groups."""

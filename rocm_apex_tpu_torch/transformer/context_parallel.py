@@ -24,10 +24,10 @@ named by a process group or by an axis name bound in `parallel_state`.
   backward of each is the reverse all-to-all (`_AllToAll`).
 
 Over a gloo group, whose point-to-point and all-to-all take CPU tensors
-only, the exchanges copy CUDA tensors through host memory; the kernels
-stay on the card. Collectives need every rank to call them in one
-order, so every rank must call these functions (and their backward)
-the same number of times.
+only, the exchanges copy CUDA tensors through host memory
+(`parallel_state.exchange`); the kernels stay on the card. Collectives
+need every rank to call them in one order, so every rank must call
+these functions (and their backward) the same number of times.
 """
 
 from typing import Optional, Union
@@ -56,27 +56,6 @@ def _merge(o1, lse1, o2, lse2):
     return o1.float() * w1 + o2.float() * w2, lse
 
 
-def _host_staged(t: torch.Tensor, group) -> bool:
-    # gloo's send/recv and all-to-all refuse CUDA tensors
-    return t.device.type != "cpu" and dist.get_backend(group) == "gloo"
-
-
-def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
-    """x of rank r - step, received while x goes to rank r + step."""
-    n, r = dist.get_world_size(group), dist.get_rank(group)
-    host = _host_staged(x, group)
-    send = x.detach().contiguous()
-    send = send.cpu() if host else send
-    recv = torch.empty_like(send)
-    ops = [dist.P2POp(dist.isend, send,
-                      dist.get_global_rank(group, (r + step) % n), group),
-           dist.P2POp(dist.irecv, recv,
-                      dist.get_global_rank(group, (r - step) % n), group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return recv.to(x.device) if host else recv
-
-
 class _RingKV(torch.autograd.Function):
     """The stacked (2, ...) K/V block every hop of the ring holds: output
     i is the block of rank r - i. The backward adds the hops' gradients
@@ -88,14 +67,14 @@ class _RingKV(torch.autograd.Function):
         ctx.group, ctx.n = group, n
         hops = [kv]
         for _ in range(n - 1):
-            hops.append(_shift(hops[-1], group, 1))
+            hops.append(parallel_state.shift(hops[-1], group, 1))
         return tuple(hops)
 
     @staticmethod
     def backward(ctx, *grads):
         acc = grads[-1]
         for g in reversed(grads[:-1]):
-            acc = _shift(acc, ctx.group, -1) + g
+            acc = parallel_state.shift(acc, ctx.group, -1) + g
         return acc, None, None
 
 
@@ -133,12 +112,15 @@ def _all_to_all(x: torch.Tensor, group, split_dim: int,
     rank j; the chunks received concatenate along ``concat_dim`` in rank
     order."""
     n = dist.get_world_size(group)
-    host = _host_staged(x, group)
-    send = torch.stack(x.detach().chunk(n, split_dim))
-    send = send.cpu() if host else send.contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    recv = recv.to(x.device) if host else recv
+
+    def swap(send, g):
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=g)
+        return recv
+
+    recv = parallel_state.exchange(
+        "all_to_all", swap, torch.stack(x.detach().chunk(n, split_dim)),
+        group)
     return torch.cat(recv.unbind(0), dim=concat_dim)
 
 

@@ -1,17 +1,33 @@
-"""The axis names and the process groups behind them.
+"""The axis names, the process groups behind them, and their exchanges.
 
 The part of ``rocm_apex_tpu/transformer/parallel_state.py`` that context
-parallelism and the transformer GradScaler need: the ``CONTEXT_AXIS``,
-``TENSOR_AXIS`` and ``PIPE_AXIS`` names, and a registry that maps an axis
-name to a `torch.distributed` process group, where the JAX package binds
-the name to a mesh axis inside `shard_map`. The caller creates the groups
-(`torch.distributed.init_process_group`, `new_group`) and registers
-them; the collectives over an axis (`transformer.context_parallel`) look
-their group up here by name.
+parallelism, tensor-parallel serving and the transformer GradScaler
+need: the ``CONTEXT_AXIS``, ``TENSOR_AXIS`` and ``PIPE_AXIS`` names, and
+a registry that maps an axis name to a `torch.distributed` process
+group, where the JAX package binds the name to a mesh axis inside
+`shard_map`. The caller creates the groups (`torch.distributed.
+init_process_group`, `new_group`) and registers them, or has
+`initialize_model_parallel` make and register the tensor group; the
+collectives over an axis look their group up here by name.
+
+`initialize_model_parallel(tp)` is the JAX function over the default
+process group: its world is ``tp`` ranks, all of them one tensor group.
+Pipeline and data parallelism (a world larger than the tensor group)
+are ROADMAP Queue 1 item 10 and raise. The tensor getters read the
+group: its size, this process's rank in it, the axis name.
+
+Every exchange of the port's parallel modules (`tensor_parallel.
+mappings`, `ops.collective_matmul`, `context_parallel`) goes through
+`exchange`. Over a gloo group with tensors on a card it copies them
+through host memory: gloo's all-gather, reduce-scatter, all-to-all and
+point-to-point take CPU tensors only, so every collective is staged the
+same way, its all-reduce too. `shift`, `all_reduce`, `all_gather` and
+`reduce_scatter` are the plain collectives the modules build on.
 """
 
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
+import torch
 import torch.distributed as dist
 
 __all__ = [
@@ -23,6 +39,18 @@ __all__ = [
     "clear_axis_groups",
     "resolve_group",
     "axis_rank",
+    "initialize_model_parallel",
+    "model_parallel_is_initialized",
+    "destroy_model_parallel",
+    "get_tensor_model_parallel_axis_name",
+    "get_tensor_model_parallel_world_size",
+    "get_tensor_model_parallel_rank",
+    "resolve_tensor_parallel_size",
+    "exchange",
+    "shift",
+    "all_reduce",
+    "all_gather",
+    "reduce_scatter",
 ]
 
 CONTEXT_AXIS = "context"
@@ -30,6 +58,10 @@ PIPE_AXIS = "pipe"
 TENSOR_AXIS = "tensor"
 
 _GROUPS: Dict[str, "dist.ProcessGroup"] = {}
+# set by initialize_model_parallel, None until then (and after destroy)
+_TENSOR_MODEL_PARALLEL_WORLD_SIZE: Optional[int] = None
+
+GroupOrAxis = Union[str, "dist.ProcessGroup"]
 
 
 def set_axis_group(axis: str,
@@ -55,14 +87,160 @@ def clear_axis_groups() -> None:
     _GROUPS.clear()
 
 
-def resolve_group(group_or_axis: Union[str, "dist.ProcessGroup"]
-                  ) -> "dist.ProcessGroup":
+def resolve_group(group_or_axis: GroupOrAxis) -> "dist.ProcessGroup":
     """A process group, or the one bound to an axis name."""
     if isinstance(group_or_axis, str):
         return get_axis_group(group_or_axis)
     return group_or_axis
 
 
-def axis_rank(group_or_axis: Union[str, "dist.ProcessGroup"]) -> int:
+def axis_rank(group_or_axis: GroupOrAxis) -> int:
     """This process's index along the axis (its rank in the group)."""
     return dist.get_rank(resolve_group(group_or_axis))
+
+
+def initialize_model_parallel(tensor_model_parallel_size_: int = 1,
+                              pipeline_model_parallel_size_: int = 1) -> None:
+    """Bind the ``TENSOR_AXIS`` to the default process group, which must
+    hold ``tensor_model_parallel_size_`` ranks (JAX parallel_state.py:58-
+    167 over a mesh; the reference's TP-fastest mapping is one group
+    here). Pipeline parallelism, and the data parallelism of a larger
+    world, raise: ROADMAP Queue 1 item 10."""
+    global _TENSOR_MODEL_PARALLEL_WORLD_SIZE
+    if not dist.is_initialized():
+        raise RuntimeError("torch.distributed is not initialized: call "
+                           "init_process_group before "
+                           "initialize_model_parallel")
+    tp, pp = tensor_model_parallel_size_, pipeline_model_parallel_size_
+    world = dist.get_world_size()
+    if world % (tp * pp):
+        raise RuntimeError(
+            f"world size ({world}) is not divisible by tensor parallel "
+            f"size ({tp}) x pipeline parallel size ({pp})")
+    if pp != 1 or world != tp:
+        raise NotImplementedError(
+            f"pipeline or data parallelism (world {world}, tp {tp}, pp "
+            f"{pp}) is not ported yet (ROADMAP Queue 1 item 10): the world "
+            f"must be one tensor group")
+    set_axis_group(TENSOR_AXIS)
+    _TENSOR_MODEL_PARALLEL_WORLD_SIZE = tp
+
+
+def model_parallel_is_initialized() -> bool:
+    return _TENSOR_MODEL_PARALLEL_WORLD_SIZE is not None
+
+
+def destroy_model_parallel() -> None:
+    """Forget the tensor group (the process group stays the caller's)."""
+    global _TENSOR_MODEL_PARALLEL_WORLD_SIZE
+    _TENSOR_MODEL_PARALLEL_WORLD_SIZE = None
+    _GROUPS.pop(TENSOR_AXIS, None)
+
+
+def _require_init() -> None:
+    if _TENSOR_MODEL_PARALLEL_WORLD_SIZE is None:
+        raise RuntimeError(
+            "model parallel state is not initialized; call "
+            "parallel_state.initialize_model_parallel(...) first")
+
+
+def get_tensor_model_parallel_axis_name() -> str:
+    return TENSOR_AXIS
+
+
+def get_tensor_model_parallel_world_size() -> int:
+    _require_init()
+    return _TENSOR_MODEL_PARALLEL_WORLD_SIZE
+
+
+def get_tensor_model_parallel_rank() -> int:
+    """This process's rank in the tensor group."""
+    _require_init()
+    return axis_rank(TENSOR_AXIS)
+
+
+def resolve_tensor_parallel_size(explicit: Optional[int]) -> int:
+    """A tensor-parallel size: ``explicit`` where given, else the tensor
+    group's once initialized, else 1 (JAX gpt.py:176-181 `_resolve_tp`,
+    layers.py's ``world_size=None``)."""
+    if explicit is not None:
+        return explicit
+    return (_TENSOR_MODEL_PARALLEL_WORLD_SIZE
+            if model_parallel_is_initialized() else 1)
+
+
+def exchange(kind: str, fn: Callable, t: torch.Tensor, group
+             ) -> torch.Tensor:
+    """``fn(send, group)``, the collective named ``kind``, on ``t``'s
+    values: ``send`` is t detached and contiguous (maybe t itself, so
+    ``fn`` writes into a copy), on the host when t lies on a card and the
+    group is gloo's, and the result comes back to ``t``'s device. Every
+    exchange of the parallel modules is one call here (a sync audit wraps
+    this function and counts the calls by ``kind``)."""
+    host = t.device.type != "cpu" and dist.get_backend(group) == "gloo"
+    send = t.detach().contiguous()
+    out = fn(send.cpu() if host else send, group)
+    return out.to(t.device) if host else out
+
+
+def _shift(send, group, step):
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send,
+                      dist.get_global_rank(group, (r + step) % n), group),
+           dist.P2POp(dist.irecv, recv,
+                      dist.get_global_rank(group, (r - step) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv
+
+
+def shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
+    """x of rank r - step, received while x goes to rank r + step."""
+    return exchange("shift", lambda s, g: _shift(s, g, step), x, group)
+
+
+def _all_reduce(send, group):
+    out = send.clone()  # send may be the caller's own tensor
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over the group (a new tensor; every rank the same
+    bits)."""
+    return exchange("all_reduce", _all_reduce, x, group)
+
+
+def _all_gather(send, group, dim):
+    parts = [torch.empty_like(send) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, send, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' x concatenated along ``dim`` in rank order (JAX's tiled
+    ``all_gather``)."""
+    return exchange("all_gather", lambda s, g: _all_gather(s, g, dim), x,
+                    group)
+
+
+def _reduce_scatter(send, group, dim):
+    # the sum on every rank, then this rank's block: gloo has no
+    # reduce-scatter on every torch release, and every rank's sum has
+    # the same bits
+    total = _all_reduce(send, group)
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    return total.chunk(n, dim)[r].contiguous()
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of x over the group
+    (JAX's tiled ``psum_scatter``); ``dim`` must divide by the group's
+    size."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of size {x.shape[dim]} not divisible "
+                         f"by axis size {n}")
+    return exchange("reduce_scatter",
+                    lambda s, g: _reduce_scatter(s, g, dim), x, group)

@@ -23,9 +23,10 @@ from rocm_apex_tpu_torch.convert import (
     random_params,
 )
 from rocm_apex_tpu_torch.inference import KVCache, PagedKVCache
+from rocm_apex_tpu_torch.models.bert import BertConfig
 from rocm_apex_tpu_torch.models.gpt import GPTConfig, GPTModel
 from rocm_apex_tpu_torch.transformer.tensor_parallel import (
-    ColumnParallelLinear,
+    VocabParallelEmbedding,
 )
 
 SHAPE = dict(vocab_size=96, hidden_size=32, num_layers=2,
@@ -208,8 +209,10 @@ class TestCachedSteps:
 
 class TestEntryPoints:
     def test_unported_paths_raise(self, models):
-        """tp > 1 and the GPT options the port cannot run yet raise,
-        naming their ROADMAP item; "jnp" attention and context
+        """The tp>1 training options and the GPT options the port cannot
+        run yet raise, naming their ROADMAP item (BERT, a training path,
+        at tp > 1 or under sequence parallelism; the vocab-parallel
+        fused head); "jnp" attention and context
         parallelism construct (tests/test_torch_gpt_jnp.py,
         tests/test_torch_context_parallel.py), an unknown impl and the
         sequence-parallel collision raise ValueError as in JAX;
@@ -226,7 +229,7 @@ class TestEntryPoints:
                       sequence_parallel=True)
         with pytest.raises(NotImplementedError,
                            match="sequence_parallel.*ROADMAP"):
-            GPTConfig(**SHAPE, sequence_parallel=True)
+            BertConfig(**SHAPE, sequence_parallel=True)
         # the materialized head runs now (tests/test_torch_bert.py)
         assert not GPTConfig(**SHAPE, fused_lm_head=False).fused_lm_head
         paged = PagedKVCache.for_model(torch_cfg(), 1, CAPACITY, page_size=8,
@@ -234,9 +237,11 @@ class TestEntryPoints:
         with pytest.raises(ValueError, match="whole-prompt"):
             model(torch.zeros((1, 4), dtype=torch.int64), cache=paged)
         with pytest.raises(NotImplementedError, match="tensor_parallel"):
-            GPTConfig(tensor_parallel_size=2)
+            BertConfig(tensor_parallel_size=2)
         with pytest.raises(NotImplementedError, match="world_size=2"):
-            ColumnParallelLinear(4, 4, world_size=2, device="cpu")
+            VocabParallelEmbedding(4, 4, world_size=2, device="cpu"
+                                   ).attend_loss(torch.zeros(3, 4),
+                                                 torch.zeros(3).long())
 
     def test_no_silent_cpu_fallback(self):
         if torch.cuda.is_available():

@@ -362,10 +362,10 @@ class TestOptions:
         np.testing.assert_allclose(blogits[0], jb[0], **LOGIT_TOL)
 
     @pytest.mark.parametrize("field,value,item", [
-        ("tensor_parallel_size", 2, 8),
+        ("comm_dtype", "int8", 10),
         ("checkpoint_activations", True, 10),
         ("apply_residual_connection_post_layernorm", True, 10),
-        ("sequence_parallel", True, 10),
+        ("activation_stats", True, 9),
     ])
     def test_unported_options_name_their_current_roadmap_item(
             self, field, value, item):

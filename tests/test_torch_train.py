@@ -298,8 +298,8 @@ class TestEntryPoints:
                                         torch_cfg(), opt)
 
     @pytest.mark.parametrize("field,value", [
-        ("sequence_parallel", True),
-        ("tensor_parallel_size", 2),
+        ("comm_dtype", "int8"),
+        ("activation_stats", True),
         ("checkpoint_activations", True),
         ("apply_residual_connection_post_layernorm", True),
     ])
