@@ -472,7 +472,7 @@ PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "train_packed", "rn50_parity", "rn50_train", "rn50_train_fused",
           "mha", "context_parallel", "serve_jnp", "optim_amp", "head_dims",
           "fp16", "serve_spec", "serve_chaos", "serve_lora", "serve_router",
-          "serve_tp")
+          "serve_tp", "serve_monitor")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_segments_serve",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -4649,7 +4649,8 @@ def exchange_count(counts):
     return sum(n for k, n in counts.items() if k.startswith("exchange:"))
 
 
-def timed_serve(eng, prompts, max_new=MAX_NEW, audit=False, adapters=None):
+def timed_serve(eng, prompts, max_new=MAX_NEW, audit=False, adapters=None,
+                on_tick=None):
     """One timed serve of ``prompts`` x ``max_new`` greedy tokens on a
     warm engine: every kernel's launch count is set to 0 just before and
     read just after. Checks that every request ran to ``max_new``
@@ -4659,7 +4660,8 @@ def timed_serve(eng, prompts, max_new=MAX_NEW, audit=False, adapters=None):
     ``audit``: the serve runs under `sync_audit`, so a device sync
     outside the engine's `ENGINE_SYNCS` fails it; ``syncs_per_tick``
     counts those calls. ``adapters``: each prompt's adapter id (multi-LoRA
-    engines)."""
+    engines). ``on_tick(tick)``: called after each step, inside the
+    window (the monitor phase scrapes its exporter there)."""
     from rocm_apex_tpu_torch.ops._build import KERNELS
 
     vocab = eng.model.cfg.vocab_size
@@ -4672,11 +4674,14 @@ def timed_serve(eng, prompts, max_new=MAX_NEW, audit=False, adapters=None):
     with (sync_audit(eng) if audit else contextlib.nullcontext()) as syncs:
         ids = [eng.add_request(p, max_new, adapter_id=a) for p, a in
                zip(prompts, adapters or [0] * len(prompts))]
-        done, peak_pages = {}, 0
+        done, peak_pages, tick = {}, 0, 0
         while eng.has_work():
             for r in eng.step():
                 done[r.request_id] = r
             peak_pages = max(peak_pages, eng.pages_used)
+            tick += 1
+            if on_tick is not None:
+                on_tick(tick)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k.name: k.launches for k in KERNELS}
@@ -9706,6 +9711,387 @@ def run_serve_tp_phase(spec=None):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the monitor layer's host side on the serve
+# ---------------------------------------------------------------------------
+
+# the serve on bf16 pages of PAGE_SIZE three ways (A bare on NULL_REGISTRY,
+# B the default private registry, C a tracer, a time series sampling every
+# tick, a flight recorder and an exporter on loopback), timed serves in
+# A B C C B A order; the exporter is scraped after MONITOR_SCRAPE_TICK
+# ticks of each of C's serves. Then on int8 pages: a logits
+# fault (Inf on slot 0) MONITOR_FAULT_TICKS[0] ticks into the serve with
+# the flight recorder, and the ROADMAP Queue 3 plan, a host_fetch fault
+# MONITOR_FAULT_TICKS[1] ticks in (a prefill tick, which raises int8
+# scales) with max_step_retries=0. Then a traced fleet whose replica 0
+# drains after MONITOR_DRAIN_TICK ticks, shipping its pages. Every
+# fault tick counts from the engine's warm-up's end.
+MONITOR_SCRAPE_TICK = 2
+# the A B C C B A sequence, run MONITOR_ROUNDS times in one process (the
+# host-bound serve moves between runs; the medians are what is compared)
+MONITOR_ORDER = ("bare", "default", "instrumented", "instrumented",
+                 "default", "bare")
+MONITOR_ROUNDS = 3
+MONITOR_FAULT_TICKS = (4, 2)
+MONITOR_DRAIN_TICK = 12
+MONITOR_PATHS = ("/metrics", "/healthz", "/varz", "/timeseries")
+# the fp32 twin (2 layers at the serve's width, TF32 off) holds the
+# faulted runs' tokens to the fault-free run's exactly
+MONITOR_TWIN = dict(num_layers=2, requests=8, max_new=16)
+
+
+def _get(url):
+    """One GET on loopback: (status, body)."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _monitor_engine(model, form, **kw):
+    """An engine of the serve at ``form`` ("bare", "default",
+    "instrumented") on bf16 pages; the instrumented one's time series
+    samples every tick (TimeSeriesStore takes no interval of 0)."""
+    from rocm_apex_tpu_torch.monitor import (NULL_REGISTRY, FlightRecorder,
+                                             TimeSeriesStore, Tracer)
+
+    kw = dict(paged=True, page_size=PAGE_SIZE, **kw)
+    if form == "bare":
+        kw["registry"] = NULL_REGISTRY
+    elif form == "instrumented":
+        kw.update(tracer=Tracer(), flight_recorder=FlightRecorder())
+    eng = _engine(model, **kw)
+    if form == "instrumented":
+        eng.timeseries = TimeSeriesStore(eng.registry, interval=1e-9,
+                                         capacity=4096)
+    return eng
+
+
+def _trace_checks(eng, path):
+    """From C's exported Chrome trace: one finish per request of the
+    timed serve, each decode span's start minus its enqueue the TTFT its
+    completion record holds (to 1 us), no event dropped."""
+    n = eng.tracer.export_chrome_trace(path)
+    with open(path) as f:
+        body = json.load(f)
+    recs = {c["request_id"]: c for c in eng.completions}
+    ev = {}
+    for e in body["traceEvents"]:
+        rid = (e.get("args") or {}).get("request_id")
+        if rid in recs and e["name"] in ("enqueue", "decode", "finish"):
+            ev.setdefault(rid, {}).setdefault(e["name"], []).append(e)
+    finishes = sorted(len(v.get("finish", ())) for v in ev.values())
+    check(len(ev) == len(recs) and finishes == [1] * len(recs),
+          f"serve_monitor: finish events per request {finishes}")
+    err_us = max(abs(v["decode"][0]["ts"] - v["enqueue"][0]["ts"]
+                     - 1e3 * recs[rid]["ttft_ms"]) for rid, v in ev.items())
+    check(err_us <= 1.0, f"serve_monitor: the trace's TTFT is {err_us:.3f} "
+          f"us off the completion records'")
+    check(eng.tracer.dropped == 0 and body["otherData"]["dropped_events"]
+          == 0, "serve_monitor: the tracer dropped events")
+    return dict(events=n, requests=len(ev), ttft_max_err_us=err_us,
+                dropped=eng.tracer.dropped)
+
+
+def _monitor_abc(model, prompts, tmp):
+    """The A B C C B A timed serves, MONITOR_ROUNDS times: tokens and
+    syncs per tick equal, tok/s of each and each form's median (a host
+    cost), C's trace against its completion records, the exporter
+    scraped between two ticks of each of C's serves."""
+    from rocm_apex_tpu_torch.monitor import start_exporter
+
+    engs = {f: _monitor_engine(model, f)
+            for f in ("bare", "default", "instrumented")}
+    for eng in engs.values():
+        eng.generate(prompts[:SLOTS], max_new_tokens=3)  # warm-up
+    c = engs["instrumented"]
+    server = start_exporter(c.registry, engine=c)
+    runs, scrapes, trace = [], [], None
+    try:
+        for form in MONITOR_ORDER * MONITOR_ROUNDS:
+            eng = engs[form]
+            hook = None
+            if form == "instrumented":
+                eng.tracer.clear()
+                got = {}
+
+                def hook(tick, got=got):
+                    if tick == MONITOR_SCRAPE_TICK:
+                        for path in MONITOR_PATHS:
+                            got[path] = _get(server.url + path)
+
+            res, tokens = timed_serve(eng, prompts, audit=True, on_tick=hook)
+            runs.append((form, res, tokens))
+            if form == "instrumented":
+                status, text = _get(server.url + "/metrics")
+                total = sum(float(ln.rsplit(" ", 1)[1])
+                            for ln in text.decode().splitlines()
+                            if ln.startswith("serve_completions_total{"))
+                varz = json.loads(got["/varz"][1])
+                mem = varz["device_memory"]
+                scrape = dict(
+                    status={p: got[p][0] for p in MONITOR_PATHS},
+                    completions_total=total,
+                    healthz=json.loads(got["/healthz"][1]),
+                    varz_platforms=[m["platform"] for m in mem],
+                    varz_mem_bytes_in_use=[m["mem_bytes_in_use"]
+                                           for m in mem],
+                    timeseries_samples=len(json.loads(
+                        got["/timeseries"][1])["t"]),
+                )
+                check(all(v == 200 for v in scrape["status"].values())
+                      and status == 200, f"serve_monitor: a scrape failed "
+                      f"during the serve (a sync raises in the handler): "
+                      f"{scrape['status']}")
+                check(total == len(prompts), f"serve_monitor: /metrics "
+                      f"counts {total} completions of {len(prompts)}")
+                check(mem and all(m["platform"] == "cuda"
+                                  and m["mem_bytes_in_use"] > 0
+                                  for m in mem),
+                      f"serve_monitor: /varz device memory {mem}")
+                scrapes.append(scrape)
+                trace = _trace_checks(eng, os.path.join(tmp, "c.json"))
+    finally:
+        server.close()
+    ref_tokens = runs[0][2]
+    ref_syncs = runs[0][1]["syncs_per_tick"]
+    out = dict(order=[f for f, _, _ in runs], tokens_per_s=[
+        r["tokens_per_s"] for _, r, _ in runs], scrapes=scrapes, trace=trace,
+        ticks=[r["ticks"] for _, r, _ in runs])
+    out["median_tokens_per_s"] = {f: float(np.median(
+        [r["tokens_per_s"] for g, r, _ in runs if g == f]))
+        for f in MONITOR_ORDER[:3]}
+    for form, res, tokens in runs:
+        same = sum(a == b for a, b in zip(tokens, ref_tokens))
+        check(same == len(prompts), f"serve_monitor: {form} gives "
+              f"{same}/{len(prompts)} of the bare engine's tokens")
+        check(res["syncs_per_tick"] == ref_syncs, f"serve_monitor: {form} "
+              f"syncs per tick {res['syncs_per_tick']} vs bare {ref_syncs}")
+    out["syncs_per_tick"] = ref_syncs
+    out["tokens_equal_bare"] = len(prompts)
+    out["launches"] = runs[-3][1]["launches"]  # the last C serve's
+    out["timeseries_samples"] = len(c.timeseries)
+    for name in PAGED_SERVE_KERNELS + ("flash_attention_decode_paged",):
+        check(out["launches"].get(name, 0) > 0, f"serve_monitor: {name} "
+              f"was not launched in C's serve")
+    log(f"  tok/s {list(zip(out['order'], [round(x, 1) for x in out['tokens_per_s']]))}"
+        f" (host cost of the monitor, A B C C B A x {MONITOR_ROUNDS}); "
+        f"medians {out['median_tokens_per_s']}; syncs per tick "
+        f"{ref_syncs}; C's trace: {trace}; scrapes: {scrapes[-1]}")
+    return out
+
+
+def _int8_runs(model, prompts, max_new, audit, tmp):
+    """On int8 pages, each engine warmed up first: F the fault-free
+    serve, its scales copied before and after tick MONITOR_FAULT_TICKS[1];
+    Q the Queue 3 plan (host_fetch at that tick, max_step_retries=0),
+    its scales copied before the tick and after the requeue; R the
+    logits fault on slot 0 with the flight recorder. Returns the results
+    and the copies (compared after the runs: a comparison reads the
+    device)."""
+    from rocm_apex_tpu_torch.inference import Fault, FaultInjected, FaultPlan
+    from rocm_apex_tpu_torch.monitor import FlightRecorder
+
+    out = {}
+    for run in ("F", "Q", "R"):
+        kw = dict(kv_dtype=torch.int8)
+        if run == "Q":
+            kw["max_step_retries"] = 0
+        if run == "R":
+            kw["flight_recorder"] = FlightRecorder(
+                path=os.path.join(tmp, f"recorder_{len(prompts)}.jsonl"))
+        eng = _monitor_engine(model, "default", **kw)
+        eng.generate(prompts[:SLOTS], max_new_tokens=3)  # warm-up
+        t0 = eng.tick_count
+        fault_at = t0 + MONITOR_FAULT_TICKS[1]
+        if run == "Q":
+            eng.faults = FaultPlan([Fault(site="host_fetch", tick=fault_at)])
+        if run == "R":
+            eng.faults = FaultPlan([Fault(
+                site="logits", tick=t0 + MONITOR_FAULT_TICKS[0],
+                payload={"slot": 0, "value": float("inf")})])
+        ids = [eng.add_request(p, max_new) for p in prompts]
+        done, copies, raised = {}, {}, 0
+        # R's logits fault copies its poison to the card with a blocking
+        # copy (a sync on the fault path), so only F and Q are audited
+        audited = audit and run != "R"
+        with (sync_audit(eng) if audited
+              else contextlib.nullcontext()) as syncs:
+            while eng.has_work():
+                if eng.tick_count == fault_at and "pre" not in copies:
+                    copies["pre"] = eng.cache.snapshot_scales()
+                try:
+                    for r in eng.step():
+                        done[r.request_id] = r
+                except FaultInjected:
+                    raised += 1
+                    copies["requeued"] = eng.cache.snapshot_scales()
+                    check(eng.num_active == 0, "Queue 3: slots still leased "
+                          "after the requeue")
+                if eng.tick_count == fault_at + 1 and "post" not in copies:
+                    copies["post"] = eng.cache.snapshot_scales()
+        out[run] = dict(done=done, ids=ids, copies=copies, raised=raised,
+                        syncs=dict(syncs) if audited else None,
+                        stats=eng.stats(), engine=eng)
+    return out
+
+
+def _monitor_faults(model, prompts, max_new, tmp, audit=True):
+    """The flight recorder (R) and the Queue 3 repair (Q) against the
+    fault-free int8 run (F): R quarantines slot 0's request alone and
+    dumps one nonfinite/slot0 bundle; Q raises once, its scales after
+    the requeue are F's before the same tick bit for bit (F's tick
+    raised a scale), and every request finishes."""
+    runs = _int8_runs(model, prompts, max_new, audit, tmp)
+    f, q, r = runs["F"], runs["Q"], runs["R"]
+    ref = [f["done"][i].tokens for i in f["ids"]]
+    raised_scale = not torch.equal(f["copies"]["pre"], f["copies"]["post"])
+    check(raised_scale, "Queue 3: the fault-free run's tick raised no int8 "
+          "scale (pick another MONITOR_FAULT_TICKS[1])")
+    check(q["raised"] == 1 and "requeued" in q["copies"], "Queue 3: the "
+          "host_fetch fault did not raise once")
+    restored = torch.equal(q["copies"]["requeued"], q["copies"]["pre"])
+    equal_f = torch.equal(q["copies"]["requeued"], f["copies"]["pre"])
+    check(restored and equal_f, f"Queue 3: the scales after the requeue are "
+          f"not the fault-free run's at the tick (own pre-tick copy "
+          f"{restored}, fault-free run's {equal_f})")
+    q_tokens = [q["done"][i].tokens for i in q["ids"]]
+    check(all(q["done"][i].finish_reason == "length" for i in q["ids"]),
+          "Queue 3: a request did not finish after the requeue")
+    fr = r["engine"].flight_recorder
+    errors = [i for i in r["ids"] if r["done"][i].finish_reason == "error"]
+    check(len(fr.dumps) == 1 and fr.dumps[0]["offending"] == ["slot0"]
+          and len(errors) == 1 and int(r["stats"]["quarantined"]) == 1,
+          f"flight recorder: {len(fr.dumps)} dumps, errors {errors}")
+    survivors = [i for i in r["ids"] if i not in errors]
+    out = dict(
+        queue3=dict(raised=q["raised"], scales_restored=restored,
+                    scales_equal_fault_free=equal_f,
+                    fault_tick_raised_a_scale=raised_scale,
+                    tokens_equal_fault_free=sum(
+                        a == b for a, b in zip(q_tokens, ref)),
+                    requests=len(prompts), preemptions=int(
+                        q["stats"]["preemptions"]),
+                    syncs=q["syncs"], fault_free_syncs=f["syncs"]),
+        recorder=dict(dumps=len(fr.dumps), offending=fr.dumps[0]["offending"],
+                      request_id=fr.dumps[0]["snapshot"]["request_id"],
+                      survivors=len(survivors),
+                      survivors_equal_fault_free=sum(
+                          r["done"][i].tokens == f["done"][i].tokens
+                          for i in survivors)),
+    )
+    return out
+
+
+def _monitor_fleet(model, prompts):
+    """A traced two-replica fleet on bf16 pages under `sync_audit`:
+    replica 0 drains after MONITOR_DRAIN_TICK ticks, shipping its pages
+    to replica 1; the merged trace shows one finish per trace id, a
+    migrated lifeline spans the router and both replicas, and the merged
+    registry counts every completion."""
+    from rocm_apex_tpu_torch.inference import ReplicaRouter
+    from rocm_apex_tpu_torch.monitor import Tracer, trace_lifelines
+
+    engines = [_monitor_engine(model, "default", tracer=Tracer())
+               for _ in range(ROUTER_REPLICAS)]
+    router = ReplicaRouter(engines=engines, tracer=Tracer())
+    router.generate(prompts[:SLOTS], 3)  # warm-up
+    for tr in [router.tracer] + [e.tracer for e in engines]:
+        tr.clear()
+    for e in engines:
+        e.reset_stats()
+    _zero_launches()
+    with sync_audit(*engines) as syncs:
+        ids = [router.add_request(p, MAX_NEW) for p in prompts]
+        done, ticks = {}, 0
+        while router.has_work():
+            if ticks == MONITOR_DRAIN_TICK:
+                router.drain_replica(0)
+            for r in router.step():
+                done[r.request_id] = r
+            ticks += 1
+    launches = _launches()
+    router.rejoin_replica(0)
+    body = router.merged_trace()
+    lines = trace_lifelines(body)
+    merged = router.merged_registry()
+    completions = sum(s["value"] for s in merged.snapshot()[
+        "serve_completions_total"]["series"])
+    shipped = sum(1 for e in body["traceEvents"] if e["name"] == "migrate"
+                  and e["args"].get("shipped"))
+    finishes = sorted({v["finishes"] for v in lines.values()})
+    spans = max(len(v["pids"]) for v in lines.values())
+    check(len(lines) == len(prompts) and finishes == [1],
+          f"fleet: {len(lines)} lifelines, finishes {finishes}")
+    check(completions == len(prompts), f"fleet: merged registry counts "
+          f"{completions} completions")
+    check(shipped > 0 and engines[1].stats()["page_ships"] > 0 and spans == 3,
+          f"fleet: {shipped} migrations with shipped pages, replica 1 "
+          f"imported {engines[1].stats()['page_ships']}, widest lifeline "
+          f"{spans} processes")
+    check(all(done[i].finish_reason == "length" for i in ids),
+          "fleet: a request did not finish")
+    out = dict(lifelines=len(lines), finishes_per_trace_id=finishes,
+               merged_completions=completions, shipped_migrations=shipped,
+               page_ships=int(engines[1].stats()["page_ships"]),
+               widest_lifeline_processes=spans, ticks=ticks,
+               syncs=dict(syncs), events=len(body["traceEvents"]),
+               launches=launches)
+    log(f"  fleet: {out}")
+    return out
+
+
+def run_serve_monitor_phase():
+    """The monitor layer's host side at the serve's width: the A B C C B
+    A serves (the instrumented engine's tokens and syncs per tick equal
+    the bare engine's; tok/s of each, a host cost), its trace against
+    its completion records, the exporter scraped mid-serve under
+    `sync_audit`; the flight recorder and the Queue 3 repair on int8
+    pages; the traced fleet; the fp32 twin, where the faulted runs'
+    surviving tokens equal the fault-free run's exactly."""
+    import tempfile
+
+    model, load_s = _serve_model()
+    prompts = serve_prompts(model.cfg.vocab_size)
+    res = dict(weights_load_s=load_s, card=smi_line())
+    log(f"  card: {res['card']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        res["abc"] = _monitor_abc(model, prompts, tmp)
+        res["launches"] = res["abc"]["launches"]
+        log("  -- int8 pages: the flight recorder and the Queue 3 repair")
+        _zero_launches()
+        res["faults"] = _monitor_faults(model, prompts, MAX_NEW, tmp)
+        res["faults"]["launches"] = _launches()
+        check(res["faults"]["launches"].get(
+            "flash_attention_decode_paged_int8", 0) > 0,
+            "serve_monitor: the int8 paged read was not launched")
+        log(f"  {res['faults']}")
+        torch.cuda.empty_cache()
+        log("  -- the traced fleet")
+        res["fleet"] = _monitor_fleet(model, prompts)
+        torch.cuda.empty_cache()
+        log("  -- the fp32 twin")
+        twin_model = _twin_models(MONITOR_TWIN["num_layers"])[CARD]
+        twin_prompts = serve_prompts(twin_model.cfg.vocab_size)[
+            :MONITOR_TWIN["requests"]]
+        twin = _monitor_faults(twin_model, twin_prompts,
+                               MONITOR_TWIN["max_new"], tmp, audit=False)
+        for part, key, n in (("queue3", "tokens_equal_fault_free",
+                              "requests"),
+                             ("recorder", "survivors_equal_fault_free",
+                              "survivors")):
+            check(twin[part][key] == twin[part][n], f"serve_monitor twin: "
+                  f"{part} {twin[part][key]}/{twin[part][n]} equal the "
+                  f"fault-free tokens")
+        res["twin"] = twin
+        log(f"  fp32 twin: {twin}")
+    return res
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -9950,6 +10336,16 @@ def main(argv=None):
             f"tp=1 paged serve, a migration with its pages, spec_k "
             f"{SPEC_K}; the {SPEC_TWIN['num_layers']}-layer fp32 twin tp=2 "
             f"card vs cpu vs tp=1)", run_serve_tp_phase),
+        "serve_monitor": (
+            f"serve_monitor (the monitor layer on the serve: {N_REQUESTS} "
+            f"requests x {MAX_NEW} on bf16 pages of {PAGE_SIZE}, bare / "
+            f"default registry / tracer + time series + recorder + exporter "
+            f"in A B C C B A order x {MONITOR_ROUNDS}; a logits fault with "
+            f"the flight recorder and a host_fetch fault with no retry on "
+            f"int8 pages; a "
+            f"{ROUTER_REPLICAS}-replica traced fleet with a drain; the "
+            f"{MONITOR_TWIN['num_layers']}-layer fp32 twin)",
+            run_serve_monitor_phase),
     }
     report["phase_s"] = {}
     try:

@@ -121,10 +121,21 @@ its one fetch. Shipped pages carry every head: the export gathers the
 ranks' head shards (a collective every rank calls), the import takes
 this rank's, so a payload is laid out as a tp=1 engine's.
 
-Not ported yet, and refused at construction: request tracing, the
-metric registry, the flight recorder and the time series (``tracer``,
-``registry``, ``flight_recorder``, ``timeseries``; ROADMAP Queue 1
-item 9).
+The monitor layer's host side (JAX engine.py:264-275, 615-760,
+1371-1537): ``registry`` (None: a private enabled `MetricRegistry`;
+`monitor.NULL_REGISTRY` opts out) takes the ``serve_*`` families, every
+observation a host float; ``stats()`` reports exact percentiles over
+the newest ``stats_retention`` requests and switches to the registry's
+histogram quantiles once a ring has wrapped. ``tracer`` (a
+`monitor.Tracer`; None: the shared disabled ``NULL_TRACER``) records
+each request's timeline (enqueue, queue_wait, prefill_chunk, decode,
+finish, and every lifecycle instant) from the same ``perf_counter``
+readings that feed ``stats()``, so its spans reproduce the completion
+records' TTFT and queue wait; every call site is guarded by
+``tracer.enabled``. ``flight_recorder`` dumps a ``nonfinite/slot<i>``
+bundle when a slot quarantines; ``timeseries`` ticks once a step.
+None of them reads a device value. ``retrace_policy`` (the retrace
+sentinel) is refused by name: ROADMAP Queue 1 item 9b.
 
 Sampling draws from an engine-owned `torch.Generator` seeded with
 ``seed``: a fixed seed replays the same stream on one device, but not
@@ -149,7 +160,11 @@ from rocm_apex_tpu_torch.inference.paging import (
     PrefixStore,
 )
 from rocm_apex_tpu_torch.inference.sampling import sample
-from rocm_apex_tpu_torch.monitor.trace import mint_trace_id
+from rocm_apex_tpu_torch.monitor.telemetry import (
+    CardinalityError,
+    MetricRegistry,
+)
+from rocm_apex_tpu_torch.monitor.trace import NULL_TRACER, mint_trace_id
 from rocm_apex_tpu_torch.transformer import parallel_state
 from rocm_apex_tpu_torch.transformer.tensor_parallel import (
     gather_from_tensor_model_parallel_region,
@@ -301,13 +316,13 @@ class InferenceEngine:
     and ``watchdog_dump_path`` are the robustness layer's knobs;
     ``adapter_pool`` (an `AdapterPool` of the model's geometry, chunked
     engines only, not with ``spec_k``) and ``tier_preemption`` the
-    multi-LoRA ones (see the module docstring).
+    multi-LoRA ones; ``tracer``, ``registry``, ``flight_recorder``,
+    ``timeseries`` and ``stats_retention`` the monitor layer's (see the
+    module docstring).
     """
 
     # consecutive ticks without token progress before generate() gives up
     _GENERATE_STALL_TICKS = 1000
-    # per-request samples kept for the exact percentiles of stats()
-    _STATS_RETENTION = 4096
 
     def __init__(
         self,
@@ -341,6 +356,8 @@ class InferenceEngine:
         registry=None,
         flight_recorder=None,
         timeseries=None,
+        stats_retention: int = 4096,
+        retrace_policy: Optional[str] = None,
     ):
         cfg = model.cfg
         tp = parallel_state.resolve_tensor_parallel_size(
@@ -467,13 +484,79 @@ class InferenceEngine:
                     f"the model (layers={cfg.num_layers}, hidden="
                     f"{cfg.hidden_size})"
                 )
-        if any(x is not None for x in
-               (tracer, registry, flight_recorder, timeseries)):
+        if retrace_policy is not None:
             raise NotImplementedError(_NOT_PORTED.format(
-                what="the monitor layer (tracer, registry, "
-                     "flight_recorder, timeseries)", item="item 9"))
+                what="the retrace sentinel (retrace_policy)",
+                item="item 9b"))
         # host-side per-tenant completion accounting (JAX engine.py:488)
         self._tenant_counts: Dict[str, Dict[str, int]] = {}
+        # per-request samples kept for the exact percentiles of stats()
+        # (oldest drop); the registry histograms below never drop
+        if stats_retention < 1:
+            raise ValueError(
+                f"stats_retention must be >= 1, got {stats_retention}"
+            )
+        self.stats_retention = int(stats_retention)
+        # the mergeable constant-memory telemetry (JAX engine.py:643-713):
+        # a private enabled registry by default, NULL_REGISTRY to opt out
+        if registry is None:
+            registry = MetricRegistry()
+        self.registry = registry
+        self._h_queue_wait = registry.histogram(
+            "serve_queue_wait_ms",
+            "Request queue wait (enqueue -> slot lease), ms.",
+        )
+        # multi-tenant engines label TTFT and the token counters by
+        # tenant; past the registry's cardinality cap a tenant maps to
+        # the pre-created "other" series (`_tenant_series`), so the
+        # serving path never raises CardinalityError
+        self._per_tenant = adapter_pool is not None
+        if self._per_tenant:
+            self._h_ttft = registry.histogram(
+                "serve_ttft_ms",
+                "Time to first token (enqueue -> first token), ms.",
+                labelnames=("tenant",),
+            )
+            self._c_tokens = registry.counter(
+                "serve_tokens_total",
+                "Tokens of finished requests, by phase "
+                "(prompt=ingested, generated=emitted) and tenant.",
+                labelnames=("phase", "tenant"),
+            )
+            self._reset_tenant_series()
+        else:
+            self._h_ttft = registry.histogram(
+                "serve_ttft_ms",
+                "Time to first token (enqueue -> first token), ms.",
+            )
+            self._c_tokens = registry.counter(
+                "serve_tokens_total",
+                "Tokens of finished requests, by phase "
+                "(prompt=ingested, generated=emitted).",
+                labelnames=("phase",),
+            )
+        self._h_tpot = registry.histogram(
+            "serve_tpot_ms",
+            "Mean inter-token time after the first token, ms.",
+        )
+        self._h_e2e = registry.histogram(
+            "serve_e2e_ms",
+            "Request end-to-end latency (enqueue -> finish), ms.",
+        )
+        self._c_completions = registry.counter(
+            "serve_completions_total",
+            "Finished requests by terminal finish_reason.",
+            labelnames=("finish_reason",),
+        )
+        self._g_queue_depth = registry.gauge(
+            "serve_queue_depth", "Requests waiting for a slot."
+        )
+        self._g_slots_active = registry.gauge(
+            "serve_slots_active", "Slots holding a live request."
+        )
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.timeseries = timeseries
+        self.flight_recorder = flight_recorder
         self.faults = faults if faults is not None else NO_FAULTS
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
@@ -558,7 +641,7 @@ class InferenceEngine:
         self._tick = 0  # step() count, the fault plans' tick domain
         # queue_full results awaiting delivery through the next step()
         self._shed_results: List[GenerationResult] = []
-        self.reset_stats()
+        self._zero_stats()
 
     # ------------------------------------------------------------------
     # public API
@@ -606,8 +689,33 @@ class InferenceEngine:
         return list(self._completions)
 
     def reset_stats(self) -> None:
-        """Zero the counters and per-request samples (the cache and the
-        queue are untouched): a benchmark warms up, resets, then times."""
+        """Zero the counters, the per-request samples and the engine's
+        registry series, in place (a shared registry's other families are
+        untouched; the cache and the queue are too): a benchmark warms
+        up, resets, then times."""
+        self._zero_stats()
+        if self.registry.enabled:
+            for metric in (
+                self._h_queue_wait, self._h_ttft, self._h_tpot,
+                self._h_e2e, self._c_completions, self._c_tokens,
+                self._g_queue_depth, self._g_slots_active,
+            ):
+                metric.clear()
+            if self._per_tenant:
+                # clear() dropped the overflow series too
+                self._reset_tenant_series()
+
+    def _reset_tenant_series(self) -> None:
+        """Pre-create the ``other`` overflow series (so the fallback can
+        never itself overflow, whatever ``max_label_sets`` is) and forget
+        every tenant sighting."""
+        self._c_tokens.labels(phase="prompt", tenant="other")
+        self._c_tokens.labels(phase="generated", tenant="other")
+        self._h_ttft.labels(tenant="other")
+        self._tenant_label_ok: Set[str] = {"other"}
+        self._tenant_overflowed: Set[str] = set()
+
+    def _zero_stats(self) -> None:
         self._admitted = 0
         self._evicted = 0
         self._quarantined = 0
@@ -642,13 +750,13 @@ class InferenceEngine:
         self._tier_sheds = 0
         self._tenant_counts.clear()
         self._queue_waits: Deque[float] = collections.deque(
-            maxlen=self._STATS_RETENTION
+            maxlen=self.stats_retention
         )
         self._ttfts: Deque[float] = collections.deque(
-            maxlen=self._STATS_RETENTION
+            maxlen=self.stats_retention
         )
         self._completions: Deque[Dict[str, float]] = collections.deque(
-            maxlen=self._STATS_RETENTION
+            maxlen=self.stats_retention
         )
         # the watchdog's progress snapshot tracks the counters zeroed
         self._progress_mark = (0, 0, 0)
@@ -664,9 +772,13 @@ class InferenceEngine:
         mean host time of a mixed tick (``prefill_ms_avg``; on the
         whole-prompt path, of one admit's prefill) and of a decode-only
         tick (``decode_ms_avg``), tokens/s over each phase's time; and the
-        exact percentiles ``queue_wait_ms_p50/95`` (enqueue -> slot
-        lease) and ``ttft_ms_p50/95`` (enqueue -> first token) over the
-        newest ``_STATS_RETENTION`` requests. The paged cache's gauges
+        percentiles ``queue_wait_ms_p50/95`` (enqueue -> slot lease) and
+        ``ttft_ms_p50/95`` (enqueue -> first token): exact over the
+        newest ``stats_retention`` requests while the rings hold every
+        sample, then the registry's histogram quantiles
+        (``serve_queue_wait_ms``, ``serve_ttft_ms``; bounded error,
+        `Histogram.error_bound`); with `NULL_REGISTRY` the rings are the
+        only source. The paged cache's gauges
         ``pages_total``, ``pages_used``, ``page_occupancy``,
         ``shared_page_ratio`` (mapped table entries on a page with more
         than one reference) and counters ``cow_forks``, ``prefix_hits``,
@@ -686,10 +798,14 @@ class InferenceEngine:
         (zeros without a pool) and the admission counters
         ``adapter_stalls``, ``tier_preemptions``, ``tier_sheds``."""
 
-        def pct_ms(samples, q):
-            if not samples:
+        def pct_ms(ring, hist, q):
+            # exact while the capped ring holds every sample, the
+            # histogram's bounded-error quantile once it wrapped
+            if self.registry.enabled and hist.count() > len(ring):
+                return float(hist.percentile(q))
+            if not ring:
                 return 0.0
-            return 1e3 * float(np.percentile(np.asarray(samples), q))
+            return 1e3 * float(np.percentile(np.asarray(ring), q))
 
         pages_total = float(self.cache.num_pages) if self.paged else 0.0
         pages_used = float(self.pages_used)
@@ -766,24 +882,83 @@ class InferenceEngine:
                 decode_generated / self._decode_seconds
                 if self._decode_seconds > 0 else 0.0
             ),
-            "queue_wait_ms_p50": pct_ms(self._queue_waits, 50),
-            "queue_wait_ms_p95": pct_ms(self._queue_waits, 95),
-            "ttft_ms_p50": pct_ms(self._ttfts, 50),
-            "ttft_ms_p95": pct_ms(self._ttfts, 95),
+            "queue_wait_ms_p50": pct_ms(self._queue_waits,
+                                        self._h_queue_wait, 50),
+            "queue_wait_ms_p95": pct_ms(self._queue_waits,
+                                        self._h_queue_wait, 95),
+            "ttft_ms_p50": pct_ms(self._ttfts, self._h_ttft, 50),
+            "ttft_ms_p95": pct_ms(self._ttfts, self._h_ttft, 95),
         }
+
+    # -- telemetry recording (host floats only; one registry `enabled`
+    # -- check a sample, JAX engine.py:1371-1450) ---------------------
+
+    def _record_queue_wait(self, seconds: float) -> None:
+        self._queue_waits.append(seconds)
+        if self.registry.enabled:
+            self._h_queue_wait.observe(1e3 * seconds)
+
+    def _tenant_series(self, tenant: Optional[str]) -> str:
+        """A tenant's metric label under ``max_label_sets``: the first
+        sighting tries to create its series; once the registry's cap
+        trips, the tenant maps to the pre-created ``other`` label for
+        good. The serving path never raises `CardinalityError`."""
+        if tenant is None:
+            tenant = "base"
+        if tenant in self._tenant_label_ok:
+            return tenant
+        if tenant in self._tenant_overflowed:
+            return "other"
+        try:
+            # the token family first: two series a tenant, so it trips
+            # the cap before the one-series TTFT family
+            self._c_tokens.labels(phase="prompt", tenant=tenant)
+            self._c_tokens.labels(phase="generated", tenant=tenant)
+            self._h_ttft.labels(tenant=tenant)
+        except CardinalityError:
+            self._tenant_overflowed.add(tenant)
+            return "other"
+        self._tenant_label_ok.add(tenant)
+        return tenant
+
+    def _record_ttft(self, seconds: float,
+                     tenant: Optional[str] = None) -> None:
+        self._ttfts.append(seconds)
+        if self.registry.enabled:
+            if self._per_tenant:
+                self._h_ttft.observe(
+                    1e3 * seconds, tenant=self._tenant_series(tenant))
+            else:
+                self._h_ttft.observe(1e3 * seconds)
 
     def _record_completion(self, rec: Dict[str, Any]) -> None:
         """Keep a completion record; with an adapter pool, tally it
-        under its tenant too (JAX engine.py:1418-1432)."""
+        under its tenant too (JAX engine.py:1418-1450); feed the
+        registry's completion, token, e2e and TPOT series."""
         self._completions.append(rec)
+        tenant = rec.get("tenant")
         if self.adapter_pool is not None:
             tc = self._tenant_counts.setdefault(
-                rec.get("tenant") or "base",
+                tenant or "base",
                 {"completed": 0, "prompt_tokens": 0, "generated_tokens": 0},
             )
             tc["completed"] += 1
             tc["prompt_tokens"] += int(rec["prompt_tokens"])
             tc["generated_tokens"] += int(rec["new_tokens"])
+        if self.registry.enabled:
+            self._c_completions.inc(finish_reason=rec["finish_reason"])
+            if self._per_tenant:
+                label = self._tenant_series(tenant)
+                self._c_tokens.inc(rec["prompt_tokens"], phase="prompt",
+                                   tenant=label)
+                self._c_tokens.inc(rec["new_tokens"], phase="generated",
+                                   tenant=label)
+            else:
+                self._c_tokens.inc(rec["prompt_tokens"], phase="prompt")
+                self._c_tokens.inc(rec["new_tokens"], phase="generated")
+            self._h_e2e.observe(rec["e2e_ms"])
+            if rec["new_tokens"] > 1:
+                self._h_tpot.observe(rec["tpot_ms"])
 
     def tenant_stats(self) -> Dict[str, Dict[str, int]]:
         """Per-tenant completion accounting: tenant -> {completed,
@@ -894,11 +1069,12 @@ class InferenceEngine:
                 victim = self._queue[victim_idx]
                 del self._queue[victim_idx]
                 self._tier_sheds += 1
-                shed_id, shed_prompt, shed_tenant = (
-                    victim.request_id, victim.prompt, victim.tenant)
+                shed_id, shed_prompt, shed_tenant, shed_trace = (
+                    victim.request_id, victim.prompt, victim.tenant,
+                    victim.trace_id)
             else:
-                shed_id, shed_prompt, shed_tenant = (
-                    request_id, prompt, tenant)
+                shed_id, shed_prompt, shed_tenant, shed_trace = (
+                    request_id, prompt, tenant, trace_id)
             self._shed += 1
             self._record_completion({
                 "request_id": shed_id,
@@ -916,6 +1092,12 @@ class InferenceEngine:
                 request_id=shed_id, prompt=list(shed_prompt), tokens=[],
                 finish_reason="queue_full",
             ))
+            if self.tracer.enabled:
+                self.tracer.instant(
+                    "shed", ts=now, track=f"req{shed_id}",
+                    queue_depth=len(self._queue),
+                    request_id=shed_id, trace_id=shed_trace,
+                )
             if victim_idx is None:
                 return request_id
         if timeout is not None or queue_ttl is not None:
@@ -927,6 +1109,12 @@ class InferenceEngine:
             else None,
             adapter_id=adapter_id, tenant=tenant, trace_id=trace_id,
         ))
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "enqueue", ts=now, track=f"req{request_id}",
+                prompt_tokens=len(prompt), max_new_tokens=int(max_new_tokens),
+                request_id=request_id, trace_id=trace_id,
+            )
         return request_id
 
     def _check_adapter(self, adapter_id, tenant):
@@ -967,6 +1155,12 @@ class InferenceEngine:
             out.extend(self._step_whole())
         self._tick += 1
         self._note_progress()
+        if self.registry.enabled:
+            # live occupancy gauges for an asynchronous /metrics scrape
+            self._g_queue_depth.set(self.num_queued)
+            self._g_slots_active.set(self.num_active)
+        if self.timeseries is not None:
+            self.timeseries.tick()
         return out
 
     def cancel(self, request_id: int) -> Optional[GenerationResult]:
@@ -984,6 +1178,12 @@ class InferenceEngine:
         for slot, st in enumerate(self._slots):
             if st is not None and st.req.request_id == request_id:
                 self._cancelled += 1
+                if self.tracer.enabled:
+                    self.tracer.instant(
+                        "cancel", ts=now, track=f"req{request_id}",
+                        slot=slot, generated=len(st.generated),
+                        request_id=request_id, trace_id=st.req.trace_id,
+                    )
                 return self._evict(slot, st, "cancelled")
         return None
 
@@ -992,9 +1192,16 @@ class InferenceEngine:
         engine until all accepted work finishes, and return those
         results. ``shed_queue=True`` cancels the still-queued requests
         up front, so only the in-flight slots run to completion.
-        Idempotent; `reopen` is the way back."""
+        Idempotent (a second call emits no second pair of drain
+        markers); `reopen` is the way back."""
+        already = self._draining
         self._draining = True
         now = time.perf_counter()
+        if self.tracer.enabled and not already:
+            self.tracer.instant(
+                "drain_begin", ts=now, track="engine",
+                queued=self.num_queued, active=self.num_active,
+            )
         out: List[GenerationResult] = []
         if shed_queue:
             while self._queue:
@@ -1003,6 +1210,9 @@ class InferenceEngine:
                 out.append(self._finalize_queued(req, "cancelled", now))
         while self.has_work():
             out.extend(self.step())
+        if self.tracer.enabled and not already:
+            self.tracer.instant("drain_end", track="engine",
+                                finished=len(out))
         return out
 
     def reopen(self) -> None:
@@ -1040,6 +1250,8 @@ class InferenceEngine:
             self._prompt_tokens, self._generated_tokens, self._evicted,
         )
         self._last_progress = time.perf_counter()
+        if self.tracer.enabled:
+            self.tracer.instant("reopen", track="engine")
 
     # ------------------------------------------------------------------
     # the migration surface (JAX engine.py:2043-2323)
@@ -1101,6 +1313,13 @@ class InferenceEngine:
                 self._release_slot_pages(st, slot)
             self._release_adapter(st)
             self._slots[slot] = None
+            if self.tracer.enabled:
+                self.tracer.instant(
+                    "evacuate", track=f"req{st.req.request_id}",
+                    slot=slot, generated=len(st.generated),
+                    request_id=st.req.request_id,
+                    trace_id=st.req.trace_id,
+                )
         if self.paged:
             self._push_table()
         self._queue.clear()
@@ -1129,6 +1348,12 @@ class InferenceEngine:
             self._release_adapter(st)
             self._slots[slot] = None
             self._evacuated += 1
+            if self.tracer.enabled:
+                self.tracer.instant(
+                    "evacuate", track=f"req{request_id}",
+                    slot=slot, generated=len(st.generated),
+                    request_id=request_id, trace_id=st.req.trace_id,
+                )
             return rec
         for i, req in enumerate(self._queue):
             if req.request_id != request_id:
@@ -1215,6 +1440,12 @@ class InferenceEngine:
         if pages is not None and self.paged:
             self._shipped[request_id] = pages
         self._queue.append(req)
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "resume", ts=now, track=f"req{request_id}",
+                carried=len(generated),
+                request_id=request_id, trace_id=trace_id,
+            )
         return request_id
 
     def prefix_match_tokens(self, prompt: Sequence[int]) -> int:
@@ -1527,13 +1758,20 @@ class InferenceEngine:
         sampling generator's state and the cache's lengths as they were
         before the first attempt, ``restore`` (an int8 page written twice
         in the tick) put back. On exhaustion every in-flight request is
-        requeued, then the failure propagates."""
+        requeued, then the failure propagates; on int8 pages every
+        layer's scales first go back to their values before the tick
+        (a device copy taken here, no sync): the failed attempt may have
+        raised a page's scale, and a released page keeps its scale for
+        its next owner, where the JAX engine's cache never took the
+        failed tick's writes."""
         # only a drawing sampler advances the generator: a greedy tick
         # (or one that cannot retry) saves nothing
         gen_state = (self._gen.get_state()
                      if self.sampling.temperature > 0
                      and self.max_step_retries > 0 else None)
         lengths = self.cache.lengths
+        scales = (self.cache.snapshot_scales()
+                  if self.paged and self.cache.quantized else None)
         attempt = 0
         while True:
             try:
@@ -1546,10 +1784,16 @@ class InferenceEngine:
                 return thunk()
             except Exception:
                 if attempt >= self.max_step_retries:
+                    if scales is not None:
+                        self.cache.restore_scales(scales)
                     self._requeue_in_flight()
                     raise
                 attempt += 1
                 self._step_retries += 1
+                if self.tracer.enabled:
+                    self.tracer.instant(
+                        "step_retry", track="engine", attempt=attempt,
+                    )
                 if self.step_retry_backoff > 0:
                     time.sleep(min(
                         self.step_retry_backoff * (2 ** (attempt - 1)), 1.0,
@@ -1581,6 +1825,13 @@ class InferenceEngine:
                 )
             self._queue.appendleft(st.req)
             self._preemptions += 1
+            if self.tracer.enabled:
+                self.tracer.instant(
+                    "requeue", track=f"req{st.req.request_id}",
+                    slot=slot, generated=len(st.generated),
+                    request_id=st.req.request_id,
+                    trace_id=st.req.trace_id,
+                )
         if self.paged:
             self._push_table()
 
@@ -1629,6 +1880,12 @@ class InferenceEngine:
             "e2e_ms": 1e3 * (now - req.enqueued_at),
             "tenant": req.tenant,
         })
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "finish", ts=now, track=f"req{req.request_id}",
+                reason=reason, request_id=req.request_id,
+                trace_id=req.trace_id,
+            )
         return GenerationResult(
             request_id=req.request_id, prompt=list(req.prompt),
             tokens=tokens, finish_reason=reason,
@@ -1650,6 +1907,9 @@ class InferenceEngine:
             return
         self._watchdog_fires += 1
         diag = self._stall_diagnosis()
+        if self.tracer.enabled:
+            self.tracer.instant("watchdog", track="engine",
+                                stalled_seconds=stalled)
         if self.watchdog_dump_path is not None:
             with open(self.watchdog_dump_path, "w") as f:
                 json.dump({
@@ -1659,6 +1919,10 @@ class InferenceEngine:
                     "diagnosis": diag,
                     "stats": self.stats(),
                 }, f, indent=2)
+            # the tracer's timeline beside the dump when tracing is on
+            if self.tracer.enabled:
+                self.tracer.export_chrome_trace(
+                    self.watchdog_dump_path + ".trace.json")
         raise RuntimeError(
             f"serving watchdog: no token progress for {stalled:.2f}s "
             f"(watchdog_timeout={self.watchdog_timeout}s); {diag}"
@@ -1742,6 +2006,13 @@ class InferenceEngine:
         )
         self._queue.appendleft(victim.req)
         self._tier_preemptions += 1
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "tier_preempt", track=f"req{victim.req.request_id}",
+                slot=vslot, tier=vtier, over=top,
+                request_id=victim.req.request_id,
+                trace_id=victim.req.trace_id,
+            )
 
     def _admit_free_slots(self, now: float) -> None:
         """Lease free slots to queued requests (`_pick_queued`'s order).
@@ -1763,7 +2034,7 @@ class InferenceEngine:
                 break
             req, aslot = picked
             self._admitted += 1
-            self._queue_waits.append(now - req.enqueued_at)
+            self._record_queue_wait(now - req.enqueued_at)
             st = _Slot(req=req, generated=[], prefix=list(req.prompt),
                        leased_at=now, adapter_slot=aslot)
             carried = self._preempted.pop(req.request_id, None)
@@ -1784,20 +2055,40 @@ class InferenceEngine:
             ):
                 # the cursor covers the shipped rows, at least what a
                 # local prefix match could offer
+                if self.tracer.enabled:
+                    self.tracer.add_span(
+                        "queue_wait", req.enqueued_at, now,
+                        track=f"req{req.request_id}", slot=slot,
+                        request_id=req.request_id, trace_id=req.trace_id,
+                    )
                 continue
-            if self._store is None:
-                continue
-            pages, matched, partial, key = self._store.match(req.prompt)
-            if matched > 0:
-                for idx, page in enumerate(pages):
-                    self._allocator.ref(page)
-                    self._map_page(slot, idx, page)
-                    st.borrowed.add(idx)
-                st.cursor = st.pos = matched
-                st.chain_key = key
-                st.reg_pages = len(pages) - (1 if partial else 0)
-                self._prefix_hits += 1
-                self._prefix_hit_tokens += matched
+            if self._store is not None:
+                pages, matched, partial, key = self._store.match(
+                    req.prompt)
+                if matched > 0:
+                    for idx, page in enumerate(pages):
+                        self._allocator.ref(page)
+                        self._map_page(slot, idx, page)
+                        st.borrowed.add(idx)
+                    st.cursor = st.pos = matched
+                    st.chain_key = key
+                    st.reg_pages = len(pages) - (1 if partial else 0)
+                    self._prefix_hits += 1
+                    self._prefix_hit_tokens += matched
+                    if self.tracer.enabled:
+                        self.tracer.instant(
+                            "prefix_hit", track=f"req{req.request_id}",
+                            tokens=matched, pages=len(pages),
+                            partial_tokens=partial, slot=slot,
+                            request_id=req.request_id,
+                            trace_id=req.trace_id,
+                        )
+            if self.tracer.enabled:
+                self.tracer.add_span(
+                    "queue_wait", req.enqueued_at, now,
+                    track=f"req{req.request_id}", slot=slot,
+                    request_id=req.request_id, trace_id=req.trace_id,
+                )
 
     # -- the paged cache's host bookkeeping ------------------------------
 
@@ -1831,6 +2122,10 @@ class InferenceEngine:
             if got is None:
                 return False
             self._map_page(slot, idx, got[0])
+            if self.tracer.enabled:
+                self.tracer.instant(
+                    "page_alloc", track=f"req{st.req.request_id}",
+                    page=got[0], page_idx=idx, slot=slot)
             return True
         if idx in st.borrowed:
             got = self._allocator.alloc(1)
@@ -1843,6 +2138,10 @@ class InferenceEngine:
             st.borrowed.discard(idx)
             self._map_page(slot, idx, got[0])
             self._cow_forks += 1
+            if self.tracer.enabled:
+                self.tracer.instant(
+                    "cow_fork", track=f"req{st.req.request_id}", src=page,
+                    dst=got[0], page_idx=idx, slot=slot)
         return True
 
     def _secure_prefill_pages(self, st: _Slot, slot: int, n: int) -> int:
@@ -1945,6 +2244,10 @@ class InferenceEngine:
             "page_ship", tick=self._tick, slot=slot,
         ) is not None:
             self._page_ship_fallbacks += 1
+            if self.tracer.enabled:
+                self.tracer.instant("page_ship_dropped",
+                                    track=f"req{st.req.request_id}",
+                                    slot=slot)
             return False
         cache = self.cache
         ps = cache.page_size
@@ -1991,6 +2294,10 @@ class InferenceEngine:
         st.cursor = target
         st.pos = target
         self._page_ships += 1
+        if self.tracer.enabled:
+            self.tracer.instant("page_ship_import",
+                                track=f"req{st.req.request_id}", slot=slot,
+                                pages=n, rows=target)
         return True
 
     def _preempt_for_pages(self) -> None:
@@ -2026,6 +2333,13 @@ class InferenceEngine:
             )
             self._queue.appendleft(victim.req)
             self._preemptions += 1
+            if self.tracer.enabled:
+                self.tracer.instant(
+                    "preempt", track=f"req{victim.req.request_id}",
+                    slot=vslot, generated=len(victim.generated),
+                    request_id=victim.req.request_id,
+                    trace_id=victim.req.trace_id,
+                )
 
     def _guard_capacity(self, active: np.ndarray) -> None:
         """A live slot about to decode at a position >= capacity is an
@@ -2041,8 +2355,9 @@ class InferenceEngine:
     def _draft(self):
         """One drafter call a tick over every decoding slot's history
         (the last ``spec_window`` tokens of prompt + generated, left-
-        padded with -1): host numpy in and out. None when no slot
-        decodes."""
+        padded with -1): host numpy in and out, and the call's
+        ``perf_counter`` bounds (the tracer's ``draft`` span). Nones and
+        zeros when no slot decodes."""
         S, W = self.num_slots, self._spec_window
         hist = np.full((S, W), -1, np.int32)
         hist_len = np.zeros((S,), np.int32)
@@ -2055,8 +2370,10 @@ class InferenceEngine:
             hist[slot, W - len(h):] = h
             hist_len[slot] = len(h)
         if not any_decoding:
-            return None, None
-        return self._drafter(hist, hist_len)
+            return None, None, 0.0, 0.0
+        t_d0 = time.perf_counter()
+        drafts, counts = self._drafter(hist, hist_len)
+        return drafts, counts, t_d0, time.perf_counter()
 
     def _step_chunked(self) -> List[GenerationResult]:
         finished: List[GenerationResult] = []
@@ -2092,14 +2409,16 @@ class InferenceEngine:
                 poison_slot = int(s) if s is not None else 0
                 poison_val = float(pay.get("value", float("nan")))
         completions = []  # (slot, chunk index of its last prompt token, fed)
+        packed = []  # (slot, tokens, start position): the tracer's spans
         reg_pending = []  # paged slots whose full prompt pages register
         # (slot, first chunk row, drafted count, drafts, pre-span position)
         spec_entries = []
         used = 0
         prefill_used = 0
         drafts_np = counts_np = None
+        t_d0 = t_d1 = 0.0
         if self.spec_k > 0:
-            drafts_np, counts_np = self._draft()
+            drafts_np, counts_np, t_d0, t_d1 = self._draft()
         # slot order keeps the packed segment ids non-decreasing; a slot
         # contributes prompt rows or a speculative span, never both
         for slot in range(S):
@@ -2126,6 +2445,7 @@ class InferenceEngine:
                 chunk_pos[used:used + n] = np.arange(st.cursor, st.cursor + n)
                 if chunk_adp is not None:
                     chunk_adp[used:used + n] = st.adapter_slot
+                packed.append((slot, n, st.cursor))
                 st.cursor += n
                 st.pos = st.cursor
                 st.chunks += 1
@@ -2231,6 +2551,7 @@ class InferenceEngine:
 
         chunk_out = chunk_bad = dec_out = dec_bad = chunk_kv = None
         spec = self.spec_k > 0
+        spec_t0 = spec_t1 = 0.0
         if used > 0 or (spec and active.any()):
             # speculative engines run the mixed step every tick: the
             # host cursors ride in as lengths, which the accept walk
@@ -2249,15 +2570,29 @@ class InferenceEngine:
                     chunk_poison, dec_poison, chunk_adp, dec_adp,
                 ), restore)
             )
-            dt = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            spec_t0, spec_t1 = t0, t1
             if prefill_used > 0:
-                self._prefill_seconds += dt
+                self._prefill_seconds += t1 - t0
                 self._mixed_steps += 1
             else:
-                self._decode_seconds += dt
+                self._decode_seconds += t1 - t0
                 self._decode_only_steps += 1
             if active.any() or completions or spec_entries:
                 self._decode_steps += 1
+            if self.tracer.enabled:
+                extra = ({"drafted": sum(e[2] for e in spec_entries)}
+                         if spec else {})
+                self.tracer.add_span(
+                    "mixed_step", t0, t1, track="engine", chunk_tokens=used,
+                    decodes=int(active.sum()), **extra,
+                )
+                for slot, n, start_pos in packed:
+                    self.tracer.add_span(
+                        "prefill_chunk", t0, t1,
+                        track=f"req{self._slots[slot].req.request_id}",
+                        tokens=n, start_pos=start_pos, slot=slot,
+                    )
         elif active.any():
             lengths = np.array([s.pos if s is not None else 0
                                 for s in self._slots], np.int32)
@@ -2265,9 +2600,13 @@ class InferenceEngine:
             dec_out, dec_bad = self._call_device(lambda: self._decode(
                 dec_tokens, active, lengths, dec_poison, dec_adp=dec_adp,
             ))
-            self._decode_seconds += time.perf_counter() - t0
+            t1 = time.perf_counter()
+            self._decode_seconds += t1 - t0
             self._decode_steps += 1
             self._decode_only_steps += 1
+            if self.tracer.enabled:
+                self.tracer.add_span("decode_step", t0, t1, track="engine",
+                                     decodes=int(active.sum()))
 
         # the step ran: the tick's full prompt pages may register now
         for st, slot in reg_pending:
@@ -2277,12 +2616,14 @@ class InferenceEngine:
         for slot, idx, fed in completions:
             st = self._slots[slot]
             if chunk_bad[idx]:
-                finished.append(self._quarantine(slot, st))
+                finished.append(self._quarantine(
+                    slot, st, "nonfinite logits at prompt completion"))
                 continue
             st.generated.append(int(chunk_out[idx]))
             self._generated_tokens += 1
             st.first_token_at = now
-            self._ttfts.append(now - st.req.enqueued_at)
+            # unlabeled by tenant, as the JAX engine observes it here
+            self._record_ttft(now - st.req.enqueued_at)
             done = self._finish_reason(st)
             if done is not None:
                 finished.append(self._evict(slot, st, done))
@@ -2290,7 +2631,8 @@ class InferenceEngine:
             if not fed:
                 continue
             if dec_bad[slot]:
-                finished.append(self._quarantine(slot, st))
+                finished.append(self._quarantine(
+                    slot, st, "nonfinite logits in fused decode"))
                 continue
             # the second token arrives in the same tick
             st.pos += 1
@@ -2304,7 +2646,8 @@ class InferenceEngine:
                 if st is None or not active[slot]:
                     continue
                 if dec_bad[slot]:
-                    finished.append(self._quarantine(slot, st))
+                    finished.append(self._quarantine(
+                        slot, st, "nonfinite logits in decode"))
                     continue
                 st.pos += 1  # the input token was written this step
                 st.generated.append(int(dec_out[slot]))
@@ -2313,12 +2656,13 @@ class InferenceEngine:
                 if done is not None:
                     finished.append(self._evict(slot, st, done))
         if spec_entries:
-            finished.extend(self._accept(spec_entries, chunk_out,
-                                         chunk_bad, chunk_kv))
+            finished.extend(self._accept(
+                spec_entries, chunk_out, chunk_bad, chunk_kv,
+                (t_d0, t_d1), (spec_t0, spec_t1)))
         return finished
 
-    def _accept(self, spec_entries, chunk_out, chunk_bad, chunk_kv
-                ) -> List[GenerationResult]:
+    def _accept(self, spec_entries, chunk_out, chunk_bad, chunk_kv,
+                draft_span, verify_span) -> List[GenerationResult]:
         """The accept walk. Row j of a span was sampled under the model
         conditioned on the drafts before it, so (for a point-mass
         drafter) draft j is accepted iff the model's own sample at row j
@@ -2328,7 +2672,10 @@ class InferenceEngine:
         Then ONE commit call writes every kept span's last-token row and
         its m accepted rows (the bonus token stays the slot's unwritten
         next input), after the decode grid, whose dead-row write on a
-        contiguous cache lands at the span's first position."""
+        contiguous cache lands at the span's first position.
+        ``draft_span``/``verify_span``: the drafter call's and the mixed
+        step's ``perf_counter`` bounds, the tracer's ``draft`` and
+        ``verify`` spans of each slot."""
         finished: List[GenerationResult] = []
         budget, S = self.prefill_token_budget, self.num_slots
         commit_np = np.full((budget,), S, np.int32)
@@ -2337,7 +2684,8 @@ class InferenceEngine:
         for slot, r0, n, drafts, pos0 in spec_entries:
             st = self._slots[slot]
             if chunk_bad[r0:r0 + n + 1].any():
-                finished.append(self._quarantine(slot, st))
+                finished.append(self._quarantine(
+                    slot, st, "nonfinite logits in speculative span"))
                 continue
             out = chunk_out[r0:r0 + n + 1]
             m = 0
@@ -2368,6 +2716,15 @@ class InferenceEngine:
                     break
             if n - accepted > 0:
                 self._rollbacks += 1
+            if self.tracer.enabled:
+                track = f"req{st.req.request_id}"
+                self.tracer.add_span("draft", *draft_span, track=track,
+                                     tokens=n)
+                self.tracer.add_span("verify", *verify_span, track=track,
+                                     drafted=n, accepted=accepted, slot=slot)
+                if n - accepted > 0:
+                    self.tracer.instant("rollback", track=track,
+                                        rejected=n - accepted)
             if done is not None:
                 # its unwritten rows die with the lease
                 finished.append(self._evict(slot, st, done))
@@ -2396,7 +2753,12 @@ class InferenceEngine:
             if self._slots[slot] is not None or not self._queue:
                 continue
             req = self._queue.popleft()
-            self._queue_waits.append(t_admit - req.enqueued_at)
+            self._record_queue_wait(t_admit - req.enqueued_at)
+            if self.tracer.enabled:
+                self.tracer.add_span(
+                    "queue_wait", req.enqueued_at, t_admit,
+                    track=f"req{req.request_id}", slot=slot,
+                )
             toks = np.zeros((1, self.max_prompt_len), np.int64)
             toks[0, :len(req.prompt)] = req.prompt
             tok = self._prefill(toks, slot, len(req.prompt))
@@ -2417,7 +2779,13 @@ class InferenceEngine:
                 st.generated.append(int(tok))
                 self._generated_tokens += 1
                 st.first_token_at = now
-                self._ttfts.append(now - st.req.enqueued_at)
+                self._record_ttft(now - st.req.enqueued_at)
+                if self.tracer.enabled:
+                    self.tracer.add_span(
+                        "prefill", st.leased_at, now,
+                        track=f"req{st.req.request_id}",
+                        tokens=len(st.req.prompt), slot=slot,
+                    )
                 done = self._finish_reason(st)
                 if done is not None:
                     finished.append(self._evict(slot, st, done))
@@ -2442,7 +2810,8 @@ class InferenceEngine:
                 if st is None:
                     continue
                 if dec_bad[slot]:
-                    finished.append(self._quarantine(slot, st))
+                    finished.append(self._quarantine(
+                        slot, st, "nonfinite logits in decode"))
                     continue
                 st.pos += 1  # the input token was written this step
                 st.generated.append(int(dec_out[slot]))
@@ -2463,10 +2832,24 @@ class InferenceEngine:
             return "capacity"
         return None
 
-    def _quarantine(self, slot: int, st: _Slot) -> GenerationResult:
+    def _quarantine(self, slot: int, st: _Slot, why: str
+                    ) -> GenerationResult:
         """Nonfinite logits on ONE slot evict that slot only (``error``);
-        the tick's other slots took their tokens from the same fetch."""
+        the tick's other slots took their tokens from the same fetch. The
+        flight recorder, when wired, dumps a ``nonfinite/slot<i>`` bundle
+        from values already on the host."""
         self._quarantined += 1
+        rid = st.req.request_id
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "quarantine", track=f"req{rid}", slot=slot, why=why,
+                request_id=rid, trace_id=st.req.trace_id,
+            )
+        if self.flight_recorder is not None:
+            self.flight_recorder.record(
+                self._tick, {f"nonfinite/slot{slot}": 1.0},
+                request_id=rid, pos=st.pos, generated=len(st.generated),
+            )
         return self._evict(slot, st, "error")
 
     def _evict(self, slot: int, st: _Slot, reason: str) -> GenerationResult:
@@ -2495,6 +2878,16 @@ class InferenceEngine:
             "e2e_ms": 1e3 * (finished_at - req.enqueued_at),
             "tenant": req.tenant,
         })
+        if self.tracer.enabled:
+            track = f"req{req.request_id}"
+            self.tracer.add_span(
+                "decode", first_at, finished_at, track=track, tokens=n_new,
+                slot=slot, request_id=req.request_id, trace_id=req.trace_id,
+            )
+            self.tracer.instant(
+                "finish", ts=finished_at, track=track, reason=reason,
+                request_id=req.request_id, trace_id=req.trace_id,
+            )
         return GenerationResult(
             request_id=req.request_id,
             prompt=list(req.prompt),

@@ -324,7 +324,11 @@ class PagedKVCache:
     drop). ``lengths`` as in `KVCache`. ``host_capacity``: the capacity
     the cache was made for (the engine's host bound; `capacity` rounds
     it up to whole pages), on which the paged decode reads bound and
-    split their keys (None: `capacity`).
+    split their keys (None: `capacity`). ``scale_block``: the one
+    ``(2, layers, num_pages, heads)`` tensor `create` lays every layer's
+    ``k_scale`` and ``v_scale`` out in (views of it), so
+    `snapshot_scales` copies them all in one launch (None for float
+    pools).
     """
 
     k: List[torch.Tensor]
@@ -335,6 +339,8 @@ class PagedKVCache:
     lengths: torch.Tensor
     page_size: int = 16
     host_capacity: Optional[int] = None
+    scale_block: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False)
 
     @classmethod
     def create(
@@ -366,20 +372,20 @@ class PagedKVCache:
             return [torch.zeros(shape, dtype=dt, device=dev)
                     for _ in range(num_layers)]
 
-        def scales():
-            return [torch.zeros((num_pages, num_heads), dtype=torch.float32,
-                                device=dev) for _ in range(num_layers)]
-
+        block = (torch.zeros((2, num_layers, num_pages, num_heads),
+                             dtype=torch.float32, device=dev)
+                 if quantized else None)
         return cls(
             k=pools(pool_dtype),
             v=pools(pool_dtype),
-            k_scale=scales() if quantized else None,
-            v_scale=scales() if quantized else None,
+            k_scale=list(block[0].unbind(0)) if quantized else None,
+            v_scale=list(block[1].unbind(0)) if quantized else None,
             page_table=torch.full((num_slots, pages_per_slot), num_pages,
                                   dtype=torch.int32, device=dev),
             lengths=torch.zeros((num_slots,), dtype=torch.int32, device=dev),
             page_size=page_size,
             host_capacity=capacity,
+            scale_block=block,
         )
 
     @classmethod
@@ -532,6 +538,16 @@ class PagedKVCache:
         if active is not None:
             new = torch.where(active, new, self.lengths)
         self.lengths = new.to(torch.int32)
+        return self
+
+    def snapshot_scales(self) -> torch.Tensor:
+        """A device copy of every layer's int8 scales (`scale_block`, one
+        copy queued on the stream, no sync) for `restore_scales`."""
+        return self.scale_block.clone()
+
+    def restore_scales(self, saved: torch.Tensor) -> "PagedKVCache":
+        """Every layer's scales back to a `snapshot_scales` copy."""
+        self.scale_block.copy_(saved)
         return self
 
     def reset_slot(self, slot: int) -> "PagedKVCache":

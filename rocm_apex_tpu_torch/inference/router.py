@@ -3,11 +3,14 @@
 Port of ``rocm_apex_tpu/inference/router.py``: host bookkeeping over the
 port's `InferenceEngine` replicas, which on one card share the model's
 one set of weights. The JAX router's adoption of replica 0's compiled
-step programs has no counterpart (the port compiles nothing), and its
-monitor-layer options (``tracer``, ``retrace_policy``, ``timeseries``
-and the merged registry and trace) wait for ROADMAP Queue 1 item 9 and
-are refused by name. Page shipping between replicas on one card keeps
-the payload on the device.
+step programs has no counterpart (the port compiles nothing). The
+monitor layer's host side is wired as in JAX: ``tracer`` records the
+router's instants under each request's ``trace_id``, ``timeseries``
+ticks once a fleet step, `merged_registry` folds every replica's
+registry into the router's and `merged_trace` every tracer into one
+body; ``retrace_policy`` and `arm_retrace_sentinel` (the retrace
+sentinel) are refused by name, ROADMAP Queue 1 item 9b. Page shipping
+between replicas on one card keeps the payload on the device.
 
 One stalled engine must never be a total outage. The router owns N
 independent `InferenceEngine` replicas behind the engine's own surface
@@ -80,6 +83,7 @@ router.
 """
 
 import collections
+import json
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -89,7 +93,11 @@ from rocm_apex_tpu_torch.inference.engine import (
 )
 from rocm_apex_tpu_torch.inference.faults import NO_FAULTS, FaultPlan
 from rocm_apex_tpu_torch.monitor.telemetry import MetricRegistry
-from rocm_apex_tpu_torch.monitor.trace import mint_trace_id
+from rocm_apex_tpu_torch.monitor.trace import (
+    NULL_TRACER,
+    merge_traces,
+    mint_trace_id,
+)
 
 __all__ = [
     "ReplicaRouter", "SharedPrefixRegistry", "REPLICA_STATES",
@@ -109,9 +117,9 @@ REPLICA_STATES = ("up", "quarantined", "drained")
 REPLICA_CLASSES = ("mixed", "prefill", "decode")
 
 _NOT_PORTED = (
-    "ReplicaRouter's {what} is not ported yet (ROADMAP Queue 1, item 9: "
-    "the monitor layer); the router serves, routes, migrates and "
-    "recovers without it"
+    "ReplicaRouter's {what} is not ported yet (ROADMAP Queue 1, item 9b: "
+    "the retrace sentinel of the monitor layer); the router serves, "
+    "routes, migrates, recovers and traces without it"
 )
 
 
@@ -219,8 +227,11 @@ class ReplicaRouter:
     quarantine is probed for rejoin (`reopen()` + health). Pass
     ``faults`` to drive fleet chaos (see module docstring).
     ``registry``: the router's `MetricRegistry` (a fresh one by
-    default). ``tracer``, ``retrace_policy`` and ``timeseries`` are
-    refused until the monitor layer is ported (ROADMAP Queue 1 item 9).
+    default). ``tracer``: a `monitor.Tracer` for the router's instants
+    (default the disabled ``NULL_TRACER``); ``timeseries``: a
+    `TimeSeriesStore` ticked once a fleet step (over the router's
+    registry, or ``router.merged_registry`` for fleet-wide series).
+    ``retrace_policy`` is refused (ROADMAP Queue 1 item 9b).
     """
 
     def __init__(
@@ -242,13 +253,11 @@ class ReplicaRouter:
         retrace_policy: Optional[str] = None,
         timeseries=None,
     ):
-        asked = [name for name, value in (
-            ("tracer", tracer), ("retrace_policy", retrace_policy),
-            ("timeseries", timeseries)) if value is not None]
-        if asked:
+        if retrace_policy is not None:
             raise NotImplementedError(_NOT_PORTED.format(
-                what=", ".join(asked)))
+                what="retrace_policy"))
         self.faults = faults if faults is not None else NO_FAULTS
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         if engines is not None:
             engines = list(engines)
         else:
@@ -264,6 +273,7 @@ class ReplicaRouter:
                     "migration recomputes prompt + emitted tokens "
                     "through the chunked prefill"
                 )
+            kw.pop("registry", None)  # each replica scrapes privately
             kw.setdefault("faults", self.faults)
             # every replica serves the model's one set of weights
             engines = [InferenceEngine(model, **kw)
@@ -428,6 +438,9 @@ class ReplicaRouter:
             labelnames=("replica_class",),
         )
         self._g_healthy.set(len(self._replicas))
+        # sensor plane: the ring samples the registry it was built over
+        # (the router's own families for TimeSeriesStore(router.registry))
+        self.timeseries = timeseries
 
     # ------------------------------------------------------------------
     # public surface (mirrors InferenceEngine)
@@ -545,6 +558,12 @@ class ReplicaRouter:
                 request_id=request_id, prompt=prompt, tokens=[],
                 finish_reason="queue_full",
             ))
+            if self.tracer.enabled:
+                self.tracer.instant(
+                    "shed", ts=now, track=f"req{request_id}",
+                    queue_depth=len(self._pending),
+                    request_id=request_id, trace_id=trace_id,
+                )
             return request_id
         self._pending.append({
             "request_id": request_id,
@@ -562,6 +581,12 @@ class ReplicaRouter:
             "tenant": tenant,
             "trace_id": trace_id,
         })
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "admit", ts=now, track=f"req{request_id}",
+                prompt_tokens=len(prompt),
+                request_id=request_id, trace_id=trace_id,
+            )
         return request_id
 
     def step(self) -> List[GenerationResult]:
@@ -624,6 +649,8 @@ class ReplicaRouter:
         if self.registry.enabled:
             self._g_healthy.set(self.healthy_replicas)
             self._g_pending.set(len(self._pending))
+        if self.timeseries is not None:
+            self.timeseries.tick()
         return out
 
     def cancel(self, request_id: int) -> Optional[GenerationResult]:
@@ -700,6 +727,15 @@ class ReplicaRouter:
         rep.engine.drain()  # idempotent; closes the engine's admission
         rep.state = "drained"
         self._count_event("drain_replica")
+        if self.tracer.enabled:
+            # every migrated request named, so the merged timeline can
+            # group this replica-scoped event into each lifeline
+            self.tracer.instant(
+                "drain_replica", track="router", replica=i,
+                migrated=len(recs),
+                request_ids=[r["request_id"] for r in recs],
+                trace_ids=[r.get("trace_id", "") for r in recs],
+            )
 
     def rejoin_replica(self, i: int) -> None:
         """Rolling restart, step 2: `reopen()` the drained (or
@@ -715,6 +751,12 @@ class ReplicaRouter:
         rep.progress_mark = rep.engine.progress_marker
         self._rejoins += 1
         self._count_event("rejoin")
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "rejoin", track="router", replica=i,
+                replica_class=rep.replica_class,
+                after_ticks=self._tick - rep.quarantined_at,
+            )
 
     # ------------------------------------------------------------------
     # telemetry
@@ -757,22 +799,44 @@ class ReplicaRouter:
         return out
 
     def merged_registry(self):
-        """Refused: the fleet merge folds every replica's registry, and
-        the engine's registry waits for ROADMAP Queue 1 item 9."""
-        raise NotImplementedError(_NOT_PORTED.format(what="merged_registry"))
+        """One fresh `MetricRegistry` holding the router's own series
+        merged with every replica's enabled registry (``merge_from``:
+        counter and bucket adds are exact), so fleet percentiles
+        reproduce the combined per-replica streams. Pass this method,
+        not its result, to the exporter as the per-scrape provider."""
+        merged = MetricRegistry()
+        merged.merge_from(self.registry)
+        for rep in self._replicas:
+            if rep.engine.registry.enabled:
+                merged.merge_from(rep.engine.registry)
+        return merged
 
-    def merged_trace(self, labels: Optional[List[str]] = None):
-        """Refused: the span tracer waits for ROADMAP Queue 1 item 9."""
-        raise NotImplementedError(_NOT_PORTED.format(what="merged_trace"))
+    def merged_trace(self, labels: Optional[List[str]] = None
+                     ) -> Dict[str, Any]:
+        """One Perfetto-loadable body for the fleet: the router's tracer
+        and every replica's, folded by `monitor.trace.merge_traces` (the
+        router is process 1, replica ``i`` process ``i + 2``), a
+        migrated request's hops one ``trace_id`` lifeline. Default
+        labels: ``router``, ``replica<i>:<class>``."""
+        tracers = [self.tracer] + [rep.engine.tracer
+                                   for rep in self._replicas]
+        if labels is None:
+            labels = ["router"] + [
+                f"replica{rep.index}:{rep.replica_class}"
+                for rep in self._replicas
+            ]
+        return merge_traces(tracers, labels)
 
     def export_merged_trace(self, path: str) -> int:
-        """Refused: the span tracer waits for ROADMAP Queue 1 item 9."""
-        raise NotImplementedError(
-            _NOT_PORTED.format(what="export_merged_trace"))
+        """`merged_trace` to disk; returns the event count."""
+        body = self.merged_trace()
+        with open(path, "w") as f:
+            json.dump(body, f)
+        return len(body["traceEvents"])
 
     def arm_retrace_sentinel(self) -> None:
         """Refused: the retrace sentinel waits for ROADMAP Queue 1
-        item 9."""
+        item 9b."""
         raise NotImplementedError(
             _NOT_PORTED.format(what="arm_retrace_sentinel"))
 
@@ -917,6 +981,12 @@ class ReplicaRouter:
             )
             self._assigned[rid] = rep.index
             self._mirror[rid] = rec
+            if self.tracer.enabled:
+                self.tracer.instant(
+                    "dispatch", ts=now, track=f"req{rid}",
+                    replica=rep.index, carried=len(rec["generated"]),
+                    request_id=rid, trace_id=rec.get("trace_id"),
+                )
 
     def _place(
         self, rec: Dict[str, Any], candidates: List[_Replica]
@@ -953,6 +1023,13 @@ class ReplicaRouter:
                 candidates = resident
                 self._adapter_affinity_hits += 1
                 self._count_event("adapter_affinity_hit")
+                if self.tracer.enabled:
+                    self.tracer.instant(
+                        "adapter_affinity_hit",
+                        track=f"req{rec['request_id']}", adapter=aid,
+                        request_id=rec["request_id"],
+                        trace_id=rec.get("trace_id"),
+                    )
         # prefix affinity: the replica already holding the longest
         # materialized prefix of this prompt skips that much prefill
         # (recovered requests carry tokens and re-prefill anyway, so
@@ -975,6 +1052,13 @@ class ReplicaRouter:
             if best is not None:
                 self._affinity_hits += 1
                 self._count_event("affinity_hit")
+                if self.tracer.enabled:
+                    self.tracer.instant(
+                        "affinity_hit", track=f"req{rec['request_id']}",
+                        replica=best.index, tokens=best_tokens,
+                        request_id=rec["request_id"],
+                        trace_id=rec.get("trace_id"),
+                    )
                 return best
         # least-loaded: fewest owned requests, then fewest live pages,
         # then lowest index (deterministic tie-break)
@@ -1073,6 +1157,13 @@ class ReplicaRouter:
                     continue
                 self._handoffs += 1
                 self._count_event("handoff")
+                if self.tracer.enabled:
+                    self.tracer.instant(
+                        "handoff", track=f"req{rec['request_id']}",
+                        replica=rep.index, shipped="pages" in rec,
+                        request_id=rec["request_id"],
+                        trace_id=rec.get("trace_id"),
+                    )
                 self._requeue([rec])
 
     def _requeue(self, recs: List[Dict[str, Any]]) -> None:
@@ -1088,6 +1179,12 @@ class ReplicaRouter:
             if "pages" in rec:
                 self._page_migrations += 1
                 self._count_event("page_migration")
+            if self.tracer.enabled:
+                self.tracer.instant(
+                    "migrate", track=f"req{rid}",
+                    carried=len(rec["generated"]), shipped="pages" in rec,
+                    request_id=rid, trace_id=rec.get("trace_id"),
+                )
 
     def _quarantine_replica(self, rep: _Replica, why: str) -> None:
         """Failure path for a replica whose ENGINE is still intact
@@ -1102,6 +1199,13 @@ class ReplicaRouter:
         rep.last_error = why
         self._quarantines += 1
         self._count_event("quarantine")
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "quarantine_replica", track="router",
+                replica=rep.index, why=why, migrated=len(recs),
+                request_ids=[r["request_id"] for r in recs],
+                trace_ids=[r.get("trace_id", "") for r in recs],
+            )
 
     def _kill_replica(self, rep: _Replica) -> None:
         """`replica_kill`: the engine is presumed crashed — recover
@@ -1124,6 +1228,13 @@ class ReplicaRouter:
         self._quarantines += 1
         self._count_event("kill")
         self._count_event("quarantine")
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "kill_replica", track="router", replica=rep.index,
+                recovered=len(recs),
+                request_ids=[r["request_id"] for r in recs],
+                trace_ids=[r.get("trace_id", "") for r in recs],
+            )
 
     def _consult_faults(self) -> None:
         if not self.faults.enabled:

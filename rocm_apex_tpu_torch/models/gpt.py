@@ -243,8 +243,8 @@ class GPTConfig:
         check_comm_dtype(self.comm_dtype)
         unported = [
             (self.activation_stats,
-             "activation_stats=True (ROADMAP Queue 1 item 9, the monitor "
-             "layer)"),
+             "activation_stats=True (ROADMAP Queue 1 item 9, part 9b: the "
+             "monitor layer's in-graph metrics)"),
             (self.checkpoint_activations,
              "checkpoint_activations=True (ROADMAP Queue 1 item 10, rest "
              "of the training stack)"),

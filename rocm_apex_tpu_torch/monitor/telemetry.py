@@ -2,10 +2,10 @@
 
 Port of ``rocm_apex_tpu/monitor/telemetry.py``, host-only Python kept as
 the port's own copy (the JAX module imports nothing of JAX either, and
-this one is the same code): the piece of the monitor layer the
-`ReplicaRouter` keeps its fleet counters, gauges and labeled
-histograms in. The rest of that layer (tracer, SLOs, exporter, time
-series, the engine's own registry) waits for ROADMAP Queue 1 item 9.
+this one is the same code): the registry the serving engine keeps its
+``serve_*`` series in and the `ReplicaRouter` its fleet counters, gauges
+and labeled histograms, which the exporter, the SLOs and the time series
+read.
 
 * **Constant memory**: a `Histogram` is one integer per bucket plus a
   running sum/count, its bounds fixed at construction (log-spaced by

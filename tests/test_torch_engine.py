@@ -31,6 +31,14 @@ from rocm_apex_tpu_torch.inference import (
     top_p_logits,
 )
 from rocm_apex_tpu_torch.models.gpt import GPTConfig
+from rocm_apex_tpu_torch.monitor import (
+    NULL_REGISTRY,
+    NULL_TRACER,
+    FlightRecorder,
+    MetricRegistry,
+    TimeSeriesStore,
+    Tracer,
+)
 
 SHAPE = dict(vocab_size=96, hidden_size=32, num_layers=2,
              num_attention_heads=4, max_position_embeddings=32,
@@ -134,14 +142,21 @@ class TestEngineSurface:
         assert eng.stats()["generated_tokens"] == 0.0
 
     @pytest.mark.parametrize("kw", [
-        dict(paged=True, registry=object()),
-        dict(paged=True, tracer=object()),
-        dict(flight_recorder=object()),
-        dict(timeseries=object()), dict(registry=object(), tracer=object()),
-        dict(tracer=object()), dict(registry=object()),
+        dict(paged=True, registry=MetricRegistry(), retrace_policy="count"),
+        dict(paged=True, tracer=Tracer(), retrace_policy="raise"),
+        dict(flight_recorder=FlightRecorder(), retrace_policy="count"),
+        dict(timeseries=TimeSeriesStore(MetricRegistry()),
+             retrace_policy="count"),
+        dict(registry=NULL_REGISTRY, tracer=NULL_TRACER,
+             retrace_policy="raise"),
+        dict(tracer=Tracer(), retrace_policy="count"),
+        dict(registry=MetricRegistry(), retrace_policy="raise"),
     ])
     def test_unported_options_raise(self, engines, kw):
-        with pytest.raises(NotImplementedError, match="not ported"):
+        """The monitor options are taken; the retrace sentinel
+        (``retrace_policy``) is refused whatever comes with it."""
+        with pytest.raises(NotImplementedError,
+                           match="not ported.*item 9b"):
             engines(False, **kw)
 
     def test_request_validation(self, engines):

@@ -167,12 +167,12 @@ def test_pages_used_per_step_match_jax(engines):
 
 
 @pytest.mark.parametrize("kw, error, match", [
-    (dict(paged=True, flight_recorder=object()), NotImplementedError,
-     "not ported"),
-    (dict(paged=True, timeseries=object()), NotImplementedError, "item 9"),
-    (dict(paged=True, registry=object()), NotImplementedError,
-     "not ported"),
-    (dict(paged=True, tracer=object()), NotImplementedError, "not ported"),
+    (dict(paged=True, retrace_policy="count"), NotImplementedError,
+     "item 9b"),
+    (dict(paged=True, retrace_policy="raise"), NotImplementedError,
+     "retrace_policy"),
+    (dict(paged=True, stats_retention=0), ValueError, "stats_retention"),
+    (dict(stats_retention=-1), ValueError, ">= 1"),
     (dict(prefix_sharing=True), ValueError, "paged=True"),
     (dict(kv_dtype=torch.int8), ValueError, "paged=True"),
 ])

@@ -1,17 +1,16 @@
 """The port's multi-LoRA serving against the JAX package's.
 
 The cases of tests/L0/test_adapters.py apart from TestTenantTelemetry
-(the monitor layer, ROADMAP Queue 1 item 9), at its geometry: the tiny
-fp32 GPT (vocab 96, hidden 32, 2 layers, 4 heads, 32 positions), 2
-slots, capacity 24, budget 4, the same numpy-drawn weights and adapter
-factors on both sides. The segmented delta against JAX's within 1e-5
-(fp32, summation order only); `pad_rank` and the pool's buffers bit for
-bit; the pool's slots and counters over one call sequence equal to the
-JAX pool's; greedy tokens compared for equality with the JAX engine's
-on the contiguous cache and on bf16 pages, adapter 0 against an engine
-without a pool, and under residency backpressure, tier-aware shedding
-and tier preemption.
-"""
+(the tenant series are in tests/test_torch_serve_monitor.py), at its
+geometry: the tiny fp32 GPT (vocab 96, hidden 32, 2 layers, 4 heads, 32
+positions), 2 slots, capacity 24, budget 4, the same numpy-drawn weights
+and adapter factors on both sides. The segmented delta against JAX's
+within 1e-5 (fp32, summation order only); `pad_rank` and the pool's
+buffers bit for bit; the pool's slots and counters over one call
+sequence equal to the JAX pool's; greedy tokens compared for equality
+with the JAX engine's on the contiguous cache and on bf16 pages, adapter
+0 against an engine without a pool, and under residency backpressure,
+tier-aware shedding and tier preemption."""
 
 import jax
 import jax.numpy as jnp

@@ -1,8 +1,8 @@
 """The port's fault harness and request lifecycle against the JAX engine's.
 
-The cases of tests/L0/test_robustness.py that do not need the monitor
-layer (ROADMAP Queue 1 item 9), at its geometry: the tiny fp32 GPT
-(vocab 96, hidden 32, 2 layers, 4 heads, 32 positions), 2 slots,
+The cases of tests/L0/test_robustness.py but its monitor half, at its
+geometry: the tiny fp32 GPT (vocab 96, hidden 32, 2 layers, 4 heads,
+32 positions), 2 slots,
 capacity 24, budget 4, the same numpy-drawn weights on both sides.
 `FaultPlan` fires at the same calls as the JAX plan for the same seed;
 deadlines, queue TTLs, cancel, the bounded queue, drain and the
@@ -13,8 +13,10 @@ the failed attempt wrote: the generator's state is restored, and on
 int8 pages the pools and scales equal a fault-free run's bit for bit);
 and one seeded chaos plan with a mid-prefill cancel gives the JAX
 engine's results on the contiguous cache, bf16 pages and int8 pages.
-The half of JAX's ``test_inf_payload_and_flight_recorder`` that checks
-the flight recorder waits for the monitor layer; its Inf half is here.
+An exhausted retry on int8 pages puts the scales back as the JAX
+engine's functional cache has them (ROADMAP Queue 3). The flight
+recorder half of JAX's ``test_inf_payload_and_flight_recorder`` is in
+tests/test_torch_serve_monitor.py; its Inf half is here.
 """
 
 import json
@@ -27,6 +29,7 @@ import pytest
 import torch
 
 from rocm_apex_tpu.inference import Fault as JaxFault
+from rocm_apex_tpu.inference import FaultInjected as JaxFaultInjected
 from rocm_apex_tpu.inference import FaultPlan as JaxFaultPlan
 from rocm_apex_tpu.inference import InferenceEngine as JaxEngine
 from rocm_apex_tpu.inference import SamplingParams as JaxSamplingParams
@@ -383,6 +386,64 @@ class TestFaultIsolation:
         assert eng.stats()["preemptions"] >= 2.0
         eng._allocator.assert_consistent()
         assert eng._allocator.snapshot() == baseline
+
+    def test_exhausted_retry_puts_int8_scales_back(self, engines):
+        """ROADMAP Queue 3: a host_fetch fault fires after the forward
+        has written its K/V into the int8 pages in place, and with
+        max_step_retries=0 the engine requeues and raises at once. The
+        JAX engine's functional cache never took the failed tick's
+        writes; the port's scales must be put back to their values
+        before the tick (a released page keeps its scale for the next
+        owner), equal to the JAX engine's after the same plan, and the
+        final tokens and scales equal the JAX run's."""
+        k = 2
+        faults = [dict(site="host_fetch", tick=k)]
+
+        def scales(eng):
+            c = eng.cache
+            return [np.array(t, copy=True)
+                    for t in (*c.k_scale, *c.v_scale)]
+
+        def run(eng):
+            for p in PROMPTS:
+                eng.add_request(p, 8)
+            before = after = None
+            done = {}
+            while eng.has_work():
+                if eng.tick_count == k and before is None:
+                    before = scales(eng)
+                try:
+                    for r in eng.step():
+                        done[r.request_id] = r.tokens
+                except (FaultInjected, JaxFaultInjected):
+                    after = scales(eng)
+                    assert eng.num_active == 0
+            return before, after, scales(eng), done
+
+        c_before, _, _, c_done = run(engines(**INT8))
+        # the faulted tick raises a scale in the fault-free run
+        ticked = engines(**INT8)
+        for p in PROMPTS:
+            ticked.add_request(p, 8)
+        for _ in range(k + 1):
+            if ticked.tick_count == k:
+                pre = scales(ticked)
+            ticked.step()
+        assert any(not np.array_equal(a, b)
+                   for a, b in zip(pre, scales(ticked)))
+        port = run(engines(faults=_plan(False, faults), max_step_retries=0,
+                           **INT8))
+        assert port[1] is not None, "the fault did not fire"
+        for a, b, c in zip(port[0], port[1], c_before):
+            assert np.array_equal(a, b) and np.array_equal(b, c)
+        jeng = engines(True, faults=_plan(True, faults), max_step_retries=0,
+                       **INT8)
+        jax_run = run(jeng)
+        for a, b in zip(port[1], jax_run[1]):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-8)
+        for a, b in zip(port[2], jax_run[2]):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-8)
+        assert port[3] == jax_run[3] == c_done
 
     def test_page_alloc_fault_defers_not_corrupts(self, engines):
         ref = _ref(engines, PAGED)

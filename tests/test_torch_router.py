@@ -10,7 +10,9 @@ on both sides. Tokens are compared for equality: a fleet's with the
 single engine's and with the JAX fleet's under the same fault plan;
 shipped pages bit for bit (pool blocks and int8 scales) between the
 source's pool, the payload and the destination's pool. The router's
-monitor options are refused by name, naming item 9.
+retrace sentinel (``retrace_policy``, `arm_retrace_sentinel`) is refused
+by name, naming item 9b; its tracer, time series and merges are held
+against JAX's in test_torch_serve_monitor.py.
 """
 
 import jax
@@ -650,8 +652,7 @@ def test_router_adapter_affinity(sides):
         bare.add_request([1], 2, adapter_id=1)
 
 
-@pytest.mark.parametrize("option", ["tracer", "retrace_policy",
-                                    "timeseries"])
+@pytest.mark.parametrize("option", ["retrace_policy"])
 def test_monitor_options_refused(sides, option):
     with pytest.raises(NotImplementedError, match="item 9") as err:
         ReplicaRouter(engines=[sides[0]()], **{option: "on"})
@@ -659,8 +660,7 @@ def test_monitor_options_refused(sides, option):
 
 
 @pytest.mark.parametrize("method, args", [
-    ("merged_registry", ()), ("merged_trace", ()),
-    ("export_merged_trace", ("trace.json",)), ("arm_retrace_sentinel", ()),
+    ("arm_retrace_sentinel", ()),
 ])
 def test_monitor_methods_refused(sides, method, args):
     fleet = ReplicaRouter(engines=[sides[0]()])
