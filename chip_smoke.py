@@ -10,8 +10,9 @@ JAX package) through these phases, in order; any failure exits non-zero:
 2. build     every kernel of ``rocm_apex_tpu_torch/csrc`` with nvcc
              (one process per source, started together);
 3. kernels   each kernel's wrapper on card tensors at the shapes of the
-             serve and of the training step, in bf16 and fp32 (and in
-             fp16 at each row's main path shape, `FP16_CASES`), held
+             serve and of the training step, in bf16 and fp32, then
+             in fp16 at each row's main path shape (`FP16_CASES`) and
+             in the head dims' forms (`HD_CASES`), held
              against its plain PyTorch version on the same inputs
              (dropout cases included: both draw the same keep bits; the
              paged decode read at page sizes 16 and 64 over bf16, fp32
@@ -279,7 +280,7 @@ JAX package) through these phases, in order; any failure exits non-zero:
              ranks of a gloo group on the one card (the exchanges staged
              through host memory), each with its shard of the serve model sliced
              from the serve's tp=1 checkpoint by `shard_tp1_params`: the
-             serve's 32 requests x 64 on bf16 and int8 pages of 16 beside
+             serve's 32 requests x 32 on bf16 and int8 pages of 16 beside
              the tp=1 paged serve in the same call (tok/s a figure; the
              tp=1 tokens counted): half the KV bytes a rank, rows 1, 3
              and 6 on their plans' routes at the rank's shapes, one fetch
@@ -289,8 +290,23 @@ JAX package) through these phases, in order; any failure exits non-zero:
              tp=1 payload's layout); spec_k 4 drafting, accepting and
              rolling back; the fp32 twin tp=2 card == tp=2 cpu == tp=1
              card on both layouts with and without speculation, and a
-             tp=2 payload resumed by a tp=1 engine;
-32. report   a ``{"kernels": [...]}`` line, then the device line
+             tp=2 payload resumed by a tp=1 engine; a `ReplicaRouter`
+             over two tp=2 engines on each rank (the serve's requests,
+             a drain shipping pages on bf16 pages, a replica_kill on
+             int8 pages: both ranks the same tokens, replica states,
+             fault log and payload bits), its fp32 twin == the tp=1
+             fleet == one tp=2 engine;
+32. serve_monitor  the monitor layer's host side on the serve;
+33. train_tp  tensor-parallel GPT training at tp=2 (bench.py's
+             `--seq-parallel --collective-matmul` step): rows 1, 2, 8
+             and 11 held to their plain versions at a rank's bf16
+             shapes, then two spawned ranks run the train cell's bf16
+             step with sequence parallelism and the rings: losses
+             finite and bit-equal on both ranks, the kernels' calls a
+             step and routes, no sync but the exchanges a step the
+             layout implies; the fp32 twin's loss and every gradient
+             tp=2 card == tp=2 cpu == tp=1 card in four forms;
+34. report   a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
@@ -300,7 +316,8 @@ device's busy share. ``--only`` runs a subset of the phases (a check of
 one part; the full run is the smoke); ``kernels:xent+lamb`` there names a
 subset of the kernel phase's case groups (ln, seg, decode, paged,
 train_ln, ln_plain, flash, xent, lamb, unpacked, seg_train, softmax,
-packed, bottleneck, frames; fp16 runs every group's fp16 cases alone).
+packed, bottleneck, frames; hd runs the head-dim forms and fp16 every
+group's fp16 cases, both also in the default run).
 
 It needs one CUDA device and nvcc (CUDA_HOME, PATH or /usr/local/cuda).
 """
@@ -472,7 +489,7 @@ PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "train_packed", "rn50_parity", "rn50_train", "rn50_train_fused",
           "mha", "context_parallel", "serve_jnp", "optim_amp", "head_dims",
           "fp16", "serve_spec", "serve_chaos", "serve_lora", "serve_router",
-          "serve_tp", "serve_monitor")
+          "serve_tp", "serve_monitor", "train_tp")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_segments_serve",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -510,9 +527,9 @@ HD_TRAIN_SHAPES = {"gptj": (2, 2048), "gpt3_2.7b": (2, 2048),
                    "recipe_gpt": (4, 256), "recipe_bert": (8, 128)}
 HD_TRAIN_STEPS = 3
 HD_DROPOUT = 0.1
-# the engine on the two wide models: 32 requests of 16 new tokens on 8
+# the engine on the two wide models: 16 requests of 16 new tokens on 8
 # slots (prompts of 32 to 256 tokens), contiguous, then on pages of 16
-HD_SERVE = dict(requests=32, max_new=16, capacity=1024, budget=256)
+HD_SERVE = dict(requests=16, max_new=16, capacity=1024, budget=256)
 # each model's reduced-depth twin, fp32 with TF32 off, card against CPU:
 # one layer at the model's widths, B 1 x S 128, three Adam steps (LAMB for
 # the BERT) at lr 1e-5 (losses at PARITY_LOSS_RTOL), then greedy tokens of
@@ -1585,7 +1602,8 @@ def ln_bwd_case(dev, gen, rows, h, dt, form, rate, seed, x=None, w=None,
     )
 
 
-def train_ln_cases(dev, dtypes=(torch.bfloat16, torch.float32), tail=True):
+def train_ln_cases(dev, dtypes=(torch.bfloat16, torch.float32), tail=True,
+                   rows=None):
     """The LayerNorms of the training step on its (16384, 1024) rows:
     the residual forward with dropout (16 of the step's 17 forwards:
     launched twice for the same bits, s equal to the plain version's bit
@@ -1593,12 +1611,13 @@ def train_ln_cases(dev, dtypes=(torch.bfloat16, torch.float32), tail=True):
     (`ln_bwd_case`) with the stream cotangent and the regenerated dropout
     mask (16 of 17) and in the plain affine form (layer 0's ln1); then
     the backward's other routes: the serve's 8 rows and 264 rows (a block
-    a row), and width 1002 (off the vector grid: the old form)."""
+    a row), and width 1002 (off the vector grid: the old form).
+    ``rows``: another row count (a tensor-parallel rank's shard)."""
     from rocm_apex_tpu_torch.ops import _dropout
     from rocm_apex_tpu_torch.ops import layer_norm as ln
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    rows, h = TRAIN_BATCH * TRAIN_SEQ, TRAIN["hidden_size"]
+    rows, h = rows or TRAIN_BATCH * TRAIN_SEQ, TRAIN["hidden_size"]
     rate, seed = TRAIN["hidden_dropout"], 2024
     for dt in dtypes:
         x = torch.randn(rows, h, device=dev, generator=gen).to(dt)
@@ -4229,36 +4248,32 @@ FP16_CASES = dict(
         ("widths 13 (odd) 3 x 7 x 7", 3, 7, 13, 13, 13, True, FP16, None)]),
 )
 
-_GROUPS = dict(ln=ln_cases, seg=lambda dev: itertools.chain(
-                   seg_cases(dev), hd_seg_cases(dev)),
-               decode=lambda dev: itertools.chain(
-                   decode_cases(dev), hd_decode_cases(dev)),
-               paged=lambda dev: itertools.chain(
-                   paged_decode_cases(dev), hd_paged_cases(dev)),
-               train_ln=train_ln_cases,
-               ln_plain=ln_plain_cases,
-               flash=lambda dev: itertools.chain(
-                   flash_cases(dev), hd_flash_cases(dev)),
-               xent=lambda dev: itertools.chain(xent_cases(dev),
-                                                xent_bwd_cases(dev)),
-               lamb=lamb_cases,
-               unpacked=lambda dev: itertools.chain(
-                   unpacked_cases(dev), unpacked_vs_packed_cases(dev),
-                   hd_unpacked_cases(dev)),
-               seg_train=lambda dev: itertools.chain(
-                   seg_train_cases(dev), hd_seg_train_cases(dev)),
-               softmax=softmax_cases,
-               packed=packed_cases, bottleneck=bottleneck_cases,
-               frames=frame_cases)
-# each group's cases, its fp16 ones last; `--only kernels:fp16` runs the
-# fp16 cases of every group alone (not in the default list: the groups
-# run them already)
-CASE_GROUPS = {g: (lambda dev, g=g: itertools.chain(
-    _GROUPS[g](dev), FP16_CASES[g](dev) if g in FP16_CASES else ()))
-    for g in _GROUPS}
-FP16_GROUP = "fp16"
-ALL_GROUPS = {**CASE_GROUPS, FP16_GROUP: lambda dev: itertools.chain(
-    *(f(dev) for f in FP16_CASES.values()))}
+CASE_GROUPS = dict(
+    ln=ln_cases, seg=seg_cases, decode=decode_cases,
+    paged=paged_decode_cases, train_ln=train_ln_cases,
+    ln_plain=ln_plain_cases, flash=flash_cases,
+    xent=lambda dev: itertools.chain(xent_cases(dev), xent_bwd_cases(dev)),
+    lamb=lamb_cases,
+    unpacked=lambda dev: itertools.chain(
+        unpacked_cases(dev), unpacked_vs_packed_cases(dev)),
+    seg_train=seg_train_cases, softmax=softmax_cases, packed=packed_cases,
+    bottleneck=bottleneck_cases, frames=frame_cases)
+# the head-dim forms of the flash kernels and every row's fp16 cases, run
+# after the groups above (`--only kernels:hd+fp16` runs them alone)
+HD_CASES = dict(seg=hd_seg_cases, decode=hd_decode_cases,
+                paged=hd_paged_cases, flash=hd_flash_cases,
+                unpacked=hd_unpacked_cases, seg_train=hd_seg_train_cases)
+HD_GROUP, FP16_GROUP = "hd", "fp16"
+ALL_GROUPS = {
+    **CASE_GROUPS,
+    HD_GROUP: lambda dev: itertools.chain(
+        *(f(dev) for f in HD_CASES.values())),
+    FP16_GROUP: lambda dev: itertools.chain(
+        *(f(dev) for f in FP16_CASES.values()))}
+
+
+# timed calls of a kernel-phase case that is not its kernel's headline
+SIDE_CASE_ITERS = 10
 
 
 def run_kernel_phase(dev, generators, profile=False):
@@ -4267,6 +4282,7 @@ def run_kernel_phase(dev, generators, profile=False):
     case marked ``breakdown`` also gets the device time of each kernel
     its call launches, over 5 calls (`profile_window`)."""
     out = []
+    t_case = time.perf_counter()
     for c in itertools.chain(*(g(dev) for g in generators)):
         cmp = c["cmp"]
         log(f"  {c['kernel']:<36} {c['case']:<58} max|err| "
@@ -4277,6 +4293,10 @@ def run_kernel_phase(dev, generators, profile=False):
               f"differs from its plain version by {cmp['ratio']:.3g}x its "
               f"tolerance (max abs error {cmp['err']:.3e})")
         iters = c.get("iters", 100)
+        if not c["headline"]:
+            # a case the kernels line does not report: fewer timed calls,
+            # to keep the smoke inside its time limit
+            iters = min(iters, SIDE_CASE_ITERS)
         ms = device_ms(c["kern"], iters)
         call_ms = cuda_ms(c["kern"], iters)
         plain_ms = device_ms(c["plain"], c.get("plain_iters", 10), warmup=1)
@@ -4285,7 +4305,7 @@ def run_kernel_phase(dev, generators, profile=False):
         lib32_ms = (device_ms(c["lib32"], iters)
                     if c.get("lib32") is not None else None)
         b_ms, b_by = bound_ms(c["nbytes"], c["ops"], c["dtype"])
-        extra = {k: device_ms(fn, c.get("iters", 100))
+        extra = {k: device_ms(fn, iters)
                  for k, fn in c.get("extra_timings", {}).items()}
         if "ops_width" in c:
             # a head-dim case: its instance's width, and the bound of the
@@ -4301,7 +4321,11 @@ def run_kernel_phase(dev, generators, profile=False):
             extra["breakdown"] = profile_window(
                 lambda c=c: [c["kern"]() for _ in range(5)],
                 f"{c['kernel']} {c['case']}: 5 calls")["top_device_ms"]
+        # the case's wall time: its inputs, plain reference, checks and
+        # timings
+        wall_s, t_case = time.perf_counter() - t_case, time.perf_counter()
         out.append(dict(
+            wall_s=wall_s,
             kernel=c["kernel"], case=c["case"], max_abs_err=cmp["err"],
             max_abs_out=cmp["ref_max"], err_over_tol=cmp["ratio"], ms=ms,
             call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -4600,11 +4624,15 @@ def sync_audit(*engs):
     inside `parallel_state.exchange` (the staged exchanges of the tensor
     group: a gloo collective copies its card tensors through host
     memory), counted by kind as ``exchange:<kind>`` (`exchange_count`
-    sums them). Yields the counts. Without a card (a CPU rehearsal of
-    the ranks) nothing can sync one, and the window only counts."""
+    sums them), and so too with no engine in a tensor group of more than
+    one rank (a tensor-parallel training step). Yields the counts.
+    Without a card (a CPU rehearsal of the ranks) nothing can sync one,
+    and the window only counts."""
     from rocm_apex_tpu_torch.transformer import parallel_state
 
-    tp = any(getattr(eng, "tp", 1) > 1 for eng in engs)
+    tp = any(getattr(eng, "tp", 1) > 1 for eng in engs) or (
+        parallel_state.model_parallel_is_initialized()
+        and parallel_state.get_tensor_model_parallel_world_size() > 1)
     counts = dict.fromkeys(ENGINE_SYNCS, 0)
     mode = (torch.cuda.set_sync_debug_mode if torch.cuda.is_available()
             else lambda _: None)
@@ -6826,6 +6854,9 @@ def run_context_parallel_phase(spec=None):
 
 # the "jnp" serve: the serve phases' engines under attention_impl="jnp"
 # (the one-pass reference attention in plain PyTorch; no attention kernel)
+# the "jnp" serves' new tokens a request (the serve's 64 cut to 32 to keep
+# the smoke inside its time limit)
+JNP_NEW = 32
 JNP_FORMS = (("contiguous", dict()),
              ("paged", dict(paged=True, page_size=PAGE_SIZE)),
              ("paged_int8", dict(paged=True, page_size=PAGE_SIZE,
@@ -6845,7 +6876,7 @@ def run_serve_jnp_phase(flash_tokens=None):
     layers, fp32, TF32 off (the card's "jnp" engine gives the CPU "jnp"
     engine's greedy tokens on the same weights, in each form of
     JNP_FORMS), then the serve at SERVE (8 layers, bf16) in each form: 32
-    requests, every one to MAX_NEW, no attention kernel launched and the
+    requests, every one to JNP_NEW, no attention kernel launched and the
     LayerNorm forward present; the share of requests whose tokens equal
     the flash engine's (the serve phase's, or a run here) is printed."""
     from rocm_apex_tpu_torch.convert import from_jax_params, random_params
@@ -6882,9 +6913,9 @@ def run_serve_jnp_phase(flash_tokens=None):
         log(f"  -- {form}")
         eng = _engine(model, **kw)
         eng.generate(prompts[:SLOTS], max_new_tokens=3)  # warm-up
-        r, tokens = timed_serve(eng, prompts)
+        r, tokens = timed_serve(eng, prompts, JNP_NEW)
         r["requests_matching_flash"] = sum(
-            a == b for a, b in zip(tokens, flash_tokens))
+            a == b[:JNP_NEW] for a, b in zip(tokens, flash_tokens))
         log(f"  {r['requests_matching_flash']}/{len(prompts)} requests give "
             f"the flash engine's tokens (contiguous flash serve)")
         launched = {k: r["launches"][k] for k in attention
@@ -8152,7 +8183,9 @@ def run_fp16_phase(profile):
 # periodic prompts (periods 3-6, 8 repeats), 128 new tokens, greedy; the
 # budget fits every slot's span, SLOTS * (max(k, 2) + 1) = 40 rows
 SPEC_K = 4
-SPEC_REQUESTS, SPEC_REPS, SPEC_NEW, SPEC_WARM_NEW = 16, 8, 128, 10
+# SPEC_NEW: bench.py's 128 new tokens cut to 64 to keep the smoke inside
+# its time limit
+SPEC_REQUESTS, SPEC_REPS, SPEC_NEW, SPEC_WARM_NEW = 16, 8, 64, 10
 SPEC_BUDGET = SLOTS * (max(SPEC_K, 2) + 1)
 SPEC_LAYOUTS = (
     ("contiguous", {}, "flash_attention_decode"),
@@ -8163,7 +8196,8 @@ SPEC_LAYOUTS = (
      "flash_attention_decode_paged_int8"),
 )
 # the twins: 2 layers at the serve's width, fp32, TF32 off, card vs CPU
-SPEC_TWIN = dict(num_layers=2, requests=8, max_new=24)
+# was 8 x 24, cut to keep the smoke inside its time limit
+SPEC_TWIN = dict(num_layers=2, requests=4, max_new=16)
 CHAOS_TWIN_NEW = 16
 WATCHDOG_TIMEOUT_S = 0.5
 
@@ -8861,13 +8895,16 @@ def _ship_checks(router):
 
     def blocks(cache, pages):
         # the check's own index copy is not the engine's: the audit's
-        # mode is off for it
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode(0)
+        # mode is off for it (a CPU rehearsal has no mode)
+        cuda = cache.k[0].is_cuda
+        mode = torch.cuda.get_sync_debug_mode() if cuda else 0
+        if cuda:
+            torch.cuda.set_sync_debug_mode(0)
         try:
             idx = torch.tensor(pages, device=cache.k[0].device)
         finally:
-            torch.cuda.set_sync_debug_mode(mode)
+            if cuda:
+                torch.cuda.set_sync_debug_mode(mode)
         out = [x.index_select(0, idx) for x in (*cache.k, *cache.v)]
         if cache.quantized:
             out += [x.index_select(0, idx)
@@ -8904,22 +8941,43 @@ def _ship_checks(router):
     return records
 
 
-def _ship_equal(records):
+def _ship_equal(records, rank=0):
     """Every imported page: source == payload == destination, bit for
-    bit (pool blocks and int8 scale rows). Returns the pages checked."""
+    bit (pool blocks and int8 scale rows); at tp > 1 the payload carries
+    every head and the pools this ``rank``'s, so the payload's heads of
+    the rank are compared. Returns the pages checked."""
     pages = 0
     for rid, hops in records.items():
         for hop in hops:
             if len(hop) < 3:
                 continue  # replayed (no import)
-            src, sent, dst = (
-                [t.view(torch.uint8) if t.dtype != torch.int8 else t
-                 for t in ts] for ts in hop)
+            src, sent, dst = hop
             for a, b, c in zip(src, sent, dst):
+                heads = a.shape[1]
+                if b.shape[1] != heads:
+                    b = b.narrow(1, rank * heads, heads)
+                a, b, c = (t.view(torch.uint8) if t.dtype != torch.int8
+                           else t for t in (a, b, c))
                 check(torch.equal(a, b) and torch.equal(b, c),
                       f"request {rid}: a shipped page's bits changed")
             pages += src[0].shape[0]
     return pages
+
+
+def _payload_digests(records):
+    """Each request's shipped payloads as sha256 digests of their bytes
+    (the ranks of a tp>1 fleet must ship the same bits)."""
+    import hashlib
+
+    out = {}
+    for rid, hops in records.items():
+        for hop in hops:
+            h = hashlib.sha256()
+            for t in hop[1]:
+                h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                         .tobytes())
+            out.setdefault(rid, []).append(h.hexdigest())
+    return out
 
 
 def _router(model, **kw):
@@ -9114,7 +9172,14 @@ TP_LAYOUTS = (("pages", {}, "flash_attention_decode_paged"),
 # the migration: the first requests evacuate (with their pages) once each
 # has generated `after` tokens, into a fresh engine
 TP_SHIP = dict(requests=4, after=4)
-TP_SPEC = dict(requests=16, max_new=32)  # periodic prompts, spec_k SPEC_K
+TP_SPEC = dict(requests=8, max_new=32)  # periodic prompts, spec_k SPEC_K
+# the tp=2 serves' new tokens a request (the serve's 64 cut to 32, and
+# the fleet's to 16, to keep the smoke inside its time limit)
+TP_MAX_NEW, TP_FLEET_NEW = 32, 16
+# the serve_tp twin's requests and new tokens (the spec twin's 8 x 24 cut
+# to keep the smoke inside its time limit)
+TP_TWIN = dict(requests=4, max_new=16)
+TP_INT8_REQUESTS = 16
 TP_JOIN_S = 420
 TP_THREADS = 3  # CPU threads a rank (the twin's CPU engines)
 # a migrated payload against the tp=1 engine's for the same requests: the
@@ -9209,6 +9274,14 @@ def _tp_timed(eng, prompts, max_new):
                              "rollbacks")})
 
 
+def _tp_layout_prompts(spec, form):
+    """A layout's timed serve: the serve's requests on bf16 pages, the
+    first TP_INT8_REQUESTS on int8 pages (whose eager scatter makes the
+    serve the slowest; cut to keep the smoke inside its time limit)."""
+    return (spec["prompts"][:TP_INT8_REQUESTS] if form == "int8_pages"
+            else spec["prompts"])
+
+
 def _tp_ship(model, spec, rank=0):
     """The migration: the first ``spec["ship"]["requests"]`` prompts run
     until each generated ``after`` tokens, the engine evacuates with its
@@ -9275,7 +9348,8 @@ def _tp_serves(rank, dev, spec, out):
     for form, kw, _ in TP_LAYOUTS:
         eng = _tp_engine(model, spec, **kw)
         eng.generate(spec["prompts"][:spec["slots"]], max_new_tokens=3)
-        out[form] = _tp_timed(eng, spec["prompts"], spec["max_new"])
+        out[form] = _tp_timed(eng, _tp_layout_prompts(spec, form),
+                              spec["max_new"])
         del eng
     out["ship"] = _tp_ship(model, spec, rank)
     eng = _tp_engine(model, spec, spec_k=spec["spec_k"],
@@ -9283,6 +9357,61 @@ def _tp_serves(rank, dev, spec, out):
     eng.generate(spec["spec_prompts"][:spec["slots"]],
                  max_new_tokens=spec["spec_warm_new"])
     out["spec"] = _tp_timed(eng, spec["spec_prompts"], spec["spec_new"])
+    del eng
+    _tp_fleet(rank, dev, spec, out, model)
+
+
+def _tp_fleet_run(model, spec, rank, form, kw, prompts, max_new,
+                  audit=True):
+    """A `ReplicaRouter` over ``ROUTER_REPLICAS`` tp=2 engines (every
+    rank builds the same fleet and makes the same calls): on bf16
+    pages replica 0 drains after 3 ticks, shipping its requests' pages
+    to replica 1; on int8 pages a replica_kill of replica 0 fires at
+    router tick ``ROUTER_KILL_TICK``. Under `sync_audit` (the engines'
+    syncs and the staged exchanges only), each request delivered once
+    (`_fleet_run`). Returns the tokens, each tick's replica states, the
+    fault log, the shipped pages (each one's heads of this rank its
+    source pool's and its destination pool's bits) and their digests."""
+    from rocm_apex_tpu_torch.inference import ReplicaRouter
+
+    kill = form == "int8_pages"
+    router = ReplicaRouter(
+        engines=[_tp_engine(model, spec, **kw)
+                 for _ in range(ROUTER_REPLICAS)],
+        faults=_kill_plan() if kill else None)
+    records = _ship_checks(router)
+    states, inner = [], router.step
+
+    def step():
+        done = inner()
+        states.append(tuple(router.replica_state(i)
+                            for i in range(router.num_replicas)))
+        return done
+
+    router.step = step
+    _zero_launches()
+    t0 = time.perf_counter()
+    tokens, stats, syncs, ticks = _fleet_run(
+        router, prompts, max_new, audit=audit,
+        during=None if kill else (lambda: router.drain_replica(0)))
+    _sync()
+    dt = time.perf_counter() - t0
+    return dict(tokens=tokens, states=states, ticks=ticks,
+                launches=_launches(),
+                fault_log=list(router.fault_log), seconds=dt,
+                tokens_per_s=sum(len(t) for t in tokens) / dt,
+                shipped_pages=_ship_equal(records, rank),
+                digests=_payload_digests(records), syncs=syncs,
+                **{k: stats[k] for k in ("page_migrations", "migrations",
+                                         "replica_quarantines",
+                                         "replica_kills")})
+
+
+def _tp_fleet(rank, dev, spec, out, model):
+    """The tp=2 fleet on each layout at the serve's requests (bf16)."""
+    out["fleet"] = {form: _tp_fleet_run(model, spec, rank, form, kw,
+                                        spec["prompts"], spec["fleet_new"])
+                    for form, kw, _ in TP_LAYOUTS}
 
 
 def _tp_twin(rank, dev, spec, out):
@@ -9303,13 +9432,20 @@ def _tp_twin(rank, dev, spec, out):
                                        eng.generate(prompts, new)]
     res["ship"] = _tp_ship(card, {**spec, "prompts": prompts,
                                   "max_new": new}, rank)
+    for form, kw, _ in TP_LAYOUTS:
+        # the fleet over two tp=2 engines, kill and drain included
+        res["fleet", form] = _tp_fleet_run(
+            card, {**spec, "budget": spec["spec_budget"]}, rank, form, kw,
+            prompts, new, audit=False)["tokens"]
     out["twin"] = res
 
 
 def _tp_rank(rank, n, workdir, spec):
-    """One rank of the serve_tp phase (spawned): the gloo group, the
-    tensor axis (`initialize_model_parallel`), the serves and the twin;
-    writes rank<r>.pt (an ``error`` entry if anything raised)."""
+    """One rank of a two-rank phase (spawned; ``spec["phase"]`` names
+    it): the gloo group, the tensor axis (`initialize_model_parallel`),
+    then ``serve_tp``'s serves, fleet and twin, or ``train_tp``'s steps
+    and twin; writes rank<r>.pt (an ``error`` entry if anything
+    raised)."""
     import datetime
     import traceback
 
@@ -9331,8 +9467,8 @@ def _tp_rank(rank, n, workdir, spec):
 
         parallel_state.initialize_model_parallel(n)
         t0 = time.perf_counter()
-        _tp_serves(rank, dev, spec, out)
-        _tp_twin(rank, dev, spec, out)
+        for work in _TP_WORK[spec["phase"]]:
+            work(rank, dev, spec, out)
         out["rank_s"] = time.perf_counter() - t0
         dist.barrier()
         parallel_state.destroy_model_parallel()
@@ -9343,8 +9479,8 @@ def _tp_rank(rank, n, workdir, spec):
 
 
 def _tp_spawn(spec):
-    """The ranks, spawned; their outputs (fails on a hang, a missing file
-    or a rank's error) and the seconds they took."""
+    """The ranks of ``spec["phase"]``, spawned; their outputs (fails on a
+    hang, a missing file or a rank's error) and the seconds they took."""
     import multiprocessing
     import tempfile
 
@@ -9364,16 +9500,17 @@ def _tp_spawn(spec):
                 p.kill()
                 p.join(10)
         ranks_s = time.perf_counter() - t0
-        check(not hung, f"serve_tp: ranks {hung} did not finish in "
+        phase = spec["phase"]
+        check(not hung, f"{phase}: ranks {hung} did not finish in "
               f"{TP_JOIN_S} s")
         outs = []
         for r in range(TP_RANKS):
             path = os.path.join(workdir, f"rank{r}.pt")
-            check(os.path.exists(path), f"serve_tp: rank {r} wrote nothing "
+            check(os.path.exists(path), f"{phase}: rank {r} wrote nothing "
                   f"(exit code {procs[r].exitcode})")
             outs.append(torch.load(path, weights_only=False))
     for r, o in enumerate(outs):
-        check("error" not in o, f"serve_tp rank {r}:\n{o.get('error')}")
+        check("error" not in o, f"{phase} rank {r}:\n{o.get('error')}")
     return outs, ranks_s
 
 
@@ -9481,15 +9618,17 @@ def run_serve_tp_phase(spec=None):
     vocab = cfg.vocab_size
     dev = torch.device(CARD, 0) if CARD == "cuda" else torch.device(CARD)
     spec = spec or dict(
-        device=CARD, serve=SERVE, slots=SLOTS, capacity=CAPACITY,
+        phase="serve_tp", device=CARD, serve=SERVE, slots=SLOTS,
+        capacity=CAPACITY,
         budget=BUDGET, page_size=PAGE_SIZE, prompts=serve_prompts(vocab),
-        max_new=MAX_NEW, ship=TP_SHIP, spec_k=SPEC_K,
+        max_new=TP_MAX_NEW, fleet_new=TP_FLEET_NEW, ship=TP_SHIP,
+        spec_k=SPEC_K,
         spec_budget=SPEC_BUDGET,
         spec_prompts=spec_prompts(vocab, TP_SPEC["requests"]),
         spec_new=TP_SPEC["max_new"], spec_warm_new=SPEC_WARM_NEW,
         twin_layers=SPEC_TWIN["num_layers"],
-        twin_prompts=spec_prompts(vocab, SPEC_TWIN["requests"]),
-        twin_new=SPEC_TWIN["max_new"], threads=TP_THREADS)
+        twin_prompts=spec_prompts(vocab, TP_TWIN["requests"]),
+        twin_new=TP_TWIN["max_new"], threads=TP_THREADS)
     L = spec["serve"]["num_layers"]
     # exchanges a device step: the chunk's embedding all-reduce, four
     # ring hops a layer (the QKV and fc1 gathers, the dense and fc2
@@ -9513,7 +9652,8 @@ def run_serve_tp_phase(spec=None):
     for form, kw, _ in TP_LAYOUTS:
         eng = _tp_engine(model, spec, **kw)
         eng.generate(spec["prompts"][:spec["slots"]], max_new_tokens=3)
-        ref[form] = _tp_timed(eng, spec["prompts"], spec["max_new"])
+        ref[form] = _tp_timed(eng, _tp_layout_prompts(spec, form),
+                              spec["max_new"])
         del eng
     ref["ship"] = _tp_ship(model, spec)
     twin1 = _twin_models(spec["twin_layers"])[CARD]
@@ -9526,6 +9666,10 @@ def run_serve_tp_phase(spec=None):
     twin_spec = {**spec, "prompts": spec["twin_prompts"],
                  "max_new": spec["twin_new"]}
     ref["twin_ship"] = _tp_ship(twin1, twin_spec)
+    for form, kw, _ in TP_LAYOUTS:
+        ref["twin_fleet", form] = _tp_fleet_run(
+            twin1, {**spec, "budget": spec["spec_budget"]}, 0, form, kw,
+            spec["twin_prompts"], spec["twin_new"], audit=False)["tokens"]
     torch.cuda.empty_cache()
 
     log(f"  -- {TP_RANKS} ranks")
@@ -9652,6 +9796,49 @@ def run_serve_tp_phase(spec=None):
                                              "ticks")})
     log(f"  spec_k={spec['spec_k']} on bf16 pages: {res['spec']}")
 
+    log(f"  -- the fleet: a router over {ROUTER_REPLICAS} tp={TP_RANKS} "
+        f"engines")
+    res["fleet"] = {}
+    for form, _, _ in TP_LAYOUTS:
+        f0, f1 = (o["fleet"][form] for o in outs)
+        what = f"serve_tp fleet {form}"
+        check(f0["tokens"] == f1["tokens"], f"{what}: the ranks' tokens "
+              f"differ")
+        check(f0["states"] == f1["states"]
+              and f0["fault_log"] == f1["fault_log"],
+              f"{what}: the ranks' replica states differ")
+        check(f0["digests"] == f1["digests"],
+              f"{what}: the ranks shipped other payload bits")
+        if form == "int8_pages":
+            down = [st[0] for st in f0["states"]].index("quarantined")
+            check(f0["fault_log"] == [("replica_kill", ROUTER_KILL_TICK, 0)]
+                  and f0["replica_kills"] == 1 and down == ROUTER_KILL_TICK,
+                  f"{what}: the kill at tick {ROUTER_KILL_TICK} logged "
+                  f"{f0['fault_log']}, replica 0 down from tick {down}")
+        else:
+            check(f0["page_migrations"] >= 1 and f0["shipped_pages"] >= 1,
+                  f"{what}: the drain shipped no pages ({f0})")
+        if dev.type == "cuda":
+            decode = dict((f, d) for f, _, d in TP_LAYOUTS)[form]
+            for name in ("layer_norm_fwd", "flash_segments_serve", decode):
+                check(all(f["launches"].get(name, 0) > 0 for f in (f0, f1)),
+                      f"{what}: {name} was not launched")
+        # the fleet's tokens against the tp=1 serve's first as many
+        same = sum(a == b[:len(a)]
+                   for a, b in zip(f0["tokens"], ref[form]["tokens"]))
+        res["fleet"][form] = dict(
+            tokens_per_s=[f["tokens_per_s"] for f in (f0, f1)],
+            seconds=[f["seconds"] for f in (f0, f1)], ticks=f0["ticks"],
+            requests_matching_tp1=same, shipped_pages=f0["shipped_pages"],
+            payloads=sum(len(v) for v in f0["digests"].values()),
+            **{k: f0[k] for k in ("page_migrations", "migrations",
+                                  "replica_quarantines", "replica_kills",
+                                  "fault_log")},
+            quarantined_at=[st[0] for st in f0["states"]].index(
+                "quarantined") if f0["replica_quarantines"] else None,
+            syncs=f0["syncs"], launches=[f["launches"] for f in (f0, f1)])
+        log(f"  {form}: {res['fleet'][form]}")
+
     log("  -- the fp32 twin: tp=2 card vs tp=2 cpu vs tp=1 card")
     twin = {}
     for form, _, _ in TP_LAYOUTS:
@@ -9670,6 +9857,13 @@ def run_serve_tp_phase(spec=None):
               "undisturbed tp=2 run's")
     check(tsh[0]["base"] == ref["twin_ship"]["base"],
           "serve_tp twin: the tp=2 run's tokens differ from tp=1's")
+    for form, _, _ in TP_LAYOUTS:
+        got = [o["twin"]["fleet", form] for o in outs]
+        same = all(g == ref["twin_fleet", form] == o["twin"][form, 0, "card"]
+                   for g, o in zip(got, outs))
+        twin[f"fleet_{form}"] = same
+        check(same, f"serve_tp twin fleet {form}: the tp=2 fleet's tokens "
+              f"differ from the tp=1 fleet's or one tp=2 engine's")
     twin_worst = 0.0
     for a, b in zip(tsh[0]["records"], ref["twin_ship"]["records"]):
         check(a["request_id"] == b["request_id"], "serve_tp twin: tp=2 and "
@@ -9731,7 +9925,7 @@ MONITOR_SCRAPE_TICK = 2
 # host-bound serve moves between runs; the medians are what is compared)
 MONITOR_ORDER = ("bare", "default", "instrumented", "instrumented",
                  "default", "bare")
-MONITOR_ROUNDS = 3
+MONITOR_ROUNDS = 1
 MONITOR_FAULT_TICKS = (4, 2)
 MONITOR_DRAIN_TICK = 12
 MONITOR_PATHS = ("/metrics", "/healthz", "/varz", "/timeseries")
@@ -10092,6 +10286,331 @@ def run_serve_monitor_phase():
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 34: tensor-parallel GPT training at tp=2
+# ---------------------------------------------------------------------------
+
+# bench.py's `--seq-parallel --collective-matmul` step (bench.py:2260-2330,
+# :2540-2605) at the train cell's config: tp=2 with sequence parallelism
+# and the collective-matmul rings (one piece a shard), O5 (bf16 compute,
+# fp32 masters), dropout 0.1, the fused head's mean loss,
+# MixedPrecisionAdam(1e-4, wd 0.01) under a dynamic LossScaler; warm-up
+# and timed steps on two gloo ranks on the one card
+TP_TRAIN_WARMUP, TP_TRAIN_STEPS = 1, 2
+# the fp32 twin: 2 layers at the train widths, B 2 x S 256, dropout 0,
+# TF32 off; each form's loss and every gradient on the card at tp=2, on
+# the CPU at tp=2 and on the card at tp=1 (sliced for the rank)
+TP_TRAIN_TWIN = dict(num_layers=2, batch=2, seq=256)
+TP_TRAIN_FORMS = {
+    "plain_fused": dict(),
+    "sp_materialized": dict(sequence_parallel=True, fused_lm_head=False),
+    "ring_fused": dict(sequence_parallel=True, collective_matmul=True),
+    "ring_materialized": dict(sequence_parallel=True, collective_matmul=True,
+                              fused_lm_head=False),
+}
+# the twin's losses and gradients: fp32 on both sides, summation orders
+# apart (the card's kernels, the CPU's plain versions, tp=1's one partial
+# product where tp=2 adds two), relative to each tensor's largest entry
+TP_TRAIN_RTOL = 1e-4
+
+
+def tp_train_exchanges(layers, head_chunks):
+    """The staged exchanges a training step implies at tp=2 with
+    sequence parallelism and the rings (one piece a shard), derived:
+    forward, the embedding's all-reduce, four ring hops a layer (the QKV
+    and fc1 gathers, the dense and fc2 reduce-scatters), the exit gather
+    and the fused head's two all-reduces a row chunk (the max, then the
+    sums); backward, the head's dx all-reduce a chunk, the final LN's
+    gradient sum, eight ring hops a layer (each ring's dx and dW hop),
+    the two row-parallel biases' and the two LNs' gradient sums a layer,
+    and the embedding scatter's all-gather."""
+    return (2 + 4 * layers + 2 * head_chunks) + (
+        2 + 12 * layers + head_chunks)
+
+
+def _tp_train_steps(rank, dev, spec, out):
+    """The bf16 step on this rank: warm-up, then the timed steps under
+    `sync_audit` (no sync but the staged exchanges), launches set to 0
+    just before and read just after (wrapper counts and the launch
+    tables); the losses, the ms a step, the exchanges a step by kind."""
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+    from rocm_apex_tpu_torch.ops._build import (
+        device_launches,
+        reset_device_launches,
+    )
+    from rocm_apex_tpu_torch.transformer import parallel_state
+
+    cfg = GPTConfig(**{**spec["train"], "tensor_parallel_size": TP_RANKS,
+                       "sequence_parallel": True, "collective_matmul": True},
+                    params_dtype=torch.float32, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    step, state, sstate = _trainer(cfg, dev, 1e-4)
+    setup_s = time.perf_counter() - t0
+    tokens, labels = _train_batch(cfg, spec["batch"], spec["seq"])
+    tokens, labels = tokens.to(dev), labels.to(dev)
+    gen = torch.Generator().manual_seed(0)  # CPU: the dropout seeds
+    losses = []
+    for _ in range(spec["warmup"]):
+        state, sstate, loss = step(state, sstate, tokens, labels,
+                                   dropout_generator=gen)
+        losses.append(loss)
+    _zero_launches()
+    reset_device_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    # each exchange's host time (its first copy waits for the work queued
+    # before it) and payload bytes, by kind
+    ex_s, ex_bytes, inner = {}, {}, parallel_state.exchange
+
+    def timed(kind, fn, t, group):
+        t1 = time.perf_counter()
+        try:
+            return inner(kind, fn, t, group)
+        finally:
+            ex_s[kind] = ex_s.get(kind, 0.0) + time.perf_counter() - t1
+            ex_bytes[kind] = (ex_bytes.get(kind, 0)
+                              + t.numel() * t.element_size())
+
+    parallel_state.exchange = timed
+    t0 = time.perf_counter()
+    try:
+        with sync_audit() as syncs:
+            for _ in range(spec["steps"]):
+                state, sstate, loss = step(state, sstate, tokens, labels,
+                                           dropout_generator=gen)
+                losses.append(loss)
+        _sync()
+    finally:
+        parallel_state.exchange = inner
+    dt = time.perf_counter() - t0
+    out["train"] = dict(
+        losses=[float(x) for x in losses], step_ms=1e3 * dt / spec["steps"],
+        tokens_per_s=spec["batch"] * spec["seq"] * spec["steps"] / dt,
+        exchanges={k.split(":")[1]: n / spec["steps"]
+                   for k, n in syncs.items() if k.startswith("exchange:")},
+        exchanges_per_step=exchange_count(syncs) / spec["steps"],
+        exchange_ms={k: 1e3 * v / spec["steps"] for k, v in ex_s.items()},
+        exchange_mib={k: v / 2**20 / spec["steps"]
+                      for k, v in ex_bytes.items()},
+        syncs={k: n for k, n in syncs.items()
+               if not k.startswith("exchange:") and n},
+        launches=_launches(), device_kernels=sorted(device_launches()),
+        overflows=int(sstate.overflows), loss_scale=float(sstate.loss_scale),
+        setup_s=setup_s, peak_mem_gib=(torch.cuda.max_memory_allocated()
+                                       / 2**30 if dev.type == "cuda"
+                                       else None))
+
+
+def _grad_worst(got, want):
+    """The largest |difference| over the largest |want| entry, over the
+    leaves of two gradient dicts."""
+    return max(float((got[k].float().cpu() - torch.as_tensor(
+        np.asarray(want[k])).float()).abs().max())
+        / max(float(np.abs(np.asarray(want[k])).max()), 1e-30)
+        for k in want)
+
+
+def _tp_train_twin(rank, dev, spec, out):
+    """The fp32 twin on this rank, each form of `TP_TRAIN_FORMS`: the
+    loss and every gradient shard on the card and on the CPU at tp=2,
+    against the tp=1 card step's loss and gradients sliced for the rank
+    (`shard_tp1_params`: the gathered tp=2 gradients against tp=1's)."""
+    import dataclasses
+
+    from rocm_apex_tpu_torch.convert import from_jax_params, random_params
+    from rocm_apex_tpu_torch.inference import shard_tp1_params
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+
+    tw = spec["twin"]
+    cfg1 = GPTConfig(**{**spec["train"], "num_layers": tw["num_layers"],
+                        "hidden_dropout": 0.0, "attention_dropout": 0.0},
+                     params_dtype=torch.float32, dtype=torch.float32)
+    tree = random_params(cfg1, seed=0)
+    tokens, labels = _train_batch(cfg1, tw["batch"], tw["seq"])
+
+    def loss_grads(model, where):
+        loss = model(tokens.to(where), labels=labels.to(where),
+                     loss_reduction="mean")
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.cpu()
+                                      for k, p in model.named_parameters()}
+
+    loss1, g1 = loss_grads(from_jax_params(tree, cfg1, device=dev), dev)
+    res = {}
+    for form, kw in spec["twin_forms"].items():
+        cfg2 = dataclasses.replace(cfg1, tensor_parallel_size=TP_RANKS, **kw)
+        want = shard_tp1_params(GPTModel(cfg2, device="meta"), g1, rank)
+        got = {where: loss_grads(from_jax_params(tree, cfg2, device=where),
+                                 where) for where in (dev, "cpu")}
+        (lc, gc), (lp, gp) = got[dev], got["cpu"]
+        res[form] = dict(
+            loss_card=lc, loss_cpu=lp, loss_tp1=loss1,
+            loss_rel=max(abs(lc - lp), abs(lc - loss1)) / abs(loss1),
+            card_vs_cpu=_grad_worst(gc, {k: v.numpy()
+                                         for k, v in gp.items()}),
+            card_vs_tp1=_grad_worst(gc, want),
+            cpu_vs_tp1=_grad_worst(gp, want))
+    out["twin"] = res
+
+
+_TP_WORK = {"serve_tp": (_tp_serves, _tp_twin),
+            "train_tp": (_tp_train_steps, _tp_train_twin)}
+
+
+def _tp_train_routes(cfg, spec):
+    """The device kernels rows 1, 2, 8 and 11 must launch on a rank, by
+    their plans at the rank's shapes (the LN forward and backward on
+    the rank's sequence shard of B x S / tp rows, the packed attention
+    over its heads of every row: the wgmma pipes), and those they must
+    not (the other routes')."""
+    from rocm_apex_tpu_torch.ops import layer_norm as ln
+    from rocm_apex_tpu_torch.ops._build import sm_count
+
+    sms = sm_count(torch.device(CARD, 0))
+    rows = spec["batch"] * spec["seq"] // TP_RANKS
+    f = ln.ln_fwd_plan(rows, cfg.hidden_size, cfg.dtype, sms)["route"]
+    b = ln.ln_bwd_plan(rows, cfg.hidden_size, cfg.dtype, sms)["route"]
+    need = set(LN_ROUTE_KERNELS[f]) | set(LN_BWD_ROUTE_KERNELS[b])
+    need |= {FWD_ROUTE_KERNELS["wgmma"], *BWD_ROUTE_KERNELS["wgmma"]}
+    banned = {k for r, ks in LN_ROUTE_KERNELS.items() if r != f for k in ks}
+    banned |= {k for r, ks in LN_BWD_ROUTE_KERNELS.items() if r != b
+               for k in ks}
+    banned |= set(FWD_ROUTE_KERNELS["cuda_cores"]) | set(
+        BWD_ROUTE_KERNELS["cuda_cores"])
+    return dict(ln_fwd=f, ln_bwd=b, flash="wgmma"), need, banned
+
+
+def _tp_train_kernel_cases(dev):
+    """Rows 1, 2, 8 and 11 at a rank's shapes in the tp=2 bf16 step,
+    each against its plain version on the same card inputs by the kernel
+    phase's own case generators, checks and tolerances: the residual LN
+    forward with dropout and its backward on the rank's (B x S / tp,
+    hidden) rows, the packed attention forward and backward over the
+    rank's heads (B, S, heads / tp, 3 hd) with the bias and dropout."""
+    heads = TRAIN["num_attention_heads"] // TP_RANKS
+    hd = TRAIN["hidden_size"] // TRAIN["num_attention_heads"]
+    return run_kernel_phase(dev, [
+        lambda dev: train_ln_cases(dev, (torch.bfloat16,), tail=False,
+                                   rows=TRAIN_BATCH * TRAIN_SEQ // TP_RANKS),
+        lambda dev: flash_cases(dev, heads, hd, shapes=[
+            (TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16, True, 0.1, True)],
+            seed=252)])
+
+
+def run_train_tp_phase(spec=None, tp1_losses=None):
+    """Tensor-parallel GPT training at tp=2 (bench.py's
+    `--seq-parallel --collective-matmul` step, two gloo ranks on the one
+    card): rows 1, 2, 8 and 11 at a rank's bf16 shapes against their
+    plain versions (`_tp_train_kernel_cases`); then on each rank the
+    bf16 step's warm-up and timed steps. Checked: the losses finite and
+    bit-equal on both ranks; rows 1, 2, 8 and 11 launched at the calls a
+    step the layout implies (`TRAIN_CALLS_PER_STEP`: each rank runs every
+    layer on its shard) on their plans' routes (the launch tables); no
+    sync in the timed steps but the staged exchanges (`sync_audit`), as
+    many a step as the layout implies (`tp_train_exchanges`). Reported:
+    the ms a step, the exchanges by kind, the losses beside the tp=1
+    train cell's (``tp1_losses``; the attention masks differ: counted,
+    not asserted). The fp32 twin: each form's loss and every gradient,
+    tp=2 card against tp=2 CPU against the tp=1 card step, within
+    `TP_TRAIN_RTOL`."""
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+    from rocm_apex_tpu_torch.ops.linear_xentropy import _chunk_rows
+
+    spec = spec or dict(
+        phase="train_tp", device=CARD, train=TRAIN, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, warmup=TP_TRAIN_WARMUP, steps=TP_TRAIN_STEPS,
+        twin=TP_TRAIN_TWIN, twin_forms=TP_TRAIN_FORMS, threads=TP_THREADS)
+    dev = torch.device(CARD, 0) if CARD == "cuda" else torch.device(CARD)
+    cfg = GPTConfig(**spec["train"], params_dtype=torch.float32,
+                    dtype=torch.bfloat16)
+    L, rows = cfg.num_layers, spec["batch"] * spec["seq"]
+    v_local = cfg.vocab_size // TP_RANKS
+    chunks = -(-rows // _chunk_rows(rows, v_local, None))
+    want_ex = tp_train_exchanges(L, chunks)
+    res = dict(ranks=TP_RANKS, exchanges_want=want_ex, head_chunks=chunks)
+    if dev.type == "cuda":
+        res["card"] = smi_line()
+        log(f"  card: {res['card']}")
+        log(f"  -- rows 1, 2, 8 and 11 at a rank's shapes (tp={TP_RANKS}, "
+            f"bf16) against their plain versions")
+        res["kernel_cases"] = [
+            {k: c[k] for k in ("kernel", "case", "max_abs_err",
+                               "err_over_tol", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms")}
+            for c in _tp_train_kernel_cases(dev)]
+        torch.cuda.empty_cache()
+    log(f"  -- {TP_RANKS} ranks")
+    outs, res["ranks_s"] = _tp_spawn(spec)
+    tr = [o["train"] for o in outs]
+    for r, t in enumerate(tr):
+        what = f"train_tp rank {r}"
+        check(all(math.isfinite(x) for x in t["losses"]),
+              f"{what}: a nonfinite loss {t['losses']}")
+        check(t["exchanges_per_step"] == want_ex,
+              f"{what}: {t['exchanges_per_step']} exchanges a step "
+              f"({t['exchanges']}), the layout implies {want_ex}")
+        check(not t["syncs"], f"{what}: syncs outside the exchanges "
+              f"{t['syncs']}")
+        if dev.type == "cuda":
+            for name, n in TRAIN_CALLS_PER_STEP.items():
+                check(t["launches"].get(name, 0) == n * spec["steps"],
+                      f"{what}: {name} launched {t['launches'].get(name)} "
+                      f"times in {spec['steps']} steps, {n} a step wanted")
+    check(tr[0]["losses"] == tr[1]["losses"],
+          f"train_tp: the ranks' losses differ: {tr[0]['losses']} against "
+          f"{tr[1]['losses']}")
+    if dev.type == "cuda":
+        routes, need, banned = _tp_train_routes(cfg, spec)
+        res["routes"] = routes
+        for r, t in enumerate(tr):
+            names = t["device_kernels"]
+            check(all(any(k in x for x in names) for k in need)
+                  and not any(k in x for x in names for k in banned),
+                  f"train_tp rank {r}: launched {names}; the plans {routes} "
+                  f"need {sorted(need)} and none of {sorted(banned)}")
+    t = tr[0]
+    res.update(
+        step_ms=[x["step_ms"] for x in tr], tokens_per_s=[
+            x["tokens_per_s"] for x in tr], losses=t["losses"],
+        exchanges=t["exchanges"], exchanges_per_step=t["exchanges_per_step"],
+        exchange_ms=[x["exchange_ms"] for x in tr],
+        exchange_mib=t["exchange_mib"],
+        launches=t["launches"], loss_scale=t["loss_scale"],
+        overflows=t["overflows"], setup_s=[x["setup_s"] for x in tr],
+        peak_mem_gib=[x["peak_mem_gib"] for x in tr],
+        tp1_losses=None if tp1_losses is None else tp1_losses[:len(
+            t["losses"])])
+    log(f"  {spec['steps']} timed steps of B {spec['batch']} x S "
+        f"{spec['seq']} a rank: {[round(x, 1) for x in res['step_ms']]} "
+        f"ms/step; losses {t['losses']} (tp=1's train cell "
+        f"{res['tp1_losses']}, other attention masks: not compared); "
+        f"{t['exchanges_per_step']} exchanges a step (derived {want_ex}: "
+        f"{t['exchanges']}), host ms a step in them by kind "
+        f"{res['exchange_ms']}, MiB a step {t['exchange_mib']}; loss scale "
+        f"{t['loss_scale']:g}, "
+        f"{t['overflows']} overflows; launches {t['launches']}")
+    log("  -- the fp32 twin: tp=2 card vs tp=2 cpu vs tp=1 card")
+    twin = {}
+    for form in spec["twin_forms"]:
+        rows_ = [o["twin"][form] for o in outs]
+        worst = max(max(x["card_vs_cpu"], x["card_vs_tp1"], x["cpu_vs_tp1"],
+                        x["loss_rel"]) for x in rows_)
+        twin[form] = dict(rows_[0], worst=worst,
+                          worst_rank1=max(rows_[1][k] for k in (
+                              "card_vs_cpu", "card_vs_tp1", "cpu_vs_tp1")))
+        check(worst <= TP_TRAIN_RTOL, f"train_tp twin {form}: the losses or "
+              f"gradients differ by {worst:.3e} of their scale")
+        check(rows_[0]["loss_card"] == rows_[1]["loss_card"],
+              f"train_tp twin {form}: the ranks' card losses differ")
+    res["twin"] = twin
+    log(f"  fp32 twin ({spec['twin']}): {twin}")
+    res["rank_s"] = [o["rank_s"] for o in outs]
+    log(f"  ranks' wall time {res['ranks_s']:.1f} s (spawn included), "
+        f"{[round(x, 1) for x in res['rank_s']]} s of work a rank")
+    return res
+
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -10111,7 +10630,7 @@ def main(argv=None):
     ap.add_argument("--only", help="comma-separated subset of the phases "
                     f"{','.join(PHASES)} (default: all); kernels:A+B runs "
                     f"the kernel phase's case groups A and B of "
-                    f"{','.join(CASE_GROUPS)}")
+                    f"{','.join(ALL_GROUPS)}")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -10164,7 +10683,7 @@ def main(argv=None):
                                          multi_tensor, optim_kernels,
                                          softmax, xentropy)
     groups = (only["kernels"].split("+") if only.get("kernels")
-              else list(CASE_GROUPS))
+              else list(ALL_GROUPS))
     check(set(groups) <= set(ALL_GROUPS), f"--only kernels: no group "
           f"named {sorted(set(groups) - set(ALL_GROUPS))}")
     runs = {
@@ -10332,10 +10851,12 @@ def main(argv=None):
         "serve_tp": (
             f"serve_tp (tensor parallelism at tp={TP_RANKS}: {TP_RANKS} gloo "
             f"ranks on the one card, the serve's {N_REQUESTS} requests x "
-            f"{MAX_NEW} on pages and int8 pages of {PAGE_SIZE} beside the "
-            f"tp=1 paged serve, a migration with its pages, spec_k "
-            f"{SPEC_K}; the {SPEC_TWIN['num_layers']}-layer fp32 twin tp=2 "
-            f"card vs cpu vs tp=1)", run_serve_tp_phase),
+            f"{TP_MAX_NEW} on pages and int8 pages of {PAGE_SIZE} beside "
+            f"the tp=1 paged serve, a migration with its pages, spec_k "
+            f"{SPEC_K}, a router over {ROUTER_REPLICAS} tp={TP_RANKS} engines "
+            f"({N_REQUESTS} requests x {TP_FLEET_NEW}); the "
+            f"{SPEC_TWIN['num_layers']}-layer fp32 twin tp=2 card vs cpu vs "
+            f"tp=1)", run_serve_tp_phase),
         "serve_monitor": (
             f"serve_monitor (the monitor layer on the serve: {N_REQUESTS} "
             f"requests x {MAX_NEW} on bf16 pages of {PAGE_SIZE}, bare / "
@@ -10346,6 +10867,16 @@ def main(argv=None):
             f"{ROUTER_REPLICAS}-replica traced fleet with a drain; the "
             f"{MONITOR_TWIN['num_layers']}-layer fp32 twin)",
             run_serve_monitor_phase),
+        "train_tp": (
+            f"train_tp (tensor-parallel training at tp={TP_RANKS}: "
+            f"{TP_RANKS} gloo ranks on the one card, the train cell's GPT "
+            f"with sequence parallelism and the collective-matmul rings, "
+            f"bf16 O5, B {TRAIN_BATCH} x S {TRAIN_SEQ}, dropout 0.1: "
+            f"{TP_TRAIN_WARMUP} warm-up + {TP_TRAIN_STEPS} timed steps; the "
+            f"{TP_TRAIN_TWIN['num_layers']}-layer fp32 twin tp=2 card vs "
+            f"cpu vs tp=1 in {len(TP_TRAIN_FORMS)} forms)",
+            lambda: run_train_tp_phase(
+                tp1_losses=report.get("train", {}).get("losses"))),
     }
     report["phase_s"] = {}
     try:

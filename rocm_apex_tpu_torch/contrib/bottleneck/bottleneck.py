@@ -36,7 +36,7 @@ def _refuse_sync_bn(sync_bn_axis):
     if sync_bn_axis is not None:
         raise NotImplementedError(
             "sync_bn_axis: parallel.SyncBatchNorm is not ported yet "
-            "(ROADMAP.md Queue 1 item 10)")
+            "(ROADMAP.md Queue 1 item 10, part 10d)")
 
 
 class Bottleneck(nn.Module):

@@ -38,6 +38,14 @@ to ``nn.Linear``'s (out, in).
 flattened by name as `flatten_params` does, so a port step resumes from
 it.
 
+At tensor-parallel size > 1 (a `GPTConfig` whose ``tensor_parallel_size``
+is 2, or the tensor group's) `from_jax_params` and
+`train_state_from_jax_params` take the tp=1 tree and slice it for this
+rank (`inference.shard_tp1_params`; a tree already of the rank's shapes
+passes through), so each rank's `MixedPrecisionAdam` state is built
+from its own shard. `gather_tp_params` is the inverse: the ranks'
+parameters, gradients or moments, by name, back into the tp=1 layout.
+
 `random_params` draws the same tree with numpy from a seed, with the
 JAX model's initializers: normal(``init_method_std``) for the
 embeddings and input projections, the output projections (attention
@@ -63,6 +71,7 @@ __all__ = [
     "resnet_from_jax_variables",
     "mha_from_jax_params",
     "optimizer_state_from_jax",
+    "gather_tp_params",
 ]
 
 
@@ -87,10 +96,9 @@ def from_jax_params(
     holding the weights of ``tree`` (the JAX model's variables dict, with
     or without its ``'params'`` level). Raises on a missing or unexpected
     leaf, or a shape mismatch."""
-    params = tree.get("params", tree)
-    flat = flatten_params(params)
     cls = BertModel if isinstance(cfg, BertConfig) else GPTModel
     model = cls(cfg, device=device)
+    flat = flatten_params(_rank_tree(model, tree))
     state = model.state_dict()
     missing = sorted(set(state) - set(flat))
     extra = sorted(set(flat) - set(state))
@@ -134,7 +142,7 @@ def train_state_from_jax_params(
     model = from_jax_params(tree, cfg, device=device)
     params = {
         k: torch.tensor(np.asarray(v, dtype=np.float32), device=model.device)
-        for k, v in flatten_params(tree.get("params", tree)).items()
+        for k, v in flatten_params(_rank_tree(model, tree)).items()
     }
     state = opt.init(params, model)
     if opt_state is None:
@@ -155,8 +163,7 @@ def train_state_from_jax_params(
         opt.write_model(state)
     else:
         for name in ("m", "v"):
-            src = flatten_params(opt_state[name].get("params",
-                                                     opt_state[name]))
+            src = flatten_params(_rank_tree(model, opt_state[name]))
             dst = getattr(state, name)
             if set(src) != set(dst):
                 raise KeyError(
@@ -169,6 +176,52 @@ def train_state_from_jax_params(
     state = state._replace(count=torch.full_like(
         state.count, int(opt_state["count"])))
     return model, state
+
+
+def _rank_tree(model, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The tree's params (without the ``'params'`` level), sliced for this
+    rank when ``model`` is tensor-parallel."""
+    params = tree.get("params", tree)
+    if getattr(model, "tp", 1) == 1:
+        return params
+    local = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    if all(tuple(np.shape(v)) == local.get(k)
+           for k, v in flatten_params(params).items()):
+        return params  # already this rank's shard
+    from rocm_apex_tpu_torch.inference import shard_tp1_params
+
+    return shard_tp1_params(model, params)
+
+
+def gather_tp_params(cfg: GPTConfig, shards) -> Dict[str, torch.Tensor]:
+    """The tp=1 layout of the ranks' leaves: ``shards`` holds, in rank
+    order, each rank's ``{name: tensor or array}`` (a `state_dict`, the
+    gradients by parameter name, a moment tree flattened), ``cfg`` the
+    tp>1 model's config. A leaf the tp>1 model holds whole is rank 0's;
+    a sharded one is the ranks' blocks concatenated along the axis on
+    which it is smaller (the inverse of `inference.shard_tp1_params`).
+    Returns CPU tensors in the leaves' dtypes."""
+    import dataclasses
+
+    tp = len(shards)
+    full = GPTModel(dataclasses.replace(
+        cfg, tensor_parallel_size=1, sequence_parallel=False,
+        collective_matmul=False), device="meta").state_dict()
+    out = {}
+    for key in shards[0]:
+        parts = [torch.as_tensor(np.asarray(s[key]) if not isinstance(
+            s[key], torch.Tensor) else s[key]).detach().cpu()
+            for s in shards]
+        g, l = tuple(full[key].shape), tuple(parts[0].shape)
+        if g == l:
+            out[key] = parts[0]
+            continue
+        diff = [i for i, (a, b) in enumerate(zip(g, l)) if a != b]
+        if len(g) != len(l) or len(diff) != 1 or g[diff[0]] != l[diff[0]] * tp:
+            raise ValueError(f"cannot map tp={tp} leaf {key} {l} onto the "
+                             f"tp=1 shape {g}")
+        out[key] = torch.cat(parts, dim=diff[0])
+    return out
 
 
 def random_params(cfg: GPTConfig, seed: int = 0) -> Dict[str, Any]:

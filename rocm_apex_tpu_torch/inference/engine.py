@@ -233,6 +233,20 @@ def shard_tp1_params(model, params_tp1, rank: Optional[int] = None):
     return walk(params_tp1, "")
 
 
+def group_clock(tp: int, axis: str, *stamps: float):
+    """``time.perf_counter()``, at tp > 1 tensor rank 0's: its clock
+    (and its ``stamps``, returned after it) on every rank of the group
+    bound to ``axis``, through one exchange. Every rank must call it at
+    the same point."""
+    now = time.perf_counter()
+    if tp == 1:
+        return (now, *stamps) if stamps else now
+    t = parallel_state.broadcast(
+        torch.tensor([now, *stamps], dtype=torch.float64),
+        parallel_state.resolve_group(axis), 0).tolist()
+    return tuple(t) if stamps else t[0]
+
+
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
     """Sampling config, fixed per engine. ``temperature=0`` is greedy."""
@@ -1052,7 +1066,11 @@ class InferenceEngine:
         self._next_id = max(self._next_id, request_id) + 1
         if trace_id is None:
             trace_id = mint_trace_id()
-        now = time.perf_counter()
+        # a time-bounded request's deadlines, like the ticks' decisions,
+        # read tensor rank 0's clock at tp > 1
+        now = (group_clock(self.tp, self.model.cfg.tensor_axis)
+               if timeout is not None or queue_ttl is not None
+               else time.perf_counter())
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
             # shed the newest: the queued requests keep their places;
             # with a pool, the newest of the lowest tier below the
@@ -1142,7 +1160,7 @@ class InferenceEngine:
         the decode step. Returns the requests that finished this tick,
         the shed and expired ones included, so every submitted request
         yields exactly one result; their slots are already free."""
-        now = time.perf_counter()
+        now = self._group_now()
         self._check_watchdog(now)
         out: List[GenerationResult] = []
         if self._shed_results:
@@ -1898,6 +1916,32 @@ class InferenceEngine:
         if work != self._progress_mark:
             self._progress_mark = work
             self._last_progress = time.perf_counter()
+
+    def _group_now(self) -> float:
+        """The tick's clock for its lifecycle decisions (deadlines, queue
+        TTLs, the watchdog). At tp > 1 every rank is its own process
+        with its own clock, and a decision that differed between ranks
+        would step them into different batches, so on a tick where a
+        time-bounded request or the watchdog is live, every rank takes
+        tensor rank 0's clock and its watchdog's progress stamp through
+        one exchange: the one clock JAX's single-process engine has.
+        Other ticks exchange nothing."""
+        if self.tp == 1 or not (self._deadline_live() or (
+                self.watchdog_timeout is not None and self.has_work())):
+            return time.perf_counter()
+        now, self._last_progress = group_clock(
+            self.tp, self.model.cfg.tensor_axis, self._last_progress)
+        return now
+
+    def _deadline_live(self) -> bool:
+        """Whether a queued (preempted ones included) or in-slot request
+        has a deadline or a TTL. Every rank holds the same requests, so
+        every rank gives the same answer."""
+        return self._any_deadline and (
+            any(r.deadline is not None or r.queue_deadline is not None
+                for r in self._queue)
+            or any(st is not None and st.req.deadline is not None
+                   for st in self._slots))
 
     def _check_watchdog(self, now: float) -> None:
         if self.watchdog_timeout is None or not self.has_work():

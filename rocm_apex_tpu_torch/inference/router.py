@@ -78,18 +78,42 @@ engine-level chaos gains replica-scoped sites (``replica_kill`` /
 replays bit-identically). Router events land in a router-local
 `MetricRegistry` (`monitor.telemetry`).
 
+**Tensor-parallel replicas (tp > 1).** Each rank of a tp>1 engine is a
+process of its own, so a fleet of tp>1 engines runs SPMD: every rank of
+the tensor group builds the same fleet, each replica an engine over the
+one group, and makes the same `add_request` / `step` / `cancel` /
+`drain_replica` / `rejoin_replica` calls in the same order. Every
+placement, kill, quarantine, migration, shed and expiry decision is then
+the same on every rank, since each reads only host state the calls
+make alike: the replicas' counters, the seeded `FaultPlan` (consulted at
+the same site and tick on every rank), and a clock that is tensor rank
+0's: on calls and ticks where a time-bounded request is live the router
+(and each engine, on its own ticks) takes rank 0's ``perf_counter``
+through one exchange, and otherwise exchanges nothing. A migrated
+request's payload carries every head, gathered over the group, and each
+rank imports its own heads. Trace ids are minted from rank 0's pid and
+the router's own sequence, so a request has one id on every rank. A
+failure that only one rank sees (a real device fault on one process)
+leaves the other rank blocked in its next exchange until the group's
+timeout: that is outside what the router recovers from.
+
 Everything here is host bookkeeping: the device steps never see the
 router.
 """
 
 import collections
+import itertools
 import json
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
+
+import torch
 
 from rocm_apex_tpu_torch.inference.engine import (
     GenerationResult,
     InferenceEngine,
+    group_clock,
 )
 from rocm_apex_tpu_torch.inference.faults import NO_FAULTS, FaultPlan
 from rocm_apex_tpu_torch.monitor.telemetry import MetricRegistry
@@ -98,6 +122,7 @@ from rocm_apex_tpu_torch.monitor.trace import (
     merge_traces,
     mint_trace_id,
 )
+from rocm_apex_tpu_torch.transformer import parallel_state
 
 __all__ = [
     "ReplicaRouter", "SharedPrefixRegistry", "REPLICA_STATES",
@@ -280,12 +305,15 @@ class ReplicaRouter:
                        for _ in range(int(replicas))]
         if not engines:
             raise ValueError("need at least one replica")
+        self.tp = engines[0].tp
+        self._axis = engines[0].model.cfg.tensor_axis
         for i, eng in enumerate(engines):
-            if eng.tp > 1:
-                raise NotImplementedError(
-                    f"replica {i} is a tensor-parallel engine (tp="
-                    f"{eng.tp}); a router over tp>1 engines is not ported "
-                    f"yet (ROADMAP Queue 1 item 8f)")
+            if (eng.tp, eng.model.cfg.tensor_axis) != (self.tp, self._axis):
+                raise ValueError(
+                    f"replica {i} is a tp={eng.tp} engine over axis "
+                    f"{eng.model.cfg.tensor_axis!r}, replica 0 a tp="
+                    f"{self.tp} engine over {self._axis!r}: a fleet's "
+                    f"replicas share one tensor group")
             if not eng.chunked:
                 raise ValueError(
                     f"replica {i} is a whole-prompt engine; the "
@@ -441,6 +469,15 @@ class ReplicaRouter:
         # sensor plane: the ring samples the registry it was built over
         # (the router's own families for TimeSeriesStore(router.registry))
         self.timeseries = timeseries
+        # tp > 1: trace ids from rank 0's pid and the router's sequence,
+        # the same on every rank (one exchange, here)
+        self._trace_base = None
+        if self.tp > 1:
+            pid = parallel_state.broadcast(
+                torch.tensor([os.getpid()], dtype=torch.int64),
+                parallel_state.resolve_group(self._axis), 0)
+            self._trace_base = f"t{int(pid[0]):x}-r"
+            self._trace_seq = itertools.count()
 
     # ------------------------------------------------------------------
     # public surface (mirrors InferenceEngine)
@@ -545,8 +582,13 @@ class ReplicaRouter:
             request_id = self._next_id
         self._next_id = max(self._next_id, request_id) + 1
         if trace_id is None:
-            trace_id = mint_trace_id()
-        now = time.perf_counter()
+            trace_id = (mint_trace_id() if self._trace_base is None else
+                        f"{self._trace_base}{next(self._trace_seq):x}")
+        # a time-bounded request's deadlines read tensor rank 0's clock
+        # at tp > 1, as the fleet's ticks do
+        now = (group_clock(self.tp, self._axis)
+               if timeout is not None or queue_ttl is not None
+               else time.perf_counter())
         self._submitted += 1
         if (
             self.max_queue is not None
@@ -596,7 +638,7 @@ class ReplicaRouter:
         token mirror), then run the failure detectors and rejoin
         probes. Returns every request that finished this tick —
         exactly once each, whichever replica(s) it lived on."""
-        now = time.perf_counter()
+        now = self._group_now()
         out: List[GenerationResult] = []
         if self._shed_results:
             out.extend(self._shed_results)
@@ -915,6 +957,18 @@ class ReplicaRouter:
         return tuple(
             rep.engine.progress_marker for rep in self._replicas
         )
+
+    def _group_now(self) -> float:
+        """The tick's clock: at tp > 1, tensor rank 0's (one exchange)
+        while a request in the global queue has a deadline or a TTL,
+        so that every rank expires the same records; else this
+        process's."""
+        if self.tp > 1 and any(
+                rec["deadline"] is not None
+                or rec["queue_deadline"] is not None
+                for rec in self._pending):
+            return group_clock(self.tp, self._axis)
+        return time.perf_counter()
 
     def _expire_pending(
         self, now: float, out: List[GenerationResult]

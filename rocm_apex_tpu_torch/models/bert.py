@@ -70,7 +70,7 @@ class BertConfig(GPTConfig):
             if bad:
                 raise NotImplementedError(
                     f"{what} is not ported yet (ROADMAP Queue 1 item 10, "
-                    f"tp>1 training)")
+                    f"part 10a: BERT at tp>1)")
 
 
 def bert_extended_attention_mask(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -135,7 +135,7 @@ class BertModel(nn.Module):
         if _resolve_tp(cfg) > 1:  # the tensor size parallel_state holds
             raise NotImplementedError(
                 "BertModel at tensor_parallel_size > 1 is not ported yet "
-                "(ROADMAP Queue 1 item 10, tp>1 training)")
+                "(ROADMAP Queue 1 item 10, part 10a: BERT at tp>1)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.embedding = TransformerEmbedding(cfg, self.device)

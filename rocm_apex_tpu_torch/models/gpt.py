@@ -100,8 +100,18 @@ Port of ``rocm_apex_tpu/models/gpt.py``.
   rows, its edges all-gathers and reduce-scatters, rings with
   ``collective_matmul``. The serving engine's chunk model runs so and its
   decode grid plain tensor-parallel; the cached decode refuses sequence
-  parallelism, as JAX (gpt.py:389, 1527). Training at tp > 1 (``labels``,
-  dropout) is ROADMAP Queue 1 item 10 and raises.
+  parallelism, as JAX (gpt.py:389, 1527). Training at tp > 1 follows
+  JAX's rules: the attention dropout seed folds the tensor rank in
+  (each rank's heads draw their own masks, gpt.py:497-506), the hidden
+  dropout seeds (the embedding's too) fold it in only under sequence
+  parallelism, where the stream is a shard of the rows (gpt.py:224-285;
+  without it the replicated stream draws one mask on every rank); under
+  sequence parallelism the LayerNorms sum their parameter gradients
+  over the group (``grad_sync_axis``). The fused head is
+  `vocab_parallel_linear_cross_entropy`, the materialized one
+  `vocab_parallel_cross_entropy` over the vocab-parallel logits, which
+  refuses label smoothing and ``ignore_index`` as JAX's does
+  (gpt.py:1609-1630).
 
 Module and parameter names follow the JAX model's param tree, so its
 flattened paths are this module's ``state_dict`` keys (see ``convert.py``).
@@ -140,7 +150,6 @@ from rocm_apex_tpu_torch.ops.flash_attention_segments import (
     flash_attention_segments_with_lse,
     merge_by_lse,
 )
-from rocm_apex_tpu_torch.ops import _dropout as _keep_bits
 from rocm_apex_tpu_torch.ops.collective_matmul import check_comm_dtype
 from rocm_apex_tpu_torch.ops.lora import apply_lora
 from rocm_apex_tpu_torch.ops.paging import (
@@ -166,11 +175,14 @@ from rocm_apex_tpu_torch.transformer.tensor_parallel import (
     VocabParallelEmbedding,
     gather_from_sequence_parallel_region,
     scatter_to_sequence_parallel_region,
+    vocab_parallel_cross_entropy,
 )
+from rocm_apex_tpu_torch.transformer.tensor_parallel.random import fold_in
 
 __all__ = [
     "GPTConfig",
     "hidden_dropout_seed",
+    "attention_dropout_seed",
     "GPTModel",
     "gpt_loss_fn",
     "ParallelMLP",
@@ -246,11 +258,11 @@ class GPTConfig:
              "activation_stats=True (ROADMAP Queue 1 item 9, part 9b: the "
              "monitor layer's in-graph metrics)"),
             (self.checkpoint_activations,
-             "checkpoint_activations=True (ROADMAP Queue 1 item 10, rest "
-             "of the training stack)"),
+             "checkpoint_activations=True (ROADMAP Queue 1 item 10, part "
+             "10b)"),
             (self.apply_residual_connection_post_layernorm,
              "apply_residual_connection_post_layernorm=True (ROADMAP "
-             "Queue 1 item 10, rest of the training stack)"),
+             "Queue 1 item 10, part 10b)"),
         ]
         for bad, what in unported:
             if bad:
@@ -301,16 +313,41 @@ def _cp_rank(cfg: GPTConfig) -> Optional[int]:
     return parallel_state.axis_rank(cfg.context_parallel_axis)
 
 
+def _tp_rank(cfg: GPTConfig) -> int:
+    return parallel_state.axis_rank(cfg.tensor_axis)
+
+
 def hidden_dropout_seed(generator: torch.Generator, cfg: GPTConfig) -> int:
     """A hidden-dropout site's int32 seed: `_draw_seed`, with the
-    context-parallel rank folded in (the hash of (seed, rank)), so every
-    shard draws its own mask from one generator state (the JAX model's
-    ``fold_in`` of the axis index, gpt.py:270-285)."""
+    context-parallel rank folded in, and the tensor rank under sequence
+    parallelism (`fold_in`, the hash of (seed, rank)), so every shard
+    of the rows draws its own mask from one generator state (the JAX
+    model's ``fold_in`` of the axis indices, gpt.py:270-285)."""
     seed = _draw_seed(generator)
     rank = _cp_rank(cfg)
-    if rank is None:
-        return seed
-    return int(_keep_bits.hash32(seed, rank, 0, 0)) & 0x7FFFFFFF
+    if rank is not None:
+        seed = fold_in(seed, rank)
+    if _sp_active(cfg, _resolve_tp(cfg)):
+        seed = fold_in(seed, _tp_rank(cfg))
+    return seed
+
+
+def attention_dropout_seed(generator: torch.Generator,
+                           cfg: GPTConfig) -> int:
+    """An attention-dropout site's int32 seed: at tp > 1 the tensor rank
+    folded in, since each rank's heads are its own (JAX gpt.py:497-506:
+    without the fold every rank's kernel would seed the same streams)."""
+    seed = _draw_seed(generator)
+    if _resolve_tp(cfg) > 1:
+        seed = fold_in(seed, _tp_rank(cfg))
+    return seed
+
+
+def _ln_sync_axis(cfg: GPTConfig) -> Optional[str]:
+    """The LayerNorms' ``grad_sync_axis``: the tensor axis under sequence
+    parallelism, where they normalize shard-local rows (JAX gpt.py:
+    224-231)."""
+    return cfg.tensor_axis if _sp_active(cfg, _resolve_tp(cfg)) else None
 
 
 def _paged_write(k_buf, v_buf, paged, k_new, v_new) -> None:
@@ -698,7 +735,7 @@ class ParallelTransformerLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         ln = dict(eps=cfg.layernorm_epsilon, params_dtype=cfg.params_dtype,
-                  device=device)
+                  device=device, grad_sync_axis=_ln_sync_axis(cfg))
         self.input_layernorm = MixedFusedLayerNorm(cfg.hidden_size, **ln)
         self.self_attention = ParallelAttention(cfg, device, attn_mask_type)
         self.post_attention_layernorm = MixedFusedLayerNorm(
@@ -736,7 +773,7 @@ class ParallelTransformerLayer(nn.Module):
                 delta.to(x.dtype), residual=x, dropout_rate=hrate,
                 dropout_seed=hseed(),
             )
-        attn_seed = (_draw_seed(seeds) if seeds is not None
+        attn_seed = (attention_dropout_seed(seeds, cfg) if seeds is not None
                      and cfg.attention_dropout > 0.0 else None)
         attn = self.self_attention(ln1, dropout_seed=attn_seed,
                                    attention_mask=attention_mask)
@@ -763,6 +800,7 @@ class ParallelTransformer(nn.Module):
         self.final_layernorm = MixedFusedLayerNorm(
             cfg.hidden_size, eps=cfg.layernorm_epsilon,
             params_dtype=cfg.params_dtype, device=device,
+            grad_sync_axis=_ln_sync_axis(cfg),
         )
 
     def forward(self, x, cache=None,
@@ -1001,12 +1039,6 @@ class GPTModel(nn.Module):
             )
         if loss_reduction not in (None, "mean"):
             raise ValueError(f"unknown loss_reduction {loss_reduction!r}")
-        if self.tp > 1 and (labels is not None or not deterministic):
-            raise NotImplementedError(
-                f"training at tensor_parallel_size={self.tp} (labels=, or "
-                f"dropout with deterministic=False) is not ported yet "
-                f"(ROADMAP Queue 1 item 10); the tp>1 model serves and "
-                f"returns vocab-parallel logits")
         cfg = self.cfg
         if position_ids is None:
             position_ids = torch.arange(tokens.shape[1],
@@ -1030,6 +1062,19 @@ class GPTModel(nn.Module):
                 return self.embedding.attend_loss(x, labels, loss_mask,
                                                   "mean")
             losses = self.embedding.attend_loss(x, labels)
+        elif self.tp > 1:
+            # the materialized head over the vocab-parallel logits
+            # (gpt.py:1609-1630)
+            if cfg.label_smoothing or cfg.ignore_index is not None:
+                raise ValueError(
+                    "label_smoothing/ignore_index with tp>1 require "
+                    "fused_lm_head=True (vocab_parallel_cross_entropy "
+                    "has no smoothing/padding support)"
+                )
+            losses = vocab_parallel_cross_entropy(
+                self.embedding.attend(x), labels, cfg.tensor_axis)
+            if loss_reduction == "mean":
+                return gpt_loss_fn(losses, loss_mask)
         else:
             # the materialized head: the logits stay in the compute dtype
             # and the kernel widens them row by row

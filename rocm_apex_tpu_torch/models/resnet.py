@@ -207,7 +207,7 @@ class ResNet(nn.Module):
         if sync_bn_axis is not None:
             raise NotImplementedError(
                 "sync_bn_axis: parallel.SyncBatchNorm is not ported yet "
-                "(ROADMAP.md Queue 1 item 10)")
+                "(ROADMAP.md Queue 1 item 10, part 10d)")
         from rocm_apex_tpu_torch.contrib.bottleneck import FusedBottleneck
 
         dev = resolve_device(device)

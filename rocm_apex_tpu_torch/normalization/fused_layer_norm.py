@@ -19,6 +19,11 @@ kernel and the call returns ``(LN(residual + x), residual + x)``, the
 stream in the residual's dtype; ``dropout_rate``/``dropout_seed``
 additionally drop ``x`` (the delta) inside the kernel before the add.
 Differentiable in the input, the delta and both parameters.
+``grad_sync_axis`` (sequence parallelism, JAX fused_layer_norm.py:
+195-209): the rows are this rank's shard of the sequence, so each
+rank's parameter gradients are partial row sums; the backward sums
+them over the group bound to the axis (one exchange for both), the
+forward is unchanged.
 """
 
 import math
@@ -29,6 +34,7 @@ from torch import nn
 
 from rocm_apex_tpu_torch._device import resolve_device
 from rocm_apex_tpu_torch.ops import layer_norm as _ln_ops
+from rocm_apex_tpu_torch.transformer import parallel_state
 
 __all__ = [
     "FusedLayerNorm",
@@ -130,6 +136,26 @@ class FusedLayerNorm(nn.Module):
                 f"elementwise_affine={self.elementwise_affine}")
 
 
+class _SumGrads(torch.autograd.Function):
+    """Identity forward on (weight, bias); the backward sums both
+    gradients over the group in one all-reduce (JAX `_psum_grad`, the
+    functional form of Megatron's sequence-parallel gradient
+    all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, weight, bias, group):
+        ctx.group = group
+        return weight.view_as(weight), bias.view_as(bias)
+
+    @staticmethod
+    def backward(ctx, gw, gb):
+        n = gw.numel()
+        both = parallel_state.all_reduce(torch.cat([gw.reshape(-1),
+                                                    gb.reshape(-1)]),
+                                         ctx.group)
+        return (both[:n].view_as(gw), both[n:].view_as(gb), None)
+
+
 class MixedFusedLayerNorm(nn.Module):
     def __init__(
         self,
@@ -137,10 +163,12 @@ class MixedFusedLayerNorm(nn.Module):
         eps: float = 1e-5,
         params_dtype: torch.dtype = torch.float32,
         device: Optional[Union[str, torch.device]] = None,
+        grad_sync_axis: Optional[str] = None,
     ):
         super().__init__()
         self.hidden = int(normalized_shape)
         self.eps = eps
+        self.grad_sync_axis = grad_sync_axis
         self.weight = nn.Parameter(
             torch.ones(self.hidden, dtype=params_dtype, device=device)
         )
@@ -160,7 +188,10 @@ class MixedFusedLayerNorm(nn.Module):
                 f"input trailing dim {x.shape[-1]} != normalized_shape "
                 f"{self.hidden}"
             )
-        w = self.weight
+        w, b = self.weight, self.bias
+        if self.grad_sync_axis is not None:
+            w, b = _SumGrads.apply(
+                w, b, parallel_state.resolve_group(self.grad_sync_axis))
         if residual is not None:
             if residual.shape != x.shape:
                 raise ValueError(
@@ -170,7 +201,7 @@ class MixedFusedLayerNorm(nn.Module):
             y, s = _ln_ops.layer_norm_residual_dropout_affine(
                 residual.reshape(-1, self.hidden),
                 x.reshape(-1, self.hidden),
-                w, self.bias, dropout_seed, dropout_rate, self.eps, w.dtype,
+                w, b, dropout_seed, dropout_rate, self.eps, w.dtype,
             )
             return y.reshape(x.shape), s.reshape(x.shape)
         if dropout_rate > 0.0:
@@ -182,5 +213,5 @@ class MixedFusedLayerNorm(nn.Module):
             # the mixed contract normalizes the input AS the weight dtype;
             # a narrower input widens exactly inside the kernel instead
             x2d = x2d.to(w.dtype)
-        y = _ln_ops.layer_norm_affine(x2d, w, self.bias, self.eps, w.dtype)
+        y = _ln_ops.layer_norm_affine(x2d, w, b, self.eps, w.dtype)
         return y.reshape(x.shape)

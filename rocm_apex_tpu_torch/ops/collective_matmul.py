@@ -1,9 +1,8 @@
 """The collective matmuls at the sequence-parallel edges, as rings.
 
-Port of ``rocm_apex_tpu/ops/collective_matmul.py``'s forward (the JAX
-module has no Pallas kernel: its rings are ``ppermute`` hops beside
-``jnp`` dots, so the port's are `parallel_state.shift` hops beside
-``torch.matmul``):
+Port of ``rocm_apex_tpu/ops/collective_matmul.py`` (the JAX module has no
+Pallas kernel: its rings are ``ppermute`` hops beside ``jnp`` dots, so the
+port's are `parallel_state.shift` hops beside ``torch.matmul``):
 
 * `all_gather_matmul(x, w, axis)`: ``all_gather(x, rows) @ w`` for the
   local rows shard ``x`` (..., rows_local, k). At hop i the resident
@@ -23,9 +22,16 @@ of one, is the plain matmul. The gather ring's partial products are
 it); the reduce-scatter ring's are fp32 products of the inputs' values,
 summed in fp32 and cast once at the end, as JAX's.
 
-The backward (JAX ``_ag_mm_bwd``, ``_mm_rs_bwd``) is tp>1 training,
-ROADMAP Queue 1 item 10, and raises; so does ``comm_dtype="int8"``
-(``ops/quantized_collectives.py``, item 10).
+Each is a `torch.autograd.Function` whose backward is JAX's
+``custom_vjp`` rule (``_ag_mm_bwd``, ``_mm_rs_bwd``), the transposed ring
+of the same chunk form: dx of the gather-matmul is the reduce-scatter
+ring with ``wᵀ`` and dx of the reduce-scatter the gather ring with
+``wᵀ``; dW re-rotates the saved shard (``_ring_dw_from_gather``) or the
+cotangent block (``_ring_dw_from_scatter``) against the matching row
+slice of the other operand, in fp32, cast once to w's dtype. A chunk
+that does not tile takes the plain transposed collectives.
+``comm_dtype="int8"`` (``ops/quantized_collectives.py``, the int8 rings)
+is ROADMAP Queue 1 item 10, part 10c, and raises.
 """
 
 from typing import Optional
@@ -33,6 +39,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from rocm_apex_tpu_torch.ops.linear_xentropy import _mm_f32
 from rocm_apex_tpu_torch.transformer import parallel_state
 
 __all__ = ["all_gather_matmul", "matmul_reduce_scatter",
@@ -50,7 +57,7 @@ def check_comm_dtype(comm_dtype: str) -> None:
         raise NotImplementedError(
             "comm_dtype='int8' (the quantized ring payloads of "
             "ops/quantized_collectives.py) is not ported yet (ROADMAP "
-            "Queue 1 item 10)")
+            "Queue 1 item 10, part 10c)")
 
 
 def _bound_group(axis_name):
@@ -123,19 +130,92 @@ def _plain_mm_rs(x, w, group, m):
     return parallel_state.reduce_scatter(y, group, y.dim() - 2).to(x.dtype)
 
 
-class _ForwardOnly(torch.autograd.Function):
-    """A ring or its plain fallback, differentiable by name only: its
-    backward is item 10's."""
+def _dw(x, dy):
+    """``einsum("...rk,...rn->kn", x, dy)`` with an fp32 result."""
+    return _mm_f32(x.reshape(-1, x.shape[-1]).t(),
+                   dy.reshape(-1, dy.shape[-1]))
+
+
+def _ring_dw(rot, fixed, group, m, rot_is_x):
+    """dW without the gather: this rank's shard ``rot`` re-rotates (to
+    rank - 1 each hop, as the gather ring) and each hop contracts
+    against the matching row slice of ``fixed`` (full rows): JAX's
+    ``_ring_dw_from_gather`` (rot x, fixed dy) and
+    ``_ring_dw_from_scatter`` (rot dy, fixed x)."""
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    rows = rot.shape[-2]
+    chunk = rows // m
+    dw = None
+    pieces = list(rot.split(chunk, dim=-2))
+    for i in range(n):
+        src = (idx + i) % n
+        nxt = []
+        for j, piece in enumerate(pieces):
+            if i + 1 < n:
+                nxt.append(parallel_state.shift(piece, group, -1))
+            at = src * rows + j * chunk
+            other = fixed[..., at:at + chunk, :]
+            part = _dw(piece, other) if rot_is_x else _dw(other, piece)
+            dw = part if dw is None else dw + part
+        pieces = nxt or pieces
+    return dw
+
+
+class _AgMm(torch.autograd.Function):
+    """`all_gather_matmul` on a bound group: the ring (``m`` pieces a
+    shard) or, with ``m`` None, the plain gather and one matmul."""
 
     @staticmethod
-    def forward(ctx, fn, x, w, group, m):
-        return fn(x, w, group, m)
+    def forward(ctx, x, w, group, m):
+        ctx.save_for_backward(x, w)
+        ctx.group, ctx.m = group, m
+        return (_plain_ag_mm if m is None else _ring_ag_mm)(x, w, group, m)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the collective matmul's backward (JAX _ag_mm_bwd, _mm_rs_bwd) "
-            "is tp>1 training, not ported yet (ROADMAP Queue 1 item 10)")
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        group, m = ctx.group, ctx.m
+        dy = dy.contiguous()
+        wt = w.t()
+        if m is None:
+            # the plain transposed collectives, no ring
+            dx = parallel_state.reduce_scatter(
+                torch.matmul(dy.float(), wt.float()), group,
+                dy.dim() - 2).to(x.dtype)
+            xg = parallel_state.all_gather(x, group, x.dim() - 2)
+            dw = _dw(xg, dy)
+        else:
+            # the transposed gather IS a matmul-reduce-scatter with wᵀ
+            dx = _ring_mm_rs(dy, wt, group, m).to(x.dtype)
+            dw = _ring_dw(x, dy, group, m, rot_is_x=True)
+        return dx, dw.to(w.dtype), None, None
+
+
+class _MmRs(torch.autograd.Function):
+    """`matmul_reduce_scatter` on a bound group: the ring or, with ``m``
+    None, one matmul and the plain reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, w, group, m):
+        ctx.save_for_backward(x, w)
+        ctx.group, ctx.m = group, m
+        return (_plain_mm_rs if m is None else _ring_mm_rs)(x, w, group, m)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        group, m = ctx.group, ctx.m
+        dy = dy.contiguous()
+        wt = w.t()
+        if m is None:
+            dyg = parallel_state.all_gather(dy, group, dy.dim() - 2)
+            dx = torch.matmul(dyg, wt).to(x.dtype)
+            dw = _dw(x, dyg)
+        else:
+            # the transposed scatter IS an all-gather-matmul with wᵀ
+            dx = _ring_ag_mm(dy, wt, group, m).to(x.dtype)
+            dw = _ring_dw(dy, x, group, m, rot_is_x=False)
+        return dx, dw.to(w.dtype), None, None
 
 
 def all_gather_matmul(x: torch.Tensor, w: torch.Tensor, axis_name,
@@ -148,9 +228,7 @@ def all_gather_matmul(x: torch.Tensor, w: torch.Tensor, axis_name,
     group = _bound_group(axis_name)
     if group is None:
         return torch.matmul(x, w)
-    m = _ring_chunks(x.shape[-2], chunk)
-    return _ForwardOnly.apply(_plain_ag_mm if m is None else _ring_ag_mm,
-                              x, w, group, m)
+    return _AgMm.apply(x, w, group, _ring_chunks(x.shape[-2], chunk))
 
 
 def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, axis_name,
@@ -167,6 +245,4 @@ def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, axis_name,
     n = dist.get_world_size(group)
     if x.shape[-2] % n:
         raise ValueError(f"rows {x.shape[-2]} not divisible by axis size {n}")
-    m = _ring_chunks(x.shape[-2] // n, chunk)
-    return _ForwardOnly.apply(_plain_mm_rs if m is None else _ring_mm_rs,
-                              x, w, group, m)
+    return _MmRs.apply(x, w, group, _ring_chunks(x.shape[-2] // n, chunk))

@@ -1,8 +1,8 @@
 """Chunked fused LM head + cross-entropy: the ``(rows, vocab)`` logits
 never exist whole.
 
-Port of ``rocm_apex_tpu/ops/linear_xentropy.py`` (tensor-parallel world
-size 1). The JAX package computes this head with XLA (a `lax.scan` over
+Port of ``rocm_apex_tpu/ops/linear_xentropy.py``. The JAX package
+computes this head with XLA (a `lax.scan` over
 row chunks around the jnp `_loss_block` of ops/xentropy.py:33), not in a
 Pallas kernel, so the port keeps it plain PyTorch: a Python loop over
 row chunks, the chunk's logits from one `torch.matmul`, the loss math
@@ -17,6 +17,15 @@ in fp32.
   backward only scales them (linear_xentropy.py:254-355 of the JAX
   package).
 
+* `vocab_parallel_linear_cross_entropy` is the head over this rank's
+  block of the vocabulary (tensor-parallel world size > 1): each
+  chunk's max reduced to the global max over the group, then its sum of
+  exp, target logit and (with smoothing) logit sum summed over the group
+  in one all-reduce; the backward recomputes each chunk's softmax from
+  the saved lse and sums the chunk's dx over the group (the hidden
+  input is replicated, so this sum is the gradient's whole
+  tensor-parallel reduction). The exchanges are `parallel_state`'s.
+
 Semantics per row (ops/xentropy.py of the JAX package): with label y,
 smoothing eps and vocab V, loss = lse - (1 - eps) x[y] - (eps / V) sum(x);
 rows whose label equals ``padding_idx`` get zero loss and gradient; a
@@ -26,8 +35,12 @@ label outside [0, V) contributes no target logit.
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["linear_cross_entropy_loss", "linear_cross_entropy_mean"]
+from rocm_apex_tpu_torch.transformer import parallel_state
+
+__all__ = ["linear_cross_entropy_loss", "linear_cross_entropy_mean",
+           "vocab_parallel_linear_cross_entropy"]
 
 _SUBLANE = 8
 # chunk * vocab ~ 2^27 elements, as in the JAX package
@@ -208,3 +221,89 @@ def linear_cross_entropy_loss(hidden, weight, labels, smoothing=0.0,
     saved lse)."""
     return _LinearCELoss.apply(hidden, weight, labels, float(smoothing),
                                padding_idx, chunk_size)
+
+
+def _vp_target(logits, lbl, start):
+    """The columns of this rank's block that hold each row's label (the
+    comparison is False everywhere when the label lies on another
+    rank)."""
+    col = torch.arange(logits.shape[1], device=logits.device)
+    return col[None, :] == (lbl - start)[:, None]
+
+
+class _VocabParallelLinearCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hidden, weight, labels, group, smoothing, padding_idx,
+                chunk_size):
+        h2 = hidden.reshape(-1, hidden.shape[-1])
+        rows = h2.shape[0]
+        w = weight.to(h2.dtype)
+        v_local = w.shape[0]
+        vocab = v_local * dist.get_world_size(group)
+        start = parallel_state.axis_rank(group) * v_local
+        lbl = labels.reshape(-1).long()
+        losses = torch.empty((rows,), dtype=torch.float32, device=h2.device)
+        lse = torch.empty_like(losses)
+        for sl in _chunks(rows, _chunk_rows(rows, v_local, chunk_size)):
+            logits = torch.matmul(h2[sl], w.t()).float()
+            m = parallel_state.all_reduce(logits.max(dim=1).values, group,
+                                          op="max")[:, None]
+            parts = [(logits - m).exp().sum(dim=1),
+                     torch.where(_vp_target(logits, lbl[sl], start), logits,
+                                 0.0).sum(dim=1)]
+            if smoothing > 0.0:
+                parts.append(logits.sum(dim=1))
+            sums = parallel_state.all_reduce(torch.stack(parts), group)
+            lse[sl] = m[:, 0] + sums[0].log()
+            losses[sl] = lse[sl] - (1.0 - smoothing) * sums[1]
+            if smoothing > 0.0:
+                losses[sl] -= (smoothing / vocab) * sums[2]
+        if padding_idx is not None:
+            losses = torch.where(lbl == padding_idx, 0.0, losses)
+        ctx.save_for_backward(hidden, weight, lbl, lse)
+        ctx.args = (group, smoothing, padding_idx, chunk_size, vocab, start)
+        return losses.reshape(labels.shape)
+
+    @staticmethod
+    def backward(ctx, dloss):
+        hidden, weight, lbl, lse = ctx.saved_tensors
+        group, smoothing, padding_idx, chunk_size, vocab, start = ctx.args
+        h2 = hidden.reshape(-1, hidden.shape[-1])
+        rows, hdim = h2.shape
+        cdt = h2.dtype
+        w = weight.to(cdt)
+        dl = dloss.reshape(-1).float()
+        if padding_idx is not None:
+            dl = torch.where(lbl == padding_idx, 0.0, dl)
+        dx = torch.empty_like(h2)
+        dw = torch.zeros((w.shape[0], hdim), dtype=torch.float32,
+                         device=h2.device)
+        for sl in _chunks(rows, _chunk_rows(rows, w.shape[0], chunk_size)):
+            x_c = h2[sl]
+            logits = torch.matmul(x_c, w.t()).float()
+            # the global softmax's local columns, from the saved lse
+            p = torch.exp(logits - lse[sl][:, None])
+            tgt = torch.where(_vp_target(logits, lbl[sl], start),
+                              1.0 - smoothing, 0.0) + smoothing / vocab
+            dlog = ((p - tgt) * dl[sl][:, None]).to(cdt)
+            dx[sl] = parallel_state.all_reduce(torch.matmul(dlog, w), group)
+            dw += _mm_f32(dlog.t(), x_c)
+        return (dx.reshape(hidden.shape), dw.to(weight.dtype), None, None,
+                None, None, None)
+
+
+def vocab_parallel_linear_cross_entropy(hidden, weight, labels, axis_name,
+                                        smoothing=0.0, padding_idx=None,
+                                        chunk_size=None):
+    """`linear_cross_entropy_loss` over a vocab-sharded head: ``hidden``
+    (..., hidden) the same on every rank of the group bound to
+    ``axis_name``, ``weight`` this rank's (vocab / tp, hidden) block,
+    ``labels`` global ids. Returns the per-row fp32 losses, the same on
+    every rank. The gradient of ``hidden`` is summed over the group
+    inside (do not also pass the input through
+    `copy_to_tensor_model_parallel_region`); the gradient of ``weight``
+    is this rank's block's."""
+    group = parallel_state.resolve_group(axis_name)
+    return _VocabParallelLinearCE.apply(hidden, weight, labels, group,
+                                        float(smoothing), padding_idx,
+                                        chunk_size)

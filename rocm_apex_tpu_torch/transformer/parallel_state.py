@@ -13,7 +13,7 @@ collectives over an axis look their group up here by name.
 `initialize_model_parallel(tp)` is the JAX function over the default
 process group: its world is ``tp`` ranks, all of them one tensor group.
 Pipeline and data parallelism (a world larger than the tensor group)
-are ROADMAP Queue 1 item 10 and raise. The tensor getters read the
+are ROADMAP Queue 1 item 10 (part 10d) and raise. The tensor getters read the
 group: its size, this process's rank in it, the axis name.
 
 Every exchange of the port's parallel modules (`tensor_parallel.
@@ -21,8 +21,9 @@ mappings`, `ops.collective_matmul`, `context_parallel`) goes through
 `exchange`. Over a gloo group with tensors on a card it copies them
 through host memory: gloo's all-gather, reduce-scatter, all-to-all and
 point-to-point take CPU tensors only, so every collective is staged the
-same way, its all-reduce too. `shift`, `all_reduce`, `all_gather` and
-`reduce_scatter` are the plain collectives the modules build on.
+same way, its all-reduce too. `shift`, `all_reduce`, `broadcast`,
+`all_gather` and `reduce_scatter` are the plain collectives the modules
+build on.
 """
 
 from typing import Callable, Dict, Optional, Union
@@ -49,6 +50,7 @@ __all__ = [
     "exchange",
     "shift",
     "all_reduce",
+    "broadcast",
     "all_gather",
     "reduce_scatter",
 ]
@@ -99,13 +101,14 @@ def axis_rank(group_or_axis: GroupOrAxis) -> int:
     return dist.get_rank(resolve_group(group_or_axis))
 
 
+
 def initialize_model_parallel(tensor_model_parallel_size_: int = 1,
                               pipeline_model_parallel_size_: int = 1) -> None:
     """Bind the ``TENSOR_AXIS`` to the default process group, which must
     hold ``tensor_model_parallel_size_`` ranks (JAX parallel_state.py:58-
     167 over a mesh; the reference's TP-fastest mapping is one group
     here). Pipeline parallelism, and the data parallelism of a larger
-    world, raise: ROADMAP Queue 1 item 10."""
+    world, raise: ROADMAP Queue 1 item 10, part 10d."""
     global _TENSOR_MODEL_PARALLEL_WORLD_SIZE
     if not dist.is_initialized():
         raise RuntimeError("torch.distributed is not initialized: call "
@@ -120,8 +123,8 @@ def initialize_model_parallel(tensor_model_parallel_size_: int = 1,
     if pp != 1 or world != tp:
         raise NotImplementedError(
             f"pipeline or data parallelism (world {world}, tp {tp}, pp "
-            f"{pp}) is not ported yet (ROADMAP Queue 1 item 10): the world "
-            f"must be one tensor group")
+            f"{pp}) is not ported yet (ROADMAP Queue 1 item 10, part 10d): "
+            f"the world must be one tensor group")
     set_axis_group(TENSOR_AXIS)
     _TENSOR_MODEL_PARALLEL_WORLD_SIZE = tp
 
@@ -200,16 +203,32 @@ def shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
     return exchange("shift", lambda s, g: _shift(s, g, step), x, group)
 
 
-def _all_reduce(send, group):
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def _all_reduce(send, group, op="sum"):
     out = send.clone()  # send may be the caller's own tensor
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op=_REDUCE_OPS[op], group=group)
     return out
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of x over the group (a new tensor; every rank the same
-    bits)."""
-    return exchange("all_reduce", _all_reduce, x, group)
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """The sum (``op="max"``: the elementwise max) of x over the group (a
+    new tensor; every rank the same bits)."""
+    return exchange("all_reduce", lambda s, g: _all_reduce(s, g, op), x,
+                    group)
+
+
+def _broadcast(send, group, src):
+    out = send.clone()
+    dist.broadcast(out, dist.get_global_rank(group, src), group=group)
+    return out
+
+
+def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """Group rank ``src``'s x on every rank (a new tensor)."""
+    return exchange("broadcast", lambda s, g: _broadcast(s, g, src), x,
+                    group)
 
 
 def _all_gather(send, group, dim):

@@ -26,9 +26,10 @@ column layer all-gathers its input into the matmul (``gather_output``
 must be False), the row layer reduce-scatters its output
 (``input_is_parallel`` must be True) and adds the whole bias to its
 block; ``collective_matmul`` makes both edges rings
-(``collective_matmul_chunk`` rows a piece). ``comm_dtype="int8"`` and
-the vocab-parallel fused head (`VocabParallelEmbedding.attend_loss` at
-world size > 1) are tp>1 training, ROADMAP Queue 1 item 10, and raise.
+(``collective_matmul_chunk`` rows a piece). Every edge is
+differentiable: the mappings' and the rings' backwards are JAX's
+``custom_vjp`` rules, so the layers train at world size > 1.
+``comm_dtype="int8"`` is ROADMAP Queue 1 item 10, part 10c, and raises.
 """
 
 from typing import Optional, Tuple, Union
@@ -44,6 +45,7 @@ from rocm_apex_tpu_torch.ops.collective_matmul import (
 from rocm_apex_tpu_torch.ops.linear_xentropy import (
     linear_cross_entropy_loss,
     linear_cross_entropy_mean,
+    vocab_parallel_linear_cross_entropy,
 )
 from rocm_apex_tpu_torch.transformer import parallel_state
 from rocm_apex_tpu_torch.transformer.tensor_parallel import mappings
@@ -232,7 +234,9 @@ class VocabParallelEmbedding(nn.Module):
     projects hidden states onto this rank's vocabulary rows with the
     tied table (``hidden @ weight.T`` in hidden's dtype: vocab-parallel
     logits); ``attend_loss`` fuses that projection with the
-    cross-entropy so the logits never exist whole (world size 1)."""
+    cross-entropy so the logits never exist whole (at world size > 1
+    over this rank's vocabulary block,
+    `vocab_parallel_linear_cross_entropy`)."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  dtype: torch.dtype = torch.float32,
@@ -276,15 +280,26 @@ class VocabParallelEmbedding(nn.Module):
         """`attend` fused with cross-entropy (ops/linear_xentropy.py).
         ``reduction=None`` returns per-row fp32 losses shaped like
         ``labels`` (the caller applies ``loss_mask``); ``"mean"`` returns
-        the masked-mean scalar, whose gradients finish in the forward."""
+        the masked-mean scalar, whose gradients finish in the forward at
+        world size 1. At world size > 1 the head is
+        `vocab_parallel_linear_cross_entropy` (the hidden gradient summed
+        over the group inside), and ``"mean"`` reduces its per-row
+        losses the `gpt_loss_fn` way, as JAX does: the forward-gradient
+        form needs a replicated weight."""
         if reduction not in (None, "mean"):
             raise ValueError(f"unknown reduction {reduction!r}")
-        if self.tp > 1:
-            raise NotImplementedError(
-                f"attend_loss at world_size={self.tp} (JAX's "
-                f"vocab_parallel_linear_cross_entropy, tp>1 training) is "
-                f"not ported yet (ROADMAP Queue 1 item 10)")
         w = self.weight.to(hidden.dtype)
+        if self.tp > 1:
+            _require_axis(self.axis_name, self.tp, "VocabParallelEmbedding")
+            losses = vocab_parallel_linear_cross_entropy(
+                hidden, w, labels, self.axis_name, smoothing, padding_idx,
+                chunk_size)
+            if reduction is None:
+                return losses
+            if loss_mask is not None:
+                m = loss_mask.detach().float()
+                return (losses * m).sum() / torch.clamp(m.sum(), min=1.0)
+            return losses.mean()
         if reduction == "mean":
             return linear_cross_entropy_mean(
                 hidden, w, labels, loss_mask, smoothing, padding_idx,

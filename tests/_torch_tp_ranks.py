@@ -1,6 +1,7 @@
-"""The ranks of tests/test_torch_tensor_parallel.py and
-tests/test_torch_serve_tp.py: one process each of a two-rank gloo group
-on the CPU, spawned once per test module.
+"""The ranks of the two-rank test modules (tests/test_torch_tensor_
+parallel.py, test_torch_serve_tp.py, test_torch_tp_train_ops.py,
+test_torch_train_tp.py, test_torch_router_tp.py): one process each of a
+two-rank gloo group on the CPU, spawned once per test module.
 
 This module imports torch and the port only: a spawned rank re-imports
 the module that defines its entry point, and the test modules import
@@ -15,6 +16,16 @@ three layers at world size 2, and one chunk and one decode apply of the
 tp=2 GPT on a contiguous cache. Suite ``"serve"``: the tp=2 engine
 (weights from `shard_tp1_params`) on float and int8 pages, greedy and
 sampled, with speculation, and a page-shipping migration.
+
+Suite ``"train_ops"``: the collective matmuls' backward at every chunk
+form, the two vocab-parallel cross-entropies forward and backward, a
+LayerNorm with ``grad_sync_axis``, `broadcast_data` and the seeds of
+`model_parallel_prng_keys`. Suite ``"train"``: the tp=2 GPT's loss and
+every gradient in each head, sequence-parallel and ring form, a 3-step
+`make_train_step` trajectory, and the dropout rules. Suite
+``"router"``: a `ReplicaRouter` over two tp=2 engines on float and
+int8 pages, a rolling drain that ships pages, injected replica faults,
+and the group clock.
 """
 
 import datetime
@@ -69,6 +80,40 @@ MAX_NEW = 8
 SPEC_K = 2
 SAMPLED = dict(temperature=0.9, top_k=12)
 SAMPLED_SEED = 42
+# the train suite: the forms of the tp=2 GPT step, each against JAX's
+TRAIN_BATCH, TRAIN_SEQ = 2, 16
+RING_CHUNK = 4  # rows a ring piece (a rank's 8 rows: two pieces)
+TRAIN_FORMS = {
+    "plain_fused": dict(),
+    "plain_materialized": dict(fused_lm_head=False),
+    "sp_fused": dict(sequence_parallel=True),
+    "sp_materialized": dict(sequence_parallel=True, fused_lm_head=False),
+    "ring_fused": dict(sequence_parallel=True, collective_matmul=True,
+                       collective_matmul_chunk=RING_CHUNK),
+    "ring_materialized": dict(sequence_parallel=True, collective_matmul=True,
+                              collective_matmul_chunk=RING_CHUNK,
+                              fused_lm_head=False),
+}
+TRAJECTORY_FORMS = ("plain_fused", "ring_fused")
+# Adam of the trajectory. eps 1e-4: the key projection's bias has a zero
+# gradient in exact arithmetic (the softmax is shift invariant), so its
+# fp32 gradient is summation noise (~1e-8 here), and Adam's normalized
+# step scales a difference in that noise by lr / eps; at eps 1e-4 two
+# summation orders stay within 1e-7 of each other after three steps
+LR, WD, EPS = 1e-3, 0.01, 1e-4
+TRAJECTORY_STEPS = 3
+# the sharded leaf whose gradient takes an inf on rank 0 only
+OVERFLOW_LEAF = "transformer.layer_0.mlp.dense_h_to_4h.kernel"
+DROPOUT_RATE = 0.2
+DROPOUT_SEED = 7
+# the fused heads' forms: (smoothing, padding_idx, chunk_size)
+HEAD_FORMS = {"plain": (0.0, None, None), "smooth_pad": (0.1, 3, None),
+              "chunked": (0.0, None, 8), "chunked_smooth_pad": (0.1, 3, 8)}
+# the router suite: a fleet of two tp=2 engines, a rolling drain after
+# DRAIN_TICK fleet ticks, a replica_kill of replica 0 at KILL_TICK and a
+# replica_stall at STALL_TICK
+DRAIN_TICK, KILL_TICK, STALL_TICK = 3, 2, 1
+CLOCK_TIMEOUT_S, CLOCK_SKEW_S = 0.5, 1.0
 
 
 def tree_of(inputs):
@@ -88,9 +133,10 @@ def tree_of(inputs):
 def gpt_config(tp, **kw):
     from rocm_apex_tpu_torch.models.gpt import GPTConfig
 
-    return GPTConfig(**GPT_SHAPE, tensor_parallel_size=tp, hidden_dropout=0.0,
-                     attention_dropout=0.0, params_dtype=torch.float32,
-                     dtype=torch.float32, **kw)
+    return GPTConfig(**{**GPT_SHAPE, "tensor_parallel_size": tp,
+                        "hidden_dropout": 0.0, "attention_dropout": 0.0,
+                        "params_dtype": torch.float32,
+                        "dtype": torch.float32, **kw})
 
 
 def tp2_model(inputs, rank):
@@ -127,10 +173,9 @@ def _rings(inputs, rank, out):
         w = torch.from_numpy(inputs[f"{name}_w"][rank])
         for chunk in RING_CHUNKS:
             out[f"{name}_{chunk}"] = fn(x, w, "tensor", chunk)
-        try:
-            fn(x.clone().requires_grad_(), w, "tensor").sum().backward()
-        except NotImplementedError as e:
-            out[f"{name}_backward"] = str(e)
+        xg = x.clone().requires_grad_()
+        fn(xg, w, "tensor").sum().backward()
+        out[f"{name}_backward"] = xg.grad
         try:
             fn(x, w, "tensor", comm_dtype="int8")
         except NotImplementedError as e:
@@ -164,13 +209,13 @@ def _layers(inputs, rank, out):
         out["vocab_lookup"] = emb(torch.from_numpy(inputs["vocab_ids"]))
         out["vocab_attend"] = emb.attend(
             torch.from_numpy(inputs["vocab_hidden"]))
-    try:
-        emb.attend_loss(torch.zeros(3, 8), torch.zeros(3).long())
-    except NotImplementedError as e:
-        out["vocab_attend_loss"] = str(e)
+        out["vocab_attend_loss"] = emb.attend_loss(
+            torch.from_numpy(inputs["vocab_hidden"]),
+            torch.from_numpy(inputs["vocab_ids"]))
 
 
 def _gpt(inputs, rank, out):
+    from rocm_apex_tpu_torch.convert import from_jax_params
     from rocm_apex_tpu_torch.inference import KVCache
 
     model = tp2_model(inputs, rank)
@@ -190,13 +235,18 @@ def _gpt(inputs, rank, out):
         logits, cache = model(torch.from_numpy(inputs["gpt_decode_tokens"]),
                               cache=cache)
         out["gpt_decode_logits"] = logits
-    # the refusals of the tp>1 model: training, and a cached decode
-    # under sequence parallelism
+    # the tp>1 model trains (tests/test_torch_train_tp.py holds it to
+    # JAX); it refuses a cached decode under sequence parallelism, and
+    # the materialized head's smoothing, as JAX's does
+    out["gpt_labels"] = model(torch.zeros((1, 4), dtype=torch.long),
+                              labels=torch.zeros((1, 4), dtype=torch.long))
     try:
-        model(torch.zeros((1, 4), dtype=torch.long),
-              labels=torch.zeros((1, 4), dtype=torch.long))
-    except NotImplementedError as e:
-        out["gpt_labels"] = str(e)
+        smooth = from_jax_params(tree_of(inputs), gpt_config(
+            2, fused_lm_head=False, label_smoothing=0.1), device="cpu")
+        smooth(torch.zeros((1, 4), dtype=torch.long),
+               labels=torch.zeros((1, 4), dtype=torch.long))
+    except ValueError as e:
+        out["gpt_smoothing"] = str(e)
     try:
         chunk_model(torch.zeros((2, 1), dtype=torch.long), cache=cache)
     except ValueError as e:
@@ -323,13 +373,302 @@ def _serve_suite(inputs, rank, out):
     _construction_errors(model, out.setdefault("errors", {}))
     from rocm_apex_tpu_torch.inference import ReplicaRouter
 
+    router = ReplicaRouter(engines=[_engine(model)])
+    out["router"] = router.tp
+    out["router_refusals"] = {}
+    for name, call in (
+            ("retrace_policy", lambda: ReplicaRouter(
+                engines=[_engine(model)], retrace_policy="warn")),
+            ("arm_retrace_sentinel", router.arm_retrace_sentinel)):
+        try:
+            call()
+        except NotImplementedError as e:
+            out["router_refusals"][name] = str(e)
+
+
+def _train_ops_suite(inputs, rank, out):
+    from rocm_apex_tpu_torch.normalization import MixedFusedLayerNorm
+    from rocm_apex_tpu_torch.ops.collective_matmul import (
+        all_gather_matmul,
+        matmul_reduce_scatter,
+    )
+    from rocm_apex_tpu_torch.ops.linear_xentropy import (
+        vocab_parallel_linear_cross_entropy,
+    )
+    from rocm_apex_tpu_torch.transformer.tensor_parallel import (
+        broadcast_data,
+        model_parallel_prng_keys,
+        vocab_parallel_cross_entropy,
+    )
+
+    def t(key):
+        return torch.from_numpy(inputs[key][rank])
+
+    for name, fn in (("ag", all_gather_matmul),
+                     ("rs", matmul_reduce_scatter)):
+        for chunk in RING_CHUNKS:
+            x = t(f"{name}_x").clone().requires_grad_()
+            w = t(f"{name}_w").clone().requires_grad_()
+            fn(x, w, "tensor", chunk).backward(t(f"{name}_c"))
+            out[f"{name}_bwd_{chunk}"] = (x.grad, w.grad)
+    logits = t("ce_logits").clone().requires_grad_()
+    loss = vocab_parallel_cross_entropy(logits,
+                                        torch.from_numpy(inputs["ce_target"]))
+    loss.backward(torch.from_numpy(inputs["ce_cot"]))
+    out["ce"] = (loss.detach(), logits.grad)
+    for form, (smoothing, pad, chunk) in HEAD_FORMS.items():
+        h = torch.from_numpy(inputs["lce_hidden"]).requires_grad_()
+        w = t("lce_weight").clone().requires_grad_()
+        loss = vocab_parallel_linear_cross_entropy(
+            h, w, torch.from_numpy(inputs["lce_labels"]), "tensor",
+            smoothing, pad, chunk)
+        loss.backward(torch.from_numpy(inputs["lce_cot"]))
+        out[f"lce_{form}"] = (loss.detach(), h.grad, w.grad)
+    ln = MixedFusedLayerNorm(inputs["ln_x"].shape[-1], device="cpu",
+                             grad_sync_axis="tensor")
+    with torch.no_grad():
+        ln.weight.copy_(torch.from_numpy(inputs["ln_w"]))
+        ln.bias.copy_(torch.from_numpy(inputs["ln_b"]))
+    x = t("ln_x").clone().requires_grad_()
+    ln(x).backward(t("ln_c"))
+    out["ln"] = (x.grad, ln.weight.grad, ln.bias.grad)
+    data = {k: t(f"bd_{k}") for k in ("tokens", "labels")}
+    out["broadcast"] = broadcast_data(["tokens", "labels"], data,
+                                      torch.int64)
     try:
-        ReplicaRouter(engines=[_engine(model)])
-    except NotImplementedError as e:
-        out["router"] = str(e)
+        broadcast_data(["tokens"], {"tokens": data["tokens"].int()},
+                       torch.int64)
+    except ValueError as e:
+        out["broadcast_dtype"] = str(e)
+    keys = model_parallel_prng_keys(123, rank)
+    out["prng"] = {k: int(torch.randint(0, 2**31 - 1, (4,), generator=g)
+                          .sum()) for k, g in keys.items()}
 
 
-SUITES = {"layers": _layers_suite, "serve": _serve_suite}
+def train_batch(inputs):
+    return tuple(torch.from_numpy(inputs[f"train_{k}"])
+                 for k in ("tokens", "labels", "mask"))
+
+
+def _train_suite(inputs, rank, out):
+    from rocm_apex_tpu_torch.amp import LossScaler
+    from rocm_apex_tpu_torch.convert import (
+        from_jax_params,
+        train_state_from_jax_params,
+    )
+    from rocm_apex_tpu_torch.models import gpt as tgpt
+    from rocm_apex_tpu_torch.ops import layer_norm as tln
+    from rocm_apex_tpu_torch.optimizers import MixedPrecisionAdam
+    from rocm_apex_tpu_torch.train import make_train_step
+
+    tree = tree_of(inputs)
+    tokens, labels, mask = train_batch(inputs)
+    for form, kw in TRAIN_FORMS.items():
+        model = from_jax_params(tree, gpt_config(2, **kw), device="cpu")
+        loss = model(tokens, labels=labels, loss_mask=mask,
+                     loss_reduction="mean")
+        loss.backward()
+        out[f"grads_{form}"] = (loss.detach(), {
+            k: p.grad for k, p in model.named_parameters()})
+    for form in TRAJECTORY_FORMS:
+        opt = MixedPrecisionAdam(LR, weight_decay=WD, eps=EPS,
+                                 compute_dtype=torch.float32)
+        model, state = train_state_from_jax_params(
+            tree, gpt_config(2, **TRAIN_FORMS[form]), opt, device="cpu")
+        scaler = LossScaler("dynamic")
+        sstate = scaler.init()
+        step = make_train_step(model, opt, scaler)
+        losses = []
+        for _ in range(TRAJECTORY_STEPS):
+            state, sstate, loss = step(state, sstate, tokens, labels, mask)
+            losses.append(float(loss))
+        out[f"trajectory_{form}"] = (losses, dict(state.master))
+    # one rank's overflow: an inf in rank 0's shard of a sharded leaf's
+    # gradient; each rank probes its own gradients, with no collective
+    opt = MixedPrecisionAdam(LR, weight_decay=WD, eps=EPS,
+                             compute_dtype=torch.float32)
+    model, state = train_state_from_jax_params(tree, gpt_config(2), opt,
+                                               device="cpu")
+    grads = {k: torch.full_like(v, 1e-3) for k, v in state.master.items()}
+    if rank == 0:
+        grads[OVERFLOW_LEAF][0, 0] = float("inf")
+    _, found_inf = opt.step_and_probe(state, grads)
+    out["overflow_found_inf"] = bool(found_inf)
+    # the dropout rules: the seeds a rank draws from one generator state
+    for sp in (False, True):
+        cfg = gpt_config(2, sequence_parallel=sp)
+        seeds = {}
+        for name, fn in (("hidden", tgpt.hidden_dropout_seed),
+                         ("attention", tgpt.attention_dropout_seed)):
+            seeds[name] = fn(torch.Generator().manual_seed(DROPOUT_SEED),
+                             cfg)
+        out[f"seeds_sp{int(sp)}"] = seeds
+    # hidden dropout without sequence parallelism: the replicated stream
+    # draws the tp=1 model's masks, forward and backward
+    kw = dict(hidden_dropout=DROPOUT_RATE)
+    model = from_jax_params(tree, gpt_config(2, **kw), device="cpu")
+    loss = model(tokens, labels=labels, loss_mask=mask, loss_reduction="mean",
+                 deterministic=False,
+                 dropout_generator=torch.Generator().manual_seed(
+                     DROPOUT_SEED))
+    loss.backward()
+    out["dropout_hidden"] = (loss.detach(), {
+        k: p.grad for k, p in model.named_parameters()})
+    # under sequence parallelism: the rank's LN dropout mask at its seed,
+    # three ways (keep fraction, kept values, the backward's mask)
+    seed = out["seeds_sp1"]["hidden"]
+    res = torch.from_numpy(inputs["drop_residual"])
+    delta = torch.from_numpy(inputs["drop_delta"]).requires_grad_()
+    h = res.shape[-1]
+    _, s = tln.layer_norm_residual_dropout_affine(
+        res, delta, torch.ones(h), torch.zeros(h), seed, DROPOUT_RATE, 1e-5,
+        torch.float32)
+    s.backward(torch.ones_like(s))
+    out["dropout_ln"] = (s.detach() - res, delta.grad)
+
+
+def _router_engines(model, n=2, **kw):
+    return [_engine(model, **kw) for _ in range(n)]
+
+
+def _fleet_tokens(router, prompts=PROMPTS):
+    return [(r.tokens, r.finish_reason)
+            for r in router.generate(prompts, max_new_tokens=MAX_NEW)]
+
+
+def _drain_run(model, rank, **kw):
+    """Replica 0 drains after DRAIN_TICK fleet ticks; its requests ship
+    their pages to replica 1. Returns the tokens, each payload, and
+    whether every payload's heads of this rank were its pool's blocks
+    (read before the evacuation released them)."""
+    from rocm_apex_tpu_torch.inference import ReplicaRouter
+
+    router = ReplicaRouter(engines=_router_engines(model, **kw))
+    for p in PROMPTS:
+        router.add_request(list(p), MAX_NEW)
+    done = {}
+    for _ in range(DRAIN_TICK):
+        for r in router.step():
+            done[r.request_id] = (r.tokens, r.finish_reason)
+    src = router.replica(0)
+    c, ps = src.cache, src.cache.page_size
+    own = {}
+    for slot, st in enumerate(src._slots):
+        if st is not None:
+            idx = torch.as_tensor(src._table[slot, :-(-st.pos // ps)],
+                                  dtype=torch.long)
+            own[st.req.request_id] = [b.index_select(0, idx) for b in (
+                *c.k, *c.v, *(c.k_scale or ()), *(c.v_scale or ()))]
+    heads = c.k[0].shape[1]
+    router.drain_replica(0)
+    payloads, equal = {}, True
+    for rec in router._pending:
+        pay = rec.get("pages")
+        if pay is None:
+            continue
+        payloads[rec["request_id"]] = pay
+        blocks = [*pay["k"], *pay["v"], *pay.get("k_scale", ()),
+                  *pay.get("v_scale", ())]
+        equal &= all(torch.equal(b.narrow(1, rank * heads, heads), o)
+                     for b, o in zip(blocks, own[rec["request_id"]]))
+    while router.has_work():
+        for r in router.step():
+            done[r.request_id] = (r.tokens, r.finish_reason)
+    return dict(tokens=[done[i] for i in sorted(done)], payloads=payloads,
+                own_blocks_equal=bool(equal),
+                page_migrations=router.stats()["page_migrations"],
+                pages_used=[router.replica(i).pages_used for i in (0, 1)])
+
+
+def _fault_run(model, faults):
+    """A fleet under ``faults``; each tick's replica states and the
+    fault log."""
+    from rocm_apex_tpu_torch.inference import ReplicaRouter
+
+    router = ReplicaRouter(engines=_router_engines(model), faults=faults,
+                           stall_grace=2)
+    for p in PROMPTS:
+        router.add_request(list(p), MAX_NEW)
+    done, states = {}, []
+    while router.has_work():
+        for r in router.step():
+            done[r.request_id] = (r.tokens, r.finish_reason)
+        states.append(tuple(router.replica_state(i) for i in (0, 1)))
+    s = router.stats()
+    return dict(tokens=[done[i] for i in sorted(done)], states=states,
+                fault_log=list(router.fault_log),
+                **{k: s[k] for k in ("replica_quarantines", "replica_kills",
+                                     "migrations")})
+
+
+def _clock_run(model, rank, router):
+    """A request with a deadline of CLOCK_TIMEOUT_S; rank 1 reaches the
+    step CLOCK_SKEW_S later than rank 0 (its clock, read there, is past
+    the deadline; rank 0's is not). Each rank's results, its tick count
+    and each tick's clock exchanges (`group_clock` calls, the engines'
+    and the router's)."""
+    import time
+
+    from rocm_apex_tpu_torch.inference import engine as engine_mod
+    from rocm_apex_tpu_torch.inference import router as router_mod
+
+    calls = [0]
+    real = engine_mod.group_clock
+
+    def counted(*a):
+        calls[0] += 1
+        return real(*a)
+
+    if router:
+        from rocm_apex_tpu_torch.inference import ReplicaRouter
+
+        target = ReplicaRouter(engines=_router_engines(model))
+    else:
+        target = _engine(model)
+    target.add_request(list(PROMPTS[0]), MAX_NEW, timeout=CLOCK_TIMEOUT_S)
+    target.add_request(list(PROMPTS[1]), MAX_NEW)
+    if rank == 1:
+        time.sleep(CLOCK_SKEW_S)
+    done, ticks, exchanges = {}, 0, []
+    engine_mod.group_clock = router_mod.group_clock = counted
+    try:
+        while target.has_work():
+            calls[0] = 0
+            for r in target.step():
+                done[r.request_id] = (r.tokens, r.finish_reason, ticks)
+            exchanges.append(calls[0])
+            ticks += 1
+    finally:
+        engine_mod.group_clock = router_mod.group_clock = real
+    return dict(results=[done[i][:2] for i in sorted(done)], ticks=ticks,
+                expired_at=done[0][2], clock_exchanges=exchanges)
+
+
+def _router_suite(inputs, rank, out):
+    from rocm_apex_tpu_torch.inference import Fault, FaultPlan, ReplicaRouter
+
+    model = tp2_model(inputs, rank)
+    for form, kw in (("float", {}), ("int8", dict(kv_dtype=torch.int8))):
+        router = ReplicaRouter(engines=_router_engines(model, **kw))
+        out[f"{form}_tokens"] = _fleet_tokens(router)
+        out[f"{form}_drain"] = _drain_run(model, rank, **kw)
+    out["kill"] = _fault_run(model, FaultPlan([Fault(
+        site="replica_kill", tick=KILL_TICK, payload={"replica": 0})],
+        seed=0))
+    out["stall"] = _fault_run(model, FaultPlan([Fault(
+        site="replica_stall", tick=STALL_TICK,
+        payload={"replica": 0, "ticks": 6})], seed=0))
+    out["clock_engine"] = _clock_run(model, rank, router=False)
+    out["clock_router"] = _clock_run(model, rank, router=True)
+    router = ReplicaRouter(engines=_router_engines(model))
+    ids = [router.add_request(list(p), MAX_NEW) for p in PROMPTS]
+    out["router_trace_ids"] = [rec["trace_id"] for rec in router._pending]
+    out["router_ids"] = ids
+
+
+SUITES = {"layers": _layers_suite, "serve": _serve_suite,
+          "train_ops": _train_ops_suite, "train": _train_suite,
+          "router": _router_suite}
 
 
 def run(rank, n, workdir, suite):

@@ -211,8 +211,9 @@ class TestEntryPoints:
     def test_unported_paths_raise(self, models):
         """The tp>1 training options and the GPT options the port cannot
         run yet raise, naming their ROADMAP item (BERT, a training path,
-        at tp > 1 or under sequence parallelism; the vocab-parallel
-        fused head); "jnp" attention and context
+        at tp > 1 or under sequence parallelism); the vocab-parallel
+        fused head at world size 2 asks for its process group; "jnp"
+        attention and context
         parallelism construct (tests/test_torch_gpt_jnp.py,
         tests/test_torch_context_parallel.py), an unknown impl and the
         sequence-parallel collision raise ValueError as in JAX;
@@ -238,7 +239,9 @@ class TestEntryPoints:
             model(torch.zeros((1, 4), dtype=torch.int64), cache=paged)
         with pytest.raises(NotImplementedError, match="tensor_parallel"):
             BertConfig(tensor_parallel_size=2)
-        with pytest.raises(NotImplementedError, match="world_size=2"):
+        # the vocab-parallel fused head runs at world size 2 (tests/
+        # test_torch_tp_train_ops.py); without a bound group it asks for one
+        with pytest.raises(ValueError, match="world_size=2 needs a process"):
             VocabParallelEmbedding(4, 4, world_size=2, device="cpu"
                                    ).attend_loss(torch.zeros(3, 4),
                                                  torch.zeros(3).long())
