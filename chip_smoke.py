@@ -280,7 +280,7 @@ JAX package) through these phases, in order; any failure exits non-zero:
              ranks of a gloo group on the one card (the exchanges staged
              through host memory), each with its shard of the serve model sliced
              from the serve's tp=1 checkpoint by `shard_tp1_params`: the
-             serve's 32 requests x 32 on bf16 and int8 pages of 16 beside
+             serve's 32 requests x 16 on bf16 and int8 pages of 16 beside
              the tp=1 paged serve in the same call (tok/s a figure; the
              tp=1 tokens counted): half the KV bytes a rank, rows 1, 3
              and 6 on their plans' routes at the rank's shapes, one fetch
@@ -301,12 +301,29 @@ JAX package) through these phases, in order; any failure exits non-zero:
              `--seq-parallel --collective-matmul` step): rows 1, 2, 8
              and 11 held to their plain versions at a rank's bf16
              shapes, then two spawned ranks run the train cell's bf16
-             step with sequence parallelism and the rings: losses
-             finite and bit-equal on both ranks, the kernels' calls a
-             step and routes, no sync but the exchanges a step the
-             layout implies; the fp32 twin's loss and every gradient
-             tp=2 card == tp=2 cpu == tp=1 card in four forms;
-34. report   a ``{"kernels": [...]}`` line, then the device line
+             step with sequence parallelism and the rings, with fp32
+             and then int8 ring payloads: losses finite and bit-equal on
+             both ranks, the kernels' calls a step and routes, no sync
+             but the exchanges a step the layout implies, their MiB as
+             derived for each comm dtype; the fp32 twin's loss and every
+             gradient tp=2 card == tp=2 cpu == tp=1 card in five forms
+             (the rings under activation checkpointing among them), and
+             with int8 rings tp=2 card == tp=2 cpu;
+34. bert_tp  BERT-Large at tp=2 (bench.py's BERT step): rows 1, 2, 7b,
+             8, 9b, 11 and 16 held to their plain versions at a rank's
+             bf16 shapes, then two spawned ranks run the step unmasked
+             and with the masked BERT's padding mask: losses finite and
+             bit-equal on both ranks, the kernels' calls a step, no sync
+             but the exchanges a step and MiB as derived; the fp32
+             twin's loss and every gradient tp=2 card == tp=2 cpu ==
+             tp=1 card, unmasked and masked;
+35. remat    activation checkpointing (bench.py's ``--remat``): the GPT
+             train cell and BERT-Large at B 16, each with and without
+             ``checkpoint_activations`` in one process: step ms, peak
+             memory (lower with it), the kernels' calls a step (each
+             layer's forward twice); the fp32 twins of checkpointing and
+             post-LN, GPT and BERT, card == cpu;
+36. report   a ``{"kernels": [...]}`` line, then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
@@ -489,7 +506,7 @@ PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "train_packed", "rn50_parity", "rn50_train", "rn50_train_fused",
           "mha", "context_parallel", "serve_jnp", "optim_amp", "head_dims",
           "fp16", "serve_spec", "serve_chaos", "serve_lora", "serve_router",
-          "serve_tp", "serve_monitor", "train_tp")
+          "serve_tp", "serve_monitor", "train_tp", "bert_tp", "remat")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_segments_serve",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -529,7 +546,8 @@ HD_TRAIN_STEPS = 3
 HD_DROPOUT = 0.1
 # the engine on the two wide models: 16 requests of 16 new tokens on 8
 # slots (prompts of 32 to 256 tokens), contiguous, then on pages of 16
-HD_SERVE = dict(requests=16, max_new=16, capacity=1024, budget=256)
+# (8 requests, down from 16, to keep the smoke inside its time limit)
+HD_SERVE = dict(requests=8, max_new=16, capacity=1024, budget=256)
 # each model's reduced-depth twin, fp32 with TF32 off, card against CPU:
 # one layer at the model's widths, B 1 x S 128, three Adam steps (LAMB for
 # the BERT) at lr 1e-5 (losses at PARITY_LOSS_RTOL), then greedy tokens of
@@ -4272,8 +4290,11 @@ ALL_GROUPS = {
         *(f(dev) for f in FP16_CASES.values()))}
 
 
-# timed calls of a kernel-phase case that is not its kernel's headline
-SIDE_CASE_ITERS = 10
+# timed calls of a kernel-phase case that is not its kernel's headline,
+# and of its plain version (both were 10, when the phase's side cases
+# spent ~57 of its 188 s on an H100 in their timings)
+SIDE_CASE_ITERS = 3
+SIDE_PLAIN_ITERS = 2
 
 
 def run_kernel_phase(dev, generators, profile=False):
@@ -4293,13 +4314,15 @@ def run_kernel_phase(dev, generators, profile=False):
               f"differs from its plain version by {cmp['ratio']:.3g}x its "
               f"tolerance (max abs error {cmp['err']:.3e})")
         iters = c.get("iters", 100)
+        plain_iters = c.get("plain_iters", 10)
         if not c["headline"]:
             # a case the kernels line does not report: fewer timed calls,
             # to keep the smoke inside its time limit
             iters = min(iters, SIDE_CASE_ITERS)
+            plain_iters = min(plain_iters, SIDE_PLAIN_ITERS)
         ms = device_ms(c["kern"], iters)
         call_ms = cuda_ms(c["kern"], iters)
-        plain_ms = device_ms(c["plain"], c.get("plain_iters", 10), warmup=1)
+        plain_ms = device_ms(c["plain"], plain_iters, warmup=1)
         lib_ms = (device_ms(c["lib"], iters) if c["lib"] is not None
                   else None)
         lib32_ms = (device_ms(c["lib32"], iters)
@@ -6854,9 +6877,9 @@ def run_context_parallel_phase(spec=None):
 
 # the "jnp" serve: the serve phases' engines under attention_impl="jnp"
 # (the one-pass reference attention in plain PyTorch; no attention kernel)
-# the "jnp" serves' new tokens a request (the serve's 64 cut to 32 to keep
-# the smoke inside its time limit)
-JNP_NEW = 32
+# the "jnp" serves' new tokens a request (the serve's 64 cut to 32, then
+# to 16, to keep the smoke inside its time limit)
+JNP_NEW = 16
 JNP_FORMS = (("contiguous", dict()),
              ("paged", dict(paged=True, page_size=PAGE_SIZE)),
              ("paged_int8", dict(paged=True, page_size=PAGE_SIZE,
@@ -8183,9 +8206,9 @@ def run_fp16_phase(profile):
 # periodic prompts (periods 3-6, 8 repeats), 128 new tokens, greedy; the
 # budget fits every slot's span, SLOTS * (max(k, 2) + 1) = 40 rows
 SPEC_K = 4
-# SPEC_NEW: bench.py's 128 new tokens cut to 64 to keep the smoke inside
-# its time limit
-SPEC_REQUESTS, SPEC_REPS, SPEC_NEW, SPEC_WARM_NEW = 16, 8, 64, 10
+# SPEC_NEW: bench.py's 128 new tokens cut to 64, then to 32, to keep the
+# smoke inside its time limit
+SPEC_REQUESTS, SPEC_REPS, SPEC_NEW, SPEC_WARM_NEW = 16, 8, 32, 10
 SPEC_BUDGET = SLOTS * (max(SPEC_K, 2) + 1)
 SPEC_LAYOUTS = (
     ("contiguous", {}, "flash_attention_decode"),
@@ -9173,13 +9196,15 @@ TP_LAYOUTS = (("pages", {}, "flash_attention_decode_paged"),
 # has generated `after` tokens, into a fresh engine
 TP_SHIP = dict(requests=4, after=4)
 TP_SPEC = dict(requests=8, max_new=32)  # periodic prompts, spec_k SPEC_K
-# the tp=2 serves' new tokens a request (the serve's 64 cut to 32, and
-# the fleet's to 16, to keep the smoke inside its time limit)
-TP_MAX_NEW, TP_FLEET_NEW = 32, 16
+# the tp=2 serves' new tokens a request (the serve's 64 cut to 32, and the
+# fleet's to 16, then both and the int8 serve's requests halved again,
+# to keep the smoke inside its time limit; the fleet's kill at tick 12
+# still lands in its prefill)
+TP_MAX_NEW, TP_FLEET_NEW = 16, 8
 # the serve_tp twin's requests and new tokens (the spec twin's 8 x 24 cut
 # to keep the smoke inside its time limit)
-TP_TWIN = dict(requests=4, max_new=16)
-TP_INT8_REQUESTS = 16
+TP_TWIN = dict(requests=4, max_new=8)
+TP_INT8_REQUESTS = 8
 TP_JOIN_S = 420
 TP_THREADS = 3  # CPU threads a rank (the twin's CPU engines)
 # a migrated payload against the tp=1 engine's for the same requests: the
@@ -9926,6 +9951,10 @@ MONITOR_SCRAPE_TICK = 2
 MONITOR_ORDER = ("bare", "default", "instrumented", "instrumented",
                  "default", "bare")
 MONITOR_ROUNDS = 1
+# the monitor's serves' new tokens a request: the serve's 64 cut to 32
+# to keep the smoke inside its time limit (the fault ticks and the
+# fleet's drain still land before the requests end)
+MONITOR_NEW = 32
 MONITOR_FAULT_TICKS = (4, 2)
 MONITOR_DRAIN_TICK = 12
 MONITOR_PATHS = ("/metrics", "/healthz", "/varz", "/timeseries")
@@ -10018,7 +10047,8 @@ def _monitor_abc(model, prompts, tmp):
                         for path in MONITOR_PATHS:
                             got[path] = _get(server.url + path)
 
-            res, tokens = timed_serve(eng, prompts, audit=True, on_tick=hook)
+            res, tokens = timed_serve(eng, prompts, MONITOR_NEW, audit=True,
+                                      on_tick=hook)
             runs.append((form, res, tokens))
             if form == "instrumented":
                 status, text = _get(server.url + "/metrics")
@@ -10200,7 +10230,7 @@ def _monitor_fleet(model, prompts):
         e.reset_stats()
     _zero_launches()
     with sync_audit(*engines) as syncs:
-        ids = [router.add_request(p, MAX_NEW) for p in prompts]
+        ids = [router.add_request(p, MONITOR_NEW) for p in prompts]
         done, ticks = {}, 0
         while router.has_work():
             if ticks == MONITOR_DRAIN_TICK:
@@ -10258,7 +10288,7 @@ def run_serve_monitor_phase():
         res["launches"] = res["abc"]["launches"]
         log("  -- int8 pages: the flight recorder and the Queue 3 repair")
         _zero_launches()
-        res["faults"] = _monitor_faults(model, prompts, MAX_NEW, tmp)
+        res["faults"] = _monitor_faults(model, prompts, MONITOR_NEW, tmp)
         res["faults"]["launches"] = _launches()
         check(res["faults"]["launches"].get(
             "flash_attention_decode_paged_int8", 0) > 0,
@@ -10297,21 +10327,38 @@ def run_serve_monitor_phase():
 # MixedPrecisionAdam(1e-4, wd 0.01) under a dynamic LossScaler; warm-up
 # and timed steps on two gloo ranks on the one card
 TP_TRAIN_WARMUP, TP_TRAIN_STEPS = 1, 2
-# the fp32 twin: 2 layers at the train widths, B 2 x S 256, dropout 0,
-# TF32 off; each form's loss and every gradient on the card at tp=2, on
-# the CPU at tp=2 and on the card at tp=1 (sliced for the rank)
-TP_TRAIN_TWIN = dict(num_layers=2, batch=2, seq=256)
+# the fp32 twin: 2 layers at the train widths, B 2 x S 128 (cut from S
+# 256 to make room for its remat and int8 forms), dropout 0, TF32 off;
+# each form's loss and every gradient on the card at tp=2, on the CPU
+# at tp=2 and on the card at tp=1 (sliced for the rank); the int8
+# rings' forms against the CPU only (tp=1 has no ring to quantize)
+TP_TRAIN_TWIN = dict(num_layers=2, batch=2, seq=128)
 TP_TRAIN_FORMS = {
     "plain_fused": dict(),
     "sp_materialized": dict(sequence_parallel=True, fused_lm_head=False),
     "ring_fused": dict(sequence_parallel=True, collective_matmul=True),
     "ring_materialized": dict(sequence_parallel=True, collective_matmul=True,
                               fused_lm_head=False),
+    "ring_remat": dict(sequence_parallel=True, collective_matmul=True,
+                       checkpoint_activations=True),
+    "ring_int8": dict(sequence_parallel=True, collective_matmul=True,
+                      comm_dtype="int8"),
 }
 # the twin's losses and gradients: fp32 on both sides, summation orders
 # apart (the card's kernels, the CPU's plain versions, tp=1's one partial
 # product where tp=2 adds two), relative to each tensor's largest entry
 TP_TRAIN_RTOL = 1e-4
+# int8 rings, card against CPU: a payload element whose fp32 value lies
+# within the two sides' rounding of a half step rounds to neighbouring
+# int8 values, one step (amax / 127 of its row) apart, and each such flip
+# moves the values downstream of it, so later hops flip more (on an
+# H100: 31% of the gradient elements past 1e-4 of their scale). The loss
+# stays within TP_TRAIN_RTOL; the gradients are held to the size of the
+# int8 wire's own effect on the same step, INT8_TWIN_FACTOR times the
+# CPU int8 step's distance from the CPU fp32 step
+INT8_TWIN_FACTOR = 4.0
+# the bf16 step's comm dtypes, one after the other on the same ranks
+TP_TRAIN_COMMS = ("fp32", "int8")
 
 
 def tp_train_exchanges(layers, head_chunks):
@@ -10323,43 +10370,49 @@ def tp_train_exchanges(layers, head_chunks):
     sums); backward, the head's dx all-reduce a chunk, the final LN's
     gradient sum, eight ring hops a layer (each ring's dx and dW hop),
     the two row-parallel biases' and the two LNs' gradient sums a layer,
-    and the embedding scatter's all-gather."""
+    and the embedding scatter's all-gather. An int8 hop is one exchange
+    too (its scales and body in one buffer)."""
     return (2 + 4 * layers + 2 * head_chunks) + (
         2 + 12 * layers + head_chunks)
 
 
-def _tp_train_steps(rank, dev, spec, out):
-    """The bf16 step on this rank: warm-up, then the timed steps under
-    `sync_audit` (no sync but the staged exchanges), launches set to 0
-    just before and read just after (wrapper counts and the launch
-    tables); the losses, the ms a step, the exchanges a step by kind."""
-    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+def tp_train_ring_mib(layers, batch, seq, hidden, comm_dtype):
+    """The ring hops' MiB a step at tp=2 (one piece a shard), derived:
+    each of a layer's 12 hops moves a (batch, seq / 2, hidden) payload.
+    fp32 comm: the forward's two gathers move bf16 rows and its two
+    reduce-scatters fp32 accumulators; backward, each gather ring's dx is
+    a reduce-scatter (fp32) and its dW hop rotates the bf16 rows, each
+    reduce-scatter ring's dx is a gather of the bf16 cotangent and its
+    dW hop rotates it too: 32 bytes an element a layer. int8: every hop
+    one int8 byte an element plus a 4-byte scale a row."""
+    rows = batch * seq // TP_RANKS
+    elems = rows * hidden
+    if comm_dtype == "int8":
+        per_layer = 12 * (elems + 4 * rows)
+    else:
+        per_layer = 32 * elems
+    return layers * per_layer / 2**20
+
+
+def _audited_steps(step, warmup, steps, dev):
+    """``step()`` (returning its loss, a device tensor) ``warmup`` times,
+    then ``steps`` times under `sync_audit` (no sync but the staged
+    exchanges), the launches set to 0 just before and read just after
+    (wrapper counts and the launch tables), each exchange's host time
+    (its first copy waits for the work queued before it) and payload
+    bytes by kind. The losses, the ms a step, the exchanges a step by
+    kind, their ms and MiB, the syncs, launches and peak memory."""
     from rocm_apex_tpu_torch.ops._build import (
         device_launches,
         reset_device_launches,
     )
     from rocm_apex_tpu_torch.transformer import parallel_state
 
-    cfg = GPTConfig(**{**spec["train"], "tensor_parallel_size": TP_RANKS,
-                       "sequence_parallel": True, "collective_matmul": True},
-                    params_dtype=torch.float32, dtype=torch.bfloat16)
-    t0 = time.perf_counter()
-    step, state, sstate = _trainer(cfg, dev, 1e-4)
-    setup_s = time.perf_counter() - t0
-    tokens, labels = _train_batch(cfg, spec["batch"], spec["seq"])
-    tokens, labels = tokens.to(dev), labels.to(dev)
-    gen = torch.Generator().manual_seed(0)  # CPU: the dropout seeds
-    losses = []
-    for _ in range(spec["warmup"]):
-        state, sstate, loss = step(state, sstate, tokens, labels,
-                                   dropout_generator=gen)
-        losses.append(loss)
+    losses = [step() for _ in range(warmup)]
     _zero_launches()
     reset_device_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    # each exchange's host time (its first copy waits for the work queued
-    # before it) and payload bytes, by kind
     ex_s, ex_bytes, inner = {}, {}, parallel_state.exchange
 
     def timed(kind, fn, t, group):
@@ -10375,30 +10428,73 @@ def _tp_train_steps(rank, dev, spec, out):
     t0 = time.perf_counter()
     try:
         with sync_audit() as syncs:
-            for _ in range(spec["steps"]):
-                state, sstate, loss = step(state, sstate, tokens, labels,
-                                           dropout_generator=gen)
-                losses.append(loss)
+            for _ in range(steps):
+                losses.append(step())
         _sync()
     finally:
         parallel_state.exchange = inner
     dt = time.perf_counter() - t0
-    out["train"] = dict(
-        losses=[float(x) for x in losses], step_ms=1e3 * dt / spec["steps"],
-        tokens_per_s=spec["batch"] * spec["seq"] * spec["steps"] / dt,
-        exchanges={k.split(":")[1]: n / spec["steps"]
+    return dict(
+        losses=[float(x) for x in losses], step_ms=1e3 * dt / steps,
+        seconds=dt,
+        exchanges={k.split(":")[1]: n / steps
                    for k, n in syncs.items() if k.startswith("exchange:")},
-        exchanges_per_step=exchange_count(syncs) / spec["steps"],
-        exchange_ms={k: 1e3 * v / spec["steps"] for k, v in ex_s.items()},
-        exchange_mib={k: v / 2**20 / spec["steps"]
-                      for k, v in ex_bytes.items()},
+        exchanges_per_step=exchange_count(syncs) / steps,
+        exchange_ms={k: 1e3 * v / steps for k, v in ex_s.items()},
+        exchange_mib={k: v / 2**20 / steps for k, v in ex_bytes.items()},
         syncs={k: n for k, n in syncs.items()
                if not k.startswith("exchange:") and n},
         launches=_launches(), device_kernels=sorted(device_launches()),
-        overflows=int(sstate.overflows), loss_scale=float(sstate.loss_scale),
-        setup_s=setup_s, peak_mem_gib=(torch.cuda.max_memory_allocated()
-                                       / 2**30 if dev.type == "cuda"
-                                       else None))
+        peak_mem_gib=(torch.cuda.max_memory_allocated() / 2**30
+                      if dev.type == "cuda" else None))
+
+
+def _free_card():
+    import gc
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _tp_train_steps(rank, dev, spec, out):
+    """The bf16 step on this rank at each comm dtype of
+    ``spec["comms"]`` (fp32, then int8 ring payloads), one model after
+    the other from one tree: warm-up, then the timed steps
+    (`_audited_steps`); the losses, the ms a step, the exchanges a step
+    by kind with their ms and MiB, the launches, the scaler's state."""
+    from rocm_apex_tpu_torch.convert import random_params
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+
+    tree = None
+    for comm in spec["comms"]:
+        cfg = GPTConfig(**{**spec["train"], "tensor_parallel_size": TP_RANKS,
+                           "sequence_parallel": True,
+                           "collective_matmul": True, "comm_dtype": comm},
+                        params_dtype=torch.float32, dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        tree = tree or random_params(cfg, seed=0)
+        step, state, sstate = _trainer(cfg, dev, 1e-4, tree=tree)
+        setup_s = time.perf_counter() - t0
+        tokens, labels = _train_batch(cfg, spec["batch"], spec["seq"])
+        tokens, labels = tokens.to(dev), labels.to(dev)
+        gen = torch.Generator().manual_seed(0)  # CPU: the dropout seeds
+        carry = [state, sstate]
+
+        def one():
+            carry[0], carry[1], loss = step(carry[0], carry[1], tokens,
+                                            labels, dropout_generator=gen)
+            return loss
+
+        res = _audited_steps(one, spec["warmup"], spec["steps"], dev)
+        res.update(
+            tokens_per_s=spec["batch"] * spec["seq"] * spec["steps"]
+            / res["seconds"], setup_s=setup_s,
+            overflows=int(carry[1].overflows),
+            loss_scale=float(carry[1].loss_scale))
+        out["train" if comm == "fp32" else f"train_{comm}"] = res
+        del step, state, sstate, carry, one
+        _free_card()
 
 
 def _grad_worst(got, want):
@@ -10410,11 +10506,24 @@ def _grad_worst(got, want):
         for k in want)
 
 
+def _grad_flip_share(got, want, rtol):
+    """The share of all gradient elements more than ``rtol`` of their
+    tensor's largest |want| entry apart."""
+    over = total = 0
+    for k in want:
+        w = torch.as_tensor(np.asarray(want[k])).float()
+        d = (got[k].float().cpu() - w).abs()
+        over += int((d > rtol * float(w.abs().max())).sum())
+        total += d.numel()
+    return over / total
+
+
 def _tp_train_twin(rank, dev, spec, out):
     """The fp32 twin on this rank, each form of `TP_TRAIN_FORMS`: the
     loss and every gradient shard on the card and on the CPU at tp=2,
     against the tp=1 card step's loss and gradients sliced for the rank
-    (`shard_tp1_params`: the gathered tp=2 gradients against tp=1's)."""
+    (`shard_tp1_params`: the gathered tp=2 gradients against tp=1's);
+    a form with int8 rings against the CPU only, with its flip share."""
     import dataclasses
 
     from rocm_apex_tpu_torch.convert import from_jax_params, random_params
@@ -10443,18 +10552,58 @@ def _tp_train_twin(rank, dev, spec, out):
         got = {where: loss_grads(from_jax_params(tree, cfg2, device=where),
                                  where) for where in (dev, "cpu")}
         (lc, gc), (lp, gp) = got[dev], got["cpu"]
+        gp_np = {k: v.numpy() for k, v in gp.items()}
+        if cfg2.comm_dtype == "int8":
+            _, gf = loss_grads(from_jax_params(tree, dataclasses.replace(
+                cfg2, comm_dtype="fp32"), device="cpu"), "cpu")
+            res[form] = dict(
+                loss_card=lc, loss_cpu=lp, loss_tp1=loss1,
+                loss_rel=abs(lc - lp) / abs(lp),
+                card_vs_cpu=_grad_worst(gc, gp_np),
+                flip_share=_grad_flip_share(gc, gp_np, TP_TRAIN_RTOL),
+                wire_effect=_grad_worst(gp, {k: v.numpy()
+                                             for k, v in gf.items()}),
+                int8_vs_tp1=_grad_worst(gc, want))
+            continue
         res[form] = dict(
             loss_card=lc, loss_cpu=lp, loss_tp1=loss1,
             loss_rel=max(abs(lc - lp), abs(lc - loss1)) / abs(loss1),
-            card_vs_cpu=_grad_worst(gc, {k: v.numpy()
-                                         for k, v in gp.items()}),
+            card_vs_cpu=_grad_worst(gc, gp_np),
             card_vs_tp1=_grad_worst(gc, want),
             cpu_vs_tp1=_grad_worst(gp, want))
     out["twin"] = res
 
 
-_TP_WORK = {"serve_tp": (_tp_serves, _tp_twin),
-            "train_tp": (_tp_train_steps, _tp_train_twin)}
+def _tp_twin_checks(phase, outs, forms, key="twin"):
+    """Each twin form's worst relative difference over both ranks within
+    `TP_TRAIN_RTOL` (an int8 form: the loss, and its gradients within
+    `INT8_TWIN_FACTOR` times the int8 wire's own effect), and the ranks'
+    card losses equal; a summary a form."""
+    twin = {}
+    for form in forms:
+        rows_ = [o[key][form] for o in outs]
+        if "wire_effect" in rows_[0]:
+            worst = max(x["card_vs_cpu"] for x in rows_)
+            wire = min(x["wire_effect"] for x in rows_)
+            loss_rel = max(x["loss_rel"] for x in rows_)
+            twin[form] = dict(rows_[0], worst=worst, worst_wire_effect=wire,
+                              worst_flip_share=max(x["flip_share"]
+                                                   for x in rows_))
+            check(loss_rel <= TP_TRAIN_RTOL
+                  and worst <= INT8_TWIN_FACTOR * wire,
+                  f"{phase} twin {form}: card against cpu with int8 rings, "
+                  f"loss {loss_rel:.3e}, gradients {worst:.3e} of their "
+                  f"scale against the wire's own {wire:.3e}")
+        else:
+            worst = max(max(v for k, v in x.items() if k in (
+                "card_vs_cpu", "card_vs_tp1", "cpu_vs_tp1", "loss_rel"))
+                for x in rows_)
+            twin[form] = dict(rows_[0], worst=worst)
+            check(worst <= TP_TRAIN_RTOL, f"{phase} twin {form}: the losses "
+                  f"or gradients differ by {worst:.3e} of their scale")
+        check(rows_[0]["loss_card"] == rows_[1]["loss_card"],
+              f"{phase} twin {form}: the ranks' card losses differ")
+    return twin
 
 
 def _tp_train_routes(cfg, spec):
@@ -10497,29 +10646,93 @@ def _tp_train_kernel_cases(dev):
             seed=252)])
 
 
+def int8_quantize_check(dev):
+    """The int8 wire's quantization on card tensors bit-equal to the CPU's
+    (the contract of `ops.quantized_collectives`: scale amax / 127 by
+    true division, round half to even, zero and non-finite rows at scale
+    1, inf saturating and nan to 0) at a ring hop's (B x S / tp, hidden)
+    payload with such rows planted, and its dequantized values."""
+    from rocm_apex_tpu_torch.ops.quantized_collectives import (
+        dequantize_int8,
+        quantize_int8,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    x = torch.randn(TRAIN_BATCH * TRAIN_SEQ // TP_RANKS,
+                    TRAIN["hidden_size"], device=dev, generator=gen) * 3
+    x[1] = 0.0
+    x[2, 5], x[3, 7], x[4] = float("inf"), float("-inf"), float("nan")
+    t0 = time.perf_counter()
+    q, s = quantize_int8(x)
+    d = dequantize_int8(q, s)
+    _sync()
+    ms = 1e3 * (time.perf_counter() - t0)
+    qc, sc = quantize_int8(x.cpu())
+    same = (torch.equal(q.cpu(), qc) and torch.equal(
+        s.cpu().view(torch.int32), sc.view(torch.int32))
+        and torch.equal(d.cpu(), dequantize_int8(qc, sc)))
+    log(f"  int8 quantize on the card, {tuple(x.shape)}: q, scale and "
+        f"dequantized values {'bit-equal to' if same else 'DIFFER from'} "
+        f"the CPU's (one call {ms:.3f} ms of host time)")
+    check(same, "int8 quantize: the card's bits differ from the CPU's")
+    return dict(shape=list(x.shape), bit_equal=same)
+
+
+def _case_summary(cases):
+    return [{k: c[k] for k in ("kernel", "case", "max_abs_err",
+                               "err_over_tol", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")} for c in cases]
+
+
+def _check_rank_steps(what, t, want_ex, calls, steps, cuda, want_mib=None):
+    """One rank's timed steps: finite losses, the exchanges a step as
+    derived (and their MiB by kind, where given), no other sync, and on
+    the card each kernel's wrapper calls ``calls`` a step."""
+    check(all(math.isfinite(x) for x in t["losses"]),
+          f"{what}: a nonfinite loss {t['losses']}")
+    check(t["exchanges_per_step"] == want_ex,
+          f"{what}: {t['exchanges_per_step']} exchanges a step "
+          f"({t['exchanges']}), the layout implies {want_ex}")
+    for kind, mib in (want_mib or {}).items():
+        got = t["exchange_mib"].get(kind, 0.0)
+        check(abs(got - mib) <= 1e-6 * mib,
+              f"{what}: {got} MiB a step of {kind}, derived {mib}")
+    check(not t["syncs"], f"{what}: syncs outside the exchanges "
+          f"{t['syncs']}")
+    if cuda:
+        for name, n in calls.items():
+            check(t["launches"].get(name, 0) == n * steps,
+                  f"{what}: {name} launched {t['launches'].get(name)} "
+                  f"times in {steps} steps, {n} a step wanted")
+
+
 def run_train_tp_phase(spec=None, tp1_losses=None):
     """Tensor-parallel GPT training at tp=2 (bench.py's
     `--seq-parallel --collective-matmul` step, two gloo ranks on the one
-    card): rows 1, 2, 8 and 11 at a rank's bf16 shapes against their
-    plain versions (`_tp_train_kernel_cases`); then on each rank the
-    bf16 step's warm-up and timed steps. Checked: the losses finite and
-    bit-equal on both ranks; rows 1, 2, 8 and 11 launched at the calls a
-    step the layout implies (`TRAIN_CALLS_PER_STEP`: each rank runs every
-    layer on its shard) on their plans' routes (the launch tables); no
-    sync in the timed steps but the staged exchanges (`sync_audit`), as
-    many a step as the layout implies (`tp_train_exchanges`). Reported:
-    the ms a step, the exchanges by kind, the losses beside the tp=1
-    train cell's (``tp1_losses``; the attention masks differ: counted,
-    not asserted). The fp32 twin: each form's loss and every gradient,
-    tp=2 card against tp=2 CPU against the tp=1 card step, within
-    `TP_TRAIN_RTOL`."""
+    card; then the same step with `--comm-dtype=int8`): rows 1, 2, 8
+    and 11 at a rank's bf16 shapes against their plain versions
+    (`_tp_train_kernel_cases`); then on each rank the bf16 step's
+    warm-up and timed steps at each comm dtype. Checked: the losses
+    finite and bit-equal on both ranks; rows 1, 2, 8 and 11 launched at
+    the calls a step the layout implies (`TRAIN_CALLS_PER_STEP`: each
+    rank runs every layer on its shard) on their plans' routes (the
+    launch tables); no sync in the timed steps but the staged exchanges
+    (`sync_audit`), as many a step as the layout implies
+    (`tp_train_exchanges`, the same at both comm dtypes), the ring hops'
+    MiB as derived (`tp_train_ring_mib`), the other kinds' the same at
+    both. Reported: the ms a step, the exchanges by kind, the losses
+    beside the tp=1 train cell's (``tp1_losses``; the attention masks
+    differ: counted, not asserted). The fp32 twin: each form's loss and
+    every gradient, tp=2 card against tp=2 CPU against the tp=1 card
+    step, within `TP_TRAIN_RTOL`; the int8 form card against CPU."""
     from rocm_apex_tpu_torch.models.gpt import GPTConfig
     from rocm_apex_tpu_torch.ops.linear_xentropy import _chunk_rows
 
     spec = spec or dict(
         phase="train_tp", device=CARD, train=TRAIN, batch=TRAIN_BATCH,
         seq=TRAIN_SEQ, warmup=TP_TRAIN_WARMUP, steps=TP_TRAIN_STEPS,
-        twin=TP_TRAIN_TWIN, twin_forms=TP_TRAIN_FORMS, threads=TP_THREADS)
+        comms=TP_TRAIN_COMMS, twin=TP_TRAIN_TWIN, twin_forms=TP_TRAIN_FORMS,
+        threads=TP_THREADS)
     dev = torch.device(CARD, 0) if CARD == "cuda" else torch.device(CARD)
     cfg = GPTConfig(**spec["train"], params_dtype=torch.float32,
                     dtype=torch.bfloat16)
@@ -10527,88 +10740,556 @@ def run_train_tp_phase(spec=None, tp1_losses=None):
     v_local = cfg.vocab_size // TP_RANKS
     chunks = -(-rows // _chunk_rows(rows, v_local, None))
     want_ex = tp_train_exchanges(L, chunks)
-    res = dict(ranks=TP_RANKS, exchanges_want=want_ex, head_chunks=chunks)
-    if dev.type == "cuda":
+    res = dict(ranks=TP_RANKS, exchanges_want=want_ex, head_chunks=chunks,
+               ring_mib_want={c: tp_train_ring_mib(
+                   L, spec["batch"], spec["seq"], cfg.hidden_size, c)
+                   for c in spec["comms"]})
+    cuda = dev.type == "cuda"
+    if cuda:
         res["card"] = smi_line()
         log(f"  card: {res['card']}")
         log(f"  -- rows 1, 2, 8 and 11 at a rank's shapes (tp={TP_RANKS}, "
             f"bf16) against their plain versions")
-        res["kernel_cases"] = [
-            {k: c[k] for k in ("kernel", "case", "max_abs_err",
-                               "err_over_tol", "ms", "plain_ms",
-                               "bound_ms", "bound_by", "library_ms")}
-            for c in _tp_train_kernel_cases(dev)]
+        res["kernel_cases"] = _case_summary(_tp_train_kernel_cases(dev))
+        res["int8_quantize"] = int8_quantize_check(dev)
         torch.cuda.empty_cache()
     log(f"  -- {TP_RANKS} ranks")
     outs, res["ranks_s"] = _tp_spawn(spec)
-    tr = [o["train"] for o in outs]
-    for r, t in enumerate(tr):
-        what = f"train_tp rank {r}"
-        check(all(math.isfinite(x) for x in t["losses"]),
-              f"{what}: a nonfinite loss {t['losses']}")
-        check(t["exchanges_per_step"] == want_ex,
-              f"{what}: {t['exchanges_per_step']} exchanges a step "
-              f"({t['exchanges']}), the layout implies {want_ex}")
-        check(not t["syncs"], f"{what}: syncs outside the exchanges "
-              f"{t['syncs']}")
-        if dev.type == "cuda":
-            for name, n in TRAIN_CALLS_PER_STEP.items():
-                check(t["launches"].get(name, 0) == n * spec["steps"],
-                      f"{what}: {name} launched {t['launches'].get(name)} "
-                      f"times in {spec['steps']} steps, {n} a step wanted")
-    check(tr[0]["losses"] == tr[1]["losses"],
-          f"train_tp: the ranks' losses differ: {tr[0]['losses']} against "
-          f"{tr[1]['losses']}")
-    if dev.type == "cuda":
+    if cuda:
         routes, need, banned = _tp_train_routes(cfg, spec)
         res["routes"] = routes
+    for comm in spec["comms"]:
+        key = "train" if comm == "fp32" else f"train_{comm}"
+        tr = [o[key] for o in outs]
         for r, t in enumerate(tr):
-            names = t["device_kernels"]
-            check(all(any(k in x for x in names) for k in need)
-                  and not any(k in x for x in names for k in banned),
-                  f"train_tp rank {r}: launched {names}; the plans {routes} "
-                  f"need {sorted(need)} and none of {sorted(banned)}")
-    t = tr[0]
-    res.update(
-        step_ms=[x["step_ms"] for x in tr], tokens_per_s=[
-            x["tokens_per_s"] for x in tr], losses=t["losses"],
-        exchanges=t["exchanges"], exchanges_per_step=t["exchanges_per_step"],
-        exchange_ms=[x["exchange_ms"] for x in tr],
-        exchange_mib=t["exchange_mib"],
-        launches=t["launches"], loss_scale=t["loss_scale"],
-        overflows=t["overflows"], setup_s=[x["setup_s"] for x in tr],
-        peak_mem_gib=[x["peak_mem_gib"] for x in tr],
-        tp1_losses=None if tp1_losses is None else tp1_losses[:len(
-            t["losses"])])
-    log(f"  {spec['steps']} timed steps of B {spec['batch']} x S "
-        f"{spec['seq']} a rank: {[round(x, 1) for x in res['step_ms']]} "
-        f"ms/step; losses {t['losses']} (tp=1's train cell "
-        f"{res['tp1_losses']}, other attention masks: not compared); "
-        f"{t['exchanges_per_step']} exchanges a step (derived {want_ex}: "
-        f"{t['exchanges']}), host ms a step in them by kind "
-        f"{res['exchange_ms']}, MiB a step {t['exchange_mib']}; loss scale "
-        f"{t['loss_scale']:g}, "
-        f"{t['overflows']} overflows; launches {t['launches']}")
+            want_mib = {"shift": res["ring_mib_want"][comm]}
+            if comm != "fp32":
+                # the other kinds move what the fp32 run moved
+                want_mib.update({k: v for k, v in outs[r]["train"][
+                    "exchange_mib"].items() if k != "shift"})
+            _check_rank_steps(f"train_tp {comm} rank {r}", t, want_ex,
+                              TRAIN_CALLS_PER_STEP, spec["steps"], cuda,
+                              want_mib)
+            if cuda:
+                names = t["device_kernels"]
+                check(all(any(k in x for x in names) for k in need)
+                      and not any(k in x for x in names for k in banned),
+                      f"train_tp {comm} rank {r}: launched {names}; the "
+                      f"plans {routes} need {sorted(need)} and none of "
+                      f"{sorted(banned)}")
+        check(tr[0]["losses"] == tr[1]["losses"],
+              f"train_tp {comm}: the ranks' losses differ: "
+              f"{tr[0]['losses']} against {tr[1]['losses']}")
+        t = tr[0]
+        res[key] = dict(
+            step_ms=[x["step_ms"] for x in tr], tokens_per_s=[
+                x["tokens_per_s"] for x in tr], losses=t["losses"],
+            exchanges=t["exchanges"],
+            exchanges_per_step=t["exchanges_per_step"],
+            exchange_ms=[x["exchange_ms"] for x in tr],
+            exchange_mib=t["exchange_mib"],
+            launches=t["launches"], loss_scale=t["loss_scale"],
+            overflows=t["overflows"], setup_s=[x["setup_s"] for x in tr],
+            peak_mem_gib=[x["peak_mem_gib"] for x in tr])
+        log(f"  {comm} rings: {spec['steps']} timed steps of B "
+            f"{spec['batch']} x S {spec['seq']} a rank: "
+            f"{[round(x, 1) for x in res[key]['step_ms']]} ms/step; losses "
+            f"{t['losses']}; {t['exchanges_per_step']} exchanges a step "
+            f"(derived {want_ex}: {t['exchanges']}), host ms a step in them "
+            f"by kind {res[key]['exchange_ms']}, MiB a step "
+            f"{t['exchange_mib']} (ring hops derived "
+            f"{res['ring_mib_want'][comm]}); loss scale "
+            f"{t['loss_scale']:g}, {t['overflows']} overflows; launches "
+            f"{t['launches']}")
+    res.update({k: res["train"][k] for k in (
+        "step_ms", "tokens_per_s", "losses", "exchanges",
+        "exchanges_per_step", "exchange_ms", "exchange_mib", "launches",
+        "loss_scale", "overflows", "setup_s", "peak_mem_gib")})
+    res["tp1_losses"] = None if tp1_losses is None else tp1_losses[:len(
+        res["losses"])]
+    log(f"  tp=1's train cell losses {res['tp1_losses']} (other attention "
+        f"masks: not compared)")
     log("  -- the fp32 twin: tp=2 card vs tp=2 cpu vs tp=1 card")
-    twin = {}
-    for form in spec["twin_forms"]:
-        rows_ = [o["twin"][form] for o in outs]
-        worst = max(max(x["card_vs_cpu"], x["card_vs_tp1"], x["cpu_vs_tp1"],
-                        x["loss_rel"]) for x in rows_)
-        twin[form] = dict(rows_[0], worst=worst,
-                          worst_rank1=max(rows_[1][k] for k in (
-                              "card_vs_cpu", "card_vs_tp1", "cpu_vs_tp1")))
-        check(worst <= TP_TRAIN_RTOL, f"train_tp twin {form}: the losses or "
-              f"gradients differ by {worst:.3e} of their scale")
-        check(rows_[0]["loss_card"] == rows_[1]["loss_card"],
-              f"train_tp twin {form}: the ranks' card losses differ")
-    res["twin"] = twin
-    log(f"  fp32 twin ({spec['twin']}): {twin}")
+    res["twin"] = _tp_twin_checks("train_tp", outs, spec["twin_forms"])
+    log(f"  fp32 twin ({spec['twin']}): {res['twin']}")
     res["rank_s"] = [o["rank_s"] for o in outs]
     log(f"  ranks' wall time {res['ranks_s']:.1f} s (spawn included), "
         f"{[round(x, 1) for x in res['rank_s']]} s of work a rank")
     return res
 
+
+# ---------------------------------------------------------------------------
+# phase 34: BERT-Large at tp=2
+# ---------------------------------------------------------------------------
+
+# bench.py's BERT step (bench.py:216-296) at tp=2, two gloo ranks on the
+# one card: BERT-Large, B 8 x S 512, bf16 compute, fp32 masters,
+# MixedPrecisionLamb with bf16 moments on each rank's shards; unmasked
+# (dropout 0, as bench.py), then with the masked BERT's padding mask and
+# dropout 0.1 (`bert_lengths`, BERT_MASKED_DROPOUT)
+BERT_TP_WARMUP, BERT_TP_STEPS = 1, 2
+BERT_TP_FORMS = ("unmasked", "masked")
+# the fp32 twin: 2 layers at the BERT widths, B 2 x S 128, dropout 0, the
+# masked parity lengths for the masked form, token types, the loss the
+# mean LM loss plus the binary logits against fixed weights (so the
+# pooler and the binary head have gradients)
+BERT_TP_TWIN = dict(num_layers=2, batch=2, seq=128,
+                    lengths=BERT_MASKED_PARITY_LENGTHS)
+
+
+def bert_tp_exchanges(layers):
+    """The staged exchanges of a BERT step at tp=2 without sequence
+    parallelism, derived: forward, the vocab-parallel embedding's
+    all-reduce, the two row-parallel outputs' all-reduces a layer, the
+    vocab-parallel cross-entropy's two (the max, then the target logit
+    and the sum of exponentials); backward, the two column-parallel
+    inputs' gradient all-reduces a layer and the tied head's. The mask,
+    the dropout seeds and LAMB (each rank's shards, as JAX's) exchange
+    nothing."""
+    return (1 + 2 * layers + 2) + (2 * layers + 1)
+
+
+def bert_tp_exchange_mib(layers, batch, seq, hidden):
+    """Their MiB a step: 4 * layers + 2 all-reduces of the (batch, seq,
+    hidden) bf16 stream, the cross-entropy's fp32 row max and its two
+    fp32 row sums."""
+    rows = batch * seq
+    return ((4 * layers + 2) * rows * hidden * 2 + 3 * rows * 4) / 2**20
+
+
+def bert_tp_calls(layers, masked):
+    """Wrapper calls a rank's step: the tp=1 step's (`bert_calls`, or
+    `bert_masked_calls` with the padding mask and dropout) but the
+    cross-entropy, which is plain code at tp>1 (vocab-parallel, as in
+    JAX)."""
+    calls = (bert_masked_calls(layers, 1) if masked
+             else bert_calls(layers, 1, 1, 0))
+    calls.update(xent_fwd_dg=0, xent_fwd=0)
+    return calls
+
+
+def bert_kernel_leaves_tp(tp):
+    """A tensor-parallel rank's LAMB kernel leaves of the bench BERT, in
+    parameter order: the vocab rows, the QKV and fc1 columns, the dense
+    and fc2 rows its shards; the position embeddings, the LM head's
+    dense and the pooler whole."""
+    h, f = BERT["hidden_size"], BERT["ffn_hidden_size"]
+    shapes = [(BERT["vocab_size"] // tp, h),
+              (BERT["max_position_embeddings"], h)]
+    for _ in range(BERT["num_layers"]):
+        shapes += [(h, 3 * h // tp), (h // tp, h), (h, f // tp), (f // tp, h)]
+    return shapes + [(h, h), (h, h)]
+
+
+def _bert_tp_kernel_cases(dev):
+    """Rows 1, 2, 7b, 8, 9b, 11 and 16 at a rank's shapes in the tp=2
+    bf16 BERT step, each against its plain version on the same card
+    inputs by the kernel phase's own case generators, checks, routes and
+    tolerances: the LN forward plain and residual and the residual
+    forward with dropout and its backward on the rank's whole (B x S,
+    hidden) rows (no sequence parallelism), the packed attention over
+    the rank's heads (B, S, heads / tp, 3 hd) with the bias, the unpacked
+    attention over them with the padding bias and dropout 0.1, and the
+    LAMB pair over the rank's kernel leaves."""
+    bf = torch.bfloat16
+    heads = BERT["num_attention_heads"] // TP_RANKS
+    hd = BERT["hidden_size"] // BERT["num_attention_heads"]
+    rows, h = BERT_BATCH * BERT_SEQ, BERT["hidden_size"]
+    return run_kernel_phase(dev, [
+        lambda dev: ln_cases(dev, [(rows, h, residual, bf)
+                                   for residual in (False, True)]),
+        lambda dev: train_ln_cases(dev, (bf,), tail=False, rows=rows),
+        lambda dev: flash_cases(dev, heads, hd, shapes=[
+            (BERT_BATCH, BERT_SEQ, bf, True, 0.0, False)], seed=253),
+        lambda dev: unpacked_cases(dev, [
+            (f"masked BERT, a tp={TP_RANKS} rank's heads, dropout "
+             f"{BERT_MASKED_DROPOUT}", (BERT_BATCH, heads, BERT_SEQ, BERT_SEQ,
+                                        hd), bf, "bert", False, None,
+             BERT_MASKED_DROPOUT, False, False, True, False)], seed=254),
+        lambda dev: lamb_cases(dev, [
+            (f"a tp={TP_RANKS} rank's BERT leaves",
+             bert_kernel_leaves_tp(TP_RANKS), bf, bf, 0.01, True, False)])])
+
+
+def _bert_tp_steps(rank, dev, spec, out):
+    """The bf16 BERT step on this rank, unmasked and masked, one model
+    after the other from one tree: warm-up, then the timed steps
+    (`_audited_steps`)."""
+    from rocm_apex_tpu_torch.convert import random_params
+    from rocm_apex_tpu_torch.models.bert import BertConfig
+
+    tree = None
+    for form in spec["forms"]:
+        masked = form == "masked"
+        rate = spec["dropout"] if masked else 0.0
+        cfg = BertConfig(**{**spec["bert"], "tensor_parallel_size": TP_RANKS,
+                            "hidden_dropout": rate,
+                            "attention_dropout": rate},
+                         params_dtype=torch.float32, dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        tree = tree or random_params(cfg, seed=0)
+        step, state, _, _ = _bert_trainer(cfg, dev, torch.bfloat16,
+                                          tree=tree)
+        setup_s = time.perf_counter() - t0
+        tokens, labels = _bert_batch(cfg, spec["batch"], spec["seq"])
+        tokens, labels = tokens.to(dev), labels.to(dev)
+        mask = (padding_mask(spec["lengths"], spec["seq"]).to(dev)
+                if masked else None)
+        gen = torch.Generator().manual_seed(0) if rate else None
+        carry = [state]
+
+        def one():
+            carry[0], loss, _ = step(carry[0], tokens, labels,
+                                     dropout_generator=gen,
+                                     attention_mask=mask)
+            return loss
+
+        res = _audited_steps(one, spec["warmup"], spec["steps"], dev)
+        res.update(setup_s=setup_s, tokens_per_s=spec["batch"] * spec["seq"]
+                   * spec["steps"] / res["seconds"])
+        out[f"bert_{form}"] = res
+        del step, state, carry, one
+        _free_card()
+
+
+def _bert_tp_twin(rank, dev, spec, out):
+    """The fp32 twin on this rank, unmasked and masked: the per-token
+    losses and every gradient shard of mean(losses) + sum(binary * W) on
+    the card and on the CPU at tp=2, against the tp=1 card model's
+    sliced for the rank."""
+    import dataclasses
+
+    from rocm_apex_tpu_torch.convert import from_jax_params, random_params
+    from rocm_apex_tpu_torch.inference import shard_tp1_params
+    from rocm_apex_tpu_torch.models.bert import BertConfig, BertModel
+
+    tw = spec["twin"]
+    cfg1 = BertConfig(**{**spec["bert"], "num_layers": tw["num_layers"],
+                         "max_position_embeddings": tw["seq"]},
+                      params_dtype=torch.float32, dtype=torch.float32)
+    tree = random_params(cfg1, seed=0)
+    tokens, labels = _bert_batch(cfg1, tw["batch"], tw["seq"])
+    rng = np.random.default_rng(1)
+    types = torch.from_numpy(rng.integers(0, 2, tokens.shape))
+    w = torch.from_numpy(rng.standard_normal((tw["batch"], 2)).astype(
+        np.float32))
+    res = {}
+    for form in spec["forms"]:
+        mask = (padding_mask(tw["lengths"], tw["seq"])
+                if form == "masked" else None)
+
+        def loss_grads(model, where, mask=mask):
+            losses, b = model(tokens.to(where), attention_mask=(
+                None if mask is None else mask.to(where)),
+                tokentype_ids=types.to(where), lm_labels=labels.to(where))
+            (losses.mean() + (b * w.to(where)).sum()).backward()
+            return float(losses.mean().detach()), {
+                k: p.grad.cpu() for k, p in model.named_parameters()}
+
+        loss1, g1 = loss_grads(from_jax_params(tree, cfg1, device=dev), dev)
+        cfg2 = dataclasses.replace(cfg1, tensor_parallel_size=TP_RANKS)
+        want = shard_tp1_params(BertModel(cfg2, device="meta"), g1, rank)
+        (lc, gc), (lp, gp) = (loss_grads(from_jax_params(
+            tree, cfg2, device=where), where) for where in (dev, "cpu"))
+        res[form] = dict(
+            loss_card=lc, loss_cpu=lp, loss_tp1=loss1,
+            loss_rel=max(abs(lc - lp), abs(lc - loss1)) / abs(loss1),
+            card_vs_cpu=_grad_worst(gc, {k: v.numpy()
+                                         for k, v in gp.items()}),
+            card_vs_tp1=_grad_worst(gc, want),
+            cpu_vs_tp1=_grad_worst(gp, want))
+    out["twin"] = res
+
+
+def run_bert_tp_phase(spec=None):
+    """BERT-Large at tp=2 (bench.py's BERT step, two gloo ranks on the
+    one card): rows 1, 2, 7b, 8, 9b, 11 and 16 at a rank's bf16 shapes
+    against their plain versions (`_bert_tp_kernel_cases`); then on each
+    rank the step unmasked and masked, warm-up and timed steps. Checked:
+    the losses finite and bit-equal on both ranks; each kernel's wrapper
+    calls a step as the layout implies (`bert_tp_calls`); no sync in the
+    timed steps but the staged exchanges, as many a step as derived
+    (`bert_tp_exchanges`) and their MiB (`bert_tp_exchange_mib`).
+    Reported: the ms a step, the exchanges' host ms and MiB by kind,
+    peak memory. The fp32 twin: each form's losses and every gradient,
+    tp=2 card against tp=2 CPU against the tp=1 card model, within
+    `TP_TRAIN_RTOL`."""
+    spec = spec or dict(
+        phase="bert_tp", device=CARD, bert=BERT, batch=BERT_BATCH,
+        seq=BERT_SEQ, warmup=BERT_TP_WARMUP, steps=BERT_TP_STEPS,
+        forms=BERT_TP_FORMS, lengths=[int(x) for x in bert_lengths(
+            BERT_BATCH)], dropout=BERT_MASKED_DROPOUT, twin=BERT_TP_TWIN,
+        threads=TP_THREADS)
+    dev = torch.device(CARD, 0) if CARD == "cuda" else torch.device(CARD)
+    cuda = dev.type == "cuda"
+    L, h = spec["bert"]["num_layers"], spec["bert"]["hidden_size"]
+    want_ex = bert_tp_exchanges(L)
+    want_mib = bert_tp_exchange_mib(L, spec["batch"], spec["seq"], h)
+    res = dict(ranks=TP_RANKS, exchanges_want=want_ex,
+               exchange_mib_want=want_mib)
+    if cuda:
+        res["card"] = smi_line()
+        log(f"  card: {res['card']}")
+        log(f"  -- rows 1, 2, 7b, 8, 9b, 11 and 16 at a rank's shapes "
+            f"(tp={TP_RANKS}, bf16) against their plain versions")
+        res["kernel_cases"] = _case_summary(_bert_tp_kernel_cases(dev))
+        torch.cuda.empty_cache()
+    log(f"  -- {TP_RANKS} ranks")
+    outs, res["ranks_s"] = _tp_spawn(spec)
+    for form in spec["forms"]:
+        tr = [o[f"bert_{form}"] for o in outs]
+        for r, t in enumerate(tr):
+            _check_rank_steps(f"bert_tp {form} rank {r}", t, want_ex,
+                              bert_tp_calls(L, form == "masked"),
+                              spec["steps"], cuda, {"all_reduce": want_mib})
+        check(tr[0]["losses"] == tr[1]["losses"],
+              f"bert_tp {form}: the ranks' losses differ: {tr[0]['losses']} "
+              f"against {tr[1]['losses']}")
+        t = tr[0]
+        res[form] = dict(
+            step_ms=[x["step_ms"] for x in tr],
+            tokens_per_s=[x["tokens_per_s"] for x in tr],
+            losses=t["losses"], exchanges=t["exchanges"],
+            exchanges_per_step=t["exchanges_per_step"],
+            exchange_ms=[x["exchange_ms"] for x in tr],
+            exchange_mib=t["exchange_mib"], launches=t["launches"],
+            setup_s=[x["setup_s"] for x in tr],
+            peak_mem_gib=[x["peak_mem_gib"] for x in tr])
+        log(f"  {form}: {spec['steps']} timed steps of B {spec['batch']} x S "
+            f"{spec['seq']} a rank: "
+            f"{[round(x, 1) for x in res[form]['step_ms']]} ms/step; losses "
+            f"{t['losses']}; {t['exchanges_per_step']} exchanges a step "
+            f"(derived {want_ex}), host ms a step in them "
+            f"{res[form]['exchange_ms']}, MiB a step {t['exchange_mib']} "
+            f"(derived {want_mib}); peak "
+            f"{res[form]['peak_mem_gib']} GiB; launches {t['launches']}")
+    log("  -- the fp32 twin: tp=2 card vs tp=2 cpu vs tp=1 card")
+    res["twin"] = _tp_twin_checks("bert_tp", outs, spec["forms"])
+    log(f"  fp32 twin ({spec['twin']}): {res['twin']}")
+    res["rank_s"] = [o["rank_s"] for o in outs]
+    log(f"  ranks' wall time {res['ranks_s']:.1f} s (spawn included), "
+        f"{[round(x, 1) for x in res['rank_s']]} s of work a rank")
+    return res
+
+
+_TP_WORK = {"serve_tp": (_tp_serves, _tp_twin),
+            "train_tp": (_tp_train_steps, _tp_train_twin),
+            "bert_tp": (_bert_tp_steps, _bert_tp_twin)}
+
+
+# ---------------------------------------------------------------------------
+# phase 35: activation checkpointing
+# ---------------------------------------------------------------------------
+
+# bench.py's `--remat` (bench.py:2327, the GPT bench; bench.py:299-340 and
+# :305, `bench_bert --batch=16 --remat`): each model's step with and
+# without `checkpoint_activations`, one process, one after the other;
+# warm-up and timed steps each
+REMAT_WARMUP, REMAT_STEPS = 1, 2
+REMAT_BERT_BATCH = 16
+# the fp32 twins, card against cpu: the GPT at the train widths
+# (`TP_TRAIN_TWIN`'s 2 layers, B 2 x S 128) and BERT at its own (2
+# layers, B 2 x S 128, the masked
+# parity lengths, token types), under checkpointing and under post-LN
+REMAT_TWIN_FORMS = {
+    "gpt_remat": ("gpt", dict(checkpoint_activations=True)),
+    "gpt_postln": ("gpt", dict(apply_residual_connection_post_layernorm=True)),
+    "bert_remat": ("bert", dict(checkpoint_activations=True)),
+    "bert_postln": ("bert", dict(
+        apply_residual_connection_post_layernorm=True)),
+}
+
+
+def remat_calls(layers, dropout, bert=False):
+    """Wrapper calls a checkpointed step (the stack unchained): each
+    layer's attention forward twice (the forward, the recompute in the
+    backward) and its backward once; each layer's plain ln1 and residual
+    ln2 (with hidden dropout when on) twice; the final LN (and BERT's
+    LM-head LN) once, plain; every LN's backward once; BERT's
+    cross-entropy and LAMB pair once."""
+    tail = 2 if bert else 1
+    calls = {"flash_attention_qkv_fwd": 2 * layers,
+             "flash_attention_qkv_bwd": layers,
+             "layer_norm_fwd": (2 if dropout else 4) * layers + tail,
+             "layer_norm_fwd_dropout": 2 * layers if dropout else 0,
+             "layer_norm_bwd": 2 * layers + tail}
+    if bert:
+        calls.update(xent_fwd_dg=1, lamb_leaf_stage1=1, lamb_leaf_stage2=1)
+    return calls
+
+
+def _timed_steps(step, warmup, steps):
+    """``step()`` ``warmup`` times, then ``steps`` timed times from a
+    synchronized card, the launches set to 0 just before and read just
+    after, the peak memory of the timed steps."""
+    losses = [step() for _ in range(warmup)]
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step())
+    _sync()
+    dt = time.perf_counter() - t0
+    return dict(losses=[float(x) for x in losses], step_ms=1e3 * dt / steps,
+                launches=_launches(),
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _remat_gpt(dev, remat, tree):
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig(**TRAIN, checkpoint_activations=remat,
+                    params_dtype=torch.float32, dtype=torch.bfloat16)
+    step, state, sstate = _trainer(cfg, dev, 1e-4, tree=tree)
+    tokens, labels = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens, labels = tokens.to(dev), labels.to(dev)
+    gen = torch.Generator().manual_seed(0)
+    carry = [state, sstate]
+
+    def one():
+        carry[0], carry[1], loss = step(carry[0], carry[1], tokens, labels,
+                                        dropout_generator=gen)
+        return loss
+
+    res = _timed_steps(one, REMAT_WARMUP, REMAT_STEPS)
+    res["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ * 1e3 / res["step_ms"]
+    return res
+
+
+def _remat_bert(dev, remat, tree):
+    from rocm_apex_tpu_torch.models.bert import BertConfig
+
+    cfg = BertConfig(**BERT, checkpoint_activations=remat,
+                     params_dtype=torch.float32, dtype=torch.bfloat16)
+    step, state, _, _ = _bert_trainer(cfg, dev, torch.bfloat16, tree=tree)
+    tokens, labels = _bert_batch(cfg, REMAT_BERT_BATCH, BERT_SEQ)
+    tokens, labels = tokens.to(dev), labels.to(dev)
+    carry = [state]
+
+    def one():
+        carry[0], loss, _ = step(carry[0], tokens, labels)
+        return loss
+
+    res = _timed_steps(one, REMAT_WARMUP, REMAT_STEPS)
+    res["tokens_per_s"] = REMAT_BERT_BATCH * BERT_SEQ * 1e3 / res["step_ms"]
+    return res
+
+
+def _remat_twin(dev, kind, kw):
+    """One twin form: the loss and every gradient on the card and on the
+    CPU (fp32, TF32 off), their worst relative difference."""
+    from rocm_apex_tpu_torch.convert import from_jax_params, random_params
+    from rocm_apex_tpu_torch.models.bert import BertConfig
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+
+    if kind == "gpt":
+        tw = TP_TRAIN_TWIN
+        cfg = GPTConfig(**{**TRAIN, "num_layers": tw["num_layers"],
+                           "hidden_dropout": 0.0, "attention_dropout": 0.0},
+                        params_dtype=torch.float32, dtype=torch.float32,
+                        **kw)
+        tokens, labels = _train_batch(cfg, tw["batch"], tw["seq"])
+        extra = {}
+    else:
+        tw = BERT_PARITY
+        cfg = BertConfig(**{**BERT, "num_layers": tw["num_layers"],
+                            "max_position_embeddings": tw["seq"]},
+                         params_dtype=torch.float32, dtype=torch.float32,
+                         **kw)
+        tokens, labels = _bert_batch(cfg, tw["batch"], tw["seq"])
+        extra = dict(
+            attention_mask=padding_mask(BERT_MASKED_PARITY_LENGTHS,
+                                        tw["seq"]),
+            tokentype_ids=torch.from_numpy(np.random.default_rng(1).integers(
+                0, 2, tokens.shape)))
+    tree = random_params(cfg, seed=0)
+    got = {}
+    for where in (dev, "cpu"):
+        model = from_jax_params(tree, cfg, device=where)
+        kws = {k: v.to(where) for k, v in extra.items()}
+        if kind == "gpt":
+            loss = model(tokens.to(where), labels=labels.to(where),
+                         loss_reduction="mean")
+        else:
+            loss = model(tokens.to(where), lm_labels=labels.to(where),
+                         **kws)[0].mean()
+        loss.backward()
+        got[where] = (float(loss.detach()), {
+            k: p.grad.cpu() for k, p in model.named_parameters()
+            if p.grad is not None})
+    (lc, gc), (lp, gp) = got[dev], got["cpu"]
+    return dict(loss_card=lc, loss_cpu=lp, loss_rel=abs(lc - lp) / abs(lp),
+                card_vs_cpu=_grad_worst(gc, {k: v.numpy()
+                                             for k, v in gp.items()}))
+
+
+def run_remat_phase():
+    """Activation checkpointing (bench.py's ``--remat``): the GPT train
+    cell (bf16, dropout 0.1, B 16 x S 1024) and BERT-Large (bf16, B 16 x
+    S 512, LAMB with bf16 moments), each without and with
+    ``checkpoint_activations``, warm-up and timed steps. Checked: finite
+    losses; each kernel's wrapper calls a step (`TRAIN_CALLS_PER_STEP`
+    and `bert_calls` without, `remat_calls` with: every layer's forward
+    twice); the timed steps' peak memory lower with checkpointing.
+    Reported: ms a step, tokens/s, peak memory. The fp32 twins (card
+    against cpu, loss and every gradient within `PARITY_LOSS_RTOL`):
+    checkpointing and post-LN, GPT and BERT."""
+    from rocm_apex_tpu_torch.convert import random_params
+    from rocm_apex_tpu_torch.models.bert import BertConfig
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+    from rocm_apex_tpu_torch.ops._build import KERNELS
+
+    dev = torch.device(CARD, 0)
+    res = dict(card=smi_line())
+    log(f"  card: {res['card']}")
+    runs = (
+        ("gpt", _remat_gpt, GPTConfig(**TRAIN), TRAIN["num_layers"],
+         lambda remat: remat_calls(TRAIN["num_layers"], True) if remat
+         else TRAIN_CALLS_PER_STEP),
+        ("bert", _remat_bert, BertConfig(**BERT), BERT["num_layers"],
+         lambda remat: remat_calls(BERT["num_layers"], False, True) if remat
+         else bert_calls(BERT["num_layers"], 1, 1, 0)),
+    )
+    for name, run, cfg, layers, calls in runs:
+        tree = random_params(cfg, seed=0)
+        for remat in (False, True):
+            key = f"{name}_remat" if remat else name
+            r = run(dev, remat, tree)
+            _free_card()
+            want = calls(remat)
+            check(all(math.isfinite(x) for x in r["losses"]),
+                  f"remat {key}: a nonfinite loss {r['losses']}")
+            for k in KERNELS:
+                n = want.get(k.name, 0) * REMAT_STEPS
+                check(r["launches"].get(k.name, 0) == n,
+                      f"remat {key}: {k.name} launched "
+                      f"{r['launches'].get(k.name, 0)} times in "
+                      f"{REMAT_STEPS} steps, {n} wanted")
+            res[key] = r
+            log(f"  {key}: {REMAT_STEPS} timed steps "
+                f"{r['step_ms']:.1f} ms/step, {r['tokens_per_s']:.0f} "
+                f"tokens/s, peak {r['peak_mem_gib']:.2f} GiB; losses "
+                f"{r['losses']}; launches {r['launches']}")
+        del tree
+        plain, remat = res[name], res[f"{name}_remat"]
+        check(remat["peak_mem_gib"] < plain["peak_mem_gib"],
+              f"remat {name}: peak {remat['peak_mem_gib']:.2f} GiB with "
+              f"checkpointing, {plain['peak_mem_gib']:.2f} without")
+        res[f"{name}_peak_ratio"] = remat["peak_mem_gib"] / plain[
+            "peak_mem_gib"]
+        res[f"{name}_ms_ratio"] = remat["step_ms"] / plain["step_ms"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    twin = {}
+    for form, (kind, kw) in REMAT_TWIN_FORMS.items():
+        t = _remat_twin(dev, kind, kw)
+        worst = max(t["loss_rel"], t["card_vs_cpu"])
+        check(worst <= PARITY_LOSS_RTOL, f"remat twin {form}: card and cpu "
+              f"differ by {worst:.3e} of their scale")
+        twin[form] = dict(t, worst=worst)
+    res["twin"] = twin
+    log(f"  fp32 twins, card vs cpu: {twin}")
+    return res
 
 
 def smi_line():
@@ -10859,7 +11540,7 @@ def main(argv=None):
             f"tp=1)", run_serve_tp_phase),
         "serve_monitor": (
             f"serve_monitor (the monitor layer on the serve: {N_REQUESTS} "
-            f"requests x {MAX_NEW} on bf16 pages of {PAGE_SIZE}, bare / "
+            f"requests x {MONITOR_NEW} on bf16 pages of {PAGE_SIZE}, bare / "
             f"default registry / tracer + time series + recorder + exporter "
             f"in A B C C B A order x {MONITOR_ROUNDS}; a logits fault with "
             f"the flight recorder and a host_fetch fault with no retry on "
@@ -10877,6 +11558,21 @@ def main(argv=None):
             f"cpu vs tp=1 in {len(TP_TRAIN_FORMS)} forms)",
             lambda: run_train_tp_phase(
                 tp1_losses=report.get("train", {}).get("losses"))),
+        "bert_tp": (
+            f"bert_tp (BERT-Large at tp={TP_RANKS}: {TP_RANKS} gloo ranks on "
+            f"the one card, bf16, B {BERT_BATCH} x S {BERT_SEQ}, LAMB with "
+            f"bf16 moments on each rank's shards, unmasked and with the "
+            f"padding mask and dropout {BERT_MASKED_DROPOUT}: "
+            f"{BERT_TP_WARMUP} warm-up + {BERT_TP_STEPS} timed steps each; "
+            f"the {BERT_TP_TWIN['num_layers']}-layer fp32 twin tp=2 card vs "
+            f"cpu vs tp=1)", run_bert_tp_phase),
+        "remat": (
+            f"remat (activation checkpointing: the train cell's GPT, B "
+            f"{TRAIN_BATCH} x S {TRAIN_SEQ}, and BERT-Large, B "
+            f"{REMAT_BERT_BATCH} x S {BERT_SEQ}, each without and with it: "
+            f"{REMAT_WARMUP} warm-up + {REMAT_STEPS} timed steps; the fp32 "
+            f"twins of checkpointing and post-LN, card vs cpu)",
+            run_remat_phase),
     }
     report["phase_s"] = {}
     try:

@@ -38,13 +38,16 @@ to ``nn.Linear``'s (out, in).
 flattened by name as `flatten_params` does, so a port step resumes from
 it.
 
-At tensor-parallel size > 1 (a `GPTConfig` whose ``tensor_parallel_size``
-is 2, or the tensor group's) `from_jax_params` and
-`train_state_from_jax_params` take the tp=1 tree and slice it for this
-rank (`inference.shard_tp1_params`; a tree already of the rank's shapes
-passes through), so each rank's `MixedPrecisionAdam` state is built
-from its own shard. `gather_tp_params` is the inverse: the ranks'
-parameters, gradients or moments, by name, back into the tp=1 layout.
+At tensor-parallel size > 1 (a `GPTConfig` or `BertConfig` whose
+``tensor_parallel_size`` is 2, or the tensor group's) `from_jax_params`
+and `train_state_from_jax_params` take the tp=1 tree and slice it for
+this rank (`inference.shard_tp1_params`; a tree already of the rank's
+shapes passes through), so each rank's `MixedPrecisionAdam` or
+`MixedPrecisionLamb` state is built from its own shard. BERT's own
+leaves (``tokentype_embeddings``, ``lm_head.*``, ``pooler``,
+``binary_head``) are whole on every rank, as JAX's `shard_tp1_params`
+leaves them. `gather_tp_params` is the inverse: the ranks' parameters,
+gradients or moments, by name, back into the tp=1 layout.
 
 `random_params` draws the same tree with numpy from a seed, with the
 JAX model's initializers: normal(``init_method_std``) for the
@@ -204,7 +207,8 @@ def gather_tp_params(cfg: GPTConfig, shards) -> Dict[str, torch.Tensor]:
     import dataclasses
 
     tp = len(shards)
-    full = GPTModel(dataclasses.replace(
+    cls = BertModel if isinstance(cfg, BertConfig) else GPTModel
+    full = cls(dataclasses.replace(
         cfg, tensor_parallel_size=1, sequence_parallel=False,
         collective_matmul=False), device="meta").state_dict()
     out = {}

@@ -1,10 +1,20 @@
 """Megatron-style BERT in PyTorch: the masked-LM pre-training forward.
 
-Port of ``rocm_apex_tpu/models/bert.py`` at tensor-parallel world size 1,
-over the same blocks as ``models/gpt.py``: learned position and token-type
-embeddings, the bidirectional `ParallelTransformer`
-(``attn_mask_type="padding"``), the tied masked-LM head and the optional
-binary (next-sentence) head.
+Port of ``rocm_apex_tpu/models/bert.py``, over the same blocks as
+``models/gpt.py``: learned position and token-type embeddings, the
+bidirectional `ParallelTransformer` (``attn_mask_type="padding"``), the
+tied masked-LM head and the optional binary (next-sentence) head.
+
+At ``tensor_parallel_size`` > 1 (JAX bert.py:53-159) the stack runs the
+rank's heads and MLP columns (`models.gpt`); the token-type embedding,
+the LM head's dense, gelu and LayerNorm, the pooler and the binary head
+are replicated and run on the whole rows on every rank; the tied
+projection returns this rank's vocabulary columns, and ``lm_labels``
+take `vocab_parallel_cross_entropy` over them (JAX bert.py:150-158).
+Dropout follows the GPT model's rank rules (the attention seed folds the
+tensor rank in; the replicated stream draws one mask on every rank).
+``sequence_parallel`` is a no-op at tp=1, as in JAX, and refused at
+tp>1, where the JAX model does not compute it (`SP_REFUSAL`).
 
 With ``attention_mask=None`` (no padded positions) the attention runs the
 packed flash kernels without the causal mask, as the JAX model does. A
@@ -45,11 +55,26 @@ from rocm_apex_tpu_torch.models.gpt import (
     _dropout,
     _resolve_tp,
     _serial_cross_entropy,
+    _sp_active,
 )
 from rocm_apex_tpu_torch.normalization import MixedFusedLayerNorm
+from rocm_apex_tpu_torch.transformer.tensor_parallel import (
+    vocab_parallel_cross_entropy,
+)
 
 __all__ = ["BertConfig", "BertLMHead", "BertModel",
-           "bert_extended_attention_mask"]
+           "bert_extended_attention_mask", "SP_REFUSAL"]
+
+SP_REFUSAL = (
+    "BertConfig(sequence_parallel=True) at tensor_parallel_size > 1 is "
+    "refused: the JAX BertModel does not compute it. Its embedding "
+    "scatters the sequence before the full-length token types are added "
+    "(shapes (b, s/tp, h) and (b, s, h) fail to broadcast), its "
+    "masked-LM cross-entropy meets (b, s) labels with (b, s/tp) rows, "
+    "and without either its pooler reads each rank's own first local "
+    "token, so rank 1's binary logits are not token 0's (ROADMAP, not "
+    "faults, kept as the reference behaves). sequence_parallel is a "
+    "no-op at tp=1.")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,16 +86,9 @@ class BertConfig(GPTConfig):
 
     def __post_init__(self):
         super().__post_init__()
-        # BERT is a training path: tensor and sequence parallelism there
-        # are tp>1 training
-        for bad, what in (
-                (self.tensor_parallel_size not in (None, 1),
-                 "BertConfig(tensor_parallel_size > 1)"),
-                (self.sequence_parallel, "BertConfig(sequence_parallel=True)")):
-            if bad:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP Queue 1 item 10, "
-                    f"part 10a: BERT at tp>1)")
+        if self.sequence_parallel and self.tensor_parallel_size not in (
+                None, 1):
+            raise ValueError(SP_REFUSAL)
 
 
 def bert_extended_attention_mask(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -123,7 +141,8 @@ class BertLMHead(nn.Module):
 class BertModel(nn.Module):
     """Embeddings -> bidirectional transformer -> (pooler, LM head,
     binary head). With ``lm_labels`` returns ``(per-token fp32 LM losses,
-    binary_logits)``, otherwise ``(lm_logits, binary_logits)``;
+    binary_logits)``, otherwise ``(lm_logits, binary_logits)`` (at tp>1
+    the rank's vocabulary columns of the logits);
     ``binary_logits`` (fp32) is None without the binary head.
     Differentiable; ``deterministic=False`` turns dropout on, seeded per
     site from ``dropout_generator`` (a CPU `torch.Generator`). Runs on
@@ -132,10 +151,9 @@ class BertModel(nn.Module):
     def __init__(self, cfg: BertConfig,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__()
-        if _resolve_tp(cfg) > 1:  # the tensor size parallel_state holds
-            raise NotImplementedError(
-                "BertModel at tensor_parallel_size > 1 is not ported yet "
-                "(ROADMAP Queue 1 item 10, part 10a: BERT at tp>1)")
+        self.tp = _resolve_tp(cfg)  # None: the tensor size parallel_state holds
+        if _sp_active(cfg, self.tp):
+            raise ValueError(SP_REFUSAL)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.embedding = TransformerEmbedding(cfg, self.device)
@@ -187,4 +205,9 @@ class BertModel(nn.Module):
         lm_logits = self.lm_head(x, self.embedding)
         if lm_labels is None:
             return lm_logits, binary_logits
+        if self.tp > 1:
+            # the rank's vocabulary columns (JAX bert.py:150-158)
+            return (vocab_parallel_cross_entropy(lm_logits, lm_labels,
+                                                 cfg.tensor_axis),
+                    binary_logits)
         return _serial_cross_entropy(lm_logits, lm_labels), binary_logits

@@ -177,7 +177,10 @@ from rocm_apex_tpu_torch.transformer.tensor_parallel import (
     scatter_to_sequence_parallel_region,
     vocab_parallel_cross_entropy,
 )
-from rocm_apex_tpu_torch.transformer.tensor_parallel.random import fold_in
+from rocm_apex_tpu_torch.transformer.tensor_parallel.random import (
+    checkpoint,
+    fold_in,
+)
 
 __all__ = [
     "GPTConfig",
@@ -253,20 +256,10 @@ class GPTConfig:
             raise ValueError(
                 f"unknown attention_impl {self.attention_impl!r}")
         check_comm_dtype(self.comm_dtype)
-        unported = [
-            (self.activation_stats,
-             "activation_stats=True (ROADMAP Queue 1 item 9, part 9b: the "
-             "monitor layer's in-graph metrics)"),
-            (self.checkpoint_activations,
-             "checkpoint_activations=True (ROADMAP Queue 1 item 10, part "
-             "10b)"),
-            (self.apply_residual_connection_post_layernorm,
-             "apply_residual_connection_post_layernorm=True (ROADMAP "
-             "Queue 1 item 10, part 10b)"),
-        ]
-        for bad, what in unported:
-            if bad:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if self.activation_stats:
+            raise NotImplementedError(
+                "activation_stats=True (ROADMAP Queue 1 item 9, part 9b: the "
+                "monitor layer's in-graph metrics) is not ported yet")
         if self.hidden_size % self.num_attention_heads:
             raise ValueError("hidden_size must divide by num_attention_heads")
 
@@ -726,9 +719,16 @@ class ParallelAttention(nn.Module):
 
 class ParallelTransformerLayer(nn.Module):
     """Pre-LN block: LN -> attention -> residual (fused into LN2) -> MLP
-    -> residual. The uncached path CHAINS layers: it takes the previous
-    layer's pending MLP delta (added inside ln1) and returns
-    ``(stream, pending delta)``; cached paths add eagerly."""
+    -> residual. The uncached pre-LN path CHAINS layers: it takes the
+    previous layer's pending MLP delta (added inside ln1) and returns
+    ``(stream, pending delta)``; cached paths, the post-LN variant and
+    activation checkpointing add eagerly (`forward_unchained`).
+
+    ``apply_residual_connection_post_layernorm`` (JAX gpt.py:1160,
+    1184): the attention's residual is ln1's output (ln2 normalizes
+    ``ln1 + attn``), the MLP's is ln2's output; the adds are plain ops,
+    and so is their hidden dropout, as in JAX (no residual-LN kernel to
+    ride)."""
 
     def __init__(self, cfg: GPTConfig, device=None,
                  attn_mask_type: str = "causal"):
@@ -748,9 +748,65 @@ class ParallelTransformerLayer(nn.Module):
         ln1 = self.input_layernorm(x)
         attn = self.self_attention(ln1, cache, chunk, kv_out=kv_out,
                                    adapters=adapters)
-        ln2, x = self.post_attention_layernorm(attn.to(x.dtype), residual=x)
-        mlp = self.mlp(ln2)
-        return (x + mlp.to(x.dtype)).to(self.cfg.dtype)
+        ln2, x = self._attention_residual(x, ln1, attn)
+        return self._mlp_residual(x, ln2, self.mlp(ln2))
+
+    def _attention_residual(self, x, ln1, attn, seed=None):
+        """``(ln2, stream)`` after the attention's residual add: fused
+        into ln2 pre-LN (``seed``: its hidden dropout in-kernel), a
+        plain add onto ln1's output post-LN (the dropout a plain op)."""
+        cfg = self.cfg
+        if cfg.apply_residual_connection_post_layernorm:
+            if seed is not None:
+                attn = _dropout(attn, seed, cfg.hidden_dropout)
+            x = ln1 + attn.to(ln1.dtype)
+            return self.post_attention_layernorm(x), x
+        if seed is None:
+            return self.post_attention_layernorm(attn.to(x.dtype),
+                                                 residual=x)
+        return self.post_attention_layernorm(
+            attn.to(x.dtype), residual=x, dropout_rate=cfg.hidden_dropout,
+            dropout_seed=seed)
+
+    def _mlp_residual(self, x, ln2, mlp, seed=None):
+        """The layer's output: the MLP delta (``seed``: its hidden
+        dropout, a plain op) added eagerly to the stream, post-LN to
+        ln2's output."""
+        cfg = self.cfg
+        if seed is not None:
+            mlp = _dropout(mlp, seed, cfg.hidden_dropout)
+        residual = ln2 if cfg.apply_residual_connection_post_layernorm else x
+        return (residual + mlp.to(residual.dtype)).to(cfg.dtype)
+
+    def draw_seeds(self, seeds: Optional[torch.Generator]
+                   ) -> Tuple[Optional[int], Optional[int], Optional[int]]:
+        """`forward_unchained`'s dropout seeds, drawn from ``seeds`` in a
+        fixed order (attention, the attention's residual, the MLP's):
+        None for a site without dropout. Drawn outside any checkpointed
+        call, so a recompute replays them; the step draws as many as the
+        chained step does."""
+        cfg = self.cfg
+        if seeds is None:
+            return None, None, None
+        attn = (attention_dropout_seed(seeds, cfg)
+                if cfg.attention_dropout > 0.0 else None)
+        if cfg.hidden_dropout <= 0.0:
+            return attn, None, None
+        return (attn, hidden_dropout_seed(seeds, cfg),
+                hidden_dropout_seed(seeds, cfg))
+
+    def forward_unchained(self, x, site_seeds=(None, None, None),
+                          attention_mask: Optional[torch.Tensor] = None):
+        """One training layer with eager residual adds (JAX's unchained
+        layer: post-LN, or under activation checkpointing), its dropout
+        seeds given (`draw_seeds`); ``attention_mask`` as
+        `ParallelAttention.forward` takes it."""
+        attn_seed, h_attn, h_mlp = site_seeds
+        ln1 = self.input_layernorm(x)
+        attn = self.self_attention(ln1, dropout_seed=attn_seed,
+                                   attention_mask=attention_mask)
+        ln2, x = self._attention_residual(x, ln1, attn, h_attn)
+        return self._mlp_residual(x, ln2, self.mlp(ln2), h_mlp)
 
     def forward_chained(self, x, delta=None,
                         seeds: Optional[torch.Generator] = None,
@@ -862,11 +918,26 @@ class ParallelTransformer(nn.Module):
         # the padding type's mask in the form its attention reads, built
         # once for every layer: the bool mask for the fused softmax, the
         # additive bias for the flash kernels
+        cfg = self.cfg
         mask = None
         if attention_mask is not None and self.attn_mask_type == "padding":
             mask = attention_mask.to(torch.bool)
-            if self.cfg.attention_impl == "flash":
+            if cfg.attention_impl == "flash":
                 mask = padding_bias(mask, x.shape[0], x.shape[1])
+        if (cfg.apply_residual_connection_post_layernorm
+                or cfg.checkpoint_activations):
+            # JAX gpt.py:1219-1239: post-LN keeps the eager adds its
+            # wiring needs, and under checkpointing the chain would carry
+            # two residuals a boundary; each checkpointed layer recomputes
+            # in the backward (JAX nn.remat), its seeds drawn here
+            for name in self.layer_names:
+                layer = getattr(self, name)
+                site = layer.draw_seeds(seeds)
+                if cfg.checkpoint_activations:
+                    x = checkpoint(layer.forward_unchained, x, site, mask)
+                else:
+                    x = layer.forward_unchained(x, site, mask)
+            return self.final_layernorm(x).to(cfg.dtype)
         delta = None
         for name in self.layer_names:
             x, delta = getattr(self, name).forward_chained(

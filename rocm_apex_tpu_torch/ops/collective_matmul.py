@@ -30,8 +30,19 @@ ring with ``wᵀ`` and dx of the reduce-scatter the gather ring with
 cotangent block (``_ring_dw_from_scatter``) against the matching row
 slice of the other operand, in fp32, cast once to w's dtype. A chunk
 that does not tile takes the plain transposed collectives.
-``comm_dtype="int8"`` (``ops/quantized_collectives.py``, the int8 rings)
-is ROADMAP Queue 1 item 10, part 10c, and raises.
+
+``comm_dtype="int8"`` (JAX :112-137, 291-330) quantizes the ring hops'
+payloads (`ops.quantized_collectives`): a gather ring quantizes each
+rotating piece once, the local one included, and every hop's piece
+lands dequantized for its product, so the int8 gather-matmul is
+``dequant(int8(x)) @ w`` slot for slot; the reduce-scatter ring
+quantizes its rotating fp32 accumulator again at each hop and adds the
+local partial product in fp32. The backward rings run at the same comm
+dtype (the dW rings rotate quantized pieces too). A hop's int8 body and
+fp32 scale column travel as one staged exchange (`shift_pair`), where
+JAX sends two ``ppermute``s: the same bits, one exchange a hop as in
+fp32. The fallbacks (no group, a group of one, a chunk that does not
+tile) stay full precision, as JAX's.
 """
 
 from typing import Optional
@@ -40,85 +51,35 @@ import torch
 import torch.distributed as dist
 
 from rocm_apex_tpu_torch.ops.linear_xentropy import _mm_f32
+from rocm_apex_tpu_torch.ops.quantized_collectives import (
+    bound_group,
+    check_comm_dtype,
+    gather_ring,
+    ring_chunks,
+    scatter_ring,
+)
 from rocm_apex_tpu_torch.transformer import parallel_state
 
 __all__ = ["all_gather_matmul", "matmul_reduce_scatter",
            "check_comm_dtype"]
 
-COMM_DTYPES = ("fp32", "int8")
 
-
-def check_comm_dtype(comm_dtype: str) -> None:
-    """JAX's comm dtypes: "fp32" runs, "int8" is not ported yet."""
-    if comm_dtype not in COMM_DTYPES:
-        raise ValueError(f"comm_dtype must be one of {COMM_DTYPES}, got "
-                         f"{comm_dtype!r}")
-    if comm_dtype == "int8":
-        raise NotImplementedError(
-            "comm_dtype='int8' (the quantized ring payloads of "
-            "ops/quantized_collectives.py) is not ported yet (ROADMAP "
-            "Queue 1 item 10, part 10c)")
-
-
-def _bound_group(axis_name):
-    """The axis's group when it is bound and holds more than one rank,
-    else None (the plain matmul)."""
-    if isinstance(axis_name, str):
-        try:
-            group = parallel_state.get_axis_group(axis_name)
-        except KeyError:
-            return None
-    else:
-        group = axis_name
-    return group if dist.get_world_size(group) > 1 else None
-
-
-def _ring_chunks(rows: int, chunk: Optional[int]) -> Optional[int]:
-    """Pieces a shard, or None when ``chunk`` does not tile ``rows``."""
-    if chunk is None:
-        return 1
-    if chunk <= 0 or rows % chunk:
-        return None
-    return rows // chunk
-
-
-def _ring_ag_mm(x, w, group, m):
-    n, idx = dist.get_world_size(group), dist.get_rank(group)
+def _ring_ag_mm(x, w, group, m, comm_dtype="fp32"):
     rows = x.shape[-2]
     chunk = rows // m
+    n = dist.get_world_size(group)
     out = x.new_empty(x.shape[:-2] + (n * rows, w.shape[-1]))
-    pieces = list(x.split(chunk, dim=-2))
-    for i in range(n):
-        src = (idx + i) % n
-        nxt = []
-        for j, piece in enumerate(pieces):
-            if i + 1 < n:
-                # receive from rank + 1: hop i leaves rank idx + i's shard
-                nxt.append(parallel_state.shift(piece, group, -1))
-            at = src * rows + j * chunk
-            out[..., at:at + chunk, :] = torch.matmul(piece, w)
-        pieces = nxt or pieces
+    for at, piece in gather_ring(x, group, m, -2, comm_dtype, x.dtype):
+        out[..., at:at + chunk, :] = torch.matmul(piece, w)
     return out
 
 
-def _ring_mm_rs(x, w, group, m):
-    n, idx = dist.get_world_size(group), dist.get_rank(group)
-    rows = x.shape[-2] // n
-    chunk = rows // m
+def _ring_mm_rs(x, w, group, m, comm_dtype="fp32"):
     wf = w.float()
-    acc = [None] * m
-    for i in range(n):
-        # the block this rank adds to now reaches its owner in the
-        # remaining n - 1 - i hops (each to rank + 1)
-        dst = (idx + n - 1 - i) % n
-        for j in range(m):
-            at = dst * rows + j * chunk
-            part = torch.matmul(x[..., at:at + chunk, :].float(), wf)
-            if acc[j] is not None:
-                acc[j] = parallel_state.shift(acc[j], group, 1) + part
-            else:
-                acc[j] = part
-    return torch.cat(acc, dim=-2).to(x.dtype)
+    rows = x.shape[-2] // dist.get_world_size(group)
+    return scatter_ring(
+        lambda at, chunk: torch.matmul(x[..., at:at + chunk, :].float(), wf),
+        rows, m, -2, group, comm_dtype).to(x.dtype)
 
 
 def _plain_ag_mm(x, w, group, m):
@@ -136,28 +97,18 @@ def _dw(x, dy):
                    dy.reshape(-1, dy.shape[-1]))
 
 
-def _ring_dw(rot, fixed, group, m, rot_is_x):
+def _ring_dw(rot, fixed, group, m, rot_is_x, comm_dtype="fp32"):
     """dW without the gather: this rank's shard ``rot`` re-rotates (to
-    rank - 1 each hop, as the gather ring) and each hop contracts
-    against the matching row slice of ``fixed`` (full rows): JAX's
-    ``_ring_dw_from_gather`` (rot x, fixed dy) and
+    rank - 1 each hop, as the gather ring, quantized once under int8)
+    and each hop contracts against the matching row slice of ``fixed``
+    (full rows): JAX's ``_ring_dw_from_gather`` (rot x, fixed dy) and
     ``_ring_dw_from_scatter`` (rot dy, fixed x)."""
-    n, idx = dist.get_world_size(group), dist.get_rank(group)
-    rows = rot.shape[-2]
-    chunk = rows // m
+    chunk = rot.shape[-2] // m
     dw = None
-    pieces = list(rot.split(chunk, dim=-2))
-    for i in range(n):
-        src = (idx + i) % n
-        nxt = []
-        for j, piece in enumerate(pieces):
-            if i + 1 < n:
-                nxt.append(parallel_state.shift(piece, group, -1))
-            at = src * rows + j * chunk
-            other = fixed[..., at:at + chunk, :]
-            part = _dw(piece, other) if rot_is_x else _dw(other, piece)
-            dw = part if dw is None else dw + part
-        pieces = nxt or pieces
+    for at, piece in gather_ring(rot, group, m, -2, comm_dtype, rot.dtype):
+        other = fixed[..., at:at + chunk, :]
+        part = _dw(piece, other) if rot_is_x else _dw(other, piece)
+        dw = part if dw is None else dw + part
     return dw
 
 
@@ -166,10 +117,12 @@ class _AgMm(torch.autograd.Function):
     shard) or, with ``m`` None, the plain gather and one matmul."""
 
     @staticmethod
-    def forward(ctx, x, w, group, m):
+    def forward(ctx, x, w, group, m, comm_dtype):
         ctx.save_for_backward(x, w)
-        ctx.group, ctx.m = group, m
-        return (_plain_ag_mm if m is None else _ring_ag_mm)(x, w, group, m)
+        ctx.group, ctx.m, ctx.comm_dtype = group, m, comm_dtype
+        if m is None:
+            return _plain_ag_mm(x, w, group, m)
+        return _ring_ag_mm(x, w, group, m, comm_dtype)
 
     @staticmethod
     def backward(ctx, dy):
@@ -185,10 +138,11 @@ class _AgMm(torch.autograd.Function):
             xg = parallel_state.all_gather(x, group, x.dim() - 2)
             dw = _dw(xg, dy)
         else:
-            # the transposed gather IS a matmul-reduce-scatter with wᵀ
-            dx = _ring_mm_rs(dy, wt, group, m).to(x.dtype)
-            dw = _ring_dw(x, dy, group, m, rot_is_x=True)
-        return dx, dw.to(w.dtype), None, None
+            # the transposed gather IS a matmul-reduce-scatter with wᵀ,
+            # at the same comm dtype
+            dx = _ring_mm_rs(dy, wt, group, m, ctx.comm_dtype).to(x.dtype)
+            dw = _ring_dw(x, dy, group, m, True, ctx.comm_dtype)
+        return dx, dw.to(w.dtype), None, None, None
 
 
 class _MmRs(torch.autograd.Function):
@@ -196,10 +150,12 @@ class _MmRs(torch.autograd.Function):
     None, one matmul and the plain reduce-scatter."""
 
     @staticmethod
-    def forward(ctx, x, w, group, m):
+    def forward(ctx, x, w, group, m, comm_dtype):
         ctx.save_for_backward(x, w)
-        ctx.group, ctx.m = group, m
-        return (_plain_mm_rs if m is None else _ring_mm_rs)(x, w, group, m)
+        ctx.group, ctx.m, ctx.comm_dtype = group, m, comm_dtype
+        if m is None:
+            return _plain_mm_rs(x, w, group, m)
+        return _ring_mm_rs(x, w, group, m, comm_dtype)
 
     @staticmethod
     def backward(ctx, dy):
@@ -212,10 +168,11 @@ class _MmRs(torch.autograd.Function):
             dx = torch.matmul(dyg, wt).to(x.dtype)
             dw = _dw(x, dyg)
         else:
-            # the transposed scatter IS an all-gather-matmul with wᵀ
-            dx = _ring_ag_mm(dy, wt, group, m).to(x.dtype)
-            dw = _ring_dw(dy, x, group, m, rot_is_x=False)
-        return dx, dw.to(w.dtype), None, None
+            # the transposed scatter IS an all-gather-matmul with wᵀ,
+            # at the same comm dtype
+            dx = _ring_ag_mm(dy, wt, group, m, ctx.comm_dtype).to(x.dtype)
+            dw = _ring_dw(dy, x, group, m, False, ctx.comm_dtype)
+        return dx, dw.to(w.dtype), None, None, None
 
 
 def all_gather_matmul(x: torch.Tensor, w: torch.Tensor, axis_name,
@@ -225,10 +182,11 @@ def all_gather_matmul(x: torch.Tensor, w: torch.Tensor, axis_name,
     this rank's (k, n) column shard; returns (..., size * rows, n) in x's
     dtype. The gathered x never exists whole on the ring path."""
     check_comm_dtype(comm_dtype)
-    group = _bound_group(axis_name)
+    group = bound_group(axis_name)
     if group is None:
         return torch.matmul(x, w)
-    return _AgMm.apply(x, w, group, _ring_chunks(x.shape[-2], chunk))
+    return _AgMm.apply(x, w, group, ring_chunks(x.shape[-2], chunk),
+                       comm_dtype)
 
 
 def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, axis_name,
@@ -239,10 +197,11 @@ def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, axis_name,
     rows / size rows, summed over the group, in x's dtype. The full
     pre-reduce product never exists on the ring path."""
     check_comm_dtype(comm_dtype)
-    group = _bound_group(axis_name)
+    group = bound_group(axis_name)
     if group is None:
         return torch.matmul(x, w)
     n = dist.get_world_size(group)
     if x.shape[-2] % n:
         raise ValueError(f"rows {x.shape[-2]} not divisible by axis size {n}")
-    return _MmRs.apply(x, w, group, _ring_chunks(x.shape[-2] // n, chunk))
+    return _MmRs.apply(x, w, group, ring_chunks(x.shape[-2] // n, chunk),
+                       comm_dtype)

@@ -29,7 +29,9 @@ block; ``collective_matmul`` makes both edges rings
 (``collective_matmul_chunk`` rows a piece). Every edge is
 differentiable: the mappings' and the rings' backwards are JAX's
 ``custom_vjp`` rules, so the layers train at world size > 1.
-``comm_dtype="int8"`` is ROADMAP Queue 1 item 10, part 10c, and raises.
+``comm_dtype="int8"`` quantizes the rings' hop payloads
+(`ops.collective_matmul`, `ops.quantized_collectives`); the plain edges
+stay full precision, as JAX's.
 """
 
 from typing import Optional, Tuple, Union

@@ -19,14 +19,17 @@ one int32 seed on every machine:
 * `model_parallel_seed` (alias `model_parallel_cuda_manual_seed`): the
   global tracker reset to those two streams.
 
-Activation checkpointing (`checkpoint`, `CheckpointPolicy`) is ROADMAP
-Queue 1 item 10, part 10b, and raises.
+* `checkpoint(function, *args, policy=None)`: activation checkpointing
+  (JAX ``jax.checkpoint``) on non-reentrant `torch.utils.checkpoint`;
+  `CheckpointPolicy` names what a policy saves.
 """
 
 import contextlib
-from typing import Dict, Optional, Union
+import functools
+from typing import Callable, Dict, Optional, Union
 
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from rocm_apex_tpu_torch.ops import _dropout
 
@@ -146,23 +149,56 @@ def model_parallel_seed(seed: int, tp_rank: Optional[int] = None) -> None:
 
 model_parallel_cuda_manual_seed = model_parallel_seed
 
-_CHECKPOINT = ("activation checkpointing ({what}) is not ported yet (ROADMAP "
-               "Queue 1 item 10, part 10b)")
+_ATEN = torch.ops.aten
 
 
-class _CheckpointPolicy:
-    """The JAX remat policies' names; reading one raises (part 10b)."""
+class CheckpointPolicy:
+    """The remat policies by JAX's names (``jax.checkpoint_policies``),
+    each the set of ops whose outputs a checkpointed region keeps:
+    ``NOTHING_SAVEABLE`` nothing (all recomputed), ``DOTS_SAVEABLE`` the
+    products (``mm``, ``addmm``, ``bmm``), ``DOTS_WITH_NO_BATCH_DIMS``
+    the products without a batch dimension (``mm``, ``addmm``)."""
 
-    def __getattr__(self, name):
-        raise NotImplementedError(_CHECKPOINT.format(
-            what=f"CheckpointPolicy.{name}"))
+    NOTHING_SAVEABLE = frozenset()
+    DOTS_SAVEABLE = frozenset({_ATEN.mm.default, _ATEN.addmm.default,
+                               _ATEN.bmm.default})
+    DOTS_WITH_NO_BATCH_DIMS = frozenset({_ATEN.mm.default,
+                                         _ATEN.addmm.default})
 
 
-CheckpointPolicy = _CheckpointPolicy()
+_POLICIES = (CheckpointPolicy.NOTHING_SAVEABLE,
+             CheckpointPolicy.DOTS_SAVEABLE,
+             CheckpointPolicy.DOTS_WITH_NO_BATCH_DIMS)
 
 
-def checkpoint(function, *args, distribute_saved_activations: bool = False,
-               policy=None):
-    """Refused: activation checkpointing is ROADMAP Queue 1 item 10,
-    part 10b."""
-    raise NotImplementedError(_CHECKPOINT.format(what="checkpoint"))
+def _policy_fn(saved, ctx, op, *args, **kwargs):
+    if op in saved:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpoint(function: Callable, *args,
+               distribute_saved_activations: bool = False, policy=None):
+    """``function(*args)``, its activations recomputed in the backward
+    (reference random.py:224-293; JAX ``jax.checkpoint``): non-reentrant
+    `torch.utils.checkpoint`, which restores torch's global generators
+    for the recompute. A function that draws from a generator of its own
+    must take its draws as arguments (the GPT model draws each layer's
+    dropout seeds before the checkpointed call), as JAX's remat replays
+    the same keys. ``distribute_saved_activations`` is accepted and
+    ignored, as in JAX. ``policy`` (a `CheckpointPolicy` value; None
+    saves nothing, as JAX's default) keeps those ops' outputs through
+    `torch.utils.checkpoint.create_selective_checkpoint_contexts`. The
+    port's kernels are ctypes calls inside `torch.autograd.Function`s,
+    not aten ops, so they are always recomputed."""
+    del distribute_saved_activations
+    kw = {}
+    if policy is not None:
+        if policy not in _POLICIES:
+            raise ValueError(f"policy must be a CheckpointPolicy value, got "
+                             f"{policy!r}")
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            functools.partial(_policy_fn, policy))
+    return torch_checkpoint.checkpoint(function, *args, use_reentrant=False,
+                                       **kw)

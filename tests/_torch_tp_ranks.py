@@ -17,6 +17,16 @@ tp=2 GPT on a contiguous cache. Suite ``"serve"``: the tp=2 engine
 (weights from `shard_tp1_params`) on float and int8 pages, greedy and
 sampled, with speculation, and a page-shipping migration.
 
+Suite ``"bert"``: the tp=2 BERT's logits, losses and every gradient in
+four forms (masked or not, token types or not), a 3-step
+`make_bert_train_step` LAMB trajectory, one LAMB step on the rank's
+shards, and the refusal of sequence parallelism. Suite ``"remat"``: the
+tp=2 GPT (sequence parallelism, rings) and BERT under
+``checkpoint_activations`` and post-LN, and the exchanges a remat step
+adds. Suite ``"qcomm"``: the three quantized rings at both comm dtypes
+and every fallback, the int8 collective matmuls forward and backward at
+every chunk form, and the int8 GPT step.
+
 Suite ``"train_ops"``: the collective matmuls' backward at every chunk
 form, the two vocab-parallel cross-entropies forward and backward, a
 LayerNorm with ``grad_sync_axis``, `broadcast_data` and the seeds of
@@ -109,6 +119,44 @@ DROPOUT_SEED = 7
 # the fused heads' forms: (smoothing, padding_idx, chunk_size)
 HEAD_FORMS = {"plain": (0.0, None, None), "smooth_pad": (0.1, 3, None),
               "chunked": (0.0, None, 8), "chunked_smooth_pad": (0.1, 3, 8)}
+# the bert suite: BERT at GPT_SHAPE's widths, B 2 x S 16, padding mask
+# lengths (16, 11); forms: (padding mask, token types)
+BERT_FORMS = {"unmasked": (False, False), "unmasked_types": (False, True),
+              "masked": (True, False), "masked_types": (True, True)}
+BERT_TRAJECTORY_FORMS = ("unmasked_types", "masked_types")
+BERT_LENGTHS = (16, 11)
+# LAMB's eps 1e-4 for the reason of Adam's below: the key bias's gradient
+# is fp32 noise, which eps 1e-6 turns into normalized steps of either sign
+LAMB_LR, LAMB_WD, LAMB_EPS = 1e-3, 0.01, 1e-4
+# the remat suite's forms: (model, config keywords)
+REMAT_FORMS = {
+    "gpt_remat": ("gpt", dict(checkpoint_activations=True)),
+    "gpt_postln": ("gpt", dict(apply_residual_connection_post_layernorm=True)),
+    "gpt_ring_remat": ("gpt", dict(sequence_parallel=True,
+                                   collective_matmul=True,
+                                   collective_matmul_chunk=RING_CHUNK,
+                                   checkpoint_activations=True)),
+    "gpt_ring_postln": ("gpt", dict(
+        sequence_parallel=True, collective_matmul=True,
+        collective_matmul_chunk=RING_CHUNK,
+        apply_residual_connection_post_layernorm=True)),
+    "bert_remat": ("bert", dict(checkpoint_activations=True)),
+    "bert_postln": ("bert", dict(
+        apply_residual_connection_post_layernorm=True)),
+}
+# the qcomm suite: the quantized rings' inputs (per-rank rows, width),
+# their chunk forms (one piece, a tiling chunk, a fallback) and the
+# all-reduce's rows that do not tile the group
+QROWS, QWIDTH = 12, 10
+QCHUNKS = (None, 3, 5)
+QODD_ROWS = 7
+INT8_FORMS = {
+    "int8_ring": dict(sequence_parallel=True, collective_matmul=True,
+                      comm_dtype="int8"),
+    "int8_ring_chunked": dict(sequence_parallel=True, collective_matmul=True,
+                              collective_matmul_chunk=RING_CHUNK,
+                              comm_dtype="int8"),
+}
 # the router suite: a fleet of two tp=2 engines, a rolling drain after
 # DRAIN_TICK fleet ticks, a replica_kill of replica 0 at KILL_TICK and a
 # replica_stall at STALL_TICK
@@ -116,14 +164,14 @@ DRAIN_TICK, KILL_TICK, STALL_TICK = 3, 2, 1
 CLOCK_TIMEOUT_S, CLOCK_SKEW_S = 0.5, 1.0
 
 
-def tree_of(inputs):
-    """The tp=1 param tree the test wrote (``p.<path>`` arrays)."""
+def tree_of(inputs, prefix="p."):
+    """The tp=1 param tree the test wrote (``<prefix><path>`` arrays)."""
     tree = {}
     for key in inputs.files:
-        if not key.startswith("p."):
+        if not key.startswith(prefix):
             continue
         node = tree
-        *path, leaf = key[len("p."):].split(".")
+        *path, leaf = key[len(prefix):].split(".")
         for p in path:
             node = node.setdefault(p, {})
         node[leaf] = inputs[key]
@@ -176,10 +224,7 @@ def _rings(inputs, rank, out):
         xg = x.clone().requires_grad_()
         fn(xg, w, "tensor").sum().backward()
         out[f"{name}_backward"] = xg.grad
-        try:
-            fn(x, w, "tensor", comm_dtype="int8")
-        except NotImplementedError as e:
-            out[f"{name}_int8"] = str(e)
+        out[f"{name}_int8"] = fn(x, w, "tensor", comm_dtype="int8")
         # an axis with no group bound is the plain matmul
         out[f"{name}_unbound"] = fn(x, w, "unbound")
 
@@ -445,6 +490,202 @@ def _train_ops_suite(inputs, rank, out):
                           .sum()) for k, g in keys.items()}
 
 
+def bert_config(tp, **kw):
+    from rocm_apex_tpu_torch.models.bert import BertConfig
+
+    return BertConfig(**{**GPT_SHAPE, "tensor_parallel_size": tp,
+                         "hidden_dropout": 0.0, "attention_dropout": 0.0,
+                         "params_dtype": torch.float32,
+                         "dtype": torch.float32, **kw})
+
+
+def bert_batch(inputs, form):
+    """(tokens, labels, token types or None, padding mask or None)."""
+    masked, types = BERT_FORMS[form]
+    t = {k: torch.from_numpy(inputs[f"bert_{k}"])
+         for k in ("tokens", "labels", "types", "mask")}
+    return (t["tokens"], t["labels"], t["types"] if types else None,
+            t["mask"] if masked else None)
+
+
+def decay_mask(names):
+    return {k: not (k.endswith("bias") or "layernorm" in k.lower())
+            for k in names}
+
+
+def _bert_loss_grads(model, inputs, form):
+    """Logits, binary logits, the per-token losses and every gradient of
+    mean(losses) + sum(binary * W)."""
+    tokens, labels, types, mask = bert_batch(inputs, form)
+    with torch.no_grad():
+        logits, binary = model(tokens, attention_mask=mask,
+                               tokentype_ids=types)
+    losses, b = model(tokens, attention_mask=mask, tokentype_ids=types,
+                      lm_labels=labels)
+    (losses.mean() + (b * torch.from_numpy(inputs["bert_w"])).sum()
+     ).backward()
+    # a leaf the forward does not read (the token types without types)
+    # has a zero gradient, as JAX gives it
+    return dict(logits=logits, binary=binary, losses=losses.detach(),
+                grads={k: torch.zeros_like(p) if p.grad is None else p.grad
+                       for k, p in model.named_parameters()})
+
+
+def _lamb(names):
+    from rocm_apex_tpu_torch.optimizers import MixedPrecisionLamb
+
+    return MixedPrecisionLamb(LAMB_LR, weight_decay=LAMB_WD, eps=LAMB_EPS,
+                              weight_decay_mask=decay_mask(names),
+                              compute_dtype=torch.float32)
+
+
+def _bert_suite(inputs, rank, out):
+    from rocm_apex_tpu_torch.convert import (
+        flatten_params,
+        from_jax_params,
+        train_state_from_jax_params,
+    )
+    from rocm_apex_tpu_torch.inference import shard_tp1_params
+    from rocm_apex_tpu_torch.models.bert import BertConfig, BertModel
+    from rocm_apex_tpu_torch.train import make_bert_train_step
+
+    tree = tree_of(inputs)
+    names = flatten_params(tree["params"])
+    for form in BERT_FORMS:
+        model = from_jax_params(tree, bert_config(2), device="cpu")
+        out[f"bert_{form}"] = _bert_loss_grads(model, inputs, form)
+    for form in BERT_TRAJECTORY_FORMS:
+        opt = _lamb(names)
+        model, state = train_state_from_jax_params(tree, bert_config(2), opt,
+                                                   device="cpu")
+        step = make_bert_train_step(model, opt)
+        tokens, labels, types, mask = bert_batch(inputs, form)
+        losses = []
+        for _ in range(TRAJECTORY_STEPS):
+            state, loss, found = step(state, tokens, labels, types,
+                                      attention_mask=mask)
+            losses.append((float(loss), bool(found)))
+        out[f"bert_trajectory_{form}"] = (losses, dict(state.master))
+    # one LAMB step on the rank's shards from given gradients: each
+    # sharded leaf's trust ratio from the rank's own shard norms
+    opt = _lamb(names)
+    model, state = train_state_from_jax_params(tree, bert_config(2), opt,
+                                               device="cpu")
+    grads = {k: torch.from_numpy(v) for k, v in flatten_params(
+        shard_tp1_params(model, tree_of(inputs, "g."))["params"]).items()}
+    state, _ = opt.step_and_probe(state, grads)
+    out["bert_lamb_step"] = dict(state.master)
+    # sequence parallelism at tp=2 is refused, by the config and by the
+    # model over the bound group's size
+    for what, fn in (
+            ("config", lambda: bert_config(2, sequence_parallel=True)),
+            ("model", lambda: BertModel(BertConfig(
+                **GPT_SHAPE, sequence_parallel=True), device="meta"))):
+        try:
+            fn()
+        except ValueError as e:
+            out[f"bert_sp_{what}"] = str(e)
+
+
+def _remat_suite(inputs, rank, out):
+    from rocm_apex_tpu_torch.convert import from_jax_params
+    from rocm_apex_tpu_torch.transformer import parallel_state
+
+    trees = {"gpt": tree_of(inputs), "bert": tree_of(inputs, "bp.")}
+    tokens, labels, mask = train_batch(inputs)
+    for form, (kind, kw) in REMAT_FORMS.items():
+        if kind == "gpt":
+            model = from_jax_params(trees["gpt"], gpt_config(2, **kw),
+                                    device="cpu")
+            loss = model(tokens, labels=labels, loss_mask=mask,
+                         loss_reduction="mean")
+            loss.backward()
+            out[form] = (loss.detach(), {
+                k: p.grad for k, p in model.named_parameters()})
+        else:
+            model = from_jax_params(trees["bert"], bert_config(2, **kw),
+                                    device="cpu")
+            out[form] = _bert_loss_grads(model, inputs, "masked_types")
+    # the exchanges of one ring step, with and without checkpointing
+    counts, inner = {}, parallel_state.exchange
+
+    def counted(kind, fn, t, group):
+        counts[key] = counts.get(key, 0) + 1
+        return inner(kind, fn, t, group)
+
+    parallel_state.exchange = counted
+    try:
+        for key, remat in (("ring", False), ("ring_remat", True)):
+            model = from_jax_params(trees["gpt"], gpt_config(
+                2, sequence_parallel=True, collective_matmul=True,
+                collective_matmul_chunk=RING_CHUNK,
+                checkpoint_activations=remat), device="cpu")
+            model(tokens, labels=labels, loss_mask=mask,
+                  loss_reduction="mean").backward()
+    finally:
+        parallel_state.exchange = inner
+    out["remat_exchanges"] = counts
+
+
+def _qcomm_suite(inputs, rank, out):
+    from rocm_apex_tpu_torch.convert import from_jax_params
+    from rocm_apex_tpu_torch.ops import quantized_collectives as qc
+    from rocm_apex_tpu_torch.ops.collective_matmul import (
+        all_gather_matmul,
+        matmul_reduce_scatter,
+    )
+    from rocm_apex_tpu_torch.transformer import parallel_state
+
+    def t(key):
+        return torch.from_numpy(inputs[key][rank])
+
+    x, odd = t("q_x"), t("q_odd")
+    for dtype in ("fp32", "int8"):
+        for chunk in QCHUNKS:
+            out[f"q_rs_{dtype}_{chunk}"] = qc.ring_reduce_scatter(
+                x, "tensor", comm_dtype=dtype, chunk=chunk)
+            out[f"q_ag_{dtype}_{chunk}"] = qc.ring_all_gather(
+                x, "tensor", comm_dtype=dtype, chunk=chunk)
+            out[f"q_ar_{dtype}_{chunk}"] = qc.ring_all_reduce(
+                x, "tensor", comm_dtype=dtype, chunk=chunk)
+        out[f"q_ar_{dtype}_odd"] = qc.ring_all_reduce(odd, "tensor",
+                                                      comm_dtype=dtype)
+        out[f"q_ag_{dtype}_dim1"] = qc.ring_all_gather(
+            x, "tensor", dim=1, comm_dtype=dtype)
+        out[f"q_rs_{dtype}_unbound"] = qc.ring_reduce_scatter(
+            x, "unbound", comm_dtype=dtype)
+    # the exchanges of one int8 hop: one (the pair in one buffer)
+    kinds, inner = [], parallel_state.exchange
+
+    def counted(kind, fn, tensor, group):
+        kinds.append((kind, tensor.dtype, tensor.numel()))
+        return inner(kind, fn, tensor, group)
+
+    parallel_state.exchange = counted
+    try:
+        qc.ring_all_gather(x, "tensor", comm_dtype="int8")
+    finally:
+        parallel_state.exchange = inner
+    out["q_hop_exchanges"] = kinds
+    for name, fn in (("ag", all_gather_matmul),
+                     ("rs", matmul_reduce_scatter)):
+        for chunk in RING_CHUNKS:
+            xg = t(f"{name}_x").clone().requires_grad_()
+            wg = t(f"{name}_w").clone().requires_grad_()
+            y = fn(xg, wg, "tensor", chunk, comm_dtype="int8")
+            y.backward(t(f"{name}_c"))
+            out[f"{name}_int8_{chunk}"] = (y.detach(), xg.grad, wg.grad)
+    tree = tree_of(inputs)
+    tokens, labels, mask = train_batch(inputs)
+    for form, kw in INT8_FORMS.items():
+        model = from_jax_params(tree, gpt_config(2, **kw), device="cpu")
+        loss = model(tokens, labels=labels, loss_mask=mask,
+                     loss_reduction="mean")
+        loss.backward()
+        out[form] = (loss.detach(), {
+            k: p.grad for k, p in model.named_parameters()})
+
+
 def train_batch(inputs):
     return tuple(torch.from_numpy(inputs[f"train_{k}"])
                  for k in ("tokens", "labels", "mask"))
@@ -668,7 +909,8 @@ def _router_suite(inputs, rank, out):
 
 SUITES = {"layers": _layers_suite, "serve": _serve_suite,
           "train_ops": _train_ops_suite, "train": _train_suite,
-          "router": _router_suite}
+          "router": _router_suite, "bert": _bert_suite,
+          "remat": _remat_suite, "qcomm": _qcomm_suite}
 
 
 def run(rank, n, workdir, suite):

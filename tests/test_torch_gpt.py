@@ -209,9 +209,9 @@ class TestCachedSteps:
 
 class TestEntryPoints:
     def test_unported_paths_raise(self, models):
-        """The tp>1 training options and the GPT options the port cannot
-        run yet raise, naming their ROADMAP item (BERT, a training path,
-        at tp > 1 or under sequence parallelism); the vocab-parallel
+        """The GPT options the port cannot run yet raise, naming their
+        ROADMAP item; BERT at tp > 1 constructs, and under sequence
+        parallelism runs at tp=1 and is refused at tp>1; the vocab-parallel
         fused head at world size 2 asks for its process group; "jnp"
         attention and context
         parallelism construct (tests/test_torch_gpt_jnp.py,
@@ -228,17 +228,21 @@ class TestEntryPoints:
         with pytest.raises(ValueError, match="collide"):
             GPTConfig(**SHAPE, context_parallel_axis="cp",
                       sequence_parallel=True)
-        with pytest.raises(NotImplementedError,
-                           match="sequence_parallel.*ROADMAP"):
-            BertConfig(**SHAPE, sequence_parallel=True)
+        # BERT under sequence parallelism: a no-op at tp=1, as in JAX
+        # (tests/test_torch_bert_tp.py holds it to the plain model), and
+        # refused at tp>1, where the JAX model does not compute it
+        assert BertConfig(**SHAPE, sequence_parallel=True).sequence_parallel
+        with pytest.raises(ValueError, match="JAX BertModel does not"):
+            BertConfig(**{**SHAPE, "tensor_parallel_size": 2},
+                       sequence_parallel=True)
         # the materialized head runs now (tests/test_torch_bert.py)
         assert not GPTConfig(**SHAPE, fused_lm_head=False).fused_lm_head
         paged = PagedKVCache.for_model(torch_cfg(), 1, CAPACITY, page_size=8,
                                        device="cpu")
         with pytest.raises(ValueError, match="whole-prompt"):
             model(torch.zeros((1, 4), dtype=torch.int64), cache=paged)
-        with pytest.raises(NotImplementedError, match="tensor_parallel"):
-            BertConfig(tensor_parallel_size=2)
+        # BERT at tp=2 constructs (tests/test_torch_bert_tp.py trains it)
+        assert BertConfig(tensor_parallel_size=2).tensor_parallel_size == 2
         # the vocab-parallel fused head runs at world size 2 (tests/
         # test_torch_tp_train_ops.py); without a bound group it asks for one
         with pytest.raises(ValueError, match="world_size=2 needs a process"):

@@ -236,8 +236,10 @@ def test_collective_matmul_matches_jax(ranks, name, chunk):
 
 
 def test_collective_matmul_refusals_name_item_10(ranks):
-    """``comm_dtype="int8"`` raises naming item 10's part 10c; the rings'
-    backward runs (its values are held to JAX's in
+    """``comm_dtype="int8"`` (item 10's part 10c) runs now: each ring's
+    int8 output within the int8 rounding of its fp32 output (its values
+    are held to JAX's in tests/test_torch_quantized_collectives.py); the
+    rings' backward runs (held to JAX's in
     tests/test_torch_tp_train_ops.py): the input gradient of the summed
     output, finite and shaped like the input."""
     for r, o in enumerate(ranks["outs"]):
@@ -245,8 +247,10 @@ def test_collective_matmul_refusals_name_item_10(ranks):
             dx = o[f"{name}_backward"]
             assert tuple(dx.shape) == ranks["inputs"][f"{name}_x"][r].shape
             assert torch.isfinite(dx).all()
-            assert "comm_dtype='int8'" in o[f"{name}_int8"]
-            assert "item 10, part 10c" in o[f"{name}_int8"]
+            full, q = o[f"{name}_None"], o[f"{name}_int8"]
+            assert q.shape == full.shape and q.dtype == full.dtype
+            err = float((q - full).abs().max() / full.abs().max())
+            assert 0.0 < err < 0.05, (name, r, err)
 
 
 @pytest.mark.parametrize("name", list(R.LAYERS))

@@ -285,10 +285,20 @@ def test_fold_in_is_the_dropout_hash():
 
 
 def test_checkpoint_is_refused_naming_10b():
-    with pytest.raises(NotImplementedError, match="item 10, part 10b"):
-        trandom.checkpoint(lambda x: x, torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="part 10b"):
-        trandom.CheckpointPolicy.DOTS_SAVEABLE
+    """Activation checkpointing (part 10b) runs now: ``checkpoint`` returns
+    the function's value and its gradient, ``distribute_saved_activations``
+    accepted and ignored as in JAX; the policies name the products they
+    save (tests/test_torch_remat.py holds them to ``jax.checkpoint``)."""
+    x = torch.arange(3.0, requires_grad=True)
+    y = trandom.checkpoint(lambda t: (t * t).sum(), x,
+                           distribute_saved_activations=True)
+    y.backward()
+    assert float(y) == 5.0
+    assert torch.equal(x.grad, 2 * x.detach())
+    aten = torch.ops.aten
+    assert trandom.CheckpointPolicy.DOTS_SAVEABLE == {
+        aten.mm.default, aten.addmm.default, aten.bmm.default}
+    assert not trandom.CheckpointPolicy.NOTHING_SAVEABLE
 
 
 def test_memory_buffers_match_jax():
