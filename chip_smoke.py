@@ -323,7 +323,25 @@ JAX package) through these phases, in order; any failure exits non-zero:
              memory (lower with it), the kernels' calls a step (each
              layer's forward twice); the fp32 twins of checkpointing and
              post-LN, GPT and BERT, card == cpu;
-36. report   a ``{"kernels": [...]}`` line, then the device line
+36. data_parallel  data parallelism at dp=2 (bench.py's ``--dist-opt``
+             step and DDP): rows 14 and 15 at a rank's ZeRO shard and
+             rows 1, 2, 8 and 11 at its 8 sequences held to their plain
+             versions (twice for the same bits, on their routes); then
+             two spawned ranks run the train cell's bf16 step on 8
+             sequences each under DistributedFusedAdam at fp32 and int8
+             comm and under DDP (`sync_gradients`, MixedPrecisionAdam):
+             each rank's own finite losses, the parameters bit-equal on
+             both ranks after every step, the exchanges a step and their
+             MiB as derived, no other sync, the kernels' calls a step, the
+             ZeRO state half the replicated one; the fp32 twins card vs
+             cpu (ZeRO Adam, ZeRO LAMB at the fp32, bf16 and e5m2 wires,
+             DDP, int8 comm); ResNet-50 under SyncBatchNorm, 64 images a
+             rank, bf16 O5 (statistics and params bit-equal on both ranks,
+             the exchanges as derived) and its fp32 twin; SpatialBottleneck
+             at layer3's widths, H 14 split 7 + 7, against the unsharded
+             block;
+37. report   a ``{"kernels": [...]}`` line (the data-parallel rank cases
+             under ``data_parallel_cases``), then the device line
              ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--out DIR`` also writes every number and the compiler's register and
@@ -506,7 +524,8 @@ PHASES = ("kernels", "parity", "serve", "serve_paged", "serve_whole",
           "train_packed", "rn50_parity", "rn50_train", "rn50_train_fused",
           "mha", "context_parallel", "serve_jnp", "optim_amp", "head_dims",
           "fp16", "serve_spec", "serve_chaos", "serve_lora", "serve_router",
-          "serve_tp", "serve_monitor", "train_tp", "bert_tp", "remat")
+          "serve_tp", "serve_monitor", "train_tp", "bert_tp", "remat",
+          "data_parallel")
 SERVE_KERNELS = ("layer_norm_fwd", "flash_segments_serve",
                  "flash_attention_decode")
 # the paged serve's kernels: the contiguous decode read gives way to the
@@ -4647,15 +4666,17 @@ def sync_audit(*engs):
     inside `parallel_state.exchange` (the staged exchanges of the tensor
     group: a gloo collective copies its card tensors through host
     memory), counted by kind as ``exchange:<kind>`` (`exchange_count`
-    sums them), and so too with no engine in a tensor group of more than
-    one rank (a tensor-parallel training step). Yields the counts.
+    sums them), and so too with no engine in a process group of more than
+    one rank (a tensor- or data-parallel training step). Yields the
+    counts.
     Without a card (a CPU rehearsal of the ranks) nothing can sync one,
     and the window only counts."""
+    import torch.distributed as dist
+
     from rocm_apex_tpu_torch.transformer import parallel_state
 
     tp = any(getattr(eng, "tp", 1) > 1 for eng in engs) or (
-        parallel_state.model_parallel_is_initialized()
-        and parallel_state.get_tensor_model_parallel_world_size() > 1)
+        dist.is_initialized() and dist.get_world_size() > 1)
     counts = dict.fromkeys(ENGINE_SYNCS, 0)
     mode = (torch.cuda.set_sync_debug_mode if torch.cuda.is_available()
             else lambda _: None)
@@ -5989,10 +6010,11 @@ def _rn50_batch(batch, size, device):
 
 
 def _rn50_trainer(model, opt_level, lr=1e-3, eps=1e-8, optimizer=None,
-                  **overrides):
+                  grad_sync=None, **overrides):
     """``(step, params, opt_state, scaler_states)``: bench.py's
     `amp.initialize(params, FusedAdam(1e-3, weight_decay=1e-4), opt_level)`
-    (or ``optimizer``) and its one_step."""
+    (or ``optimizer``) and its one_step (with ``grad_sync``, the
+    data-parallel sync of its gradients)."""
     from rocm_apex_tpu_torch import amp
     from rocm_apex_tpu_torch.optimizers import FusedAdam
     from rocm_apex_tpu_torch.train import make_rn50_train_step
@@ -6002,8 +6024,8 @@ def _rn50_trainer(model, opt_level, lr=1e-3, eps=1e-8, optimizer=None,
     params, opt, st = amp.initialize(
         {k: v.detach() for k, v in model.named_parameters()},
         optimizer, opt_level=opt_level, verbosity=0, **overrides)
-    return (make_rn50_train_step(model, opt, st), params, opt.init(params),
-            st.scaler_states)
+    return (make_rn50_train_step(model, opt, st, grad_sync=grad_sync),
+            params, opt.init(params), st.scaler_states)
 
 
 def _stats_scale(stats):
@@ -7027,11 +7049,12 @@ def _state_leaves(state, prefix="state"):
     return [x for k, v in items for x in _state_leaves(v, f"{prefix}.{k}")]
 
 
-def _param_err(card, cpu, p0):
+def _param_err(card, cpu, p0, rel_slack=0.0):
     """The worst |card - cpu| over its tolerance among the params, and
     where: PACKED_MASTER_RTOL of |p0| + |step| plus OPTIM_STEP_SHARE of
     the leaf's largest step |cpu - p0| (plus one bf16 step for a bf16
-    param). Computed a leaf at a time on ``card``'s device."""
+    param, and ``rel_slack`` of |cpu|). Computed a leaf at a time on
+    ``card``'s device."""
     worst, where = 0.0, None
     for k, v in cpu.items():
         c = card[k].float()
@@ -7041,6 +7064,8 @@ def _param_err(card, cpu, p0):
                + OPTIM_STEP_SHARE * step.max())
         if cpu[k].dtype == torch.bfloat16:
             tol = tol + OPTIM_BF16_STEP * v.abs()
+        if rel_slack:
+            tol = tol + rel_slack * v.abs()
         # equal values pass where the tolerance is 0 (a leaf that did
         # not move); any difference there is infinitely over it
         r = float(torch.where(c == v, 0.0, (c - v).abs() / tol).max())
@@ -9467,10 +9492,10 @@ def _tp_twin(rank, dev, spec, out):
 
 def _tp_rank(rank, n, workdir, spec):
     """One rank of a two-rank phase (spawned; ``spec["phase"]`` names
-    it): the gloo group, the tensor axis (`initialize_model_parallel`),
-    then ``serve_tp``'s serves, fleet and twin, or ``train_tp``'s steps
-    and twin; writes rank<r>.pt (an ``error`` entry if anything
-    raised)."""
+    it): the gloo group, the tensor and data axes
+    (`initialize_model_parallel` at ``spec["tp"]``, default the two
+    ranks), then the phase's work (`_TP_WORK`); writes rank<r>.pt (an
+    ``error`` entry if anything raised)."""
     import datetime
     import traceback
 
@@ -9490,7 +9515,7 @@ def _tp_rank(rank, n, workdir, spec):
             world_size=n, timeout=datetime.timedelta(seconds=120))
         from rocm_apex_tpu_torch.transformer import parallel_state
 
-        parallel_state.initialize_model_parallel(n)
+        parallel_state.initialize_model_parallel(spec.get("tp", n))
         t0 = time.perf_counter()
         for work in _TP_WORK[spec["phase"]]:
             work(rank, dev, spec, out)
@@ -10394,6 +10419,36 @@ def tp_train_ring_mib(layers, batch, seq, hidden, comm_dtype):
     return layers * per_layer / 2**20
 
 
+class _ExchangeCounter:
+    """Counts `parallel_state.exchange` calls by kind while open, with
+    their payload bytes and host seconds (an exchange's first copy waits
+    for the work queued before it)."""
+
+    def __enter__(self):
+        from rocm_apex_tpu_torch.transformer import parallel_state
+
+        self.ps, self.inner = parallel_state, parallel_state.exchange
+        self.counts, self.nbytes, self.seconds = {}, {}, {}
+
+        def counted(kind, fn, t, group):
+            t1 = time.perf_counter()
+            try:
+                return self.inner(kind, fn, t, group)
+            finally:
+                self.seconds[kind] = (self.seconds.get(kind, 0.0)
+                                      + time.perf_counter() - t1)
+                self.counts[kind] = self.counts.get(kind, 0) + 1
+                self.nbytes[kind] = (self.nbytes.get(kind, 0)
+                                     + t.numel() * t.element_size())
+
+        parallel_state.exchange = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.ps.exchange = self.inner
+        return False
+
+
 def _audited_steps(step, warmup, steps, dev):
     """``step()`` (returning its loss, a device tensor) ``warmup`` times,
     then ``steps`` times under `sync_audit` (no sync but the staged
@@ -10406,33 +10461,18 @@ def _audited_steps(step, warmup, steps, dev):
         device_launches,
         reset_device_launches,
     )
-    from rocm_apex_tpu_torch.transformer import parallel_state
 
     losses = [step() for _ in range(warmup)]
     _zero_launches()
     reset_device_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    ex_s, ex_bytes, inner = {}, {}, parallel_state.exchange
-
-    def timed(kind, fn, t, group):
-        t1 = time.perf_counter()
-        try:
-            return inner(kind, fn, t, group)
-        finally:
-            ex_s[kind] = ex_s.get(kind, 0.0) + time.perf_counter() - t1
-            ex_bytes[kind] = (ex_bytes.get(kind, 0)
-                              + t.numel() * t.element_size())
-
-    parallel_state.exchange = timed
     t0 = time.perf_counter()
-    try:
+    with _ExchangeCounter() as ex:
         with sync_audit() as syncs:
             for _ in range(steps):
                 losses.append(step())
         _sync()
-    finally:
-        parallel_state.exchange = inner
     dt = time.perf_counter() - t0
     return dict(
         losses=[float(x) for x in losses], step_ms=1e3 * dt / steps,
@@ -10440,8 +10480,8 @@ def _audited_steps(step, warmup, steps, dev):
         exchanges={k.split(":")[1]: n / steps
                    for k, n in syncs.items() if k.startswith("exchange:")},
         exchanges_per_step=exchange_count(syncs) / steps,
-        exchange_ms={k: 1e3 * v / steps for k, v in ex_s.items()},
-        exchange_mib={k: v / 2**20 / steps for k, v in ex_bytes.items()},
+        exchange_ms={k: 1e3 * v / steps for k, v in ex.seconds.items()},
+        exchange_mib={k: v / 2**20 / steps for k, v in ex.nbytes.items()},
         syncs={k: n for k, n in syncs.items()
                if not k.startswith("exchange:") and n},
         launches=_launches(), device_kernels=sorted(device_launches()),
@@ -11292,6 +11332,702 @@ def run_remat_phase():
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 36: data parallelism
+# ---------------------------------------------------------------------------
+
+# bench.py's --dist-opt step (bench.py:2360-2420) at the train cell's
+# config, dp=2 on the one card (two gloo ranks): each rank takes 8 of the
+# 16 sequences and feeds its unreduced gradients to DistributedFusedAdam
+# (1e-4, wd 0.01, allgather fp32), at fp32 and then at int8 comm; then
+# the same step under DDP (`sync_gradients` before MixedPrecisionAdam
+# under a dynamic LossScaler: __graft_entry__.py part A's data side)
+DP_WARMUP, DP_STEPS = 1, 2
+DP_COMMS = ("fp32", "int8")
+# the ZeRO state a rank against the replicated MixedPrecisionAdam's 12 B
+# a parameter (masters, m, v): each rank holds half of every buffer
+# padded to 64-row blocks x 2 ranks
+DP_STATE_SHARE = (0.49, 0.52)
+# the fp32 twins, card against cpu on each rank: 2 layers at hidden 256
+# (2 heads of 128), B 2 x S 128 a rank, dropout 0, DP_TWIN["steps"]
+# steps; each form's params held by the optimizer parity rule
+# (`_param_err`), its losses to PARITY_LOSS_RTOL; the int8 form's params
+# within INT8_TWIN_FACTOR of the int8 wire's own effect on the CPU
+DP_TWIN = dict(num_layers=2, hidden_size=256, num_attention_heads=2,
+               batch=2, seq=128, steps=2)
+DP_TWIN_FORMS = {
+    "zero_adam": ("adam", dict()),
+    "zero_lamb": ("lamb", dict()),
+    "zero_lamb_bf16": ("lamb", dict(allgather_dtype="bf16")),
+    "zero_lamb_e5m2": ("lamb", dict(allgather_dtype="e5m2")),
+    "zero_adam_int8": ("adam", dict(comm_dtype="int8")),
+    "ddp": ("ddp", dict()),
+}
+# a low wire's params are masters rounded to it: on either side of a
+# rounding edge they differ by one step of the wire (bf16 2^-7, e5m2 2^-2
+# of the value), which the parity rule's tolerance gains (`_param_err`'s
+# ``rel_slack``)
+DP_WIRE_STEP = {"bf16": 2.0 ** -7, "e5m2": 2.0 ** -2}
+# ResNet-50 under SyncBatchNorm: bench.py rn50 at the rn50 cell's global
+# batch (128: 64 a rank), 224^2, bf16 O5, FusedAdam after sync_gradients
+DP_RN50_BATCH = RN50_BATCH // 2
+# its fp32 twin at rn50_parity's size on each rank (B 2 x 64^2, its bn3
+# scale, lr and eps), card vs cpu: the first forward's loss and running
+# statistics held by rn50_parity's rules; the first gradients (each
+# rank's, before the sync), the later losses and the masters reported.
+# At 16-64 values a channel the backward is ill-conditioned in fp32: on
+# the CPU alone one and six threads (two summation orders) put a leaf's
+# first gradient 4.5% of its largest entry apart (layer4_0.conv1), a 1e-6
+# draw added to the images moves the second loss by 1.3e-4 and the
+# masters by 0.40 of a leaf's largest entry; the card ("NVIDIA H100 80GB
+# HBM3, 700.00 W") and the CPU put layer3_2.conv1's 4.3% apart.
+# SyncBatchNorm's backward with its staged exchange is held on the card
+# where it is well conditioned: `_dp_spatial` (784 values a channel,
+# within DP_SPATIAL_RTOL)
+DP_RN50_TWIN = dict(batch=RN50_PARITY["batch"], size=RN50_PARITY["size"],
+                    steps=2, lr=RN50_PARITY["lr"], eps=RN50_PARITY["eps"])
+# SpatialBottleneck at layer3's widths (1024 -> 256 -> 1024), H 14 split
+# 7 + 7 over the two ranks, fp32 with TF32 off, training (SyncBatchNorm
+# over the spatial axis) against the unsharded Bottleneck on the gathered
+# input: output and every gradient within DP_SPATIAL_RTOL of its scale
+DP_SPATIAL = dict(batch=4, size=14, cin=1024, cmid=256, cout=1024)
+DP_SPATIAL_RTOL = 1e-4
+
+
+def _dp_train_cfg(dtype=torch.bfloat16, **over):
+    """The train cell's GPTConfig (``over`` replacing its entries)."""
+    from rocm_apex_tpu_torch.models.gpt import GPTConfig
+
+    return GPTConfig(**{**TRAIN, **over}, params_dtype=torch.float32,
+                     dtype=dtype)
+
+
+def _dp_model_spec(cfg):
+    """The pack spec of a GPT's parameters in their stored dtypes (the
+    linears and embeddings in the compute dtype, the LayerNorms fp32):
+    the layout the ZeRO optimizer shards."""
+    from rocm_apex_tpu_torch.models.gpt import GPTModel
+    from rocm_apex_tpu_torch.ops.packing import build_pack_spec
+
+    return build_pack_spec(dict(GPTModel(cfg, device="meta")
+                                .named_parameters()))
+
+
+def dp_zero_exchanges(spec, comm, ranks=2):
+    """The staged exchanges and their MiB a ZeRO step takes a rank,
+    derived, by kind: fp32 comm, a group's reduce-scatter (an all-reduce
+    of the whole fp32 buffer, padded to 64 rows x ranks, then the rank's
+    block) and the all-gather of its fp32 master shard; int8 comm, the
+    ring's ranks - 1 hops each way, each hop a shard's int8 body (1 byte
+    an element) with its fp32 scale column (4 bytes a row) in one
+    buffer."""
+    from rocm_apex_tpu_torch.ops.packing import ALIGN_ROWS, WIDTH
+
+    ex, mib = {}, {}
+
+    def add(kind, n, nbytes):
+        ex[kind] = ex.get(kind, 0) + n
+        mib[kind] = mib.get(kind, 0.0) + n * nbytes / 2**20
+
+    for g in spec.groups:
+        rows = -(-g.rows // (ALIGN_ROWS * ranks)) * ALIGN_ROWS * ranks
+        shard = rows // ranks
+        if comm == "int8":
+            add("shift", 2 * (ranks - 1), shard * (WIDTH + 4))
+        else:
+            add("reduce_scatter", 1, rows * WIDTH * 4)
+            add("all_gather", 1, shard * WIDTH * 4)
+    return ex, mib
+
+
+def _fingerprint(tensors):
+    """One int64 a tensor, the sum of its bits read as integers, on the
+    device (no sync): two ranks' tensors with equal fingerprints hold the
+    same bits but for a compensating change."""
+    return torch.stack([t.detach().view(
+        torch.int16 if t.element_size() == 2 else torch.int32).sum(
+        dtype=torch.int64) for t in tensors])
+
+
+def _dp_gpt_steps(rank, dev, spec, out):
+    """The bf16 train cell on this rank's half of the batch: the ZeRO step
+    (`make_zero_train_step`) at each comm dtype, then the DDP step
+    (`make_train_step(grad_sync=sync_gradients)`), each warmed up and
+    timed under `sync_audit` (`_audited_steps`), a fingerprint of every
+    parameter (and of the DDP masters) after each step, the optimizer
+    state's bytes."""
+    from rocm_apex_tpu_torch.amp import LossScaler
+    from rocm_apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from rocm_apex_tpu_torch.convert import (random_params,
+                                             train_state_from_jax_params)
+    from rocm_apex_tpu_torch.optimizers import MixedPrecisionAdam
+    from rocm_apex_tpu_torch.parallel import sync_gradients
+    from rocm_apex_tpu_torch.train import make_train_step, make_zero_train_step
+
+    cfg = _dp_train_cfg(**spec["train"])
+    tree = random_params(cfg, seed=0)
+    tokens, labels = _train_batch(cfg, spec["batch"], spec["seq"])
+    rows = spec["batch"] // TP_RANKS
+    tokens = tokens[rank * rows:(rank + 1) * rows].to(dev)
+    labels = labels[rank * rows:(rank + 1) * rows].to(dev)
+    for form in list(spec["comms"]) + ["ddp"]:
+        t0 = time.perf_counter()
+        prints = []
+        gen = torch.Generator().manual_seed(0)  # CPU: the dropout seeds
+        if form == "ddp":
+            opt = MixedPrecisionAdam(1e-4, weight_decay=0.01,
+                                     compute_dtype=cfg.dtype)
+            scaler = LossScaler("dynamic")
+            model, state = train_state_from_jax_params(tree, cfg, opt,
+                                                       device=dev)
+            step = make_train_step(model, opt, scaler,
+                                   grad_sync=sync_gradients)
+            carry = [state, scaler.init(dev)]
+
+            def one():
+                carry[0], carry[1], loss = step(
+                    carry[0], carry[1], tokens, labels,
+                    dropout_generator=gen)
+                prints.append(_fingerprint(
+                    list(carry[0].model.values())
+                    + list(carry[0].master.values())))
+                return loss
+        else:
+            opt = DistributedFusedAdam(1e-4, weight_decay=0.01,
+                                       allgather_dtype="fp32",
+                                       comm_dtype=form)
+            model, state = train_state_from_jax_params(tree, cfg, opt,
+                                                       device=dev)
+            step = make_zero_train_step(model, opt)
+            carry = [state]
+            params = list(model.parameters())
+
+            def one():
+                carry[0], loss = step(carry[0], tokens, labels,
+                                      dropout_generator=gen)
+                prints.append(_fingerprint(params))
+                return loss
+        setup_s = time.perf_counter() - t0
+        state_t = ([carry[0].master, carry[0].m, carry[0].v]
+                   if form != "ddp" else [list(carry[0].master.values()),
+                                          list(carry[0].m.values()),
+                                          list(carry[0].v.values())])
+        res = _audited_steps(one, spec["warmup"], spec["steps"], dev)
+        res.update(setup_s=setup_s, fingerprints=torch.stack(prints).cpu(),
+                   state_bytes=sum(nbytes(*ts) for ts in state_t),
+                   params=sum(p.numel() for p in model.parameters()),
+                   tokens_per_s=rows * spec["seq"] * spec["steps"]
+                   / res["seconds"])
+        if form == "ddp":
+            res.update(overflows=int(carry[1].overflows),
+                       loss_scale=float(carry[1].loss_scale))
+        out[f"gpt_{form}"] = res
+        del step, state, carry, one, model, opt
+        _free_card()
+
+
+def _dp_twin_run(kind, kw, cfg, tree, tokens, labels, where, steps):
+    """One twin form on ``where``: ``steps`` steps from the tree; the
+    losses and the params by name (CPU fp32)."""
+    from rocm_apex_tpu_torch.amp import LossScaler
+    from rocm_apex_tpu_torch.contrib.optimizers import (
+        DistributedFusedAdam, DistributedFusedLAMB)
+    from rocm_apex_tpu_torch.convert import train_state_from_jax_params
+    from rocm_apex_tpu_torch.optimizers import MixedPrecisionAdam
+    from rocm_apex_tpu_torch.parallel import sync_gradients
+    from rocm_apex_tpu_torch.train import make_train_step, make_zero_train_step
+
+    losses = []
+    if kind == "ddp":
+        opt = MixedPrecisionAdam(1e-3, weight_decay=0.01, eps=1e-4,
+                                 compute_dtype=torch.float32)
+        scaler = LossScaler("dynamic")
+        model, state = train_state_from_jax_params(tree, cfg, opt,
+                                                   device=where)
+        step = make_train_step(model, opt, scaler, grad_sync=sync_gradients)
+        sstate = scaler.init(model.device)
+        for _ in range(steps):
+            state, sstate, loss = step(state, sstate, tokens, labels)
+            losses.append(float(loss))
+        return losses, {k: v.detach().float().cpu()
+                        for k, v in state.master.items()}
+    cls = DistributedFusedAdam if kind == "adam" else DistributedFusedLAMB
+    opt = cls(1e-3, weight_decay=0.01, **({"eps": 1e-4} if kind == "adam"
+                                          else {}), **kw)
+    model, state = train_state_from_jax_params(tree, cfg, opt, device=where)
+    step = make_zero_train_step(model, opt)
+    for _ in range(steps):
+        state, loss = step(state, tokens, labels)
+        losses.append(float(loss))
+    return losses, {k: p.detach().float().cpu()
+                    for k, p in model.named_parameters()}
+
+
+def _dp_twin(rank, dev, spec, out):
+    """The fp32 twins on this rank (`DP_TWIN_FORMS`): each form's steps on
+    the card and on the CPU from one tree and this rank's batch; the
+    losses' relative difference and the params' worst error over the
+    optimizer parity rule; the int8 form's distance from the CPU against
+    the int8 wire's own effect there (the CPU fp32-comm run's params)."""
+    from rocm_apex_tpu_torch.convert import flatten_params, random_params
+
+    tw = spec["twin"]
+    cfg = _dp_train_cfg(**{**spec["train"], **{
+        k: tw[k] for k in ("num_layers", "hidden_size",
+                           "num_attention_heads")},
+        "hidden_dropout": 0.0, "attention_dropout": 0.0},
+        dtype=torch.float32)
+    tree = random_params(cfg, seed=0)
+    p0 = {k: torch.as_tensor(v).float()
+          for k, v in flatten_params(tree["params"]).items()}
+    tokens, labels = _train_batch(cfg, tw["batch"] * TP_RANKS, tw["seq"])
+    sl = slice(rank * tw["batch"], (rank + 1) * tw["batch"])
+    tokens, labels = tokens[sl], labels[sl]
+    res = {}
+    for form, (kind, kw) in spec["twin_forms"].items():
+        lc, pc = _dp_twin_run(kind, kw, cfg, tree, tokens.to(dev),
+                              labels.to(dev), dev, tw["steps"])
+        lp, pp = _dp_twin_run(kind, kw, cfg, tree, tokens, labels, "cpu",
+                              tw["steps"])
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+        if kw.get("comm_dtype") == "int8":
+            _, pf = _dp_twin_run(kind, {}, cfg, tree, tokens, labels, "cpu",
+                                 tw["steps"])
+            res[form] = dict(loss_card=lc, loss_cpu=lp, loss_rel=loss_rel,
+                             card_vs_cpu=_grad_worst(pc, pp),
+                             wire_effect=_grad_worst(pp, pf))
+        else:
+            err, where = _param_err(pc, pp, p0, DP_WIRE_STEP.get(
+                kw.get("allgather_dtype"), 0.0))
+            res[form] = dict(loss_card=lc, loss_cpu=lp, loss_rel=loss_rel,
+                             param_err=err, param_where=where)
+        _free_card()
+    out["twin"] = res
+
+
+def _resnet_sync(dev, dtype, batch, size):
+    """ResNet-50 with every norm on SyncBatchNorm over the data axis, from
+    seeded weights; its batch for this rank (the rank's seed)."""
+    from rocm_apex_tpu_torch.models import resnet50
+    from rocm_apex_tpu_torch.transformer import parallel_state
+
+    model = resnet50(num_classes=RN50_CLASSES, dtype=dtype,
+                     sync_bn_axis="data", device=dev,
+                     generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(
+        1 + parallel_state.get_data_parallel_rank())
+    x = torch.randn(batch, size, size, 3, generator=gen)
+    y = torch.randint(0, RN50_CLASSES, (batch,), generator=gen)
+    return model, x.to(dev), y.to(dev)
+
+
+def dp_rn50_exchanges(model, params):
+    """A SyncBatchNorm step's exchanges and MiB, derived: each norm's
+    stacked statistics (count, C sums, C sums of squares: fp32) in the
+    forward and their cotangents in the backward, then one gradient
+    bucket a dtype of ``params``."""
+    from rocm_apex_tpu_torch.parallel import SyncBatchNorm
+
+    norms = [m for m in model.modules() if isinstance(m, SyncBatchNorm)]
+    buckets = {}
+    for p in params.values():
+        buckets[p.dtype] = buckets.get(p.dtype, 0) + p.numel() * \
+            p.element_size()
+    stats = sum(2 * (1 + 2 * m.num_features) * 4 for m in norms)
+    return (dict(all_reduce=2 * len(norms) + len(buckets)),
+            dict(all_reduce=(stats + sum(buckets.values())) / 2**20),
+            len(norms))
+
+
+def _dp_rn50(rank, dev, spec, out):
+    """bench.py rn50's step under SyncBatchNorm on this rank's 64 images:
+    bf16 O5, FusedAdam, the gradients through `sync_gradients`; warm-up
+    and timed steps, the exchanges of the timed steps counted; a
+    fingerprint of the running statistics; then the fp32 twin, card and
+    cpu, at `DP_RN50_TWIN`."""
+    from rocm_apex_tpu_torch.parallel import sync_gradients
+
+    r = spec["rn50"]
+    model, x, y = _resnet_sync(dev, torch.bfloat16, r["batch"], r["size"])
+    step, params, opt_state, ss = _rn50_trainer(model, "O5",
+                                                grad_sync=sync_gradients)
+    carry = [params, opt_state, ss]
+
+    def one():
+        carry[0], carry[1], carry[2], loss = step(*carry, x, y)
+        return loss
+
+    want_ex, want_mib, norms = dp_rn50_exchanges(model, params)
+    losses = [one() for _ in range(spec["warmup"])]
+    _zero_launches()
+    t0 = time.perf_counter()
+    with _ExchangeCounter() as c:
+        for _ in range(spec["steps"]):
+            losses.append(one())
+        _sync()
+    dt = time.perf_counter() - t0
+    out["rn50"] = dict(
+        losses=[float(v) for v in losses], step_ms=1e3 * dt / spec["steps"],
+        images_per_s=r["batch"] * spec["steps"] / dt, norms=norms,
+        exchanges={k: n / spec["steps"] for k, n in c.counts.items()},
+        exchange_mib={k: n / 2**20 / spec["steps"]
+                      for k, n in c.nbytes.items()},
+        exchanges_want=want_ex, mib_want=want_mib, launches=_launches(),
+        stats_print=_fingerprint([b for _, b in model.named_buffers()])
+        .cpu(), params_print=_fingerprint(list(carry[0].values())).cpu())
+    del model, step, carry, one, params, opt_state
+    _free_card()
+    tw = spec["rn50_twin"]
+    got = {}
+    for where in (dev, torch.device("cpu")):
+        model, x, y = _resnet_sync(where, torch.float32, tw["batch"],
+                                   tw["size"])
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("bn3.scale"):
+                    p.fill_(RN50_PARITY_BN3_SCALE)
+        first = {}
+
+        def capture(grads, first=first):
+            if not first:
+                first.update({k: v.detach().float().cpu().clone()
+                              for k, v in grads.items()})
+            return sync_gradients(grads)
+
+        step, params, opt_state, ss = _rn50_trainer(
+            model, "O0", lr=tw["lr"], eps=tw["eps"], master_weights=True,
+            loss_scale="dynamic", grad_sync=capture)
+        carry, losses, stats = [params, opt_state, ss], [], None
+        for _ in range(tw["steps"]):
+            carry[0], carry[1], carry[2], loss = step(*carry, x, y)
+            losses.append(float(loss))
+            # the statistics of the first forward alone: no update yet
+            stats = stats or {k: b.cpu().clone()
+                              for k, b in model.named_buffers()}
+        got[where.type] = (losses, first, stats, {
+            k: v.detach().float().cpu() for k, v in carry[1].master.items()})
+        del model
+        _free_card()
+    (lc, gc, sc, mc), (lp, gp, sp, mp) = got[dev.type], got["cpu"]
+    apart = {k: float((gc[k] - g).abs().max() / g.abs().max().clamp_min(
+        1e-30)) for k, g in gp.items()}
+    worst = max(apart, key=apart.get)
+    out["rn50_twin"] = dict(
+        loss_card=lc, loss_cpu=lp, loss_rel=abs(lc[0] - lp[0]) / abs(lp[0]),
+        stats_err=_worst(sc, sp, _stats_scale(sp), RN50_PARITY_STATS_RTOL,
+                         1e-30),
+        later_loss_rel=max(abs(a - b) / abs(b) for a, b in zip(lc, lp)),
+        grads_apart=apart[worst], grads_worst=worst,
+        grads_median=float(np.median(list(apart.values()))),
+        masters_apart=_grad_worst(mc, {k: v.numpy() for k, v in mp.items()}))
+
+
+def _dp_spatial(rank, dev, spec, out):
+    """`SpatialBottleneck` (SyncBatchNorm over the spatial axis, bound to
+    the two ranks) on this rank's 7 of 14 rows against the unsharded
+    `Bottleneck` on the gathered input, training mode: the rank's output
+    rows, input gradient rows and its parameter gradients (the ranks'
+    sum the unsharded block's, summed in the parent), fp32."""
+    from rocm_apex_tpu_torch.contrib.bottleneck import (Bottleneck,
+                                                        SpatialBottleneck)
+    from rocm_apex_tpu_torch.transformer import parallel_state
+
+    s = spec["spatial"]
+    parallel_state.set_axis_group("spatial")
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(s["batch"], s["size"], s["size"], s["cin"],
+                    generator=gen).to(dev)
+    w = torch.randn(s["batch"], s["size"], s["size"], s["cout"],
+                    generator=gen).to(dev)
+    h = s["size"] // TP_RANKS
+    rows = slice(rank * h, (rank + 1) * h)
+    blocks = {}
+    for name, cls, kw in (("spatial", SpatialBottleneck,
+                           dict(spatial_axis="spatial",
+                                sync_bn_axis="spatial")),
+                          ("dense", Bottleneck, {})):
+        blocks[name] = cls(s["cin"], s["cmid"], s["cout"], device=dev,
+                           generator=torch.Generator().manual_seed(6), **kw)
+    res = {}
+    for name, xin, win in (("spatial", x[:, rows], w[:, rows]),
+                           ("dense", x, w)):
+        xr = xin.clone().requires_grad_(True)
+        y = blocks[name](xr, True)
+        params = dict(blocks[name].named_parameters())
+        grads = torch.autograd.grad((y * win).sum(), [xr, *params.values()])
+        res[name] = dict(y=y.detach().cpu(), dx=grads[0].cpu(),
+                         dparams={k: g.cpu() for k, g in
+                                  zip(params, grads[1:])})
+    _sync()
+    res["dense"]["y"] = res["dense"]["y"][:, rows]
+    res["dense"]["dx"] = res["dense"]["dx"][:, rows]
+    out["spatial"] = res
+
+
+_TP_WORK["data_parallel"] = (_dp_gpt_steps, _dp_twin, _dp_rn50, _dp_spatial)
+
+
+def _dp_shard_cases(dev, spec):
+    """Rows 14 and 15 at a rank's ZeRO shard of the train cell's bf16
+    group (every linear and embedding: half its 64-row-padded buffer, in
+    fp32 as the ZeRO optimizer holds its masters, moments and the
+    reduce-scattered gradients): Adam, LAMB's stages and the row sums of
+    the masters (LAMB's sharded norms), each against its plain version
+    (`TOL`), launched twice for the same bits, on its route by the launch
+    tables (``packed_update_kernel``, ``mt_row_kernel``)."""
+    from rocm_apex_tpu_torch.ops import multi_tensor as mt
+    from rocm_apex_tpu_torch.ops import optim_kernels as ok
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    big = max(spec.groups, key=lambda g: g.rows)
+    rows = -(-big.rows // (64 * TP_RANKS)) * 64
+    shape = (rows, 1024)
+    case_name = f"a dp={TP_RANKS} rank's ZeRO shard ({rows} x 1024 fp32)"
+
+    def buf(positive=False):
+        x = torch.randn(shape, device=dev, generator=gen)
+        return x.abs() if positive else x
+
+    p, g, m, v = buf(), buf(), buf(), buf(True)
+    wd = torch.full((rows, 1), 0.01, device=dev)
+
+    def case(kernel, name, outs, refs, kern, plain, lib, nb, route,
+             tols=None, extra=None, library=None):
+        check(_same_bits(kern(), kern()),
+              f"{kernel} {name}: two launches differ")
+        names = _launched_kernels(kern)
+        check(names == {route}, f"{kernel} {name}: launched {names}, its "
+              f"route is {route}")
+        return dict(kernel=kernel, case=f"{case_name}, {name}",
+                    dtype=torch.float32, cmp=compare(outs, refs, extra,
+                                                     tols),
+                    kern=kern, plain=plain, lib=lib, nbytes=nb,
+                    ops=8 * rows * 1024, headline=False, library=library,
+                    iters=20, plain_iters=2)
+
+    sv = ok.scalar_vector(_PK_ADAM, dev)
+    outs = ok.adam_update(p, g, m, v, wd, sv, True)
+    pl, gl, ml, vl = p.clone(), g.clone(), m.clone(), v.clone()
+    step = torch.tensor(3.0, device=dev)
+    yield case("adam_update", "AdamW", outs,
+               ok.adam_plain(p, g, m, v, wd, sv, True),
+               lambda: ok.adam_update(p, g, m, v, wd, sv, True),
+               lambda: ok.adam_plain(p, g, m, v, wd, sv, True),
+               _yardstick("torch._fused_adamw_", lambda: torch._fused_adamw_(
+                   [pl], [gl], [ml], [vl], [], [step], lr=1e-3, beta1=0.9,
+                   beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+                   maximize=False)),
+               nbytes(p, g, m, v, *outs), "packed_update_kernel",
+               library="torch._fused_adamw_ in place")
+    sv1 = ok.scalar_vector(_PK_LAMB1, dev)
+    outs = ok.lamb_stage1(p, g, m, v, wd, sv1, True)
+    yield case("lamb_stage1", "AdamW, clip 0.7", outs,
+               ok.lamb1_plain(p, g, m, v, wd, sv1, True),
+               lambda: ok.lamb_stage1(p, g, m, v, wd, sv1, True),
+               lambda: ok.lamb1_plain(p, g, m, v, wd, sv1, True), None,
+               nbytes(p, g, m, v, *outs), "packed_update_kernel")
+    u = outs[0]
+    ratio = torch.rand((rows, 1), device=dev, generator=gen) + 0.5
+    lr = torch.tensor([0.5], device=dev)
+    scaled = -0.5 * ratio
+    (d,) = ok.lamb_stage2(u, ratio, lr)
+    yield case("lamb_stage2", "u, a ratio a row", [d],
+               list(ok.lamb2_plain(u, ratio, lr)),
+               lambda: ok.lamb_stage2(u, ratio, lr),
+               lambda: ok.lamb2_plain(u, ratio, lr),
+               lambda: torch.mul(u, scaled), nbytes(u, d),
+               "packed_update_kernel", library="torch.mul(u, column): the "
+               "column pre-scaled by -lr")
+    r = mt.row_sumsq(p)
+    rr = mt.row_sumsq_plain(p)
+    yield case("row_sumsq", "fp32 masters (LAMB's sharded norms)", [r], [rr],
+               lambda: mt.row_sumsq(p), lambda: mt.row_sumsq_plain(p),
+               lambda: torch.linalg.vector_norm(p, dim=1), nbytes(p, r),
+               "mt_row_kernel", tols=[_PK_SUMS_TOL], extra=[_l1_tol(rr)],
+               library="torch.linalg.vector_norm(dim=1), the row norms")
+
+
+def _dp_kernel_cases(dev, spec):
+    """The per-rank shapes of the data-parallel path against their plain
+    versions by the kernel phase's own generators, checks and
+    tolerances: rows 14 and 15 at the ZeRO shard (`_dp_shard_cases`);
+    rows 1 and 2 on a rank's 8 x 1024 rows (the residual forward with
+    dropout and its backward) and rows 8 and 11 over its 8 sequences of
+    all 8 heads, with the bias and dropout."""
+    hd = TRAIN["hidden_size"] // TRAIN["num_attention_heads"]
+    seqs = TRAIN_BATCH // TP_RANKS
+    return run_kernel_phase(dev, [
+        lambda dev: _dp_shard_cases(dev, spec),
+        lambda dev: train_ln_cases(dev, (torch.bfloat16,), tail=False,
+                                   rows=seqs * TRAIN_SEQ),
+        lambda dev: flash_cases(dev, TRAIN["num_attention_heads"], hd,
+                                shapes=[(seqs, TRAIN_SEQ, torch.bfloat16,
+                                         True, 0.1, True)], seed=253)])
+
+
+def _dp_checks(outs, res, spec, pack, cuda):
+    """The ranks' GPT steps against their derivations and each other:
+    ``pack`` is the ZeRO optimizer's layout (`_dp_model_spec`)."""
+    for form in list(spec["comms"]) + ["ddp"]:
+        tr = [o[f"gpt_{form}"] for o in outs]
+        if form == "ddp":
+            ex, mib = ({"all_reduce": 1}, {"all_reduce": 2 * tr[0]["params"]
+                                           / 2**20})
+            calls = TRAIN_CALLS_PER_STEP
+        else:
+            ex, mib = dp_zero_exchanges(pack, form, TP_RANKS)
+            # one Adam kernel a dtype group a step, on the rank's shards
+            calls = {**TRAIN_CALLS_PER_STEP, "adam_update": len(pack.groups)}
+        for r, t in enumerate(tr):
+            _check_rank_steps(f"data_parallel {form} rank {r}", t,
+                              sum(ex.values()), calls, spec["steps"], cuda,
+                              mib)
+            check(t["exchanges"] == ex, f"data_parallel {form} rank {r}: "
+                  f"exchanges {t['exchanges']}, derived {ex}")
+        check(torch.equal(tr[0]["fingerprints"], tr[1]["fingerprints"]),
+              f"data_parallel {form}: the ranks' parameters differ after a "
+              f"step")
+        check(tr[0]["losses"] != tr[1]["losses"],
+              f"data_parallel {form}: both ranks report the same losses "
+              f"(each has its own batch)")
+        if form != "ddp":
+            share = tr[0]["state_bytes"] / (12 * tr[0]["params"])
+            lo, hi = DP_STATE_SHARE
+            check(lo <= share <= hi, f"data_parallel {form}: the ZeRO "
+                  f"state a rank is {share:.4f} of the replicated 12 B a "
+                  f"parameter, outside {DP_STATE_SHARE}")
+        t = tr[0]
+        res[f"gpt_{form}"] = dict(
+            step_ms=[x["step_ms"] for x in tr], tokens_per_s=[
+                x["tokens_per_s"] for x in tr],
+            losses=[x["losses"] for x in tr], exchanges=t["exchanges"],
+            exchange_ms=[x["exchange_ms"] for x in tr],
+            exchange_mib=t["exchange_mib"], exchanges_want=ex,
+            mib_want=mib, launches=t["launches"],
+            state_gb=t["state_bytes"] / 1e9,
+            state_share=t["state_bytes"] / (12 * t["params"]),
+            setup_s=[x["setup_s"] for x in tr],
+            peak_mem_gib=[x["peak_mem_gib"] for x in tr],
+            **({"overflows": t["overflows"], "loss_scale": t["loss_scale"]}
+               if form == "ddp" else {}))
+        log(f"  {form}: {spec['steps']} timed steps of B "
+            f"{spec['batch'] // TP_RANKS} x S {spec['seq']} a rank: "
+            f"{[round(x, 1) for x in res[f'gpt_{form}']['step_ms']]} ms/step;"
+            f" losses {res[f'gpt_{form}']['losses']}; exchanges a step "
+            f"{t['exchanges']} (derived {ex}), host ms in them "
+            f"{res[f'gpt_{form}']['exchange_ms']}, MiB {t['exchange_mib']} "
+            f"(derived {mib}); state {t['state_bytes'] / 1e9:.3f} GB a rank "
+            f"({res[f'gpt_{form}']['state_share']:.4f} of 12 B x "
+            f"{t['params']}); peak {res[f'gpt_{form}']['peak_mem_gib']} GiB")
+
+
+def run_data_parallel_phase(spec=None):
+    """Data parallelism at dp=2 on the one card (two gloo ranks, staged
+    exchanges): rows 14 and 15 at a rank's ZeRO shard and rows 1, 2, 8,
+    11 at its 8 sequences against their plain versions
+    (`_dp_kernel_cases`); then on each rank the train cell's bf16 step
+    under bench.py's ``--dist-opt`` ZeRO Adam at fp32 and int8 comm and
+    under DDP, warm-up and timed steps under `sync_audit`. Checked: finite
+    losses, each rank its own; the parameters bit-equal across the ranks
+    after every step (fingerprints); the exchanges a step and their MiB
+    as derived (`dp_zero_exchanges`; DDP one bf16 all-reduce); no other
+    sync; the kernels' calls a step (`TRAIN_CALLS_PER_STEP`); the ZeRO
+    state a rank within `DP_STATE_SHARE` of 12 B a parameter. The fp32
+    twins card against cpu (`DP_TWIN_FORMS`). ResNet-50 under
+    SyncBatchNorm (`dp_rn50_exchanges`, statistics and params bit-equal
+    across ranks) and its fp32 twin. `SpatialBottleneck` against the
+    unsharded block."""
+    spec = spec or dict(
+        phase="data_parallel", device=CARD, tp=1, train={},
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, warmup=DP_WARMUP, steps=DP_STEPS,
+        comms=DP_COMMS, twin=DP_TWIN, twin_forms=DP_TWIN_FORMS,
+        rn50=dict(batch=DP_RN50_BATCH, size=RN50_SIZE),
+        rn50_twin=DP_RN50_TWIN, spatial=DP_SPATIAL, threads=TP_THREADS)
+    dev = torch.device(CARD, 0) if CARD == "cuda" else torch.device(CARD)
+    cuda = dev.type == "cuda"
+    pack = _dp_model_spec(_dp_train_cfg(**spec["train"]))
+    res = dict(ranks=TP_RANKS, groups=[(g.dtype, g.rows)
+                                       for g in pack.groups])
+    if cuda:
+        res["card"] = smi_line()
+        log(f"  card: {res['card']}")
+        log(f"  -- rows 14 and 15 at a rank's ZeRO shard, rows 1, 2, 8, 11 "
+            f"at its {TRAIN_BATCH // TP_RANKS} sequences, against their "
+            f"plain versions")
+        res["kernel_cases"] = _case_summary(_dp_kernel_cases(dev, pack))
+        torch.cuda.empty_cache()
+    log(f"  -- {TP_RANKS} ranks")
+    outs, res["ranks_s"] = _tp_spawn(spec)
+    _dp_checks(outs, res, spec, pack, cuda)
+    twin = {}
+    for form in spec["twin_forms"]:
+        rows_ = [o["twin"][form] for o in outs]
+        if "wire_effect" in rows_[0]:
+            worst = max(x["card_vs_cpu"] for x in rows_)
+            wire = min(x["wire_effect"] for x in rows_)
+            check(worst <= INT8_TWIN_FACTOR * wire, f"data_parallel twin "
+                  f"{form}: card against cpu {worst:.3e} of the params' "
+                  f"scale, the int8 wire's own {wire:.3e}")
+        else:
+            worst = max(x["param_err"] for x in rows_)
+            check(worst <= 1.0, f"data_parallel twin {form}: params "
+                  f"{worst:.3g}x the parity rule's tolerance")
+        loss_rel = max(x["loss_rel"] for x in rows_)
+        check(loss_rel <= PARITY_LOSS_RTOL, f"data_parallel twin {form}: "
+              f"losses card vs cpu {loss_rel:.3e}")
+        twin[form] = dict(rows_[0], worst=worst, loss_rel=loss_rel)
+    res["twin"] = twin
+    log(f"  fp32 twins ({spec['twin']}), card vs cpu: {twin}")
+    rn = [o["rn50"] for o in outs]
+    for r, t in enumerate(rn):
+        check(all(math.isfinite(x) for x in t["losses"]),
+              f"data_parallel rn50 rank {r}: a nonfinite loss")
+        check(t["exchanges"] == t["exchanges_want"],
+              f"data_parallel rn50 rank {r}: exchanges {t['exchanges']}, "
+              f"derived {t['exchanges_want']}")
+        for k, v in t["mib_want"].items():
+            check(abs(t["exchange_mib"][k] - v) <= 1e-6 * v,
+                  f"data_parallel rn50 rank {r}: {t['exchange_mib']} MiB, "
+                  f"derived {t['mib_want']}")
+    check(torch.equal(rn[0]["stats_print"], rn[1]["stats_print"]),
+          "data_parallel rn50: the ranks' running statistics differ")
+    check(torch.equal(rn[0]["params_print"], rn[1]["params_print"]),
+          "data_parallel rn50: the ranks' params differ")
+    res["rn50"] = {k: ([x[k] for x in rn] if k in ("step_ms", "losses",
+                                                   "images_per_s")
+                       else rn[0][k]) for k in rn[0]
+                   if not k.endswith("_print")}
+    log(f"  rn50 (SyncBatchNorm, {rn[0]['norms']} norms): "
+        f"{[round(x['step_ms'], 1) for x in rn]} ms/step a rank, losses "
+        f"{[x['losses'] for x in rn]}; exchanges a step {rn[0]['exchanges']}"
+        f" MiB {rn[0]['exchange_mib']}")
+    tw = [o["rn50_twin"] for o in outs]
+    for r, t in enumerate(tw):
+        check(t["loss_rel"] <= RN50_PARITY_LOSS_RTOL and t["stats_err"] <= 1,
+              f"data_parallel rn50 twin rank {r}: {t}")
+    res["rn50_twin"] = tw
+    log(f"  rn50 fp32 twin ({spec['rn50_twin']}), card vs cpu: {tw}")
+    sp = [o["spatial"] for o in outs]
+    dparams = {k: sp[0]["spatial"]["dparams"][k]
+               + sp[1]["spatial"]["dparams"][k]
+               for k in sp[0]["spatial"]["dparams"]}
+    worst = max(
+        [_grad_worst({"y": s["spatial"]["y"], "dx": s["spatial"]["dx"]},
+                     {"y": s["dense"]["y"].numpy(),
+                      "dx": s["dense"]["dx"].numpy()}) for s in sp]
+        + [_grad_worst(dparams, {k: g.numpy() for k, g in
+                                 sp[0]["dense"]["dparams"].items()})])
+    check(worst <= DP_SPATIAL_RTOL, f"data_parallel spatial: {worst:.3e} of "
+          f"the scale from the unsharded block")
+    res["spatial"] = dict(worst=worst, shape=spec["spatial"])
+    log(f"  SpatialBottleneck {spec['spatial']} over {TP_RANKS} ranks "
+        f"against the unsharded block: {worst:.3e} of the scale")
+    res["rank_s"] = [o["rank_s"] for o in outs]
+    log(f"  ranks' wall time {res['ranks_s']:.1f} s (spawn included), "
+        f"{[round(x, 1) for x in res['rank_s']]} s of work a rank")
+    return res
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -11573,6 +12309,17 @@ def main(argv=None):
             f"{REMAT_WARMUP} warm-up + {REMAT_STEPS} timed steps; the fp32 "
             f"twins of checkpointing and post-LN, card vs cpu)",
             run_remat_phase),
+        "data_parallel": (
+            f"data_parallel (dp={TP_RANKS}: {TP_RANKS} gloo ranks on the one "
+            f"card; the train cell's bf16 GPT, B {TRAIN_BATCH // TP_RANKS} x "
+            f"S {TRAIN_SEQ} a rank, under ZeRO Adam at "
+            f"{' and '.join(DP_COMMS)}"
+            f" comm and under DDP: {DP_WARMUP} warm-up + {DP_STEPS} timed "
+            f"steps each; the {DP_TWIN['num_layers']}-layer fp32 twins card "
+            f"vs cpu in {len(DP_TWIN_FORMS)} forms; ResNet-50 under "
+            f"SyncBatchNorm, B {DP_RN50_BATCH} a rank, bf16 O5, and its fp32 "
+            f"twin; SpatialBottleneck at layer3's widths against the "
+            f"unsharded block)", run_data_parallel_phase),
     }
     report["phase_s"] = {}
     try:
@@ -11645,6 +12392,9 @@ def main(argv=None):
             bound_by=c.get("bound_by"), library_ms=c.get("library_ms"),
             library_fp32_ms=c.get("library_fp32_ms"),
             library=c.get("library"), case=c.get("case"), path=path,
+            **({"data_parallel_cases": dp_cases} if (dp_cases := [
+                x for x in report.get("data_parallel", {}).get(
+                    "kernel_cases", []) if x["kernel"] == k.name]) else {}),
         ))
     if args.out:
         report["kernels"] = kernels

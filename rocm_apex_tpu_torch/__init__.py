@@ -32,15 +32,20 @@ fused bottleneck):
                    `InferenceEngine` (chunked prefill)
     amp            the O0/O2/O3/O5 policies (`initialize`), fp32 master
                    weights, the loss-scaling flow, the `LossScaler`
-    contrib        `fmha`, `xentropy`, `bottleneck` (`FusedBottleneck`),
-                   `multihead_attn`
+    contrib        `fmha`, `xentropy`, `bottleneck` (`FusedBottleneck`,
+                   `SpatialBottleneck`), `multihead_attn`, the ZeRO
+                   optimizers (`DistributedFusedAdam`, `DistributedFusedLAMB`)
+    parallel       data parallelism over torch.distributed groups:
+                   `sync_gradients`, `DistributedDataParallel`,
+                   `SyncBatchNorm`, `LARC`, the `multiproc` launcher
     optimizers     `MixedPrecisionAdam`, `MixedPrecisionLamb` (fp32 masters,
                    compute-dtype model); `PackedOptimizerStep`,
                    `packed_adam`, `packed_lamb` (masters and moments in
                    packed buffers); the tree-form `FusedAdam`
     multi_tensor_apply  `multi_tensor_applier` over the packed ops
-    train          `make_train_step` (GPT), `make_bert_train_step`,
-                   `make_rn50_train_step`: one mixed-precision training step
+    train          `make_train_step` (GPT), `make_zero_train_step`,
+                   `make_bert_train_step`, `make_rn50_train_step`: one
+                   mixed-precision training step
     convert        the weight (and optimizer-state) bridge from the JAX
                    GPT's, BERT's, ResNet's and multi-head attention's
                    variables

@@ -1,13 +1,14 @@
-"""The ResNet bottleneck, plain and fused (`FusedBottleneck`, on the
-hand-written conv+BN kernels of ``ops.fused_bottleneck``).
-
-`SpatialBottleneck` and `halo_exchange` of the JAX package need process
-groups and are not ported yet (ROADMAP.md Queue 1 item 10).
+"""The ResNet bottleneck, plain, fused (`FusedBottleneck`, on the
+hand-written conv+BN kernels of ``ops.fused_bottleneck``) and spatially
+partitioned (`SpatialBottleneck` over `halo_exchange`).
 """
 
 from rocm_apex_tpu_torch.contrib.bottleneck.bottleneck import (
     Bottleneck,
     FusedBottleneck,
+    SpatialBottleneck,
+    halo_exchange,
 )
 
-__all__ = ["Bottleneck", "FusedBottleneck"]
+__all__ = ["Bottleneck", "FusedBottleneck", "SpatialBottleneck",
+           "halo_exchange"]

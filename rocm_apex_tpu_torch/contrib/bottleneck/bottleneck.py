@@ -1,7 +1,13 @@
-"""ResNet bottleneck blocks: the plain chain and the fused one.
+"""ResNet bottleneck blocks: the plain chain, the fused one, and the
+spatially partitioned one.
 
 Port of ``rocm_apex_tpu/contrib/bottleneck/bottleneck.py`` (`Bottleneck`
-:52-105, `FusedBottleneck` :167-273). NHWC maps throughout.
+:52-105, `halo_exchange` :29-50, `SpatialBottleneck` :108-165,
+`FusedBottleneck` :167-273). NHWC maps throughout. With
+``sync_bn_axis`` the plain and the spatial blocks normalize with
+`parallel.SyncBatchNorm` over that axis (JAX's ``_norm``: torch's
+momentum 0.1, channel-last), else with flax-semantics BatchNorm at
+momentum 0.9.
 
 `FusedBottleneck` in training runs `ops.fused_bottleneck.bottleneck_fused`
 (the four hand-written kernels: BN-apply prologues, the convolutions,
@@ -14,29 +20,83 @@ rule keeps the BN leaves fp32; the block casts x and the kernels to its
 ``dtype`` itself. The kernels keep the JAX layout: (Cin, Cout) for a 1x1,
 (3, 3, Cin, Cout) for the 3x3.
 
-`SpatialBottleneck` and `halo_exchange` need process groups (the JAX
-versions exchange halos with ``ppermute``); they wait for the port of the
-parallel layer (ROADMAP.md Queue 1 item 10).
+`SpatialBottleneck` holds H / n rows of the maps on each of the n ranks
+of ``spatial_axis`` (a process group bound in `parallel_state`):
+`halo_exchange` brings each rank its neighbours' boundary rows (the
+reference's halo send/recv, JAX's two ``ppermute``s; here two
+`parallel_state.shift` exchanges in one autograd node, whose backward
+sends the halos' cotangents back), zero rows at the edge ranks, and the
+3x3 runs
+VALID over the extended rows with padding 1 on W, which is the
+unsharded block's padded 3x3 on the rank's rows.
 """
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from rocm_apex_tpu_torch._device import resolve_device
 from rocm_apex_tpu_torch.models._layers import BatchNorm, Conv, init_kernel
 from rocm_apex_tpu_torch.ops.fused_bottleneck import bottleneck_fused
+from rocm_apex_tpu_torch.parallel import SyncBatchNorm
+from rocm_apex_tpu_torch.transformer import parallel_state
 
-__all__ = ["Bottleneck", "FusedBottleneck"]
+__all__ = ["Bottleneck", "FusedBottleneck", "SpatialBottleneck",
+           "halo_exchange"]
 
 
-def _refuse_sync_bn(sync_bn_axis):
+def _norm(sync_bn_axis, dtype, device):
+    """The blocks' norm of ``features`` channels (JAX ``_norm``)."""
     if sync_bn_axis is not None:
-        raise NotImplementedError(
-            "sync_bn_axis: parallel.SyncBatchNorm is not ported yet "
-            "(ROADMAP.md Queue 1 item 10, part 10d)")
+        return lambda features: SyncBatchNorm(
+            features, axis_name=sync_bn_axis, channel_last=True, dtype=dtype,
+            device=device)
+    return lambda features: BatchNorm(features, momentum=0.9, dtype=dtype,
+                                      device=device)
+
+
+class _Halos(torch.autograd.Function):
+    """The previous rank's ``bot`` and the next rank's ``top`` (two
+    `parallel_state.shift` exchanges); the backward sends each halo's
+    cotangent back to the rank it came from, in the same order on every
+    rank (one node: the ranks' exchanges pair up)."""
+
+    @staticmethod
+    def forward(ctx, top, bot, group):
+        ctx.group = group
+        return (parallel_state.shift(bot, group, 1),
+                parallel_state.shift(top, group, -1))
+
+    @staticmethod
+    def backward(ctx, g_prev, g_next):
+        g_bot = parallel_state.shift(g_prev.contiguous(), ctx.group, -1)
+        g_top = parallel_state.shift(g_next.contiguous(), ctx.group, 1)
+        return g_top, g_bot, None
+
+
+def halo_exchange(x: torch.Tensor, axis_name: str,
+                  halo: int = 1) -> torch.Tensor:
+    """``x`` (NHWC, this rank's rows) with ``halo`` rows of the previous
+    rank's bottom before it and of the next rank's top after it, along H;
+    zero rows at the first and the last rank (JAX :29). Two exchanges
+    forward and two backward (none over a group of one rank)."""
+    group = parallel_state.resolve_group(axis_name)
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    top = x[:, :halo].contiguous()
+    bot = x[:, -halo:].contiguous()
+    zeros = torch.zeros_like(top)
+    if n == 1:
+        return torch.cat([zeros, x, zeros], dim=1)
+    from_prev, from_next = _Halos.apply(top, bot, group)
+    # a select on every rank: each rank's graph runs the same backward
+    from_prev = torch.where(torch.full((), idx == 0, device=x.device),
+                            zeros, from_prev)
+    from_next = torch.where(torch.full((), idx == n - 1, device=x.device),
+                            zeros, from_next)
+    return torch.cat([from_prev, x, from_next], dim=1)
 
 
 class Bottleneck(nn.Module):
@@ -50,24 +110,65 @@ class Bottleneck(nn.Module):
                  sync_bn_axis: Optional[str] = None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _refuse_sync_bn(sync_bn_axis)
         dev = resolve_device(device)
         cin, cmid, cout = in_channels, bottleneck_channels, out_channels
         kw = dict(dtype=dtype, device=dev, generator=generator)
-        bn = dict(momentum=0.9, dtype=dtype, device=dev)
+        norm = _norm(sync_bn_axis, dtype, dev)
         self.conv1 = Conv(cin, cmid, 1, **kw)
-        self.bn1 = BatchNorm(cmid, **bn)
+        self.bn1 = norm(cmid)
         self.conv2 = Conv(cmid, cmid, 3, stride, 1, **kw)
-        self.bn2 = BatchNorm(cmid, **bn)
+        self.bn2 = norm(cmid)
         self.conv3 = Conv(cmid, cout, 1, **kw)
-        self.bn3 = BatchNorm(cout, **bn)
+        self.bn3 = norm(cout)
         if stride != 1 or cin != cout:
             self.downsample_conv = Conv(cin, cout, 1, stride, **kw)
-            self.downsample_bn = BatchNorm(cout, **bn)
+            self.downsample_bn = norm(cout)
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         residual = x
         y = torch.relu(self.bn1(self.conv1(x), train))
+        y = torch.relu(self.bn2(self.conv2(y), train))
+        y = self.bn3(self.conv3(y), train)
+        if hasattr(self, "downsample_conv"):
+            residual = self.downsample_bn(self.downsample_conv(residual),
+                                          train)
+        return torch.relu(y + residual)
+
+
+class SpatialBottleneck(nn.Module):
+    """`Bottleneck` over H-sharded maps (JAX :108): each rank of
+    ``spatial_axis`` holds H / n rows, and the 3x3 sees one-row halos
+    from its neighbours (`halo_exchange`). No stride (a halo 3x3 does not
+    stride, as the reference's spatial path); a projection shortcut when
+    the width changes. Its parameter and buffer names are `Bottleneck`'s,
+    so one block's weights load into the other."""
+
+    def __init__(self, in_channels: int, bottleneck_channels: int,
+                 out_channels: int, spatial_axis: str = "spatial",
+                 dtype: torch.dtype = torch.float32,
+                 sync_bn_axis: Optional[str] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        cin, cmid, cout = in_channels, bottleneck_channels, out_channels
+        kw = dict(dtype=dtype, device=dev, generator=generator)
+        norm = _norm(sync_bn_axis, dtype, dev)
+        self.spatial_axis = spatial_axis
+        self.conv1 = Conv(cin, cmid, 1, **kw)
+        self.bn1 = norm(cmid)
+        # VALID on the halo-extended rows, 1 on W
+        self.conv2 = Conv(cmid, cmid, 3, 1, (0, 1), **kw)
+        self.bn2 = norm(cmid)
+        self.conv3 = Conv(cmid, cout, 1, **kw)
+        self.bn3 = norm(cout)
+        if cin != cout:
+            self.downsample_conv = Conv(cin, cout, 1, **kw)
+            self.downsample_bn = norm(cout)
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        residual = x
+        y = torch.relu(self.bn1(self.conv1(x), train))
+        y = halo_exchange(y, self.spatial_axis, halo=1)
         y = torch.relu(self.bn2(self.conv2(y), train))
         y = self.bn3(self.conv3(y), train)
         if hasattr(self, "downsample_conv"):

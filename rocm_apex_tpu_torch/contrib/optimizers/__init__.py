@@ -1,14 +1,27 @@
-"""contrib optimizers: the deprecated scale-aware `FusedAdam`.
-
-The JAX package's ``contrib/optimizers`` also holds the ZeRO-style
-distributed optimizers (``distributed.py``: `DistributedFusedAdam`,
-`DistributedFusedLAMB`). They shard the optimizer state over a data
-axis, so they come with the rest of the distributed training stack
-(ROADMAP.md Queue 1 item 10) and are not exported here yet.
+"""contrib optimizers: the deprecated scale-aware `FusedAdam`, and the
+ZeRO-style distributed optimizers (`DistributedFusedAdam`,
+`DistributedFusedLAMB`, their transforms and states), which shard the
+masters and moments over the data axis.
 """
 
+from rocm_apex_tpu_torch.contrib.optimizers.distributed import (  # noqa: F401
+    DistributedAdamState,
+    DistributedFusedAdam,
+    DistributedFusedLAMB,
+    DistributedLAMBState,
+    distributed_fused_adam,
+    distributed_fused_lamb,
+)
 from rocm_apex_tpu_torch.contrib.optimizers.fused_adam import (  # noqa: F401
     FusedAdam,
 )
 
-__all__ = ["FusedAdam"]
+__all__ = [
+    "FusedAdam",
+    "DistributedFusedAdam",
+    "DistributedFusedLAMB",
+    "DistributedAdamState",
+    "DistributedLAMBState",
+    "distributed_fused_adam",
+    "distributed_fused_lamb",
+]

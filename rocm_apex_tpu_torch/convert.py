@@ -25,6 +25,12 @@ from flax's HWIO to OIHW and the dense head's kernel from (in, out) to
 (out, in); the fused blocks' flat leaves (``conv*_kernel``,
 ``downsample_kernel``, ``bn*_scale``/``bias``, ``bn*_mean``/``var``) and
 `FoldedConvBN`'s keep the JAX layout, which the kernels take as it is.
+Under ``sync_bn_axis`` every norm is a `parallel.SyncBatchNorm`, whose
+``scale``, ``bias``, ``mean`` and ``var`` are the flax SyncBatchNorm's
+variables of the same names. The same function loads a flax
+`Bottleneck` or `SpatialBottleneck` (contrib/bottleneck, with or without
+``sync_bn_axis``) into the port's block of that configuration: the
+names are the flax paths, the convs HWIO -> OIHW.
 
 `mha_from_jax_params` loads a flax `SelfMultiheadAttn` or
 `EncdecMultiheadAttn`'s params (``qkv_proj``/``q_proj``/``kv_proj``/
@@ -285,7 +291,8 @@ def random_params(cfg: GPTConfig, seed: int = 0) -> Dict[str, Any]:
 def resnet_from_jax_variables(params: Dict[str, Any],
                               batch_stats: Dict[str, Any], model) -> Any:
     """Copy a flax ResNet's variables (numpy-convertible trees) into
-    ``model`` (a port `ResNet` of the same configuration), in place, each
+    ``model`` (a port `ResNet` of the same configuration, or a contrib
+    `Bottleneck` or `SpatialBottleneck`), in place, each
     leaf cast to the dtype the model holds it in; returns the model.
     Raises on a missing or unexpected leaf, or a shape mismatch."""
     from rocm_apex_tpu_torch.models._layers import Conv

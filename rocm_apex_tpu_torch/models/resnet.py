@@ -20,8 +20,12 @@ training through `contrib.bottleneck.FusedBottleneck` (the hand-written
 conv+BN kernels); the stem, the stride-2 blocks (``layer2_0``,
 ``layer3_0``, ``layer4_0`` in ResNet-50) and `FoldedConvBN` stay on
 ``F.conv2d`` and plain ops, as the JAX package leaves them to XLA.
-``sync_bn_axis`` (cross-replica statistics) is refused until
-``parallel.SyncBatchNorm`` is ported.
+``sync_bn_axis`` names the axis whose ranks share the batch statistics:
+every norm is then `parallel.SyncBatchNorm(momentum=0.1,
+channel_last=True)` (torch's momentum, the unbiased running variance,
+JAX `_norm`), and, as in JAX, ``fused`` and ``fold_downsample`` are off
+(the fused kernels and the fold take their statistics from this rank's
+batch only).
 """
 
 import functools
@@ -33,6 +37,7 @@ from torch import nn
 
 from rocm_apex_tpu_torch._device import resolve_device
 from rocm_apex_tpu_torch.models._layers import BatchNorm, Conv, init_kernel
+from rocm_apex_tpu_torch.parallel import SyncBatchNorm
 
 __all__ = [
     "ResNet",
@@ -50,6 +55,26 @@ __all__ = [
 # reproduces; the ResNet's norm passes 0.9 and 1e-5 (JAX `_norm`)
 FLAX_BN_MOMENTUM, FLAX_BN_EPSILON = 0.99, 1e-5
 RESNET_BN_MOMENTUM, RESNET_BN_EPSILON = 0.9, 1e-5
+# SyncBatchNorm's momentum is torch's: the weight of the new statistic
+SYNC_BN_MOMENTUM = 0.1
+
+
+def _norm(sync_bn_axis, dtype, device):
+    """The blocks' norm (JAX `_norm`): flax BatchNorm, or SyncBatchNorm
+    over ``sync_bn_axis``."""
+    if sync_bn_axis is not None:
+        return functools.partial(SyncBatchNorm, momentum=SYNC_BN_MOMENTUM,
+                                 axis_name=sync_bn_axis, channel_last=True,
+                                 dtype=dtype, device=device)
+    return functools.partial(BatchNorm, momentum=RESNET_BN_MOMENTUM,
+                             epsilon=RESNET_BN_EPSILON, dtype=dtype,
+                             device=device)
+
+
+def _is_plain_bn(norm) -> bool:
+    """The plain BatchNorm partial: the fold's moment identities would
+    need the axis's sums under SyncBatchNorm (JAX `_is_plain_bn`)."""
+    return getattr(norm, "func", None) is BatchNorm
 
 
 class FoldedConvBN(nn.Module):
@@ -103,7 +128,7 @@ class FoldedConvBN(nn.Module):
 
 def _downsample(block, in_features, features, strides, norm, dtype,
                 fold, kw):
-    if fold:
+    if fold and _is_plain_bn(norm):
         block.downsample_fold = FoldedConvBN(
             in_features, features, strides, dtype=dtype,
             momentum=norm.keywords["momentum"],
@@ -193,7 +218,8 @@ class ResNet(nn.Module):
     pool, ``stage_sizes`` blocks a stage (stride 2 at each later stage's
     first block), a mean pool and an fp32 dense head. ``dtype`` is the
     compute dtype of the convolutions and the BN outputs. ``fused`` sends
-    the stride-1 `Bottleneck` blocks through `FusedBottleneck`.
+    the stride-1 `Bottleneck` blocks through `FusedBottleneck`;
+    ``sync_bn_axis`` puts every norm on `SyncBatchNorm` over that axis.
     Parameters are drawn from ``generator`` (a CPU generator; seed 0 when
     None) on ``device`` (CUDA unless the caller names one)."""
 
@@ -204,22 +230,16 @@ class ResNet(nn.Module):
                  fold_downsample: bool = False, in_channels: int = 3,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if sync_bn_axis is not None:
-            raise NotImplementedError(
-                "sync_bn_axis: parallel.SyncBatchNorm is not ported yet "
-                "(ROADMAP.md Queue 1 item 10, part 10d)")
         from rocm_apex_tpu_torch.contrib.bottleneck import FusedBottleneck
 
         dev = resolve_device(device)
         self.device = dev
         self.dtype = dtype
-        self.fused = fused and block is Bottleneck
+        self.fused = fused and block is Bottleneck and sync_bn_axis is None
         gen = generator if generator is not None else \
             torch.Generator().manual_seed(0)
         kw = dict(device=dev, generator=gen)
-        norm = functools.partial(BatchNorm, momentum=RESNET_BN_MOMENTUM,
-                                 epsilon=RESNET_BN_EPSILON, dtype=dtype,
-                                 device=dev)
+        norm = _norm(sync_bn_axis, dtype, dev)
         self.conv1 = Conv(in_channels, num_filters, 7, 2, 3, dtype=dtype,
                           **kw)
         self.bn1 = norm(num_filters)

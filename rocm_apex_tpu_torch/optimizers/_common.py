@@ -243,8 +243,10 @@ class FusedOptimizer:
     def __init__(self, tx):
         self.tx = tx
 
-    def init(self, params):
-        return self.tx.init(params)
+    def init(self, params, *args):
+        """``tx.init(params, *args)`` (the ZeRO transforms take the module
+        whose parameters the updates apply to)."""
+        return self.tx.init(params, *args)
 
     def step(self, params, grads, state, *, skip=None):
         if skip is not None and getattr(self.tx.update, "kernel_skip",

@@ -18,6 +18,16 @@ ResNet's fp32 logits, `amp.scale_loss`, backward, `amp.unscale_grads`,
 `amp.update_scale`, the optimizer's update on the params dict (through
 `amp.with_master_weights` under O5) and `amp.skip_step`; the batch
 statistics move in the model's buffers.
+
+Data parallelism: `make_train_step` and `make_rn50_train_step` take a
+``grad_sync`` (e.g. `parallel.sync_gradients` or a
+`parallel.DistributedDataParallel`) applied to the gradients by name
+right after the backward, as ``__graft_entry__.py`` part A averages them
+over the data axis before the unscale. `make_zero_train_step` is the
+counterpart of bench.py's ``--dist-opt`` step (``local_runN_zero.one``,
+bench.py:2395-2411): the mean loss, backward, the ZeRO optimizer's
+update on this rank's UNREDUCED gradients (its reduce-scatter is the
+averaging), and the params set to params + updates.
 """
 
 from typing import Callable, Optional, Union
@@ -35,11 +45,13 @@ from rocm_apex_tpu_torch.optimizers import (
 )
 from rocm_apex_tpu_torch.optimizers._common import apply_updates
 
-__all__ = ["make_bert_train_step", "make_rn50_train_step", "make_train_step"]
+__all__ = ["make_bert_train_step", "make_rn50_train_step", "make_train_step",
+           "make_zero_train_step"]
 
 
 def make_train_step(model, opt: Union[MixedPrecisionAdam, PackedOptimizerStep],
-                    scaler: LossScaler) -> Callable:
+                    scaler: LossScaler,
+                    grad_sync: Optional[Callable] = None) -> Callable:
     """``step(state, sstate, tokens, labels, loss_mask=None,
     dropout_generator=None) -> (state, sstate, loss)``.
 
@@ -50,7 +62,8 @@ def make_train_step(model, opt: Union[MixedPrecisionAdam, PackedOptimizerStep],
     Inputs move to the model's device (the one `resolve_device` chose
     when the model was built). With ``dropout_generator`` (a CPU
     `torch.Generator`) dropout is on, seeded per site from it; without,
-    the step is deterministic.
+    the step is deterministic. ``grad_sync`` maps the gradients by name
+    to the ones the optimizer takes (the data-parallel sync).
     """
     device = model.device
     params = [p for p in model.parameters()]
@@ -73,11 +86,54 @@ def make_train_step(model, opt: Union[MixedPrecisionAdam, PackedOptimizerStep],
         scaled = scaler.scale(sstate, mean)
         scaled.backward()
         grads = {k: p.grad for k, p in state.model.items()}
+        if grad_sync is not None:
+            grads = grad_sync(grads)
         inv_scale = 1.0 / scaler.loss_scale(sstate)
         state, found_inf = opt.step_and_probe(state, grads,
                                               grad_scale=inv_scale)
         sstate2, _ = scaler.update(sstate, found_inf)
         return state, sstate2, scaled.detach() * inv_scale
+
+    return step
+
+
+def make_zero_train_step(model, opt) -> Callable:
+    """``step(state, tokens, labels, loss_mask=None, dropout_generator=None)
+    -> (state, loss)``.
+
+    ``opt`` is a ZeRO optimizer (`contrib.optimizers.
+    DistributedFusedAdam` or `DistributedFusedLAMB`, or their transforms)
+    and ``state`` its state over ``model``'s parameters (``opt.init(fp32
+    params by name, model)``, e.g. `convert.train_state_from_jax_params`:
+    the masters the tree's fp32 values, the module's parameters in their
+    stored dtypes). Each rank feeds its own batch; the gradients go to
+    ``opt.update`` unreduced, and every parameter becomes parameter +
+    update, cast to its dtype (its wire-dtype master). Dropout as in
+    `make_train_step`; the loss is this rank's mean loss, a device
+    tensor."""
+    device = model.device
+    named = dict(model.named_parameters())
+
+    def step(state, tokens: torch.Tensor, labels: torch.Tensor,
+             loss_mask: Optional[torch.Tensor] = None,
+             dropout_generator: Optional[torch.Generator] = None):
+        for p in named.values():
+            p.grad = None
+        loss = model(
+            tokens.to(device), labels=labels.to(device),
+            loss_mask=None if loss_mask is None else loss_mask.to(device),
+            loss_reduction="mean", deterministic=dropout_generator is None,
+            dropout_generator=dropout_generator,
+        )
+        loss.backward()
+        params = {k: p.detach() for k, p in named.items()}
+        updates, state = opt.update({k: p.grad for k, p in named.items()},
+                                    state, params)
+        new = apply_updates(params, updates)
+        with torch.no_grad():
+            torch._foreach_copy_(list(params.values()),
+                                 [new[k] for k in params])
+        return state, loss.detach()
 
     return step
 
@@ -127,7 +183,8 @@ def make_bert_train_step(model, opt: MixedPrecisionLamb) -> Callable:
     return step
 
 
-def make_rn50_train_step(model, optimizer, amp_state) -> Callable:
+def make_rn50_train_step(model, optimizer, amp_state,
+                         grad_sync: Optional[Callable] = None) -> Callable:
     """``step(params, opt_state, scaler_states, x, y) -> (params,
     opt_state, scaler_states, loss)``.
 
@@ -141,7 +198,9 @@ def make_rn50_train_step(model, optimizer, amp_state) -> Callable:
     buffers, moved in place by the training-mode forward (as bench.py
     keeps the batch statistics of every step, skipped or not). A static
     loss scale (O5's 1) never skips, so its `amp.skip_step` selects are
-    left out: they would return the new tree leaf for leaf."""
+    left out: they would return the new tree leaf for leaf.
+    ``grad_sync`` maps the (scaled) gradients by name before the
+    unscale (the data-parallel sync)."""
     device = model.device
     dynamic = amp_state.scaler.dynamic
 
@@ -156,6 +215,8 @@ def make_rn50_train_step(model, optimizer, amp_state) -> Callable:
         names = list(p)
         grads = dict(zip(names, torch.autograd.grad(
             scaled, [p[k] for k in names])))
+        if grad_sync is not None:
+            grads = grad_sync(grads)
         grads, found_inf = amp.unscale_grads(grads, st)
         st2, skip = amp.update_scale(st, found_inf)
         updates, opt2 = optimizer.update(grads, opt_state, params)

@@ -1,29 +1,34 @@
 """The axis names, the process groups behind them, and their exchanges.
 
 The part of ``rocm_apex_tpu/transformer/parallel_state.py`` that context
-parallelism, tensor-parallel serving and the transformer GradScaler
-need: the ``CONTEXT_AXIS``, ``TENSOR_AXIS`` and ``PIPE_AXIS`` names, and
-a registry that maps an axis name to a `torch.distributed` process
-group, where the JAX package binds the name to a mesh axis inside
-`shard_map`. The caller creates the groups (`torch.distributed.
-init_process_group`, `new_group`) and registers them, or has
-`initialize_model_parallel` make and register the tensor group; the
-collectives over an axis look their group up here by name.
+parallelism, tensor- and data-parallel training, tensor-parallel serving
+and the transformer GradScaler need: the ``CONTEXT_AXIS``,
+``TENSOR_AXIS``, ``DATA_AXIS`` and ``PIPE_AXIS`` names, and a registry
+that maps an axis name to a `torch.distributed` process group, where the
+JAX package binds the name to a mesh axis inside `shard_map`. The caller
+creates the groups (`torch.distributed.init_process_group`, `new_group`)
+and registers them, or has `initialize_model_parallel` make and register
+the tensor and data groups; the collectives over an axis look their
+group up here by name.
 
-`initialize_model_parallel(tp)` is the JAX function over the default
-process group: its world is ``tp`` ranks, all of them one tensor group.
-Pipeline and data parallelism (a world larger than the tensor group)
-are ROADMAP Queue 1 item 10 (part 10d) and raise. The tensor getters read the
-group: its size, this process's rank in it, the axis name.
+`initialize_model_parallel(tp)` lays the default process group out as
+JAX lays its mesh (JAX parallel_state.py:74-150): ``world = dp x tp``
+ranks, the tensor axis innermost, so global rank ``d * tp + t`` is data
+index d and tensor index t; each tensor group is ``tp`` consecutive
+ranks, each data group the ranks ``tp`` apart. When the world is one
+tensor group the tensor axis stays the default group. Pipeline
+parallelism and virtual pipelining are ROADMAP Queue 1 item 10, part
+10d's pipeline half, and raise. The getters read the groups: their
+sizes, this process's rank in each, the axis names.
 
 Every exchange of the port's parallel modules (`tensor_parallel.
-mappings`, `ops.collective_matmul`, `context_parallel`) goes through
-`exchange`. Over a gloo group with tensors on a card it copies them
-through host memory: gloo's all-gather, reduce-scatter, all-to-all and
-point-to-point take CPU tensors only, so every collective is staged the
-same way, its all-reduce too. `shift`, `all_reduce`, `broadcast`,
-`all_gather` and `reduce_scatter` are the plain collectives the modules
-build on.
+mappings`, `ops.collective_matmul`, `context_parallel`, `parallel`, the
+ZeRO optimizers) goes through `exchange`. Over a gloo group with tensors
+on a card it copies them through host memory: gloo's all-gather,
+reduce-scatter, all-to-all and point-to-point take CPU tensors only, so
+every collective is staged the same way, its all-reduce too. `shift`,
+`all_reduce`, `broadcast`, `all_gather` and `reduce_scatter` are the
+plain collectives the modules build on.
 """
 
 from typing import Callable, Dict, Optional, Union
@@ -33,6 +38,7 @@ import torch.distributed as dist
 
 __all__ = [
     "CONTEXT_AXIS",
+    "DATA_AXIS",
     "PIPE_AXIS",
     "TENSOR_AXIS",
     "set_axis_group",
@@ -46,6 +52,10 @@ __all__ = [
     "get_tensor_model_parallel_axis_name",
     "get_tensor_model_parallel_world_size",
     "get_tensor_model_parallel_rank",
+    "get_data_parallel_axis_name",
+    "get_data_parallel_world_size",
+    "get_data_parallel_rank",
+    "get_rank_info",
     "resolve_tensor_parallel_size",
     "exchange",
     "shift",
@@ -56,12 +66,14 @@ __all__ = [
 ]
 
 CONTEXT_AXIS = "context"
+DATA_AXIS = "data"
 PIPE_AXIS = "pipe"
 TENSOR_AXIS = "tensor"
 
 _GROUPS: Dict[str, "dist.ProcessGroup"] = {}
 # set by initialize_model_parallel, None until then (and after destroy)
 _TENSOR_MODEL_PARALLEL_WORLD_SIZE: Optional[int] = None
+_DATA_PARALLEL_WORLD_SIZE: Optional[int] = None
 
 GroupOrAxis = Union[str, "dist.ProcessGroup"]
 
@@ -102,14 +114,22 @@ def axis_rank(group_or_axis: GroupOrAxis) -> int:
 
 
 
-def initialize_model_parallel(tensor_model_parallel_size_: int = 1,
-                              pipeline_model_parallel_size_: int = 1) -> None:
-    """Bind the ``TENSOR_AXIS`` to the default process group, which must
-    hold ``tensor_model_parallel_size_`` ranks (JAX parallel_state.py:58-
-    167 over a mesh; the reference's TP-fastest mapping is one group
-    here). Pipeline parallelism, and the data parallelism of a larger
-    world, raise: ROADMAP Queue 1 item 10, part 10d."""
-    global _TENSOR_MODEL_PARALLEL_WORLD_SIZE
+def initialize_model_parallel(
+        tensor_model_parallel_size_: int = 1,
+        pipeline_model_parallel_size_: int = 1,
+        virtual_pipeline_model_parallel_size_: Optional[int] = None,
+        pipeline_model_parallel_split_rank_: Optional[int] = None) -> None:
+    """Lay the default process group out as ``dp x tp`` (JAX
+    parallel_state.py:74-150 over a mesh, the tensor axis innermost: rank
+    ``d * tp + t``) and bind ``TENSOR_AXIS`` and ``DATA_AXIS`` to this
+    rank's groups. Every rank creates every group, in one order (tensor
+    groups by d, then data groups by t), as `new_group` requires. A world
+    that is one tensor group keeps the default group as its tensor axis
+    (each data group one rank), and a world that is one data group keeps
+    it as its data axis. Pipeline parallelism and virtual pipelining
+    raise (ROADMAP Queue 1 item 10, part 10d, its pipeline half); the
+    split rank, which only a pipeline reads, is accepted and unused."""
+    global _TENSOR_MODEL_PARALLEL_WORLD_SIZE, _DATA_PARALLEL_WORLD_SIZE
     if not dist.is_initialized():
         raise RuntimeError("torch.distributed is not initialized: call "
                            "init_process_group before "
@@ -120,13 +140,23 @@ def initialize_model_parallel(tensor_model_parallel_size_: int = 1,
         raise RuntimeError(
             f"world size ({world}) is not divisible by tensor parallel "
             f"size ({tp}) x pipeline parallel size ({pp})")
-    if pp != 1 or world != tp:
+    del pipeline_model_parallel_split_rank_
+    if pp != 1 or virtual_pipeline_model_parallel_size_ is not None:
         raise NotImplementedError(
-            f"pipeline or data parallelism (world {world}, tp {tp}, pp "
-            f"{pp}) is not ported yet (ROADMAP Queue 1 item 10, part 10d): "
-            f"the world must be one tensor group")
-    set_axis_group(TENSOR_AXIS)
+            f"pipeline parallelism (pp {pp}, virtual "
+            f"{virtual_pipeline_model_parallel_size_}) is not ported yet "
+            f"(ROADMAP Queue 1 item 10, part 10d, its pipeline half)")
+    dp, rank = world // tp, dist.get_rank()
+    tensor_groups = ([dist.group.WORLD] if dp == 1 else
+                     [dist.new_group([d * tp + t for t in range(tp)])
+                      for d in range(dp)])
+    data_groups = ([dist.group.WORLD] if tp == 1 else
+                   [dist.new_group([d * tp + t for d in range(dp)])
+                    for t in range(tp)])
+    set_axis_group(TENSOR_AXIS, tensor_groups[rank // tp if dp > 1 else 0])
+    set_axis_group(DATA_AXIS, data_groups[rank % tp])
     _TENSOR_MODEL_PARALLEL_WORLD_SIZE = tp
+    _DATA_PARALLEL_WORLD_SIZE = dp
 
 
 def model_parallel_is_initialized() -> bool:
@@ -134,10 +164,13 @@ def model_parallel_is_initialized() -> bool:
 
 
 def destroy_model_parallel() -> None:
-    """Forget the tensor group (the process group stays the caller's)."""
-    global _TENSOR_MODEL_PARALLEL_WORLD_SIZE
+    """Forget the tensor and data groups (the process group stays the
+    caller's)."""
+    global _TENSOR_MODEL_PARALLEL_WORLD_SIZE, _DATA_PARALLEL_WORLD_SIZE
     _TENSOR_MODEL_PARALLEL_WORLD_SIZE = None
+    _DATA_PARALLEL_WORLD_SIZE = None
     _GROUPS.pop(TENSOR_AXIS, None)
+    _GROUPS.pop(DATA_AXIS, None)
 
 
 def _require_init() -> None:
@@ -160,6 +193,31 @@ def get_tensor_model_parallel_rank() -> int:
     """This process's rank in the tensor group."""
     _require_init()
     return axis_rank(TENSOR_AXIS)
+
+
+def get_data_parallel_axis_name() -> str:
+    return DATA_AXIS
+
+
+def get_data_parallel_world_size() -> int:
+    _require_init()
+    return _DATA_PARALLEL_WORLD_SIZE
+
+
+def get_data_parallel_rank() -> int:
+    """This process's rank in the data group."""
+    _require_init()
+    return axis_rank(DATA_AXIS)
+
+
+def get_rank_info() -> str:
+    """The tp, pp and dp sizes and the process's global rank, for
+    rank-aware logging (JAX parallel_state.py, reference
+    parallel_state.py:169-186)."""
+    if model_parallel_is_initialized():
+        return (f"tp{_TENSOR_MODEL_PARALLEL_WORLD_SIZE}-pp1-"
+                f"dp{_DATA_PARALLEL_WORLD_SIZE}-proc{dist.get_rank()}")
+    return "(-, -, -)"
 
 
 def resolve_tensor_parallel_size(explicit: Optional[int]) -> int:

@@ -45,6 +45,12 @@ def _configs():
         "tiny_basic_fold": dict(stage_sizes=(1, 1), block_name="BasicBlock",
                                 num_filters=8, fold_downsample=True),
         "bottleneck_fold": dict(bneck, fold_downsample=True),
+        # SyncBatchNorm with no process group bound: each side's local
+        # statistics; fused and the fold are off under it, as in JAX
+        "tiny_basic_sync": dict(stage_sizes=(1, 1), block_name="BasicBlock",
+                                num_filters=8, sync_bn_axis="data"),
+        "bottleneck_sync": dict(bneck, fused=True, fold_downsample=True,
+                                sync_bn_axis="data"),
     }
 
 
@@ -156,5 +162,22 @@ def test_fused_layout():
 
 
 def test_sync_bn_refused():
-    with pytest.raises(NotImplementedError, match="SyncBatchNorm"):
-        tr.resnet_tiny(sync_bn_axis="data", device="cpu")
+    """``sync_bn_axis`` was refused until SyncBatchNorm was ported; it now
+    builds every norm as `parallel.SyncBatchNorm` (torch momentum 0.1,
+    channel-last, over the named axis) with ``fused`` and the fold off,
+    as JAX's `_norm` and `_is_plain_bn` do (the configs ``*_sync`` hold
+    its values to JAX's; tests/test_torch_data_parallel_train.py runs it
+    over two ranks)."""
+    from rocm_apex_tpu_torch.parallel import SyncBatchNorm
+
+    model = tr.ResNet(stage_sizes=(2, 2), block=tr.Bottleneck,
+                      num_filters=8, num_classes=CLASSES, fused=True,
+                      fold_downsample=True, sync_bn_axis="data",
+                      device="cpu")
+    assert not model.fused
+    norms = [m for m in model.modules() if isinstance(m, SyncBatchNorm)]
+    assert len(norms) == 1 + 4 * 3 + 2  # the stem, 3 a block, 2 downsamples
+    assert all(m.momentum == 0.1 and m.channel_last and m.axis_name == "data"
+               for m in norms)
+    assert not any(hasattr(getattr(model, b), "downsample_fold")
+                   for b in model.block_names)
